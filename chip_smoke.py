@@ -6,16 +6,31 @@ Drives ``mfar_tpu_torch`` (and nothing of JAX or ``mfar_tpu``) end to end at
 Contriever-base width with seeded random weights:
 
 1. device   -- the card's name and power limit (nvidia-smi)
-2. build    -- every CUDA kernel of the port, from ``mfar_tpu_torch/csrc``
+2. build    -- every CUDA kernel of the port, from ``mfar_tpu_torch/csrc``,
+               one nvcc per source, all started together
 3. k1       -- kernel K1 (rerank gather) against its plain PyTorch version
                for bf16 and f32 corpora at B=64 C=512 N=131072 F=5 E=768,
                plus edge cases; CUDA-event times of kernel, plain version
                and a library yardstick, beside the bytes bound
-4. e2e      -- a synthetic mag-shaped corpus (2048 docs x 5 dense fields)
-               encoded by the full-width encoder, then the engine in rerank
-               mode (through K1) and exact mode, each held against a
+4. k2       -- kernel K2 (flash attention) against its plain PyTorch version
+               at the index build's [256, 12, 512, 64] bf16 with ragged
+               segments, plus edge cases (S = 128 and 256, B = 1, H = 1,
+               pad rows whose first key tiles are wholly masked); times of
+               kernel, plain version and a library yardstick (SDPA with the
+               boolean segment mask), beside the bound
+5. e2e      -- a synthetic mag-shaped corpus (2048 docs x 5 dense fields)
+               encoded by the full-width encoder with attention_impl="auto"
+               (the 512-token fields through K2), held against the same
+               corpus encoded with plain attention; then the engine in
+               rerank mode (through K1) and exact mode, each held against a
                reference (the plain-gather engine; a brute-force f32 scan)
-5. serving  -- the same engine over a prebuilt random [131072, 5, 768] bf16
+6. long     -- 64 queries of 150 words (the 256-token bucket) through the
+               "auto" engine (K2) against a plain-attention engine
+7. cli      -- the encode_corpus command on a 512-doc dataset directory and
+               a local BERT directory at Contriever-base width (seeded
+               weights), both written here, into .npz and .npy, read back
+               and held against the same weights built through K2
+8. serving  -- the same engine over a prebuilt random [131072, 5, 768] bf16
                corpus in rerank mode: QPS, one batch's stages, and the
                device's busy share and time by kernel from torch.profiler
 
@@ -28,23 +43,39 @@ lines are one JSON object with every kernel's numbers and one with
 from __future__ import annotations
 
 import argparse
+import collections
+import concurrent.futures
+import dataclasses
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+from torch.nn import functional as F
 
+from mfar_tpu_torch.commands import encode_corpus
+from mfar_tpu_torch.commands.common import corpus_texts_for_vocab
+from mfar_tpu_torch.data.format import format_documents
 from mfar_tpu_torch.data.schema import resolve_fields
 from mfar_tpu_torch.data.types import Corpus
 from mfar_tpu_torch.eval.compare import mismatched_queries, rankings_agree
-from mfar_tpu_torch.eval.index_build import build_dense_corpus_matrix, make_encode_fn
+from mfar_tpu_torch.eval.index_build import (
+    build_dense_corpus_matrix,
+    load_dense_matrix,
+    make_encode_fn,
+)
 from mfar_tpu_torch.eval.retrieval import RetrievalEngine
-from mfar_tpu_torch.models.encoder import EncoderConfig, init_encoder
+from mfar_tpu_torch.models.encoder import Encoder, EncoderConfig, init_encoder
+from mfar_tpu_torch.models.registry import prepare_model, save_bert_dir
 from mfar_tpu_torch.models.tokenizer import SimpleVocabTokenizer
 from mfar_tpu_torch.ops import _build
+from mfar_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from mfar_tpu_torch.ops.gather_scores import (
     gather_per_field_scores,
     gather_per_field_scores_plain,
@@ -53,13 +84,25 @@ from mfar_tpu_torch.ops.gather_scores import (
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 
 # K1's tolerance against its plain version: both sum f32 products of the
 # same values, in different orders.
 K1_ATOL = K1_RTOL = 1e-4
+# K2 against its plain version: both round the output to bf16 (one ulp is up
+# to 1.6e-2 for outputs in [2, 4)), and K2 rounds the softmax weights to
+# bf16 for the P.V product where the plain version stays in f32.
+K2_ATOL = K2_RTOL = 1e-2
 # Engine against engine / reference: bf16 rows upcast and summed in f32 in
 # different orders, at scores of magnitude ~10-100.
 E2E_RTOL, E2E_ATOL = 1e-4, 1e-3
+# The corpus matrix through K2 against the one through plain attention, and
+# long-query scores of the two engines: bf16 activations through 12 layers,
+# where a bf16 rounding that differs in one layer's attention output (one
+# ulp is 2**-8 relative) carries through the rest.
+INDEX_MIN_COSINE = 0.999  # per embedding row
+INDEX_MAX_REL_ERR = 2e-2  # max abs difference over the matrix's max abs value
+LONG_RTOL, LONG_ATOL = 2e-2, 1e-2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -194,7 +237,100 @@ def run_k1(seed: int, serving_shape=(64, 512, 131072, 5, 768)) -> dict:
 
 
 # ----------------------------------------------------------------------
-# phase 4: a mag-shaped corpus, end to end
+# phase 4: K2 against its plain version
+
+
+def k2_inputs(gen, b, h, s, lengths):
+    """bf16 q/k/v as the encoder gives them ([B, S, H*D] projections viewed
+    as [B, H, S, D], not contiguous) and int32 segment ids: 1 for the first
+    lengths[i] tokens of row i, 0 for the pad after them."""
+    q, k, v = (torch.randn(b, s, h * 64, device=DEVICE, generator=gen).bfloat16()
+               .view(b, s, h, 64).transpose(1, 2) for _ in range(3))
+    lengths = torch.as_tensor(lengths, device=DEVICE)
+    seg = (torch.arange(s, device=DEVICE)[None, :] < lengths[:, None]).to(torch.int32)
+    return q, k, v, seg
+
+
+def library_attention(q, k, v, seg, scale):
+    """One PyTorch SDPA call with the boolean segment mask: a yardstick
+    only, never called by the port."""
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=same, scale=scale)
+
+
+def k2_bound(q, seg):
+    """Least time for K2's work on these inputs: q/k/v read once, the output
+    written once, the segment ids read once, over the memory rate, against
+    the two products' bf16 operations over the tensor-core rate, counted
+    for the (query, key) pairs of one segment only (all the masked pairs
+    add nothing); the larger one bounds it.  Returns (ms, bound_by, the
+    bytes time, the operations time)."""
+    b, h, s, d = q.shape
+    nbytes = 4 * b * h * s * d * q.element_size() + seg.numel() * 4
+    n_valid = seg.sum(dim=1).double()
+    pairs = (n_valid**2 + (s - n_valid) ** 2).sum().item()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * h * d * pairs / BF16_FLOPS_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", t_bytes, t_ops
+    return t_ops, "operations", t_bytes, t_ops
+
+
+def check_k2(q, k, v, seg, label) -> float:
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    got = flash_attention(q, k, v, seg, scale)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, seg, scale)
+    err = (got.float() - want.float()).abs().max().item()
+    check(torch.allclose(got.float(), want.float(), rtol=K2_RTOL, atol=K2_ATOL),
+          f"K2 {label}: max abs err {err}")
+    return err
+
+
+def run_k2(seed: int, build_shape=(256, 12, 512)) -> dict:
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 3)
+    max_err = 0.0
+    # edge cases: S = 128 and 256, B = 1, H = 1, a row of 2 tokens, a full
+    # row, and pad rows whose first key tiles are all valid tokens (wholly
+    # masked for them: lengths 70, 131, 200)
+    for b, h, s, lengths in [(1, 12, 128, [70]), (3, 1, 256, [2, 256, 131]),
+                             (2, 4, 512, [512, 200]), (4, 2, 128, [128, 2, 64, 127])]:
+        err = check_k2(*k2_inputs(gen, b, h, s, lengths), f"B={b} H={h} S={s} {lengths}")
+        max_err = max(max_err, err)
+    phase("k2", f"edge cases (S=128/256, B=1, H=1, wholly masked key tiles) agree, "
+                f"max abs err {max_err:.3g}")
+
+    b, h, s = build_shape
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(2, s + 1, size=b)
+    lengths[0], lengths[1] = s, 2  # a full row and a row of 2 valid tokens
+    q, k, v, seg = k2_inputs(gen, b, h, s, lengths.tolist())
+    err = check_k2(q, k, v, seg, f"at {list(q.shape)}")
+    max_err = max(max_err, err)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    lib = library_attention(q, k, v, seg, scale)
+    want = flash_attention_plain(q, k, v, seg, scale)
+    check(torch.allclose(lib.float(), want.float(), rtol=K2_RTOL, atol=K2_ATOL),
+          "library yardstick disagrees")
+    del lib, want
+    bound_ms, bound_by, bytes_ms, ops_ms = k2_bound(q, seg)
+    r = dict(
+        kernel_ms=time_cuda(lambda: flash_attention(q, k, v, seg, scale)),
+        plain_ms=time_cuda(lambda: flash_attention_plain(q, k, v, seg, scale), reps=5, inner=2),
+        library_ms=time_cuda(lambda: library_attention(q, k, v, seg, scale), reps=11, inner=5),
+        bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
+    )
+    phase("k2", f"bf16 {list(q.shape)} (segment lengths {int(lengths.min())}-"
+                f"{int(lengths.max())}, mean {lengths.mean():.1f}): max abs err {err:.3g} "
+                f"(tolerance rtol=atol={K2_ATOL}); kernel_ms {r['kernel_ms']:.4f} "
+                f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+                f"bound_ms {bound_ms:.4f} ({bound_by}; bytes {bytes_ms:.4f}, operations "
+                f"{ops_ms:.4f}); {bound_ms / r['kernel_ms']:.1%} of the bound")
+    return r
+
+
+# ----------------------------------------------------------------------
+# phase 5: a mag-shaped corpus, end to end
 
 
 def synth_mag(n_docs: int, n_queries: int, rng: np.random.Generator):
@@ -267,6 +403,27 @@ def brute_force_exact(engine, queries, mixer, k):
     return out
 
 
+def index_agreement(matrix, want, label) -> str:
+    """Check two [N, F, E] corpus matrices against INDEX_MIN_COSINE per row
+    and INDEX_MAX_REL_ERR; returns the numbers as text."""
+    a = torch.from_numpy(np.asarray(matrix)).reshape(-1, matrix.shape[-1]).double()
+    b = torch.from_numpy(np.asarray(want)).reshape(-1, want.shape[-1]).double()
+    cos = ((a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))).min().item()
+    err = (a - b).abs().max().item()
+    rel = err / b.abs().max().item()
+    check(cos >= INDEX_MIN_COSINE and rel <= INDEX_MAX_REL_ERR,
+          f"{label}: min cosine {cos:.6f}, max rel err {rel:.3g}")
+    return f"min row cosine {cos:.6f}, max abs err {err:.3g} ({rel:.3g} of max |x|)"
+
+
+def timed_build(encode, tok, corpus, field_info):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    matrix = build_dense_corpus_matrix(encode, tok, corpus, field_info, batch_size=256)
+    torch.cuda.synchronize()
+    return matrix, time.perf_counter() - t0
+
+
 def run_e2e(seed: int, n_docs: int = 2048, n_queries: int = 256, batch_size: int = 64):
     rng = np.random.default_rng(seed)
     clock = [time.perf_counter()]
@@ -281,31 +438,76 @@ def run_e2e(seed: int, n_docs: int = 2048, n_queries: int = 256, batch_size: int
     texts = [t for _, p in corpus.pairs() for t in (p["title"], p["abstract"])]
     tok = SimpleVocabTokenizer.build(texts + queries, max_length=512)
     tok_s = lap()
-    cfg = EncoderConfig.contriever_base(vocab_size=tok.vocab_size)
+    cfg = EncoderConfig.contriever_base(vocab_size=tok.vocab_size, attention_impl="auto")
     encoder = init_encoder(cfg, seed=seed)
+    # the same weights with plain attention: the reference for K2's build
+    plain_encoder = Encoder(dataclasses.replace(cfg, attention_impl="xla"))
+    plain_encoder.load_state_dict(encoder.state_dict())
     init_s = lap()
     encode = make_encode_fn(encoder, device=DEVICE)
+    encode_plain = make_encode_fn(plain_encoder, device=DEVICE)
     torch.cuda.synchronize()
     to_dev_s = lap()
     phase("e2e", f"corpus {n_docs} docs x {len(field_info)} dense fields "
                  f"(token budgets {[f.max_seq_length for f in field_info.values()]}), "
                  f"{n_queries} queries, vocab {tok.vocab_size}; encoder hidden "
-                 f"{cfg.hidden_size} x {cfg.num_layers} layers, {cfg.dtype}; setup: "
-                 f"data {data_s:.1f}s, tokenizer {tok_s:.1f}s, encoder init {init_s:.1f}s, "
-                 f"to device {to_dev_s:.1f}s")
+                 f"{cfg.hidden_size} x {cfg.num_layers} layers, {cfg.dtype}, attention "
+                 f"{cfg.attention_impl}; setup: data {data_s:.1f}s, tokenizer {tok_s:.1f}s, "
+                 f"encoders init {init_s:.1f}s, to device {to_dev_s:.1f}s")
 
+    # warm-up of both encoders at the build's shape (cuBLAS, allocator)
+    warm = tok.encode_batch(["w1 w2"] * 256, 512, bucket=False)
+    for fn in (encode, encode_plain):
+        fn(warm["input_ids"], warm["attention_mask"])
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    matrix = build_dense_corpus_matrix(encode, tok, corpus, field_info, batch_size=256)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+
+    # builds in turns: plain, K2, K2, plain; the first K2 build is the main
+    # path, with every count set to 0 just before it and read just after
+    plain_s, k2_s = [], []
+    matrix_plain, secs = timed_build(encode_plain, tok, corpus, field_info)
+    plain_s.append(secs)
+    flash_attention.launches = gather_per_field_scores.launches = 0
+    matrix, secs = timed_build(encode, tok, corpus, field_info)
+    k2_launches = flash_attention.launches
+    check(gather_per_field_scores.launches == 0, "the index build launched K1")
+    k2_s.append(secs)
+    k2_s.append(timed_build(encode, tok, corpus, field_info)[1])
+    flash_attention.launches = 0
+    plain_s.append(timed_build(encode_plain, tok, corpus, field_info)[1])
+    check(flash_attention.launches == 0, "the plain-attention build launched K2")
+
     check(matrix.shape == (n_docs, len(field_info), cfg.hidden_size), f"matrix {matrix.shape}")
     check(bool(np.isfinite(matrix).all()), "non-finite corpus embedding")
+    long_fields = [f for f in field_info.values()
+                   if f.max_seq_length >= 128 and f.max_seq_length % 128 == 0]
+    want_launches = cfg.num_layers * len(long_fields) * math.ceil(n_docs / 256)
+    check(k2_launches == want_launches,
+          f"K2 launched {k2_launches} times in the build, want {want_launches}")
+    agree = index_agreement(matrix, matrix_plain, "K2 build vs plain-attention build")
     n_seq = n_docs * len(field_info)
-    phase("e2e", f"index build {build_s:.2f}s ({n_seq / build_s:.0f} field-docs/s), "
-                 f"matrix {matrix.shape} {matrix.dtype}")
+    phase("e2e", f"index build through K2 {k2_s[0]:.2f}s / {k2_s[1]:.2f}s "
+                 f"({n_seq / k2_s[0]:.0f} / {n_seq / k2_s[1]:.0f} field-docs/s), "
+                 f"K2 launches {k2_launches} ({len(long_fields)} fields of "
+                 f"{[f.max_seq_length for f in long_fields]} tokens x "
+                 f"{math.ceil(n_docs / 256)} batches x {cfg.num_layers} layers); "
+                 f"plain attention {plain_s[0]:.2f}s / {plain_s[1]:.2f}s "
+                 f"({n_seq / plain_s[0]:.0f} / {n_seq / plain_s[1]:.0f} field-docs/s), "
+                 f"order plain, K2, K2, plain; matrix {matrix.shape} {matrix.dtype}, "
+                 f"against the plain build: {agree}")
 
-    mixer = {"weight": rng.normal(scale=0.05, size=(cfg.hidden_size, len(field_info)))
+    # one build batch of the first 512-token field under torch.profiler
+    field = long_fields[0]
+    texts = [t for _, t in format_documents(list(corpus.pairs())[:256], field.name, field.dataset)]
+    toks = tok.encode_batch(texts, field.max_seq_length, bucket=False)
+    profiles = {}
+    for label, fn in (("K2", encode), ("plain", encode_plain)):
+        prof = device_profile(lambda: fn(toks["input_ids"], toks["attention_mask"]), top=6)
+        profiles[label] = prof["device_ms"]
+        phase("e2e", f"one build batch [256, {field.max_seq_length}] ({field.name}) through the "
+                     f"encoder, {label} attention: wall {prof['wall_ms']:.2f} ms, device busy "
+                     f"{prof['device_ms']:.2f} ms; device ms by kernel: {prof['top']}")
+
+    mixer ={"weight": rng.normal(scale=0.05, size=(cfg.hidden_size, len(field_info)))
              .astype(np.float32)}
     kw = dict(field_info=field_info, doc_keys=list(corpus.keys()), encode_fn=encode,
               tokenizer=tok, mixer_params=mixer, dense_matrix=matrix, recall_k=100,
@@ -314,10 +516,11 @@ def run_e2e(seed: int, n_docs: int = 2048, n_queries: int = 256, batch_size: int
     check(engine.use_gather_kernel, "auto gate left K1 off for a rerank engine on the card")
     engine.retrieve(queries[:batch_size], top_k=100)  # warm-up (cuBLAS, allocator)
 
-    gather_per_field_scores.launches = 0
+    flash_attention.launches = gather_per_field_scores.launches = 0
     rerank, rerank_s = timed_run(engine, queries, "rerank", batch_size)
     launches = gather_per_field_scores.launches
     check(launches > 0, "the rerank path launched K1 no time")
+    check(flash_attention.launches == 0, "12-word queries launched K2")
     check(engine.last_serve_path == "singlechip-rerank-k1", f"path {engine.last_serve_path}")
     check_results(rerank, n_queries, min(100, n_docs))
     phase("e2e", f"rerank: {n_queries / rerank_s:.1f} QPS ({rerank_s:.3f}s, batch {batch_size}), "
@@ -343,13 +546,133 @@ def run_e2e(seed: int, n_docs: int = 2048, n_queries: int = 256, batch_size: int
     check(msg is None, f"exact vs brute-force f32 scan: {msg}")
     phase("e2e", "exact == brute-force f32 scan of the whole corpus")
     del plain
-    return engine, queries, launches, dict(
-        build_s=build_s, rerank_qps=n_queries / rerank_s, exact_qps=n_queries / exact_s
+    plain_engine = RetrievalEngine(mode="rerank", **{**kw, "encode_fn": encode_plain})
+    return engine, plain_engine, corpus, queries, dict(
+        k1_launches=launches, k2_launches=k2_launches, build_k2_s=k2_s, build_plain_s=plain_s,
+        batch_device_ms=profiles, rerank_qps=n_queries / rerank_s,
+        exact_qps=n_queries / exact_s,
     )
 
 
 # ----------------------------------------------------------------------
-# phase 5: serving scale
+# phase 6: long queries through K2
+
+
+def run_long(seed, engine, plain_engine, corpus, n_layers, n=64, words=150,
+             batch_size=64) -> dict:
+    """Queries of ``words`` corpus words land in the 256-token bucket, where
+    the "auto" encoder runs K2; a plain-attention engine on the same matrix
+    is the reference."""
+    rng = np.random.default_rng(seed + 2)
+    pairs = list(corpus.pairs())
+    queries = []
+    for _ in range(n):
+        payload = pairs[rng.integers(len(pairs))][1]
+        pool = (payload["title"] + " " + payload["abstract"]).split()
+        queries.append(" ".join(rng.choice(pool, size=words, replace=False)))
+    width = engine.tokenizer.encode_batch(queries, engine.query_max_length)["input_ids"].shape[1]
+    for e in (engine, plain_engine):
+        e.retrieve(queries[:batch_size], top_k=100)  # warm-up at this bucket
+
+    # in turns: plain, K2, K2, plain; the first K2 run is counted
+    want, secs = timed_run(plain_engine, queries, "rerank", batch_size)
+    plain_qps = [n / secs]
+    flash_attention.launches = gather_per_field_scores.launches = 0
+    got, secs = timed_run(engine, queries, "rerank", batch_size)
+    launches = flash_attention.launches
+    k2_qps = [n / secs, n / timed_run(engine, queries, "rerank", batch_size)[1]]
+    n_batches = math.ceil(n / batch_size)
+    check(launches == n_layers * n_batches,
+          f"long queries launched K2 {launches} times, want {n_layers * n_batches}")
+    flash_attention.launches = 0
+    plain_qps.append(n / timed_run(plain_engine, queries, "rerank", batch_size)[1])
+    check(flash_attention.launches == 0, "the plain-attention engine launched K2")
+
+    check_results(got, n, 100)
+    msg = rankings_agree(got, want, LONG_RTOL, LONG_ATOL)
+    check(msg is None, f"long queries, K2 engine vs plain-attention engine: {msg}")
+    diffs = [abs(a[1] - b[1]) / max(abs(b[1]), 1e-6)
+             for g, w in zip(got, want) for a, b in zip(g, w)]
+    phase("long", f"{n} queries of {words} words (bucket {width}), order plain, K2, K2, "
+                  f"plain: {k2_qps[0]:.1f} / {k2_qps[1]:.1f} QPS through K2 ({launches} "
+                  f"launches), {plain_qps[0]:.1f} / {plain_qps[1]:.1f} QPS plain; rankings "
+                  f"agree (rtol {LONG_RTOL}, atol {LONG_ATOL}; max rel score diff at a rank "
+                  f"{max(diffs):.3g}; {len(mismatched_queries(got, want))} queries reorder "
+                  f"within ties)")
+    return dict(long_qps=k2_qps, long_plain_qps=plain_qps, long_k2_launches=launches)
+
+
+# ----------------------------------------------------------------------
+# phase 7: the encode_corpus command
+
+
+def run_cli(seed, corpus, n_docs=512):
+    """The command as a user runs it on a model directory: a dataset
+    directory of the first ``n_docs`` documents (the reference's ``corpus``
+    file: key, tab, JSON payload) and a local BERT directory at
+    Contriever-base width (seeded weights, a WordPiece vocab of the corpus's
+    words), encoded into .npz and .npy and read back.  The command builds
+    the encoder as ``prepare_model`` configures it (attention "xla"), so it
+    launches no K2; its matrix is held against the same directory's weights
+    built through K2 ("auto")."""
+    pairs = list(corpus.pairs())[:n_docs]
+    sub = Corpus.from_pairs(pairs, dataset_name="mag")
+    field_info = resolve_fields("all_dense", "mag")
+    counts = collections.Counter(
+        w for t in corpus_texts_for_vocab(sub, field_info) for w in t.lower().split())
+    cfg = EncoderConfig.contriever_base()
+    words = [w for w, _ in counts.most_common(cfg.vocab_size - 5)]  # after 5 specials
+    with tempfile.TemporaryDirectory() as d:
+        data, bert = os.path.join(d, "data"), os.path.join(d, "bert")
+        os.makedirs(data)
+        with open(os.path.join(data, "corpus"), "w", encoding="utf-8") as f:
+            for key, payload in pairs:
+                f.write(f"{key}\t{json.dumps(payload)}\n")
+        save_bert_dir(bert, cfg, init_encoder(cfg, seed=seed + 4).state_dict(), words)
+
+        mats, cli_s = [], []
+        flash_attention.launches = 0
+        for ext in (".npz", ".npy"):
+            out = os.path.join(d, f"index{ext}")
+            t = time.perf_counter()
+            encode_corpus.main(["--dataset-name", "mag", "--data", data, "--out", out,
+                                "--model-name", bert, "--batch-size", "256",
+                                "--device", "cuda"])
+            cli_s.append(time.perf_counter() - t)
+            matrix, keys = load_dense_matrix(out)
+            check(keys == [k for k, _ in pairs], f"{ext}: keys differ from the corpus")
+            check(matrix.shape == (n_docs, len(field_info), cfg.hidden_size)
+                  and bool(np.isfinite(matrix).all()), f"{ext}: matrix {matrix.shape}")
+            mats.append(np.asarray(matrix))
+        check(flash_attention.launches == 0, "encode_corpus (attention 'xla') launched K2")
+        check(np.array_equal(mats[0], mats[1]), ".npz and .npy matrices differ")
+
+        config, state, tok = prepare_model(bert)
+        check(config.hidden_size == cfg.hidden_size and config.dtype == torch.bfloat16
+              and tok.vocab_size == len(words) + 5, f"prepare_model gave {config}")
+        encoder = Encoder(dataclasses.replace(config, attention_impl="auto"))
+        encoder.load_state_dict(state)
+        flash_attention.launches = 0
+        want, k2_s = timed_build(make_encode_fn(encoder, device=DEVICE), tok, sub, field_info)
+        launches = flash_attention.launches
+        n_long = sum(f.max_seq_length >= 128 and f.max_seq_length % 128 == 0
+                     for f in field_info.values())
+        want_launches = config.num_layers * n_long * math.ceil(n_docs / 256)
+        check(launches == want_launches, f"K2 launched {launches} times, want {want_launches}")
+        agree = index_agreement(mats[0], want, "encode_corpus vs the K2 build")
+    n_seq = n_docs * len(field_info)
+    phase("cli", f"encode_corpus on the card with a local BERT directory (hidden "
+                 f"{config.hidden_size} x {config.num_layers} layers, {config.dtype}, WordPiece "
+                 f"vocab {tok.vocab_size}): {n_docs} docs x {len(field_info)} fields -> .npz in "
+                 f"{cli_s[0]:.2f}s, .npy in {cli_s[1]:.2f}s (model load and tokenization "
+                 f"included), the same matrix {mats[0].shape}, keys read back; the same "
+                 f"weights built through K2 in {k2_s:.2f}s ({n_seq / k2_s:.0f} field-docs/s, "
+                 f"{launches} launches); the command's matrix against it: {agree}")
+    return dict(cli_s=cli_s, cli_k2_build_s=k2_s)
+
+
+# ----------------------------------------------------------------------
+# phase 8: serving scale
 
 
 def run_serving(seed, engine, queries, n=131072, batch_size=64):
@@ -447,29 +770,48 @@ def main(argv=None) -> int:
     print(smi.splitlines()[0], flush=True)
 
     t0 = time.perf_counter()
-    logs = [_build.build(name) for name in _build.SOURCES]
+    with concurrent.futures.ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        logs = list(pool.map(_build.build, _build.SOURCES))  # one nvcc per source
     build_s = time.perf_counter() - t0
     regs = [ln.strip() for log in logs for ln in log.splitlines() if "registers" in ln]
     phase("build", f"{sorted(_build.SOURCES)} built in {build_s:.2f}s ({'; '.join(regs)})")
 
     k1 = run_k1(args.seed)
-    engine, queries, launches, e2e = run_e2e(args.seed)
+    k2 = run_k2(args.seed)
+    engine, plain_engine, corpus, queries, e2e = run_e2e(args.seed)
+    long = run_long(args.seed, engine, plain_engine, corpus,
+                    EncoderConfig.contriever_base().num_layers)
+    del plain_engine
+    cli = run_cli(args.seed, corpus)
     serving = run_serving(args.seed, engine, queries)
 
-    main_row = k1["bf16"]
-    phase("summary", json.dumps({"k1_f32": k1["f32"], "k1_bf16": main_row, **e2e, **serving}))
+    k1_row = k1["bf16"]
+    phase("summary", json.dumps({"k1_f32": k1["f32"], "k1_bf16": k1_row, "k2": k2, **e2e,
+                                 **long, **cli, **serving}))
     print(json.dumps({"kernels": [{
         "name": "gather_per_field_scores",
         "route": "cuda",
         "source": "mfar_tpu_torch/csrc/gather_scores.cu",
         "replaces": "mfar_tpu/ops/pallas_kernels.py:192",
-        "launches": launches,
+        "launches": e2e["k1_launches"],
         "max_abs_err": k1["max_abs_err"],
-        "ms": main_row["kernel_ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
+        "ms": k1_row["kernel_ms"],
+        "plain_ms": k1_row["plain_ms"],
+        "bound_ms": k1_row["bound_ms"],
+        "bound_by": k1_row["bound_by"],
+        "library_ms": k1_row["library_ms"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "mfar_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "mfar_tpu/models/encoder.py:170",
+        "launches": e2e["k2_launches"],
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["kernel_ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

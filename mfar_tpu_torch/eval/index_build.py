@@ -4,9 +4,11 @@
 Per dense field, documents format and tokenize on the host into fixed-size
 batches (padded to the full batch size and the field's token budget) and run
 through the encoder on the device; the result is the ``[N, Fd, E]`` matrix
-the engine serves.  The on-disk format of :func:`save_dense_matrix` /
-:func:`load_dense_matrix` is the JAX package's, so either package reads the
-other's files.  Sparse (BM25) indices wait for the hybrid slice (ROADMAP
+the engine serves, in host memory or streamed into a write target such as a
+disk memmap.  An encoder with ``attention_impl="auto"`` runs the 512- and
+128-token fields through kernel K2 on the card.  The on-disk format of
+:func:`save_dense_matrix` / :func:`load_dense_matrix` is the JAX package's,
+so either package reads the other's files.  Sparse (BM25) indices wait for the hybrid slice (ROADMAP
 queue A8).
 """
 
@@ -48,29 +50,38 @@ def encode_texts(
     texts: Sequence[str],
     max_length: int,
     batch_size: int = 256,
+    out=None,  # optional [len(texts), E] write target (e.g. a row slice of
+    #            a disk memmap): batches stream into it, so host memory
+    #            stays O(window * batch) instead of O(corpus)
 ) -> np.ndarray:
-    """Batched encoder forward over texts -> f32 ``[len(texts), E]``.  Every
-    batch pads to the full ``batch_size`` and to ``max_length``
-    (``bucket=False``), as in the JAX package.  Batches dispatch
-    asynchronously and come back to the host in a bounded window, so host
-    tokenization overlaps device compute."""
+    """Batched encoder forward over texts -> f32 ``[len(texts), E]`` (or
+    ``out``, filled).  Every batch pads to the full ``batch_size`` and to
+    ``max_length`` (``bucket=False``), as in the JAX package.  Batches
+    dispatch asynchronously and come back to the host in a bounded window,
+    so host tokenization overlaps device compute."""
     window = 8  # batches in flight
-    pending: List[Tuple[torch.Tensor, int]] = []
+    pending: List[Tuple[torch.Tensor, int, int]] = []
     acc: List[np.ndarray] = []
 
     def drain(upto: int) -> None:
         while len(pending) > upto:
-            embs, real = pending.pop(0)
-            acc.append(embs[:real].float().cpu().numpy())
+            embs, real, pos = pending.pop(0)
+            rows = embs[:real].float().cpu().numpy()
+            if out is not None:
+                out[pos : pos + real] = rows
+            else:
+                acc.append(rows)
 
     for start in range(0, len(texts), batch_size):
         chunk = list(texts[start : start + batch_size])
         real = len(chunk)
         chunk += [""] * (batch_size - real)
         toks = tokenizer.encode_batch(chunk, max_length, bucket=False)
-        pending.append((encode_fn(toks["input_ids"], toks["attention_mask"]), real))
+        pending.append((encode_fn(toks["input_ids"], toks["attention_mask"]), real, start))
         drain(window)
     drain(0)
+    if out is not None:
+        return out
     if not acc:
         return np.zeros((0, 0), np.float32)
     return np.concatenate(acc, axis=0)
@@ -82,17 +93,31 @@ def build_dense_corpus_matrix(
     corpus: Corpus,
     field_info: Dict[str, Field],
     batch_size: int = 256,
+    prefix: bool = False,
+    dtype=np.float32,
+    out=None,  # optional [N, Fd, E] write target (e.g. np.lib.format.
+    #            open_memmap): each field's batches stream into out[:, fi, :]
 ) -> np.ndarray:
-    """[N, Fd, E] f32 per-field corpus embeddings (dense fields, schema
-    order)."""
+    """[N, Fd, E] per-field corpus embeddings (dense fields, schema order),
+    in ``dtype``, or ``out`` filled.  ``prefix`` puts the field's name in
+    front of each text (``"title: ..."``), as the JAX package does."""
     pairs = list(corpus.pairs())
     mats = []
-    for fk in dense_keys(field_info):
+    for fi, fk in enumerate(dense_keys(field_info)):
         field = field_info[fk]
         texts = [t for _, t in format_documents(pairs, field.name, field.dataset)]
-        mats.append(encode_texts(encode_fn, tokenizer, texts, field.max_seq_length, batch_size))
+        if prefix:
+            texts = [field.name.replace("___", " ") + ": " + t for t in texts]
+        embs = encode_texts(
+            encode_fn, tokenizer, texts, field.max_seq_length, batch_size,
+            out=None if out is None else out[:, fi, :],
+        )
+        if out is None:
+            mats.append(embs.astype(dtype))
+    if out is not None:
+        return out
     if not mats:
-        return np.zeros((len(corpus), 0, 0), np.float32)
+        return np.zeros((len(corpus), 0, 0), dtype)
     return np.stack(mats, axis=1)
 
 

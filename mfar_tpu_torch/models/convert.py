@@ -8,7 +8,8 @@
   ``Linear`` wants ``[out, in]`` per layer.
 - :func:`encoder_state_from_hf_bert`: a HuggingFace ``BertModel`` state_dict
   -> the same layout (the inverse direction of
-  ``mfar_tpu/models/hf_convert.py::convert_hf_bert``).
+  ``mfar_tpu/models/hf_convert.py::convert_hf_bert``), and
+  :func:`hf_bert_state_from_encoder` back;
 - :func:`config_from_hf`: a HF BERT ``config.json`` (dict) -> EncoderConfig.
 - :func:`mixer_from_jax`: the mixer subtree ``{'weight': [E or 1, F]}``.
 """
@@ -79,6 +80,23 @@ def encoder_state_from_hf_bert(state_dict: Mapping[str, Any]) -> Dict[str, torch
             for p in ("weight", "bias"):
                 out[f"layers.{i}.{ours}.{p}"] = sd[f"encoder.layer.{i}.{theirs}.{p}"]
     return {k: torch.as_tensor(v).float() for k, v in out.items()}
+
+
+def hf_bert_state_from_encoder(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Port ``Encoder`` state_dict -> HF ``BertModel`` names (no pooler):
+    the inverse of :func:`encoder_state_from_hf_bert`, for writing a local
+    BERT directory that ``prepare_model`` loads."""
+    out: Dict[str, torch.Tensor] = {
+        f"embeddings.{name}.weight": state_dict[f"embeddings.{name}.weight"] for name in _EMB_NAMES
+    }
+    out["embeddings.LayerNorm.weight"] = state_dict["embeddings.ln.weight"]
+    out["embeddings.LayerNorm.bias"] = state_dict["embeddings.ln.bias"]
+    n_layers = 1 + max(int(k.split(".")[1]) for k in state_dict if k.startswith("layers."))
+    for i in range(n_layers):
+        for ours, theirs in _LAYER_MAP.items():
+            for p in ("weight", "bias"):
+                out[f"encoder.layer.{i}.{theirs}.{p}"] = state_dict[f"layers.{i}.{ours}.{p}"]
+    return out
 
 
 def config_from_hf(hf_config: Mapping[str, Any], **overrides) -> EncoderConfig:

@@ -11,11 +11,21 @@ follow the JAX module so that the same weights give the same embeddings:
   additive mask of -1e9 in f32; GELU is the exact (erf) form;
 - mean pooling runs in f32 over the attention mask.
 
-Attention is the plain path (two matmuls around a softmax), the counterpart
-of the JAX ``"xla"`` implementation, which runs outside any Pallas kernel.
-``attention_impl="flash"`` (the JAX package's Pallas flash-attention kernel,
-kernel K2 of the port) is not ported yet; ``"auto"`` resolves to the plain
-path, as it does in JAX off a TPU.
+Attention has the JAX package's two implementations, chosen by
+``attention_impl`` with the JAX gate (``mfar_tpu/models/encoder.py:146-157``,
+"TPU" read as "CUDA"):
+
+- ``"xla"`` (default): the plain path, two matmuls around a softmax;
+- ``"flash"``: kernel K2 (:mod:`mfar_tpu_torch.ops.flash_attention`) with
+  segment ids from the attention mask, so valid tokens attend only valid
+  ones and pads only pads.  It needs S >= 128 and S % 128 == 0 and raises
+  ``ValueError`` otherwise; on CPU tensors it runs K2's plain version;
+- ``"auto"``: K2 when the activations are bf16 on the card, the head dim
+  is K2's 64 and S passes that gate, else the plain path (as JAX's
+  ``"auto"`` does off a TPU).
+
+Pad positions differ between the two (under segment ids pads attend only
+pads); valid positions and the pooled embedding do not.
 """
 
 from __future__ import annotations
@@ -26,6 +36,8 @@ from typing import Optional
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from mfar_tpu_torch.ops.flash_attention import HEAD_DIM, SEQ_MULTIPLE, flash_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,23 +130,43 @@ class TransformerLayer(nn.Module):
         self.mlp_out = nn.Linear(cfg.intermediate_size, h)
         self.ln2 = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
 
-    def forward(self, hidden: torch.Tensor, mask_bias: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self,
+        hidden: torch.Tensor,  # [B, S, H*D]
+        mask_bias: torch.Tensor,  # [B, 1, 1, S] f32 additive mask
+        segment_ids: torch.Tensor,  # [B, S] int32: 1 valid, 0 pad
+    ) -> torch.Tensor:
         cfg = self.cfg
         batch, seq, _ = hidden.shape
         head_dim = cfg.hidden_size // cfg.num_heads
-        # [B, S, H*D] -> [B, H, S, D]
+        # [B, S, H*D] -> [B, H, S, D] views
         q, k, v = (
             _linear(hidden, lin).view(batch, seq, cfg.num_heads, head_dim).transpose(1, 2)
             for lin in (self.attn_q, self.attn_k, self.attn_v)
         )
-        sm = cfg.softmax_dtype
-        # bf16 products are exact in f32, so upcasting before the matmul is
-        # the JAX einsum's preferred_element_type=softmax_dtype.
-        logits = torch.matmul(q.to(sm), k.to(sm).transpose(-1, -2))
-        logits = logits / torch.sqrt(torch.tensor(head_dim, dtype=sm))
-        logits = logits + mask_bias.to(sm)  # [B, 1, 1, S] additive mask
-        probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
-        ctx = torch.matmul(probs, v).transpose(1, 2).reshape(batch, seq, cfg.hidden_size)
+        seq_ok = seq >= SEQ_MULTIPLE and seq % SEQ_MULTIPLE == 0
+        if cfg.attention_impl == "flash" and not seq_ok:
+            raise ValueError(
+                f"attention_impl='flash' needs seq % {SEQ_MULTIPLE} == 0 and seq >= "
+                f"{SEQ_MULTIPLE} (got {seq}); use 'auto' for automatic fallback"
+            )
+        use_flash = cfg.attention_impl == "flash" or (
+            cfg.attention_impl == "auto" and seq_ok and hidden.is_cuda
+            and hidden.dtype == torch.bfloat16 and head_dim == HEAD_DIM
+        )
+        if use_flash:
+            ctx = flash_attention(q, k, v, segment_ids, 1.0 / head_dim**0.5)
+            # a view on the card (the kernel writes [B, S, H, D])
+            ctx = ctx.transpose(1, 2).reshape(batch, seq, cfg.hidden_size)
+        else:
+            sm = cfg.softmax_dtype
+            # bf16 products are exact in f32, so upcasting before the matmul
+            # is the JAX einsum's preferred_element_type=softmax_dtype.
+            logits = torch.matmul(q.to(sm), k.to(sm).transpose(-1, -2))
+            logits = logits / torch.sqrt(torch.tensor(head_dim, dtype=sm))
+            logits = logits + mask_bias.to(sm)  # [B, 1, 1, S] additive mask
+            probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
+            ctx = torch.matmul(probs, v).transpose(1, 2).reshape(batch, seq, cfg.hidden_size)
 
         hidden = _layer_norm(hidden + _linear(ctx, self.attn_o), self.ln1, cfg.dtype)
         mlp = F.gelu(_linear(hidden, self.mlp_in), approximate="none")
@@ -146,12 +178,6 @@ class Encoder(nn.Module):
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
-        if cfg.attention_impl == "flash":
-            raise NotImplementedError(
-                "attention_impl='flash' is the JAX package's Pallas flash "
-                "attention (kernel K2); its Hopper port is ROADMAP queue B2. "
-                "Use 'xla' or 'auto' (the plain attention path)."
-            )
         self.cfg = cfg
         self.embeddings = Embeddings(cfg)
         self.layers = nn.ModuleList(TransformerLayer(cfg) for _ in range(cfg.num_layers))
@@ -167,8 +193,9 @@ class Encoder(nn.Module):
             token_type_ids = torch.zeros_like(input_ids)
         hidden = self.embeddings(input_ids, token_type_ids)
         mask_bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9).float()
+        segment_ids = (attention_mask > 0).to(torch.int32)  # JAX: mask_bias > -1.0
         for layer in self.layers:
-            hidden = layer(hidden, mask_bias)
+            hidden = layer(hidden, mask_bias, segment_ids)
         pooled = mean_pool(hidden, attention_mask)
         if self.cfg.normalize:
             pooled = pooled / pooled.norm(dim=-1, keepdim=True).clamp(min=1e-12)

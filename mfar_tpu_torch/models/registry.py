@@ -11,6 +11,7 @@ Counterpart of ``mfar_tpu/models/registry.py`` for two routes:
 Hub ids are not fetched (there is no network on the serving machines): a
 model such as ``facebook/contriever-msmarco`` loads once its files sit in a
 local directory.  T5/GTR ids wait for the T5 encoder's port.
+:func:`save_bert_dir` writes such a directory from an encoder state.
 """
 
 from __future__ import annotations
@@ -21,7 +22,11 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from mfar_tpu_torch.models.convert import config_from_hf, encoder_state_from_hf_bert
+from mfar_tpu_torch.models.convert import (
+    config_from_hf,
+    encoder_state_from_hf_bert,
+    hf_bert_state_from_encoder,
+)
 from mfar_tpu_torch.models.encoder import EncoderConfig, init_encoder
 from mfar_tpu_torch.models.tokenizer import HFTokenizer, SimpleVocabTokenizer
 
@@ -77,6 +82,45 @@ def prepare_model(
     else:
         tokenizer = HFTokenizer.from_pretrained(model_id, max_length)
     return config, state, tokenizer
+
+
+def save_bert_dir(
+    path: str,
+    config: EncoderConfig,
+    state: Dict[str, torch.Tensor],
+    words: Sequence[str],
+) -> None:
+    """Write a local HF BERT directory that :func:`prepare_model` (and the
+    JAX package's) loads: ``config.json``, ``pytorch_model.bin`` in
+    ``BertModel`` names, and a WordPiece ``tokenizer.json`` whose vocab is
+    the BERT specials then ``words`` (whole words; anything else is
+    ``[UNK]``).  For offline runs with seeded weights at a real width."""
+    from tokenizers import Tokenizer, normalizers, pre_tokenizers, processors
+    from tokenizers.models import WordPiece
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({
+            "model_type": "bert", "architectures": ["BertModel"], "hidden_act": "gelu",
+            "vocab_size": config.vocab_size, "hidden_size": config.hidden_size,
+            "num_hidden_layers": config.num_layers, "num_attention_heads": config.num_heads,
+            "intermediate_size": config.intermediate_size,
+            "max_position_embeddings": config.max_position_embeddings,
+            "type_vocab_size": config.type_vocab_size, "layer_norm_eps": config.layer_norm_eps,
+        }, f, indent=1)
+    torch.save(hf_bert_state_from_encoder(state), os.path.join(path, "pytorch_model.bin"))
+
+    vocab = {w: i for i, w in enumerate(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"])}
+    for w in words:
+        vocab.setdefault(w, len(vocab))
+    if len(vocab) > config.vocab_size:
+        raise ValueError(f"{len(vocab)} tokenizer entries > vocab_size {config.vocab_size}")
+    tok = Tokenizer(WordPiece(vocab=vocab, unk_token="[UNK]"))
+    tok.normalizer = normalizers.BertNormalizer(lowercase=True)
+    tok.pre_tokenizer = pre_tokenizers.BertPreTokenizer()
+    tok.post_processor = processors.TemplateProcessing(
+        single="[CLS] $A [SEP]", special_tokens=[("[CLS]", 2), ("[SEP]", 3)])
+    tok.save(os.path.join(path, "tokenizer.json"))
 
 
 def is_t5_family(model_id: str) -> bool:

@@ -29,7 +29,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 
 # kernel name -> source file under csrc/
-SOURCES = {"gather_scores": "gather_scores.cu"}
+SOURCES = {"gather_scores": "gather_scores.cu", "flash_attention": "flash_attention.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

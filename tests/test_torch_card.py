@@ -10,7 +10,14 @@ root (``--noconftest`` because ``tests/conftest.py`` sets JAX up):
 Tolerance for K1 against its plain version: both multiply the same f32 (or
 bf16 upcast to f32) values and sum in f32, in different orders: rtol = atol
 = 1e-4.
+
+Tolerance for K2 against its plain version: rtol = atol = 1e-2.  Both round
+the output to bf16 (one bf16 ulp is up to 1.6e-2 for outputs in [2, 4)),
+and K2 rounds the softmax weights to bf16 for the P.V product (relative
+2**-9 per weight) where the plain version stays in f32.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -20,9 +27,10 @@ from mfar_tpu_torch.data.schema import resolve_fields
 from mfar_tpu_torch.eval.compare import rankings_agree
 from mfar_tpu_torch.eval.index_build import make_encode_fn
 from mfar_tpu_torch.eval.retrieval import RetrievalEngine
-from mfar_tpu_torch.models.encoder import EncoderConfig, init_encoder
+from mfar_tpu_torch.models.encoder import Encoder, EncoderConfig, init_encoder
 from mfar_tpu_torch.models.tokenizer import SimpleVocabTokenizer
 from mfar_tpu_torch.ops import _build
+from mfar_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from mfar_tpu_torch.ops.gather_scores import (
     gather_per_field_scores,
     gather_per_field_scores_plain,
@@ -127,3 +135,102 @@ def test_engine_rerank_through_k1_matches_plain_gather(card):
     # and "auto" on a CUDA corpus K1 cannot read raises rather than falling back
     with pytest.raises(ValueError, match="K1 gather"):
         RetrievalEngine(mode="rerank", **{**kw, "dense_dtype": torch.float16})
+
+
+K2_TOL = 1e-2
+
+
+def _k2_inputs(b, h, s, lengths, seed=0):
+    """bf16 q/k/v [B, H, S, 64] on the card and int32 segment ids: 1 for
+    the first lengths[i] tokens of row i, 0 for the pad after them."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, h, s, 64)).astype(np.float32))
+               .cuda().bfloat16() for _ in range(3))
+    seg = torch.zeros(b, s, dtype=torch.int32)
+    for i, n in enumerate(lengths):
+        seg[i, :n] = 1
+    return q, k, v, seg.cuda()
+
+
+# lengths: a full row, 2 valid tokens, and rows whose pad queries meet one
+# or more wholly valid (so wholly masked for them) key tiles first
+@pytest.mark.parametrize("s,lengths", [(128, [128, 2, 70]), (256, [2, 200, 256, 65, 131])])
+def test_k2_matches_plain(card, s, lengths):
+    q, k, v, seg = _k2_inputs(len(lengths), 3, s, lengths)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, seg, 0.125)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert got.transpose(1, 2).is_contiguous()  # [B, S, H, D] underneath
+    want = flash_attention_plain(q, k, v, seg, 0.125)
+    torch.testing.assert_close(got.float(), want.float(), rtol=K2_TOL, atol=K2_TOL)
+
+
+def test_k2_reads_strided_views(card):
+    """q/k/v as the encoder gives them: [B, S, H*D] projections viewed as
+    [B, H, S, D], no copy."""
+    b, s, h = 2, 128, 4
+    rng = np.random.default_rng(3)
+    x = [torch.from_numpy(rng.normal(size=(b, s, h * 64)).astype(np.float32)).cuda().bfloat16()
+         for _ in range(3)]
+    q, k, v = (t.view(b, s, h, 64).transpose(1, 2) for t in x)
+    assert not q.is_contiguous()
+    seg = torch.ones(b, s, dtype=torch.int32, device=card)
+    seg[1, 100:] = 0
+    got = flash_attention(q, k, v, seg, 0.125)
+    want = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), seg, 0.125)
+    torch.testing.assert_close(got.float(), want.float(), rtol=K2_TOL, atol=K2_TOL)
+
+
+def test_k2_refuses_f32_on_the_card(card):
+    q, k, v, seg = _k2_inputs(1, 1, 128, [128])
+    with pytest.raises(TypeError, match="B2b"):
+        flash_attention(q.float(), k.float(), v.float(), seg, 0.125)
+
+
+def test_auto_encoder_through_k2_matches_xla(card):
+    """A tiny bf16 encoder (hidden 256, 4 heads, D = 64) at S = 128: "auto"
+    takes K2 on the card and agrees with "xla" on the valid tokens and the
+    pooled embedding.  Tolerance rtol = atol = 5e-2: the hidden states are
+    bf16 LayerNorm outputs up to ~5 (one ulp is 3.1e-2 in [4, 8)), and a
+    rounding that differs in one layer's attention output carries through
+    the next."""
+    cfg = EncoderConfig.tiny(vocab_size=97, hidden_size=256, num_heads=4, num_layers=2,
+                             intermediate_size=512, dtype=torch.bfloat16)
+    xla = init_encoder(cfg, seed=2).to(card)
+    auto = Encoder(dataclasses.replace(cfg, attention_impl="auto")).to(card).eval()
+    auto.load_state_dict(xla.state_dict())
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(0, 97, size=(3, 128))).to(card)
+    mask = torch.ones(3, 128, dtype=torch.int32, device=card)
+    mask[1, 40:] = 0
+    mask[2, 2:] = 0
+    with torch.inference_mode():
+        before = flash_attention.launches
+        pooled, tokens = auto(ids, mask, return_tokens=True)
+        assert flash_attention.launches == before + 2  # one per layer
+        want_pooled, want_tokens = xla(ids, mask, return_tokens=True)
+        assert flash_attention.launches == before + 2
+    valid = mask.bool()
+    torch.testing.assert_close(tokens[valid].float(), want_tokens[valid].float(),
+                               rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(pooled, want_pooled, rtol=5e-2, atol=5e-2)
+
+
+def test_auto_encoder_with_another_head_dim_is_plain(card):
+    """Head dim 32 (hidden 128, 4 heads), which K2 does not take: "auto"
+    takes the plain path, launches nothing and equals "xla" exactly."""
+    cfg = EncoderConfig.tiny(vocab_size=97, hidden_size=128, num_heads=4, num_layers=2,
+                             intermediate_size=256, dtype=torch.bfloat16)
+    xla = init_encoder(cfg, seed=3).to(card)
+    auto = Encoder(dataclasses.replace(cfg, attention_impl="auto")).to(card).eval()
+    auto.load_state_dict(xla.state_dict())
+    ids = torch.from_numpy(np.random.default_rng(3).integers(0, 97, size=(2, 128))).to(card)
+    mask = torch.ones(2, 128, dtype=torch.int32, device=card)
+    mask[1, 50:] = 0
+    with torch.inference_mode():
+        before = flash_attention.launches
+        got = auto(ids, mask)
+        assert flash_attention.launches == before
+        torch.testing.assert_close(got, xla(ids, mask), rtol=0, atol=0)

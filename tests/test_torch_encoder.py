@@ -18,8 +18,10 @@ import jax.numpy as jnp
 
 from mfar_tpu.models import Encoder as JaxEncoder
 from mfar_tpu.models import EncoderConfig as JaxConfig
+from mfar_tpu.models import T5Config as JaxT5Config
 from mfar_tpu.models.encoder import init_params
 from mfar_tpu.models.tokenizer import SimpleVocabTokenizer as JaxTokenizer
+from mfar_tpu_torch.models import build_encoder, encoder_dim
 from mfar_tpu_torch.models.convert import (
     config_from_hf,
     encoder_state_from_hf_bert,
@@ -80,12 +82,61 @@ def test_bf16_activations_track_f32():
 
 
 def test_flash_attention_not_ported_and_auto_is_plain():
-    with pytest.raises(NotImplementedError, match="K2"):
-        Encoder(EncoderConfig.tiny(attention_impl="flash"))
-    auto = Encoder(EncoderConfig.tiny(attention_impl="auto"))
-    auto.load_state_dict(init_encoder(EncoderConfig.tiny()).state_dict())
+    """(Named when K2 was not ported yet.)  "flash" raises below S = 128 and
+    off a multiple of 128, as JAX's gate does; "auto" on the CPU is the
+    plain path, pads included; an unknown name still raises."""
+    cfg = EncoderConfig.tiny(vocab_size=97, hidden_size=128, num_heads=2, num_layers=2)
+    xla = init_encoder(cfg, seed=3)
+    flash, auto = (Encoder(dataclasses.replace(cfg, attention_impl=a)).eval()
+                   for a in ("flash", "auto"))
+    flash.load_state_dict(xla.state_dict())
+    auto.load_state_dict(xla.state_dict())
+    for s in (64, 120):
+        ids, mask = (torch.from_numpy(a) for a in _ids_and_mask(97, s=s))
+        with pytest.raises(ValueError, match="seq % 128"):
+            flash(ids.long(), mask)
+    ids, mask = (torch.from_numpy(a) for a in _ids_and_mask(97, s=128))
+    with torch.inference_mode():
+        _, got = auto(ids.long(), mask, return_tokens=True)
+        _, want = xla(ids.long(), mask, return_tokens=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
     with pytest.raises(ValueError):
         EncoderConfig.tiny(attention_impl="pallas")
+
+
+def test_flash_encoder_matches_jax_xla_on_valid_tokens():
+    """The port's "flash" encoder on the CPU (through K2's plain version)
+    against the JAX encoder's "xla" path on carried weights, at S = 128 and
+    D = 64.  Valid tokens and the pooled embedding agree (atol 2e-4, as
+    above); pad positions differ by design: under segment ids pads attend
+    only pads (mfar_tpu/models/encoder.py:159-163)."""
+    kw = dict(vocab_size=97, hidden_size=128, num_heads=2, num_layers=2)
+    jcfg = JaxConfig.tiny(**kw)
+    params = jax.tree.map(np.asarray, init_params(jcfg, seed=0))
+    cfg = EncoderConfig.tiny(attention_impl="flash", **kw)
+    model = Encoder(cfg).eval()
+    model.load_state_dict(encoder_state_from_jax(params, cfg))
+
+    ids, mask = _ids_and_mask(97, s=128)
+    mask[1, 2:] = 0  # a row of 2 valid tokens
+    want_pooled, want_tokens = JaxEncoder(jcfg).apply(
+        {"params": params}, jnp.asarray(ids), jnp.asarray(mask), return_tokens=True
+    )
+    with torch.inference_mode():
+        pooled, tokens = model(torch.from_numpy(ids).long(), torch.from_numpy(mask),
+                               return_tokens=True)
+    valid = mask.astype(bool)
+    np.testing.assert_allclose(tokens.numpy()[valid], np.asarray(want_tokens)[valid], atol=ATOL)
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(want_pooled), atol=ATOL)
+    assert not np.allclose(tokens.numpy()[~valid], np.asarray(want_tokens)[~valid], atol=ATOL)
+
+
+def test_build_encoder_and_dim():
+    cfg = EncoderConfig.tiny(vocab_size=97, hidden_size=32)
+    assert isinstance(build_encoder(cfg), Encoder) and encoder_dim(cfg) == 32
+    for fn in (build_encoder, encoder_dim):
+        with pytest.raises(NotImplementedError, match="A14"):
+            fn(JaxT5Config.tiny())
 
 
 def test_hf_bert_state_and_registry_dir(tmp_path):

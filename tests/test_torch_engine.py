@@ -85,12 +85,32 @@ def world():
                    tokenizer=ptok, mixer_params=mixer_from_jax({"weight": mixer}),
                    dense_matrix=port_matrix, query_max_length=64, recall_k=10, device="cpu")
     return dict(queries=list(queries.values()), jax_matrix=jax_matrix,
-                port_matrix=port_matrix, jax_kw=jax_kw, port_kw=port_kw)
+                port_matrix=port_matrix, jax_kw=jax_kw, port_kw=port_kw,
+                jax_corpus=corpus, port_corpus=pcorpus)
 
 
 def test_dense_corpus_matrix_matches_jax(world):
     assert world["port_matrix"].shape == (48, 2, HIDDEN)
     np.testing.assert_allclose(world["port_matrix"], np.asarray(world["jax_matrix"]), atol=2e-4)
+
+
+def test_dense_corpus_matrix_prefix_memmap_and_dtype_match_jax(world, tmp_path):
+    """``prefix=True`` (field names in front of the texts) and an
+    ``open_memmap`` write target, against the JAX build; ``dtype`` casts."""
+    jkw, pkw = world["jax_kw"], world["port_kw"]
+    want = np.asarray(jax_index.build_dense_corpus_matrix(
+        jkw["encode_fn"], jkw["tokenizer"], world["jax_corpus"], jkw["field_info"],
+        batch_size=16, prefix=True))
+    out = np.lib.format.open_memmap(str(tmp_path / "m.npy"), mode="w+", dtype=np.float32,
+                                    shape=(48, 2, HIDDEN))
+    args = (pkw["encode_fn"], pkw["tokenizer"], world["port_corpus"], pkw["field_info"])
+    got = port_index.build_dense_corpus_matrix(*args, batch_size=16, prefix=True, out=out)
+    assert got is out
+    np.testing.assert_allclose(np.asarray(out), want, atol=2e-4)
+    assert not np.allclose(want, world["port_matrix"], atol=1e-2)  # the prefix counts
+    half = port_index.build_dense_corpus_matrix(*args, batch_size=32, dtype=np.float16)
+    assert half.dtype == np.float16
+    np.testing.assert_allclose(half, world["port_matrix"], atol=2e-3)
 
 
 def _agree(got, want):

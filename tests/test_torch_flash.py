@@ -1,0 +1,107 @@
+"""Kernel K2 (the encoder's flash attention): the port's plain version against
+JAX's own Pallas ``flash_attention``, run on the CPU in interpret mode, plus
+the wrapper's checks.  The CUDA kernel runs only on a card: its tests are in
+``tests/test_torch_card.py``.
+
+JAX's encoder reaches the kernel only on a TPU (``encoder.py:147``), so the
+library function is called directly, with the encoder's segment ids (1 for
+valid tokens, 0 for pad).
+
+Tolerance: f32 atol 1e-5 (the same f32 arithmetic; the Pallas kernel sums
+blockwise with an online softmax).  bf16 rtol = atol = 1e-2: both round the
+output to bf16 (one ulp is 7.8e-3 for outputs in [1, 2)), and the Pallas
+kernel rounds the softmax weights to bf16 for the P.V product where the
+plain version stays in f32.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas.ops.tpu.flash_attention import (
+    DEFAULT_MASK_VALUE,
+    SegmentIds,
+)
+from jax.experimental.pallas.ops.tpu.flash_attention import flash_attention as jax_flash
+
+from mfar_tpu_torch.ops.flash_attention import (
+    MASK_VALUE,
+    flash_attention,
+    flash_attention_plain,
+)
+
+torch.set_num_threads(1)
+
+B, H, D = 3, 2, 64
+SCALE = 1.0 / np.sqrt(D)
+TOL = {"f32": dict(rtol=0, atol=1e-5), "bf16": dict(rtol=1e-2, atol=1e-2)}
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _inputs(s, lengths, seed=0):
+    """q/k/v [B, H, S, D] and int32 segment ids: 1 for the first
+    lengths[i] tokens of row i, 0 for the pad after them."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(B, H, s, D)).astype(np.float32) for _ in range(3))
+    seg = np.zeros((B, s), np.int32)
+    for i, n in enumerate(lengths):
+        seg[i, :n] = 1
+    return q, k, v, seg
+
+
+# a fully valid row, a row of 2 valid tokens, ragged rows whose pad queries
+# meet whole blocks of valid (for them masked) keys first
+@pytest.mark.parametrize("s,lengths", [(128, [128, 2, 77]), (256, [2, 256, 131])])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_plain_matches_pallas_interpret(dtype, s, lengths):
+    q, k, v, seg = _inputs(s, lengths, seed=s)
+    jdt, tdt = DTYPES[dtype]
+    jseg = jnp.asarray(seg)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_flash(*(jnp.asarray(a).astype(jdt) for a in (q, k, v)),
+                         segment_ids=SegmentIds(q=jseg, kv=jseg), sm_scale=SCALE)
+    want = np.asarray(want.astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    before = flash_attention.launches
+    for fn in (flash_attention, flash_attention_plain):
+        got = fn(tq, tk, tv, torch.from_numpy(seg), SCALE)
+        assert got.shape == (B, H, s, D) and got.dtype == tdt
+        np.testing.assert_allclose(got.float().numpy(), want, **TOL[dtype])
+    assert flash_attention.launches == before  # CPU tensors: the plain version
+
+
+def test_pad_rows_attend_only_pad_keys():
+    """Under segment ids a pad query averages the pad keys' values only,
+    and a valid query the valid ones."""
+    q, k, v, seg = _inputs(128, [128, 2, 77])
+    got = flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v, seg)), SCALE).numpy()
+    for pos, keys in ((100, slice(77, 128)), (3, slice(0, 77))):
+        logits = np.einsum("hd,hkd->hk", q[2, :, pos], k[2, :, keys]) * SCALE
+        w = np.exp(logits - logits.max(-1, keepdims=True))
+        w /= w.sum(-1, keepdims=True)
+        want = np.einsum("hk,hkd->hd", w, v[2, :, keys])
+        np.testing.assert_allclose(got[2, :, pos], want, rtol=0, atol=1e-5)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    assert MASK_VALUE == DEFAULT_MASK_VALUE
+    q, k, v, seg = (torch.from_numpy(a) for a in _inputs(256, [256, 2, 77]))
+    for s in (64, 192):  # below 128, not a multiple of 128
+        with pytest.raises(ValueError, match="multiple of 128"):
+            flash_attention(q[:, :, :s], k[:, :, :s], v[:, :, :s], seg[:, :s], SCALE)
+    with pytest.raises(ValueError, match="D=32"):
+        flash_attention(q[..., :32], k[..., :32], v[..., :32], seg, SCALE)
+    with pytest.raises(ValueError, match="one shape"):
+        flash_attention(q, k[:, :1], v, seg, SCALE)
+    with pytest.raises(ValueError, match="segment_ids"):
+        flash_attention(q, k, v, seg[:2], SCALE)
+    with pytest.raises(TypeError, match="int32"):
+        flash_attention(q, k, v, seg.long(), SCALE)
+    with pytest.raises(TypeError, match="dtypes differ"):
+        flash_attention(q, k.bfloat16(), v, seg, SCALE)
+    # off the CPU the kernel runs or the call raises: no plain fallback
+    meta = [t.to("meta") for t in (q, k, v, seg)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention(*meta, SCALE)
