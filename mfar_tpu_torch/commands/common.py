@@ -1,8 +1,10 @@
 """Shared CLI bootstrap for the port: corpus + model + dense index from flags.
 
 Counterpart of ``mfar_tpu/commands/common.py`` for the dense single-device
-engine.  Not here yet: checkpoint restore (the JAX checkpoints are orbax,
-ROADMAP A10), the mesh flags (A15) and sparse indices (A8).
+engine and the trainer.  ``--checkpoint-dir`` reads the port's own
+checkpoints (:mod:`mfar_tpu_torch.train.checkpoint`; the JAX package's are
+orbax, ROADMAP A10).  Not here yet: the mesh flags (A15) and sparse indices
+(A8).
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ import argparse
 import os
 import re
 import sys
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +22,12 @@ from mfar_tpu_torch.data import trec
 from mfar_tpu_torch.data.format import format_documents
 from mfar_tpu_torch.data.schema import resolve_fields
 from mfar_tpu_torch.data.types import Corpus, Field
+from mfar_tpu_torch.sparse.bm25 import BM25Index
+from mfar_tpu_torch.train.checkpoint import (
+    check_field_compatibility,
+    load_model_state,
+    read_best_dir,
+)
 
 
 def normalize_argv(argv):
@@ -82,7 +90,8 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--model-name", default="facebook/contriever-msmarco",
                    help="synthetic[:vocab[:hidden]] or a local HF BERT directory")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="not ported yet: the JAX package's checkpoints are orbax")
+                   help="a train run's --out: serve its best checkpoint's encoder "
+                        "and mixer (the port's checkpoints)")
     p.add_argument("--dense-index", default=None, help="prebuilt .npz/.npy from encode_corpus")
     p.add_argument("--recall-k", type=int, default=100)
     p.add_argument("--normalize", action="store_true")
@@ -112,11 +121,6 @@ def build_engine(args):
     from mfar_tpu_torch.models.encoder import Encoder
     from mfar_tpu_torch.models.registry import prepare_model
 
-    if args.checkpoint_dir:
-        raise NotImplementedError(
-            "--checkpoint-dir: the JAX package's checkpoints are orbax; their "
-            "restore into the port is ROADMAP A10"
-        )
     resolve_data_dirs(args)
     field_info = resolve_fields(args.field_names, args.dataset_name)
     corpus = load_corpus(args.corpus, args.dataset_name)
@@ -125,6 +129,9 @@ def build_engine(args):
         corpus_texts=corpus_texts_for_vocab(corpus, field_info)
         if args.model_name.startswith("synthetic") else None,
     )
+    mixer_params = {"weight": np.ones((1, len(field_info)), np.float32)}
+    if args.checkpoint_dir:
+        state, mixer_params = load_checkpoint_weights(args.checkpoint_dir, field_info)
     encoder = Encoder(config)
     encoder.load_state_dict(state)
     encode = make_encode_fn(encoder, device=args.device)
@@ -142,7 +149,7 @@ def build_engine(args):
         doc_keys=list(corpus.keys()),
         encode_fn=encode,
         tokenizer=tokenizer,
-        mixer_params={"weight": np.ones((1, len(field_info)), np.float32)},
+        mixer_params=mixer_params,
         dense_matrix=matrix if matrix.size else None,
         recall_k=args.recall_k,
         use_pallas_gather={"on": True, "off": False}.get(args.use_pallas_gather, "auto"),
@@ -151,3 +158,29 @@ def build_engine(args):
         dense_dtype=torch.bfloat16 if args.dense_dtype == "bf16" else None,
         device=args.device,
     )
+
+
+def load_checkpoint_weights(
+    checkpoint_dir: str, field_info: Dict[str, Field]
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The best checkpoint of a train run's ``--out`` (``best.txt``): its
+    encoder state_dict and mixer params, after checking that it was trained
+    on these fields."""
+    best_dir = read_best_dir(checkpoint_dir)
+    check_field_compatibility(best_dir, field_info)
+    model_state = load_model_state(best_dir)
+    encoder = {k[len("encoder."):]: v for k, v in model_state.items()
+               if k.startswith("encoder.")}
+    return encoder, {"weight": model_state["mixer.weight"]}
+
+
+def load_negative_sampler_index(
+    corpus: Corpus, lexical_index: Optional[str], dataset_name: str
+) -> BM25Index:
+    """The whole-document BM25 index used for hard-negative mining: loaded
+    from ``--lexical-index`` when it holds one, else built in memory."""
+    path = lexical_index and os.path.join(lexical_index, "single_sparse_sparse_index")
+    if path and os.path.isdir(path):
+        return BM25Index.load(path)
+    pairs = format_documents(corpus.pairs(), "single", dataset_name)
+    return BM25Index.create(pairs, name="single")

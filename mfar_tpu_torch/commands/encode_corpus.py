@@ -22,6 +22,7 @@ import torch
 from mfar_tpu_torch.commands.common import (
     add_data_args,
     corpus_texts_for_vocab,
+    load_checkpoint_weights,
     load_corpus,
     normalize_argv,
     resolve_data_dirs,
@@ -46,7 +47,8 @@ def main(argv=None) -> None:
     p.add_argument("--model-name", default="facebook/contriever-msmarco",
                    help="synthetic[:vocab[:hidden]] or a local HF BERT directory")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="not ported yet: the JAX package's checkpoints are orbax")
+                   help="a train run's --out: encode with its best checkpoint's "
+                        "encoder (the port's checkpoints)")
     p.add_argument("--normalize", action="store_true")
     p.add_argument("--batch-size", type=int, default=256)
     p.add_argument("--prefix", action="store_true",
@@ -56,11 +58,6 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(normalize_argv(argv))
 
-    if args.checkpoint_dir:
-        raise NotImplementedError(
-            "--checkpoint-dir: the JAX package's checkpoints are orbax; their "
-            "restore into the port is ROADMAP A10"
-        )
     if (args.mesh == "auto" and torch.device(args.device).type == "cuda"
             and torch.cuda.device_count() > 1):
         raise NotImplementedError(
@@ -77,6 +74,8 @@ def main(argv=None) -> None:
         corpus_texts=corpus_texts_for_vocab(corpus, field_info)
         if args.model_name.startswith("synthetic") else None,
     )
+    if args.checkpoint_dir:
+        state, _ = load_checkpoint_weights(args.checkpoint_dir, field_info)
     encoder = build_encoder(config)
     encoder.load_state_dict(state)
     encode = make_encode_fn(encoder, device=args.device)

@@ -28,7 +28,11 @@
 //   running max and sum in f32 registers, in log2 units (exp2f of logits
 //   pre-scaled by sm_scale * log2 e).  P goes to bf16 for the P V product,
 //   as in the TPU kernel; the output is scaled by 1/l, rounded to bf16 and
-//   stored through shared memory in 16-byte chunks.
+//   stored through shared memory in 16-byte chunks.  Under training the
+//   kernel also writes each row's logsumexp m + log l (natural units, f32),
+//   which the backward kernels (flash_attention_bwd.cu) read in place of
+//   the TPU kernel's saved l and m; without that pointer it writes nothing
+//   more.
 //
 // Masking follows JAX: a masked logit takes the finite value -0.7*FLT_MAX
 // (set, not added, in log2 units, where adding would overflow).  A pad row
@@ -45,22 +49,11 @@
 // GFLOP, 0.208 ms at 989 TFLOP/s (bf16 dense).  At D = 64 the intensity is
 // S/2 = 256 flop/byte, just on the bytes side of the H100's ridge (~295).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cfloat>
 #include <climits>
-#include <cstdint>
+
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int kHeadDim = 64;
-constexpr int kBlockM = 64;  // query rows per block
-constexpr int kBlockN = 64;  // keys per tile
-constexpr int kWarps = 4;    // 16 query rows each
-constexpr int kThreads = kWarps * 32;
-constexpr float kMaskValue = -0.7f * FLT_MAX;  // JAX's DEFAULT_MASK_VALUE
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const __nv_bfloat16* q;
@@ -68,71 +61,11 @@ struct Params {
   const __nv_bfloat16* v;
   const int32_t* seg;
   __nv_bfloat16* o;
+  float* lse;  // [B, H, S] row logsumexp in natural units, or null
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   int H, S;
   float scale_log2;  // sm_scale * log2(e)
 };
-
-// Offset of element (r, c) of a [rows][64] bf16 tile in shared memory: the
-// 16-byte chunk c/8 of row r sits at chunk (c/8) ^ (r%8).
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * kHeadDim + ((((c >> 3) ^ (r & 7)) << 3) | (c & 7));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a * b on one m16n8k16 tile: bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats as a bf16 pair, the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Start the copy of a 64 x 64 bf16 tile whose rows lie `ld` elements apart
-// into swizzled shared memory: 512 chunks of 16 bytes, 4 per thread.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long ld, int tid) {
-#pragma unroll
-  for (int i = 0; i < kBlockN * kHeadDim / 8 / kThreads; ++i) {
-    const int idx = tid + i * kThreads;
-    const int r = idx >> 3, ch = idx & 7;
-    cp_async16(dst + swz(r, ch * 8), src + r * ld + ch * 8);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(const Params p) {
   __shared__ __align__(128) __nv_bfloat16 q_s[kBlockM * kHeadDim];
@@ -157,7 +90,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(const Par
   auto load_kv = [&](int t, int buf) {
     load_tile(k_s[buf], kg + static_cast<long long>(t) * kBlockN * p.k_ss, p.k_ss, tid);
     load_tile(v_s[buf], vg + static_cast<long long>(t) * kBlockN * p.v_ss, p.v_ss, tid);
-    if (tid < kBlockN / 4) cp_async16(&seg_s[buf][tid * 4], segb + t * kBlockN + tid * 4);
+    load_row_values(seg_s[buf], segb + t * kBlockN, tid);
   };
 
   load_tile(q_s, qg, p.q_ss, tid);
@@ -188,10 +121,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(const Par
     __syncthreads();
     if (t == 0) {
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(qf[kc], q_s + swz(r, kc * 16 + (lane >> 4) * 8));
-      }
+      for (int kc = 0; kc < 4; ++kc) load_a_fragment(qf[kc], q_s, warp, lane, kc);
     }
 
     // S = Q K^T for this warp's 16 rows and the tile's 64 keys
@@ -202,7 +132,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(const Par
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         uint32_t kf[4];  // keys n*8..n*8+7, D slices of 8 from half*32
-        ldmatrix_x4(kf, k_s[buf] + swz(n * 8 + (lane & 7), half * 32 + (lane >> 3) * 8));
+        load_b_rows(kf, k_s[buf], lane, n, half);
         mma_bf16(s[n], qf[half * 2], kf[0], kf[1]);
         mma_bf16(s[n], qf[half * 2 + 1], kf[2], kf[3]);
       }
@@ -258,8 +188,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(const Par
 #pragma unroll
       for (int dp = 0; dp < 4; ++dp) {
         uint32_t vf[4];
-        const int r = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4_trans(vf, v_s[buf] + swz(r, dp * 16 + (lane >> 4) * 8));
+        load_b_cols(vf, v_s[buf], lane, kc, dp);
         mma_bf16(o[dp * 2], pf[kc], vf[0], vf[1]);
         mma_bf16(o[dp * 2 + 1], pf[kc], vf[2], vf[3]);
       }
@@ -267,41 +196,36 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(const Par
     __syncthreads();  // the next iteration's prefetch overwrites this buffer
   }
 
-  // Whole-row sums, 1/l, bf16; stage the warp's 16 rows in its own rows of
-  // q_s (each warp read only its own rows of Q), then 16-byte stores.
+  // whole-row sums
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
-  const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
-  const int r0 = warp * 16 + g;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int c = n * 8 + 2 * t4;
-    *reinterpret_cast<uint32_t*>(q_s + swz(r0, c)) = pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
-    *reinterpret_cast<uint32_t*>(q_s + swz(r0 + 8, c)) = pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
+  if (p.lse != nullptr && t4 == 0) {
+    // logsumexp of the scaled logits: (m + log2 l) in log2 units, to natural
+    float* lse = p.lse + static_cast<long long>(bh) * p.S + row0 + warp * 16 + g;
+    lse[0] = (m[0] + log2f(l[0])) * kLn2;
+    lse[8] = (m[1] + log2f(l[1])) * kLn2;
   }
-  __syncwarp();
-  __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh + row0 * p.o_ss;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int idx = lane + i * 32;  // 16 rows x 8 chunks
-    const int r = warp * 16 + (idx >> 3), ch = idx & 7;
-    *reinterpret_cast<uint4*>(og + r * p.o_ss + ch * 8) =
-        *reinterpret_cast<const uint4*>(q_s + swz(r, ch * 8));
-  }
+  // 1/l, bf16; staged in the warp's own rows of q_s (each warp read only its
+  // own rows of Q), then 16-byte stores
+  store_rows(p.o + b * p.o_sb + h * p.o_sh + row0 * p.o_ss, p.o_ss, q_s, o, 1.f / l[0],
+             1.f / l[1], warp, lane);
 }
 
 }  // namespace
 
 // strides: 12 values, (b, h, s) strides in elements of q, k, v and o in that
-// order.  Returns cudaGetLastError() after the launch (0 = launched).  The
+// order.  lse: null, or a contiguous f32 [B, H, S] that receives each row's
+// logsumexp of the scaled, masked logits (natural log), which the backward
+// kernels read.  Returns cudaGetLastError() after the launch (0 = launched).  The
 // caller has checked shapes, dtypes (bf16, int32 seg), D == 64,
 // S % 128 == 0, a contiguous D, strides that are multiples of 8 elements and
 // 16-byte aligned pointers.
 extern "C" int mfar_flash_attention_fwd(const void* q, const void* k, const void* v,
-                                        const int32_t* seg, void* o, int B, int H, int S,
+                                        const int32_t* seg, void* o, float* lse, int B, int H,
+                                        int S,
                                         const long long* strides, float sm_scale,
                                         cudaStream_t stream) {
   if (B == 0 || H == 0) return 0;
@@ -314,6 +238,7 @@ extern "C" int mfar_flash_attention_fwd(const void* q, const void* k, const void
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.seg = seg;
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = lse;
   p.q_sb = strides[0], p.q_sh = strides[1], p.q_ss = strides[2];
   p.k_sb = strides[3], p.k_sh = strides[4], p.k_ss = strides[5];
   p.v_sb = strides[6], p.v_sh = strides[7], p.v_ss = strides[8];

@@ -12,11 +12,13 @@
   :func:`hf_bert_state_from_encoder` back;
 - :func:`config_from_hf`: a HF BERT ``config.json`` (dict) -> EncoderConfig.
 - :func:`mixer_from_jax`: the mixer subtree ``{'weight': [E or 1, F]}``.
+- :func:`model_state_from_jax`: a JAX ``MFARModel``'s params and batch
+  stats -> the state_dict of :class:`mfar_tpu_torch.train.model.MFARModel`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -118,3 +120,24 @@ def mixer_from_jax(mixer_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The Flax mixer subtree ``{'weight': [E or 1, F]}`` -> the same dict
     of f32 tensors (the layout is kept, so the engine reads either)."""
     return {"weight": _t(mixer_params["weight"])}
+
+
+def model_state_from_jax(
+    params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]] = None
+) -> Dict[str, torch.Tensor]:
+    """A JAX ``MFARModel``'s ``params`` (``encoder``, ``mixer`` and, with
+    batchnorm, ``bn``) and ``batch_stats`` (``bn``'s running ``mean`` and
+    ``var``), as numpy leaves -> the port ``MFARModel``'s state_dict."""
+    enc = params["encoder"]
+    n_layers = np.asarray(enc["layers"]["layer"]["attn_q"]["kernel"]).shape[0]
+    # encoder_state_from_jax reads only the layer count from its config
+    sd = {f"encoder.{k}": v
+          for k, v in encoder_state_from_jax(enc, EncoderConfig(num_layers=n_layers)).items()}
+    sd["mixer.weight"] = _t(params["mixer"]["weight"])
+    if "bn" in params:
+        sd["bn.scale"] = _t(params["bn"]["scale"])
+        sd["bn.bias"] = _t(params["bn"]["bias"])
+        stats = (batch_stats or {})["bn"]
+        sd["bn.mean"] = _t(stats["mean"])
+        sd["bn.var"] = _t(stats["var"])
+    return sd

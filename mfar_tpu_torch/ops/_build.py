@@ -8,8 +8,8 @@ seconds), for ``sm_90a``:
          -Xcompiler -fPIC -Xptxas -v -o build/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``mfar_tpu_torch/build/`` under a name that carries a
-hash of its source and flags, so a changed source rebuilds and an unchanged
-one loads at once.  The build runs at first use, never at import.  A
+hash of its source, the shared headers (``csrc/*.cuh``) and the flags, so a
+changed source rebuilds and an unchanged one loads at once.  The build runs at first use, never at import.  A
 missing ``nvcc`` or a failed build raises with the compiler's output; there
 is no fallback.
 """
@@ -29,7 +29,11 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 
 # kernel name -> source file under csrc/
-SOURCES = {"gather_scores": "gather_scores.cu", "flash_attention": "flash_attention.cu"}
+SOURCES = {
+    "gather_scores": "gather_scores.cu",
+    "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -52,9 +56,14 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    """The library's path: its name and a hash of its source, the shared
+    headers of ``csrc/`` (which a source may include) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [SOURCES[name], *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> str:

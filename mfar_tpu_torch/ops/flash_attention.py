@@ -1,4 +1,5 @@
-"""Kernel K2, the encoder's flash-attention forward with segment masking.
+"""Kernel K2, the encoder's flash attention with segment masking, and its
+backward K2b.
 
     out[b, h, i] = softmax_j(q[b, h, i] . k[b, h, j] * sm_scale
                              + (0 if seg[b, i] == seg[b, j] else MASK_VALUE)) @ v[b, h]
@@ -10,22 +11,28 @@ so valid tokens attend only valid ones and pads only pads).
 :func:`flash_attention` launches the hand-written CUDA kernel
 ``mfar_tpu_torch/csrc/flash_attention.cu`` for tensors on the card; it
 replaces the call of JAX's library Pallas kernel at
-``mfar_tpu/models/encoder.py:170``.  :func:`flash_attention_plain` is the same
-function in plain PyTorch (the function of JAX's ``mha_reference``, in f32):
-the wrapper uses it for CPU tensors only, and the tests and ``chip_smoke.py``
-hold the kernel against it.
+``mfar_tpu/models/encoder.py:170``.  When grad is enabled and an input
+requires it, the call goes through a ``torch.autograd.Function`` whose
+forward also writes each row's logsumexp and whose backward runs the two
+kernels of ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd_dkv`,
+:func:`flash_attention_bwd_dq`), which replace the Pallas kernels of JAX's
+VJP.  :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain` are
+the same functions in plain PyTorch, in f32: the wrappers use them for CPU
+tensors only, and the tests and ``chip_smoke.py`` hold the kernels against
+them.
 
-The kernel takes bf16 with D = 64 and S a multiple of 128.  It reads q/k/v
-through their strides, so the ``[B, S, H, D] -> [B, H, S, D]`` transposed
-views of the encoder's projections need no copy, and it writes into an
-output laid out as ``[B, S, H, D]``, so the transpose back to
-``[B, S, H*D]`` is free too.
+The kernels take bf16 with D = 64 and S a multiple of 128.  They read
+q/k/v (and the backward's dO) through their strides, so the
+``[B, S, H, D] -> [B, H, S, D]`` transposed views of the encoder's
+projections need no copy, and they write outputs and gradients laid out as
+``[B, S, H, D]``, so the way back to ``[B, S, H*D]`` is free too.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -34,8 +41,17 @@ from mfar_tpu_torch.ops import _build
 # JAX's DEFAULT_MASK_VALUE (flash_attention.py:29): finite, so a row whose
 # first key tile is wholly masked is washed out by the later rescale
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-HEAD_DIM = 64  # the kernel's head dimension
+HEAD_DIM = 64  # the kernels' head dimension
 SEQ_MULTIPLE = 128  # S % 128 == 0, as JAX's gate asks
+
+Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _masked_logits(q, k, segment_ids, sm_scale) -> torch.Tensor:
+    """f32 ``q . k * sm_scale`` plus JAX's additive segment mask."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]  # [B, 1, S, S]
+    return logits + torch.where(same, 0.0, MASK_VALUE)
 
 
 def flash_attention_plain(
@@ -47,39 +63,44 @@ def flash_attention_plain(
 ) -> torch.Tensor:  # [B, H, S, D] in q's dtype
     """Logits, the additive segment mask and the softmax in f32, then
     ``@ v`` in f32 and a cast to q's dtype."""
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-    same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]  # [B, 1, S, S]
-    logits = logits + torch.where(same, 0.0, MASK_VALUE)
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax(_masked_logits(q, k, segment_ids, sm_scale), dim=-1)
     return torch.matmul(probs, v.float()).to(q.dtype)
 
 
-@functools.cache
-def _kernel():
-    fn = _build.load("flash_attention").mfar_flash_attention_fwd
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k v seg
-        ctypes.c_void_p,  # out
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H S
-        ctypes.POINTER(ctypes.c_longlong),  # 12 strides: (b, h, s) of q, k, v, out
-        ctypes.c_float, ctypes.c_void_p,  # sm_scale, stream
-    ]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def flash_attention(
-    q: torch.Tensor,  # [B, H, S, 64] bf16 on the card; last dim contiguous
-    k: torch.Tensor,  # [B, H, S, 64]
-    v: torch.Tensor,  # [B, H, S, 64]
-    segment_ids: torch.Tensor,  # [B, S] int32, contiguous
+def flash_attention_bwd_plain(
+    q: torch.Tensor,  # [B, H, S, D]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_ids: torch.Tensor,  # [B, S]
+    o: torch.Tensor,  # [B, H, S, D] the forward's output
+    lse: torch.Tensor,  # [B, H, S] f32 row logsumexp of the masked logits
+    dout: torch.Tensor,  # [B, H, S, D] gradient of the output
     sm_scale: float,
-) -> torch.Tensor:  # [B, H, S, 64] in q's dtype
-    """Segment-masked attention: kernel K2 for CUDA tensors, the plain
-    version for CPU tensors.  Raises on anything the kernel does not take.
+) -> Grads:  # dq, dk, dv in q's dtype
+    """The backward of :func:`flash_attention_plain` from the forward's row
+    logsumexp, written out in f32 as the kernels compute it:
+    ``P = exp(q.k * scale - lse)`` on same-segment pairs and 0 elsewhere,
+    ``dv = P^T dO``, ``dS = P * (dO v^T - di) * scale`` with
+    ``di = sum_d o * dO``, ``dq = dS k``, ``dk = dS^T q``."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
+    same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+    p = torch.exp(torch.where(same, logits - lse.float()[..., None], float("-inf")))
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - _row_dots(o, dout)[..., None]) * sm_scale
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
-    On the card the result is a ``[B, H, S, D]`` view of a ``[B, S, H, D]``
-    buffer, so ``out.transpose(1, 2).reshape(B, S, H * D)`` is a view."""
+
+def _row_dots(o: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """di = sum_d o * dO in f32, ``[B, H, S]`` contiguous: a torch op, as
+    JAX computes it outside its Pallas kernels."""
+    return (o.float() * dout.float()).sum(-1).contiguous()
+
+
+def _check_inputs(q, k, v, segment_ids) -> None:
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(
             f"want q, k, v of one shape [B, H, S, D]; got {tuple(q.shape)}, "
@@ -99,42 +120,234 @@ def flash_attention(
     devices = {q.device, k.device, v.device, segment_ids.device}
     if len(devices) != 1:
         raise ValueError(f"q, k, v and segment_ids lie on different devices: {devices}")
-
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, segment_ids, sm_scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
-    if q.dtype != torch.bfloat16:
-        raise TypeError(
-            f"{q.dtype} q/k/v: kernel K2 takes bf16 on the card; an f32 K2 "
-            f"waits for training (ROADMAP B2b)"
-        )
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3]):
-            raise ValueError(
-                f"{name} strides {t.stride()}: D must be contiguous and the B, H, S "
-                f"strides multiples of 8 elements (16-byte rows)"
+    if q.device.type == "cuda":
+        if q.dtype != torch.bfloat16:
+            raise TypeError(
+                f"{q.dtype} q/k/v: kernels K2 and K2b take bf16 on the card; an f32 "
+                f"K2/K2b is ROADMAP B2d"
             )
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary")
-    if not segment_ids.is_contiguous() or segment_ids.data_ptr() % 16:
-        raise ValueError("segment_ids must be contiguous and start on a 16-byte boundary")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if not _kernel_readable(t):
+                raise ValueError(
+                    f"{name} strides {t.stride()}: D must be contiguous and the B, H, S "
+                    f"strides multiples of 8 elements (16-byte rows), from a 16-byte "
+                    f"boundary"
+                )
+        if not segment_ids.is_contiguous() or segment_ids.data_ptr() % 16:
+            raise ValueError("segment_ids must be contiguous and start on a 16-byte boundary")
 
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    strides = (ctypes.c_longlong * 12)(
-        *(st for t in (q, k, v, out) for st in t.stride()[:3])
-    )
+
+def _kernel_readable(t: torch.Tensor) -> bool:
+    """A [B, H, S, D] bf16 operand the kernels read through its strides."""
+    return t.stride(-1) == 1 and not any(st % 8 for st in t.stride()[:3]) \
+        and t.data_ptr() % 16 == 0
+
+
+def _strides(*ts: torch.Tensor):
+    return (ctypes.c_longlong * (3 * len(ts)))(*(st for t in ts for st in t.stride()[:3]))
+
+
+def _empty_bshd(like: torch.Tensor) -> torch.Tensor:
+    """A ``[B, H, S, D]`` view of a new ``[B, S, H, D]`` buffer."""
+    b, h, s, d = like.shape
+    return torch.empty((b, s, h, d), dtype=like.dtype, device=like.device).transpose(1, 2)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load("flash_attention").mfar_flash_attention_fwd
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k v seg
+        ctypes.c_void_p, ctypes.c_void_p,  # out, lse (or null)
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H S
+        ctypes.POINTER(ctypes.c_longlong),  # 12 strides: (b, h, s) of q, k, v, out
+        ctypes.c_float, ctypes.c_void_p,  # sm_scale, stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_kernels():
+    lib = _build.load("flash_attention_bwd")
+    common = [ctypes.c_void_p] * 7  # q k v dout seg lse di
+    tail = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H S
+        ctypes.POINTER(ctypes.c_longlong),  # 15 strides: q, k, v, dout, gradients
+        ctypes.c_float, ctypes.c_void_p,  # sm_scale, stream
+    ]
+    dkv, dq = lib.mfar_flash_attention_bwd_dkv, lib.mfar_flash_attention_bwd_dq
+    dkv.argtypes = common + [ctypes.c_void_p, ctypes.c_void_p] + tail  # dk, dv
+    dq.argtypes = common + [ctypes.c_void_p] + tail  # dq
+    dkv.restype = dq.restype = ctypes.c_int
+    return dkv, dq
+
+
+def _launch_forward(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tensor:
+    """K2 on checked CUDA inputs; with ``lse`` (a contiguous f32 [B, H, S])
+    it also writes each row's logsumexp there."""
+    b, h, s, _ = q.shape
+    out = _empty_bshd(q)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(), out.data_ptr(),
-            b, h, s, strides, sm_scale, stream,
+            None if lse is None else lse.data_ptr(), b, h, s, _strides(q, k, v, out),
+            sm_scale, _stream(q),
         )
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    _raise_on(err, "flash_attention")
     flash_attention.launches += 1
     return out
 
 
-# launches of the CUDA kernel (CPU calls of the plain version do not count)
+class _FlashAttention(torch.autograd.Function):
+    """K2 forward (with the row logsumexp) and K2b backward for CUDA tensors;
+    the plain versions for CPU tensors.  Segment ids get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, sm_scale):
+        out, lse = flash_attention_fwd(q, k, v, segment_ids, sm_scale)
+        ctx.save_for_backward(q, k, v, segment_ids, out, lse)
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, segment_ids, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, segment_ids, out, lse, dout, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, H, S, 64] bf16 on the card; last dim contiguous
+    k: torch.Tensor,  # [B, H, S, 64]
+    v: torch.Tensor,  # [B, H, S, 64]
+    segment_ids: torch.Tensor,  # [B, S] int32, contiguous
+    sm_scale: float,
+) -> torch.Tensor:  # [B, H, S, 64] in q's dtype
+    """Segment-masked attention: kernel K2 for CUDA tensors, the plain
+    version for CPU tensors, differentiable through K2b (the plain backward
+    on the CPU) when grad is enabled and q, k or v requires it.  Raises on
+    anything the kernels do not take.
+
+    On the card the result is a ``[B, H, S, D]`` view of a ``[B, S, H, D]``
+    buffer, so ``out.transpose(1, 2).reshape(B, S, H * D)`` is a view."""
+    _check_inputs(q, k, v, segment_ids)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, segment_ids, sm_scale)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, segment_ids, sm_scale)
+    return _launch_forward(q, k, v, segment_ids, sm_scale)
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_ids: torch.Tensor,
+    sm_scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward that training runs: the output of :func:`flash_attention`
+    and each row's logsumexp of the scaled, masked logits (f32 ``[B, H, S]``,
+    natural log), which the backward reads.  K2 for CUDA tensors, the plain
+    version for CPU tensors."""
+    _check_inputs(q, k, v, segment_ids)
+    if q.device.type == "cpu":
+        logits = _masked_logits(q, k, segment_ids, sm_scale)
+        out = torch.matmul(torch.softmax(logits, dim=-1), v.float()).to(q.dtype)
+        return out, torch.logsumexp(logits, dim=-1)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    return _launch_forward(q, k, v, segment_ids, sm_scale, lse), lse
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_ids: torch.Tensor,
+    o: torch.Tensor,  # the forward's output
+    lse: torch.Tensor,  # [B, H, S] f32, the forward's row logsumexp
+    dout: torch.Tensor,  # gradient of the output, any strides
+    sm_scale: float,
+) -> Grads:
+    """dq, dk, dv of :func:`flash_attention`: ``di`` as a torch op, then
+    kernels dkv and dq for CUDA tensors; :func:`flash_attention_bwd_plain`
+    for CPU tensors.  On the card the gradients are ``[B, H, S, D]`` views
+    of ``[B, S, H, D]`` buffers.  A dO that the kernels cannot read through
+    its strides is copied once (counted in ``flash_attention_bwd.dout_copies``)."""
+    _check_inputs(q, k, v, segment_ids)
+    if dout.shape != q.shape or o.shape != q.shape or lse.shape != q.shape[:3]:
+        raise ValueError(
+            f"o {tuple(o.shape)}, dout {tuple(dout.shape)} and lse {tuple(lse.shape)} "
+            f"do not fit q {tuple(q.shape)}"
+        )
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, segment_ids, o, lse, dout, sm_scale)
+    if dout.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError(f"dout {dout.dtype} (want {q.dtype}), lse {lse.dtype} (want float32)")
+    if not _kernel_readable(dout):
+        dout = dout.contiguous()
+        flash_attention_bwd.dout_copies += 1
+    lse = lse.contiguous()
+    di = _row_dots(o, dout)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, segment_ids, lse, di, dout, sm_scale)
+    dq = flash_attention_bwd_dq(q, k, v, segment_ids, lse, di, dout, sm_scale)
+    return dq, dk, dv
+
+
+# copies of a dO the kernels could not read through its strides
+flash_attention_bwd.dout_copies = 0
+
+
+def _bwd_args(q, k, v, segment_ids, lse, di, dout):
+    for name, t in (("lse", lse), ("di", di)):
+        if not t.is_contiguous() or t.dtype != torch.float32 or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous f32 [B, H, S] on a 16-byte boundary")
+    if not _kernel_readable(dout):
+        raise ValueError(f"dout strides {dout.stride()}: the kernels cannot read it")
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), segment_ids.data_ptr(),
+            lse.data_ptr(), di.data_ptr())
+
+
+def flash_attention_bwd_dkv(q, k, v, segment_ids, lse, di, dout, sm_scale):
+    """Kernel dkv on checked CUDA inputs: (dk, dv)."""
+    dk, dv = _empty_bshd(q), _empty_bshd(q)
+    b, h, s, _ = q.shape
+    with torch.cuda.device(q.device):
+        err = _bwd_kernels()[0](
+            *_bwd_args(q, k, v, segment_ids, lse, di, dout), dk.data_ptr(), dv.data_ptr(),
+            b, h, s, _strides(q, k, v, dout, dk), sm_scale, _stream(q),
+        )
+    _raise_on(err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, segment_ids, lse, di, dout, sm_scale):
+    """Kernel dq on checked CUDA inputs: dq."""
+    dq = _empty_bshd(q)
+    b, h, s, _ = q.shape
+    with torch.cuda.device(q.device):
+        err = _bwd_kernels()[1](
+            *_bwd_args(q, k, v, segment_ids, lse, di, dout), dq.data_ptr(),
+            b, h, s, _strides(q, k, v, dout, dq), sm_scale, _stream(q),
+        )
+    _raise_on(err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+# launches of the CUDA kernels (CPU calls of the plain versions do not count)
 flash_attention.launches = 0
+flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dq.launches = 0

@@ -15,6 +15,11 @@ Tolerance for K2 against its plain version: rtol = atol = 1e-2.  Both round
 the output to bf16 (one bf16 ulp is up to 1.6e-2 for outputs in [2, 4)),
 and K2 rounds the softmax weights to bf16 for the P.V product (relative
 2**-9 per weight) where the plain version stays in f32.
+
+Tolerance for K2b (the backward kernels) against their plain version: rtol
+2e-2 and atol 1e-2 of the largest gradient.  The gradients are rounded to
+bf16 (2**-8 relative), and the kernels round P and dS to bf16 before
+products summed over up to 512 rows, where the plain version stays in f32.
 """
 
 import dataclasses
@@ -30,7 +35,16 @@ from mfar_tpu_torch.eval.retrieval import RetrievalEngine
 from mfar_tpu_torch.models.encoder import Encoder, EncoderConfig, init_encoder
 from mfar_tpu_torch.models.tokenizer import SimpleVocabTokenizer
 from mfar_tpu_torch.ops import _build
-from mfar_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from mfar_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_plain,
+    flash_attention_fwd,
+    flash_attention_plain,
+)
+from mfar_tpu_torch.train.model import MFARModel
 from mfar_tpu_torch.ops.gather_scores import (
     gather_per_field_scores,
     gather_per_field_scores_plain,
@@ -185,7 +199,7 @@ def test_k2_reads_strided_views(card):
 
 def test_k2_refuses_f32_on_the_card(card):
     q, k, v, seg = _k2_inputs(1, 1, 128, [128])
-    with pytest.raises(TypeError, match="B2b"):
+    with pytest.raises(TypeError, match="B2d"):
         flash_attention(q.float(), k.float(), v.float(), seg, 0.125)
 
 
@@ -234,3 +248,97 @@ def test_auto_encoder_with_another_head_dim_is_plain(card):
         got = auto(ids, mask)
         assert flash_attention.launches == before
         torch.testing.assert_close(got, xla(ids, mask), rtol=0, atol=0)
+
+
+def _close_to_largest(got, want):
+    for g, w in zip(got, want):
+        scale = w.float().abs().max().item()
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2, atol=1e-2 * scale)
+
+
+# lengths 64, 65, 127, 131 and 200: pad queries and keys whose first tiles
+# are wholly masked for them; a full row and a row of 2 tokens
+@pytest.mark.parametrize("s,lengths", [(128, [128, 2, 65]), (256, [64, 127, 131, 200, 256])])
+def test_k2b_matches_plain(card, s, lengths):
+    q, k, v, seg = _k2_inputs(len(lengths), 3, s, lengths, seed=5)
+    rng = np.random.default_rng(6)
+    dout = torch.from_numpy(rng.normal(size=(len(lengths), s, 3 * 64)).astype(np.float32))
+    dout = dout.cuda().bfloat16().view(len(lengths), s, 3, 64).transpose(1, 2)  # strided
+    out, lse = flash_attention_fwd(q, k, v, seg, 0.125)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * 0.125
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    torch.testing.assert_close(
+        lse, torch.logsumexp(logits.masked_fill(~same, float("-inf")), -1), rtol=0, atol=1e-3)
+    before = (flash_attention_bwd_dkv.launches, flash_attention_bwd_dq.launches)
+    got = flash_attention_bwd(q, k, v, seg, out, lse, dout, 0.125)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dkv.launches, flash_attention_bwd_dq.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for g in got:
+        assert g.dtype == torch.bfloat16 and g.transpose(1, 2).is_contiguous()
+        assert torch.isfinite(g).all()
+    _close_to_largest(got, flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, 0.125))
+
+
+def test_k2_function_grads_match_plain_autograd(card):
+    """flash_attention under autograd (K2 forward with the logsumexp, K2b
+    backward) against autograd through the plain version."""
+    q, k, v, seg = _k2_inputs(3, 2, 256, [256, 70, 131], seed=7)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    dout = torch.randn(3, 2, 256, 64, device=card).bfloat16()
+    got = torch.autograd.grad(flash_attention(*leaves, seg, 0.125), leaves, dout)
+    want = torch.autograd.grad(flash_attention_plain(*leaves, seg, 0.125), leaves, dout)
+    _close_to_largest(got, want)
+
+
+def _tiny_batch(rng, b=4, seq=128, query_seq=16, vocab=97):
+    def toks(n, length):
+        mask = np.zeros((n, length), np.int64)
+        for i in range(n):
+            mask[i, : rng.integers(length // 2, length + 1)] = 1
+        ids = rng.integers(5, vocab, size=(n, length)) * mask
+        return {"input_ids": torch.from_numpy(ids).cuda(),
+                "attention_mask": torch.from_numpy(mask).cuda()}
+
+    return {"query": toks(b, query_seq), "pos": {"a": toks(b, seq), "b": toks(b, seq)},
+            "neg": {"a": toks(b, seq), "b": toks(b, seq)}}
+
+
+def test_auto_train_step_matches_xla(card):
+    """A tiny bf16 MFARModel (hidden 128, 2 heads, D = 64) at S = 128 with
+    attention dropout 0: loss and gradients through K2/K2b ("auto") against
+    the plain path ("xla") on the same weights and dropout masks.  Loss
+    rtol 1e-2, gradient cosine >= 0.99 (bf16 activations, attention rounded
+    at different places)."""
+    cfg = EncoderConfig.tiny(vocab_size=97, hidden_size=128, num_heads=2, num_layers=2,
+                             intermediate_size=256, dtype=torch.bfloat16,
+                             attention_dropout=0.0, attention_impl="auto", remat=True)
+    batch = _tiny_batch(np.random.default_rng(8))
+    out = {}
+    for impl in ("auto", "xla"):
+        torch.manual_seed(0)
+        model = MFARModel(dataclasses.replace(cfg, attention_impl=impl), num_fields=2)
+        model.encoder.load_state_dict(init_encoder(cfg, seed=9).state_dict())
+        model = model.to(card).train()
+        before = (flash_attention.launches, flash_attention_bwd_dq.launches)
+        loss = model.compute_loss(batch["query"], batch["pos"], batch["neg"],
+                                  generator=torch.Generator().manual_seed(3))
+        loss.backward()
+        launched = (flash_attention.launches - before[0], flash_attention_bwd_dq.launches
+                    - before[1])
+        assert launched == ((4, 2) if impl == "auto" else (0, 0))  # remat: forward twice
+        out[impl] = (loss.item(), torch.cat([p.grad.float().flatten()
+                                             for p in model.parameters()]))
+    assert out["auto"][0] == pytest.approx(out["xla"][0], rel=1e-2)
+    cos = torch.nn.functional.cosine_similarity(out["auto"][1], out["xla"][1], dim=0)
+    assert cos.item() >= 0.99
+
+
+def test_f32_flash_training_input_raises(card):
+    cfg = EncoderConfig.tiny(vocab_size=97, hidden_size=128, num_heads=2, num_layers=1,
+                             intermediate_size=256, attention_impl="flash",
+                             attention_dropout=0.0)  # f32 activations
+    model = MFARModel(cfg, num_fields=2).to(card).train()
+    batch = _tiny_batch(np.random.default_rng(10), query_seq=128)
+    with pytest.raises(TypeError, match="B2d"):
+        model.compute_loss(batch["query"], batch["pos"], batch["neg"])

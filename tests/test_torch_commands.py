@@ -112,7 +112,10 @@ def test_retrieve_cli_defaults_to_the_card(data_dir, tmp_path, monkeypatch):
 
 
 def test_retrieve_cli_checkpoint_not_ported(data_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="A10"):
+    """(Named when checkpoints were not ported.)  ``--checkpoint-dir`` reads
+    a train run's ``best.txt``; a directory without one raises (serving from
+    a real checkpoint: tests/test_torch_trainer.py)."""
+    with pytest.raises(FileNotFoundError, match="best.txt"):
         retrieve_cmd.main(_args(data_dir, str(tmp_path / "x.qres"), "--device", "cpu",
                                 "--checkpoint-dir", str(tmp_path)))
 
@@ -182,13 +185,13 @@ def test_encode_corpus_cli_matches_the_jax_cli_on_a_bert_dir(data_dir, tmp_path)
 
 
 @pytest.mark.parametrize("extra,cards,err,match", [
-    (["--device", "cpu", "--checkpoint-dir", "ckpt"], 0, NotImplementedError, "A10"),
+    (["--device", "cpu", "--checkpoint-dir", "ckpt"], 0, FileNotFoundError, "best.txt"),
     (["--device", "cuda"], 2, NotImplementedError, "A15"),
     ([], 0, RuntimeError, "no CUDA device"),
 ])
 def test_encode_corpus_cli_refuses(data_dir, tmp_path, monkeypatch, extra, cards, err, match):
-    """Checkpoints (A10), several visible cards under --mesh auto (A15), and
-    the default device without a card."""
+    """A checkpoint directory without a train run's best.txt, several visible
+    cards under --mesh auto (A15), and the default device without a card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: cards > 0)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     with pytest.raises(err, match=match):
