@@ -18,11 +18,14 @@ Contriever-base width with seeded random weights:
                 pad rows whose first key tiles are wholly masked); times of
                 kernel, plain version and a library yardstick (SDPA with the
                 boolean segment mask), beside the bound
-5. k2b       -- K2's logsumexp output and the backward kernels (dkv, dq)
-                against their plain version at the training shape
-                [96, 12, 512, 64] bf16 and edge cases; the autograd Function
-                against autograd through the plain version; times of each
-                kernel, the plain backward and SDPA's backward, beside the
+5. k2b       -- K2's logsumexp output and the backward kernels (dq, which
+                also writes di, then dkv) against their plain version at
+                the training shape [96, 12, 512, 64] bf16 and edge cases
+                (several segments, interleaved ids, S = 128, B = 1, H = 1),
+                dq's di against the plain row dots; the share of tile pairs
+                the kernels skip; the autograd Function against autograd
+                through the plain version; times of each kernel, the whole
+                backward, the plain backward and SDPA's backward, beside the
                 bounds
 6. e2e       -- a synthetic mag-shaped corpus (2048 docs x 5 dense fields)
                 encoded by the full-width encoder with attention_impl="auto"
@@ -101,6 +104,7 @@ from mfar_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_plain,
+    _row_dots,
 )
 from mfar_tpu_torch.ops.gather_scores import (
     gather_per_field_scores,
@@ -143,6 +147,9 @@ K2B_RTOL, K2B_ATOL_REL = 2e-2, 1e-2
 # the forward's logsumexp against the plain one: both sum f32 exponentials
 # of the same f32 logits, in different orders and bases (exp2 in the kernel)
 K2B_LSE_ATOL = 1e-3
+# dq's di against the plain row dots: f32 sums of the same 64 products of
+# bf16 values, in another order: rtol 1e-5, atol 1e-5 of the largest |di|
+K2B_DI_RTOL, K2B_DI_ATOL_REL = 1e-5, 1e-5
 # One train step's loss and gradients through K2/K2b against the plain path
 # on the same weights, batch and dropout masks: bf16 activations through 12
 # layers forward and back, where the two paths round attention at different
@@ -384,36 +391,66 @@ def run_k2(seed: int, build_shape=(256, 12, 512)) -> dict:
 # phase 5: K2b (the backward kernels) against their plain version
 
 
-def k2b_bound(q, seg, n_products):
-    """Least time for one backward kernel's work on these inputs: q, k, v,
-    dO read once (bf16), lse and di read once (f32), the segment ids read
-    once, and the kernel's gradients written once (dk and dv for dkv, dq for
-    dq) over the memory rate, against its ``n_products`` products' bf16
-    operations over the tensor-core rate, counted for same-segment (query,
-    key) pairs only; the larger one bounds it.  Returns (ms, bound_by)."""
+def k2b_bound(q, seg):
+    """Least times for K2b's work on these inputs, each the larger of its
+    bytes over the memory rate and its bf16 operations (counted for the
+    same-segment (query, key) pairs only) over the tensor-core rate:
+    dq reads q, k, v, o, dO (bf16), lse (f32) and the segment ids and writes
+    dq (bf16) and di (f32), three products; dkv reads q, k, v, dO, lse, di
+    and the segment ids and writes dk and dv, four products; the whole
+    backward reads q, k, v, o, dO, lse and the segment ids and writes dq, dk
+    and dv, five products (S, dP, dV, dQ, dK), di never leaving the chip.
+    Returns {name: (ms, bound_by)} for "dq", "dkv" and "bwd"."""
     b, h, s, d = q.shape
-    n_out = n_products - 2  # dkv: 4 products, 2 gradients; dq: 3 products, 1 gradient
-    nbytes = (4 + n_out) * b * h * s * d * q.element_size() + 2 * b * h * s * 4 + seg.numel() * 4
-    n_valid = seg.sum(dim=1).double()
-    pairs = (n_valid**2 + (s - n_valid) ** 2).sum().item()
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * n_products * h * d * pairs / BF16_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    tensor, rows = b * h * s * d * q.element_size(), b * h * s * 4
+    pairs = sum((r[:, None] == r[None, :]).sum().item() for r in seg)
+    out = {}
+    for name, nbytes, n_products in (("dq", 6 * tensor + 2 * rows, 3),
+                                     ("dkv", 6 * tensor + 2 * rows, 4),
+                                     ("bwd", 8 * tensor + rows, 5)):
+        t_bytes = (nbytes + seg.numel() * 4) / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * n_products * h * d * pairs / BF16_FLOPS_PER_S * 1e3
+        out[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return out
 
 
-def k2b_inputs(gen, b, h, s, lengths):
-    """k2_inputs plus dO as autograd hands it to the attention: the gradient
-    of the [B, S, H*D] context, viewed as [B, H, S, D]."""
-    q, k, v, seg = k2_inputs(gen, b, h, s, lengths)
+def skipped_tile_pairs(seg, rows=128, tile=64):
+    """The share of (block, streamed tile) pairs that K2b's kernels skip,
+    and of (warpgroup, tile) products: a tile is skipped when the [min, max]
+    of its segment ids misses that of the block's ``rows`` rows (or of the
+    warpgroup's 64)."""
+    b, s = seg.shape
+    t = seg.view(b, s // tile, tile)
+    lo, hi = t.min(dim=2).values, t.max(dim=2).values  # [B, tiles]
+
+    def share(group):
+        glo = lo.view(b, -1, group).min(dim=2).values  # [B, blocks]
+        ghi = hi.view(b, -1, group).max(dim=2).values
+        meets = (lo[:, None, :] <= ghi[:, :, None]) & (glo[:, :, None] <= hi[:, None, :])
+        return 1.0 - meets.float().mean().item()
+
+    return share(rows // tile), share(1)
+
+
+def k2b_inputs(gen, b, h, s, rows):
+    """k2_inputs with any segment ids (each entry of ``rows`` a valid length,
+    as k2_inputs takes it, or a list of S ids) plus dO as autograd hands it
+    to the attention: the gradient of the [B, S, H*D] context, viewed as
+    [B, H, S, D]."""
+    q, k, v, seg = k2_inputs(gen, b, h, s, [r if isinstance(r, int) else s for r in rows])
+    for i, r in enumerate(rows):
+        if not isinstance(r, int):
+            seg[i] = torch.as_tensor(r, dtype=torch.int32, device=DEVICE)
     dout = torch.randn(b, s, h * 64, device=DEVICE, generator=gen).bfloat16()
     return q, k, v, seg, dout.view(b, s, h, 64).transpose(1, 2)
 
 
 def check_k2b(q, k, v, seg, dout, label) -> float:
     """The forward's logsumexp against the plain one, then the backward
-    kernels against the plain backward on the same o and lse; returns the
-    largest error relative to the largest gradient, and the largest
-    absolute error of each kernel's gradients (dkv: dk and dv; dq)."""
+    kernels against the plain backward on the same o and lse, and dq's di
+    against the plain row dots; returns the largest error relative to the
+    largest gradient, and the largest absolute error of each kernel's
+    gradients (dkv: dk and dv; dq)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     out, lse = flash_attention_fwd(q, k, v, seg, scale)
     torch.cuda.synchronize()
@@ -438,6 +475,12 @@ def check_k2b(q, k, v, seg, dout, label) -> float:
               f"K2b {name} {label}: max abs err {err} (max |want| {scale_w})")
         kernel = "dq" if name == "dq" else "dkv"
         rel, abs_err[kernel] = max(rel, err / scale_w), max(abs_err[kernel], err)
+    _, di = flash_attention_bwd_dq(q, k, v, seg, lse, out, dout, scale)
+    want_di = _row_dots(out, dout)
+    di_err = (di - want_di).abs().max().item()
+    check(torch.allclose(di, want_di, rtol=K2B_DI_RTOL,
+                         atol=K2B_DI_ATOL_REL * want_di.abs().max().item()),
+          f"K2b di {label}: max abs err {di_err}")
     return rel, abs_err
 
 
@@ -448,19 +491,36 @@ def library_attention_fwd_bwd(q, k, v, seg, scale, dout):
     return torch.autograd.grad(out, (q, k, v), dout)
 
 
+# edge cases of the segment ids: runs of 2/1/0, ids that return after
+# another segment (defeating a valid-prefix assumption), tiles of ids 0 and 2
+# alternating against a tile of 1 (their [min, max] meets, no id is shared),
+# a row all of one id, and tile pairs wholly masked in both directions
+K2B_SEG_CASES = [
+    (2, 2, 512, [[2] * 100 + [1] * 150 + [0] * 262,
+                 [1] * 70 + [0] * 58 + [1] * 128 + [0] * 256]),
+    (3, 2, 256, [[0, 2] * 32 + [1] * 64 + [2] * 128, [7] * 256,
+                 [0] * 64 + [3] * 64 + [0] * 64 + [3] * 64]),
+    (1, 1, 128, [[1] * 40 + [0] * 30 + [2] * 58]),
+    (1, 3, 384, [[5] * 128 + [4] * 128 + [5] * 128]),
+]
+
+
 def run_k2b(seed: int, train_shape=(96, 12, 512)) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
     rel, abs_err = 0.0, {"dkv": 0.0, "dq": 0.0}
     # edge cases: S = 128 and 256, B = 1, H = 1, valid lengths 64, 65, 127,
     # 131, 200 (pad queries and keys whose first tiles are wholly masked for
-    # them), a row of 2 tokens and a full row
-    for b, h, s, lengths in [(1, 12, 128, [65]), (3, 1, 256, [2, 256, 131]),
-                             (2, 4, 512, [512, 200]), (4, 2, 128, [128, 64, 127, 2]),
-                             (5, 3, 256, [64, 65, 127, 131, 200])]:
-        r, a = check_k2b(*k2b_inputs(gen, b, h, s, lengths), f"B={b} H={h} S={s} {lengths}")
+    # them), a row of 2 tokens and a full row; then the segment-id cases
+    for b, h, s, rows in [(1, 12, 128, [65]), (3, 1, 256, [2, 256, 131]),
+                          (2, 4, 512, [512, 200]), (4, 2, 128, [128, 64, 127, 2]),
+                          (5, 3, 256, [64, 65, 127, 131, 200])] + K2B_SEG_CASES:
+        label = f"B={b} H={h} S={s} {[r if isinstance(r, int) else '...' for r in rows]}"
+        r, a = check_k2b(*k2b_inputs(gen, b, h, s, rows), label)
         rel, abs_err = max(rel, r), {k: max(v, a[k]) for k, v in abs_err.items()}
-    phase("k2b", f"edge cases (S=128/256, B=1, H=1, lengths 64/65/127/131/200, wholly "
-                 f"masked tiles) agree, max err {rel:.3g} of the largest gradient")
+    phase("k2b", f"edge cases (S=128/256/384/512, B=1, H=1, lengths 64/65/127/131/200, "
+                 f"several segments, interleaved ids, wholly masked tiles both ways) agree, "
+                 f"max err {rel:.3g} of the largest gradient; dq's di agrees with the plain "
+                 f"row dots (rtol {K2B_DI_RTOL}, atol {K2B_DI_ATOL_REL} x max |di|)")
 
     b, h, s = train_shape
     rng = np.random.default_rng(seed + 5)
@@ -470,6 +530,7 @@ def run_k2b(seed: int, train_shape=(96, 12, 512)) -> dict:
     r, a = check_k2b(q, k, v, seg, dout, f"at {list(q.shape)}")
     rel, abs_err = max(rel, r), {k: max(v, a[k]) for k, v in abs_err.items()}
     scale = 1.0 / math.sqrt(q.shape[-1])
+    skip_blocks, skip_groups = skipped_tile_pairs(seg)
 
     # the autograd Function end to end against autograd through the plain version
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -492,15 +553,15 @@ def run_k2b(seed: int, train_shape=(96, 12, 512)) -> dict:
     del got, want, lib
 
     out, lse = flash_attention_fwd(q, k, v, seg, scale)
-    di = (out.float() * dout.float()).sum(-1).contiguous()
+    _, di = flash_attention_bwd_dq(q, k, v, seg, lse, out, dout, scale)
 
     def fwd_bwd():
         return torch.autograd.grad(flash_attention(*leaves, seg, scale), leaves, dout)
 
     lib_out = library_attention(*leaves, seg, scale)
     r = dict(
+        dq_ms=time_cuda(lambda: flash_attention_bwd_dq(q, k, v, seg, lse, out, dout, scale)),
         dkv_ms=time_cuda(lambda: flash_attention_bwd_dkv(q, k, v, seg, lse, di, dout, scale)),
-        dq_ms=time_cuda(lambda: flash_attention_bwd_dq(q, k, v, seg, lse, di, dout, scale)),
         bwd_ms=time_cuda(lambda: flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)),
         fwd_bwd_ms=time_cuda(fwd_bwd),
         plain_bwd_ms=time_cuda(
@@ -511,21 +572,27 @@ def run_k2b(seed: int, train_shape=(96, 12, 512)) -> dict:
         library_fwd_bwd_ms=time_cuda(
             lambda: library_attention_fwd_bwd(*leaves, seg, scale, dout), reps=11, inner=5),
         max_rel_err=rel, dkv_max_abs_err=abs_err["dkv"], dq_max_abs_err=abs_err["dq"],
-        function_max_rel_err=fn_rel,
+        function_max_rel_err=fn_rel, skipped_block_tiles=skip_blocks,
+        skipped_group_tiles=skip_groups,
     )
-    r["dkv_bound_ms"], r["dkv_bound_by"] = k2b_bound(q, seg, 4)
-    r["dq_bound_ms"], r["dq_bound_by"] = k2b_bound(q, seg, 3)
+    for name, (ms, by) in k2b_bound(q, seg).items():
+        r[f"{name}_bound_ms"], r[f"{name}_bound_by"] = ms, by
+
+    def vs_bound(name, ms):
+        return (f"{ms:.4f} (bound {r[name + '_bound_ms']:.4f}, {r[name + '_bound_by']}; "
+                f"{r[name + '_bound_ms'] / ms:.1%})")
+
     phase("k2b", f"bf16 {list(q.shape)} (segment lengths {int(lengths.min())}-"
                  f"{int(lengths.max())}, mean {lengths.mean():.1f}, dO as strided views): "
                  f"max err {rel:.3g} of the largest gradient (max abs err dkv "
                  f"{abs_err['dkv']:.3g}, dq {abs_err['dq']:.3g}), "
                  f"autograd Function vs plain "
                  f"autograd {fn_rel:.3g} (tolerance rtol {K2B_RTOL}, atol {K2B_ATOL_REL} x "
-                 f"max |grad|); dkv_ms {r['dkv_ms']:.4f} (bound {r['dkv_bound_ms']:.4f}, "
-                 f"{r['dkv_bound_by']}; {r['dkv_bound_ms'] / r['dkv_ms']:.1%}), dq_ms "
-                 f"{r['dq_ms']:.4f} (bound {r['dq_bound_ms']:.4f}, {r['dq_bound_by']}; "
-                 f"{r['dq_bound_ms'] / r['dq_ms']:.1%}); backward with di "
-                 f"{r['bwd_ms']:.4f}, plain backward {r['plain_bwd_ms']:.4f}, SDPA backward "
+                 f"max |grad|); tile pairs skipped: {skip_blocks:.1%} of (128-row block, "
+                 f"64-row tile) pairs, {skip_groups:.1%} of (warpgroup, tile) products; "
+                 f"dq_ms with di {vs_bound('dq', r['dq_ms'])}, dkv_ms "
+                 f"{vs_bound('dkv', r['dkv_ms'])}; whole backward {vs_bound('bwd', r['bwd_ms'])}, "
+                 f"plain backward {r['plain_bwd_ms']:.4f}, SDPA backward "
                  f"{r['library_bwd_ms']:.4f}; K2 forward+backward through autograd "
                  f"{r['fwd_bwd_ms']:.4f}, SDPA forward+backward {r['library_fwd_bwd_ms']:.4f}; "
                  f"dO copies {flash_attention_bwd.dout_copies}")
@@ -1280,6 +1347,25 @@ def device_profile(fn, top: int = 8, host_top: int = 0) -> dict:
     )
 
 
+def kernel_usage(logs: dict) -> dict:
+    """Each kernel's registers and spills from the ptxas lines of its
+    library's build log (nvcc -Xptxas -v), by kernel name."""
+    usage = {}
+    for log in logs.values():
+        name = None
+        for ln in log.splitlines():
+            if "Function properties for" in ln:
+                mangled = ln.split("for", 1)[1].strip()
+                name = next((k for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                                         "flash_attention_fwd", "gather") if k in mangled), mangled)
+            elif name and "spill" in ln:
+                usage[name] = ln.strip()
+            elif name and "registers" in ln:
+                usage[name] = f"{ln.split(':', 1)[1].strip()}, {usage.get(name, '')}"
+                name = None
+    return usage
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1303,8 +1389,12 @@ def main(argv=None) -> int:
     with concurrent.futures.ThreadPoolExecutor(len(_build.SOURCES)) as pool:
         logs = list(pool.map(_build.build, _build.SOURCES))  # one nvcc per source
     build_s = time.perf_counter() - t0
-    regs = [ln.strip() for log in logs for ln in log.splitlines() if "registers" in ln]
-    phase("build", f"{sorted(_build.SOURCES)} built in {build_s:.2f}s ({'; '.join(regs)})")
+    usage = kernel_usage(dict(zip(_build.SOURCES, logs)))
+    phase("build", f"{sorted(_build.SOURCES)} built in {build_s:.2f}s; ptxas: "
+                   f"{'; '.join(f'{k}: {v}' for k, v in usage.items())}")
+    for name, line in usage.items():
+        if name.startswith("flash_attention_bwd"):
+            check(" 0 bytes spill stores, 0 bytes spill loads" in line, f"{name} spills: {line}")
 
     k1 = run_k1(args.seed)
     k2 = run_k2(args.seed)

@@ -1,13 +1,13 @@
 // Kernel K2b: the backward of kernel K2 (flash_attention.cu), written for
-// Hopper (sm_90a).  Two kernels, as the TPU has:
+// Hopper (sm_90a).  Two kernels, launched in this order:
 //
-//   dkv: dV = P^T dO,  dK = dS^T Q        (one block per 64-key tile)
-//   dq:  dQ = dS K                        (one block per 64-query tile)
+//   dq:  di = sum_d O * dO (f32), written out,   dQ = dS K
+//   dkv: dV = P^T dO,  dK = dS^T Q               (reads dq's di)
 //
 // with  P  = exp(Q K^T * sm_scale - lse)  on same-segment pairs, 0 elsewhere,
-//       dS = P * (dO V^T - di) * sm_scale, di = sum_d O * dO (f32),
+//       dS = P * (dO V^T - di) * sm_scale,
 // lse the forward's row logsumexp (natural units, written by K2 under
-// training).  q/k/v/dO are bf16 [B, H, S, 64] read through their strides
+// training).  q/k/v/o/dO are bf16 [B, H, S, 64] read through their strides
 // (D contiguous), seg int32 [B, S], lse and di contiguous f32 [B, H, S]; the
 // gradients are bf16 (q's dtype, as JAX writes them) into [B, H, S, 64]
 // views with their own strides, so the encoder's head split costs no copy.
@@ -17,46 +17,69 @@
 // jax 0.9.0): _flash_attention_bwd_dkv (pl.pallas_call at :1121, body
 // _flash_attention_dkv_kernel :796) and _flash_attention_bwd_dq (:1456,
 // body :1146), reached when mfar_tpu/models/encoder.py:170 is
-// differentiated.  The TPU kernels walk a sequential grid and carry dK/dV
-// (or dQ) in scratch memory from one grid step to the next; here each block
+// differentiated; and the row dots di that JAX computes outside Pallas
+// (:273-275).  The TPU kernels walk a sequential grid and carry dK/dV (or
+// dQ) in scratch memory from one grid step to the next; here each block
 // loops over the other axis itself and keeps its sums in registers, so no
 // block writes what another writes: no atomics, and the gradients are the
 // same from run to run.  The ds output of the TPU's dq kernel (the gradient
 // of an attention bias) is not computed: the encoder passes no bias.
 //
-// Design (FlashAttention-2 style; simple and right first):
-//   block = 4 warps, 16 rows each (keys in dkv, queries in dq), 64 rows.
-//   dkv: the block's K and V tiles stay in shared memory; Q and dO tiles of
-//        64 queries, with their lse, di and segment ids, are double-buffered
-//        with cp.async.  Per query tile each warp recomputes S^T = K Q^T,
-//        P^T, dV += P^T dO, dP^T = V dO^T, dS^T and dK += dS^T Q.
-//   dq:  the block's Q and dO tiles are loaded once as mma A fragments; K
-//        and V tiles with their segment ids are double-buffered.  Per key
-//        tile: S = Q K^T, P, dP = dO V^T, dS, dQ += dS K.
-//   Every product is mma.sync.m16n8k16 (bf16 in, f32 accumulate), operands
-//   from XOR-swizzled shared memory through ldmatrix (.trans where the
-//   tile is B's k rows).  P and dS are rounded to bf16 for the products
-//   they feed, as the TPU kernels do.  Shared memory is dynamic (~50 KB a
-//   block, above the 48 KB of static shared memory).
+// Design:
+//   block = 3 warpgroups: two consumers, 64 rows each (128 keys in dkv, 128
+//           queries in dq; S % 128 == 0), and a producer whose one thread
+//           issues every load; it keeps 24 registers a thread and the
+//           consumers take 240 (setmaxnreg).  One block an SM; the grid is
+//           (b, h)-major, so the blocks of one head run together and find
+//           its K/V (or Q/dO) in L2.
+//   loads: TMA (4-D tensor maps over the [B, S, H, D] buffers, encoded on
+//        the host each call, 128-byte swizzle) into the layout wgmma's
+//        descriptors read; the row values (lse, di, segment ids) by bulk
+//        copy.  The block's own tiles land on one mbarrier; the streamed
+//        tiles go through a ring of two stages (full / empty mbarriers).
+//   dkv: each consumer's K and V tiles stay put, also as bf16 A registers;
+//        64-query tiles of Q and dO with their lse, di and segment ids
+//        stream.  Per tile: S^T = K Q^T and dP^T = V dO^T (B the Q / dO
+//        tile, K-major), P^T and dS^T packed to bf16 A registers, dV += P^T
+//        dO and dK += dS^T Q (B the dO / Q tile, MN-major).
+//   dq:  each consumer's Q, dO and O tiles stay put; it first computes di
+//        for its rows from the O and dO tiles and writes it out for dkv.
+//        64-key tiles of K and V with their segment ids stream.  Per tile:
+//        S = Q K^T, dP = dO V^T, dS as bf16 A registers, dQ += dS K (K
+//        MN-major).
+//   Every product is wgmma.m64n64k16 (bf16 in, f32 accumulate; see
+//   hopper_common.cuh for the layouts and descriptors).  P and dS are
+//   rounded to bf16 for the products they feed, as the TPU kernels do;
+//   exp2 is the special-function unit's ex2.approx.
 //
 // Masking: JAX adds its finite mask value and relies on exp underflowing;
 // here a cross-segment entry of P (and so of dS) is set to exactly 0, so no
 // masked logit is ever scaled (which would overflow in log2 units, as in
 // K2) and no NaN can arise.  Every row has at least its own key, so lse is
-// finite.  Not yet: wgmma, TMA, warp specialisation, skipping wholly masked
-// tiles.
+// finite.  Skipping: a block takes the min and max segment id of every
+// 64-row tile of its batch row and walks only the streamed tiles whose
+// [min, max] meets that of its own 128 rows (a warpgroup skips the
+// products of a walked tile that misses its own 64 rows); every P entry of
+// a skipped pair of tiles is 0, so the skip is exact.  Pads attend pads, so
+// pad x pad tiles stay live, and a block's own tiles always are; they come
+// first, so their loads start before the list is known.
 //
-// What bounds it (at the training shape [96, 12, 512, 64] bf16): q/k/v/dO
-// are 75.5 MB each.  dkv reads q, k, v, dO, lse, di and writes dK, dV:
-// ~458 MB, 0.137 ms at 3.35 TB/s, against four products of 2*S*S*D per
-// (b, h) = 155 GFLOP over all pairs, 0.157 ms at 989 TFLOP/s (bf16 dense).
-// dq reads the same and writes dQ: ~382 MB, 0.114 ms, against three
-// products, 116 GFLOP, 0.117 ms.  With ragged segments only same-segment
-// pairs count, so the bytes bound them.
+// What bounds it (at the training shape [96, 12, 512, 64] bf16, the
+// train step's lengths): q/k/v/o/dO are 75.5 MB each.  dq reads q, k, v,
+// o, dO, lse and writes dQ and di: ~460 MB, 0.137 ms at 3.35 TB/s; dkv
+// reads q, k, v, dO, lse, di and writes dK, dV: ~460 MB, 0.137 ms.  Their
+// three and four products over the same-segment pairs take less at 989
+// TFLOP/s, so bytes bound both.  What holds them back is not the bytes:
+// with no per-tile work at all (k2b_variants.py x_nocompute) the kernels
+// still take ~0.19-0.20 ms, the latency of each block's own tiles and
+// first streamed tiles with one block an SM, and the products add to that
+// time instead of hiding under it (see PERF.md).
+
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled_v12000
 
 #include <climits>
 
-#include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -64,321 +87,463 @@ struct BwdParams {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
+  const __nv_bfloat16* o;
   const __nv_bfloat16* dout;
   const int32_t* seg;
   const float* lse;  // [B, H, S]
-  const float* di;   // [B, H, S]
+  float* di;         // [B, H, S]: written by dq, read by dkv
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss;
   long long g_sb, g_sh, g_ss;  // strides of the gradients (one layout for all)
+  long long o_sb, o_sh, o_ss;
   int H, S;
   float scale;       // sm_scale
   float scale_log2;  // sm_scale * log2(e)
 };
 
-constexpr int kTileElems = kBlockN * kHeadDim;
-// dkv: K, V, 2 x Q, 2 x dO tiles, then 2 x 64 lse, di and segment ids
-constexpr int kDkvSmem = 6 * kTileElems * 2 + 3 * 2 * kBlockM * 4;
-// dq: Q, dO, 2 x K, 2 x V tiles, then 2 x 64 segment ids
-constexpr int kDqSmem = 6 * kTileElems * 2 + 2 * kBlockN * 4;
+constexpr int kGroups = 2;                    // consumer warpgroups a block, 64 rows each
+constexpr int kRows = 64 * kGroups;           // rows a block owns
+constexpr int kBlockThreads = 128 * kGroups;  // consumer threads; a producer warpgroup follows
+constexpr int kStages = 2;                    // of the ring of streamed tiles
+static_assert(kStages >= kGroups, "the diagonal tiles' loads take the first stages");
+// registers a thread: the producer warpgroup gives back all but 24, the
+// consumers take the rest of the register file (one block an SM)
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 
-__global__ void __launch_bounds__(kThreads) flash_attention_bwd_dkv_kernel(const BwdParams p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* v_s = k_s + kTileElems;
-  __nv_bfloat16* q_s = v_s + kTileElems;    // [2] tiles
-  __nv_bfloat16* do_s = q_s + 2 * kTileElems;  // [2] tiles
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTileElems);  // [2][64]
-  float* di_s = lse_s + 2 * kBlockM;                                // [2][64]
-  int32_t* seg_s = reinterpret_cast<int32_t*>(di_s + 2 * kBlockM);  // [2][64]
-
-  const int tiles_n = p.S / kBlockN;
-  const int n_tile = blockIdx.x % tiles_n;
-  const int bh = blockIdx.x / tiles_n;
-  const int h = bh % p.H, b = bh / p.H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // mma fragment row group, column pair
-  const int key0 = n_tile * kBlockN;
-
-  const __nv_bfloat16* qg = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* dog = p.dout + b * p.do_sb + h * p.do_sh;
-  const float* lseg = p.lse + static_cast<long long>(bh) * p.S;
-  const float* dig = p.di + static_cast<long long>(bh) * p.S;
-  const int32_t* segb = p.seg + static_cast<long long>(b) * p.S;
-  const int n_tiles = p.S / kBlockM;
-
-  auto load_q_tile = [&](int t, int buf) {
-    const long long row = static_cast<long long>(t) * kBlockM;
-    load_tile(q_s + buf * kTileElems, qg + row * p.q_ss, p.q_ss, tid);
-    load_tile(do_s + buf * kTileElems, dog + row * p.do_ss, p.do_ss, tid);
-    load_row_values(lse_s + buf * kBlockM, lseg + row, tid);
-    load_row_values(di_s + buf * kBlockM, dig + row, tid);
-    load_row_values(seg_s + buf * kBlockM, segb + row, tid);
-  };
-
-  load_tile(k_s, p.k + b * p.k_sb + h * p.k_sh + key0 * p.k_ss, p.k_ss, tid);
-  load_tile(v_s, p.v + b * p.v_sb + h * p.v_sh + key0 * p.v_ss, p.v_ss, tid);
-  load_q_tile(0, 0);
-  cp_async_commit();
-
-  // this thread's two keys: g and g + 8 of the warp's 16
-  const int krow = key0 + warp * 16 + g;
-  const int seg_k0 = segb[krow], seg_k1 = segb[krow + 8];
-
-  float dk[8][4], dv[8][4];  // one per 8-wide slice of D
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) {
-      load_q_tile(t + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* qt = q_s + buf * kTileElems;
-    const __nv_bfloat16* dot = do_s + buf * kTileElems;
-    const float* lse_t = lse_s + buf * kBlockM;
-    const float* di_t = di_s + buf * kBlockM;
-    const int32_t* seg_t = seg_s + buf * kBlockM;
-
-    // S^T = K Q^T for the warp's 16 keys and the tile's 64 queries
-    float st[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      uint32_t ka0[4], ka1[4];
-      load_a_fragment(ka0, k_s, warp, lane, half * 2);
-      load_a_fragment(ka1, k_s, warp, lane, half * 2 + 1);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t qb[4];
-        load_b_rows(qb, qt, lane, n, half);
-        mma_bf16(st[n], ka0, qb[0], qb[1]);
-        mma_bf16(st[n], ka1, qb[2], qb[3]);
-      }
-    }
-
-    // P^T = exp2(S^T * sm_scale * log2 e - lse * log2 e) on same-segment
-    // pairs, exactly 0 elsewhere; bf16 A fragments (rows = keys) for P^T dO
-    uint32_t pf[4][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int c = n * 8 + 2 * t4;  // the tile's queries c and c + 1
-      const int sq0 = seg_t[c], sq1 = seg_t[c + 1];
-      const float l0 = lse_t[c] * kLog2e, l1 = lse_t[c + 1] * kLog2e;
-      st[n][0] = sq0 == seg_k0 ? exp2f(st[n][0] * p.scale_log2 - l0) : 0.f;
-      st[n][1] = sq1 == seg_k0 ? exp2f(st[n][1] * p.scale_log2 - l1) : 0.f;
-      st[n][2] = sq0 == seg_k1 ? exp2f(st[n][2] * p.scale_log2 - l0) : 0.f;
-      st[n][3] = sq1 == seg_k1 ? exp2f(st[n][3] * p.scale_log2 - l1) : 0.f;
-      pf[n >> 1][(n & 1) * 2] = pack_bf16(st[n][0], st[n][1]);
-      pf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(st[n][2], st[n][3]);
-    }
-
-    // dV += P^T dO: 16-query slices against pairs of 8-wide D slices
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-#pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
-        uint32_t ob[4];
-        load_b_cols(ob, dot, lane, kc, dp);
-        mma_bf16(dv[dp * 2], pf[kc], ob[0], ob[1]);
-        mma_bf16(dv[dp * 2 + 1], pf[kc], ob[2], ob[3]);
-      }
-    }
-
-    // dP^T = V dO^T
-    float dpt[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      uint32_t va0[4], va1[4];
-      load_a_fragment(va0, v_s, warp, lane, half * 2);
-      load_a_fragment(va1, v_s, warp, lane, half * 2 + 1);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t ob[4];
-        load_b_rows(ob, dot, lane, n, half);
-        mma_bf16(dpt[n], va0, ob[0], ob[1]);
-        mma_bf16(dpt[n], va1, ob[2], ob[3]);
-      }
-    }
-
-    // dS^T = P^T (dP^T - di) * sm_scale as bf16 A fragments (pf reused)
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int c = n * 8 + 2 * t4;
-      const float d0 = di_t[c], d1 = di_t[c + 1];
-      pf[n >> 1][(n & 1) * 2] = pack_bf16(st[n][0] * (dpt[n][0] - d0) * p.scale,
-                                          st[n][1] * (dpt[n][1] - d1) * p.scale);
-      pf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(st[n][2] * (dpt[n][2] - d0) * p.scale,
-                                              st[n][3] * (dpt[n][3] - d1) * p.scale);
-    }
-
-    // dK += dS^T Q
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-#pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
-        uint32_t qb[4];
-        load_b_cols(qb, qt, lane, kc, dp);
-        mma_bf16(dk[dp * 2], pf[kc], qb[0], qb[1]);
-        mma_bf16(dk[dp * 2 + 1], pf[kc], qb[2], qb[3]);
-      }
-    }
-    __syncthreads();  // the next iteration's prefetch overwrites this buffer
-  }
-
-  // each warp read only its own rows of k_s and v_s: stage dK and dV there
-  const long long out = b * p.g_sb + h * p.g_sh + key0 * p.g_ss;
-  store_rows(p.dk + out, p.g_ss, k_s, dk, 1.f, 1.f, warp, lane);
-  store_rows(p.dv + out, p.g_ss, v_s, dv, 1.f, 1.f, warp, lane);
+// Shared memory (see Smem below): 1024 bytes of slack to put the tiles on a
+// 1024-byte boundary; n_own x kGroups own tiles and 2 x kStages streamed
+// tiles; 16 barrier slots; 3 x kStages x 64 row values; 3 ints a tile plus
+// one.
+int smem_bytes(int S, int n_own) {
+  return 1024 + (n_own * kGroups + 2 * kStages) * kTileBytes + 16 * 8 + 3 * kStages * 64 * 4 +
+         (3 * (S / 64) + 1) * 4;
 }
 
-__global__ void __launch_bounds__(kThreads) flash_attention_bwd_dq_kernel(const BwdParams p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* do_s = q_s + kTileElems;
-  __nv_bfloat16* k_s = do_s + kTileElems;     // [2] tiles
-  __nv_bfloat16* v_s = k_s + 2 * kTileElems;  // [2] tiles
-  int32_t* seg_s = reinterpret_cast<int32_t*>(v_s + 2 * kTileElems);  // [2][64]
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
 
-  const int tiles_m = p.S / kBlockM;
-  const int m_tile = blockIdx.x % tiles_m;
-  const int bh = blockIdx.x / tiles_m;
+// The min and max segment id of each 64-row tile of the batch row, and the
+// list of the streamed tiles whose [min, max] meets the block's own rows'
+// (the kGroups tiles from `own`): a tile outside it shares no segment with
+// any of the block's rows, so every P entry of the pair is 0 and it adds
+// exactly 0.  The list starts with the own tiles, which are always live, so
+// their loads can start before it is known.  Ends with the block
+// synchronised.
+__device__ void find_live_tiles(const int32_t* segb, int n_tiles, int own, int* tmin, int* tmax,
+                                int* live, int* n_live) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int t = warp; t < n_tiles; t += blockDim.x >> 5) {
+    const int a = segb[t * 64 + lane], c = segb[t * 64 + 32 + lane];
+    const int lo = __reduce_min_sync(0xffffffffu, min(a, c));
+    const int hi = __reduce_max_sync(0xffffffffu, max(a, c));
+    if (lane == 0) tmin[t] = lo, tmax[t] = hi;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int lo = tmin[own], hi = tmax[own];
+    for (int i = 1; i < kGroups; ++i) lo = min(lo, tmin[own + i]), hi = max(hi, tmax[own + i]);
+    int n = 0;
+    for (int i = 0; i < kGroups; ++i) live[n++] = own + i;
+    for (int t = 0; t < n_tiles; ++t) {
+      if ((t < own || t >= own + kGroups) && tmin[t] <= hi && lo <= tmax[t]) live[n++] = t;
+    }
+    *n_live = n;
+  }
+  __syncthreads();
+}
+
+// One streamed tile of 64 queries against the warpgroup's 64 keys (K and V
+// as A registers kf, vf): dV += P^T dO, dK += dS^T Q.  seg_k0/1 are
+// the segment ids of this thread's two keys (rows g and g + 8 of its
+// warp's 16).
+__device__ __forceinline__ void dkv_tile(float (&dk)[8][4], float (&dv)[8][4],
+                                         const uint32_t (&kf)[4][4], const uint32_t (&vf)[4][4],
+                                         const __nv_bfloat16* qt,
+                                         const __nv_bfloat16* dot, const float* lse_t,
+                                         const float* di_t, const int32_t* seg_t, int seg_k0,
+                                         int seg_k1, int t4, float scale, float scale_log2) {
+  const uint64_t qd = tile_desc(qt), dod = tile_desc(dot);
+  float st[8][4], dpt[8][4];
+  zero(st);
+  zero(dpt);
+  wgmma_fence();
+  gemm_rs<0>(st, kf, qd);  // S^T = K Q^T
+  wgmma_commit();
+  gemm_rs<0>(dpt, vf, dod);  // dP^T = V dO^T
+  wgmma_commit();
+  wgmma_wait<1>();
+  pin(st);
+
+  // P^T = exp2(S^T * sm_scale * log2 e - lse * log2 e) on same-segment
+  // pairs, exactly 0 elsewhere; bf16 A registers (rows = keys) for P^T dO
+  uint32_t pf[4][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int c = n * 8 + 2 * t4;  // the tile's queries c and c + 1
+    const int sq0 = seg_t[c], sq1 = seg_t[c + 1];
+    const float l0 = lse_t[c] * kLog2e, l1 = lse_t[c + 1] * kLog2e;
+    st[n][0] = sq0 == seg_k0 ? exp2_approx(st[n][0] * scale_log2 - l0) : 0.f;
+    st[n][1] = sq1 == seg_k0 ? exp2_approx(st[n][1] * scale_log2 - l1) : 0.f;
+    st[n][2] = sq0 == seg_k1 ? exp2_approx(st[n][2] * scale_log2 - l0) : 0.f;
+    st[n][3] = sq1 == seg_k1 ? exp2_approx(st[n][3] * scale_log2 - l1) : 0.f;
+    pf[n >> 1][(n & 1) * 2] = pack_bf16(st[n][0], st[n][1]);
+    pf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(st[n][2], st[n][3]);
+  }
+  wgmma_fence();
+  gemm_rs<1>(dv, pf, dod);  // dV += P^T dO
+  wgmma_commit();
+  wgmma_wait<1>();
+  pin(dpt);
+
+  // dS^T = P^T (dP^T - di) * sm_scale as bf16 A registers
+  uint32_t dsf[4][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int c = n * 8 + 2 * t4;
+    const float d0 = di_t[c], d1 = di_t[c + 1];
+    dsf[n >> 1][(n & 1) * 2] =
+        pack_bf16(st[n][0] * (dpt[n][0] - d0) * scale, st[n][1] * (dpt[n][1] - d1) * scale);
+    dsf[n >> 1][(n & 1) * 2 + 1] =
+        pack_bf16(st[n][2] * (dpt[n][2] - d0) * scale, st[n][3] * (dpt[n][3] - d1) * scale);
+  }
+  wgmma_fence();
+  gemm_rs<1>(dk, dsf, qd);  // dK += dS^T Q
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(pf);
+  pin(dsf);
+  pin(dv);
+  pin(dk);
+}
+
+// One streamed tile of 64 keys against the warpgroup's 64 queries (Q and dO
+// as A registers qf, df): dQ += dS K.  seg_q0/1, lse0/1 (log2
+// units) and di0/1 belong to this thread's two query rows.
+__device__ __forceinline__ void dq_tile(float (&dq)[8][4], const uint32_t (&qf)[4][4],
+                                        const uint32_t (&df)[4][4],
+                                        const __nv_bfloat16* kt, const __nv_bfloat16* vt,
+                                        const int32_t* seg_t, int seg_q0, int seg_q1, float lse0,
+                                        float lse1, float di0, float di1, int t4, float scale,
+                                        float scale_log2) {
+  const uint64_t kd = tile_desc(kt), vd = tile_desc(vt);
+  float s[8][4], dpm[8][4];
+  zero(s);
+  zero(dpm);
+  wgmma_fence();
+  gemm_rs<0>(s, qf, kd);  // S = Q K^T
+  wgmma_commit();
+  gemm_rs<0>(dpm, df, vd);  // dP = dO V^T
+  wgmma_commit();
+  wgmma_wait<1>();
+  pin(s);
+
+  // P, exactly 0 across segments (in place of S)
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int c = n * 8 + 2 * t4;  // the tile's keys c and c + 1
+    const int sk0 = seg_t[c], sk1 = seg_t[c + 1];
+    s[n][0] = sk0 == seg_q0 ? exp2_approx(s[n][0] * scale_log2 - lse0) : 0.f;
+    s[n][1] = sk1 == seg_q0 ? exp2_approx(s[n][1] * scale_log2 - lse0) : 0.f;
+    s[n][2] = sk0 == seg_q1 ? exp2_approx(s[n][2] * scale_log2 - lse1) : 0.f;
+    s[n][3] = sk1 == seg_q1 ? exp2_approx(s[n][3] * scale_log2 - lse1) : 0.f;
+  }
+  wgmma_wait<0>();
+  pin(dpm);
+
+  // dS = P (dP - di) * sm_scale as bf16 A registers (rows = queries)
+  uint32_t dsf[4][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    dsf[n >> 1][(n & 1) * 2] =
+        pack_bf16(s[n][0] * (dpm[n][0] - di0) * scale, s[n][1] * (dpm[n][1] - di0) * scale);
+    dsf[n >> 1][(n & 1) * 2 + 1] =
+        pack_bf16(s[n][2] * (dpm[n][2] - di1) * scale, s[n][3] * (dpm[n][3] - di1) * scale);
+  }
+  wgmma_fence();
+  gemm_rs<1>(dq, dsf, kd);  // dQ += dS K
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(dsf);
+  pin(dq);
+}
+
+// The block's shared memory: each consumer warpgroup's own tiles (K, V in
+// dkv; Q, dO, O in dq), the ring of streamed tiles (Q, dO in dkv; K, V in
+// dq) with their row values (lse, di, segment ids in dkv; segment ids in
+// dq), the barriers, and each tile's min and max segment id with the live
+// list.
+struct Smem {
+  __nv_bfloat16* own;     // [n_own][kGroups] tiles
+  __nv_bfloat16* stream;  // [kStages][2] tiles
+  uint64_t* full;         // [kStages]: a stage's loads have landed
+  uint64_t* empty;        // [kStages]: the consumers are done with a stage
+  uint64_t* own_full;     // the own tiles have landed
+  float* rows;            // [3][kStages][64]
+  int* tmin;
+  int* tmax;
+  int* live;
+  int* n_live;
+
+  __device__ __forceinline__ __nv_bfloat16* own_tile(int which, int group) const {
+    return own + (which * kGroups + group) * kTileElems;
+  }
+  __device__ __forceinline__ __nv_bfloat16* stream_tile(int stage, int which) const {
+    return stream + (stage * 2 + which) * kTileElems;
+  }
+  __device__ __forceinline__ float* row_values(int which, int stage) const {
+    return rows + (which * kStages + stage) * 64;
+  }
+};
+
+__device__ __forceinline__ Smem carve(unsigned char* raw, int n_tiles, int n_own) {
+  Smem m;
+  m.own = reinterpret_cast<__nv_bfloat16*>(align_1024(raw));
+  m.stream = m.own + n_own * kGroups * kTileElems;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(m.stream + 2 * kStages * kTileElems);
+  m.full = bars;
+  m.empty = bars + kStages;
+  m.own_full = bars + 2 * kStages;
+  m.rows = reinterpret_cast<float*>(bars + 16);
+  m.tmin = reinterpret_cast<int*>(m.rows + 3 * kStages * 64);
+  m.tmax = m.tmin + n_tiles;
+  m.live = m.tmax + n_tiles;
+  m.n_live = m.live + n_tiles;
+  return m;
+}
+
+// Set-up of both kernels, by all threads.  The producer's first thread sets
+// up the barriers and starts the loads of the own tiles (`load_own`, on
+// own_full, `own_bytes` in all) and of the block's diagonal tiles into the
+// first stages (`load(t, stage)`); then every thread helps find the live
+// tiles.  Ends with the block synchronised.
+template <typename LoadOwn, typename Load>
+__device__ __forceinline__ void set_up(const Smem& m, const int32_t* segb, int n_tiles, int blk,
+                                       uint32_t own_bytes, LoadOwn load_own, uint32_t bytes,
+                                       Load load) {
+  if (threadIdx.x == kBlockThreads) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&m.full[i], 1);
+      mbar_init(&m.empty[i], kBlockThreads);
+    }
+    mbar_init(m.own_full, 1);
+    mbar_fence_init();
+    mbar_expect_tx(m.own_full, own_bytes);
+    load_own();
+    for (int i = 0; i < kGroups; ++i) {
+      mbar_expect_tx(&m.full[i], bytes);
+      load(kGroups * blk + i, i);
+    }
+  }
+  find_live_tiles(segb, n_tiles, kGroups * blk, m.tmin, m.tmax, m.live, m.n_live);
+}
+
+// The producer's loop (one thread), after set_up's first loads: for
+// each further live tile, wait until the consumers have left its stage,
+// then start its loads (`load(t, stage)`, `bytes` in all) on the stage's
+// full barrier.
+template <typename Load>
+__device__ __forceinline__ void produce(const Smem& m, uint32_t bytes, Load load) {
+  const int n_live = *m.n_live;
+  for (int i = kGroups; i < n_live; ++i) {
+    const int stage = i % kStages;
+    if (i >= kStages) mbar_wait(&m.empty[stage], (i / kStages - 1) & 1);
+    mbar_expect_tx(&m.full[stage], bytes);
+    load(m.live[i], stage);
+  }
+}
+
+// The consumers' loop: for each live tile, wait for its stage, run `tile`
+// on it if it meets the warpgroup's own rows (segment ids in [lo, hi]),
+// and release the stage.
+template <typename Tile>
+__device__ __forceinline__ void consume(const Smem& m, int lo, int hi, Tile tile) {
+  const int n_live = *m.n_live;
+  for (int i = 0; i < n_live; ++i) {
+    const int stage = i % kStages, t = m.live[i];
+    mbar_wait(&m.full[stage], (i / kStages) & 1);
+    if (m.tmin[t] <= hi && lo <= m.tmax[t]) tile(stage);
+    mbar_arrive(&m.empty[stage]);
+  }
+}
+
+__global__ void __launch_bounds__(kBlockThreads + 128, 1)
+    flash_attention_bwd_dkv_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
+                                   const __grid_constant__ CUtensorMap map_k,
+                                   const __grid_constant__ CUtensorMap map_v,
+                                   const __grid_constant__ CUtensorMap map_do,
+                                   const __grid_constant__ CUtensorMap) {
+  extern __shared__ unsigned char smem_raw[];
+  const int n_tiles = p.S / 64;
+  const Smem m = carve(smem_raw, n_tiles, 2);
+  const int blocks = p.S / kRows;
+  const int blk = blockIdx.x % blocks, bh = blockIdx.x / blocks;
   const int h = bh % p.H, b = bh / p.H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int row0 = m_tile * kBlockM;
-
-  const __nv_bfloat16* kg = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vg = p.v + b * p.v_sb + h * p.v_sh;
+  const int tid = threadIdx.x, wg = tid >> 7, wtid = tid & 127;
   const int32_t* segb = p.seg + static_cast<long long>(b) * p.S;
-  const int n_tiles = p.S / kBlockN;
+  const float* lseg = p.lse + static_cast<long long>(bh) * p.S;
+  const float* dig = p.di + static_cast<long long>(bh) * p.S;
 
-  auto load_kv = [&](int t, int buf) {
-    const long long row = static_cast<long long>(t) * kBlockN;
-    load_tile(k_s + buf * kTileElems, kg + row * p.k_ss, p.k_ss, tid);
-    load_tile(v_s + buf * kTileElems, vg + row * p.v_ss, p.v_ss, tid);
-    load_row_values(seg_s + buf * kBlockN, segb + row, tid);
+  // a streamed tile t into a stage: Q, dO, and the queries' lse, di and
+  // segment ids
+  const uint32_t bytes = 2 * kTileBytes + 3 * 256;
+  auto load = [&](int t, int stage) {
+    tma_load_tile(m.stream_tile(stage, 0), &map_q, &m.full[stage], h, t * 64, b);
+    tma_load_tile(m.stream_tile(stage, 1), &map_do, &m.full[stage], h, t * 64, b);
+    bulk_load(m.row_values(0, stage), lseg + t * 64, 256, &m.full[stage]);
+    bulk_load(m.row_values(1, stage), dig + t * 64, 256, &m.full[stage]);
+    bulk_load(m.row_values(2, stage), segb + t * 64, 256, &m.full[stage]);
   };
-
-  load_tile(q_s, p.q + b * p.q_sb + h * p.q_sh + row0 * p.q_ss, p.q_ss, tid);
-  load_tile(do_s, p.dout + b * p.do_sb + h * p.do_sh + row0 * p.do_ss, p.do_ss, tid);
-  load_kv(0, 0);
-  cp_async_commit();
-
-  // this thread's two query rows: g and g + 8 of the warp's 16
-  const int qrow = row0 + warp * 16 + g;
-  const long long rows = static_cast<long long>(bh) * p.S + qrow;
-  const int seg_q0 = segb[qrow], seg_q1 = segb[qrow + 8];
-  const float lse0 = p.lse[rows] * kLog2e, lse1 = p.lse[rows + 8] * kLog2e;
-  const float di0 = p.di[rows], di1 = p.di[rows + 8];
-
-  uint32_t qf[4][4], df[4][4];  // Q and dO as A fragments, one per 16-wide slice of D
-  float dq[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) {
-      load_kv(t + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  set_up(m, segb, n_tiles, blk, 2 * kGroups * kTileBytes, [&] {
+    for (int w = 0; w < kGroups; ++w) {
+      tma_load_tile(m.own_tile(0, w), &map_k, m.own_full, h, blk * kRows + w * 64, b);
+      tma_load_tile(m.own_tile(1, w), &map_v, m.own_full, h, blk * kRows + w * 64, b);
     }
-    __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        load_a_fragment(qf[kc], q_s, warp, lane, kc);
-        load_a_fragment(df[kc], do_s, warp, lane, kc);
-      }
-    }
-    const __nv_bfloat16* kt = k_s + buf * kTileElems;
-    const __nv_bfloat16* vt = v_s + buf * kTileElems;
-    const int32_t* seg_t = seg_s + buf * kBlockN;
-
-    // S = Q K^T and dP = dO V^T for the warp's 16 queries and 64 keys
-    float s[8][4], dpm[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dpm[n][0] = dpm[n][1] = dpm[n][2] = dpm[n][3] = 0.f;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        uint32_t kb[4], vb[4];
-        load_b_rows(kb, kt, lane, n, half);
-        mma_bf16(s[n], qf[half * 2], kb[0], kb[1]);
-        mma_bf16(s[n], qf[half * 2 + 1], kb[2], kb[3]);
-        load_b_rows(vb, vt, lane, n, half);
-        mma_bf16(dpm[n], df[half * 2], vb[0], vb[1]);
-        mma_bf16(dpm[n], df[half * 2 + 1], vb[2], vb[3]);
-      }
-    }
-
-    // dS = P (dP - di) * sm_scale, P exactly 0 across segments; bf16 A
-    // fragments (rows = queries) for dS K
-    uint32_t dsf[4][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int c = n * 8 + 2 * t4;  // the tile's keys c and c + 1
-      const int sk0 = seg_t[c], sk1 = seg_t[c + 1];
-      const float p0 = sk0 == seg_q0 ? exp2f(s[n][0] * p.scale_log2 - lse0) : 0.f;
-      const float p1 = sk1 == seg_q0 ? exp2f(s[n][1] * p.scale_log2 - lse0) : 0.f;
-      const float p2 = sk0 == seg_q1 ? exp2f(s[n][2] * p.scale_log2 - lse1) : 0.f;
-      const float p3 = sk1 == seg_q1 ? exp2f(s[n][3] * p.scale_log2 - lse1) : 0.f;
-      dsf[n >> 1][(n & 1) * 2] =
-          pack_bf16(p0 * (dpm[n][0] - di0) * p.scale, p1 * (dpm[n][1] - di0) * p.scale);
-      dsf[n >> 1][(n & 1) * 2 + 1] =
-          pack_bf16(p2 * (dpm[n][2] - di1) * p.scale, p3 * (dpm[n][3] - di1) * p.scale);
-    }
-
-    // dQ += dS K: 16-key slices against pairs of 8-wide D slices
+  }, bytes, load);
+  if (wg == kGroups) {  // the producer warpgroup: one thread issues every load
+    setmaxnreg_dec<kProducerRegs>();
+    if (wtid == 0) produce(m, bytes, load);
+  } else {  // the consumer warpgroups: 64 keys each
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = wtid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+    const int key0 = blk * kRows + wg * 64;  // the warpgroup's first key
+    // this thread's two keys: g and g + 8 of its warp's 16
+    const int seg_k0 = segb[key0 + warp * 16 + g], seg_k1 = segb[key0 + warp * 16 + g + 8];
+    __nv_bfloat16* kt_own = m.own_tile(0, wg);
+    __nv_bfloat16* vt_own = m.own_tile(1, wg);
+    float dk[8][4], dv[8][4];
+    zero(dk);
+    zero(dv);
+    mbar_wait(m.own_full, 0);
+    uint32_t kf[4][4], vf[4][4];  // K and V as A registers, one per 16-wide slice of D
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
+      load_a_fragment(kf[kc], kt_own, warp, lane, kc);
+      load_a_fragment(vf[kc], vt_own, warp, lane, kc);
+    }
+    consume(m, m.tmin[kGroups * blk + wg], m.tmax[kGroups * blk + wg], [&](int stage) {
+      dkv_tile(dk, dv, kf, vf, m.stream_tile(stage, 0), m.stream_tile(stage, 1),
+               m.row_values(0, stage), m.row_values(1, stage),
+               reinterpret_cast<const int32_t*>(m.row_values(2, stage)), seg_k0, seg_k1, t4,
+               p.scale, p.scale_log2);
+    });
+
+    // each warp read only its own warpgroup's K and V tiles: stage dK and dV there
+    const long long out = b * p.g_sb + h * p.g_sh + key0 * p.g_ss;
+    store_rows(p.dk + out, p.g_ss, kt_own, dk, 1.f, 1.f, warp, lane);
+    store_rows(p.dv + out, p.g_ss, vt_own, dv, 1.f, 1.f, warp, lane);
+  }
+}
+
+__global__ void __launch_bounds__(kBlockThreads + 128, 1)
+    flash_attention_bwd_dq_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
+                                  const __grid_constant__ CUtensorMap map_k,
+                                  const __grid_constant__ CUtensorMap map_v,
+                                  const __grid_constant__ CUtensorMap map_do,
+                                  const __grid_constant__ CUtensorMap map_o) {
+  extern __shared__ unsigned char smem_raw[];
+  const int n_tiles = p.S / 64;
+  const Smem m = carve(smem_raw, n_tiles, 3);
+  const int blocks = p.S / kRows;
+  const int blk = blockIdx.x % blocks, bh = blockIdx.x / blocks;
+  const int h = bh % p.H, b = bh / p.H;
+  const int tid = threadIdx.x, wg = tid >> 7, wtid = tid & 127;
+  const int32_t* segb = p.seg + static_cast<long long>(b) * p.S;
+
+  // a streamed tile t into a stage: K, V and the keys' segment ids
+  const uint32_t bytes = 2 * kTileBytes + 256;
+  auto load = [&](int t, int stage) {
+    tma_load_tile(m.stream_tile(stage, 0), &map_k, &m.full[stage], h, t * 64, b);
+    tma_load_tile(m.stream_tile(stage, 1), &map_v, &m.full[stage], h, t * 64, b);
+    bulk_load(m.row_values(0, stage), segb + t * 64, 256, &m.full[stage]);
+  };
+  set_up(m, segb, n_tiles, blk, 3 * kGroups * kTileBytes, [&] {
+    for (int w = 0; w < kGroups; ++w) {
+      tma_load_tile(m.own_tile(0, w), &map_q, m.own_full, h, blk * kRows + w * 64, b);
+      tma_load_tile(m.own_tile(1, w), &map_do, m.own_full, h, blk * kRows + w * 64, b);
+      tma_load_tile(m.own_tile(2, w), &map_o, m.own_full, h, blk * kRows + w * 64, b);
+    }
+  }, bytes, load);
+  if (wg == kGroups) {  // the producer warpgroup: one thread issues every load
+    setmaxnreg_dec<kProducerRegs>();
+    if (wtid == 0) produce(m, bytes, load);
+  } else {  // the consumer warpgroups: 64 queries each
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = wtid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+    const int row0 = blk * kRows + wg * 64;  // the warpgroup's first query
+    __nv_bfloat16* qt_own = m.own_tile(0, wg);
+    const __nv_bfloat16* dot_own = m.own_tile(1, wg);
+    const __nv_bfloat16* ot_own = m.own_tile(2, wg);
+    float* di_s = m.row_values(1, 0);  // [kRows]: the block's di
+    mbar_wait(m.own_full, 0);
+
+    // di of the warpgroup's 64 rows from its O and dO tiles: two threads a
+    // row, 32 products each, in f32
+    {
+      const int r = wtid >> 1, half = wtid & 1;
+      float sum = 0.f;
 #pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
-        uint32_t kb[4];
-        load_b_cols(kb, kt, lane, kc, dp);
-        mma_bf16(dq[dp * 2], dsf[kc], kb[0], kb[1]);
-        mma_bf16(dq[dp * 2 + 1], dsf[kc], kb[2], kb[3]);
+      for (int j = 0; j < 4; ++j) {
+        const int ch = half * 4 + j;
+        const uint4 ov = *reinterpret_cast<const uint4*>(ot_own + swz(r, ch * 8));
+        const uint4 dv = *reinterpret_cast<const uint4*>(dot_own + swz(r, ch * 8));
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 a = __bfloat1622float2(o2[e]), c = __bfloat1622float2(d2[e]);
+          sum += a.x * c.x + a.y * c.y;
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      if (half == 0) {
+        di_s[wg * 64 + r] = sum;
+        p.di[static_cast<long long>(bh) * p.S + row0 + r] = sum;
       }
     }
-    __syncthreads();  // the next iteration's prefetch overwrites this buffer
-  }
+    named_sync(1 + wg, 128);
 
-  // each warp read only its own rows of q_s: stage dQ there
-  store_rows(p.dq + b * p.g_sb + h * p.g_sh + row0 * p.g_ss, p.g_ss, q_s, dq, 1.f, 1.f, warp,
-             lane);
+    // this thread's two query rows: g and g + 8 of its warp's 16
+    const int r0 = warp * 16 + g;
+    const long long rows = static_cast<long long>(bh) * p.S + row0 + r0;
+    const int seg_q0 = segb[row0 + r0], seg_q1 = segb[row0 + r0 + 8];
+    const float lse0 = p.lse[rows] * kLog2e, lse1 = p.lse[rows + 8] * kLog2e;
+    const float di0 = di_s[wg * 64 + r0], di1 = di_s[wg * 64 + r0 + 8];
+    uint32_t qf[4][4], df[4][4];  // Q and dO as A registers, one per 16-wide slice of D
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      load_a_fragment(qf[kc], qt_own, warp, lane, kc);
+      load_a_fragment(df[kc], dot_own, warp, lane, kc);
+    }
+    float dq[8][4];
+    zero(dq);
+    consume(m, m.tmin[kGroups * blk + wg], m.tmax[kGroups * blk + wg], [&](int stage) {
+      dq_tile(dq, qf, df, m.stream_tile(stage, 0), m.stream_tile(stage, 1),
+              reinterpret_cast<const int32_t*>(m.row_values(0, stage)), seg_q0, seg_q1, lse0,
+              lse1, di0, di1, t4, p.scale, p.scale_log2);
+    });
+
+    // each warp read only its own warpgroup's Q tile: stage dQ there
+    store_rows(p.dq + b * p.g_sb + h * p.g_sh + row0 * p.g_ss, p.g_ss, qt_own, dq, 1.f, 1.f,
+               warp, lane);
+  }
 }
 
 int fill_params(BwdParams& p, const void* q, const void* k, const void* v, const void* dout,
-                const int32_t* seg, const float* lse, const float* di, int B, int H, int S,
+                const int32_t* seg, const float* lse, int B, int H, int S,
                 const long long* strides, float sm_scale, long long* blocks) {
-  if (S <= 0 || S % kBlockM || S % kBlockN) return static_cast<int>(cudaErrorInvalidValue);
-  *blocks = static_cast<long long>(B) * H * (S / kBlockM);
+  if (S <= 0 || S % kRows) return static_cast<int>(cudaErrorInvalidValue);
+  *blocks = static_cast<long long>(B) * H * (S / kRows);
   if (*blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  p = BwdParams{};
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.dout = static_cast<const __nv_bfloat16*>(dout);
   p.seg = seg;
   p.lse = lse;
-  p.di = di;
-  p.dq = p.dk = p.dv = nullptr;
   p.q_sb = strides[0], p.q_sh = strides[1], p.q_ss = strides[2];
   p.k_sb = strides[3], p.k_sh = strides[4], p.k_ss = strides[5];
   p.v_sb = strides[6], p.v_sh = strides[7], p.v_ss = strides[8];
@@ -391,15 +556,102 @@ int fill_params(BwdParams& p, const void* q, const void* k, const void* v, const
   return 0;
 }
 
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime (the
+// libraries link nothing but the runtime nvcc links by default).  Its
+// signature is CUDA 12.0's (PFN_cuTensorMapEncodeTiled_v12000); from
+// CUDA 12.5 the runtime asks for it by that version.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) ptr = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+  }();
+  return fn;
+}
+
+// A 4-D tensor map (D, H, S, B) over a bf16 [B, H, S, 64] view with these
+// element strides, its box one 64 x 64 tile of one (b, h), swizzled by 128
+// bytes as wgmma's descriptors read it.
+int encode_tile_map(CUtensorMap* map, const void* base, int B, int H, int S, long long sb,
+                    long long sh, long long ss) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHeadDim), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {kHeadDim, 1, 64, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Encode the tensor maps of q, k, v, dO and o (dkv reads no o: its map is
+// dO's again) and launch `kernel` with `n_own` own tiles a warpgroup.
+template <typename Kernel>
+int launch(Kernel kernel, int n_own, const BwdParams& p, int B, long long blocks,
+           cudaStream_t stream) {
+  // a runtime call first: it makes the device's context current in this
+  // thread (autograd runs the backward on a thread of its own), which the
+  // driver's encoder needs
+  const int smem = smem_bytes(p.S, n_own);
+  int err = static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  if (err != 0) return err;
+  struct View {
+    const void* base;
+    long long sb, sh, ss;
+  };
+  const View o = p.o ? View{p.o, p.o_sb, p.o_sh, p.o_ss} : View{p.dout, p.do_sb, p.do_sh, p.do_ss};
+  const View ts[5] = {{p.q, p.q_sb, p.q_sh, p.q_ss}, {p.k, p.k_sb, p.k_sh, p.k_ss},
+                      {p.v, p.v_sb, p.v_sh, p.v_ss}, {p.dout, p.do_sb, p.do_sh, p.do_ss}, o};
+  CUtensorMap maps[5];
+  for (int i = 0; i < 5; ++i) {
+    err = encode_tile_map(&maps[i], ts[i].base, B, p.H, p.S, ts[i].sb, ts[i].sh, ts[i].ss);
+    if (err != 0) return err;
+  }
+  kernel<<<static_cast<unsigned>(blocks), kBlockThreads + 128, smem, stream>>>(
+      p, maps[0], maps[1], maps[2], maps[3], maps[4]);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// strides: 15 values, (b, h, s) strides in elements of q, k, v, dout and of
-// the gradient outputs (which share one layout), in that order.  Each entry
-// returns the first CUDA error of setting the kernel's shared memory size
-// and launching it (0 = launched).  The caller has checked shapes, dtypes
-// (bf16, int32 seg, contiguous f32 lse and di), D == 64, S % 128 == 0, a
-// contiguous D, strides that are multiples of 8 elements and 16-byte
-// aligned pointers.
+// strides: (b, h, s) strides in elements of q, k, v, dout and of the
+// gradient outputs (which share one layout), in that order (15 values), and
+// for dq then those of o (18).  Each entry returns the first CUDA error of
+// setting the kernel's shared memory size and launching it (0 = launched).
+// The caller has checked shapes, dtypes (bf16, int32 seg, contiguous f32
+// lse and di), D == 64, S % 128 == 0, a contiguous D, strides that are
+// multiples of 8 elements and 16-byte aligned pointers.
+extern "C" int mfar_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+                                           const void* o, const void* dout, const int32_t* seg,
+                                           const float* lse, void* dq, float* di, int B, int H,
+                                           int S, const long long* strides, float sm_scale,
+                                           cudaStream_t stream) {
+  if (B == 0 || H == 0) return 0;
+  BwdParams p;
+  long long blocks = 0;
+  int err = fill_params(p, q, k, v, dout, seg, lse, B, H, S, strides, sm_scale, &blocks);
+  if (err != 0) return err;
+  p.o = static_cast<const __nv_bfloat16*>(o);
+  p.o_sb = strides[15], p.o_sh = strides[16], p.o_ss = strides[17];
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.di = di;
+  return launch(flash_attention_bwd_dq_kernel, 3, p, B, blocks, stream);
+}
+
 extern "C" int mfar_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                             const void* dout, const int32_t* seg,
                                             const float* lse, const float* di, void* dk,
@@ -409,31 +661,10 @@ extern "C" int mfar_flash_attention_bwd_dkv(const void* q, const void* k, const 
   if (B == 0 || H == 0) return 0;
   BwdParams p;
   long long blocks = 0;
-  int err = fill_params(p, q, k, v, dout, seg, lse, di, B, H, S, strides, sm_scale, &blocks);
+  int err = fill_params(p, q, k, v, dout, seg, lse, B, H, S, strides, sm_scale, &blocks);
   if (err != 0) return err;
+  p.di = const_cast<float*>(di);  // read only
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
-  err = static_cast<int>(cudaFuncSetAttribute(
-      flash_attention_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem));
-  if (err != 0) return err;
-  flash_attention_bwd_dkv_kernel<<<static_cast<unsigned>(blocks), kThreads, kDkvSmem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int mfar_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
-                                           const void* dout, const int32_t* seg,
-                                           const float* lse, const float* di, void* dq, int B,
-                                           int H, int S, const long long* strides,
-                                           float sm_scale, cudaStream_t stream) {
-  if (B == 0 || H == 0) return 0;
-  BwdParams p;
-  long long blocks = 0;
-  int err = fill_params(p, q, k, v, dout, seg, lse, di, B, H, S, strides, sm_scale, &blocks);
-  if (err != 0) return err;
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  err = static_cast<int>(cudaFuncSetAttribute(
-      flash_attention_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem));
-  if (err != 0) return err;
-  flash_attention_bwd_dq_kernel<<<static_cast<unsigned>(blocks), kThreads, kDqSmem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return launch(flash_attention_bwd_dkv_kernel, 2, p, B, blocks, stream);
 }

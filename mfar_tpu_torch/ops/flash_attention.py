@@ -14,15 +14,17 @@ replaces the call of JAX's library Pallas kernel at
 ``mfar_tpu/models/encoder.py:170``.  When grad is enabled and an input
 requires it, the call goes through a ``torch.autograd.Function`` whose
 forward also writes each row's logsumexp and whose backward runs the two
-kernels of ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd_dkv`,
-:func:`flash_attention_bwd_dq`), which replace the Pallas kernels of JAX's
-VJP.  :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain` are
-the same functions in plain PyTorch, in f32: the wrappers use them for CPU
+kernels of ``csrc/flash_attention_bwd.cu``, which replace the Pallas kernels
+of JAX's VJP: first :func:`flash_attention_bwd_dq`, which also computes the
+row dots ``di = sum_d o * dO`` (JAX computes them outside Pallas) and
+writes them out, then :func:`flash_attention_bwd_dkv`, which reads them.
+:func:`flash_attention_plain` and :func:`flash_attention_bwd_plain` are the
+same functions in plain PyTorch, in f32: the wrappers use them for CPU
 tensors only, and the tests and ``chip_smoke.py`` hold the kernels against
 them.
 
 The kernels take bf16 with D = 64 and S a multiple of 128.  They read
-q/k/v (and the backward's dO) through their strides, so the
+q/k/v (and the backward's o and dO) through their strides, so the
 ``[B, S, H, D] -> [B, H, S, D]`` transposed views of the encoder's
 projections need no copy, and they write outputs and gradients laid out as
 ``[B, S, H, D]``, so the way back to ``[B, S, H*D]`` is free too.
@@ -95,8 +97,8 @@ def flash_attention_bwd_plain(
 
 
 def _row_dots(o: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
-    """di = sum_d o * dO in f32, ``[B, H, S]`` contiguous: a torch op, as
-    JAX computes it outside its Pallas kernels."""
+    """di = sum_d o * dO in f32, ``[B, H, S]`` contiguous: the plain
+    backward's torch op (on the card kernel dq computes it)."""
     return (o.float() * dout.float()).sum(-1).contiguous()
 
 
@@ -181,17 +183,16 @@ def _kernel():
 @functools.cache
 def _bwd_kernels():
     lib = _build.load("flash_attention_bwd")
-    common = [ctypes.c_void_p] * 7  # q k v dout seg lse di
     tail = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H S
-        ctypes.POINTER(ctypes.c_longlong),  # 15 strides: q, k, v, dout, gradients
+        ctypes.POINTER(ctypes.c_longlong),  # strides: q, k, v, dout, gradients (dq: then o)
         ctypes.c_float, ctypes.c_void_p,  # sm_scale, stream
     ]
-    dkv, dq = lib.mfar_flash_attention_bwd_dkv, lib.mfar_flash_attention_bwd_dq
-    dkv.argtypes = common + [ctypes.c_void_p, ctypes.c_void_p] + tail  # dk, dv
-    dq.argtypes = common + [ctypes.c_void_p] + tail  # dq
-    dkv.restype = dq.restype = ctypes.c_int
-    return dkv, dq
+    dq, dkv = lib.mfar_flash_attention_bwd_dq, lib.mfar_flash_attention_bwd_dkv
+    dq.argtypes = [ctypes.c_void_p] * 9 + tail  # q k v o dout seg lse, dq di
+    dkv.argtypes = [ctypes.c_void_p] * 9 + tail  # q k v dout seg lse di, dk dv
+    dq.restype = dkv.restype = ctypes.c_int
+    return dq, dkv
 
 
 def _launch_forward(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tensor:
@@ -280,11 +281,12 @@ def flash_attention_bwd(
     dout: torch.Tensor,  # gradient of the output, any strides
     sm_scale: float,
 ) -> Grads:
-    """dq, dk, dv of :func:`flash_attention`: ``di`` as a torch op, then
-    kernels dkv and dq for CUDA tensors; :func:`flash_attention_bwd_plain`
+    """dq, dk, dv of :func:`flash_attention`: kernel dq (which also writes
+    ``di``), then kernel dkv, for CUDA tensors; :func:`flash_attention_bwd_plain`
     for CPU tensors.  On the card the gradients are ``[B, H, S, D]`` views
-    of ``[B, S, H, D]`` buffers.  A dO that the kernels cannot read through
-    its strides is copied once (counted in ``flash_attention_bwd.dout_copies``)."""
+    of ``[B, S, H, D]`` buffers, and no torch op computes ``di``.  A dO that
+    the kernels cannot read through its strides is copied once (counted in
+    ``flash_attention_bwd.dout_copies``); an ``o`` they cannot read raises."""
     _check_inputs(q, k, v, segment_ids)
     if dout.shape != q.shape or o.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError(
@@ -293,15 +295,15 @@ def flash_attention_bwd(
         )
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, segment_ids, o, lse, dout, sm_scale)
-    if dout.dtype != q.dtype or lse.dtype != torch.float32:
-        raise TypeError(f"dout {dout.dtype} (want {q.dtype}), lse {lse.dtype} (want float32)")
+    if dout.dtype != q.dtype or o.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError(f"o {o.dtype}, dout {dout.dtype} (want {q.dtype}), lse {lse.dtype} "
+                        f"(want float32)")
     if not _kernel_readable(dout):
         dout = dout.contiguous()
         flash_attention_bwd.dout_copies += 1
     lse = lse.contiguous()
-    di = _row_dots(o, dout)
+    dq, di = flash_attention_bwd_dq(q, k, v, segment_ids, lse, o, dout, sm_scale)
     dk, dv = flash_attention_bwd_dkv(q, k, v, segment_ids, lse, di, dout, sm_scale)
-    dq = flash_attention_bwd_dq(q, k, v, segment_ids, lse, di, dout, sm_scale)
     return dq, dk, dv
 
 
@@ -309,23 +311,49 @@ def flash_attention_bwd(
 flash_attention_bwd.dout_copies = 0
 
 
-def _bwd_args(q, k, v, segment_ids, lse, di, dout):
-    for name, t in (("lse", lse), ("di", di)):
+def _check_rows(**rows: torch.Tensor) -> None:
+    for name, t in rows.items():
         if not t.is_contiguous() or t.dtype != torch.float32 or t.data_ptr() % 16:
             raise ValueError(f"{name} must be a contiguous f32 [B, H, S] on a 16-byte boundary")
-    if not _kernel_readable(dout):
-        raise ValueError(f"dout strides {dout.stride()}: the kernels cannot read it")
-    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), segment_ids.data_ptr(),
-            lse.data_ptr(), di.data_ptr())
+
+
+def _check_readable(**ts: torch.Tensor) -> None:
+    for name, t in ts.items():
+        if not _kernel_readable(t):
+            raise ValueError(f"{name} strides {t.stride()} from a {t.data_ptr() % 16}-byte "
+                             f"offset: the kernels cannot read it")
+
+
+def flash_attention_bwd_dq(q, k, v, segment_ids, lse, o, dout, sm_scale):
+    """Kernel dq on checked CUDA inputs: (dq, di), di = sum_d o * dO in f32
+    as a contiguous ``[B, H, S]``, which :func:`flash_attention_bwd_dkv`
+    reads."""
+    _check_rows(lse=lse)
+    _check_readable(o=o, dout=dout)
+    b, h, s, _ = q.shape
+    dq = _empty_bshd(q)
+    di = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _bwd_kernels()[0](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+            segment_ids.data_ptr(), lse.data_ptr(), dq.data_ptr(), di.data_ptr(),
+            b, h, s, _strides(q, k, v, dout, dq, o), sm_scale, _stream(q),
+        )
+    _raise_on(err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq, di
 
 
 def flash_attention_bwd_dkv(q, k, v, segment_ids, lse, di, dout, sm_scale):
-    """Kernel dkv on checked CUDA inputs: (dk, dv)."""
+    """Kernel dkv on checked CUDA inputs and dq's ``di``: (dk, dv)."""
+    _check_rows(lse=lse, di=di)
+    _check_readable(dout=dout)
     dk, dv = _empty_bshd(q), _empty_bshd(q)
     b, h, s, _ = q.shape
     with torch.cuda.device(q.device):
-        err = _bwd_kernels()[0](
-            *_bwd_args(q, k, v, segment_ids, lse, di, dout), dk.data_ptr(), dv.data_ptr(),
+        err = _bwd_kernels()[1](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), segment_ids.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, h, s, _strides(q, k, v, dout, dk), sm_scale, _stream(q),
         )
     _raise_on(err, "flash_attention_bwd_dkv")
@@ -333,21 +361,7 @@ def flash_attention_bwd_dkv(q, k, v, segment_ids, lse, di, dout, sm_scale):
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, segment_ids, lse, di, dout, sm_scale):
-    """Kernel dq on checked CUDA inputs: dq."""
-    dq = _empty_bshd(q)
-    b, h, s, _ = q.shape
-    with torch.cuda.device(q.device):
-        err = _bwd_kernels()[1](
-            *_bwd_args(q, k, v, segment_ids, lse, di, dout), dq.data_ptr(),
-            b, h, s, _strides(q, k, v, dout, dq), sm_scale, _stream(q),
-        )
-    _raise_on(err, "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
-    return dq
-
-
 # launches of the CUDA kernels (CPU calls of the plain versions do not count)
 flash_attention.launches = 0
-flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

@@ -35,6 +35,7 @@ from mfar_tpu_torch.eval.retrieval import RetrievalEngine
 from mfar_tpu_torch.models.encoder import Encoder, EncoderConfig, init_encoder
 from mfar_tpu_torch.models.tokenizer import SimpleVocabTokenizer
 from mfar_tpu_torch.ops import _build
+from mfar_tpu_torch.ops import flash_attention as flash_module
 from mfar_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
@@ -43,6 +44,7 @@ from mfar_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_plain,
+    _row_dots,
 )
 from mfar_tpu_torch.train.model import MFARModel
 from mfar_tpu_torch.ops.gather_scores import (
@@ -278,6 +280,82 @@ def test_k2b_matches_plain(card, s, lengths):
         assert g.dtype == torch.bfloat16 and g.transpose(1, 2).is_contiguous()
         assert torch.isfinite(g).all()
     _close_to_largest(got, flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, 0.125))
+
+
+# the segment layouts of tests/test_torch_flash_bwd.py at [2, 2, 256, 64],
+# from the same numpy inputs: several segments, ids that return after
+# another segment, alternating ids 0 and 2 against a tile of 1, a row all of
+# one segment
+SEG_LAYOUTS = {
+    "runs": [[2] * 100 + [1] * 100 + [0] * 56, [1] * 70 + [0] * 58 + [1] * 128],
+    "interleaved": [[0, 2] * 32 + [1] * 64 + [2] * 128, [0] * 64 + [3] * 64 + [0] * 64 + [3] * 64],
+    "one_segment": [[7] * 256, [1] * 200 + [0] * 56],
+}
+
+
+def _layout_inputs(layout, seed=258):
+    """bf16 q, k, v, dO [2, 2, 256, 64] on the card and the layout's int32
+    segment ids, drawn as tests/test_torch_flash_bwd.py draws them."""
+    rng = np.random.default_rng(seed)
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=(2, 2, 256, 64)).astype(np.float32))
+                     .cuda().bfloat16() for _ in range(4))
+    seg = torch.tensor(SEG_LAYOUTS[layout], dtype=torch.int32).cuda()
+    return q, k, v, seg, dout
+
+
+@pytest.mark.parametrize("layout", sorted(SEG_LAYOUTS))
+def test_k2b_segment_layouts_match_plain(card, layout):
+    """K2b (dq writing di, then dkv) against the plain backward, and dq's di
+    against the plain row dots (f32 sums of the same 64 products in another
+    order: rtol 1e-5, atol 1e-5 of the largest |di|)."""
+    q, k, v, seg, dout = _layout_inputs(layout)
+    out, lse = flash_attention_fwd(q, k, v, seg, 0.125)
+    got = flash_attention_bwd(q, k, v, seg, out, lse, dout, 0.125)
+    torch.cuda.synchronize()
+    _close_to_largest(got, flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, 0.125))
+    dq, di = flash_attention_bwd_dq(q, k, v, seg, lse, out, dout, 0.125)
+    want = _row_dots(out, dout)
+    assert di.shape == (2, 2, 256) and di.dtype == torch.float32 and di.is_contiguous()
+    torch.testing.assert_close(di, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+    torch.testing.assert_close(dq, got[0], rtol=0, atol=0)  # the same kernel, the same sums
+
+
+def test_k2b_launches_dq_then_dkv_without_a_torch_op_for_di(card, monkeypatch):
+    """One backward launches dq once, then dkv once, with dq's di; no torch
+    op computes di (the plain row dots would raise here)."""
+    q, k, v, seg, dout = _layout_inputs("runs")
+    out, lse = flash_attention_fwd(q, k, v, seg, 0.125)
+    order = []
+    dq_kernel, dkv_kernel = flash_module._bwd_kernels()
+
+    def recorded(name, fn):
+        def call(*args):
+            order.append(name)
+            return fn(*args)
+        return call
+
+    def no_row_dots(*args):
+        raise AssertionError("di computed by a torch op")
+
+    monkeypatch.setattr(flash_module, "_bwd_kernels",
+                        lambda: (recorded("dq", dq_kernel), recorded("dkv", dkv_kernel)))
+    monkeypatch.setattr(flash_module, "_row_dots", no_row_dots)
+    before = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    flash_attention_bwd(q, k, v, seg, out, lse, dout, 0.125)
+    torch.cuda.synchronize()
+    assert order == ["dq", "dkv"]
+    assert (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+def test_k2b_refuses_a_misaligned_o(card):
+    q, k, v, seg, dout = _layout_inputs("one_segment")
+    out, lse = flash_attention_fwd(q, k, v, seg, 0.125)
+    flat = torch.empty(out.numel() + 1, dtype=out.dtype, device=card)
+    shifted = flat[1:].view(out.shape)  # starts 2 bytes into the buffer
+    shifted.copy_(out)
+    with pytest.raises(ValueError, match="cannot read"):
+        flash_attention_bwd(q, k, v, seg, shifted, lse, dout, 0.125)
 
 
 def test_k2_function_grads_match_plain_autograd(card):

@@ -35,12 +35,29 @@ torch.set_num_threads(1)
 SCALE = 0.125  # 1 / sqrt(64)
 
 
-def _inputs(b, h, s, lengths, seed):
+# segment layouts at [2, 2, 256, 64] (the card tests use the same inputs):
+# several segments (ids 2/1/0 in runs), ids that return after another
+# segment, tiles of alternating ids 0 and 2 against a tile of 1 (their
+# [min, max] ranges meet, no id is shared), and a row all of one segment
+SEG_LAYOUTS = {
+    "runs": [[2] * 100 + [1] * 100 + [0] * 56, [1] * 70 + [0] * 58 + [1] * 128],
+    "interleaved": [[0, 2] * 32 + [1] * 64 + [2] * 128, [0] * 64 + [3] * 64 + [0] * 64 + [3] * 64],
+    "one_segment": [[7] * 256, [1] * 200 + [0] * 56],
+}
+
+
+def _inputs(b, h, s, rows, seed):
+    """Normal q, k, v, dO [B, H, S, 64] and int32 segment ids: each entry of
+    ``rows`` is a valid length (1 for that many tokens, 0 for the pad) or a
+    row of S ids."""
     rng = np.random.default_rng(seed)
     q, k, v, dout = (rng.normal(size=(b, h, s, 64)).astype(np.float32) for _ in range(4))
     seg = np.zeros((b, s), np.int32)
-    for i, n in enumerate(lengths):
-        seg[i, :n] = 1
+    for i, r in enumerate(rows):
+        if isinstance(r, int):
+            seg[i, :r] = 1
+        else:
+            seg[i] = r
     return q, k, v, dout, seg
 
 
@@ -58,11 +75,15 @@ def _jax_grads(q, k, v, dout, seg, dtype):
 
 
 # pad queries whose first key block is wholly valid (masked for them), a full
-# row, and rows of 65 and 131 tokens
+# row, and rows of 65 and 131 tokens; then the segment layouts
 @pytest.mark.parametrize("dtype,s,lengths", [
     ("f32", 256, [70, 200]),
     ("bf16", 128, [128, 65]),
     ("bf16", 256, [131, 2]),
+    ("f32", 256, SEG_LAYOUTS["runs"]),
+    ("bf16", 256, SEG_LAYOUTS["runs"]),
+    ("bf16", 256, SEG_LAYOUTS["interleaved"]),
+    ("bf16", 256, SEG_LAYOUTS["one_segment"]),
 ])
 def test_plain_backward_matches_jax_vjp(dtype, s, lengths):
     q, k, v, dout, seg = _inputs(2, 2, s, lengths, seed=s + len(lengths))
@@ -98,12 +119,18 @@ def test_forward_logsumexp_and_dispatch():
         flash_attention_bwd(q, k, v, seg, out, lse[:, :1], dout, SCALE)
 
 
-@pytest.mark.parametrize("needs", ["qkv", "v"])
-def test_function_grads_match_plain_autograd(needs):
+@pytest.mark.parametrize("needs,layout", [
+    ("qkv", None), ("v", None), ("qkv", "runs"), ("qkv", "interleaved"), ("v", "one_segment"),
+], ids=["qkv", "v", "qkv-runs", "qkv-interleaved", "v-one_segment"])
+def test_function_grads_match_plain_autograd(needs, layout):
     """flash_attention under autograd (f32 on the CPU: the Function's plain
     forward and backward) against autograd through flash_attention_plain;
     segment ids get no gradient."""
-    q, k, v, dout, seg = (torch.from_numpy(a) for a in _inputs(2, 3, 256, [256, 77], seed=4))
+    if layout is None:
+        inputs = _inputs(2, 3, 256, [256, 77], seed=4)
+    else:
+        inputs = _inputs(2, 2, 256, SEG_LAYOUTS[layout], seed=256 + 2)
+    q, k, v, dout, seg = (torch.from_numpy(a) for a in inputs)
     leaves = [t.clone().requires_grad_(name in needs) for name, t in zip("qkv", (q, k, v))]
     wrt = [t for t in leaves if t.requires_grad]
     out = flash_attention(*leaves, seg, SCALE)
