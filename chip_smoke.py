@@ -14,10 +14,14 @@ Contriever-base width with seeded random weights:
                 and a library yardstick, beside the bytes bound
 4. k2        -- kernel K2 (flash attention) against its plain PyTorch version
                 at the index build's [256, 12, 512, 64] bf16 with ragged
-                segments, plus edge cases (S = 128 and 256, B = 1, H = 1,
-                pad rows whose first key tiles are wholly masked); times of
+                segments, plus edge cases (S = 128, 256 and 384, B = 1,
+                H = 1, pad rows whose first key tiles are wholly masked) and
+                the segment-id cases (several segments, interleaved ids,
+                one-segment rows), there with its logsumexp too; times of
                 kernel, plain version and a library yardstick (SDPA with the
-                boolean segment mask), beside the bound
+                boolean segment mask), beside the bound, and the share of
+                key tiles skipped; K2 with the logsumexp timed at the
+                training shape [96, 12, 512, 64]
 5. k2b       -- K2's logsumexp output and the backward kernels (dq, which
                 also writes di, then dkv) against their plain version at
                 the training shape [96, 12, 512, 64] bf16 and edge cases
@@ -316,17 +320,17 @@ def library_attention(q, k, v, seg, scale):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=same, scale=scale)
 
 
-def k2_bound(q, seg):
+def k2_bound(q, seg, lse=False):
     """Least time for K2's work on these inputs: q/k/v read once, the output
-    written once, the segment ids read once, over the memory rate, against
-    the two products' bf16 operations over the tensor-core rate, counted
-    for the (query, key) pairs of one segment only (all the masked pairs
-    add nothing); the larger one bounds it.  Returns (ms, bound_by, the
-    bytes time, the operations time)."""
+    (and with ``lse`` the f32 row logsumexp) written once, the segment ids
+    read once, over the memory rate, against the two products' bf16
+    operations over the tensor-core rate, counted for the same-segment
+    (query, key) pairs only (all the masked pairs add nothing); the larger
+    one bounds it.  Returns (ms, bound_by, the bytes time, the operations
+    time)."""
     b, h, s, d = q.shape
-    nbytes = 4 * b * h * s * d * q.element_size() + seg.numel() * 4
-    n_valid = seg.sum(dim=1).double()
-    pairs = (n_valid**2 + (s - n_valid) ** 2).sum().item()
+    nbytes = 4 * b * h * s * d * q.element_size() + seg.numel() * 4 + lse * b * h * s * 4
+    pairs = sum((r[:, None] == r[None, :]).sum().item() for r in seg)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 4 * h * d * pairs / BF16_FLOPS_PER_S * 1e3
     if t_bytes >= t_ops:
@@ -345,18 +349,64 @@ def check_k2(q, k, v, seg, label) -> float:
     return err
 
 
-def run_k2(seed: int, build_shape=(256, 12, 512)) -> dict:
+def masked_logsumexp(q, k, seg, scale):
+    """The plain row logsumexp of the scaled logits over each row's segment."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    return torch.logsumexp(logits.masked_fill_(~same, float("-inf")), dim=-1)
+
+
+def check_k2_lse(q, k, v, seg, label):
+    """K2 with the logsumexp (the forward training runs): its output against
+    the plain version and its logsumexp against ``masked_logsumexp``.
+    Returns (out, lse, max abs err of the output, of the logsumexp)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    out, lse = flash_attention_fwd(q, k, v, seg, scale)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, seg, scale)
+    err = (out.float() - want.float()).abs().max().item()
+    check(torch.allclose(out.float(), want.float(), rtol=K2_RTOL, atol=K2_ATOL),
+          f"K2 with the logsumexp {label}: max abs err {err}")
+    lse_err = (lse - masked_logsumexp(q, k, seg, scale)).abs().max().item()
+    check(lse_err <= K2B_LSE_ATOL, f"K2 logsumexp {label}: max abs err {lse_err}")
+    return out, lse, err, lse_err
+
+
+# edge cases of the segment ids: runs of 2/1/0, ids that return after
+# another segment (defeating a valid-prefix assumption), tiles of ids 0 and 2
+# alternating against a tile of 1 (their [min, max] meets, no id is shared),
+# a row all of one id, and tile pairs wholly masked in both directions
+SEG_CASES = [
+    (2, 2, 512, [[2] * 100 + [1] * 150 + [0] * 262,
+                 [1] * 70 + [0] * 58 + [1] * 128 + [0] * 256]),
+    (3, 2, 256, [[0, 2] * 32 + [1] * 64 + [2] * 128, [7] * 256,
+                 [0] * 64 + [3] * 64 + [0] * 64 + [3] * 64]),
+    (1, 1, 128, [[1] * 40 + [0] * 30 + [2] * 58]),
+    (1, 3, 384, [[5] * 128 + [4] * 128 + [5] * 128]),
+]
+
+
+def run_k2(seed: int, build_shape=(256, 12, 512), train_shape=(96, 12, 512)) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 3)
-    max_err = 0.0
-    # edge cases: S = 128 and 256, B = 1, H = 1, a row of 2 tokens, a full
-    # row, and pad rows whose first key tiles are all valid tokens (wholly
-    # masked for them: lengths 70, 131, 200)
+    max_err = lse_err = 0.0
+    # edge cases: S = 128, 256 and 384, B = 1, H = 1, a row of 2 tokens, a
+    # full row, and pad rows whose first key tiles are all valid tokens
+    # (wholly masked for them: lengths 70, 131, 150, 200)
     for b, h, s, lengths in [(1, 12, 128, [70]), (3, 1, 256, [2, 256, 131]),
-                             (2, 4, 512, [512, 200]), (4, 2, 128, [128, 2, 64, 127])]:
+                             (2, 4, 512, [512, 200]), (4, 2, 128, [128, 2, 64, 127]),
+                             (2, 2, 384, [384, 150])]:
         err = check_k2(*k2_inputs(gen, b, h, s, lengths), f"B={b} H={h} S={s} {lengths}")
         max_err = max(max_err, err)
-    phase("k2", f"edge cases (S=128/256, B=1, H=1, wholly masked key tiles) agree, "
-                f"max abs err {max_err:.3g}")
+    # the segment-id cases, with the logsumexp too
+    for b, h, s, rows in SEG_CASES:
+        label = f"B={b} H={h} S={s} {[r if isinstance(r, int) else '...' for r in rows]}"
+        q, k, v, seg, _ = k2b_inputs(gen, b, h, s, rows)
+        max_err = max(max_err, check_k2(q, k, v, seg, label))
+        _, _, err, e = check_k2_lse(q, k, v, seg, label)
+        max_err, lse_err = max(max_err, err), max(lse_err, e)
+    phase("k2", f"edge cases (S=128/256/384, B=1, H=1, wholly masked key tiles, several "
+                f"segments, interleaved ids, one-segment rows) agree, max abs err "
+                f"{max_err:.3g}; logsumexp max abs err {lse_err:.3g} (atol {K2B_LSE_ATOL})")
 
     b, h, s = build_shape
     rng = np.random.default_rng(seed)
@@ -372,18 +422,43 @@ def run_k2(seed: int, build_shape=(256, 12, 512)) -> dict:
           "library yardstick disagrees")
     del lib, want
     bound_ms, bound_by, bytes_ms, ops_ms = k2_bound(q, seg)
+    skip_blocks, skip_groups = skipped_tile_pairs(seg)
     r = dict(
         kernel_ms=time_cuda(lambda: flash_attention(q, k, v, seg, scale)),
         plain_ms=time_cuda(lambda: flash_attention_plain(q, k, v, seg, scale), reps=5, inner=2),
         library_ms=time_cuda(lambda: library_attention(q, k, v, seg, scale), reps=11, inner=5),
-        bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
+        bound_ms=bound_ms, bound_by=bound_by, skipped_block_tiles=skip_blocks,
+        skipped_group_tiles=skip_groups,
     )
     phase("k2", f"bf16 {list(q.shape)} (segment lengths {int(lengths.min())}-"
                 f"{int(lengths.max())}, mean {lengths.mean():.1f}): max abs err {err:.3g} "
                 f"(tolerance rtol=atol={K2_ATOL}); kernel_ms {r['kernel_ms']:.4f} "
                 f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
                 f"bound_ms {bound_ms:.4f} ({bound_by}; bytes {bytes_ms:.4f}, operations "
-                f"{ops_ms:.4f}); {bound_ms / r['kernel_ms']:.1%} of the bound")
+                f"{ops_ms:.4f}); {bound_ms / r['kernel_ms']:.1%} of the bound; key tiles "
+                f"skipped: {skip_blocks:.1%} of (128-row block, 64-key tile) pairs, "
+                f"{skip_groups:.1%} of (warpgroup, tile) products")
+    del q, k, v, seg
+
+    # with the logsumexp, at the training shape and lengths
+    b, h, s = train_shape
+    lengths = np.random.default_rng(seed + 5).integers(2, s + 1, size=b)
+    lengths[0], lengths[1] = s, 2
+    q, k, v, seg = k2_inputs(gen, b, h, s, lengths.tolist())
+    _, _, err, e = check_k2_lse(q, k, v, seg, f"at {list(q.shape)}")
+    max_err, lse_err = max(max_err, err), max(lse_err, e)
+    lse_bound = k2_bound(q, seg, lse=True)
+    r.update(
+        lse_ms=time_cuda(lambda: flash_attention_fwd(q, k, v, seg, scale)),
+        lse_bound_ms=lse_bound[0], lse_bound_by=lse_bound[1],
+        lse_library_ms=time_cuda(lambda: library_attention(q, k, v, seg, scale), reps=11, inner=5),
+        max_abs_err=max_err, lse_max_abs_err=lse_err,
+    )
+    phase("k2", f"with the logsumexp, bf16 {list(q.shape)} (segment lengths "
+                f"{int(lengths.min())}-{int(lengths.max())}, mean {lengths.mean():.1f}): max "
+                f"abs err {err:.3g}, logsumexp {e:.3g}; lse_ms {r['lse_ms']:.4f} (bound "
+                f"{lse_bound[0]:.4f}, {lse_bound[1]}; {lse_bound[0] / r['lse_ms']:.1%}); SDPA "
+                f"forward {r['lse_library_ms']:.4f}")
     return r
 
 
@@ -452,14 +527,7 @@ def check_k2b(q, k, v, seg, dout, label) -> float:
     largest gradient, and the largest absolute error of each kernel's
     gradients (dkv: dk and dv; dq)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    out, lse = flash_attention_fwd(q, k, v, seg, scale)
-    torch.cuda.synchronize()
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    same = seg[:, None, :, None] == seg[:, None, None, :]
-    want_lse = torch.logsumexp(logits.masked_fill(~same, float("-inf")), dim=-1)
-    del logits
-    lse_err = (lse - want_lse).abs().max().item()
-    check(lse_err <= K2B_LSE_ATOL, f"K2 logsumexp {label}: max abs err {lse_err}")
+    out, lse, _, _ = check_k2_lse(q, k, v, seg, label)
     got = flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
     torch.cuda.synchronize()
     want = flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale)
@@ -491,20 +559,6 @@ def library_attention_fwd_bwd(q, k, v, seg, scale, dout):
     return torch.autograd.grad(out, (q, k, v), dout)
 
 
-# edge cases of the segment ids: runs of 2/1/0, ids that return after
-# another segment (defeating a valid-prefix assumption), tiles of ids 0 and 2
-# alternating against a tile of 1 (their [min, max] meets, no id is shared),
-# a row all of one id, and tile pairs wholly masked in both directions
-K2B_SEG_CASES = [
-    (2, 2, 512, [[2] * 100 + [1] * 150 + [0] * 262,
-                 [1] * 70 + [0] * 58 + [1] * 128 + [0] * 256]),
-    (3, 2, 256, [[0, 2] * 32 + [1] * 64 + [2] * 128, [7] * 256,
-                 [0] * 64 + [3] * 64 + [0] * 64 + [3] * 64]),
-    (1, 1, 128, [[1] * 40 + [0] * 30 + [2] * 58]),
-    (1, 3, 384, [[5] * 128 + [4] * 128 + [5] * 128]),
-]
-
-
 def run_k2b(seed: int, train_shape=(96, 12, 512)) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
     rel, abs_err = 0.0, {"dkv": 0.0, "dq": 0.0}
@@ -513,7 +567,7 @@ def run_k2b(seed: int, train_shape=(96, 12, 512)) -> dict:
     # them), a row of 2 tokens and a full row; then the segment-id cases
     for b, h, s, rows in [(1, 12, 128, [65]), (3, 1, 256, [2, 256, 131]),
                           (2, 4, 512, [512, 200]), (4, 2, 128, [128, 64, 127, 2]),
-                          (5, 3, 256, [64, 65, 127, 131, 200])] + K2B_SEG_CASES:
+                          (5, 3, 256, [64, 65, 127, 131, 200])] + SEG_CASES:
         label = f"B={b} H={h} S={s} {[r if isinstance(r, int) else '...' for r in rows]}"
         r, a = check_k2b(*k2b_inputs(gen, b, h, s, rows), label)
         rel, abs_err = max(rel, r), {k: max(v, a[k]) for k, v in abs_err.items()}
@@ -1393,7 +1447,7 @@ def main(argv=None) -> int:
     phase("build", f"{sorted(_build.SOURCES)} built in {build_s:.2f}s; ptxas: "
                    f"{'; '.join(f'{k}: {v}' for k, v in usage.items())}")
     for name, line in usage.items():
-        if name.startswith("flash_attention_bwd"):
+        if name.startswith("flash_attention"):
             check(" 0 bytes spill stores, 0 bytes spill loads" in line, f"{name} spills: {line}")
 
     k1 = run_k1(args.seed)
@@ -1427,7 +1481,7 @@ def main(argv=None) -> int:
         "name": "flash_attention",
         "route": "cuda",
         "source": "mfar_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "mfar_tpu/models/encoder.py:170",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
         "launches": e2e["k2_launches"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["kernel_ms"],

@@ -37,6 +37,8 @@
 //        descriptors read; the row values (lse, di, segment ids) by bulk
 //        copy.  The block's own tiles land on one mbarrier; the streamed
 //        tiles go through a ring of two stages (full / empty mbarriers).
+//        The block structure, the ring, the live-tile list and the tensor
+//        maps are hopper_pipeline.cuh's, shared with K2.
 //   dkv: each consumer's K and V tiles stay put, also as bf16 A registers;
 //        64-query tiles of Q and dO with their lse, di and segment ids
 //        stream.  Per tile: S^T = K Q^T and dP^T = V dO^T (B the Q / dO
@@ -70,16 +72,14 @@
 // reads q, k, v, dO, lse, di and writes dK, dV: ~460 MB, 0.137 ms.  Their
 // three and four products over the same-segment pairs take less at 989
 // TFLOP/s, so bytes bound both.  What holds them back is not the bytes:
-// with no per-tile work at all (k2b_variants.py x_nocompute) the kernels
-// still take ~0.19-0.20 ms, the latency of each block's own tiles and
-// first streamed tiles with one block an SM, and the products add to that
-// time instead of hiding under it (see PERF.md).
-
-#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled_v12000
+// with no per-tile work at all (flash_variants.py --kernel k2b
+// x_nocompute) the kernels still take ~0.19-0.20 ms, the latency of each
+// block's own tiles and first streamed tiles with one block an SM, and the
+// products add to that time instead of hiding under it (see PERF.md).
 
 #include <climits>
 
-#include "hopper_common.cuh"
+#include "hopper_pipeline.cuh"
 
 namespace {
 
@@ -103,57 +103,8 @@ struct BwdParams {
   float scale_log2;  // sm_scale * log2(e)
 };
 
-constexpr int kGroups = 2;                    // consumer warpgroups a block, 64 rows each
-constexpr int kRows = 64 * kGroups;           // rows a block owns
-constexpr int kBlockThreads = 128 * kGroups;  // consumer threads; a producer warpgroup follows
-constexpr int kStages = 2;                    // of the ring of streamed tiles
-static_assert(kStages >= kGroups, "the diagonal tiles' loads take the first stages");
-// registers a thread: the producer warpgroup gives back all but 24, the
-// consumers take the rest of the register file (one block an SM)
-constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-
-// Shared memory (see Smem below): 1024 bytes of slack to put the tiles on a
-// 1024-byte boundary; n_own x kGroups own tiles and 2 x kStages streamed
-// tiles; 16 barrier slots; 3 x kStages x 64 row values; 3 ints a tile plus
-// one.
-int smem_bytes(int S, int n_own) {
-  return 1024 + (n_own * kGroups + 2 * kStages) * kTileBytes + 16 * 8 + 3 * kStages * 64 * 4 +
-         (3 * (S / 64) + 1) * 4;
-}
-
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
-// The min and max segment id of each 64-row tile of the batch row, and the
-// list of the streamed tiles whose [min, max] meets the block's own rows'
-// (the kGroups tiles from `own`): a tile outside it shares no segment with
-// any of the block's rows, so every P entry of the pair is 0 and it adds
-// exactly 0.  The list starts with the own tiles, which are always live, so
-// their loads can start before it is known.  Ends with the block
-// synchronised.
-__device__ void find_live_tiles(const int32_t* segb, int n_tiles, int own, int* tmin, int* tmax,
-                                int* live, int* n_live) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int t = warp; t < n_tiles; t += blockDim.x >> 5) {
-    const int a = segb[t * 64 + lane], c = segb[t * 64 + 32 + lane];
-    const int lo = __reduce_min_sync(0xffffffffu, min(a, c));
-    const int hi = __reduce_max_sync(0xffffffffu, max(a, c));
-    if (lane == 0) tmin[t] = lo, tmax[t] = hi;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int lo = tmin[own], hi = tmax[own];
-    for (int i = 1; i < kGroups; ++i) lo = min(lo, tmin[own + i]), hi = max(hi, tmax[own + i]);
-    int n = 0;
-    for (int i = 0; i < kGroups; ++i) live[n++] = own + i;
-    for (int t = 0; t < n_tiles; ++t) {
-      if ((t < own || t >= own + kGroups) && tmin[t] <= hi && lo <= tmax[t]) live[n++] = t;
-    }
-    *n_live = n;
-  }
-  __syncthreads();
-}
+constexpr int kStages = 2;  // of the ring of streamed tiles
+using Ring = Smem<kStages>;
 
 // One streamed tile of 64 queries against the warpgroup's 64 keys (K and V
 // as A registers kf, vf): dV += P^T dO, dK += dS^T Q.  seg_k0/1 are
@@ -270,105 +221,6 @@ __device__ __forceinline__ void dq_tile(float (&dq)[8][4], const uint32_t (&qf)[
   pin(dq);
 }
 
-// The block's shared memory: each consumer warpgroup's own tiles (K, V in
-// dkv; Q, dO, O in dq), the ring of streamed tiles (Q, dO in dkv; K, V in
-// dq) with their row values (lse, di, segment ids in dkv; segment ids in
-// dq), the barriers, and each tile's min and max segment id with the live
-// list.
-struct Smem {
-  __nv_bfloat16* own;     // [n_own][kGroups] tiles
-  __nv_bfloat16* stream;  // [kStages][2] tiles
-  uint64_t* full;         // [kStages]: a stage's loads have landed
-  uint64_t* empty;        // [kStages]: the consumers are done with a stage
-  uint64_t* own_full;     // the own tiles have landed
-  float* rows;            // [3][kStages][64]
-  int* tmin;
-  int* tmax;
-  int* live;
-  int* n_live;
-
-  __device__ __forceinline__ __nv_bfloat16* own_tile(int which, int group) const {
-    return own + (which * kGroups + group) * kTileElems;
-  }
-  __device__ __forceinline__ __nv_bfloat16* stream_tile(int stage, int which) const {
-    return stream + (stage * 2 + which) * kTileElems;
-  }
-  __device__ __forceinline__ float* row_values(int which, int stage) const {
-    return rows + (which * kStages + stage) * 64;
-  }
-};
-
-__device__ __forceinline__ Smem carve(unsigned char* raw, int n_tiles, int n_own) {
-  Smem m;
-  m.own = reinterpret_cast<__nv_bfloat16*>(align_1024(raw));
-  m.stream = m.own + n_own * kGroups * kTileElems;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(m.stream + 2 * kStages * kTileElems);
-  m.full = bars;
-  m.empty = bars + kStages;
-  m.own_full = bars + 2 * kStages;
-  m.rows = reinterpret_cast<float*>(bars + 16);
-  m.tmin = reinterpret_cast<int*>(m.rows + 3 * kStages * 64);
-  m.tmax = m.tmin + n_tiles;
-  m.live = m.tmax + n_tiles;
-  m.n_live = m.live + n_tiles;
-  return m;
-}
-
-// Set-up of both kernels, by all threads.  The producer's first thread sets
-// up the barriers and starts the loads of the own tiles (`load_own`, on
-// own_full, `own_bytes` in all) and of the block's diagonal tiles into the
-// first stages (`load(t, stage)`); then every thread helps find the live
-// tiles.  Ends with the block synchronised.
-template <typename LoadOwn, typename Load>
-__device__ __forceinline__ void set_up(const Smem& m, const int32_t* segb, int n_tiles, int blk,
-                                       uint32_t own_bytes, LoadOwn load_own, uint32_t bytes,
-                                       Load load) {
-  if (threadIdx.x == kBlockThreads) {
-    for (int i = 0; i < kStages; ++i) {
-      mbar_init(&m.full[i], 1);
-      mbar_init(&m.empty[i], kBlockThreads);
-    }
-    mbar_init(m.own_full, 1);
-    mbar_fence_init();
-    mbar_expect_tx(m.own_full, own_bytes);
-    load_own();
-    for (int i = 0; i < kGroups; ++i) {
-      mbar_expect_tx(&m.full[i], bytes);
-      load(kGroups * blk + i, i);
-    }
-  }
-  find_live_tiles(segb, n_tiles, kGroups * blk, m.tmin, m.tmax, m.live, m.n_live);
-}
-
-// The producer's loop (one thread), after set_up's first loads: for
-// each further live tile, wait until the consumers have left its stage,
-// then start its loads (`load(t, stage)`, `bytes` in all) on the stage's
-// full barrier.
-template <typename Load>
-__device__ __forceinline__ void produce(const Smem& m, uint32_t bytes, Load load) {
-  const int n_live = *m.n_live;
-  for (int i = kGroups; i < n_live; ++i) {
-    const int stage = i % kStages;
-    if (i >= kStages) mbar_wait(&m.empty[stage], (i / kStages - 1) & 1);
-    mbar_expect_tx(&m.full[stage], bytes);
-    load(m.live[i], stage);
-  }
-}
-
-// The consumers' loop: for each live tile, wait for its stage, run `tile`
-// on it if it meets the warpgroup's own rows (segment ids in [lo, hi]),
-// and release the stage.
-template <typename Tile>
-__device__ __forceinline__ void consume(const Smem& m, int lo, int hi, Tile tile) {
-  const int n_live = *m.n_live;
-  for (int i = 0; i < n_live; ++i) {
-    const int stage = i % kStages, t = m.live[i];
-    mbar_wait(&m.full[stage], (i / kStages) & 1);
-    if (m.tmin[t] <= hi && lo <= m.tmax[t]) tile(stage);
-    mbar_arrive(&m.empty[stage]);
-  }
-}
-
 __global__ void __launch_bounds__(kBlockThreads + 128, 1)
     flash_attention_bwd_dkv_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
                                    const __grid_constant__ CUtensorMap map_k,
@@ -377,7 +229,7 @@ __global__ void __launch_bounds__(kBlockThreads + 128, 1)
                                    const __grid_constant__ CUtensorMap) {
   extern __shared__ unsigned char smem_raw[];
   const int n_tiles = p.S / 64;
-  const Smem m = carve(smem_raw, n_tiles, 2);
+  const Ring m = carve<kStages>(smem_raw, n_tiles, 2);
   const int blocks = p.S / kRows;
   const int blk = blockIdx.x % blocks, bh = blockIdx.x / blocks;
   const int h = bh % p.H, b = bh / p.H;
@@ -445,7 +297,7 @@ __global__ void __launch_bounds__(kBlockThreads + 128, 1)
                                   const __grid_constant__ CUtensorMap map_o) {
   extern __shared__ unsigned char smem_raw[];
   const int n_tiles = p.S / 64;
-  const Smem m = carve(smem_raw, n_tiles, 3);
+  const Ring m = carve<kStages>(smem_raw, n_tiles, 3);
   const int blocks = p.S / kRows;
   const int blk = blockIdx.x % blocks, bh = blockIdx.x / blocks;
   const int h = bh % p.H, b = bh / p.H;
@@ -556,47 +408,6 @@ int fill_params(BwdParams& p, const void* q, const void* k, const void* v, const
   return 0;
 }
 
-// cuTensorMapEncodeTiled, fetched from the driver through the runtime (the
-// libraries link nothing but the runtime nvcc links by default).  Its
-// signature is CUDA 12.0's (PFN_cuTensorMapEncodeTiled_v12000); from
-// CUDA 12.5 the runtime asks for it by that version.
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) ptr = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-  }();
-  return fn;
-}
-
-// A 4-D tensor map (D, H, S, B) over a bf16 [B, H, S, 64] view with these
-// element strides, its box one 64 x 64 tile of one (b, h), swizzled by 128
-// bytes as wgmma's descriptors read it.
-int encode_tile_map(CUtensorMap* map, const void* base, int B, int H, int S, long long sb,
-                    long long sh, long long ss) {
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHeadDim), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kHeadDim, 1, 64, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 // Encode the tensor maps of q, k, v, dO and o (dkv reads no o: its map is
 // dO's again) and launch `kernel` with `n_own` own tiles a warpgroup.
 template <typename Kernel>
@@ -605,7 +416,7 @@ int launch(Kernel kernel, int n_own, const BwdParams& p, int B, long long blocks
   // a runtime call first: it makes the device's context current in this
   // thread (autograd runs the backward on a thread of its own), which the
   // driver's encoder needs
-  const int smem = smem_bytes(p.S, n_own);
+  const int smem = smem_bytes<kStages>(p.S, n_own);
   int err = static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   if (err != 0) return err;

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of K2b (flash_attention_bwd.cu): wgmma on
-// 64 x 64 bf16 tiles in shared memory, mbarriers, and TMA loads.
+// Hopper (sm_90a) building blocks of K2 (flash_attention.cu) and K2b
+// (flash_attention_bwd.cu): wgmma on 64 x 64 bf16 tiles in shared memory,
+// mbarriers, and TMA loads.
 //
 // Tiles.  A tile is 64 rows of 64 bf16 (128 bytes a row) on a 1024-byte
 // boundary, its 16-byte chunk c/8 of row r at chunk (c/8) ^ (r%8): the
@@ -25,7 +26,8 @@
 // tile serves both ways:
 //   K-major (the tile's rows are N, its 64 columns are k): 8-row groups
 //     1024 bytes apart (SBO = 64); the leading offset is unused under the
-//     swizzle (1).  k slice kk starts 32 bytes further: desc + 2 * kk.
+//     swizzle (1).  k slice kk starts 32 bytes further: desc + 2 * kk.  An
+//     A tile in shared memory (rows M, columns k) takes the same form.
 //   MN-major (the tile's rows are k, its 64 columns are N; wgmma's
 //     transpose-B immediate): 8-row groups of k 1024 bytes apart (SBO = 64);
 //     the leading offset would step to the next 64 columns of N, which a
@@ -80,6 +82,20 @@ template <int kMnMajor>
 __device__ __forceinline__ void gemm_rs(float (&d)[8][4], const uint32_t (&a)[4][4], uint64_t b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) wgmma_rs<kMnMajor>(d, a[kk], b + (kMnMajor ? 128 : 2) * kk);
+}
+
+// d = A B (the accumulator's old value is dropped), A a K-major tile and B
+// a K-major tile, both in shared memory: four k slices of 16, each 32 bytes
+// further into both tiles.
+__device__ __forceinline__ void gemm_ss_new(float (&d)[8][4], uint64_t a, uint64_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MFAR_D32
+                 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : MFAR_ACC32(d)
+                 : "l"(a + 2 * kk), "l"(b + 2 * kk), "r"(kk));
+  }
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -9,8 +9,9 @@ segment ids ``[B, S]`` (the encoder passes 1 for valid tokens and 0 for pad,
 so valid tokens attend only valid ones and pads only pads).
 
 :func:`flash_attention` launches the hand-written CUDA kernel
-``mfar_tpu_torch/csrc/flash_attention.cu`` for tensors on the card; it
-replaces the call of JAX's library Pallas kernel at
+``mfar_tpu_torch/csrc/flash_attention.cu`` for tensors on the card (wgmma,
+TMA and a producer warpgroup; key tiles whose segment ids miss a block's
+rows are skipped); it replaces the call of JAX's library Pallas kernel at
 ``mfar_tpu/models/encoder.py:170``.  When grad is enabled and an input
 requires it, the call goes through a ``torch.autograd.Function`` whose
 forward also writes each row's logsumexp and whose backward runs the two
@@ -40,8 +41,8 @@ import torch
 
 from mfar_tpu_torch.ops import _build
 
-# JAX's DEFAULT_MASK_VALUE (flash_attention.py:29): finite, so a row whose
-# first key tile is wholly masked is washed out by the later rescale
+# JAX's DEFAULT_MASK_VALUE (flash_attention.py:29), which the plain version
+# adds as JAX does; the kernels set every cross-segment weight to exactly 0
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIM = 64  # the kernels' head dimension
 SEQ_MULTIPLE = 128  # S % 128 == 0, as JAX's gate asks

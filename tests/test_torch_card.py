@@ -252,6 +252,12 @@ def test_auto_encoder_with_another_head_dim_is_plain(card):
         torch.testing.assert_close(got, xla(ids, mask), rtol=0, atol=0)
 
 
+def _masked_lse(q, k, seg, scale):
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    return torch.logsumexp(logits.masked_fill(~same, float("-inf")), -1)
+
+
 def _close_to_largest(got, want):
     for g, w in zip(got, want):
         scale = w.float().abs().max().item()
@@ -267,10 +273,7 @@ def test_k2b_matches_plain(card, s, lengths):
     dout = torch.from_numpy(rng.normal(size=(len(lengths), s, 3 * 64)).astype(np.float32))
     dout = dout.cuda().bfloat16().view(len(lengths), s, 3, 64).transpose(1, 2)  # strided
     out, lse = flash_attention_fwd(q, k, v, seg, 0.125)
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * 0.125
-    same = seg[:, None, :, None] == seg[:, None, None, :]
-    torch.testing.assert_close(
-        lse, torch.logsumexp(logits.masked_fill(~same, float("-inf")), -1), rtol=0, atol=1e-3)
+    torch.testing.assert_close(lse, _masked_lse(q, k, seg, 0.125), rtol=0, atol=1e-3)
     before = (flash_attention_bwd_dkv.launches, flash_attention_bwd_dq.launches)
     got = flash_attention_bwd(q, k, v, seg, out, lse, dout, 0.125)
     torch.cuda.synchronize()
@@ -301,6 +304,44 @@ def _layout_inputs(layout, seed=258):
                      .cuda().bfloat16() for _ in range(4))
     seg = torch.tensor(SEG_LAYOUTS[layout], dtype=torch.int32).cuda()
     return q, k, v, seg, dout
+
+
+@pytest.mark.parametrize("layout", sorted(SEG_LAYOUTS))
+def test_k2_segment_layouts_match_plain(card, layout):
+    """K2, which skips the key tiles whose segment ids miss a warpgroup's
+    rows, against the plain version on the layouts, with and without the
+    logsumexp (atol 1e-3: f32 sums of the same f32 exponentials in another
+    order and base)."""
+    q, k, v, seg, _ = _layout_inputs(layout)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, seg, 0.125)
+    out, lse = flash_attention_fwd(q, k, v, seg, 0.125)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    want = flash_attention_plain(q, k, v, seg, 0.125)
+    for o in (got, out):
+        assert torch.isfinite(o.float()).all()
+        torch.testing.assert_close(o.float(), want.float(), rtol=K2_TOL, atol=K2_TOL)
+    torch.testing.assert_close(got, out, rtol=0, atol=0)  # the lse changes no output bit
+    torch.testing.assert_close(lse, _masked_lse(q, k, seg, 0.125), rtol=0, atol=1e-3)
+
+
+def test_k2_recompute_on_autograd_thread(card):
+    """Under torch.utils.checkpoint (the train step's remat) the backward
+    recomputes K2 with the logsumexp on autograd's thread, where the
+    kernel's tensor maps need the context made current first; the
+    gradients agree with autograd through the plain version."""
+    q, k, v, seg, dout = _layout_inputs("runs")
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    before = (flash_attention.launches, flash_attention_bwd_dq.launches)
+    out = torch.utils.checkpoint.checkpoint(flash_attention, *leaves, seg, 0.125,
+                                            use_reentrant=False)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - before[0], flash_attention_bwd_dq.launches - before[1]) \
+        == (2, 1)  # the forward twice
+    want = torch.autograd.grad(flash_attention_plain(*leaves, seg, 0.125), leaves, dout)
+    _close_to_largest(got, want)
 
 
 @pytest.mark.parametrize("layout", sorted(SEG_LAYOUTS))

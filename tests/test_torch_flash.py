@@ -20,8 +20,10 @@ import torch
 
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas.ops.tpu import flash_attention as jax_fa
 from jax.experimental.pallas.ops.tpu.flash_attention import (
     DEFAULT_MASK_VALUE,
+    BlockSizes,
     SegmentIds,
 )
 from jax.experimental.pallas.ops.tpu.flash_attention import flash_attention as jax_flash
@@ -29,6 +31,7 @@ from jax.experimental.pallas.ops.tpu.flash_attention import flash_attention as j
 from mfar_tpu_torch.ops.flash_attention import (
     MASK_VALUE,
     flash_attention,
+    flash_attention_fwd,
     flash_attention_plain,
 )
 
@@ -70,6 +73,46 @@ def test_plain_matches_pallas_interpret(dtype, s, lengths):
         assert got.shape == (B, H, s, D) and got.dtype == tdt
         np.testing.assert_allclose(got.float().numpy(), want, **TOL[dtype])
     assert flash_attention.launches == before  # CPU tensors: the plain version
+
+
+# segment layouts at [2, 2, 256, 64] (tests/test_torch_flash_bwd.py and the
+# card tests use the same): several segments (ids 2/1/0 in runs), ids that
+# return after another segment, tiles of alternating ids 0 and 2 against a
+# tile of 1 (their [min, max] ranges meet, no id is shared), a row all of
+# one segment; the kernel's tile skipping rests on exactly these
+SEG_LAYOUTS = {
+    "runs": [[2] * 100 + [1] * 100 + [0] * 56, [1] * 70 + [0] * 58 + [1] * 128],
+    "interleaved": [[0, 2] * 32 + [1] * 64 + [2] * 128, [0] * 64 + [3] * 64 + [0] * 64 + [3] * 64],
+    "one_segment": [[7] * 256, [1] * 200 + [0] * 56],
+}
+
+
+@pytest.mark.parametrize("dtype,layout", [("f32", "runs"), ("bf16", "runs"),
+                                          ("bf16", "interleaved"), ("bf16", "one_segment")])
+def test_plain_forward_matches_pallas_on_segment_layouts(dtype, layout):
+    """Output and row logsumexp of the forward that training runs against
+    JAX's Pallas kernel with its residuals (l and m, lse = m + log l), in
+    interpret mode.  The logsumexp is f32 in both (atol 1e-5; for bf16 the
+    logits are products of the same bf16 values summed in f32)."""
+    rng = np.random.default_rng(256 + len(layout))
+    q, k, v = (rng.normal(size=(2, 2, 256, D)).astype(np.float32) for _ in range(3))
+    seg = np.asarray(SEG_LAYOUTS[layout], np.int32)
+    jdt, tdt = DTYPES[dtype]
+    jseg = jnp.asarray(seg)
+    with pltpu.force_tpu_interpret_mode():
+        want, l, m = jax_fa._flash_attention(
+            *(jnp.asarray(a).astype(jdt) for a in (q, k, v)), None,
+            SegmentIds(q=jseg, kv=jseg), True, False, SCALE,
+            BlockSizes.get_default(2, 2, 256, 256, D), False)
+    want = np.asarray(want.astype(jnp.float32))
+    want_lse = np.asarray(m) + np.log(np.asarray(l))  # [B, H, S] each
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    out, lse = flash_attention_fwd(tq, tk, tv, torch.from_numpy(seg), SCALE)
+    assert out.dtype == tdt and lse.shape == (2, 2, 256) and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.float().numpy(), want, **TOL[dtype])
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=0, atol=1e-5)
+    got = flash_attention(tq, tk, tv, torch.from_numpy(seg), SCALE)
+    torch.testing.assert_close(got, out, rtol=0, atol=0)
 
 
 def test_pad_rows_attend_only_pad_keys():

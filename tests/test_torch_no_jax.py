@@ -35,7 +35,7 @@ def test_forbidden_matches_only_the_reference():
 
 
 def test_importing_the_port_loads_no_jax():
-    mods = _port_modules() + ["chip_smoke", "k2b_variants"]
+    mods = _port_modules() + ["chip_smoke", "flash_variants"]
     assert {"mfar_tpu_torch.eval.retrieval", "mfar_tpu_torch.commands.train",
             "mfar_tpu_torch.train.trainer", "mfar_tpu_torch.train.checkpoint",
             "mfar_tpu_torch.train.losses", "mfar_tpu_torch.train.optim",
@@ -55,12 +55,12 @@ def test_importing_the_port_loads_no_jax():
     ).stdout.split()
     bad = [m for m in out if _forbidden(m)]
     assert not bad, f"the port loaded {bad[:10]}"
-    assert "torch" in out and "chip_smoke" in out and "k2b_variants" in out
+    assert "torch" in out and "chip_smoke" in out and "flash_variants" in out
 
 
 def test_sources_import_no_jax():
     import_re = re.compile(r"^\s*(?:from|import)\s+([A-Za-z_][\w.]*)", re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "k2b_variants.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "flash_variants.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "mfar_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
