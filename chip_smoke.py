@@ -54,6 +54,27 @@ Contriever-base width with seeded random weights:
 11. serving  -- the same engine over a prebuilt random [131072, 5, 768] bf16
                 corpus in rerank mode: QPS, one batch's stages, and the
                 device's busy share and time by kernel from torch.profiler
+12. hybrid   -- all_dense,all_sparse (10 mixer fields) on the e2e corpus:
+                the K2-built matrix and a native BM25 index per sparse
+                field; exact mode on the postings route (queries of rare
+                words) and on the combined route (the e2e queries, whose
+                postings are dense) against a brute-force reference (the
+                dense scan plus the weight-mixed full scores of the scipy
+                BM25 backend); rerank through K1 with sparse stages 1b and 2
+                against the plain-gather engine; a sparse-only engine; every
+                sparse field masked against a dense-only engine
+13. hybrid_serving -- 131072 mag-shaped documents (STaRK-Prime's entity
+                count) with native BM25 over the 5 sparse fields and the
+                serving phase's random bf16 matrix: BM25 build seconds,
+                postings width, exact (postings route) and rerank QPS on
+                8-word queries, exact (combined route) QPS on 12-word
+                queries, one batch's stages, a torch.profiler window, one
+                batch of each route against the reference
+14. hybrid_cli -- the port's own command chain at Contriever-base width:
+                make_synth_data, create_sparse_index,
+                precompute_sparse_scores, train --field-names
+                all_dense,all_sparse --sparse-scores-path, mask_fields on
+                its output, retrieve --lexical-index --checkpoint-dir
 
 TF32 is switched off for matmuls and cuDNN, so f32 comparisons run in full
 f32.  Any failed check raises and the run exits non-zero.  The last two
@@ -80,10 +101,20 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
-from mfar_tpu_torch.commands import encode_corpus
+from mfar_tpu_torch.commands import (
+    create_sparse_index,
+    encode_corpus,
+    make_synth_data,
+    mask_fields,
+    precompute_sparse_scores,
+)
 from mfar_tpu_torch.commands import retrieve as retrieve_cmd
 from mfar_tpu_torch.commands import train as train_cmd
-from mfar_tpu_torch.commands.common import corpus_texts_for_vocab, load_negative_sampler_index
+from mfar_tpu_torch.commands.common import (
+    corpus_texts_for_vocab,
+    load_corpus,
+    load_negative_sampler_index,
+)
 from mfar_tpu_torch.data import trec
 from mfar_tpu_torch.data.negative_sampler import IndexNegativeSampler
 from mfar_tpu_torch.data.format import format_documents
@@ -92,6 +123,7 @@ from mfar_tpu_torch.data.types import Corpus
 from mfar_tpu_torch.eval.compare import mismatched_queries, rankings_agree
 from mfar_tpu_torch.eval.index_build import (
     build_dense_corpus_matrix,
+    build_sparse_indices,
     load_dense_matrix,
     make_encode_fn,
 )
@@ -114,7 +146,14 @@ from mfar_tpu_torch.ops.gather_scores import (
     gather_per_field_scores,
     gather_per_field_scores_plain,
 )
-from mfar_tpu_torch.train.data_pipeline import ContrastiveDataset, strip_meta, token_stats
+from mfar_tpu_torch.sparse.bm25 import BM25Index
+from mfar_tpu_torch.sparse.tokenize import STOPWORDS_EN
+from mfar_tpu_torch.train.data_pipeline import (
+    ContrastiveDataset,
+    clean_query,
+    strip_meta,
+    token_stats,
+)
 from mfar_tpu_torch.train.model import MFARModel
 from mfar_tpu_torch.train.optim import make_optimizer, param_labels
 from mfar_tpu_torch.train.train_step import init_state, to_device, train_step
@@ -1368,6 +1407,416 @@ def run_serving(seed, engine, queries, n=131072, batch_size=64):
                 serving_busy_share=prof["busy_share"])
 
 
+# ----------------------------------------------------------------------
+# phases 12-14: hybrid (dense + BM25) retrieval
+
+
+def rare_word_queries(pairs, n, rng, min_rank, words=8):
+    """Queries of ``words`` distinct content words from the title and
+    abstract of random documents: words of Zipf rank >= ``min_rank`` (of
+    the ``w<rank>`` vocabularies here), as a user's query keeps a text's
+    rarer terms."""
+    queries = []
+    while len(queries) < n:
+        payload = pairs[rng.integers(len(pairs))][1]
+        pool = sorted({w for w in (payload["title"] + " " + payload["abstract"]).split()
+                       if w[:1] == "w" and w[1:].isdigit() and int(w[1:]) >= min_rank})
+        if len(pool) >= words:
+            queries.append(" ".join(rng.choice(pool, size=words, replace=False)))
+    return queries
+
+
+def hybrid_reference(engine, queries, mixer, bm25, mask=None, k=100, round_query=True):
+    """Reference for hybrid exact mode, written out here and not through the
+    port's scoring helpers: field weights softmax(q @ W) (times the mask),
+    the dense fields' weighted query rounded to the corpus dtype (exact mode
+    scores in the corpus dtype; rerank's stage 2 does not round, so
+    ``round_query=False`` for it) and scored in f32 against the whole
+    corpus, plus each sparse field's weight times its full-corpus BM25
+    scores from ``bm25`` (field key -> index), summed, and a full top-k.
+    Returns the keyed top-k and the [Q, N] totals."""
+    fd, n = len(engine.dense_keys), engine.n_docs
+    w_mix = torch.as_tensor(mixer["weight"], dtype=torch.float32, device=DEVICE)
+    keyed, totals = [], []
+    for s in range(0, len(queries), 64):
+        batch = queries[s : s + 64]
+        with torch.inference_mode():
+            q = engine.encode_queries(batch)
+            w = torch.softmax(q @ w_mix, dim=-1)
+            if mask is not None:
+                w = w * torch.as_tensor(mask, dtype=torch.float32, device=DEVICE)
+            total = torch.zeros(len(batch), n, device=DEVICE)
+            if engine.has_dense:
+                docs = engine.docs_flat.view(n, fd, engine.emb_dim).float()
+                qf = w[:, :fd, None] * q[:, None, :]
+                if round_query:
+                    qf = qf.to(engine.docs_flat.dtype).float()
+                total += torch.einsum("bfe,nfe->bn", qf, docs)
+            cleaned = [clean_query(t) for t in batch]
+            for s_i, fk in enumerate(engine.sparse_keys):
+                scores = torch.from_numpy(bm25[fk].get_scores_batch(cleaned)).to(DEVICE)
+                total += w[:, fd + s_i, None] * scores
+            top_s, top_i = torch.topk(total, min(k, n), dim=-1)
+        keyed.extend(engine._to_keyed(top_s.cpu().numpy(), top_i.cpu().numpy()))
+        totals.append(total.cpu().numpy())
+    return keyed, np.concatenate(totals)
+
+
+def scores_are_totals(results, totals, doc_row, label) -> None:
+    """Each returned hit's score is its document's reference total (the
+    rerank modes return a subset, each hit scored in full)."""
+    for qi, hits in enumerate(results):
+        for key, score in hits:
+            want = float(totals[qi, doc_row[key]])
+            check(abs(score - want) <= E2E_ATOL + E2E_RTOL * abs(want),
+                  f"{label}: query {qi} doc {key} scored {score}, reference {want}")
+
+
+def run_hybrid(seed, engine, corpus, queries, batch_size=64) -> dict:
+    """``all_dense,all_sparse`` on the e2e corpus: the K2-built dense matrix
+    and a native BM25 index per sparse field (10 mixer fields).  Exact mode
+    on both routes and rerank (K1 for stage 2's dense part) against
+    references; a sparse-only engine; every sparse field masked against a
+    dense-only engine."""
+    rng = np.random.default_rng(seed + 11)
+    pairs = list(corpus.pairs())
+    doc_row = {k: i for i, k in enumerate(corpus.keys())}
+    field_info = resolve_fields("all_dense,all_sparse", "mag")
+    sparse_fields = {k: f for k, f in field_info.items() if f.is_sparse}
+    t = time.perf_counter()
+    native = build_sparse_indices(corpus, sparse_fields)
+    native_s = time.perf_counter() - t
+    check(all(ix.native is not None for ix in native.values()),
+          "BM25Index's auto backend took scipy on the card's machine")
+    t = time.perf_counter()
+    scipy_ix = {k: BM25Index.create(format_documents(pairs, f.name, f.dataset), name=f.name,
+                                    backend="scipy") for k, f in sparse_fields.items()}
+    scipy_s = time.perf_counter() - t
+    mixer = {"weight": rng.normal(scale=0.05, size=(engine.emb_dim, len(field_info)))
+             .astype(np.float32)}
+    kw = dict(doc_keys=list(corpus.keys()), encode_fn=engine.encode_fn,
+              tokenizer=engine.tokenizer, recall_k=100, device=DEVICE)
+    hyb = RetrievalEngine(field_info=field_info, mixer_params=mixer,
+                          dense_matrix=engine.docs_flat, sparse_indices=native, **kw)
+    hq = rare_word_queries(pairs, len(queries), rng, min_rank=5000)
+    for mode in ("exact", "rerank"):
+        hyb.retrieve(hq[:batch_size], top_k=100, mode=mode)  # warm-up
+    k = min(100, engine.n_docs)
+
+    # exact, postings route: counts to 0 just before, read just after
+    flash_attention.launches = gather_per_field_scores.launches = 0
+    exact, exact_s = timed_run(hyb, hq, "exact", batch_size)
+    check(gather_per_field_scores.launches == 0 and flash_attention.launches == 0,
+          "exact hybrid launched K1 or K2")
+    check(hyb.last_serve_path == "singlechip-hybrid-postings", f"path {hyb.last_serve_path}")
+    check_results(exact, len(hq), k)
+    ref, ref_totals = hybrid_reference(hyb, hq, mixer, scipy_ix)
+    msg = rankings_agree(exact, ref, E2E_RTOL, E2E_ATOL)
+    check(msg is None, f"exact hybrid (postings) vs brute force: {msg}")
+    widths = [hyb._sparse_postings_raw([clean_query(x) for x in hq[s : s + batch_size]])
+              for s in range(0, len(hq), batch_size)]
+    nnz = np.mean([float((v != 0).sum()) / v.shape[0] for _, v, _ in widths])
+
+    # exact, combined route: the 12-word e2e queries hold the corpus's
+    # commonest words, so their postings are denser than half the corpus
+    dense_q = queries[:batch_size]
+    combined = hyb.retrieve(dense_q, top_k=100, mode="exact")
+    check(hyb.last_serve_path == "singlechip-hybrid-combined", f"path {hyb.last_serve_path}")
+    msg = rankings_agree(combined, hybrid_reference(hyb, dense_q, mixer, scipy_ix)[0],
+                         E2E_RTOL, E2E_ATOL)
+    check(msg is None, f"exact hybrid (combined) vs brute force: {msg}")
+
+    # rerank through K1 with sparse stages 1b and 2, against the plain gather
+    flash_attention.launches = gather_per_field_scores.launches = 0
+    rerank, rerank_s = timed_run(hyb, hq, "rerank", batch_size)
+    launches = gather_per_field_scores.launches
+    check(launches > 0, "hybrid rerank launched K1 no time")
+    check(hyb.last_serve_path == "singlechip-rerank-hybrid-k1", f"path {hyb.last_serve_path}")
+    check_results(rerank, len(hq), k)
+    plain = RetrievalEngine(field_info=field_info, mixer_params=mixer, use_pallas_gather=False,
+                            dense_matrix=engine.docs_flat, sparse_indices=native, **kw)
+    want = plain.retrieve_many(hq, top_k=100, mode="rerank", batch_size=batch_size)
+    check(plain.last_serve_path == "singlechip-rerank-hybrid-plain", f"path {plain.last_serve_path}")
+    msg = rankings_agree(rerank, want, E2E_RTOL, E2E_ATOL)
+    check(msg is None, f"hybrid rerank K1 vs plain gather: {msg}")
+    scores_are_totals(rerank, hybrid_reference(hyb, hq, mixer, scipy_ix, round_query=False)[1],
+                      doc_row, "hybrid rerank")
+    del plain
+
+    # a sparse-only engine, both modes
+    mixer_s = {"weight": mixer["weight"][:, len(field_info) - len(sparse_fields):]}
+    sparse_only = RetrievalEngine(field_info=sparse_fields, mixer_params=mixer_s,
+                                  sparse_indices=native, **kw)
+    got_exact = sparse_only.retrieve(hq, top_k=100, mode="exact")
+    check(sparse_only.last_serve_path == "host-sparse-only", f"path {sparse_only.last_serve_path}")
+    want, totals = hybrid_reference(sparse_only, hq, mixer_s, scipy_ix)
+    msg = rankings_agree(got_exact, want, E2E_RTOL, E2E_ATOL)
+    check(msg is None, f"sparse-only exact vs reference: {msg}")
+    got_rerank = sparse_only.retrieve(hq, top_k=100, mode="rerank")
+    check(sparse_only.last_serve_path == "singlechip-rerank-sparse-only",
+          f"path {sparse_only.last_serve_path}")
+    scores_are_totals(got_rerank, totals, doc_row, "sparse-only rerank")
+
+    # every sparse field masked == a dense-only engine (up to the softmax's
+    # normalisation over 10 fields against 5: one positive factor a query),
+    # on an f32 copy of the corpus so that neither rounds its folded query
+    fd = len(hyb.dense_keys)
+    docs32 = engine.docs_flat.float()
+    mask = np.array([1.0] * fd + [0.0] * len(sparse_fields), np.float32)
+    masked_eng = RetrievalEngine(field_info=field_info, mixer_params=mixer, dense_matrix=docs32,
+                                 sparse_indices=native, mask=mask, **kw)
+    masked = masked_eng.retrieve(hq, top_k=100, mode="exact")
+    check(masked_eng.last_serve_path == "singlechip-hybrid-postings",
+          f"path {masked_eng.last_serve_path}")
+    dense_fields = {k: f for k, f in field_info.items() if f.is_dense}
+    dense_only = RetrievalEngine(field_info=dense_fields,
+                                 mixer_params={"weight": mixer["weight"][:, :fd]},
+                                 dense_matrix=docs32, **kw)
+    dense_hits = dense_only.retrieve(hq, top_k=100, mode="exact")
+    with torch.inference_mode():
+        w = torch.softmax(hyb.encode_queries(hq) @ torch.as_tensor(
+            mixer["weight"], device=DEVICE), dim=-1)[:, :fd].sum(-1).cpu().tolist()
+    scaled = [[(key, score * f) for key, score in hits] for hits, f in zip(dense_hits, w)]
+    msg = rankings_agree(masked, scaled, E2E_RTOL, E2E_ATOL)
+    check(msg is None, f"all sparse fields masked vs dense-only engine: {msg}")
+    del masked_eng, dense_only, docs32
+
+    phase("hybrid", f"all_dense,all_sparse over the e2e corpus ({engine.n_docs} docs, "
+                    f"{len(field_info)} mixer fields, the K2-built bf16 matrix), BM25 build "
+                    f"{native_s:.2f}s native / {scipy_s:.2f}s scipy (5 fields); exact "
+                    f"(postings): {len(hq) / exact_s:.1f} QPS, {nnz:.0f} postings a query, "
+                    f"widths {sorted({w[0].shape[1] for w in widths})} == brute force; "
+                    f"combined route on dense postings == brute force; rerank through K1: "
+                    f"{len(hq) / rerank_s:.1f} QPS, K1 launches {launches} == plain gather, "
+                    f"each hit its full score; sparse-only exact == reference, rerank hits "
+                    f"scored in full; every sparse field masked == dense-only engine "
+                    f"(rtol {E2E_RTOL}, atol {E2E_ATOL}, ties allowed)")
+    return dict(hybrid_k1_launches=launches, hybrid_exact_qps=len(hq) / exact_s,
+                hybrid_rerank_qps=len(hq) / rerank_s, hybrid_bm25_native_s=native_s,
+                hybrid_bm25_scipy_s=scipy_s, hybrid_postings_per_query=nnz)
+
+
+def synth_mag_serving(n_docs, n_queries, rng, vocab_size=200000):
+    """Mag-shaped documents at serving scale, text drawn from a Zipf
+    vocabulary headed by the tokenizer's stopwords: a 12-word title, a
+    160-word abstract, 10 cited titles of 10 words, 8 two-word topics and 6
+    authors with an institution each (~320 words a document); and queries
+    of 8 content words of a random document's title and abstract."""
+    vocab = sorted(STOPWORDS_EN) + [f"w{i}" for i in range(vocab_size)]
+    p = 1.0 / np.arange(1, len(vocab) + 1)
+    per_doc = 12 + 160 + 10 * 10 + 8 * 2 + 6 * 6
+    ids = rng.choice(len(vocab), size=per_doc * n_docs, p=p / p.sum())
+    words = [vocab[i] for i in ids.tolist()]
+    pairs = []
+    for d in range(n_docs):
+        it = iter(words[d * per_doc : (d + 1) * per_doc])
+
+        def take(n):
+            return " ".join(next(it) for _ in range(n))
+
+        pairs.append((f"doc{d}", {
+            "type": "paper",
+            "title": take(12),
+            "abstract": take(160),
+            "paper___cites___paper": [take(10) for _ in range(10)],
+            "paper___has_topic___field_of_study": [take(2) for _ in range(8)],
+            "author___affiliated_with___institution": {
+                f"author {take(2)}": [take(4)] for _ in range(6)},
+        }))
+    return pairs, rare_word_queries(pairs, n_queries, rng, min_rank=300)
+
+
+def run_hybrid_serving(seed, engine, n=131072, n_queries=512, n_text_queries=128,
+                       batch_size=64) -> dict:
+    """Hybrid serving at STaRK-Prime's scale: 131072 mag-shaped documents
+    with a native BM25 index over each of the 5 sparse fields and the
+    serving phase's random bf16 [131072, 5, 768] dense matrix; exact and
+    rerank QPS, one batch's stages, a torch.profiler window, one batch held
+    against the brute-force reference.  Two synthetic query mixes, neither
+    from a published query log: 8 rarer content words (the postings route)
+    and 12 words of a document's title and abstract, common words kept, as
+    the e2e queries are drawn (the combined route)."""
+    rng = np.random.default_rng(seed + 13)
+    t = time.perf_counter()
+    pairs, qs = synth_mag_serving(n, n_queries, rng)
+    text_qs = []
+    for _ in range(n_text_queries):
+        payload = pairs[rng.integers(n)][1]
+        pool = (payload["title"] + " " + payload["abstract"]).split()
+        text_qs.append(" ".join(rng.choice(pool, size=12, replace=False)))
+    data_s = time.perf_counter() - t
+    field_info = resolve_fields("all_dense,all_sparse", "mag")
+    sparse_fields = {k: f for k, f in field_info.items() if f.is_sparse}
+    t = time.perf_counter()
+    texts = {k: format_documents(pairs, f.name, f.dataset) for k, f in sparse_fields.items()}
+    format_s = time.perf_counter() - t
+    t = time.perf_counter()
+    bm25 = {k: BM25Index.create(texts[k], name=f.name) for k, f in sparse_fields.items()}
+    build_s = time.perf_counter() - t
+    del texts
+    check(all(ix.native is not None for ix in bm25.values()), "BM25 took the scipy backend")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    fd, e = len(engine.dense_keys), engine.emb_dim
+    matrix = torch.randn(n, fd, e, device=DEVICE, generator=gen, dtype=torch.bfloat16)
+    mixer = {"weight": rng.normal(scale=0.05, size=(e, len(field_info))).astype(np.float32)}
+    big = RetrievalEngine(
+        field_info=field_info, doc_keys=[k for k, _ in pairs], encode_fn=engine.encode_fn,
+        tokenizer=engine.tokenizer, mixer_params=mixer, dense_matrix=matrix,
+        sparse_indices=bm25, recall_k=100, device=DEVICE,
+    )
+    del matrix
+    for mode in ("exact", "rerank"):
+        big.retrieve(qs[:batch_size], top_k=100, mode=mode)  # warm-up
+
+    raws = [big._sparse_postings_raw([clean_query(x) for x in qs[s : s + batch_size]])
+            for s in range(0, len(qs), batch_size)]
+    check(all(r is not None for r in raws), "a serving batch's postings are dense")
+    width = np.mean([r[0].shape[1] for r in raws])
+    nnz = np.mean([float((r[1] != 0).sum()) / r[1].shape[0] for r in raws])
+
+    flash_attention.launches = gather_per_field_scores.launches = 0
+    exact, exact_s = timed_run(big, qs, "exact", batch_size)
+    check(gather_per_field_scores.launches == 0, "exact hybrid launched K1")
+    check(big.last_serve_path == "singlechip-hybrid-postings", f"path {big.last_serve_path}")
+    check_results(exact, len(qs), 100)
+    flash_attention.launches = gather_per_field_scores.launches = 0
+    rerank, rerank_s = timed_run(big, qs, "rerank", batch_size)
+    launches = gather_per_field_scores.launches
+    check(launches > 0, "hybrid rerank at serving scale launched K1 no time")
+    check(big.last_serve_path == "singlechip-rerank-hybrid-k1", f"path {big.last_serve_path}")
+    check_results(rerank, len(qs), 100)
+    big.retrieve(text_qs[:batch_size], top_k=100, mode="exact")  # warm-up
+    text, text_s = timed_run(big, text_qs, "exact", batch_size)
+    check(big.last_serve_path == "singlechip-hybrid-combined", f"path {big.last_serve_path}")
+    check_results(text, len(text_qs), 100)
+    msg = rankings_agree(text[:batch_size],
+                         hybrid_reference(big, text_qs[:batch_size], mixer, bm25)[0],
+                         E2E_RTOL, E2E_ATOL)
+    check(msg is None, f"hybrid serving combined batch vs brute force: {msg}")
+
+    batch = qs[:batch_size]
+    cleaned = [clean_query(x) for x in batch]
+
+    def stage_ms(fn, reps=5):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    enc_ms = stage_ms(lambda: big.encode_queries(batch))
+    post_ms = stage_ms(lambda: big._sparse_postings_raw(cleaned))
+    native_ms = stage_ms(lambda: [ix.get_postings_batch(cleaned, pad_multiple=None)
+                                  for ix in bm25.values()])
+    disp_ms = stage_ms(lambda: big._dispatch_exact(batch, 100))
+    exact_ms = stage_ms(lambda: big.retrieve(batch, top_k=100, mode="exact"))
+    rerank_ms = stage_ms(lambda: big.retrieve(batch, top_k=100, mode="rerank"))
+    prof = device_profile(lambda: big.retrieve_many(qs[:256], top_k=100, mode="exact",
+                                                    batch_size=batch_size))
+    ref, _ = hybrid_reference(big, batch, mixer, bm25)
+    msg = rankings_agree(exact[:batch_size], ref, E2E_RTOL, E2E_ATOL)
+    check(msg is None, f"hybrid serving batch vs brute force: {msg}")
+    phase("hybrid_serving", f"N={n} mag-shaped docs ({data_s:.1f}s to make), BM25 over "
+                            f"{len(bm25)} fields: format {format_s:.1f}s, native build "
+                            f"{build_s:.1f}s; {len(qs)} queries of 8 content words, batch "
+                            f"{batch_size}: postings width {width:.0f} a batch (mean), "
+                            f"{nnz:.0f} postings a query; exact (postings) "
+                            f"{len(qs) / exact_s:.1f} QPS; rerank (K1, {launches} launches) "
+                            f"{len(qs) / rerank_s:.1f} QPS; {len(text_qs)} queries of 12 "
+                            f"words, common ones kept: exact (combined) "
+                            f"{len(text_qs) / text_s:.1f} QPS, one batch == brute force")
+    phase("hybrid_serving", f"one batch: encode {enc_ms:.2f} ms, host postings (5 fields) "
+                            f"{post_ms:.2f} ms (the native calls {native_ms:.2f} ms, their "
+                            f"concatenation and copies the rest), exact dispatch (encode + postings + H2D + "
+                            f"scatter + scan) {disp_ms:.2f} ms, exact retrieve {exact_ms:.2f} "
+                            f"ms, rerank retrieve {rerank_ms:.2f} ms; profile of 256 exact "
+                            f"queries: wall {prof['wall_ms']:.2f} ms, device busy "
+                            f"{prof['device_ms']:.2f} ms (share {prof['busy_share']}); device ms "
+                            f"by kernel: {prof['top']}; one batch == brute force (rtol "
+                            f"{E2E_RTOL}, atol {E2E_ATOL})")
+    return dict(hybrid_serving_exact_qps=len(qs) / exact_s,
+                hybrid_serving_rerank_qps=len(qs) / rerank_s,
+                hybrid_serving_combined_qps=len(text_qs) / text_s,
+                hybrid_serving_k1_launches=launches, hybrid_serving_bm25_build_s=build_s,
+                hybrid_serving_postings_width=width, hybrid_serving_postings_per_query=nnz,
+                hybrid_serving_busy_share=prof["busy_share"],
+                hybrid_serving_stage_ms=dict(encode=enc_ms, postings=post_ms,
+                                             native_postings=native_ms, dispatch=disp_ms,
+                                             exact=exact_ms, rerank=rerank_ms))
+
+
+def run_hybrid_cli(seed, n_docs=200) -> dict:
+    """The port's hybrid command chain at Contriever-base width, from inputs
+    it makes itself: make_synth_data (mag), create_sparse_index,
+    precompute_sparse_scores, train --field-names all_dense,all_sparse
+    --sparse-scores-path --run-one-iteration, mask_fields on its output,
+    then retrieve --lexical-index --checkpoint-dir in rerank mode (K1)."""
+    fields = "all_dense,all_sparse"
+    n_fields = len(resolve_fields(fields, "mag"))
+    with tempfile.TemporaryDirectory() as d:
+        data, idx, scores, bert, out, abl = (os.path.join(d, x) for x in (
+            "data", "idx", "scores", "bert", "out", "abl"))
+        secs = {}
+        t = time.perf_counter()
+        make_synth_data.main(["--out", data, "--dataset-name", "mag", "--n-docs", str(n_docs),
+                              "--seed", str(seed)])
+        write_bert_dir(bert, load_corpus(data, "mag"), seed + 9)
+        create_sparse_index.main(["--data-path", data, "--dataset-name", "mag",
+                                  "--output-path", idx])
+        precompute_sparse_scores.main(["--data-path", data, "--dataset-name", "mag",
+                                       "--corpus-path", data, "--output-path", scores,
+                                       "--index-path", idx])
+        secs["inputs"] = time.perf_counter() - t
+        check(len([f for f in os.listdir(scores) if f.endswith("_bm25.npy")]) == 2 * 6,
+              f"precompute_sparse_scores wrote {sorted(os.listdir(scores))}")
+        common = ["--dataset-name", "mag", "--data", data, "--field-names", fields,
+                  "--lexical-index", idx, "--model-name", bert, "--device", "cuda"]
+        reset_counts()
+        t = time.perf_counter()
+        train_cmd.main([*common, "--out", out, "--weights-lr", "0.1", "--sparse-scores-path",
+                        scores, "--run-one-iteration", "--max-epochs", "1"])
+        secs["train"] = time.perf_counter() - t
+        check(counts() == (0, 0, 0), f"the train command (attention 'xla') launched {counts()}")
+        check(os.path.exists(os.path.join(out, "checkpoints/0/state.pt")),
+              "the hybrid train command wrote no checkpoint")
+        t = time.perf_counter()
+        mask_fields.main([*common, "--out", abl, "--checkpoint-dir", out])
+        secs["mask_fields"] = time.perf_counter() - t
+        with open(os.path.join(abl, "results_dicts.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        want = 1 + n_fields + 2 + n_fields // 2
+        check(len(records) == want, f"mask_fields wrote {len(records)} records, want {want}")
+        check(all(0.0 <= float(r["ndcg_cut_10"]) <= 1.0 for r in records), "a metric out of range")
+        by_mask = {r["masked_fields"]: float(r["ndcg_cut_10"]) for r in records}
+        run = os.path.join(d, "test.qres")
+        gather_per_field_scores.launches = 0
+        t = time.perf_counter()
+        retrieve_cmd.main([*common, "--out", run, "--partition", "test", "--checkpoint-dir", out,
+                           "--mode", "rerank"])
+        secs["retrieve"] = time.perf_counter() - t
+        launches = gather_per_field_scores.launches
+        check(launches > 0, "retrieve --mode rerank launched K1 no time")
+        by_query = collections.Counter(r.query_id for r in trec.QRes.from_file(run))
+        check(len(by_query) == 15 and set(by_query.values()) == {100},
+              f"retrieve wrote {dict(by_query)}")
+    sparse_key = ",".join(k for k in resolve_fields(fields, "mag") if k.endswith("_sparse"))
+    dense_key = ",".join(k for k in resolve_fields(fields, "mag") if k.endswith("_dense"))
+    phase("hybrid_cli", f"{n_docs}-doc mag dataset from make_synth_data, BERT directory at "
+                        f"Contriever-base width: inputs (data, BERT dir, BM25 index, "
+                        f"precomputed scores) {secs['inputs']:.1f}s; train {fields} "
+                        f"--sparse-scores-path --run-one-iteration {secs['train']:.1f}s; "
+                        f"mask_fields {secs['mask_fields']:.1f}s ({len(records)} configurations; "
+                        f"ndcg@10 baseline {by_mask['']:.3f}, all sparse masked "
+                        f"{by_mask[sparse_key]:.3f}, all dense masked {by_mask[dense_key]:.3f}); "
+                        f"retrieve --lexical-index --checkpoint-dir --mode rerank "
+                        f"{secs['retrieve']:.1f}s, K1 launches {launches}, 100 hits for each "
+                        f"of {len(by_query)} queries")
+    return dict(hybrid_cli_s=secs, hybrid_cli_k1_launches=launches)
+
+
 def device_profile(fn, top: int = 8, host_top: int = 0) -> dict:
     """Run ``fn()`` once under ``torch.profiler``: wall time, the summed
     time of the device's kernels (one stream, so busy time), their share of
@@ -1461,16 +1910,24 @@ def main(argv=None) -> int:
     train = run_train(args.seed, corpus, engine.tokenizer)
     train_cli = run_train_cli(args.seed, corpus)
     serving = run_serving(args.seed, engine, queries)
+    hybrid = run_hybrid(args.seed, engine, corpus, queries)
+    hybrid_serving = run_hybrid_serving(args.seed, engine)
+    hybrid_cli = run_hybrid_cli(args.seed)
 
     k1_row = k1["bf16"]
     phase("summary", json.dumps({"k1_f32": k1["f32"], "k1_bf16": k1_row, "k2": k2, "k2b": k2b,
-                                 **e2e, **long, **cli, **train, **train_cli, **serving}))
+                                 **e2e, **long, **cli, **train, **train_cli, **serving,
+                                 **hybrid, **hybrid_serving, **hybrid_cli}))
     print(json.dumps({"kernels": [{
         "name": "gather_per_field_scores",
         "route": "cuda",
         "source": "mfar_tpu_torch/csrc/gather_scores.cu",
         "replaces": "mfar_tpu/ops/pallas_kernels.py:192",
-        "launches": e2e["k1_launches"],
+        # the main paths that run K1: e2e rerank, hybrid rerank, hybrid
+        # serving's rerank and the hybrid retrieve command
+        "launches": (e2e["k1_launches"] + hybrid["hybrid_k1_launches"]
+                     + hybrid_serving["hybrid_serving_k1_launches"]
+                     + hybrid_cli["hybrid_cli_k1_launches"]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1_row["kernel_ms"],
         "plain_ms": k1_row["plain_ms"],

@@ -1,10 +1,15 @@
-"""Shared CLI bootstrap for the port: corpus + model + dense index from flags.
+"""Shared CLI bootstrap for the port: corpus + model + dense and sparse
+indices from flags.
 
-Counterpart of ``mfar_tpu/commands/common.py`` for the dense single-device
-engine and the trainer.  ``--checkpoint-dir`` reads the port's own
-checkpoints (:mod:`mfar_tpu_torch.train.checkpoint`; the JAX package's are
-orbax, ROADMAP A10).  Not here yet: the mesh flags (A15) and sparse indices
-(A8).
+Counterpart of ``mfar_tpu/commands/common.py`` for the single-device engine
+and the trainer, with the JAX command's whole engine flag set.
+``--checkpoint-dir`` reads the port's own checkpoints
+(:mod:`mfar_tpu_torch.train.checkpoint`; the JAX package's are orbax,
+ROADMAP A10.4).  ``--mesh off`` and ``auto`` serve on one device (``auto``
+with several visible cards says so and takes the first); an explicit mesh
+(``--n-model``/``--n-replica`` above 1 under ``auto``,
+``--corpus-per-slice``) raises A15, ``--quantize`` A11, ``--corpus-on-host``
+A12 and ``--pallas-cross-row`` B1, before any work.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 
 from mfar_tpu_torch.data import trec
 from mfar_tpu_torch.data.format import format_documents
-from mfar_tpu_torch.data.schema import resolve_fields
+from mfar_tpu_torch.data.schema import resolve_fields, sparse_keys
 from mfar_tpu_torch.data.types import Corpus, Field
 from mfar_tpu_torch.sparse.bm25 import BM25Index
 from mfar_tpu_torch.train.checkpoint import (
@@ -85,33 +90,90 @@ def corpus_texts_for_vocab(corpus: Corpus, field_info: Dict[str, Field], queries
     return texts
 
 
+def load_or_build_sparse_indices(
+    corpus: Corpus, field_info: Dict[str, Field], lexical_index: Optional[str]
+) -> Dict[str, BM25Index]:
+    """Per-sparse-field BM25 indices: loaded from ``--lexical-index`` where
+    it holds ``{field_key}_sparse_index``, else built in memory."""
+    from mfar_tpu_torch.eval.index_build import build_sparse_indices
+
+    out: Dict[str, BM25Index] = {}
+    missing: Dict[str, Field] = {}
+    for fk in sparse_keys(field_info):
+        path = lexical_index and os.path.join(lexical_index, f"{fk}_sparse_index")
+        if path and os.path.isdir(path):
+            out[fk] = BM25Index.load(path)
+        else:
+            missing[fk] = field_info[fk]
+    if missing:
+        out.update(build_sparse_indices(corpus, missing))
+    return out
+
+
 def add_engine_args(p: argparse.ArgumentParser) -> None:
-    """The dense serving-engine flags (names as in the JAX package)."""
+    """The serving-engine flags, names and defaults as in the JAX package."""
     p.add_argument("--model-name", default="facebook/contriever-msmarco",
                    help="synthetic[:vocab[:hidden]] or a local HF BERT directory")
     p.add_argument("--checkpoint-dir", default=None,
                    help="a train run's --out: serve its best checkpoint's encoder "
                         "and mixer (the port's checkpoints)")
     p.add_argument("--dense-index", default=None, help="prebuilt .npz/.npy from encode_corpus")
+    p.add_argument("--lexical-index", default=None,
+                   help="directory of prebuilt BM25 indices ({field}_sparse_index, "
+                        "from create_sparse_index); missing ones are built in memory")
     p.add_argument("--recall-k", type=int, default=100)
     p.add_argument("--normalize", action="store_true")
+    p.add_argument("--quantize", default=None, choices=[None, "int8"],
+                   help="int8 corpus: ROADMAP A11")
     p.add_argument("--use-pallas-gather", nargs="?", const="on", default="auto",
                    choices=["auto", "on", "off"],
                    help="rerank stage-2 gather through the CUDA kernel K1. auto "
                         "(default): K1 on the card (raising on a corpus it "
                         "cannot read); on: always; off: the plain gather")
+    p.add_argument("--pallas-cross-row", action="store_true",
+                   help="a knob of the TPU kernel's DMA schedule: ROADMAP B1")
+    p.add_argument("--corpus-on-host", action="store_true",
+                   help="host-streamed corpus: ROADMAP A12")
     p.add_argument("--dense-topk", default="exact", choices=["exact", "approx"],
                    help="accepted for the JAX flag set; selection is exact here")
     p.add_argument("--dense-dtype", default="bf16", choices=["bf16", "f32"],
                    help="device dtype of the corpus matrix (bf16 halves its memory)")
     p.add_argument("--mode", default="auto", choices=["auto", "exact", "rerank"],
-                   help="exact (the default) scores the full corpus; rerank is "
-                        "the reference-compatible recall+rerank pipeline")
+                   help="exact (the default) scores the full corpus, hybrid fields "
+                        "included; rerank is the reference-compatible recall+rerank "
+                        "pipeline")
+    p.add_argument("--mesh", default="auto", choices=["auto", "off"],
+                   help="auto and off: one device (a mesh over several cards is "
+                        "ROADMAP A15)")
+    p.add_argument("--n-model", type=int, default=1, help="above 1: ROADMAP A15")
+    p.add_argument("--n-replica", type=int, default=1, help="above 1: ROADMAP A15")
+    p.add_argument("--corpus-per-slice", action="store_true", help="ROADMAP A15")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
 
+def note_one_card(args, label: str) -> None:
+    """``--mesh auto`` with several visible cards runs on the first: say so
+    (a mesh over them is ROADMAP A15)."""
+    if args.mesh == "auto" and torch.device(args.device).type == "cuda":
+        n_cards = torch.cuda.device_count()
+        if n_cards > 1:
+            print(f"[{label}] --mesh auto: {n_cards} visible cards, running on one "
+                  f"(a mesh is ROADMAP A15)", flush=True)
+
+
+def requested_mesh(args) -> Optional[dict]:
+    """The device layout the mesh flags ask for: None for one device, else
+    a description that the engine refuses (ROADMAP A15)."""
+    if args.mesh == "auto" and (args.n_model > 1 or args.n_replica > 1):
+        return dict(n_model=args.n_model, n_replica=args.n_replica)
+    note_one_card(args, "retrieve")
+    return None
+
+
 def build_engine(args):
-    """Assemble a ready-to-serve RetrievalEngine from the flag block."""
+    """Assemble a ready-to-serve RetrievalEngine from the flag block: corpus,
+    model or checkpoint, dense matrix (prebuilt or encoded now) and the
+    sparse fields' BM25 indices."""
     from mfar_tpu_torch.eval.index_build import (
         build_dense_corpus_matrix,
         load_dense_matrix,
@@ -121,6 +183,10 @@ def build_engine(args):
     from mfar_tpu_torch.models.encoder import Encoder
     from mfar_tpu_torch.models.registry import prepare_model
 
+    unported = dict(mesh=requested_mesh(args), corpus_per_slice=args.corpus_per_slice,
+                    quantize=args.quantize, corpus_on_host=args.corpus_on_host,
+                    pallas_cross_row=args.pallas_cross_row)
+    RetrievalEngine.refuse_unported(**unported)
     resolve_data_dirs(args)
     field_info = resolve_fields(args.field_names, args.dataset_name)
     corpus = load_corpus(args.corpus, args.dataset_name)
@@ -151,12 +217,14 @@ def build_engine(args):
         tokenizer=tokenizer,
         mixer_params=mixer_params,
         dense_matrix=matrix if matrix.size else None,
+        sparse_indices=load_or_build_sparse_indices(corpus, field_info, args.lexical_index),
         recall_k=args.recall_k,
         use_pallas_gather={"on": True, "off": False}.get(args.use_pallas_gather, "auto"),
         mode=args.mode,
         dense_topk=args.dense_topk,
         dense_dtype=torch.bfloat16 if args.dense_dtype == "bf16" else None,
         device=args.device,
+        **unported,
     )
 
 

@@ -1,10 +1,12 @@
-"""Answer a query file against a dense index with the PyTorch engine ->
-a TREC run file (+ metrics when qrels are present).
+"""Answer a query file with the PyTorch engine -> a TREC run file (+ metrics
+when qrels are present), over dense fields, BM25 fields or both.
 
-Counterpart of ``mfar_tpu/commands/retrieve.py`` on one device:
+Counterpart of ``mfar_tpu/commands/retrieve.py`` on one device, with its
+flag set (``--multihost force|pod`` and an explicit mesh: ROADMAP A15):
 
     python -m mfar_tpu_torch.commands.retrieve --dataset-name mag --data DIR \\
-        --out run.qres --mode rerank [--device cpu] [--model-name DIR]
+        --field-names all_dense,all_sparse --lexical-index IDX \\
+        --out run.qres [--mode rerank] [--device cpu] [--model-name DIR]
 """
 
 from __future__ import annotations
@@ -31,7 +33,12 @@ def main(argv=None) -> None:
     p.add_argument("--top-k", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=64)
     add_engine_args(p)
+    p.add_argument("--multihost", default="auto", choices=["auto", "off", "force", "pod"],
+                   help="force|pod: ROADMAP A15; auto and off run one process")
     args = p.parse_args(normalize_argv(argv))
+    if args.multihost in ("force", "pod"):
+        raise NotImplementedError(
+            f"--multihost {args.multihost}: serving over several processes is ROADMAP A15")
 
     engine = build_engine(args)
     queries = trec.read_queries(os.path.join(args.queries, f"{args.partition}.queries"))

@@ -12,10 +12,14 @@ plain attention (``"xla"``) and dropout 0.1, as the JAX command does; kernel
 K2 and its backward run when the encoder config has
 ``attention_impl="auto"`` (or ``"flash"``) and attention dropout 0.
 ``--remat auto`` recomputes layers in the backward for encoders of 8 layers
-or more.  Not ported, each raising ``NotImplementedError`` with its ROADMAP
-item: several devices (``--mesh auto`` with several visible cards,
-``--n-model``/``--n-replica`` above 1, ``--multihost force|pod``: A15),
-sparse (BM25) fields (A8) and T5 models (A14).  The output directory holds
+or more.  Sparse (BM25) fields train as in the JAX command: their indices
+load from ``--lexical-index`` (``create_sparse_index``) or are built in
+memory, and their scores come from ``--sparse-scores-path``
+(``precompute_sparse_scores``) where it covers a batch's queries, else live.
+Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
+several devices (``--mesh auto`` with several visible cards,
+``--n-model``/``--n-replica`` above 1, ``--multihost force|pod``: A15) and
+T5 models (A14).  The output directory holds
 ``metrics.jsonl``, ``checkpoints/<epoch>/`` (``state.pt`` + ``meta.json``),
 ``best.txt``, the dev qres files and ``results_dicts.jsonl``, as the JAX
 command's does; ``retrieve --checkpoint-dir`` serves from it.
@@ -36,16 +40,18 @@ from mfar_tpu_torch.commands.common import (
     corpus_texts_for_vocab,
     load_corpus,
     load_negative_sampler_index,
+    load_or_build_sparse_indices,
     normalize_argv,
     resolve_data_dirs,
 )
 from mfar_tpu_torch.data import trec
 from mfar_tpu_torch.data.negative_sampler import IndexNegativeSampler
-from mfar_tpu_torch.data.schema import resolve_fields, sparse_keys
+from mfar_tpu_torch.data.schema import resolve_fields
 from mfar_tpu_torch.models.registry import is_t5_family, prepare_model
 from mfar_tpu_torch.train.data_pipeline import ContrastiveDataset
 from mfar_tpu_torch.train.model import MFARModel
 from mfar_tpu_torch.train.optim import make_optimizer
+from mfar_tpu_torch.train.sparse_cache import read_sparse_scores
 from mfar_tpu_torch.train.train_step import init_state
 from mfar_tpu_torch.train.trainer import Trainer, TrainerConfig
 from mfar_tpu_torch.utils.logging import MetricsLogger
@@ -61,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--partition", default="val")
     p.add_argument("--additional-partition", default=None)
     p.add_argument("--sparse-scores-path", default=None,
-                   help="precomputed BM25 scores of sparse fields (ROADMAP A8)")
+                   help="precomputed BM25 scores of the sparse fields "
+                        "(precompute_sparse_scores' output)")
     p.add_argument("--model-name", default="facebook/contriever-msmarco",
                    help="synthetic[:vocab[:hidden]] or a local HF BERT directory")
     p.add_argument("--model-path", default=None)
@@ -152,10 +159,6 @@ def main(argv=None) -> None:
     os.makedirs(args.out, exist_ok=True)
 
     field_info = resolve_fields(args.field_names, args.dataset_name)
-    if sparse_keys(field_info):
-        raise NotImplementedError(
-            f"sparse fields {sparse_keys(field_info)}: hybrid (BM25) training is ROADMAP A8"
-        )
     model_name = args.model_path or args.model_name
     neg_params = tuple(int(x) for x in args.negative_sampling_params.split(","))
     dev_by_iter = args.dev_by_iter if args.dev_by_iter is not None \
@@ -196,8 +199,14 @@ def main(argv=None) -> None:
         overrides["softmax_dtype"] = torch.bfloat16
     config = dataclasses.replace(config, **overrides)
 
+    sparse_indices = load_or_build_sparse_indices(corpus, field_info, args.lexical_index)
     neg_index = load_negative_sampler_index(corpus, args.lexical_index, args.dataset_name)
     sampler = IndexNegativeSampler(neg_index, *neg_params)
+    sparse_scores = None
+    if args.sparse_scores_path and sparse_indices:
+        t0 = time.time()
+        sparse_scores = read_sparse_scores(args.sparse_scores_path, field_info)
+        print(f"Read sparse scores in {time.time() - t0:.1f}s")
 
     model = MFARModel(
         encoder_config=config,
@@ -222,6 +231,7 @@ def main(argv=None) -> None:
         return ContrastiveDataset(
             queries, corpus, trec.QRels.from_file(os.path.join(args.queries, qrels_file)),
             sampler, field_info, tokenizer, query_max_length=max_len, prefix=args.prefix,
+            sparse_score_cache=sparse_scores, sparse_indices=sparse_indices,
         )
 
     cfg = TrainerConfig(
@@ -257,7 +267,7 @@ def main(argv=None) -> None:
         val_dataset=dataset(val_queries, "val.qrels", args.dev_max_length),
         dev_queries=dev_queries,
         dev_qrels_path=os.path.join(args.queries, f"{args.partition}.qrels"),
-        config=cfg, additional_queries=additional_queries,
+        config=cfg, sparse_indices=sparse_indices, additional_queries=additional_queries,
         additional_qrels_path=additional_qrels, logger=logger,
     )
 

@@ -1,5 +1,4 @@
-"""Dense corpus index construction: counterpart of
-``mfar_tpu/eval/index_build.py`` for the dense fields.
+"""Corpus index construction: counterpart of ``mfar_tpu/eval/index_build.py``.
 
 Per dense field, documents format and tokenize on the host into fixed-size
 batches (padded to the full batch size and the field's token budget) and run
@@ -8,8 +7,8 @@ the engine serves, in host memory or streamed into a write target such as a
 disk memmap.  An encoder with ``attention_impl="auto"`` runs the 512- and
 128-token fields through kernel K2 on the card.  The on-disk format of
 :func:`save_dense_matrix` / :func:`load_dense_matrix` is the JAX package's,
-so either package reads the other's files.  Sparse (BM25) indices wait for the hybrid slice (ROADMAP
-queue A8).
+so either package reads the other's files.  Each sparse field gets a BM25
+index over its formatted text (:func:`build_sparse_indices`).
 """
 
 from __future__ import annotations
@@ -21,8 +20,9 @@ import numpy as np
 import torch
 
 from mfar_tpu_torch.data.format import format_documents
-from mfar_tpu_torch.data.schema import dense_keys
+from mfar_tpu_torch.data.schema import dense_keys, sparse_keys
 from mfar_tpu_torch.data.types import Corpus, Field
+from mfar_tpu_torch.sparse.bm25 import BM25Index
 from mfar_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -119,6 +119,17 @@ def build_dense_corpus_matrix(
     if not mats:
         return np.zeros((len(corpus), 0, 0), dtype)
     return np.stack(mats, axis=1)
+
+
+def build_sparse_indices(corpus: Corpus, field_info: Dict[str, Field]) -> Dict[str, BM25Index]:
+    """Per-sparse-field BM25 indices (reference: mfar/modeling/util.py:102-106)."""
+    out: Dict[str, BM25Index] = {}
+    pairs = list(corpus.pairs())
+    for fk in sparse_keys(field_info):
+        field = field_info[fk]
+        out[fk] = BM25Index.create(format_documents(pairs, field.name, field.dataset),
+                                   name=field.name)
+    return out
 
 
 def save_dense_matrix(path: str, matrix: np.ndarray, keys: Sequence[str]) -> str:

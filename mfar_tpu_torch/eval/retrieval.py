@@ -1,25 +1,33 @@
-"""The retrieval engine: query -> top-k documents, on one device, dense fields.
+"""The retrieval engine: query -> top-k documents, on one device, over a
+dense corpus, BM25 (sparse) fields, or both (hybrid).
 
-Counterpart of ``mfar_tpu/eval/retrieval.py`` for the single-device dense
-paths, with the same constructor arguments (plus ``device``) and the same
-two modes:
+Counterpart of ``mfar_tpu/eval/retrieval.py`` for the single-device paths,
+with the same constructor arguments (plus ``device``) and the same two
+modes:
 
 - ``exact`` (what ``auto`` means): softmax field weights fold into the
   query and the full corpus is scored in one matmul per chunk with a running
-  exact top-k (``singlechip-dense``).
+  exact top-k (``singlechip-dense``).  Hybrid: each sparse field's BM25
+  engine gives the batch's query-term postings on the host (row ids and raw
+  impacts), which scatter-add on the device, each weighted by its field's
+  softmax weight, into the dense scan (``singlechip-hybrid-postings``);
+  when the postings are denser than half the corpus, the host sums the
+  weighted full-corpus BM25 scores instead (``singlechip-hybrid-combined``).
+  A corpus with no dense matrix is scored on the host (``host-sparse-only``).
 - ``rerank`` (the reference-compatible pipeline): stage 1 takes each dense
-  field's own top-``recall_k`` over the corpus in one pass; the per-query
-  candidate union (``np.unique``) pads to a geometric width; stage 2 scores
-  every candidate's fields and mixes them with the query-conditioned
-  weights.  Stage 2's per-field scores come from kernel K1
+  field's own top-``recall_k`` over the corpus in one pass, and each sparse
+  field's BM25 top-``recall_k`` on the host; the per-query candidate union
+  (``np.unique``) pads to a geometric width; stage 2 scores every
+  candidate's fields and mixes them with the query-conditioned weights.
+  Stage 2's dense scores come from kernel K1
   (:func:`mfar_tpu_torch.ops.gather_scores.gather_per_field_scores`), which
-  reads candidate rows from the corpus in place, or from a plain gather.
+  reads candidate rows from the corpus in place, or from a plain gather;
+  its sparse columns are gathered from the full BM25 score vectors.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-declared sparse (BM25) fields (A8), ``quantize`` (A11), ``corpus_on_host``
-(A12), ``mesh``/``corpus_per_slice`` (A15), and ``pallas_cross_row``, a knob
-of the TPU kernel's DMA schedule whose CUDA counterpart, pipelined row loads
-in K1, is B1's follow-up.
+``quantize`` (A11), ``corpus_on_host`` (A12), ``mesh``/``corpus_per_slice``
+(A15), and ``pallas_cross_row``, a knob of the TPU kernel's DMA schedule
+whose CUDA counterpart, pipelined row loads in K1, is B1's follow-up.
 """
 
 from __future__ import annotations
@@ -36,10 +44,14 @@ from mfar_tpu_torch.data.types import Field
 from mfar_tpu_torch.native import bucket_width
 from mfar_tpu_torch.ops.gather_scores import gather_per_field_scores
 from mfar_tpu_torch.ops.scoring import (
+    fold_queries,
     fused_dense_topk_from_query,
+    fused_hybrid_topk_postings_from_query,
+    hybrid_topk_chunked,
     per_field_candidate_scores,
     per_field_topk_chunked_approx,
     rerank_candidates,
+    softmax_field_weights,
 )
 from mfar_tpu_torch.train.data_pipeline import clean_query
 from mfar_tpu_torch.train.model import FieldMixer
@@ -67,7 +79,8 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class RetrievalEngine:
-    """Holds the dense index + scoring params and answers query batches."""
+    """Holds the dense and sparse indices + scoring params and answers
+    query batches."""
 
     def __init__(
         self,
@@ -104,21 +117,13 @@ class RetrievalEngine:
             raise ValueError(f"mode={mode!r}")
         if dense_topk not in ("exact", "approx"):
             raise ValueError(f"dense_topk={dense_topk!r}")
-        if mesh is not None or corpus_per_slice:
-            raise _not_ported("multi-device serving (mesh, corpus_per_slice)", "A15")
-        if quantize:
-            raise _not_ported(f"quantize={quantize!r}", "A11")
-        if corpus_on_host:
-            raise _not_ported("corpus_on_host", "A12")
-        if pallas_cross_row:
-            raise NotImplementedError(
-                "pallas_cross_row tunes the TPU kernel's DMA prefetch; the CUDA "
-                "rerank kernel's row pipelining is ROADMAP B1's follow-up"
-            )
-        if sparse_keys(field_info) or sparse_indices:
-            raise _not_ported("sparse (BM25) fields", "A8")
-        if dense_matrix is None or len(dense_matrix) == 0:
-            raise ValueError("the engine serves a dense corpus: pass dense_matrix")
+        self.refuse_unported(mesh=mesh, corpus_per_slice=corpus_per_slice,
+                             quantize=quantize, corpus_on_host=corpus_on_host,
+                             pallas_cross_row=pallas_cross_row)
+        has_dense = dense_matrix is not None and int(np.prod(dense_matrix.shape)) > 0
+        if not has_dense and not sparse_keys(field_info):
+            raise ValueError("the engine serves a dense corpus or sparse fields: "
+                             "pass dense_matrix or declare sparse fields")
 
         self.device = resolve_device(device)
         self.field_info = field_info
@@ -135,11 +140,41 @@ class RetrievalEngine:
         self.query_max_length = query_max_length
         self.recall_k = recall_k
         self.dense_keys = dense_keys(field_info)
+        self.sparse_keys = sparse_keys(field_info)
+        self.sparse_indices = sparse_indices or {}
         self.mask = mask
         self.n_docs = len(self.doc_keys)
         self.mode = mode
         self.dense_topk = dense_topk
+        self.has_dense = has_dense
+        self.docs_flat = None
+        self.emb_dim = None
+        self.use_gather_kernel = False
+        if has_dense:
+            self._place_dense(dense_matrix, dense_dtype, use_pallas_gather)
+        self._build_row_maps()
 
+    @staticmethod
+    def refuse_unported(mesh=None, corpus_per_slice=False, quantize=None,
+                        corpus_on_host=False, pallas_cross_row=False) -> None:
+        """Raise ``NotImplementedError`` naming the ROADMAP item of an
+        option the port does not serve yet (the commands call this before
+        any work)."""
+        if mesh is not None or corpus_per_slice:
+            raise _not_ported("multi-device serving (mesh, corpus_per_slice)", "A15")
+        if quantize:
+            raise _not_ported(f"quantize={quantize!r}", "A11")
+        if corpus_on_host:
+            raise _not_ported("corpus_on_host", "A12")
+        if pallas_cross_row:
+            raise NotImplementedError(
+                "pallas_cross_row tunes the TPU kernel's DMA prefetch; the CUDA "
+                "rerank kernel's row pipelining is ROADMAP B1's follow-up"
+            )
+
+    def _place_dense(self, dense_matrix, dense_dtype, use_pallas_gather) -> None:
+        """The dense corpus on the device in the flat [N, Fd*E] layout, and
+        the stage-2 gather gate."""
         fd = len(self.dense_keys)
         if isinstance(dense_matrix, np.ndarray):
             with warnings.catch_warnings():
@@ -188,6 +223,69 @@ class RetrievalEngine:
             )
         self.use_gather_kernel = use_pallas_gather
 
+    def _build_row_maps(self) -> None:
+        """A prebuilt sparse index may cover another doc set or order than
+        the corpus (``--lexical-index`` built elsewhere).  Per field: None =
+        rows aligned with ``doc_keys``, else an int64 [n_bm25] map of BM25
+        row -> corpus row (-1 = not in the corpus)."""
+        missing = [fk for fk in self.sparse_keys if fk not in self.sparse_indices]
+        if missing:
+            # fail here, not with a KeyError on the first query: every route
+            # scores each declared sparse field through its index
+            raise ValueError(
+                f"field_info declares sparse fields {missing} but sparse_indices "
+                f"has no index for them (got {sorted(self.sparse_indices)})"
+            )
+        self._sparse_row_map: Dict[str, Optional[np.ndarray]] = {}
+        self._sparse_inv_map: Dict[str, np.ndarray] = {}  # corpus row -> BM25 row
+        key_to_row = None
+        for fk in self.sparse_keys:
+            keys = list(self.sparse_indices[fk].keys)
+            if keys == self.doc_keys:
+                self._sparse_row_map[fk] = None
+                continue
+            if key_to_row is None:
+                key_to_row = {k_: i for i, k_ in enumerate(self.doc_keys)}
+            self._sparse_row_map[fk] = np.asarray(
+                [key_to_row.get(k_, -1) for k_ in keys], np.int64
+            )
+
+    def _map_postings(self, fk: str, ids: np.ndarray, vals: np.ndarray):
+        """BM25-row postings -> corpus-row postings (docs outside the corpus
+        drop to id 0 / val 0, which scatter-adds nothing)."""
+        rm = self._sparse_row_map.get(fk)
+        if rm is None:
+            return ids, vals
+        mapped = rm[ids]
+        keep = mapped >= 0
+        return (
+            np.where(keep, mapped, 0).astype(np.int32),
+            np.where(keep, vals, 0.0).astype(np.float32),
+        )
+
+    def _map_dense_scores(self, fk: str, scores: np.ndarray) -> np.ndarray:
+        """[B, n_bm25] BM25 scores -> [B, n_docs] corpus-row-aligned scores."""
+        out = np.zeros((scores.shape[0], self.n_docs), np.float32)
+        rm = self._sparse_row_map.get(fk)
+        if rm is None:
+            out[:, : scores.shape[1]] = scores
+        else:
+            keep = rm >= 0
+            out[:, rm[keep]] = scores[:, keep]
+        return out
+
+    def _inv_map(self, fk: str) -> Optional[np.ndarray]:
+        """corpus row -> BM25 row (-1 = doc absent from the index)."""
+        rm = self._sparse_row_map.get(fk)
+        if rm is None:
+            return None
+        if fk not in self._sparse_inv_map:
+            inv = np.full(self.n_docs, -1, np.int64)
+            keep = rm >= 0
+            inv[rm[keep]] = np.nonzero(keep)[0]
+            self._sparse_inv_map[fk] = inv
+        return self._sparse_inv_map[fk]
+
     def set_mask(self, mask: Optional[np.ndarray]) -> None:
         """Field ablation mask over [dense..., sparse...] (schema order)."""
         self.mask = mask
@@ -197,12 +295,88 @@ class RetrievalEngine:
             return None
         return torch.as_tensor(np.asarray(self.mask, np.float32), device=self.device)
 
+    def _masked_out(self, field_idx: int) -> bool:
+        """Host-known ablation-mask skip (the mixer weights also zero masked
+        fields on the device, so skipping is an optimisation, not the source
+        of the correct result)."""
+        return self.mask is not None and float(self.mask[field_idx]) == 0.0
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device; on a card through pinned
+        memory without blocking, so the dispatch half never waits for the
+        device."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _field_weights(self, q: torch.Tensor) -> torch.Tensor:
+        """[B, F] post-softmax, post-mask field weights."""
+        w = softmax_field_weights(self._W, q, self._mask_tensor())
+        return w.expand(q.shape[0], w.shape[-1])
+
     def encode_queries(self, queries: Sequence[str]) -> torch.Tensor:
         toks = self.tokenizer.encode_batch(
             [clean_query(q) for q in queries], self.query_max_length
         )
         with torch.inference_mode():
             return self.encode_fn(toks["input_ids"], toks["attention_mask"]).float()
+
+    # -- sparse fields on the host ----------------------------------------
+
+    def _sparse_full_scores(self, cleaned: List[str], weights: np.ndarray) -> np.ndarray:
+        """Combined (weight-mixed) full-corpus sparse scores [B, n_docs]: each
+        sparse field's full-corpus BM25 scores, times the field's post-softmax
+        (and post-mask) weight."""
+        fd = len(self.dense_keys)
+        comb = np.zeros((len(cleaned), self.n_docs), np.float32)
+        for s_i, fk in enumerate(self.sparse_keys):
+            w = weights[:, fd + s_i]
+            if not np.any(w):
+                continue  # field masked out: skip the corpus scan entirely
+            scores = self.sparse_indices[fk].get_scores_batch(cleaned)
+            comb += w[:, None] * self._map_dense_scores(fk, scores)
+        return comb
+
+    def _collect_sparse_postings(self, cleaned: List[str]):
+        """Per unmasked sparse field, the batch's query-term postings
+        (row-mapped to corpus rows).  Returns (per_field list of (ids, vals,
+        s_i), dense): dense is true when the postings, counted unpadded,
+        exceed half the corpus, where the [B, N] host path is the cheaper
+        transfer."""
+        fd = len(self.dense_keys)
+        per_field = []
+        for s_i, fk in enumerate(self.sparse_keys):
+            if self._masked_out(fd + s_i):
+                continue
+            # padded to the batch's longest: nothing here compiles per width
+            ids, vals = self.sparse_indices[fk].get_postings_batch(cleaned, pad_multiple=None)
+            ids, vals = self._map_postings(fk, ids, vals)
+            per_field.append((ids, np.asarray(vals), s_i))
+        nnz_total = sum(float((v != 0).sum()) for _, v, _ in per_field)
+        return per_field, nnz_total * 2 > len(cleaned) * self.n_docs
+
+    def _sparse_postings_raw(
+        self, cleaned: List[str]
+    ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """All sparse fields' query-term postings concatenated per query:
+        ids [B, M] i32, raw impacts [B, M] f32 and the sparse-field index of
+        each posting [B, M] int8 (each picks up its field's weight on the
+        device).  Host numpy only.  None when the postings are denser than
+        half the corpus."""
+        b = len(cleaned)
+        per_field, dense = self._collect_sparse_postings(cleaned)
+        if not per_field:
+            z = np.zeros((b, 128), np.int32)
+            return z, np.zeros((b, 128), np.float32), z.astype(np.int8)
+        if dense:
+            return None
+        ids = np.concatenate([i for i, _, _ in per_field], axis=1)
+        vals = np.concatenate([v for _, v, _ in per_field], axis=1)
+        fidx = np.concatenate(
+            [np.full(i.shape, s_i, np.int8) for i, _, s_i in per_field], axis=1
+        )
+        return ids.astype(np.int32, copy=False), vals.astype(np.float32, copy=False), fidx
 
     # -- exact mode -----------------------------------------------------
 
@@ -212,21 +386,59 @@ class RetrievalEngine:
 
     def _dispatch_exact(self, queries: Sequence[str], top_k: int):
         """Dispatch phase: host prep + device work enqueued, no fetch, so
-        :meth:`retrieve_many` can overlap batches."""
+        :meth:`retrieve_many` can overlap batches.  Returns ("device",
+        top_s, top_i), or ("host", results) for a sparse-only corpus."""
         k = min(top_k, self.n_docs)
+        fd = len(self.dense_keys)
+        chunk = topk_chunk(self.n_docs, len(queries))
         with torch.inference_mode():
             q = self.encode_queries(queries)
-            top_s, top_i = fused_dense_topk_from_query(
-                q, self._W, self._mask_tensor(), self.docs_flat, self.n_docs,
-                len(self.dense_keys), k,
-                chunk_size=topk_chunk(self.n_docs, len(queries)),
-                approx=self.dense_topk == "approx",
+            if not self.has_dense:
+                return ("host", self._sparse_only_exact(queries, q, k))
+            if not self.sparse_keys:
+                top_s, top_i = fused_dense_topk_from_query(
+                    q, self._W, self._mask_tensor(), self.docs_flat, self.n_docs, fd, k,
+                    chunk_size=chunk, approx=self.dense_topk == "approx",
+                )
+                self.last_serve_path = "singlechip-dense"
+                return ("device", top_s, top_i)
+            cleaned = [clean_query(t) for t in queries]
+            raw = self._sparse_postings_raw(cleaned)
+            if raw is not None:
+                ids, vals, fidx = (self._to_device(a) for a in raw)
+                top_s, top_i = fused_hybrid_topk_postings_from_query(
+                    q, self._W, self._mask_tensor(), self.docs_flat, ids, vals, fidx,
+                    self.n_docs, fd, k, chunk_size=chunk,
+                )
+                self.last_serve_path = "singlechip-hybrid-postings"
+                return ("device", top_s, top_i)
+            # postings denser than half the corpus: the host sums the
+            # weighted full-corpus scores (the one route that fetches the
+            # weights)
+            weights = self._field_weights(q)
+            comb = self._sparse_full_scores(cleaned, weights.cpu().numpy())
+            qflat = fold_queries(q, weights[:, :fd]).to(self.docs_flat.dtype)
+            top_s, top_i = hybrid_topk_chunked(
+                qflat, self.docs_flat, self._to_device(comb), self.n_docs, k, chunk_size=chunk,
             )
-        self.last_serve_path = "singlechip-dense"
-        return top_s, top_i
+            self.last_serve_path = "singlechip-hybrid-combined"
+            return ("device", top_s, top_i)
+
+    def _sparse_only_exact(self, queries, q, k) -> List[List[Tuple[str, float]]]:
+        """No dense matrix: the weighted host BM25 scores are the totals."""
+        cleaned = [clean_query(t) for t in queries]
+        total = self._sparse_full_scores(cleaned, self._field_weights(q).cpu().numpy())
+        part = np.argpartition(-total, k - 1, axis=1)[:, :k]
+        part_s = np.take_along_axis(total, part, axis=1)
+        order = np.argsort(-part_s, axis=1, kind="stable")
+        self.last_serve_path = "host-sparse-only"
+        return self._to_keyed(np.take_along_axis(part_s, order, axis=1),
+                              np.take_along_axis(part, order, axis=1))
 
     def _finish_exact(self, dispatched) -> List[List[Tuple[str, float]]]:
-        top_s, top_i = dispatched
+        if dispatched[0] == "host":
+            return dispatched[1]
+        _, top_s, top_i = dispatched
         return self._to_keyed(top_s.cpu().numpy(), top_i.cpu().numpy())
 
     # -- rerank mode ----------------------------------------------------
@@ -237,30 +449,50 @@ class RetrievalEngine:
 
     def _rerank_dispatch(self, queries: Sequence[str]):
         """Stage-1 dispatch: query encode + per-field dense recall enqueued
-        on the device (not fetched), so retrieve_many can overlap the next
-        batch's recall with this batch's candidate assembly + stage 2."""
+        on the device (not fetched) + per-field BM25 recall on the host, so
+        retrieve_many can overlap the next batch's recall with this batch's
+        candidate assembly + stage 2."""
         b = len(queries)
         fd = len(self.dense_keys)
         k = min(self.recall_k, self.n_docs)
+        s = idx = None
         with torch.inference_mode():
             q = self.encode_queries(queries)
-            # Recall scans F field blocks per chunk, so the score-tile
-            # budget sees B*Fd rows.
-            s, idx = per_field_topk_chunked_approx(
-                q.to(self.docs_flat.dtype), self.docs_flat, self.n_docs, fd, k,
-                chunk_size=topk_chunk(self.n_docs, b * max(fd, 1)),
-            )
-        return dict(b=b, q=q, s=s, idx=idx, fd=fd, k=k)
+            if self.has_dense and fd:
+                # Recall scans F field blocks per chunk, so the score-tile
+                # budget sees B*Fd rows.
+                s, idx = per_field_topk_chunked_approx(
+                    q.to(self.docs_flat.dtype), self.docs_flat, self.n_docs, fd, k,
+                    chunk_size=topk_chunk(self.n_docs, b * fd),
+                )
+        # stage 1b: each sparse field's BM25 top-k on the host (unordered
+        # rows: the union below needs only membership)
+        cleaned = [clean_query(t) for t in queries]
+        cand_lists: List[List[np.ndarray]] = [[] for _ in range(b)]
+        for fk in self.sparse_keys:
+            rm = self._sparse_row_map.get(fk)
+            hits = self.sparse_indices[fk].retrieve_rows_batch(cleaned, top_k=k)
+            for i, rows in enumerate(hits):
+                if rm is not None:  # prebuilt index with another doc set
+                    rows = rm[rows]
+                    rows = rows[rows >= 0]  # docs absent from the corpus
+                cand_lists[i].append(rows)
+        return dict(b=b, q=q, s=s, idx=idx, fd=fd, k=k, cand_lists=cand_lists,
+                    cleaned=cleaned)
 
     def _rerank_finish(self, st, top_k: int) -> List[List[Tuple[str, float]]]:
         """Fetch the stage-1 recall, union candidates on the host, score +
         rerank (stage 2), fetch results."""
         b, q, fd, k = st["b"], st["q"], st["fd"], st["k"]
-        s = st["s"].cpu().numpy().reshape(b, fd * k)
-        idx = st["idx"].cpu().numpy().reshape(b, fd * k)
-        # Per-query sorted-unique union; -inf hits are padding (k > corpus
-        # chunk) and drop out.
-        uniq = [np.unique(idx[i][np.isfinite(s[i])]) for i in range(b)]
+        cand_lists = st["cand_lists"]
+        if st["s"] is not None:
+            s = st["s"].cpu().numpy().reshape(b, fd * k)
+            idx = st["idx"].cpu().numpy().reshape(b, fd * k)
+            for i in range(b):  # -inf hits are padding (k > corpus chunk)
+                cand_lists[i].append(idx[i][np.isfinite(s[i])])
+        # Per-query sorted-unique union.
+        uniq = [np.unique(np.concatenate(lst)) if lst else np.zeros(0, np.int64)
+                for lst in cand_lists]
         # static-width candidate matrix (padded; pad entries masked out),
         # a geometric bucket so the set of stage-2 shapes stays small
         width = bucket_width(max(max(len(u) for u in uniq), 1), 128)
@@ -271,24 +503,50 @@ class RetrievalEngine:
             valid[i, : len(ids)] = True
 
         with torch.inference_mode():
-            cand_t = torch.from_numpy(cand).to(self.device)
             qf = q.float().contiguous()
-            if self.use_gather_kernel:
-                dense_scores = gather_per_field_scores(qf, self.docs_flat, cand_t, fd)
-                self.last_serve_path = "singlechip-rerank-k1"
+            hybrid = "hybrid-" if self.sparse_keys else ""
+            if self.has_dense and fd:
+                cand_t = self._to_device(cand)
+                if self.use_gather_kernel:
+                    dense_scores = gather_per_field_scores(qf, self.docs_flat, cand_t, fd)
+                    self.last_serve_path = f"singlechip-rerank-{hybrid}k1"
+                else:
+                    rows = self.docs_flat[cand_t]  # [B, C, Fd*E]
+                    dense_scores = per_field_candidate_scores(
+                        qf, rows.view(b, width, fd, self.emb_dim)
+                    )
+                    self.last_serve_path = f"singlechip-rerank-{hybrid}plain"
             else:
-                rows = self.docs_flat[cand_t]  # [B, C, Fd*E]
-                dense_scores = per_field_candidate_scores(
-                    qf, rows.view(b, width, fd, self.emb_dim)
-                )
-                self.last_serve_path = "singlechip-rerank-plain"
+                # no dense matrix: zero columns for the declared dense
+                # fields, so the scores still span every mixer field
+                dense_scores = torch.zeros(b, width, fd, device=self.device)
+                self.last_serve_path = "singlechip-rerank-sparse-only"
+            sparse_scores = None
+            if self.sparse_keys:
+                sparse_scores = self._to_device(self._sparse_candidate_scores(
+                    st["cleaned"], cand))
             top_s, top_pos = rerank_candidates(
-                qf, dense_scores, None, self._W, mask=self._mask_tensor(),
-                cand_valid=torch.from_numpy(valid).to(self.device),
+                qf, dense_scores, sparse_scores, self._W, mask=self._mask_tensor(),
+                cand_valid=self._to_device(valid),
                 k=min(top_k, width),
             )
             top_s, top_pos = top_s.cpu().numpy(), top_pos.cpu().numpy()
         return self._to_keyed(top_s, np.take_along_axis(cand, top_pos, axis=1))
+
+    def _sparse_candidate_scores(self, cleaned: List[str], cand: np.ndarray) -> np.ndarray:
+        """[B, C, Fs] BM25 scores of the candidates: one full-corpus scoring
+        pass per field (cached from stage 1b), then a column gather."""
+        out = np.zeros((*cand.shape, len(self.sparse_keys)), np.float32)
+        for s_i, fk in enumerate(self.sparse_keys):
+            all_scores = self.sparse_indices[fk].get_scores_batch(cleaned)  # [B, n_bm25]
+            inv = self._inv_map(fk)
+            if inv is None:  # index rows == corpus rows
+                out[:, :, s_i] = np.take_along_axis(all_scores, cand, axis=1)
+            else:  # prebuilt index with another doc set or order
+                cand_bm = inv[cand]
+                vals = np.take_along_axis(all_scores, np.maximum(cand_bm, 0), axis=1)
+                out[:, :, s_i] = np.where(cand_bm >= 0, vals, 0.0)
+        return out
 
     # -- batching -------------------------------------------------------
 

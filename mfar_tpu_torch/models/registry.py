@@ -5,7 +5,8 @@ Counterpart of ``mfar_tpu/models/registry.py`` for two routes:
 - ``synthetic[:vocab_size[:hidden_size]]``: a tiny random-init encoder (from
   a seeded ``torch.Generator``) plus a corpus-built word-level tokenizer, for
   offline smoke runs;
-- a local HF BERT directory: ``config.json`` plus ``pytorch_model.bin``, and
+- a local HF BERT directory: ``config.json`` plus ``model.safetensors``
+  (what ``save_pretrained`` writes by default) or ``pytorch_model.bin``, and
   ``tokenizer.json`` when present.
 
 Hub ids are not fetched (there is no network on the serving machines): a
@@ -68,20 +69,29 @@ def prepare_model(
         raise FileNotFoundError(
             f"{model_id!r} is not a local directory: the port loads HF BERT "
             f"checkpoints from a directory holding config.json and "
-            f"pytorch_model.bin (no hub downloads)"
+            f"model.safetensors or pytorch_model.bin (no hub downloads)"
         )
     with open(os.path.join(model_id, "config.json")) as f:
         config = config_from_hf(json.load(f), dtype=dtype, normalize=normalize)
-    hf_state = torch.load(
-        os.path.join(model_id, "pytorch_model.bin"), map_location="cpu", weights_only=True
-    )
-    state = encoder_state_from_hf_bert(hf_state)
+    state = encoder_state_from_hf_bert(load_hf_weights(model_id))
     tok_json = os.path.join(model_id, "tokenizer.json")
     if os.path.exists(tok_json):
         tokenizer = HFTokenizer.from_file(tok_json, max_length)
     else:
         tokenizer = HFTokenizer.from_pretrained(model_id, max_length)
     return config, state, tokenizer
+
+
+def load_hf_weights(model_dir: str) -> Dict[str, torch.Tensor]:
+    """A HF directory's weights: ``model.safetensors`` when present, else
+    ``pytorch_model.bin``."""
+    st_path = os.path.join(model_dir, "model.safetensors")
+    if os.path.exists(st_path):
+        from safetensors.torch import load_file
+
+        return load_file(st_path, device="cpu")
+    return torch.load(os.path.join(model_dir, "pytorch_model.bin"), map_location="cpu",
+                      weights_only=True)
 
 
 def save_bert_dir(

@@ -1,5 +1,5 @@
 """Multi-field scoring ops in PyTorch: counterpart of ``mfar_tpu/ops/scoring.py``
-for the dense single-device serving paths.
+for the single-device serving paths, dense and hybrid (dense + BM25).
 
 mFAR's score is a query-conditioned softmax mixture of per-field dots,
 
@@ -80,6 +80,18 @@ def fold_queries(q: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return folded.reshape(q.shape[0], -1)
 
 
+def fuse_and_mix(
+    q: torch.Tensor,  # [B, E]
+    docs_flat: torch.Tensor,  # [N, F*E]
+    W: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:  # [B, N] f32
+    """Full fused scoring: weights -> fold -> one matmul."""
+    weights = softmax_field_weights(W, q, mask)
+    weights = weights.expand(q.shape[0], weights.shape[-1])
+    return scores_f32(fold_queries(q, weights).to(docs_flat.dtype), docs_flat)
+
+
 def exact_topk_rows(s: torch.Tensor, k: int) -> TopK:
     """Exact per-row top-k (values sorted descending).  Among tied values
     another equal-valued element may win than under the JAX selection; the
@@ -151,6 +163,33 @@ def dense_topk_chunked(
         return _pad_topk(top_s, sel + offset, k)
 
     return _stream_chunked_topk(chunk_topk, ((docs_flat, 0),), n, chunk_size, k)
+
+
+def hybrid_topk_chunked(
+    qflat: torch.Tensor,  # [B, Fd*E] folded queries (dense fields)
+    docs_flat: torch.Tensor,  # [N, Fd*E]
+    sparse_comb: torch.Tensor,  # [B, N] combined (weight-mixed) sparse scores
+    valid_n: int,
+    k: int,
+    chunk_size: int = 131072,
+) -> TopK:  # scores [B, k] f32, indices [B, k] int64
+    """Exact full-corpus hybrid top-k: each chunk's dense matmul plus the
+    matching columns of the combined sparse scores, then a running exact
+    top-k, so hybrid retrieval is exact rather than recalled."""
+    n = docs_flat.shape[0]
+    if n > chunk_size and k > chunk_size:
+        raise ValueError("top-k carry must fit in one chunk")
+
+    def chunk_topk(chunk_docs, chunk_sparse, offset):
+        c = chunk_docs.shape[0]
+        s = scores_f32(qflat, chunk_docs) + chunk_sparse.float()
+        s = s + _row_bias(offset, c, valid_n, qflat.device)
+        top_s, sel = exact_topk_rows(s, min(k, c))
+        return _pad_topk(top_s, sel + offset, k)
+
+    return _stream_chunked_topk(
+        chunk_topk, ((docs_flat, 0), (sparse_comb, 1)), n, chunk_size, k
+    )
 
 
 def per_field_topk_chunked(
@@ -247,3 +286,34 @@ def fused_dense_topk_from_query(
     weights = weights.expand(q.shape[0], weights.shape[-1])
     qflat = fold_queries(q, weights[:, :num_dense]).to(docs_flat.dtype)
     return dense_topk_chunked(qflat, docs_flat, valid_n, k=k, chunk_size=chunk_size)
+
+
+def fused_hybrid_topk_postings_from_query(
+    q: torch.Tensor,  # [B, E]
+    W: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    docs_flat: torch.Tensor,  # [N, Fd*E]
+    post_ids: torch.Tensor,  # [B, M] corpus rows (0-padded)
+    post_vals: torch.Tensor,  # [B, M] f32 raw impacts (0-padded)
+    post_field: torch.Tensor,  # [B, M] sparse-field index per posting (int8)
+    valid_n: int,
+    num_dense: int,
+    k: int,
+    chunk_size: int = 131072,
+) -> TopK:
+    """Exact hybrid serving from query embeddings: weights -> fold ->
+    per-posting weight gather -> scatter densification on the device ->
+    fused chunked hybrid top-k.  Raw impacts ship from the host; each
+    posting picks up its field's post-softmax weight here, so the weights
+    never leave the device.  A document hit by several terms or fields
+    appears once per posting and the scatter sums them (on a card with
+    atomics, in an order that varies: equal within float rounding)."""
+    b = q.shape[0]
+    weights = softmax_field_weights(W, q, mask)
+    weights = weights.expand(b, weights.shape[-1])
+    qflat = fold_queries(q, weights[:, :num_dense]).to(docs_flat.dtype)
+    # the field index ships as int8: widen before the gather
+    w_sparse = torch.gather(weights, 1, num_dense + post_field.long())  # [B, M]
+    sparse_comb = torch.zeros(b, docs_flat.shape[0], dtype=torch.float32, device=q.device)
+    sparse_comb.scatter_add_(1, post_ids.long(), post_vals.float() * w_sparse)
+    return hybrid_topk_chunked(qflat, docs_flat, sparse_comb, valid_n, k, chunk_size)

@@ -1,39 +1,43 @@
-"""BM25 index: the port's copy of the scipy backend of
-``mfar_tpu/sparse/bm25.py::BM25Index``, for the negative sampler (and later
-the hybrid fields).  The same scoring model, the "lucene" BM25 variant with
-k1=1.2, b=0.75:
+"""BM25 index: the port's copy of ``mfar_tpu/sparse/bm25.py::BM25Index``,
+for the negative sampler and the hybrid (sparse) fields.  The same scoring
+model, the "lucene" BM25 variant with k1=1.2, b=0.75:
 
     idf(t)      = ln(1 + (N - df + 0.5) / (df + 0.5))
     tf_part     = tf / (tf + k1 * (1 - b + b * dl / avgdl))
     impact(t,d) = idf(t) * tf_part
 
 Impacts are precomputed at build time into a ``[vocab, n_docs]`` CSR matrix,
-so scoring a query is a sparse row-gather + sum.  The JAX package's native
-C++ engine is not ported (``backend="native"`` and loading a native-saved
-index raise, ROADMAP A8); its scores equal the scipy backend's, so an index
-saved by the JAX package's scipy backend loads here and scores the same.
+so scoring a query is a sparse row-gather + sum.  With the native C++
+engine (:mod:`mfar_tpu_torch.native`, built from the copied source at first
+use) scoring, postings and top-k run there instead; ``backend="auto"``
+picks it whenever the library builds, as the JAX package does.  Both
+backends give the same scores, and both on-disk layouts (``impacts.npz`` or
+``native.bin``, beside ``meta.json``) are the JAX package's, so an index
+saved by either package loads in the other.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import scipy.sparse as sp
 
+from mfar_tpu_torch import native as native_mod
 from mfar_tpu_torch.sparse.tokenize import Vocabulary, tokenize
 
 _SCORE_CACHE_MAX = 1 << 15  # entry cap (matches the reference's lru budget)
 _SCORE_CACHE_MAX_BYTES = 1 << 30  # 1 GB: each entry is an [n_docs] f32 vector
 
 
-def _native_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "the native C++ BM25 engine is not ported: the port's BM25 runs the "
-        "scipy backend (ROADMAP A8)"
-    )
+def _top_rows(scores: np.ndarray, top_k: int) -> np.ndarray:
+    """The rows of the ``top_k`` largest scores, unordered (int64)."""
+    k = min(top_k, scores.shape[0])
+    if k < scores.shape[0]:
+        return np.argpartition(-scores, k - 1)[:k].astype(np.int64)
+    return np.arange(k, dtype=np.int64)
 
 
 class BM25Index:
@@ -43,10 +47,11 @@ class BM25Index:
         self,
         keys: List[str],
         vocab: Vocabulary,
-        matrix: sp.csr_matrix,  # [vocab, n_docs] impact scores
+        matrix: Optional[sp.csr_matrix],  # [vocab, n_docs] impact scores
         k1: float = 1.2,
         b: float = 0.75,
         name: Optional[str] = None,
+        native: Optional[native_mod.NativeBM25] = None,  # the native backend
     ):
         self.keys = keys
         self.key_to_id = {key: i for i, key in enumerate(keys)}
@@ -55,6 +60,8 @@ class BM25Index:
         self.k1 = k1
         self.b = b
         self.name = name
+        self.native = native
+        self.safe_docs: Set[int] = set()
         self._score_cache: Dict[str, np.ndarray] = {}
         self._score_cache_bytes = 0
 
@@ -80,13 +87,17 @@ class BM25Index:
         name: Optional[str] = None,
         backend: str = "auto",
     ) -> "BM25Index":
-        """Build from (key, text) pairs.  ``backend`` 'auto' and 'scipy'
-        build the scipy index; 'native' raises (ROADMAP A8)."""
-        if backend == "native":
-            raise _native_not_ported()
-        if backend not in ("auto", "scipy"):
+        """Build from (key, text) pairs.  ``backend``: 'native' (the C++
+        engine; raises when its library does not build), 'scipy', or 'auto'
+        (native whenever the library builds)."""
+        if backend not in ("auto", "scipy", "native"):
             raise ValueError(f"backend {backend!r} not in auto|scipy|native")
         keys = [k for k, _ in pairs]
+        if backend == "auto":
+            backend = "native" if native_mod.available() else "scipy"
+        if backend == "native":
+            nat = native_mod.NativeBM25.create([t for _, t in pairs], k1=k1, b=b)
+            return cls(keys, Vocabulary(), None, k1=k1, b=b, name=name, native=nat)
         n_docs = len(keys)
         vocab = Vocabulary()
 
@@ -134,6 +145,10 @@ class BM25Index:
             matrix = sp.csr_matrix((v, n_docs), dtype=np.float32)
         return cls(keys, vocab, matrix, k1=k1, b=b, name=name)
 
+    @property
+    def vocab_size(self) -> int:
+        return self.native.vocab_size if self.native is not None else len(self.vocab)
+
     # ------------------------------------------------------------------
     # Scoring
 
@@ -142,18 +157,75 @@ class BM25Index:
         cached = self._score_cache.get(query)
         if cached is not None:
             return cached
-        token_ids = self.vocab.lookup(tokenize(query))
-        if token_ids:
-            rows = self.matrix[np.asarray(token_ids, dtype=np.int64)]
-            scores = np.asarray(rows.sum(axis=0)).ravel().astype(np.float32)
+        if self.native is not None:
+            scores = self.native.get_scores(query)
         else:
-            scores = np.zeros(self.matrix.shape[1], dtype=np.float32)
+            token_ids = self.vocab.lookup(tokenize(query))
+            if token_ids:
+                rows = self.matrix[np.asarray(token_ids, dtype=np.int64)]
+                scores = np.asarray(rows.sum(axis=0)).ravel().astype(np.float32)
+            else:
+                scores = np.zeros(self.matrix.shape[1], dtype=np.float32)
         self._cache_put(query, scores)
         return scores
 
     def get_scores_batch(self, queries: Sequence[str]) -> np.ndarray:
-        """Full-corpus score vectors [B, N]."""
-        return np.stack([self.get_scores(q) for q in queries], axis=0)
+        """Full-corpus score vectors [B, N].  On the native backend the cache
+        misses are scored in one threaded call (deduplicated); the result
+        never depends on the cache keeping them."""
+        if self.native is None:
+            return np.stack([self.get_scores(q) for q in queries], axis=0)
+        hits = {q: self._score_cache.get(q) for q in queries}
+        missing = list(dict.fromkeys(q for q, s in hits.items() if s is None))
+        if missing:
+            for q, s in zip(missing, self.native.get_scores_batch(missing)):
+                hits[q] = s
+                self._cache_put(q, s)
+        return np.stack([hits[q] for q in queries], axis=0)
+
+    def get_postings_batch(
+        self, queries: Sequence[str], pad_multiple: Optional[int] = 128
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Concatenated query-term postings: (doc_ids [B, M] i32, impacts
+        [B, M] f32), zero-padded to the batch's longest rounded up to a
+        geometric :func:`~mfar_tpu_torch.native.bucket_width` of
+        ``pad_multiple`` (None: to the longest itself, at least 1).  A
+        document hit by several query terms appears once per term; the
+        consumer scatter-adds, so duplicates sum as in the dense score
+        vector.  The feed of exact hybrid retrieval: O(nnz)
+        per query crosses to the device instead of O(N)."""
+        if self.native is not None:
+            return self.native.get_postings_batch(queries, pad_multiple)
+        per_q: List[Tuple[np.ndarray, np.ndarray]] = []
+        for q in queries:
+            token_ids = self.vocab.lookup(tokenize(q))
+            if token_ids:
+                rows = self.matrix[np.asarray(token_ids, dtype=np.int64)]
+                per_q.append((rows.indices.astype(np.int32), rows.data.astype(np.float32)))
+            else:
+                per_q.append((np.zeros(0, np.int32), np.zeros(0, np.float32)))
+        m = native_mod.postings_width(max((len(i) for i, _ in per_q), default=0), pad_multiple)
+        out_ids = np.zeros((len(queries), m), np.int32)
+        out_vals = np.zeros((len(queries), m), np.float32)
+        for qi, (ids, vals) in enumerate(per_q):
+            out_ids[qi, : len(ids)] = ids
+            out_vals[qi, : len(vals)] = vals
+        return out_ids, out_vals
+
+    def get_scores_sparse(self, query: str) -> Dict[int, float]:
+        """Nonzero scores as {doc_id: score}, restricted to ``safe_docs``
+        when it is set (the precompute pipeline's feed)."""
+        scores = self.get_scores(query)
+        (nz,) = np.nonzero(scores)
+        if self.safe_docs:
+            return {int(i): float(scores[i]) for i in nz if int(i) in self.safe_docs}
+        return {int(i): float(scores[i]) for i in nz}
+
+    def set_safe_docs(self, safe_docs: Set[int]) -> None:
+        self.safe_docs = set(safe_docs)
+
+    # ------------------------------------------------------------------
+    # Retrieval
 
     def retrieve(self, query: str, top_k: int) -> List[Tuple[str, float]]:
         return self.retrieve_batch([query], top_k)[0]
@@ -164,11 +236,15 @@ class BM25Index:
         out = []
         for q in queries:
             scores = self.get_scores(q)
-            k = min(top_k, scores.shape[0])
-            idx = np.argpartition(-scores, k - 1)[:k] if k < scores.shape[0] else np.arange(k)
+            idx = _top_rows(scores, top_k)
             order = idx[np.argsort(-scores[idx], kind="stable")]
             out.append([(self.keys[int(i)], float(scores[int(i)])) for i in order])
         return out
+
+    def retrieve_rows_batch(self, queries: Sequence[str], top_k: int) -> List[np.ndarray]:
+        """Top-k row ids per query, unordered (argpartition only): the
+        rerank recall feed, where only membership of the union matters."""
+        return [_top_rows(self.get_scores(q), top_k) for q in queries]
 
     def score_batch(self, queries: Sequence[str], keys: Sequence[str]) -> np.ndarray:
         """[Q, C] scores restricted to candidate keys; unknown keys score 0."""
@@ -194,11 +270,15 @@ class BM25Index:
         return out
 
     # ------------------------------------------------------------------
-    # Persistence (the JAX package's scipy layout: impacts.npz + meta.json)
+    # Persistence (the JAX package's layouts: impacts.npz or native.bin,
+    # beside meta.json)
 
     def save(self, path: str) -> None:
         os.makedirs(path, exist_ok=True)
-        sp.save_npz(os.path.join(path, "impacts.npz"), self.matrix)
+        if self.native is not None:
+            self.native.save(os.path.join(path, "native.bin"))
+        else:
+            sp.save_npz(os.path.join(path, "impacts.npz"), self.matrix)
         with open(os.path.join(path, "meta.json"), "w") as f:
             json.dump(
                 {
@@ -207,22 +287,29 @@ class BM25Index:
                     "k1": self.k1,
                     "b": self.b,
                     "name": self.name,
-                    "backend": "scipy",
+                    "backend": "native" if self.native is not None else "scipy",
                 },
                 f,
             )
 
     @classmethod
     def load(cls, path: str) -> "BM25Index":
-        if os.path.exists(os.path.join(path, "native.bin")):
-            raise _native_not_ported()
+        """A saved index; a ``native.bin`` one needs the native library (and
+        raises where it does not build)."""
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
+        native = matrix = None
+        native_bin = os.path.join(path, "native.bin")
+        if os.path.exists(native_bin):
+            native = native_mod.NativeBM25.load(native_bin)
+        else:
+            matrix = sp.load_npz(os.path.join(path, "impacts.npz")).tocsr()
         return cls(
             meta["keys"],
             Vocabulary(meta["vocab"]),
-            sp.load_npz(os.path.join(path, "impacts.npz")).tocsr(),
+            matrix,
             k1=meta["k1"],
             b=meta["b"],
             name=meta.get("name"),
+            native=native,
         )

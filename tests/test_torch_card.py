@@ -22,6 +22,7 @@ bf16 (2**-8 relative), and the kernels round P and dS to bf16 before
 products summed over up to 512 rows, where the plain version stays in f32.
 """
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -151,6 +152,39 @@ def test_engine_rerank_through_k1_matches_plain_gather(card):
     # and "auto" on a CUDA corpus K1 cannot read raises rather than falling back
     with pytest.raises(ValueError, match="K1 gather"):
         RetrievalEngine(mode="rerank", **{**kw, "dense_dtype": torch.float16})
+
+
+def test_hybrid_engine_on_the_card_matches_the_cpu(card):
+    """Hybrid exact (postings scatter-added with atomics on the card, and
+    the combined route) and hybrid rerank through K1 agree with the same
+    engine on the CPU, at the engine's tolerance with ties allowed."""
+    from mfar_tpu_torch.sparse.bm25 import BM25Index
+
+    fi = resolve_fields("title_dense,title_sparse,description_sparse", "amazon")
+    words = [f"w{i}" for i in range(60)]
+    rng = np.random.default_rng(0)
+    docs = [" ".join(rng.choice(words, size=6)) for _ in range(300)]
+    keys = [f"d{i}" for i in range(300)]
+    tok = SimpleVocabTokenizer.build(docs, max_length=16)
+    enc = init_encoder(EncoderConfig.tiny(vocab_size=tok.vocab_size, hidden_size=128))
+    index = {k: BM25Index.create(list(zip(keys, docs[::-1] if "desc" in k else docs)),
+                                 backend="scipy") for k in ("title_sparse", "description_sparse")}
+    kw = dict(field_info=fi, doc_keys=keys, tokenizer=tok, sparse_indices=index,
+              mixer_params={"weight": rng.normal(size=(128, 3)).astype(np.float32)},
+              dense_matrix=rng.normal(size=(300, 1, 128)).astype(np.float32),
+              query_max_length=16, recall_k=20)
+    # each engine its own copy: make_encode_fn moves the module it is given
+    gpu = RetrievalEngine(encode_fn=make_encode_fn(copy.deepcopy(enc), device=card), **kw)
+    cpu = RetrievalEngine(encode_fn=make_encode_fn(enc, device="cpu"), device="cpu", **kw)
+    rare = ["w1 w7", "w3 w50 w9", "w11", "w59 w2"]  # sparse postings
+    common = [" ".join(words[:40])] * 4  # postings denser than half the corpus
+    for qs, mode, path in ((rare, "exact", "singlechip-hybrid-postings"),
+                           (common, "exact", "singlechip-hybrid-combined"),
+                           (rare, "rerank", "singlechip-rerank-hybrid-k1")):
+        got = gpu.retrieve(qs, top_k=10, mode=mode)
+        assert gpu.last_serve_path == path
+        msg = rankings_agree(got, cpu.retrieve(qs, top_k=10, mode=mode), 1e-4, 1e-3)
+        assert msg is None, (path, msg)
 
 
 K2_TOL = 1e-2

@@ -30,6 +30,7 @@ from mfar_tpu.models import Encoder as JaxEncoder
 from mfar_tpu.models import EncoderConfig as JaxConfig
 from mfar_tpu.models import SimpleVocabTokenizer as JaxTokenizer
 from mfar_tpu.models.encoder import init_params
+from mfar_tpu_torch.data.format import format_documents as port_format_documents
 from mfar_tpu_torch.data.schema import resolve_fields
 from mfar_tpu_torch.data.types import Corpus
 from mfar_tpu_torch.eval import index_build as port_index
@@ -38,6 +39,7 @@ from mfar_tpu_torch.eval.retrieval import RetrievalEngine
 from mfar_tpu_torch.models.convert import encoder_state_from_jax, mixer_from_jax
 from mfar_tpu_torch.models.encoder import Encoder, EncoderConfig
 from mfar_tpu_torch.models.tokenizer import SimpleVocabTokenizer
+from mfar_tpu_torch.sparse.bm25 import BM25Index
 
 torch.set_num_threads(1)
 
@@ -210,12 +212,37 @@ def test_exact_engine_reranks_through_k1(world, serve):
     (dict(quantize="int8"), "A11"),
     (dict(corpus_on_host=True), "A12"),
     (dict(mesh=object()), "A15"),
-    (dict(sparse_indices={"title_sparse": object()}), "A8"),
     (dict(pallas_cross_row=True), "B1"),
 ])
 def test_unported_options_raise(world, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         RetrievalEngine(**{**world["port_kw"], **kw})
+
+
+def test_sparse_fields_are_served(world):
+    """A declared sparse field with its BM25 index joins the dense fields
+    (once ROADMAP A8's one-device half, it raised): exact mode takes the
+    postings route, and with the sparse field masked the scores are the
+    dense engine's with the same mixer columns."""
+    corpus = world["port_corpus"]
+    fields = resolve_fields("title_dense,description_dense,title_sparse", "amazon")
+    index = BM25Index.create(port_format_documents(corpus.pairs(), "title", "amazon"),
+                             backend="scipy")
+    mixer = np.random.default_rng(1).normal(size=(HIDDEN, 3)).astype(np.float32)
+    eng = RetrievalEngine(**{**world["port_kw"], "field_info": fields,
+                             "mixer_params": {"weight": mixer},
+                             "sparse_indices": {"title_sparse": index}})
+    qs = world["queries"]
+    hits = eng.retrieve(qs, top_k=5)
+    assert eng.last_serve_path == "singlechip-hybrid-postings"
+    assert [len(h) for h in hits] == [5] * len(qs)
+    eng.set_mask(np.array([1, 1, 0], np.float32))
+    masked = eng.retrieve(qs, top_k=5)
+    q = eng.encode_queries(qs)
+    w = torch.softmax(q @ torch.from_numpy(mixer), -1)[:, :2]
+    docs = torch.as_tensor(world["port_matrix"])
+    top_s, top_i = torch.topk(torch.einsum("be,nfe,bf->bn", q, docs, w), 5)
+    _agree(masked, eng._to_keyed(top_s.numpy(), top_i.numpy()))
 
 
 @pytest.mark.parametrize("ext", [".npz", ".npy"])

@@ -41,7 +41,12 @@ def test_importing_the_port_loads_no_jax():
             "mfar_tpu_torch.train.losses", "mfar_tpu_torch.train.optim",
             "mfar_tpu_torch.train.train_step", "mfar_tpu_torch.sparse.bm25",
             "mfar_tpu_torch.data.negative_sampler", "mfar_tpu_torch.utils.logging",
-            "mfar_tpu_torch.utils.timing"} <= set(mods)
+            "mfar_tpu_torch.utils.timing", "mfar_tpu_torch.native",
+            "mfar_tpu_torch.data.synth", "mfar_tpu_torch.utils.jsonutil",
+            "mfar_tpu_torch.train.sparse_cache", "mfar_tpu_torch.commands.mask_fields",
+            "mfar_tpu_torch.commands.make_synth_data",
+            "mfar_tpu_torch.commands.create_sparse_index",
+            "mfar_tpu_torch.commands.precompute_sparse_scores"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

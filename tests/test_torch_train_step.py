@@ -224,3 +224,36 @@ def test_dropout_masks_and_the_flash_gate():
         torch.testing.assert_close(model.eval()(ids, mask), ref, rtol=0, atol=0)
     torch.testing.assert_close(a, again, rtol=0, atol=0)
     assert not torch.allclose(a, other) and not torch.allclose(a, ref)
+
+
+@pytest.mark.parametrize("use_batchnorm", [False, True])
+def test_hybrid_train_step_matches_jax(use_batchnorm):
+    """A hybrid batch: the two dense fields and one BM25 field, whose scores
+    ride in ``sparse_pos`` [B, B, 1] and ``sparse_neg`` [B, B*Nn, 1].  The
+    port's train step on JAX's initial weights gives JAX's loss and
+    gradient norm, and the BM25 scores move both."""
+    model = JaxMFARModel(
+        encoder_config=JaxEncoderConfig.tiny(**DIMS, hidden_dropout=0.0, attention_dropout=0.0),
+        num_fields=3, use_batchnorm=use_batchnorm, temperature=0.05)
+    opt = jax_make_optimizer(encoder_lr=1e-3, weights_lr=1e-1)
+    jstate = jax_init_state(model, opt, seed=1)
+    batch = _batch(3)
+    rng = np.random.default_rng(4)
+    batch["sparse_pos"] = rng.gamma(2.0, 2.0, size=(B, B, 1)).astype(np.float32)
+    batch["sparse_neg"] = rng.gamma(2.0, 2.0, size=(B, B, 1)).astype(np.float32)
+    _, want = jax.jit(make_train_step(model, opt))(jstate, jax.tree.map(jnp.asarray, batch))
+
+    def port_step(b):
+        config = EncoderConfig.tiny(**{**DIMS, "hidden_dropout": 0.0, "attention_dropout": 0.0})
+        port = MFARModel(config, num_fields=3, use_batchnorm=use_batchnorm, temperature=0.05)
+        state = jax.tree.map(np.asarray, jstate)
+        port.load_state_dict(model_state_from_jax(state.params, state.batch_stats))
+        return train_step(_state(port), b)[1]
+
+    got = port_step(batch)
+    assert got["loss"].item() == pytest.approx(float(want["loss"]), rel=5e-5)
+    assert got["grad_norm"].item() == pytest.approx(float(want["grad_norm"]), rel=5e-4)
+    zeroed = port_step({**batch, "sparse_pos": np.zeros_like(batch["sparse_pos"]),
+                        "sparse_neg": np.zeros_like(batch["sparse_neg"])})
+    assert zeroed["loss"].item() != pytest.approx(got["loss"].item(), rel=1e-3)
+    assert zeroed["grad_norm"].item() != pytest.approx(got["grad_norm"].item(), rel=1e-3)

@@ -13,11 +13,15 @@ import torch
 
 from mfar_tpu.commands import train as jax_train_cmd
 from mfar_tpu.data.negative_sampler import IndexNegativeSampler as JaxSampler
+from mfar_tpu.data.schema import resolve_fields as jax_resolve_fields
 from mfar_tpu.data.types import Corpus as JaxCorpus
 from mfar_tpu.models import SimpleVocabTokenizer as JaxTokenizer
 from mfar_tpu.sparse.bm25 import BM25Index as JaxBM25
 from mfar_tpu.train.data_pipeline import ContrastiveDataset as JaxDataset
+from mfar_tpu.train.sparse_cache import read_sparse_scores as jax_read_sparse_scores
+from mfar_tpu_torch.commands import create_sparse_index as create_index_cmd
 from mfar_tpu_torch.commands import encode_corpus as encode_cmd
+from mfar_tpu_torch.commands import precompute_sparse_scores as precompute_cmd
 from mfar_tpu_torch.commands import retrieve as retrieve_cmd
 from mfar_tpu_torch.commands import train as train_cmd
 from mfar_tpu_torch.data import trec
@@ -32,6 +36,7 @@ from mfar_tpu_torch.train.checkpoint import read_best_dir
 from mfar_tpu_torch.train.data_pipeline import ContrastiveDataset
 from mfar_tpu_torch.train.model import MFARModel
 from mfar_tpu_torch.train.optim import make_optimizer
+from mfar_tpu_torch.train.sparse_cache import read_sparse_scores
 from mfar_tpu_torch.train.train_step import init_state, train_step
 from mfar_tpu_torch.train.trainer import Trainer, TrainerConfig
 from synth import make_amazon_corpus, write_dataset_dir
@@ -191,8 +196,14 @@ def test_bm25_copy_scores_and_persists_as_jax(pipelines, tmp_path):
         np.testing.assert_allclose(loaded.get_scores_batch(queries),
                                    jidx.get_scores_batch(queries), rtol=1e-6, atol=1e-6)
     assert JaxBM25.load(str(tmp_path / "port")).keys == pidx.keys
-    with pytest.raises(NotImplementedError, match="A8"):
-        BM25Index.create([("a", "b")], backend="native")
+    # the native backend (once it raised) scores as the JAX package's scipy
+    nat = BM25Index.create([(k, " ".join(k)) for k in pidx.keys] + [("x", "red lamp")],
+                           backend="native")
+    ref = JaxBM25.create([(k, " ".join(k)) for k in pidx.keys] + [("x", "red lamp")],
+                         backend="scipy")
+    assert nat.native is not None
+    np.testing.assert_allclose(nat.get_scores_batch(queries), ref.get_scores_batch(queries),
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_sampler_and_dataset_batches_match_jax(pipelines):
@@ -212,6 +223,71 @@ def test_sampler_and_dataset_batches_match_jax(pipelines):
             for side in ("pos", "neg"):
                 for fk in jb[side]:
                     np.testing.assert_array_equal(pb[side][fk][name], jb[side][fk][name])
+
+
+HYBRID = "title_dense,title_sparse"
+
+
+@pytest.fixture(scope="module")
+def hybrid_datasets(setup, pipelines, tmp_path_factory):
+    """Each package's ``ContrastiveDataset`` over ``title_dense,title_sparse``
+    with its own scipy BM25 index of the title field, on the live path (no
+    cache) and on the cache path (``precompute_sparse_scores``' files, read
+    by each package's own loader)."""
+    data_dir = setup["data"]
+    root = tmp_path_factory.mktemp("hybrid")
+    idx, scores = str(root / "idx"), str(root / "scores")
+    create_index_cmd.main(["--data-path", data_dir, "--dataset-name", "amazon",
+                           "--output-path", idx, "--fields-str", "single_sparse"])
+    precompute_cmd.main(["--data-path", data_dir, "--dataset-name", "amazon",
+                         "--corpus-path", data_dir, "--output-path", scores, "--index-path", idx,
+                         "--fields-str", "title_sparse", "--n-retrieve", "5"])
+    pairs = list(trec.read_corpus(os.path.join(data_dir, "corpus")))
+    queries = trec.read_queries(os.path.join(data_dir, "train.queries"))
+    qrels = trec.QRels.from_file(os.path.join(data_dir, "train.qrels"))
+    out = {}
+    for name, corpus_cls, tok_cls, bm25, sampler_cls, ds_cls, fields, read in (
+        ("jax", JaxCorpus, JaxTokenizer, JaxBM25, JaxSampler, JaxDataset, jax_resolve_fields,
+         jax_read_sparse_scores),
+        ("port", Corpus, SimpleVocabTokenizer, BM25Index, IndexNegativeSampler,
+         ContrastiveDataset, resolve_fields, read_sparse_scores),
+    ):
+        field_info = fields(HYBRID, "amazon")
+        corpus = corpus_cls.from_pairs(pairs, "amazon")
+        title = format_documents(corpus.pairs(), field_info["title_sparse"].name, "amazon")
+        sparse = {"title_sparse": bm25.create(title, backend="scipy")}
+        tok = tok_cls.build([t for _, t in title], max_length=64)
+        for path, cache in (("live", None), ("cache", read(scores, field_info))):
+            out[name, path] = ds_cls(
+                queries, corpus, qrels, sampler_cls(pipelines[name][0], 10, 5, 2), field_info,
+                tok, query_max_length=64, sparse_score_cache=cache, sparse_indices=sparse)
+    return out
+
+
+@pytest.mark.parametrize("path", ["live", "cache"])
+def test_hybrid_batches_match_jax(hybrid_datasets, path):
+    """Hybrid batches carry the JAX package's BM25 scores: ``sparse_pos``
+    [B, B, 1] and ``sparse_neg`` [B, B*Nn, 1] (negatives doc-major) equal
+    JAX's on the live path (each index scores the batch) and on the cache
+    path (qid lookups into the precomputed scores), tokens and negatives
+    too.  The two paths differ (the cache holds only the candidate pool, in
+    float16), so each test reads the path it names."""
+    for seed in (7, 8):
+        jb = next(hybrid_datasets["jax", path].epoch_batches(6, seed=seed))
+        pb = next(hybrid_datasets["port", path].epoch_batches(6, seed=seed))
+        assert pb["meta"] == jb["meta"] and set(pb) == set(jb)
+        assert pb["sparse_pos"].shape == (6, 6, 1) and pb["sparse_neg"].shape == (6, 12, 1)
+        assert np.count_nonzero(pb["sparse_pos"]) and np.count_nonzero(pb["sparse_neg"])
+        for key in ("sparse_pos", "sparse_neg"):
+            np.testing.assert_allclose(pb[key], jb[key], rtol=1e-6, atol=1e-6, err_msg=key)
+        np.testing.assert_array_equal(pb["query"]["input_ids"], jb["query"]["input_ids"])
+        for side in ("pos", "neg"):
+            np.testing.assert_array_equal(pb[side]["title_dense"]["input_ids"],
+                                          jb[side]["title_dense"]["input_ids"])
+    other = "cache" if path == "live" else "live"
+    ob = next(hybrid_datasets["port", other].epoch_batches(6, seed=8))
+    assert ob["meta"] == pb["meta"]
+    assert not np.array_equal(ob["sparse_neg"], pb["sparse_neg"])
 
 
 # ----------------------------------------------------------------------
@@ -275,8 +351,36 @@ def test_train_cli_writes_the_jax_layout_and_serves(setup, tmp_path):
 @pytest.mark.parametrize("extra,match", [
     (["--n-model", "2"], "A15"),
     (["--multihost", "force"], "A15"),
-    (["--field-names", "title_dense,title_sparse"], "A8"),
 ])
 def test_train_cli_refuses_what_is_not_ported(setup, tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         train_cmd.main(_train_args(setup["data"], str(tmp_path / "o"), "--device", "cpu", *extra))
+
+
+def test_train_cli_trains_sparse_fields(setup, tmp_path, capsys):
+    """Sparse fields (once they raised) train with the precomputed scores
+    of ``--sparse-scores-path``, and the run serves hybrid retrieval; the
+    output layout is the JAX command's on the same flags."""
+    data_dir = setup["data"]
+    idx, scores = str(tmp_path / "idx"), str(tmp_path / "scores")
+    create_index_cmd.main(["--data-path", data_dir, "--dataset-name", "amazon",
+                           "--output-path", idx, "--fields-str", "title_sparse,single_sparse"])
+    precompute_cmd.main(["--data-path", data_dir, "--dataset-name", "amazon",
+                         "--corpus-path", data_dir, "--output-path", scores, "--index-path", idx,
+                         "--fields-str", "title_sparse", "--n-retrieve", "10"])
+    fields = "title_dense,title_sparse"
+    port_out, jax_out = str(tmp_path / "port"), str(tmp_path / "jax")
+    common = ["--field-names", fields, "--lexical-index", idx, "--sparse-scores-path", scores]
+    train_cmd.main([*_train_args(data_dir, port_out, "--device", "cpu"), *common])
+    assert "Read sparse scores" in capsys.readouterr().out
+    jax_train_cmd.main([*_train_args(data_dir, jax_out, "--mesh", "off"), *common])
+    assert _layout(port_out) == _layout(jax_out)
+    with open(os.path.join(port_out, "results_dicts.jsonl")) as f:
+        assert len(f.readlines()) == 1
+    run = str(tmp_path / "run.qres")
+    retrieve_cmd.main(["--dataset-name", "amazon", "--data", data_dir, "--out", run,
+                       "--field-names", fields, "--model-name", "synthetic", "--partition",
+                       "val", "--top-k", "5", "--lexical-index", idx, "--device", "cpu",
+                       "--checkpoint-dir", port_out])
+    assert "singlechip-hybrid" in capsys.readouterr().out
+    assert len(trec.QRes.from_file(run)) == 4 * 5
