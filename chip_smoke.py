@@ -69,12 +69,35 @@ Contriever-base width with seeded random weights:
                 postings width, exact (postings route) and rerank QPS on
                 8-word queries, exact (combined route) QPS on 12-word
                 queries, one batch's stages, a torch.profiler window, one
-                batch of each route against the reference
+                batch of each route against the reference; the int8
+                corpus's two hybrid routes and the host stream's postings
+                route (against a device-resident engine)
 14. hybrid_cli -- the port's own command chain at Contriever-base width:
                 make_synth_data, create_sparse_index,
                 precompute_sparse_scores, train --field-names
                 all_dense,all_sparse --sparse-scores-path, mask_fields on
-                its output, retrieve --lexical-index --checkpoint-dir
+                its output, retrieve --lexical-index --checkpoint-dir, and
+                serve --smoke-out in rerank (K1) and exact mode against the
+                same engine
+15. serve    -- the serving daemon (mfar_tpu_torch.serve) over a random bf16
+                [1048576, 5, 768] corpus made on the card: max_batch 256,
+                max_wait_ms 5, top_k 100, 64 closed-loop HTTP clients of 8
+                queries in a child process, 10 s a run; exact at pipeline
+                depth 2, 1, 2, then rerank through K1: QPS, request latency
+                p50/p95, batch fill, the dispatcher's phase seconds, K1
+                launches; the port closed until warmup ends; sampled answers
+                == engine.retrieve
+16. int8     -- that corpus quantized on the card: exact QPS in bf16 and int8
+                in turns, corpus bytes, recall@100 of int8 against bf16, a
+                131072-row slice against a brute-force int8 reference with
+                exact integer dots, int8_dot (torch._int_mm) at a 1-query
+                batch and row counts off a multiple of 8, int8 rerank on the
+                e2e corpus
+17. host_stream -- that corpus copied to host memory (cut if MemAvailable is
+                short of 3x it) and streamed per scan in bf16 and int8: QPS,
+                chunks, the achieved copy rate against one pinned copy of a
+                chunk, device memory over the encoder's working set, every
+                batch against the device-resident engines
 
 TF32 is switched off for matmuls and cuDNN, so f32 comparisons run in full
 f32.  Any failed check raises and the run exits non-zero.  The last two
@@ -109,8 +132,10 @@ from mfar_tpu_torch.commands import (
     precompute_sparse_scores,
 )
 from mfar_tpu_torch.commands import retrieve as retrieve_cmd
+from mfar_tpu_torch.commands import serve as serve_cmd
 from mfar_tpu_torch.commands import train as train_cmd
 from mfar_tpu_torch.commands.common import (
+    build_engine,
     corpus_texts_for_vocab,
     load_corpus,
     load_negative_sampler_index,
@@ -146,6 +171,8 @@ from mfar_tpu_torch.ops.gather_scores import (
     gather_per_field_scores,
     gather_per_field_scores_plain,
 )
+from mfar_tpu_torch.ops.scoring import HOST_STREAM_CHUNK, int8_dot
+from mfar_tpu_torch.serve import RetrievalServer
 from mfar_tpu_torch.sparse.bm25 import BM25Index
 from mfar_tpu_torch.sparse.tokenize import STOPWORDS_EN
 from mfar_tpu_torch.train.data_pipeline import (
@@ -160,6 +187,7 @@ from mfar_tpu_torch.train.train_step import init_state, to_device, train_step
 from mfar_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 DEVICE = "cuda"
+CARD = "card not read yet"  # nvidia-smi's name and power limit, set by main
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -1737,7 +1765,44 @@ def run_hybrid_serving(seed, engine, n=131072, n_queries=512, n_text_queries=128
                             f"{prof['device_ms']:.2f} ms (share {prof['busy_share']}); device ms "
                             f"by kernel: {prof['top']}; one batch == brute force (rtol "
                             f"{E2E_RTOL}, atol {E2E_ATOL})")
+    # the int8 corpus's hybrid routes and the host stream's postings route
+    # over the same corpus and BM25 indices
+    kw = dict(field_info=field_info, doc_keys=[k for k, _ in pairs], encode_fn=engine.encode_fn,
+              tokenizer=engine.tokenizer, mixer_params=mixer, sparse_indices=bm25,
+              recall_k=100, device=DEVICE)
+    i8 = RetrievalEngine(dense_matrix=big.docs_flat, quantize="int8", **kw)
+    i8_qps = {}
+    for label, batch_qs, route in (("postings", qs, "singlechip-int8-hybrid-postings"),
+                                   ("combined", text_qs, "singlechip-int8-hybrid-combined")):
+        i8.retrieve(batch_qs[:batch_size], top_k=100)  # warm-up
+        res, secs = timed_run(i8, batch_qs, "exact", batch_size)
+        check(i8.last_serve_path == route, f"path {i8.last_serve_path}, want {route}")
+        check_results(res, len(batch_qs), 100)
+        i8_qps[label] = (len(batch_qs) / secs, overlap(res, exact if label == "postings"
+                                                        else text))
+    del i8
+    hs = RetrievalEngine(dense_matrix=big.docs_flat.cpu(), corpus_on_host=True, **kw)
+    hs.retrieve(qs[:batch_size], top_k=100)  # warm-up
+    hs_res, hs_s = timed_run(hs, qs, "exact", batch_size)
+    check(hs.last_serve_path == "host-stream-hybrid-postings", f"path {hs.last_serve_path}")
+    check_results(hs_res, len(qs), 100)
+    f32 = RetrievalEngine(dense_matrix=big.docs_flat, dense_dtype=torch.float32, **kw)
+    msg = rankings_agree(hs_res, f32.retrieve_many(qs, top_k=100, batch_size=batch_size),
+                         E2E_RTOL, E2E_ATOL)
+    check(msg is None, f"host-stream hybrid vs the device-resident engine: {msg}")
+    del hs, f32
+    phase("int8", f"hybrid_serving's corpus as int8: exact {len(qs)} queries on "
+                  f"singlechip-int8-hybrid-postings {i8_qps['postings'][0]:.1f} QPS, "
+                  f"{len(text_qs)} on singlechip-int8-hybrid-combined "
+                  f"{i8_qps['combined'][0]:.1f} QPS; top-100 shared with bf16 "
+                  f"{i8_qps['postings'][1]:.4f} / {i8_qps['combined'][1]:.4f} ({CARD})")
+    phase("host_stream", f"hybrid_serving's corpus in host memory: {len(qs)} queries on "
+                         f"host-stream-hybrid-postings {len(qs) / hs_s:.1f} QPS; every batch "
+                         f"== the device-resident engine (rtol {E2E_RTOL}, atol {E2E_ATOL}) "
+                         f"({CARD})")
     return dict(hybrid_serving_exact_qps=len(qs) / exact_s,
+                hybrid_int8_qps={k: v[0] for k, v in i8_qps.items()},
+                hybrid_host_stream_qps=len(qs) / hs_s,
                 hybrid_serving_rerank_qps=len(qs) / rerank_s,
                 hybrid_serving_combined_qps=len(text_qs) / text_s,
                 hybrid_serving_k1_launches=launches, hybrid_serving_bm25_build_s=build_s,
@@ -1773,7 +1838,7 @@ def run_hybrid_cli(seed, n_docs=200) -> dict:
         check(len([f for f in os.listdir(scores) if f.endswith("_bm25.npy")]) == 2 * 6,
               f"precompute_sparse_scores wrote {sorted(os.listdir(scores))}")
         common = ["--dataset-name", "mag", "--data", data, "--field-names", fields,
-                  "--lexical-index", idx, "--model-name", bert, "--device", "cuda"]
+                  "--lexical-index", idx, "--model-name", bert, "--device", DEVICE]
         reset_counts()
         t = time.perf_counter()
         train_cmd.main([*common, "--out", out, "--weights-lr", "0.1", "--sparse-scores-path",
@@ -1802,6 +1867,29 @@ def run_hybrid_cli(seed, n_docs=200) -> dict:
         by_query = collections.Counter(r.query_id for r in trec.QRes.from_file(run))
         check(len(by_query) == 15 and set(by_query.values()) == {100},
               f"retrieve wrote {dict(by_query)}")
+        # the serve command: --smoke-out POSTs test.queries to the daemon over
+        # HTTP; its answers == the same engine's
+        smoke = {}
+        for mode in ("rerank", "exact"):
+            out_json = os.path.join(d, f"smoke_{mode}.json")
+            argv = [*common, "--checkpoint-dir", out, "--mode", mode, "--port", "0",
+                    "--top-k", "100", "--max-batch", "64", "--smoke-out", out_json]
+            gather_per_field_scores.launches = 0
+            t = time.perf_counter()
+            serve_cmd.main(argv)
+            secs[f"serve_{mode}"] = time.perf_counter() - t
+            smoke[mode] = gather_per_field_scores.launches
+            with open(out_json) as f:
+                got = json.load(f)
+            engine = build_engine(serve_cmd.build_parser().parse_args(argv), label="serve")
+            queries = trec.read_queries(os.path.join(data, "test.queries"))
+            want = engine.retrieve_many([queries[q] for q in got["qids"]], top_k=100)
+            msg = rankings_agree(hits_of(got["results"]), want, E2E_RTOL, E2E_ATOL)
+            check(msg is None, f"serve --smoke-out --mode {mode} vs the engine: {msg}")
+            check(got["stats"]["errors"] == 0 and got["stats"]["queries"] == len(got["qids"]),
+                  f"serve --smoke-out stats {got['stats']}")
+        check(smoke["rerank"] > 0, "serve --mode rerank launched K1 no time")
+        check(smoke["exact"] == 0, "serve --mode exact launched K1")
     sparse_key = ",".join(k for k in resolve_fields(fields, "mag") if k.endswith("_sparse"))
     dense_key = ",".join(k for k in resolve_fields(fields, "mag") if k.endswith("_dense"))
     phase("hybrid_cli", f"{n_docs}-doc mag dataset from make_synth_data, BERT directory at "
@@ -1813,8 +1901,382 @@ def run_hybrid_cli(seed, n_docs=200) -> dict:
                         f"{by_mask[sparse_key]:.3f}, all dense masked {by_mask[dense_key]:.3f}); "
                         f"retrieve --lexical-index --checkpoint-dir --mode rerank "
                         f"{secs['retrieve']:.1f}s, K1 launches {launches}, 100 hits for each "
-                        f"of {len(by_query)} queries")
-    return dict(hybrid_cli_s=secs, hybrid_cli_k1_launches=launches)
+                        f"of {len(by_query)} queries; serve --smoke-out --mode rerank "
+                        f"{secs['serve_rerank']:.1f}s (K1 launches {smoke['rerank']}), --mode "
+                        f"exact {secs['serve_exact']:.1f}s, both == the engine")
+    return dict(hybrid_cli_s=secs, hybrid_cli_k1_launches=launches,
+                hybrid_cli_serve_k1_launches=smoke["rerank"])
+
+
+# ----------------------------------------------------------------------
+# phases 15-17: the serving daemon, the int8 corpus, the host-streamed corpus
+
+# The load generator of the serve phase, run in a child process so that its
+# 64 client threads do not share the server's interpreter lock (after
+# benchmarks/exp_server.py): each client keeps one HTTP/1.1 connection and
+# sends one request of 8 queries of 8 words drawn from a 5000-word
+# vocabulary (benchmarks/synth_engine.py:54-56), waits, and repeats until the
+# run's seconds are up.  A failed request ends the client and fails the run.
+SERVE_CLIENTS = r"""
+import http.client, json, sys, threading, time
+import numpy as np
+host, port, n_clients, seconds, per_req, seed, n_sample = sys.argv[1:8]
+port, n_clients, per_req, seed, n_sample = map(int, (port, n_clients, per_req, seed, n_sample))
+words = np.array([f"w{i}" for i in range(5000)])
+stop = threading.Event()
+counts, lats, samples, errors = [0] * n_clients, [[] for _ in range(n_clients)], [], []
+
+def client(ci):
+    rng = np.random.default_rng(seed * 1000 + ci)
+    conn = http.client.HTTPConnection(host, port, timeout=300)
+    try:
+        while not stop.is_set():
+            qs = [" ".join(words[rng.integers(0, 5000, size=8)]) for _ in range(per_req)]
+            t1 = time.perf_counter()
+            conn.request("POST", "/retrieve", json.dumps({"queries": qs, "top_k": 100}),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            if resp.status != 200:
+                raise RuntimeError(f"HTTP {resp.status}: {body}")
+            lats[ci].append(time.perf_counter() - t1)
+            if counts[ci] == 0 and ci < n_sample:
+                samples.append({"queries": qs, "results": body["results"]})
+            counts[ci] += per_req
+    except Exception as e:
+        errors.append(f"client {ci}: {type(e).__name__}: {e}")
+    finally:
+        conn.close()
+
+threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(n_clients)]
+t0 = time.perf_counter()
+for t in threads:
+    t.start()
+time.sleep(float(seconds))
+stop.set()
+for t in threads:
+    t.join(timeout=300)
+elapsed = time.perf_counter() - t0
+lat = np.concatenate([np.asarray(x) for x in lats if x]) if any(lats) else np.zeros(1)
+print(json.dumps({"queries": sum(counts), "requests": int(lat.size), "seconds": elapsed,
+                  "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+                  "p95_ms": float(np.percentile(lat, 95)) * 1e3,
+                  "errors": errors, "alive": sum(t.is_alive() for t in threads),
+                  "samples": samples}))
+"""
+
+
+def word_queries(n, rng, words=8, vocab=5000):
+    """Queries of ``words`` words drawn from the first ``vocab`` words of
+    the e2e corpus's vocabulary, as the serve phase's clients draw them."""
+    return [" ".join(f"w{i}" for i in rng.integers(0, vocab, size=words)) for _ in range(n)]
+
+
+def hits_of(results):
+    """JSON [[key, score], ...] lists -> the engine's [(key, score), ...]."""
+    return [[(k, s) for k, s in hits] for hits in results]
+
+
+def drive_daemon(engine, mode, depth, seed, seconds, max_batch=256, clients=64, per_req=8,
+                 n_sample=8) -> dict:
+    """One daemon run: warmup with the port closed, then ``clients``
+    closed-loop HTTP clients in a child process for ``seconds``; the sampled
+    responses are held against ``engine.retrieve`` on the same queries, and
+    K1's launches are counted from just before the clients start to just
+    after they stop."""
+    srv = RetrievalServer(engine, port=0, max_batch=max_batch, max_wait_ms=5.0, top_k=100,
+                          mode=mode, pipeline_depth=depth)
+    try:
+        warm_s = srv.warmup()
+        check(srv.port is None and srv.httpd.socket.getsockname()[1] == 0,
+              "the port was bound before warmup ended")
+        check(srv.batcher.stats()["requests"] == 0, "the daemon answered during warmup")
+        srv.start_background()
+        gather_per_field_scores.launches = 0
+        proc = subprocess.run(
+            [sys.executable, "-c", SERVE_CLIENTS, srv.host, str(srv.port), str(clients),
+             str(seconds), str(per_req), str(seed), str(n_sample)],
+            capture_output=True, text=True, timeout=seconds + 300)
+        launches = gather_per_field_scores.launches
+        stats = srv.batcher.stats()
+    finally:
+        srv.shutdown()
+    check(proc.returncode == 0, f"the clients exited {proc.returncode}: {proc.stderr[-2000:]}")
+    load = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(not load["errors"] and not load["alive"], f"clients failed: {load['errors'][:3]}")
+    check(stats["errors"] == 0 and stats["queries"] >= load["queries"], f"daemon stats {stats}")
+    for sample in load["samples"]:
+        want = engine.retrieve(sample["queries"], top_k=100, mode=mode)
+        msg = rankings_agree(hits_of(sample["results"]), want, E2E_RTOL, E2E_ATOL)
+        check(msg is None, f"daemon {mode} depth {depth} vs engine.retrieve: {msg}")
+    return dict(qps=load["queries"] / load["seconds"], p50_ms=load["p50_ms"],
+                p95_ms=load["p95_ms"], fill=stats.get("mean_batch_fill"),
+                phase_s=stats["phase_s"], k1_launches=launches, warmup_s=warm_s,
+                requests=load["requests"],
+                sampled=sum(len(x["queries"]) for x in load["samples"]))
+
+
+def run_serve(seed, engine, n=1048576, seconds=10.0) -> dict:
+    """The daemon over a random bf16 [1048576, 5, 768] corpus made on the
+    card (benchmarks/exp_server.py's workload: max_batch 256, max_wait_ms 5,
+    top_k 100, 64 closed-loop clients of 8 queries; its 20 s runs cut to
+    ``seconds``): exact at pipeline depth 2, 1 and 2, then rerank through K1
+    at depth 2.  Returns the engine for the int8 and host_stream phases."""
+    fd, e = len(engine.dense_keys), engine.emb_dim
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 21)
+    t = time.perf_counter()
+    matrix = torch.randn(n, fd * e, device=DEVICE, generator=gen, dtype=torch.bfloat16)
+    big = RetrievalEngine(
+        field_info=engine.field_info, doc_keys=[f"doc{i}" for i in range(n)],
+        encode_fn=engine.encode_fn, tokenizer=engine.tokenizer,
+        mixer_params=engine.mixer_params, dense_matrix=matrix, recall_k=100, device=DEVICE,
+    )
+    del matrix
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t
+    runs = []
+    for i, (mode, depth) in enumerate((("exact", 2), ("exact", 1), ("exact", 2),
+                                       ("rerank", 2))):
+        r = drive_daemon(big, mode, depth, seed + i, seconds)
+        want_path = "singlechip-dense" if mode == "exact" else "singlechip-rerank-k1"
+        check(big.last_serve_path == want_path, f"daemon path {big.last_serve_path}")
+        if mode == "rerank":
+            check(r["k1_launches"] > 0, "the daemon's rerank launched K1 no time")
+        else:
+            check(r["k1_launches"] == 0, "the daemon's exact mode launched K1")
+        runs.append(dict(r, mode=mode, depth=depth))
+        phase("serve", f"{mode}, pipeline depth {depth}: {r['qps']:.1f} QPS, request latency "
+                       f"p50 {r['p50_ms']:.2f} ms p95 {r['p95_ms']:.2f} ms, mean batch fill "
+                       f"{r['fill']}, phase_s {r['phase_s']}, K1 launches {r['k1_launches']}, "
+                       f"{r['requests']} requests, warmup {r['warmup_s']:.2f}s; "
+                       f"{r['sampled']} sampled queries == engine.retrieve ({CARD})")
+    phase("serve", f"N={n} bf16 [{n}, {fd * e}] corpus made on the card in {make_s:.2f}s "
+                   f"({big.docs_flat.nbytes / 1e9:.2f} GB); max_batch 256, max_wait_ms 5, "
+                   f"top_k 100, 64 closed-loop clients x 8 queries of 8 words (5000-word "
+                   f"vocabulary) in a child process, {seconds:.0f} s a run (cut from "
+                   f"benchmarks/exp_server.py's 20 s); order exact d2, d1, d2, rerank d2")
+    return big, dict(serve_runs=[{k: v for k, v in r.items() if k != "phase_s"} for r in runs],
+                     serve_k1_launches=runs[-1]["k1_launches"])
+
+
+# int8_dot's shapes: a 1-query batch, row counts off a multiple of 8 (the
+# tail product), a serving batch against a chunk and a depth off 8
+INT8_DOT_SHAPES = ((1, 3840, 1000), (7, 3840, 1003), (256, 3840, 131077), (5, 100, 61))
+
+
+def int8_reference(engine, queries, matrix, k=100):
+    """Brute-force int8 retrieval written out here, not through the port's
+    scoring helpers: folded f32 queries and the corpus rows quantized per
+    row (absmax / 127, round half to even, clip to 127), their integer dots
+    summed in f64 (exact: every partial sum is an integer below 2**53),
+    rounded to f32 and times the two scales in the JAX package's order.
+    The queries are encoded as one batch, as the engine encodes them."""
+    def quantize(x):
+        scale = torch.clamp(x.abs().amax(1, keepdim=True), min=1e-12) / 127.0
+        return torch.clamp(torch.round(x / scale), -127, 127), scale[:, 0]
+
+    d8, ds = quantize(matrix.float())
+    check(torch.equal(d8.to(torch.int8), engine.docs_q), "the engine's int8 rows differ")
+    check(torch.equal(ds, engine.doc_scales), "the engine's row scales differ")
+    d8 = d8.double()
+    w_mix = torch.as_tensor(engine.mixer_params["weight"], dtype=torch.float32, device=DEVICE)
+    with torch.inference_mode():
+        q = engine.encode_queries(queries)
+        w = torch.softmax(q @ w_mix, dim=-1)
+        qf = (w[:, :, None] * q[:, None, :]).reshape(q.shape[0], -1)
+        q8, qs = quantize(qf)
+        scores = (q8.double() @ d8.T).float() * qs[:, None] * ds[None, :]
+        top_s, top_i = torch.topk(scores, k, dim=-1)
+    return engine._to_keyed(top_s.cpu().numpy(), top_i.cpu().numpy())
+
+
+def overlap(a, b) -> float:
+    """Mean share of one result list's keys found in the other's, per query."""
+    return float(np.mean([len({k for k, _ in x} & {k for k, _ in y}) / max(len(y), 1)
+                          for x, y in zip(a, b)]))
+
+
+def run_int8(seed, big, e2e_engine, e2e_queries, n_queries=1024, batch=256,
+             slice_rows=131072) -> dict:
+    """The serve phase's corpus quantized on the card; exact serving in bf16
+    and int8 in turns, recall@100 of int8 against bf16, the int8 scores of
+    a slice against a brute-force reference, ``_int_mm``'s padding at a
+    1-query batch and at row counts off a multiple of 8, and int8 rerank on
+    the e2e corpus."""
+    rng = np.random.default_rng(seed + 31)
+    qs = word_queries(n_queries, rng)
+    kw = dict(field_info=big.field_info, encode_fn=big.encode_fn, tokenizer=big.tokenizer,
+              mixer_params=big.mixer_params, recall_k=100, device=DEVICE)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    i8 = RetrievalEngine(doc_keys=big.doc_keys, dense_matrix=big.docs_flat, quantize="int8",
+                         **kw)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t
+    bf16_bytes = big.docs_flat.nbytes
+    i8_bytes = i8.docs_q.nbytes + i8.doc_scales.nbytes
+    for eng in (big, i8):
+        eng.retrieve(qs[:batch], top_k=100)  # warm-up
+    gather_per_field_scores.launches = 0
+    qps, results = {"bf16": [], "int8": []}, {}
+    for label, eng in (("bf16", big), ("int8", i8), ("int8", i8), ("bf16", big)):
+        out, secs = timed_run(eng, qs, "exact", batch)
+        qps[label].append(n_queries / secs)
+        results[label] = out
+    check(i8.last_serve_path == "singlechip-int8-dense", f"path {i8.last_serve_path}")
+    check(gather_per_field_scores.launches == 0, "exact serving launched K1")
+    check_results(results["int8"], n_queries, 100)
+    recall = overlap(results["int8"], results["bf16"])
+
+    small = RetrievalEngine(doc_keys=big.doc_keys[:slice_rows],
+                            dense_matrix=big.docs_flat[:slice_rows], quantize="int8", **kw)
+    got = small.retrieve_many(qs[:batch], top_k=100, batch_size=batch)
+    ref = int8_reference(small, qs[:batch], big.docs_flat[:slice_rows])
+    msg = rankings_agree(got, ref, 1e-6, 0.0)
+    check(msg is None, f"int8 scores vs the brute-force int8 reference: {msg}")
+    del small
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 32)
+    shapes = INT8_DOT_SHAPES
+    for m, depth, c in shapes:
+        a = torch.randint(-127, 128, (m, depth), device=DEVICE, generator=gen, dtype=torch.int8)
+        b = torch.randint(-127, 128, (c, depth), device=DEVICE, generator=gen, dtype=torch.int8)
+        got_dot = int8_dot(a, b)
+        want_dot = (a.double() @ b.double().T).to(torch.int32)  # exact: below 2**53
+        check(got_dot.dtype == torch.int32 and torch.equal(got_dot, want_dot),
+              f"int8_dot [{m}, {depth}] x [{c}, {depth}] is not the exact product")
+
+    e2e_kw = dict(field_info=e2e_engine.field_info, doc_keys=e2e_engine.doc_keys,
+                  encode_fn=e2e_engine.encode_fn, tokenizer=e2e_engine.tokenizer,
+                  mixer_params=e2e_engine.mixer_params, recall_k=100, device=DEVICE)
+    rr8 = RetrievalEngine(dense_matrix=e2e_engine.docs_flat, quantize="int8", mode="rerank",
+                          **e2e_kw)
+    gather_per_field_scores.launches = 0
+    rerank8 = rr8.retrieve_many(e2e_queries, top_k=100, batch_size=64)
+    check(rr8.last_serve_path == "singlechip-rerank-int8", f"path {rr8.last_serve_path}")
+    check(gather_per_field_scores.launches == 0, "int8 rerank launched K1")
+    check_results(rerank8, len(e2e_queries), 100)
+    rerank_recall = overlap(rerank8, e2e_engine.retrieve_many(e2e_queries, top_k=100,
+                                                             mode="rerank", batch_size=64))
+    phase("int8", f"N={big.n_docs} corpus quantized on the card in {quant_s:.2f}s: "
+                  f"{i8_bytes / 1e9:.3f} GB int8 + scales against {bf16_bytes / 1e9:.3f} GB "
+                  f"bf16; exact, {n_queries} queries of 8 words, batch {batch}, order bf16, "
+                  f"int8, int8, bf16: bf16 {qps['bf16'][0]:.1f} / {qps['bf16'][1]:.1f} QPS, "
+                  f"int8 {qps['int8'][0]:.1f} / {qps['int8'][1]:.1f} QPS; recall@100 of int8 "
+                  f"against bf16 {recall:.4f} (not gated); {slice_rows}-row slice == "
+                  f"brute-force int8 (exact integer dots; rtol 1e-6, ties allowed); int8_dot exact at "
+                  f"{list(shapes)}; e2e rerank through int8 (path "
+                  f"{rr8.last_serve_path}) shares {rerank_recall:.4f} of bf16 rerank's "
+                  f"top-100 ({CARD})")
+    return i8, dict(int8_quantize_s=quant_s, int8_bytes=i8_bytes, bf16_bytes=bf16_bytes,
+                    int8_qps=qps["int8"], bf16_qps=qps["bf16"], int8_recall_at_100=recall,
+                    int8_rerank_overlap=rerank_recall)
+
+
+def mem_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def run_host_stream(seed, big, i8, n_queries=1024, batch=256) -> dict:
+    """The serve phase's corpus copied once to host memory and streamed to
+    the card per scan, in bf16 (cast once into pinned memory) and int8
+    (quantized on the card into pinned memory): QPS, chunks a scan, the
+    achieved copy rate against one plain pinned copy of a chunk's bytes,
+    device memory over the encoder's working set, and results against the
+    device-resident engines on the same corpus."""
+    rng = np.random.default_rng(seed + 41)
+    qs = word_queries(n_queries, rng)
+    row_bytes = big.docs_flat[0].nbytes
+    n = big.n_docs
+    avail = mem_available_bytes()
+    cut = ""
+    if avail < 3 * n * row_bytes:
+        n = max(HOST_STREAM_CHUNK, (avail // (3 * row_bytes)) // 65536 * 65536)
+        cut = f" (cut from {big.n_docs} rows: MemAvailable {avail / 1e9:.1f} GB < 3x corpus)"
+    kw = dict(field_info=big.field_info, doc_keys=big.doc_keys[:n], encode_fn=big.encode_fn,
+              tokenizer=big.tokenizer, mixer_params=big.mixer_params, recall_k=100,
+              device=DEVICE)
+    t = time.perf_counter()
+    host = big.docs_flat[:n].cpu()  # the corpus, copied once to host memory
+    hs = RetrievalEngine(dense_matrix=host, corpus_on_host=True, **kw)
+    del host
+    place_s = time.perf_counter() - t
+    t = time.perf_counter()
+    hs8 = RetrievalEngine(dense_matrix=big.docs_flat[:n], corpus_on_host=True, quantize="int8",
+                          **kw)
+    place8_s = time.perf_counter() - t
+    check(hs.docs_host.is_pinned() and hs8.docs_host_q.is_pinned(), "host corpus not pinned")
+    chunks = math.ceil(n / HOST_STREAM_CHUNK)
+
+    # one plain pinned copy of a bf16 chunk's bytes: the yardstick
+    pinned = torch.empty(HOST_STREAM_CHUNK, big.docs_flat.shape[1], dtype=torch.bfloat16,
+                         pin_memory=True)
+    dev = torch.empty(pinned.shape, dtype=pinned.dtype, device=DEVICE)
+    copy_ms = time_cuda(lambda: dev.copy_(pinned, non_blocking=True), reps=5, inner=3, warmup=1)
+    yard_gbs = pinned.nbytes / copy_ms / 1e6
+    del pinned, dev
+
+    rates, qps, out = {}, {}, {}
+    for label, eng, nbytes in (("bf16", hs, n * row_bytes), ("int8", hs8, n * row_bytes // 2)):
+        eng.retrieve(qs[:batch], top_k=100)  # warm-up
+        res, secs = timed_run(eng, qs, "exact", batch)
+        check_results(res, n_queries, 100)
+        qps[label] = n_queries / secs
+        rates[label] = nbytes * math.ceil(n_queries / batch) / secs / 1e9
+        out[label] = res
+    check(hs.last_serve_path == "host-stream-dense", f"path {hs.last_serve_path}")
+    check(hs8.last_serve_path == "host-stream-dense-int8", f"path {hs8.last_serve_path}")
+
+    # device memory of one streamed batch over the encoder's own working set
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hs.encode_queries(qs[:batch])
+    torch.cuda.synchronize()
+    enc_bytes = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    hs.retrieve(qs[:batch], top_k=100)
+    torch.cuda.synchronize()
+    stream_bytes = torch.cuda.max_memory_allocated() - base
+    chunk_bytes = HOST_STREAM_CHUNK * row_bytes
+    check(stream_bytes - enc_bytes < 3 * chunk_bytes,
+          f"a streamed batch held {(stream_bytes - enc_bytes) / 1e9:.2f} GB over the encoder, "
+          f"more than 3 chunk buffers ({3 * chunk_bytes / 1e9:.2f} GB)")
+
+    # the device-resident engines on the same corpus: f32 rows of the same
+    # bf16 values (the in-RAM stream multiplies f32 queries by them), and
+    # the int8 phase's engine
+    # (every batch of the timed runs: batches in flight together must not
+    # share chunk buffers)
+    f32 = RetrievalEngine(dense_matrix=big.docs_flat[:n], dense_dtype=torch.float32, **kw)
+    msg = rankings_agree(out["bf16"], f32.retrieve_many(qs, top_k=100, batch_size=batch),
+                         E2E_RTOL, E2E_ATOL)
+    check(msg is None, f"host-stream bf16 vs the device-resident engine: {msg}")
+    del f32
+    ref8 = i8 if n == big.n_docs else RetrievalEngine(
+        dense_matrix=big.docs_flat[:n], quantize="int8", **kw)
+    msg = rankings_agree(out["int8"], ref8.retrieve_many(qs, top_k=100, batch_size=batch),
+                         E2E_RTOL, E2E_ATOL)
+    check(msg is None, f"host-stream int8 vs the device-resident int8 engine: {msg}")
+    phase("host_stream", f"N={n}{cut} in host memory: bf16 {n * row_bytes / 1e9:.2f} GB cast "
+                         f"into pinned memory in {place_s:.2f}s, int8 quantized on the card "
+                         f"into pinned memory in {place8_s:.2f}s; {chunks} chunks of "
+                         f"{HOST_STREAM_CHUNK} rows a scan; exact, {n_queries} queries, batch "
+                         f"{batch}: bf16 {qps['bf16']:.1f} QPS ({rates['bf16']:.2f} GB/s "
+                         f"streamed), int8 {qps['int8']:.1f} QPS ({rates['int8']:.2f} GB/s); "
+                         f"one pinned copy of a chunk's bytes {copy_ms:.2f} ms = "
+                         f"{yard_gbs:.2f} GB/s; a streamed batch held "
+                         f"{(stream_bytes - enc_bytes) / 1e9:.2f} GB over the encoder's "
+                         f"{enc_bytes / 1e9:.2f} GB (chunk buffer {chunk_bytes / 1e9:.2f} GB); "
+                         f"every batch == the device-resident engines (rtol {E2E_RTOL}, atol "
+                         f"{E2E_ATOL}) ({CARD})")
+    return dict(host_stream_rows=n, host_stream_qps=qps, host_stream_gbs=rates,
+                host_stream_yardstick_gbs=yard_gbs, host_stream_chunks=chunks,
+                host_stream_extra_gb=(stream_bytes - enc_bytes) / 1e9)
 
 
 def device_profile(fn, top: int = 8, host_top: int = 0) -> dict:
@@ -1879,11 +2341,13 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    global CARD
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
+    CARD = smi.splitlines()[0]
     phase("device", f"{kind}; torch {torch.__version__} CUDA {torch.version.cuda}; "
                     f"TF32 off (matmul and cuDNN)")
     print(smi.splitlines()[0], flush=True)
@@ -1913,19 +2377,28 @@ def main(argv=None) -> int:
     hybrid = run_hybrid(args.seed, engine, corpus, queries)
     hybrid_serving = run_hybrid_serving(args.seed, engine)
     hybrid_cli = run_hybrid_cli(args.seed)
+    # the 1048576-doc phases last, so that their 8 GB corpus and its host
+    # copies come after the earlier phases, as in the runs before them
+    big, serve = run_serve(args.seed, engine)
+    i8, int8 = run_int8(args.seed, big, engine, queries)
+    host_stream = run_host_stream(args.seed, big, i8)
 
     k1_row = k1["bf16"]
     phase("summary", json.dumps({"k1_f32": k1["f32"], "k1_bf16": k1_row, "k2": k2, "k2b": k2b,
                                  **e2e, **long, **cli, **train, **train_cli, **serving,
-                                 **hybrid, **hybrid_serving, **hybrid_cli}))
+                                 **serve, **int8, **host_stream, **hybrid, **hybrid_serving,
+                                 **hybrid_cli}))
     print(json.dumps({"kernels": [{
         "name": "gather_per_field_scores",
         "route": "cuda",
         "source": "mfar_tpu_torch/csrc/gather_scores.cu",
         "replaces": "mfar_tpu/ops/pallas_kernels.py:192",
-        # the main paths that run K1: e2e rerank, hybrid rerank, hybrid
+        # the main paths that run K1: e2e rerank, the daemon's rerank (the
+        # serve phase and serve --smoke-out), hybrid rerank, hybrid
         # serving's rerank and the hybrid retrieve command
-        "launches": (e2e["k1_launches"] + hybrid["hybrid_k1_launches"]
+        "launches": (e2e["k1_launches"] + serve["serve_k1_launches"]
+                     + hybrid_cli["hybrid_cli_serve_k1_launches"]
+                     + hybrid["hybrid_k1_launches"]
                      + hybrid_serving["hybrid_serving_k1_launches"]
                      + hybrid_cli["hybrid_cli_k1_launches"]),
         "max_abs_err": k1["max_abs_err"],

@@ -8,8 +8,8 @@ and the trainer, with the JAX command's whole engine flag set.
 ROADMAP A10.4).  ``--mesh off`` and ``auto`` serve on one device (``auto``
 with several visible cards says so and takes the first); an explicit mesh
 (``--n-model``/``--n-replica`` above 1 under ``auto``,
-``--corpus-per-slice``) raises A15, ``--quantize`` A11, ``--corpus-on-host``
-A12 and ``--pallas-cross-row`` B1, before any work.
+``--corpus-per-slice``) raises A15 and ``--pallas-cross-row`` B1, before
+any work.
 """
 
 from __future__ import annotations
@@ -124,7 +124,8 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--recall-k", type=int, default=100)
     p.add_argument("--normalize", action="store_true")
     p.add_argument("--quantize", default=None, choices=[None, "int8"],
-                   help="int8 corpus: ROADMAP A11")
+                   help="int8 corpus: int8 rows and an f32 scale a row, half of "
+                        "bf16's memory, at the quantization's score error")
     p.add_argument("--use-pallas-gather", nargs="?", const="on", default="auto",
                    choices=["auto", "on", "off"],
                    help="rerank stage-2 gather through the CUDA kernel K1. auto "
@@ -133,7 +134,10 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--pallas-cross-row", action="store_true",
                    help="a knob of the TPU kernel's DMA schedule: ROADMAP B1")
     p.add_argument("--corpus-on-host", action="store_true",
-                   help="host-streamed corpus: ROADMAP A12")
+                   help="keep the dense corpus in host memory (RAM or the --dense-index "
+                        ".npy memmap) and stream it to the card per scan: a corpus "
+                        "beyond device memory, at the copies' rate; composes with "
+                        "--quantize int8")
     p.add_argument("--dense-topk", default="exact", choices=["exact", "approx"],
                    help="accepted for the JAX flag set; selection is exact here")
     p.add_argument("--dense-dtype", default="bf16", choices=["bf16", "f32"],
@@ -161,19 +165,20 @@ def note_one_card(args, label: str) -> None:
                   f"(a mesh is ROADMAP A15)", flush=True)
 
 
-def requested_mesh(args) -> Optional[dict]:
+def requested_mesh(args, label: str) -> Optional[dict]:
     """The device layout the mesh flags ask for: None for one device, else
     a description that the engine refuses (ROADMAP A15)."""
     if args.mesh == "auto" and (args.n_model > 1 or args.n_replica > 1):
         return dict(n_model=args.n_model, n_replica=args.n_replica)
-    note_one_card(args, "retrieve")
+    note_one_card(args, label)
     return None
 
 
-def build_engine(args):
+def build_engine(args, label: str = "engine"):
     """Assemble a ready-to-serve RetrievalEngine from the flag block: corpus,
     model or checkpoint, dense matrix (prebuilt or encoded now) and the
-    sparse fields' BM25 indices."""
+    sparse fields' BM25 indices.  ``label`` names the command in its log
+    lines."""
     from mfar_tpu_torch.eval.index_build import (
         build_dense_corpus_matrix,
         load_dense_matrix,
@@ -183,8 +188,7 @@ def build_engine(args):
     from mfar_tpu_torch.models.encoder import Encoder
     from mfar_tpu_torch.models.registry import prepare_model
 
-    unported = dict(mesh=requested_mesh(args), corpus_per_slice=args.corpus_per_slice,
-                    quantize=args.quantize, corpus_on_host=args.corpus_on_host,
+    unported = dict(mesh=requested_mesh(args, label), corpus_per_slice=args.corpus_per_slice,
                     pallas_cross_row=args.pallas_cross_row)
     RetrievalEngine.refuse_unported(**unported)
     resolve_data_dirs(args)
@@ -222,7 +226,11 @@ def build_engine(args):
         use_pallas_gather={"on": True, "off": False}.get(args.use_pallas_gather, "auto"),
         mode=args.mode,
         dense_topk=args.dense_topk,
-        dense_dtype=torch.bfloat16 if args.dense_dtype == "bf16" else None,
+        quantize=args.quantize,
+        corpus_on_host=args.corpus_on_host,
+        # int8 quantizes the f32 matrix itself
+        dense_dtype=torch.bfloat16 if args.dense_dtype == "bf16" and not args.quantize
+        else None,
         device=args.device,
         **unported,
     )

@@ -14,9 +14,9 @@ line per configuration with its ``masked_fields``:
 
 The checkpoint's model state (encoder, mixer, batchnorm) is what the tests
 read; its optimizer state is not needed.  ``--mesh auto`` with several
-visible cards evaluates on the first; ``--multihost force|pod`` and
-``--corpus-on-host`` raise ``NotImplementedError`` naming ROADMAP A15 and
-A12.
+visible cards evaluates on the first; ``--multihost force|pod`` raises
+``NotImplementedError`` naming ROADMAP A15.  ``--corpus-on-host`` keeps each
+test's corpus in host memory and streams it to the device per scan.
 """
 
 from __future__ import annotations
@@ -77,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-query-cond", dest="query_cond", action="store_false")
     p.add_argument("--prefix", action="store_true")
     p.add_argument("--retrieval-mode", default="auto", choices=["auto", "exact", "rerank"])
-    p.add_argument("--corpus-on-host", action="store_true", help="ROADMAP A12")
+    p.add_argument("--corpus-on-host", action="store_true",
+                   help="keep the test corpus in host memory, streamed per scan")
     p.add_argument("--mesh", default="auto", choices=["auto", "off"],
                    help="auto and off: one device (a mesh over several cards is "
                         "ROADMAP A15)")

@@ -40,7 +40,7 @@ def main(argv=None) -> None:
         raise NotImplementedError(
             f"--multihost {args.multihost}: serving over several processes is ROADMAP A15")
 
-    engine = build_engine(args)
+    engine = build_engine(args, label="retrieve")
     queries = trec.read_queries(os.path.join(args.queries, f"{args.partition}.queries"))
 
     qids = list(queries)

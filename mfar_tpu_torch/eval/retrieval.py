@@ -7,13 +7,18 @@ modes:
 
 - ``exact`` (what ``auto`` means): softmax field weights fold into the
   query and the full corpus is scored in one matmul per chunk with a running
-  exact top-k (``singlechip-dense``).  Hybrid: each sparse field's BM25
+  exact top-k (``singlechip-dense``; ``singlechip-int8-dense`` over an int8
+  corpus, ``host-stream-dense[-int8]`` over a corpus in host memory).
+  Hybrid: each sparse field's BM25
   engine gives the batch's query-term postings on the host (row ids and raw
   impacts), which scatter-add on the device, each weighted by its field's
   softmax weight, into the dense scan (``singlechip-hybrid-postings``);
   when the postings are denser than half the corpus, the host sums the
   weighted full-corpus BM25 scores instead (``singlechip-hybrid-combined``).
   A corpus with no dense matrix is scored on the host (``host-sparse-only``).
+  The int8 and host-streamed corpora have the same two hybrid routes
+  (``singlechip-int8-hybrid-{postings,combined}``,
+  ``host-stream-hybrid[-int8]-{postings,combined}``).
 - ``rerank`` (the reference-compatible pipeline): stage 1 takes each dense
   field's own top-``recall_k`` over the corpus in one pass, and each sparse
   field's BM25 top-``recall_k`` on the host; the per-query candidate union
@@ -22,12 +27,22 @@ modes:
   Stage 2's dense scores come from kernel K1
   (:func:`mfar_tpu_torch.ops.gather_scores.gather_per_field_scores`), which
   reads candidate rows from the corpus in place, or from a plain gather;
-  its sparse columns are gathered from the full BM25 score vectors.
+  its sparse columns are gathered from the full BM25 score vectors.  An
+  int8 or host-streamed corpus recalls through one-hot folded queries (one
+  folded scan gives each field's own scores) and scores its candidates
+  without K1: the int8 rows dequantized on the device, the host corpus's
+  rows gathered on the host.
+
+``quantize="int8"`` keeps the corpus as int8 rows and an f32 scale a row
+(half of bf16's memory); ``corpus_on_host`` keeps it in host memory (RAM or
+a memmap) and streams it to the device per scan, through pinned memory and
+a copy stream (:func:`mfar_tpu_torch.ops.scoring.dense_topk_host_streamed`);
+the two compose.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``quantize`` (A11), ``corpus_on_host`` (A12), ``mesh``/``corpus_per_slice``
-(A15), and ``pallas_cross_row``, a knob of the TPU kernel's DMA schedule
-whose CUDA counterpart, pipelined row loads in K1, is B1's follow-up.
+``mesh``/``corpus_per_slice`` (A15), and ``pallas_cross_row``, a knob of
+the TPU kernel's DMA schedule whose CUDA counterpart, pipelined row loads in
+K1, is B1's follow-up.
 """
 
 from __future__ import annotations
@@ -44,12 +59,24 @@ from mfar_tpu_torch.data.types import Field
 from mfar_tpu_torch.native import bucket_width
 from mfar_tpu_torch.ops.gather_scores import gather_per_field_scores
 from mfar_tpu_torch.ops.scoring import (
+    as_host_tensor,
+    dense_topk_chunked_int8,
+    dense_topk_host_streamed,
+    dense_topk_host_streamed_int8,
     fold_queries,
     fused_dense_topk_from_query,
+    fused_dense_topk_from_query_int8,
     fused_hybrid_topk_postings_from_query,
+    fused_hybrid_topk_postings_from_query_int8,
     hybrid_topk_chunked,
+    hybrid_topk_chunked_int8,
+    hybrid_topk_host_streamed,
+    hybrid_topk_host_streamed_int8,
+    onehot_queries,
     per_field_candidate_scores,
     per_field_topk_chunked_approx,
+    pinned_empty,
+    quantize_rows_int8_into,
     rerank_candidates,
     softmax_field_weights,
 )
@@ -98,17 +125,20 @@ class RetrievalEngine:
         #   whenever the engine reranks, whatever its default mode:
         #   "auto" = K1 for a CUDA corpus (raising on one K1 cannot read),
         #   the K1 wrapper's plain version for a CPU corpus K1 reads, else
-        #   the plain gather; True = K1 (raising on a corpus it cannot
-        #   read); False = the plain gather
+        #   the plain gather, and never for an int8 or host-streamed corpus;
+        #   True = K1 (raising on a corpus it cannot read); False = the
+        #   plain gather
         pallas_cross_row: bool = False,
-        quantize: Optional[str] = None,
+        quantize: Optional[str] = None,  # "int8": int8 rows + an f32 scale a row
         mesh=None,
         corpus_per_slice: bool = False,
         mode: str = "auto",  # default retrieve() mode: auto|exact|rerank
         dense_dtype: Optional[torch.dtype] = None,  # device dtype of the corpus
         #   (None keeps the input dtype; torch.bfloat16 halves its memory)
         dense_topk: str = "exact",  # 'approx' is accepted; selection is exact
-        corpus_on_host: bool = False,
+        corpus_on_host: bool = False,  # keep the corpus in host memory and
+        #   stream it to the device per scan (dense_dtype is then the
+        #   transfer dtype; an in-RAM corpus is cast once, here)
         device: DeviceLike = None,  # default cuda; raises without a card
     ):
         if use_pallas_gather not in (True, False, "auto"):
@@ -117,8 +147,9 @@ class RetrievalEngine:
             raise ValueError(f"mode={mode!r}")
         if dense_topk not in ("exact", "approx"):
             raise ValueError(f"dense_topk={dense_topk!r}")
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
         self.refuse_unported(mesh=mesh, corpus_per_slice=corpus_per_slice,
-                             quantize=quantize, corpus_on_host=corpus_on_host,
                              pallas_cross_row=pallas_cross_row)
         has_dense = dense_matrix is not None and int(np.prod(dense_matrix.shape)) > 0
         if not has_dense and not sparse_keys(field_info):
@@ -147,43 +178,38 @@ class RetrievalEngine:
         self.mode = mode
         self.dense_topk = dense_topk
         self.has_dense = has_dense
-        self.docs_flat = None
+        self.docs_flat = None  # device corpus, f32/bf16
+        self.docs_q = self.doc_scales = None  # int8 rows and their device scales
+        self.docs_host = None  # host corpus (CPU tensor or memmap)
+        self.docs_host_q = self.docs_host_scales = None  # host int8 rows, scales
+        self._host_transfer_dtype = None
         self.emb_dim = None
         self.use_gather_kernel = False
         if has_dense:
-            self._place_dense(dense_matrix, dense_dtype, use_pallas_gather)
+            self._place_dense(dense_matrix, dense_dtype, use_pallas_gather, quantize,
+                              corpus_on_host)
         self._build_row_maps()
 
     @staticmethod
-    def refuse_unported(mesh=None, corpus_per_slice=False, quantize=None,
-                        corpus_on_host=False, pallas_cross_row=False) -> None:
+    def refuse_unported(mesh=None, corpus_per_slice=False, pallas_cross_row=False) -> None:
         """Raise ``NotImplementedError`` naming the ROADMAP item of an
         option the port does not serve yet (the commands call this before
         any work)."""
         if mesh is not None or corpus_per_slice:
             raise _not_ported("multi-device serving (mesh, corpus_per_slice)", "A15")
-        if quantize:
-            raise _not_ported(f"quantize={quantize!r}", "A11")
-        if corpus_on_host:
-            raise _not_ported("corpus_on_host", "A12")
         if pallas_cross_row:
             raise NotImplementedError(
                 "pallas_cross_row tunes the TPU kernel's DMA prefetch; the CUDA "
                 "rerank kernel's row pipelining is ROADMAP B1's follow-up"
             )
 
-    def _place_dense(self, dense_matrix, dense_dtype, use_pallas_gather) -> None:
-        """The dense corpus on the device in the flat [N, Fd*E] layout, and
-        the stage-2 gather gate."""
+    def _place_dense(self, dense_matrix, dense_dtype, use_pallas_gather, quantize,
+                     corpus_on_host) -> None:
+        """The dense corpus in the flat [N, Fd*E] layout, where the options
+        put it (on the device, as int8, in host memory), and the stage-2
+        gather gate."""
         fd = len(self.dense_keys)
-        if isinstance(dense_matrix, np.ndarray):
-            with warnings.catch_warnings():
-                # a read-only memmap (--dense-index .npy): the engine never
-                # writes the corpus, and a device copy is made just below
-                warnings.simplefilter("ignore", UserWarning)
-                flat = torch.as_tensor(dense_matrix)
-        else:
-            flat = dense_matrix
+        flat = dense_matrix
         if flat.ndim == 3:
             n, fd_in, e = flat.shape
             if fd_in != fd:
@@ -197,6 +223,29 @@ class RetrievalEngine:
         if n != self.n_docs:
             raise ValueError(f"dense_matrix has {n} rows for {self.n_docs} doc keys")
         self.emb_dim = e
+        if quantize or corpus_on_host:
+            # K1 reads a device corpus of f32/bf16 rows: the int8 rows are
+            # dequantized candidate by candidate, a host corpus's gathered
+            # on the host (the JAX engine asserts the same,
+            # mfar_tpu/eval/retrieval.py:165-169, :298-302)
+            if use_pallas_gather is True:
+                raise ValueError("the K1 gather reads a device corpus in f32/bf16; "
+                                 "an int8 or host-streamed corpus has none")
+            if corpus_on_host:
+                self._place_on_host(flat, dense_dtype, quantize)
+            else:
+                self.docs_q = torch.empty(flat.shape, dtype=torch.int8, device=self.device)
+                self.doc_scales = torch.empty(n, dtype=torch.float32, device=self.device)
+                # a corpus on the card is quantized there, a host array on
+                # the host, a slab of rows at a time either way
+                quantize_rows_int8_into(flat, self.docs_q, self.doc_scales)
+            return
+        if isinstance(flat, np.ndarray):
+            with warnings.catch_warnings():
+                # a read-only memmap (--dense-index .npy): the engine never
+                # writes the corpus, and a device copy is made just below
+                warnings.simplefilter("ignore", UserWarning)
+                flat = torch.as_tensor(flat)
         self.docs_flat = flat.to(self.device, dtype=dense_dtype or flat.dtype).contiguous()
 
         # The gather gate.  K1 reads f32/bf16 corpora whose field segments
@@ -222,6 +271,29 @@ class RetrievalEngine:
                 f"segments; got {self.docs_flat.dtype}, E={e}"
             )
         self.use_gather_kernel = use_pallas_gather
+
+    def _place_on_host(self, flat, dense_dtype, quantize) -> None:
+        """A corpus kept in host memory for the streamed scans.  On a card
+        the streams copy from pinned memory only: an in-RAM corpus is cast
+        once to the transfer dtype (``dense_dtype``, else its own) into a
+        pinned tensor, and int8 rows are quantized into one (where the
+        corpus lies: on the card for a corpus there); a memmap stays on disk
+        and each chunk is cast into a pinned staging buffer as it streams."""
+        pin = self.device.type == "cuda"
+        if quantize:
+            self.docs_host_q = (pinned_empty(flat.shape, torch.int8) if pin
+                                else torch.empty(flat.shape, dtype=torch.int8))
+            self.docs_host_scales = torch.empty(flat.shape[0], dtype=torch.float32)
+            quantize_rows_int8_into(flat, self.docs_host_q, self.docs_host_scales)
+            self.doc_scales = self.docs_host_scales.to(self.device)
+        elif isinstance(flat, np.memmap):
+            self.docs_host = flat
+            self._host_transfer_dtype = dense_dtype
+        else:
+            src = as_host_tensor(flat)
+            dtype = dense_dtype or src.dtype
+            self.docs_host = (pinned_empty(src.shape, dtype).copy_(src) if pin
+                              else src.to("cpu", dtype))
 
     def _build_row_maps(self) -> None:
         """A prebuilt sparse index may cover another doc set or order than
@@ -301,11 +373,11 @@ class RetrievalEngine:
         of the correct result)."""
         return self.mask is not None and float(self.mask[field_idx]) == 0.0
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device; on a card through pinned
-        memory without blocking, so the dispatch half never waits for the
-        device."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
+    def _to_device(self, a) -> torch.Tensor:
+        """A host array (or CPU tensor) on the engine's device; on a card
+        through pinned memory without blocking, so the dispatch half never
+        waits for the device."""
+        t = a.contiguous() if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
@@ -395,34 +467,89 @@ class RetrievalEngine:
             q = self.encode_queries(queries)
             if not self.has_dense:
                 return ("host", self._sparse_only_exact(queries, q, k))
+            if self.docs_host is not None or self.docs_host_q is not None:
+                return self._dispatch_host_stream(queries, q, k)
+            int8 = self.docs_q is not None
+            route = "singlechip-int8-" if int8 else "singlechip-"
+            W, mask = self._W, self._mask_tensor()
             if not self.sparse_keys:
-                top_s, top_i = fused_dense_topk_from_query(
-                    q, self._W, self._mask_tensor(), self.docs_flat, self.n_docs, fd, k,
-                    chunk_size=chunk, approx=self.dense_topk == "approx",
-                )
-                self.last_serve_path = "singlechip-dense"
+                if int8:
+                    top_s, top_i = fused_dense_topk_from_query_int8(
+                        q, W, mask, self.docs_q, self.doc_scales, self.n_docs, fd, k,
+                        chunk_size=chunk)
+                else:
+                    top_s, top_i = fused_dense_topk_from_query(
+                        q, W, mask, self.docs_flat, self.n_docs, fd, k,
+                        chunk_size=chunk, approx=self.dense_topk == "approx")
+                self.last_serve_path = route + "dense"
                 return ("device", top_s, top_i)
             cleaned = [clean_query(t) for t in queries]
             raw = self._sparse_postings_raw(cleaned)
             if raw is not None:
                 ids, vals, fidx = (self._to_device(a) for a in raw)
-                top_s, top_i = fused_hybrid_topk_postings_from_query(
-                    q, self._W, self._mask_tensor(), self.docs_flat, ids, vals, fidx,
-                    self.n_docs, fd, k, chunk_size=chunk,
-                )
-                self.last_serve_path = "singlechip-hybrid-postings"
+                if int8:
+                    top_s, top_i = fused_hybrid_topk_postings_from_query_int8(
+                        q, W, mask, self.docs_q, self.doc_scales, ids, vals, fidx,
+                        self.n_docs, fd, k, chunk_size=chunk)
+                else:
+                    top_s, top_i = fused_hybrid_topk_postings_from_query(
+                        q, W, mask, self.docs_flat, ids, vals, fidx, self.n_docs, fd, k,
+                        chunk_size=chunk)
+                self.last_serve_path = route + "hybrid-postings"
                 return ("device", top_s, top_i)
             # postings denser than half the corpus: the host sums the
             # weighted full-corpus scores (the one route that fetches the
             # weights)
             weights = self._field_weights(q)
-            comb = self._sparse_full_scores(cleaned, weights.cpu().numpy())
-            qflat = fold_queries(q, weights[:, :fd]).to(self.docs_flat.dtype)
-            top_s, top_i = hybrid_topk_chunked(
-                qflat, self.docs_flat, self._to_device(comb), self.n_docs, k, chunk_size=chunk,
-            )
-            self.last_serve_path = "singlechip-hybrid-combined"
+            comb = self._to_device(self._sparse_full_scores(cleaned, weights.cpu().numpy()))
+            qflat = fold_queries(q, weights[:, :fd])
+            if int8:
+                top_s, top_i = hybrid_topk_chunked_int8(
+                    qflat.float(), self.docs_q, self.doc_scales, comb, self.n_docs, k,
+                    chunk_size=chunk)
+            else:
+                top_s, top_i = hybrid_topk_chunked(
+                    qflat.to(self.docs_flat.dtype), self.docs_flat, comb, self.n_docs, k,
+                    chunk_size=chunk)
+            self.last_serve_path = route + "hybrid-combined"
             return ("device", top_s, top_i)
+
+    def _dispatch_host_stream(self, queries, q, k):
+        """Exact retrieval over the host corpus: fold on the device, then
+        stream the corpus through the chunked scan; hybrid fields scatter
+        their weighted postings per chunk, or (postings denser than half
+        the corpus) the host's combined scores stream beside the rows."""
+        fd = len(self.dense_keys)
+        int8 = self.docs_host_q is not None
+        weights = self._field_weights(q)
+        qflat = fold_queries(q, weights[:, :fd])
+        if int8:
+            corpus = (self.docs_host_q, self.doc_scales)
+            dense, hybrid = dense_topk_host_streamed_int8, hybrid_topk_host_streamed_int8
+            opts = {}
+        else:
+            corpus = (self.docs_host,)
+            dense, hybrid = dense_topk_host_streamed, hybrid_topk_host_streamed
+            opts = dict(transfer_dtype=self._host_transfer_dtype)
+        route = ["host-stream", "hybrid" if self.sparse_keys else "dense"] + int8 * ["int8"]
+        if not self.sparse_keys:
+            top_s, top_i = dense(qflat, *corpus, k, **opts)
+        else:
+            cleaned = [clean_query(t) for t in queries]
+            raw = self._sparse_postings_raw(cleaned)
+            if raw is not None:
+                ids, vals, fidx = (self._to_device(a) for a in raw)
+                # each posting's impact times its field's weight, on the device
+                wvals = vals * torch.gather(weights, 1, fd + fidx.long())
+                top_s, top_i = hybrid(qflat, *corpus, k, post_ids=ids, post_wvals=wvals,
+                                      **opts)
+                route.append("postings")
+            else:
+                comb = self._sparse_full_scores(cleaned, weights.cpu().numpy())
+                top_s, top_i = hybrid(qflat, *corpus, k, sparse_comb_host=comb, **opts)
+                route.append("combined")
+        self.last_serve_path = "-".join(route)
+        return ("device", top_s, top_i)
 
     def _sparse_only_exact(self, queries, q, k) -> List[List[Tuple[str, float]]]:
         """No dense matrix: the weighted host BM25 scores are the totals."""
@@ -461,10 +588,26 @@ class RetrievalEngine:
             if self.has_dense and fd:
                 # Recall scans F field blocks per chunk, so the score-tile
                 # budget sees B*Fd rows.
-                s, idx = per_field_topk_chunked_approx(
-                    q.to(self.docs_flat.dtype), self.docs_flat, self.n_docs, fd, k,
-                    chunk_size=topk_chunk(self.n_docs, b * fd),
-                )
+                chunk = topk_chunk(self.n_docs, b * fd)
+                if self.docs_flat is not None:
+                    s, idx = per_field_topk_chunked_approx(
+                        q.to(self.docs_flat.dtype), self.docs_flat, self.n_docs, fd, k,
+                        chunk_size=chunk,
+                    )
+                else:
+                    # int8 rows (one scale a row) or a host corpus: one-hot
+                    # folded queries [B*Fd, Fd*E] through the folded scan
+                    onehot = onehot_queries(q, fd)
+                    if self.docs_q is not None:
+                        s, idx = dense_topk_chunked_int8(
+                            onehot, self.docs_q, self.doc_scales, self.n_docs, k,
+                            chunk_size=chunk)
+                    elif self.docs_host_q is not None:
+                        s, idx = dense_topk_host_streamed_int8(
+                            onehot, self.docs_host_q, self.doc_scales, k)
+                    else:
+                        s, idx = dense_topk_host_streamed(
+                            onehot, self.docs_host, k, transfer_dtype=self._host_transfer_dtype)
         # stage 1b: each sparse field's BM25 top-k on the host (unordered
         # rows: the union below needs only membership)
         cleaned = [clean_query(t) for t in queries]
@@ -507,7 +650,9 @@ class RetrievalEngine:
             hybrid = "hybrid-" if self.sparse_keys else ""
             if self.has_dense and fd:
                 cand_t = self._to_device(cand)
-                if self.use_gather_kernel:
+                if self.docs_flat is None:
+                    dense_scores = self._candidate_scores_without_k1(qf, cand, cand_t, hybrid)
+                elif self.use_gather_kernel:
                     dense_scores = gather_per_field_scores(qf, self.docs_flat, cand_t, fd)
                     self.last_serve_path = f"singlechip-rerank-{hybrid}k1"
                 else:
@@ -532,6 +677,31 @@ class RetrievalEngine:
             )
             top_s, top_pos = top_s.cpu().numpy(), top_pos.cpu().numpy()
         return self._to_keyed(top_s, np.take_along_axis(cand, top_pos, axis=1))
+
+    def _candidate_scores_without_k1(self, qf, cand: np.ndarray, cand_t,
+                                     hybrid: str) -> torch.Tensor:
+        """[B, C, Fd] dense scores of an int8 or host corpus's candidates.
+        int8 rows are dequantized on the device; a host corpus's rows are
+        gathered on the host, the batch's distinct candidates once (an int8
+        host corpus dequantized there, in f32), copied over and indexed per
+        candidate."""
+        b, width = cand.shape
+        fd = len(self.dense_keys)
+        if self.docs_q is not None:
+            rows = self.docs_q[cand_t].float() * self.doc_scales[cand_t][..., None]
+            self.last_serve_path = f"singlechip-rerank-{hybrid}int8"
+        else:
+            uniq = np.unique(cand)
+            pos = self._to_device(np.searchsorted(uniq, cand))
+            if self.docs_host_q is not None:
+                at = torch.from_numpy(uniq)
+                slab = self.docs_host_q[at].float() * self.docs_host_scales[at][:, None]
+            else:
+                slab = as_host_tensor(self.docs_host[uniq]).float()
+            rows = self._to_device(slab)[pos]
+            self.last_serve_path = ("host-stream-rerank-" + hybrid
+                                    + ("int8" if self.docs_host_q is not None else "rows"))
+        return per_field_candidate_scores(qf, rows.view(b, width, fd, self.emb_dim))
 
     def _sparse_candidate_scores(self, cleaned: List[str], cand: np.ndarray) -> np.ndarray:
         """[B, C, Fs] BM25 scores of the candidates: one full-corpus scoring

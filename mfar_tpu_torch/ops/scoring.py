@@ -1,5 +1,7 @@
 """Multi-field scoring ops in PyTorch: counterpart of ``mfar_tpu/ops/scoring.py``
-for the single-device serving paths, dense and hybrid (dense + BM25).
+for the single-device serving paths: dense and hybrid (dense + BM25), over a
+device-resident corpus in f32/bf16 or int8, or a corpus streamed from host
+memory chunk by chunk.
 
 mFAR's score is a query-conditioned softmax mixture of per-field dots,
 
@@ -22,13 +24,25 @@ Differences from the JAX module, none of which changes a result:
 - A bf16 corpus scores through :func:`scores_f32`: bf16 operands with f32
   accumulation and an f32 result, as ``jnp.dot(...,
   preferred_element_type=float32)`` gives.
+- The int8 product is ``torch._int_mm`` (exact int32 sums, as ``jnp.dot(...,
+  preferred_element_type=int32)``), with the operands padded to its CUDA
+  shape limits (:func:`int8_dot`).
+- The host-streamed scans copy chunks through pinned memory on a copy
+  stream, with CUDA events for ordering and backpressure
+  (:func:`_host_stream_loop`), where the JAX package issues ``device_put``
+  and fetches a scalar per chunk.  They stream the ragged tail chunk as it
+  is, where the JAX package pads it to its compiled shape.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+import warnings
+import weakref
+from typing import Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+from torch.nn import functional as F
 
 TopK = Tuple[torch.Tensor, torch.Tensor]
 
@@ -288,6 +302,34 @@ def fused_dense_topk_from_query(
     return dense_topk_chunked(qflat, docs_flat, valid_n, k=k, chunk_size=chunk_size)
 
 
+def _fold_and_densify(
+    q: torch.Tensor,
+    W: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    n: int,
+    num_dense: int,
+    post_ids: torch.Tensor,
+    post_vals: torch.Tensor,
+    post_field: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weights -> folded dense queries [B, Fd*E] (the input dtype) and the
+    postings scattered into combined sparse scores [B, n] f32.  Raw impacts
+    ship from the host; each posting picks up its field's post-softmax
+    weight here, so the weights never leave the device.  A document hit by
+    several terms or fields appears once per posting and the scatter sums
+    them (on a card with atomics, in an order that varies: equal within
+    float rounding)."""
+    b = q.shape[0]
+    weights = softmax_field_weights(W, q, mask)
+    weights = weights.expand(b, weights.shape[-1])
+    qflat = fold_queries(q, weights[:, :num_dense])
+    # the field index ships as int8: widen before the gather
+    w_sparse = torch.gather(weights, 1, num_dense + post_field.long())  # [B, M]
+    sparse_comb = torch.zeros(b, n, dtype=torch.float32, device=q.device)
+    sparse_comb.scatter_add_(1, post_ids.long(), post_vals.float() * w_sparse)
+    return qflat, sparse_comb
+
+
 def fused_hybrid_topk_postings_from_query(
     q: torch.Tensor,  # [B, E]
     W: torch.Tensor,
@@ -303,17 +345,422 @@ def fused_hybrid_topk_postings_from_query(
 ) -> TopK:
     """Exact hybrid serving from query embeddings: weights -> fold ->
     per-posting weight gather -> scatter densification on the device ->
-    fused chunked hybrid top-k.  Raw impacts ship from the host; each
-    posting picks up its field's post-softmax weight here, so the weights
-    never leave the device.  A document hit by several terms or fields
-    appears once per posting and the scatter sums them (on a card with
-    atomics, in an order that varies: equal within float rounding)."""
-    b = q.shape[0]
+    fused chunked hybrid top-k (:func:`_fold_and_densify`)."""
+    qflat, sparse_comb = _fold_and_densify(
+        q, W, mask, docs_flat.shape[0], num_dense, post_ids, post_vals, post_field)
+    return hybrid_topk_chunked(qflat.to(docs_flat.dtype), docs_flat, sparse_comb, valid_n, k,
+                               chunk_size)
+
+
+def onehot_queries(q: torch.Tensor, num_fields: int) -> torch.Tensor:
+    """[B, E] -> [B*F, F*E]: row b*F + f holds q[b] in field f's column
+    block and zeros elsewhere, so one folded scan gives each field's own
+    scores (the recall scan of the int8 and host-streamed corpora)."""
+    b, e = q.shape
+    eye = torch.eye(num_fields, dtype=q.dtype, device=q.device)
+    return torch.einsum("fg,be->bfge", eye, q).reshape(b * num_fields, num_fields * e)
+
+
+# ----------------------------------------------------------------------
+# The int8 corpus (mfar_tpu/ops/scoring.py:771-892, :1012-1070).  The JAX
+# package leaves these to XLA: they stay torch ops.
+
+INT8_SLAB_ROWS = 65536  # rows quantized at a time: bounds the f32 temporary
+
+
+def quantize_rows_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization: values in [-127, 127] and an f32
+    scale per row (absmax / 127), rounding half to even.  Bit for bit the
+    arithmetic of :func:`quantize_rows_int8_np` and of the JAX package's
+    pair: a corpus quantized on the host and queries quantized on the device
+    must agree."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(absmax, min=1e-12) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def quantize_rows_int8_np(x) -> Tuple[np.ndarray, np.ndarray]:
+    """Host (numpy) twin of :func:`quantize_rows_int8`: same math, same
+    round-half-to-even."""
+    x = np.asarray(x, np.float32)
+    absmax = np.max(np.abs(x), axis=-1, keepdims=True)
+    scale = np.maximum(absmax, 1e-12).astype(np.float32) / 127.0
+    q = np.clip(np.round(x / scale), -127, 127).astype(np.int8)
+    return q, scale[..., 0]
+
+
+def quantize_rows_int8_into(x, out_q: torch.Tensor, out_scale: torch.Tensor,
+                            rows: int = INT8_SLAB_ROWS) -> None:
+    """Quantize ``x`` [N, D] into ``out_q`` [N, D] int8 and ``out_scale`` [N]
+    ``rows`` rows at a time, so the f32 temporary stays one slab: a tensor
+    is quantized where it lies (on the card for a corpus already there), a
+    numpy array (a memmap too) on the host; the outputs may lie elsewhere."""
+    for lo in range(0, x.shape[0], rows):
+        hi = min(x.shape[0], lo + rows)
+        if torch.is_tensor(x):
+            q, s = quantize_rows_int8(x[lo:hi])
+        else:
+            q, s = (torch.from_numpy(a) for a in quantize_rows_int8_np(x[lo:hi]))
+        out_q[lo:hi] = q
+        out_scale[lo:hi] = s
+
+
+def int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b.T`` for int8 ``a`` [M, K] and ``b`` [C, K] in exact int32
+    sums (an f32 product of the int8 values is not exact: 127**2 * 3840 >
+    2**24).  ``torch._int_mm`` on the card takes more than 16 rows of ``a``
+    and a K and a C that are multiples of 8: ``a``'s rows pad to at least
+    24, K pads to a multiple of 8 (zero columns add nothing), and the last
+    C % 8 rows of ``b`` go through a product of their own, padded to 8 rows;
+    the pads are cut from the result.  The CPU takes the same path."""
+    m, depth = a.shape
+    c = b.shape[0]
+    if depth % 8:
+        a = F.pad(a, (0, -depth % 8))
+        b = F.pad(b, (0, -depth % 8))
+    a = F.pad(a, (0, 0, 0, max(m + (-m % 8), 24) - m))
+    body = c - c % 8
+    parts = []
+    if body:
+        parts.append(torch._int_mm(a, b[:body].T))
+    if c % 8:
+        tail = F.pad(b[body:], (0, 0, 0, 8 - c % 8))
+        parts.append(torch._int_mm(a, tail.T)[:, : c % 8])
+    out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return out[:m]
+
+
+def int8_scores(q8, q_scale, d8, d_scale) -> torch.Tensor:
+    """[M, C] f32 scores (q8 . d8) * q_scale * d_scale, multiplied in the
+    JAX package's order (in place: one f32 tile)."""
+    return int8_dot(q8, d8).float().mul_(q_scale[:, None]).mul_(d_scale[None, :])
+
+
+def dense_topk_chunked_int8(
+    qflat: torch.Tensor,  # [B, F*E] folded queries (any float dtype)
+    docs_q: torch.Tensor,  # [N, F*E] int8 corpus (quantize_rows_int8)
+    doc_scales: torch.Tensor,  # [N] f32 per-row scales
+    valid_n: int,
+    k: int,
+    chunk_size: int = 131072,
+) -> TopK:
+    """Quantized :func:`dense_topk_chunked`: queries quantize per row here,
+    and the scores deviate from f32 retrieval only by the quantization
+    error.  It also stands for the JAX package's
+    ``dense_topk_chunked_approx_int8``, whose selection is exact here (the
+    module docstring)."""
+    q8, q_scale = quantize_rows_int8(qflat)
+    n = docs_q.shape[0]
+    if n > chunk_size and k > chunk_size:
+        raise ValueError("top-k carry must fit in one chunk")
+
+    def chunk_topk(chunk_docs, chunk_scales, offset):
+        c = chunk_docs.shape[0]
+        s = int8_scores(q8, q_scale, chunk_docs, chunk_scales)
+        s = s + _row_bias(offset, c, valid_n, qflat.device)
+        top_s, sel = exact_topk_rows(s, min(k, c))
+        return _pad_topk(top_s, sel + offset, k)
+
+    return _stream_chunked_topk(
+        chunk_topk, ((docs_q, 0), (doc_scales, 0)), n, chunk_size, k)
+
+
+def hybrid_topk_chunked_int8(
+    qflat: torch.Tensor,  # [B, F*E] folded queries (any float dtype)
+    docs_q: torch.Tensor,  # [N, F*E] int8
+    doc_scales: torch.Tensor,  # [N] f32
+    sparse_comb: torch.Tensor,  # [B, N] combined sparse scores
+    valid_n: int,
+    k: int,
+    chunk_size: int = 131072,
+) -> TopK:
+    """int8 twin of :func:`hybrid_topk_chunked`: the sparse scores stay f32,
+    so the only deviation from f32 hybrid retrieval is the dense side's
+    quantization error."""
+    q8, q_scale = quantize_rows_int8(qflat)
+    n = docs_q.shape[0]
+    if n > chunk_size and k > chunk_size:
+        raise ValueError("top-k carry must fit in one chunk")
+
+    def chunk_topk(chunk_docs, chunk_scales, chunk_sparse, offset):
+        c = chunk_docs.shape[0]
+        s = int8_scores(q8, q_scale, chunk_docs, chunk_scales) + chunk_sparse.float()
+        s = s + _row_bias(offset, c, valid_n, qflat.device)
+        top_s, sel = exact_topk_rows(s, min(k, c))
+        return _pad_topk(top_s, sel + offset, k)
+
+    return _stream_chunked_topk(
+        chunk_topk, ((docs_q, 0), (doc_scales, 0), (sparse_comb, 1)), n, chunk_size, k)
+
+
+def fused_dense_topk_from_query_int8(
+    q, W, mask, docs_q, doc_scales, valid_n, num_dense, k, chunk_size=131072,
+) -> TopK:
+    """int8 twin of :func:`fused_dense_topk_from_query`: weights -> fold (in
+    f32) -> quantized chunked scan."""
     weights = softmax_field_weights(W, q, mask)
-    weights = weights.expand(b, weights.shape[-1])
-    qflat = fold_queries(q, weights[:, :num_dense]).to(docs_flat.dtype)
-    # the field index ships as int8: widen before the gather
-    w_sparse = torch.gather(weights, 1, num_dense + post_field.long())  # [B, M]
-    sparse_comb = torch.zeros(b, docs_flat.shape[0], dtype=torch.float32, device=q.device)
-    sparse_comb.scatter_add_(1, post_ids.long(), post_vals.float() * w_sparse)
-    return hybrid_topk_chunked(qflat, docs_flat, sparse_comb, valid_n, k, chunk_size)
+    weights = weights.expand(q.shape[0], weights.shape[-1])
+    qflat = fold_queries(q, weights[:, :num_dense]).float()
+    return dense_topk_chunked_int8(qflat, docs_q, doc_scales, valid_n, k, chunk_size)
+
+
+def fused_hybrid_topk_postings_from_query_int8(
+    q, W, mask, docs_q, doc_scales, post_ids, post_vals, post_field, valid_n, num_dense, k,
+    chunk_size=131072,
+) -> TopK:
+    """int8 twin of :func:`fused_hybrid_topk_postings_from_query`."""
+    qflat, sparse_comb = _fold_and_densify(
+        q, W, mask, docs_q.shape[0], num_dense, post_ids, post_vals, post_field)
+    return hybrid_topk_chunked_int8(qflat.float(), docs_q, doc_scales, sparse_comb, valid_n,
+                                    k, chunk_size)
+
+
+# ----------------------------------------------------------------------
+# The host-streamed corpus (mfar_tpu/ops/scoring.py:233-603): the corpus
+# stays in host memory (RAM or a memmap) and streams to the device a chunk
+# at a time, with a running exact top-k on the device.
+
+HOST_STREAM_CHUNK = 262144  # corpus rows a streamed chunk
+STREAM_UPCAST_ROWS = 16384  # rows of a low-precision chunk upcast at a time
+
+
+def pinned_empty(shape, dtype: torch.dtype) -> torch.Tensor:
+    """An empty CPU tensor whose pages are locked for copies to the card, for
+    as long as it lives.  ``torch.empty(pin_memory=True)`` takes a block of
+    the caching host allocator, which rounds the size up to a power of two
+    (an 8.05 GB corpus would lock 16 GB of host memory); registering the
+    tensor's own pages locks exactly its bytes."""
+    t = torch.empty(shape, dtype=dtype)
+    nbytes = t.numel() * t.element_size()
+    if nbytes:
+        cudart = torch.cuda.cudart()
+        err = int(cudart.cudaHostRegister(t.data_ptr(), nbytes, 0))
+        if err:
+            raise RuntimeError(f"cudaHostRegister of {nbytes} bytes failed: CUDA error {err}")
+        weakref.finalize(t, cudart.cudaHostUnregister, t.data_ptr())
+    return t
+
+
+def as_host_tensor(a) -> torch.Tensor:
+    """A CPU tensor over a host array without a copy (a read-only memmap
+    too: the stream only reads it)."""
+    if torch.is_tensor(a):
+        return a
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(np.asarray(a))
+
+
+class _ChunkFeed:
+    """One host array streamed to the device along ``axis``, a chunk at a
+    time.  A pinned tensor of the streamed dtype (any tensor of it on a CPU
+    engine) is copied from in place; every other array (a memmap, a
+    pageable array, a column block of a [B, N] array, another dtype) is
+    cast chunk by chunk into one of two pinned staging buffers, so the
+    copies to the card read pinned memory only.  Two device buffers of one
+    chunk each take the copies in turn."""
+
+    def __init__(self, host, axis: int, dtype: torch.dtype, chunk: int, device: torch.device):
+        self.host, self.axis = host, axis
+        cuda = device.type == "cuda"
+        self.direct = (torch.is_tensor(host) and host.dtype == dtype and axis == 0
+                       and (host.is_pinned() or not cuda))
+        shape = list(host.shape)
+        shape[axis] = min(chunk, shape[axis])
+        self.stage = [] if self.direct else [
+            pinned_empty(shape, dtype) if cuda else torch.empty(shape, dtype=dtype)
+            for _ in range(2)]
+        self.dev = [torch.empty(shape, dtype=dtype, device=device)
+                    for _ in range(2)] if cuda else None
+
+    def host_chunk(self, slot: int, lo: int, hi: int) -> torch.Tensor:
+        if self.direct:
+            return self.host.narrow(0, lo, hi - lo)
+        src = self.host[lo:hi] if self.axis == 0 else self.host[:, lo:hi]
+        buf = self.stage[slot].narrow(self.axis, 0, hi - lo)
+        buf.copy_(as_host_tensor(src))  # the cast, where there is one
+        return buf
+
+    def device_chunk(self, slot: int, src: torch.Tensor) -> torch.Tensor:
+        if self.dev is None:
+            return src
+        dst = self.dev[slot].narrow(self.axis, 0, src.shape[self.axis])
+        dst.copy_(src, non_blocking=True)
+        return dst
+
+
+def _host_stream_loop(feeds: List[_ChunkFeed], n: int, chunk_size: int, device: torch.device,
+                      run_chunk: Callable[..., TopK], kk: int, k: int) -> TopK:
+    """Stream ``n`` rows of every feed to the device in chunks and merge
+    ``run_chunk(*device_chunks, offset)``'s [rows, <= kk] top-k into a
+    running [rows, kk] one.  On a card, chunk i+1's copies run on a copy
+    stream while chunk i is scored on the current stream, which waits on
+    an event recorded after the copies.  An event after each chunk's
+    scoring frees its buffers: before it fills the buffers of chunk i+2,
+    the host waits for the scoring of chunk i, so at most two chunks are in
+    flight and the host never enqueues the whole corpus (the JAX package's
+    scalar fetch a chunk, ``_host_stream_loop``).  The device buffers come
+    from the current stream's pool, where work of an earlier call may still
+    use their memory: the copy stream first waits for the current stream."""
+    cuda = device.type == "cuda"
+    compute = torch.cuda.current_stream(device) if cuda else None
+    copier = torch.cuda.Stream(device) if cuda else None
+    if cuda:
+        copier.wait_stream(compute)
+    read = [None, None]  # per buffer slot: the event after the scoring that read it
+
+    def put(i: int):
+        slot = i % 2
+        if read[slot] is not None:
+            read[slot].synchronize()
+        lo, hi = i * chunk_size, min(n, (i + 1) * chunk_size)
+        srcs = [f.host_chunk(slot, lo, hi) for f in feeds]
+        if not cuda:
+            return srcs, None, lo
+        with torch.cuda.stream(copier):
+            chunks = [f.device_chunk(slot, s) for f, s in zip(feeds, srcs)]
+            landed = torch.cuda.Event()
+            landed.record(copier)
+        return chunks, landed, lo
+
+    out = None
+    nxt = put(0)
+    n_chunks = -(-n // chunk_size)
+    for i in range(n_chunks):
+        chunks, landed, lo = nxt
+        if cuda:
+            compute.wait_event(landed)
+        part = run_chunk(*chunks, lo)
+        out = _pad_topk(*part, kk) if out is None else _merge_topk(out, part, kk)
+        if cuda:
+            read[i % 2] = torch.cuda.Event()
+            read[i % 2].record(compute)
+        if i + 1 < n_chunks:
+            nxt = put(i + 1)
+    return _pad_topk(*out, k)
+
+
+def _stream_scores(q: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
+    """[B, c] f32 scores of a streamed chunk.  f32 queries against a
+    lower-precision chunk (an in-RAM corpus cast once to bf16) multiply in
+    f32, as the JAX package's type promotion does, with the chunk's rows
+    upcast a block at a time to bound the f32 temporary."""
+    if q.dtype == chunk.dtype:
+        return scores_f32(q, chunk)
+    out = torch.empty(q.shape[0], chunk.shape[0], dtype=torch.float32, device=q.device)
+    for lo in range(0, chunk.shape[0], STREAM_UPCAST_ROWS):
+        blk = chunk[lo : lo + STREAM_UPCAST_ROWS]
+        out[:, lo : lo + blk.shape[0]] = scores_f32(q, blk.float())
+    return out
+
+
+def _add_postings(s: torch.Tensor, post_ids, post_wvals, offset: int) -> torch.Tensor:
+    """Scatter-add the weighted postings that land in this chunk's rows
+    (global ids; the others add zero at row 0), so no [B, N] sparse tensor
+    ever exists."""
+    rel = post_ids.long() - offset
+    inside = (rel >= 0) & (rel < s.shape[1])
+    vals = torch.where(inside, post_wvals.float(), 0.0)
+    return s.scatter_add_(1, torch.where(inside, rel, 0), vals)
+
+
+def _host_dtype(a) -> torch.dtype:
+    return a.dtype if torch.is_tensor(a) else torch.from_numpy(np.empty(0, a.dtype)).dtype
+
+
+def _topk_host_streamed(score_chunk, docs_host, dtype, k, chunk_size, device,
+                        post_ids=None, post_wvals=None, sparse_comb_host=None) -> TopK:
+    """The running top-k of ``score_chunk(chunk, offset)`` over a host
+    corpus, plus weighted postings (device [B, M]) or a host [B, N]
+    combined sparse tensor streamed beside the rows."""
+    n = docs_host.shape[0]
+    if n == 0 or k < 1:
+        raise ValueError(f"a streamed top-{k} of {n} rows")
+    kk = min(k, n)  # the running carry's width
+    k_chunk = min(kk, chunk_size)  # a chunk contributes at most its rows
+    feeds = [_ChunkFeed(docs_host, 0, dtype, chunk_size, device)]
+    if sparse_comb_host is not None:
+        feeds.append(_ChunkFeed(sparse_comb_host, 1, torch.float32, chunk_size, device))
+
+    def run_chunk(chunk, *rest):
+        *sparse, lo = rest
+        s = score_chunk(chunk, lo)
+        if sparse:
+            s = s + sparse[0]
+        elif post_ids is not None:
+            s = _add_postings(s, post_ids, post_wvals, lo)
+        top_s, sel = exact_topk_rows(s, min(k_chunk, s.shape[1]))
+        return top_s, sel + lo
+
+    return _host_stream_loop(feeds, n, chunk_size, device, run_chunk, kk, k)
+
+
+def _one_sparse_form(post_ids, sparse_comb_host) -> None:
+    if (post_ids is None) == (sparse_comb_host is None):
+        raise ValueError("exactly one sparse representation: postings or a combined tensor")
+
+
+def dense_topk_host_streamed(
+    qflat: torch.Tensor,  # [B, F*E] folded queries (device)
+    docs_host,  # CPU tensor / np.ndarray / np.memmap [N, F*E]: the host corpus
+    k: int,
+    chunk_size: int = HOST_STREAM_CHUNK,
+    transfer_dtype: Optional[torch.dtype] = None,  # cast each chunk (and the
+    #   queries) to this dtype on the host before its copy
+) -> TopK:  # scores [B, k] f32, indices [B, k] int64 (device)
+    """Exact top-k over a corpus that never sits in device memory whole: two
+    chunk buffers live on the device, copies overlap the scan, and a
+    ragged tail chunk and a ``k`` above the chunk size are handled."""
+    if transfer_dtype is not None:
+        qflat = qflat.to(transfer_dtype)
+    return _topk_host_streamed(lambda c, lo: _stream_scores(qflat, c), docs_host,
+                               transfer_dtype or _host_dtype(docs_host), k, chunk_size,
+                               qflat.device)
+
+
+def hybrid_topk_host_streamed(
+    qflat, docs_host, k, chunk_size=HOST_STREAM_CHUNK, transfer_dtype=None,
+    post_ids=None,  # [B, M] global corpus rows (0-padded), device
+    post_wvals=None,  # [B, M] f32 weight-premultiplied impacts, device
+    sparse_comb_host=None,  # [B, N] host combined sparse scores (the
+    #                         fallback for postings denser than the corpus)
+) -> TopK:
+    """Hybrid twin of :func:`dense_topk_host_streamed`: the postings stay on
+    the device and each chunk scatter-adds those in its rows, or the host's
+    combined tensor streams chunk by chunk beside the rows."""
+    _one_sparse_form(post_ids, sparse_comb_host)
+    if transfer_dtype is not None:
+        qflat = qflat.to(transfer_dtype)
+    return _topk_host_streamed(lambda c, lo: _stream_scores(qflat, c), docs_host,
+                               transfer_dtype or _host_dtype(docs_host), k, chunk_size,
+                               qflat.device, post_ids, post_wvals, sparse_comb_host)
+
+
+def _int8_chunk_scorer(qflat, scales):
+    """Quantize the queries once; score a streamed int8 chunk against its
+    rows' scales, which stay on the device whole (4 bytes a row)."""
+    q8, q_scale = quantize_rows_int8(qflat.float())
+    scales = as_host_tensor(scales).to(qflat.device)
+    return lambda c, lo: int8_scores(q8, q_scale, c, scales[lo : lo + c.shape[0]])
+
+
+def dense_topk_host_streamed_int8(
+    qflat, docs_q_host, scales, k, chunk_size=HOST_STREAM_CHUNK,
+) -> TopK:
+    """int8 twin of :func:`dense_topk_host_streamed`: each chunk moves one
+    byte an element (``docs_q_host`` from :func:`quantize_rows_int8_np` or
+    :func:`quantize_rows_int8_into`)."""
+    return _topk_host_streamed(_int8_chunk_scorer(qflat, scales), docs_q_host, torch.int8, k,
+                               chunk_size, qflat.device)
+
+
+def hybrid_topk_host_streamed_int8(
+    qflat, docs_q_host, scales, k, chunk_size=HOST_STREAM_CHUNK,
+    post_ids=None, post_wvals=None, sparse_comb_host=None,
+) -> TopK:
+    """Hybrid x int8 host stream: the sparse scores stay f32."""
+    _one_sparse_form(post_ids, sparse_comb_host)
+    return _topk_host_streamed(_int8_chunk_scorer(qflat, scales), docs_q_host, torch.int8, k,
+                               chunk_size, qflat.device, post_ids, post_wvals, sparse_comb_host)

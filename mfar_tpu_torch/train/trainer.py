@@ -72,7 +72,7 @@ class TrainerConfig:
     monitor: str = "valid_loss"
     prefix: bool = False
     retrieval_mode: str = "auto"  # auto|exact|rerank (engine serving mode)
-    corpus_on_host: bool = False  # ROADMAP A12: the engine raises
+    corpus_on_host: bool = False  # the eval engine streams the corpus from host memory
     prefetch_depth: int = 2  # host batches prepared ahead of the device
     prng: str = "rbg"  # the train command's --prng, recorded for --resume
 

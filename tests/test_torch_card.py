@@ -495,3 +495,31 @@ def test_f32_flash_training_input_raises(card):
     batch = _tiny_batch(np.random.default_rng(10), query_seq=128)
     with pytest.raises(TypeError, match="B2d"):
         model.compute_loss(batch["query"], batch["pos"], batch["neg"])
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_host_stream_back_to_back_matches_device_resident(card, quantize):
+    """Batches dispatched back to back over a host-streamed corpus (several
+    in flight, as retrieve_many and the daemon dispatch them) agree with
+    the device-resident engine of the same arithmetic: each call's chunk
+    buffers come from memory the previous call's scan may still use."""
+    rng = np.random.default_rng(5)
+    n, e = 5000, 64
+    words = [f"w{i}" for i in range(200)]
+    tok = SimpleVocabTokenizer.build([" ".join(words)], max_length=16)
+    cfg = EncoderConfig.tiny(vocab_size=tok.vocab_size, hidden_size=e)
+    encode = make_encode_fn(init_encoder(cfg, seed=1), device="cuda")
+    fields = resolve_fields("title_dense,description_dense", "amazon")
+    matrix = rng.normal(size=(n, 2 * e)).astype(np.float32)
+    kw = dict(field_info=fields, doc_keys=[f"d{i}" for i in range(n)], encode_fn=encode,
+              tokenizer=tok, mixer_params={"weight": rng.normal(size=(e, 2)).astype(np.float32)},
+              dense_matrix=matrix, quantize=quantize, device="cuda")
+    queries = [" ".join(rng.choice(words, size=4)) for _ in range(96)]
+    resident = RetrievalEngine(**kw).retrieve_many(queries, top_k=20, batch_size=16)
+    streamed = RetrievalEngine(corpus_on_host=True, **kw)
+    got = streamed.retrieve_many(queries, top_k=20, batch_size=16)
+    assert streamed.last_serve_path.startswith("host-stream-dense")
+    host = streamed.docs_host if quantize is None else streamed.docs_host_q
+    assert host.is_pinned()  # registered pages: the copies read them in place
+    msg = rankings_agree(got, resident, 1e-4, 1e-3)
+    assert msg is None, msg

@@ -209,8 +209,6 @@ def test_exact_engine_reranks_through_k1(world, serve):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(quantize="int8"), "A11"),
-    (dict(corpus_on_host=True), "A12"),
     (dict(mesh=object()), "A15"),
     (dict(pallas_cross_row=True), "B1"),
 ])

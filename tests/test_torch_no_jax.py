@@ -46,7 +46,9 @@ def test_importing_the_port_loads_no_jax():
             "mfar_tpu_torch.train.sparse_cache", "mfar_tpu_torch.commands.mask_fields",
             "mfar_tpu_torch.commands.make_synth_data",
             "mfar_tpu_torch.commands.create_sparse_index",
-            "mfar_tpu_torch.commands.precompute_sparse_scores"} <= set(mods)
+            "mfar_tpu_torch.commands.precompute_sparse_scores",
+            "mfar_tpu_torch.serve", "mfar_tpu_torch.commands.serve",
+            "mfar_tpu_torch.ops.scoring"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -74,3 +76,56 @@ def test_sources_import_no_jax():
             src = f.read()
         bad = [m for m in import_re.findall(src) if _forbidden(m)]
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+SERVING_PATHS = """
+import json, sys, urllib.request
+import numpy as np, torch
+from mfar_tpu_torch.data.schema import resolve_fields
+from mfar_tpu_torch.eval.retrieval import RetrievalEngine
+from mfar_tpu_torch.models.tokenizer import SimpleVocabTokenizer
+from mfar_tpu_torch.ops import scoring
+from mfar_tpu_torch.serve import RetrievalServer
+
+rng = np.random.default_rng(0)
+docs = rng.normal(size=(50, 16)).astype(np.float32)
+q = torch.from_numpy(rng.normal(size=(2, 16)).astype(np.float32))
+dq, ds = scoring.quantize_rows_int8_np(docs)
+scoring.dense_topk_chunked_int8(q, torch.from_numpy(dq), torch.from_numpy(ds), 50, 5)
+scoring.dense_topk_host_streamed_int8(q, dq, ds, 5, chunk_size=16)
+scoring.hybrid_topk_host_streamed(q, docs, 5, chunk_size=16,
+                                  sparse_comb_host=np.zeros((2, 50), np.float32))
+tok = SimpleVocabTokenizer.build(["red lamp", "blue chair"], max_length=8)
+table = torch.from_numpy(rng.normal(size=(tok.vocab_size, 8)).astype(np.float32))
+engine = RetrievalEngine(
+    field_info=resolve_fields("title_dense,description_dense", "amazon"),
+    doc_keys=[f"d{i}" for i in range(50)], encode_fn=lambda ids, m: table[ids].mean(1),
+    tokenizer=tok, mixer_params={"weight": np.ones((1, 2), np.float32)},
+    dense_matrix=rng.normal(size=(50, 2, 8)).astype(np.float32), quantize="int8",
+    corpus_on_host=True, device="cpu")
+srv = RetrievalServer(engine, port=0, max_batch=4, top_k=3)
+try:
+    srv.warmup()
+    srv.start_background()
+    req = urllib.request.Request(f"http://{srv.host}:{srv.port}/retrieve",
+                                 data=json.dumps({"queries": ["red lamp"]}).encode())
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert len(json.loads(r.read())["results"][0]) == 3
+finally:
+    srv.shutdown()
+assert engine.last_serve_path == "host-stream-dense-int8", engine.last_serve_path
+print("\\n".join(sorted(sys.modules)))
+"""
+
+
+def test_serving_paths_run_without_jax():
+    """The daemon over an int8 host-streamed engine, and the int8 and
+    streamed scans, run in a process that loads no JAX."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", SERVING_PATHS], cwd=ROOT, env=env, capture_output=True,
+        text=True, check=True, timeout=300,
+    ).stdout.split()
+    bad = [m for m in out if _forbidden(m)]
+    assert not bad, f"the port loaded {bad[:10]}"
+    assert "mfar_tpu_torch.serve" in out

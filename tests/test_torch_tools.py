@@ -285,8 +285,6 @@ def test_retrieve_accepts_the_jax_flag_set(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--quantize", "int8"], "A11"),
-    (["--corpus-on-host"], "A12"),
     (["--pallas-cross-row"], "B1"),
     (["--n-model", "2"], "A15"),
     (["--n-replica", "2"], "A15"),
@@ -307,7 +305,7 @@ def test_mesh_auto_with_several_cards(monkeypatch, capsys, n_model):
     explicit ``--n-model 2`` asks for a mesh, which the engine refuses."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     args = argparse.Namespace(mesh="auto", device="cuda", n_model=n_model, n_replica=1)
-    mesh = requested_mesh(args)
+    mesh = requested_mesh(args, "retrieve")
     if n_model == 1:
         assert mesh is None
         assert "2 visible cards, running on one" in capsys.readouterr().out
