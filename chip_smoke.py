@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--seed 0]
 
 Drives ``mfar_tpu_torch`` (and nothing of JAX or ``mfar_tpu``) end to end at
-Contriever-base width with seeded random weights:
+Contriever-base and GTR-T5-base width with seeded random weights:
 
 1. device    -- the card's name and power limit (nvidia-smi)
 2. build     -- every CUDA kernel of the port, from ``mfar_tpu_torch/csrc``,
@@ -79,7 +79,16 @@ Contriever-base width with seeded random weights:
                 its output, retrieve --lexical-index --checkpoint-dir, and
                 serve --smoke-out in rerank (K1) and exact mode against the
                 same engine
-15. serve    -- the serving daemon (mfar_tpu_torch.serve) over a random bf16
+15. gtr      -- the T5/GTR family at GTR-T5-base's published widths with
+                seeded weights, written as a local sentence-transformers
+                directory and loaded by prepare_model: the e2e corpus's bf16
+                index (a subset against an f32 build), rerank (K1) and exact
+                serving against references, serve --smoke-out, Trainer.fit
+                with Adafactor and remat (steps/s, tokens/s, peak memory, a
+                profiled step, a checkpoint round trip), the train command
+                and retrieve --checkpoint-dir, and a seq2seq grafted from a
+                seeded local T5-base directory (bf16 logits against f32)
+16. serve    -- the serving daemon (mfar_tpu_torch.serve) over a random bf16
                 [1048576, 5, 768] corpus made on the card: max_batch 256,
                 max_wait_ms 5, top_k 100, 64 closed-loop HTTP clients of 8
                 queries in a child process, 10 s a run; exact at pipeline
@@ -87,13 +96,13 @@ Contriever-base width with seeded random weights:
                 p50/p95, batch fill, the dispatcher's phase seconds, K1
                 launches; the port closed until warmup ends; sampled answers
                 == engine.retrieve
-16. int8     -- that corpus quantized on the card: exact QPS in bf16 and int8
+17. int8     -- that corpus quantized on the card: exact QPS in bf16 and int8
                 in turns, corpus bytes, recall@100 of int8 against bf16, a
                 131072-row slice against a brute-force int8 reference with
                 exact integer dots, int8_dot (torch._int_mm) at a 1-query
                 batch and row counts off a multiple of 8, int8 rerank on the
                 e2e corpus
-17. host_stream -- that corpus copied to host memory (cut if MemAvailable is
+18. host_stream -- that corpus copied to host memory (cut if MemAvailable is
                 short of 3x it) and streamed per scan in bf16 and int8: QPS,
                 chunks, the achieved copy rate against one pinned copy of a
                 chunk, device memory over the encoder's working set, every
@@ -153,8 +162,11 @@ from mfar_tpu_torch.eval.index_build import (
     make_encode_fn,
 )
 from mfar_tpu_torch.eval.retrieval import RetrievalEngine
+from mfar_tpu_torch.models import T5Config, build_encoder
 from mfar_tpu_torch.models.encoder import Encoder, EncoderConfig, init_encoder
-from mfar_tpu_torch.models.registry import prepare_model, save_bert_dir
+from mfar_tpu_torch.models.registry import prepare_model, save_bert_dir, save_gtr_dir, save_t5_dir
+from mfar_tpu_torch.models.t5_decoder import T5Seq2Seq, T5Seq2SeqConfig, init_t5_seq2seq
+from mfar_tpu_torch.models.t5_encoder import init_t5_encoder
 from mfar_tpu_torch.models.tokenizer import SimpleVocabTokenizer
 from mfar_tpu_torch.ops import _build
 from mfar_tpu_torch.ops.flash_attention import (
@@ -1147,6 +1159,17 @@ def reset_counts() -> None:
     flash_attention_bwd_dkv.launches = flash_attention_bwd_dq.launches = 0
 
 
+def optimizer_states_equal(a, b) -> bool:
+    """Two optimizer state_dicts (nested dicts, lists, tensors) equal."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(optimizer_states_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(optimizer_states_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, torch.as_tensor(b))
+    return a == b
+
+
 def train_model(cfg, state_dict=None):
     model = MFARModel(cfg, num_fields=5, temperature=0.05)
     if state_dict is not None:
@@ -1251,12 +1274,9 @@ def run_train(seed, corpus, tok, epochs=2, steps=12, batch=16):
         for (name, a), (_, b) in zip(state.model.state_dict().items(),
                                      restored.model.state_dict().items()):
             check(torch.equal(a, b), f"restored {name} differs")
-        opt_a, opt_b = state.optimizer.state_dict(), restored.optimizer.state_dict()
-        check(opt_a["param_groups"] == opt_b["param_groups"], "restored optimizer groups differ")
-        for i, st in opt_a["state"].items():
-            for k, v in st.items():
-                check(torch.equal(torch.as_tensor(v), torch.as_tensor(opt_b["state"][i][k])),
-                      f"restored optimizer state {i}.{k} differs")
+        check(optimizer_states_equal(state.optimizer.state_dict(),
+                                     restored.optimizer.state_dict()),
+              "the restored optimizer state differs")
         check(restored.step == state.step
               and torch.equal(restored.generator.get_state(), state.generator.get_state()),
               "restored step or generator differs")
@@ -1909,7 +1929,324 @@ def run_hybrid_cli(seed, n_docs=200) -> dict:
 
 
 # ----------------------------------------------------------------------
-# phases 15-17: the serving daemon, the int8 corpus, the host-streamed corpus
+# phase 15: the T5/GTR family at GTR-T5-base width
+
+# The bf16 index build against an f32 build of the same weights: bf16
+# activations through 12 pre-LN layers whose residual stream stays in bf16
+# (one ulp is 2**-8 relative), per embedding row.
+GTR_MIN_COSINE = 0.99
+# The grafted seq2seq's bf16 logits against f32 ones, per (row, position),
+# through 12 encoder and 12 decoder layers.
+SEQ2SEQ_MIN_COSINE = 0.99
+
+
+def write_gtr_dir(root, corpus, cfg, seed) -> tuple:
+    """A local sentence-transformers GTR directory under ``root`` at the
+    relative path of its hub id, ``sentence-transformers/gtr-t5-base``:
+    seeded weights of ``cfg`` and a Unigram vocab of the corpus's most
+    common words.  Returns its path and the words."""
+    counts = collections.Counter(
+        w for t in corpus_texts_for_vocab(corpus, resolve_fields("all_dense", "mag"))
+        for w in t.lower().split())
+    words = [w for w, _ in counts.most_common(cfg.vocab_size - 40)]  # after 40 fixed pieces
+    path = os.path.join(root, "sentence-transformers", "gtr-t5-base")
+    save_gtr_dir(path, cfg, init_t5_encoder(cfg, seed=seed).state_dict(), words)
+    return path, words
+
+
+def run_gtr(seed, corpus, queries, cfg=None, n_cli_docs=512, batch_size=64, epochs=2,
+            steps=8, batch=16, n_check=256) -> dict:
+    """The T5/GTR family through the port's entry points at GTR-T5-base's
+    published widths (``T5Config.gtr_base``: d_model 768, 12 layers, 12
+    heads, d_kv 64, d_ff 3072, vocab 32128, 32 buckets, max distance 128,
+    relu, a 768 -> 768 projection without bias) with seeded weights, written
+    as a local sentence-transformers directory and loaded by
+    ``prepare_model``: (a) the e2e corpus's bf16 index, a subset held
+    against an f32 build; (b) rerank (K1) and exact serving against
+    references; (c) ``serve --smoke-out``; (d) Trainer.fit with Adafactor
+    and remat, a checkpoint round trip; (e) the train and retrieve
+    commands; (f) a seq2seq grafted from a seeded local T5-base directory.
+    T5 attention is the plain product (as in JAX), so K2 never runs."""
+    cfg = cfg or T5Config.gtr_base()
+    rng = np.random.default_rng(seed + 30)
+    pairs = list(corpus.pairs())
+    field_info = resolve_fields("all_dense", "mag")
+    secs, out = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        gtr, words = write_gtr_dir(d, corpus, cfg, seed + 31)
+        secs["write"] = time.perf_counter() - t
+        t = time.perf_counter()
+        config, state, tok = prepare_model(gtr)
+        secs["load"] = time.perf_counter() - t
+        check(dataclasses.replace(config, dtype=cfg.dtype, dropout=cfg.dropout) == cfg
+              and config.dtype == torch.bfloat16, f"prepare_model gave {config}")
+        encoder = build_encoder(config)
+        encoder.load_state_dict(state)
+        encode = make_encode_fn(encoder, device=DEVICE)
+        warm = tok.encode_batch(["w1 w2"] * 256, 512, bucket=False)
+        encode(warm["input_ids"], warm["attention_mask"])
+        torch.cuda.synchronize()
+
+        # (a) the index build, counted, then again for its spread
+        flash_attention.launches = gather_per_field_scores.launches = 0
+        matrix, build_s = timed_build(encode, tok, corpus, field_info)
+        check(flash_attention.launches == 0 and gather_per_field_scores.launches == 0,
+              "the T5 index build launched K2 or K1")
+        builds = [build_s, timed_build(encode, tok, corpus, field_info)[1]]
+        check(matrix.shape == (len(pairs), len(field_info), cfg.projection_dim)
+              and bool(np.isfinite(matrix).all()), f"matrix {matrix.shape}")
+        enc32 = build_encoder(dataclasses.replace(config, dtype=torch.float32))
+        enc32.load_state_dict(state)
+        sub = Corpus.from_pairs(pairs[:n_check], dataset_name="mag")
+        want, f32_s = timed_build(make_encode_fn(enc32, device=DEVICE), tok, sub, field_info)
+        del enc32
+        a = torch.from_numpy(np.asarray(matrix[:n_check])).reshape(-1, matrix.shape[-1]).double()
+        b = torch.from_numpy(np.asarray(want)).reshape(-1, want.shape[-1]).double()
+        cos = ((a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))).min().item()
+        check(cos >= GTR_MIN_COSINE, f"bf16 build vs f32 build: min row cosine {cos:.6f}")
+        field = next(f for f in field_info.values() if f.max_seq_length == 512)
+        texts = [t for _, t in format_documents(pairs[:256], field.name, field.dataset)]
+        toks = tok.encode_batch(texts, field.max_seq_length, bucket=False)
+        prof = device_profile(lambda: encode(toks["input_ids"], toks["attention_mask"]), top=6)
+        n_seq = len(pairs) * len(field_info)
+        phase("gtr", f"seeded GTR-T5-base directory (d_model {cfg.d_model} x {cfg.num_layers} "
+                     f"layers, {cfg.num_heads} heads x d_kv {cfg.d_kv}, d_ff {cfg.d_ff}, vocab "
+                     f"{cfg.vocab_size}, projection {cfg.projection_dim}; Unigram vocab "
+                     f"{tok.vocab_size}) written in {secs['write']:.1f}s, loaded by "
+                     f"prepare_model in {secs['load']:.1f}s; index build of {len(pairs)} docs x "
+                     f"{len(field_info)} fields in bf16 {builds[0]:.2f}s / {builds[1]:.2f}s "
+                     f"({n_seq / builds[0]:.0f} / {n_seq / builds[1]:.0f} field-docs/s), no K2 "
+                     f"launched; {n_check} docs in f32 {f32_s:.2f}s, against the bf16 rows: min "
+                     f"cosine {cos:.6f} (bound {GTR_MIN_COSINE}); one build batch [256, 512] "
+                     f"({field.name}): wall {prof['wall_ms']:.2f} ms, device busy "
+                     f"{prof['device_ms']:.2f} ms; device ms by kernel: {prof['top']} ({CARD})")
+        out.update(gtr_build_s=builds, gtr_f32_check_s=f32_s, gtr_min_cosine=cos,
+                   gtr_build_batch_device_ms=prof["device_ms"])
+
+        # (b) rerank through K1 and exact, each against a reference
+        mixer = {"weight": rng.normal(scale=0.05, size=(cfg.projection_dim, len(field_info)))
+                 .astype(np.float32)}
+        kw = dict(field_info=field_info, doc_keys=list(corpus.keys()), encode_fn=encode,
+                  tokenizer=tok, mixer_params=mixer, dense_matrix=matrix, recall_k=100,
+                  dense_dtype=torch.bfloat16, device=DEVICE)
+        engine = RetrievalEngine(mode="rerank", **kw)
+        engine.retrieve(queries[:batch_size], top_k=100)  # warm-up
+        gather_per_field_scores.launches = 0
+        rerank, rerank_s = timed_run(engine, queries, "rerank", batch_size)
+        k1 = gather_per_field_scores.launches
+        check(k1 > 0 and engine.last_serve_path == "singlechip-rerank-k1",
+              f"GTR rerank: K1 launches {k1}, path {engine.last_serve_path}")
+        exact, exact_s = timed_run(engine, queries, "exact", batch_size)
+        check(engine.last_serve_path == "singlechip-dense", f"path {engine.last_serve_path}")
+        k = min(100, len(pairs))
+        for got in (rerank, exact):
+            check_results(got, len(queries), k)
+        plain = RetrievalEngine(mode="rerank", use_pallas_gather=False, **kw)
+        msg = rankings_agree(rerank, plain.retrieve_many(queries, top_k=100,
+                                                         batch_size=batch_size),
+                             E2E_RTOL, E2E_ATOL)
+        check(msg is None, f"GTR rerank K1 vs the plain gather: {msg}")
+        msg = rankings_agree(exact, brute_force_exact(engine, queries, mixer, k),
+                             E2E_RTOL, E2E_ATOL)
+        check(msg is None, f"GTR exact vs brute force: {msg}")
+        del plain
+        phase("gtr", f"{len(queries)} queries, batch {batch_size}: rerank "
+                     f"{len(queries) / rerank_s:.1f} QPS (K1 launches {k1}) == the plain "
+                     f"gather; exact {len(queries) / exact_s:.1f} QPS == brute force (rtol "
+                     f"{E2E_RTOL}, atol {E2E_ATOL}) ({CARD})")
+        out.update(gtr_rerank_qps=len(queries) / rerank_s, gtr_exact_qps=len(queries) / exact_s,
+                   gtr_k1_launches=k1)
+
+        # (c) the serve command over the GTR directory
+        sub_pairs = pairs[:n_cli_docs]
+        splits = dict(zip(("train", "val", "test"), mag_splits(sub_pairs, (32, 16, 16), rng)))
+        data = os.path.join(d, "data")
+        write_data_dir(data, sub_pairs, splits)
+        common = ["--dataset-name", "mag", "--data", data, "--model-name", gtr,
+                  "--device", DEVICE]
+        out_json = os.path.join(d, "smoke.json")
+        argv = [*common, "--mode", "rerank", "--port", "0", "--top-k", "100", "--max-batch",
+                "64", "--smoke-out", out_json]
+        gather_per_field_scores.launches = 0
+        t = time.perf_counter()
+        serve_cmd.main(argv)
+        secs["serve"] = time.perf_counter() - t
+        serve_k1 = gather_per_field_scores.launches
+        check(serve_k1 > 0, "serve --mode rerank over the GTR directory launched K1 no time")
+        with open(out_json) as f:
+            got = json.load(f)
+        cli_engine = build_engine(serve_cmd.build_parser().parse_args(argv), label="serve")
+        test_q = trec.read_queries(os.path.join(data, "test.queries"))
+        msg = rankings_agree(hits_of(got["results"]),
+                             cli_engine.retrieve_many([test_q[q] for q in got["qids"]],
+                                                      top_k=100), E2E_RTOL, E2E_ATOL)
+        check(msg is None and got["stats"]["errors"] == 0,
+              f"serve --smoke-out over the GTR directory: {msg} {got['stats']}")
+        del cli_engine
+        out.update(gtr_serve_k1_launches=serve_k1)
+
+        # (d) Trainer.fit with Adafactor and remat, the main path of training
+        (train_q, train_r), (val_q, val_r) = mag_splits(pairs, (steps * batch, 2 * batch), rng)
+        sampler = IndexNegativeSampler(load_negative_sampler_index(corpus, None, "mag"),
+                                       100, 50, 1)
+        train_ds, val_ds = (ContrastiveDataset(q, corpus, r, sampler, field_info, tok)
+                            for q, r in ((train_q, train_r), (val_q, val_r)))
+        tcfg = dataclasses.replace(config, remat=True)
+        opt = make_optimizer(encoder_lr=1e-4, weights_lr=0.1, use_adafactor=True)
+
+        def fresh(s):
+            st = init_state(MFARModel(tcfg, num_fields=len(field_info), temperature=0.05), opt,
+                            seed=s, device=DEVICE)
+            st.model.encoder.load_state_dict(state)
+            return st
+
+        tstate = fresh(seed)
+        run_dir = os.path.join(d, "fit")
+        trainer = Trainer(tok, field_info, corpus, train_ds, val_ds, val_q,
+                          os.path.join(d, "val.qrels"),
+                          TrainerConfig(out_dir=run_dir, max_epochs=epochs,
+                                        train_batch_size=batch, seed=seed,
+                                        query_max_length=512))
+        trec.write_qrels(os.path.join(d, "val.qrels"), val_r)
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        tstate = trainer.fit(tstate)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+        n_steps = tstate.step
+        check(counts() == (0, 0, 0), f"T5 training launched K2/K2b {counts()}")
+        check(n_steps == epochs * steps, f"fit ran {n_steps} steps")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            log = [json.loads(ln) for ln in f if '"train_loss"' in ln]
+        losses, valid = [r["train_loss"] for r in log], [r["valid_loss"] for r in log]
+        check(all(math.isfinite(x) for x in losses + valid), f"losses {losses} {valid}")
+
+        one = to_device(strip_meta(next(train_ds.epoch_batches(batch, seed=seed))),
+                        torch.device(DEVICE))
+        restored = trainer.ckpt.restore(trainer.ckpt.latest_step(), fresh(seed + 1))
+        for (name, x), y in zip(tstate.model.state_dict().items(),
+                                restored.model.state_dict().values()):
+            check(torch.equal(x, y), f"restored {name} differs")
+        check(optimizer_states_equal(tstate.optimizer.state_dict(),
+                                     restored.optimizer.state_dict()),
+              "the restored Adafactor/AdamW state differs")
+        _, m_a = train_step(tstate, one)
+        _, m_b = train_step(restored, one)
+        step_diff = max((x - y).abs().max().item() for x, y in
+                        zip(tstate.model.parameters(), restored.model.parameters()))
+        loss_diff = abs(m_a["loss"].item() - m_b["loss"].item())
+        check(loss_diff <= CKPT_ATOL and step_diff <= CKPT_ATOL,
+              f"a step after restore differs: loss by {loss_diff}, parameters by {step_diff}")
+        del restored
+
+        real = sum(token_stats(strip_meta(b))["tokens_real"]
+                   for b in train_ds.epoch_batches(batch, seed=seed))
+        rates, peaks = [], []
+        for _ in range(2):
+            secs_ep, _, peak = timed_epoch(trainer, tstate, 0)
+            rates.append((steps / secs_ep, real / secs_ep))
+            peaks.append(peak)
+        tprof = device_profile(lambda: train_step(tstate, one), top=8)
+        phase("gtr", f"(d) MFARModel over the GTR encoder ({tcfg.dtype}, dropout "
+                     f"{tcfg.dropout}, remat), Adafactor on the encoder (lr 1e-4) and AdamW on "
+                     f"the head: Trainer.fit {n_steps} steps in {epochs} epochs of "
+                     f"{steps} (batch {batch}, one BM25 negative) in {fit_s:.1f}s with "
+                     f"validation and checkpoints; train loss by epoch {losses}, valid loss "
+                     f"{valid}; no K2/K2b launched; epochs of {steps} steps: "
+                     f"{rates[0][0]:.3f} / {rates[1][0]:.3f} steps/s ({rates[0][1]:.0f} / "
+                     f"{rates[1][1]:.0f} real tokens/s), peak memory {peaks[0]:.2f} / "
+                     f"{peaks[1]:.2f} GB; one profiled step: wall {tprof['wall_ms']:.2f} ms, "
+                     f"device busy {tprof['device_ms']:.2f} ms (share {tprof['busy_share']}); "
+                     f"device ms by kernel: {tprof['top']}; checkpoint round trip: state and "
+                     f"optimizer equal, a step after it vs without: loss by {loss_diff:.3g}, "
+                     f"parameters by {step_diff:.3g} (tolerance {CKPT_ATOL}) ({CARD})")
+        out.update(gtr_fit_s=fit_s, gtr_train_losses=losses, gtr_valid_losses=valid,
+                   gtr_steps_per_s=[r[0] for r in rates],
+                   gtr_tokens_per_s=[r[1] for r in rates], gtr_train_peak_gb=peaks,
+                   gtr_train_step_device_ms=tprof["device_ms"],
+                   gtr_train_busy_share=tprof["busy_share"])
+        del tstate, trainer
+
+        # (e) the train command on the GTR directory, then retrieve from it
+        run_out = os.path.join(d, "out")
+        t = time.perf_counter()
+        train_cmd.main([*common, "--out", run_out, "--lexical-index", os.path.join(d, "idx"),
+                        "--weights-lr", "0.1", "--run-one-iteration", "--max-epochs", "1"])
+        secs["train_cli"] = time.perf_counter() - t
+        payload = torch.load(os.path.join(run_out, "checkpoints", "0", "state.pt"),
+                             map_location="cpu", weights_only=True)
+        check(set(payload["optimizer"]) == {"encoder", "head"},
+              "the train command's checkpoint holds no Adafactor state")
+        run = os.path.join(d, "test.qres")
+        gather_per_field_scores.launches = 0
+        t = time.perf_counter()
+        retrieve_cmd.main([*common, "--out", run, "--partition", "test", "--checkpoint-dir",
+                           run_out, "--mode", "rerank"])
+        secs["retrieve"] = time.perf_counter() - t
+        cli_k1 = gather_per_field_scores.launches
+        by_query = collections.Counter(r.query_id for r in trec.QRes.from_file(run))
+        check(cli_k1 > 0 and set(by_query) == set(splits["test"][0])
+              and set(by_query.values()) == {min(100, len(sub_pairs))},
+              f"retrieve --checkpoint-dir: K1 launches {cli_k1}, hits {dict(by_query)}")
+        out.update(gtr_cli_k1_launches=cli_k1)
+
+        # (f) the seq2seq graft over a seeded local T5-base directory
+        t5cfg = dataclasses.replace(cfg, projection_dim=None)
+        t = time.perf_counter()
+        t5 = init_t5_seq2seq(T5Seq2SeqConfig(encoder=t5cfg, decoder=t5cfg), seed=seed + 32)
+        dec_state = t5.decoder.state_dict()
+        dec_state["token_embed.weight"] = t5.encoder.token_embed.weight.detach()  # v1.0 ties them
+        save_t5_dir(os.path.join(d, "google-t5", "t5-base"), t5cfg, t5.encoder.state_dict(),
+                    words, decoder_state=dec_state)
+        del t5, dec_state
+        cwd = os.getcwd()
+        os.chdir(d)  # the graft resolves the hub ids' names as local directories
+        try:
+            *_, (s2s_cfg, s2s_state) = prepare_model("sentence-transformers/gtr-t5-base",
+                                                     with_decoder=True)
+        finally:
+            os.chdir(cwd)
+        secs["seq2seq_setup"] = time.perf_counter() - t
+        qtoks = tok.encode_batch(queries[:16], 512)
+        dec_ids = torch.randint(0, cfg.vocab_size, (16, 32),
+                                generator=torch.Generator().manual_seed(seed))
+        logits = {}
+        for dt in (torch.bfloat16, torch.float32):
+            model = T5Seq2Seq(dataclasses.replace(
+                s2s_cfg, encoder=dataclasses.replace(s2s_cfg.encoder, dtype=dt),
+                decoder=dataclasses.replace(s2s_cfg.decoder, dtype=dt)))
+            model.load_state_dict(s2s_state)
+            model = model.to(DEVICE).eval()
+            with torch.inference_mode():
+                logits[dt] = model(torch.from_numpy(qtoks["input_ids"]).long().to(DEVICE),
+                                   torch.from_numpy(qtoks["attention_mask"]).to(DEVICE),
+                                   dec_ids.to(DEVICE)).float().cpu()
+            del model
+        lb, lf = logits[torch.bfloat16], logits[torch.float32]
+        check(lb.shape == (16, 32, cfg.vocab_size) and bool(torch.isfinite(lb).all()),
+              f"seq2seq logits {tuple(lb.shape)}")
+        s2s_cos = torch.nn.functional.cosine_similarity(
+            lb.reshape(-1, lb.shape[-1]).double(), lf.reshape(-1, lf.shape[-1]).double(),
+            dim=-1).min().item()
+        check(s2s_cos >= SEQ2SEQ_MIN_COSINE, f"seq2seq bf16 vs f32 logits: cosine {s2s_cos}")
+        out.update(gtr_seq2seq_min_cosine=s2s_cos)
+    phase("gtr", f"(c) serve --smoke-out over the GTR directory ({n_cli_docs} docs) in "
+                 f"{secs['serve']:.1f}s, K1 launches {serve_k1}, == the same engine; (e) train "
+                 f"--model-name <GTR dir> --run-one-iteration {secs['train_cli']:.1f}s "
+                 f"(Adafactor state in its checkpoint), retrieve --checkpoint-dir --mode rerank "
+                 f"{secs['retrieve']:.1f}s, K1 launches {cli_k1}, {min(100, n_cli_docs)} hits for each of "
+                 f"{len(by_query)} queries; (f) seq2seq grafted from a seeded local T5-base "
+                 f"directory (written and grafted in {secs['seq2seq_setup']:.1f}s): "
+                 f"teacher-forced logits [16, 32, {cfg.vocab_size}] finite, bf16 against f32 "
+                 f"min cosine {s2s_cos:.6f} (bound {SEQ2SEQ_MIN_COSINE}) ({CARD})")
+    out["gtr_cli_s"] = secs
+    return out
+
+
+# ----------------------------------------------------------------------
+# phases 16-18: the serving daemon, the int8 corpus, the host-streamed corpus
 
 # The load generator of the serve phase, run in a child process so that its
 # 64 client threads do not share the server's interpreter lock (after
@@ -2377,6 +2714,7 @@ def main(argv=None) -> int:
     hybrid = run_hybrid(args.seed, engine, corpus, queries)
     hybrid_serving = run_hybrid_serving(args.seed, engine)
     hybrid_cli = run_hybrid_cli(args.seed)
+    gtr = run_gtr(args.seed, corpus, queries)
     # the 1048576-doc phases last, so that their 8 GB corpus and its host
     # copies come after the earlier phases, as in the runs before them
     big, serve = run_serve(args.seed, engine)
@@ -2387,7 +2725,7 @@ def main(argv=None) -> int:
     phase("summary", json.dumps({"k1_f32": k1["f32"], "k1_bf16": k1_row, "k2": k2, "k2b": k2b,
                                  **e2e, **long, **cli, **train, **train_cli, **serving,
                                  **serve, **int8, **host_stream, **hybrid, **hybrid_serving,
-                                 **hybrid_cli}))
+                                 **hybrid_cli, **gtr}))
     print(json.dumps({"kernels": [{
         "name": "gather_per_field_scores",
         "route": "cuda",
@@ -2395,12 +2733,15 @@ def main(argv=None) -> int:
         "replaces": "mfar_tpu/ops/pallas_kernels.py:192",
         # the main paths that run K1: e2e rerank, the daemon's rerank (the
         # serve phase and serve --smoke-out), hybrid rerank, hybrid
-        # serving's rerank and the hybrid retrieve command
+        # serving's rerank, the hybrid retrieve command, and GTR's rerank,
+        # serve --smoke-out and retrieve command
         "launches": (e2e["k1_launches"] + serve["serve_k1_launches"]
                      + hybrid_cli["hybrid_cli_serve_k1_launches"]
                      + hybrid["hybrid_k1_launches"]
                      + hybrid_serving["hybrid_serving_k1_launches"]
-                     + hybrid_cli["hybrid_cli_k1_launches"]),
+                     + hybrid_cli["hybrid_cli_k1_launches"]
+                     + gtr["gtr_k1_launches"] + gtr["gtr_serve_k1_launches"]
+                     + gtr["gtr_cli_k1_launches"]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1_row["kernel_ms"],
         "plain_ms": k1_row["plain_ms"],

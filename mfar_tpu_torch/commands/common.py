@@ -113,7 +113,8 @@ def load_or_build_sparse_indices(
 def add_engine_args(p: argparse.ArgumentParser) -> None:
     """The serving-engine flags, names and defaults as in the JAX package."""
     p.add_argument("--model-name", default="facebook/contriever-msmarco",
-                   help="synthetic[:vocab[:hidden]] or a local HF BERT directory")
+                   help="synthetic[:vocab[:hidden]], a local HF BERT or T5 directory, "
+                        "t5:<dir>, or a local sentence-transformers GTR directory")
     p.add_argument("--checkpoint-dir", default=None,
                    help="a train run's --out: serve its best checkpoint's encoder "
                         "and mixer (the port's checkpoints)")
@@ -185,7 +186,7 @@ def build_engine(args, label: str = "engine"):
         make_encode_fn,
     )
     from mfar_tpu_torch.eval.retrieval import RetrievalEngine
-    from mfar_tpu_torch.models.encoder import Encoder
+    from mfar_tpu_torch.models import build_encoder
     from mfar_tpu_torch.models.registry import prepare_model
 
     unported = dict(mesh=requested_mesh(args, label), corpus_per_slice=args.corpus_per_slice,
@@ -202,7 +203,7 @@ def build_engine(args, label: str = "engine"):
     mixer_params = {"weight": np.ones((1, len(field_info)), np.float32)}
     if args.checkpoint_dir:
         state, mixer_params = load_checkpoint_weights(args.checkpoint_dir, field_info)
-    encoder = Encoder(config)
+    encoder = build_encoder(config)
     encoder.load_state_dict(state)
     encode = make_encode_fn(encoder, device=args.device)
 

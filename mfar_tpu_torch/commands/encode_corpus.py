@@ -45,7 +45,8 @@ def main(argv=None) -> None:
                         "(raw + <out>.keys sidecar; the build streams into the "
                         "file, which serving can memory-map)")
     p.add_argument("--model-name", default="facebook/contriever-msmarco",
-                   help="synthetic[:vocab[:hidden]] or a local HF BERT directory")
+                   help="synthetic[:vocab[:hidden]], a local HF BERT or T5 directory, "
+                        "t5:<dir>, or a local sentence-transformers GTR directory")
     p.add_argument("--checkpoint-dir", default=None,
                    help="a train run's --out: encode with its best checkpoint's "
                         "encoder (the port's checkpoints)")

@@ -61,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--partition", default="val")
     p.add_argument("--additional-partition", default=None)
     p.add_argument("--model-name", default="facebook/contriever-msmarco",
-                   help="synthetic[:vocab[:hidden]] or a local HF BERT directory")
+                   help="synthetic[:vocab[:hidden]], a local HF BERT or T5 directory, "
+                        "t5:<dir>, or a local sentence-transformers GTR directory")
     p.add_argument("--normalize", action="store_true")
     p.add_argument("--dev-batch-size", type=int, default=64)
     p.add_argument("--dev-max-length", type=int, default=512)

@@ -16,10 +16,12 @@ or more.  Sparse (BM25) fields train as in the JAX command: their indices
 load from ``--lexical-index`` (``create_sparse_index``) or are built in
 memory, and their scores come from ``--sparse-scores-path``
 (``precompute_sparse_scores``) where it covers a batch's queries, else live.
+A T5/GTR model (a local T5 or sentence-transformers GTR directory, or
+``t5:<dir>``) trains its encoder with Adafactor, as the JAX command does.
 Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
 several devices (``--mesh auto`` with several visible cards,
-``--n-model``/``--n-replica`` above 1, ``--multihost force|pod``: A15) and
-T5 models (A14).  The output directory holds
+``--n-model``/``--n-replica`` above 1, ``--multihost force|pod``: A15).
+The output directory holds
 ``metrics.jsonl``, ``checkpoints/<epoch>/`` (``state.pt`` + ``meta.json``),
 ``best.txt``, the dev qres files and ``results_dicts.jsonl``, as the JAX
 command's does; ``retrieve --checkpoint-dir`` serves from it.
@@ -70,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="precomputed BM25 scores of the sparse fields "
                         "(precompute_sparse_scores' output)")
     p.add_argument("--model-name", default="facebook/contriever-msmarco",
-                   help="synthetic[:vocab[:hidden]] or a local HF BERT directory")
+                   help="synthetic[:vocab[:hidden]], a local HF BERT or T5 directory, "
+                        "t5:<dir>, or a local sentence-transformers GTR directory")
     p.add_argument("--model-path", default=None)
     p.add_argument("--normalize", action="store_true")
     p.add_argument("--temperature", type=float, default=0.05)
@@ -188,14 +191,18 @@ def main(argv=None) -> None:
         if model_name.startswith("synthetic") else None,
     )
     remat = {"auto": config.num_layers >= 8, "on": True, "off": False}[args.remat]
+    # the JAX command's overrides: each only where the config has the field
+    # (T5 has one dropout rate, which --hidden-dropout sets, and no
+    # attention dropout)
     overrides = {"remat": remat}
-    if args.precision in ("32", "f32"):
+    if args.precision in ("32", "f32") and hasattr(config, "dtype"):
         overrides["dtype"] = torch.float32  # bf16 ("16-mixed") is the default
     if args.hidden_dropout is not None:
-        overrides["hidden_dropout"] = args.hidden_dropout
-    if args.attention_dropout is not None:
+        overrides["hidden_dropout" if hasattr(config, "hidden_dropout") else "dropout"] = \
+            args.hidden_dropout
+    if args.attention_dropout is not None and hasattr(config, "attention_dropout"):
         overrides["attention_dropout"] = args.attention_dropout
-    if args.softmax_dtype == "bf16":
+    if args.softmax_dtype == "bf16" and hasattr(config, "softmax_dtype"):
         overrides["softmax_dtype"] = torch.bfloat16
     config = dataclasses.replace(config, **overrides)
 

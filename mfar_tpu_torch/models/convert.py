@@ -11,19 +11,26 @@
   ``mfar_tpu/models/hf_convert.py::convert_hf_bert``), and
   :func:`hf_bert_state_from_encoder` back;
 - :func:`config_from_hf`: a HF BERT ``config.json`` (dict) -> EncoderConfig.
+- :func:`t5_state_from_jax`, :func:`t5_state_from_hf`,
+  :func:`hf_t5_state_from_encoder` and :func:`t5_config_from_hf`: the same
+  for the T5 encoder family (``mfar_tpu.models.t5_encoder``'s tree, HF
+  ``T5EncoderModel`` names and ``config.json``);
 - :func:`mixer_from_jax`: the mixer subtree ``{'weight': [E or 1, F]}``.
 - :func:`model_state_from_jax`: a JAX ``MFARModel``'s params and batch
-  stats -> the state_dict of :class:`mfar_tpu_torch.train.model.MFARModel`.
+  stats (a BERT or a T5 encoder) -> the state_dict of
+  :class:`mfar_tpu_torch.train.model.MFARModel`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from mfar_tpu_torch.models.encoder import EncoderConfig
+from mfar_tpu_torch.models.t5_encoder import T5Config
 
 # port layer name -> HF BertLayer submodule
 _LAYER_MAP = {
@@ -116,6 +123,106 @@ def config_from_hf(hf_config: Mapping[str, Any], **overrides) -> EncoderConfig:
     )
 
 
+# port T5 layer name -> HF T5Block submodule (layer.0: attention, layer.1: FFN)
+_T5_LAYER_MAP = {
+    "attn_q": "layer.0.SelfAttention.q",
+    "attn_k": "layer.0.SelfAttention.k",
+    "attn_v": "layer.0.SelfAttention.v",
+    "attn_o": "layer.0.SelfAttention.o",
+    "ln1": "layer.0.layer_norm",
+    "ln2": "layer.1.layer_norm",
+}
+_T5_FFN = {False: ("wi", "wo"), True: ("wi_0", "wi_1", "wo")}  # by gated_ffn
+_T5_REL_BIAS = "block.0.layer.0.SelfAttention.relative_attention_bias.weight"
+
+
+def _t5_layer_names(gated: bool) -> Dict[str, str]:
+    """Port layer parameter (without ``.weight``) -> HF block submodule."""
+    names = dict(_T5_LAYER_MAP)
+    names.update({f"ffn.{n}": f"layer.1.DenseReluDense.{n}" for n in _T5_FFN[gated]})
+    return names
+
+
+def t5_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``T5Encoder`` params (numpy leaves) -> port ``T5Encoder``
+    state_dict.  The scanned layers are stacked on axis 0: kernels
+    ``[L, in, out]`` become per-layer ``[out, in]`` Linear weights, norms
+    ``[L, d]`` per-layer vectors."""
+    layer = params["layers"]["layer"]
+    sd: Dict[str, torch.Tensor] = {
+        "token_embed.weight": _t(params["token_embed"]["embedding"]),
+        "rel_bias": _t(params["rel_bias"]),
+        "final_ln.weight": _t(params["final_ln"]["weight"]),
+    }
+    if "projection" in params:
+        sd["projection.weight"] = _t(np.asarray(params["projection"]["kernel"]).T)
+    for ours in _t5_layer_names("wi_0" in layer):
+        leaf = layer[ours.removeprefix("ffn.")]
+        dense = "kernel" in leaf  # else an RMSNorm's weight
+        for i, w in enumerate(np.asarray(leaf["kernel"] if dense else leaf["weight"])):
+            sd[f"layers.{i}.{ours}.weight"] = _t(w.T if dense else w)
+    return sd
+
+
+def t5_state_from_hf(state_dict: Mapping[str, Any],
+                     projection: Optional[Any] = None) -> Dict[str, torch.Tensor]:
+    """HF ``T5EncoderModel`` state_dict (``shared``/``encoder.*`` names)
+    -> port ``T5Encoder`` state_dict; ``projection`` is a GTR Dense
+    module's ``linear.weight`` ``[out, in]``.  The tied ``shared.weight``
+    may be absent (``save_pretrained`` writes one of a tied pair to
+    safetensors): ``encoder.embed_tokens.weight`` holds the same table."""
+    sd = {k.removeprefix("encoder."): v for k, v in state_dict.items()}
+    if "shared.weight" not in sd:
+        sd["shared.weight"] = sd["embed_tokens.weight"]
+    gated = "block.0.layer.1.DenseReluDense.wi_0.weight" in sd
+    n_layers = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("block."))
+    out: Dict[str, Any] = {
+        "token_embed.weight": sd["shared.weight"],
+        "rel_bias": sd[_T5_REL_BIAS],
+        "final_ln.weight": sd["final_layer_norm.weight"],
+    }
+    for i in range(n_layers):
+        for ours, theirs in _t5_layer_names(gated).items():
+            out[f"layers.{i}.{ours}.weight"] = sd[f"block.{i}.{theirs}.weight"]
+    if projection is not None:
+        out["projection.weight"] = projection
+    return {k: torch.as_tensor(v).float() for k, v in out.items()}
+
+
+def hf_t5_state_from_encoder(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Port ``T5Encoder`` state_dict -> HF ``T5EncoderModel`` names (the
+    tied pair ``shared`` and ``encoder.embed_tokens`` both listed, as
+    ``state_dict()`` lists them; the projection is not part of it)."""
+    gated = "layers.0.ffn.wi_0.weight" in state_dict
+    n_layers = 1 + max(int(k.split(".")[1]) for k in state_dict if k.startswith("layers."))
+    out = {
+        "shared.weight": state_dict["token_embed.weight"],
+        "encoder.embed_tokens.weight": state_dict["token_embed.weight"],
+        f"encoder.{_T5_REL_BIAS}": state_dict["rel_bias"],
+        "encoder.final_layer_norm.weight": state_dict["final_ln.weight"],
+    }
+    for i in range(n_layers):
+        for ours, theirs in _t5_layer_names(gated).items():
+            out[f"encoder.block.{i}.{theirs}.weight"] = state_dict[f"layers.{i}.{ours}.weight"]
+    return out
+
+
+def t5_config_from_hf(hf_config: Mapping[str, Any], **overrides) -> T5Config:
+    """A HF T5 ``config.json`` (as a dict) -> T5Config, then ``overrides``."""
+    config = T5Config(
+        vocab_size=hf_config["vocab_size"],
+        d_model=hf_config["d_model"],
+        num_layers=hf_config["num_layers"],
+        num_heads=hf_config["num_heads"],
+        d_kv=hf_config["d_kv"],
+        d_ff=hf_config["d_ff"],
+        relative_attention_num_buckets=hf_config.get("relative_attention_num_buckets", 32),
+        relative_attention_max_distance=hf_config.get("relative_attention_max_distance", 128),
+        gated_ffn="gated" in hf_config.get("feed_forward_proj", "relu"),
+    )
+    return dataclasses.replace(config, **overrides)
+
+
 def mixer_from_jax(mixer_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The Flax mixer subtree ``{'weight': [E or 1, F]}`` -> the same dict
     of f32 tensors (the layout is kept, so the engine reads either)."""
@@ -127,12 +234,16 @@ def model_state_from_jax(
 ) -> Dict[str, torch.Tensor]:
     """A JAX ``MFARModel``'s ``params`` (``encoder``, ``mixer`` and, with
     batchnorm, ``bn``) and ``batch_stats`` (``bn``'s running ``mean`` and
-    ``var``), as numpy leaves -> the port ``MFARModel``'s state_dict."""
+    ``var``), as numpy leaves -> the port ``MFARModel``'s state_dict.  The
+    encoder tree is a T5 one when it has ``token_embed``, else BERT."""
     enc = params["encoder"]
-    n_layers = np.asarray(enc["layers"]["layer"]["attn_q"]["kernel"]).shape[0]
-    # encoder_state_from_jax reads only the layer count from its config
-    sd = {f"encoder.{k}": v
-          for k, v in encoder_state_from_jax(enc, EncoderConfig(num_layers=n_layers)).items()}
+    if "token_embed" in enc:
+        enc_sd = t5_state_from_jax(enc)
+    else:
+        n_layers = np.asarray(enc["layers"]["layer"]["attn_q"]["kernel"]).shape[0]
+        # encoder_state_from_jax reads only the layer count from its config
+        enc_sd = encoder_state_from_jax(enc, EncoderConfig(num_layers=n_layers))
+    sd = {f"encoder.{k}": v for k, v in enc_sd.items()}
     sd["mixer.weight"] = _t(params["mixer"]["weight"])
     if "bn" in params:
         sd["bn.scale"] = _t(params["bn"]["scale"])

@@ -297,15 +297,21 @@ class Encoder(nn.Module):
         return pooled
 
     def _dropout_seeds(self, generator: Optional[torch.Generator]) -> List[Optional[int]]:
-        """One seed for the embeddings and one per layer, from one draw of
-        ``generator`` (the default generator when None); all None outside
+        """One seed for the embeddings and one per layer; all None outside
         training or with both dropout rates at 0."""
-        n = 1 + len(self.layers)
         cfg = self.cfg
-        if not self.training or (cfg.hidden_dropout == 0.0 and cfg.attention_dropout == 0.0):
-            return [None] * n
-        base = int(torch.randint(0, 2**40, (1,), generator=generator))
-        return [base * 64 + i for i in range(n)]
+        active = self.training and (cfg.hidden_dropout > 0.0 or cfg.attention_dropout > 0.0)
+        return dropout_seeds(1 + len(self.layers), active, generator)
+
+
+def dropout_seeds(n: int, active: bool,
+                  generator: Optional[torch.Generator]) -> List[Optional[int]]:
+    """``n`` dropout seeds from one draw of ``generator`` (the default
+    generator when None), or ``n`` Nones when dropout is not ``active``."""
+    if not active:
+        return [None] * n
+    base = int(torch.randint(0, 2**40, (1,), generator=generator))
+    return [base * 64 + i for i in range(n)]
 
 
 def mean_pool(hidden: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Copy of ``mfar_tpu/models/tokenizer.py`` for the PyTorch port (the port imports nothing
-of the JAX package); keep the two in step.
+of the JAX package); keep the two in step.  The port reads a local ``tokenizer.json``
+only: ``HFTokenizer.from_pretrained`` (``transformers``) is not copied.
 
 Tokenization for the dense encoder with static-shape-friendly padding.
 
@@ -20,6 +21,7 @@ bucket that fits, capping recompilation at one program per (field, bucket).
 from __future__ import annotations
 
 import json
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -106,23 +108,36 @@ class SimpleVocabTokenizer:
 
 
 class HFTokenizer:
-    """HuggingFace fast-tokenizer backend (local ``tokenizer.json``)."""
+    """HuggingFace fast-tokenizer backend (local ``tokenizer.json``).
+
+    Unlike the JAX copy, each truncation length encodes through its own
+    copy of the backend tokenizer, configured once: reconfiguring one
+    shared tokenizer while another thread encodes with it (the trainer's
+    prefetch thread beside the caller's index build) raises "Already
+    borrowed"."""
 
     def __init__(self, tokenizer, max_length: int = 512):
         self.tokenizer = tokenizer
         self.max_length = max_length
+        self._by_length: Dict[int, object] = {}
+        self._lock = threading.Lock()
+
+    def _truncating(self, max_length: int):
+        """The backend tokenizer set to truncate at ``max_length``, unpadded."""
+        with self._lock:
+            t = self._by_length.get(max_length)
+            if t is None:
+                t = type(self.tokenizer).from_str(self.tokenizer.to_str())
+                t.enable_truncation(max_length)
+                t.no_padding()
+                self._by_length[max_length] = t
+        return t
 
     @classmethod
     def from_file(cls, path: str, max_length: int = 512) -> "HFTokenizer":
         from tokenizers import Tokenizer
 
         return cls(Tokenizer.from_file(path), max_length)
-
-    @classmethod
-    def from_pretrained(cls, name_or_dir: str, max_length: int = 512) -> "HFTokenizer":
-        from transformers import AutoTokenizer
-
-        return cls(AutoTokenizer.from_pretrained(name_or_dir), max_length)
 
     @property
     def vocab_size(self) -> int:
@@ -143,9 +158,7 @@ class HFTokenizer:
             # branch below; no_padding() drops any padding config saved in
             # the tokenizer.json, whose pad ids a raw slice would hand to
             # the ones-mask loop as real tokens.
-            t.enable_truncation(max_length)
-            t.no_padding()
-            encs = t.encode_batch(list(texts))
+            encs = self._truncating(max_length).encode_batch(list(texts))
             seqs = [e.ids for e in encs]
         else:  # transformers tokenizer
             out = t(list(texts), truncation=True, max_length=max_length)

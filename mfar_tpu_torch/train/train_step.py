@@ -21,7 +21,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from mfar_tpu_torch.models.encoder import init_encoder
+from mfar_tpu_torch.models import init_encoder
 from mfar_tpu_torch.train.model import MFARModel
 from mfar_tpu_torch.train.optim import OptimizerSpec
 from mfar_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -30,7 +30,7 @@ from mfar_tpu_torch.utils.device import DeviceLike, resolve_device
 @dataclasses.dataclass
 class TrainState:
     model: MFARModel  # parameters and batchnorm running stats, on the device
-    optimizer: torch.optim.Optimizer
+    optimizer: Any  # torch.optim.Optimizer, or OptimizerSpec.build's pair of them
     step: int
     generator: torch.Generator  # CPU; dropout draws
 
@@ -41,8 +41,8 @@ def init_state(
     seed: int = 0,
     device: DeviceLike = None,
 ) -> TrainState:
-    """Random-init the model's encoder from ``seed`` (BERT's init, as
-    :func:`mfar_tpu_torch.models.encoder.init_encoder`), move the model to
+    """Random-init the model's encoder from ``seed`` (its family's init,
+    :func:`mfar_tpu_torch.models.init_encoder`), move the model to
     ``device`` (default cuda; raises without a card) and build the
     optimizer over it.  Load pretrained encoder weights with
     ``state.model.encoder.load_state_dict`` before the first step (the

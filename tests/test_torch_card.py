@@ -523,3 +523,38 @@ def test_host_stream_back_to_back_matches_device_resident(card, quantize):
     assert host.is_pinned()  # registered pages: the copies read them in place
     msg = rankings_agree(got, resident, 1e-4, 1e-3)
     assert msg is None, msg
+
+
+def test_t5_encoder_and_adafactor_on_the_card_match_the_cpu(card):
+    """A GTR-shaped T5 encoder (2 layers, d_model 128) in f32 on the card
+    against the CPU (TF32 off; f32 sums in other orders: atol 1e-5), its
+    bf16 forward (within 3e-2 of the largest entry), and Adafactor steps on
+    the card against the CPU (within 1e-6)."""
+    from mfar_tpu_torch.models import T5Config
+    from mfar_tpu_torch.models.t5_encoder import init_t5_encoder
+    from mfar_tpu_torch.train.optim import Adafactor, jax_leaves
+
+    cfg = T5Config.tiny(vocab_size=160, d_model=128, d_kv=64, d_ff=256, projection_dim=128)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, 160, size=(4, 40)))
+    mask = torch.ones_like(ids)
+    mask[1, 9:] = 0
+    cpu = init_t5_encoder(cfg, seed=1)
+    gpu = copy.deepcopy(cpu).to(card)
+    with torch.no_grad():
+        want = cpu(ids, mask)
+        got = gpu(ids.to(card), mask.to(card)).cpu()
+        half = init_t5_encoder(dataclasses.replace(cfg, dtype=torch.bfloat16), seed=1).to(card)
+        got16 = half(ids.to(card), mask.to(card)).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert (got16 - want).abs().max() <= 3e-2 * want.abs().max()
+
+    opts = [Adafactor(jax_leaves(m), lr=1e-3) for m in (cpu, gpu)]
+    for _ in range(3):
+        for p, q in zip(cpu.parameters(), gpu.parameters()):
+            g = torch.from_numpy(rng.normal(size=p.shape).astype(np.float32))
+            p.grad, q.grad = g, g.to(card)
+        for opt in opts:
+            opt.step()
+    for (name, a), b in zip(cpu.state_dict().items(), gpu.state_dict().values()):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-6, msg=name)

@@ -19,9 +19,10 @@ import jax.numpy as jnp
 from mfar_tpu.models import Encoder as JaxEncoder
 from mfar_tpu.models import EncoderConfig as JaxConfig
 from mfar_tpu.models import T5Config as JaxT5Config
+from mfar_tpu.models import encoder_dim as jax_encoder_dim
 from mfar_tpu.models.encoder import init_params
 from mfar_tpu.models.tokenizer import SimpleVocabTokenizer as JaxTokenizer
-from mfar_tpu_torch.models import build_encoder, encoder_dim
+from mfar_tpu_torch.models import T5Config, T5Encoder, build_encoder, encoder_dim
 from mfar_tpu_torch.models.convert import (
     config_from_hf,
     encoder_state_from_hf_bert,
@@ -134,9 +135,10 @@ def test_flash_encoder_matches_jax_xla_on_valid_tokens():
 def test_build_encoder_and_dim():
     cfg = EncoderConfig.tiny(vocab_size=97, hidden_size=32)
     assert isinstance(build_encoder(cfg), Encoder) and encoder_dim(cfg) == 32
-    for fn in (build_encoder, encoder_dim):
-        with pytest.raises(NotImplementedError, match="A14"):
-            fn(JaxT5Config.tiny())
+    # the T5 family dispatches on its config type, as in the JAX package
+    t5 = T5Config.tiny(projection_dim=24)
+    assert isinstance(build_encoder(t5), T5Encoder)
+    assert encoder_dim(t5) == 24 == jax_encoder_dim(JaxT5Config.tiny(projection_dim=24))
 
 
 def test_hf_bert_state_and_registry_dir(tmp_path):
@@ -183,7 +185,7 @@ def test_registry_routes():
     assert cfg.hidden_size == 128 and cfg.dtype == torch.float32
     Encoder(cfg).load_state_dict(state)
     assert tok.vocab_size == 7  # 4 reserved ids + 3 words
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(FileNotFoundError, match="local sentence-transformers GTR directory"):
         prepare_model("sentence-transformers/gtr-t5-base")
     with pytest.raises(FileNotFoundError, match="local directory"):
         prepare_model("facebook/contriever-msmarco")

@@ -3,7 +3,8 @@ on the same corpus, encoder weights and mixer.
 
 The world is ``tests/test_pallas_kernels.py``'s engine test: 48 synthetic
 amazon docs, two dense fields, a tiny f32 encoder at hidden 128 and a
-query-conditioned mixer.  The JAX rerank engine runs the Pallas K1 kernel
+query-conditioned mixer; the T5 cases swap in a tiny T5 encoder projected
+to 128.  The JAX rerank engine runs the Pallas K1 kernel
 in interpret mode (``use_pallas_gather=True`` off a TPU); the port's rerank
 engine goes through the K1 wrapper, whose CPU path is the plain version.
 
@@ -30,13 +31,17 @@ from mfar_tpu.models import Encoder as JaxEncoder
 from mfar_tpu.models import EncoderConfig as JaxConfig
 from mfar_tpu.models import SimpleVocabTokenizer as JaxTokenizer
 from mfar_tpu.models.encoder import init_params
+from mfar_tpu.models.t5_encoder import T5Config as JaxT5Config
+from mfar_tpu.models.t5_encoder import T5Encoder as JaxT5Encoder
+from mfar_tpu.models.t5_encoder import init_t5_params
 from mfar_tpu_torch.data.format import format_documents as port_format_documents
 from mfar_tpu_torch.data.schema import resolve_fields
 from mfar_tpu_torch.data.types import Corpus
 from mfar_tpu_torch.eval import index_build as port_index
 from mfar_tpu_torch.eval.compare import rankings_agree
 from mfar_tpu_torch.eval.retrieval import RetrievalEngine
-from mfar_tpu_torch.models.convert import encoder_state_from_jax, mixer_from_jax
+from mfar_tpu_torch.models import T5Config, build_encoder
+from mfar_tpu_torch.models.convert import encoder_state_from_jax, mixer_from_jax, t5_state_from_jax
 from mfar_tpu_torch.models.encoder import Encoder, EncoderConfig
 from mfar_tpu_torch.models.tokenizer import SimpleVocabTokenizer
 from mfar_tpu_torch.sparse.bm25 import BM25Index
@@ -261,3 +266,37 @@ def test_dense_matrix_files_cross_packages(world, tmp_path, ext):
     if ext == ".npy":
         eng = RetrievalEngine(**{**world["port_kw"], "dense_matrix": got})
         assert len(eng.retrieve(world["queries"][:2], top_k=3)[0]) == 3
+
+
+@pytest.fixture(scope="module")
+def t5_world(world):
+    """The same corpus, tokenizers and mixer through a tiny GTR-shaped T5
+    encoder (d_model 32, projected to 128) whose weights both packages
+    carry."""
+    jkw, pkw = world["jax_kw"], world["port_kw"]
+    dims = dict(vocab_size=pkw["tokenizer"].vocab_size, projection_dim=HIDDEN)
+    jcfg = JaxT5Config.tiny(**dims)
+    params = init_t5_params(jcfg, seed=3)
+    model = JaxT5Encoder(jcfg)
+    jax_encode = jax.jit(lambda ids, mask: model.apply({"params": params}, ids, mask))
+    penc = build_encoder(T5Config.tiny(**dims))
+    penc.load_state_dict(t5_state_from_jax(jax.tree.map(np.asarray, params)))
+    port_encode = port_index.make_encode_fn(penc, device="cpu")
+    jax_matrix = jax_index.build_dense_corpus_matrix(
+        jax_encode, jkw["tokenizer"], world["jax_corpus"], jkw["field_info"], batch_size=16)
+    port_matrix = port_index.build_dense_corpus_matrix(
+        port_encode, pkw["tokenizer"], world["port_corpus"], pkw["field_info"], batch_size=16)
+    np.testing.assert_allclose(port_matrix, np.asarray(jax_matrix), atol=2e-4)
+    return (dict(jkw, encode_fn=jax_encode, dense_matrix=jax_matrix),
+            dict(pkw, encode_fn=port_encode, dense_matrix=port_matrix))
+
+
+@pytest.mark.parametrize("mode", ["rerank", "exact"])
+def test_t5_engine_matches_jax(world, t5_world, mode):
+    jax_kw, port_kw = t5_world
+    want = JaxEngine(use_pallas_gather=True, mode=mode, **jax_kw).retrieve(
+        world["queries"], top_k=5)
+    engine = RetrievalEngine(use_pallas_gather=True, mode=mode, **port_kw)
+    _agree(engine.retrieve(world["queries"], top_k=5), want)
+    assert engine.last_serve_path == (
+        "singlechip-rerank-k1" if mode == "rerank" else "singlechip-dense")

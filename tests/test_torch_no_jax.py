@@ -1,4 +1,6 @@
-"""The PyTorch port imports nothing of JAX and nothing of ``mfar_tpu``."""
+"""The PyTorch port imports nothing of JAX, nothing of ``mfar_tpu``, and
+neither ``transformers`` nor ``sentence_transformers`` (it reads model
+directories itself)."""
 
 import os
 import pkgutil
@@ -13,7 +15,8 @@ import mfar_tpu_torch
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "transformers",
+             "sentence_transformers")
 
 
 def _port_modules():
@@ -31,6 +34,7 @@ def _forbidden(name: str) -> bool:
 def test_forbidden_matches_only_the_reference():
     assert _forbidden("mfar_tpu") and _forbidden("mfar_tpu.ops.scoring")
     assert _forbidden("jax._src") and _forbidden("flax.linen") and _forbidden("orbax.checkpoint")
+    assert _forbidden("transformers.models.t5") and _forbidden("sentence_transformers")
     assert not _forbidden("mfar_tpu_torch") and not _forbidden("mfar_tpu_torch.ops")
 
 
@@ -48,7 +52,9 @@ def test_importing_the_port_loads_no_jax():
             "mfar_tpu_torch.commands.create_sparse_index",
             "mfar_tpu_torch.commands.precompute_sparse_scores",
             "mfar_tpu_torch.serve", "mfar_tpu_torch.commands.serve",
-            "mfar_tpu_torch.ops.scoring"} <= set(mods)
+            "mfar_tpu_torch.ops.scoring", "mfar_tpu_torch.models.t5_encoder",
+            "mfar_tpu_torch.models.t5_decoder", "mfar_tpu_torch.models.registry",
+            "mfar_tpu_torch.models.convert"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -129,3 +135,48 @@ def test_serving_paths_run_without_jax():
     bad = [m for m in out if _forbidden(m)]
     assert not bad, f"the port loaded {bad[:10]}"
     assert "mfar_tpu_torch.serve" in out
+
+
+T5_PATHS = """
+import sys, tempfile
+import torch
+from mfar_tpu_torch.models import T5Config, build_encoder
+from mfar_tpu_torch.models.registry import prepare_model, save_gtr_dir, save_t5_dir
+from mfar_tpu_torch.models.t5_decoder import T5Seq2SeqConfig, init_t5_seq2seq
+from mfar_tpu_torch.models.t5_encoder import init_t5_encoder
+from mfar_tpu_torch.train.model import MFARModel
+from mfar_tpu_torch.train.optim import make_optimizer
+
+d = tempfile.mkdtemp()
+cfg = T5Config.tiny(vocab_size=64, projection_dim=16)
+save_gtr_dir(d + "/gtr", cfg, init_t5_encoder(cfg).state_dict(), ["red", "lamp"])
+s2s = init_t5_seq2seq(T5Seq2SeqConfig(encoder=T5Config.tiny(vocab_size=64),
+                                      decoder=T5Config.tiny(vocab_size=64)))
+save_t5_dir(d + "/t5", s2s.cfg.encoder, s2s.encoder.state_dict(), ["red"],
+            decoder_state=s2s.decoder.state_dict())
+config, state, tok = prepare_model(d + "/gtr", dtype=torch.float32)
+enc = build_encoder(config)
+enc.load_state_dict(state)
+toks = tok.encode_batch(["red lamp"])
+enc(torch.from_numpy(toks["input_ids"]).long(), torch.from_numpy(toks["attention_mask"]))
+prepare_model("t5:" + d + "/t5")
+model = MFARModel(config, num_fields=2)
+opt = make_optimizer(weights_lr=0.1, use_adafactor=True).build(model)
+for p in model.parameters():
+    p.grad = torch.ones_like(p)
+opt.step()
+print("\\n".join(sorted(sys.modules)))
+"""
+
+
+def test_t5_paths_run_without_jax_or_transformers():
+    """A GTR and a seq2seq T5 directory written, loaded, encoded, and an
+    Adafactor step, in a process that loads neither JAX nor transformers."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", T5_PATHS], cwd=ROOT, env=env, capture_output=True,
+        text=True, check=True, timeout=300,
+    ).stdout.split()
+    bad = [m for m in out if _forbidden(m)]
+    assert not bad, f"the port loaded {bad[:10]}"
+    assert "mfar_tpu_torch.models.t5_encoder" in out and "tokenizers" in out

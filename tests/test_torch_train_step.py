@@ -32,12 +32,14 @@ import jax.numpy as jnp
 import optax
 
 from mfar_tpu.models.encoder import EncoderConfig as JaxEncoderConfig
+from mfar_tpu.models.t5_encoder import T5Config as JaxT5Config
 from mfar_tpu.train.model import MFARModel as JaxMFARModel
 from mfar_tpu.train.optim import make_optimizer as jax_make_optimizer
 from mfar_tpu.train.train_step import init_state as jax_init_state
 from mfar_tpu.train.train_step import make_eval_loss_step, make_train_step
 from mfar_tpu_torch.models.convert import model_state_from_jax
 from mfar_tpu_torch.models.encoder import EncoderConfig
+from mfar_tpu_torch.models.t5_encoder import T5Config
 from mfar_tpu_torch.ops.flash_attention import flash_attention
 from mfar_tpu_torch.train.model import MFARModel
 from mfar_tpu_torch.train.optim import make_optimizer
@@ -257,3 +259,49 @@ def test_hybrid_train_step_matches_jax(use_batchnorm):
                         "sparse_neg": np.zeros_like(batch["sparse_neg"])})
     assert zeroed["loss"].item() != pytest.approx(got["loss"].item(), rel=1e-3)
     assert zeroed["grad_norm"].item() != pytest.approx(got["grad_norm"].item(), rel=1e-3)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_t5_train_step_matches_jax(gated):
+    """A T5 MFARModel (2 layers, d_model 32, the GTR projection to 24),
+    dropout 0, JAX's initial weights: the loss and every gradient as in the
+    ``xla`` case above, then the port's whole train step with Adafactor on
+    the encoder against JAX's (loss, gradient norm, the encoder moved)."""
+    jcfg = JaxT5Config.tiny(vocab_size=VOCAB, projection_dim=24, gated_ffn=gated)
+    model = JaxMFARModel(encoder_config=jcfg, num_fields=2, temperature=0.05)
+    opt = jax_make_optimizer(encoder_lr=1e-3, weights_lr=1e-1, use_adafactor=True)
+    jstate = jax_init_state(model, opt, seed=2)
+    batch = _batch(5)
+    jbatch = jax.tree.map(jnp.asarray, batch)
+
+    def loss_fn(params):
+        return model.apply({"params": params}, jbatch["query"], jbatch["pos"], jbatch["neg"],
+                           None, None, train=True, method=model.compute_loss)
+
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(jstate.params)
+    _, metrics = jax.jit(make_train_step(model, opt))(jstate, jbatch)
+
+    def port_model():
+        port = MFARModel(T5Config.tiny(vocab_size=VOCAB, projection_dim=24, gated_ffn=gated),
+                         num_fields=2, temperature=0.05)
+        port.load_state_dict(model_state_from_jax(jax.tree.map(np.asarray, jstate.params)))
+        return port
+
+    got_loss, got = _loss_and_grads(port_model(), batch)
+    assert got_loss == pytest.approx(float(loss), rel=5e-5)
+    want = model_state_from_jax(jax.tree.map(np.asarray, grads))
+    assert set(got) == set(want)
+    top = max(np.abs(w.numpy()).max() for w in want.values())
+    for name, g in got.items():
+        w = want[name].numpy()
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=5e-4 * np.abs(w).max() + 1e-6 * top, err_msg=name)
+
+    port = port_model()
+    start = {k: v.clone() for k, v in port.state_dict().items()}
+    spec = make_optimizer(encoder_lr=1e-3, weights_lr=1e-1, use_adafactor=True)
+    state, m = train_step(TrainState(model=port, optimizer=spec.build(port), step=0,
+                                     generator=torch.Generator().manual_seed(0)), batch)
+    assert m["loss"].item() == pytest.approx(float(metrics["loss"]), rel=5e-5)
+    assert m["grad_norm"].item() == pytest.approx(float(metrics["grad_norm"]), rel=5e-4)
+    assert all(not torch.equal(v, start[k]) for k, v in port.state_dict().items())

@@ -30,9 +30,11 @@ from mfar_tpu_torch.data.negative_sampler import IndexNegativeSampler
 from mfar_tpu_torch.data.schema import resolve_fields
 from mfar_tpu_torch.data.types import Corpus
 from mfar_tpu_torch.models.encoder import EncoderConfig
+from mfar_tpu_torch.models.registry import save_gtr_dir
+from mfar_tpu_torch.models.t5_encoder import T5Config, init_t5_encoder
 from mfar_tpu_torch.models.tokenizer import SimpleVocabTokenizer
 from mfar_tpu_torch.sparse.bm25 import BM25Index
-from mfar_tpu_torch.train.checkpoint import read_best_dir
+from mfar_tpu_torch.train.checkpoint import CheckpointManager, read_best_dir
 from mfar_tpu_torch.train.data_pipeline import ContrastiveDataset
 from mfar_tpu_torch.train.model import MFARModel
 from mfar_tpu_torch.train.optim import make_optimizer
@@ -384,3 +386,68 @@ def test_train_cli_trains_sparse_fields(setup, tmp_path, capsys):
                        "--checkpoint-dir", port_out])
     assert "singlechip-hybrid" in capsys.readouterr().out
     assert len(trec.QRes.from_file(run)) == 4 * 5
+
+
+def _gtr_dir(setup, path):
+    """A tiny sentence-transformers GTR directory over the corpus's words."""
+    texts = [t for _, p in trec.read_corpus(os.path.join(setup["data"], "corpus"))
+             for t in json.dumps(p).lower().split()]
+    words = sorted({w.strip('",.:{}[]') for w in texts} - {""})
+    cfg = T5Config.tiny(vocab_size=len(words) + 64, projection_dim=24)
+    save_gtr_dir(path, cfg, init_t5_encoder(cfg, seed=3).state_dict(), words)
+    return cfg
+
+
+def test_t5_train_cli_then_retrieve(setup, tmp_path):
+    """``train --run-one-iteration`` on a GTR directory trains the encoder
+    with Adafactor (its state in the checkpoint beside the head's AdamW),
+    ``--resume`` restores it, and ``retrieve --checkpoint-dir`` serves the
+    trained encoder and mixer."""
+    gtr, out = str(tmp_path / "gtr"), str(tmp_path / "out")
+    _gtr_dir(setup, gtr)
+    args = [*_train_args(setup["data"], out, "--device", "cpu", "--precision", "32",
+                         "--hidden-dropout", "0.0", "--attention-dropout", "0.0",
+                         "--softmax-dtype", "bf16")]
+    args[args.index("synthetic")] = gtr
+    train_cmd.main(args)
+    payload = torch.load(os.path.join(out, "checkpoints", "0", "state.pt"), weights_only=True)
+    assert set(payload["optimizer"]) == {"encoder", "head"}
+    leaves = payload["optimizer"]["encoder"]["state"]
+    assert leaves and all(s["step"] == 1 for s in leaves.values())
+    assert payload["model"]["mixer.weight"].shape == (24, 2)
+    train_cmd.main([*args, "--resume", "--max-epochs", "2"])
+    assert sorted(os.listdir(os.path.join(out, "checkpoints"))) == ["0", "1"]
+
+    run = str(tmp_path / "run.qres")
+    retrieve_cmd.main(["--dataset-name", "amazon", "--data", setup["data"], "--out", run,
+                       "--field-names", FIELDS, "--model-name", gtr, "--partition", "val",
+                       "--recall-k", "10", "--top-k", "5", "--device", "cpu",
+                       "--checkpoint-dir", out, "--mode", "rerank"])
+    assert len(trec.QRes.from_file(run)) == 4 * 5
+
+
+def test_t5_adafactor_checkpoint_round_trip(setup, tmp_path):
+    """A T5 MFARModel with Adafactor: two steps, a checkpoint, a fresh state
+    restored from it; the next step from either is equal (within 1e-6)."""
+    t = setup["trainer"]
+    cfg = T5Config.tiny(vocab_size=t.tokenizer.vocab_size, projection_dim=24, dropout=0.1)
+    opt = make_optimizer(encoder_lr=1e-3, weights_lr=1e-1, use_adafactor=True)
+
+    def fresh(seed):
+        return init_state(MFARModel(cfg, num_fields=setup["nf"], temperature=0.05), opt,
+                          seed=seed, device="cpu")
+
+    state = fresh(0)
+    batches = [{k: v for k, v in b.items() if k != "meta"}
+               for b in t.train_dataset.epoch_batches(6, seed=5)]
+    for b in batches[:2]:
+        state, _ = train_step(state, b)
+    ckpt = CheckpointManager(str(tmp_path))
+    ckpt.save(0, state, {"valid_loss": 1.0})
+    restored = ckpt.restore(0, fresh(9))
+    assert restored.step == state.step == 2
+    _, m_a = train_step(state, batches[0])
+    _, m_b = train_step(restored, batches[0])
+    assert abs(m_a["loss"].item() - m_b["loss"].item()) <= 1e-6
+    for a, b in zip(state.model.parameters(), restored.model.parameters()):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
