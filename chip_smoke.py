@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check, serve, train.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--phases k1,k2,...]
 
 Drives ``mfar_tpu_torch`` (and nothing of JAX or ``mfar_tpu``) end to end at
 Contriever-base and GTR-T5-base width with seeded random weights:
@@ -88,7 +88,23 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 profiled step, a checkpoint round trip), the train command
                 and retrieve --checkpoint-dir, and a seq2seq grafted from a
                 seeded local T5-base directory (bf16 logits against f32)
-16. serve    -- the serving daemon (mfar_tpu_torch.serve) over a random bf16
+16. mesh     -- serving over several ranks (mfar_tpu_torch.parallel): (a) one
+                NCCL rank (a world of 1 made here, make_mesh over it): the
+                mesh engine, exact and rerank, dense and all_dense,all_sparse,
+                on the e2e corpus and the [131072, 5, 768] corpus, against the
+                one-device engine; (b) two gloo ranks sharing the card, child
+                processes: the 2048-doc build split over them through K2
+                against the one-device K2 build, the routes of (a) on 2047
+                docs, and the daemon (rank 0's RetrievalServer over
+                MultihostEngineProxy, rank 1 in follower_loop) answering HTTP
+                requests from here, against retrieve; each rank's K2 launches
+                join K2's count; (c) with several cards, one NCCL rank per
+                card: encode_corpus (the MFAR_* triple), retrieve and serve
+                --smoke-out (torchrun --multihost pod) against one card's
+                output, exact and rerank QPS at batch 256 over the
+                [1048576, 5, 768] bf16 corpus (each rank making only its rows)
+                beside one card's, and the daemon with 64 HTTP clients for 10 s
+17. serve    -- the serving daemon (mfar_tpu_torch.serve) over a random bf16
                 [1048576, 5, 768] corpus made on the card: max_batch 256,
                 max_wait_ms 5, top_k 100, 64 closed-loop HTTP clients of 8
                 queries in a child process, 10 s a run; exact at pipeline
@@ -96,22 +112,25 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 p50/p95, batch fill, the dispatcher's phase seconds, K1
                 launches; the port closed until warmup ends; sampled answers
                 == engine.retrieve
-17. int8     -- that corpus quantized on the card: exact QPS in bf16 and int8
+18. int8     -- that corpus quantized on the card: exact QPS in bf16 and int8
                 in turns, corpus bytes, recall@100 of int8 against bf16, a
                 131072-row slice against a brute-force int8 reference with
                 exact integer dots, int8_dot (torch._int_mm) at a 1-query
                 batch and row counts off a multiple of 8, int8 rerank on the
                 e2e corpus
-18. host_stream -- that corpus copied to host memory (cut if MemAvailable is
+19. host_stream -- that corpus copied to host memory (cut if MemAvailable is
                 short of 3x it) and streamed per scan in bf16 and int8: QPS,
                 chunks, the achieved copy rate against one pinned copy of a
                 chunk, device memory over the encoder's working set, every
                 batch against the device-resident engines
 
 TF32 is switched off for matmuls and cuDNN, so f32 comparisons run in full
-f32.  Any failed check raises and the run exits non-zero.  The last two
-lines are one JSON object with every kernel's numbers and one with
-``"ok": true`` and the device.
+f32.  Any failed check raises and the run exits non-zero; a rank that fails
+or outlives its timeout fails the mesh phase, and every rank is killed.
+``--phases`` runs only the listed phases (and those they read from) after
+device and build, e.g. ``--phases build,mesh`` on four cards.  The last two
+lines are one JSON object with every kernel's numbers (in a run of every
+phase) and one with ``"ok": true`` and the device.
 """
 
 from __future__ import annotations
@@ -2616,9 +2635,710 @@ def run_host_stream(seed, big, i8, n_queries=1024, batch=256) -> dict:
                 host_stream_extra_gb=(stream_bytes - enc_bytes) / 1e9)
 
 
+# ----------------------------------------------------------------------
+# phase 16: serving over several ranks (torch.distributed)
+
+MESH_RANK_TIMEOUT_S = 600  # a rank that is not done by then fails the phase
+# a mesh rerank against one device's at recall_k 100 (2047 docs over two
+# ranks in (b), 1048576 rows over the cards in (c)): the share of top-100
+# docs the two lists hold alike
+MESH_RERANK_MIN_OVERLAP = 0.99
+BIG_ROW_BLOCK = 65536  # the 1048576-doc corpus is made in seeded blocks of rows
+
+
+class SeededRows:
+    """A bf16 ``[n, width]`` corpus made on the card from a seed, block by
+    block of ``BIG_ROW_BLOCK`` rows, so that any rank makes any rows alike:
+    ``rows[a:b]`` makes only those rows (the engine's row block of a
+    rank)."""
+
+    ndim = 2
+
+    def __init__(self, n, width, seed):
+        self.shape = (n, width)
+        self.seed = seed
+
+    def __getitem__(self, sl):
+        start, stop = sl.start or 0, min(sl.stop, self.shape[0])
+        parts = []
+        for b in range(start // BIG_ROW_BLOCK, -(-stop // BIG_ROW_BLOCK)):
+            gen = torch.Generator(device=DEVICE).manual_seed(self.seed * 1000003 + b)
+            block = torch.randn(BIG_ROW_BLOCK, self.shape[1], device=DEVICE, generator=gen,
+                                dtype=torch.bfloat16)
+            lo, hi = max(start - b * BIG_ROW_BLOCK, 0), min(stop - b * BIG_ROW_BLOCK,
+                                                            BIG_ROW_BLOCK)
+            parts.append(block[lo:hi])
+        return torch.cat(parts) if parts else torch.empty(0, self.shape[1], device=DEVICE,
+                                                          dtype=torch.bfloat16)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_ranks(argvs, envs, log_dir, label):
+    """Start one process per argv, output to ``log_dir/<label><i>.log``."""
+    procs = []
+    for i, (argv, env) in enumerate(zip(argvs, envs)):
+        log = open(os.path.join(log_dir, f"{label}{i}.log"), "w")
+        procs.append((subprocess.Popen(argv, env=env, stdout=log, stderr=subprocess.STDOUT,
+                                       cwd=os.path.dirname(os.path.abspath(__file__))), log))
+    return procs
+
+
+def _log_tail(log, n=3000) -> str:
+    log.flush()
+    with open(log.name) as f:
+        return f.read()[-n:]
+
+
+def stop_ranks(procs) -> None:
+    for p, log in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=60)
+        log.close()
+
+
+def watch_ranks(procs, label, until=None, timeout=MESH_RANK_TIMEOUT_S):
+    """Wait until every rank exits 0 (or ``until()`` is true, with the ranks
+    still running); a rank that fails, or the timeout, kills every rank and
+    fails the phase."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        codes = [p.poll() for p, _ in procs]
+        failed = [i for i, c in enumerate(codes) if c not in (None, 0)]
+        late = time.perf_counter() > deadline
+        if failed or late:
+            i = failed[0] if failed else 0
+            tail = _log_tail(procs[i][1])
+            stop_ranks(procs)
+            check(False, f"{label}: rank {i} " + (f"exited {codes[i]}" if failed else
+                         f"not done in {timeout} s") + f"; its log ends:\n{tail}")
+        if until is None and all(c == 0 for c in codes):
+            for _, log in procs:
+                log.close()
+            return
+        if until is not None and until():
+            return
+        time.sleep(0.2)
+
+
+def rank_env(coord, world, rank, **extra):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MFAR_")}
+    env.update(MFAR_COORDINATOR=coord, MFAR_NUM_PROCESSES=str(world),
+               MFAR_PROCESS_ID=str(rank), OMP_NUM_THREADS="4", **extra)
+    return env
+
+
+def post_queries(host, port, batches, top_k=100):
+    """POST each batch of queries from its own thread (so that the daemon
+    coalesces them); returns the answers in order."""
+    import http.client
+
+    def one(qs):
+        conn = http.client.HTTPConnection(host, port, timeout=300)
+        try:
+            conn.request("POST", "/retrieve", json.dumps({"queries": qs, "top_k": top_k}),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            check(resp.status == 200, f"/retrieve answered {resp.status}: {body}")
+            return hits_of(body["results"])
+        finally:
+            conn.close()
+
+    with concurrent.futures.ThreadPoolExecutor(len(batches)) as pool:
+        return list(pool.map(one, batches))
+
+
+class BatchRecorder:
+    """Rank 0's engine under the daemon: each batch's queries and results,
+    as the micro-batcher formed and delivered them."""
+
+    def __init__(self, engine):
+        self.engine, self.batches = engine, []
+
+    n_docs = property(lambda self: self.engine.n_docs)
+    device = property(lambda self: self.engine.device)
+
+    def dispatch(self, queries, top_k=100, mode=None):
+        return list(queries), self.engine.dispatch(queries, top_k=top_k, mode=mode)
+
+    def finish(self, handle):
+        queries, inner = handle
+        results = self.engine.finish(inner)
+        self.batches.append((queries, results))
+        return results
+
+
+def rank_daemon(engine, mesh, work, mode, max_batch) -> tuple:
+    """The daemon over the ranks: rank 0 serves HTTP through
+    ``MultihostEngineProxy`` (its address in ``work/daemon.json``) until
+    ``work/stop`` appears, the others follow.  Then each HTTP answer the
+    parent sampled (``work/samples.json``) is found in the batch rank 0's
+    micro-batcher put it in and held against that batch's results, and
+    every rank retrieves those batches again, in the same composition (a
+    bf16 encoder rounds a query's rows by its batch's shape), to hold the
+    daemon's batches against ``retrieve``.  Returns (stats, samples held)."""
+    from mfar_tpu_torch.serve import MultihostEngineProxy, follower_loop
+
+    stats, rerun_path = None, os.path.join(work, "rerun.json")
+    if mesh.rank == 0:
+        rec = BatchRecorder(engine)
+        proxy = MultihostEngineProxy(rec, max_batch=max_batch)
+        srv = RetrievalServer(proxy, port=0, max_batch=max_batch, max_wait_ms=5.0, top_k=100,
+                              mode=mode, pipeline_depth=2)
+        try:
+            srv.warmup()
+            srv.start_background()
+            with open(os.path.join(work, "daemon.tmp"), "w") as f:
+                json.dump({"host": srv.host, "port": srv.port}, f)
+            os.replace(os.path.join(work, "daemon.tmp"), os.path.join(work, "daemon.json"))
+            deadline = time.perf_counter() + MESH_RANK_TIMEOUT_S
+            while not os.path.exists(os.path.join(work, "stop")):
+                check(time.perf_counter() < deadline, "the parent never stopped the daemon")
+                time.sleep(0.1)
+            stats = srv.batcher.stats()
+            srv.shutdown()
+            with open(os.path.join(work, "samples.json")) as f:
+                samples = json.load(f)
+            found = []  # (batch index, offset) of each sample
+            for smp in samples:
+                qs = smp["queries"]
+                at = [(b, o) for b, (bq, _) in enumerate(rec.batches)
+                      for o in range(len(bq) - len(qs) + 1) if bq[o : o + len(qs)] == qs]
+                check(len(at) >= 1, "a sampled request is in no batch of the daemon")
+                b, o = at[0]
+                msg = rankings_agree(hits_of(smp["results"]),
+                                     rec.batches[b][1][o : o + len(qs)], 0.0, 0.0)
+                check(msg is None, f"an HTTP answer differs from its batch's results: {msg}")
+                found.append(b)
+            rerun = sorted(set(found))
+            with open(rerun_path, "w") as f:
+                json.dump([rec.batches[b][0] for b in rerun], f)
+        finally:
+            srv.shutdown()
+            proxy.stop()
+    else:
+        follower_loop(engine)
+    with open(rerun_path) as f:
+        batches = json.load(f)
+    again = [engine.retrieve(qs, top_k=100, mode=mode) for qs in batches]
+    if mesh.rank == 0:
+        for b, res in zip(rerun, again):
+            msg = rankings_agree(rec.batches[b][1], res, E2E_RTOL, E2E_ATOL)
+            check(msg is None, f"a daemon batch vs retrieve on the same batch: {msg}")
+        return stats, len(samples)
+    return stats, None
+
+
+def mesh_rank(spec_path: str) -> int:
+    """One rank of the mesh phase, started by ``run_mesh`` with the
+    ``MFAR_*`` triple: ``job`` "shared" is a gloo rank of (b) sharing card 0,
+    "cards" an NCCL rank of (c) on its own card.  Writes what it measured to
+    ``<work>/rank<R>.pt``."""
+    import torch.distributed as dist
+
+    from mfar_tpu_torch.parallel import multihost
+    from mfar_tpu_torch.parallel.mesh import make_mesh
+
+    global DEVICE
+    spec = torch.load(spec_path, weights_only=False)
+    DEVICE = spec["device"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(multihost.maybe_initialize("force", DEVICE), "the world did not start")
+    # ranks that share a card run their collectives over gloo (NCCL
+    # refuses two ranks on one card)
+    mesh = make_mesh(backend="gloo" if spec["job"] == "shared" else None)
+    out = {"rank": mesh.rank, "world": dist.get_world_size(), "backend": mesh.backend,
+           "card": torch.cuda.current_device()}
+    (shared_rank if spec["job"] == "shared" else cards_rank)(spec, mesh, out)
+    torch.save(out, os.path.join(spec["work"], f"rank{mesh.rank}.pt"))
+    multihost.sync("mesh-rank-done")
+    dist.destroy_process_group()
+    return 0
+
+
+def split_encode(encode, n_shards):
+    """``encode`` over a batch in the calls a mesh of ``n_shards`` ranks
+    makes (``make_encode_fn(mesh=)``: rank i encodes its share and the rows
+    left over in one call): a one-device reference then rounds each query's
+    bf16 activations as the ranks do, since a GEMM's algorithm follows its
+    shape."""
+    def run(input_ids, attention_mask):
+        ids, mask = torch.as_tensor(input_ids), torch.as_tensor(attention_mask)
+        n = ids.shape[0]
+        per = n // n_shards
+        if per == 0:
+            return encode(ids, mask)
+        tail = slice(n_shards * per, n)
+        outs = [encode(torch.cat([ids[i * per : (i + 1) * per], ids[tail]]),
+                       torch.cat([mask[i * per : (i + 1) * per], mask[tail]]))
+                for i in range(n_shards)]
+        return torch.cat([o[:per] for o in outs] + [outs[0][per:]])
+
+    return run
+
+
+def mesh_engines(spec, mesh, matrix, encode, plain_encode, n, recall_k=100):
+    """The (a)/(b) cases on the first ``n`` docs: (name, mesh engine, its
+    one-device twin or None off rank 0, queries, mode, route)."""
+    pairs = spec["pairs"][:n]
+    sub = Corpus.from_pairs(pairs, dataset_name="mag")
+    dense_fi = resolve_fields("all_dense", "mag")
+    hybrid_fi = resolve_fields("all_dense,all_sparse", "mag")
+    sparse = build_sparse_indices(sub, {k: f for k, f in hybrid_fi.items() if f.is_sparse})
+    cases = []
+    for fields, fi, mixer, idx in (("dense", dense_fi, spec["mixer_dense"], None),
+                                   ("hybrid", hybrid_fi, spec["mixer_hybrid"], sparse)):
+        kw = dict(field_info=fi, doc_keys=list(sub.keys()), tokenizer=spec["tok"],
+                  mixer_params={"weight": mixer}, dense_matrix=matrix[:n], sparse_indices=idx,
+                  recall_k=recall_k, dense_dtype=torch.bfloat16, device=DEVICE)
+        eng = RetrievalEngine(mesh=mesh, encode_fn=encode, **kw)
+        ref = (RetrievalEngine(encode_fn=split_encode(plain_encode, mesh.size("data")), **kw)
+               if mesh.rank == 0 else None)
+        if fields == "dense":
+            cases += [("dense exact", eng, ref, spec["queries"], "exact", "mesh-dense"),
+                      ("dense rerank", eng, ref, spec["queries"], "rerank", "mesh-rerank")]
+        else:
+            cases += [("hybrid postings", eng, ref, spec["rare"], "exact",
+                       "mesh-hybrid-postings"),
+                      ("hybrid combined", eng, ref, spec["queries"], "exact",
+                       "mesh-hybrid-combined"),
+                      ("hybrid rerank", eng, ref, spec["rare"], "rerank",
+                       "mesh-rerank-hybrid")]
+    return cases
+
+
+def run_mesh_cases(cases, batch_size=64) -> dict:
+    """Every case through its mesh engine (all ranks) and, where present,
+    its one-device twin: {name: (mesh results, path, reference results)}."""
+    out = {}
+    for name, eng, ref, qs, mode, route in cases:
+        got = eng.retrieve_many(qs, top_k=100, mode=mode, batch_size=batch_size)
+        path = eng.last_serve_path
+        want = ref.retrieve_many(qs, top_k=100, mode=mode, batch_size=batch_size) if ref else None
+        out[name] = (got, path, route, want)
+    return out
+
+
+def hold_mesh_cases(results, label) -> None:
+    for name, (got, path, route, want) in results.items():
+        check(path == route, f"{label} {name}: path {path}, want {route}")
+        msg = rankings_agree(got, want, E2E_RTOL, E2E_ATOL)
+        check(msg is None, f"{label} {name} vs the one-device engine: {msg}")
+
+
+def hold_rerank_overlap(got, want, label) -> float:
+    """A mesh rerank at a recall boundary against one device's: a top-100
+    overlap of at least ``MESH_RERANK_MIN_OVERLAP``, and the docs both lists
+    hold scored alike.  Returns the overlap."""
+    ov = overlap(got, want)
+    check(ov >= MESH_RERANK_MIN_OVERLAP,
+          f"{label}: top-100 overlap with one device {ov:.4f} < {MESH_RERANK_MIN_OVERLAP}")
+    for g, w in zip(got, want):
+        wd = dict(w)
+        check(all(abs(s - wd[k]) <= E2E_ATOL + E2E_RTOL * abs(wd[k]) for k, s in g if k in wd),
+              f"{label}: a shared doc's score differs from one device's")
+    return ov
+
+
+def shared_rank(spec, mesh, out) -> None:
+    """(b): the index build split over the ranks through K2, the routes on
+    a row count that does not divide 2, then the daemon."""
+    tok, cfg = spec["tok"], spec["cfg"]
+    encoder = init_encoder(cfg, seed=spec["seed"])
+    encode = make_encode_fn(encoder, device=DEVICE, mesh=mesh)
+    plain_encode = make_encode_fn(encoder, device=DEVICE)
+    corpus = Corpus.from_pairs(spec["pairs"], dataset_name="mag")
+    field_info = resolve_fields("all_dense", "mag")
+    warm = tok.encode_batch(["w1 w2"] * 256, 512, bucket=False)
+    encode(warm["input_ids"], warm["attention_mask"])  # cuBLAS, allocator, the gather
+    flash_attention.launches = 0
+    matrix, secs = timed_build(encode, tok, corpus, field_info)
+    out.update(k2_launches=flash_attention.launches, build_s=secs)
+    if mesh.rank == 0:
+        out["matrix"] = matrix
+    n = len(spec["pairs"]) - 1  # odd: the row blocks of 2 ranks have a padded tail
+    # recall_k = n: every doc is a candidate.  The shards' recall scans are
+    # other GEMM shapes than one device's, whose f32 sums round apart, so a
+    # near-tie at a recall boundary could admit another candidate; with
+    # every doc admitted, rerank is held to the one-device engine exactly
+    cases = mesh_engines(spec, mesh, matrix, encode, plain_encode, n, recall_k=n)
+    out["cases"] = run_mesh_cases(cases)
+    # then recall_k 100, where the merge of the shards' per-field lists
+    # chooses the candidates (held by overlap, as in (c))
+    rerank = [c for c in cases if c[4] == "rerank"]
+    for eng in {id(x): x for c in rerank for x in c[1:3] if x is not None}.values():
+        eng.recall_k = 100
+    out["recall_cases"] = run_mesh_cases(rerank)
+    hybrid = cases[2][1]
+    out["stats"], out["daemon_held"] = rank_daemon(hybrid, mesh, spec["work"], "exact", 64)
+    out["daemon_path"] = hybrid.last_serve_path
+
+
+def cards_rank(spec, mesh, out) -> None:
+    """(c): exact and rerank QPS at batch 256 over the 1048576-doc corpus,
+    each rank making only its own rows (rank 0 first serves the whole
+    corpus on its card alone, the others waiting), then the daemon."""
+    from mfar_tpu_torch.parallel import multihost
+
+    tok, cfg = spec["tok"], spec["cfg"]
+    encoder = init_encoder(cfg, seed=spec["seed"])
+    fd, e = 5, cfg.hidden_size
+    rows = SeededRows(spec["n_big"], fd * e, spec["seed"] + 31)
+    kw = dict(field_info=resolve_fields("all_dense", "mag"),
+              doc_keys=[f"doc{i}" for i in range(spec["n_big"])], tokenizer=tok,
+              mixer_params={"weight": spec["mixer_dense"]}, recall_k=100, device=DEVICE)
+    qs = spec["big_queries"]
+
+    def qps(eng, mode):
+        eng.retrieve_many(qs[:256], top_k=100, mode=mode, batch_size=256)  # warm-up
+        multihost.sync("qps")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = eng.retrieve_many(qs, top_k=100, mode=mode, batch_size=256)
+        torch.cuda.synchronize()
+        return len(qs) / (time.perf_counter() - t), res[:256]
+
+    if mesh.rank == 0:
+        plain = make_encode_fn(encoder, device=DEVICE)
+        one = RetrievalEngine(dense_matrix=rows[0 : spec["n_big"]], encode_fn=plain, **kw)
+        for mode in ("exact", "rerank"):
+            one.encode_fn = plain
+            one.retrieve_many(qs[:256], top_k=100, mode=mode, batch_size=256)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            one.retrieve_many(qs, top_k=100, mode=mode, batch_size=256)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            # the reference for the ranks' first batch: its queries encoded
+            # in the ranks' calls
+            one.encode_fn = split_encode(plain, mesh.size("data"))
+            ref = one.retrieve_many(qs[:256], top_k=100, mode=mode, batch_size=256)
+            out[f"one_{mode}"] = (len(qs) / secs, ref)
+        del one
+        torch.cuda.empty_cache()
+    multihost.sync("one-rank-done")
+    torch.cuda.reset_peak_memory_stats()
+    eng = RetrievalEngine(dense_matrix=rows, mesh=mesh,
+                          encode_fn=make_encode_fn(encoder, device=DEVICE, mesh=mesh), **kw)
+    out["shard_rows"] = eng.docs_flat.shape[0]
+    for mode in ("exact", "rerank"):
+        out[f"mesh_{mode}"] = (*qps(eng, mode), eng.last_serve_path)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["stats"], out["daemon_held"] = rank_daemon(eng, mesh, spec["work"], "exact", 256)
+
+
+def run_ranks_job(job, spec, world, label, drive):
+    """Start ``world`` ranks of chip_smoke's ``mesh_rank`` on ``job``; once
+    rank 0's daemon is up, ``drive(host, port)`` sends its traffic and
+    returns the sampled query batches; the ranks' outputs come back."""
+    with tempfile.TemporaryDirectory() as work:
+        spec = dict(spec, job=job, work=work)
+        path = os.path.join(work, "spec.pt")
+        torch.save(spec, path)
+        coord = f"file://{os.path.join(work, 'init')}"
+        me = os.path.abspath(__file__)
+        # ranks that share a card see card 0 only
+        extra = {"CUDA_VISIBLE_DEVICES": "0"} if job == "shared" else {}
+        procs = start_ranks([[sys.executable, me, "--mesh-rank", path]] * world,
+                            [rank_env(coord, world, r, **extra) for r in range(world)], work,
+                            label)
+        try:
+            daemon = os.path.join(work, "daemon.json")
+            watch_ranks(procs, label, until=lambda: os.path.exists(daemon))
+            with open(daemon) as f:
+                addr = json.load(f)
+            samples, load = drive(addr["host"], addr["port"])
+            with open(os.path.join(work, "samples.json"), "w") as f:
+                json.dump(samples, f)
+            open(os.path.join(work, "stop"), "w").close()
+            watch_ranks(procs, label)
+        finally:
+            stop_ranks(procs)
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+    check(ranks[0]["daemon_held"] == len(samples) > 0,
+          f"{label}: {ranks[0]['daemon_held']} of {len(samples)} sampled answers held")
+    return ranks, load
+
+
+def run_mesh(seed, e2e=None, n_serve=131072) -> dict:
+    """Serving over several ranks: (a) one NCCL rank in this process, (b) two
+    gloo ranks sharing the card, (c) one NCCL rank per card where there are
+    several.  ``e2e`` is the e2e phase's (engine, corpus, queries); without
+    it the phase makes them itself."""
+    import torch.distributed as dist
+
+    from mfar_tpu_torch.parallel.mesh import make_mesh
+
+    if e2e is None:
+        e2e = mesh_world(seed)
+    engine, corpus, queries = e2e
+    cfg = EncoderConfig.contriever_base(vocab_size=engine.tokenizer.vocab_size,
+                                        attention_impl="auto")
+    rng = np.random.default_rng(seed + 41)
+    pairs = list(corpus.pairs())
+    fi_h = resolve_fields("all_dense,all_sparse", "mag")
+    spec = dict(seed=seed, device=DEVICE, cfg=cfg, tok=engine.tokenizer, pairs=pairs,
+                queries=queries,
+                rare=rare_word_queries(pairs, 128, rng, min_rank=5000),
+                mixer_dense=np.asarray(engine.mixer_params["weight"], np.float32),
+                mixer_hybrid=rng.normal(scale=0.05, size=(engine.emb_dim, len(fi_h)))
+                .astype(np.float32))
+    out = {}
+
+    # (a) one NCCL rank: a world of 1 made here
+    t = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        matrix = engine.docs_flat.view(engine.n_docs, len(engine.dense_keys), engine.emb_dim)
+        cases = mesh_engines(spec, mesh, matrix, engine.encode_fn, engine.encode_fn,
+                             engine.n_docs)
+        hold_mesh_cases(run_mesh_cases(cases), "mesh (a)")
+        fd, e = len(engine.dense_keys), engine.emb_dim
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+        big = torch.randn(n_serve, fd * e, device=DEVICE, generator=gen, dtype=torch.bfloat16)
+        kw = dict(field_info=engine.field_info, doc_keys=[f"doc{i}" for i in range(n_serve)],
+                  encode_fn=engine.encode_fn, tokenizer=engine.tokenizer,
+                  mixer_params=engine.mixer_params, dense_matrix=big, recall_k=100,
+                  device=DEVICE)
+        big_mesh = RetrievalEngine(mesh=mesh, **kw)
+        big_one = RetrievalEngine(**kw)
+        del big
+        qs = (queries * 2)[:256]
+        serving = {}
+        for mode, route in (("exact", "mesh-dense"), ("rerank", "mesh-rerank")):
+            serving[f"{mode} [{n_serve}]"] = (
+                big_mesh.retrieve_many(qs, top_k=100, mode=mode, batch_size=64),
+                big_mesh.last_serve_path, route,
+                big_one.retrieve_many(qs, top_k=100, mode=mode, batch_size=64))
+        hold_mesh_cases(serving, "mesh (a)")
+        del big_mesh, big_one
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["mesh_a_s"] = time.perf_counter() - t
+    phase("mesh", f"(a) one NCCL rank (make_mesh over a world of 1): exact and rerank, dense "
+                  f"and all_dense,all_sparse (postings, combined) on the e2e corpus, and the "
+                  f"[{n_serve}, {fd}, {e}] bf16 corpus in exact and rerank, each == the one-device "
+                  f"engine (rtol {E2E_RTOL}, atol {E2E_ATOL}, ties allowed) with its mesh-* "
+                  f"path, in {out['mesh_a_s']:.1f}s")
+
+    # (b) two gloo ranks sharing the card
+    t = time.perf_counter()
+    sample = [queries[i : i + 8] for i in range(0, min(64, len(queries)), 8)]
+
+    def drive_b(host, port):
+        # a burst of concurrent requests, which the daemon coalesces
+        answers = post_queries(host, port, sample)
+        for res in answers:
+            check_results(res, 8, min(100, len(pairs) - 1))
+        return [{"queries": qs, "results": res} for qs, res in zip(sample, answers)], None
+
+    ranks, _ = run_ranks_job("shared", spec, 2, "mesh_b", drive_b)
+    out["mesh_b_s"] = time.perf_counter() - t
+    check([(r["backend"], r["card"]) for r in ranks] == [("gloo", 0)] * 2,
+          f"(b) ranks' backends and cards {[(r['backend'], r['card']) for r in ranks]}")
+    want = engine.docs_flat.float().view(engine.n_docs, -1, engine.emb_dim).cpu().numpy()
+    agree = index_agreement(ranks[0]["matrix"], want, "the 2-rank K2 build vs the one-device one")
+    k2 = [r["k2_launches"] for r in ranks]
+    want_k2 = cfg.num_layers * sum(f.max_seq_length >= 128 and f.max_seq_length % 128 == 0
+                                   for f in engine.field_info.values()) * math.ceil(
+        engine.n_docs / 256)
+    check(k2 == [want_k2] * 2, f"(b) K2 launches per rank {k2}, want each {want_k2}")
+    hold_mesh_cases(ranks[0]["cases"], "mesh (b)")
+    recall_overlap = {}
+    for name, (got, path, route, want) in ranks[0]["recall_cases"].items():
+        check(path == route, f"mesh (b) {name} at recall_k 100: path {path}, want {route}")
+        recall_overlap[name] = hold_rerank_overlap(got, want, f"mesh (b) {name} at recall_k 100")
+    for r in ranks[1:]:
+        for key in ("cases", "recall_cases"):
+            for name, (got, path, _, _) in r[key].items():
+                check(got == ranks[0][key][name][0] and path == ranks[0][key][name][1],
+                      f"(b) rank {r['rank']} {name} ({key}) differs from rank 0")
+    check(ranks[0]["daemon_path"] == "mesh-hybrid-combined",
+          f"(b) daemon path {ranks[0]['daemon_path']}")
+    out.update(mesh_k2_launches=sum(k2), mesh_b_build_s=[r["build_s"] for r in ranks],
+               mesh_b_stats=ranks[0]["stats"], mesh_b_recall100_overlap=recall_overlap)
+    n_seq = len(pairs) * 5
+    phase("mesh", f"(b) two gloo ranks on card 0 in {out['mesh_b_s']:.1f}s (process start "
+                  f"included): the {len(pairs)}-doc build split over them through K2 in "
+                  f"{ranks[0]['build_s']:.2f}s / {ranks[1]['build_s']:.2f}s "
+                  f"({n_seq / max(r['build_s'] for r in ranks):.0f} field-docs/s), K2 launches "
+                  f"{k2} (each rank's = the one-device build's), against the one-device K2 "
+                  f"build: {agree}; dense and hybrid exact and rerank (recall_k = every doc) "
+                  f"on {len(pairs) - 1} docs "
+                  f"(row blocks of {len(pairs) // 2} and {len(pairs) // 2 - 1}) == the "
+                  f"one-device engine with mesh-* paths; rerank at recall_k 100: top-100 "
+                  f"overlap with the one-device engine {recall_overlap} (>= "
+                  f"{MESH_RERANK_MIN_OVERLAP}, shared docs' scores equal); "
+                  f"rank 1 == rank 0; the daemon (rank 0 RetrievalServer over "
+                  f"MultihostEngineProxy, rank 1 follower_loop): {len(sample)} concurrent "
+                  f"requests of 8 queries, each answer == its batch's results == retrieve "
+                  f"on that batch, stats {ranks[0]['stats']}")
+
+    # (c) one NCCL rank per card
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        phase("mesh", f"(c) needs several cards; {n_cards} visible: skipped")
+        return out
+    out.update(run_mesh_cards(seed, spec, n_cards))
+    return out
+
+
+def mesh_world(seed, n_docs=2048, n_queries=256):
+    """The e2e phase's corpus, queries, tokenizer, K2 build and engine, for
+    a run whose phases leave e2e out."""
+    rng = np.random.default_rng(seed)
+    corpus, queries = synth_mag(n_docs, n_queries, rng)
+    field_info = resolve_fields("all_dense", "mag")
+    texts = [t for _, p in corpus.pairs() for t in (p["title"], p["abstract"])]
+    tok = SimpleVocabTokenizer.build(texts + queries, max_length=512)
+    cfg = EncoderConfig.contriever_base(vocab_size=tok.vocab_size, attention_impl="auto")
+    encode = make_encode_fn(init_encoder(cfg, seed=seed), device=DEVICE)
+    matrix, _ = timed_build(encode, tok, corpus, field_info)
+    mixer = {"weight": rng.normal(scale=0.05, size=(cfg.hidden_size, len(field_info)))
+             .astype(np.float32)}
+    engine = RetrievalEngine(field_info=field_info, doc_keys=list(corpus.keys()),
+                             encode_fn=encode, tokenizer=tok, mixer_params=mixer,
+                             dense_matrix=matrix, recall_k=100, dense_dtype=torch.bfloat16,
+                             device=DEVICE)
+    return engine, corpus, queries
+
+
+def run_mesh_cards(seed, spec, n_cards, n_big=1048576, n_cli_docs=512) -> dict:
+    """(c): the commands under several ranks against one card's, the QPS of
+    the 1048576-doc corpus over the cards beside one card's, the daemon."""
+    out = {}
+    rng = np.random.default_rng(seed + 43)
+    pairs = spec["pairs"][:n_cli_docs]
+    sub = Corpus.from_pairs(pairs, dataset_name="mag")
+    with tempfile.TemporaryDirectory() as d:
+        data, bert = os.path.join(d, "data"), os.path.join(d, "bert")
+        write_data_dir(data, pairs)
+        with open(os.path.join(data, "test.queries"), "w", encoding="utf-8") as f:
+            for i, q in enumerate(spec["queries"][:128]):
+                f.write(f"q{i}\t{q}\n")
+        write_bert_dir(bert, sub, seed + 4)
+        base = ["--dataset-name", "mag", "--data", data, "--model-name", bert,
+                "--device", DEVICE]
+        t = time.perf_counter()
+        encode_corpus.main([*base, "--out", os.path.join(d, "one.npz"), "--mesh", "off"])
+        one_encode_s = time.perf_counter() - t
+        # one card's batches are the ranks' shares of theirs (64 queries over
+        # n_cards ranks), so that each bf16 query row is encoded in the same
+        # GEMM shapes on both sides
+        retrieve_cmd.main([*base, "--dense-index", os.path.join(d, "one.npz"), "--mesh", "off",
+                           "--out", os.path.join(d, "one.qres"),
+                           "--batch-size", str(64 // n_cards)])
+        coord = f"127.0.0.1:{free_port()}"
+        t = time.perf_counter()
+        procs = start_ranks(
+            [[sys.executable, "-m", "mfar_tpu_torch.commands.encode_corpus", *base,
+              "--out", os.path.join(d, f"enc{r}.npz")] for r in range(n_cards)],
+            [rank_env(coord, n_cards, r) for r in range(n_cards)], d, "encode")
+        watch_ranks(procs, "encode_corpus over the cards")
+        ranks_encode_s = time.perf_counter() - t
+        check(not any(os.path.exists(os.path.join(d, f"enc{r}.npz")) for r in range(1, n_cards)),
+              "a rank other than 0 wrote the encoded corpus")
+        one, keys = load_dense_matrix(os.path.join(d, "one.npz"))
+        many, keys2 = load_dense_matrix(os.path.join(d, "enc0.npz"))
+        check(keys == keys2, "encode_corpus over the cards: keys differ")
+        agree = index_agreement(many, one, "encode_corpus over the cards vs one card")
+        torchrun = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+                    str(n_cards), "--master-port", str(free_port())]
+        for cmd, extra in (
+            ("retrieve", ["--out", os.path.join(d, "many.qres"), "--batch-size", "64"]),
+            ("serve", ["--port", "0", "--max-batch", "64",
+                       "--smoke-out", os.path.join(d, "smoke.json")]),
+        ):
+            env = {k: v for k, v in os.environ.items() if not k.startswith("MFAR_")}
+            procs = start_ranks([[*torchrun, "-m", f"mfar_tpu_torch.commands.{cmd}", *base,
+                                  "--dense-index", os.path.join(d, "one.npz"),
+                                  "--multihost", "pod", *extra]], [env], d, cmd)
+            watch_ranks(procs, f"{cmd} under torchrun")
+        want = qres_lists(os.path.join(d, "one.qres"))
+        got = qres_lists(os.path.join(d, "many.qres"))
+        msg = rankings_agree([got[q] for q in want], [want[q] for q in want], E2E_RTOL, E2E_ATOL)
+        check(got.keys() == want.keys() and msg is None, f"retrieve over the cards: {msg}")
+        with open(os.path.join(d, "smoke.json")) as f:
+            smoke = json.load(f)
+        served = dict(zip(smoke["qids"], hits_of(smoke["results"])))
+        msg = rankings_agree([served[q] for q in want], [want[q] for q in want], E2E_RTOL,
+                             E2E_ATOL)
+        check(served.keys() == want.keys() and msg is None, f"serve over the cards: {msg}")
+    phase("mesh", f"(c) {n_cards} NCCL ranks, one a card: encode_corpus ({n_cli_docs} docs, "
+                  f"MFAR_* triple) in {ranks_encode_s:.1f}s against one card's "
+                  f"{one_encode_s:.1f}s (process start and model load included), == one "
+                  f"card's file: {agree}; retrieve and serve --smoke-out under torchrun "
+                  f"--multihost pod == one card's retrieve ({len(want)} queries) ({CARD})")
+
+    big = dict(spec, n_big=n_big, big_queries=word_queries(2048, rng))
+
+    def drive_c(host, port):
+        proc = subprocess.run(
+            [sys.executable, "-c", SERVE_CLIENTS, host, str(port), "64", "10", "8",
+             str(seed), "8"], capture_output=True, text=True, timeout=400)
+        check(proc.returncode == 0, f"the clients exited {proc.returncode}: {proc.stderr[-2000:]}")
+        load = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(not load["errors"] and not load["alive"], f"clients failed: {load['errors'][:3]}")
+        return [{"queries": s["queries"], "results": hits_of(s["results"])}
+                for s in load["samples"]], load
+
+    t = time.perf_counter()
+    ranks, load = run_ranks_job("cards", big, n_cards, "mesh_c", drive_c)
+    r0 = ranks[0]
+    check(sorted(r["card"] for r in ranks) == list(range(n_cards)), "ranks share a card")
+    for mode in ("exact", "rerank"):
+        q_one, res_one = r0[f"one_{mode}"]
+        q_mesh, res_mesh, path = r0[f"mesh_{mode}"]
+        check(path == ("mesh-dense" if mode == "exact" else "mesh-rerank"), f"path {path}")
+        if mode == "exact":
+            msg = rankings_agree(res_mesh, res_one, E2E_RTOL, E2E_ATOL)
+            check(msg is None, f"{mode} over {n_cards} cards vs one card: {msg}")
+        else:
+            # recall_k 100 of 1048576 rows: a near-tie at a recall boundary,
+            # which the shards' GEMM shapes round apart from one device's,
+            # can admit another candidate (held exactly on 2047 docs in (b))
+            out["mesh_c_rerank_overlap"] = hold_rerank_overlap(
+                res_mesh, res_one, f"rerank over {n_cards} cards")
+        out[f"mesh_c_{mode}_qps"] = {"1": q_one, str(n_cards): q_mesh}
+    stats = r0["stats"]
+    out.update(mesh_c_daemon=dict(qps=load["queries"] / load["seconds"], p50_ms=load["p50_ms"],
+                                  p95_ms=load["p95_ms"], fill=stats.get("mean_batch_fill"),
+                                  requests=load["requests"]),
+               mesh_c_s=time.perf_counter() - t)
+    phase("mesh", f"(c) {n_big} docs bf16, batch 256, 2048 8-word queries: exact "
+                  f"{out['mesh_c_exact_qps']} QPS and rerank {out['mesh_c_rerank_qps']} QPS "
+                  f"(1 card, {n_cards} cards; each rank made only its {r0['shard_rows']} rows, "
+                  f"peak {r0['peak_gb']:.2f} GB on rank 0), == one card; daemon over "
+                  f"{n_cards} ranks (64 clients x 8 queries, 10 s, max_batch 256): "
+                  f"{out['mesh_c_daemon']}, phase_s {stats['phase_s']}, {r0['daemon_held']} "
+                  f"sampled answers == their batches' results == retrieve on those batches "
+                  f"({CARD})")
+    return out
+
+
+def qres_lists(path):
+    out = {}
+    for r in trec.QRes.from_file(path):
+        out.setdefault(r.query_id, []).append((r.doc_id, float(r.sim)))
+    return out
+
+
 def device_profile(fn, top: int = 8, host_top: int = 0) -> dict:
     """Run ``fn()`` once under ``torch.profiler``: wall time, the summed
-    time of the device's kernels (one stream, so busy time), their share of
+    time of the device's kernels (one stream, so busy time; user-annotation
+    ranges, which enclose kernels, are not kernels), their share of
     the wall time, the ``top`` kernels by device time and, with
     ``host_top``, the host's operators by their own CPU time (the profiler's
     per-operator cost included)."""
@@ -2631,7 +3351,10 @@ def device_profile(fn, top: int = 8, host_top: int = 0) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # device-side user-annotation ranges (Optimizer.step#AdamW.step, ...)
+    # enclose kernels that are counted on their own: leave them out
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:  # a profiler without device tracing: say so, claim nothing
         return dict(wall_ms=wall_ms, device_ms=float("nan"), busy_share=None,
                     top="not measured (the profiler saw no device kernel)",
@@ -2668,10 +3391,41 @@ def kernel_usage(logs: dict) -> dict:
     return usage
 
 
+# the phases after device and build, in the order they run
+PHASES = ("k1", "k2", "k2b", "e2e", "long", "cli", "train", "train_cli", "serving", "hybrid",
+          "hybrid_serving", "hybrid_cli", "gtr", "mesh", "serve", "int8", "host_stream")
+# phases that read what an earlier one made
+NEEDS = {"long": "e2e", "cli": "e2e", "train": "e2e", "train_cli": "e2e", "serving": "e2e",
+         "hybrid": "e2e", "hybrid_serving": "e2e", "gtr": "e2e", "serve": "e2e",
+         "int8": "serve", "host_stream": "int8"}
+
+
+def selected_phases(arg: str) -> list:
+    """The phases to run, in order: all of them, or the comma-separated
+    ones and those they read from."""
+    if arg == "all":
+        return list(PHASES)
+    want = set(arg.split(",")) - {"device", "build"}
+    unknown = want - set(PHASES)
+    if unknown:
+        raise SystemExit(f"unknown phases {sorted(unknown)}; choose from {PHASES}")
+    for name in PHASES[::-1]:
+        if name in want and name in NEEDS:
+            want.add(NEEDS[name])
+    return [name for name in PHASES if name in want]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--phases", default="all",
+                   help="comma-separated phases to run after device and build (with those "
+                        f"they read from), default all: {','.join(PHASES)}")
+    p.add_argument("--mesh-rank", default=None, help=argparse.SUPPRESS)  # a mesh phase rank
     args = p.parse_args(argv)
+    phases = selected_phases(args.phases)
+    if args.mesh_rank:
+        return mesh_rank(args.mesh_rank)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2700,32 +3454,67 @@ def main(argv=None) -> int:
         if name.startswith("flash_attention"):
             check(" 0 bytes spill stores, 0 bytes spill loads" in line, f"{name} spills: {line}")
 
-    k1 = run_k1(args.seed)
-    k2 = run_k2(args.seed)
-    k2b = run_k2b(args.seed)
-    engine, plain_engine, corpus, queries, e2e = run_e2e(args.seed)
-    long = run_long(args.seed, engine, plain_engine, corpus,
-                    EncoderConfig.contriever_base().num_layers)
-    del plain_engine
-    cli = run_cli(args.seed, corpus)
-    train = run_train(args.seed, corpus, engine.tokenizer)
-    train_cli = run_train_cli(args.seed, corpus)
-    serving = run_serving(args.seed, engine, queries)
-    hybrid = run_hybrid(args.seed, engine, corpus, queries)
-    hybrid_serving = run_hybrid_serving(args.seed, engine)
-    hybrid_cli = run_hybrid_cli(args.seed)
-    gtr = run_gtr(args.seed, corpus, queries)
+    r = {}  # each phase's numbers
+    if "k1" in phases:
+        r["k1"] = run_k1(args.seed)
+    if "k2" in phases:
+        r["k2"] = run_k2(args.seed)
+    if "k2b" in phases:
+        r["k2b"] = run_k2b(args.seed)
+    e2e_world = None
+    if "e2e" in phases:
+        engine, plain_engine, corpus, queries, r["e2e"] = run_e2e(args.seed)
+        e2e_world = (engine, corpus, queries)
+    if "long" in phases:
+        r["long"] = run_long(args.seed, engine, plain_engine, corpus,
+                             EncoderConfig.contriever_base().num_layers)
+    if "e2e" in phases:
+        del plain_engine
+    if "cli" in phases:
+        r["cli"] = run_cli(args.seed, corpus)
+    if "train" in phases:
+        r["train"] = run_train(args.seed, corpus, engine.tokenizer)
+    if "train_cli" in phases:
+        r["train_cli"] = run_train_cli(args.seed, corpus)
+    if "serving" in phases:
+        r["serving"] = run_serving(args.seed, engine, queries)
+    if "hybrid" in phases:
+        r["hybrid"] = run_hybrid(args.seed, engine, corpus, queries)
+    if "hybrid_serving" in phases:
+        r["hybrid_serving"] = run_hybrid_serving(args.seed, engine)
+    if "hybrid_cli" in phases:
+        r["hybrid_cli"] = run_hybrid_cli(args.seed)
+    if "gtr" in phases:
+        r["gtr"] = run_gtr(args.seed, corpus, queries)
+    if "mesh" in phases:
+        r["mesh"] = run_mesh(args.seed, e2e_world)
     # the 1048576-doc phases last, so that their 8 GB corpus and its host
     # copies come after the earlier phases, as in the runs before them
-    big, serve = run_serve(args.seed, engine)
-    i8, int8 = run_int8(args.seed, big, engine, queries)
-    host_stream = run_host_stream(args.seed, big, i8)
+    if "serve" in phases:
+        big, r["serve"] = run_serve(args.seed, engine)
+    if "int8" in phases:
+        i8, r["int8"] = run_int8(args.seed, big, engine, queries)
+    if "host_stream" in phases:
+        r["host_stream"] = run_host_stream(args.seed, big, i8)
 
+    summary = {k: v for name, res in r.items() if name not in ("k1", "k2", "k2b")
+               for k, v in res.items()}
+    for name in ("k2", "k2b"):
+        if name in r:
+            summary[name] = r[name]
+    if "k1" in r:
+        summary.update(k1_f32=r["k1"]["f32"], k1_bf16=r["k1"]["bf16"])
+    phase("summary", json.dumps(summary))
+    if phases != list(PHASES):
+        print(json.dumps({"kernels": "measured in a run of every phase", "phases": phases}),
+              flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    k1, k2, k2b, e2e, train = r["k1"], r["k2"], r["k2b"], r["e2e"], r["train"]
+    serve, hybrid, hybrid_serving = r["serve"], r["hybrid"], r["hybrid_serving"]
+    hybrid_cli, gtr, mesh = r["hybrid_cli"], r["gtr"], r["mesh"]
     k1_row = k1["bf16"]
-    phase("summary", json.dumps({"k1_f32": k1["f32"], "k1_bf16": k1_row, "k2": k2, "k2b": k2b,
-                                 **e2e, **long, **cli, **train, **train_cli, **serving,
-                                 **serve, **int8, **host_stream, **hybrid, **hybrid_serving,
-                                 **hybrid_cli, **gtr}))
     print(json.dumps({"kernels": [{
         "name": "gather_per_field_scores",
         "route": "cuda",
@@ -2753,7 +3542,9 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "mfar_tpu_torch/csrc/flash_attention.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
-        "launches": e2e["k2_launches"],
+        # the one-device build's, and each mesh rank's share of the split
+        # build (phase mesh (b))
+        "launches": e2e["k2_launches"] + mesh["mesh_k2_launches"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["kernel_ms"],
         "plain_ms": k2["plain_ms"],

@@ -1,15 +1,16 @@
 """Shared CLI bootstrap for the port: corpus + model + dense and sparse
 indices from flags.
 
-Counterpart of ``mfar_tpu/commands/common.py`` for the single-device engine
-and the trainer, with the JAX command's whole engine flag set.
-``--checkpoint-dir`` reads the port's own checkpoints
-(:mod:`mfar_tpu_torch.train.checkpoint`; the JAX package's are orbax,
-ROADMAP A10.4).  ``--mesh off`` and ``auto`` serve on one device (``auto``
-with several visible cards says so and takes the first); an explicit mesh
-(``--n-model``/``--n-replica`` above 1 under ``auto``,
-``--corpus-per-slice``) raises A15 and ``--pallas-cross-row`` B1, before
-any work.
+Counterpart of ``mfar_tpu/commands/common.py`` for the engine and the
+trainer, with the JAX command's whole engine flag set.  ``--checkpoint-dir``
+reads the port's own checkpoints (:mod:`mfar_tpu_torch.train.checkpoint`;
+the JAX package's are orbax, ROADMAP A10.4).  ``--mesh auto`` serves on a
+mesh over the world's ranks when the command runs as several processes (one
+per card: ``torchrun`` with ``--multihost pod``, or the ``MFAR_*``
+environment with ``--multihost force``), shaped by ``--n-model``,
+``--n-replica`` and ``--corpus-per-slice`` as in the JAX package; one
+process serves on one device.  An int8 or host-streamed corpus on a mesh
+raises A15c and ``--pallas-cross-row`` B1, before any work.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from mfar_tpu_torch.data import trec
 from mfar_tpu_torch.data.format import format_documents
 from mfar_tpu_torch.data.schema import resolve_fields, sparse_keys
 from mfar_tpu_torch.data.types import Corpus, Field
+from mfar_tpu_torch.parallel import multihost
 from mfar_tpu_torch.sparse.bm25 import BM25Index
 from mfar_tpu_torch.train.checkpoint import (
     check_field_compatibility,
@@ -148,31 +150,45 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
                         "included; rerank is the reference-compatible recall+rerank "
                         "pipeline")
     p.add_argument("--mesh", default="auto", choices=["auto", "off"],
-                   help="auto and off: one device (a mesh over several cards is "
-                        "ROADMAP A15)")
-    p.add_argument("--n-model", type=int, default=1, help="above 1: ROADMAP A15")
-    p.add_argument("--n-replica", type=int, default=1, help="above 1: ROADMAP A15")
-    p.add_argument("--corpus-per-slice", action="store_true", help="ROADMAP A15")
+                   help="auto: shard the corpus over every rank (one process per card) "
+                        "and serve with distributed top-k; off: one device")
+    p.add_argument("--n-model", type=int, default=1,
+                   help="model-axis size of the mesh (its ranks repeat the serving work)")
+    p.add_argument("--n-replica", type=int, default=1,
+                   help="replica-axis size (required for --corpus-per-slice query-batch "
+                        "sharding to engage)")
+    p.add_argument("--corpus-per-slice", action="store_true",
+                   help="a full corpus per replica, sharded over its data axis; the "
+                        "replicas serve disjoint slices of each query batch")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
 
 def note_one_card(args, label: str) -> None:
-    """``--mesh auto`` with several visible cards runs on the first: say so
-    (a mesh over them is ROADMAP A15)."""
-    if args.mesh == "auto" and torch.device(args.device).type == "cuda":
+    """``--mesh auto`` in one process that sees several cards runs on the
+    current one: say so, and how to start one rank per card."""
+    if (args.mesh == "auto" and torch.device(args.device).type == "cuda"
+            and not multihost.is_multiprocess()):
         n_cards = torch.cuda.device_count()
         if n_cards > 1:
-            print(f"[{label}] --mesh auto: {n_cards} visible cards, running on one "
-                  f"(a mesh is ROADMAP A15)", flush=True)
+            print(f"[{label}] --mesh auto: {n_cards} visible cards, running on one; start "
+                  f"one rank per card with torchrun --nproc-per-node {n_cards} ... "
+                  f"--multihost pod, or with MFAR_COORDINATOR, MFAR_NUM_PROCESSES and "
+                  f"MFAR_PROCESS_ID ... --multihost force", flush=True)
 
 
-def requested_mesh(args, label: str) -> Optional[dict]:
-    """The device layout the mesh flags ask for: None for one device, else
-    a description that the engine refuses (ROADMAP A15)."""
-    if args.mesh == "auto" and (args.n_model > 1 or args.n_replica > 1):
-        return dict(n_model=args.n_model, n_replica=args.n_replica)
-    note_one_card(args, label)
-    return None
+def requested_mesh(args, label: str):
+    """The serving mesh the flags ask for: over every rank under ``--mesh
+    auto`` when the world holds several, else None (one device).  A forced
+    K1 gather (``--use-pallas-gather on``) serves on one device, as in the
+    JAX package."""
+    from mfar_tpu_torch.parallel.mesh import mesh_from_flag
+
+    mesh = None
+    if getattr(args, "use_pallas_gather", "auto") != "on":
+        mesh = mesh_from_flag(args.mesh, label, n_model=args.n_model, n_replica=args.n_replica)
+    if mesh is None:
+        note_one_card(args, label)
+    return mesh
 
 
 def build_engine(args, label: str = "engine"):
@@ -189,9 +205,10 @@ def build_engine(args, label: str = "engine"):
     from mfar_tpu_torch.models import build_encoder
     from mfar_tpu_torch.models.registry import prepare_model
 
-    unported = dict(mesh=requested_mesh(args, label), corpus_per_slice=args.corpus_per_slice,
-                    pallas_cross_row=args.pallas_cross_row)
-    RetrievalEngine.refuse_unported(**unported)
+    mesh = requested_mesh(args, label)
+    RetrievalEngine.refuse_unported(mesh=mesh, quantize=args.quantize,
+                                    corpus_on_host=args.corpus_on_host,
+                                    pallas_cross_row=args.pallas_cross_row)
     resolve_data_dirs(args)
     field_info = resolve_fields(args.field_names, args.dataset_name)
     corpus = load_corpus(args.corpus, args.dataset_name)
@@ -205,7 +222,7 @@ def build_engine(args, label: str = "engine"):
         state, mixer_params = load_checkpoint_weights(args.checkpoint_dir, field_info)
     encoder = build_encoder(config)
     encoder.load_state_dict(state)
-    encode = make_encode_fn(encoder, device=args.device)
+    encode = make_encode_fn(encoder, device=args.device, mesh=mesh)
 
     dense_fields = {k: f for k, f in field_info.items() if f.is_dense}
     if args.dense_index:
@@ -233,7 +250,9 @@ def build_engine(args, label: str = "engine"):
         dense_dtype=torch.bfloat16 if args.dense_dtype == "bf16" and not args.quantize
         else None,
         device=args.device,
-        **unported,
+        mesh=mesh,
+        corpus_per_slice=args.corpus_per_slice,
+        pallas_cross_row=args.pallas_cross_row,
     )
 
 

@@ -1,8 +1,11 @@
 """Encode the corpus into the per-field dense index matrix on disk.
 
-Counterpart of ``mfar_tpu/commands/encode_corpus.py`` on one device: the
-``[N, Fd, E]`` matrix is built once so serving (``retrieve --dense-index``)
-starts without re-encoding.
+Counterpart of ``mfar_tpu/commands/encode_corpus.py``: the ``[N, Fd, E]``
+matrix is built once so serving (``retrieve --dense-index``) starts without
+re-encoding.  Started as several processes (one per card, with
+``MFAR_COORDINATOR``, ``MFAR_NUM_PROCESSES`` and ``MFAR_PROCESS_ID`` set),
+``--mesh auto`` splits every batch over the ranks and rank 0 writes the
+output.
 
     python -m mfar_tpu_torch.commands.encode_corpus --dataset-name mag \\
         --data DIR --out index.npz [--device cpu] [--model-name DIR]
@@ -17,7 +20,6 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
-import torch
 
 from mfar_tpu_torch.commands.common import (
     add_data_args,
@@ -25,6 +27,7 @@ from mfar_tpu_torch.commands.common import (
     load_checkpoint_weights,
     load_corpus,
     normalize_argv,
+    note_one_card,
     resolve_data_dirs,
 )
 from mfar_tpu_torch.data.schema import resolve_fields
@@ -35,6 +38,8 @@ from mfar_tpu_torch.eval.index_build import (
 )
 from mfar_tpu_torch.models import build_encoder, encoder_dim
 from mfar_tpu_torch.models.registry import prepare_model
+from mfar_tpu_torch.parallel import multihost
+from mfar_tpu_torch.parallel.mesh import mesh_from_flag
 
 
 def main(argv=None) -> None:
@@ -55,16 +60,12 @@ def main(argv=None) -> None:
     p.add_argument("--prefix", action="store_true",
                    help="put each field's name in front of its text")
     p.add_argument("--mesh", default="auto", choices=["auto", "off"],
-                   help="auto: one device here (several cards are ROADMAP A15)")
+                   help="auto: split encode batches over every rank (one process per "
+                        "card); off: each process encodes alone")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(normalize_argv(argv))
 
-    if (args.mesh == "auto" and torch.device(args.device).type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            f"--mesh auto with {torch.cuda.device_count()} visible cards: encoding "
-            f"over several cards is ROADMAP A15; pass --mesh off or show one card"
-        )
+    multihost.maybe_initialize("auto", args.device)
     resolve_data_dirs(args)
 
     field_info = resolve_fields(args.field_names, args.dataset_name)
@@ -79,10 +80,13 @@ def main(argv=None) -> None:
         state, _ = load_checkpoint_weights(args.checkpoint_dir, field_info)
     encoder = build_encoder(config)
     encoder.load_state_dict(state)
-    encode = make_encode_fn(encoder, device=args.device)
+    mesh = mesh_from_flag(args.mesh, "encode_corpus")
+    if mesh is None:
+        note_one_card(args, "encode_corpus")
+    encode = make_encode_fn(encoder, device=args.device, mesh=mesh)
 
     out_target = None
-    if args.out.endswith(".npy"):
+    if args.out.endswith(".npy") and multihost.is_primary():
         out_target = np.lib.format.open_memmap(
             args.out, mode="w+", dtype=np.float32,
             shape=(len(corpus), len(dense_fields), encoder_dim(config)),
@@ -91,9 +95,12 @@ def main(argv=None) -> None:
         encode, tokenizer, corpus, dense_fields,
         batch_size=args.batch_size, prefix=args.prefix, out=out_target,
     )
-    out_path = save_dense_matrix(args.out, matrix, list(corpus.keys()))
-    print(f"Encoded {matrix.shape[0]} docs x {matrix.shape[1]} fields x "
-          f"{matrix.shape[2]} dims on {args.device} -> {out_path}")
+    if multihost.is_primary():  # rank 0 owns file I/O
+        out_path = save_dense_matrix(args.out, matrix, list(corpus.keys()))
+        print(f"Encoded {matrix.shape[0]} docs x {matrix.shape[1]} fields x "
+              f"{matrix.shape[2]} dims on {args.device} x {multihost.process_count()} "
+              f"-> {out_path}", flush=True)
+    multihost.sync("encode-done")
 
 
 if __name__ == "__main__":

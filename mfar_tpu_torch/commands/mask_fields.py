@@ -1,7 +1,7 @@
 """Field-ablation evaluation of a trained checkpoint.
 
 Counterpart of ``mfar_tpu/commands/mask_fields.py`` (reference:
-mfar/commands/mask_fields.py:20-171), on one device: reload the best
+mfar/commands/mask_fields.py:20-171): reload the best
 checkpoint of a train run (``{checkpoint_dir}/best.txt``), run a baseline
 test, then -- unless ``--debug`` -- re-test with each field masked, all
 sparse fields masked, all dense fields masked, and both scorers of each
@@ -13,10 +13,10 @@ line per configuration with its ``masked_fields``:
         --checkpoint-dir RUN [--model-name DIR] [--device cpu]
 
 The checkpoint's model state (encoder, mixer, batchnorm) is what the tests
-read; its optimizer state is not needed.  ``--mesh auto`` with several
-visible cards evaluates on the first; ``--multihost force|pod`` raises
-``NotImplementedError`` naming ROADMAP A15.  ``--corpus-on-host`` keeps each
-test's corpus in host memory and streams it to the device per scan.
+read; its optimizer state is not needed.  Over several processes (one rank
+per card, ``--multihost pod|force``) ``--mesh auto`` serves each test on the
+mesh and rank 0 writes the results.  ``--corpus-on-host`` keeps each test's
+corpus in host memory and streams it to the device per scan.
 """
 
 from __future__ import annotations
@@ -39,6 +39,8 @@ from mfar_tpu_torch.data import trec
 from mfar_tpu_torch.data.negative_sampler import IndexNegativeSampler
 from mfar_tpu_torch.data.schema import resolve_fields
 from mfar_tpu_torch.models.registry import prepare_model
+from mfar_tpu_torch.parallel import multihost
+from mfar_tpu_torch.parallel.mesh import mesh_from_flag
 from mfar_tpu_torch.train.checkpoint import (
     check_field_compatibility,
     load_model_state,
@@ -81,10 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--corpus-on-host", action="store_true",
                    help="keep the test corpus in host memory, streamed per scan")
     p.add_argument("--mesh", default="auto", choices=["auto", "off"],
-                   help="auto and off: one device (a mesh over several cards is "
-                        "ROADMAP A15)")
+                   help="auto: shard each test's corpus over every rank; off: one device")
     p.add_argument("--multihost", default="auto", choices=["auto", "off", "force", "pod"],
-                   help="force|pod: ROADMAP A15; auto and off run one process")
+                   help="several processes, one per card (see retrieve --multihost)")
     p.add_argument("--debug", action="store_true", help="baseline only, skip the ablation sweep")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
@@ -92,12 +93,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(normalize_argv(argv))
-    if args.multihost in ("force", "pod"):
-        raise NotImplementedError(
-            f"--multihost {args.multihost}: evaluating over several processes is ROADMAP A15")
-    note_one_card(args, "mask_fields")
+    if multihost.maybe_initialize(args.multihost, args.device):
+        print(f"[mask_fields] multihost: process {multihost.process_index()}/"
+              f"{multihost.process_count()}", flush=True)
+    mesh = mesh_from_flag(args.mesh, "mask_fields")
+    if mesh is None:
+        note_one_card(args, "mask_fields")
     resolve_data_dirs(args)
-    os.makedirs(args.out, exist_ok=True)
+    if multihost.is_primary():
+        os.makedirs(args.out, exist_ok=True)
 
     field_info = resolve_fields(args.field_names, args.dataset_name)
     corpus = load_corpus(args.corpus, args.dataset_name)
@@ -151,7 +155,7 @@ def main(argv=None) -> None:
         dev_queries=dev_queries, dev_qrels_path=qrels_path,
         config=cfg, sparse_indices=sparse_indices,
         additional_queries=additional_queries, additional_qrels_path=additional_qrels,
-        logger=MetricsLogger(args.out),
+        logger=MetricsLogger(args.out), mesh=mesh,
     )
 
     print(f"Starting re-testing of {best_dir}: {time.strftime('%Y-%m-%d %H:%M:%S')}")

@@ -1,11 +1,13 @@
-"""Run the online retrieval daemon on one device.
+"""Run the online retrieval daemon.
 
 Counterpart of ``mfar_tpu/commands/serve.py``: it loads the same corpus,
 model, checkpoint and indices as ``retrieve`` (the shared flag block), runs
 a warmup batch, then answers HTTP traffic with micro-batched engine calls
-(:mod:`mfar_tpu_torch.serve`).  ``--multihost force|pod`` (serving over
-several processes) is ROADMAP A15; ``auto`` and ``off`` serve in one
-process.  On the card by default; ``--device cpu`` serves from the host:
+(:mod:`mfar_tpu_torch.serve`).  Over several processes (one rank per card,
+``--multihost pod`` under ``torchrun`` or ``force`` with the ``MFAR_*``
+environment) rank 0 binds the port and broadcasts each batch, and the other
+ranks follow it on the mesh.  On the card by default; ``--device cpu``
+serves from the host:
 
     python -m mfar_tpu_torch.commands.serve --dataset-name mag --data DIR \\
         --model-name DIR --checkpoint-dir RUN --port 8080 --max-batch 256
@@ -30,7 +32,8 @@ from mfar_tpu_torch.commands.common import (
     normalize_argv,
 )
 from mfar_tpu_torch.data import trec
-from mfar_tpu_torch.serve import RetrievalServer
+from mfar_tpu_torch.parallel import multihost
+from mfar_tpu_torch.serve import MultihostEngineProxy, RetrievalServer, follower_loop
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -52,7 +55,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="open the port without a warmup batch (the first request then "
                         "pays the kernels' builds)")
     p.add_argument("--multihost", default="auto", choices=["auto", "off", "force", "pod"],
-                   help="force|pod: ROADMAP A15; auto and off serve in one process")
+                   help="several processes, one per card: rank 0 owns the HTTP port and "
+                        "broadcasts each batch; every other rank serves the same batch on "
+                        "the mesh (see mfar_tpu_torch/serve.py MultihostEngineProxy)")
     p.add_argument("--smoke-out", default=None, metavar="PATH",
                    help="self-test: POST the dataset's test queries to the daemon over "
                         "HTTP, write the JSON results to PATH, then shut down")
@@ -61,11 +66,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(normalize_argv(argv))
-    if args.multihost in ("force", "pod"):
-        raise NotImplementedError(
-            f"--multihost {args.multihost}: serving over several processes is ROADMAP A15")
+    if multihost.maybe_initialize(args.multihost, args.device):
+        print(f"[serve] multihost: process {multihost.process_index()}/"
+              f"{multihost.process_count()}", flush=True)
 
     engine = build_engine(args, label="serve")
+    proxy = None
+    if multihost.is_multiprocess():
+        if not multihost.is_primary():
+            # every batch rank 0 broadcasts (its warmup included) until stop
+            follower_loop(engine)
+            print(f"[serve] follower {multihost.process_index()} done", flush=True)
+            return
+        engine = proxy = MultihostEngineProxy(engine, max_batch=args.max_batch)
     server = RetrievalServer(
         engine, host=args.host, port=args.port, max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms, top_k=args.top_k, mode=args.mode,
@@ -108,6 +121,8 @@ def main(argv=None) -> None:
             print(f"[serve] smoke: {len(queries)} queries -> {args.smoke_out}", flush=True)
         finally:
             server.shutdown()
+            if proxy is not None:
+                proxy.stop()
         return
 
     try:
@@ -115,6 +130,9 @@ def main(argv=None) -> None:
     except KeyboardInterrupt:
         print("[serve] shutting down")
         server.shutdown()
+    finally:
+        if proxy is not None:
+            proxy.stop()
 
 
 if __name__ == "__main__":

@@ -20,7 +20,7 @@ A T5/GTR model (a local T5 or sentence-transformers GTR directory, or
 ``t5:<dir>``) trains its encoder with Adafactor, as the JAX command does.
 Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
 several devices (``--mesh auto`` with several visible cards,
-``--n-model``/``--n-replica`` above 1, ``--multihost force|pod``: A15).
+``--n-model``/``--n-replica`` above 1, ``--multihost force|pod``: A15b).
 The output directory holds
 ``metrics.jsonl``, ``checkpoints/<epoch>/`` (``state.pt`` + ``meta.json``),
 ``best.txt``, the dev qres files and ``results_dicts.jsonl``, as the JAX
@@ -127,11 +127,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--retrieval-mode", default="auto", choices=["auto", "exact", "rerank"],
                    help="eval serving mode: exact (the default) or rerank")
     p.add_argument("--mesh", default="auto", choices=["auto", "off"],
-                   help="auto: one device here (several cards are ROADMAP A15)")
-    p.add_argument("--n-model", type=int, default=1, help="above 1: ROADMAP A15")
-    p.add_argument("--n-replica", type=int, default=1, help="above 1: ROADMAP A15")
+                   help="auto: one device here (several cards are ROADMAP A15b)")
+    p.add_argument("--n-model", type=int, default=1, help="above 1: ROADMAP A15b, A15d")
+    p.add_argument("--n-replica", type=int, default=1, help="above 1: ROADMAP A15b")
     p.add_argument("--multihost", default="auto", choices=["auto", "off", "force", "pod"],
-                   help="force|pod: ROADMAP A15; auto and off run one process")
+                   help="force|pod: ROADMAP A15b; auto and off run one process")
     p.add_argument("--prefetch-depth", type=int, default=2,
                    help="train batches prepared ahead on the host thread")
     p.add_argument("--resume", action="store_true",
@@ -151,7 +151,7 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "training over several devices or processes (--mesh auto with several "
             "visible cards, --n-model/--n-replica > 1, --multihost force|pod) is "
-            "ROADMAP A15; pass --mesh off or show one card"
+            "ROADMAP A15b; pass --mesh off or show one card"
         )
 
 

@@ -26,12 +26,19 @@ from mfar_tpu_torch.sparse.bm25 import BM25Index
 from mfar_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
-def make_encode_fn(encoder: torch.nn.Module, device: DeviceLike = None) -> Callable:
+def make_encode_fn(encoder: torch.nn.Module, device: DeviceLike = None, mesh=None) -> Callable:
     """(input_ids, attention_mask) -> f32 [n, E] embeddings on ``device``.
 
     The encoder moves to the device once and runs eagerly in eval mode
     under ``torch.inference_mode``; inputs may be numpy arrays or tensors.
-    ``device`` defaults to ``cuda`` and raises when there is no card."""
+    ``device`` defaults to ``cuda`` and raises when there is no card.
+
+    With a ``mesh`` (:mod:`mfar_tpu_torch.parallel.mesh`), each rank along
+    the batch axes encodes its share of a batch's rows and an all-gather
+    gives every rank the whole ``[n, E]``; the rows that do not divide the
+    shard count are computed on every rank, as in the JAX package.  The
+    token arrays arrive padded for the whole batch, so every rank's share
+    has the same width."""
     dev = resolve_device(device)
     encoder = encoder.to(dev).eval()
 
@@ -41,7 +48,28 @@ def make_encode_fn(encoder: torch.nn.Module, device: DeviceLike = None) -> Calla
             mask = torch.as_tensor(attention_mask, device=dev)
             return encoder(ids, mask)
 
-    return encode
+    if mesh is None:
+        return encode
+
+    from mfar_tpu_torch.parallel.mesh import batch_axes
+
+    axes = batch_axes(mesh)
+    n_shards, index = mesh.size(axes), mesh.index(axes)
+
+    def encode_sharded(input_ids, attention_mask) -> torch.Tensor:
+        n = len(input_ids)
+        per = n // n_shards
+        if per == 0:
+            return encode(input_ids, attention_mask)
+        ids, mask = torch.as_tensor(input_ids), torch.as_tensor(attention_mask)
+        mine = torch.as_tensor(np.r_[index * per : (index + 1) * per, n_shards * per : n],
+                               device=ids.device)
+        out = encode(ids[mine], mask[mine])
+        with torch.inference_mode():
+            shares = mesh.all_gather(axes, out[:per])
+            return torch.cat(shares + [out[per:]])
+
+    return encode_sharded
 
 
 def encode_texts(

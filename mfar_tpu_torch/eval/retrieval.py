@@ -39,10 +39,22 @@ a memmap) and streams it to the device per scan, through pinned memory and
 a copy stream (:func:`mfar_tpu_torch.ops.scoring.dense_topk_host_streamed`);
 the two compose.
 
+``mesh`` (:mod:`mfar_tpu_torch.parallel.mesh`, one rank per card) shards
+the corpus rows over the ranks: each rank places only its block of the flat
+matrix (zero-padded at the tail; from an ``.npy`` memmap it reads only those
+rows), the mixer and the queries stay replicated, and the routes of
+:mod:`mfar_tpu_torch.parallel.topk` merge the shards' top-ks:
+``mesh-dense``, ``mesh-hybrid-postings``, ``mesh-hybrid-combined``, and
+rerank ``mesh-rerank[-hybrid]`` (per-field recall, then each shard scores
+the candidates it owns; the sparse stages stay on the host).  With
+``corpus_per_slice`` and several replicas, the replica groups serve disjoint
+slices of the query batch.  Every collective of a call is issued in its
+dispatch half, none in :meth:`RetrievalEngine.finish`.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``mesh``/``corpus_per_slice`` (A15), and ``pallas_cross_row``, a knob of
-the TPU kernel's DMA schedule whose CUDA counterpart, pipelined row loads in
-K1, is B1's follow-up.
+an int8 or host-streamed corpus on a mesh (A15c), and ``pallas_cross_row``,
+a knob of the TPU kernel's DMA schedule whose CUDA counterpart, pipelined
+row loads in K1, is B1's follow-up.
 """
 
 from __future__ import annotations
@@ -80,6 +92,8 @@ from mfar_tpu_torch.ops.scoring import (
     rerank_candidates,
     softmax_field_weights,
 )
+from mfar_tpu_torch.parallel import topk as mesh_topk
+from mfar_tpu_torch.parallel.mesh import REPLICA_AXIS, corpus_sharding, shard_rows
 from mfar_tpu_torch.train.data_pipeline import clean_query
 from mfar_tpu_torch.train.model import FieldMixer
 from mfar_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -99,6 +113,19 @@ def topk_chunk(n_rows: int, batch: int) -> int:
     if cap >= n_rows:
         return max(n_rows, 1)
     return max(TOPK_CHUNK, cap - cap % TOPK_CHUNK)
+
+
+def _row_block(matrix, offset: int, rows: int) -> torch.Tensor:
+    """Rows ``[offset, offset + rows)`` of a host array, memmap or tensor as
+    a tensor, zero-padded past the matrix's end (a memmap reads only these
+    rows)."""
+    n = matrix.shape[0]
+    block = matrix[min(offset, n) : min(offset + rows, n)]
+    if not torch.is_tensor(block):
+        block = torch.from_numpy(np.ascontiguousarray(block))
+    if block.shape[0] < rows:
+        block = torch.cat([block, block.new_zeros((rows - block.shape[0], *block.shape[1:]))])
+    return block
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -149,7 +176,7 @@ class RetrievalEngine:
             raise ValueError(f"dense_topk={dense_topk!r}")
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        self.refuse_unported(mesh=mesh, corpus_per_slice=corpus_per_slice,
+        self.refuse_unported(mesh=mesh, quantize=quantize, corpus_on_host=corpus_on_host,
                              pallas_cross_row=pallas_cross_row)
         has_dense = dense_matrix is not None and int(np.prod(dense_matrix.shape)) > 0
         if not has_dense and not sparse_keys(field_info):
@@ -178,7 +205,15 @@ class RetrievalEngine:
         self.mode = mode
         self.dense_topk = dense_topk
         self.has_dense = has_dense
-        self.docs_flat = None  # device corpus, f32/bf16
+        self.mesh = mesh
+        self._corpus_axes = self._query_axis = None
+        if mesh is not None:
+            self._corpus_axes = corpus_sharding(mesh, replicate_across_slices=corpus_per_slice)
+            # with a corpus per slice, the replica groups serve disjoint
+            # slices of the query batch instead of repeating the scan
+            if corpus_per_slice and mesh.shape[REPLICA_AXIS] > 1:
+                self._query_axis = REPLICA_AXIS
+        self.docs_flat = None  # device corpus, f32/bf16 (a mesh rank's row block)
         self.docs_q = self.doc_scales = None  # int8 rows and their device scales
         self.docs_host = None  # host corpus (CPU tensor or memmap)
         self.docs_host_q = self.docs_host_scales = None  # host int8 rows, scales
@@ -191,12 +226,13 @@ class RetrievalEngine:
         self._build_row_maps()
 
     @staticmethod
-    def refuse_unported(mesh=None, corpus_per_slice=False, pallas_cross_row=False) -> None:
+    def refuse_unported(mesh=None, quantize=None, corpus_on_host=False,
+                        pallas_cross_row=False) -> None:
         """Raise ``NotImplementedError`` naming the ROADMAP item of an
         option the port does not serve yet (the commands call this before
         any work)."""
-        if mesh is not None or corpus_per_slice:
-            raise _not_ported("multi-device serving (mesh, corpus_per_slice)", "A15")
+        if mesh is not None and (quantize or corpus_on_host):
+            raise _not_ported("an int8 or host-streamed corpus on a mesh", "A15c")
         if pallas_cross_row:
             raise NotImplementedError(
                 "pallas_cross_row tunes the TPU kernel's DMA prefetch; the CUDA "
@@ -239,6 +275,18 @@ class RetrievalEngine:
                 # a corpus on the card is quantized there, a host array on
                 # the host, a slab of rows at a time either way
                 quantize_rows_int8_into(flat, self.docs_q, self.doc_scales)
+            return
+        if self.mesh is not None:
+            # this rank's row block only, zero-padded at the corpus's tail;
+            # K1 reads one device's whole corpus, so "auto" resolves to the
+            # plain gather (the JAX engine asserts the same,
+            # mfar_tpu/eval/retrieval.py:182-191)
+            if use_pallas_gather is True:
+                raise ValueError("the K1 gather reads one device's whole corpus and is "
+                                 "not composed with the mesh")
+            offset, shard_n = shard_rows(n, self.mesh, self._corpus_axes)
+            block = _row_block(flat, offset, shard_n)
+            self.docs_flat = block.to(self.device, dtype=dense_dtype or block.dtype).contiguous()
             return
         if isinstance(flat, np.ndarray):
             with warnings.catch_warnings():
@@ -358,6 +406,13 @@ class RetrievalEngine:
             self._sparse_inv_map[fk] = inv
         return self._sparse_inv_map[fk]
 
+    def _qaxis(self, b: int) -> Optional[str]:
+        """Query-slice axis for a batch of b rows (None unless the batch
+        divides across the replica groups)."""
+        if self._query_axis is not None and b % self.mesh.shape[self._query_axis] == 0:
+            return self._query_axis
+        return None
+
     def set_mask(self, mask: Optional[np.ndarray]) -> None:
         """Field ablation mask over [dense..., sparse...] (schema order)."""
         self.mask = mask
@@ -469,6 +524,8 @@ class RetrievalEngine:
                 return ("host", self._sparse_only_exact(queries, q, k))
             if self.docs_host is not None or self.docs_host_q is not None:
                 return self._dispatch_host_stream(queries, q, k)
+            if self.mesh is not None:
+                return self._dispatch_mesh(queries, q, k)
             int8 = self.docs_q is not None
             route = "singlechip-int8-" if int8 else "singlechip-"
             W, mask = self._W, self._mask_tensor()
@@ -551,6 +608,38 @@ class RetrievalEngine:
         self.last_serve_path = "-".join(route)
         return ("device", top_s, top_i)
 
+    def _dispatch_mesh(self, queries, q, k):
+        """Exact retrieval over the mesh: the fused routes of
+        :mod:`mfar_tpu_torch.parallel.topk` (weights, fold, each shard's
+        scan, the merge), the same on every rank."""
+        fd = len(self.dense_keys)
+        W, mask = self._W, self._mask_tensor()
+        kw = dict(chunk_size=topk_chunk(self.docs_flat.shape[0], len(queries)),
+                  axis=self._corpus_axes, query_axis=self._qaxis(len(queries)))
+        if not self.sparse_keys:
+            top_s, top_i = mesh_topk.distributed_fused_dense_topk(
+                self.mesh, q, W, mask, self.docs_flat, self.n_docs, fd, k, **kw)
+            self.last_serve_path = "mesh-dense"
+            return ("device", top_s, top_i)
+        cleaned = [clean_query(t) for t in queries]
+        raw = self._sparse_postings_raw(cleaned)
+        if raw is not None:
+            ids, vals, fidx = (self._to_device(a) for a in raw)
+            top_s, top_i = mesh_topk.distributed_fused_hybrid_topk_postings(
+                self.mesh, q, W, mask, self.docs_flat, ids, vals, fidx, self.n_docs, fd, k,
+                **kw)
+            self.last_serve_path = "mesh-hybrid-postings"
+            return ("device", top_s, top_i)
+        # postings denser than half the corpus: each rank adds its columns
+        # of the host's weighted full-corpus scores
+        weights = self._field_weights(q)
+        comb = self._sparse_full_scores(cleaned, weights.cpu().numpy())
+        qflat = fold_queries(q, weights[:, :fd]).to(self.docs_flat.dtype)
+        top_s, top_i = mesh_topk.distributed_hybrid_topk(
+            self.mesh, qflat, self.docs_flat, comb, self.n_docs, k, **kw)
+        self.last_serve_path = "mesh-hybrid-combined"
+        return ("device", top_s, top_i)
+
     def _sparse_only_exact(self, queries, q, k) -> List[List[Tuple[str, float]]]:
         """No dense matrix: the weighted host BM25 scores are the totals."""
         cleaned = [clean_query(t) for t in queries]
@@ -572,13 +661,14 @@ class RetrievalEngine:
 
     def retrieve_rerank(self, queries: Sequence[str], top_k: int = 100) -> List[List[Tuple[str, float]]]:
         """Recall (per-field top-k union) + rerank, the reference pipeline."""
-        return self._rerank_finish(self._rerank_dispatch(queries), top_k)
+        return self._rerank_finish(self._rerank_dispatch(queries, top_k), top_k)
 
-    def _rerank_dispatch(self, queries: Sequence[str]):
+    def _rerank_dispatch(self, queries: Sequence[str], top_k: int = 100):
         """Stage-1 dispatch: query encode + per-field dense recall enqueued
         on the device (not fetched) + per-field BM25 recall on the host, so
         retrieve_many can overlap the next batch's recall with this batch's
-        candidate assembly + stage 2."""
+        candidate assembly + stage 2.  On a mesh, stage 2 runs here too: its
+        all-reduce is a collective, and finish issues none."""
         b = len(queries)
         fd = len(self.dense_keys)
         k = min(self.recall_k, self.n_docs)
@@ -589,7 +679,12 @@ class RetrievalEngine:
                 # Recall scans F field blocks per chunk, so the score-tile
                 # budget sees B*Fd rows.
                 chunk = topk_chunk(self.n_docs, b * fd)
-                if self.docs_flat is not None:
+                if self.mesh is not None:
+                    s, idx = mesh_topk.distributed_per_field_topk(
+                        self.mesh, q.to(self.docs_flat.dtype), self.docs_flat, self.n_docs,
+                        fd, k, chunk_size=topk_chunk(self.docs_flat.shape[0], b * fd),
+                        axis=self._corpus_axes, query_axis=self._qaxis(b))
+                elif self.docs_flat is not None:
                     s, idx = per_field_topk_chunked_approx(
                         q.to(self.docs_flat.dtype), self.docs_flat, self.n_docs, fd, k,
                         chunk_size=chunk,
@@ -620,12 +715,23 @@ class RetrievalEngine:
                     rows = rm[rows]
                     rows = rows[rows >= 0]  # docs absent from the corpus
                 cand_lists[i].append(rows)
-        return dict(b=b, q=q, s=s, idx=idx, fd=fd, k=k, cand_lists=cand_lists,
-                    cleaned=cleaned)
+        st = dict(b=b, q=q, s=s, idx=idx, fd=fd, k=k, cand_lists=cand_lists,
+                  cleaned=cleaned)
+        if self.mesh is not None:
+            st["scored"] = self._rerank_score(st, top_k)
+        return st
 
     def _rerank_finish(self, st, top_k: int) -> List[List[Tuple[str, float]]]:
-        """Fetch the stage-1 recall, union candidates on the host, score +
-        rerank (stage 2), fetch results."""
+        """Stage 2 (unless the dispatch ran it), then fetch the results."""
+        top_s, top_pos, cand = st.get("scored") or self._rerank_score(st, top_k)
+        with torch.inference_mode():
+            top_s, top_pos = top_s.cpu().numpy(), top_pos.cpu().numpy()
+        return self._to_keyed(top_s, np.take_along_axis(cand, top_pos, axis=1))
+
+    def _rerank_score(self, st, top_k: int):
+        """Fetch the stage-1 recall, union candidates on the host, score and
+        rerank them (stage 2).  Returns the device (scores, candidate
+        positions) and the host candidate matrix."""
         b, q, fd, k = st["b"], st["q"], st["fd"], st["k"]
         cand_lists = st["cand_lists"]
         if st["s"] is not None:
@@ -652,6 +758,11 @@ class RetrievalEngine:
                 cand_t = self._to_device(cand)
                 if self.docs_flat is None:
                     dense_scores = self._candidate_scores_without_k1(qf, cand, cand_t, hybrid)
+                elif self.mesh is not None:
+                    dense_scores = mesh_topk.distributed_candidate_scores(
+                        self.mesh, qf, self.docs_flat, cand_t, fd, axis=self._corpus_axes,
+                        query_axis=self._qaxis(b))
+                    self.last_serve_path = "mesh-rerank" + ("-hybrid" if hybrid else "")
                 elif self.use_gather_kernel:
                     dense_scores = gather_per_field_scores(qf, self.docs_flat, cand_t, fd)
                     self.last_serve_path = f"singlechip-rerank-{hybrid}k1"
@@ -675,8 +786,7 @@ class RetrievalEngine:
                 cand_valid=self._to_device(valid),
                 k=min(top_k, width),
             )
-            top_s, top_pos = top_s.cpu().numpy(), top_pos.cpu().numpy()
-        return self._to_keyed(top_s, np.take_along_axis(cand, top_pos, axis=1))
+        return top_s, top_pos, cand
 
     def _candidate_scores_without_k1(self, qf, cand: np.ndarray, cand_t,
                                      hybrid: str) -> torch.Tensor:
@@ -745,7 +855,7 @@ class RetrievalEngine:
         if mode == "rerank":
             pend = None
             for chunk in chunks:
-                st = self._rerank_dispatch(chunk)
+                st = self._rerank_dispatch(chunk, top_k)
                 if pend is not None:
                     out.extend(self._rerank_finish(pend, top_k))
                 pend = st
@@ -773,7 +883,7 @@ class RetrievalEngine:
         """Dispatch half of :meth:`retrieve` (no result fetch); returns an
         opaque handle for :meth:`finish`."""
         if self._resolve_mode(mode) == "rerank":
-            return ("rerank", self._rerank_dispatch(queries), top_k)
+            return ("rerank", self._rerank_dispatch(queries, top_k), top_k)
         return ("exact", self._dispatch_exact(queries, top_k), top_k)
 
     def finish(self, handle) -> List[List[Tuple[str, float]]]:

@@ -1,8 +1,8 @@
 """Online serving daemon: an HTTP front end and a micro-batching dispatcher.
 
-Counterpart of ``mfar_tpu/serve.py`` (``MicroBatcher`` and
-``RetrievalServer``) on one device; serving over several processes
-(``MultihostEngineProxy``, ``follower_loop``) is ROADMAP A15.
+Counterpart of ``mfar_tpu/serve.py``: ``MicroBatcher`` and
+``RetrievalServer`` on one device, and ``MultihostEngineProxy`` and
+``follower_loop`` for a deployment over several processes.
 
 - **Micro-batching**: concurrent requests are coalesced into one engine
   batch.  The first request opens a window of ``max_wait_ms``; the batch
@@ -24,6 +24,14 @@ Counterpart of ``mfar_tpu/serve.py`` (``MicroBatcher`` and
   the device work enqueued, ``RetrievalEngine.dispatch``) before the
   oldest is fetched (``finish``), and an idle queue drains the pipeline at
   once.
+- **Several processes** (one rank per card, a mesh engine): rank 0 owns the
+  HTTP port and wraps its engine in :class:`MultihostEngineProxy`, which
+  sends every batch to the other ranks first; they sit in
+  :func:`follower_loop` and dispatch the same batch, so the engines' row
+  merges line up.  The control messages are fixed-size, length-prefixed
+  JSON broadcast over a gloo group on host tensors (a device broadcast
+  would wait on the card's stream); the results are the same on every
+  rank, and only rank 0 answers.
 
 Endpoints:
   POST /retrieve  {"queries": [...], "top_k"?: int}  ->
@@ -40,13 +48,160 @@ import socket
 import sys
 import threading
 import time
+from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from mfar_tpu_torch.parallel import multihost
+
+_PAYLOAD_BYTES = 1 << 20  # the fixed control-message buffer
 
 _IDLE = object()  # _collect(block=False): no request queued right now
+
+
+def _broadcast_msg(msg: Optional[Dict[str, Any]]):
+    """One lockstep control message from rank 0 to every rank.
+
+    Rank 0 passes the message; the others pass None and receive it.  The
+    buffer has a fixed size (length-prefixed JSON in a ``[_PAYLOAD_BYTES]``
+    uint8 host tensor, the same on every rank) and goes over the gloo
+    control group."""
+    buf = torch.zeros(_PAYLOAD_BYTES, dtype=torch.uint8)
+    if msg is not None:
+        raw = json.dumps(msg).encode()
+        if len(raw) + 8 > _PAYLOAD_BYTES:
+            raise ValueError(f"control message ({len(raw)} B) exceeds the broadcast payload "
+                             f"({_PAYLOAD_BYTES} B)")
+        buf[:8] = torch.frombuffer(bytearray(len(raw).to_bytes(8, "big")), dtype=torch.uint8)
+        buf[8 : 8 + len(raw)] = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    dist.broadcast(buf, src=0, group=multihost.control_group())
+    n = int.from_bytes(buf[:8].numpy().tobytes(), "big")
+    return json.loads(buf[8 : 8 + n].numpy().tobytes())
+
+
+class MultihostEngineProxy:
+    """Rank 0's engine wrapper in a deployment over several processes.
+
+    Presents the engine surface the :class:`MicroBatcher` uses
+    (``retrieve``, ``retrieve_many``, ``dispatch``/``finish``, ``n_docs``,
+    ``device``) but broadcasts every batch to the followers first, so every
+    rank issues the engine's collectives in the same order.  A heartbeat
+    thread broadcasts a no-op when the daemon sits idle longer than
+    ``heartbeat_s``: the followers wait inside the broadcast, whose timeout
+    would otherwise end a quiet deployment.  The heartbeat and the batches
+    share one lock, so a heartbeat never lands between a batch's message and
+    its collectives.
+
+    A batch carries only its real queries, as the one-device daemon's do
+    (the port compiles nothing per shape)."""
+
+    def __init__(self, engine, max_batch: int = 64, heartbeat_s: float = 15.0):
+        self.engine = engine
+        self.max_batch = int(max_batch)
+        self.heartbeat_s = float(heartbeat_s)
+        self._lock = threading.Lock()  # serializes broadcasts (batch vs heartbeat)
+        self._last = time.perf_counter()
+        self._stopped = False
+        self._hb_stop = threading.Event()
+        self._hb = threading.Thread(target=self._heartbeat, daemon=True)
+        self._hb.start()
+
+    @property
+    def n_docs(self) -> int:
+        return self.engine.n_docs
+
+    @property
+    def device(self) -> torch.device:
+        return self.engine.device
+
+    def retrieve(self, queries, top_k: int = 100, mode: Optional[str] = None):
+        return self.finish(self.dispatch(queries, top_k=top_k, mode=mode))
+
+    def dispatch(self, queries, top_k: int = 100, mode: Optional[str] = None):
+        """Broadcast, then dispatch (no fetch): the pipelined daemon's half.
+        Every collective of the batch is issued here, under the lock."""
+        queries = [str(q) for q in queries]
+        if not queries:
+            return None
+        with self._lock:
+            if self._stopped:
+                raise RuntimeError("serving bridge already stopped")
+            self._bcast({"t": "batch", "q": queries, "k": int(top_k), "m": mode})
+            return self.engine.dispatch(queries, top_k=top_k, mode=mode)
+
+    def finish(self, handle):
+        """Fetch a dispatched batch's results (no collective)."""
+        return [] if handle is None else self.engine.finish(handle)
+
+    def retrieve_many(self, queries, top_k: int = 100, mode: Optional[str] = None,
+                      batch_size: Optional[int] = None):
+        # one broadcast per max_batch chunk; the MicroBatcher lands here
+        # only for a single request larger than max_batch
+        out = []
+        for i in range(0, len(queries), self.max_batch):
+            out.extend(self.retrieve(queries[i : i + self.max_batch], top_k=top_k, mode=mode))
+        return out
+
+    def stop(self) -> None:
+        """Release the followers (they return from follower_loop)."""
+        self._hb_stop.set()
+        with self._lock:
+            if not self._stopped:
+                self._stopped = True
+                self._bcast({"t": "stop"})
+        self._hb.join(timeout=30)
+
+    def _heartbeat(self) -> None:
+        while not self._hb_stop.wait(1.0):
+            with self._lock:
+                if self._stopped:
+                    return
+                if time.perf_counter() - self._last >= self.heartbeat_s:
+                    self._bcast({"t": "noop"})
+
+    def _bcast(self, msg: Dict[str, Any]) -> None:
+        _broadcast_msg(msg)
+        self._last = time.perf_counter()
+
+
+def follower_loop(engine, window: int = 2) -> None:
+    """The other ranks' half of the daemon: wait for the next control
+    message, dispatch the same engine batch (its results are rank 0's to
+    answer), repeat until rank 0 broadcasts stop.
+
+    Batches are finished (fetched) ``window`` behind: the broadcast is a
+    collective, so a fetch here before the next message would hold rank 0's
+    next dispatch to this rank's device and serialize the deployment to one
+    batch in flight.  Finishing still bounds the batches in flight and shows
+    a device error."""
+    pending: "deque" = deque()
+
+    def finish_oldest() -> None:
+        try:
+            engine.finish(pending.popleft())
+        except Exception as e:  # noqa: BLE001 -- as on rank 0: identical inputs
+            # raise identically there, where the batcher reports the error to
+            # the waiting requests and keeps serving
+            print(f"[serve-follower] batch failed: {type(e).__name__}: {e}", flush=True)
+
+    while True:
+        msg = _broadcast_msg(None)
+        if msg["t"] == "stop":
+            while pending:
+                finish_oldest()
+            return
+        if msg["t"] == "noop":
+            continue
+        try:
+            pending.append(engine.dispatch(msg["q"], top_k=msg["k"], mode=msg["m"]))
+        except Exception as e:  # noqa: BLE001 -- see finish_oldest
+            print(f"[serve-follower] batch failed: {type(e).__name__}: {e}", flush=True)
+        while len(pending) > window:
+            finish_oldest()
 
 
 class _Pending:
@@ -347,7 +502,10 @@ class RetrievalServer:
                         "status": "ok",
                         "uptime_s": round(time.time() - started, 1),
                         "backend": batcher.engine.device.type,
-                        "n_devices": torch.cuda.device_count(),
+                        # over several processes, every rank's card (as
+                        # JAX's global device count)
+                        "n_devices": (multihost.process_count() if multihost.is_multiprocess()
+                                      else torch.cuda.device_count()),
                         "n_docs": batcher.engine.n_docs,
                     })
                 elif self.path == "/stats":

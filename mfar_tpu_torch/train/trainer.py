@@ -15,7 +15,11 @@ Lightning Trainer + callbacks):
   by the monitor, ``best.txt``), ``dev_by_iter`` mid-epoch validation and
   ``run_one_iteration``.
 
-Several devices (the JAX trainer's ``mesh``) are ROADMAP A15.
+A ``mesh`` (:mod:`mfar_tpu_torch.parallel.mesh`) serves the evaluation
+over several ranks, as ``mask_fields`` uses it: the index build splits its
+batches over the ranks and the engine shards the corpus rows; only rank 0
+writes files, and every rank scores the same in-memory run.  Training on a
+mesh (:meth:`Trainer.fit`) is ROADMAP A15b.
 """
 
 from __future__ import annotations
@@ -32,7 +36,9 @@ from mfar_tpu_torch.data import trec
 from mfar_tpu_torch.data.schema import sparse_keys
 from mfar_tpu_torch.data.types import Corpus, Field
 from mfar_tpu_torch.eval.index_build import build_dense_corpus_matrix, make_encode_fn
+from mfar_tpu_torch.eval import metrics as eval_metrics
 from mfar_tpu_torch.eval.retrieval import RetrievalEngine
+from mfar_tpu_torch.parallel import multihost
 from mfar_tpu_torch.train.checkpoint import CheckpointManager
 from mfar_tpu_torch.train.data_pipeline import (
     ContrastiveDataset,
@@ -94,8 +100,7 @@ class Trainer:
         logger: Optional[MetricsLogger] = None,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("training over several devices (mesh) is ROADMAP A15")
+        self.mesh = mesh
         self.tokenizer = tokenizer
         self.field_info = field_info
         self.corpus = corpus
@@ -110,11 +115,13 @@ class Trainer:
         self.logger = logger or MetricsLogger(config.out_dir)
         self.timer = Timer()
 
-        os.makedirs(config.out_dir, exist_ok=True)
-        self.ckpt = CheckpointManager(
-            config.out_dir, monitor=config.monitor,
-            mode=CheckpointManager.monitor_mode(config.monitor),
-        )
+        self.ckpt = None  # rank 0 owns the run directory (fit trains in one process)
+        if multihost.is_primary():
+            os.makedirs(config.out_dir, exist_ok=True)
+            self.ckpt = CheckpointManager(
+                config.out_dir, monitor=config.monitor,
+                mode=CheckpointManager.monitor_mode(config.monitor),
+            )
         self.best_score = 0.0
         self._last_epoch_padding_pct = 0.0
         self.mask: Optional[np.ndarray] = None
@@ -126,7 +133,7 @@ class Trainer:
         """(Re)index the corpus with the current encoder and assemble the
         retrieval engine."""
         device = next(state.model.parameters()).device
-        encode = make_encode_fn(state.model.encoder, device=device)
+        encode = make_encode_fn(state.model.encoder, device=device, mesh=self.mesh)
         dense_fields = {k: f for k, f in self.field_info.items() if f.is_dense}
         with self.timer.phase("index_build"):
             matrix = build_dense_corpus_matrix(
@@ -150,6 +157,7 @@ class Trainer:
             mask=self.mask,
             mode=self.cfg.retrieval_mode,
             corpus_on_host=self.cfg.corpus_on_host,
+            mesh=self.mesh,
             device=device,
         )
 
@@ -220,14 +228,25 @@ class Trainer:
                 [queries[q] for q in qids], top_k=self.cfg.top_k,
                 batch_size=self.cfg.dev_batch_size,
             )
+        qres = engine.to_qres(qids, results)
         qres_path = os.path.join(self.cfg.out_dir, f"{tag}.qres")
-        trec.write_qres(qres_path, engine.to_qres(qids, results))
+        if multihost.is_primary():
+            trec.write_qres(qres_path, qres)
+        if multihost.is_multiprocess():
+            # every rank scores the same in-memory run, so their decisions
+            # agree; the qres file exists on rank 0 only
+            with self.timer.phase("trec_eval"):
+                return eval_metrics.evaluate(trec.QRels.from_file(qrels_path), qres)
         with self.timer.phase("trec_eval"):
             return trec.call_trec_eval_and_get_metrics(qrels_path, qres_path)
 
     # ------------------------------------------------------------------
 
     def fit(self, state: TrainState, start_epoch: int = 0) -> TrainState:
+        if self.mesh is not None or multihost.is_multiprocess():
+            # checked here, not in __init__: evaluation (mask_fields) builds
+            # a Trainer over a mesh and never trains
+            raise NotImplementedError("training over several ranks (mesh) is ROADMAP A15b")
         cfg = self.cfg
         # loss-like monitors minimize, quality metrics maximize
         sign = 1.0 if CheckpointManager.monitor_mode(cfg.monitor) == "min" else -1.0
@@ -307,6 +326,8 @@ class Trainer:
             record = {k: f"{metrics.get(k, 0.0):.3f}" for k in RESULT_KEYS}
             record["masked_fields"] = self.masked_fields_string
             record["additional"] = "test" if tag == "additional" else "val"
+            if not multihost.is_primary():
+                continue
             if verbose:
                 print("\t".join(RESULT_KEYS))
                 print("\t".join(record[k] for k in RESULT_KEYS))

@@ -17,7 +17,10 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda``; a CUDA device without a visible card raises."""
+    """``None`` -> ``cuda``; a CUDA device without a visible card raises.
+    ``cuda`` without an index resolves to the current card, so that a rank's
+    tensors stay on its own card in every thread (the current card is a
+    thread's own, and a new thread starts on card 0)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -26,6 +29,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev} (cuda or cpu)")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

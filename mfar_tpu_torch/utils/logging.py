@@ -1,9 +1,11 @@
 """Structured metrics logging: JSONL, optional wandb/mlflow.
 
-The port's copy of ``mfar_tpu/utils/logging.py`` for one process: the
-always-on backend is a JSONL file (``metrics.jsonl``, machine-readable run
-history); wandb and mlflow attach when their packages import and start, and
-are skipped with a notice otherwise, as in the JAX package.
+The port's copy of ``mfar_tpu/utils/logging.py``: the always-on backend is
+a JSONL file (``metrics.jsonl``, machine-readable run history); wandb and
+mlflow attach when their packages import and start, and are skipped with a
+notice otherwise, as in the JAX package.  Over several processes only rank
+0 writes; the other ranks keep a logger that does nothing, so call sites
+stay the same.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import json
 import os
 import time
 from typing import Any, Dict, Optional
+
+from mfar_tpu_torch.parallel import multihost
 
 
 class MetricsLogger:
@@ -24,6 +28,10 @@ class MetricsLogger:
         #                                    mfar/commands/train.py:74-80)
         wandb_dir: Optional[str] = None,  # wandb local artifact dir
     ):
+        self.enabled = multihost.is_primary()
+        self._f = self.backend = None
+        if not self.enabled:
+            return
         os.makedirs(out_dir, exist_ok=True)
         self.path = os.path.join(out_dir, "metrics.jsonl")
         self._f = open(self.path, "a")
@@ -51,6 +59,8 @@ class MetricsLogger:
                       f"{e}); using JSONL only")
 
     def log_hyperparams(self, params: Dict[str, Any]) -> None:
+        if not self.enabled:
+            return
         flat = {k: v for k, v in params.items() if not isinstance(v, dict)}
         self._write({"event": "hyperparams", **flat})
         if self.backend:
@@ -61,6 +71,8 @@ class MetricsLogger:
                 mod.log_params({k: str(v) for k, v in flat.items()})
 
     def log(self, metrics: Dict[str, float], step: int, prefix: str = "") -> None:
+        if not self.enabled:
+            return
         record = {f"{prefix}{k}": _to_float(v) for k, v in metrics.items()}
         self._write({"event": "metrics", "step": step, **record})
         if self.backend:
@@ -76,6 +88,8 @@ class MetricsLogger:
         self._f.flush()
 
     def close(self) -> None:
+        if not self.enabled:
+            return
         self._f.close()
         if self.backend and self.backend[0] == "mlflow":
             self.backend[1].end_run()

@@ -186,12 +186,11 @@ def test_encode_corpus_cli_matches_the_jax_cli_on_a_bert_dir(data_dir, tmp_path)
 
 @pytest.mark.parametrize("extra,cards,err,match", [
     (["--device", "cpu", "--checkpoint-dir", "ckpt"], 0, FileNotFoundError, "best.txt"),
-    (["--device", "cuda"], 2, NotImplementedError, "A15"),
     ([], 0, RuntimeError, "no CUDA device"),
 ])
 def test_encode_corpus_cli_refuses(data_dir, tmp_path, monkeypatch, extra, cards, err, match):
-    """A checkpoint directory without a train run's best.txt, several visible
-    cards under --mesh auto (A15), and the default device without a card."""
+    """A checkpoint directory without a train run's best.txt, and the
+    default device without a card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: cards > 0)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     with pytest.raises(err, match=match):

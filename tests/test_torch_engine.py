@@ -214,7 +214,8 @@ def test_exact_engine_reranks_through_k1(world, serve):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "A15"),
+    (dict(mesh=object(), quantize="int8"), "A15c"),
+    (dict(mesh=object(), corpus_on_host=True), "A15c"),
     (dict(pallas_cross_row=True), "B1"),
 ])
 def test_unported_options_raise(world, kw, item):

@@ -1,0 +1,202 @@
+"""The port's commands over two processes (one gloo rank each, on the CPU):
+``retrieve``, ``serve --smoke-out``, ``encode_corpus`` and ``mask_fields``,
+each started as a pair with ``MFAR_COORDINATOR=file://...`` (so that
+parallel test workers never share a port) and ``--multihost force``, all
+pairs at once, once for the module.
+
+The dataset has 61 documents (rows that do not divide 2), the model is the
+JAX package's synthetic encoder carried into a port checkpoint
+(``models/convert.py``), and the reference is the JAX engine on a mesh of 2
+of the suite's virtual CPU devices over the same weights: the two-process
+``retrieve`` run file and ``serve`` answers hold to its ranking at rtol 1e-4
+/ atol 1e-3, ties allowed.  Only rank 0 writes; rank 0 names the route
+(``[mesh-hybrid-postings]``); the follower leaves on the stop message; the
+two-rank ``encode_corpus`` equals the one-process file and the two-rank
+``mask_fields`` the one-process metrics.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from mfar_tpu.commands.common import corpus_texts_for_vocab as jax_vocab_texts
+from mfar_tpu.commands.common import load_corpus as jax_load_corpus
+from mfar_tpu.data import trec as jax_trec
+from mfar_tpu.data.schema import resolve_fields as jax_resolve_fields
+from mfar_tpu.eval.index_build import build_dense_corpus_matrix as jax_build_matrix
+from mfar_tpu.eval.index_build import build_sparse_indices as jax_sparse_indices
+from mfar_tpu.eval.index_build import make_encode_fn as jax_make_encode_fn
+from mfar_tpu.eval.retrieval import RetrievalEngine as JaxEngine
+from mfar_tpu.models import build_encoder as jax_build_encoder
+from mfar_tpu.models.registry import prepare_model as jax_prepare_model
+from mfar_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from mfar_tpu_torch.commands import create_sparse_index, encode_corpus, make_synth_data
+from mfar_tpu_torch.commands import mask_fields
+from mfar_tpu_torch.data import trec
+from mfar_tpu_torch.data.schema import resolve_fields
+from mfar_tpu_torch.eval.compare import rankings_agree
+from mfar_tpu_torch.eval.index_build import load_dense_matrix
+from mfar_tpu_torch.models.convert import model_state_from_jax
+from mfar_tpu_torch.models.registry import prepare_model
+from mfar_tpu_torch.train.checkpoint import CheckpointManager
+from mfar_tpu_torch.train.model import MFARModel
+from mfar_tpu_torch.train.optim import make_optimizer
+from mfar_tpu_torch.train.train_step import init_state
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RTOL, ATOL = 1e-4, 1e-3
+FIELDS = "title_dense,title_sparse"
+
+
+def _flags(d):
+    return ["--dataset-name", "amazon", "--data", d["data"], "--field-names", FIELDS,
+            "--model-name", "synthetic", "--checkpoint-dir", d["run"], "--device", "cpu"]
+
+
+# the JAX reference engine keeps the corpus in f32
+ENGINE = ["--dense-dtype", "f32", "--top-k", "10"]
+
+
+def _commands(d, tmp):
+    """Each command's argv per rank (rank 1's outputs go to their own paths,
+    which must stay unwritten)."""
+    engine = _flags(d) + ["--lexical-index", d["idx"], *ENGINE]
+    return {
+        "retrieve": lambda r: ["mfar_tpu_torch.commands.retrieve", *engine, "--batch-size", "8",
+                               "--out", str(tmp / f"run{r}.qres"), "--multihost", "force"],
+        "serve": lambda r: ["mfar_tpu_torch.commands.serve", *engine, "--mode", "rerank",
+                            "--recall-k", "20", "--max-batch", "8", "--port", "0",
+                            "--smoke-out", str(tmp / f"smoke{r}.json"), "--multihost", "force"],
+        "encode": lambda r: ["mfar_tpu_torch.commands.encode_corpus", *_flags(d),
+                             "--batch-size", "8", "--out", str(tmp / f"enc{r}.npz")],
+        "mask": lambda r: ["mfar_tpu_torch.commands.mask_fields", *_flags(d), "--lexical-index",
+                           d["idx"], "--out", str(tmp / f"mask{r}"), "--debug",
+                           "--recall-k", "20", "--dev-max-length", "64",
+                           "--multihost", "force"],
+    }
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("mh")
+    d = {k: str(tmp / k) for k in ("data", "idx", "run")}
+    make_synth_data.main(["--out", d["data"], "--dataset-name", "amazon", "--n-docs", "61",
+                          "--n-train", "8", "--n-val", "8", "--seed", "3"])
+    create_sparse_index.main(["--data-path", d["data"], "--dataset-name", "amazon",
+                              "--output-path", d["idx"]])
+    # the JAX synthetic encoder and a mixer, in a port checkpoint
+    corpus = jax_load_corpus(d["data"], "amazon")
+    jfi = jax_resolve_fields(FIELDS, "amazon")
+    jcfg, jparams, jtok = jax_prepare_model("synthetic",
+                                            corpus_texts=jax_vocab_texts(corpus, jfi))
+    mixer = np.random.default_rng(4).normal(scale=0.5, size=(jcfg.hidden_size, len(jfi)))
+    mixer = mixer.astype(np.float32)
+    pfi = resolve_fields(FIELDS, "amazon")
+    pcfg, _, _ = prepare_model("synthetic", corpus_texts=jax_vocab_texts(corpus, jfi))
+    pstate = init_state(MFARModel(encoder_config=pcfg, num_fields=len(pfi)),
+                        make_optimizer(encoder_lr=1e-4, weights_lr=1e-1), device="cpu")
+    pstate.model.load_state_dict(model_state_from_jax(jax.tree.map(
+        np.asarray, {"encoder": jparams, "mixer": {"weight": mixer}})))
+    ckpt = CheckpointManager(d["run"])
+    ckpt.save(0, pstate, {"valid_loss": 1.0}, field_info=pfi, config={})
+    ckpt.write_best_txt()
+
+    procs = {}
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MFAR_")}
+    env.update(PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    for name, argv in _commands(d, tmp).items():
+        procs[name] = [subprocess.Popen(
+            [sys.executable, "-c", "import torch; torch.set_num_threads(1); import runpy, sys; "
+             "sys.argv = sys.argv[1:]; runpy.run_module(sys.argv[0], run_name='__main__')",
+             *argv(r)],
+            env=dict(env, MFAR_COORDINATOR=f"file://{tmp / f'init_{name}'}",
+                     MFAR_NUM_PROCESSES="2", MFAR_PROCESS_ID=str(r)),
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+    # the JAX engine on a mesh of 2 virtual devices over the same weights,
+    # while the ranks run
+    encoder = jax_build_encoder(jcfg)
+    jmesh = jax_make_mesh(devices=jax.devices()[:2])
+    encode = jax_make_encode_fn(encoder, jparams, mesh=jmesh)
+    matrix = jax_build_matrix(encode, jtok, corpus, {k: f for k, f in jfi.items() if f.is_dense})
+    jeng = JaxEngine(field_info=jfi, doc_keys=list(corpus.keys()), encode_fn=encode,
+                     tokenizer=jtok, mixer_params={"weight": jnp.asarray(mixer)},
+                     dense_matrix=matrix, sparse_indices=jax_sparse_indices(corpus, jfi),
+                     recall_k=20, mesh=jmesh)
+    queries = jax_trec.read_queries(os.path.join(d["data"], "test.queries"))
+    want = {mode: dict(zip(queries, jeng.retrieve_many(list(queries.values()), top_k=10,
+                                                       mode=mode, batch_size=8)))
+            for mode in ("exact", "rerank")}
+    logs = {}
+    for name, pair in procs.items():
+        for r, p in enumerate(pair):
+            try:
+                logs[(name, r)] = p.communicate(timeout=120)[0]
+            except subprocess.TimeoutExpired:
+                for q in (q for qs in procs.values() for q in qs):
+                    q.kill()
+                pytest.fail(f"{name} rank {r} timed out:\n{p.communicate()[0][-3000:]}")
+            assert p.returncode == 0, f"{name} rank {r} failed:\n{logs[(name, r)][-4000:]}"
+
+    return dict(tmp=tmp, d=d, logs=logs, want=want, jax_route=jeng.last_serve_path)
+
+
+def _qres_ranking(path):
+    out = {}
+    for r in trec.QRes.from_file(path):
+        out.setdefault(r.query_id, []).append((r.doc_id, float(r.sim)))
+    return out
+
+
+def _agree(got: dict, want: dict):
+    assert got.keys() == want.keys()
+    msg = rankings_agree([got[q] for q in want], [want[q] for q in want], RTOL, ATOL)
+    assert msg is None, msg
+
+
+def test_two_process_retrieve_matches_the_jax_mesh(runs):
+    tmp, logs = runs["tmp"], runs["logs"]
+    assert not os.path.exists(tmp / "run1.qres")  # rank 0 owns file I/O
+    assert "[mesh-hybrid-postings]" in logs[("retrieve", 0)]
+    assert runs["jax_route"] == "mesh-hybrid-postings"
+    assert "[retrieve] multihost: process 1/2" in logs[("retrieve", 1)]
+    _agree(_qres_ranking(str(tmp / "run0.qres")), runs["want"]["exact"])
+
+
+def test_two_process_serve_smoke_matches_the_jax_mesh(runs):
+    tmp, logs = runs["tmp"], runs["logs"]
+    assert not os.path.exists(tmp / "smoke1.json")
+    assert "[serve] follower 1 done" in logs[("serve", 1)]
+    smoke = json.load(open(tmp / "smoke0.json"))
+    assert smoke["stats"]["errors"] == 0
+    assert smoke["stats"]["queries"] == len(smoke["qids"])
+    got = {q: [(k, s) for k, s in hits] for q, hits in zip(smoke["qids"], smoke["results"])}
+    _agree(got, runs["want"]["rerank"])
+
+
+def test_two_rank_encode_and_mask_fields_equal_one_process(runs, tmp_path):
+    tmp, d = runs["tmp"], runs["d"]
+    assert not os.path.exists(tmp / "enc1.npz") and not os.path.exists(tmp / "mask1")
+    argv = _commands(d, tmp_path)
+    encode_corpus.main(argv["encode"](0)[1:])
+    one, keys = load_dense_matrix(str(tmp_path / "enc0.npz"))
+    two, keys2 = load_dense_matrix(str(tmp / "enc0.npz"))
+    assert keys == keys2 and one.shape == two.shape == (61, 1, one.shape[-1])
+    np.testing.assert_allclose(two, one, rtol=0, atol=1e-5)
+    mask_fields.main([a for a in argv["mask"](0)[1:] if a not in ("--multihost", "force")])
+
+    def records(out):
+        with open(os.path.join(out, "results_dicts.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    assert records(str(tmp / "mask0")) == records(str(tmp_path / "mask0"))

@@ -54,7 +54,8 @@ def test_importing_the_port_loads_no_jax():
             "mfar_tpu_torch.serve", "mfar_tpu_torch.commands.serve",
             "mfar_tpu_torch.ops.scoring", "mfar_tpu_torch.models.t5_encoder",
             "mfar_tpu_torch.models.t5_decoder", "mfar_tpu_torch.models.registry",
-            "mfar_tpu_torch.models.convert"} <= set(mods)
+            "mfar_tpu_torch.models.convert", "mfar_tpu_torch.parallel.mesh",
+            "mfar_tpu_torch.parallel.topk", "mfar_tpu_torch.parallel.multihost"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -180,3 +181,70 @@ def test_t5_paths_run_without_jax_or_transformers():
     bad = [m for m in out if _forbidden(m)]
     assert not bad, f"the port loaded {bad[:10]}"
     assert "mfar_tpu_torch.models.t5_encoder" in out and "tokenizers" in out
+
+
+RANK_PATHS = """
+import datetime, sys, time
+import numpy as np, torch, torch.distributed as dist
+rank, init = int(sys.argv[1]), sys.argv[2]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method="file://" + init, world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=60))
+from mfar_tpu_torch.parallel import multihost, topk
+from mfar_tpu_torch.parallel.mesh import make_mesh
+from mfar_tpu_torch.serve import MultihostEngineProxy, follower_loop
+
+mesh = make_mesh()
+docs = torch.from_numpy(np.random.default_rng(0).normal(size=(10, 8)).astype(np.float32))
+s, i = topk.distributed_dense_topk(mesh, docs[:2], docs[rank * 5 : rank * 5 + 5], 10, 3)
+assert i.tolist() == torch.topk(docs[:2] @ docs.T, 3).indices.tolist(), i
+
+
+class Engine:
+    n_docs, device = 10, torch.device("cpu")
+
+    def dispatch(self, queries, top_k=100, mode=None):
+        return topk.distributed_dense_topk(mesh, docs[:len(queries)], docs[rank * 5 :][:5],
+                                           10, top_k)
+
+    def finish(self, handle):
+        return handle[1].tolist()
+
+
+if rank == 0:
+    # heartbeats every second (the thread's tick) among 40 batches over ~2 s:
+    # the shared lock keeps a no-op from landing inside a batch's collectives
+    proxy = MultihostEngineProxy(Engine(), max_batch=2, heartbeat_s=0.0)
+    want = torch.topk(docs[:2] @ docs.T, 2).indices.tolist()
+    for _ in range(40):
+        assert proxy.retrieve(["a", "b"], top_k=2) == want
+        time.sleep(0.05)
+    proxy.stop()
+    assert not proxy._hb.is_alive()
+else:
+    follower_loop(Engine())
+multihost.sync("done")
+print("\\n".join(sorted(sys.modules)))
+"""
+
+
+def test_a_spawned_rank_loads_no_jax(tmp_path):
+    """Two gloo ranks run the mesh, a distributed route, and the daemon's
+    broadcast (rank 0's proxy, rank 1's follower loop, heartbeats between
+    batches) without JAX."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = [subprocess.Popen([sys.executable, "-c", RANK_PATHS, str(r), str(tmp_path / "init")],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+        assert p.returncode == 0, err[-3000:]
+        mods = out.split()
+        bad = [m for m in mods if _forbidden(m)]
+        assert not bad, f"a rank loaded {bad[:10]}"
+        assert "mfar_tpu_torch.parallel.topk" in mods and "mfar_tpu_torch.serve" in mods

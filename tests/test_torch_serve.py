@@ -411,10 +411,16 @@ def test_serve_smoke_out_matches_the_jax_command(datasets, mode, capsys):
     assert smoke["port"]["stats"]["errors"] == 0
 
 
-def test_serve_multihost_force_raises_a15(datasets):
+def test_serve_multihost_force_raises_a15(datasets, monkeypatch):
+    """``--multihost force`` without the MFAR_* triple and ``pod`` without
+    torchrun's environment exit before any work (serving over several
+    processes, once A15, runs in tests/test_torch_multihost.py)."""
     _, dirs = datasets
-    for value in ("force", "pod"):
-        with pytest.raises(NotImplementedError, match="A15"):
+    for var in ("MFAR_COORDINATOR", "MFAR_NUM_PROCESSES", "MFAR_PROCESS_ID", "RANK",
+                "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    for value, match in (("force", "MFAR_COORDINATOR"), ("pod", "torchrun")):
+        with pytest.raises(SystemExit, match=match):
             port_serve_cmd.main(["--dataset-name", "amazon", "--data", dirs["port"],
                                  "--model-name", "synthetic", "--multihost", value,
                                  "--device", "cpu"])

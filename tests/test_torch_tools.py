@@ -284,16 +284,20 @@ def test_retrieve_accepts_the_jax_flag_set(monkeypatch):
             "n_model", "n_replica", "corpus_per_slice", "multihost"} <= set(got)
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--pallas-cross-row"], "B1"),
-    (["--n-model", "2"], "A15"),
-    (["--n-replica", "2"], "A15"),
-    (["--corpus-per-slice"], "A15"),
-    (["--multihost", "force"], "A15"),
+@pytest.mark.parametrize("extra,err,item", [
+    (["--pallas-cross-row"], NotImplementedError, "B1"),
+    (["--multihost", "force"], SystemExit, "MFAR_COORDINATOR"),
+    (["--multihost", "pod"], SystemExit, "torchrun"),
 ])
-def test_retrieve_refuses_unported_engine_flags(data, tmp_path, extra, item):
+def test_retrieve_refuses_unported_engine_flags(data, tmp_path, monkeypatch, extra, err, item):
+    """An unported engine flag, and the multi-process modes without their
+    launcher's environment (the mesh itself runs in
+    tests/test_torch_multihost.py)."""
     _, dirs = data
-    with pytest.raises(NotImplementedError, match=item):
+    for var in ("MFAR_COORDINATOR", "MFAR_NUM_PROCESSES", "MFAR_PROCESS_ID", "RANK",
+                "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(err, match=item):
         port_retrieve.main(["--dataset-name", "amazon", "--data", dirs["port"],
                             "--out", str(tmp_path / "r.qres"), "--model-name", "synthetic",
                             "--device", "cpu", *extra])
@@ -301,18 +305,16 @@ def test_retrieve_refuses_unported_engine_flags(data, tmp_path, extra, item):
 
 @pytest.mark.parametrize("n_model", [1, 2])
 def test_mesh_auto_with_several_cards(monkeypatch, capsys, n_model):
-    """``--mesh auto`` with two visible cards serves on one and says so; an
-    explicit ``--n-model 2`` asks for a mesh, which the engine refuses."""
+    """``--mesh auto`` in one process that sees two cards serves on one and
+    says how to start one rank per card; ``--n-model 2`` shapes a mesh only
+    over several ranks (as JAX's one-device ``mesh_from_flag``)."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     args = argparse.Namespace(mesh="auto", device="cuda", n_model=n_model, n_replica=1)
     mesh = requested_mesh(args, "retrieve")
-    if n_model == 1:
-        assert mesh is None
-        assert "2 visible cards, running on one" in capsys.readouterr().out
-        RetrievalEngine.refuse_unported(mesh=mesh)
-    else:
-        with pytest.raises(NotImplementedError, match="A15"):
-            RetrievalEngine.refuse_unported(mesh=mesh)
+    assert mesh is None
+    printed = capsys.readouterr().out
+    assert "2 visible cards, running on one" in printed and "--multihost pod" in printed
+    RetrievalEngine.refuse_unported(mesh=mesh)
 
 
 def test_hybrid_retrieve_from_the_ports_own_inputs(data, tmp_path):

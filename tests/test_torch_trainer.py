@@ -148,10 +148,13 @@ def test_test_and_mask_fields(setup):
 
 
 def test_trainer_refuses_a_mesh(setup):
+    """A mesh serves evaluation (mask_fields); training on one is A15b."""
     t = setup["trainer"]
-    with pytest.raises(NotImplementedError, match="A15"):
-        Trainer(t.tokenizer, t.field_info, t.corpus, t.train_dataset, t.val_dataset,
-                t.dev_queries, t.dev_qrels_path, t.cfg, mesh=object())
+    mesh_trainer = Trainer(t.tokenizer, t.field_info, t.corpus, t.train_dataset,
+                           t.val_dataset, t.dev_queries, t.dev_qrels_path, t.cfg,
+                           mesh=object())
+    with pytest.raises(NotImplementedError, match="A15b"):
+        mesh_trainer.fit(setup["state"])
 
 
 # ----------------------------------------------------------------------
