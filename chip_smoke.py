@@ -48,13 +48,26 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 (the counted main path of training), steps/s through K2/K2b
                 and plain in turns, a profiled step, a trec eval over an
                 index rebuilt by the trained encoder, a checkpoint round trip
-10. train_cli -- the train command on a dataset directory and a BERT
+10. train_mesh -- data-parallel training at that width (bf16, remat,
+                K2/K2b) over mag all_dense, global batch 16 with one BM25
+                negative: (a) two gloo ranks sharing the card, child
+                processes; (b) with several cards, one NCCL rank per card.
+                Each: one batch's loss, grad_norm and per-group gradients on
+                a rank's rows, summed over the ranks, against one device's
+                on the whole batch, each rank's K2/K2b launches; one AdamW
+                step leaving every rank's weights bit-equal, after which a
+                validation batch's loss matches one device's after its
+                step; Trainer.fit over the ranks (launches
+                counted per rank), rank 0's checkpoint and
+                restore_broadcast; (b) adds steps/s at global batches 16
+                and 64 against one card and the gradient all-reduce's time
+11. train_cli -- the train command on a dataset directory and a BERT
                 directory, one iteration on the card, then retrieve
                 --checkpoint-dir on its output
-11. serving  -- the same engine over a prebuilt random [131072, 5, 768] bf16
+12. serving  -- the same engine over a prebuilt random [131072, 5, 768] bf16
                 corpus in rerank mode: QPS, one batch's stages, and the
                 device's busy share and time by kernel from torch.profiler
-12. hybrid   -- all_dense,all_sparse (10 mixer fields) on the e2e corpus:
+13. hybrid   -- all_dense,all_sparse (10 mixer fields) on the e2e corpus:
                 the K2-built matrix and a native BM25 index per sparse
                 field; exact mode on the postings route (queries of rare
                 words) and on the combined route (the e2e queries, whose
@@ -63,7 +76,7 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 BM25 backend); rerank through K1 with sparse stages 1b and 2
                 against the plain-gather engine; a sparse-only engine; every
                 sparse field masked against a dense-only engine
-13. hybrid_serving -- 131072 mag-shaped documents (STaRK-Prime's entity
+14. hybrid_serving -- 131072 mag-shaped documents (STaRK-Prime's entity
                 count) with native BM25 over the 5 sparse fields and the
                 serving phase's random bf16 matrix: BM25 build seconds,
                 postings width, exact (postings route) and rerank QPS on
@@ -72,14 +85,14 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 batch of each route against the reference; the int8
                 corpus's two hybrid routes and the host stream's postings
                 route (against a device-resident engine)
-14. hybrid_cli -- the port's own command chain at Contriever-base width:
+15. hybrid_cli -- the port's own command chain at Contriever-base width:
                 make_synth_data, create_sparse_index,
                 precompute_sparse_scores, train --field-names
                 all_dense,all_sparse --sparse-scores-path, mask_fields on
                 its output, retrieve --lexical-index --checkpoint-dir, and
                 serve --smoke-out in rerank (K1) and exact mode against the
                 same engine
-15. gtr      -- the T5/GTR family at GTR-T5-base's published widths with
+16. gtr      -- the T5/GTR family at GTR-T5-base's published widths with
                 seeded weights, written as a local sentence-transformers
                 directory and loaded by prepare_model: the e2e corpus's bf16
                 index (a subset against an f32 build), rerank (K1) and exact
@@ -88,7 +101,7 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 profiled step, a checkpoint round trip), the train command
                 and retrieve --checkpoint-dir, and a seq2seq grafted from a
                 seeded local T5-base directory (bf16 logits against f32)
-16. mesh     -- serving over several ranks (mfar_tpu_torch.parallel): (a) one
+17. mesh     -- serving over several ranks (mfar_tpu_torch.parallel): (a) one
                 NCCL rank (a world of 1 made here, make_mesh over it): the
                 mesh engine, exact and rerank, dense and all_dense,all_sparse,
                 on the e2e corpus and the [131072, 5, 768] corpus, against the
@@ -104,7 +117,7 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 output, exact and rerank QPS at batch 256 over the
                 [1048576, 5, 768] bf16 corpus (each rank making only its rows)
                 beside one card's, and the daemon with 64 HTTP clients for 10 s
-17. serve    -- the serving daemon (mfar_tpu_torch.serve) over a random bf16
+18. serve    -- the serving daemon (mfar_tpu_torch.serve) over a random bf16
                 [1048576, 5, 768] corpus made on the card: max_batch 256,
                 max_wait_ms 5, top_k 100, 64 closed-loop HTTP clients of 8
                 queries in a child process, 10 s a run; exact at pipeline
@@ -112,13 +125,13 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 p50/p95, batch fill, the dispatcher's phase seconds, K1
                 launches; the port closed until warmup ends; sampled answers
                 == engine.retrieve
-18. int8     -- that corpus quantized on the card: exact QPS in bf16 and int8
+19. int8     -- that corpus quantized on the card: exact QPS in bf16 and int8
                 in turns, corpus bytes, recall@100 of int8 against bf16, a
                 131072-row slice against a brute-force int8 reference with
                 exact integer dots, int8_dot (torch._int_mm) at a 1-query
                 batch and row counts off a multiple of 8, int8 rerank on the
                 e2e corpus
-19. host_stream -- that corpus copied to host memory (cut if MemAvailable is
+20. host_stream -- that corpus copied to host memory (cut if MemAvailable is
                 short of 3x it) and streamed per scan in bf16 and int8: QPS,
                 chunks, the achieved copy rate against one pinned copy of a
                 chunk, device memory over the encoder's working set, every
@@ -126,9 +139,10 @@ Contriever-base and GTR-T5-base width with seeded random weights:
 
 TF32 is switched off for matmuls and cuDNN, so f32 comparisons run in full
 f32.  Any failed check raises and the run exits non-zero; a rank that fails
-or outlives its timeout fails the mesh phase, and every rank is killed.
-``--phases`` runs only the listed phases (and those they read from) after
-device and build, e.g. ``--phases build,mesh`` on four cards.  The last two
+or outlives its timeout fails the mesh or train_mesh phase, and every rank
+is killed.  ``--phases`` runs only the listed phases (and those they read
+from) after device and build, e.g. ``--phases build,mesh`` or ``--phases
+train,train_mesh`` on four cards.  The last two
 lines are one JSON object with every kernel's numbers (in a run of every
 phase) and one with ``"ok": true`` and the device.
 """
@@ -139,6 +153,7 @@ import argparse
 import collections
 import concurrent.futures
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -214,7 +229,7 @@ from mfar_tpu_torch.train.data_pipeline import (
 )
 from mfar_tpu_torch.train.model import MFARModel
 from mfar_tpu_torch.train.optim import make_optimizer, param_labels
-from mfar_tpu_torch.train.train_step import init_state, to_device, train_step
+from mfar_tpu_torch.train.train_step import eval_loss_step, init_state, to_device, train_step
 from mfar_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 DEVICE = "cuda"
@@ -977,7 +992,7 @@ def run_e2e(seed: int, n_docs: int = 2048, n_queries: int = 256, batch_size: int
 
 
 # ----------------------------------------------------------------------
-# phase 6: long queries through K2
+# phase 7: long queries through K2
 
 
 def run_long(seed, engine, plain_engine, corpus, n_layers, n=64, words=150,
@@ -1025,7 +1040,7 @@ def run_long(seed, engine, plain_engine, corpus, n_layers, n=64, words=150,
 
 
 # ----------------------------------------------------------------------
-# phase 7: the encode_corpus command
+# phase 8: the encode_corpus command
 
 
 def write_data_dir(path, pairs, splits=None):
@@ -1374,7 +1389,299 @@ def run_train(seed, corpus, tok, epochs=2, steps=12, batch=16):
 
 
 # ----------------------------------------------------------------------
-# phase 10: the train command, then retrieve from its checkpoint
+# phase 10: data-parallel training over several ranks
+
+
+def param_digest(model) -> str:
+    """A hash of every parameter's bytes: equal digests are equal weights."""
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def update_cosines(model, start, other) -> dict:
+    """Per optimizer group, the cosine of ``model``'s move from ``start``
+    (a {name: tensor} copy) against ``other``'s."""
+    labels = param_labels(model)
+    moves = {"encoder": ([], []), "head": ([], [])}
+    theirs = dict(other.named_parameters())
+    for name, p in model.named_parameters():
+        a, b = moves[labels[name]]
+        a.append((p.detach().float() - start[name]).flatten())
+        b.append((theirs[name].detach().float() - start[name]).flatten())
+    return {k: F.cosine_similarity(torch.cat(a), torch.cat(b), dim=0).item()
+            for k, (a, b) in moves.items()}
+
+
+def train_rank(spec, mesh, out) -> None:
+    """One rank of the train_mesh phase: (1) one batch's loss and gradients
+    on this rank's rows, summed over the ranks, against one device's on the
+    whole batch (rank 0), with the K2/K2b launches of the rank's step; (2)
+    one optimizer step: every rank's weights (a digest), and a validation
+    batch's loss after it against one device's after its step; (3) ``Trainer.fit`` over the ranks (each rank's
+    K2/K2b launches counted), rank 0's checkpoint and ``restore_broadcast``
+    on every rank; (4) with ``spec["rates"]``, steps/s at the global
+    batches of ``spec["rate_batches"]`` on one card (rank 0 alone) and over
+    the ranks, and the gradient all-reduce's time."""
+    from mfar_tpu_torch.parallel import multihost
+    from mfar_tpu_torch.parallel.data_parallel import all_reduce_gradients, shard_batch
+    from mfar_tpu_torch.train.train_step import compute_gradients
+
+    corpus = Corpus.from_pairs(spec["pairs"], dataset_name="mag")
+    field_info = resolve_fields("all_dense", "mag")
+    sampler = IndexNegativeSampler(load_negative_sampler_index(corpus, None, "mag"), 100, 50, 1)
+    train_ds, val_ds, rate_ds = (ContrastiveDataset(q, corpus, r, sampler, field_info, spec["tok"])
+                                 for q, r in spec["splits"])
+    cfg = spec["cfg"]
+    nodrop = dataclasses.replace(cfg, hidden_dropout=0.0)  # masks are each rank's own
+    opt = make_optimizer(encoder_lr=1e-4, weights_lr=0.1)
+    dev = torch.device(DEVICE)
+    batch = strip_meta(next(train_ds.epoch_batches(spec["batch"], seed=spec["seed"])))
+    local, shard = shard_batch(batch, mesh)
+    check(shard is not None and shard.rows * mesh.size("data") == spec["batch"],
+          f"rank {mesh.rank}: batch of {spec['batch']} not split: {shard}")
+    local, whole = to_device(local, dev), to_device(batch, dev)
+
+    # (1) one batch: this rank's share against one device's whole batch
+    state = init_state(train_model(nodrop), opt, seed=spec["seed"], device=DEVICE)
+    start = {n: p.detach().float().clone() for n, p in state.model.named_parameters()}
+    if mesh.rank == 0:
+        one = init_state(train_model(nodrop), opt, seed=spec["seed"], device=DEVICE)
+        one_loss = compute_gradients(one, whole).item()
+        one_grads = grad_groups(one.model)
+        one.model.zero_grad(set_to_none=True)
+    multihost.sync("train-one-device")  # ranks that share the card wait for rank 0
+    reset_counts()
+    loss = compute_gradients(state, local, shard).item()
+    out["step_launches"] = counts()
+    grads = grad_groups(state.model)
+    norm = torch.linalg.vector_norm(torch.cat(list(grads.values()))).item()
+    state.model.zero_grad(set_to_none=True)
+    out.update(loss=loss, norm=norm, n_flash=flash_groups(local))
+    if mesh.rank == 0:
+        out.update(one_loss=one_loss,
+                   one_norm=torch.linalg.vector_norm(torch.cat(list(one_grads.values()))).item(),
+                   grad_cos={k: F.cosine_similarity(grads[k], one_grads[k], dim=0).item()
+                             for k in grads})
+        del one_grads
+    del grads
+
+    # (2) one optimizer step on every rank, and on one device; the two
+    # models' validation loss after it
+    train_step(state, local, shard)
+    out["digest"] = param_digest(state.model)
+    if mesh.rank == 0:
+        train_step(one, whole)
+        out["update_cos"] = update_cosines(state.model, start, one.model)
+        vb = to_device(strip_meta(next(val_ds.epoch_batches(spec["batch"], seed=0))), dev)
+        out["after_loss"] = (eval_loss_step(state, vb).item(), eval_loss_step(one, vb).item())
+        del one
+    del state, start
+    torch.cuda.empty_cache()
+
+    # (3) Trainer.fit over the ranks (dropout on), a checkpoint on rank 0,
+    # restore_broadcast on every rank
+    multihost.sync("train-fit")
+    run_dir = os.path.join(spec["work"], f"run{mesh.rank}")
+    tcfg = TrainerConfig(out_dir=run_dir, max_epochs=spec["epochs"],
+                         train_batch_size=spec["batch"], seed=spec["seed"],
+                         query_max_length=512)
+    val_q = spec["splits"][1][0]
+    trainer = Trainer(spec["tok"], field_info, corpus, train_ds, val_ds, val_q,
+                      os.path.join(spec["work"], "val.qrels"), tcfg, mesh=mesh)
+    state = init_state(train_model(cfg), opt, seed=spec["seed"], device=DEVICE)
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    state = trainer.fit(state)
+    torch.cuda.synchronize()
+    out.update(fit_s=time.perf_counter() - t, fit_launches=counts(), fit_steps=state.step)
+    if mesh.rank == 0:
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(ln) for ln in f if '"train_loss"' in ln]
+        out.update(losses=[r["train_loss"] for r in rows], valid=[r["valid_loss"] for r in rows])
+    out["run_dir"] = sorted(os.listdir(run_dir)) if os.path.isdir(run_dir) else None
+    out["fit_digest"] = param_digest(state.model)
+    latest = trainer.ckpt_step_broadcast("latest")
+    t = time.perf_counter()
+    restored = trainer.restore_broadcast(
+        latest, init_state(train_model(cfg), opt, seed=spec["seed"] + 1, device=DEVICE))
+    out["restore_s"] = time.perf_counter() - t
+    out["restored"] = (
+        latest, restored.step == state.step,
+        all(torch.equal(a, b) for a, b in zip(state.model.state_dict().values(),
+                                               restored.model.state_dict().values())),
+        optimizer_states_equal(state.optimizer.state_dict(), restored.optimizer.state_dict()),
+        torch.equal(restored.generator.get_state(), state.generator.get_state()))
+    del state, restored, trainer
+    torch.cuda.empty_cache()
+    if not spec.get("rates"):
+        return
+
+    # (4) steps/s at each global batch: one card (rank 0 alone), then the ranks
+    out["rates"] = {}
+    state = init_state(train_model(cfg), opt, seed=spec["seed"], device=DEVICE)
+
+    def rate(b, sh, reps=5):
+        train_step(state, b, sh)  # warm-up: cuBLAS, the allocator
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            train_step(state, b, sh)
+        torch.cuda.synchronize()
+        return reps / (time.perf_counter() - t)
+
+    for b in spec["rate_batches"]:
+        rb = strip_meta(next(rate_ds.epoch_batches(b, seed=spec["seed"])))
+        rlocal, rshard = shard_batch(rb, mesh)
+        one_rate = rate(to_device(rb, dev), None) if mesh.rank == 0 else None
+        multihost.sync("one-card-rate")  # the other ranks wait for rank 0 alone
+        many = rate(to_device(rlocal, dev), rshard)
+        # the gradient all-reduce alone, on this step's gradients
+        compute_gradients(state, to_device(rlocal, dev), rshard)
+        params = list(state.model.parameters())
+        torch.cuda.synchronize()
+        multihost.sync("reduce")
+        t = time.perf_counter()
+        for _ in range(5):
+            all_reduce_gradients(params, rshard)
+        torch.cuda.synchronize()
+        reduce_ms = (time.perf_counter() - t) / 5 * 1e3
+        state.model.zero_grad(set_to_none=True)
+        out["rates"][b] = dict(one=one_rate, ranks=many, reduce_ms=reduce_ms,
+                               grad_mb=sum(p.numel() for p in params) * 4 / 1e6)
+
+
+def run_train_ranks(job, spec, world, label) -> list:
+    """Start ``world`` ranks of chip_smoke's ``mesh_rank`` on ``job``, wait
+    until each exits 0 (a rank that fails fails the phase), and return
+    what they measured."""
+    with tempfile.TemporaryDirectory() as work:
+        spec = dict(spec, job=job, work=work)
+        trec.write_qrels(os.path.join(work, "val.qrels"), spec["splits"][1][1])
+        path = os.path.join(work, "spec.pt")
+        torch.save(spec, path)
+        coord = f"file://{os.path.join(work, 'init')}"
+        me = os.path.abspath(__file__)
+        extra = {"CUDA_VISIBLE_DEVICES": "0"} if job == "train_shared" else {}
+        procs = start_ranks([[sys.executable, me, "--mesh-rank", path]] * world,
+                            [rank_env(coord, world, r, **extra) for r in range(world)], work,
+                            label)
+        try:
+            watch_ranks(procs, label)
+        finally:
+            stop_ranks(procs)
+        return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
+def hold_train_ranks(ranks, spec, label) -> dict:
+    """The checks of ``train_rank``'s outputs, rank 0's against one device
+    and every rank's against rank 0's; returns the phase's numbers."""
+    r0, L = ranks[0], spec["cfg"].num_layers
+    n = len(ranks)
+    for r in ranks:
+        want = (2 * L * r["n_flash"], L * r["n_flash"], L * r["n_flash"])
+        check(r["n_flash"] >= 1 and r["step_launches"] == want,
+              f"{label}: rank {r['rank']}'s step launched K2/dkv/dq {r['step_launches']}, want "
+              f"{want}")
+        check(r["loss"] == r0["loss"] and r["norm"] == r0["norm"],
+              f"{label}: rank {r['rank']}'s loss or grad norm differs from rank 0's")
+        check(r["digest"] == r0["digest"] and r["fit_digest"] == r0["fit_digest"],
+              f"{label}: rank {r['rank']}'s weights differ from rank 0's after a step or fit")
+        fl = r["fit_launches"]
+        check(r["fit_steps"] == spec["epochs"] * spec["steps"]
+              and fl[1] == fl[2] >= L * r["fit_steps"] and fl[0] >= 2 * fl[1],
+              f"{label}: rank {r['rank']} fit {r['fit_steps']} steps, launched {fl}")
+        check(r["restored"][1:] == (True, True, True, True),
+              f"{label}: rank {r['rank']}'s restore_broadcast: {r['restored']}")
+        check(r["rank"] == 0 or r["run_dir"] is None, f"{label}: rank {r['rank']} wrote files")
+    check(abs(r0["loss"] - r0["one_loss"]) <= TRAIN_LOSS_RTOL * abs(r0["one_loss"]),
+          f"{label}: loss over {n} ranks {r0['loss']} vs one device {r0['one_loss']}")
+    check(abs(r0["norm"] - r0["one_norm"]) <= TRAIN_NORM_RTOL * r0["one_norm"],
+          f"{label}: grad_norm over {n} ranks {r0['norm']} vs one device {r0['one_norm']}")
+    check(min(r0["grad_cos"].values()) >= TRAIN_MIN_COSINE,
+          f"{label}: gradient cosines {r0['grad_cos']}")
+    after, after_one = r0["after_loss"]
+    check(abs(after - after_one) <= TRAIN_LOSS_RTOL * abs(after_one),
+          f"{label}: validation loss after one step over the ranks {after} vs one device "
+          f"{after_one}")
+    check({"metrics.jsonl", "checkpoints", "best.txt"} <= set(r0["run_dir"] or ()),
+          f"{label}: rank 0 wrote {r0['run_dir']}")
+    check(all(math.isfinite(x) for x in r0["losses"] + r0["valid"]),
+          f"{label}: losses {r0['losses']} {r0['valid']}")
+    launches = tuple(sum(r["fit_launches"][i] for r in ranks) for i in range(3))
+    phase("train_mesh", f"{label}: {n} ranks ({r0['backend']}), global batch {spec['batch']} "
+                        f"({spec['batch'] // n} rows a rank): one batch's loss {r0['loss']:.6f} "
+                        f"vs one device {r0['one_loss']:.6f}, grad_norm {r0['norm']:.6f} vs "
+                        f"{r0['one_norm']:.6f}, gradient cosines {r0['grad_cos']} (tolerances: "
+                        f"loss rtol {TRAIN_LOSS_RTOL}, grad_norm rtol {TRAIN_NORM_RTOL}, cosine >= "
+                        f"{TRAIN_MIN_COSINE}); each rank's step launched K2/dkv/dq "
+                        f"{r0['step_launches']}; after one AdamW step every rank's weights "
+                        f"bit-equal, a validation batch's loss {after:.6f} vs one device's "
+                        f"{after_one:.6f} (rtol {TRAIN_LOSS_RTOL}); update cosines against one "
+                        f"device {r0['update_cos']} (not held: Adam's first step moves an entry "
+                        f"by ~lr in its gradient's sign, so entries whose gradient is at the "
+                        f"bf16 noise level move either way)")
+    phase("train_mesh", f"{label}: Trainer.fit {r0['fit_steps']} steps in {spec['epochs']} "
+                        f"epochs in {[round(r['fit_s'], 2) for r in ranks]} s a rank (validation "
+                        f"and rank 0's checkpoints included); train loss by epoch {r0['losses']}, "
+                        f"valid {r0['valid']}; K2/dkv/dq launches by rank "
+                        f"{[r['fit_launches'] for r in ranks]}; rank 1 wrote nothing; "
+                        f"restore_broadcast of checkpoint {r0['restored'][0]} equal on every "
+                        f"rank in {[round(r['restore_s'], 2) for r in ranks]} s")
+    return dict(launches=launches, loss=r0["loss"], one_loss=r0["one_loss"],
+                grad_cos=r0["grad_cos"], update_cos=r0["update_cos"], after_loss=r0["after_loss"],
+                fit_s=[r["fit_s"] for r in ranks], restore_s=[r["restore_s"] for r in ranks])
+
+
+def run_train_mesh(seed, corpus, tok, batch=16, steps=2, epochs=2,
+                   rate_batches=(16, 64)) -> dict:
+    """Data-parallel training at Contriever-base width (bf16, remat, K2/K2b
+    through ``attention_impl="auto"``, attention dropout 0) over mag
+    ``all_dense`` with one BM25 negative: (a) two gloo ranks sharing the
+    card, (b) one NCCL rank per card where there are several, with steps/s
+    at global batches 16 and 64 against one card."""
+    rng = np.random.default_rng(seed + 61)
+    pairs = list(corpus.pairs())
+    splits = mag_splits(pairs, (steps * batch, 2 * batch, max(rate_batches)), rng)
+    cfg = EncoderConfig.contriever_base(vocab_size=tok.vocab_size, attention_impl="auto",
+                                        attention_dropout=0.0, remat=True)
+    spec = dict(seed=seed, device=DEVICE, pairs=pairs, tok=tok, cfg=cfg, splits=splits,
+                batch=batch, steps=steps, epochs=epochs, rate_batches=rate_batches)
+    t = time.perf_counter()
+    ranks = run_train_ranks("train_shared", spec, 2, "train_mesh_a")
+    check([(r["backend"], r["card"]) for r in ranks] == [("gloo", 0)] * 2,
+          f"(a) ranks' backends and cards {[(r['backend'], r['card']) for r in ranks]}")
+    out = {"a": hold_train_ranks(ranks, spec, "(a) two gloo ranks on card 0")}
+    out["a"]["s"] = time.perf_counter() - t
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        phase("train_mesh", f"(b) needs several cards; {n_cards} visible: skipped")
+    else:
+        t = time.perf_counter()
+        ranks = run_train_ranks("train_cards", dict(spec, rates=True), n_cards, "train_mesh_b")
+        check(sorted(r["card"] for r in ranks) == list(range(n_cards))
+              and {r["backend"] for r in ranks} == {"nccl"}, "(b) ranks share a card or "
+              "do not run NCCL")
+        out["b"] = hold_train_ranks(ranks, spec, f"(b) {n_cards} NCCL ranks, one a card")
+        out["b"]["rates"] = ranks[0]["rates"]
+        out["b"]["s"] = time.perf_counter() - t
+        phase("train_mesh", f"(b) steps/s on one device-resident batch (5 steps after a "
+                            f"warm-up), one card vs {n_cards} cards, and the gradient "
+                            f"all-reduce alone (NCCL, f32, in buckets of 128 MiB): "
+                            + "; ".join(f"global batch {b}: {v['one']:.3f} vs {v['ranks']:.3f} "
+                                        f"steps/s, all-reduce of {v['grad_mb']:.0f} MB "
+                                        f"{v['reduce_ms']:.2f} ms"
+                                        for b, v in out["b"]["rates"].items()) + f" ({CARD})")
+    out["launches"] = tuple(sum(v["launches"][i] for k, v in out.items() if k in ("a", "b"))
+                            for i in range(3))
+    return {"train_mesh": out, "train_mesh_launches": out["launches"]}
+
+
+# ----------------------------------------------------------------------
+# phase 11: the train command, then retrieve from its checkpoint
 
 
 def run_train_cli(seed, corpus, n_docs=512):
@@ -1422,7 +1729,7 @@ def run_train_cli(seed, corpus, n_docs=512):
 
 
 # ----------------------------------------------------------------------
-# phase 11: serving scale
+# phase 12: serving scale
 
 
 def run_serving(seed, engine, queries, n=131072, batch_size=64):
@@ -1475,7 +1782,7 @@ def run_serving(seed, engine, queries, n=131072, batch_size=64):
 
 
 # ----------------------------------------------------------------------
-# phases 12-14: hybrid (dense + BM25) retrieval
+# phases 13-15: hybrid (dense + BM25) retrieval
 
 
 def rare_word_queries(pairs, n, rng, min_rank, words=8):
@@ -1948,7 +2255,7 @@ def run_hybrid_cli(seed, n_docs=200) -> dict:
 
 
 # ----------------------------------------------------------------------
-# phase 15: the T5/GTR family at GTR-T5-base width
+# phase 16: the T5/GTR family at GTR-T5-base width
 
 # The bf16 index build against an f32 build of the same weights: bf16
 # activations through 12 pre-LN layers whose residual stream stays in bf16
@@ -2265,7 +2572,7 @@ def run_gtr(seed, corpus, queries, cfg=None, n_cli_docs=512, batch_size=64, epoc
 
 
 # ----------------------------------------------------------------------
-# phases 16-18: the serving daemon, the int8 corpus, the host-streamed corpus
+# phases 18-20: the serving daemon, the int8 corpus, the host-streamed corpus
 
 # The load generator of the serve phase, run in a child process so that its
 # 64 client threads do not share the server's interpreter lock (after
@@ -2636,7 +2943,7 @@ def run_host_stream(seed, big, i8, n_queries=1024, batch=256) -> dict:
 
 
 # ----------------------------------------------------------------------
-# phase 16: serving over several ranks (torch.distributed)
+# phase 17: serving over several ranks (torch.distributed)
 
 MESH_RANK_TIMEOUT_S = 600  # a rank that is not done by then fails the phase
 # a mesh rerank against one device's at recall_k 100 (2047 docs over two
@@ -2838,10 +3145,11 @@ def rank_daemon(engine, mesh, work, mode, max_batch) -> tuple:
 
 
 def mesh_rank(spec_path: str) -> int:
-    """One rank of the mesh phase, started by ``run_mesh`` with the
-    ``MFAR_*`` triple: ``job`` "shared" is a gloo rank of (b) sharing card 0,
-    "cards" an NCCL rank of (c) on its own card.  Writes what it measured to
-    ``<work>/rank<R>.pt``."""
+    """One rank of the mesh or train_mesh phase, started with the
+    ``MFAR_*`` triple: ``job`` "shared" is a gloo rank of mesh (b) sharing
+    card 0, "cards" an NCCL rank of mesh (c) on its own card,
+    "train_shared" and "train_cards" the same for train_mesh (a) and (b).
+    Writes what it measured to ``<work>/rank<R>.pt``."""
     import torch.distributed as dist
 
     from mfar_tpu_torch.parallel import multihost
@@ -2855,10 +3163,12 @@ def mesh_rank(spec_path: str) -> int:
     check(multihost.maybe_initialize("force", DEVICE), "the world did not start")
     # ranks that share a card run their collectives over gloo (NCCL
     # refuses two ranks on one card)
-    mesh = make_mesh(backend="gloo" if spec["job"] == "shared" else None)
+    mesh = make_mesh(backend="gloo" if spec["job"] in ("shared", "train_shared") else None)
     out = {"rank": mesh.rank, "world": dist.get_world_size(), "backend": mesh.backend,
            "card": torch.cuda.current_device()}
-    (shared_rank if spec["job"] == "shared" else cards_rank)(spec, mesh, out)
+    jobs = {"shared": shared_rank, "cards": cards_rank, "train_shared": train_rank,
+            "train_cards": train_rank}
+    jobs[spec["job"]](spec, mesh, out)
     torch.save(out, os.path.join(spec["work"], f"rank{mesh.rank}.pt"))
     multihost.sync("mesh-rank-done")
     dist.destroy_process_group()
@@ -3392,10 +3702,12 @@ def kernel_usage(logs: dict) -> dict:
 
 
 # the phases after device and build, in the order they run
-PHASES = ("k1", "k2", "k2b", "e2e", "long", "cli", "train", "train_cli", "serving", "hybrid",
-          "hybrid_serving", "hybrid_cli", "gtr", "mesh", "serve", "int8", "host_stream")
+PHASES = ("k1", "k2", "k2b", "e2e", "long", "cli", "train", "train_mesh", "train_cli",
+          "serving", "hybrid", "hybrid_serving", "hybrid_cli", "gtr", "mesh", "serve", "int8",
+          "host_stream")
 # phases that read what an earlier one made
-NEEDS = {"long": "e2e", "cli": "e2e", "train": "e2e", "train_cli": "e2e", "serving": "e2e",
+NEEDS = {"long": "e2e", "cli": "e2e", "train": "e2e", "train_mesh": "e2e", "train_cli": "e2e",
+         "serving": "e2e",
          "hybrid": "e2e", "hybrid_serving": "e2e", "gtr": "e2e", "serve": "e2e",
          "int8": "serve", "host_stream": "int8"}
 
@@ -3474,6 +3786,8 @@ def main(argv=None) -> int:
         r["cli"] = run_cli(args.seed, corpus)
     if "train" in phases:
         r["train"] = run_train(args.seed, corpus, engine.tokenizer)
+    if "train_mesh" in phases:
+        r["train_mesh"] = run_train_mesh(args.seed, corpus, engine.tokenizer)
     if "train_cli" in phases:
         r["train_cli"] = run_train_cli(args.seed, corpus)
     if "serving" in phases:
@@ -3514,6 +3828,7 @@ def main(argv=None) -> int:
     k1, k2, k2b, e2e, train = r["k1"], r["k2"], r["k2b"], r["e2e"], r["train"]
     serve, hybrid, hybrid_serving = r["serve"], r["hybrid"], r["hybrid_serving"]
     hybrid_cli, gtr, mesh = r["hybrid_cli"], r["gtr"], r["mesh"]
+    train_mesh = r["train_mesh"]["train_mesh_launches"]  # every rank's, in its fit
     k1_row = k1["bf16"]
     print(json.dumps({"kernels": [{
         "name": "gather_per_field_scores",
@@ -3542,9 +3857,10 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "mfar_tpu_torch/csrc/flash_attention.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
-        # the one-device build's, and each mesh rank's share of the split
-        # build (phase mesh (b))
-        "launches": e2e["k2_launches"] + mesh["mesh_k2_launches"],
+        # the one-device build's, each mesh rank's share of the split build
+        # (phase mesh (b)), and each rank's share of data-parallel training
+        # (phase train_mesh, Trainer.fit)
+        "launches": e2e["k2_launches"] + mesh["mesh_k2_launches"] + train_mesh[0],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["kernel_ms"],
         "plain_ms": k2["plain_ms"],
@@ -3556,7 +3872,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "mfar_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
-        "launches": train["train_launches"][1],
+        # one device's Trainer.fit and each train_mesh rank's
+        "launches": train["train_launches"][1] + train_mesh[1],
         "max_abs_err": k2b["dkv_max_abs_err"],
         "ms": k2b["dkv_ms"],
         "plain_ms": k2b["plain_bwd_ms"],
@@ -3568,7 +3885,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "mfar_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
-        "launches": train["train_launches"][2],
+        "launches": train["train_launches"][2] + train_mesh[2],
         "max_abs_err": k2b["dq_max_abs_err"],
         "ms": k2b["dq_ms"],
         "plain_ms": k2b["plain_bwd_ms"],

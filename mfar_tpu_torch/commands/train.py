@@ -1,4 +1,4 @@
-"""Train a multi-field retriever on one device.
+"""Train a multi-field retriever on one card, or data-parallel over several.
 
 Counterpart of ``mfar_tpu/commands/train.py``: the same flags and defaults,
 plus ``--device`` (``cuda`` by default; ``cpu`` runs on the host):
@@ -6,6 +6,19 @@ plus ``--device`` (``cuda`` by default; ``cpu`` runs on the host):
     python -m mfar_tpu_torch.commands.train --dataset-name mag --data DIR \\
         --out RUN --lexical-index IDX --weights-lr 0.1 [--model-name DIR] \\
         [--run-one-iteration] [--device cpu]
+
+Over several cards, one rank per card (``torchrun --nproc-per-node N -m
+mfar_tpu_torch.commands.train ... --multihost pod``, or the
+``MFAR_COORDINATOR``/``MFAR_NUM_PROCESSES``/``MFAR_PROCESS_ID`` triple with
+``--multihost force``; gloo ranks with ``--device cpu``), ``--mesh auto``
+trains data-parallel over the ranks as the JAX command trains on its mesh:
+each rank encodes its rows of every global batch and the gradients are
+summed (``Trainer``).  ``--n-replica`` shapes the mesh; on a single-slice
+mesh the data axis shrinks until the batch divides, leaving ranks idle (they
+exit at once).  Rank 0 writes every file; ``--resume`` and the final test
+restore rank 0's checkpoints on every rank.  One process that sees several
+cards trains on the current one and says so.  Tensor parallelism
+(``--n-model`` above 1) is ROADMAP A15d and raises ``NotImplementedError``.
 
 The encoder is built as ``prepare_model`` configures it, so it trains with
 plain attention (``"xla"``) and dropout 0.1, as the JAX command does; kernel
@@ -18,9 +31,6 @@ memory, and their scores come from ``--sparse-scores-path``
 (``precompute_sparse_scores``) where it covers a batch's queries, else live.
 A T5/GTR model (a local T5 or sentence-transformers GTR directory, or
 ``t5:<dir>``) trains its encoder with Adafactor, as the JAX command does.
-Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
-several devices (``--mesh auto`` with several visible cards,
-``--n-model``/``--n-replica`` above 1, ``--multihost force|pod``: A15b).
 The output directory holds
 ``metrics.jsonl``, ``checkpoints/<epoch>/`` (``state.pt`` + ``meta.json``),
 ``best.txt``, the dev qres files and ``results_dicts.jsonl``, as the JAX
@@ -34,6 +44,7 @@ import dataclasses
 import json
 import os
 import time
+from typing import Tuple
 
 import torch
 
@@ -44,12 +55,16 @@ from mfar_tpu_torch.commands.common import (
     load_negative_sampler_index,
     load_or_build_sparse_indices,
     normalize_argv,
+    note_one_card,
     resolve_data_dirs,
 )
 from mfar_tpu_torch.data import trec
 from mfar_tpu_torch.data.negative_sampler import IndexNegativeSampler
 from mfar_tpu_torch.data.schema import resolve_fields
 from mfar_tpu_torch.models.registry import is_t5_family, prepare_model
+from mfar_tpu_torch.parallel import multihost
+from mfar_tpu_torch.parallel.data_parallel import broadcast_object
+from mfar_tpu_torch.parallel.mesh import make_mesh
 from mfar_tpu_torch.train.data_pipeline import ContrastiveDataset
 from mfar_tpu_torch.train.model import MFARModel
 from mfar_tpu_torch.train.optim import make_optimizer
@@ -127,11 +142,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--retrieval-mode", default="auto", choices=["auto", "exact", "rerank"],
                    help="eval serving mode: exact (the default) or rerank")
     p.add_argument("--mesh", default="auto", choices=["auto", "off"],
-                   help="auto: one device here (several cards are ROADMAP A15b)")
-    p.add_argument("--n-model", type=int, default=1, help="above 1: ROADMAP A15b, A15d")
-    p.add_argument("--n-replica", type=int, default=1, help="above 1: ROADMAP A15b")
+                   help="auto: data-parallel over every rank when the command runs as "
+                        "several processes (one per card); off: one device")
+    p.add_argument("--n-model", type=int, default=1,
+                   help="tensor-parallel axis size; above 1 is ROADMAP A15d")
+    p.add_argument("--n-replica", type=int, default=1,
+                   help="replica-axis size of the mesh (the batch shards over replica x data)")
     p.add_argument("--multihost", default="auto", choices=["auto", "off", "force", "pod"],
-                   help="force|pod: ROADMAP A15b; auto and off run one process")
+                   help="several processes, one per card: force reads MFAR_COORDINATOR, "
+                        "MFAR_NUM_PROCESSES and MFAR_PROCESS_ID; pod reads torchrun's "
+                        "environment; auto starts on that triple when it is set")
     p.add_argument("--prefetch-depth", type=int, default=2,
                    help="train batches prepared ahead on the host thread")
     p.add_argument("--resume", action="store_true",
@@ -143,23 +163,58 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    several_cards = (args.mesh == "auto" and torch.device(args.device).type == "cuda"
-                     and torch.cuda.device_count() > 1)
-    if several_cards or args.n_model > 1 or args.n_replica > 1 \
-            or args.multihost in ("force", "pod"):
-        raise NotImplementedError(
-            "training over several devices or processes (--mesh auto with several "
-            "visible cards, --n-model/--n-replica > 1, --multihost force|pod) is "
-            "ROADMAP A15b; pass --mesh off or show one card"
+def train_mesh_shape(world: int, n_replica: int, batch: int) -> Tuple[int, int]:
+    """(n_data, ranks used) of the training mesh over ``world`` ranks, as
+    the JAX command sizes its mesh (``n_model`` is 1: A15d): on a
+    single-slice mesh the data axis shrinks until the batch divides (the
+    ranks left over sit idle); shapes that cannot divide exit with the JAX
+    command's messages."""
+    if n_replica > 1 and world % n_replica:
+        raise SystemExit(
+            f"--n-model 1 x --n-replica {n_replica} "
+            f"must divide the {world} visible devices for a multi-slice "
+            f"mesh"
         )
+    n_data = world // n_replica
+    if n_replica == 1:
+        while n_data > 1 and batch % n_data:
+            n_data -= 1
+    if batch % (n_data * n_replica):
+        raise SystemExit(
+            f"--train-batch-size {batch} must be divisible "
+            f"by n_replica x n_data = {n_replica} x {n_data} "
+            f"(pick a batch size or mesh shape that divides)"
+        )
+    return n_data, n_data * n_replica
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(normalize_argv(argv))
-    _refuse_unported(args)
+    if args.n_model > 1:
+        raise NotImplementedError("training with tensor parallelism (--n-model > 1) is "
+                                  "ROADMAP A15d; train with --n-model 1")
+    if multihost.maybe_initialize(args.multihost, args.device):
+        print(f"[train] multihost: process {multihost.process_index()}/"
+              f"{multihost.process_count()}", flush=True)
+    world = multihost.process_count()
+    mesh = None
+    if args.mesh == "auto" and (world > 1 or args.n_replica > 1):
+        n_data, used = train_mesh_shape(world, args.n_replica, args.train_batch_size)
+        mesh = make_mesh(n_data=n_data, n_replica=args.n_replica, n_ranks=used)
+        note = f" ({world - used} ranks idle: batch {args.train_batch_size})" if used < world else ""
+        if multihost.is_primary():
+            print(f"[train] mesh: {mesh.shape} over {used}/{world} ranks ({mesh.backend}){note}",
+                  flush=True)
+        if not mesh.member:
+            print(f"[train] rank {multihost.process_index()} is idle{note}", flush=True)
+            return
+    elif world > 1:
+        raise SystemExit("multihost training requires a mesh: pass --mesh auto")
+    else:
+        note_one_card(args, "train")
     resolve_data_dirs(args)
-    os.makedirs(args.out, exist_ok=True)
+    if multihost.is_primary():  # rank 0 owns file I/O
+        os.makedirs(args.out, exist_ok=True)
 
     field_info = resolve_fields(args.field_names, args.dataset_name)
     model_name = args.model_path or args.model_name
@@ -275,20 +330,26 @@ def main(argv=None) -> None:
         dev_queries=dev_queries,
         dev_qrels_path=os.path.join(args.queries, f"{args.partition}.qrels"),
         config=cfg, sparse_indices=sparse_indices, additional_queries=additional_queries,
-        additional_qrels_path=additional_qrels, logger=logger,
+        additional_qrels_path=additional_qrels, logger=logger, mesh=mesh,
     )
 
     start_epoch = 0
-    latest = trainer.ckpt.latest_step() if args.resume else None
+    latest = trainer.ckpt_step_broadcast("latest") if args.resume else None
     if latest is not None:
-        saved = trainer.ckpt.restore_meta(latest).get("config", {}).get("prng")
+        # meta.json is on rank 0's disk; every rank must reach the same
+        # verdict (a rank-0-only exit would leave the others in the restore)
+        saved = ""
+        if multihost.is_primary():
+            saved = trainer.ckpt.restore_meta(latest).get("config", {}).get("prng") or ""
+        if mesh is not None:
+            saved = broadcast_object(saved, mesh)
         if saved and saved != args.prng:
             raise SystemExit(
                 f"checkpoint {latest} was trained with --prng {saved}; resuming with "
                 f"--prng {args.prng} would change the run's recorded randomness -- "
                 f"pass --prng {saved}"
             )
-        state = trainer.ckpt.restore(latest, state)
+        state = trainer.restore_broadcast(latest, state)
         start_epoch = latest + 1
         print(f"Resumed from checkpoint {latest} (epoch {start_epoch})")
 
@@ -296,12 +357,15 @@ def main(argv=None) -> None:
     with torch_profile(args.profile_dir):
         state = trainer.fit(state, start_epoch=start_epoch)
 
-    # reload the best checkpoint for the final test
-    best = trainer.ckpt.best_step()
+    # reload the best checkpoint, on every rank, for the final test
+    best = trainer.ckpt_step_broadcast("best")
     if best is not None:
-        state = trainer.ckpt.restore(best, state)
+        state = trainer.restore_broadcast(best, state)
+        print(f"[train] rank {multihost.process_index()}: restored the best checkpoint "
+              f"{best} for the test", flush=True)
     trainer.test(state)
-    trainer.ckpt.write_best_txt()
+    if multihost.is_primary():
+        trainer.ckpt.write_best_txt()
     logger.close()
     print(f"[timing] {trainer.timer.report()}")
 

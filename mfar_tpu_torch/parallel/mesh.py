@@ -47,17 +47,27 @@ class Mesh:
     """The world's ranks as an ``n_replica x n_data x n_model`` grid, this
     rank's place in it, and the process groups along its axes.
     ``host_collectives`` is true under gloo, whose collectives take host
-    tensors: the routes copy their small results through the host."""
+    tensors: the routes copy their small results through the host.
+    ``control`` is the gloo group of the mesh's ranks for host-side control
+    (barriers, broadcasts of host state).  A mesh may leave ranks of the
+    world out (``member`` is False on them): they make its groups and take
+    no part in its work."""
 
     def __init__(self, ranks: np.ndarray, backend: Optional[str] = None):
         self.ranks = np.asarray(ranks, np.int64)
         self.shape: Dict[str, int] = dict(zip(AXES, self.ranks.shape))
         self.rank = dist.get_rank()
-        where = np.argwhere(self.ranks == self.rank)[0]
-        self.coords: Dict[str, int] = dict(zip(AXES, (int(c) for c in where)))
+        where = np.argwhere(self.ranks == self.rank)
+        self.member = len(where) > 0
+        self.coords: Dict[str, int] = (dict(zip(AXES, (int(c) for c in where[0])))
+                                       if self.member else {})
         self.backend = backend or dist.get_backend()
         self.host_collectives = self.backend == "gloo"
-        multihost.control_group()  # made on every rank before the mesh's groups
+        # made on every rank before the mesh's groups
+        self.control = multihost.control_group()
+        if self.ranks.size < dist.get_world_size():
+            self.control = dist.new_group(sorted(int(r) for r in self.ranks.flat),
+                                          backend="gloo", timeout=multihost.TIMEOUT)
         self._groups = {axes: self._make_groups(axes) for axes in _GROUP_AXES}
 
     def _make_groups(self, axes: Axes):
@@ -117,18 +127,20 @@ def make_mesh(
     n_model: int = 1,
     n_replica: int = 1,
     backend: Optional[str] = None,
+    n_ranks: Optional[int] = None,
 ) -> Mesh:
-    """Mesh with ('replica', 'data', 'model') axes over the world's ranks,
-    all of them on the data axis unless told otherwise.  ``backend`` is the
-    backend of the mesh's groups (default: the world's), e.g. ``gloo`` for
-    ranks that share one card, where NCCL refuses to run.  Every rank calls
-    this at the same point."""
-    world = dist.get_world_size()
+    """Mesh with ('replica', 'data', 'model') axes over the world's first
+    ``n_ranks`` ranks (default all of them), all on the data axis unless
+    told otherwise.  ``backend`` is the backend of the mesh's groups
+    (default: the world's), e.g. ``gloo`` for ranks that share one card,
+    where NCCL refuses to run.  Every rank of the world calls this at the
+    same point."""
+    n_ranks = dist.get_world_size() if n_ranks is None else n_ranks
     if n_data is None:
-        n_data = world // (n_model * n_replica)
-    if n_replica * n_data * n_model != world:
-        raise ValueError(f"mesh {n_replica}x{n_data}x{n_model} != {world} ranks")
-    return Mesh(np.arange(world).reshape(n_replica, n_data, n_model), backend=backend)
+        n_data = n_ranks // (n_model * n_replica)
+    if n_replica * n_data * n_model != n_ranks:
+        raise ValueError(f"mesh {n_replica}x{n_data}x{n_model} != {n_ranks} ranks")
+    return Mesh(np.arange(n_ranks).reshape(n_replica, n_data, n_model), backend=backend)
 
 
 def mesh_from_flag(flag: str, tag: str = "mesh", n_model: int = 1,

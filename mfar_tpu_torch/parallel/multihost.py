@@ -118,11 +118,12 @@ def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
-def sync(name: str = "mfar") -> None:
-    """Barrier across the ranks, on the host (no-op in one process).
-    ``name`` labels the barrier in a timeout's error."""
+def sync(name: str = "mfar", group=None) -> None:
+    """Barrier across the ranks (of ``group``, a host group such as a
+    mesh's ``control``; default every rank), on the host (no-op in one
+    process).  ``name`` labels the barrier in a timeout's error."""
     if is_multiprocess():
         try:
-            dist.barrier(group=control_group())
+            dist.barrier(group=control_group() if group is None else group)
         except RuntimeError as e:
             raise RuntimeError(f"barrier {name!r} failed: {e}") from e

@@ -9,6 +9,10 @@ Layout under ``out_dir``, as the JAX package's:
                                    the generator kind
     best.txt                       the best step's directory
 
+Over several ranks only rank 0 writes (the trainer calls :meth:`save` there)
+and only rank 0 reads: :meth:`CheckpointManager.read` gives the payload that
+``Trainer.restore_broadcast`` sends to every rank.
+
 Checkpoints are ranked by the monitored metric (``valid_loss`` by default,
 lower is better; quality metrics rank higher-is-better); the best
 ``max_to_keep`` stay, with the latest, and ``best.txt`` names the best.  The
@@ -128,13 +132,20 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
 
-    def restore(self, step: Optional[int], state):
-        """Load a saved step (the latest when None) into ``state`` in
-        place -- model, optimizer, step and generator -- and return it."""
+    def read(self, step: Optional[int]) -> Dict[str, Any]:
+        """A saved step's payload (the latest when None), on the host: the
+        model's and optimizer's state_dicts, step and generator state.
+        Over several ranks rank 0 reads it and broadcasts it
+        (``Trainer.restore_broadcast``)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint to restore under {self.ckpt_dir}")
-        return load_state(self._step_dir(step), state)
+        return _load(self._step_dir(step))
+
+    def restore(self, step: Optional[int], state):
+        """Load a saved step (the latest when None) into ``state`` in
+        place -- model, optimizer, step and generator -- and return it."""
+        return apply_payload(state, self.read(step))
 
     def restore_meta(self, step: Optional[int] = None) -> Dict[str, Any]:
         if step is None:
@@ -151,9 +162,8 @@ def _load(step_dir: str) -> Dict[str, Any]:
     return torch.load(os.path.join(step_dir, "state.pt"), map_location="cpu", weights_only=True)
 
 
-def load_state(step_dir: str, state):
-    """Load ``step_dir/state.pt`` into ``state`` in place and return it."""
-    payload = _load(step_dir)
+def apply_payload(state, payload: Dict[str, Any]):
+    """A checkpoint's payload into ``state`` in place; returns ``state``."""
     state.model.load_state_dict(payload["model"])
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from mfar_tpu_torch.models import build_encoder, encoder_dim
+from mfar_tpu_torch.parallel.data_parallel import Shard, all_reduce_sum, gather_rows
 from mfar_tpu_torch.train.losses import decomposed_simple_loss, hybrid_contrastive_loss
 
 
@@ -53,7 +54,11 @@ class FieldBatchNorm(nn.Module):
     field axis of ``[Q, D, F]`` score components.  Training normalizes with
     the batch's mean and *biased* variance (``E[x^2] - E[x]^2``, clipped at 0,
     Flax's fast variance) and moves the running stats toward them by 0.1;
-    ``torch.nn.BatchNorm1d`` would store the unbiased variance instead."""
+    ``torch.nn.BatchNorm1d`` would store the unbiased variance instead.
+    With a :class:`~mfar_tpu_torch.parallel.data_parallel.Shard` the sums
+    and the count are summed over the ranks (with their gradients), so the
+    statistics, and the running stats on every rank, are the global
+    batch's."""
 
     def __init__(self, num_fields: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -63,11 +68,17 @@ class FieldBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(num_fields))
         self.register_buffer("var", torch.ones(num_fields))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
         if self.training:
             flat = x.reshape(-1, x.shape[-1]).float()
-            mean = flat.mean(dim=0)
-            var = (flat.square().mean(dim=0) - mean.square()).clamp(min=0.0)
+            if shard is None:
+                mean, mean_sq = flat.mean(dim=0), flat.square().mean(dim=0)
+            else:
+                f = flat.shape[-1]
+                sums = all_reduce_sum(torch.cat([flat.sum(dim=0), flat.square().sum(dim=0),
+                                                 flat.new_tensor([flat.shape[0]])]), shard)
+                mean, mean_sq = sums[:f] / sums[-1], sums[f : 2 * f] / sums[-1]
+            var = (mean_sq - mean.square()).clamp(min=0.0)
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
                 self.var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
@@ -104,8 +115,8 @@ class MFARModel(nn.Module):
     def encode(self, input_ids, attention_mask, generator: Optional[torch.Generator] = None):
         return self.encoder(input_ids, attention_mask, generator=generator)
 
-    def normalize_components(self, components: torch.Tensor) -> torch.Tensor:
-        return components if self.bn is None else self.bn(components)
+    def normalize_components(self, components: torch.Tensor, shard=None) -> torch.Tensor:
+        return components if self.bn is None else self.bn(components, shard)
 
     def compute_loss(
         self,
@@ -115,10 +126,16 @@ class MFARModel(nn.Module):
         sparse_pos: Optional[torch.Tensor] = None,  # [B, B, Fs]
         sparse_neg: Optional[torch.Tensor] = None,  # [B, B*Nn, Fs]
         generator: Optional[torch.Generator] = None,  # dropout draws (training)
+        shard: Optional[Shard] = None,  # this rank's rows of a data-parallel batch
     ) -> torch.Tensor:
         """The training-step forward: 1 + 2*|dense fields| encoder passes,
         batched by padded length -- every (query/pos/neg, field) text of one
-        width rides one encoder call (the encoder is row-independent)."""
+        width rides one encoder call (the encoder is row-independent).
+
+        With a ``shard`` the tokens are this rank's rows, the BM25 tensors
+        the global batch's: the query, positive and negative embeddings are
+        all-gathered (with their gradients; the negatives stay doc-major)
+        and the loss is this rank's share of the global loss."""
         field_keys = sorted(pos_tokens.keys())
         jobs = [("q", None, query_tokens)]
         jobs += [("pos", fk, pos_tokens[fk]) for fk in field_keys]
@@ -164,18 +181,28 @@ class MFARModel(nn.Module):
                     f"spans {self.num_fields} fields but only {len(field_keys)} dense "
                     f"components exist. Drop the sparse fields or use in-batch negatives."
                 )
+            # own negatives only: nothing crosses the ranks but the mean
             return decomposed_simple_loss(
                 q.float(), pos_embs.float(), neg_embs.float(), mix_fn=self.mixer,
-                temperature=self.temperature,
+                temperature=self.temperature, total=None if shard is None else shard.total,
             )
+        q, pos_embs = q.float(), pos_embs.float()
+        neg_embs = None if neg_embs is None else neg_embs.float()
+        q_all = None
+        if shard is not None:
+            q_all = gather_rows(q, shard)
+            pos_embs = gather_rows(pos_embs, shard)
+            neg_embs = None if neg_embs is None else gather_rows(neg_embs, shard)
         return hybrid_contrastive_loss(
-            q.float(),
-            pos_embs.float(),
-            None if neg_embs is None else neg_embs.float(),
+            q,
+            pos_embs,
+            neg_embs,
             sparse_pos,
             sparse_neg,
             mix_fn=self.mixer,
             temperature=self.temperature,
             reverse=self.reverse,
-            normalize_fn=self.normalize_components,
+            normalize_fn=lambda comp: self.normalize_components(comp, shard),
+            q_all=q_all,
+            offset=0 if shard is None else shard.offset,
         )

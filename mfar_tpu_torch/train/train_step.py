@@ -11,17 +11,32 @@ Randomness: the state holds a CPU ``torch.Generator`` seeded from the run's
 seed; each step's dropout masks come from one draw of it per encoder call
 (:meth:`mfar_tpu_torch.models.encoder.Encoder.forward`), so a restored state
 replays the same masks.
+
+Over several ranks (a :class:`~mfar_tpu_torch.parallel.data_parallel.Shard`
+from ``shard_batch``) each rank runs the step on its rows: the loss is its
+share of the global loss, the gradients are summed over the ranks after
+``backward``, and the returned loss and ``grad_norm`` are the global ones,
+alike on every rank, so the optimizers step alike.  Each rank's dropout
+masks come from its own generator (``rank_generator``), derived from one
+draw of the state's, which every rank advances alike.  A batch that runs
+whole (``shard`` None) computes the global result on every rank alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from mfar_tpu_torch.models import init_encoder
+from mfar_tpu_torch.parallel.data_parallel import (
+    Shard,
+    all_reduce_gradients,
+    all_reduce_sum,
+    rank_generator,
+)
 from mfar_tpu_torch.train.model import MFARModel
 from mfar_tpu_torch.train.optim import OptimizerSpec
 from mfar_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -73,43 +88,61 @@ def to_device(batch: Any, device: torch.device) -> Any:
     return batch
 
 
-def _loss(model: MFARModel, batch: Dict[str, Any], generator=None) -> torch.Tensor:
+def _loss(model: MFARModel, batch: Dict[str, Any], generator=None,
+          shard: Optional[Shard] = None) -> torch.Tensor:
     device = next(model.parameters()).device
     b = to_device(batch, device)
     return model.compute_loss(
         b["query"], b["pos"], b["neg"], b.get("sparse_pos"), b.get("sparse_neg"),
-        generator=generator,
+        generator=generator, shard=shard,
     )
 
 
-def train_step(state: TrainState, batch: Dict[str, Any]) -> Tuple[TrainState, Dict]:
+def compute_gradients(state: TrainState, batch: Dict[str, Any],
+                      shard: Optional[Shard] = None) -> torch.Tensor:
+    """Forward and backward of one batch in training mode (dropout, batch
+    statistics): leaves the gradient of the global loss in every
+    parameter's ``.grad`` (summed over the ranks with a ``shard``) and
+    returns the global loss, a device scalar."""
+    model = state.model.train()
+    loss = _loss(model, batch, rank_generator(state.generator, shard), shard)
+    loss.backward()
+    if shard is not None:
+        loss = all_reduce_gradients(list(model.parameters()), shard, extra=loss)
+    return loss.detach()
+
+
+def train_step(state: TrainState, batch: Dict[str, Any],
+               shard: Optional[Shard] = None) -> Tuple[TrainState, Dict]:
     """One step (JAX's ``make_train_step(model, optimizer)`` product):
     returns the state, updated in place, and ``{"loss", "grad_norm"}`` as
     device scalars (fetched when the caller needs them).  ``batch`` is the
     collated layout of :class:`mfar_tpu_torch.train.data_pipeline.
-    ContrastiveDataset` (numpy or tensors):
+    ContrastiveDataset` (numpy or tensors), or this rank's rows of it with
+    its ``shard``:
 
       query:  {input_ids, attention_mask}               [B, Sq]
       pos:    {field_key: {input_ids, attention_mask}}  each [B, Sf]
       neg:    {field_key: {input_ids, attention_mask}}  each [B*Nn, Sf]
       sparse_pos: [B, B, Fs] or None;  sparse_neg: [B, B*Nn, Fs] or None
     """
-    model = state.model.train()
-    params = [p for p in model.parameters() if p.requires_grad]
-    loss = _loss(model, batch, state.generator)
-    loss.backward()
+    params = [p for p in state.model.parameters() if p.requires_grad]
+    loss = compute_gradients(state, batch, shard)
     grad_norm = torch.nn.utils.get_total_norm([p.grad for p in params if p.grad is not None])
     state.optimizer.step()
     for p in params:  # a frozen encoder's gradients are not the optimizer's to clear
         p.grad = None
     state.step += 1
-    return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+    return state, {"loss": loss, "grad_norm": grad_norm}
 
 
-def eval_loss_step(state: TrainState, batch: Dict[str, Any]) -> torch.Tensor:
+def eval_loss_step(state: TrainState, batch: Dict[str, Any],
+                   shard: Optional[Shard] = None) -> torch.Tensor:
     """Proxy-validation loss (JAX's ``make_eval_loss_step(model)``
     product): the same loss, deterministic (``eval()``: no dropout,
-    batchnorm on its running stats), no state change."""
+    batchnorm on its running stats), no state change; with a ``shard``,
+    the global loss on every rank."""
     model = state.model.eval()
     with torch.no_grad():
-        return _loss(model, batch)
+        loss = _loss(model, batch, shard=shard)
+        return loss if shard is None else all_reduce_sum(loss, shard)

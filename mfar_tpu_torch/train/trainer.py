@@ -15,11 +15,21 @@ Lightning Trainer + callbacks):
   by the monitor, ``best.txt``), ``dev_by_iter`` mid-epoch validation and
   ``run_one_iteration``.
 
-A ``mesh`` (:mod:`mfar_tpu_torch.parallel.mesh`) serves the evaluation
-over several ranks, as ``mask_fields`` uses it: the index build splits its
-batches over the ranks and the engine shards the corpus rows; only rank 0
-writes files, and every rank scores the same in-memory run.  Training on a
-mesh (:meth:`Trainer.fit`) is ROADMAP A15b.
+Over several ranks (a ``mesh``, :mod:`mfar_tpu_torch.parallel.mesh`, one
+rank per card) training is data-parallel, as the JAX trainer's mesh: every
+rank builds the same global batches, takes its rows of each
+(:func:`~mfar_tpu_torch.parallel.data_parallel.shard_batch`) and runs the
+step on them, the in-batch embeddings all-gathered and the gradients summed
+(:mod:`mfar_tpu_torch.parallel.data_parallel`), so every rank holds the
+global loss and the same weights; a batch whose rows do not divide the
+ranks (a ragged validation batch) runs whole on every rank.  The evaluation
+runs on the mesh too, as ``mask_fields`` uses it: the index build splits
+its batches over the ranks and the engine shards the corpus rows.  Only
+rank 0 writes files (metrics, checkpoints, qres), followed by a barrier;
+every rank scores the same in-memory run, so every decision (early stop,
+the best checkpoint) agrees.  :meth:`Trainer.ckpt_step_broadcast` and
+:meth:`Trainer.restore_broadcast` read a checkpoint on rank 0 and send it
+to every rank.  Tensor parallelism over ``model`` is ROADMAP A15d.
 """
 
 from __future__ import annotations
@@ -39,7 +49,14 @@ from mfar_tpu_torch.eval.index_build import build_dense_corpus_matrix, make_enco
 from mfar_tpu_torch.eval import metrics as eval_metrics
 from mfar_tpu_torch.eval.retrieval import RetrievalEngine
 from mfar_tpu_torch.parallel import multihost
-from mfar_tpu_torch.train.checkpoint import CheckpointManager
+from mfar_tpu_torch.parallel.data_parallel import (
+    broadcast_module,
+    broadcast_object,
+    broadcast_tree,
+    shard_batch,
+)
+from mfar_tpu_torch.parallel.mesh import MODEL_AXIS, n_batch_shards
+from mfar_tpu_torch.train.checkpoint import CheckpointManager, apply_payload
 from mfar_tpu_torch.train.data_pipeline import (
     ContrastiveDataset,
     prefetch,
@@ -115,7 +132,7 @@ class Trainer:
         self.logger = logger or MetricsLogger(config.out_dir)
         self.timer = Timer()
 
-        self.ckpt = None  # rank 0 owns the run directory (fit trains in one process)
+        self.ckpt = None  # rank 0 owns the run directory
         if multihost.is_primary():
             os.makedirs(config.out_dir, exist_ok=True)
             self.ckpt = CheckpointManager(
@@ -183,8 +200,9 @@ class Trainer:
             ts = token_stats(batch)
             tokens_real += ts["tokens_real"]
             tokens_total += ts["tokens_total"]
+            local, shard = shard_batch(batch, self.mesh)
             with self.timer.phase("train_step"):
-                state, metrics = train_step(state, batch)
+                state, metrics = train_step(state, local, shard)
             losses.append(metrics["loss"])
             if (i + 1) % val_every == 0 and i + 1 < n:
                 val_losses.append(self.validate_proxy(state))
@@ -204,8 +222,10 @@ class Trainer:
             self.cfg.train_batch_size, seed=0, drop_remainder=False
         )
         for batch in prefetch(it, depth=self.cfg.prefetch_depth):
+            # a ragged last batch runs whole on every rank
+            local, shard = shard_batch(strip_meta(batch), self.mesh)
             with self.timer.phase("val_step"):
-                losses.append(eval_loss_step(state, strip_meta(batch)))
+                losses.append(eval_loss_step(state, local, shard))
             if self.cfg.run_one_iteration:
                 break
         with self.timer.phase("val_drain"):
@@ -243,11 +263,22 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def fit(self, state: TrainState, start_epoch: int = 0) -> TrainState:
-        if self.mesh is not None or multihost.is_multiprocess():
-            # checked here, not in __init__: evaluation (mask_fields) builds
-            # a Trainer over a mesh and never trains
-            raise NotImplementedError("training over several ranks (mesh) is ROADMAP A15b")
         cfg = self.cfg
+        if self.mesh is not None:
+            # checked here, not in __init__: evaluation (mask_fields) builds
+            # a Trainer over any mesh and never trains
+            if self.mesh.shape[MODEL_AXIS] > 1:
+                raise NotImplementedError("training with tensor parallelism (a mesh with "
+                                          "n_model > 1) is ROADMAP A15d")
+            n_dp = n_batch_shards(self.mesh)
+            if cfg.train_batch_size % n_dp:
+                raise ValueError(
+                    f"train_batch_size {cfg.train_batch_size} must divide over "
+                    f"the {n_dp} batch shards of mesh {dict(self.mesh.shape)}"
+                )
+            broadcast_module(state.model, self.mesh)  # every rank starts from rank 0's
+        elif multihost.is_multiprocess():
+            raise ValueError("multihost training requires a mesh")
         # loss-like monitors minimize, quality metrics maximize
         sign = 1.0 if CheckpointManager.monitor_mode(cfg.monitor) == "min" else -1.0
         best_monitor = float("inf")
@@ -272,14 +303,17 @@ class Trainer:
                 self.best_score = max(self.best_score, dev.get("ndcg_cut_10", 0.0))
                 metrics["best_ndcg_cut_10"] = self.best_score
 
-            self.logger.log(metrics, step=state.step)
-            print(
-                f"[epoch {epoch}] train_loss={train_loss:.4f} valid_loss={valid_loss:.4f}"
-                + (f" dev_ndcg@10={metrics['dev_ndcg_cut_10']:.4f}"
-                   if "dev_ndcg_cut_10" in metrics else "")
-            )
-            self.ckpt.save(epoch, state, metrics, field_info=self.field_info,
-                           config=dataclasses.asdict(cfg))
+            if multihost.is_primary():
+                self.logger.log(metrics, step=state.step)
+                print(
+                    f"[epoch {epoch}] train_loss={train_loss:.4f} valid_loss={valid_loss:.4f}"
+                    + (f" dev_ndcg@10={metrics['dev_ndcg_cut_10']:.4f}"
+                       if "dev_ndcg_cut_10" in metrics else "")
+                )
+                self.ckpt.save(epoch, state, metrics, field_info=self.field_info,
+                               config=dataclasses.asdict(cfg))
+            if self.mesh is not None:
+                multihost.sync("epoch-io", self.mesh.control)
 
             if cfg.monitor in metrics:
                 monitored = sign * metrics[cfg.monitor]
@@ -297,6 +331,25 @@ class Trainer:
             if cfg.run_one_iteration:
                 break
         return state
+
+    # ------------------------------------------------------------------
+
+    def ckpt_step_broadcast(self, which: str = "best") -> Optional[int]:
+        """The best or latest checkpoint step, read on rank 0 (which alone
+        writes checkpoints) and sent to every rank of the mesh."""
+        step = None
+        if multihost.is_primary():
+            step = self.ckpt.best_step() if which == "best" else self.ckpt.latest_step()
+        return step if self.mesh is None else broadcast_object(step, self.mesh)
+
+    def restore_broadcast(self, step: int, state: TrainState) -> TrainState:
+        """Restore a checkpoint on every rank: rank 0 reads it and sends its
+        parameters, buffers, optimizer state, step and generator state to
+        every rank of the mesh.  A plain restore without a mesh."""
+        if self.mesh is None:
+            return self.ckpt.restore(step, state)
+        payload = self.ckpt.read(step) if multihost.is_primary() else None
+        return apply_payload(state, broadcast_tree(payload, self.mesh))
 
     # ------------------------------------------------------------------
 

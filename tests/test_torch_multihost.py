@@ -1,6 +1,6 @@
 """The port's commands over two processes (one gloo rank each, on the CPU):
-``retrieve``, ``serve --smoke-out``, ``encode_corpus`` and ``mask_fields``,
-each started as a pair with ``MFAR_COORDINATOR=file://...`` (so that
+``retrieve``, ``serve --smoke-out``, ``encode_corpus``, ``mask_fields``
+and ``train`` (then ``train --resume``), each started as a pair with ``MFAR_COORDINATOR=file://...`` (so that
 parallel test workers never share a port) and ``--multihost force``, all
 pairs at once, once for the module.
 
@@ -12,7 +12,9 @@ of the suite's virtual CPU devices over the same weights: the two-process
 / atol 1e-3, ties allowed.  Only rank 0 writes; rank 0 names the route
 (``[mesh-hybrid-postings]``); the follower leaves on the stop message; the
 two-rank ``encode_corpus`` equals the one-process file and the two-rank
-``mask_fields`` the one-process metrics.
+``mask_fields`` the one-process metrics; the two-rank ``train`` run's
+metrics hold to one process's within the JAX package's two-process
+tolerance.
 """
 
 import json
@@ -40,6 +42,7 @@ from mfar_tpu.models.registry import prepare_model as jax_prepare_model
 from mfar_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from mfar_tpu_torch.commands import create_sparse_index, encode_corpus, make_synth_data
 from mfar_tpu_torch.commands import mask_fields
+from mfar_tpu_torch.commands import train as train_cmd
 from mfar_tpu_torch.data import trec
 from mfar_tpu_torch.data.schema import resolve_fields
 from mfar_tpu_torch.eval.compare import rankings_agree
@@ -83,7 +86,43 @@ def _commands(d, tmp):
                            d["idx"], "--out", str(tmp / f"mask{r}"), "--debug",
                            "--recall-k", "20", "--dev-max-length", "64",
                            "--multihost", "force"],
+        "train": lambda r: ["mfar_tpu_torch.commands.train", *_train_flags(d),
+                            "--out", str(tmp / f"train{r}"), "--multihost", "force"],
     }
+
+
+def _train_flags(d, *extra):
+    """The train command's flags (those of the JAX package's two-process
+    test, dropout 0: each rank draws its own masks)."""
+    return ["--dataset-name", "amazon", "--data", d["data"], "--lexical-index", d["idx"],
+            "--field-names", FIELDS, "--model-name", "synthetic", "--weights-lr", "0.1",
+            "--train-batch-size", "4", "--max-epochs", "2", "--trec-val-freq", "1",
+            "--recall-k", "10", "--dev-batch-size", "8", "--hidden-dropout", "0",
+            "--attention-dropout", "0", "--device", "cpu", *extra]
+
+
+def _start(name, argv, tmp, env, world=2):
+    """The ranks of one command, joined through ``file://``."""
+    return [subprocess.Popen(
+        [sys.executable, "-c", "import torch; torch.set_num_threads(1); import runpy, sys; "
+         "sys.argv = sys.argv[1:]; runpy.run_module(sys.argv[0], run_name='__main__')",
+         *argv(r)],
+        env=dict(env, MFAR_COORDINATOR=f"file://{tmp / f'init_{name}'}",
+                 MFAR_NUM_PROCESSES=str(world), MFAR_PROCESS_ID=str(r)),
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+
+
+def _wait(procs, logs):
+    for name, pair in procs.items():
+        for r, p in enumerate(pair):
+            try:
+                logs[(name, r)] = p.communicate(timeout=120)[0]
+            except subprocess.TimeoutExpired:
+                for q in (q for qs in procs.values() for q in qs):
+                    q.kill()
+                pytest.fail(f"{name} rank {r} timed out:\n{p.communicate()[0][-3000:]}")
+            assert p.returncode == 0, f"{name} rank {r} failed:\n{logs[(name, r)][-4000:]}"
 
 
 @pytest.fixture(scope="module")
@@ -111,18 +150,15 @@ def runs(tmp_path_factory):
     ckpt.save(0, pstate, {"valid_loss": 1.0}, field_info=pfi, config={})
     ckpt.write_best_txt()
 
-    procs = {}
     env = {k: v for k, v in os.environ.items() if not k.startswith("MFAR_")}
     env.update(PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
-    for name, argv in _commands(d, tmp).items():
-        procs[name] = [subprocess.Popen(
-            [sys.executable, "-c", "import torch; torch.set_num_threads(1); import runpy, sys; "
-             "sys.argv = sys.argv[1:]; runpy.run_module(sys.argv[0], run_name='__main__')",
-             *argv(r)],
-            env=dict(env, MFAR_COORDINATOR=f"file://{tmp / f'init_{name}'}",
-                     MFAR_NUM_PROCESSES="2", MFAR_PROCESS_ID=str(r)),
-            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(2)]
+    procs = {name: _start(name, argv, tmp, env) for name, argv in _commands(d, tmp).items()}
+    # three ranks and a batch of 4: the data axis shrinks to 2, rank 2 sits idle
+    procs["idle"] = _start("idle", lambda r: [
+        "mfar_tpu_torch.commands.train", *_train_flags(d, "--run-one-iteration"), "--out",
+        str(tmp / f"idle{r}"), "--multihost", "force"], tmp, env, world=3)
+    # the train command in one process, while the ranks run
+    train_cmd.main([*_train_flags(d), "--out", str(tmp / "train_one")])
     # the JAX engine on a mesh of 2 virtual devices over the same weights,
     # while the ranks run
     encoder = jax_build_encoder(jcfg)
@@ -138,16 +174,14 @@ def runs(tmp_path_factory):
                                                        mode=mode, batch_size=8)))
             for mode in ("exact", "rerank")}
     logs = {}
-    for name, pair in procs.items():
-        for r, p in enumerate(pair):
-            try:
-                logs[(name, r)] = p.communicate(timeout=120)[0]
-            except subprocess.TimeoutExpired:
-                for q in (q for qs in procs.values() for q in qs):
-                    q.kill()
-                pytest.fail(f"{name} rank {r} timed out:\n{p.communicate()[0][-3000:]}")
-            assert p.returncode == 0, f"{name} rank {r} failed:\n{logs[(name, r)][-4000:]}"
-
+    _wait(procs, logs)
+    # --resume from rank 0's checkpoints: a third epoch, on two ranks and on one
+    resume = ["--resume", "--max-epochs", "3"]
+    procs = {"resume": _start("resume", lambda r: [
+        "mfar_tpu_torch.commands.train", *_train_flags(d, *resume), "--out",
+        str(tmp / f"train{r}"), "--multihost", "force"], tmp, env)}
+    train_cmd.main([*_train_flags(d, *resume), "--out", str(tmp / "train_one")])
+    _wait(procs, logs)
     return dict(tmp=tmp, d=d, logs=logs, want=want, jax_route=jeng.last_serve_path)
 
 
@@ -200,3 +234,53 @@ def test_two_rank_encode_and_mask_fields_equal_one_process(runs, tmp_path):
             return [json.loads(line) for line in f]
 
     assert records(str(tmp / "mask0")) == records(str(tmp_path / "mask0"))
+
+
+def _epochs(out):
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [r for r in rows if r.get("event") == "metrics" and "train_loss" in r]
+
+
+def test_two_process_train_matches_one_process(runs):
+    """The train command over two ranks (rank 0 writes; both restore the
+    best checkpoint before the test) against one process: per-epoch losses
+    and dev ndcg@10 within the JAX package's two-process tolerance, 2e-3 +
+    1e-3 |x| (``tests/test_multihost.py``), the two first epochs and the
+    third, resumed from rank 0's checkpoint."""
+    tmp, logs = runs["tmp"], runs["logs"]
+    assert not os.path.exists(tmp / "train1")  # rank 1 writes nothing
+    for r in range(2):
+        assert f"[train] multihost: process {r}/2" in logs[("train", r)]
+        assert "Resumed from checkpoint 1 (epoch 2)" in logs[("resume", r)]
+        for name in ("train", "resume"):
+            assert f"[train] rank {r}: restored the best checkpoint" in logs[(name, r)]
+    assert "[train] mesh: {'replica': 1, 'data': 2, 'model': 1} over 2/2 ranks (gloo)" in \
+        logs[("train", 0)]
+    two, one = _epochs(str(tmp / "train0")), _epochs(str(tmp / "train_one"))
+    assert len(two) == len(one) == 3
+    for got, want in zip(two, one):
+        for key in ("train_loss", "valid_loss", "dev_ndcg_cut_10"):
+            assert abs(got[key] - want[key]) <= 2e-3 + 1e-3 * abs(want[key]), (key, got, want)
+    assert sorted(os.listdir(tmp / "train0" / "checkpoints")) == ["0", "1", "2"]
+    with open(tmp / "train0" / "results_dicts.jsonl") as f:
+        got = [json.loads(line) for line in f]
+    with open(tmp / "train_one" / "results_dicts.jsonl") as f:
+        want = [json.loads(line) for line in f]
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        for key in ("ndcg_cut_10", "recall_10", "recip_rank"):
+            assert abs(float(g[key]) - float(w[key])) <= 2e-3 + 1e-3 * float(w[key]), key
+
+
+def test_a_batch_that_does_not_divide_the_ranks_leaves_one_idle(runs):
+    """Three ranks, a train batch of 4: the mesh's data axis shrinks to 2,
+    as the JAX command shrinks it on one slice; rank 2 exits at once, and
+    the two others train."""
+    tmp, logs = runs["tmp"], runs["logs"]
+    assert ("[train] mesh: {'replica': 1, 'data': 2, 'model': 1} over 2/3 ranks (gloo) "
+            "(1 ranks idle: batch 4)") in logs[("idle", 0)]
+    assert "[train] rank 2 is idle (1 ranks idle: batch 4)" in logs[("idle", 2)]
+    assert "Starting training" not in logs[("idle", 2)]
+    assert len(_epochs(str(tmp / "idle0"))) == 1
+    assert not os.path.exists(tmp / "idle1") and not os.path.exists(tmp / "idle2")

@@ -55,7 +55,8 @@ def test_importing_the_port_loads_no_jax():
             "mfar_tpu_torch.ops.scoring", "mfar_tpu_torch.models.t5_encoder",
             "mfar_tpu_torch.models.t5_decoder", "mfar_tpu_torch.models.registry",
             "mfar_tpu_torch.models.convert", "mfar_tpu_torch.parallel.mesh",
-            "mfar_tpu_torch.parallel.topk", "mfar_tpu_torch.parallel.multihost"} <= set(mods)
+            "mfar_tpu_torch.parallel.topk", "mfar_tpu_torch.parallel.multihost",
+            "mfar_tpu_torch.parallel.data_parallel"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -147,14 +147,52 @@ def test_test_and_mask_fields(setup):
     assert {line["masked_fields"] for line in lines} == {"", masked}
 
 
-def test_trainer_refuses_a_mesh(setup):
-    """A mesh serves evaluation (mask_fields); training on one is A15b."""
+def test_trainer_refuses_a_mesh(setup, tmp_path):
+    """``fit`` trains on a mesh (data-parallel training, once refused as
+    A15b): on a world of one gloo rank it runs the steps of one device,
+    writes the checkpoints and restores the latest through
+    ``restore_broadcast``.  It still refuses a mesh with a model axis
+    (tensor parallelism, A15d) and a batch that does not divide the batch
+    shards, with the JAX trainer's message."""
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+
+    from mfar_tpu_torch.parallel.mesh import make_mesh
+
     t = setup["trainer"]
-    mesh_trainer = Trainer(t.tokenizer, t.field_info, t.corpus, t.train_dataset,
-                           t.val_dataset, t.dev_queries, t.dev_qrels_path, t.cfg,
-                           mesh=object())
-    with pytest.raises(NotImplementedError, match="A15b"):
-        mesh_trainer.fit(setup["state"])
+
+    def trainer(mesh, batch=6):
+        cfg = TrainerConfig(out_dir=str(tmp_path), max_epochs=2, train_batch_size=batch,
+                            dev_batch_size=8, index_batch_size=16, query_max_length=64,
+                            recall_k=20, seed=7)
+        return Trainer(t.tokenizer, t.field_info, t.corpus, t.train_dataset, t.val_dataset,
+                       t.dev_queries, t.dev_qrels_path, cfg, mesh=mesh)
+
+    def fresh():
+        return init_state(MFARModel(setup["cfg"], num_fields=setup["nf"], temperature=0.05),
+                          setup["opt"], seed=0, device="cpu")
+
+    with pytest.raises(NotImplementedError, match="A15d"):
+        trainer(SimpleNamespace(shape={"replica": 1, "data": 2, "model": 2})).fit(fresh())
+    with pytest.raises(ValueError, match=r"train_batch_size 5 must divide over the 2 batch "
+                                         r"shards of mesh \{'replica': 1, 'data': 2"):
+        trainer(SimpleNamespace(shape={"replica": 1, "data": 2, "model": 1},
+                                size=lambda axes: 2), batch=5).fit(fresh())
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'init'}", world_size=1,
+                            rank=0)
+    try:
+        mesh_trainer = trainer(make_mesh())
+        state = mesh_trainer.fit(fresh())
+        assert state.step == 2 * 2  # 12 train queries, batch 6
+        latest = mesh_trainer.ckpt_step_broadcast("latest")
+        assert latest == 1
+        restored = mesh_trainer.restore_broadcast(latest, fresh())
+        assert restored.step == state.step
+        for a, b in zip(state.model.state_dict().values(), restored.model.state_dict().values()):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
 
 
 # ----------------------------------------------------------------------
@@ -353,13 +391,43 @@ def test_train_cli_writes_the_jax_layout_and_serves(setup, tmp_path):
         assert json.load(f)["config"]["max_epochs"] == 2
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--n-model", "2"], "A15"),
-    (["--multihost", "force"], "A15"),
-])
-def test_train_cli_refuses_what_is_not_ported(setup, tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("extra,error,match", [
+    (["--n-model", "2"], NotImplementedError, "A15d"),
+    # several processes train now (once A15b): without its environment,
+    # --multihost force exits as the other commands do
+    (["--multihost", "force"], SystemExit, "MFAR_COORDINATOR"),
+], ids=["extra0-A15", "extra1-A15"])
+def test_train_cli_refuses_what_is_not_ported(setup, tmp_path, extra, error, match):
+    with pytest.raises(error, match=match):
         train_cmd.main(_train_args(setup["data"], str(tmp_path / "o"), "--device", "cpu", *extra))
+    assert not os.path.exists(tmp_path / "o")  # refused before any work
+
+
+@pytest.mark.parametrize("n_replica,batch", [(3, 16), (2, 6)])
+def test_train_mesh_shape_exits_as_jax(setup, tmp_path, n_replica, batch):
+    """Mesh shapes that cannot divide exit with the JAX command's message
+    (the JAX command on the suite's 8 virtual devices, the port on 8
+    ranks)."""
+    from mfar_tpu_torch.commands.train import train_mesh_shape
+
+    with pytest.raises(SystemExit) as port:
+        train_mesh_shape(8, n_replica, batch)
+    with pytest.raises(SystemExit) as want:
+        jax_train_cmd.main(_train_args(setup["data"], str(tmp_path / "jax"), "--n-replica",
+                                       str(n_replica), "--train-batch-size", str(batch)))
+    assert str(port.value) == str(want.value)
+
+
+def test_train_mesh_shape_shrinks_the_data_axis():
+    """On one slice the data axis shrinks until the batch divides (JAX's
+    rule): 8 ranks and a batch of 6 train on 6, of 12 on 6, of 16 on 8."""
+    from mfar_tpu_torch.commands.train import train_mesh_shape
+
+    assert train_mesh_shape(8, 1, 6) == (6, 6)
+    assert train_mesh_shape(8, 1, 12) == (6, 6)
+    assert train_mesh_shape(8, 1, 16) == (8, 8)
+    assert train_mesh_shape(8, 2, 16) == (4, 8)
+    assert train_mesh_shape(3, 1, 4) == (2, 2)
 
 
 def test_train_cli_trains_sparse_fields(setup, tmp_path, capsys):
