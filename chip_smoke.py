@@ -84,7 +84,9 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 queries, one batch's stages, a torch.profiler window, one
                 batch of each route against the reference; the int8
                 corpus's two hybrid routes and the host stream's postings
-                route (against a device-resident engine)
+                route (against a device-resident engine); the scatter-free
+                bucketed op (fused_hybrid_topk_buckets_from_query) beside
+                the scatter route on one batch, against it
 15. hybrid_cli -- the port's own command chain at Contriever-base width:
                 make_synth_data, create_sparse_index,
                 precompute_sparse_scores, train --field-names
@@ -116,8 +118,24 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 --smoke-out (torchrun --multihost pod) against one card's
                 output, exact and rerank QPS at batch 256 over the
                 [1048576, 5, 768] bf16 corpus (each rank making only its rows)
-                beside one card's, and the daemon with 64 HTTP clients for 10 s
-18. serve    -- the serving daemon (mfar_tpu_torch.serve) over a random bf16
+                beside one card's, and the daemon with 64 HTTP clients for 10 s;
+                (a) and (b) serve each case over the corpus on the card in bf16
+                and int8 and in host memory in bf16 and int8, against the
+                one-device engine of the same placement
+18. mesh_capacity -- with several cards, one NCCL rank per card (skipped
+                on one): retrieve --quantize int8 and retrieve
+                --corpus-on-host under torchrun against one card's, and
+                mask_fields --corpus-on-host over the ranks against one
+                card's; the [1048576, 5, 768] corpus (each rank making its
+                rows) as int8 on the cards, exact and rerank, and in host
+                memory from one f32 .npy every rank memmaps, streamed in bf16
+                and int8: QPS at batch 256 on one card, then on every card,
+                bytes and peak memory a card, stream GB/s a card against one
+                pinned copy, the ranks' answers against one card's; then
+                33554432 int8 rows over the cards (more than one card
+                holds), exact, 64 queries against rank 0's own scan of every
+                row made again on its card
+19. serve    -- the serving daemon (mfar_tpu_torch.serve) over a random bf16
                 [1048576, 5, 768] corpus made on the card: max_batch 256,
                 max_wait_ms 5, top_k 100, 64 closed-loop HTTP clients of 8
                 queries in a child process, 10 s a run; exact at pipeline
@@ -125,13 +143,13 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 p50/p95, batch fill, the dispatcher's phase seconds, K1
                 launches; the port closed until warmup ends; sampled answers
                 == engine.retrieve
-19. int8     -- that corpus quantized on the card: exact QPS in bf16 and int8
+20. int8     -- that corpus quantized on the card: exact QPS in bf16 and int8
                 in turns, corpus bytes, recall@100 of int8 against bf16, a
                 131072-row slice against a brute-force int8 reference with
                 exact integer dots, int8_dot (torch._int_mm) at a 1-query
                 batch and row counts off a multiple of 8, int8 rerank on the
                 e2e corpus
-20. host_stream -- that corpus copied to host memory (cut if MemAvailable is
+21. host_stream -- that corpus copied to host memory (cut if MemAvailable is
                 short of 3x it) and streamed per scan in bf16 and int8: QPS,
                 chunks, the achieved copy rate against one pinned copy of a
                 chunk, device memory over the encoder's working set, every
@@ -141,8 +159,8 @@ TF32 is switched off for matmuls and cuDNN, so f32 comparisons run in full
 f32.  Any failed check raises and the run exits non-zero; a rank that fails
 or outlives its timeout fails the mesh or train_mesh phase, and every rank
 is killed.  ``--phases`` runs only the listed phases (and those they read
-from) after device and build, e.g. ``--phases build,mesh`` or ``--phases
-train,train_mesh`` on four cards.  The last two
+from) after device and build, e.g. ``--phases build,mesh``, ``--phases
+build,mesh_capacity`` or ``--phases train,train_mesh`` on four cards.  The last two
 lines are one JSON object with every kernel's numbers (in a run of every
 phase) and one with ``"ok": true`` and the device.
 """
@@ -195,7 +213,7 @@ from mfar_tpu_torch.eval.index_build import (
     load_dense_matrix,
     make_encode_fn,
 )
-from mfar_tpu_torch.eval.retrieval import RetrievalEngine
+from mfar_tpu_torch.eval.retrieval import RetrievalEngine, topk_chunk
 from mfar_tpu_torch.models import T5Config, build_encoder
 from mfar_tpu_torch.models.encoder import Encoder, EncoderConfig, init_encoder
 from mfar_tpu_torch.models.registry import prepare_model, save_bert_dir, save_gtr_dir, save_t5_dir
@@ -217,7 +235,13 @@ from mfar_tpu_torch.ops.gather_scores import (
     gather_per_field_scores,
     gather_per_field_scores_plain,
 )
-from mfar_tpu_torch.ops.scoring import HOST_STREAM_CHUNK, int8_dot
+from mfar_tpu_torch.ops.scoring import (
+    HOST_STREAM_CHUNK,
+    bucket_postings_np,
+    fused_hybrid_topk_buckets_from_query,
+    fused_hybrid_topk_postings_from_query,
+    int8_dot,
+)
 from mfar_tpu_torch.serve import RetrievalServer
 from mfar_tpu_torch.sparse.bm25 import BM25Index
 from mfar_tpu_torch.sparse.tokenize import STOPWORDS_EN
@@ -1553,13 +1577,14 @@ def train_rank(spec, mesh, out) -> None:
                                grad_mb=sum(p.numel() for p in params) * 4 / 1e6)
 
 
-def run_train_ranks(job, spec, world, label) -> list:
+def run_ranks(job, spec, world, label, timeout=None) -> list:
     """Start ``world`` ranks of chip_smoke's ``mesh_rank`` on ``job``, wait
     until each exits 0 (a rank that fails fails the phase), and return
     what they measured."""
     with tempfile.TemporaryDirectory() as work:
         spec = dict(spec, job=job, work=work)
-        trec.write_qrels(os.path.join(work, "val.qrels"), spec["splits"][1][1])
+        if "splits" in spec:
+            trec.write_qrels(os.path.join(work, "val.qrels"), spec["splits"][1][1])
         path = os.path.join(work, "spec.pt")
         torch.save(spec, path)
         coord = f"file://{os.path.join(work, 'init')}"
@@ -1569,7 +1594,7 @@ def run_train_ranks(job, spec, world, label) -> list:
                             [rank_env(coord, world, r, **extra) for r in range(world)], work,
                             label)
         try:
-            watch_ranks(procs, label)
+            watch_ranks(procs, label, timeout=timeout or MESH_RANK_TIMEOUT_S)
         finally:
             stop_ranks(procs)
         return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
@@ -1651,7 +1676,7 @@ def run_train_mesh(seed, corpus, tok, batch=16, steps=2, epochs=2,
     spec = dict(seed=seed, device=DEVICE, pairs=pairs, tok=tok, cfg=cfg, splits=splits,
                 batch=batch, steps=steps, epochs=epochs, rate_batches=rate_batches)
     t = time.perf_counter()
-    ranks = run_train_ranks("train_shared", spec, 2, "train_mesh_a")
+    ranks = run_ranks("train_shared", spec, 2, "train_mesh_a")
     check([(r["backend"], r["card"]) for r in ranks] == [("gloo", 0)] * 2,
           f"(a) ranks' backends and cards {[(r['backend'], r['card']) for r in ranks]}")
     out = {"a": hold_train_ranks(ranks, spec, "(a) two gloo ranks on card 0")}
@@ -1661,7 +1686,7 @@ def run_train_mesh(seed, corpus, tok, batch=16, steps=2, epochs=2,
         phase("train_mesh", f"(b) needs several cards; {n_cards} visible: skipped")
     else:
         t = time.perf_counter()
-        ranks = run_train_ranks("train_cards", dict(spec, rates=True), n_cards, "train_mesh_b")
+        ranks = run_ranks("train_cards", dict(spec, rates=True), n_cards, "train_mesh_b")
         check(sorted(r["card"] for r in ranks) == list(range(n_cards))
               and {r["backend"] for r in ranks} == {"nccl"}, "(b) ranks share a card or "
               "do not run NCCL")
@@ -2093,6 +2118,7 @@ def run_hybrid_serving(seed, engine, n=131072, n_queries=512, n_text_queries=128
     ref, _ = hybrid_reference(big, batch, mixer, bm25)
     msg = rankings_agree(exact[:batch_size], ref, E2E_RTOL, E2E_ATOL)
     check(msg is None, f"hybrid serving batch vs brute force: {msg}")
+    a16 = bucketed_beside_scatter(big, batch, raws[0])
     phase("hybrid_serving", f"N={n} mag-shaped docs ({data_s:.1f}s to make), BM25 over "
                             f"{len(bm25)} fields: format {format_s:.1f}s, native build "
                             f"{build_s:.1f}s; {len(qs)} queries of 8 content words, batch "
@@ -2110,7 +2136,12 @@ def run_hybrid_serving(seed, engine, n=131072, n_queries=512, n_text_queries=128
                             f"queries: wall {prof['wall_ms']:.2f} ms, device busy "
                             f"{prof['device_ms']:.2f} ms (share {prof['busy_share']}); device ms "
                             f"by kernel: {prof['top']}; one batch == brute force (rtol "
-                            f"{E2E_RTOL}, atol {E2E_ATOL})")
+                            f"{E2E_RTOL}, atol {E2E_ATOL}); the scatter-free bucketed op "
+                            f"{a16['bucketed_ms']:.3f} ms against the scatter route's op "
+                            f"{a16['scatter_ms']:.3f} ms on that batch (CUDA events; "
+                            f"{a16['chunks']} chunk(s), buckets of {a16['width']}, the host's "
+                            f"bucketing {a16['bucket_host_ms']:.2f} ms apart), its top-100 == "
+                            f"the scatter's ({CARD})")
     # the int8 corpus's hybrid routes and the host stream's postings route
     # over the same corpus and BM25 indices
     kw = dict(field_info=field_info, doc_keys=[k for k, _ in pairs], encode_fn=engine.encode_fn,
@@ -2153,10 +2184,44 @@ def run_hybrid_serving(seed, engine, n=131072, n_queries=512, n_text_queries=128
                 hybrid_serving_combined_qps=len(text_qs) / text_s,
                 hybrid_serving_k1_launches=launches, hybrid_serving_bm25_build_s=build_s,
                 hybrid_serving_postings_width=width, hybrid_serving_postings_per_query=nnz,
-                hybrid_serving_busy_share=prof["busy_share"],
+                hybrid_serving_busy_share=prof["busy_share"], hybrid_serving_a16=a16,
                 hybrid_serving_stage_ms=dict(encode=enc_ms, postings=post_ms,
                                              native_postings=native_ms, dispatch=disp_ms,
                                              exact=exact_ms, rerank=rerank_ms))
+
+
+def bucketed_beside_scatter(engine, batch, raw, k=100) -> dict:
+    """The scatter-free bucketed op (``fused_hybrid_topk_buckets_from_query``,
+    no engine route) beside the scatter route's op
+    (``fused_hybrid_topk_postings_from_query``) on one batch's postings
+    ``raw``, over the engine's corpus at its chunk: CUDA-event ms of each,
+    the host's bucketing timed apart, and the bucketed top-k held to the
+    scatter's."""
+    n, fd = engine.n_docs, len(engine.dense_keys)
+    chunk = topk_chunk(n, len(batch))
+    t = time.perf_counter()
+    buckets = bucket_postings_np(*raw, n, chunk)
+    host_ms = (time.perf_counter() - t) * 1e3
+    with torch.inference_mode():
+        q = engine.encode_queries(batch)
+        flat = [torch.from_numpy(a).to(DEVICE) for a in raw]
+        bk = [torch.from_numpy(a).to(DEVICE) for a in buckets]
+        args = (q, engine._W, engine._mask_tensor(), engine.docs_flat)
+
+        def scatter():
+            return fused_hybrid_topk_postings_from_query(*args, *flat, n, fd, k, chunk_size=chunk)
+
+        def bucketed():
+            return fused_hybrid_topk_buckets_from_query(*args, *bk, n, fd, k, chunk_size=chunk)
+
+        want, got = scatter(), bucketed()
+        msg = rankings_agree(*(engine._to_keyed(s.cpu().numpy(), i.cpu().numpy())
+                               for s, i in (got, want)), E2E_RTOL, E2E_ATOL)
+        check(msg is None, f"the bucketed hybrid op vs the scatter route's: {msg}")
+        scatter_ms = time_cuda(scatter, reps=7, inner=3, warmup=1)
+        bucketed_ms = time_cuda(bucketed, reps=7, inner=3, warmup=1)
+    return dict(scatter_ms=scatter_ms, bucketed_ms=bucketed_ms, bucket_host_ms=host_ms,
+                chunks=buckets[0].shape[1], width=buckets[0].shape[2])
 
 
 def run_hybrid_cli(seed, n_docs=200) -> dict:
@@ -2727,27 +2792,38 @@ def run_serve(seed, engine, n=1048576, seconds=10.0) -> dict:
 INT8_DOT_SHAPES = ((1, 3840, 1000), (7, 3840, 1003), (256, 3840, 131077), (5, 100, 61))
 
 
-def int8_reference(engine, queries, matrix, k=100):
-    """Brute-force int8 retrieval written out here, not through the port's
-    scoring helpers: folded f32 queries and the corpus rows quantized per
-    row (absmax / 127, round half to even, clip to 127), their integer dots
-    summed in f64 (exact: every partial sum is an integer below 2**53),
-    rounded to f32 and times the two scales in the JAX package's order.
-    The queries are encoded as one batch, as the engine encodes them."""
-    def quantize(x):
-        scale = torch.clamp(x.abs().amax(1, keepdim=True), min=1e-12) / 127.0
-        return torch.clamp(torch.round(x / scale), -127, 127), scale[:, 0]
+def quantize_reference(x):
+    """Per-row int8 quantization written out here, not through the port's
+    helpers: absmax / 127, round half to even, clip to 127; the values stay
+    in ``x``'s float dtype, with the [rows] scales."""
+    scale = torch.clamp(x.abs().amax(1, keepdim=True), min=1e-12) / 127.0
+    return torch.clamp(torch.round(x / scale), -127, 127), scale[:, 0]
 
-    d8, ds = quantize(matrix.float())
-    check(torch.equal(d8.to(torch.int8), engine.docs_q), "the engine's int8 rows differ")
-    check(torch.equal(ds, engine.doc_scales), "the engine's row scales differ")
-    d8 = d8.double()
+
+def folded_queries(engine, queries):
+    """The engine's folded f32 queries written out (softmax field weights
+    of the encoded queries, each weight times the query), the queries
+    encoded as one batch, as the engine encodes them."""
     w_mix = torch.as_tensor(engine.mixer_params["weight"], dtype=torch.float32, device=DEVICE)
     with torch.inference_mode():
         q = engine.encode_queries(queries)
         w = torch.softmax(q @ w_mix, dim=-1)
-        qf = (w[:, :, None] * q[:, None, :]).reshape(q.shape[0], -1)
-        q8, qs = quantize(qf)
+        return (w[:, :, None] * q[:, None, :]).reshape(q.shape[0], -1)
+
+
+def int8_reference(engine, queries, matrix, k=100):
+    """Brute-force int8 retrieval written out here, not through the port's
+    scoring helpers: folded f32 queries and the corpus rows quantized per
+    row (:func:`quantize_reference`), their integer dots summed in f64
+    (exact: every partial sum is an integer below 2**53), rounded to f32 and
+    times the two scales in the JAX package's order."""
+    d8, ds = quantize_reference(matrix.float())
+    check(torch.equal(d8.to(torch.int8), engine.docs_q), "the engine's int8 rows differ")
+    check(torch.equal(ds, engine.doc_scales), "the engine's row scales differ")
+    d8 = d8.double()
+    qf = folded_queries(engine, queries)
+    with torch.inference_mode():
+        q8, qs = quantize_reference(qf)
         scores = (q8.double() @ d8.T).float() * qs[:, None] * ds[None, :]
         top_s, top_i = torch.topk(scores, k, dim=-1)
     return engine._to_keyed(top_s.cpu().numpy(), top_i.cpu().numpy())
@@ -3148,7 +3224,8 @@ def mesh_rank(spec_path: str) -> int:
     """One rank of the mesh or train_mesh phase, started with the
     ``MFAR_*`` triple: ``job`` "shared" is a gloo rank of mesh (b) sharing
     card 0, "cards" an NCCL rank of mesh (c) on its own card,
-    "train_shared" and "train_cards" the same for train_mesh (a) and (b).
+    "train_shared" and "train_cards" the same for train_mesh (a) and (b),
+    "capacity" an NCCL rank of mesh_capacity.
     Writes what it measured to ``<work>/rank<R>.pt``."""
     import torch.distributed as dist
 
@@ -3167,7 +3244,7 @@ def mesh_rank(spec_path: str) -> int:
     out = {"rank": mesh.rank, "world": dist.get_world_size(), "backend": mesh.backend,
            "card": torch.cuda.current_device()}
     jobs = {"shared": shared_rank, "cards": cards_rank, "train_shared": train_rank,
-            "train_cards": train_rank}
+            "train_cards": train_rank, "capacity": capacity_rank}
     jobs[spec["job"]](spec, mesh, out)
     torch.save(out, os.path.join(spec["work"], f"rank{mesh.rank}.pt"))
     multihost.sync("mesh-rank-done")
@@ -3196,33 +3273,59 @@ def split_encode(encode, n_shards):
     return run
 
 
+# the corpus placements of the (a)/(b) mesh cases: on the cards in bf16
+# (first: the daemon serves its hybrid engine) or int8, and in host memory
+# in bf16 or int8
+MESH_PLACEMENTS = (("", {}), ("int8 ", dict(quantize="int8")),
+                   ("host ", dict(corpus_on_host=True)),
+                   ("host int8 ", dict(corpus_on_host=True, quantize="int8")))
+
+
+def mesh_routes(int8: bool, host: bool) -> tuple:
+    """The routes of a mesh engine's dense exact, dense rerank, hybrid
+    postings, hybrid combined and hybrid rerank, over a corpus on the cards
+    or in host memory, int8 or not."""
+    i8 = "-int8" if int8 else ""
+    if host:
+        rows = "int8" if int8 else "rows"
+        return (f"host-stream-dense{i8}-mesh", f"host-stream-rerank-{rows}-mesh",
+                f"host-stream-hybrid{i8}-mesh-postings", f"host-stream-hybrid{i8}-mesh-combined",
+                f"host-stream-rerank-hybrid-{rows}-mesh")
+    return (f"mesh{i8}-dense", f"mesh-rerank{i8}", f"mesh{i8}-hybrid-postings",
+            f"mesh{i8}-hybrid-combined", f"mesh-rerank-hybrid{i8}")
+
+
 def mesh_engines(spec, mesh, matrix, encode, plain_encode, n, recall_k=100):
-    """The (a)/(b) cases on the first ``n`` docs: (name, mesh engine, its
-    one-device twin or None off rank 0, queries, mode, route)."""
+    """The (a)/(b) cases on the first ``n`` docs, for each corpus placement
+    of ``MESH_PLACEMENTS``: (name, mesh engine, its one-device twin with the
+    same placement or None off rank 0, queries, mode, route)."""
     pairs = spec["pairs"][:n]
     sub = Corpus.from_pairs(pairs, dataset_name="mag")
     dense_fi = resolve_fields("all_dense", "mag")
     hybrid_fi = resolve_fields("all_dense,all_sparse", "mag")
     sparse = build_sparse_indices(sub, {k: f for k, f in hybrid_fi.items() if f.is_sparse})
     cases = []
-    for fields, fi, mixer, idx in (("dense", dense_fi, spec["mixer_dense"], None),
-                                   ("hybrid", hybrid_fi, spec["mixer_hybrid"], sparse)):
-        kw = dict(field_info=fi, doc_keys=list(sub.keys()), tokenizer=spec["tok"],
-                  mixer_params={"weight": mixer}, dense_matrix=matrix[:n], sparse_indices=idx,
-                  recall_k=recall_k, dense_dtype=torch.bfloat16, device=DEVICE)
-        eng = RetrievalEngine(mesh=mesh, encode_fn=encode, **kw)
-        ref = (RetrievalEngine(encode_fn=split_encode(plain_encode, mesh.size("data")), **kw)
-               if mesh.rank == 0 else None)
-        if fields == "dense":
-            cases += [("dense exact", eng, ref, spec["queries"], "exact", "mesh-dense"),
-                      ("dense rerank", eng, ref, spec["queries"], "rerank", "mesh-rerank")]
-        else:
-            cases += [("hybrid postings", eng, ref, spec["rare"], "exact",
-                       "mesh-hybrid-postings"),
-                      ("hybrid combined", eng, ref, spec["queries"], "exact",
-                       "mesh-hybrid-combined"),
-                      ("hybrid rerank", eng, ref, spec["rare"], "rerank",
-                       "mesh-rerank-hybrid")]
+    for label, placement in MESH_PLACEMENTS:
+        routes = mesh_routes("quantize" in placement, "corpus_on_host" in placement)
+        for fields, fi, mixer, idx in (("dense", dense_fi, spec["mixer_dense"], None),
+                                       ("hybrid", hybrid_fi, spec["mixer_hybrid"], sparse)):
+            kw = dict(field_info=fi, doc_keys=list(sub.keys()), tokenizer=spec["tok"],
+                      mixer_params={"weight": mixer}, dense_matrix=matrix[:n],
+                      sparse_indices=idx, recall_k=recall_k, dense_dtype=torch.bfloat16,
+                      device=DEVICE, **placement)
+            eng = RetrievalEngine(mesh=mesh, encode_fn=encode, **kw)
+            ref = (RetrievalEngine(encode_fn=split_encode(plain_encode, mesh.size("data")), **kw)
+                   if mesh.rank == 0 else None)
+            if fields == "dense":
+                cases += [(label + "dense exact", eng, ref, spec["queries"], "exact", routes[0]),
+                          (label + "dense rerank", eng, ref, spec["queries"], "rerank",
+                           routes[1])]
+            else:
+                cases += [(label + "hybrid postings", eng, ref, spec["rare"], "exact", routes[2]),
+                          (label + "hybrid combined", eng, ref, spec["queries"], "exact",
+                           routes[3]),
+                          (label + "hybrid rerank", eng, ref, spec["rare"], "rerank",
+                           routes[4])]
     return cases
 
 
@@ -3392,17 +3495,8 @@ def run_mesh(seed, e2e=None, n_serve=131072) -> dict:
     if e2e is None:
         e2e = mesh_world(seed)
     engine, corpus, queries = e2e
-    cfg = EncoderConfig.contriever_base(vocab_size=engine.tokenizer.vocab_size,
-                                        attention_impl="auto")
-    rng = np.random.default_rng(seed + 41)
-    pairs = list(corpus.pairs())
-    fi_h = resolve_fields("all_dense,all_sparse", "mag")
-    spec = dict(seed=seed, device=DEVICE, cfg=cfg, tok=engine.tokenizer, pairs=pairs,
-                queries=queries,
-                rare=rare_word_queries(pairs, 128, rng, min_rank=5000),
-                mixer_dense=np.asarray(engine.mixer_params["weight"], np.float32),
-                mixer_hybrid=rng.normal(scale=0.05, size=(engine.emb_dim, len(fi_h)))
-                .astype(np.float32))
+    spec = mesh_spec(seed, e2e)
+    cfg, pairs = spec["cfg"], spec["pairs"]
     out = {}
 
     # (a) one NCCL rank: a world of 1 made here
@@ -3438,7 +3532,8 @@ def run_mesh(seed, e2e=None, n_serve=131072) -> dict:
     torch.cuda.empty_cache()
     out["mesh_a_s"] = time.perf_counter() - t
     phase("mesh", f"(a) one NCCL rank (make_mesh over a world of 1): exact and rerank, dense "
-                  f"and all_dense,all_sparse (postings, combined) on the e2e corpus, and the "
+                  f"and all_dense,all_sparse (postings, combined) on the e2e corpus, on the "
+                  f"card in bf16 and int8 and in host memory in bf16 and int8, and the "
                   f"[{n_serve}, {fd}, {e}] bf16 corpus in exact and rerank, each == the one-device "
                   f"engine (rtol {E2E_RTOL}, atol {E2E_ATOL}, ties allowed) with its mesh-* "
                   f"path, in {out['mesh_a_s']:.1f}s")
@@ -3486,9 +3581,11 @@ def run_mesh(seed, e2e=None, n_serve=131072) -> dict:
                   f"({n_seq / max(r['build_s'] for r in ranks):.0f} field-docs/s), K2 launches "
                   f"{k2} (each rank's = the one-device build's), against the one-device K2 "
                   f"build: {agree}; dense and hybrid exact and rerank (recall_k = every doc) "
-                  f"on {len(pairs) - 1} docs "
+                  f"on {len(pairs) - 1} docs, on the card in bf16 and int8 and in host memory "
+                  f"in bf16 and int8 ({len(ranks[0]['cases'])} cases) "
                   f"(row blocks of {len(pairs) // 2} and {len(pairs) // 2 - 1}) == the "
-                  f"one-device engine with mesh-* paths; rerank at recall_k 100: top-100 "
+                  f"one-device engine of each placement, with the mesh-* and host-stream-*-mesh "
+                  f"paths; rerank at recall_k 100: top-100 "
                   f"overlap with the one-device engine {recall_overlap} (>= "
                   f"{MESH_RERANK_MIN_OVERLAP}, shared docs' scores equal); "
                   f"rank 1 == rank 0; the daemon (rank 0 RetrievalServer over "
@@ -3503,6 +3600,25 @@ def run_mesh(seed, e2e=None, n_serve=131072) -> dict:
         return out
     out.update(run_mesh_cards(seed, spec, n_cards))
     return out
+
+
+def mesh_spec(seed, e2e) -> dict:
+    """What the ranks of the mesh phases read, from the e2e world: the
+    encoder's config (Contriever-base, attention "auto"), the tokenizer,
+    the corpus's pairs, its queries, 128 rare-word queries and a dense and
+    a hybrid mixer."""
+    engine, corpus, queries = e2e
+    cfg = EncoderConfig.contriever_base(vocab_size=engine.tokenizer.vocab_size,
+                                        attention_impl="auto")
+    rng = np.random.default_rng(seed + 41)
+    pairs = list(corpus.pairs())
+    fi_h = resolve_fields("all_dense,all_sparse", "mag")
+    return dict(seed=seed, device=DEVICE, cfg=cfg, tok=engine.tokenizer, pairs=pairs,
+                queries=queries,
+                rare=rare_word_queries(pairs, 128, rng, min_rank=5000),
+                mixer_dense=np.asarray(engine.mixer_params["weight"], np.float32),
+                mixer_hybrid=rng.normal(scale=0.05, size=(engine.emb_dim, len(fi_h)))
+                .astype(np.float32))
 
 
 def mesh_world(seed, n_docs=2048, n_queries=256):
@@ -3638,6 +3754,376 @@ def run_mesh_cards(seed, spec, n_cards, n_big=1048576, n_cli_docs=512) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 18: capacity over several cards (the int8 and host-streamed corpora)
+
+CAPACITY_ROWS = 33554432  # int8 rows over four cards: 32.2 GB a card, 128.8 GB in all
+CAPACITY_CHECK = 64  # queries held against rank 0's own scan of the capacity corpus
+KEY_BYTES = 80  # host bytes a doc key costs a rank: its str and its slots in two arrays
+HOST_QUERIES = 1024  # queries a host-stream run (each batch reads every rank's rows)
+
+
+def seeded_int8_topk(rows, n, qf, k):
+    """The exact int8 top-``k`` of the folded f32 queries ``qf`` over
+    ``rows[0:n]`` (a :class:`SeededRows`), the rows made again block by
+    block on the card and quantized by :func:`quantize_reference`; integer
+    dots summed in f64, rounded to f32 and times both scales in the JAX
+    package's order.  Returns [Q, k] scores and row ids on the card."""
+    q8, qs = quantize_reference(qf)
+    q8 = q8.double()
+    top_s = top_i = None
+    for lo in range(0, n, BIG_ROW_BLOCK):
+        hi = min(n, lo + BIG_ROW_BLOCK)
+        d8, ds = quantize_reference(rows[lo:hi].float())
+        s = (q8 @ d8.double().T).float() * qs[:, None] * ds[None, :]
+        s_top, i_top = torch.topk(s, min(k, hi - lo), dim=-1)
+        i_top = i_top + lo
+        if top_s is not None:
+            s_top, sel = torch.topk(torch.cat([top_s, s_top], 1), k, dim=-1)
+            i_top = torch.gather(torch.cat([top_i, i_top], 1), 1, sel)
+        top_s, top_i = s_top, i_top
+    return top_s, top_i
+
+
+def capacity_rank(spec, mesh, out) -> None:
+    """mesh_capacity's rank, one a card: (1) the serve cell's corpus as int8
+    on the cards, exact and rerank, rank 0 alone on the whole corpus first;
+    (2) that corpus in host memory, from one f32 .npy that rank 0 writes and
+    every rank memmaps, streamed in bf16 and int8, rank 0 alone first; (3)
+    ``n_capacity`` int8 rows over the cards, exact, rank 0 holding
+    ``CAPACITY_CHECK`` queries against its own scan of every row.  Every
+    rank makes only its rows, from the seed."""
+    from mfar_tpu_torch.parallel import multihost
+
+    tok, cfg, n_cards = spec["tok"], spec["cfg"], mesh.size("data")
+    encoder = init_encoder(cfg, seed=spec["seed"])
+    plain = make_encode_fn(encoder, device=DEVICE)
+    ranks_encode = make_encode_fn(encoder, device=DEVICE, mesh=mesh)
+    fi = resolve_fields("all_dense", "mag")
+    width = len(fi) * cfg.hidden_size
+    qs = spec["big_queries"]
+    hq = qs[: spec["host_queries"]]
+
+    def kw(n):
+        return dict(field_info=fi, doc_keys=[f"doc{i}" for i in range(n)], tokenizer=tok,
+                    mixer_params={"weight": spec["mixer_dense"]}, recall_k=100, device=DEVICE)
+
+    def run(eng, queries, mode, collective):
+        """QPS of ``queries`` at batch 256 after a warm-up batch (the ranks
+        start together), and the results."""
+        eng.retrieve_many(queries[:256], top_k=100, mode=mode, batch_size=256)
+        if collective:
+            multihost.sync("capacity-run")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = eng.retrieve_many(queries, top_k=100, mode=mode, batch_size=256)
+        torch.cuda.synchronize()
+        return len(queries) / (time.perf_counter() - t), res
+
+    def placed(make):
+        """(engine, seconds to place it, peak device GB of the placement)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        eng = make()
+        torch.cuda.synchronize()
+        return eng, time.perf_counter() - t, torch.cuda.max_memory_allocated() / 1e9
+
+    def one_card(name, make, queries, modes):
+        """Rank 0 alone: QPS per mode with its own encoder calls, then the
+        ranks' first batch encoded in the ranks' calls, the reference."""
+        if mesh.rank == 0:
+            eng, place_s, _ = placed(make)
+            for mode in modes:
+                eng.encode_fn = plain
+                rate, _ = run(eng, queries, mode, collective=False)
+                eng.encode_fn = split_encode(plain, n_cards)
+                ref = eng.retrieve_many(queries[:256], top_k=100, mode=mode, batch_size=256)
+                out[f"one_{name}_{mode}"] = (rate, ref, eng.last_serve_path)
+            out[f"one_{name}"] = dict(place_s=place_s, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                      **corpus_bytes(eng))
+            del eng
+            torch.cuda.empty_cache()
+        multihost.sync(f"capacity-one-{name}")
+
+    def ranks(name, make, queries, modes):
+        eng, place_s, _ = placed(make)
+        for mode in modes:
+            rate, res = run(eng, queries, mode, collective=True)
+            out[f"mesh_{name}_{mode}"] = (rate, res[:256], eng.last_serve_path)
+        out[f"mesh_{name}"] = dict(place_s=place_s, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                   **corpus_bytes(eng))
+        del eng
+        torch.cuda.empty_cache()
+
+    # (1) the serve cell's corpus as int8 on the cards
+    n = spec["n_big"]
+    rows = SeededRows(n, width, spec["seed"] + 31)
+    one_card("int8", lambda: RetrievalEngine(dense_matrix=rows, quantize="int8",
+                                             encode_fn=plain, **kw(n)),
+             qs, ("exact", "rerank"))
+    ranks("int8", lambda: RetrievalEngine(dense_matrix=rows, quantize="int8", mesh=mesh,
+                                          encode_fn=ranks_encode, **kw(n)),
+          qs, ("exact", "rerank"))
+
+    # (2) in host memory: one f32 .npy, every rank's engine over a memmap
+    n_host = spec["n_host"]
+    path = os.path.join(spec["work"], "corpus.npy")
+    if mesh.rank == 0:
+        t = time.perf_counter()
+        mm = np.lib.format.open_memmap(path, mode="w+", dtype=np.float32, shape=(n_host, width))
+        for lo in range(0, n_host, BIG_ROW_BLOCK):
+            hi = min(n_host, lo + BIG_ROW_BLOCK)
+            mm[lo:hi] = rows[lo:hi].float().cpu().numpy()
+        mm.flush()
+        del mm
+        out["npy_write_s"] = time.perf_counter() - t
+    multihost.sync("capacity-npy")
+    flat = np.load(path, mmap_mode="r")
+    placements = {"host_bf16": dict(dense_dtype=torch.bfloat16), "host_int8": dict(quantize="int8")}
+    for name, placement in placements.items():
+        one_card(name, lambda: RetrievalEngine(dense_matrix=flat, corpus_on_host=True,
+                                               encode_fn=plain, **placement, **kw(n_host)),
+                 hq, ("exact",))
+    # one pinned copy of a bf16 chunk's bytes to each card at once: the yardstick
+    pinned = torch.empty(HOST_STREAM_CHUNK, width, dtype=torch.bfloat16, pin_memory=True)
+    dev = torch.empty(pinned.shape, dtype=pinned.dtype, device=DEVICE)
+    multihost.sync("capacity-yardstick")
+    copy_ms = time_cuda(lambda: dev.copy_(pinned, non_blocking=True), reps=5, inner=3, warmup=1)
+    out["yardstick_gbs"] = pinned.nbytes / copy_ms / 1e6
+    del pinned, dev
+    for name, placement in placements.items():
+        ranks(name, lambda: RetrievalEngine(dense_matrix=flat, corpus_on_host=True, mesh=mesh,
+                                            encode_fn=ranks_encode, **placement, **kw(n_host)),
+              hq, ("exact",))
+    del flat
+    multihost.sync("capacity-host-done")
+
+    # (3) more int8 rows than one card holds
+    n_cap = spec["n_capacity"]
+    cap_rows = SeededRows(n_cap, width, spec["seed"] + 59)
+    cap, place_s, _ = placed(lambda: RetrievalEngine(
+        dense_matrix=cap_rows, quantize="int8", mesh=mesh, encode_fn=ranks_encode, **kw(n_cap)))
+    rate, _ = run(cap, qs, "exact", collective=True)
+    out["mesh_capacity"] = dict(qps=rate, place_s=place_s, path=cap.last_serve_path,
+                                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                **corpus_bytes(cap))
+    check_qs = qs[:CAPACITY_CHECK]
+    got = cap.retrieve(check_qs, top_k=100)
+    qf = folded_queries(cap, check_qs)  # the ranks' encoder calls, as retrieve's
+    if mesh.rank == 0:
+        d8, ds = quantize_reference(cap_rows[0:BIG_ROW_BLOCK].float())
+        check(torch.equal(d8.to(torch.int8), cap.docs_q[:BIG_ROW_BLOCK])
+              and torch.equal(ds, cap.doc_scales[:BIG_ROW_BLOCK]),
+              "the capacity engine's first int8 rows differ from the reference's")
+        t = time.perf_counter()
+        with torch.inference_mode():
+            top_s, top_i = seeded_int8_topk(cap_rows, n_cap, qf, 100)
+        out["capacity_scan_s"] = time.perf_counter() - t
+        ref = cap._to_keyed(top_s.cpu().numpy(), top_i.cpu().numpy())
+        out["capacity_check"] = (len(check_qs), rankings_agree(got, ref, 1e-6, 0.0))
+    multihost.sync("capacity-check")
+
+
+def corpus_bytes(eng) -> dict:
+    """GB of a rank's corpus on its card and pinned in its host memory (a
+    memmap's rows stay in the page cache and count nothing)."""
+    on_card = (eng.docs_flat, eng.docs_q, eng.doc_scales)
+    pinned = (eng.docs_host_q, eng.docs_host if torch.is_tensor(eng.docs_host) else None)
+    return {key: sum(t.numel() * t.element_size() for t in ts if t is not None) / 1e9
+            for key, ts in (("device_gb", on_card), ("host_gb", pinned))}
+
+
+def run_capacity_commands(seed, spec, n_cards, n_docs=512) -> dict:
+    """The commands over the cards on a corpus in int8 and in host memory:
+    ``retrieve --quantize int8`` and ``retrieve --corpus-on-host`` under
+    torchrun --multihost pod against one card's run of each (one card's
+    batches the ranks' shares of theirs), and ``mask_fields --corpus-on-host``
+    over the ranks against one card's, on a seeded checkpoint (one card's
+    encoder calls split as the ranks split them, so each bf16 row rounds
+    alike)."""
+    from mfar_tpu_torch.train import trainer as trainer_mod
+    from mfar_tpu_torch.train.checkpoint import CheckpointManager
+
+    rng = np.random.default_rng(seed + 53)
+    pairs = spec["pairs"][:n_docs]
+    sub = Corpus.from_pairs(pairs, dataset_name="mag")
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        data, bert, ckpt = (os.path.join(d, x) for x in ("data", "bert", "ckpt"))
+        write_data_dir(data, pairs, {"val": mag_splits(pairs, (16,), rng)[0]})
+        with open(os.path.join(data, "test.queries"), "w", encoding="utf-8") as f:
+            for i, q in enumerate(spec["queries"][:128]):
+                f.write(f"q{i}\t{q}\n")
+        write_bert_dir(bert, sub, seed + 4)
+        base = ["--dataset-name", "mag", "--data", data, "--model-name", bert,
+                "--device", DEVICE]
+        npz = os.path.join(d, "one.npz")
+        encode_corpus.main([*base, "--out", npz, "--mesh", "off"])
+        torchrun = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+                    str(n_cards), "--master-port", str(free_port())]
+        env = {k: v for k, v in os.environ.items() if not k.startswith("MFAR_")}
+
+        def over_ranks(cmd, args, label):
+            t = time.perf_counter()
+            procs = start_ranks([[*torchrun, "-m", f"mfar_tpu_torch.commands.{cmd}", *args,
+                                  "--multihost", "pod"]], [env], d, label)
+            watch_ranks(procs, f"{cmd} {label} under torchrun")
+            return time.perf_counter() - t
+
+        for label, flags in (("int8", ["--quantize", "int8"]), ("host", ["--corpus-on-host"])):
+            one, many = (os.path.join(d, f"{w}_{label}.qres") for w in ("one", "many"))
+            retrieve_cmd.main([*base, "--dense-index", npz, "--mesh", "off", "--out", one,
+                               "--batch-size", str(64 // n_cards), *flags])
+            secs = over_ranks("retrieve", [*base, "--dense-index", npz, "--out", many,
+                                           "--batch-size", "64", *flags], f"retrieve_{label}")
+            want, got = qres_lists(one), qres_lists(many)
+            msg = rankings_agree([got.get(q, []) for q in want], [want[q] for q in want],
+                                 E2E_RTOL, E2E_ATOL)
+            check(got.keys() == want.keys() and msg is None,
+                  f"retrieve {' '.join(flags)} over the cards vs one card: {msg}")
+            out[f"retrieve_{label}_s"] = secs
+
+        # a seeded checkpoint of the all_dense model, then the ablation sweep
+        fi = resolve_fields("all_dense", "mag")
+        config, encoder_state, _ = prepare_model(bert)
+        state = init_state(MFARModel(encoder_config=config, num_fields=len(fi)),
+                           make_optimizer(encoder_lr=1e-4, weights_lr=1e-1), seed=seed,
+                           device=DEVICE)
+        state.model.encoder.load_state_dict(encoder_state)
+        CheckpointManager(ckpt).save(0, state, {"valid_loss": 0.0}, fi)
+        del state
+        sweep = [*base, "--field-names", "all_dense", "--lexical-index",
+                 os.path.join(d, "idx"), "--checkpoint-dir", ckpt, "--corpus-on-host"]
+        make = trainer_mod.make_encode_fn
+        trainer_mod.make_encode_fn = lambda enc, device=None, mesh=None: split_encode(
+            make(enc, device=device), n_cards)
+        try:
+            t = time.perf_counter()
+            mask_fields.main([*sweep, "--out", os.path.join(d, "abl_one"), "--mesh", "off"])
+            one_s = time.perf_counter() - t
+        finally:
+            trainer_mod.make_encode_fn = make
+        secs = over_ranks("mask_fields", [*sweep, "--out", os.path.join(d, "abl_many")],
+                          "mask_fields")
+        records = {}
+        for w in ("one", "many"):
+            with open(os.path.join(d, f"abl_{w}", "results_dicts.jsonl")) as f:
+                records[w] = [json.loads(line) for line in f]
+        check(len(records["one"]) > 1 and records["one"] == records["many"],
+              f"mask_fields over the cards vs one card: {records['many']} against "
+              f"{records['one']}")
+        out.update(mask_fields_one_s=one_s, mask_fields_ranks_s=secs,
+                   mask_fields_records=len(records["one"]))
+    phase("mesh_capacity", f"commands on {n_docs} docs over {n_cards} NCCL ranks under torchrun "
+                           f"--multihost pod: retrieve --quantize int8 "
+                           f"({out['retrieve_int8_s']:.1f}s) and retrieve --corpus-on-host "
+                           f"({out['retrieve_host_s']:.1f}s), each == one card's "
+                           f"({len(want)} queries); mask_fields --corpus-on-host on a seeded "
+                           f"checkpoint ({out['mask_fields_records']} configurations) in "
+                           f"{secs:.1f}s == one card's in {one_s:.1f}s (process start and model "
+                           f"load included) ({CARD})")
+    return out
+
+
+def run_mesh_capacity(seed, e2e=None, n_big=1048576, n_capacity=CAPACITY_ROWS,
+                      n_queries=2048) -> dict:
+    """Capacity over several cards: the commands on int8 and host corpora,
+    then the ranks of :func:`capacity_rank`, against one card's answers
+    and rank 0's own scan."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        phase("mesh_capacity", f"needs several cards; {n_cards} visible: skipped")
+        return {}
+    spec = mesh_spec(seed, e2e or mesh_world(seed))
+    out = run_capacity_commands(seed, spec, n_cards)
+    width = 5 * spec["cfg"].hidden_size
+    avail = mem_available_bytes()
+    cuts = []
+    # the .npy (in the page cache), one card's pinned int8 copy and staging
+    n_host = n_big
+    if avail < 3 * n_host * width * 4:
+        n_host = max(HOST_STREAM_CHUNK, avail // (3 * width * 4) // BIG_ROW_BLOCK * BIG_ROW_BLOCK)
+        cuts.append(f"the host corpus cut from {n_big} rows")
+    # each rank's doc keys
+    if avail < 2 * n_cards * n_capacity * KEY_BYTES:
+        n_capacity = avail // (2 * n_cards * KEY_BYTES) // BIG_ROW_BLOCK * BIG_ROW_BLOCK
+        cuts.append(f"the capacity corpus cut from {CAPACITY_ROWS} rows")
+    rng = np.random.default_rng(seed + 59)
+    job = dict(spec, n_big=n_big, n_host=n_host, n_capacity=n_capacity,
+               big_queries=word_queries(n_queries, rng),
+               host_queries=min(HOST_QUERIES, n_queries))
+    t = time.perf_counter()
+    ranks = run_ranks("capacity", job, n_cards, "mesh_capacity", timeout=1500)
+    out["mesh_capacity_ranks_s"] = time.perf_counter() - t
+    r0 = ranks[0]
+    check(sorted(r["card"] for r in ranks) == list(range(n_cards)), "ranks share a card")
+    lines, rates = [], {}
+    for name, modes, one_route, mesh_route in (
+            ("int8", ("exact", "rerank"), ("singlechip-int8-dense", "singlechip-rerank-int8"),
+             ("mesh-int8-dense", "mesh-rerank-int8")),
+            ("host_bf16", ("exact",), ("host-stream-dense",), ("host-stream-dense-mesh",)),
+            ("host_int8", ("exact",), ("host-stream-dense-int8",),
+             ("host-stream-dense-int8-mesh",))):
+        for mode, want_one, want_mesh in zip(modes, one_route, mesh_route):
+            q_one, ref, path_one = r0[f"one_{name}_{mode}"]
+            q_mesh, got, path_mesh = r0[f"mesh_{name}_{mode}"]
+            check((path_one, path_mesh) == (want_one, want_mesh),
+                  f"{name} {mode}: paths {path_one}, {path_mesh}")
+            if mode == "exact":
+                msg = rankings_agree(got, ref, E2E_RTOL, E2E_ATOL)
+                check(msg is None, f"{name} {mode} over {n_cards} cards vs one card: {msg}")
+            else:
+                out[f"capacity_{name}_rerank_overlap"] = hold_rerank_overlap(
+                    got, ref, f"{name} rerank over {n_cards} cards")
+            rates[f"{name}_{mode}"] = {"1": q_one, str(n_cards): q_mesh}
+        one, many = r0[f"one_{name}"], [r[f"mesh_{name}"] for r in ranks]
+        lines.append(f"{name}: place {one['place_s']:.1f}s on one card, "
+                     f"{max(m['place_s'] for m in many):.1f}s on {n_cards}; a card holds "
+                     f"{one['device_gb']:.3f} GB on the card / {one['host_gb']:.3f} GB pinned "
+                     f"alone, {many[0]['device_gb']:.3f} / {many[0]['host_gb']:.3f} GB as one "
+                     f"of {n_cards}; peak {one['peak_gb']:.2f} GB alone, "
+                     f"{max(m['peak_gb'] for m in many):.2f} GB of {n_cards}")
+    # a batch of 256 moves each card's rows once: n_host / cards rows of
+    # 2 bytes an element in bf16, 1 in int8
+    gbs = {name: {k: n_host / int(k) * width * per_elem * qps / 256 / 1e9
+                  for k, qps in rates[f"{name}_exact"].items()}
+           for name, per_elem in (("host_bf16", 2), ("host_int8", 1))}
+    yard = [r["yardstick_gbs"] for r in ranks]
+    cap = [r["mesh_capacity"] for r in ranks]
+    check(all(c["path"] == "mesh-int8-dense" for c in cap), f"capacity path {cap[0]['path']}")
+    n_check, msg = r0["capacity_check"]
+    check(msg is None, f"{n_capacity} int8 rows over {n_cards} cards vs rank 0's scan: {msg}")
+    out.update(mesh_capacity_qps=rates, mesh_capacity_stream_gbs=gbs,
+               mesh_capacity_yardstick_gbs=yard, mesh_capacity_rows=n_capacity,
+               mesh_capacity_big_qps=cap[0]["qps"],
+               mesh_capacity_device_gb=[c["device_gb"] for c in cap],
+               mesh_capacity_peak_gb=[c["peak_gb"] for c in cap])
+    phase("mesh_capacity", f"[{n_big}, 5, {width // 5}] corpus, each rank making its rows; "
+                           f"batch 256, {n_queries} queries of 8 words ({job['host_queries']} "
+                           f"for the host streams, exact), QPS one card -> {n_cards}: {rates}; "
+                           f"the ranks' "
+                           f"first batch == one card's (rtol {E2E_RTOL}, atol {E2E_ATOL}; "
+                           f"rerank by top-100 overlap "
+                           f"{out['capacity_int8_rerank_overlap']:.4f}); " + "; ".join(lines)
+                           + f"; the host corpus: {n_host} rows, one f32 .npy of "
+                           f"{n_host * width * 4 / 1e9:.2f} GB written by rank 0 in "
+                           f"{r0['npy_write_s']:.1f}s and memmapped by every rank; streamed "
+                           f"GB/s a card {gbs} against one pinned copy of a chunk's bytes "
+                           f"{[round(y, 2) for y in yard]} GB/s ({CARD})")
+    phase("mesh_capacity", f"{n_capacity} int8 rows over {n_cards} cards "
+                           f"({n_capacity * width / 1e9:.1f} GB in all): each rank quantized "
+                           f"its {cap[0]['device_gb']:.2f} GB block from the seed in "
+                           f"{max(c['place_s'] for c in cap):.1f}s; exact {cap[0]['qps']:.1f} "
+                           f"QPS at batch 256 ({n_queries} queries), peak "
+                           f"{max(c['peak_gb'] for c in cap):.2f} GB a card; {n_check} queries "
+                           f"== rank 0's own scan of every row made again on its card (exact "
+                           f"integer dots, rtol 1e-6, ties allowed) in "
+                           f"{r0['capacity_scan_s']:.1f}s" + (f"; {', '.join(cuts)} (MemAvailable "
+                           f"{avail / 1e9:.1f} GB)" if cuts else "") + f" ({CARD})")
+    return out
+
+
 def qres_lists(path):
     out = {}
     for r in trec.QRes.from_file(path):
@@ -3703,8 +4189,8 @@ def kernel_usage(logs: dict) -> dict:
 
 # the phases after device and build, in the order they run
 PHASES = ("k1", "k2", "k2b", "e2e", "long", "cli", "train", "train_mesh", "train_cli",
-          "serving", "hybrid", "hybrid_serving", "hybrid_cli", "gtr", "mesh", "serve", "int8",
-          "host_stream")
+          "serving", "hybrid", "hybrid_serving", "hybrid_cli", "gtr", "mesh", "mesh_capacity",
+          "serve", "int8", "host_stream")
 # phases that read what an earlier one made
 NEEDS = {"long": "e2e", "cli": "e2e", "train": "e2e", "train_mesh": "e2e", "train_cli": "e2e",
          "serving": "e2e",
@@ -3802,6 +4288,8 @@ def main(argv=None) -> int:
         r["gtr"] = run_gtr(args.seed, corpus, queries)
     if "mesh" in phases:
         r["mesh"] = run_mesh(args.seed, e2e_world)
+    if "mesh_capacity" in phases:
+        r["mesh_capacity"] = run_mesh_capacity(args.seed, e2e_world)
     # the 1048576-doc phases last, so that their 8 GB corpus and its host
     # copies come after the earlier phases, as in the runs before them
     if "serve" in phases:

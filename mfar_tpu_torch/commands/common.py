@@ -8,9 +8,9 @@ the JAX package's are orbax, ROADMAP A10.4).  ``--mesh auto`` serves on a
 mesh over the world's ranks when the command runs as several processes (one
 per card: ``torchrun`` with ``--multihost pod``, or the ``MFAR_*``
 environment with ``--multihost force``), shaped by ``--n-model``,
-``--n-replica`` and ``--corpus-per-slice`` as in the JAX package; one
-process serves on one device.  An int8 or host-streamed corpus on a mesh
-raises A15c and ``--pallas-cross-row`` B1, before any work.
+``--n-replica`` and ``--corpus-per-slice`` as in the JAX package, over any placement of
+the corpus (``--quantize int8``, ``--corpus-on-host``); one process serves
+on one device.  ``--pallas-cross-row`` raises B1, before any work.
 """
 
 from __future__ import annotations
@@ -206,9 +206,7 @@ def build_engine(args, label: str = "engine"):
     from mfar_tpu_torch.models.registry import prepare_model
 
     mesh = requested_mesh(args, label)
-    RetrievalEngine.refuse_unported(mesh=mesh, quantize=args.quantize,
-                                    corpus_on_host=args.corpus_on_host,
-                                    pallas_cross_row=args.pallas_cross_row)
+    RetrievalEngine.refuse_unported(pallas_cross_row=args.pallas_cross_row)
     resolve_data_dirs(args)
     field_info = resolve_fields(args.field_names, args.dataset_name)
     corpus = load_corpus(args.corpus, args.dataset_name)

@@ -46,15 +46,22 @@ rows), the mixer and the queries stay replicated, and the routes of
 :mod:`mfar_tpu_torch.parallel.topk` merge the shards' top-ks:
 ``mesh-dense``, ``mesh-hybrid-postings``, ``mesh-hybrid-combined``, and
 rerank ``mesh-rerank[-hybrid]`` (per-field recall, then each shard scores
-the candidates it owns; the sparse stages stay on the host).  With
+the candidates it owns; the sparse stages stay on the host).  An int8
+corpus shards the same way, each rank quantizing its block a slab of rows
+at a time from the source (``mesh-int8-{dense,hybrid-postings,
+hybrid-combined}``, rerank ``mesh-rerank[-hybrid]-int8``).  A corpus in
+host memory keeps each rank's block's rows on its host and each rank
+streams them (``host-stream-{dense,hybrid}[-int8]-mesh[-{postings,
+combined}]``); rerank's stage 2 gathers the candidates from the corpus the
+caller passed, on every rank, as one device does
+(``host-stream-rerank[-hybrid]-{rows,int8}-mesh``).  With
 ``corpus_per_slice`` and several replicas, the replica groups serve disjoint
 slices of the query batch.  Every collective of a call is issued in its
 dispatch half, none in :meth:`RetrievalEngine.finish`.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-an int8 or host-streamed corpus on a mesh (A15c), and ``pallas_cross_row``,
-a knob of the TPU kernel's DMA schedule whose CUDA counterpart, pipelined
-row loads in K1, is B1's follow-up.
+Not ported yet: ``pallas_cross_row``, a knob of the TPU kernel's DMA
+schedule whose CUDA counterpart, pipelined row loads in K1, is B1's
+follow-up; it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -89,6 +96,7 @@ from mfar_tpu_torch.ops.scoring import (
     per_field_topk_chunked_approx,
     pinned_empty,
     quantize_rows_int8_into,
+    quantize_slab,
     rerank_candidates,
     softmax_field_weights,
 )
@@ -115,6 +123,17 @@ def topk_chunk(n_rows: int, batch: int) -> int:
     return max(TOPK_CHUNK, cap - cap % TOPK_CHUNK)
 
 
+# the host streams by (int8, hybrid): on one device, and over a mesh
+_HOST_STREAMS = {
+    (False, False): (dense_topk_host_streamed, mesh_topk.distributed_dense_topk_host_streamed),
+    (False, True): (hybrid_topk_host_streamed, mesh_topk.distributed_hybrid_topk_host_streamed),
+    (True, False): (dense_topk_host_streamed_int8,
+                    mesh_topk.distributed_dense_topk_host_streamed_int8),
+    (True, True): (hybrid_topk_host_streamed_int8,
+                   mesh_topk.distributed_hybrid_topk_host_streamed_int8),
+}
+
+
 def _row_block(matrix, offset: int, rows: int) -> torch.Tensor:
     """Rows ``[offset, offset + rows)`` of a host array, memmap or tensor as
     a tensor, zero-padded past the matrix's end (a memmap reads only these
@@ -126,10 +145,6 @@ def _row_block(matrix, offset: int, rows: int) -> torch.Tensor:
     if block.shape[0] < rows:
         block = torch.cat([block, block.new_zeros((rows - block.shape[0], *block.shape[1:]))])
     return block
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch engine yet (ROADMAP {item})")
 
 
 class RetrievalEngine:
@@ -176,8 +191,7 @@ class RetrievalEngine:
             raise ValueError(f"dense_topk={dense_topk!r}")
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        self.refuse_unported(mesh=mesh, quantize=quantize, corpus_on_host=corpus_on_host,
-                             pallas_cross_row=pallas_cross_row)
+        self.refuse_unported(pallas_cross_row=pallas_cross_row)
         has_dense = dense_matrix is not None and int(np.prod(dense_matrix.shape)) > 0
         if not has_dense and not sparse_keys(field_info):
             raise ValueError("the engine serves a dense corpus or sparse fields: "
@@ -217,6 +231,7 @@ class RetrievalEngine:
         self.docs_q = self.doc_scales = None  # int8 rows and their device scales
         self.docs_host = None  # host corpus (CPU tensor or memmap)
         self.docs_host_q = self.docs_host_scales = None  # host int8 rows, scales
+        self._host_source = None  # on a mesh: the caller's host corpus, for stage 2
         self._host_transfer_dtype = None
         self.emb_dim = None
         self.use_gather_kernel = False
@@ -226,13 +241,10 @@ class RetrievalEngine:
         self._build_row_maps()
 
     @staticmethod
-    def refuse_unported(mesh=None, quantize=None, corpus_on_host=False,
-                        pallas_cross_row=False) -> None:
+    def refuse_unported(pallas_cross_row=False) -> None:
         """Raise ``NotImplementedError`` naming the ROADMAP item of an
         option the port does not serve yet (the commands call this before
         any work)."""
-        if mesh is not None and (quantize or corpus_on_host):
-            raise _not_ported("an int8 or host-streamed corpus on a mesh", "A15c")
         if pallas_cross_row:
             raise NotImplementedError(
                 "pallas_cross_row tunes the TPU kernel's DMA prefetch; the CUDA "
@@ -270,11 +282,7 @@ class RetrievalEngine:
             if corpus_on_host:
                 self._place_on_host(flat, dense_dtype, quantize)
             else:
-                self.docs_q = torch.empty(flat.shape, dtype=torch.int8, device=self.device)
-                self.doc_scales = torch.empty(n, dtype=torch.float32, device=self.device)
-                # a corpus on the card is quantized there, a host array on
-                # the host, a slab of rows at a time either way
-                quantize_rows_int8_into(flat, self.docs_q, self.doc_scales)
+                self._place_int8(flat)
             return
         if self.mesh is not None:
             # this rank's row block only, zero-padded at the corpus's tail;
@@ -320,25 +328,47 @@ class RetrievalEngine:
             )
         self.use_gather_kernel = use_pallas_gather
 
+    def _place_int8(self, flat) -> None:
+        """int8 rows and an f32 scale a row on the device, quantized a slab of
+        rows at a time where the corpus lies (on the card for a corpus
+        there, on the host for a host array or memmap).  On a mesh, this
+        rank's block: its rows are read slab by slab from the source and
+        the block is zero past the corpus's end, so no f32 or bf16 copy of
+        the block ever exists."""
+        n, rows, offset = flat.shape[0], flat.shape[0], 0
+        if self.mesh is not None:
+            offset, rows = shard_rows(n, self.mesh, self._corpus_axes)
+        self.docs_q = torch.zeros((rows, flat.shape[1]), dtype=torch.int8, device=self.device)
+        self.doc_scales = torch.zeros(rows, dtype=torch.float32, device=self.device)
+        real = int(np.clip(n - offset, 0, rows))
+        quantize_rows_int8_into(flat, self.docs_q[:real], self.doc_scales[:real], offset=offset)
+
     def _place_on_host(self, flat, dense_dtype, quantize) -> None:
         """A corpus kept in host memory for the streamed scans.  On a card
         the streams copy from pinned memory only: an in-RAM corpus is cast
         once to the transfer dtype (``dense_dtype``, else its own) into a
         pinned tensor, and int8 rows are quantized into one (where the
         corpus lies: on the card for a corpus there); a memmap stays on disk
-        and each chunk is cast into a pinned staging buffer as it streams."""
+        and each chunk is cast into a pinned staging buffer as it streams.
+        On a mesh a rank keeps its block's rows only (a memmap view of
+        them), and the caller's corpus for stage 2 (:meth:`_host_rows`)."""
         pin = self.device.type == "cuda"
+        offset, rows = 0, flat.shape[0]
+        if self.mesh is not None:
+            offset, rows = mesh_topk.block_rows(flat.shape[0], self.mesh, self._corpus_axes)
+            self._host_source = flat
         if quantize:
-            self.docs_host_q = (pinned_empty(flat.shape, torch.int8) if pin
-                                else torch.empty(flat.shape, dtype=torch.int8))
-            self.docs_host_scales = torch.empty(flat.shape[0], dtype=torch.float32)
-            quantize_rows_int8_into(flat, self.docs_host_q, self.docs_host_scales)
+            shape = (rows, flat.shape[1])
+            self.docs_host_q = (pinned_empty(shape, torch.int8) if pin
+                                else torch.empty(shape, dtype=torch.int8))
+            self.docs_host_scales = torch.empty(rows, dtype=torch.float32)
+            quantize_rows_int8_into(flat, self.docs_host_q, self.docs_host_scales, offset=offset)
             self.doc_scales = self.docs_host_scales.to(self.device)
         elif isinstance(flat, np.memmap):
-            self.docs_host = flat
+            self.docs_host = flat[offset : offset + rows]
             self._host_transfer_dtype = dense_dtype
         else:
-            src = as_host_tensor(flat)
+            src = as_host_tensor(flat)[offset : offset + rows]
             dtype = dense_dtype or src.dtype
             self.docs_host = (pinned_empty(src.shape, dtype).copy_(src) if pin
                               else src.to("cpu", dtype))
@@ -571,26 +601,32 @@ class RetrievalEngine:
             self.last_serve_path = route + "hybrid-combined"
             return ("device", top_s, top_i)
 
+    def _host_stream(self, qflat, k, **sparse):
+        """The streamed top-k over the host corpus as it was placed: int8 or
+        not, on one device or this rank's rows on a mesh; ``sparse`` holds
+        the hybrid routes' postings or combined scores."""
+        int8 = self.docs_host_q is not None
+        corpus = (self.docs_host_q, self.doc_scales) if int8 else (self.docs_host,)
+        opts = {} if int8 else dict(transfer_dtype=self._host_transfer_dtype)
+        one_device, over_mesh = _HOST_STREAMS[int8, bool(sparse)]
+        if self.mesh is None:
+            return one_device(qflat, *corpus, k, **opts, **sparse)
+        return over_mesh(self.mesh, qflat, *corpus, self.n_docs, k, **opts, **sparse,
+                         axis=self._corpus_axes, query_axis=self._qaxis(qflat.shape[0]))
+
     def _dispatch_host_stream(self, queries, q, k):
         """Exact retrieval over the host corpus: fold on the device, then
-        stream the corpus through the chunked scan; hybrid fields scatter
-        their weighted postings per chunk, or (postings denser than half
-        the corpus) the host's combined scores stream beside the rows."""
+        stream the corpus through the chunked scan (on a mesh, each rank its
+        rows); hybrid fields scatter their weighted postings per chunk, or
+        (postings denser than half the corpus) the host's combined scores
+        stream beside the rows."""
         fd = len(self.dense_keys)
-        int8 = self.docs_host_q is not None
         weights = self._field_weights(q)
         qflat = fold_queries(q, weights[:, :fd])
-        if int8:
-            corpus = (self.docs_host_q, self.doc_scales)
-            dense, hybrid = dense_topk_host_streamed_int8, hybrid_topk_host_streamed_int8
-            opts = {}
-        else:
-            corpus = (self.docs_host,)
-            dense, hybrid = dense_topk_host_streamed, hybrid_topk_host_streamed
-            opts = dict(transfer_dtype=self._host_transfer_dtype)
-        route = ["host-stream", "hybrid" if self.sparse_keys else "dense"] + int8 * ["int8"]
+        route = (["host-stream", "hybrid" if self.sparse_keys else "dense"]
+                 + ["int8"] * (self.docs_host_q is not None) + ["mesh"] * (self.mesh is not None))
         if not self.sparse_keys:
-            top_s, top_i = dense(qflat, *corpus, k, **opts)
+            top_s, top_i = self._host_stream(qflat, k)
         else:
             cleaned = [clean_query(t) for t in queries]
             raw = self._sparse_postings_raw(cleaned)
@@ -598,46 +634,59 @@ class RetrievalEngine:
                 ids, vals, fidx = (self._to_device(a) for a in raw)
                 # each posting's impact times its field's weight, on the device
                 wvals = vals * torch.gather(weights, 1, fd + fidx.long())
-                top_s, top_i = hybrid(qflat, *corpus, k, post_ids=ids, post_wvals=wvals,
-                                      **opts)
+                top_s, top_i = self._host_stream(qflat, k, post_ids=ids, post_wvals=wvals)
                 route.append("postings")
             else:
                 comb = self._sparse_full_scores(cleaned, weights.cpu().numpy())
-                top_s, top_i = hybrid(qflat, *corpus, k, sparse_comb_host=comb, **opts)
+                top_s, top_i = self._host_stream(qflat, k, sparse_comb_host=comb)
                 route.append("combined")
         self.last_serve_path = "-".join(route)
         return ("device", top_s, top_i)
 
     def _dispatch_mesh(self, queries, q, k):
-        """Exact retrieval over the mesh: the fused routes of
+        """Exact retrieval over the mesh: the routes of
         :mod:`mfar_tpu_torch.parallel.topk` (weights, fold, each shard's
-        scan, the merge), the same on every rank."""
+        scan, the merge) over this rank's block in f32/bf16 or int8, the
+        same on every rank."""
         fd = len(self.dense_keys)
+        int8 = self.docs_q is not None
+        corpus = (self.docs_q, self.doc_scales) if int8 else (self.docs_flat,)
+        route = "mesh-int8-" if int8 else "mesh-"
         W, mask = self._W, self._mask_tensor()
-        kw = dict(chunk_size=topk_chunk(self.docs_flat.shape[0], len(queries)),
+        kw = dict(chunk_size=topk_chunk(corpus[0].shape[0], len(queries)),
                   axis=self._corpus_axes, query_axis=self._qaxis(len(queries)))
         if not self.sparse_keys:
-            top_s, top_i = mesh_topk.distributed_fused_dense_topk(
-                self.mesh, q, W, mask, self.docs_flat, self.n_docs, fd, k, **kw)
-            self.last_serve_path = "mesh-dense"
+            if int8:
+                qflat = fold_queries(q, self._field_weights(q)[:, :fd]).float()
+                top_s, top_i = mesh_topk.distributed_dense_topk_int8(
+                    self.mesh, qflat, *corpus, self.n_docs, k, **kw)
+            else:
+                top_s, top_i = mesh_topk.distributed_fused_dense_topk(
+                    self.mesh, q, W, mask, *corpus, self.n_docs, fd, k, **kw)
+            self.last_serve_path = route + "dense"
             return ("device", top_s, top_i)
         cleaned = [clean_query(t) for t in queries]
         raw = self._sparse_postings_raw(cleaned)
         if raw is not None:
             ids, vals, fidx = (self._to_device(a) for a in raw)
-            top_s, top_i = mesh_topk.distributed_fused_hybrid_topk_postings(
-                self.mesh, q, W, mask, self.docs_flat, ids, vals, fidx, self.n_docs, fd, k,
-                **kw)
-            self.last_serve_path = "mesh-hybrid-postings"
+            fn = (mesh_topk.distributed_fused_hybrid_topk_postings_int8 if int8
+                  else mesh_topk.distributed_fused_hybrid_topk_postings)
+            top_s, top_i = fn(self.mesh, q, W, mask, *corpus, ids, vals, fidx, self.n_docs, fd,
+                              k, **kw)
+            self.last_serve_path = route + "hybrid-postings"
             return ("device", top_s, top_i)
         # postings denser than half the corpus: each rank adds its columns
         # of the host's weighted full-corpus scores
         weights = self._field_weights(q)
         comb = self._sparse_full_scores(cleaned, weights.cpu().numpy())
-        qflat = fold_queries(q, weights[:, :fd]).to(self.docs_flat.dtype)
-        top_s, top_i = mesh_topk.distributed_hybrid_topk(
-            self.mesh, qflat, self.docs_flat, comb, self.n_docs, k, **kw)
-        self.last_serve_path = "mesh-hybrid-combined"
+        qflat = fold_queries(q, weights[:, :fd])
+        if int8:
+            top_s, top_i = mesh_topk.distributed_hybrid_topk_int8(
+                self.mesh, qflat.float(), *corpus, comb, self.n_docs, k, **kw)
+        else:
+            top_s, top_i = mesh_topk.distributed_hybrid_topk(
+                self.mesh, qflat.to(self.docs_flat.dtype), *corpus, comb, self.n_docs, k, **kw)
+        self.last_serve_path = route + "hybrid-combined"
         return ("device", top_s, top_i)
 
     def _sparse_only_exact(self, queries, q, k) -> List[List[Tuple[str, float]]]:
@@ -679,7 +728,18 @@ class RetrievalEngine:
                 # Recall scans F field blocks per chunk, so the score-tile
                 # budget sees B*Fd rows.
                 chunk = topk_chunk(self.n_docs, b * fd)
-                if self.mesh is not None:
+                if self.docs_host is not None or self.docs_host_q is not None:
+                    # a host corpus: one-hot folded queries [B*Fd, Fd*E]
+                    # (one folded scan gives each field's own scores)
+                    # through the dense host stream
+                    s, idx = self._host_stream(onehot_queries(q, fd), k)
+                elif self.mesh is not None and self.docs_q is not None:
+                    onehot = onehot_queries(q, fd)  # int8 rows: one scale a row
+                    s, idx = mesh_topk.distributed_dense_topk_int8(
+                        self.mesh, onehot, self.docs_q, self.doc_scales, self.n_docs, k,
+                        chunk_size=topk_chunk(self.docs_q.shape[0], b * fd),
+                        axis=self._corpus_axes, query_axis=self._qaxis(onehot.shape[0]))
+                elif self.mesh is not None:
                     s, idx = mesh_topk.distributed_per_field_topk(
                         self.mesh, q.to(self.docs_flat.dtype), self.docs_flat, self.n_docs,
                         fd, k, chunk_size=topk_chunk(self.docs_flat.shape[0], b * fd),
@@ -690,19 +750,10 @@ class RetrievalEngine:
                         chunk_size=chunk,
                     )
                 else:
-                    # int8 rows (one scale a row) or a host corpus: one-hot
-                    # folded queries [B*Fd, Fd*E] through the folded scan
-                    onehot = onehot_queries(q, fd)
-                    if self.docs_q is not None:
-                        s, idx = dense_topk_chunked_int8(
-                            onehot, self.docs_q, self.doc_scales, self.n_docs, k,
-                            chunk_size=chunk)
-                    elif self.docs_host_q is not None:
-                        s, idx = dense_topk_host_streamed_int8(
-                            onehot, self.docs_host_q, self.doc_scales, k)
-                    else:
-                        s, idx = dense_topk_host_streamed(
-                            onehot, self.docs_host, k, transfer_dtype=self._host_transfer_dtype)
+                    # int8 rows (one scale a row): one-hot folded queries
+                    s, idx = dense_topk_chunked_int8(
+                        onehot_queries(q, fd), self.docs_q, self.doc_scales, self.n_docs, k,
+                        chunk_size=chunk)
         # stage 1b: each sparse field's BM25 top-k on the host (unordered
         # rows: the union below needs only membership)
         cleaned = [clean_query(t) for t in queries]
@@ -791,27 +842,50 @@ class RetrievalEngine:
     def _candidate_scores_without_k1(self, qf, cand: np.ndarray, cand_t,
                                      hybrid: str) -> torch.Tensor:
         """[B, C, Fd] dense scores of an int8 or host corpus's candidates.
-        int8 rows are dequantized on the device; a host corpus's rows are
-        gathered on the host, the batch's distinct candidates once (an int8
-        host corpus dequantized there, in f32), copied over and indexed per
-        candidate."""
+        int8 rows are dequantized on the device (on a mesh, each rank its
+        own candidates, summed over the ranks); a host corpus's rows are
+        gathered on the host, the batch's distinct candidates once
+        (:meth:`_host_rows`), copied over and indexed per candidate."""
         b, width = cand.shape
         fd = len(self.dense_keys)
+        if self.docs_q is not None and self.mesh is not None:
+            self.last_serve_path = f"mesh-rerank-{hybrid}int8"
+            return mesh_topk.distributed_candidate_scores_int8(
+                self.mesh, qf, self.docs_q, self.doc_scales, cand_t, fd,
+                axis=self._corpus_axes, query_axis=self._qaxis(b))
         if self.docs_q is not None:
             rows = self.docs_q[cand_t].float() * self.doc_scales[cand_t][..., None]
             self.last_serve_path = f"singlechip-rerank-{hybrid}int8"
         else:
             uniq = np.unique(cand)
             pos = self._to_device(np.searchsorted(uniq, cand))
-            if self.docs_host_q is not None:
-                at = torch.from_numpy(uniq)
-                slab = self.docs_host_q[at].float() * self.docs_host_scales[at][:, None]
-            else:
-                slab = as_host_tensor(self.docs_host[uniq]).float()
-            rows = self._to_device(slab)[pos]
+            rows = self._to_device(self._host_rows(uniq))[pos]
             self.last_serve_path = ("host-stream-rerank-" + hybrid
-                                    + ("int8" if self.docs_host_q is not None else "rows"))
+                                    + ("int8" if self.docs_host_q is not None else "rows")
+                                    + ("-mesh" if self.mesh is not None else ""))
         return per_field_candidate_scores(qf, rows.view(b, width, fd, self.emb_dim))
+
+    def _host_rows(self, ids: np.ndarray) -> torch.Tensor:
+        """[U, Fd*E] f32 rows ``ids`` of the host corpus as the streams read
+        them: int8 rows dequantized, an in-RAM corpus in its cast dtype.  A
+        mesh rank holds only its block, so it reads the rows from the
+        caller's corpus and quantizes them where its block was quantized
+        (:func:`quantize_slab`, row by row: a row comes out the same), or
+        casts them as its block was."""
+        src = self._host_source
+        if src is None:
+            if self.docs_host_q is not None:
+                at = torch.from_numpy(ids)
+                return self.docs_host_q[at].float() * self.docs_host_scales[at][:, None]
+            return as_host_tensor(self.docs_host[ids]).float()
+        rows = src[torch.from_numpy(ids).to(src.device)] if torch.is_tensor(src) else src[ids]
+        if self.docs_host_q is not None:
+            q8, scale = quantize_slab(rows)
+            return (q8.float() * scale[:, None]).cpu()
+        rows = as_host_tensor(rows).cpu()
+        if not isinstance(src, np.memmap):  # a memmap streams uncast
+            rows = rows.to(self.docs_host.dtype)
+        return rows.float()
 
     def _sparse_candidate_scores(self, cleaned: List[str], cand: np.ndarray) -> np.ndarray:
         """[B, C, Fs] BM25 scores of the candidates: one full-corpus scoring

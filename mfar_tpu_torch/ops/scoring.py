@@ -1,7 +1,8 @@
 """Multi-field scoring ops in PyTorch: counterpart of ``mfar_tpu/ops/scoring.py``
 for the single-device serving paths: dense and hybrid (dense + BM25), over a
 device-resident corpus in f32/bf16 or int8, or a corpus streamed from host
-memory chunk by chunk.
+memory chunk by chunk; and the scatter-free bucketed hybrid ops, which no
+engine route calls (as in the JAX package).
 
 mFAR's score is a query-conditioned softmax mixture of per-field dots,
 
@@ -32,6 +33,9 @@ Differences from the JAX module, none of which changes a result:
   (:func:`_host_stream_loop`), where the JAX package issues ``device_put``
   and fetches a scalar per chunk.  They stream the ragged tail chunk as it
   is, where the JAX package pads it to its compiled shape.
+- The bucketed scan loops over chunks in Python where the JAX package runs
+  ``lax.scan``, and takes the run boundaries' reverse cumulative minimum as
+  ``torch.cummin`` of the flipped tensor.
 """
 
 from __future__ import annotations
@@ -391,20 +395,25 @@ def quantize_rows_int8_np(x) -> Tuple[np.ndarray, np.ndarray]:
     return q, scale[..., 0]
 
 
+def quantize_slab(slab) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantize_rows_int8` of a tensor, where it lies (on the card
+    for rows there), or :func:`quantize_rows_int8_np` of a host array (a
+    memmap's rows too), as CPU tensors: every quantization of a corpus's
+    rows goes through here, so a row quantized twice comes out the same."""
+    if torch.is_tensor(slab):
+        return quantize_rows_int8(slab)
+    return tuple(torch.from_numpy(a) for a in quantize_rows_int8_np(slab))
+
+
 def quantize_rows_int8_into(x, out_q: torch.Tensor, out_scale: torch.Tensor,
-                            rows: int = INT8_SLAB_ROWS) -> None:
-    """Quantize ``x`` [N, D] into ``out_q`` [N, D] int8 and ``out_scale`` [N]
-    ``rows`` rows at a time, so the f32 temporary stays one slab: a tensor
-    is quantized where it lies (on the card for a corpus already there), a
-    numpy array (a memmap too) on the host; the outputs may lie elsewhere."""
-    for lo in range(0, x.shape[0], rows):
-        hi = min(x.shape[0], lo + rows)
-        if torch.is_tensor(x):
-            q, s = quantize_rows_int8(x[lo:hi])
-        else:
-            q, s = (torch.from_numpy(a) for a in quantize_rows_int8_np(x[lo:hi]))
-        out_q[lo:hi] = q
-        out_scale[lo:hi] = s
+                            rows: int = INT8_SLAB_ROWS, offset: int = 0) -> None:
+    """Quantize rows ``[offset, offset + len(out_q))`` of ``x`` [N, D] into
+    ``out_q`` int8 and ``out_scale`` f32, ``rows`` rows at a time
+    (:func:`quantize_slab`), so the f32 temporary stays one slab and only
+    those rows are read; the outputs may lie elsewhere."""
+    for lo in range(0, out_q.shape[0], rows):
+        hi = min(out_q.shape[0], lo + rows)
+        out_q[lo:hi], out_scale[lo:hi] = quantize_slab(x[offset + lo : offset + hi])
 
 
 def int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -764,3 +773,211 @@ def hybrid_topk_host_streamed_int8(
     _one_sparse_form(post_ids, sparse_comb_host)
     return _topk_host_streamed(_int8_chunk_scorer(qflat, scales), docs_q_host, torch.int8, k,
                                chunk_size, qflat.device, post_ids, post_wvals, sparse_comb_host)
+
+
+# ----------------------------------------------------------------------
+# The scatter-free bucketed hybrid ops (mfar_tpu/ops/scoring.py:1078-1445).
+# BM25 impacts and post-softmax field weights are non-negative, so a
+# document's hybrid score is at least its dense score, and the hybrid top-k
+# lies in the union of the dense top-k and the documents with a posting.
+# Each chunk keeps its dense top-k and adds one candidate for each distinct
+# document among its postings (sorted and bucketed per chunk on the host,
+# bucket_postings_np): the dense score read from the chunk's score tile
+# plus the segmented sum of the document's impacts (a cumulative sum and
+# the run boundaries, no scatter).  A document can enter twice (its dense
+# entry and its candidate), so the scan carries 2k entries and a last
+# dedup keeps each document's best.  No engine route calls these, as in
+# the JAX package, whose engine keeps the scatter.
+
+
+def bucket_postings_np(ids, vals, fields, n: int, chunk_size: int, pad_multiple: int = 128):
+    """Host prep of the bucketed scan: each row's postings sorted by corpus
+    row and split into per-chunk buckets ``[B, n_chunks, Mc]`` of a
+    ``chunk_size`` scan over ``n`` rows.  Padding postings (value 0; real
+    impacts are positive) and a bucket's empty slots carry the sentinel id
+    ``n``, outside every chunk.  ``Mc`` is the :func:`bucket_width` of the
+    largest count of one (row, chunk).  Bit for bit the JAX package's."""
+    from mfar_tpu_torch.native import bucket_width
+
+    ids = np.asarray(ids)
+    vals = np.asarray(vals, np.float32)
+    fields = np.asarray(fields)
+    b, _ = ids.shape
+    num_full, tail_len = divmod(n, chunk_size)
+    nch = max(num_full + (1 if tail_len else 0), 1)
+    ids_eff = np.where(vals != 0, ids, n).astype(np.int64)
+    order = np.argsort(ids_eff, axis=1, kind="stable")
+    ids_s = np.take_along_axis(ids_eff, order, axis=1)
+    vals_s = np.take_along_axis(vals, order, axis=1)
+    f_s = np.take_along_axis(fields, order, axis=1)
+    edges = np.minimum(np.arange(1, nch + 1) * chunk_size, n)
+    bounds = np.zeros((b, nch + 1), np.int64)
+    for r in range(b):
+        bounds[r, 1:] = np.searchsorted(ids_s[r], edges, side="left")
+    counts = np.diff(bounds, axis=1)
+    mc = bucket_width(int(counts.max()) if counts.size else 1, pad_multiple)
+    out_ids = np.full((b, nch, mc), n, np.int32)
+    out_vals = np.zeros((b, nch, mc), np.float32)
+    out_f = np.zeros((b, nch, mc), fields.dtype)
+    for r in range(b):
+        for ch in range(nch):
+            s0, s1 = bounds[r, ch], bounds[r, ch + 1]
+            if s1 > s0:
+                out_ids[r, ch, : s1 - s0] = ids_s[r, s0:s1]
+                out_vals[r, ch, : s1 - s0] = vals_s[r, s0:s1]
+                out_f[r, ch, : s1 - s0] = f_s[r, s0:s1]
+    return out_ids, out_vals, out_f
+
+
+def _posting_candidates(s: torch.Tensor, bids: torch.Tensor, bwv: torch.Tensor,
+                        offset: int) -> TopK:
+    """One chunk's posting candidates, without a scatter.  ``s`` [B, c]: the
+    chunk's dense scores (-inf past valid_n); ``bids`` [B, Mc]: sorted
+    global rows (sentinel >= n); ``bwv`` [B, Mc]: weighted impacts (0 at
+    padding).  Returns [B, Mc] scores with one finite entry for each
+    distinct in-chunk document (where its run starts), its dense score plus
+    its impacts' sum, and -inf elsewhere, and the entries' global rows."""
+    b, c = s.shape
+    mc = bids.shape[1]
+    rel_raw = bids.long() - offset
+    in_rng = (rel_raw >= 0) & (rel_raw < c)
+    rel = rel_raw.clamp(0, c - 1)
+    wv = torch.where(in_rng, bwv.float(), 0.0)
+    pos = torch.arange(mc, device=s.device).expand(b, mc)
+    prev = torch.cat([torch.full((b, 1), -1, dtype=rel.dtype, device=s.device), rel[:, :-1]], 1)
+    is_start = rel != prev
+    csum = torch.cat([torch.zeros((b, 1), device=s.device), torch.cumsum(wv, dim=1)], 1)
+    # the next run's start after each position: a cumulative min from the
+    # right of the start positions, shifted left by one (the clip keeps the
+    # ids sorted: sentinels clip to c - 1 at the tail)
+    starts = torch.where(is_start, pos, mc)
+    nxt_incl = torch.cummin(starts.flip(1), dim=1).values.flip(1)
+    nxt = torch.cat([nxt_incl[:, 1:], torch.full((b, 1), mc, device=s.device)], 1)
+    seg = csum.gather(1, nxt) - csum.gather(1, pos)
+    cand_s = torch.where(is_start, s.gather(1, rel) + seg, float("-inf"))
+    return cand_s, offset + rel
+
+
+def _union_topk(top_s, top_i, cand_s, cand_i, kk: int) -> TopK:
+    all_s = torch.cat([top_s, cand_s], dim=1)
+    all_i = torch.cat([top_i, cand_i], dim=1)
+    s2, sel = exact_topk_rows(all_s, min(kk, all_s.shape[1]))
+    return _pad_topk(s2, all_i.gather(1, sel), kk)
+
+
+def _dedup_topk(top_s: torch.Tensor, top_i: torch.Tensor, k: int) -> TopK:
+    """Each document's best entry, then the top k: two stable sorts (score
+    descending, then id) put a document's entries together, best first; the
+    others drop to -inf."""
+    o1 = torch.argsort(-top_s, dim=1, stable=True)
+    s1, i1 = top_s.gather(1, o1), top_i.gather(1, o1)
+    o2 = torch.argsort(i1, dim=1, stable=True)
+    s2, i2 = s1.gather(1, o2), i1.gather(1, o2)
+    prev = torch.cat([torch.full_like(i2[:, :1], -1), i2[:, :-1]], dim=1)
+    s2 = torch.where(i2 == prev, float("-inf"), s2)
+    fs, sel = exact_topk_rows(s2, k)
+    return fs, i2.gather(1, sel)
+
+
+def _hybrid_topk_buckets_impl(dense_chunk_scores, arrays_axes, bucket_ids, bucket_wvals,
+                              valid_n: int, k: int, chunk_size: int, n: int) -> TopK:
+    """The bucketed scan's loop: ``dense_chunk_scores(*chunk_slices)`` gives
+    a chunk's [B, c] dense scores; each chunk's dense top-k and posting
+    candidates merge into a running 2k carry, deduplicated at the end."""
+    nch = max(-(-n // chunk_size), 1)
+    if bucket_ids.shape[1] != nch:
+        raise ValueError(f"postings bucketed for {bucket_ids.shape[1]} chunks but the scan "
+                         f"has {nch} (n={n}, chunk_size={chunk_size})")
+    if n > chunk_size and k > chunk_size:
+        raise ValueError("top-k carry must fit in one chunk")
+    kk = 2 * k
+    out = None
+    for ch in range(nch):
+        lo, hi = ch * chunk_size, min(n, (ch + 1) * chunk_size)
+        s = dense_chunk_scores(*(x.narrow(ax, lo, hi - lo) for x, ax in arrays_axes))
+        s = s + _row_bias(lo, hi - lo, valid_n, s.device)
+        top_s, sel = exact_topk_rows(s, min(k, hi - lo))
+        top_s, top_i = _pad_topk(top_s, sel + lo, k)
+        part = _union_topk(top_s, top_i,
+                           *_posting_candidates(s, bucket_ids[:, ch], bucket_wvals[:, ch], lo),
+                           kk)
+        out = part if out is None else _merge_topk(out, part, kk)
+    return _dedup_topk(*out, k)
+
+
+def hybrid_topk_buckets(
+    qflat: torch.Tensor,  # [B, F*E] folded queries (dense fields)
+    docs_flat: torch.Tensor,  # [N, F*E]
+    bucket_ids: torch.Tensor,  # [B, n_chunks, Mc] sorted in-chunk rows (sentinel N)
+    bucket_wvals: torch.Tensor,  # [B, n_chunks, Mc] weighted impacts >= 0 (0 padding)
+    valid_n: int,
+    k: int,
+    chunk_size: int = 131072,
+) -> TopK:
+    """Exact scatter-free hybrid top-k: the ranking of
+    :func:`hybrid_topk_chunked` fed the scatter-densified ``[B, N]`` scores
+    of the same postings, which never exist here.  Needs non-negative
+    weighted impacts."""
+    return _hybrid_topk_buckets_impl(lambda c: scores_f32(qflat, c), ((docs_flat, 0),),
+                                     bucket_ids, bucket_wvals, valid_n, k, chunk_size,
+                                     docs_flat.shape[0])
+
+
+def hybrid_topk_buckets_int8(
+    qflat: torch.Tensor,  # [B, F*E] folded queries (any float dtype)
+    docs_q: torch.Tensor,  # [N, F*E] int8
+    doc_scales: torch.Tensor,  # [N] f32
+    bucket_ids: torch.Tensor,
+    bucket_wvals: torch.Tensor,
+    valid_n: int,
+    k: int,
+    chunk_size: int = 131072,
+) -> TopK:
+    """int8 twin of :func:`hybrid_topk_buckets` (the sparse scores stay f32)."""
+    q8, q_scale = quantize_rows_int8(qflat)
+    return _hybrid_topk_buckets_impl(lambda c, sc: int8_scores(q8, q_scale, c, sc),
+                                     ((docs_q, 0), (doc_scales, 0)), bucket_ids, bucket_wvals,
+                                     valid_n, k, chunk_size, docs_q.shape[0])
+
+
+def _bucket_weighted_vals(weights: torch.Tensor, bucket_vals: torch.Tensor,
+                          bucket_field: torch.Tensor, num_dense: int) -> torch.Tensor:
+    """Each bucketed posting's raw impact times its sparse field's
+    post-softmax weight (padding takes field 0's weight against a 0
+    impact)."""
+    b, nch, mc = bucket_vals.shape
+    idx = num_dense + bucket_field.reshape(b, nch * mc).long()
+    return bucket_vals.float() * torch.gather(weights, 1, idx).reshape(b, nch, mc)
+
+
+def fused_hybrid_topk_buckets_from_query(
+    q: torch.Tensor,  # [B, E]
+    W: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    docs_flat: torch.Tensor,  # [N, Fd*E]
+    bucket_ids: torch.Tensor,  # [B, n_chunks, Mc] (bucket_postings_np)
+    bucket_vals: torch.Tensor,  # [B, n_chunks, Mc] raw impacts
+    bucket_field: torch.Tensor,  # [B, n_chunks, Mc] sparse-field index (int8 too)
+    valid_n: int,
+    num_dense: int,
+    k: int,
+    chunk_size: int = 131072,
+) -> TopK:
+    """Scatter-free twin of :func:`fused_hybrid_topk_postings_from_query`:
+    weights -> fold -> each posting's field weight -> the bucketed scan."""
+    weights = softmax_field_weights(W, q, mask).expand(q.shape[0], -1)
+    qflat = fold_queries(q, weights[:, :num_dense]).to(docs_flat.dtype)
+    bwv = _bucket_weighted_vals(weights, bucket_vals, bucket_field, num_dense)
+    return hybrid_topk_buckets(qflat, docs_flat, bucket_ids, bwv, valid_n, k, chunk_size)
+
+
+def fused_hybrid_topk_buckets_from_query_int8(
+    q, W, mask, docs_q, doc_scales, bucket_ids, bucket_vals, bucket_field, valid_n, num_dense,
+    k, chunk_size=131072,
+) -> TopK:
+    """int8 twin of :func:`fused_hybrid_topk_buckets_from_query`."""
+    weights = softmax_field_weights(W, q, mask).expand(q.shape[0], -1)
+    qflat = fold_queries(q, weights[:, :num_dense]).float()
+    bwv = _bucket_weighted_vals(weights, bucket_vals, bucket_field, num_dense)
+    return hybrid_topk_buckets_int8(qflat, docs_q, doc_scales, bucket_ids, bwv, valid_n, k,
+                                    chunk_size)

@@ -214,13 +214,45 @@ def test_exact_engine_reranks_through_k1(world, serve):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object(), quantize="int8"), "A15c"),
-    (dict(mesh=object(), corpus_on_host=True), "A15c"),
     (dict(pallas_cross_row=True), "B1"),
 ])
 def test_unported_options_raise(world, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         RetrievalEngine(**{**world["port_kw"], **kw})
+
+
+@pytest.fixture
+def world_of_one(tmp_path):
+    """A gloo world of this one process and a mesh over it, torn down after
+    the test."""
+    import torch.distributed as dist
+
+    from mfar_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'init'}", world_size=1,
+                            rank=0)
+    try:
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mode", ["exact", "rerank"])
+@pytest.mark.parametrize("kw,routes", [
+    (dict(quantize="int8"), ("mesh-int8-dense", "mesh-rerank-int8")),
+    (dict(corpus_on_host=True), ("host-stream-dense-mesh", "host-stream-rerank-rows-mesh")),
+    (dict(quantize="int8", corpus_on_host=True),
+     ("host-stream-dense-int8-mesh", "host-stream-rerank-int8-mesh")),
+], ids=["int8", "host", "host-int8"])
+def test_int8_and_host_corpora_serve_on_a_mesh(world, world_of_one, kw, routes, mode):
+    """An int8 or host-streamed corpus on a mesh (it raised until ROADMAP
+    A15c) builds and serves in a gloo world of one on the CPU, with the
+    one-device engine's results on the same corpus."""
+    qs = world["queries"]
+    eng = RetrievalEngine(**{**world["port_kw"], **kw, "mesh": world_of_one})
+    got = eng.retrieve(qs, top_k=5, mode=mode)
+    assert eng.last_serve_path == routes[mode == "rerank"]
+    _agree(got, RetrievalEngine(**{**world["port_kw"], **kw}).retrieve(qs, top_k=5, mode=mode))
 
 
 def test_sparse_fields_are_served(world):

@@ -46,7 +46,6 @@ from mfar_tpu_torch.data import trec
 from mfar_tpu_torch.data.schema import resolve_fields
 from mfar_tpu_torch.eval.compare import rankings_agree
 from mfar_tpu_torch.eval.index_build import make_encode_fn
-from mfar_tpu_torch.eval.retrieval import RetrievalEngine
 from mfar_tpu_torch.models.convert import model_state_from_jax
 from mfar_tpu_torch.models.encoder import Encoder
 from mfar_tpu_torch.models.registry import prepare_model
@@ -314,7 +313,6 @@ def test_mesh_auto_with_several_cards(monkeypatch, capsys, n_model):
     assert mesh is None
     printed = capsys.readouterr().out
     assert "2 visible cards, running on one" in printed and "--multihost pod" in printed
-    RetrievalEngine.refuse_unported(mesh=mesh)
 
 
 def test_hybrid_retrieve_from_the_ports_own_inputs(data, tmp_path):
