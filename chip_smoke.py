@@ -61,6 +61,28 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 counted per rank), rank 0's checkpoint and
                 restore_broadcast; (b) adds steps/s at global batches 16
                 and 64 against one card and the gradient all-reduce's time
+10b. train_tp -- tensor-parallel training (--n-model) at that width with
+                BERT-base's 30522-word vocabulary (4 layers where two ranks
+                share the card, 12 on four cards): (a) two gloo ranks sharing
+                card 0 as (data 1 x model 2): one batch's loss, grad_norm and
+                joined gradients against one card's, each rank's K2/K2b
+                launches at 6 heads, after one AdamW step the replicated
+                leaves and joined weights bit-equal on both ranks and a
+                validation loss against one card's; Trainer.fit (launches
+                counted a rank), rank 0's checkpoint in one card's layout,
+                restore_broadcast; (b) GTR-T5-base with Adafactor on that
+                pair; after each step the joined weights against one card's
+                optimizer stepped on the joined gradients; (c) with four cards, one
+                NCCL rank a card (the phase train_tp_cards, skipped on
+                fewer), (data 2 x model 2) and (data 1 x model 4) held as
+                (a), the vocabulary guard at 4, steps/s at global batches
+                16 and 64 beside one card and the data-parallel four, peak
+                memory, the model-group all-reduces of a step counted and
+                replayed for their time, then the train command with
+                --n-model 2 over the four; (d) K2/K2b against their plain
+                versions at [96, 6, 512, 64] and [96, 3, 512, 64], with
+                times and bounds; (e) train --n-model 2 over two gloo ranks
+                sharing card 0, then a one-card retrieve --checkpoint-dir
 11. train_cli -- the train command on a dataset directory and a BERT
                 directory, one iteration on the card, then retrieve
                 --checkpoint-dir on its output
@@ -160,7 +182,8 @@ f32.  Any failed check raises and the run exits non-zero; a rank that fails
 or outlives its timeout fails the mesh or train_mesh phase, and every rank
 is killed.  ``--phases`` runs only the listed phases (and those they read
 from) after device and build, e.g. ``--phases build,mesh``, ``--phases
-build,mesh_capacity`` or ``--phases train,train_mesh`` on four cards.  The last two
+build,mesh_capacity``, ``--phases train,train_mesh`` or ``--phases
+build,train_tp_cards`` on four cards.  The last two
 lines are one JSON object with every kernel's numbers (in a run of every
 phase) and one with ``"ok": true`` and the device.
 """
@@ -221,6 +244,7 @@ from mfar_tpu_torch.models.t5_decoder import T5Seq2Seq, T5Seq2SeqConfig, init_t5
 from mfar_tpu_torch.models.t5_encoder import init_t5_encoder
 from mfar_tpu_torch.models.tokenizer import SimpleVocabTokenizer
 from mfar_tpu_torch.ops import _build
+from mfar_tpu_torch.parallel import tensor_parallel
 from mfar_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
@@ -1082,14 +1106,15 @@ def write_data_dir(path, pairs, splits=None):
         trec.write_qrels(os.path.join(path, f"{split}.qrels"), qrels)
 
 
-def write_bert_dir(path, corpus, seed):
-    """A local BERT directory at Contriever-base width: seeded weights and a
-    WordPiece vocab of the corpus's most common words.  Returns the config
-    and the number of tokenizer entries."""
+def write_bert_dir(path, corpus, seed, **overrides):
+    """A local BERT directory at Contriever-base width (``overrides`` of its
+    config, such as fewer layers): seeded weights and a WordPiece vocab of
+    the corpus's most common words.  Returns the config and the number of
+    tokenizer entries."""
     counts = collections.Counter(
         w for t in corpus_texts_for_vocab(corpus, resolve_fields("all_dense", "mag"))
         for w in t.lower().split())
-    cfg = EncoderConfig.contriever_base()
+    cfg = EncoderConfig.contriever_base(**overrides)
     words = [w for w, _ in counts.most_common(cfg.vocab_size - 5)]  # after 5 specials
     save_bert_dir(path, cfg, init_encoder(cfg, seed=seed).state_dict(), words)
     return cfg, len(words) + 5
@@ -1589,7 +1614,7 @@ def run_ranks(job, spec, world, label, timeout=None) -> list:
         torch.save(spec, path)
         coord = f"file://{os.path.join(work, 'init')}"
         me = os.path.abspath(__file__)
-        extra = {"CUDA_VISIBLE_DEVICES": "0"} if job == "train_shared" else {}
+        extra = {"CUDA_VISIBLE_DEVICES": "0"} if job in ("train_shared", "tp_shared") else {}
         procs = start_ranks([[sys.executable, me, "--mesh-rank", path]] * world,
                             [rank_env(coord, world, r, **extra) for r in range(world)], work,
                             label)
@@ -1703,6 +1728,603 @@ def run_train_mesh(seed, corpus, tok, batch=16, steps=2, epochs=2,
     out["launches"] = tuple(sum(v["launches"][i] for k, v in out.items() if k in ("a", "b"))
                             for i in range(3))
     return {"train_mesh": out, "train_mesh_launches": out["launches"]}
+
+
+# ----------------------------------------------------------------------
+# phase 10b: tensor-parallel training (--n-model) over several ranks
+
+TP_VOCAB = 30522  # BERT-base's vocabulary (Contriever's): 2 divides it, 4 does not
+# Two ranks that share a card send every model-group all-reduce through the
+# host (gloo): ~10 s a gradient pass at 12 layers and batch 4 on the card.
+# Their phases run 4 of the 12 layers, at full width; the four-card phase
+# runs all 12.
+TP_SHARED_LAYERS = 4
+# The step's grad_norm (a sharded leaf's squares summed over the model group,
+# then the replicated ones) against the norm of the joined gradients: the
+# same f32 squares summed in another order.
+TP_NORM_RTOL = 1e-5
+# The joined weights after the optimizer stepped on the shards against one
+# card's optimizer stepped on the joined gradients: AdamW is elementwise;
+# Adafactor's factored statistics and block RMS are sums over the model
+# group, in f32 in another order, scaling updates of ~lr (1e-3).
+TP_UPDATE_ATOL = 1e-6
+
+
+def tp_whole(model, grads=False) -> dict:
+    """{name: whole parameter (or its gradient)}, each sharded one joined
+    over its model group: a collective every rank of the group calls."""
+    out = {}
+    for name, p in model.named_parameters():
+        t = (p.grad if grads else p).detach()
+        shard = tensor_parallel.shard_of(p)
+        if shard is not None:
+            t = torch.cat(shard.mesh.all_gather("model", t), dim=shard.axis)
+        out[name] = t
+    return out
+
+
+def tp_digests(model) -> tuple:
+    """Hashes of the replicated parameters as this rank holds them and of
+    every parameter joined over its model group (a collective)."""
+    mine, whole = hashlib.sha256(), hashlib.sha256()
+    for p in model.parameters():
+        if tensor_parallel.shard_of(p) is None:
+            mine.update(p.detach().cpu().numpy().tobytes())
+    for t in tp_whole(model).values():
+        whole.update(t.cpu().numpy().tobytes())
+    return mine.hexdigest(), whole.hexdigest()
+
+
+def replicated_grad_spread(model, batch, shard) -> dict:
+    """The replicated leaves' gradients of one backward without the model
+    group's average, twice on this rank: the largest difference between the
+    two passes and between this rank's first and model rank 0's (each over
+    the leaf's largest entry), and the leaf where it is (a collective)."""
+    def grads():
+        model.train().zero_grad(set_to_none=True)
+        model.compute_loss(batch["query"], batch["pos"], batch["neg"], shard=shard).backward()
+        out = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()
+               if tensor_parallel.shard_of(p) is None}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    first, second = grads(), grads()
+    mesh = model.model_mesh
+    peers = {n: mesh.all_gather("model", g)[0] for n, g in first.items()}
+    out = {}
+    for label, other in (("passes", second), ("peers", peers)):
+        rel = {n: ((g - other[n]).abs().max() / g.abs().max().clamp(min=1e-30)).item()
+               for n, g in first.items()}
+        worst = max(rel, key=rel.get)
+        out[label] = (rel[worst], worst, sum(v > 0 for v in rel.values()), len(rel))
+    return out
+
+
+def l2_norm(groups) -> float:
+    """The L2 norm of the gradient groups, summed in f64."""
+    return torch.linalg.vector_norm(torch.cat(list(groups.values())).double()).item()
+
+
+def by_group(model, tensors) -> dict:
+    """``tensors`` ({name: tensor}) flattened by optimizer group."""
+    labels = param_labels(model)
+    groups = {"encoder": [], "head": []}
+    for name, t in tensors.items():
+        groups[labels[name]].append(t.float().flatten())
+    return {k: torch.cat(v) for k, v in groups.items()}
+
+
+def tp_step(spec, mesh, cfg, opt, batch, vb) -> dict:
+    """One batch of ``cfg``'s MFARModel over ``mesh`` (the encoder sharded
+    over ``model``, the rows over ``data``) against one card's on the whole
+    batch (rank 0): the loss, the joined gradients (cosines by group, the
+    norm), ``grad_norm`` as the train step computes it, each rank's K2/K2b
+    launches and model-group collectives; then one optimizer step on the
+    shards: the replicated leaves (a digest a rank), the joined weights (a
+    digest) against one card's optimizer stepped on the joined gradients,
+    and a validation batch's loss after it against that card's."""
+    from mfar_tpu_torch.parallel import multihost
+    from mfar_tpu_torch.parallel.data_parallel import shard_batch
+    from mfar_tpu_torch.train.train_step import compute_gradients
+
+    dev = torch.device(DEVICE)
+    local, shard = shard_batch(batch, mesh)
+    vlocal, vshard = shard_batch(vb, mesh)
+    out = {"model": mesh.size("model")}
+    if mesh.rank == 0:
+        # one card in f32 (plain attention): where bf16 rounding takes both
+        f32 = init_state(train_model(dataclasses.replace(cfg, dtype=torch.float32)), opt,
+                         seed=spec["seed"], device=DEVICE)
+        f32_loss = compute_gradients(f32, to_device(batch, dev)).item()
+        f32_grads = by_group(f32.model, {n: p.grad for n, p in f32.model.named_parameters()})
+        del f32
+        one = init_state(train_model(cfg), opt, seed=spec["seed"], device=DEVICE)
+        one_loss = compute_gradients(one, to_device(batch, dev)).item()
+        one_grads = by_group(one.model, {n: p.grad for n, p in one.model.named_parameters()})
+        one.model.zero_grad(set_to_none=True)
+    multihost.sync("tp-one-device")  # ranks that share the card wait for rank 0
+    state = init_state(train_model(cfg), opt, seed=spec["seed"], device=DEVICE)
+    tensor_parallel.shard_module(state.model, mesh)
+    out["sharded"] = sorted(n for n, p in state.model.named_parameters()
+                            if tensor_parallel.shard_of(p))
+    if isinstance(cfg, EncoderConfig) and not mesh.host_collectives:
+        out["spread"] = replicated_grad_spread(state.model, to_device(local, dev), shard)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    tensor_parallel.collectives.clear()
+    loss = compute_gradients(state, to_device(local, dev), shard).item()
+    out["step_launches"] = counts()
+    out["collectives"] = dict(tensor_parallel.collectives)
+    tp_grads = tp_whole(state.model, grads=True)
+    grads = by_group(state.model, tp_grads)
+    out.update(loss=loss, norm=l2_norm(grads), step_norm=tensor_parallel.grad_norm(list(state.model.parameters())).item(),
+               n_flash=flash_groups(local))
+    if mesh.rank == 0:
+        out.update(one_loss=one_loss,
+                   one_norm=l2_norm(one_grads),
+                   grad_cos={k: F.cosine_similarity(grads[k], one_grads[k], dim=0).item()
+                             for k in grads},
+                   f32_loss=f32_loss,
+                   f32_cos={k: (F.cosine_similarity(one_grads[k], f32_grads[k], dim=0).item(),
+                                F.cosine_similarity(grads[k], f32_grads[k], dim=0).item())
+                            for k in grads})
+        del one_grads, f32_grads
+    del grads
+
+    # the step's update on the shards (train_step's optimizer step)
+    state.optimizer.step()
+    state.model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["replicated_digest"], out["whole_digest"] = tp_digests(state.model)
+    after = tp_whole(state.model)
+    out["after_loss"] = eval_loss_step(state, to_device(vlocal, dev), vshard).item()
+    if mesh.rank == 0:
+        for name, p in one.model.named_parameters():
+            p.grad = tp_grads[name].to(p.dtype)
+        one.optimizer.step()
+        out["update_err"] = max((after[n] - p.detach()).abs().max().item()
+                                for n, p in one.model.named_parameters())
+        out["one_after_loss"] = eval_loss_step(one, to_device(vb, dev)).item()
+        del one
+    del after, tp_grads, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_world(spec) -> tuple:
+    """The train_mesh cell's corpus and its train, validation and rate
+    datasets (one BM25 negative from an index built here)."""
+    corpus = Corpus.from_pairs(spec["pairs"], dataset_name="mag")
+    field_info = resolve_fields("all_dense", "mag")
+    sampler = IndexNegativeSampler(load_negative_sampler_index(corpus, None, "mag"), 100, 50, 1)
+    return (corpus, field_info, *(ContrastiveDataset(q, corpus, r, sampler, field_info,
+                                                     spec["tok"]) for q, r in spec["splits"]))
+
+
+def tp_fit(spec, mesh, world, out) -> None:
+    """``Trainer.fit`` of the train_mesh cell over ``mesh`` (launches counted
+    a rank), rank 0's checkpoint against one card's layout, and
+    ``restore_broadcast``: every rank's shards and moments as it fitted them."""
+    corpus, field_info, train_ds, val_ds, _ = world
+    cfg, opt = spec["cfg"], make_optimizer(encoder_lr=1e-4, weights_lr=0.1)
+    run_dir = os.path.join(spec["work"], f"tp_run{mesh.rank}")
+    tcfg = TrainerConfig(out_dir=run_dir, max_epochs=spec["epochs"],
+                         train_batch_size=spec["batch"], seed=spec["seed"], query_max_length=512)
+    trainer = Trainer(spec["tok"], field_info, corpus, train_ds, val_ds, spec["splits"][1][0],
+                      os.path.join(spec["work"], "val.qrels"), tcfg, mesh=mesh)
+    state = init_state(train_model(cfg), opt, seed=spec["seed"], device=DEVICE)
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    state = trainer.fit(state)
+    torch.cuda.synchronize()
+    out.update(fit_s=time.perf_counter() - t, fit_launches=counts(), fit_steps=state.step)
+    # dropout on: the replicated activations' masks must agree over the group
+    out["fit_digests"] = tp_digests(state.model)
+    latest = trainer.ckpt_step_broadcast("latest")
+    if mesh.rank == 0:
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(ln) for ln in f if '"train_loss"' in ln]
+        out.update(losses=[r["train_loss"] for r in rows], valid=[r["valid_loss"] for r in rows])
+        saved = trainer.ckpt.read(latest)
+        whole = train_model(cfg)
+        params = list(whole.parameters())
+        moments = saved["optimizer"]["state"]
+        out["ckpt_layout"] = (
+            {k: tuple(v.shape) for k, v in saved["model"].items()}
+            == {k: tuple(v.shape) for k, v in whole.state_dict().items()}
+            and all(tuple(moments[i][k].shape) == tuple(params[i].shape)
+                    for i in moments for k in ("exp_avg", "exp_avg_sq")))
+        del saved, whole
+    out["wrote"] = sorted(os.listdir(run_dir)) if os.path.isdir(run_dir) else None
+    restored = trainer.restore_broadcast(
+        latest, init_state(train_model(cfg), opt, seed=spec["seed"] + 1, device=DEVICE))
+    out["restored"] = (
+        latest, restored.step == state.step,
+        all(torch.equal(a, b) for a, b in zip(state.model.state_dict().values(),
+                                               restored.model.state_dict().values())),
+        optimizer_states_equal(state.optimizer.state_dict(), restored.optimizer.state_dict()))
+    del state, restored, trainer
+    torch.cuda.empty_cache()
+
+
+def tp_rates(spec, meshes, rate_ds, out) -> None:
+    """Resident steps/s (5 steps after a warm-up) at each global batch: one
+    card (rank 0 alone), then each mesh; peak memory a card; the
+    model-group all-reduces of one step, counted, then replayed alone over
+    NCCL for their time."""
+    from mfar_tpu_torch.parallel import multihost
+    from mfar_tpu_torch.parallel.data_parallel import shard_batch
+
+    cfg, opt = spec["cfg"], make_optimizer(encoder_lr=1e-4, weights_lr=0.1)
+    dev = torch.device(DEVICE)
+    out["rates"] = {}
+    for b in spec["rate_batches"]:
+        rb = strip_meta(next(rate_ds.epoch_batches(b, seed=spec["seed"])))
+        row = {}
+        for label, mesh in [("one", None)] + list(meshes.items()):
+            if label == "one" and multihost.process_index() != 0:
+                multihost.sync("tp-one-card-rate")
+                continue
+            state = init_state(train_model(cfg), opt, seed=spec["seed"], device=DEVICE)
+            if mesh is not None:
+                tensor_parallel.shard_module(state.model, mesh)
+            local, shard = shard_batch(rb, mesh)
+            local = to_device(local, dev)
+            train_step(state, local, shard)  # warm-up: cuBLAS, the allocator
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tensor_parallel.collectives.clear()
+            t = time.perf_counter()
+            for _ in range(5):
+                train_step(state, local, shard)
+            torch.cuda.synchronize()
+            entry = dict(steps_per_s=5 / (time.perf_counter() - t),
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            sizes = {n: c // 5 for n, c in tensor_parallel.collectives.items()}
+            del state
+            torch.cuda.empty_cache()
+            if sizes:
+                bufs = [torch.ones(n, device=DEVICE) for n, c in sizes.items() for _ in range(c)]
+                group = mesh.group("model")
+                torch.cuda.synchronize()
+                multihost.sync("tp-replay")
+                t = time.perf_counter()
+                for buf in bufs:
+                    torch.distributed.all_reduce(buf, group=group)
+                torch.cuda.synchronize()
+                entry.update(collectives=sum(sizes.values()),
+                             collective_mb=sum(n * c for n, c in sizes.items()) * 4 / 1e6,
+                             collective_ms=(time.perf_counter() - t) * 1e3)
+                del bufs
+            row[label] = entry
+            if label == "one":
+                multihost.sync("tp-one-card-rate")
+        out["rates"][b] = row
+
+
+def tp_rank(spec, mesh, out) -> None:
+    """One rank of the train_tp phase: on each ``(n_data, n_model)`` of
+    ``spec["tp_shapes"]`` the BERT step against one card's; on the ranks
+    sharing card 0 also GTR-T5-base with Adafactor and ``Trainer.fit``; on
+    cards, steps/s beside one card and the data-parallel mesh."""
+    from mfar_tpu_torch.parallel.mesh import make_mesh
+
+    world = tp_world(spec)
+    train_ds, val_ds, rate_ds = world[2:]
+    batch = strip_meta(next(train_ds.epoch_batches(spec["batch"], seed=spec["seed"])))
+    vb = strip_meta(next(val_ds.epoch_batches(spec["batch"], seed=0)))
+    nodrop = dataclasses.replace(spec["cfg"], hidden_dropout=0.0)
+    adamw = make_optimizer(encoder_lr=1e-4, weights_lr=0.1)
+    meshes = {f"{nd}x{nm}": make_mesh(n_data=nd, n_model=nm, backend=mesh.backend)
+              for nd, nm in spec["tp_shapes"]}
+    for label, tp_mesh in meshes.items():
+        t = time.perf_counter()
+        out[f"bert/{label}"] = tp_step(spec, tp_mesh, nodrop, adamw, batch, vb)
+        out[f"bert/{label}"]["s"] = time.perf_counter() - t
+        out[f"bert/{label}"]["whole_embeddings"] = (
+            "encoder.embeddings.word_embeddings.weight" not in out[f"bert/{label}"]["sharded"])
+    if spec["job"] == "tp_shared":
+        tp_mesh = meshes["1x2"]
+        t5 = T5Config.gtr_base(remat=True, dropout=0.0, num_layers=spec["cfg"].num_layers)
+        t = time.perf_counter()
+        out["t5/1x2"] = tp_step(spec, tp_mesh, t5, make_optimizer(
+            encoder_lr=1e-3, weights_lr=0.1, use_adafactor=True), batch, vb)
+        out["t5/1x2"]["s"] = time.perf_counter() - t
+        tp_fit(spec, tp_mesh, world, out)
+    else:
+        tp_rates(spec, dict(meshes, **{f"{mesh.size('data')}x1": mesh}), rate_ds, out)
+
+
+def hold_tp_step(ranks, key, label, cfg, adafactor=False) -> str:
+    """The checks of one ``tp_step`` over the ranks; returns its line."""
+    r0 = ranks[0][key]
+    L = cfg.num_layers
+    for r in ranks:
+        got = r[key]
+        want = (2 * L * got["n_flash"], L * got["n_flash"], L * got["n_flash"])
+        if adafactor:
+            want = (0, 0, 0)  # T5 attention is the plain product, as in JAX
+        check(got["step_launches"] == want, f"{label}: rank {r['rank']} launched K2/dkv/dq "
+                                            f"{got['step_launches']}, want {want}")
+        check(got["loss"] == r0["loss"] and got["norm"] == r0["norm"],
+              f"{label}: rank {r['rank']}'s loss or grad norm differs from rank 0's")
+        check(got["replicated_digest"] == r0["replicated_digest"]
+              and got["whole_digest"] == r0["whole_digest"],
+              f"{label}: rank {r['rank']}'s replicated leaves or joined weights differ")
+        check(got["after_loss"] == r0["after_loss"], f"{label}: validation losses differ")
+    check(abs(r0["loss"] - r0["one_loss"]) <= TRAIN_LOSS_RTOL * abs(r0["one_loss"]),
+          f"{label}: loss {r0['loss']} vs one card {r0['one_loss']}")
+    check(abs(r0["norm"] - r0["one_norm"]) <= TRAIN_NORM_RTOL * r0["one_norm"],
+          f"{label}: grad_norm {r0['norm']} vs one card {r0['one_norm']}")
+    check(min(r0["grad_cos"].values()) >= TRAIN_MIN_COSINE, f"{label}: gradient cosines "
+                                                            f"{r0['grad_cos']}")
+    check(abs(r0["step_norm"] - r0["norm"]) <= TP_NORM_RTOL * r0["norm"],
+          f"{label}: the step's grad_norm {r0['step_norm']} vs the joined gradients' "
+          f"{r0['norm']}")
+    check(r0["update_err"] <= TP_UPDATE_ATOL,
+          f"{label}: the joined weights after the step differ from one card's optimizer "
+          f"stepped on the joined gradients by {r0['update_err']}")
+    check(abs(r0["after_loss"] - r0["one_after_loss"])
+          <= TRAIN_LOSS_RTOL * abs(r0["one_after_loss"]),
+          f"{label}: validation loss after the step {r0['after_loss']} vs one card "
+          f"{r0['one_after_loss']}")
+    n_coll = sum(r0["collectives"].values())
+    spread = ""
+    if "spread" in r0:
+        (p_rel, p_leaf, p_n, n), (q_rel, q_leaf, q_n, _) = (
+            max((r[key]["spread"][k] for r in ranks), key=lambda x: x[0])
+            for k in ("passes", "peers"))
+        spread = (f"; the replicated leaves' gradients of one backward without the group's "
+                  f"average: two passes on a rank differ in {p_n} of {n} leaves, by up to "
+                  f"{p_rel:.3g} of the leaf's largest entry ({p_leaf}), a rank and model rank "
+                  f"0 in {q_n}, by up to {q_rel:.3g} ({q_leaf})")
+    f32 = (f"; against one card in f32 (not held): loss {r0['f32_loss']:.6f}, off by "
+           f"{abs(r0['one_loss'] - r0['f32_loss']) / abs(r0['f32_loss']):.3g} on one card in "
+           f"bf16 and {abs(r0['loss'] - r0['f32_loss']) / abs(r0['f32_loss']):.3g} here, "
+           f"gradient cosines (one card bf16, here) "
+           f"{({k: tuple(round(c, 6) for c in v) for k, v in r0['f32_cos'].items()})}")
+    return (f"{label}: loss {r0['loss']:.6f} vs one card {r0['one_loss']:.6f}, grad_norm "
+            f"{r0['norm']:.6f} vs {r0['one_norm']:.6f} (the step's {r0['step_norm']:.6f}), "
+            f"gradient cosines {({k: round(v, 6) for k, v in r0['grad_cos'].items()})}; after "
+            f"one {'Adafactor' if adafactor else 'AdamW'} step on the shards the replicated "
+            f"leaves and the joined weights bit-equal on every rank, the joined weights within "
+            f"{r0['update_err']:.3g} of one card's optimizer stepped on the joined gradients, "
+            f"a validation loss {r0['after_loss']:.6f} vs that card's "
+            f"{r0['one_after_loss']:.6f}; a rank launched K2/dkv/dq {r0['step_launches']} "
+            f"({cfg.num_heads // r0['model'] if cfg.num_heads % r0['model'] == 0 else cfg.num_heads}"
+            f" heads a rank"
+            f"{'; T5 attention is the plain product' if adafactor else ''}), issued {n_coll} model-group all-reduces "
+            f"({sum(n * c for n, c in r0['collectives'].items()) * 4 / 1e6:.0f} MB of f32) in "
+            f"the gradients' pass, peak {max(r[key]['peak_gb'] for r in ranks):.2f} GB; "
+            f"{max(r[key]['s'] for r in ranks):.1f} s{spread}{f32}")
+
+
+def run_train_tp(seed, corpus, tok, batch=4, steps=2, epochs=2, rate_batches=(16, 64)) -> dict:
+    """Tensor-parallel training at Contriever-base width (vocabulary 30522,
+    bf16, remat, K2/K2b through ``attention_impl="auto"``, attention dropout
+    0; ``TP_SHARED_LAYERS`` layers) on train_mesh's data: (a) two gloo ranks sharing card 0 as (data 1 x
+    model 2): one step against one card's, ``Trainer.fit``, its checkpoint
+    and ``restore_broadcast``; (b) GTR-T5-base with Adafactor on that pair;
+    (d) K2 and K2b at the local head counts; (e) ``train --n-model 2`` over
+    two gloo ranks sharing card 0, then a one-card ``retrieve
+    --checkpoint-dir``.  (c), over four cards, is :func:`run_train_tp_cards`."""
+    check(tok.vocab_size <= TP_VOCAB, f"vocabulary {tok.vocab_size} > {TP_VOCAB}")
+    rng = np.random.default_rng(seed + 71)
+    pairs = list(corpus.pairs())
+    splits = mag_splits(pairs, (steps * batch, 2 * batch, max(rate_batches)), rng)
+    cfg = EncoderConfig.contriever_base(vocab_size=TP_VOCAB, attention_impl="auto",
+                                        attention_dropout=0.0, remat=True,
+                                        num_layers=TP_SHARED_LAYERS)
+    spec = dict(seed=seed, device=DEVICE, pairs=pairs, tok=tok, cfg=cfg, splits=splits,
+                batch=batch, steps=steps, epochs=epochs, rate_batches=rate_batches)
+    out = {}
+    t = time.perf_counter()
+    ranks = run_ranks("tp_shared", dict(spec, tp_shapes=[(1, 2)]), 2, "train_tp_a")
+    check([(r["backend"], r["card"]) for r in ranks] == [("gloo", 0)] * 2,
+          f"(a) ranks' backends and cards {[(r['backend'], r['card']) for r in ranks]}")
+    phase("train_tp", "(a) two gloo ranks on card 0, (data 1 x model 2), global batch "
+                      f"{batch}: " + hold_tp_step(ranks, "bert/1x2", "BERT", cfg))
+    check(not ranks[0]["bert/1x2"]["whole_embeddings"], "(a) word_embeddings not sharded at 2")
+    phase("train_tp", "(b) GTR-T5-base with Adafactor on (a)'s pair: "
+                      + hold_tp_step(ranks, "t5/1x2", "T5",
+                                     T5Config.gtr_base(num_layers=TP_SHARED_LAYERS),
+                                     adafactor=True))
+    r0, L = ranks[0], cfg.num_layers
+    for r in ranks:
+        fl = r["fit_launches"]
+        check(r["fit_steps"] == epochs * steps and fl[1] == fl[2] >= L * r["fit_steps"]
+              and fl[0] >= 2 * fl[1], f"(a) rank {r['rank']} fit {r['fit_steps']} steps, "
+                                      f"launched {fl}")
+        check(r["restored"][1:] == (True, True, True),
+              f"(a) rank {r['rank']}'s restore_broadcast: {r['restored']}")
+        check(r["rank"] == 0 or r["wrote"] is None, f"(a) rank {r['rank']} wrote files")
+        check(r["fit_digests"] == r0["fit_digests"],
+              f"(a) rank {r['rank']}'s weights differ from rank 0's after fit")
+    check(r0["ckpt_layout"], "(a) rank 0's checkpoint is not in one card's layout")
+    check(all(math.isfinite(x) for x in r0["losses"] + r0["valid"]),
+          f"(a) losses {r0['losses']} {r0['valid']}")
+    launches = tuple(sum(r["fit_launches"][i] for r in ranks) for i in range(3))
+    phase("train_tp", f"(a) Trainer.fit {r0['fit_steps']} steps in {epochs} epochs in "
+                      f"{[round(r['fit_s'], 2) for r in ranks]} s a rank (validation and rank "
+                      f"0's checkpoints included); train loss by epoch {r0['losses']}, valid "
+                      f"{r0['valid']}; K2/dkv/dq launches by rank "
+                      f"{[r['fit_launches'] for r in ranks]}; hidden dropout 0.1, the replicated "
+                      f"leaves and joined weights bit-equal on both ranks after it; rank 0's "
+                      f"checkpoint holds one "
+                      f"card's keys and shapes (model and AdamW moments); restore_broadcast of "
+                      f"checkpoint {r0['restored'][0]} gives each rank its shards and moments")
+    out["a"] = dict(loss=r0["bert/1x2"]["loss"], one_loss=r0["bert/1x2"]["one_loss"],
+                    grad_cos=r0["bert/1x2"]["grad_cos"], launches=launches,
+                    t5_loss=r0["t5/1x2"]["loss"], t5_one_loss=r0["t5/1x2"]["one_loss"],
+                    t5_grad_cos=r0["t5/1x2"]["grad_cos"], t5_update_err=r0["t5/1x2"]["update_err"],
+                    fit_s=[r["fit_s"] for r in ranks], s=time.perf_counter() - t)
+
+    out["d"] = run_k2_local_heads(seed)
+    out["e"] = run_train_tp_cli(seed, corpus, 2, shared=True, n_docs=128)
+    out["launches"] = launches
+    return {"train_tp": out, "train_tp_launches": launches}
+
+
+def run_train_tp_cards(seed, corpus, tok, batch=16, rate_batches=(16, 64)) -> dict:
+    """train_tp over four cards, one NCCL rank a card (skipped on fewer):
+    (c) the BERT step of (a) on (data 2 x model 2) and (data 1 x model 4),
+    the vocabulary guard at 4, steps/s at global batches 16 and 64 beside
+    one card and the data-parallel four, peak memory, the model-group
+    all-reduces of a step; then the train command with ``--n-model 2`` over
+    the four ranks and a one-card ``retrieve --checkpoint-dir``."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 4:
+        phase("train_tp_cards", f"needs four cards; {n_cards} visible: skipped")
+        return {}
+    rng = np.random.default_rng(seed + 71)
+    pairs = list(corpus.pairs())
+    splits = mag_splits(pairs, (2 * batch, 2 * batch, max(rate_batches)), rng)
+    cfg = EncoderConfig.contriever_base(vocab_size=TP_VOCAB, attention_impl="auto",
+                                        attention_dropout=0.0, remat=True)
+    spec = dict(seed=seed, device=DEVICE, pairs=pairs, tok=tok, cfg=cfg, splits=splits,
+                batch=batch, steps=2, epochs=2, rate_batches=rate_batches)
+    t = time.perf_counter()
+    ranks = run_ranks("tp_cards", dict(spec, tp_shapes=[(2, 2), (1, 4)]), 4, "train_tp_c")
+    check(sorted(r["card"] for r in ranks) == [0, 1, 2, 3]
+          and {r["backend"] for r in ranks} == {"nccl"},
+          "(c) ranks share a card or do not run NCCL")
+    for label in ("2x2", "1x4"):
+        phase("train_tp_cards", f"(c) four NCCL ranks, (data {label[0]} x model {label[-1]}), "
+                                f"global batch {batch}: "
+                                + hold_tp_step(ranks, f"bert/{label}", "BERT", cfg))
+    check(ranks[0]["bert/1x4"]["whole_embeddings"]
+          and not ranks[0]["bert/2x2"]["whole_embeddings"],
+          "(c) the guard: word_embeddings should shard at 2 and stay whole at 4")
+    phase("train_tp_cards", f"(c) the guard: BERT's word_embeddings ({TP_VOCAB} rows) sharded "
+                            f"at model 2, whole on every rank at model 4 ({TP_VOCAB} % 4 = "
+                            f"{TP_VOCAB % 4})")
+    rates = ranks[0]["rates"]
+    for b, row in rates.items():
+        parts = []
+        for k, v in row.items():
+            peak = max(r["rates"][b][k]["peak_gb"] for r in ranks if k in r["rates"][b])
+            part = f"{k} {v['steps_per_s']:.3f} steps/s, {peak:.2f} GB"
+            if "collectives" in v:
+                part += (f", {v['collectives']} all-reduces of {v['collective_mb']:.0f} MB in "
+                         f"{v['collective_ms']:.2f} ms")
+            parts.append(part)
+        phase("train_tp_cards", f"(c) global batch {b}, resident steps/s (5 steps after a "
+                                f"warm-up), peak GB a card, the model-group all-reduces of a "
+                                f"step replayed alone: {'; '.join(parts)} ({CARD})")
+    out = {"c": dict(rates=rates, s=time.perf_counter() - t,
+                     loss={k: ranks[0][f"bert/{k}"]["loss"] for k in ("2x2", "1x4")},
+                     one_loss=ranks[0]["bert/2x2"]["one_loss"])}
+    out["e"] = run_train_tp_cli(seed, corpus, 4, shared=False)
+    return {"train_tp_cards": out}
+
+
+def run_k2_local_heads(seed, shapes=((96, 6, 512), (96, 3, 512))) -> dict:
+    """(d) K2 with the logsumexp and K2b against their plain versions at a
+    model rank's heads of Contriever-base at n_model 2 and 4, with their
+    times and bounds."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 72)
+    out = {}
+    for b, h, s in shapes:
+        lengths = np.random.default_rng(seed + h).integers(2, s + 1, size=b)
+        lengths[0], lengths[1] = s, 2
+        q, k, v, seg, dout = k2b_inputs(gen, b, h, s, lengths.tolist())
+        rel, abs_err = check_k2b(q, k, v, seg, dout, f"at {list(q.shape)}")
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        o, lse = flash_attention_fwd(q, k, v, seg, scale)
+        _, di = flash_attention_bwd_dq(q, k, v, seg, lse, o, dout, scale)
+        bounds = k2b_bound(q, seg)
+        r = dict(
+            fwd_ms=time_cuda(lambda: flash_attention_fwd(q, k, v, seg, scale)),
+            fwd_bound_ms=k2_bound(q, seg, lse=True)[0],
+            fwd_plain_ms=time_cuda(lambda: flash_attention_plain(q, k, v, seg, scale),
+                                   reps=5, inner=2),
+            fwd_library_ms=time_cuda(lambda: library_attention(q, k, v, seg, scale),
+                                     reps=11, inner=5),
+            dq_ms=time_cuda(lambda: flash_attention_bwd_dq(q, k, v, seg, lse, o, dout, scale)),
+            dkv_ms=time_cuda(lambda: flash_attention_bwd_dkv(q, k, v, seg, lse, di, dout,
+                                                             scale)),
+            plain_bwd_ms=time_cuda(lambda: flash_attention_bwd_plain(
+                q, k, v, seg, o, lse, dout, scale), reps=5, inner=2),
+            dq_bound_ms=bounds["dq"][0], dkv_bound_ms=bounds["dkv"][0],
+            max_rel_err=rel, dq_max_abs_err=abs_err["dq"], dkv_max_abs_err=abs_err["dkv"])
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_out = library_attention(*leaves, seg, scale)
+        r["library_bwd_ms"] = time_cuda(
+            lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True),
+            reps=11, inner=5)
+        out[h] = r
+        phase("train_tp", f"(d) K2/K2b at a rank's heads, bf16 {list(q.shape)}: max err "
+                          f"{rel:.3g} of the largest gradient (tolerance rtol {K2B_RTOL}, atol "
+                          f"{K2B_ATOL_REL} x max |grad|; K2 rtol=atol {K2_ATOL}); K2 with the "
+                          f"logsumexp {r['fwd_ms']:.4f} ms (bound {r['fwd_bound_ms']:.4f}), "
+                          f"plain {r['fwd_plain_ms']:.4f}, SDPA {r['fwd_library_ms']:.4f}; dq "
+                          f"{r['dq_ms']:.4f} (bound {r['dq_bound_ms']:.4f}), dkv "
+                          f"{r['dkv_ms']:.4f} (bound {r['dkv_bound_ms']:.4f}), plain backward "
+                          f"{r['plain_bwd_ms']:.4f}, SDPA backward {r['library_bwd_ms']:.4f} "
+                          f"({CARD})")
+        del q, k, v, seg, dout, o, lse, di, leaves, lib_out
+    return out
+
+
+def run_train_tp_cli(seed, corpus, world, shared, n_docs=512) -> dict:
+    """(e) ``commands/train.main`` with ``--n-model 2`` as a user starts it
+    over ``world`` processes (the ``MFAR_*`` triple): gloo ranks sharing card
+    0 (``MFAR_BACKEND=gloo``; a BERT directory of ``TP_SHARED_LAYERS``
+    layers) when ``shared``, else one NCCL rank a card (all 12 layers);
+    then a one-card ``retrieve --checkpoint-dir`` on its output."""
+    pairs = list(corpus.pairs())[:n_docs]
+    sub = Corpus.from_pairs(pairs, dataset_name="mag")
+    rng = np.random.default_rng(seed + 73)
+    splits = dict(zip(("train", "val", "test"), mag_splits(pairs, (32, 16, 16), rng)))
+    with tempfile.TemporaryDirectory() as d:
+        data, bert, out = (os.path.join(d, x) for x in ("data", "bert", "out"))
+        write_data_dir(data, pairs, splits)
+        write_bert_dir(bert, sub, seed + 74,
+                       **({"num_layers": TP_SHARED_LAYERS} if shared else {}))
+        coord = f"file://{os.path.join(d, 'init')}"
+        extra = {"CUDA_VISIBLE_DEVICES": "0", "MFAR_BACKEND": "gloo"} if shared else {}
+        argv = [sys.executable, "-m", "mfar_tpu_torch.commands.train", "--dataset-name", "mag",
+                "--data", data, "--out", out, "--lexical-index", os.path.join(d, "idx"),
+                "--weights-lr", "0.1", "--model-name", bert, "--run-one-iteration",
+                "--max-epochs", "1", "--n-model", "2", "--multihost", "force",
+                "--device", "cuda"]
+        t = time.perf_counter()
+        procs = start_ranks([argv] * world, [rank_env(coord, world, r, **extra)
+                                             for r in range(world)], d, "train_tp_cli")
+        try:
+            watch_ranks(procs, "train_tp (e)")
+        finally:
+            stop_ranks(procs)
+        train_s = time.perf_counter() - t
+        with open(os.path.join(d, "train_tp_cli0.log")) as f:
+            mesh_line = next((ln.strip() for ln in f if ln.startswith("[train] mesh")), None)
+        check(mesh_line is not None and "'model': 2" in mesh_line,
+              f"the train command's mesh line: {mesh_line}")
+        for rel in ("metrics.jsonl", "best.txt", "results_dicts.jsonl", "final-dev.qres",
+                    "checkpoints/0/state.pt", "checkpoints/0/meta.json"):
+            check(os.path.exists(os.path.join(out, rel)), f"the train command wrote no {rel}")
+        run = os.path.join(d, "test.qres")
+        t = time.perf_counter()
+        retrieve_cmd.main(["--dataset-name", "mag", "--data", data, "--out", run,
+                           "--partition", "test", "--model-name", bert,
+                           "--checkpoint-dir", out, "--device", "cuda"])
+        retrieve_s = time.perf_counter() - t
+        by_query = collections.Counter(r.query_id for r in trec.QRes.from_file(run))
+        check(set(by_query) == set(splits["test"][0])
+              and set(by_query.values()) == {min(100, len(pairs))},
+              f"retrieve --checkpoint-dir wrote {dict(by_query)}")
+    phase("train_tp", f"(e) train --n-model 2 over {world} "
+                      f"{'gloo ranks sharing card 0' if shared else 'NCCL ranks, one a card'}"
+                      f" ({len(pairs)} docs, a local BERT directory at Contriever-base width, "
+                      f"{TP_SHARED_LAYERS if shared else 12} layers, "
+                      f"--run-one-iteration): {mesh_line}; {train_s:.1f}s (process start, model "
+                      f"load, one step, validation, the test index build and eval included); a "
+                      f"one-card retrieve --checkpoint-dir on its output: {retrieve_s:.1f}s, "
+                      f"{min(100, len(pairs))} hits for each of {len(by_query)} queries")
+    return dict(train_s=train_s, retrieve_s=retrieve_s, world=world)
 
 
 # ----------------------------------------------------------------------
@@ -3240,11 +3862,13 @@ def mesh_rank(spec_path: str) -> int:
     check(multihost.maybe_initialize("force", DEVICE), "the world did not start")
     # ranks that share a card run their collectives over gloo (NCCL
     # refuses two ranks on one card)
-    mesh = make_mesh(backend="gloo" if spec["job"] in ("shared", "train_shared") else None)
+    mesh = make_mesh(backend="gloo" if spec["job"] in ("shared", "train_shared", "tp_shared")
+                     else None)
     out = {"rank": mesh.rank, "world": dist.get_world_size(), "backend": mesh.backend,
            "card": torch.cuda.current_device()}
     jobs = {"shared": shared_rank, "cards": cards_rank, "train_shared": train_rank,
-            "train_cards": train_rank, "capacity": capacity_rank}
+            "train_cards": train_rank, "tp_shared": tp_rank, "tp_cards": tp_rank,
+            "capacity": capacity_rank}
     jobs[spec["job"]](spec, mesh, out)
     torch.save(out, os.path.join(spec["work"], f"rank{mesh.rank}.pt"))
     multihost.sync("mesh-rank-done")
@@ -4188,11 +4812,13 @@ def kernel_usage(logs: dict) -> dict:
 
 
 # the phases after device and build, in the order they run
-PHASES = ("k1", "k2", "k2b", "e2e", "long", "cli", "train", "train_mesh", "train_cli",
+PHASES = ("k1", "k2", "k2b", "e2e", "long", "cli", "train", "train_mesh", "train_tp",
+          "train_tp_cards", "train_cli",
           "serving", "hybrid", "hybrid_serving", "hybrid_cli", "gtr", "mesh", "mesh_capacity",
           "serve", "int8", "host_stream")
 # phases that read what an earlier one made
-NEEDS = {"long": "e2e", "cli": "e2e", "train": "e2e", "train_mesh": "e2e", "train_cli": "e2e",
+NEEDS = {"long": "e2e", "cli": "e2e", "train": "e2e", "train_mesh": "e2e", "train_tp": "e2e",
+         "train_tp_cards": "e2e", "train_cli": "e2e",
          "serving": "e2e",
          "hybrid": "e2e", "hybrid_serving": "e2e", "gtr": "e2e", "serve": "e2e",
          "int8": "serve", "host_stream": "int8"}
@@ -4274,6 +4900,10 @@ def main(argv=None) -> int:
         r["train"] = run_train(args.seed, corpus, engine.tokenizer)
     if "train_mesh" in phases:
         r["train_mesh"] = run_train_mesh(args.seed, corpus, engine.tokenizer)
+    if "train_tp" in phases:
+        r["train_tp"] = run_train_tp(args.seed, corpus, engine.tokenizer)
+    if "train_tp_cards" in phases:
+        r["train_tp_cards"] = run_train_tp_cards(args.seed, corpus, engine.tokenizer)
     if "train_cli" in phases:
         r["train_cli"] = run_train_cli(args.seed, corpus)
     if "serving" in phases:
@@ -4317,6 +4947,7 @@ def main(argv=None) -> int:
     serve, hybrid, hybrid_serving = r["serve"], r["hybrid"], r["hybrid_serving"]
     hybrid_cli, gtr, mesh = r["hybrid_cli"], r["gtr"], r["mesh"]
     train_mesh = r["train_mesh"]["train_mesh_launches"]  # every rank's, in its fit
+    train_tp = r["train_tp"]["train_tp_launches"]  # every model rank's, in its fit
     k1_row = k1["bf16"]
     print(json.dumps({"kernels": [{
         "name": "gather_per_field_scores",
@@ -4346,9 +4977,10 @@ def main(argv=None) -> int:
         "source": "mfar_tpu_torch/csrc/flash_attention.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
         # the one-device build's, each mesh rank's share of the split build
-        # (phase mesh (b)), and each rank's share of data-parallel training
-        # (phase train_mesh, Trainer.fit)
-        "launches": e2e["k2_launches"] + mesh["mesh_k2_launches"] + train_mesh[0],
+        # (phase mesh (b)), each rank's share of data-parallel training
+        # (phase train_mesh, Trainer.fit) and each model rank's heads in
+        # tensor-parallel training (phase train_tp (a), Trainer.fit)
+        "launches": e2e["k2_launches"] + mesh["mesh_k2_launches"] + train_mesh[0] + train_tp[0],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["kernel_ms"],
         "plain_ms": k2["plain_ms"],
@@ -4360,8 +4992,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "mfar_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
-        # one device's Trainer.fit and each train_mesh rank's
-        "launches": train["train_launches"][1] + train_mesh[1],
+        # one device's Trainer.fit, each train_mesh rank's and each train_tp rank's
+        "launches": train["train_launches"][1] + train_mesh[1] + train_tp[1],
         "max_abs_err": k2b["dkv_max_abs_err"],
         "ms": k2b["dkv_ms"],
         "plain_ms": k2b["plain_bwd_ms"],
@@ -4373,7 +5005,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "mfar_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
-        "launches": train["train_launches"][2] + train_mesh[2],
+        "launches": train["train_launches"][2] + train_mesh[2] + train_tp[2],
         "max_abs_err": k2b["dq_max_abs_err"],
         "ms": k2b["dq_ms"],
         "plain_ms": k2b["plain_bwd_ms"],

@@ -1,4 +1,5 @@
-"""Train a multi-field retriever on one card, or data-parallel over several.
+"""Train a multi-field retriever on one card, or over several: data-parallel,
+tensor-parallel, or both.
 
 Counterpart of ``mfar_tpu/commands/train.py``: the same flags and defaults,
 plus ``--device`` (``cuda`` by default; ``cpu`` runs on the host):
@@ -13,12 +14,16 @@ mfar_tpu_torch.commands.train ... --multihost pod``, or the
 ``--multihost force``; gloo ranks with ``--device cpu``), ``--mesh auto``
 trains data-parallel over the ranks as the JAX command trains on its mesh:
 each rank encodes its rows of every global batch and the gradients are
-summed (``Trainer``).  ``--n-replica`` shapes the mesh; on a single-slice
-mesh the data axis shrinks until the batch divides, leaving ranks idle (they
-exit at once).  Rank 0 writes every file; ``--resume`` and the final test
-restore rank 0's checkpoints on every rank.  One process that sees several
-cards trains on the current one and says so.  Tensor parallelism
-(``--n-model`` above 1) is ROADMAP A15d and raises ``NotImplementedError``.
+summed (``Trainer``).  ``--n-model`` shards the encoder Megatron-style over
+that many ranks (the JAX command's tensor parallelism: each rank of a model
+group holds its shard of the sharded leaves and their optimizer state, and
+the group runs the same rows); ``--n-replica`` shapes the mesh; the data
+axis takes the ranks left, ``ranks // (n_model x n_replica)``, and on a
+single-slice mesh shrinks until the batch divides, leaving ranks idle (they
+exit at once).  Rank 0 writes every file, checkpoints in the ``n_model`` 1
+layout; ``--resume`` and the final test restore rank 0's checkpoints on
+every rank.  One process that sees several cards trains on the current one
+and says so.
 
 The encoder is built as ``prepare_model`` configures it, so it trains with
 plain attention (``"xla"``) and dropout 0.1, as the JAX command does; kernel
@@ -145,7 +150,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="auto: data-parallel over every rank when the command runs as "
                         "several processes (one per card); off: one device")
     p.add_argument("--n-model", type=int, default=1,
-                   help="tensor-parallel axis size; above 1 is ROADMAP A15d")
+                   help="tensor-parallel axis size: the encoder's weights and optimizer state "
+                        "shard over this many ranks")
     p.add_argument("--n-replica", type=int, default=1,
                    help="replica-axis size of the mesh (the batch shards over replica x data)")
     p.add_argument("--multihost", default="auto", choices=["auto", "off", "force", "pod"],
@@ -163,19 +169,25 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def train_mesh_shape(world: int, n_replica: int, batch: int) -> Tuple[int, int]:
+def train_mesh_shape(world: int, n_replica: int, batch: int,
+                     n_model: int = 1) -> Tuple[int, int]:
     """(n_data, ranks used) of the training mesh over ``world`` ranks, as
-    the JAX command sizes its mesh (``n_model`` is 1: A15d): on a
-    single-slice mesh the data axis shrinks until the batch divides (the
-    ranks left over sit idle); shapes that cannot divide exit with the JAX
-    command's messages."""
-    if n_replica > 1 and world % n_replica:
+    the JAX command sizes its mesh: the data axis takes ``world // (n_model
+    x n_replica)`` ranks and, on a single-slice mesh, shrinks until the
+    batch divides (the ranks left over sit idle); shapes that cannot divide
+    exit with the JAX command's messages."""
+    if n_replica > 1 and world % (n_model * n_replica):
         raise SystemExit(
-            f"--n-model 1 x --n-replica {n_replica} "
+            f"--n-model {n_model} x --n-replica {n_replica} "
             f"must divide the {world} visible devices for a multi-slice "
             f"mesh"
         )
-    n_data = world // n_replica
+    n_data = world // (n_model * n_replica)
+    if n_data < 1:
+        raise SystemExit(
+            f"--n-model {n_model} x --n-replica {n_replica} "
+            f"needs at least that many devices (have {world})"
+        )
     if n_replica == 1:
         while n_data > 1 and batch % n_data:
             n_data -= 1
@@ -185,22 +197,21 @@ def train_mesh_shape(world: int, n_replica: int, batch: int) -> Tuple[int, int]:
             f"by n_replica x n_data = {n_replica} x {n_data} "
             f"(pick a batch size or mesh shape that divides)"
         )
-    return n_data, n_data * n_replica
+    return n_data, n_data * n_model * n_replica
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(normalize_argv(argv))
-    if args.n_model > 1:
-        raise NotImplementedError("training with tensor parallelism (--n-model > 1) is "
-                                  "ROADMAP A15d; train with --n-model 1")
     if multihost.maybe_initialize(args.multihost, args.device):
         print(f"[train] multihost: process {multihost.process_index()}/"
               f"{multihost.process_count()}", flush=True)
     world = multihost.process_count()
     mesh = None
-    if args.mesh == "auto" and (world > 1 or args.n_replica > 1):
-        n_data, used = train_mesh_shape(world, args.n_replica, args.train_batch_size)
-        mesh = make_mesh(n_data=n_data, n_replica=args.n_replica, n_ranks=used)
+    if args.mesh == "auto" and (world > 1 or args.n_model > 1 or args.n_replica > 1):
+        n_data, used = train_mesh_shape(world, args.n_replica, args.train_batch_size,
+                                        args.n_model)
+        mesh = make_mesh(n_data=n_data, n_model=args.n_model, n_replica=args.n_replica,
+                         n_ranks=used)
         note = f" ({world - used} ranks idle: batch {args.train_batch_size})" if used < world else ""
         if multihost.is_primary():
             print(f"[train] mesh: {mesh.shape} over {used}/{world} ranks ({mesh.backend}){note}",

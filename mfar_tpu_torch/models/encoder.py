@@ -43,6 +43,21 @@ Training (``module.train()``) adds what the JAX module does when it is not
   ``"attn_out"`` (two per layer, split at the post-``ln1`` hidden state,
   JAX's ``checkpoint_name("attn_residual")``) and ``"dots"`` (one per layer
   that saves the dense matmuls' outputs and recomputes the rest).
+
+Under tensor parallelism (:func:`mfar_tpu_torch.parallel.tensor_parallel.
+shard_module`) a layer holds its rank's heads of ``attn_q/k/v`` and its
+share of ``mlp_in``'s outputs (column-parallel, their input through
+``copy_to_model``), and the matching input rows of ``attn_o`` and
+``mlp_out`` (row-parallel: the partial products summed over the model group
+by ``reduce_from_model``, then their bias added once); K2/K2b run on the
+rank's heads, ``[B, H / n_model, S, 64]``.  ``word_embeddings`` becomes a
+vocab-parallel lookup where the guard shards it.  Where ``n_model`` does not
+divide the heads (12 heads at ``n_model`` 8), the attention leaves stay
+whole on every rank and only the MLP and the vocabulary shard.  The
+attention-probabilities dropout of sharded heads folds the model index into
+its seed; every other mask is the same on every rank of a model group.
+Remat's recomputed forward issues its model-group sums again in the
+backward, on every rank in one order.
 """
 
 from __future__ import annotations
@@ -57,6 +72,13 @@ from torch.nn import functional as F
 from torch.utils import checkpoint as ckpt
 
 from mfar_tpu_torch.ops.flash_attention import HEAD_DIM, SEQ_MULTIPLE, flash_attention
+from mfar_tpu_torch.parallel.tensor_parallel import (
+    column_input,
+    model_seed,
+    row_output,
+    shard_of,
+    vocab_embedding,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +135,15 @@ def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 
+def _row_linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """``_linear`` of a row-parallel layer: under tensor parallelism the
+    rank's partial product is summed over the model group, then the
+    (replicated) bias is added once."""
+    if shard_of(layer.weight) is None:
+        return _linear(x, layer)
+    return row_output(F.linear(x, layer.weight.to(x.dtype)), layer.weight) + layer.bias.to(x.dtype)
+
+
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
     """LayerNorm in f32, cast back to the activation dtype."""
     y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
@@ -151,7 +182,7 @@ class Embeddings(nn.Module):
         dt = self.cfg.dtype
         pos_ids = torch.arange(input_ids.shape[-1], device=input_ids.device)[None, :]
         x = (
-            self.word_embeddings(input_ids).to(dt)
+            vocab_embedding(input_ids, self.word_embeddings.weight).to(dt)
             + self.position_embeddings(pos_ids).to(dt)
             + self.token_type_embeddings(token_type_ids).to(dt)
         )
@@ -193,11 +224,13 @@ class TransformerLayer(nn.Module):
         cfg = self.cfg
         batch, seq, _ = hidden.shape
         head_dim = cfg.hidden_size // cfg.num_heads
-        # [B, S, H*D] -> [B, H, S, D] views
+        x = column_input(hidden, self.attn_q.weight)
+        # [B, S, H*D] -> [B, H, S, D] views (H: this rank's heads)
         q, k, v = (
-            _linear(hidden, lin).view(batch, seq, cfg.num_heads, head_dim).transpose(1, 2)
+            _linear(x, lin).view(batch, seq, -1, head_dim).transpose(1, 2)
             for lin in (self.attn_q, self.attn_k, self.attn_v)
         )
+        width = q.shape[1] * head_dim
         seq_ok = seq >= SEQ_MULTIPLE and seq % SEQ_MULTIPLE == 0
         # the kernel has no dropout: only while attention dropout is inactive
         dropout_off = seed is None or cfg.attention_dropout == 0.0
@@ -214,7 +247,7 @@ class TransformerLayer(nn.Module):
         if use_flash:
             ctx = flash_attention(q, k, v, segment_ids, 1.0 / head_dim**0.5)
             # a view on the card (the kernel writes [B, S, H, D])
-            ctx = ctx.transpose(1, 2).reshape(batch, seq, cfg.hidden_size)
+            ctx = ctx.transpose(1, 2).reshape(batch, seq, width)
         else:
             sm = cfg.softmax_dtype
             # bf16 products are exact in f32, so upcasting before the matmul
@@ -223,17 +256,19 @@ class TransformerLayer(nn.Module):
             logits = logits / torch.sqrt(torch.tensor(head_dim, dtype=sm))
             logits = logits + mask_bias.to(sm)  # [B, 1, 1, S] additive mask
             probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
-            probs = _dropout(probs, cfg.attention_dropout, _site(seed, 0))
-            ctx = torch.matmul(probs, v).transpose(1, 2).reshape(batch, seq, cfg.hidden_size)
+            probs = _dropout(probs, cfg.attention_dropout,
+                             model_seed(_site(seed, 0), shard_of(self.attn_q.weight)))
+            ctx = torch.matmul(probs, v).transpose(1, 2).reshape(batch, seq, width)
 
-        attn_out = _dropout(_linear(ctx, self.attn_o), cfg.hidden_dropout, _site(seed, 1))
+        attn_out = _dropout(_row_linear(ctx, self.attn_o), cfg.hidden_dropout, _site(seed, 1))
         return _layer_norm(hidden + attn_out, self.ln1, cfg.dtype)
 
     def mlp_block(self, hidden: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
         """MLP, add and ``ln2``."""
         cfg = self.cfg
-        mlp = F.gelu(_linear(hidden, self.mlp_in), approximate="none")
-        mlp = _dropout(_linear(mlp, self.mlp_out), cfg.hidden_dropout, _site(seed, 2))
+        x = column_input(hidden, self.mlp_in.weight)
+        mlp = F.gelu(_linear(x, self.mlp_in), approximate="none")
+        mlp = _dropout(_row_linear(mlp, self.mlp_out), cfg.hidden_dropout, _site(seed, 2))
         return _layer_norm(hidden + mlp, self.ln2, cfg.dtype)
 
 

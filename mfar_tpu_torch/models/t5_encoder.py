@@ -28,6 +28,14 @@ output and the final hidden state, with masks from per-(call, layer, site)
 seeds drawn from one draw of the caller's ``generator`` (as
 :class:`mfar_tpu_torch.models.encoder.Encoder`); ``remat`` recomputes each
 layer whole in the backward (JAX: ``nn.remat`` of the scanned layer).
+
+Under tensor parallelism (:func:`mfar_tpu_torch.parallel.tensor_parallel.
+shard_module`) the layers shard as the BERT encoder's do: ``attn_q/k/v``
+and ``wi``/``wi_0``/``wi_1`` column-parallel, ``attn_o`` and ``wo``
+row-parallel, ``token_embed`` vocab-parallel.  The replicated position-bias
+table is read through the rank's heads' columns (``scatter_to_model``, whose
+backward joins every rank's columns, so each rank holds the whole table's
+gradient).
 """
 
 from __future__ import annotations
@@ -41,6 +49,14 @@ from torch import nn
 from torch.nn import functional as F
 
 from mfar_tpu_torch.models.encoder import _checkpoint, _dropout, _site, dropout_seeds, mean_pool
+from mfar_tpu_torch.parallel.tensor_parallel import (
+    column_input,
+    model_seed,
+    row_output,
+    scatter_to_model,
+    shard_of,
+    vocab_embedding,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,11 +174,12 @@ class T5FFN(nn.Module):
         self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = column_input(x, (self.wi_0 if self.gated else self.wi).weight)
         if self.gated:  # HF's "gated-gelu" is gelu_new, the tanh approximation
             h = F.gelu(_dense(x, self.wi_0), approximate="tanh") * _dense(x, self.wi_1)
         else:
             h = F.relu(_dense(x, self.wi))
-        return _dense(h, self.wo)
+        return row_output(_dense(h, self.wo), self.wo.weight)
 
 
 class T5Layer(nn.Module):
@@ -184,19 +201,21 @@ class T5Layer(nn.Module):
     def forward(
         self,
         hidden: torch.Tensor,  # [B, S, d_model] in cfg.dtype
-        pos_bias: torch.Tensor,  # [1, H, S, S] f32
+        pos_bias: torch.Tensor,  # [1, H, S, S] f32 (this rank's heads)
         mask_bias: torch.Tensor,  # [B, 1, 1, S] f32 additive mask
         seed: Optional[int] = None,
     ) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = hidden.shape
-        x = self.ln1(hidden)
-        q, k, v = (_dense(x, lin).view(b, s, cfg.num_heads, cfg.d_kv).transpose(1, 2)
+        x = column_input(self.ln1(hidden), self.attn_q.weight)
+        # [B, H, S, D] views (H: this rank's heads, as pos_bias holds them)
+        q, k, v = (_dense(x, lin).view(b, s, -1, cfg.d_kv).transpose(1, 2)
                    for lin in (self.attn_q, self.attn_k, self.attn_v))
         ctx = attend(q, k, v, pos_bias, mask_bias, sm_dtype=cfg.softmax_dtype, rate=cfg.dropout,
-                     seed=_site(seed, 0))
-        ctx = ctx.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.d_kv)
-        hidden = hidden + _dropout(_dense(ctx, self.attn_o), cfg.dropout, _site(seed, 1))
+                     seed=model_seed(_site(seed, 0), shard_of(self.attn_q.weight)))
+        ctx = ctx.transpose(1, 2).reshape(b, s, -1)
+        attn_out = row_output(_dense(ctx, self.attn_o), self.attn_o.weight)
+        hidden = hidden + _dropout(attn_out, cfg.dropout, _site(seed, 1))
         mlp = self.ffn(self.ln2(hidden))
         return hidden + _dropout(mlp, cfg.dropout, _site(seed, 2))
 
@@ -220,14 +239,19 @@ class T5Encoder(nn.Module):
         self._buckets: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 
     def position_bias(self, seq: int, device: torch.device) -> torch.Tensor:
-        """``[1, H, S, S]`` f32 from the learned ``[buckets, H]`` table; the
-        bucket table is made once per (length, device)."""
+        """``[1, H, S, S]`` f32 from the learned ``[buckets, H]`` table (under
+        tensor parallelism the rank's heads' columns); the bucket table is
+        made once per (length, device)."""
         key = (seq, device)
         if key not in self._buckets:
             self._buckets[key] = bucket_table(
                 seq, self.cfg.relative_attention_num_buckets,
                 self.cfg.relative_attention_max_distance).to(device)
-        return self.rel_bias[self._buckets[key]].permute(2, 0, 1)[None].float()
+        table = self.rel_bias
+        shard = shard_of(self.layers[0].attn_q.weight) if len(self.layers) else None
+        if shard is not None:
+            table = scatter_to_model(table, shard.mesh, 1)
+        return table[self._buckets[key]].permute(2, 0, 1)[None].float()
 
     def forward(
         self,
@@ -240,7 +264,8 @@ class T5Encoder(nn.Module):
         # seeds for the embedding, each layer and the final hidden state
         seeds = dropout_seeds(2 + len(self.layers), self.training and cfg.dropout > 0.0,
                               generator)
-        hidden = _dropout(self.token_embed(input_ids).to(cfg.dtype), cfg.dropout, seeds[0])
+        hidden = _dropout(vocab_embedding(input_ids, self.token_embed.weight).to(cfg.dtype),
+                          cfg.dropout, seeds[0])
         mask_bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9).float()
         pos_bias = self.position_bias(input_ids.shape[-1], input_ids.device)
         remat = cfg.remat and torch.is_grad_enabled()

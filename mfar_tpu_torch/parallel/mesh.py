@@ -12,6 +12,8 @@ made.
 In serving, the corpus shards its rows over the corpus axes (``batch_axes``,
 or ``data`` alone with a corpus per slice) and ranks along ``model`` hold
 the same shard and repeat the work, as JAX's replicated corpus spec does.
+In training, ranks along ``model`` hold shards of the encoder's weights
+(:mod:`mfar_tpu_torch.parallel.tensor_parallel`) and run the same rows.
 """
 
 from __future__ import annotations
@@ -35,8 +37,9 @@ BATCH_AXES = (REPLICA_AXIS, DATA_AXIS)
 Axes = Tuple[str, ...]
 
 # The axis sets the routes reduce over: the corpus axes (data; replica and
-# data), the query axis (replica).  Groups are made in this order.
-_GROUP_AXES: Tuple[Axes, ...] = ((DATA_AXIS,), (REPLICA_AXIS,), BATCH_AXES)
+# data), the query axis (replica) and the tensor-parallel axis (model).
+# Groups are made in this order.
+_GROUP_AXES: Tuple[Axes, ...] = ((DATA_AXIS,), (REPLICA_AXIS,), BATCH_AXES, (MODEL_AXIS,))
 
 
 def _axes(axes) -> Axes:

@@ -14,8 +14,10 @@ per host, each owning its local chips; the port runs one process per card
 
 :func:`maybe_initialize` starts the process group from the launcher's
 environment.  The backend is ``nccl`` for a ``cuda`` device and ``gloo``
-for ``cpu``; a rank's card is ``cuda:LOCAL_RANK`` (or the rank modulo the
-visible cards), made current before the group exists.  Host-side control
+for ``cpu``, unless ``MFAR_BACKEND`` names one (``gloo`` lets several ranks
+share one card, where NCCL refuses them); a rank's card is
+``cuda:LOCAL_RANK`` (or the rank modulo the visible cards), made current
+before the group exists.  Host-side control
 (barriers, the serving daemon's messages) runs over a gloo group of its own
 (:func:`control_group`), so it never waits on the card's stream.
 """
@@ -82,7 +84,8 @@ def maybe_initialize(mode: str = "auto", device: str = "cuda") -> bool:
             raise RuntimeError("no CUDA device is available; pass --device cpu to run the "
                                "ranks on the host explicitly")
         torch.cuda.set_device(rank % torch.cuda.device_count() if local is None else local)
-    dist.init_process_group("nccl" if cuda else "gloo", init_method=init_method,
+    backend = os.environ.get("MFAR_BACKEND") or ("nccl" if cuda else "gloo")
+    dist.init_process_group(backend, init_method=init_method,
                             world_size=world, rank=rank, timeout=TIMEOUT)
     control_group()
     return is_multiprocess()

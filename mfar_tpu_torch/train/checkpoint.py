@@ -11,14 +11,20 @@ Layout under ``out_dir``, as the JAX package's:
 
 Over several ranks only rank 0 writes (the trainer calls :meth:`save` there)
 and only rank 0 reads: :meth:`CheckpointManager.read` gives the payload that
-``Trainer.restore_broadcast`` sends to every rank.
+``Trainer.restore_broadcast`` sends to every rank.  A model sharded over
+the mesh's ``model`` axis is saved in the ``n_model`` 1 layout
+(:func:`state_payload` joins the shards on every rank of the model group,
+then rank 0 writes), and :func:`apply_payload` takes this rank's slices of
+a payload into a sharded state, so a checkpoint written at any ``n_model``
+resumes at any other.
 
 Checkpoints are ranked by the monitored metric (``valid_loss`` by default,
 lower is better; quality metrics rank higher-is-better); the best
 ``max_to_keep`` stay, with the latest, and ``best.txt`` names the best.  The
 full optimizer, batchnorm and generator state is saved, so a resumed run
 continues exactly.  The JAX package's orbax checkpoints do not load here
-(orbax imports JAX; ROADMAP A10).
+(orbax imports JAX): ``tools/jax_checkpoint_to_torch.py``, outside the
+package, converts one into this layout (without the optimizer state).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from mfar_tpu_torch.data.types import Field
+from mfar_tpu_torch.parallel import tensor_parallel
 
 GENERATOR_KIND = "torch.Generator (CPU, mt19937)"
 
@@ -60,19 +67,14 @@ class CheckpointManager:
     def save(
         self,
         step: int,
-        state,  # TrainState
+        state,  # TrainState, or its state_payload
         metrics: Dict[str, float],
         field_info: Optional[Dict[str, Field]] = None,
         config: Optional[Dict[str, Any]] = None,
     ) -> None:
         step_dir = self._step_dir(step)
         os.makedirs(step_dir, exist_ok=True)
-        payload = {
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "step": int(state.step),
-            "generator": state.generator.get_state(),
-        }
+        payload = state if isinstance(state, dict) else state_payload(state)
         tmp = os.path.join(step_dir, "state.pt.tmp")
         torch.save(payload, tmp)
         os.replace(tmp, os.path.join(step_dir, "state.pt"))
@@ -162,10 +164,30 @@ def _load(step_dir: str) -> Dict[str, Any]:
     return torch.load(os.path.join(step_dir, "state.pt"), map_location="cpu", weights_only=True)
 
 
+def state_payload(state) -> Dict[str, Any]:
+    """What a checkpoint holds: the model's and the optimizer's state_dicts
+    (in the ``n_model`` 1 layout: a collective over the model group when the
+    model is sharded), the step and the generator state."""
+    model_sd, optimizer_sd = state.model.state_dict(), state.optimizer.state_dict()
+    if tensor_parallel.is_sharded(state.model):
+        model_sd, optimizer_sd = tensor_parallel.gather_state_dict(
+            state.model, state.optimizer, state.model.model_mesh)
+    return {"model": model_sd, "optimizer": optimizer_sd, "step": int(state.step),
+            "generator": state.generator.get_state()}
+
+
 def apply_payload(state, payload: Dict[str, Any]):
-    """A checkpoint's payload into ``state`` in place; returns ``state``."""
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    """A checkpoint's payload into ``state`` in place (this rank's slices
+    of it when the model is sharded); returns ``state``."""
+    if "optimizer" not in payload:
+        raise ValueError("this checkpoint holds no optimizer state (one converted from a JAX "
+                         "orbax checkpoint): it serves, and does not resume training")
+    model_sd, optimizer_sd = payload["model"], payload["optimizer"]
+    if tensor_parallel.is_sharded(state.model):
+        model_sd, optimizer_sd = tensor_parallel.shard_state_dict(
+            state.model, state.optimizer, state.model.model_mesh, model_sd, optimizer_sd)
+    state.model.load_state_dict(model_sd)
+    state.optimizer.load_state_dict(optimizer_sd)
     state.step = int(payload["step"])
     state.generator.set_state(payload["generator"])
     return state

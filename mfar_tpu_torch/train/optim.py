@@ -15,6 +15,13 @@ does).  It takes precedence over ``use_adafactor``, as in JAX.
 on the encoder, optax's ``adafactor(lr, multiply_by_parameter_scale=False,
 clipping_threshold=1.0, decay_rate=0.8)``, beside the head's AdamW; the two
 step as one :class:`GroupedOptimizer`.
+
+Under tensor parallelism a parameter holds its rank's slice
+(``param.model_shard``).  AdamW is elementwise and needs nothing more.
+Adafactor decides its factored axes on the whole leaf's shape, sums its
+partial statistics (a mean over a sharded axis, the block RMS) over the
+model group, and keeps ``v_row``/``v_col``/``v`` sharded where their axis is,
+as GSPMD computes the JAX optimizer over the global leaf.
 """
 
 from __future__ import annotations
@@ -26,6 +33,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from mfar_tpu_torch.parallel.mesh import MODEL_AXIS
+from mfar_tpu_torch.parallel.tensor_parallel import shard_of
 
 ADAM_BETAS = (0.9, 0.999)  # optax.adamw defaults
 ADAM_EPS = 1e-8
@@ -70,6 +80,14 @@ def _factored_dims(shape: Sequence[int], min_dim_size_to_factor: int) -> Optiona
     return int(order[-2]), int(order[-1])
 
 
+def _drop(axis: Optional[int], dim: int) -> Optional[int]:
+    """Where axis ``axis`` lands once ``dim`` is reduced away (None: it was
+    ``dim``, or there was none)."""
+    if axis is None or axis == dim:
+        return None
+    return axis - (axis > dim)
+
+
 class Adafactor(torch.optim.Optimizer):
     """optax's ``adafactor`` as the JAX package configures it: factored
     second moments (``scale_by_factored_rms``: ``eps`` added to g²,
@@ -84,7 +102,9 @@ class Adafactor(torch.optim.Optimizer):
     update spans every layer of the stack, as it does in JAX, while the
     factoring stays per layer (the layer axis is never one of the two
     largest at these widths).  The state (per leaf, keyed by its first
-    tensor) saves and restores with ``state_dict``."""
+    tensor) saves and restores with ``state_dict``.  A leaf sharded over
+    the model group is computed as the whole leaf (see the module
+    docstring); :meth:`state_axes` says which state tensors are split."""
 
     def __init__(self, leaves: Sequence[Dict[str, Any]], lr: float, decay_rate: float = 0.8,
                  clipping_threshold: float = 1.0, eps: float = 1e-30,
@@ -99,6 +119,40 @@ class Adafactor(torch.optim.Optimizer):
         ts = [t.T if group["transposed"] else t for t in tensors]
         return torch.stack(ts) if group["stacked"] else ts[0]
 
+    @staticmethod
+    def _geometry(group):
+        """(the split axis of the leaf as JAX holds it or None, the
+        parameter's shard, the factored dims of the whole leaf)."""
+        params = group["params"]
+        shard = shard_of(params[0])
+        shape = list(params[0].shape)
+        axis = None if shard is None else shard.axis
+        if group["transposed"]:
+            shape = shape[::-1]
+            axis = None if axis is None else len(shape) - 1 - axis
+        if group["stacked"]:
+            shape = [len(params)] + shape
+            axis = None if axis is None else axis + 1
+        if axis is not None:
+            shape[axis] *= shard.n
+        return axis, shard, _factored_dims(shape, group["min_dim_size_to_factor"])
+
+    def state_axes(self) -> Dict[int, Dict[str, int]]:
+        """For each leaf's state entry (by its index in ``state_dict()``),
+        the axis of each state tensor split over the model group."""
+        out, index = {}, 0
+        for group in self.param_groups:
+            axis, _, dims = self._geometry(group)
+            if axis is not None:
+                if dims is None:
+                    out[index] = {"v": axis}
+                else:
+                    d1, d0 = dims
+                    kept = {"v_row": _drop(axis, d0), "v_col": _drop(axis, d1)}
+                    out[index] = {k: a for k, a in kept.items() if a is not None}
+            index += len(group["params"])
+        return out
+
     @torch.no_grad()
     def step(self, closure=None):
         loss = None
@@ -111,7 +165,16 @@ class Adafactor(torch.optim.Optimizer):
             grad = self._leaf(group, [p.grad if p.grad is not None else torch.zeros_like(p)
                                       for p in params]).float()
             state = self.state[params[0]]
-            dims = _factored_dims(grad.shape, group["min_dim_size_to_factor"])
+            axis, shard, dims = self._geometry(group)
+
+            def mean(x, dim, split, keepdim=False):
+                """The whole leaf's mean of ``x`` over ``dim`` (``split``:
+                the axis of ``x`` split over the model group)."""
+                if split != dim:
+                    return x.mean(dim=dim, keepdim=keepdim)
+                total = shard.mesh.all_reduce_sum(MODEL_AXIS, x.sum(dim=dim, keepdim=keepdim))
+                return total / (x.shape[dim] * shard.n)
+
             if not state:
                 state["step"] = 0
                 if dims is None:
@@ -127,13 +190,20 @@ class Adafactor(torch.optim.Optimizer):
                 update = grad * state["v"] ** -0.5
             else:
                 d1, d0 = dims
-                state["v_row"] = beta * state["v_row"] + (1.0 - beta) * grad_sqr.mean(dim=d0)
-                state["v_col"] = beta * state["v_col"] + (1.0 - beta) * grad_sqr.mean(dim=d1)
-                row_mean = state["v_row"].mean(dim=d1 - 1 if d1 > d0 else d1, keepdim=True)
+                state["v_row"] = (beta * state["v_row"]
+                                  + (1.0 - beta) * mean(grad_sqr, d0, axis))
+                state["v_col"] = (beta * state["v_col"]
+                                  + (1.0 - beta) * mean(grad_sqr, d1, axis))
+                row_mean = mean(state["v_row"], d1 - 1 if d1 > d0 else d1, _drop(axis, d0),
+                                keepdim=True)
                 row_factor = (state["v_row"] / row_mean) ** -0.5
                 col_factor = state["v_col"] ** -0.5
                 update = grad * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
-            rms = update.square().mean().sqrt()
+            if shard is None:
+                rms = update.square().mean().sqrt()
+            else:
+                squares = shard.mesh.all_reduce_sum(MODEL_AXIS, update.square().sum())
+                rms = (squares / (update.numel() * shard.n)).sqrt()
             update = update / torch.clamp(rms / group["clipping_threshold"], min=1.0)
             update = update * group["lr"]
             for i, p in enumerate(params):

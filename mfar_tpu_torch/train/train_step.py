@@ -20,6 +20,15 @@ alike on every rank, so the optimizers step alike.  Each rank's dropout
 masks come from its own generator (``rank_generator``), derived from one
 draw of the state's, which every rank advances alike.  A batch that runs
 whole (``shard`` None) computes the global result on every rank alone.
+
+Under tensor parallelism (a model sharded by :func:`mfar_tpu_torch.parallel.
+tensor_parallel.shard_module`) the ranks of a model group run the same rows
+with their shards of the encoder; its collectives run inside the forward
+and backward, the batch axes' gradient sum after them pairs each rank with
+the ranks that hold its shard (each replicated leaf's gradient first
+averaged over the model group, so its replicas stay bit-equal), and
+``grad_norm`` counts a sharded leaf once per shard and a replicated one
+once.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import numpy as np
 import torch
 
 from mfar_tpu_torch.models import init_encoder
+from mfar_tpu_torch.parallel import tensor_parallel
 from mfar_tpu_torch.parallel.data_parallel import (
     Shard,
     all_reduce_gradients,
@@ -107,6 +117,8 @@ def compute_gradients(state: TrainState, batch: Dict[str, Any],
     model = state.model.train()
     loss = _loss(model, batch, rank_generator(state.generator, shard), shard)
     loss.backward()
+    if tensor_parallel.is_sharded(model):
+        tensor_parallel.average_replicated_grads(model)
     if shard is not None:
         loss = all_reduce_gradients(list(model.parameters()), shard, extra=loss)
     return loss.detach()
@@ -128,7 +140,7 @@ def train_step(state: TrainState, batch: Dict[str, Any],
     """
     params = [p for p in state.model.parameters() if p.requires_grad]
     loss = compute_gradients(state, batch, shard)
-    grad_norm = torch.nn.utils.get_total_norm([p.grad for p in params if p.grad is not None])
+    grad_norm = tensor_parallel.grad_norm(params)
     state.optimizer.step()
     for p in params:  # a frozen encoder's gradients are not the optimizer's to clear
         p.grad = None

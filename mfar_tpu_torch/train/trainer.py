@@ -29,7 +29,18 @@ rank 0 writes files (metrics, checkpoints, qres), followed by a barrier;
 every rank scores the same in-memory run, so every decision (early stop,
 the best checkpoint) agrees.  :meth:`Trainer.ckpt_step_broadcast` and
 :meth:`Trainer.restore_broadcast` read a checkpoint on rank 0 and send it
-to every rank.  Tensor parallelism over ``model`` is ROADMAP A15d.
+to every rank.
+
+A mesh with a ``model`` axis above 1 trains tensor-parallel, as the JAX
+trainer's ``place_state``: ``fit`` sends rank 0's whole model to every rank,
+then each rank keeps its shard of the encoder's sharded leaves
+(:func:`~mfar_tpu_torch.parallel.tensor_parallel.shard_module`; the
+optimizer's moments start on the shards), and the ranks of a model group
+run the same rows of each batch.  The validation and test index builds run
+the sharded encoder over the batch axes' split, as JAX's ``_encode_fn``;
+the engine serves as on any mesh, the model ranks repeating the corpus
+work.  Checkpoints hold the ``n_model`` 1 layout: every rank joins the
+gather, rank 0 writes, and ``restore_broadcast`` shards what it reads.
 """
 
 from __future__ import annotations
@@ -48,7 +59,7 @@ from mfar_tpu_torch.data.types import Corpus, Field
 from mfar_tpu_torch.eval.index_build import build_dense_corpus_matrix, make_encode_fn
 from mfar_tpu_torch.eval import metrics as eval_metrics
 from mfar_tpu_torch.eval.retrieval import RetrievalEngine
-from mfar_tpu_torch.parallel import multihost
+from mfar_tpu_torch.parallel import multihost, tensor_parallel
 from mfar_tpu_torch.parallel.data_parallel import (
     broadcast_module,
     broadcast_object,
@@ -56,7 +67,7 @@ from mfar_tpu_torch.parallel.data_parallel import (
     shard_batch,
 )
 from mfar_tpu_torch.parallel.mesh import MODEL_AXIS, n_batch_shards
-from mfar_tpu_torch.train.checkpoint import CheckpointManager, apply_payload
+from mfar_tpu_torch.train.checkpoint import CheckpointManager, apply_payload, state_payload
 from mfar_tpu_torch.train.data_pipeline import (
     ContrastiveDataset,
     prefetch,
@@ -267,16 +278,17 @@ class Trainer:
         if self.mesh is not None:
             # checked here, not in __init__: evaluation (mask_fields) builds
             # a Trainer over any mesh and never trains
-            if self.mesh.shape[MODEL_AXIS] > 1:
-                raise NotImplementedError("training with tensor parallelism (a mesh with "
-                                          "n_model > 1) is ROADMAP A15d")
             n_dp = n_batch_shards(self.mesh)
             if cfg.train_batch_size % n_dp:
                 raise ValueError(
                     f"train_batch_size {cfg.train_batch_size} must divide over "
                     f"the {n_dp} batch shards of mesh {dict(self.mesh.shape)}"
                 )
-            broadcast_module(state.model, self.mesh)  # every rank starts from rank 0's
+            # every rank starts from rank 0's model, then keeps its shard; a
+            # sharded state came from restore_broadcast, alike on every rank
+            if not tensor_parallel.is_sharded(state.model):
+                broadcast_module(state.model, self.mesh)
+                self.place_state(state)
         elif multihost.is_multiprocess():
             raise ValueError("multihost training requires a mesh")
         # loss-like monitors minimize, quality metrics maximize
@@ -303,6 +315,8 @@ class Trainer:
                 self.best_score = max(self.best_score, dev.get("ndcg_cut_10", 0.0))
                 metrics["best_ndcg_cut_10"] = self.best_score
 
+            # every rank of a model group joins the gather of its shards
+            payload = state_payload(state)
             if multihost.is_primary():
                 self.logger.log(metrics, step=state.step)
                 print(
@@ -310,8 +324,9 @@ class Trainer:
                     + (f" dev_ndcg@10={metrics['dev_ndcg_cut_10']:.4f}"
                        if "dev_ndcg_cut_10" in metrics else "")
                 )
-                self.ckpt.save(epoch, state, metrics, field_info=self.field_info,
+                self.ckpt.save(epoch, payload, metrics, field_info=self.field_info,
                                config=dataclasses.asdict(cfg))
+            del payload
             if self.mesh is not None:
                 multihost.sync("epoch-io", self.mesh.control)
 
@@ -342,14 +357,22 @@ class Trainer:
             step = self.ckpt.best_step() if which == "best" else self.ckpt.latest_step()
         return step if self.mesh is None else broadcast_object(step, self.mesh)
 
+    def place_state(self, state: TrainState) -> TrainState:
+        """Shard the model over the mesh's ``model`` axis (every rank holding
+        the same whole model); a no-op without one."""
+        if self.mesh is not None and self.mesh.shape[MODEL_AXIS] > 1:
+            tensor_parallel.shard_module(state.model, self.mesh)
+        return state
+
     def restore_broadcast(self, step: int, state: TrainState) -> TrainState:
         """Restore a checkpoint on every rank: rank 0 reads it and sends its
         parameters, buffers, optimizer state, step and generator state to
-        every rank of the mesh.  A plain restore without a mesh."""
+        every rank of the mesh, which keeps its shards over ``model``.  A
+        plain restore without a mesh."""
         if self.mesh is None:
             return self.ckpt.restore(step, state)
         payload = self.ckpt.read(step) if multihost.is_primary() else None
-        return apply_payload(state, broadcast_tree(payload, self.mesh))
+        return apply_payload(self.place_state(state), broadcast_tree(payload, self.mesh))
 
     # ------------------------------------------------------------------
 

@@ -14,7 +14,8 @@ of the suite's virtual CPU devices over the same weights: the two-process
 two-rank ``encode_corpus`` equals the one-process file and the two-rank
 ``mask_fields`` the one-process metrics; the two-rank ``train`` run's
 metrics hold to one process's within the JAX package's two-process
-tolerance.
+tolerance, and so do those of ``train --n-model 2`` (the encoder sharded
+over the two ranks), whose checkpoints resume in one process.
 """
 
 import json
@@ -88,6 +89,8 @@ def _commands(d, tmp):
                            "--multihost", "force"],
         "train": lambda r: ["mfar_tpu_torch.commands.train", *_train_flags(d),
                             "--out", str(tmp / f"train{r}"), "--multihost", "force"],
+        "tp": lambda r: ["mfar_tpu_torch.commands.train", *_train_flags(d, "--n-model", "2"),
+                         "--out", str(tmp / f"tp{r}"), "--multihost", "force"],
     }
 
 
@@ -181,6 +184,8 @@ def runs(tmp_path_factory):
         "mfar_tpu_torch.commands.train", *_train_flags(d, *resume), "--out",
         str(tmp / f"train{r}"), "--multihost", "force"], tmp, env)}
     train_cmd.main([*_train_flags(d, *resume), "--out", str(tmp / "train_one")])
+    # the tensor-parallel run's checkpoints, resumed in one process
+    train_cmd.main([*_train_flags(d, *resume), "--out", str(tmp / "tp0")])
     _wait(procs, logs)
     return dict(tmp=tmp, d=d, logs=logs, want=want, jax_route=jeng.last_serve_path)
 
@@ -284,3 +289,29 @@ def test_a_batch_that_does_not_divide_the_ranks_leaves_one_idle(runs):
     assert "Starting training" not in logs[("idle", 2)]
     assert len(_epochs(str(tmp / "idle0"))) == 1
     assert not os.path.exists(tmp / "idle1") and not os.path.exists(tmp / "idle2")
+
+
+def test_two_process_tensor_parallel_train_matches_one_process(runs):
+    """``train --n-model 2`` over two ranks: the JAX command's mesh line,
+    per-epoch losses and dev
+    ndcg@10 within the two-process tolerance of one process's; rank 0's
+    checkpoints in one process's layout, the third epoch resumed from them
+    in one process (``--n-model 1``) within it too."""
+    tmp, logs = runs["tmp"], runs["logs"]
+    assert not os.path.exists(tmp / "tp1")
+    assert "[train] mesh: {'replica': 1, 'data': 1, 'model': 2} over 2/2 ranks (gloo)" in \
+        logs[("tp", 0)]
+    two, one = _epochs(str(tmp / "tp0")), _epochs(str(tmp / "train_one"))
+    assert len(two) == len(one) == 3
+    for got, want in zip(two, one):
+        for key in ("train_loss", "valid_loss", "dev_ndcg_cut_10"):
+            assert abs(got[key] - want[key]) <= 2e-3 + 1e-3 * abs(want[key]), (key, got, want)
+    tp, single = CheckpointManager(str(tmp / "tp0")), CheckpointManager(str(tmp / "train_one"))
+    for step in (1, 2):
+        a, b = tp.read(step), single.read(step)
+        assert {k: v.shape for k, v in a["model"].items()} == \
+            {k: v.shape for k, v in b["model"].items()}
+        assert {i: {k: getattr(v, "shape", v) for k, v in e.items() if k != "step"}
+                for i, e in a["optimizer"]["state"].items()} == \
+            {i: {k: getattr(v, "shape", v) for k, v in e.items() if k != "step"}
+             for i, e in b["optimizer"]["state"].items()}

@@ -56,7 +56,8 @@ def test_importing_the_port_loads_no_jax():
             "mfar_tpu_torch.models.t5_decoder", "mfar_tpu_torch.models.registry",
             "mfar_tpu_torch.models.convert", "mfar_tpu_torch.parallel.mesh",
             "mfar_tpu_torch.parallel.topk", "mfar_tpu_torch.parallel.multihost",
-            "mfar_tpu_torch.parallel.data_parallel"} <= set(mods)
+            "mfar_tpu_torch.parallel.data_parallel",
+            "mfar_tpu_torch.parallel.tensor_parallel"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -84,6 +85,20 @@ def test_sources_import_no_jax():
             src = f.read()
         bad = [m for m in import_re.findall(src) if _forbidden(m)]
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_the_package_imports_no_tool():
+    """``tools/`` (the JAX checkpoint converter imports JAX and orbax) stays
+    outside the package: no module of it imports ``tools``."""
+    import_re = re.compile(r"^\s*(?:from|import)\s+([A-Za-z_][\w.]*)", re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "mfar_tpu_torch")):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    assert os.path.isfile(os.path.join(ROOT, "tools", "jax_checkpoint_to_torch.py"))
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            mods = import_re.findall(f.read())
+        assert not [m for m in mods if m.split(".")[0] == "tools"], path
 
 
 SERVING_PATHS = """

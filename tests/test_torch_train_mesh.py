@@ -27,6 +27,21 @@ writes nothing; ``restore_broadcast`` gives every rank rank 0's last
 checkpoint; each rank draws its own dropout masks and a restored state
 replays them.  On 4 ranks, validation batches of 6 (ragged over 4) give one
 rank's validation loss, and a train batch of 6 raises JAX's message.
+
+Tensor parallelism, on second meshes over the same two worlds: the dense,
+batchnorm and T5 (Adafactor) cases on a ``(data 2 x model 2)`` mesh of the 4
+ranks, held to one rank of the port (loss rel 1e-5, ``grad_norm`` rel 1e-4,
+the joined gradients within 1e-4 of their leaf's largest entry plus 1e-7 of
+the largest gradient, the term that covers leaves whose gradient is zero in
+exact arithmetic, such as ``attn_k``'s bias) and to JAX's ``value_and_grad``
+and ``make_train_step`` under ``jit`` with ``shard_params`` on
+``make_mesh(n_data=2, n_model=2)`` over 4 virtual devices (the tolerances
+above); every rank's replicated leaves and joined weights after the step
+equal, a rank's shards half the leaf, its state's round trip through the
+``n_model`` 1 layout exact.  On the 2 ranks a ``(data 1 x model 2)`` ``fit``
+is held to the JAX mesh's as the data-parallel one is; its checkpoint has one
+rank's keys and shapes and resumes on one rank, and the data-parallel run's
+checkpoint (``n_model`` 1) restores into the sharded state.
 """
 
 import os
@@ -51,6 +66,7 @@ from mfar_tpu.models import EncoderConfig as JaxEncoderConfig
 from mfar_tpu.models import SimpleVocabTokenizer as JaxTokenizer
 from mfar_tpu.models.t5_encoder import T5Config as JaxT5Config
 from mfar_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from mfar_tpu.parallel.sharding import shard_params as jax_shard_params
 from mfar_tpu.sparse.bm25 import BM25Index as JaxBM25
 from mfar_tpu.train.data_pipeline import ContrastiveDataset as JaxDataset
 from mfar_tpu.train.model import MFARModel as JaxMFARModel
@@ -85,6 +101,7 @@ CASES = {
     "frozen": ("bert", False, False, True, True, True),
     "t5": ("t5", False, False, True, True, False),
 }
+TP_CASES = ("dense", "batchnorm", "t5")  # on (data 2 x model 2)
 
 
 def _batch(seed, sparse):
@@ -130,12 +147,20 @@ def _jax_case(i, name):
     return case, (model, opt, jstate, batch)
 
 
-def _jax_reference(model, opt, jstate, batch):
+def _jax_reference(model, opt, jstate, batch, mesh=None):
     """The batch's loss, gradients and running stats (``value_and_grad`` of
     ``compute_loss``, train=True) and ``make_train_step``'s metrics, in one
-    jitted function."""
+    jitted function; with a ``mesh``, the parameters placed by JAX's
+    sharding rules and the batch split over ``data``."""
     jb = jax.tree.map(jnp.asarray, batch)
     bn = bool(jstate.batch_stats)
+    if mesh is not None:
+        from jax.sharding import NamedSharding, PartitionSpec as P
+
+        split = NamedSharding(mesh, P("data"))
+        jb = jax.tree.map(lambda x: jax.device_put(x, split) if x.ndim and x.shape[0] % 2 == 0
+                          else x, jb)
+        jstate = jstate._replace(params=jax_shard_params(mesh, jstate.params))
 
     def loss_fn(params):
         variables, kw = {"params": params}, {}
@@ -207,7 +232,7 @@ def worlds(tmp_path_factory):
         cases = {name: c for name, (c, _) in zip(CASES, made)}
         model, opt, jax_trainer, q_val = _fit_world(data_dir)
         jstate = jax_init_state(model, opt, seed=0)
-    spec = dict(cases=cases, fit=dict(data_dir=data_dir, fields=FIT_FIELDS,
+    spec = dict(cases=cases, tp_cases=TP_CASES, fit=dict(data_dir=data_dir, fields=FIT_FIELDS,
                                       state=model_state_from_jax(jax.tree.map(
                                           np.asarray, jstate.params))))
     torch.save(spec, str(root / "spec.pt"))
@@ -233,9 +258,13 @@ def worlds(tmp_path_factory):
                     dev=t.trec_eval(fitted, q_val, os.path.join(data_dir, "val.qrels"),
                                     "mesh-cmp"))
 
+    tp_mesh = jax_make_mesh(n_data=2, n_model=2, devices=jax.devices()[:4])
     with ThreadPoolExecutor(4) as ex:
         fit_run = ex.submit(jax_fit_run)
         refs = dict(zip(CASES, ex.map(lambda c: _jax_reference(*c[1]), made)))
+        tp_refs = dict(zip(TP_CASES, ex.map(
+            lambda name: _jax_reference(*dict(zip(CASES, made))[name][1], mesh=tp_mesh),
+            TP_CASES)))
         jax_fit = fit_run.result()
     with pytest.raises(AssertionError) as err:
         jax_trainer(str(root / "jax6"), jax_make_mesh(devices=jax.devices()[:4]),
@@ -253,7 +282,8 @@ def worlds(tmp_path_factory):
             assert p.returncode == 0, f"rank {r} of {w} failed:\n{log[-4000:]}"
     results = {w: [torch.load(str(root / f"w{w}" / f"rank{r}.pt"), weights_only=False)
                    for r in range(w)] for w in WORLDS}
-    return dict(results=results, spec=spec, refs=refs, jax_fit=jax_fit, root=root)
+    return dict(results=results, spec=spec, refs=refs, tp_refs=tp_refs, jax_fit=jax_fit,
+                root=root)
 
 
 @pytest.fixture(scope="module")
@@ -268,7 +298,7 @@ def one_rank(worlds):
         grads = {n: p.grad.clone() for n, p in state.model.named_parameters()}
         state, metrics = train_step(new_state(build_model(case), case), case["batch"])
         out[name] = dict(loss=loss.item(), grads=grads, grad_norm=metrics["grad_norm"].item(),
-                         after=state.model.state_dict())
+                         after=state.model.state_dict(), optimizer=state.optimizer.state_dict())
     return out
 
 
@@ -358,3 +388,113 @@ def test_ragged_validation_and_a_batch_that_does_not_divide(worlds):
     for res in worlds["results"][4]:
         assert res["ragged/valid_loss"] == pytest.approx(want, rel=1e-6)
         assert res["ragged/fit_error"] == worlds["jax_fit"]["batch_error"]
+
+
+def _shapes(tree):
+    """The nested dict's tensors' shapes (other leaves as they are)."""
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_shapes(v) for v in tree]
+    return tuple(tree.shape) if isinstance(tree, torch.Tensor) else tree
+
+
+@pytest.mark.parametrize("name", TP_CASES)
+def test_tensor_parallel_step_matches_one_rank_and_jax(worlds, one_rank, name):
+    """(data 2 x model 2): the global loss, gradients and ``grad_norm`` on
+    every rank against one rank's and JAX's mesh step; the weights and the
+    optimizer state after the step, joined, equal on every rank and laid
+    out as one rank's."""
+    ranks = [res[f"tp/{name}"] for res in worlds["results"][4]]
+    one, ref = one_rank[name], worlds["tp_refs"][name]
+    for res in worlds["results"][4]:
+        assert res["tp_shape"] == {"replica": 1, "data": 2, "model": 2}
+    for r, res in enumerate(ranks):
+        assert res["rows"] == (r // 2 * B // 2, B // 2) and res["model_index"] == r % 2
+        assert res["loss"] == res["step_loss"] == pytest.approx(one["loss"], rel=1e-5)
+        assert res["grad_norm"] == pytest.approx(one["grad_norm"], rel=1e-4)
+        _close_grads(res["grads"], one["grads"], 2e-4 if CASES[name][2] else 1e-4, 1e-7)
+        assert res["round_trip"], r
+        assert res["collectives"] > 0
+        for k, v in res["after"].items():
+            assert torch.equal(v, ranks[0]["after"][k]), (r, k)
+        assert _shapes(res["optimizer"]) == _shapes(one["optimizer"])
+        assert _shapes(res["after"]) == _shapes(one["after"])
+    got = ranks[0]
+    assert got["step_loss"] == pytest.approx(ref["step_loss"], rel=5e-5)
+    assert got["grad_norm"] == pytest.approx(ref["grad_norm"], rel=5e-4)
+    want = {k: v for k, v in ref["grads"].items() if not k.startswith(("bn.mean", "bn.var"))}
+    assert set(got["grads"]) == set(want)
+    _close_grads(got["grads"], want, 5e-4, 1e-6)
+
+
+@pytest.mark.parametrize("name", TP_CASES)
+def test_tensor_parallel_ranks_hold_their_shards(worlds, name):
+    """A rank holds half of each leaf that JAX's rules shard (the
+    vocabulary, q/k/v, the MLP's or FFN's matrices) and every other leaf
+    whole, bit-equal on all four ranks; model peers' shards join to the
+    step's weights, data peers' shards are equal."""
+    ranks = [res[f"tp/{name}"] for res in worlds["results"][4]]
+    whole = ranks[0]["after"]
+    sharded = set(ranks[0]["sharded"])
+    t5 = CASES[name][0] == "t5"
+    assert ("encoder.token_embed.weight" if t5 else
+            "encoder.embeddings.word_embeddings.weight") in sharded
+    assert {f"encoder.layers.0.attn_{x}.weight" for x in "qkvo"} <= sharded
+    assert ("encoder.layers.1.ffn.wo.weight" if t5 else "encoder.layers.1.mlp_out.weight") \
+        in sharded
+    assert not any("ln" in k or "mixer" in k or "rel_bias" in k or k.startswith("bn.")
+                   for k in sharded)
+    for r, res in enumerate(ranks):
+        assert res["sharded"] == ranks[0]["sharded"]
+        for k, v in res["local"].items():
+            if k not in sharded:
+                assert torch.equal(v, whole[k]), (r, k)
+                continue
+            axis = 1 if k.endswith(("attn_o.weight", "mlp_out.weight", "wo.weight")) else 0
+            assert v.shape[axis] * 2 == whole[k].shape[axis]
+            assert torch.equal(v, whole[k].chunk(2, axis)[r % 2]), (r, k)
+
+
+def test_tensor_parallel_fit_checkpoints_the_one_device_layout(worlds, tmp_path):
+    """(data 1 x model 2): ``fit`` follows the JAX mesh's; rank 0's
+    checkpoint holds one rank's keys and shapes (model and optimizer) and
+    resumes on one rank; the data-parallel run's ``n_model`` 1 checkpoint
+    restores into the sharded state."""
+    from mfar_tpu_torch.train.checkpoint import CheckpointManager
+
+    r0, r1 = worlds["results"][2]
+    jfit = worlds["jax_fit"]
+    root = worlds["root"] / "w2"
+    for res in (r0, r1):
+        assert res["tp_shape"] == {"replica": 1, "data": 1, "model": 2}
+        assert res["tp_fit/sharded"] and res["tp_fit/step"] == jfit["step"] == 4
+        np.testing.assert_allclose(res["tp_fit/state"]["model"]["mixer.weight"].numpy(),
+                                   jfit["mixer"], rtol=1e-3, atol=1e-4)
+        for k in ("ndcg_cut_10", "recall_10", "recip_rank"):
+            assert abs(res["tp_fit/dev"][k] - jfit["dev"][k]) < 1e-6, (k, res["tp_fit/dev"][k])
+        for k, v in res["tp_fit/state"]["model"].items():
+            assert torch.equal(v, r0["tp_fit/state"]["model"][k]), k
+    assert r1["tp_fit/out_dir"] is None
+    tp_ckpt, dp_ckpt = CheckpointManager(str(root / "tp_run0")), CheckpointManager(str(root / "run0"))
+    tp_payload, dp_payload = tp_ckpt.read(1), dp_ckpt.read(1)
+    assert _shapes(tp_payload["model"]) == _shapes(dp_payload["model"])
+    assert _shapes(tp_payload["optimizer"]) == _shapes(dp_payload["optimizer"])
+    # resumed at n_model 1 on one rank
+    trainer, state, train_ds = fit_world(worlds["spec"], None, str(tmp_path / "one"))
+    one = tp_ckpt.restore(1, state())
+    assert one.step == 4
+    for k, v in one.model.state_dict().items():
+        assert torch.equal(v, r0["tp_fit/state"]["model"][k]), k
+    from mfar_tpu_torch.train.data_pipeline import strip_meta
+    from mfar_tpu_torch.train.train_step import train_step
+
+    _, metrics = train_step(one, strip_meta(next(train_ds.epoch_batches(8, seed=3))))
+    assert np.isfinite(metrics["loss"].item()) and one.step == 5
+    # n_model 1 -> 2: every rank's joined state is the data-parallel checkpoint
+    for res in (r0, r1):
+        latest, step, payload = res["tp_fit/restored_dp"]
+        assert latest == 1 and step == dp_payload["step"]
+        for k, v in payload["model"].items():
+            assert torch.equal(v, dp_payload["model"][k]), k
+        assert _shapes(payload["optimizer"]) == _shapes(dp_payload["optimizer"])

@@ -151,9 +151,9 @@ def test_trainer_refuses_a_mesh(setup, tmp_path):
     """``fit`` trains on a mesh (data-parallel training, once refused as
     A15b): on a world of one gloo rank it runs the steps of one device,
     writes the checkpoints and restores the latest through
-    ``restore_broadcast``.  It still refuses a mesh with a model axis
-    (tensor parallelism, A15d) and a batch that does not divide the batch
-    shards, with the JAX trainer's message."""
+    ``restore_broadcast``.  It still refuses a batch that does not divide
+    the batch shards, with the JAX trainer's message (a mesh with a model
+    axis trains since A15d: ``tests/test_torch_train_mesh.py``)."""
     from types import SimpleNamespace
 
     import torch.distributed as dist
@@ -173,8 +173,6 @@ def test_trainer_refuses_a_mesh(setup, tmp_path):
         return init_state(MFARModel(setup["cfg"], num_fields=setup["nf"], temperature=0.05),
                           setup["opt"], seed=0, device="cpu")
 
-    with pytest.raises(NotImplementedError, match="A15d"):
-        trainer(SimpleNamespace(shape={"replica": 1, "data": 2, "model": 2})).fit(fresh())
     with pytest.raises(ValueError, match=r"train_batch_size 5 must divide over the 2 batch "
                                          r"shards of mesh \{'replica': 1, 'data': 2"):
         trainer(SimpleNamespace(shape={"replica": 1, "data": 2, "model": 1},
@@ -392,7 +390,10 @@ def test_train_cli_writes_the_jax_layout_and_serves(setup, tmp_path):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--n-model", "2"], NotImplementedError, "A15d"),
+    # tensor parallelism trains since A15d: on one process --n-model 2
+    # exits as the JAX command does on one device
+    (["--n-model", "2"], SystemExit, r"--n-model 2 x --n-replica 1 needs at least that many "
+                                     r"devices \(have 1\)"),
     # several processes train now (once A15b): without its environment,
     # --multihost force exits as the other commands do
     (["--multihost", "force"], SystemExit, "MFAR_COORDINATOR"),
@@ -416,6 +417,46 @@ def test_train_mesh_shape_exits_as_jax(setup, tmp_path, n_replica, batch):
         jax_train_cmd.main(_train_args(setup["data"], str(tmp_path / "jax"), "--n-replica",
                                        str(n_replica), "--train-batch-size", str(batch)))
     assert str(port.value) == str(want.value)
+
+
+# (devices, n_model, n_replica, batch)
+N_MODEL_GRID = [(8, 2, 1, 4), (8, 2, 1, 6), (8, 4, 1, 16), (8, 8, 1, 4), (4, 2, 1, 4),
+                (6, 4, 1, 4), (2, 2, 1, 4), (8, 2, 2, 4), (1, 2, 1, 4), (8, 3, 2, 4),
+                (8, 2, 2, 6)]
+
+
+@pytest.mark.parametrize("devices,n_model,n_replica,batch", N_MODEL_GRID)
+def test_train_mesh_shape_with_n_model_matches_jax(setup, tmp_path, monkeypatch, capsys,
+                                                   devices, n_model, n_replica, batch):
+    """The mesh the JAX command sizes over ``devices`` of the virtual
+    devices (its printed mesh line; the command stopped right after it) or
+    the message it exits with, against ``train_mesh_shape`` over as many
+    ranks."""
+    import jax
+
+    from mfar_tpu_torch.commands.train import train_mesh_shape
+
+    class Sized(Exception):
+        pass
+
+    every = jax.devices()
+    monkeypatch.setattr(jax, "devices", lambda *a: every[:devices])
+    monkeypatch.setattr(jax_train_cmd, "TrainerConfig", lambda **kw: (_ for _ in ()).throw(Sized))
+    args = _train_args(setup["data"], str(tmp_path / "jax"), "--n-model", str(n_model),
+                       "--n-replica", str(n_replica), "--train-batch-size", str(batch))
+    try:
+        jax_train_cmd.main(args)
+    except SystemExit as want:
+        with pytest.raises(SystemExit) as port:
+            train_mesh_shape(devices, n_replica, batch, n_model)
+        assert str(port.value) == str(want)
+        return
+    except Sized:
+        pass
+    line = next(ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[train] mesh"))
+    n_data, used = train_mesh_shape(devices, n_replica, batch, n_model)
+    assert line.startswith(f"[train] mesh: {{'replica': {n_replica}, 'data': {n_data}, "
+                           f"'model': {n_model}}} over {used}/{devices} devices"), line
 
 
 def test_train_mesh_shape_shrinks_the_data_axis():

@@ -10,7 +10,15 @@ one batch of each step case (the loss, the gradients summed over the ranks,
 over the spec's dataset directory with a checkpoint on rank 0 and
 ``restore_broadcast``, the dropout masks of each rank and their replay
 after a restore, a validation pass whose last batch does not divide the
-ranks, and ``fit`` refusing a batch that does not divide them.  Each rank
+ranks, and ``fit`` refusing a batch that does not divide them.  Then, on a
+second mesh over the same world, tensor parallelism: the spec's
+``tp_cases`` on a ``(data 2 x model 2)`` mesh of W = 4 (the gathered
+gradients, the step's loss and ``grad_norm``, the gathered weights and
+optimizer state after it, the replicated leaves and the shards of every
+rank, the round trip of the state through ``gather_state_dict`` and
+``shard_state_dict``), and on W = 2 a ``(data 1 x model 2)`` ``fit`` whose
+rank 0 checkpoints in the ``n_model`` 1 layout, then ``restore_broadcast`` of
+the data-parallel run's checkpoint into the sharded state.  Each rank
 writes what it computed to ``OUT_DIR/rank<R>.pt``.  Imports nothing of JAX.
 """
 
@@ -61,6 +69,61 @@ def run_steps(spec, mesh, out):
             rows=(shard.offset, shard.rows), loss=loss.item(), grads=grads,
             step_loss=metrics["loss"].item(), grad_norm=metrics["grad_norm"].item(),
             after={k: v.clone() for k, v in state.model.state_dict().items()})
+
+
+def _whole(model, tensors):
+    """``{name: tensor}`` of ``model``'s parameters, the sharded ones joined
+    over the model group."""
+    from mfar_tpu_torch.parallel.tensor_parallel import _gather, shard_of
+
+    params = dict(model.named_parameters())
+    return {n: t if shard_of(params[n]) is None else
+            _gather(t, shard_of(params[n]).mesh, shard_of(params[n]).axis)
+            for n, t in tensors.items()}
+
+
+def _equal_trees(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal_trees(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_equal_trees(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return a == b
+
+
+def run_tp_steps(spec, mesh, out):
+    """Each tensor-parallel case: this rank's rows and shards; the global
+    gradients (joined), then one step from the same weights."""
+    from mfar_tpu_torch.parallel import tensor_parallel as tp
+    from mfar_tpu_torch.parallel.data_parallel import shard_batch
+    from mfar_tpu_torch.train.checkpoint import apply_payload, state_payload
+    from mfar_tpu_torch.train.train_step import compute_gradients, train_step
+
+    for name in spec["tp_cases"]:
+        case = spec["cases"][name]
+        local, shard = shard_batch(case["batch"], mesh)
+        state = new_state(tp.shard_module(build_model(case), mesh), case)
+        loss = compute_gradients(state, local, shard)
+        grads = _whole(state.model, {n: p.grad for n, p in state.model.named_parameters()})
+        state = new_state(tp.shard_module(build_model(case), mesh), case)
+        tp.collectives.clear()
+        state, metrics = train_step(state, local, shard)
+        n_collectives = sum(tp.collectives.values())
+        payload = state_payload(state)
+        local_sd = {k: v.clone() for k, v in state.model.state_dict().items()}
+        local_opt = state.optimizer.state_dict()
+        # the round trip: this rank's slices of the joined state are its own
+        again = new_state(tp.shard_module(build_model(case), mesh), case)
+        apply_payload(again, payload)
+        out[f"tp/{name}"] = dict(
+            rows=(shard.offset, shard.rows), model_index=mesh.index("model"),
+            loss=loss.item(), grads=grads, step_loss=metrics["loss"].item(),
+            grad_norm=metrics["grad_norm"].item(), after=payload["model"],
+            optimizer=payload["optimizer"], local=local_sd, collectives=n_collectives,
+            sharded=sorted(n for n, p in state.model.named_parameters() if tp.shard_of(p)),
+            round_trip=_equal_trees(local_sd, again.model.state_dict())
+            and _equal_trees(local_opt, again.optimizer.state_dict()))
 
 
 def fit_world(spec, mesh, out_dir):
@@ -163,6 +226,30 @@ def run_fit(spec, mesh, out, out_dir):
     out["dropout/replay"] = losses
 
 
+def run_tp_fit(spec, mesh, out, out_dir, dp_dir):
+    """``fit`` on a ``(data 1 x model 2)`` mesh: rank 0's checkpoints in the
+    ``n_model`` 1 layout; then the data-parallel run's latest checkpoint
+    (``dp_dir``, written at ``n_model`` 1) restored into sharded states."""
+    from mfar_tpu_torch.parallel import tensor_parallel as tp
+    from mfar_tpu_torch.train.checkpoint import CheckpointManager, state_payload
+
+    trainer, state, _ = fit_world(spec, mesh, out_dir)
+    t = trainer()
+    fitted = t.fit(state())
+    data = spec["fit"]["data_dir"]
+    out["tp_fit/sharded"] = tp.is_sharded(fitted.model)
+    out["tp_fit/step"] = fitted.step
+    out["tp_fit/state"] = state_payload(fitted)
+    out["tp_fit/dev"] = t.trec_eval(fitted, t.dev_queries, os.path.join(data, "val.qrels"),
+                                    "tp-cmp")
+    out["tp_fit/out_dir"] = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else None
+    # an n_model 1 checkpoint into the sharded state, through rank 0
+    t.ckpt = CheckpointManager(dp_dir) if t.ckpt is not None else None
+    latest = t.ckpt_step_broadcast("latest")
+    restored = t.restore_broadcast(latest, state())
+    out["tp_fit/restored_dp"] = (latest, restored.step, state_payload(restored))
+
+
 def run_ragged(spec, mesh, out, out_dir):
     """Validation whose batches of 6 over the ranks end ragged, and ``fit``
     refusing a batch of 6 that does not divide the ranks."""
@@ -190,8 +277,14 @@ def main() -> None:
     run_steps(spec, mesh, out)
     if world == 2:
         run_fit(spec, mesh, out, os.path.join(out_dir, f"run{rank}"))
+        tp_mesh = make_mesh(n_model=2)
+        run_tp_fit(spec, tp_mesh, out, os.path.join(out_dir, f"tp_run{rank}"),
+                   os.path.join(out_dir, "run0"))
     else:
         run_ragged(spec, mesh, out, os.path.join(out_dir, f"ragged{rank}"))
+        tp_mesh = make_mesh(n_data=2, n_model=2)
+        run_tp_steps(spec, tp_mesh, out)
+    out["tp_shape"] = dict(tp_mesh.shape)
     out["modules"] = sorted(sys.modules)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
