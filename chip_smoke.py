@@ -8,10 +8,14 @@ Contriever-base and GTR-T5-base width with seeded random weights:
 1. device    -- the card's name and power limit (nvidia-smi)
 2. build     -- every CUDA kernel of the port, from ``mfar_tpu_torch/csrc``,
                 one nvcc per source, all started together
-3. k1        -- kernel K1 (rerank gather) against its plain PyTorch version
-                for bf16 and f32 corpora at B=64 C=512 N=131072 F=5 E=768,
-                plus edge cases; CUDA-event times of kernel, plain version
-                and a library yardstick, beside the bytes bound
+3. k1        -- kernel K1 (rerank gather) and K1x (its cross-row schedule,
+                --pallas-cross-row) against their plain PyTorch version for
+                bf16 and f32 corpora at B=64 C=512 N=131072 F=5 E=768, plus
+                edge cases (K1x's own: 7 x 37 candidates, which no warp's
+                span divides, and ids outside [0, N) among valid ones); K1x
+                against K1's bits; CUDA-event times of both kernels (in
+                turns), plain version and a library yardstick, beside the
+                bytes bound
 4. k2        -- kernel K2 (flash attention) against its plain PyTorch version
                 at the index build's [256, 12, 512, 64] bf16 with ragged
                 segments, plus edge cases (S = 128, 256 and 384, B = 1,
@@ -36,13 +40,17 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 (the 512-token fields through K2), held against the same
                 corpus encoded with plain attention; then the engine in
                 rerank mode (through K1) and exact mode, each held against a
-                reference (the plain-gather engine; a brute-force f32 scan)
+                reference (the plain-gather engine; a brute-force f32 scan);
+                the rerank engine with pallas_cross_row (through K1x) against
+                the one through K1
 7. long      -- 64 queries of 150 words (the 256-token bucket) through the
                 "auto" engine (K2) against a plain-attention engine
 8. cli       -- the encode_corpus command on a 512-doc dataset directory and
                 a local BERT directory at Contriever-base width (seeded
                 weights), both written here, into .npz and .npy, read back
-                and held against the same weights built through K2
+                and held against the same weights built through K2; then
+                retrieve --mode rerank over the .npz with --pallas-cross-row
+                (K1x) against the run without it (K1)
 9. train     -- MFARModel at Contriever-base width on the e2e corpus: one
                 batch through K2/K2b against the plain path, Trainer.fit
                 (the counted main path of training), steps/s through K2/K2b
@@ -404,22 +412,63 @@ def library_gather_scores(q, docs, ids, f):
     return torch.einsum("be,bcfe->bcf", q, rows)
 
 
+def same_bits(a, b) -> bool:
+    """Two f32 tensors hold the same bits (NaN included)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def check_k1x(q, docs, ids, f, k1_out, label) -> tuple:
+    """K1x, the cross-row schedule, on the inputs K1 just scored: against
+    the plain version at K1's tolerance (NaN where an id lies outside [0,
+    N), as K1), and whether its bits are K1's.  Returns (max abs err,
+    bit-equal)."""
+    got = gather_per_field_scores(q, docs, ids, f, cross_row=True)
+    torch.cuda.synchronize()
+    n = docs.shape[0]
+    valid = (ids >= 0) & (ids < n)
+    want = gather_per_field_scores_plain(q, docs, ids.clamp(0, n - 1), f)
+    check(bool(torch.isnan(got[~valid]).all()), f"K1x {label}: an id outside [0, N) scored a value")
+    got_v, want_v = got[valid], want[valid]
+    err = (got_v - want_v).abs().max().item() if got_v.numel() else 0.0
+    check(torch.allclose(got_v, want_v, rtol=K1_RTOL, atol=K1_ATOL),
+          f"K1x {label}: max err {err} against the plain version")
+    return err, same_bits(got, k1_out)
+
+
 def run_k1(seed: int, serving_shape=(64, 512, 131072, 5, 768)) -> dict:
+    """K1 and K1x (the cross-row schedule) against the plain version, and
+    K1x against K1's bits, on edge cases and at the serving shapes; times of
+    both kernels, the plain version and the library yardstick."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    max_err = 0.0
-    # edge cases at small N: odd C, B=1, F=1, C < one block of candidates
+    max_err = k1x_err = 0.0
+    bit_equal = True
+    # edge cases at small N: odd C, B=1, F=1, C < one block of candidates;
+    # for K1x also a candidate count that no warp's span divides (7 x 37
+    # over the persistent grid's warps: spans end inside query rows), one
+    # that leaves most warps without a candidate (5 x 1), and ids outside
+    # [0, N) among valid ones
     for b, c, n, f, e in [(1, 7, 33, 1, 128), (3, 13, 101, 4, 128), (5, 1, 9, 5, 768),
-                          (2, 129, 1001, 3, 256)]:
+                          (2, 129, 1001, 3, 256), (7, 37, 1001, 5, 768)]:
         for dtype in (torch.bfloat16, torch.float32):
             q, docs, ids = k1_inputs(gen, b, c, n, f, e, dtype)
+            label = f"{dtype} B={b} C={c} N={n} F={f} E={e}"
             got = gather_per_field_scores(q, docs, ids, f)
             torch.cuda.synchronize()
             want = gather_per_field_scores_plain(q, docs, ids, f)
             err = (got - want).abs().max().item()
             check(torch.allclose(got, want, rtol=K1_RTOL, atol=K1_ATOL),
-                  f"K1 {dtype} B={b} C={c} N={n} F={f} E={e}: max err {err}")
+                  f"K1 {label}: max err {err}")
             max_err = max(max_err, err)
-    phase("k1", f"edge cases (odd C, B=1, F=1, small N) agree, max abs err {max_err:.3g}")
+            err_x, same = check_k1x(q, docs, ids, f, got, label)
+            k1x_err, bit_equal = max(k1x_err, err_x), bit_equal and same
+            bad = ids.clone()
+            bad[0, 0], bad[-1, -1], bad[b // 2, c // 2] = -1, n, n + 7
+            err_x, same = check_k1x(q, docs, bad, f, gather_per_field_scores(q, docs, bad, f),
+                                    f"{label}, ids outside [0, N)")
+            k1x_err, bit_equal = max(k1x_err, err_x), bit_equal and same
+    phase("k1", f"edge cases (odd C, B=1, F=1, small N) agree, max abs err {max_err:.3g}; "
+                f"K1x on them and on ids outside [0, N) (NaN, as K1): max abs err "
+                f"{k1x_err:.3g}, bit-equal to K1: {bit_equal}")
 
     # serving shapes: checked on the edge-case ids and on serving ids, timed
     # on the serving ids, whose distinct rows the bound counts
@@ -436,26 +485,41 @@ def run_k1(seed: int, serving_shape=(64, 512, 131072, 5, 768)) -> dict:
             check(torch.allclose(got, want, rtol=K1_RTOL, atol=K1_ATOL),
                   f"K1 {dtype} at serving shapes, {label} ids: max err {err}")
             max_err = max(max_err, err)
+            err_x, same = check_k1x(q, docs, i, f, got, f"{dtype} at serving shapes, {label} ids")
+            k1x_err, bit_equal = max(k1x_err, err_x), bit_equal and same
         lib = library_gather_scores(q, docs, ids, f)
         check(torch.allclose(lib, want, rtol=K1_RTOL, atol=K1_ATOL), "library yardstick disagrees")
         bound_ms, bound_by, distinct = k1_bound(ids, f, e, dtype)
+        # in turns: K1, K1x, K1x, K1 (the medians of the two of each)
+        k1_ms, k1x_ms = [], []
+        for fn, into in ((False, k1_ms), (True, k1x_ms), (True, k1x_ms), (False, k1_ms)):
+            into.append(time_cuda(lambda: gather_per_field_scores(q, docs, ids, f,
+                                                                  cross_row=fn)))
         r = dict(
-            kernel_ms=time_cuda(lambda: gather_per_field_scores(q, docs, ids, f)),
+            kernel_ms=statistics.mean(k1_ms), cross_row_ms=statistics.mean(k1x_ms),
+            kernel_ms_runs=k1_ms, cross_row_ms_runs=k1x_ms,
             plain_ms=time_cuda(lambda: gather_per_field_scores_plain(q, docs, ids, f)),
             library_ms=time_cuda(lambda: library_gather_scores(q, docs, ids, f)),
-            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, distinct_rows=distinct,
+            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, cross_row_max_abs_err=err_x,
+            distinct_rows=distinct,
         )
         name = "bf16" if dtype == torch.bfloat16 else "f32"
         rows[name] = r
         corpus_gb = docs.numel() * docs.element_size() / 1e9
         phase("k1", f"{name} B={b} C={c} N={n} F={f} E={e} ({corpus_gb:.2f} GB corpus; "
                     f"ids distinct per query, {distinct} distinct rows of {b * c}): "
-                    f"max abs err {err:.3g}; kernel_ms {r['kernel_ms']:.4f} "
-                    f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
-                    f"bound_ms {bound_ms:.4f} ({bound_by}); "
-                    f"{r['bound_ms'] / r['kernel_ms']:.1%} of the bound")
+                    f"max abs err {err:.3g} (K1x {err_x:.3g}); kernel_ms {r['kernel_ms']:.4f} "
+                    f"({k1_ms[0]:.4f} / {k1_ms[1]:.4f}), K1x cross_row_ms "
+                    f"{r['cross_row_ms']:.4f} ({k1x_ms[0]:.4f} / {k1x_ms[1]:.4f}), in turns "
+                    f"K1, K1x, K1x, K1; plain_ms {r['plain_ms']:.4f} library_ms "
+                    f"{r['library_ms']:.4f} bound_ms {bound_ms:.4f} ({bound_by}); "
+                    f"K1 {r['bound_ms'] / r['kernel_ms']:.1%}, K1x "
+                    f"{r['bound_ms'] / r['cross_row_ms']:.1%} of the bound")
         del q, docs, ids, edge_ids, got, want, lib
     rows["max_abs_err"] = max_err
+    rows["k1x_max_abs_err"] = k1x_err
+    rows["k1x_bit_equal"] = bit_equal
+    phase("k1", f"K1x bit-equal to K1 on every case: {bit_equal}")
     return rows
 
 
@@ -1011,6 +1075,23 @@ def run_e2e(seed: int, n_docs: int = 2048, n_queries: int = 256, batch_size: int
     phase("e2e", f"rerank: {n_queries / rerank_s:.1f} QPS ({rerank_s:.3f}s, batch {batch_size}), "
                  f"K1 launches {launches}, path {engine.last_serve_path}")
 
+    # the same engine with --pallas-cross-row: stage 2 through K1x
+    cross = RetrievalEngine(mode="rerank", pallas_cross_row=True, **kw)
+    cross.retrieve(queries[:batch_size], top_k=100)  # warm-up
+    gather_per_field_scores.launches = gather_per_field_scores.cross_row_launches = 0
+    rerank_x, rerank_x_s = timed_run(cross, queries, "rerank", batch_size)
+    k1x_launches = gather_per_field_scores.cross_row_launches
+    check(k1x_launches > 0, "the cross-row rerank path launched K1x no time")
+    check(gather_per_field_scores.launches == 0, "the cross-row rerank path launched K1")
+    check(cross.last_serve_path == "singlechip-rerank-k1x", f"path {cross.last_serve_path}")
+    msg = rankings_agree(rerank_x, rerank, E2E_RTOL, E2E_ATOL)
+    check(msg is None, f"rerank through K1x vs through K1: {msg}")
+    same = rerank_x == rerank
+    phase("e2e", f"rerank --pallas-cross-row: {n_queries / rerank_x_s:.1f} QPS "
+                 f"({rerank_x_s:.3f}s), K1x launches {k1x_launches}, path "
+                 f"{cross.last_serve_path}; == rerank through K1 (identical lists: {same})")
+    del cross
+
     exact, exact_s = timed_run(engine, queries, "exact", batch_size)
     check(engine.last_serve_path == "singlechip-dense", f"path {engine.last_serve_path}")
     check_results(exact, n_queries, min(100, n_docs))
@@ -1034,6 +1115,7 @@ def run_e2e(seed: int, n_docs: int = 2048, n_queries: int = 256, batch_size: int
     plain_engine = RetrievalEngine(mode="rerank", **{**kw, "encode_fn": encode_plain})
     return engine, plain_engine, corpus, queries, dict(
         k1_launches=launches, k2_launches=k2_launches, build_k2_s=k2_s, build_plain_s=plain_s,
+        k1x_launches=k1x_launches, rerank_k1x_qps=n_queries / rerank_x_s,
         batch_device_ms=profiles, rerank_qps=n_queries / rerank_s,
         exact_qps=n_queries / exact_s,
     )
@@ -1128,13 +1210,17 @@ def run_cli(seed, corpus, n_docs=512):
     words), encoded into .npz and .npy and read back.  The command builds
     the encoder as ``prepare_model`` configures it (attention "xla"), so it
     launches no K2; its matrix is held against the same directory's weights
-    built through K2 ("auto")."""
+    built through K2 ("auto").  Then ``retrieve --mode rerank`` over the .npz
+    on 64 test queries (fewer on a smaller dataset), with ``--pallas-cross-row`` (stage 2 through K1x)
+    and without (K1): the two runs agree."""
     pairs = list(corpus.pairs())[:n_docs]
     sub = Corpus.from_pairs(pairs, dataset_name="mag")
     field_info = resolve_fields("all_dense", "mag")
+    n_queries, k = min(64, n_docs), min(100, n_docs)
     with tempfile.TemporaryDirectory() as d:
         data, bert = os.path.join(d, "data"), os.path.join(d, "bert")
-        write_data_dir(data, pairs)
+        write_data_dir(data, pairs, {
+            "test": mag_splits(pairs, (n_queries,), np.random.default_rng(seed + 5))[0]})
         cfg, n_vocab = write_bert_dir(bert, sub, seed + 4)
 
         mats, cli_s = [], []
@@ -1167,6 +1253,34 @@ def run_cli(seed, corpus, n_docs=512):
         want_launches = config.num_layers * n_long * math.ceil(n_docs / 256)
         check(launches == want_launches, f"K2 launched {launches} times, want {want_launches}")
         agree = index_agreement(mats[0], want, "encode_corpus vs the K2 build")
+
+        runs, retrieve_s, k1x_launches = {}, {}, 0
+        for flag in ("--pallas-cross-row", None):
+            run = os.path.join(d, f"run{'_k1x' if flag else ''}.qres")
+            gather_per_field_scores.launches = gather_per_field_scores.cross_row_launches = 0
+            t = time.perf_counter()
+            retrieve_cmd.main(["--dataset-name", "mag", "--data", data, "--out", run,
+                               "--dense-index", os.path.join(d, "index.npz"), "--model-name",
+                               bert, "--mode", "rerank", "--device", "cuda"]
+                              + ([flag] if flag else []))
+            retrieve_s[flag or "k1"] = time.perf_counter() - t
+            launched = (gather_per_field_scores.cross_row_launches,
+                        gather_per_field_scores.launches)
+            if flag:
+                k1x_launches = launched[0]
+                check(launched[0] > 0 and launched[1] == 0,
+                      f"retrieve --pallas-cross-row launched K1x / K1 {launched}")
+            else:
+                check(launched[0] == 0 and launched[1] > 0,
+                      f"retrieve without the flag launched K1x / K1 {launched}")
+            by_query = {}
+            for r in trec.QRes.from_file(run):
+                by_query.setdefault(r.query_id, []).append((r.doc_id, r.sim))
+            check(len(by_query) == n_queries and all(len(h) == k for h in by_query.values()),
+                  f"retrieve wrote {len(by_query)} queries")
+            runs[flag or "k1"] = [by_query[q] for q in sorted(by_query)]
+        msg = rankings_agree(runs["--pallas-cross-row"], runs["k1"], E2E_RTOL, E2E_ATOL)
+        check(msg is None, f"retrieve --pallas-cross-row vs without: {msg}")
     n_seq = n_docs * len(field_info)
     phase("cli", f"encode_corpus on the card with a local BERT directory (hidden "
                  f"{config.hidden_size} x {config.num_layers} layers, {config.dtype}, WordPiece "
@@ -1175,7 +1289,12 @@ def run_cli(seed, corpus, n_docs=512):
                  f"included), the same matrix {mats[0].shape}, keys read back; the same "
                  f"weights built through K2 in {k2_s:.2f}s ({n_seq / k2_s:.0f} field-docs/s, "
                  f"{launches} launches); the command's matrix against it: {agree}")
-    return dict(cli_s=cli_s, cli_k2_build_s=k2_s)
+    phase("cli", f"retrieve --mode rerank over the .npz, {n_queries} queries: --pallas-cross-row "
+                 f"{retrieve_s['--pallas-cross-row']:.2f}s (K1x launches {k1x_launches}), "
+                 f"without {retrieve_s['k1']:.2f}s (K1); the runs agree (identical: "
+                 f"{runs['--pallas-cross-row'] == runs['k1']})")
+    return dict(cli_s=cli_s, cli_k2_build_s=k2_s, cli_k1x_launches=k1x_launches,
+                cli_retrieve_s=retrieve_s)
 
 
 # ----------------------------------------------------------------------
@@ -4802,7 +4921,8 @@ def kernel_usage(logs: dict) -> dict:
             if "Function properties for" in ln:
                 mangled = ln.split("for", 1)[1].strip()
                 name = next((k for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-                                         "flash_attention_fwd", "gather") if k in mangled), mangled)
+                                         "flash_attention_fwd", "gather_scores_cross_row",
+                                         "gather") if k in mangled), mangled)
             elif name and "spill" in ln:
                 usage[name] = ln.strip()
             elif name and "registers" in ln:
@@ -4935,7 +5055,8 @@ def main(argv=None) -> int:
         if name in r:
             summary[name] = r[name]
     if "k1" in r:
-        summary.update(k1_f32=r["k1"]["f32"], k1_bf16=r["k1"]["bf16"])
+        summary.update(k1_f32=r["k1"]["f32"], k1_bf16=r["k1"]["bf16"],
+                       k1x_bit_equal=r["k1"]["k1x_bit_equal"])
     phase("summary", json.dumps(summary))
     if phases != list(PHASES):
         print(json.dumps({"kernels": "measured in a run of every phase", "phases": phases}),
@@ -4943,7 +5064,7 @@ def main(argv=None) -> int:
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
         return 0
-    k1, k2, k2b, e2e, train = r["k1"], r["k2"], r["k2b"], r["e2e"], r["train"]
+    k1, k2, k2b, e2e, cli, train = r["k1"], r["k2"], r["k2b"], r["e2e"], r["cli"], r["train"]
     serve, hybrid, hybrid_serving = r["serve"], r["hybrid"], r["hybrid_serving"]
     hybrid_cli, gtr, mesh = r["hybrid_cli"], r["gtr"], r["mesh"]
     train_mesh = r["train_mesh"]["train_mesh_launches"]  # every rank's, in its fit
@@ -4967,6 +5088,20 @@ def main(argv=None) -> int:
                      + gtr["gtr_cli_k1_launches"]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1_row["kernel_ms"],
+        "plain_ms": k1_row["plain_ms"],
+        "bound_ms": k1_row["bound_ms"],
+        "bound_by": k1_row["bound_by"],
+        "library_ms": k1_row["library_ms"],
+    }, {
+        "name": "gather_per_field_scores_cross_row",
+        "route": "cuda",
+        "source": "mfar_tpu_torch/csrc/gather_scores.cu",
+        "replaces": "mfar_tpu/ops/pallas_kernels.py:92",
+        # the main paths that run K1x: e2e rerank with pallas_cross_row, and
+        # retrieve --mode rerank --pallas-cross-row (phase cli)
+        "launches": e2e["k1x_launches"] + cli["cli_k1x_launches"],
+        "max_abs_err": k1["k1x_max_abs_err"],
+        "ms": k1_row["cross_row_ms"],
         "plain_ms": k1_row["plain_ms"],
         "bound_ms": k1_row["bound_ms"],
         "bound_by": k1_row["bound_by"],

@@ -10,7 +10,9 @@ per card: ``torchrun`` with ``--multihost pod``, or the ``MFAR_*``
 environment with ``--multihost force``), shaped by ``--n-model``,
 ``--n-replica`` and ``--corpus-per-slice`` as in the JAX package, over any placement of
 the corpus (``--quantize int8``, ``--corpus-on-host``); one process serves
-on one device.  ``--pallas-cross-row`` raises B1, before any work.
+on one device.  ``--pallas-cross-row`` sends the one-device K1 route through
+K1x, the cross-row schedule, and changes nothing where JAX's flag changes
+nothing.
 """
 
 from __future__ import annotations
@@ -135,7 +137,10 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
                         "(default): K1 on the card (raising on a corpus it "
                         "cannot read); on: always; off: the plain gather")
     p.add_argument("--pallas-cross-row", action="store_true",
-                   help="a knob of the TPU kernel's DMA schedule: ROADMAP B1")
+                   help="rerank stage 2 through K1x, K1's cross-row schedule (each warp "
+                        "walks a span of all candidates in one order, the next row in "
+                        "flight); no effect on a mesh, an int8 or host corpus, or exact "
+                        "mode; refused with --use-pallas-gather off")
     p.add_argument("--corpus-on-host", action="store_true",
                    help="keep the dense corpus in host memory (RAM or the --dense-index "
                         ".npy memmap) and stream it to the card per scan: a corpus "
@@ -205,8 +210,9 @@ def build_engine(args, label: str = "engine"):
     from mfar_tpu_torch.models import build_encoder
     from mfar_tpu_torch.models.registry import prepare_model
 
+    use_pallas_gather = {"on": True, "off": False}.get(args.use_pallas_gather, "auto")
+    RetrievalEngine.check_gather_flags(use_pallas_gather, args.pallas_cross_row)
     mesh = requested_mesh(args, label)
-    RetrievalEngine.refuse_unported(pallas_cross_row=args.pallas_cross_row)
     resolve_data_dirs(args)
     field_info = resolve_fields(args.field_names, args.dataset_name)
     corpus = load_corpus(args.corpus, args.dataset_name)
@@ -239,7 +245,7 @@ def build_engine(args, label: str = "engine"):
         dense_matrix=matrix if matrix.size else None,
         sparse_indices=load_or_build_sparse_indices(corpus, field_info, args.lexical_index),
         recall_k=args.recall_k,
-        use_pallas_gather={"on": True, "off": False}.get(args.use_pallas_gather, "auto"),
+        use_pallas_gather=use_pallas_gather,
         mode=args.mode,
         dense_topk=args.dense_topk,
         quantize=args.quantize,

@@ -26,7 +26,9 @@ modes:
   candidate's fields and mixes them with the query-conditioned weights.
   Stage 2's dense scores come from kernel K1
   (:func:`mfar_tpu_torch.ops.gather_scores.gather_per_field_scores`), which
-  reads candidate rows from the corpus in place, or from a plain gather;
+  reads candidate rows from the corpus in place
+  (``singlechip-rerank[-hybrid]-k1``), or, with ``pallas_cross_row``, from
+  its cross-row schedule K1x (``...-k1x``), or from a plain gather;
   its sparse columns are gathered from the full BM25 score vectors.  An
   int8 or host-streamed corpus recalls through one-hot folded queries (one
   folded scan gives each field's own scores) and scores its candidates
@@ -59,9 +61,11 @@ caller passed, on every rank, as one device does
 slices of the query batch.  Every collective of a call is issued in its
 dispatch half, none in :meth:`RetrievalEngine.finish`.
 
-Not ported yet: ``pallas_cross_row``, a knob of the TPU kernel's DMA
-schedule whose CUDA counterpart, pipelined row loads in K1, is B1's
-follow-up; it raises ``NotImplementedError``.
+``pallas_cross_row`` keeps the JAX engine's semantics: it needs the K1
+gather (``use_pallas_gather=False`` raises before any work), sends the
+one-device K1 route through K1x, and changes nothing where the JAX flag
+changes nothing (a mesh, an int8 or host-streamed corpus, exact mode, a
+corpus K1 cannot read).
 """
 
 from __future__ import annotations
@@ -170,7 +174,8 @@ class RetrievalEngine:
         #   the plain gather, and never for an int8 or host-streamed corpus;
         #   True = K1 (raising on a corpus it cannot read); False = the
         #   plain gather
-        pallas_cross_row: bool = False,
+        pallas_cross_row: bool = False,  # the K1 route through K1x, the
+        #   cross-row schedule (the TPU kernel's cross_row_prefetch)
         quantize: Optional[str] = None,  # "int8": int8 rows + an f32 scale a row
         mesh=None,
         corpus_per_slice: bool = False,
@@ -183,15 +188,13 @@ class RetrievalEngine:
         #   transfer dtype; an in-RAM corpus is cast once, here)
         device: DeviceLike = None,  # default cuda; raises without a card
     ):
-        if use_pallas_gather not in (True, False, "auto"):
-            raise ValueError(f"use_pallas_gather={use_pallas_gather!r}")
+        self.check_gather_flags(use_pallas_gather, pallas_cross_row)
         if mode not in ("auto", "exact", "rerank"):
             raise ValueError(f"mode={mode!r}")
         if dense_topk not in ("exact", "approx"):
             raise ValueError(f"dense_topk={dense_topk!r}")
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        self.refuse_unported(pallas_cross_row=pallas_cross_row)
         has_dense = dense_matrix is not None and int(np.prod(dense_matrix.shape)) > 0
         if not has_dense and not sparse_keys(field_info):
             raise ValueError("the engine serves a dense corpus or sparse fields: "
@@ -220,6 +223,7 @@ class RetrievalEngine:
         self.dense_topk = dense_topk
         self.has_dense = has_dense
         self.mesh = mesh
+        self.pallas_cross_row = pallas_cross_row
         self._corpus_axes = self._query_axis = None
         if mesh is not None:
             self._corpus_axes = corpus_sharding(mesh, replicate_across_slices=corpus_per_slice)
@@ -241,15 +245,16 @@ class RetrievalEngine:
         self._build_row_maps()
 
     @staticmethod
-    def refuse_unported(pallas_cross_row=False) -> None:
-        """Raise ``NotImplementedError`` naming the ROADMAP item of an
-        option the port does not serve yet (the commands call this before
-        any work)."""
-        if pallas_cross_row:
-            raise NotImplementedError(
-                "pallas_cross_row tunes the TPU kernel's DMA prefetch; the CUDA "
-                "rerank kernel's row pipelining is ROADMAP B1's follow-up"
-            )
+    def check_gather_flags(use_pallas_gather, pallas_cross_row) -> None:
+        """Raise ``ValueError`` on a stage-2 gather setting the engine
+        refuses (the commands call this before any work).  The cross-row
+        schedule needs the K1 gather, as the JAX engine asserts
+        (mfar_tpu/eval/retrieval.py:159-162)."""
+        if use_pallas_gather not in (True, False, "auto"):
+            raise ValueError(f"use_pallas_gather={use_pallas_gather!r}")
+        if pallas_cross_row and not use_pallas_gather:
+            raise ValueError("pallas_cross_row schedules the K1 gather and does nothing "
+                             "without use_pallas_gather")
 
     def _place_dense(self, dense_matrix, dense_dtype, use_pallas_gather, quantize,
                      corpus_on_host) -> None:
@@ -815,8 +820,10 @@ class RetrievalEngine:
                         query_axis=self._qaxis(b))
                     self.last_serve_path = "mesh-rerank" + ("-hybrid" if hybrid else "")
                 elif self.use_gather_kernel:
-                    dense_scores = gather_per_field_scores(qf, self.docs_flat, cand_t, fd)
-                    self.last_serve_path = f"singlechip-rerank-{hybrid}k1"
+                    dense_scores = gather_per_field_scores(
+                        qf, self.docs_flat, cand_t, fd, cross_row=self.pallas_cross_row)
+                    self.last_serve_path = (f"singlechip-rerank-{hybrid}k1"
+                                            + ("x" if self.pallas_cross_row else ""))
                 else:
                     rows = self.docs_flat[cand_t]  # [B, C, Fd*E]
                     dense_scores = per_field_candidate_scores(

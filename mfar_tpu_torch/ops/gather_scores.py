@@ -3,16 +3,23 @@ straight from the flat corpus.
 
     out[b, c, f] = sum_e q[b, e] * docs_flat[ids[b, c], f*E + e]   (f32)
 
-:func:`gather_per_field_scores` launches the hand-written CUDA kernel
+:func:`gather_per_field_scores` launches a hand-written CUDA kernel of
 ``mfar_tpu_torch/csrc/gather_scores.cu`` for tensors on the card; it replaces
 the TPU kernel ``mfar_tpu/ops/pallas_kernels.py::
-gather_per_field_scores_pallas``.  :func:`gather_per_field_scores_plain` is
-the same function in plain PyTorch: the wrapper uses it for CPU tensors only,
-and the tests and ``chip_smoke.py`` hold the kernel against it.
+gather_per_field_scores_pallas`` in its two schedules.  ``cross_row=False``
+launches K1, the row-local schedule (one warp a candidate; the TPU kernel's
+default prefetch).  ``cross_row=True`` launches K1x, the counterpart of the
+TPU kernel's ``cross_row_prefetch=True``: a persistent grid whose warps each
+walk a contiguous span of the flat candidate list in one order, across query
+rows, with the next row's ``cp.async`` copy in flight while the current row
+is scored.  Both compute the same function, bit for bit on the card.
+:func:`gather_per_field_scores_plain` is that function in plain PyTorch: the
+wrapper uses it for CPU tensors only, whichever schedule is asked for, and
+the tests and ``chip_smoke.py`` hold both kernels against it.
 
-The kernel reads the flat ``[N, F*E]`` corpus where it lies, so unlike the
-TPU kernel it needs no second (row-DMA view) corpus copy.  It is bound by
-the bytes of the candidate rows it reads; see the note in the source.
+The kernels read the flat ``[N, F*E]`` corpus where it lies, so unlike the
+TPU kernel they need no second (row-DMA view) corpus copy.  They are bound
+by the bytes of the candidate rows they read; see the note in the source.
 """
 
 from __future__ import annotations
@@ -41,8 +48,10 @@ def gather_per_field_scores_plain(
 
 
 @functools.cache
-def _kernel():
-    fn = _build.load("gather_scores").mfar_gather_per_field_scores
+def _kernel(cross_row: bool):
+    lib = _build.load("gather_scores")
+    fn = (lib.mfar_gather_per_field_scores_cross_row if cross_row
+          else lib.mfar_gather_per_field_scores)
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q docs ids out
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,  # B C N F E
@@ -52,14 +61,24 @@ def _kernel():
     return fn
 
 
+@functools.cache
+def _cross_row_smem_limit(device_index: int) -> int:
+    """Bytes of dynamic shared memory a block of K1x may use on the card."""
+    fn = _build.load("gather_scores").mfar_gather_cross_row_smem_limit
+    fn.argtypes, fn.restype = [], ctypes.c_longlong
+    return fn()
+
+
 def gather_per_field_scores(
     q: torch.Tensor,  # [B, E] f32, contiguous
     docs_flat: torch.Tensor,  # [N, F*E] f32 or bf16, contiguous
     cand_ids: torch.Tensor,  # [B, C] int64, contiguous; any C
     num_fields: int,
+    cross_row: bool = False,  # K1x's cross-row walk instead of K1's row-local grid
 ) -> torch.Tensor:  # [B, C, F] f32
-    """Per-field candidate scores: kernel K1 for CUDA tensors, the plain
-    version for CPU tensors.  Raises on anything the kernel does not take."""
+    """Per-field candidate scores: kernel K1 (or K1x with ``cross_row``) for
+    CUDA tensors, the plain version for CPU tensors.  Raises on anything the
+    kernel does not take."""
     if q.dim() != 2 or docs_flat.dim() != 2 or cand_ids.dim() != 2:
         raise ValueError(
             f"want q [B, E], docs_flat [N, F*E], cand_ids [B, C]; got "
@@ -99,24 +118,40 @@ def gather_per_field_scores(
         raise ValueError(f"unsupported device {q.device}")
     if q.data_ptr() % 16 or docs_flat.data_ptr() % 16:
         raise ValueError("q and docs_flat must start on a 16-byte boundary")
-    if b > 65535:
-        raise ValueError(f"B={b} exceeds the kernel's grid (65535 query rows)")
-    if e * 4 > 48 * 1024:
-        raise ValueError(f"E={e}: q[b] must fit 48 KB of shared memory")
+    if cross_row:
+        with torch.cuda.device(q.device):
+            limit = _cross_row_smem_limit(q.device.index or 0)
+        need = 2 * fe * docs_flat.element_size() + 4 * e  # a warp's two rows and q[b]
+        if need > limit:
+            raise ValueError(
+                f"K1x: one warp's two {docs_flat.dtype} rows of F={num_fields} x E={e} and "
+                f"q[b] take {need} bytes of shared memory; a block may use {limit}"
+            )
+    else:
+        if b > 65535:
+            raise ValueError(f"B={b} exceeds the kernel's grid (65535 query rows)")
+        if e * 4 > 48 * 1024:
+            raise ValueError(f"E={e}: q[b] must fit 48 KB of shared memory")
 
     c = cand_ids.shape[1]
     out = torch.empty((b, c, num_fields), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(
+        err = _kernel(bool(cross_row))(
             q.data_ptr(), docs_flat.data_ptr(), cand_ids.data_ptr(), out.data_ptr(),
             b, c, n, num_fields, e, _DTYPE_CODE[docs_flat.dtype], stream,
         )
+    name = "gather_scores_cross_row" if cross_row else "gather_scores"
     if err != 0:
-        raise RuntimeError(f"gather_scores kernel launch failed: CUDA error {err}")
-    gather_per_field_scores.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    if cross_row:
+        gather_per_field_scores.cross_row_launches += 1
+    else:
+        gather_per_field_scores.launches += 1
     return out
 
 
-# launches of the CUDA kernel (CPU calls of the plain version do not count)
+# launches of the CUDA kernels, K1 and K1x (CPU calls of the plain version do
+# not count)
 gather_per_field_scores.launches = 0
+gather_per_field_scores.cross_row_launches = 0

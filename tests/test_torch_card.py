@@ -100,6 +100,46 @@ def test_out_of_range_ids_score_nan(card):
     assert torch.isfinite(got).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 13, 512])
+def test_cross_row_kernel_matches_plain_and_k1(card, dtype, c):
+    """K1x, the cross-row schedule, against the plain version, and its bits
+    against K1's (the same lane assignment, fmaf order and shuffle tree);
+    it counts its own launches."""
+    q, docs, ids = _inputs(c, dtype)
+    before = (gather_per_field_scores.launches, gather_per_field_scores.cross_row_launches)
+    got = gather_per_field_scores(q, docs, ids, F, cross_row=True)
+    torch.cuda.synchronize()
+    assert (gather_per_field_scores.launches,
+            gather_per_field_scores.cross_row_launches) == (before[0], before[1] + 1)
+    torch.testing.assert_close(got, gather_per_field_scores_plain(q, docs, ids, F),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(got.view(torch.int32),
+                       gather_per_field_scores(q, docs, ids, F).view(torch.int32))
+
+
+def test_cross_row_out_of_range_ids_score_nan(card):
+    q, docs, ids = _inputs(8, torch.bfloat16)
+    ids[0, 0] = -1
+    ids[1, 5] = N
+    ids[2, 7] = N + 3
+    got = gather_per_field_scores(q, docs, ids, F, cross_row=True).cpu()
+    bad = [(0, 0), (1, 5), (2, 7)]
+    for i, j in bad:
+        assert torch.isnan(got[i, j]).all()
+        got[i, j] = 0
+    assert torch.isfinite(got).all()
+
+
+def test_cross_row_refuses_a_row_beyond_shared_memory(card):
+    """One warp's two rows and q[b] must fit a block's shared memory."""
+    q = torch.zeros(1, 4096, device=card)
+    docs = torch.zeros(2, 8 * 4096, device=card)  # 2 x 131072 B f32 rows
+    ids = torch.zeros(1, 1, dtype=torch.int64, device=card)
+    with pytest.raises(ValueError, match="K1x"):
+        gather_per_field_scores(q, docs, ids, 8, cross_row=True)
+
+
 def test_misaligned_corpus_raises(card):
     q, docs, ids = _inputs(8, torch.bfloat16)
     flat = torch.empty(N * F * E + 1, dtype=torch.bfloat16, device=card)
@@ -152,6 +192,14 @@ def test_engine_rerank_through_k1_matches_plain_gather(card):
     # and "auto" on a CUDA corpus K1 cannot read raises rather than falling back
     with pytest.raises(ValueError, match="K1 gather"):
         RetrievalEngine(mode="rerank", **{**kw, "dense_dtype": torch.float16})
+
+    # pallas_cross_row: stage 2 through K1x, the same lists as through K1
+    cross = RetrievalEngine(mode="rerank", pallas_cross_row=True, **kw)
+    before = (gather_per_field_scores.launches, gather_per_field_scores.cross_row_launches)
+    assert cross.retrieve_many(texts * 3, top_k=10, batch_size=4) == got
+    assert (gather_per_field_scores.launches,
+            gather_per_field_scores.cross_row_launches) == (before[0], before[1] + 3)
+    assert cross.last_serve_path == "singlechip-rerank-k1x"
 
 
 def test_hybrid_engine_on_the_card_matches_the_cpu(card):

@@ -213,14 +213,6 @@ def test_exact_engine_reranks_through_k1(world, serve):
     _agree(got, RetrievalEngine(mode="rerank", **world["port_kw"]).retrieve(qs, top_k=5))
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(pallas_cross_row=True), "B1"),
-])
-def test_unported_options_raise(world, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        RetrievalEngine(**{**world["port_kw"], **kw})
-
-
 @pytest.fixture
 def world_of_one(tmp_path):
     """A gloo world of this one process and a mesh over it, torn down after

@@ -284,14 +284,12 @@ def test_retrieve_accepts_the_jax_flag_set(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,err,item", [
-    (["--pallas-cross-row"], NotImplementedError, "B1"),
     (["--multihost", "force"], SystemExit, "MFAR_COORDINATOR"),
     (["--multihost", "pod"], SystemExit, "torchrun"),
 ])
 def test_retrieve_refuses_unported_engine_flags(data, tmp_path, monkeypatch, extra, err, item):
-    """An unported engine flag, and the multi-process modes without their
-    launcher's environment (the mesh itself runs in
-    tests/test_torch_multihost.py)."""
+    """The multi-process modes without their launcher's environment (the
+    mesh itself runs in tests/test_torch_multihost.py)."""
     _, dirs = data
     for var in ("MFAR_COORDINATOR", "MFAR_NUM_PROCESSES", "MFAR_PROCESS_ID", "RANK",
                 "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
