@@ -50,7 +50,10 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 weights), both written here, into .npz and .npy, read back
                 and held against the same weights built through K2; then
                 retrieve --mode rerank over the .npz with --pallas-cross-row
-                (K1x) against the run without it (K1)
+                (K1x) against the run without it (K1); the analysis scripts
+                on those run files (compare_results, find_failures at k 10)
+                and on the dataset (corpus_stats with the BERT directory and
+                with whitespace), each held to counts made here
 9. train     -- MFARModel at Contriever-base width on the e2e corpus: one
                 batch through K2/K2b against the plain path, Trainer.fit
                 (the counted main path of training), steps/s through K2/K2b
@@ -201,8 +204,10 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import math
 import os
@@ -253,6 +258,7 @@ from mfar_tpu_torch.models.t5_encoder import init_t5_encoder
 from mfar_tpu_torch.models.tokenizer import SimpleVocabTokenizer
 from mfar_tpu_torch.ops import _build
 from mfar_tpu_torch.parallel import tensor_parallel
+from mfar_tpu_torch.scripts import compare_results, corpus_stats, find_failures
 from mfar_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
@@ -1202,6 +1208,75 @@ def write_bert_dir(path, corpus, seed, **overrides):
     return cfg, len(words) + 5
 
 
+def script_output(main, argv) -> tuple:
+    """A script's ``main(argv)``: its stdout and its seconds."""
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue(), time.perf_counter() - t
+
+
+def ranked_run(path) -> dict:
+    """A run file's doc ids for each query, by sim, ties by doc id."""
+    rows = {}
+    for r in trec.QRes.from_file(path):
+        rows.setdefault(r.query_id, []).append((-r.sim, r.doc_id))
+    return {q: [doc for _, doc in sorted(v)] for q, v in rows.items()}
+
+
+def run_scripts(data, bert, runs, n_docs, k=10) -> dict:
+    """The analysis scripts as a user runs them on the card's run files
+    (``runs``: the --pallas-cross-row run, then the K1 run) and on the
+    dataset directory; each output held to a count made here from the same
+    files: the queries whose hit@k differs, the queries with gold outside
+    the top k but inside the list, and one row a field (the whitespace
+    percentiles, and the BERT tokenizer's untruncated counts) plus the
+    document count."""
+    gold = {}
+    for r in trec.QRels.from_file(os.path.join(data, "test.qrels")):
+        gold.setdefault(r.query_id, set()).add(r.doc_id)
+    ranked = [ranked_run(p) for p in runs]
+    hit = [{q: bool(g & set(rk.get(q, [])[:k])) for q, g in gold.items()} for rk in ranked]
+    want_differ = sum(hit[0][q] != hit[1][q] for q in gold)
+    want_fail = sum(q in ranked[1] and not hit[1][q] and bool(g & set(ranked[1][q][k:]))
+                    for q, g in gold.items())
+    secs = {}
+    out, secs["compare_results"] = script_output(compare_results.main, [
+        "--data-path", data, "--partition", "test", "--res1", runs[0], "--res2", runs[1],
+        "--k", str(k)])
+    differ = out.count(" has different results\n")
+    check(differ == want_differ and out.count("\n") == 4 * differ,
+          f"compare_results: {differ} queries differ, counted {want_differ}")
+    out, secs["find_failures"] = script_output(find_failures.main, [
+        "--data-path", data, "--partition", "test", "--qres-path", runs[1], "--k", str(k)])
+    fail = out.count("QUERY: ")
+    check(fail == want_fail and "not found in predictions" not in out
+          and out.count("\n") == 4 * fail,
+          f"find_failures: {fail} queries with gold past the top {k}, counted {want_fail}")
+
+    from tokenizers import Tokenizer
+
+    tok = Tokenizer.from_file(os.path.join(bert, "tokenizer.json"))
+    tok.no_truncation()
+    tok.no_padding()
+    pairs = list(trec.read_corpus(os.path.join(data, "corpus")))
+    fields = list(resolve_fields("all_dense", "mag").values())  # one field a name
+    argv = ["--corpus", data, "--dataset-name", "mag", "--field-names", "all_dense"]
+    for label, count in (("bert", lambda ts: [len(e.ids) for e in tok.encode_batch(ts)]),
+                         ("whitespace", lambda ts: [len(t.split()) for t in ts])):
+        out, secs[f"corpus_stats_{label}"] = script_output(
+            corpus_stats.main, argv + ["--tokenizer", bert if label == "bert" else label])
+        want = ["field," + ",".join(f"p{p}" for p in corpus_stats.PERCENTILES)]
+        for f in fields:
+            lengths = count([t for _, t in format_documents(pairs, f.name, f.dataset)])
+            want.append(f"{f.name}," + ",".join(str(int(np.ceil(np.percentile(lengths, p))))
+                                              for p in corpus_stats.PERCENTILES))
+        want.append(f"{n_docs} documents")
+        check(out.splitlines() == want, f"corpus_stats --tokenizer {label}: {out!r}")
+    return dict(secs=secs, differ=differ, failures=fail, fields=len(fields))
+
+
 def run_cli(seed, corpus, n_docs=512):
     """The command as a user runs it on a model directory: a dataset
     directory of the first ``n_docs`` documents (the reference's ``corpus``
@@ -1281,6 +1356,8 @@ def run_cli(seed, corpus, n_docs=512):
             runs[flag or "k1"] = [by_query[q] for q in sorted(by_query)]
         msg = rankings_agree(runs["--pallas-cross-row"], runs["k1"], E2E_RTOL, E2E_ATOL)
         check(msg is None, f"retrieve --pallas-cross-row vs without: {msg}")
+        scripts = run_scripts(data, bert, [os.path.join(d, "run_k1x.qres"),
+                                           os.path.join(d, "run.qres")], len(pairs), k=10)
     n_seq = n_docs * len(field_info)
     phase("cli", f"encode_corpus on the card with a local BERT directory (hidden "
                  f"{config.hidden_size} x {config.num_layers} layers, {config.dtype}, WordPiece "
@@ -1293,8 +1370,16 @@ def run_cli(seed, corpus, n_docs=512):
                  f"{retrieve_s['--pallas-cross-row']:.2f}s (K1x launches {k1x_launches}), "
                  f"without {retrieve_s['k1']:.2f}s (K1); the runs agree (identical: "
                  f"{runs['--pallas-cross-row'] == runs['k1']})")
+    secs = scripts["secs"]
+    phase("cli", f"scripts on those run files and the dataset: compare_results (run_k1x vs "
+                 f"run, k 10) {secs['compare_results']:.3f}s, {scripts['differ']} queries "
+                 f"differ; find_failures (run, k 10) {secs['find_failures']:.3f}s, "
+                 f"{scripts['failures']} queries with gold past the top 10; corpus_stats "
+                 f"(all_dense, {scripts['fields']} field rows + {n_docs} documents) with the "
+                 f"BERT directory {secs['corpus_stats_bert']:.3f}s, whitespace "
+                 f"{secs['corpus_stats_whitespace']:.3f}s; each equal to the counts made here")
     return dict(cli_s=cli_s, cli_k2_build_s=k2_s, cli_k1x_launches=k1x_launches,
-                cli_retrieve_s=retrieve_s)
+                cli_retrieve_s=retrieve_s, cli_scripts=scripts)
 
 
 # ----------------------------------------------------------------------

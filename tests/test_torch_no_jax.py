@@ -57,7 +57,11 @@ def test_importing_the_port_loads_no_jax():
             "mfar_tpu_torch.models.convert", "mfar_tpu_torch.parallel.mesh",
             "mfar_tpu_torch.parallel.topk", "mfar_tpu_torch.parallel.multihost",
             "mfar_tpu_torch.parallel.data_parallel",
-            "mfar_tpu_torch.parallel.tensor_parallel"} <= set(mods)
+            "mfar_tpu_torch.parallel.tensor_parallel", "mfar_tpu_torch.commands.stark",
+            "mfar_tpu_torch.commands.stark.stark_to_trec",
+            "mfar_tpu_torch.commands.stark.download_queries", "mfar_tpu_torch.scripts",
+            "mfar_tpu_torch.scripts.find_failures", "mfar_tpu_torch.scripts.compare_results",
+            "mfar_tpu_torch.scripts.corpus_stats"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
