@@ -35,6 +35,15 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 through the plain version; times of each kernel, the whole
                 backward, the plain backward and SDPA's backward, beside the
                 bounds
+5b. k2g      -- K2/K2b's CUDA-core route (csrc/flash_attention_simt.cu: f32,
+                or bf16 at a head dim other than 64) against the plain
+                versions, forward, logsumexp, dq (with di) and dkv: small
+                segment-id cases at D = 16, 32, 48, 64 (f32), 128, 136, 256
+                in f32 and bf16, then the main paths' shapes (f32 [256, 12,
+                512, 64] and [96, 12, 512, 64], D = 32 [256, 12, 512, 32] in
+                both dtypes and its bf16 backward at [96, 12, 512, 32], D = 16
+                [256, 4, 128, 16]); times of each kernel, the plain version
+                and SDPA with the boolean segment mask, beside the bound
 6. e2e       -- a synthetic mag-shaped corpus (2048 docs x 5 dense fields)
                 encoded by the full-width encoder with attention_impl="auto"
                 (the 512-token fields through K2), held against the same
@@ -97,6 +106,14 @@ Contriever-base and GTR-T5-base width with seeded random weights:
 11. train_cli -- the train command on a dataset directory and a BERT
                 directory, one iteration on the card, then retrieve
                 --checkpoint-dir on its output
+11b. f32     -- the CUDA-core route on the main paths: (a) Contriever-base
+                width in f32 (--precision 32) with attention "auto": the
+                build of the cli phase's 512 docs against plain attention's,
+                rerank (K1 on the f32 index) and exact against the
+                plain-attention engine, one train batch against the plain
+                path, Trainer.fit for 6 steps; (b) a BERT directory at
+                all-MiniLM-L6-v2's width (bf16, D = 32) through
+                prepare_model: the build against "xla", one train batch
 12. serving  -- the same engine over a prebuilt random [131072, 5, 768] bf16
                 corpus in rerank mode: QPS, one batch's stages, and the
                 device's busy share and time by kernel from torch.profiler
@@ -211,6 +228,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -267,6 +285,9 @@ from mfar_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_plain,
+    flash_attention_simt,
+    flash_attention_simt_bwd_dkv,
+    flash_attention_simt_bwd_dq,
     _row_dots,
 )
 from mfar_tpu_torch.ops.gather_scores import (
@@ -340,6 +361,19 @@ TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, TRAIN_MIN_COSINE = 1e-2, 5e-2, 0.99
 # the same state, batch and dropout masks through deterministic kernels
 # (K2/K2b use no atomics); any difference is the order of cuBLAS's sums.
 CKPT_ATOL = 1e-6
+# K2/K2b's CUDA-core route (f32, or bf16 at D != 64) against the plain
+# version, in f32: both take f32 products in f32 FMA (TF32 off) and sum them
+# in other orders; the output within 2e-5, the logsumexp within 1e-5, each
+# gradient within 2e-5 of its largest entry.  In bf16 the K2 and K2b gates
+# above hold.
+K2G_ATOL, K2G_LSE_ATOL, K2G_GRAD_REL = 2e-5, 1e-5, 2e-5
+# The slice's f32 path against plain attention on the same weights: the
+# f32 index within 1e-4 (max abs) of the "xla"-built one; one train batch's
+# loss within 1e-5 relative, its gradient norm within 1e-4 relative and each
+# group's gradient cosine >= 0.9999 (f32 through 12 layers, attention
+# summed in another order)
+F32_INDEX_ATOL = 1e-4
+F32_LOSS_RTOL, F32_NORM_RTOL, F32_MIN_COSINE = 1e-5, 1e-4, 0.9999
 
 
 def check(cond: bool, msg: str) -> None:
@@ -551,19 +585,25 @@ def library_attention(q, k, v, seg, scale):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=same, scale=scale)
 
 
+def flops_rate(q) -> float:
+    """The card's rate for the products' arithmetic: the bf16 tensor cores
+    for bf16 inputs, f32 FMA on the CUDA cores for f32 (TF32 would not keep
+    f32 products)."""
+    return F32_FLOPS_PER_S if q.dtype == torch.float32 else BF16_FLOPS_PER_S
+
+
 def k2_bound(q, seg, lse=False):
     """Least time for K2's work on these inputs: q/k/v read once, the output
     (and with ``lse`` the f32 row logsumexp) written once, the segment ids
-    read once, over the memory rate, against the two products' bf16
-    operations over the tensor-core rate, counted for the same-segment
-    (query, key) pairs only (all the masked pairs add nothing); the larger
-    one bounds it.  Returns (ms, bound_by, the bytes time, the operations
-    time)."""
+    read once, over the memory rate, against the two products' operations
+    over ``flops_rate``, counted for the same-segment (query, key) pairs
+    only (all the masked pairs add nothing); the larger one bounds it.
+    Returns (ms, bound_by, the bytes time, the operations time)."""
     b, h, s, d = q.shape
     nbytes = 4 * b * h * s * d * q.element_size() + seg.numel() * 4 + lse * b * h * s * 4
     pairs = sum((r[:, None] == r[None, :]).sum().item() for r in seg)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * h * d * pairs / BF16_FLOPS_PER_S * 1e3
+    t_ops = 4 * h * d * pairs / flops_rate(q) * 1e3
     if t_bytes >= t_ops:
         return t_bytes, "bytes", t_bytes, t_ops
     return t_ops, "operations", t_bytes, t_ops
@@ -699,8 +739,8 @@ def run_k2(seed: int, build_shape=(256, 12, 512), train_shape=(96, 12, 512)) -> 
 
 def k2b_bound(q, seg):
     """Least times for K2b's work on these inputs, each the larger of its
-    bytes over the memory rate and its bf16 operations (counted for the
-    same-segment (query, key) pairs only) over the tensor-core rate:
+    bytes over the memory rate and its operations (counted for the
+    same-segment (query, key) pairs only) over ``flops_rate``:
     dq reads q, k, v, o, dO (bf16), lse (f32) and the segment ids and writes
     dq (bf16) and di (f32), three products; dkv reads q, k, v, dO, lse, di
     and the segment ids and writes dk and dv, four products; the whole
@@ -715,7 +755,7 @@ def k2b_bound(q, seg):
                                      ("dkv", 6 * tensor + 2 * rows, 4),
                                      ("bwd", 8 * tensor + rows, 5)):
         t_bytes = (nbytes + seg.numel() * 4) / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * n_products * h * d * pairs / BF16_FLOPS_PER_S * 1e3
+        t_ops = 2 * n_products * h * d * pairs / flops_rate(q) * 1e3
         out[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     return out
 
@@ -881,6 +921,207 @@ def run_k2b(seed: int, train_shape=(96, 12, 512)) -> dict:
                  f"{r['library_bwd_ms']:.4f}; K2 forward+backward through autograd "
                  f"{r['fwd_bwd_ms']:.4f}, SDPA forward+backward {r['library_fwd_bwd_ms']:.4f}; "
                  f"dO copies {flash_attention_bwd.dout_copies}")
+    return r
+
+
+# ----------------------------------------------------------------------
+# phase 5b: K2/K2b's CUDA-core route (f32, or bf16 at a head dim != 64)
+
+
+def simt_counts() -> tuple:
+    return (flash_attention_simt.launches, flash_attention_simt_bwd_dkv.launches,
+            flash_attention_simt_bwd_dq.launches)
+
+
+def reset_simt_counts() -> None:
+    flash_attention_simt.launches = 0
+    flash_attention_simt_bwd_dkv.launches = flash_attention_simt_bwd_dq.launches = 0
+
+
+def k2g_inputs(gen, b, h, s, d, dtype, rows):
+    """k2b_inputs at head dim ``d`` and ``dtype``: q/k/v and dO as strided
+    [B, H, S, d] views of [B, S, H*d] buffers, and int32 segment ids (each
+    entry of ``rows`` a valid length or a list of S ids)."""
+    q, k, v, dout = (torch.randn(b, s, h * d, device=DEVICE, generator=gen).to(dtype)
+                     .view(b, s, h, d).transpose(1, 2) for _ in range(4))
+    seg = torch.zeros(b, s, dtype=torch.int32, device=DEVICE)
+    for i, r in enumerate(rows):
+        if isinstance(r, int):
+            seg[i, :r] = 1
+        else:
+            seg[i] = torch.as_tensor(r, dtype=torch.int32, device=DEVICE)
+    return q, k, v, seg, dout
+
+
+def check_k2g(q, k, v, seg, dout, label, grads=True) -> dict:
+    """The CUDA-core kernels against their plain versions: the forward with
+    and without the logsumexp (the same output bits), the logsumexp, and
+    with ``grads`` the backward (dq writing di, then dkv) and di, under the
+    f32 gates (K2G_*) or the bf16 ones (K2, K2b).  Checks that only the
+    CUDA-core kernels launched.  Returns the largest absolute errors (fwd,
+    lse, dq, dkv) and the largest gradient error relative to the largest
+    gradient."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    f32 = q.dtype == torch.float32
+    before, wgmma = simt_counts(), counts()
+    got = flash_attention(q, k, v, seg, scale)
+    out, lse = flash_attention_fwd(q, k, v, seg, scale)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, seg, scale)
+    err = (got.float() - want.float()).abs().max().item()
+    ok = err <= K2G_ATOL if f32 else torch.allclose(got.float(), want.float(), rtol=K2_RTOL,
+                                                    atol=K2_ATOL)
+    check(ok, f"CUDA-core K2 {label}: max abs err {err}")
+    check(torch.equal(got, out), f"CUDA-core K2 {label}: the logsumexp changed output bits")
+    check(got.dtype == q.dtype and got.transpose(1, 2).is_contiguous(), f"K2 {label} layout")
+    lse_err = (lse - masked_logsumexp(q, k, seg, scale)).abs().max().item()
+    check(lse_err <= (K2G_LSE_ATOL if f32 else K2B_LSE_ATOL),
+          f"CUDA-core K2 logsumexp {label}: max abs err {lse_err}")
+    r = {"fwd": err, "lse": lse_err, "dq": 0.0, "dkv": 0.0, "rel": 0.0}
+    if grads:
+        g = flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
+        torch.cuda.synchronize()
+        w = flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale)
+        for name, a, b in zip(("dq", "dk", "dv"), g, w):
+            check(a.dtype == q.dtype and a.transpose(1, 2).is_contiguous(), f"{name} {label}")
+            a, b = a.float(), b.float()
+            top = b.abs().max().item()
+            e = (a - b).abs().max().item()
+            ok = e <= K2G_GRAD_REL * top if f32 else torch.allclose(
+                a, b, rtol=K2B_RTOL, atol=K2B_ATOL_REL * top)
+            check(ok and bool(torch.isfinite(a).all()),
+                  f"CUDA-core K2b {name} {label}: max abs err {e} (max |want| {top})")
+            kernel = "dq" if name == "dq" else "dkv"
+            r[kernel], r["rel"] = max(r[kernel], e), max(r["rel"], e / top)
+        dq, di = flash_attention_simt_bwd_dq(q, k, v, seg, lse, out, dout, scale)
+        want_di = _row_dots(out, dout)
+        di_err = (di - want_di).abs().max().item()
+        check(torch.allclose(di, want_di, rtol=K2B_DI_RTOL,
+                             atol=K2B_DI_ATOL_REL * want_di.abs().max().item()),
+              f"CUDA-core dq's di {label}: max abs err {di_err}")
+        check(torch.equal(dq, g[0]), f"CUDA-core dq {label}: two runs differ")
+    after = simt_counts()  # dq twice with grads: the backward, then di's check
+    check(counts() == wgmma and after == (before[0] + 2, before[1] + grads, before[2] + 2 * grads),
+          f"{label}: launched CUDA-core {after} from {before}, wgmma {counts()} from {wgmma}")
+    return r
+
+
+# small cases of every bucket of head dims, with the segment layouts of
+# phases k2 and k2b: several segments, ids that return after another
+# segment, interleaved ids against a tile of one id, a row of one id, ragged
+# pads, S = 128 and 384, B = 1, H = 1; D = 48 and 136 fall inside a bucket
+K2G_CASES = [
+    (1, 1, 128, [[1] * 40 + [0] * 30 + [2] * 58]),
+    (3, 2, 256, [[0, 2] * 32 + [1] * 64 + [2] * 128, [7] * 256,
+                 [0] * 64 + [3] * 64 + [0] * 64 + [3] * 64]),
+    (2, 3, 384, [2, 200]),
+]
+K2G_DIMS = {torch.float32: (16, 32, 48, 64, 128, 136, 256),
+            torch.bfloat16: (16, 32, 48, 128, 136, 256)}
+
+
+def k2g_times(q, k, v, seg, dout=None, lse_shape=False) -> dict:
+    """CUDA-event times of the CUDA-core forward (with the logsumexp when
+    ``lse_shape``), its plain version and SDPA with the boolean segment mask
+    (the library yardstick); with ``dout`` also dq, dkv, the plain backward
+    and SDPA's backward; each beside its bound."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    slow = dict(reps=5, inner=2)
+    if lse_shape:
+        fwd = lambda: flash_attention_fwd(q, k, v, seg, scale)
+    else:
+        fwd = lambda: flash_attention(q, k, v, seg, scale)
+    bound = k2_bound(q, seg, lse=lse_shape)
+    r = dict(ms=time_cuda(fwd, reps=11, inner=3),
+             plain_ms=time_cuda(lambda: flash_attention_plain(q, k, v, seg, scale), **slow),
+             library_ms=time_cuda(lambda: library_attention(q, k, v, seg, scale), **slow),
+             bound_ms=bound[0], bound_by=bound[1])
+    if dout is not None:
+        out, lse = flash_attention_fwd(q, k, v, seg, scale)
+        _, di = flash_attention_simt_bwd_dq(q, k, v, seg, lse, out, dout, scale)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_out = library_attention(*leaves, seg, scale)
+        r.update(
+            dq_ms=time_cuda(lambda: flash_attention_simt_bwd_dq(q, k, v, seg, lse, out, dout,
+                                                                scale), reps=11, inner=3),
+            dkv_ms=time_cuda(lambda: flash_attention_simt_bwd_dkv(q, k, v, seg, lse, di, dout,
+                                                                  scale), reps=11, inner=3),
+            plain_bwd_ms=time_cuda(lambda: flash_attention_bwd_plain(
+                q, k, v, seg, out, lse, dout, scale), **slow),
+            library_bwd_ms=time_cuda(lambda: torch.autograd.grad(
+                lib_out, leaves, dout, retain_graph=True), **slow))
+        for name, (ms, by) in k2b_bound(q, seg).items():
+            r[f"{name}_bound_ms"], r[f"{name}_bound_by"] = ms, by
+        del lib_out, leaves
+    return r
+
+
+def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
+    """K2/K2b's CUDA-core route against the plain versions on the card: the
+    small cases at every head-dim bucket in f32 and bf16, then the shapes of
+    the main paths: f32 at the build's [256, 12, 512, 64] (forward) and the
+    train step's [96, 12, 512, 64] (with the logsumexp, and the backward),
+    all-MiniLM-L6-v2's D = 32 at [256, 12, 512, 32] in bf16 and f32 and its
+    backward at [96, 12, 512, 32] in bf16, and EncoderConfig.tiny's
+    [256, 4, 128, 16] in both; CUDA-event times of each beside its bound,
+    the plain version and SDPA."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
+    err = {"fwd": 0.0, "lse": 0.0, "dq": 0.0, "dkv": 0.0, "rel": 0.0}
+    f32_err = dict(err)
+
+    def hold(r, dtype):
+        for key in err:
+            err[key] = max(err[key], r[key])
+            if dtype == torch.float32:
+                f32_err[key] = max(f32_err[key], r[key])
+
+    for dtype, dims in K2G_DIMS.items():
+        for d in dims:
+            for b, h, s, rows in K2G_CASES:
+                label = f"{dtype} D={d} B={b} H={h} S={s}"
+                hold(check_k2g(*k2g_inputs(gen, b, h, s, d, dtype, rows), label), dtype)
+    phase("k2g", f"small cases (S=128/256/384, B=1, H=1, several segments, interleaved ids, "
+                 f"one-segment rows, ragged pads) at D={K2G_DIMS[torch.float32]} in f32 and "
+                 f"D={K2G_DIMS[torch.bfloat16]} in bf16 agree: f32 max abs err forward "
+                 f"{f32_err['fwd']:.3g} (atol {K2G_ATOL}), logsumexp {f32_err['lse']:.3g} "
+                 f"(atol {K2G_LSE_ATOL}), gradients {f32_err['rel']:.3g} of the largest (gate "
+                 f"{K2G_GRAD_REL}); bf16 within the K2/K2b gates; only the CUDA-core kernels "
+                 f"launched")
+
+    def lengths(n, s, salt):
+        out = np.random.default_rng(seed + salt).integers(2, s + 1, size=n)
+        out[0], out[1] = s, 2  # a full row and a row of 2 valid tokens
+        return out.tolist()
+
+    r, lines = {}, []
+    b, h, s = build
+    for dtype, d, key in ((torch.float32, 64, "f32"), (torch.bfloat16, 32, "bf16_d32"),
+                          (torch.float32, 32, "f32_d32")):
+        q, k, v, seg, _ = k2g_inputs(gen, b, h, s, d, dtype, lengths(b, s, 0))
+        hold(check_k2g(q, k, v, seg, None, f"at {list(q.shape)} {dtype}", grads=False), dtype)
+        if key != "f32_d32":
+            r[key] = k2g_times(q, k, v, seg)
+            lines.append(f"{key} {list(q.shape)}: {r[key]}")
+        del q, k, v, seg
+    b, h, s = train
+    for dtype, d, key in ((torch.float32, 64, "f32_train"), (torch.bfloat16, 32, "bf16_d32_train")):
+        q, k, v, seg, dout = k2g_inputs(gen, b, h, s, d, dtype, lengths(b, s, 5))
+        hold(check_k2g(q, k, v, seg, dout, f"at {list(q.shape)} {dtype}"), dtype)
+        r[key] = k2g_times(q, k, v, seg, dout, lse_shape=True)
+        lines.append(f"{key} {list(q.shape)} (forward with the logsumexp): {r[key]}")
+        del q, k, v, seg, dout
+    for dtype, key in ((torch.bfloat16, "bf16_d16"), (torch.float32, "f32_d16")):
+        q, k, v, seg, dout = k2g_inputs(gen, 256, 4, 128, 16, dtype, lengths(256, 128, 9))
+        hold(check_k2g(q, k, v, seg, dout, f"at {list(q.shape)} {dtype}"), dtype)
+        r[key] = k2g_times(q, k, v, seg)
+        lines.append(f"{key} {list(q.shape)}: {r[key]}")
+        del q, k, v, seg, dout
+    phase("k2g", f"main-path shapes agree (f32 max abs err forward {f32_err['fwd']:.3g}, "
+                 f"logsumexp {f32_err['lse']:.3g}, gradients {f32_err['rel']:.3g} of the "
+                 f"largest); times in ms ({CARD}): " + "; ".join(lines))
+    r.update(max_abs_err=err["fwd"], dq_max_abs_err=err["dq"], dkv_max_abs_err=err["dkv"],
+             f32_max_abs_err=f32_err["fwd"], f32_lse_max_abs_err=f32_err["lse"],
+             f32_grad_rel_err=f32_err["rel"])
     return r
 
 
@@ -2036,9 +2277,12 @@ def tp_step(spec, mesh, cfg, opt, batch, vb) -> dict:
     vlocal, vshard = shard_batch(vb, mesh)
     out = {"model": mesh.size("model")}
     if mesh.rank == 0:
-        # one card in f32 (plain attention): where bf16 rounding takes both
-        f32 = init_state(train_model(dataclasses.replace(cfg, dtype=torch.float32)), opt,
-                         seed=spec["seed"], device=DEVICE)
+        # one card in f32 (plain attention, which "auto" no longer gives an
+        # f32 BERT): where bf16 rounding takes both
+        f32_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        if isinstance(cfg, EncoderConfig):
+            f32_cfg = dataclasses.replace(f32_cfg, attention_impl="xla")
+        f32 = init_state(train_model(f32_cfg), opt, seed=spec["seed"], device=DEVICE)
         f32_loss = compute_gradients(f32, to_device(batch, dev)).item()
         f32_grads = by_group(f32.model, {n: p.grad for n, p in f32.model.named_parameters()})
         del f32
@@ -2577,6 +2821,240 @@ def run_train_cli(seed, corpus, n_docs=512):
                        f"--checkpoint-dir on its output: {retrieve_s:.1f}s, "
                        f"{min(100, len(pairs))} hits for each of {len(by_query)} queries")
     return dict(train_cli_s=train_s, retrieve_ckpt_s=retrieve_s)
+
+
+# ----------------------------------------------------------------------
+# phase 11b: K2/K2b's CUDA-core route on the main paths (f32, and D = 32)
+
+# all-MiniLM-L6-v2's published config.json (sentence-transformers): hidden
+# 384, 6 layers, 12 heads (D = 32), intermediate 1536, BERT's 30522-word
+# vocabulary, 512 positions
+MINILM_WIDTH = dict(hidden_size=384, num_layers=6, num_heads=12, intermediate_size=1536,
+                    vocab_size=30522, max_position_embeddings=512)
+
+
+def one_batch_against_plain(model, plain, batch, seed, label):
+    """One train batch through ``model`` ("auto": the CUDA-core kernels)
+    and ``plain`` (the same weights, "xla"): loss, gradient norm and each
+    optimizer group's gradient cosine.  Returns them and the CUDA-core
+    launches of the first."""
+    reset_counts()
+    reset_simt_counts()
+    loss, norm, grads = loss_and_grads(model, batch, seed)
+    launched = simt_counts()
+    check(counts() == (0, 0, 0), f"{label}: the wgmma kernels launched {counts()}")
+    reset_simt_counts()
+    loss_pl, norm_pl, grads_pl = loss_and_grads(plain, batch, seed)
+    check(simt_counts() == (0, 0, 0), f"{label}: the plain path launched {simt_counts()}")
+    cos = {k: F.cosine_similarity(grads[k], grads_pl[k], dim=0).item() for k in grads}
+    return loss, loss_pl, norm, norm_pl, cos, launched
+
+
+def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries=64):
+    """K2/K2b's CUDA-core route through the entry points a user calls.
+
+    (a) Contriever-base width in f32 (``--precision 32``: hidden 768, 12
+    layers, 12 heads, D = 64; seeded weights) with ``attention_impl="auto"``:
+    the index build of the cli phase's ``n_docs`` documents (the 512-token
+    fields through the f32 forward) against the same weights built with
+    plain attention; rerank (K1 on the f32 index) and exact serving with the
+    f32 "auto" query encoder against the plain-attention engine; one train
+    batch against the plain path; ``Trainer.fit`` for ``steps`` steps at
+    ``batch`` (attention dropout 0; the f32 forward and both f32 backward
+    kernels).  (b) A BERT at all-MiniLM-L6-v2's width in bf16 (D = 32),
+    written as a local directory with seeded weights and loaded through
+    ``prepare_model``, set to "auto": the same documents' build against
+    "xla", and one train batch against the plain path.  Every count is set
+    to 0 just before each main-path run and read just after."""
+    pairs = list(corpus.pairs())[:n_docs]
+    sub = Corpus.from_pairs(pairs, dataset_name="mag")
+    field_info = resolve_fields("all_dense", "mag")
+    n_long = sum(f.max_seq_length >= 128 and f.max_seq_length % 128 == 0
+                 for f in field_info.values())
+    batches = math.ceil(n_docs / 256)
+    rng = np.random.default_rng(seed + 7)
+
+    # (a) the index build in f32, through the CUDA-core forward and plain
+    cfg = EncoderConfig.contriever_base(vocab_size=tok.vocab_size, dtype=torch.float32,
+                                        attention_impl="auto")
+    encoder = init_encoder(cfg, seed=seed + 7)
+    plain = Encoder(dataclasses.replace(cfg, attention_impl="xla"))
+    plain.load_state_dict(encoder.state_dict())
+    encode, encode_plain = make_encode_fn(encoder, device=DEVICE), make_encode_fn(plain,
+                                                                                 device=DEVICE)
+    warm = tok.encode_batch(["w1 w2"] * 256, 512, bucket=False)
+    for fn in (encode, encode_plain):
+        fn(warm["input_ids"], warm["attention_mask"])
+    torch.cuda.synchronize()
+    reset_counts()
+    reset_simt_counts()
+    matrix, build_s = timed_build(encode, tok, sub, field_info)
+    build_launches = simt_counts()[0]
+    want_launches = cfg.num_layers * n_long * batches
+    check(build_launches == want_launches and counts() == (0, 0, 0),
+          f"the f32 build launched CUDA-core K2 {build_launches} times (want {want_launches}), "
+          f"wgmma {counts()}")
+    want, plain_s = timed_build(encode_plain, tok, sub, field_info)
+    check(simt_counts()[0] == build_launches, "the plain-attention build launched K2")
+    check(matrix.dtype == np.float32 and bool(np.isfinite(matrix).all()),
+          f"f32 matrix {matrix.dtype}")
+    index_err = float(np.abs(np.asarray(matrix) - np.asarray(want)).max())
+    check(index_err <= F32_INDEX_ATOL, f"f32 build vs xla build: max abs err {index_err}")
+    n_seq = n_docs * len(field_info)
+    phase("f32", f"(a) Contriever-base width in f32 (hidden {cfg.hidden_size} x "
+                 f"{cfg.num_layers} layers, {cfg.num_heads} heads, D = "
+                 f"{cfg.hidden_size // cfg.num_heads}), attention auto: index build of "
+                 f"{n_docs} docs x {len(field_info)} fields through the CUDA-core K2 "
+                 f"{build_s:.2f}s ({n_seq / build_s:.0f} field-docs/s, {build_launches} "
+                 f"launches), plain attention {plain_s:.2f}s; max abs err against the xla "
+                 f"build {index_err:.3g} (atol {F32_INDEX_ATOL})")
+
+    # (a) rerank (K1 on the f32 index) and exact, against the plain-attention engine
+    mixer = {"weight": rng.normal(scale=0.05, size=(cfg.hidden_size, len(field_info)))
+             .astype(np.float32)}
+    # recall_k = n_docs: stage 1 keeps every document, so the two engines'
+    # rerank lists differ only by their scores (two indexes within 1e-4), not
+    # by which documents a stage-1 boundary let through
+    kw = dict(field_info=field_info, doc_keys=[k for k, _ in pairs], tokenizer=tok,
+              mixer_params=mixer, recall_k=n_docs, dense_dtype=torch.float32, device=DEVICE)
+    engine = RetrievalEngine(mode="rerank", encode_fn=encode, dense_matrix=matrix, **kw)
+    reference = RetrievalEngine(mode="rerank", encode_fn=encode_plain, dense_matrix=want,
+                                use_pallas_gather=False, **kw)
+    qs, served = queries[:n_queries], []
+    for mode, path in (("rerank", "singlechip-rerank-k1"), ("exact", "singlechip-dense")):
+        gather_per_field_scores.launches = 0
+        got, secs = timed_run(engine, qs, mode, 64)
+        check(engine.last_serve_path == path, f"f32 {mode}: path {engine.last_serve_path}")
+        check((gather_per_field_scores.launches > 0) == (mode == "rerank"),
+              f"f32 {mode}: K1 launches {gather_per_field_scores.launches}")
+        check_results(got, len(qs), min(100, n_docs))
+        msg = rankings_agree(got, reference.retrieve_many(qs, top_k=100, mode=mode,
+                                                          batch_size=64), E2E_RTOL, E2E_ATOL)
+        check(msg is None, f"f32 {mode} vs the plain-attention engine: {msg}")
+        served.append(f"{mode} {len(qs) / secs:.1f} QPS (path {path})")
+    del engine, reference, plain, encode_plain
+    phase("f32", f"(a) serving over the f32 index, {len(qs)} queries of 12 words: "
+                 f"{', '.join(served)}; each == the plain-attention engine (rtol {E2E_RTOL}, "
+                 f"atol {E2E_ATOL}, ties allowed)")
+
+    # (a) training in f32: one batch against the plain path, then Trainer.fit
+    (train_q, train_r), (val_q, val_r) = mag_splits(pairs, (steps * batch, 2 * batch), rng)
+    sampler = IndexNegativeSampler(load_negative_sampler_index(sub, None, "mag"), 100, 50, 1)
+    train_ds, val_ds = (ContrastiveDataset(q, sub, r, sampler, field_info, tok)
+                        for q, r in ((train_q, train_r), (val_q, val_r)))
+    tcfg = dataclasses.replace(cfg, attention_dropout=0.0, remat=True)
+    opt = make_optimizer(encoder_lr=1e-4, weights_lr=0.1)
+    state = init_state(train_model(tcfg), opt, seed=seed, device=DEVICE)
+    state.model.encoder.load_state_dict(encoder.state_dict())
+    del encoder, encode
+    one = to_device(strip_meta(next(train_ds.epoch_batches(batch, seed=seed))),
+                    torch.device(DEVICE))
+    n_flash = flash_groups(one)
+    plain_model = train_model(dataclasses.replace(tcfg, attention_impl="xla"),
+                              state.model.state_dict()).to(DEVICE)
+    loss, loss_pl, norm, norm_pl, cos, launched = one_batch_against_plain(
+        state.model, plain_model, one, seed, "f32 train batch")
+    del plain_model
+    layers = tcfg.num_layers
+    check(launched == (2 * layers * n_flash, layers * n_flash, layers * n_flash),
+          f"one f32 batch launched CUDA-core K2/dkv/dq {launched} ({n_flash} groups)")
+    check(abs(loss - loss_pl) <= F32_LOSS_RTOL * abs(loss_pl), f"f32 loss {loss} vs {loss_pl}")
+    check(abs(norm - norm_pl) <= F32_NORM_RTOL * norm_pl, f"f32 grad norm {norm} vs {norm_pl}")
+    check(min(cos.values()) >= F32_MIN_COSINE, f"f32 gradient cosines {cos}")
+    with tempfile.TemporaryDirectory() as d:
+        trec.write_qrels(os.path.join(d, "val.qrels"), val_r)
+        trainer = Trainer(tok, field_info, sub, train_ds, val_ds, val_q,
+                          os.path.join(d, "val.qrels"),
+                          TrainerConfig(out_dir=d, max_epochs=1, train_batch_size=batch,
+                                        seed=seed, query_max_length=512))
+        torch.cuda.synchronize()
+        reset_counts()
+        reset_simt_counts()
+        t = time.perf_counter()
+        state = trainer.fit(state)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+        fit_launches = simt_counts()
+        check(counts() == (0, 0, 0), f"f32 fit launched wgmma kernels {counts()}")
+        check(state.step == steps, f"f32 fit ran {state.step} steps")
+        check(fit_launches[1] == fit_launches[2] >= layers * steps
+              and fit_launches[0] >= 2 * fit_launches[1], f"f32 fit launched {fit_launches}")
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            logged = [json.loads(ln) for ln in f if '"train_loss"' in ln]
+        fit_loss = [(r["train_loss"], r["valid_loss"]) for r in logged]
+        check(bool(fit_loss) and all(math.isfinite(x) for pair in fit_loss for x in pair),
+              f"f32 fit losses {fit_loss}")
+    del state, trainer
+    torch.cuda.empty_cache()
+    phase("f32", f"(a) one f32 train batch (batch {batch}, attention dropout 0, remat) "
+                 f"through the CUDA-core K2/K2b vs plain attention: loss {loss:.8f} vs "
+                 f"{loss_pl:.8f}, grad_norm {norm:.6f} vs {norm_pl:.6f}, gradient cosine "
+                 f"encoder {cos['encoder']:.7f} head {cos['head']:.7f} (gates: loss rtol "
+                 f"{F32_LOSS_RTOL}, norm rtol {F32_NORM_RTOL}, cosine >= {F32_MIN_COSINE}); "
+                 f"launches K2/dkv/dq {launched}; Trainer.fit {steps} steps in {fit_s:.1f}s "
+                 f"with validation and a checkpoint, (train, valid) loss {fit_loss}, "
+                 f"launches K2/dkv/dq {fit_launches}")
+
+    # (b) a BERT directory at all-MiniLM-L6-v2's width in bf16 (D = 32)
+    with tempfile.TemporaryDirectory() as d:
+        write_bert_dir(d, sub, seed + 9, **MINILM_WIDTH)
+        config, state_dict, mtok = prepare_model(d)
+        check(config.hidden_size // config.num_heads == 32 and config.dtype == torch.bfloat16
+              and config.num_layers == 6, f"prepare_model gave {config}")
+        mini = Encoder(dataclasses.replace(config, attention_impl="auto"))
+        mini.load_state_dict(state_dict)
+        xla = Encoder(dataclasses.replace(config, attention_impl="xla"))
+        xla.load_state_dict(state_dict)
+        encode, encode_xla = make_encode_fn(mini, device=DEVICE), make_encode_fn(xla, device=DEVICE)
+        encode_xla(warm["input_ids"][:, :128], warm["attention_mask"][:, :128])
+        reset_counts()
+        reset_simt_counts()
+        m_matrix, m_s = timed_build(encode, mtok, sub, field_info)
+        m_launches = simt_counts()[0]
+        check(m_launches == config.num_layers * n_long * batches and counts() == (0, 0, 0),
+              f"the MiniLM-width build launched CUDA-core K2 {m_launches} times, wgmma {counts()}")
+        m_want, m_plain_s = timed_build(encode_xla, mtok, sub, field_info)
+        agree = index_agreement(m_matrix, m_want, "MiniLM-width bf16 build vs xla")
+        del mini, xla, encode, encode_xla
+        mtrain = ContrastiveDataset(train_q, sub, train_r, sampler, field_info, mtok)
+        mb = to_device(strip_meta(next(mtrain.epoch_batches(batch, seed=seed))),
+                       torch.device(DEVICE))
+        mcfg = dataclasses.replace(config, attention_impl="auto", attention_dropout=0.0, remat=True)
+        model = train_model(mcfg)
+        model.encoder.load_state_dict(state_dict)
+        model = model.to(DEVICE)
+        plain_model = train_model(dataclasses.replace(mcfg, attention_impl="xla"),
+                                  model.state_dict()).to(DEVICE)
+        m_loss, m_loss_pl, m_norm, m_norm_pl, m_cos, m_launched = one_batch_against_plain(
+            model, plain_model, mb, seed, "MiniLM-width train batch")
+        del model, plain_model
+        n_flash = flash_groups(mb)
+        check(m_launched == (2 * 6 * n_flash, 6 * n_flash, 6 * n_flash),
+              f"one MiniLM-width batch launched CUDA-core K2/dkv/dq {m_launched}")
+        check(abs(m_loss - m_loss_pl) <= TRAIN_LOSS_RTOL * abs(m_loss_pl)
+              and abs(m_norm - m_norm_pl) <= TRAIN_NORM_RTOL * m_norm_pl
+              and min(m_cos.values()) >= TRAIN_MIN_COSINE,
+              f"MiniLM-width batch: loss {m_loss} vs {m_loss_pl}, norm {m_norm} vs {m_norm_pl}, "
+              f"cosines {m_cos}")
+        phase("f32", f"(b) a BERT directory at all-MiniLM-L6-v2's width (hidden "
+                     f"{config.hidden_size} x {config.num_layers} layers, {config.num_heads} "
+                     f"heads, "
+                     f"D = 32, intermediate {config.intermediate_size}, {config.dtype}; WordPiece "
+                     f"vocab {mtok.vocab_size}), attention auto: build of {n_docs} docs through "
+                     f"the CUDA-core K2 {m_s:.2f}s ({m_launches} launches), xla {m_plain_s:.2f}s; "
+                     f"against the xla build: {agree}; one train batch vs plain: loss "
+                     f"{m_loss:.6f} vs {m_loss_pl:.6f}, grad_norm {m_norm:.5f} vs {m_norm_pl:.5f}, "
+                     f"cosine encoder {m_cos['encoder']:.6f} head {m_cos['head']:.6f} (the bf16 "
+                     f"train gates); launches K2/dkv/dq {m_launched}")
+    torch.cuda.empty_cache()
+    return dict(f32_build_s=build_s, f32_plain_build_s=plain_s, f32_index_err=index_err,
+                f32_fit_s=fit_s, f32_batch=dict(loss=loss, loss_plain=loss_pl, norm=norm,
+                                                norm_plain=norm_pl, cos=cos),
+                minilm_build_s=m_s, minilm_xla_build_s=m_plain_s,
+                # the main paths' CUDA-core launches: the two builds, Trainer.fit and
+                # the MiniLM-width batch (the f32 batch is a check beside fit)
+                f32_launches=(build_launches + fit_launches[0] + m_launches + m_launched[0],
+                              fit_launches[1] + m_launched[1], fit_launches[2] + m_launched[2]))
 
 
 # ----------------------------------------------------------------------
@@ -4998,16 +5476,21 @@ def device_profile(fn, top: int = 8, host_top: int = 0) -> dict:
 
 def kernel_usage(logs: dict) -> dict:
     """Each kernel's registers and spills from the ptxas lines of its
-    library's build log (nvcc -Xptxas -v), by kernel name."""
+    library's build log (nvcc -Xptxas -v), by kernel name (the CUDA-core
+    flash kernels by name, dtype and head-dim bucket)."""
     usage = {}
     for log in logs.values():
         name = None
         for ln in log.splitlines():
             if "Function properties for" in ln:
                 mangled = ln.split("for", 1)[1].strip()
-                name = next((k for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                simt = re.search(r"(flash_simt_\w+?)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                                 mangled)
+                name = (f"{simt[1]} {'f32' if simt[2] == 'f' else 'bf16'} D<={simt[3]}"
+                        if simt else next(
+                            (k for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
                                          "flash_attention_fwd", "gather_scores_cross_row",
-                                         "gather") if k in mangled), mangled)
+                                         "gather") if k in mangled), mangled))
             elif name and "spill" in ln:
                 usage[name] = ln.strip()
             elif name and "registers" in ln:
@@ -5017,13 +5500,13 @@ def kernel_usage(logs: dict) -> dict:
 
 
 # the phases after device and build, in the order they run
-PHASES = ("k1", "k2", "k2b", "e2e", "long", "cli", "train", "train_mesh", "train_tp",
-          "train_tp_cards", "train_cli",
+PHASES = ("k1", "k2", "k2b", "k2g", "e2e", "long", "cli", "train", "train_mesh", "train_tp",
+          "train_tp_cards", "train_cli", "f32",
           "serving", "hybrid", "hybrid_serving", "hybrid_cli", "gtr", "mesh", "mesh_capacity",
           "serve", "int8", "host_stream")
 # phases that read what an earlier one made
 NEEDS = {"long": "e2e", "cli": "e2e", "train": "e2e", "train_mesh": "e2e", "train_tp": "e2e",
-         "train_tp_cards": "e2e", "train_cli": "e2e",
+         "train_tp_cards": "e2e", "train_cli": "e2e", "f32": "e2e",
          "serving": "e2e",
          "hybrid": "e2e", "hybrid_serving": "e2e", "gtr": "e2e", "serve": "e2e",
          "int8": "serve", "host_stream": "int8"}
@@ -5080,7 +5563,7 @@ def main(argv=None) -> int:
     phase("build", f"{sorted(_build.SOURCES)} built in {build_s:.2f}s; ptxas: "
                    f"{'; '.join(f'{k}: {v}' for k, v in usage.items())}")
     for name, line in usage.items():
-        if name.startswith("flash_attention"):
+        if name.startswith("flash"):
             check(" 0 bytes spill stores, 0 bytes spill loads" in line, f"{name} spills: {line}")
 
     r = {}  # each phase's numbers
@@ -5090,6 +5573,8 @@ def main(argv=None) -> int:
         r["k2"] = run_k2(args.seed)
     if "k2b" in phases:
         r["k2b"] = run_k2b(args.seed)
+    if "k2g" in phases:
+        r["k2g"] = run_k2g(args.seed)
     e2e_world = None
     if "e2e" in phases:
         engine, plain_engine, corpus, queries, r["e2e"] = run_e2e(args.seed)
@@ -5111,6 +5596,8 @@ def main(argv=None) -> int:
         r["train_tp_cards"] = run_train_tp_cards(args.seed, corpus, engine.tokenizer)
     if "train_cli" in phases:
         r["train_cli"] = run_train_cli(args.seed, corpus)
+    if "f32" in phases:
+        r["f32"] = run_f32(args.seed, corpus, engine.tokenizer, queries)
     if "serving" in phases:
         r["serving"] = run_serving(args.seed, engine, queries)
     if "hybrid" in phases:
@@ -5134,9 +5621,9 @@ def main(argv=None) -> int:
     if "host_stream" in phases:
         r["host_stream"] = run_host_stream(args.seed, big, i8)
 
-    summary = {k: v for name, res in r.items() if name not in ("k1", "k2", "k2b")
+    summary = {k: v for name, res in r.items() if name not in ("k1", "k2", "k2b", "k2g")
                for k, v in res.items()}
-    for name in ("k2", "k2b"):
+    for name in ("k2", "k2b", "k2g"):
         if name in r:
             summary[name] = r[name]
     if "k1" in r:
@@ -5150,6 +5637,7 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
         return 0
     k1, k2, k2b, e2e, cli, train = r["k1"], r["k2"], r["k2b"], r["e2e"], r["cli"], r["train"]
+    k2g, f32_launches = r["k2g"], r["f32"]["f32_launches"]
     serve, hybrid, hybrid_serving = r["serve"], r["hybrid"], r["hybrid_serving"]
     hybrid_cli, gtr, mesh = r["hybrid_cli"], r["gtr"], r["mesh"]
     train_mesh = r["train_mesh"]["train_mesh_launches"]  # every rank's, in its fit
@@ -5232,6 +5720,46 @@ def main(argv=None) -> int:
         "bound_ms": k2b["dq_bound_ms"],
         "bound_by": k2b["dq_bound_by"],
         "library_ms": k2b["library_bwd_ms"],
+    }, {
+        # K2/K2b's CUDA-core route (f32, or bf16 at D != 64): times at the
+        # f32 build's [256, 12, 512, 64] and the f32 train step's
+        # [96, 12, 512, 64]; launches from phase f32's main paths (the f32
+        # and MiniLM-width builds, the f32 Trainer.fit, the MiniLM-width batch)
+        "name": "flash_attention_simt",
+        "route": "cuda",
+        "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+        "launches": f32_launches[0],
+        "max_abs_err": k2g["max_abs_err"],
+        "ms": k2g["f32"]["ms"],
+        "plain_ms": k2g["f32"]["plain_ms"],
+        "bound_ms": k2g["f32"]["bound_ms"],
+        "bound_by": k2g["f32"]["bound_by"],
+        "library_ms": k2g["f32"]["library_ms"],
+    }, {
+        "name": "flash_attention_simt_bwd_dkv",
+        "route": "cuda",
+        "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
+        "launches": f32_launches[1],
+        "max_abs_err": k2g["dkv_max_abs_err"],
+        "ms": k2g["f32_train"]["dkv_ms"],
+        "plain_ms": k2g["f32_train"]["plain_bwd_ms"],
+        "bound_ms": k2g["f32_train"]["dkv_bound_ms"],
+        "bound_by": k2g["f32_train"]["dkv_bound_by"],
+        "library_ms": k2g["f32_train"]["library_bwd_ms"],
+    }, {
+        "name": "flash_attention_simt_bwd_dq",
+        "route": "cuda",
+        "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
+        "launches": f32_launches[2],
+        "max_abs_err": k2g["dq_max_abs_err"],
+        "ms": k2g["f32_train"]["dq_ms"],
+        "plain_ms": k2g["f32_train"]["plain_bwd_ms"],
+        "bound_ms": k2g["f32_train"]["dq_bound_ms"],
+        "bound_by": k2g["f32_train"]["dq_bound_by"],
+        "library_ms": k2g["f32_train"]["library_bwd_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -4,7 +4,8 @@ indices from flags.
 Counterpart of ``mfar_tpu/commands/common.py`` for the engine and the
 trainer, with the JAX command's whole engine flag set.  ``--checkpoint-dir``
 reads the port's own checkpoints (:mod:`mfar_tpu_torch.train.checkpoint`;
-the JAX package's are orbax, ROADMAP A10.4).  ``--mesh auto`` serves on a
+the JAX package's are orbax: ``python -m tools.jax_checkpoint_to_torch``
+converts them).  ``--mesh auto`` serves on a
 mesh over the world's ranks when the command runs as several processes (one
 per card: ``torchrun`` with ``--multihost pod``, or the ``MFAR_*``
 environment with ``--multihost force``), shaped by ``--n-model``,

@@ -18,11 +18,12 @@ Attention has the JAX package's two implementations, chosen by
 - ``"xla"`` (default): the plain path, two matmuls around a softmax;
 - ``"flash"``: kernel K2 (:mod:`mfar_tpu_torch.ops.flash_attention`) with
   segment ids from the attention mask, so valid tokens attend only valid
-  ones and pads only pads.  It needs S >= 128 and S % 128 == 0 and raises
+  ones and pads only pads, at the model's dtype (f32 or bf16) and head dim
+  (up to 256).  It needs S >= 128 and S % 128 == 0 and raises
   ``ValueError`` otherwise; on CPU tensors it runs K2's plain version;
-- ``"auto"``: K2 when the activations are bf16 on the card, the head dim
-  is K2's 64 and S passes that gate, else the plain path (as JAX's
-  ``"auto"`` does off a TPU).
+- ``"auto"``: K2 on the card whenever S passes that gate, whatever the
+  dtype or head dim, else the plain path (as JAX's ``"auto"`` does off a
+  TPU).  :func:`use_flash_attention` is the gate.
 
 Pad positions differ between the two (under segment ids pads attend only
 pads); valid positions and the pooled embedding do not.
@@ -71,7 +72,7 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils import checkpoint as ckpt
 
-from mfar_tpu_torch.ops.flash_attention import HEAD_DIM, SEQ_MULTIPLE, flash_attention
+from mfar_tpu_torch.ops.flash_attention import SEQ_MULTIPLE, flash_attention
 from mfar_tpu_torch.parallel.tensor_parallel import (
     column_input,
     model_seed,
@@ -192,6 +193,23 @@ class Embeddings(nn.Module):
         return _dropout(x, self.cfg.hidden_dropout, seed).to(dt)
 
 
+def use_flash_attention(impl: str, seq: int, dropout_active: bool, on_cuda: bool) -> bool:
+    """JAX's flash gate (``mfar_tpu/models/encoder.py:146-157``) with "TPU"
+    read as "CUDA": K2 needs S >= 128 with S % 128 == 0 and inactive
+    attention dropout; ``"auto"`` takes it on the card whenever those hold,
+    ``"flash"`` always (on CPU tensors through K2's plain version) and
+    raises where they do not.  The dtype and head dim play no part, as in
+    JAX: the kernels take both dtypes and every head dim up to 256."""
+    seq_ok = seq >= SEQ_MULTIPLE and seq % SEQ_MULTIPLE == 0
+    if impl == "flash" and not (seq_ok and not dropout_active):
+        raise ValueError(
+            f"attention_impl='flash' needs seq % {SEQ_MULTIPLE} == 0 and seq >= "
+            f"{SEQ_MULTIPLE} (got {seq}), and inactive attention dropout; use 'auto' for "
+            f"automatic fallback"
+        )
+    return impl == "flash" or (impl == "auto" and seq_ok and not dropout_active and on_cuda)
+
+
 class TransformerLayer(nn.Module):
     """Post-LN BERT layer (attention -> add&norm -> MLP -> add&norm).  A
     ``seed`` (training) turns dropout on, with masks drawn from it."""
@@ -231,19 +249,9 @@ class TransformerLayer(nn.Module):
             for lin in (self.attn_q, self.attn_k, self.attn_v)
         )
         width = q.shape[1] * head_dim
-        seq_ok = seq >= SEQ_MULTIPLE and seq % SEQ_MULTIPLE == 0
         # the kernel has no dropout: only while attention dropout is inactive
-        dropout_off = seed is None or cfg.attention_dropout == 0.0
-        if cfg.attention_impl == "flash" and not (seq_ok and dropout_off):
-            raise ValueError(
-                f"attention_impl='flash' needs seq % {SEQ_MULTIPLE} == 0 and seq >= "
-                f"{SEQ_MULTIPLE} (got {seq}), and inactive attention dropout (got "
-                f"{cfg.attention_dropout}); use 'auto' for automatic fallback"
-            )
-        use_flash = cfg.attention_impl == "flash" or (
-            cfg.attention_impl == "auto" and seq_ok and dropout_off and hidden.is_cuda
-            and hidden.dtype == torch.bfloat16 and head_dim == HEAD_DIM
-        )
+        dropout_active = seed is not None and cfg.attention_dropout != 0.0
+        use_flash = use_flash_attention(cfg.attention_impl, seq, dropout_active, hidden.is_cuda)
         if use_flash:
             ctx = flash_attention(q, k, v, segment_ids, 1.0 / head_dim**0.5)
             # a view on the card (the kernel writes [B, S, H, D])

@@ -33,6 +33,7 @@ SOURCES = {
     "gather_scores": "gather_scores.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "flash_attention_simt": "flash_attention_simt.cu",
 }
 
 NVCC_FLAGS = (

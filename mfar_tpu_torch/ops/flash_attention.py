@@ -24,11 +24,22 @@ same functions in plain PyTorch, in f32: the wrappers use them for CPU
 tensors only, and the tests and ``chip_smoke.py`` hold the kernels against
 them.
 
-The kernels take bf16 with D = 64 and S a multiple of 128.  They read
-q/k/v (and the backward's o and dO) through their strides, so the
-``[B, S, H, D] -> [B, H, S, D]`` transposed views of the encoder's
-projections need no copy, and they write outputs and gradients laid out as
-``[B, S, H, D]``, so the way back to ``[B, S, H*D]`` is free too.
+Two routes on the card, chosen by dtype and head dim alone:
+
+- bf16 with D = 64 (Contriever-base, BERT-base): the wgmma kernels above.
+  They read q/k/v (and the backward's o and dO) through their strides, so
+  the ``[B, S, H, D] -> [B, H, S, D]`` transposed views of the encoder's
+  projections need no copy, and they write outputs and gradients laid out
+  as ``[B, S, H, D]``, so the way back to ``[B, S, H*D]`` is free too.
+- f32, or bf16 at any other D up to 256 (``EncoderConfig.tiny``, the
+  synthetic models, ``--precision 32``, a BERT directory whose heads are
+  not 64 wide): the CUDA-core kernels of ``csrc/flash_attention_simt.cu``
+  (:func:`flash_attention_simt`, :func:`flash_attention_simt_bwd_dq`,
+  :func:`flash_attention_simt_bwd_dkv`), in f32 FMA (never TF32), with the
+  same strided reads and ``[B, S, H, D]`` writes.
+
+Both take S a multiple of 128 (JAX's gate); each route counts its own
+launches.  D above 256 raises on every device.
 """
 
 from __future__ import annotations
@@ -44,7 +55,8 @@ from mfar_tpu_torch.ops import _build
 # JAX's DEFAULT_MASK_VALUE (flash_attention.py:29), which the plain version
 # adds as JAX does; the kernels set every cross-segment weight to exactly 0
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-HEAD_DIM = 64  # the kernels' head dimension
+HEAD_DIM = 64  # the wgmma kernels' head dimension
+MAX_HEAD_DIM = 256  # the CUDA-core kernels' largest head dimension
 SEQ_MULTIPLE = 128  # S % 128 == 0, as JAX's gate asks
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -112,8 +124,8 @@ def _check_inputs(q, k, v, segment_ids) -> None:
     b, h, s, d = q.shape
     if segment_ids.shape != (b, s):
         raise ValueError(f"segment_ids {tuple(segment_ids.shape)} != (B, S) = {(b, s)}")
-    if d != HEAD_DIM:
-        raise ValueError(f"head dim D={d}: the flash kernel takes D={HEAD_DIM}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim D={d}: the flash kernels take 1 <= D <= {MAX_HEAD_DIM}")
     if s < SEQ_MULTIPLE or s % SEQ_MULTIPLE:
         raise ValueError(f"S={s} must be a positive multiple of {SEQ_MULTIPLE}")
     if not (q.dtype == k.dtype == v.dtype):
@@ -126,26 +138,35 @@ def _check_inputs(q, k, v, segment_ids) -> None:
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
     if q.device.type == "cuda":
-        if q.dtype != torch.bfloat16:
-            raise TypeError(
-                f"{q.dtype} q/k/v: kernels K2 and K2b take bf16 on the card; an f32 "
-                f"K2/K2b is ROADMAP B2d"
-            )
+        if _wgmma_route(q):
+            readable, need = _kernel_readable, ("B, H, S strides multiples of 8 elements "
+                                                "(16-byte rows), from a 16-byte boundary")
+        elif q.dtype in (torch.float32, torch.bfloat16):
+            readable, need = _simt_readable, "the D stride 1"
+        else:
+            raise TypeError(f"{q.dtype} q/k/v: the flash kernels take float32 and bfloat16")
         for name, t in (("q", q), ("k", k), ("v", v)):
-            if not _kernel_readable(t):
-                raise ValueError(
-                    f"{name} strides {t.stride()}: D must be contiguous and the B, H, S "
-                    f"strides multiples of 8 elements (16-byte rows), from a 16-byte "
-                    f"boundary"
-                )
+            if not readable(t):
+                raise ValueError(f"{name} strides {t.stride()}: the kernels need {need}")
         if not segment_ids.is_contiguous() or segment_ids.data_ptr() % 16:
             raise ValueError("segment_ids must be contiguous and start on a 16-byte boundary")
+
+
+def _wgmma_route(q: torch.Tensor) -> bool:
+    """The wgmma kernels' inputs (bf16 at D = 64); every other CUDA input
+    takes the CUDA-core kernels."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] == HEAD_DIM
 
 
 def _kernel_readable(t: torch.Tensor) -> bool:
     """A [B, H, S, D] bf16 operand the kernels read through its strides."""
     return t.stride(-1) == 1 and not any(st % 8 for st in t.stride()[:3]) \
         and t.data_ptr() % 16 == 0
+
+
+def _simt_readable(t: torch.Tensor) -> bool:
+    """A [B, H, S, D] operand the CUDA-core kernels read through its strides."""
+    return t.stride(-1) == 1
 
 
 def _strides(*ts: torch.Tensor):
@@ -196,9 +217,29 @@ def _bwd_kernels():
     return dq, dkv
 
 
+@functools.cache
+def _simt_kernels():
+    lib = _build.load("flash_attention_simt")
+    tail = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H S D
+        ctypes.POINTER(ctypes.c_longlong),  # strides of the operands, in argument order
+        ctypes.c_float, ctypes.c_void_p,  # sm_scale, stream
+    ]
+    fwd = lib.mfar_flash_simt_fwd
+    dq, dkv = lib.mfar_flash_simt_bwd_dq, lib.mfar_flash_simt_bwd_dkv
+    fwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + tail  # bf16, q k v seg, out lse
+    dq.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + tail  # q k v o dout seg lse, dq di
+    dkv.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + tail  # q k v dout seg lse di, dk dv
+    fwd.restype = dq.restype = dkv.restype = ctypes.c_int
+    return fwd, dq, dkv
+
+
 def _launch_forward(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tensor:
-    """K2 on checked CUDA inputs; with ``lse`` (a contiguous f32 [B, H, S])
+    """K2 on checked CUDA inputs (the wgmma kernel for bf16 at D = 64, the
+    CUDA-core one for the rest); with ``lse`` (a contiguous f32 [B, H, S])
     it also writes each row's logsumexp there."""
+    if not _wgmma_route(q):
+        return flash_attention_simt(q, k, v, segment_ids, sm_scale, lse)
     b, h, s, _ = q.shape
     out = _empty_bshd(q)
     with torch.cuda.device(q.device):
@@ -231,16 +272,17 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(
-    q: torch.Tensor,  # [B, H, S, 64] bf16 on the card; last dim contiguous
-    k: torch.Tensor,  # [B, H, S, 64]
-    v: torch.Tensor,  # [B, H, S, 64]
+    q: torch.Tensor,  # [B, H, S, D] f32 or bf16 on the card, D <= 256; last dim contiguous
+    k: torch.Tensor,  # [B, H, S, D]
+    v: torch.Tensor,  # [B, H, S, D]
     segment_ids: torch.Tensor,  # [B, S] int32, contiguous
     sm_scale: float,
-) -> torch.Tensor:  # [B, H, S, 64] in q's dtype
-    """Segment-masked attention: kernel K2 for CUDA tensors, the plain
-    version for CPU tensors, differentiable through K2b (the plain backward
-    on the CPU) when grad is enabled and q, k or v requires it.  Raises on
-    anything the kernels do not take.
+) -> torch.Tensor:  # [B, H, S, D] in q's dtype
+    """Segment-masked attention: kernel K2 for CUDA tensors (the wgmma
+    kernel for bf16 at D = 64, :func:`flash_attention_simt` for f32 and
+    other head dims), the plain version for CPU tensors, differentiable
+    through K2b (the plain backward on the CPU) when grad is enabled and q,
+    k or v requires it.  Raises on anything the kernels do not take.
 
     On the card the result is a ``[B, H, S, D]`` view of a ``[B, S, H, D]``
     buffer, so ``out.transpose(1, 2).reshape(B, S, H * D)`` is a view."""
@@ -283,7 +325,8 @@ def flash_attention_bwd(
     sm_scale: float,
 ) -> Grads:
     """dq, dk, dv of :func:`flash_attention`: kernel dq (which also writes
-    ``di``), then kernel dkv, for CUDA tensors; :func:`flash_attention_bwd_plain`
+    ``di``), then kernel dkv, for CUDA tensors (the wgmma pair for bf16 at
+    D = 64, the CUDA-core pair for the rest); :func:`flash_attention_bwd_plain`
     for CPU tensors.  On the card the gradients are ``[B, H, S, D]`` views
     of ``[B, S, H, D]`` buffers, and no torch op computes ``di``.  A dO that
     the kernels cannot read through its strides is copied once (counted in
@@ -299,12 +342,17 @@ def flash_attention_bwd(
     if dout.dtype != q.dtype or o.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError(f"o {o.dtype}, dout {dout.dtype} (want {q.dtype}), lse {lse.dtype} "
                         f"(want float32)")
-    if not _kernel_readable(dout):
+    if _wgmma_route(q):
+        readable, dq_fn, dkv_fn = _kernel_readable, flash_attention_bwd_dq, flash_attention_bwd_dkv
+    else:
+        readable = _simt_readable
+        dq_fn, dkv_fn = flash_attention_simt_bwd_dq, flash_attention_simt_bwd_dkv
+    if not readable(dout):
         dout = dout.contiguous()
         flash_attention_bwd.dout_copies += 1
     lse = lse.contiguous()
-    dq, di = flash_attention_bwd_dq(q, k, v, segment_ids, lse, o, dout, sm_scale)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, segment_ids, lse, di, dout, sm_scale)
+    dq, di = dq_fn(q, k, v, segment_ids, lse, o, dout, sm_scale)
+    dk, dv = dkv_fn(q, k, v, segment_ids, lse, di, dout, sm_scale)
     return dq, dk, dv
 
 
@@ -318,9 +366,9 @@ def _check_rows(**rows: torch.Tensor) -> None:
             raise ValueError(f"{name} must be a contiguous f32 [B, H, S] on a 16-byte boundary")
 
 
-def _check_readable(**ts: torch.Tensor) -> None:
+def _check_readable(readable=_kernel_readable, **ts: torch.Tensor) -> None:
     for name, t in ts.items():
-        if not _kernel_readable(t):
+        if not readable(t):
             raise ValueError(f"{name} strides {t.stride()} from a {t.data_ptr() % 16}-byte "
                              f"offset: the kernels cannot read it")
 
@@ -362,7 +410,72 @@ def flash_attention_bwd_dkv(q, k, v, segment_ids, lse, di, dout, sm_scale):
     return dk, dv
 
 
-# launches of the CUDA kernels (CPU calls of the plain versions do not count)
+def _simt_flag(q: torch.Tensor) -> int:
+    return int(q.dtype == torch.bfloat16)
+
+
+def flash_attention_simt(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tensor:
+    """K2's CUDA-core kernel on checked CUDA inputs (f32, or bf16 at D !=
+    64; D <= 256): the output as a ``[B, H, S, D]`` view of a ``[B, S, H,
+    D]`` buffer; with ``lse`` (a contiguous f32 [B, H, S]) it also writes
+    each row's logsumexp there."""
+    if lse is not None:
+        _check_rows(lse=lse)
+    b, h, s, d = q.shape
+    out = _empty_bshd(q)
+    with torch.cuda.device(q.device):
+        err = _simt_kernels()[0](
+            _simt_flag(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
+            out.data_ptr(), None if lse is None else lse.data_ptr(), b, h, s, d,
+            _strides(q, k, v, out), sm_scale, _stream(q),
+        )
+    _raise_on(err, "flash_attention_simt")
+    flash_attention_simt.launches += 1
+    return out
+
+
+def flash_attention_simt_bwd_dq(q, k, v, segment_ids, lse, o, dout, sm_scale):
+    """K2b's CUDA-core dq kernel on checked CUDA inputs: (dq, di) as
+    :func:`flash_attention_bwd_dq` gives them."""
+    _check_rows(lse=lse)
+    _check_readable(_simt_readable, o=o, dout=dout)
+    b, h, s, d = q.shape
+    dq = _empty_bshd(q)
+    di = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _simt_kernels()[1](
+            _simt_flag(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), segment_ids.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+            di.data_ptr(), b, h, s, d, _strides(q, k, v, o, dout, dq), sm_scale, _stream(q),
+        )
+    _raise_on(err, "flash_attention_simt_bwd_dq")
+    flash_attention_simt_bwd_dq.launches += 1
+    return dq, di
+
+
+def flash_attention_simt_bwd_dkv(q, k, v, segment_ids, lse, di, dout, sm_scale):
+    """K2b's CUDA-core dkv kernel on checked CUDA inputs and dq's ``di``:
+    (dk, dv)."""
+    _check_rows(lse=lse, di=di)
+    _check_readable(_simt_readable, dout=dout)
+    b, h, s, d = q.shape
+    dk, dv = _empty_bshd(q), _empty_bshd(q)
+    with torch.cuda.device(q.device):
+        err = _simt_kernels()[2](
+            _simt_flag(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            segment_ids.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, h, s, d, _strides(q, k, v, dout, dk, dv), sm_scale, _stream(q),
+        )
+    _raise_on(err, "flash_attention_simt_bwd_dkv")
+    flash_attention_simt_bwd_dkv.launches += 1
+    return dk, dv
+
+
+# launches of the CUDA kernels, one count a kernel (CPU calls of the plain
+# versions do not count)
 flash_attention.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_simt.launches = 0
+flash_attention_simt_bwd_dq.launches = 0
+flash_attention_simt_bwd_dkv.launches = 0

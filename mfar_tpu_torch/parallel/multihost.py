@@ -20,13 +20,20 @@ share one card, where NCCL refuses them); a rank's card is
 before the group exists.  Host-side control
 (barriers, the serving daemon's messages) runs over a gloo group of its own
 (:func:`control_group`), so it never waits on the card's stream.
+
+Once the group starts, :func:`shutdown` is registered to run at exit, as
+JAX registers ``distributed.shutdown()`` (``jax/_src/api.py:3170-3177``):
+it first runs the hooks of :func:`before_shutdown` (the serving daemon's
+heartbeat thread stops there), then destroys the gloo control group and
+the world, so no rank exits with the backend's threads still running.
 """
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
-from typing import Optional
+from typing import Callable, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -37,6 +44,8 @@ import torch.distributed as dist
 TIMEOUT = datetime.timedelta(seconds=600)
 
 _control = None  # (world, its gloo group for host-side control): see control_group
+_hooks: List[Callable[[], None]] = []  # run by shutdown before the groups go
+_registered = False  # shutdown is registered with atexit
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -88,7 +97,38 @@ def maybe_initialize(mode: str = "auto", device: str = "cuda") -> bool:
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world, rank=rank, timeout=TIMEOUT)
     control_group()
+    global _registered
+    if not _registered:
+        atexit.register(shutdown)
+        _registered = True
     return is_multiprocess()
+
+
+def before_shutdown(hook: Callable[[], None]) -> None:
+    """Run ``hook`` in :func:`shutdown` before the groups are destroyed
+    (last registered, first run): a thread that issues collectives stops
+    there.  :func:`drop_shutdown_hook` takes it back."""
+    _hooks.append(hook)
+
+
+def drop_shutdown_hook(hook: Callable[[], None]) -> None:
+    if hook in _hooks:
+        _hooks.remove(hook)
+
+
+def shutdown() -> None:
+    """Stop what :func:`before_shutdown` registered, then destroy the gloo
+    control group and the world (a no-op without a process group).  Runs at
+    exit once :func:`maybe_initialize` has started a group."""
+    global _control
+    while _hooks:
+        _hooks.pop()()
+    if not dist.is_initialized():
+        return
+    if _control is not None and _control[0] is dist.group.WORLD:
+        dist.destroy_process_group(_control[1])
+    _control = None
+    dist.destroy_process_group()
 
 
 def control_group():

@@ -109,6 +109,8 @@ class MultihostEngineProxy:
         self._hb_stop = threading.Event()
         self._hb = threading.Thread(target=self._heartbeat, daemon=True)
         self._hb.start()
+        # at exit the heartbeat stops before the process group goes
+        multihost.before_shutdown(self._stop_heartbeat)
 
     @property
     def n_docs(self) -> int:
@@ -153,6 +155,12 @@ class MultihostEngineProxy:
             if not self._stopped:
                 self._stopped = True
                 self._bcast({"t": "stop"})
+        self._stop_heartbeat()
+        multihost.drop_shutdown_hook(self._stop_heartbeat)
+
+    def _stop_heartbeat(self) -> None:
+        """End the heartbeat thread (no broadcast is in flight after it)."""
+        self._hb_stop.set()
         self._hb.join(timeout=30)
 
     def _heartbeat(self) -> None:

@@ -94,7 +94,7 @@ class MFARModel(nn.Module):
 
     def __init__(
         self,
-        encoder_config: Any,  # EncoderConfig (the BERT family; T5 is ROADMAP A14)
+        encoder_config: Any,  # EncoderConfig (the BERT family) or T5Config
         num_fields: int,  # total fields: dense + sparse, dense first
         query_cond: bool = True,
         use_batchnorm: bool = False,

@@ -20,6 +20,11 @@ Tolerance for K2b (the backward kernels) against their plain version: rtol
 2e-2 and atol 1e-2 of the largest gradient.  The gradients are rounded to
 bf16 (2**-8 relative), and the kernels round P and dS to bf16 before
 products summed over up to 512 rows, where the plain version stays in f32.
+
+Tolerance for K2/K2b's CUDA-core route (f32, or bf16 at D != 64) in f32:
+the output within 2e-5, the logsumexp within 1e-5, each gradient within
+2e-5 of its largest entry (f32 FMA on both sides, TF32 off, sums in other
+orders); in bf16 the K2 and K2b tolerances above.
 """
 
 import copy
@@ -45,6 +50,9 @@ from mfar_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_plain,
+    flash_attention_simt,
+    flash_attention_simt_bwd_dkv,
+    flash_attention_simt_bwd_dq,
     _row_dots,
 )
 from mfar_tpu_torch.train.model import MFARModel
@@ -282,9 +290,88 @@ def test_k2_reads_strided_views(card):
 
 
 def test_k2_refuses_f32_on_the_card(card):
-    q, k, v, seg = _k2_inputs(1, 1, 128, [128])
-    with pytest.raises(TypeError, match="B2d"):
-        flash_attention(q.float(), k.float(), v.float(), seg, 0.125)
+    """(Named when K2 took bf16 only.)  f32 on the card takes the CUDA-core
+    kernel, never the wgmma one, and agrees with the plain version in f32."""
+    q, k, v, seg = (t.float() if t.is_floating_point() else t
+                    for t in _k2_inputs(2, 3, 256, [256, 70]))
+    before = (flash_attention.launches, flash_attention_simt.launches)
+    got = flash_attention(q, k, v, seg, 0.125)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_simt.launches) == \
+        (before[0], before[1] + 1)
+    assert got.dtype == torch.float32 and got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v, seg, 0.125), rtol=0,
+                               atol=SIMT_F32_ATOL)
+
+
+SIMT_F32_ATOL, SIMT_LSE_ATOL, SIMT_GRAD_REL = 2e-5, 1e-5, 2e-5
+
+
+# head dims the wgmma kernels do not take, in both dtypes: ragged pads and
+# the segment layouts, strided dO
+@pytest.mark.parametrize("d", [16, 32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_simt_kernels_match_plain(card, dtype, d):
+    rng = np.random.default_rng(d)
+    b, h, s = 3, 2, 256
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=(b, s, h * d)).astype(np.float32))
+                     .cuda().to(dtype).view(b, s, h, d).transpose(1, 2) for _ in range(4))
+    seg = torch.tensor([SEG_LAYOUTS["runs"][0], SEG_LAYOUTS["interleaved"][0],
+                        [1] * 70 + [0] * 186], dtype=torch.int32, device=card)
+    scale = 1.0 / d**0.5
+    before = (flash_attention_simt.launches, flash_attention_simt_bwd_dq.launches,
+              flash_attention_simt_bwd_dkv.launches, flash_attention.launches)
+    out, lse = flash_attention_fwd(q, k, v, seg, scale)
+    grads = flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    assert (flash_attention_simt.launches, flash_attention_simt_bwd_dq.launches,
+            flash_attention_simt_bwd_dkv.launches, flash_attention.launches) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+    want = flash_attention_plain(q, k, v, seg, scale)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=0, atol=SIMT_F32_ATOL)
+        for g, w in zip(grads, flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale)):
+            torch.testing.assert_close(g, w, rtol=0, atol=SIMT_GRAD_REL * w.abs().max().item())
+    else:
+        torch.testing.assert_close(out.float(), want.float(), rtol=K2_TOL, atol=K2_TOL)
+        _close_to_largest(grads, flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale))
+    torch.testing.assert_close(lse, _masked_lse(q, k, seg, scale), rtol=0, atol=SIMT_LSE_ATOL)
+    for g in grads:
+        assert g.dtype == dtype and g.transpose(1, 2).is_contiguous()
+    dq, di = flash_attention_simt_bwd_dq(q, k, v, seg, lse, out, dout, scale)
+    want_di = _row_dots(out, dout)
+    torch.testing.assert_close(di, want_di, rtol=1e-5, atol=1e-5 * want_di.abs().max().item())
+    torch.testing.assert_close(dq, grads[0], rtol=0, atol=0)
+
+
+def test_k2_refuses_a_head_dim_past_256(card):
+    q = torch.zeros(1, 1, 128, 257, device=card)
+    with pytest.raises(ValueError, match="D=257"):
+        flash_attention(q, q, q, torch.ones(1, 128, dtype=torch.int32, device=card), 0.1)
+
+
+def test_f32_auto_encoder_launches_the_simt_kernel(card):
+    """An f32 encoder (EncoderConfig.tiny: D = 16) with "auto" on the card
+    takes the CUDA-core K2, not plain attention, and agrees with "xla" on
+    the valid tokens and the pooled embedding (f32 through two layers,
+    attention summed in another order: atol 1e-4)."""
+    cfg = EncoderConfig.tiny(vocab_size=97, num_layers=2)
+    assert cfg.dtype == torch.float32 and cfg.hidden_size // cfg.num_heads == 16
+    xla = init_encoder(cfg, seed=4).to(card)
+    auto = Encoder(dataclasses.replace(cfg, attention_impl="auto")).to(card).eval()
+    auto.load_state_dict(xla.state_dict())
+    ids = torch.from_numpy(np.random.default_rng(4).integers(0, 97, size=(3, 128))).to(card)
+    mask = torch.ones(3, 128, dtype=torch.int32, device=card)
+    mask[1, 30:] = 0
+    with torch.inference_mode():
+        before = (flash_attention.launches, flash_attention_simt.launches)
+        pooled, tokens = auto(ids, mask, return_tokens=True)
+        assert (flash_attention.launches, flash_attention_simt.launches) == \
+            (before[0], before[1] + 2)  # one per layer
+        want_pooled, want_tokens = xla(ids, mask, return_tokens=True)
+    valid = mask.bool()
+    torch.testing.assert_close(tokens[valid], want_tokens[valid], rtol=0, atol=1e-4)
+    torch.testing.assert_close(pooled, want_pooled, rtol=0, atol=1e-4)
 
 
 def test_auto_encoder_through_k2_matches_xla(card):
@@ -317,8 +404,10 @@ def test_auto_encoder_through_k2_matches_xla(card):
 
 
 def test_auto_encoder_with_another_head_dim_is_plain(card):
-    """Head dim 32 (hidden 128, 4 heads), which K2 does not take: "auto"
-    takes the plain path, launches nothing and equals "xla" exactly."""
+    """(Named when "auto" took plain attention at D != 64.)  Head dim 32
+    (hidden 128, 4 heads) in bf16: "auto" now takes K2's CUDA-core kernel,
+    never the wgmma one, and agrees with "xla" on the valid tokens and the
+    pooled embedding (bf16 tolerance, as the D = 64 test above)."""
     cfg = EncoderConfig.tiny(vocab_size=97, hidden_size=128, num_heads=4, num_layers=2,
                              intermediate_size=256, dtype=torch.bfloat16)
     xla = init_encoder(cfg, seed=3).to(card)
@@ -328,10 +417,15 @@ def test_auto_encoder_with_another_head_dim_is_plain(card):
     mask = torch.ones(2, 128, dtype=torch.int32, device=card)
     mask[1, 50:] = 0
     with torch.inference_mode():
-        before = flash_attention.launches
-        got = auto(ids, mask)
-        assert flash_attention.launches == before
-        torch.testing.assert_close(got, xla(ids, mask), rtol=0, atol=0)
+        before = (flash_attention.launches, flash_attention_simt.launches)
+        pooled, tokens = auto(ids, mask, return_tokens=True)
+        assert (flash_attention.launches, flash_attention_simt.launches) == \
+            (before[0], before[1] + 2)
+        want_pooled, want_tokens = xla(ids, mask, return_tokens=True)
+    valid = mask.bool()
+    torch.testing.assert_close(tokens[valid].float(), want_tokens[valid].float(),
+                               rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(pooled, want_pooled, rtol=5e-2, atol=5e-2)
 
 
 def _masked_lse(q, k, seg, scale):
@@ -536,13 +630,30 @@ def test_auto_train_step_matches_xla(card):
 
 
 def test_f32_flash_training_input_raises(card):
+    """(Named when f32 raised on the card.)  An f32 MFARModel with "flash"
+    trains through the CUDA-core K2/K2b: loss and gradients against the
+    plain path on the same weights (f32: loss rtol 1e-5, cosine >= 0.9999)."""
     cfg = EncoderConfig.tiny(vocab_size=97, hidden_size=128, num_heads=2, num_layers=1,
                              intermediate_size=256, attention_impl="flash",
                              attention_dropout=0.0)  # f32 activations
-    model = MFARModel(cfg, num_fields=2).to(card).train()
     batch = _tiny_batch(np.random.default_rng(10), query_seq=128)
-    with pytest.raises(TypeError, match="B2d"):
-        model.compute_loss(batch["query"], batch["pos"], batch["neg"])
+    out = {}
+    for impl in ("flash", "xla"):
+        torch.manual_seed(0)
+        model = MFARModel(dataclasses.replace(cfg, attention_impl=impl), num_fields=2)
+        model.encoder.load_state_dict(init_encoder(cfg, seed=11).state_dict())
+        model = model.to(card).train()
+        before = (flash_attention_simt.launches, flash_attention_simt_bwd_dq.launches)
+        loss = model.compute_loss(batch["query"], batch["pos"], batch["neg"],
+                                  generator=torch.Generator().manual_seed(3))
+        loss.backward()
+        launched = (flash_attention_simt.launches - before[0],
+                    flash_attention_simt_bwd_dq.launches - before[1])
+        assert (launched[0] > 0 and launched[1] > 0) == (impl == "flash"), launched
+        out[impl] = (loss.item(), torch.cat([p.grad.flatten() for p in model.parameters()]))
+    assert out["flash"][0] == pytest.approx(out["xla"][0], rel=1e-5)
+    cos = torch.nn.functional.cosine_similarity(out["flash"][1], out["xla"][1], dim=0)
+    assert cos.item() >= 0.9999
 
 
 @pytest.mark.parametrize("quantize", [None, "int8"])

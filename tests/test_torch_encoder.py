@@ -29,7 +29,12 @@ from mfar_tpu_torch.models.convert import (
     encoder_state_from_jax,
     mixer_from_jax,
 )
-from mfar_tpu_torch.models.encoder import Encoder, EncoderConfig, init_encoder
+from mfar_tpu_torch.models.encoder import (
+    Encoder,
+    EncoderConfig,
+    init_encoder,
+    use_flash_attention,
+)
 from mfar_tpu_torch.models.registry import prepare_model
 from mfar_tpu_torch.models.tokenizer import SimpleVocabTokenizer, pad_to_bucket
 
@@ -130,6 +135,76 @@ def test_flash_encoder_matches_jax_xla_on_valid_tokens():
     np.testing.assert_allclose(tokens.numpy()[valid], np.asarray(want_tokens)[valid], atol=ATOL)
     np.testing.assert_allclose(pooled.numpy(), np.asarray(want_pooled), atol=ATOL)
     assert not np.allclose(tokens.numpy()[~valid], np.asarray(want_tokens)[~valid], atol=ATOL)
+
+
+# EncoderConfig.tiny (f32, hidden 64 / 4 heads: D = 16), the synthetic
+# models' D = 32 in f32, and D = 32 in bf16 (all-MiniLM-L6-v2's head width).
+# f32 at atol 2e-4 as above.  bf16 at atol 5e-2: both frameworks round the
+# hidden states to bf16 (one ulp is 1.6e-2 in [2, 4)) at different places,
+# and the port's own "xla" path sits 3.1e-2 off JAX's there too.
+@pytest.mark.parametrize("kw,dtype,atol", [
+    pytest.param({}, "f32", ATOL, id="tiny-f32-D16"),
+    pytest.param(dict(hidden_size=64, num_heads=2), "f32", ATOL, id="f32-D32"),
+    pytest.param(dict(hidden_size=64, num_heads=2, num_layers=2), "bf16", 5e-2, id="bf16-D32"),
+])
+def test_flash_encoder_matches_jax_xla_at_other_head_dims(kw, dtype, atol):
+    """The port's "flash" encoder on the CPU (K2's plain version, the
+    function the card's CUDA-core route computes) against JAX's "xla"
+    encoder on carried weights at head dims other than 64: valid tokens
+    and the pooled embedding agree."""
+    jdt, tdt = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jcfg = JaxConfig.tiny(vocab_size=97, dtype=jdt, **kw)
+    params = jax.tree.map(np.asarray, init_params(jcfg, seed=0))
+    cfg = EncoderConfig.tiny(vocab_size=97, dtype=tdt, attention_impl="flash", **kw)
+    assert cfg.hidden_size // cfg.num_heads in (16, 32)
+    model = Encoder(cfg).eval()
+    model.load_state_dict(encoder_state_from_jax(params, cfg))
+    ids, mask = _ids_and_mask(97, s=128)
+    mask[1, 2:] = 0  # a row of 2 valid tokens
+    want_pooled, want_tokens = JaxEncoder(jcfg).apply(
+        {"params": params}, jnp.asarray(ids), jnp.asarray(mask), return_tokens=True
+    )
+    with torch.inference_mode():
+        pooled, tokens = model(torch.from_numpy(ids).long(), torch.from_numpy(mask),
+                               return_tokens=True)
+    valid = mask.astype(bool)
+    want_tokens = np.asarray(want_tokens.astype(jnp.float32))
+    np.testing.assert_allclose(tokens.float().numpy()[valid], want_tokens[valid], atol=atol)
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(want_pooled, np.float32), atol=atol)
+
+
+def _jax_gate(impl, seq, dropout_active, backend):
+    """JAX's gate as ``mfar_tpu/models/encoder.py:146-157`` writes it: the
+    flash kernel on a TPU backend at seq % 128 == 0, seq >= 128 with
+    inactive attention dropout; "flash" raises where that fails."""
+    flash_ok = backend == "tpu" and seq >= 128 and seq % 128 == 0 and not dropout_active
+    if impl == "flash" and not flash_ok:
+        raise ValueError("attention_impl='flash' needs ...")
+    return impl in ("flash", "auto") and flash_ok
+
+
+@pytest.mark.parametrize("impl", ["xla", "auto", "flash"])
+def test_flash_gate_is_jax_gate(impl):
+    """The port's gate is JAX's with "TPU" read as "CUDA": seq and the
+    dropout state decide it, and it takes no dtype or head dim.  One
+    difference by design: "flash" on CPU tensors runs K2's plain version
+    where JAX's, off a TPU, raises.  The JAX encoder on this CPU backend
+    takes its plain path under "auto", as the port's gate says off the
+    card."""
+    for seq in (1, 64, 120, 127, 128, 200, 256, 384, 512):
+        for dropout_active in (False, True):
+            for on_cuda in (False, True):
+                backend = "tpu" if on_cuda or impl == "flash" else "cpu"
+                try:
+                    want = _jax_gate(impl, seq, dropout_active, backend)
+                except ValueError:
+                    with pytest.raises(ValueError, match="seq % 128"):
+                        use_flash_attention(impl, seq, dropout_active, on_cuda)
+                    continue
+                assert use_flash_attention(impl, seq, dropout_active, on_cuda) is want, \
+                    (seq, dropout_active, on_cuda)
+    assert jax.default_backend() == "cpu"
+    assert use_flash_attention("auto", 128, False, on_cuda=False) is False
 
 
 def test_build_encoder_and_dim():

@@ -43,11 +43,11 @@ TOL = {"f32": dict(rtol=0, atol=1e-5), "bf16": dict(rtol=1e-2, atol=1e-2)}
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
-def _inputs(s, lengths, seed=0):
-    """q/k/v [B, H, S, D] and int32 segment ids: 1 for the first
+def _inputs(s, lengths, seed=0, d=D):
+    """q/k/v [B, H, S, d] and int32 segment ids: 1 for the first
     lengths[i] tokens of row i, 0 for the pad after them."""
     rng = np.random.default_rng(seed)
-    q, k, v = (rng.normal(size=(B, H, s, D)).astype(np.float32) for _ in range(3))
+    q, k, v = (rng.normal(size=(B, H, s, d)).astype(np.float32) for _ in range(3))
     seg = np.zeros((B, s), np.int32)
     for i, n in enumerate(lengths):
         seg[i, :n] = 1
@@ -87,31 +87,46 @@ SEG_LAYOUTS = {
 }
 
 
-@pytest.mark.parametrize("dtype,layout", [("f32", "runs"), ("bf16", "runs"),
-                                          ("bf16", "interleaved"), ("bf16", "one_segment")])
-def test_plain_forward_matches_pallas_on_segment_layouts(dtype, layout):
+# D = 64 (Contriever-base) on every layout; then the head dims JAX's kernel
+# takes and the port's D = 64 wgmma kernels do not: 16 (EncoderConfig.tiny),
+# 32 (the synthetic models, all-MiniLM-L6-v2's width), 128 and 256, in both
+# dtypes (the card's CUDA-core route, whose plain version this is)
+@pytest.mark.parametrize("dtype,layout,d", [
+    pytest.param("f32", "runs", 64, id="f32-runs"),
+    pytest.param("bf16", "runs", 64, id="bf16-runs"),
+    pytest.param("bf16", "interleaved", 64, id="bf16-interleaved"),
+    pytest.param("bf16", "one_segment", 64, id="bf16-one_segment"),
+    *(pytest.param(dt, "runs", d, id=f"{dt}-runs-D{d}")
+      for d in (16, 32, 128) for dt in ("f32", "bf16")),
+    pytest.param("bf16", "interleaved", 32, id="bf16-interleaved-D32"),
+    pytest.param("f32", "runs", 256, id="f32-runs-D256"),
+])
+def test_plain_forward_matches_pallas_on_segment_layouts(dtype, layout, d):
     """Output and row logsumexp of the forward that training runs against
     JAX's Pallas kernel with its residuals (l and m, lse = m + log l), in
-    interpret mode.  The logsumexp is f32 in both (atol 1e-5; for bf16 the
-    logits are products of the same bf16 values summed in f32)."""
+    interpret mode, at sm_scale 1 / sqrt(D).  The logsumexp is f32 in both
+    (atol 1e-5; for bf16 the logits are products of the same bf16 values
+    summed in f32)."""
     rng = np.random.default_rng(256 + len(layout))
-    q, k, v = (rng.normal(size=(2, 2, 256, D)).astype(np.float32) for _ in range(3))
+    q, k, v = (rng.normal(size=(2, 2, 256, d)).astype(np.float32) for _ in range(3))
+    scale = 1.0 / np.sqrt(d)
     seg = np.asarray(SEG_LAYOUTS[layout], np.int32)
     jdt, tdt = DTYPES[dtype]
     jseg = jnp.asarray(seg)
     with pltpu.force_tpu_interpret_mode():
         want, l, m = jax_fa._flash_attention(
             *(jnp.asarray(a).astype(jdt) for a in (q, k, v)), None,
-            SegmentIds(q=jseg, kv=jseg), True, False, SCALE,
-            BlockSizes.get_default(2, 2, 256, 256, D), False)
+            SegmentIds(q=jseg, kv=jseg), True, False, scale,
+            BlockSizes.get_default(2, 2, 256, 256, d), False)
     want = np.asarray(want.astype(jnp.float32))
     want_lse = np.asarray(m) + np.log(np.asarray(l))  # [B, H, S] each
     tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
-    out, lse = flash_attention_fwd(tq, tk, tv, torch.from_numpy(seg), SCALE)
+    out, lse = flash_attention_fwd(tq, tk, tv, torch.from_numpy(seg), scale)
     assert out.dtype == tdt and lse.shape == (2, 2, 256) and lse.dtype == torch.float32
+    assert out.shape == (2, 2, 256, d)
     np.testing.assert_allclose(out.float().numpy(), want, **TOL[dtype])
     np.testing.assert_allclose(lse.numpy(), want_lse, rtol=0, atol=1e-5)
-    got = flash_attention(tq, tk, tv, torch.from_numpy(seg), SCALE)
+    got = flash_attention(tq, tk, tv, torch.from_numpy(seg), scale)
     torch.testing.assert_close(got, out, rtol=0, atol=0)
 
 
@@ -134,8 +149,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     for s in (64, 192):  # below 128, not a multiple of 128
         with pytest.raises(ValueError, match="multiple of 128"):
             flash_attention(q[:, :, :s], k[:, :, :s], v[:, :, :s], seg[:, :s], SCALE)
-    with pytest.raises(ValueError, match="D=32"):
-        flash_attention(q[..., :32], k[..., :32], v[..., :32], seg, SCALE)
+    # D = 32 (a head dim the wgmma kernels do not take) runs: the CUDA-core
+    # kernels take it on the card, the plain version here
+    got = flash_attention(q[..., :32], k[..., :32], v[..., :32], seg, SCALE)
+    torch.testing.assert_close(got, flash_attention_plain(q[..., :32], k[..., :32],
+                                                          v[..., :32], seg, SCALE))
+    wide = torch.zeros(*q.shape[:3], 257)  # past every kernel's 256
+    with pytest.raises(ValueError, match="D=257"):
+        flash_attention(wide, wide, wide, seg, SCALE)
     with pytest.raises(ValueError, match="one shape"):
         flash_attention(q, k[:, :1], v, seg, SCALE)
     with pytest.raises(ValueError, match="segment_ids"):

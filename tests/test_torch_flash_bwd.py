@@ -46,12 +46,12 @@ SEG_LAYOUTS = {
 }
 
 
-def _inputs(b, h, s, rows, seed):
-    """Normal q, k, v, dO [B, H, S, 64] and int32 segment ids: each entry of
+def _inputs(b, h, s, rows, seed, d=64):
+    """Normal q, k, v, dO [B, H, S, d] and int32 segment ids: each entry of
     ``rows`` is a valid length (1 for that many tokens, 0 for the pad) or a
     row of S ids."""
     rng = np.random.default_rng(seed)
-    q, k, v, dout = (rng.normal(size=(b, h, s, 64)).astype(np.float32) for _ in range(4))
+    q, k, v, dout = (rng.normal(size=(b, h, s, d)).astype(np.float32) for _ in range(4))
     seg = np.zeros((b, s), np.int32)
     for i, r in enumerate(rows):
         if isinstance(r, int):
@@ -61,11 +61,11 @@ def _inputs(b, h, s, rows, seed):
     return q, k, v, dout, seg
 
 
-def _jax_grads(q, k, v, dout, seg, dtype):
+def _jax_grads(q, k, v, dout, seg, dtype, scale=SCALE):
     jseg = jnp.asarray(seg)
 
     def f(q, k, v):
-        return jax_flash(q, k, v, segment_ids=SegmentIds(q=jseg, kv=jseg), sm_scale=SCALE)
+        return jax_flash(q, k, v, segment_ids=SegmentIds(q=jseg, kv=jseg), sm_scale=scale)
 
     with pltpu.force_tpu_interpret_mode():
         args = [jnp.asarray(a).astype(dtype) for a in (q, k, v)]
@@ -75,26 +75,33 @@ def _jax_grads(q, k, v, dout, seg, dtype):
 
 
 # pad queries whose first key block is wholly valid (masked for them), a full
-# row, and rows of 65 and 131 tokens; then the segment layouts
-@pytest.mark.parametrize("dtype,s,lengths", [
-    ("f32", 256, [70, 200]),
-    ("bf16", 128, [128, 65]),
-    ("bf16", 256, [131, 2]),
-    ("f32", 256, SEG_LAYOUTS["runs"]),
-    ("bf16", 256, SEG_LAYOUTS["runs"]),
-    ("bf16", 256, SEG_LAYOUTS["interleaved"]),
-    ("bf16", 256, SEG_LAYOUTS["one_segment"]),
+# row, and rows of 65 and 131 tokens; then the segment layouts; all at D = 64
+# (sm_scale 0.125).  Then the head dims the wgmma kernels do not take (the
+# card's CUDA-core route, whose plain version this is) at sm_scale 1 / sqrt(D):
+# 16, 32 and 128 in both dtypes, and 256 in f32
+@pytest.mark.parametrize("dtype,s,lengths,d", [
+    pytest.param("f32", 256, [70, 200], 64, id="f32-256-lengths0"),
+    pytest.param("bf16", 128, [128, 65], 64, id="bf16-128-lengths1"),
+    pytest.param("bf16", 256, [131, 2], 64, id="bf16-256-lengths2"),
+    pytest.param("f32", 256, SEG_LAYOUTS["runs"], 64, id="f32-256-lengths3"),
+    pytest.param("bf16", 256, SEG_LAYOUTS["runs"], 64, id="bf16-256-lengths4"),
+    pytest.param("bf16", 256, SEG_LAYOUTS["interleaved"], 64, id="bf16-256-lengths5"),
+    pytest.param("bf16", 256, SEG_LAYOUTS["one_segment"], 64, id="bf16-256-lengths6"),
+    *(pytest.param(dt, 256, SEG_LAYOUTS["runs"], d, id=f"{dt}-256-runs-D{d}")
+      for d in (16, 32, 128) for dt in ("f32", "bf16")),
+    pytest.param("f32", 256, [70, 200], 256, id="f32-256-D256"),
 ])
-def test_plain_backward_matches_jax_vjp(dtype, s, lengths):
-    q, k, v, dout, seg = _inputs(2, 2, s, lengths, seed=s + len(lengths))
+def test_plain_backward_matches_jax_vjp(dtype, s, lengths, d):
+    q, k, v, dout, seg = _inputs(2, 2, s, lengths, seed=s + len(lengths), d=d)
+    scale = 1.0 / np.sqrt(d)
     jdt, tdt = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
-    want = _jax_grads(q, k, v, dout, seg, jdt)
+    want = _jax_grads(q, k, v, dout, seg, jdt, scale)
     tq, tk, tv, tdo = (torch.from_numpy(a).to(tdt) for a in (q, k, v, dout))
     tseg = torch.from_numpy(seg)
-    out, lse = flash_attention_fwd(tq, tk, tv, tseg, SCALE)
-    got = flash_attention_bwd_plain(tq, tk, tv, tseg, out, lse, tdo, SCALE)
+    out, lse = flash_attention_fwd(tq, tk, tv, tseg, scale)
+    got = flash_attention_bwd_plain(tq, tk, tv, tseg, out, lse, tdo, scale)
     for g, w in zip(got, want):
-        assert g.dtype == tdt and g.shape == (2, 2, s, 64)
+        assert g.dtype == tdt and g.shape == (2, 2, s, d)
         if dtype == "f32":
             np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=2e-5)
         else:
