@@ -35,15 +35,21 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 through the plain version; times of each kernel, the whole
                 backward, the plain backward and SDPA's backward, beside the
                 bounds
-5b. k2g      -- K2/K2b's CUDA-core route (csrc/flash_attention_simt.cu: f32,
-                or bf16 at a head dim other than 64) against the plain
-                versions, forward, logsumexp, dq (with di) and dkv: small
-                segment-id cases at D = 16, 32, 48, 64 (f32), 128, 136, 256
-                in f32 and bf16, then the main paths' shapes (f32 [256, 12,
-                512, 64] and [96, 12, 512, 64], D = 32 [256, 12, 512, 32] in
-                both dtypes and its bf16 backward at [96, 12, 512, 32], D = 16
-                [256, 4, 128, 16]); times of each kernel, the plain version
-                and SDPA with the boolean segment mask, beside the bound
+5b. k2g      -- K2's forwards off the wgmma D = 64 route and the CUDA-core
+                backward against the plain versions, each input on the route
+                the routing rule gives (bf16 at another head dim: the wgmma
+                kernel at ceil(D / 64) slabs; f32: the 3xTF32 kernel of
+                csrc/flash_attention_tf32.cu; what TMA cannot read: the
+                CUDA-core kernels of csrc/flash_attention_simt.cu), forward,
+                logsumexp, dq (with di) and dkv: small segment-id cases at
+                D = 16-256 in f32 and bf16 (D = 26 f32 and D = 20 bf16, and
+                D = 64 in layouts TMA cannot read, on the CUDA-core
+                forward), then the main paths' shapes (f32 [256, 12, 512,
+                64] and [96, 12, 512, 64], D = 32 [256, 12, 512, 32] in both
+                dtypes and its bf16 backward at [96, 12, 512, 32], D = 16
+                [256, 4, 128, 16]); times of each route's kernel, the
+                CUDA-core forward on the same inputs, the plain version and
+                SDPA with the boolean segment mask, beside the bound
 6. e2e       -- a synthetic mag-shaped corpus (2048 docs x 5 dense fields)
                 encoded by the full-width encoder with attention_impl="auto"
                 (the 512-token fields through K2), held against the same
@@ -106,14 +112,18 @@ Contriever-base and GTR-T5-base width with seeded random weights:
 11. train_cli -- the train command on a dataset directory and a BERT
                 directory, one iteration on the card, then retrieve
                 --checkpoint-dir on its output
-11b. f32     -- the CUDA-core route on the main paths: (a) Contriever-base
+11b. f32     -- K2's other routes on the main paths: (a) Contriever-base
                 width in f32 (--precision 32) with attention "auto": the
-                build of the cli phase's 512 docs against plain attention's,
-                rerank (K1 on the f32 index) and exact against the
-                plain-attention engine, one train batch against the plain
-                path, Trainer.fit for 6 steps; (b) a BERT directory at
-                all-MiniLM-L6-v2's width (bf16, D = 32) through
-                prepare_model: the build against "xla", one train batch
+                build of the cli phase's 512 docs (the 3xTF32 forward)
+                against plain attention's, rerank (K1 on the f32 index) and
+                exact against the plain-attention engine, one train batch
+                against the plain path, Trainer.fit for 6 steps (the 3xTF32
+                forward, the CUDA-core backward); (b) a BERT directory at
+                all-MiniLM-L6-v2's width (bf16, D = 32: the wgmma forward
+                at one slab) through prepare_model: the build against
+                "xla", one train batch; (c) the same at
+                TinyBERT_General_4L_312D's width (D = 26: the CUDA-core
+                forward)
 12. serving  -- the same engine over a prebuilt random [131072, 5, 768] bf16
                 corpus in rerank mode: QPS, one batch's stages, and the
                 device's busy share and time by kernel from torch.profiler
@@ -284,10 +294,12 @@ from mfar_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dq,
     flash_attention_bwd_plain,
     flash_attention_fwd,
+    flash_attention_headdim,
     flash_attention_plain,
     flash_attention_simt,
     flash_attention_simt_bwd_dkv,
     flash_attention_simt_bwd_dq,
+    flash_attention_tf32,
     _row_dots,
 )
 from mfar_tpu_torch.ops.gather_scores import (
@@ -320,6 +332,7 @@ CARD = "card not read yet"  # nvidia-smi's name and power limit, set by main
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+TF32_FLOPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core rate
 
 # K1's tolerance against its plain version: both sum f32 products of the
 # same values, in different orders.
@@ -587,9 +600,10 @@ def library_attention(q, k, v, seg, scale):
 
 def flops_rate(q) -> float:
     """The card's rate for the products' arithmetic: the bf16 tensor cores
-    for bf16 inputs, f32 FMA on the CUDA cores for f32 (TF32 would not keep
-    f32 products)."""
-    return F32_FLOPS_PER_S if q.dtype == torch.float32 else BF16_FLOPS_PER_S
+    for bf16 inputs; for f32, three TF32 products a product (3xTF32: an
+    f32-accurate product is the least the card can do in f32 on its tensor
+    cores; one TF32 product would not keep f32 products)."""
+    return TF32_FLOPS_PER_S / 3 if q.dtype == torch.float32 else BF16_FLOPS_PER_S
 
 
 def k2_bound(q, seg, lse=False):
@@ -928,14 +942,45 @@ def run_k2b(seed: int, train_shape=(96, 12, 512)) -> dict:
 # phase 5b: K2/K2b's CUDA-core route (f32, or bf16 at a head dim != 64)
 
 
-def simt_counts() -> tuple:
-    return (flash_attention_simt.launches, flash_attention_simt_bwd_dkv.launches,
-            flash_attention_simt_bwd_dq.launches)
+def k2_counts() -> dict:
+    """Launches of K2's four forwards, by route, and of both backward
+    pairs."""
+    return {"wgmma": flash_attention.launches, "wgmma_headdim": flash_attention_headdim.launches,
+            "tf32": flash_attention_tf32.launches, "simt": flash_attention_simt.launches,
+            "wgmma_dkv": flash_attention_bwd_dkv.launches,
+            "wgmma_dq": flash_attention_bwd_dq.launches,
+            "simt_dkv": flash_attention_simt_bwd_dkv.launches,
+            "simt_dq": flash_attention_simt_bwd_dq.launches}
 
 
-def reset_simt_counts() -> None:
+def reset_k2_counts() -> None:
+    """Every K2/K2b count to 0: the four forwards, both backward pairs."""
+    reset_counts()
+    flash_attention_headdim.launches = flash_attention_tf32.launches = 0
     flash_attention_simt.launches = 0
     flash_attention_simt_bwd_dkv.launches = flash_attention_simt_bwd_dq.launches = 0
+
+
+def launched(**want: int) -> dict:
+    """k2_counts() with ``want``'s entries and 0 elsewhere: what a run after
+    reset_k2_counts() should show."""
+    return dict({k: 0 for k in k2_counts()}, **want)
+
+
+def expected_route(t) -> str:
+    """The forward's route by the routing rule, for q, k and v laid out as
+    ``t``: bf16 at D = 64 "wgmma", bf16 at another D that is a multiple of 8
+    "wgmma_headdim", f32 at a D that is a multiple of 4 "tf32", each where
+    TMA can read the operands (the B, H and S strides multiples of 16
+    bytes, from a 16-byte boundary); every other input "simt"."""
+    d = t.shape[-1]
+    tma = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        st * t.element_size() % 16 == 0 for st in t.stride()[:3])
+    if tma and t.dtype == torch.bfloat16 and d % 8 == 0:
+        return "wgmma" if d == 64 else "wgmma_headdim"
+    if tma and t.dtype == torch.float32 and d % 4 == 0:
+        return "tf32"
+    return "simt"
 
 
 def k2g_inputs(gen, b, h, s, d, dtype, rows):
@@ -944,26 +989,36 @@ def k2g_inputs(gen, b, h, s, d, dtype, rows):
     entry of ``rows`` a valid length or a list of S ids)."""
     q, k, v, dout = (torch.randn(b, s, h * d, device=DEVICE, generator=gen).to(dtype)
                      .view(b, s, h, d).transpose(1, 2) for _ in range(4))
+    return q, k, v, segment_rows(b, s, rows), dout
+
+
+def segment_rows(b, s, rows):
+    """int32 [b, s] segment ids: each entry of ``rows`` a valid length (1
+    before it, 0 after) or a list of s ids."""
     seg = torch.zeros(b, s, dtype=torch.int32, device=DEVICE)
     for i, r in enumerate(rows):
         if isinstance(r, int):
             seg[i, :r] = 1
         else:
             seg[i] = torch.as_tensor(r, dtype=torch.int32, device=DEVICE)
-    return q, k, v, seg, dout
+    return seg
 
 
 def check_k2g(q, k, v, seg, dout, label, grads=True) -> dict:
-    """The CUDA-core kernels against their plain versions: the forward with
-    and without the logsumexp (the same output bits), the logsumexp, and
-    with ``grads`` the backward (dq writing di, then dkv) and di, under the
-    f32 gates (K2G_*) or the bf16 ones (K2, K2b).  Checks that only the
-    CUDA-core kernels launched.  Returns the largest absolute errors (fwd,
-    lse, dq, dkv) and the largest gradient error relative to the largest
-    gradient."""
+    """K2's forwards other than the wgmma one at D = 64 (the wgmma kernel
+    at another head dim, the 3xTF32 kernel, the CUDA-core kernel) and the
+    CUDA-core backward against their plain versions: the forward with and
+    without the logsumexp (the same output bits), the logsumexp, and with
+    ``grads`` the backward (dq writing di, then dkv) and di, under the f32
+    gates (K2G_*) or the bf16 ones (K2, K2b).  Checks that both forwards
+    launched on the route the routing rule gives (``expected_route``), and
+    the backward on the CUDA-core pair, nothing else.  Returns the route
+    and the largest absolute errors (fwd, lse, dq, dkv) and the largest
+    gradient error relative to the largest gradient."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     f32 = q.dtype == torch.float32
-    before, wgmma = simt_counts(), counts()
+    route = expected_route(q)
+    before = k2_counts()
     got = flash_attention(q, k, v, seg, scale)
     out, lse = flash_attention_fwd(q, k, v, seg, scale)
     torch.cuda.synchronize()
@@ -971,13 +1026,13 @@ def check_k2g(q, k, v, seg, dout, label, grads=True) -> dict:
     err = (got.float() - want.float()).abs().max().item()
     ok = err <= K2G_ATOL if f32 else torch.allclose(got.float(), want.float(), rtol=K2_RTOL,
                                                     atol=K2_ATOL)
-    check(ok, f"CUDA-core K2 {label}: max abs err {err}")
-    check(torch.equal(got, out), f"CUDA-core K2 {label}: the logsumexp changed output bits")
+    check(ok, f"K2 ({route}) {label}: max abs err {err}")
+    check(torch.equal(got, out), f"K2 ({route}) {label}: the logsumexp changed output bits")
     check(got.dtype == q.dtype and got.transpose(1, 2).is_contiguous(), f"K2 {label} layout")
     lse_err = (lse - masked_logsumexp(q, k, seg, scale)).abs().max().item()
     check(lse_err <= (K2G_LSE_ATOL if f32 else K2B_LSE_ATOL),
-          f"CUDA-core K2 logsumexp {label}: max abs err {lse_err}")
-    r = {"fwd": err, "lse": lse_err, "dq": 0.0, "dkv": 0.0, "rel": 0.0}
+          f"K2 ({route}) logsumexp {label}: max abs err {lse_err}")
+    r = {"route": route, "fwd": err, "lse": lse_err, "dq": 0.0, "dkv": 0.0, "rel": 0.0}
     if grads:
         g = flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
         torch.cuda.synchronize()
@@ -1000,9 +1055,13 @@ def check_k2g(q, k, v, seg, dout, label, grads=True) -> dict:
                              atol=K2B_DI_ATOL_REL * want_di.abs().max().item()),
               f"CUDA-core dq's di {label}: max abs err {di_err}")
         check(torch.equal(dq, g[0]), f"CUDA-core dq {label}: two runs differ")
-    after = simt_counts()  # dq twice with grads: the backward, then di's check
-    check(counts() == wgmma and after == (before[0] + 2, before[1] + grads, before[2] + 2 * grads),
-          f"{label}: launched CUDA-core {after} from {before}, wgmma {counts()} from {wgmma}")
+    # dq twice with grads: the backward, then di's check
+    want_counts = dict(before)
+    want_counts[route] += 2
+    want_counts["simt_dkv"] += grads
+    want_counts["simt_dq"] += 2 * grads
+    check(k2_counts() == want_counts,
+          f"{label}: launched {k2_counts()} from {before} (route {route})")
     return r
 
 
@@ -1016,23 +1075,57 @@ K2G_CASES = [
                  [0] * 64 + [3] * 64 + [0] * 64 + [3] * 64]),
     (2, 3, 384, [2, 200]),
 ]
-K2G_DIMS = {torch.float32: (16, 32, 48, 64, 128, 136, 256),
-            torch.bfloat16: (16, 32, 48, 128, 136, 256)}
+# by route: f32 at every D a multiple of 4 takes the 3xTF32 kernel (20: a
+# slab whose last k step reads zeros past D; 48 and 136 inside a slab),
+# bf16 at every D a multiple of 8 but 64 the wgmma kernel (40 and 136 stop
+# inside a 64-column slab); K2G_SIMT_DIMS, which TMA cannot read (f32 D =
+# 26, bf16 D = 20), take the CUDA-core kernel
+K2G_DIMS = {torch.float32: (16, 20, 32, 48, 64, 128, 136, 256),
+            torch.bfloat16: (16, 32, 40, 48, 128, 136, 256)}
+K2G_SIMT_DIMS = {torch.float32: (26,), torch.bfloat16: (20,)}
+
+
+def misaligned_k2g_inputs(gen, dtype, rows):
+    """[3, 2, 256, 64] q/k/v and dO in layouts TMA cannot read, so the
+    CUDA-core forward takes them: bf16 views that start 2 bytes into their
+    buffers; f32 views of [B, S, H*D + 2] buffers (rows 520 bytes apart)."""
+    b, h, s, d = 3, 2, 256, 64
+    if dtype == torch.bfloat16:
+        flat = [torch.randn(b * s * h * d + 1, device=DEVICE, generator=gen).to(dtype)
+                for _ in range(4)]
+        views = [t[1:].view(b, s, h, d).transpose(1, 2) for t in flat]
+    else:
+        buf = [torch.randn(b, s, h * d + 2, device=DEVICE, generator=gen) for _ in range(4)]
+        views = [t[..., :h * d].view(b, s, h, d).transpose(1, 2) for t in buf]
+    return (*views[:3], segment_rows(b, s, rows), views[3])
 
 
 def k2g_times(q, k, v, seg, dout=None, lse_shape=False) -> dict:
-    """CUDA-event times of the CUDA-core forward (with the logsumexp when
-    ``lse_shape``), its plain version and SDPA with the boolean segment mask
-    (the library yardstick); with ``dout`` also dq, dkv, the plain backward
-    and SDPA's backward; each beside its bound."""
+    """CUDA-event times of the forward on its route (with the logsumexp when
+    ``lse_shape``), the CUDA-core forward on the same inputs (held against
+    the plain version first: ``simt_err``), the plain version and SDPA with
+    the boolean segment mask (the library yardstick); with ``dout`` also
+    dq, dkv, the plain backward and SDPA's backward; each beside its
+    bound."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     slow = dict(reps=5, inner=2)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if lse_shape else None
     if lse_shape:
         fwd = lambda: flash_attention_fwd(q, k, v, seg, scale)
     else:
         fwd = lambda: flash_attention(q, k, v, seg, scale)
+    simt = lambda: flash_attention_simt(q, k, v, seg, scale, lse)
+    got = simt()
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, seg, scale)
+    simt_err = (got.float() - want.float()).abs().max().item()
+    check(simt_err <= K2G_ATOL if q.dtype == torch.float32 else torch.allclose(
+        got.float(), want.float(), rtol=K2_RTOL, atol=K2_ATOL),
+        f"CUDA-core K2 at {list(q.shape)} {q.dtype}: max abs err {simt_err}")
+    del got, want
     bound = k2_bound(q, seg, lse=lse_shape)
-    r = dict(ms=time_cuda(fwd, reps=11, inner=3),
+    r = dict(route=expected_route(q), ms=time_cuda(fwd, reps=11, inner=3),
+             simt_ms=time_cuda(simt, reps=5, inner=2), simt_err=simt_err,
              plain_ms=time_cuda(lambda: flash_attention_plain(q, k, v, seg, scale), **slow),
              library_ms=time_cuda(lambda: library_attention(q, k, v, seg, scale), **slow),
              bound_ms=bound[0], bound_by=bound[1])
@@ -1057,36 +1150,48 @@ def k2g_times(q, k, v, seg, dout=None, lse_shape=False) -> dict:
 
 
 def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
-    """K2/K2b's CUDA-core route against the plain versions on the card: the
-    small cases at every head-dim bucket in f32 and bf16, then the shapes of
-    the main paths: f32 at the build's [256, 12, 512, 64] (forward) and the
-    train step's [96, 12, 512, 64] (with the logsumexp, and the backward),
-    all-MiniLM-L6-v2's D = 32 at [256, 12, 512, 32] in bf16 and f32 and its
-    backward at [96, 12, 512, 32] in bf16, and EncoderConfig.tiny's
-    [256, 4, 128, 16] in both; CUDA-event times of each beside its bound,
-    the plain version and SDPA."""
+    """K2's forwards other than the wgmma one at D = 64 (the wgmma kernel at
+    other head dims, the 3xTF32 kernel, the CUDA-core kernel) and the
+    CUDA-core backward against the plain versions on the card, each input
+    on the route the routing rule gives: the small cases at every head dim
+    of K2G_DIMS in f32 and bf16 and layouts TMA cannot read (the CUDA-core
+    forward), then the shapes of the main paths: f32 at the build's
+    [256, 12, 512, 64] (forward) and the train step's [96, 12, 512, 64]
+    (with the logsumexp, and the backward), all-MiniLM-L6-v2's D = 32 at
+    [256, 12, 512, 32] in bf16 and f32 and its backward at [96, 12, 512, 32]
+    in bf16, and EncoderConfig.tiny's [256, 4, 128, 16] in both; CUDA-event
+    times of each route's forward, the CUDA-core forward on the same inputs,
+    the plain version and SDPA, beside the bound."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
-    err = {"fwd": 0.0, "lse": 0.0, "dq": 0.0, "dkv": 0.0, "rel": 0.0}
-    f32_err = dict(err)
+    keys = ("fwd", "lse", "dq", "dkv", "rel")
+    by_route, f32_err = {}, dict.fromkeys(keys, 0.0)
 
     def hold(r, dtype):
-        for key in err:
-            err[key] = max(err[key], r[key])
+        route_err = by_route.setdefault(r["route"], dict.fromkeys(keys, 0.0))
+        for key in keys:
+            route_err[key] = max(route_err[key], r[key])
             if dtype == torch.float32:
                 f32_err[key] = max(f32_err[key], r[key])
 
-    for dtype, dims in K2G_DIMS.items():
-        for d in dims:
+    for dtype in K2G_DIMS:
+        for d in K2G_DIMS[dtype] + K2G_SIMT_DIMS[dtype]:
             for b, h, s, rows in K2G_CASES:
                 label = f"{dtype} D={d} B={b} H={h} S={s}"
                 hold(check_k2g(*k2g_inputs(gen, b, h, s, d, dtype, rows), label), dtype)
+        rows = K2G_CASES[1][3]
+        hold(check_k2g(*misaligned_k2g_inputs(gen, dtype, rows),
+                       f"{dtype} D=64 in a layout TMA cannot read"), dtype)
+    routes = "; ".join(f"{name}: forward {e['fwd']:.3g}, logsumexp {e['lse']:.3g}"
+                       for name, e in sorted(by_route.items()))
     phase("k2g", f"small cases (S=128/256/384, B=1, H=1, several segments, interleaved ids, "
                  f"one-segment rows, ragged pads) at D={K2G_DIMS[torch.float32]} in f32 and "
-                 f"D={K2G_DIMS[torch.bfloat16]} in bf16 agree: f32 max abs err forward "
-                 f"{f32_err['fwd']:.3g} (atol {K2G_ATOL}), logsumexp {f32_err['lse']:.3g} "
-                 f"(atol {K2G_LSE_ATOL}), gradients {f32_err['rel']:.3g} of the largest (gate "
-                 f"{K2G_GRAD_REL}); bf16 within the K2/K2b gates; only the CUDA-core kernels "
-                 f"launched")
+                 f"D={K2G_DIMS[torch.bfloat16]} in bf16 on the tensor cores, D="
+                 f"{K2G_SIMT_DIMS[torch.float32]} in f32, D={K2G_SIMT_DIMS[torch.bfloat16]} in "
+                 f"bf16 and D=64 in layouts TMA cannot read on the CUDA cores, agree, each on "
+                 f"the routing rule's route: max abs err by route {routes}; f32 "
+                 f"forward {f32_err['fwd']:.3g} (atol {K2G_ATOL}), logsumexp "
+                 f"{f32_err['lse']:.3g} (atol {K2G_LSE_ATOL}), gradients {f32_err['rel']:.3g} "
+                 f"of the largest (gate {K2G_GRAD_REL}); bf16 within the K2/K2b gates")
 
     def lengths(n, s, salt):
         out = np.random.default_rng(seed + salt).integers(2, s + 1, size=n)
@@ -1094,32 +1199,39 @@ def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
         return out.tolist()
 
     r, lines = {}, []
+
+    def timed(key, *inputs, **kw):
+        r[key] = k2g_times(*inputs, **kw)
+        simt = by_route.setdefault("simt", dict.fromkeys(keys, 0.0))
+        simt["fwd"] = max(simt["fwd"], r[key]["simt_err"])
+        lines.append(f"{key} {list(inputs[0].shape)}{' (with the logsumexp)' if kw else ''}: "
+                     f"{r[key]}")
+
     b, h, s = build
     for dtype, d, key in ((torch.float32, 64, "f32"), (torch.bfloat16, 32, "bf16_d32"),
                           (torch.float32, 32, "f32_d32")):
         q, k, v, seg, _ = k2g_inputs(gen, b, h, s, d, dtype, lengths(b, s, 0))
         hold(check_k2g(q, k, v, seg, None, f"at {list(q.shape)} {dtype}", grads=False), dtype)
         if key != "f32_d32":
-            r[key] = k2g_times(q, k, v, seg)
-            lines.append(f"{key} {list(q.shape)}: {r[key]}")
+            timed(key, q, k, v, seg)
         del q, k, v, seg
     b, h, s = train
     for dtype, d, key in ((torch.float32, 64, "f32_train"), (torch.bfloat16, 32, "bf16_d32_train")):
         q, k, v, seg, dout = k2g_inputs(gen, b, h, s, d, dtype, lengths(b, s, 5))
         hold(check_k2g(q, k, v, seg, dout, f"at {list(q.shape)} {dtype}"), dtype)
-        r[key] = k2g_times(q, k, v, seg, dout, lse_shape=True)
-        lines.append(f"{key} {list(q.shape)} (forward with the logsumexp): {r[key]}")
+        timed(key, q, k, v, seg, dout, lse_shape=True)
         del q, k, v, seg, dout
     for dtype, key in ((torch.bfloat16, "bf16_d16"), (torch.float32, "f32_d16")):
         q, k, v, seg, dout = k2g_inputs(gen, 256, 4, 128, 16, dtype, lengths(256, 128, 9))
         hold(check_k2g(q, k, v, seg, dout, f"at {list(q.shape)} {dtype}"), dtype)
-        r[key] = k2g_times(q, k, v, seg)
-        lines.append(f"{key} {list(q.shape)}: {r[key]}")
+        timed(key, q, k, v, seg)
         del q, k, v, seg, dout
     phase("k2g", f"main-path shapes agree (f32 max abs err forward {f32_err['fwd']:.3g}, "
                  f"logsumexp {f32_err['lse']:.3g}, gradients {f32_err['rel']:.3g} of the "
                  f"largest); times in ms ({CARD}): " + "; ".join(lines))
-    r.update(max_abs_err=err["fwd"], dq_max_abs_err=err["dq"], dkv_max_abs_err=err["dkv"],
+    r.update(by_route=by_route,
+             dq_max_abs_err=max(e["dq"] for e in by_route.values()),
+             dkv_max_abs_err=max(e["dkv"] for e in by_route.values()),
              f32_max_abs_err=f32_err["fwd"], f32_lse_max_abs_err=f32_err["lse"],
              f32_grad_rel_err=f32_err["rel"])
     return r
@@ -2831,27 +2943,32 @@ def run_train_cli(seed, corpus, n_docs=512):
 # vocabulary, 512 positions
 MINILM_WIDTH = dict(hidden_size=384, num_layers=6, num_heads=12, intermediate_size=1536,
                     vocab_size=30522, max_position_embeddings=512)
+# huawei-noah/TinyBERT_General_4L_312D's published config: hidden 312, 4
+# layers, 12 heads (D = 26, which TMA cannot read in bf16: the CUDA-core
+# forward's route), intermediate 1200, BERT's vocabulary
+TINYBERT_WIDTH = dict(hidden_size=312, num_layers=4, num_heads=12, intermediate_size=1200,
+                      vocab_size=30522, max_position_embeddings=512)
 
 
 def one_batch_against_plain(model, plain, batch, seed, label):
-    """One train batch through ``model`` ("auto": the CUDA-core kernels)
-    and ``plain`` (the same weights, "xla"): loss, gradient norm and each
-    optimizer group's gradient cosine.  Returns them and the CUDA-core
-    launches of the first."""
-    reset_counts()
-    reset_simt_counts()
+    """One train batch through ``model`` ("auto": K2 and the CUDA-core
+    backward) and ``plain`` (the same weights, "xla"): loss, gradient norm
+    and each optimizer group's gradient cosine.  Returns them and the K2/K2b
+    launches of the first (``k2_counts``)."""
+    reset_k2_counts()
     loss, norm, grads = loss_and_grads(model, batch, seed)
-    launched = simt_counts()
-    check(counts() == (0, 0, 0), f"{label}: the wgmma kernels launched {counts()}")
-    reset_simt_counts()
+    n_launched = k2_counts()
+    check(counts() == (0, 0, 0), f"{label}: the wgmma D = 64 kernels launched {counts()}")
+    reset_k2_counts()
     loss_pl, norm_pl, grads_pl = loss_and_grads(plain, batch, seed)
-    check(simt_counts() == (0, 0, 0), f"{label}: the plain path launched {simt_counts()}")
+    check(k2_counts() == launched(), f"{label}: the plain path launched {k2_counts()}")
     cos = {k: F.cosine_similarity(grads[k], grads_pl[k], dim=0).item() for k in grads}
-    return loss, loss_pl, norm, norm_pl, cos, launched
+    return loss, loss_pl, norm, norm_pl, cos, n_launched
 
 
 def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries=64):
-    """K2/K2b's CUDA-core route through the entry points a user calls.
+    """K2's forwards other than the wgmma one at D = 64, and the CUDA-core
+    backward, through the entry points a user calls.
 
     (a) Contriever-base width in f32 (``--precision 32``: hidden 768, 12
     layers, 12 heads, D = 64; seeded weights) with ``attention_impl="auto"``:
@@ -2864,8 +2981,12 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
     kernels).  (b) A BERT at all-MiniLM-L6-v2's width in bf16 (D = 32),
     written as a local directory with seeded weights and loaded through
     ``prepare_model``, set to "auto": the same documents' build against
-    "xla", and one train batch against the plain path.  Every count is set
-    to 0 just before each main-path run and read just after."""
+    "xla", and one train batch against the plain path; (c) the same at
+    TinyBERT_General_4L_312D's width (D = 26).  Every count is set to 0
+    just before each main-path run and read just after, and each run's
+    launches are held to the route the routing rule gives: (a) the 3xTF32
+    forward, (b) the wgmma forward at D = 32, (c) the CUDA-core forward, and
+    the CUDA-core backward pair in every batch."""
     pairs = list(corpus.pairs())[:n_docs]
     sub = Corpus.from_pairs(pairs, dataset_name="mag")
     field_info = resolve_fields("all_dense", "mag")
@@ -2874,7 +2995,7 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
     batches = math.ceil(n_docs / 256)
     rng = np.random.default_rng(seed + 7)
 
-    # (a) the index build in f32, through the CUDA-core forward and plain
+    # (a) the index build in f32, through the 3xTF32 forward and plain
     cfg = EncoderConfig.contriever_base(vocab_size=tok.vocab_size, dtype=torch.float32,
                                         attention_impl="auto")
     encoder = init_encoder(cfg, seed=seed + 7)
@@ -2886,16 +3007,15 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
     for fn in (encode, encode_plain):
         fn(warm["input_ids"], warm["attention_mask"])
     torch.cuda.synchronize()
-    reset_counts()
-    reset_simt_counts()
+    reset_k2_counts()
     matrix, build_s = timed_build(encode, tok, sub, field_info)
-    build_launches = simt_counts()[0]
+    build_launches = k2_counts()["tf32"]
     want_launches = cfg.num_layers * n_long * batches
-    check(build_launches == want_launches and counts() == (0, 0, 0),
-          f"the f32 build launched CUDA-core K2 {build_launches} times (want {want_launches}), "
-          f"wgmma {counts()}")
+    check(k2_counts() == launched(tf32=want_launches),
+          f"the f32 build launched {k2_counts()} (want the 3xTF32 K2 {want_launches} times, "
+          f"nothing else)")
     want, plain_s = timed_build(encode_plain, tok, sub, field_info)
-    check(simt_counts()[0] == build_launches, "the plain-attention build launched K2")
+    check(k2_counts() == launched(tf32=want_launches), "the plain-attention build launched K2")
     check(matrix.dtype == np.float32 and bool(np.isfinite(matrix).all()),
           f"f32 matrix {matrix.dtype}")
     index_err = float(np.abs(np.asarray(matrix) - np.asarray(want)).max())
@@ -2904,7 +3024,7 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
     phase("f32", f"(a) Contriever-base width in f32 (hidden {cfg.hidden_size} x "
                  f"{cfg.num_layers} layers, {cfg.num_heads} heads, D = "
                  f"{cfg.hidden_size // cfg.num_heads}), attention auto: index build of "
-                 f"{n_docs} docs x {len(field_info)} fields through the CUDA-core K2 "
+                 f"{n_docs} docs x {len(field_info)} fields through the 3xTF32 K2 "
                  f"{build_s:.2f}s ({n_seq / build_s:.0f} field-docs/s, {build_launches} "
                  f"launches), plain attention {plain_s:.2f}s; max abs err against the xla "
                  f"build {index_err:.3g} (atol {F32_INDEX_ATOL})")
@@ -2952,12 +3072,14 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
     n_flash = flash_groups(one)
     plain_model = train_model(dataclasses.replace(tcfg, attention_impl="xla"),
                               state.model.state_dict()).to(DEVICE)
-    loss, loss_pl, norm, norm_pl, cos, launched = one_batch_against_plain(
+    loss, loss_pl, norm, norm_pl, cos, one_launched = one_batch_against_plain(
         state.model, plain_model, one, seed, "f32 train batch")
     del plain_model
     layers = tcfg.num_layers
-    check(launched == (2 * layers * n_flash, layers * n_flash, layers * n_flash),
-          f"one f32 batch launched CUDA-core K2/dkv/dq {launched} ({n_flash} groups)")
+    # remat: the forward twice a layer and group
+    check(one_launched == launched(tf32=2 * layers * n_flash, simt_dkv=layers * n_flash,
+                                   simt_dq=layers * n_flash),
+          f"one f32 batch launched {one_launched} ({n_flash} groups)")
     check(abs(loss - loss_pl) <= F32_LOSS_RTOL * abs(loss_pl), f"f32 loss {loss} vs {loss_pl}")
     check(abs(norm - norm_pl) <= F32_NORM_RTOL * norm_pl, f"f32 grad norm {norm} vs {norm_pl}")
     check(min(cos.values()) >= F32_MIN_COSINE, f"f32 gradient cosines {cos}")
@@ -2968,17 +3090,19 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
                           TrainerConfig(out_dir=d, max_epochs=1, train_batch_size=batch,
                                         seed=seed, query_max_length=512))
         torch.cuda.synchronize()
-        reset_counts()
-        reset_simt_counts()
+        reset_k2_counts()
         t = time.perf_counter()
         state = trainer.fit(state)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t
-        fit_launches = simt_counts()
-        check(counts() == (0, 0, 0), f"f32 fit launched wgmma kernels {counts()}")
+        fit_launches = k2_counts()
         check(state.step == steps, f"f32 fit ran {state.step} steps")
-        check(fit_launches[1] == fit_launches[2] >= layers * steps
-              and fit_launches[0] >= 2 * fit_launches[1], f"f32 fit launched {fit_launches}")
+        check(fit_launches == launched(tf32=fit_launches["tf32"],
+                                       simt_dkv=fit_launches["simt_dkv"],
+                                       simt_dq=fit_launches["simt_dkv"])
+              and fit_launches["simt_dkv"] >= layers * steps
+              and fit_launches["tf32"] >= 2 * fit_launches["simt_dkv"],
+              f"f32 fit launched {fit_launches}")
         with open(os.path.join(d, "metrics.jsonl")) as f:
             logged = [json.loads(ln) for ln in f if '"train_loss"' in ln]
         fit_loss = [(r["train_loss"], r["valid_loss"]) for r in logged]
@@ -2987,37 +3111,71 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
     del state, trainer
     torch.cuda.empty_cache()
     phase("f32", f"(a) one f32 train batch (batch {batch}, attention dropout 0, remat) "
-                 f"through the CUDA-core K2/K2b vs plain attention: loss {loss:.8f} vs "
+                 f"through the 3xTF32 K2 and the CUDA-core K2b vs plain attention: loss "
+                 f"{loss:.8f} vs "
                  f"{loss_pl:.8f}, grad_norm {norm:.6f} vs {norm_pl:.6f}, gradient cosine "
                  f"encoder {cos['encoder']:.7f} head {cos['head']:.7f} (gates: loss rtol "
                  f"{F32_LOSS_RTOL}, norm rtol {F32_NORM_RTOL}, cosine >= {F32_MIN_COSINE}); "
-                 f"launches K2/dkv/dq {launched}; Trainer.fit {steps} steps in {fit_s:.1f}s "
+                 f"launches {one_launched}; Trainer.fit {steps} steps in {fit_s:.1f}s "
                  f"with validation and a checkpoint, (train, valid) loss {fit_loss}, "
-                 f"launches K2/dkv/dq {fit_launches}")
+                 f"launches {fit_launches}")
 
-    # (b) a BERT directory at all-MiniLM-L6-v2's width in bf16 (D = 32)
+    # (b) a BERT directory at all-MiniLM-L6-v2's width in bf16 (D = 32),
+    # (c) one at TinyBERT-4L-312D's (D = 26)
+    train = (train_q, train_r, sampler)
+    mini = bert_width_cell("(b)", "all-MiniLM-L6-v2", MINILM_WIDTH, "wgmma_headdim",
+                           "the wgmma K2 at D = 32", seed + 9, sub, field_info, train, batch,
+                           seed, warm, n_long * batches)
+    tiny = bert_width_cell("(c)", "TinyBERT_General_4L_312D", TINYBERT_WIDTH, "simt",
+                           "the CUDA-core K2 (D = 26: TMA cannot read its rows)", seed + 13,
+                           sub, field_info, train, batch, seed, warm, n_long * batches)
+    torch.cuda.empty_cache()
+    # the main paths' launches: the three builds, Trainer.fit and the two
+    # BERT-width batches (the f32 batch is a check beside fit)
+    f32_launches = {key: fit_launches[key] + mini[key] + tiny[key] for key in fit_launches}
+    f32_launches["tf32"] += build_launches
+    return dict(f32_build_s=build_s, f32_plain_build_s=plain_s, f32_index_err=index_err,
+                f32_fit_s=fit_s, f32_batch=dict(loss=loss, loss_plain=loss_pl, norm=norm,
+                                                norm_plain=norm_pl, cos=cos),
+                minilm_build_s=mini["build_s"], minilm_xla_build_s=mini["xla_build_s"],
+                tinybert_build_s=tiny["build_s"], tinybert_xla_build_s=tiny["xla_build_s"],
+                f32_launches=f32_launches)
+
+
+def bert_width_cell(tag, name, width, route, what, dir_seed, sub, field_info, train, batch,
+                    seed, warm, encoder_calls):
+    """Phase f32's bf16 BERT directory at a published width (seeded weights,
+    loaded through ``prepare_model``, set to "auto"): the index build
+    against "xla" (each layer's ``encoder_calls`` 512-token calls on the
+    forward ``route``, nothing else), and one train batch against the plain
+    path (the forward on ``route`` twice a layer and group under remat, the
+    CUDA-core backward pair once).  Returns the K2/K2b launches of both
+    runs, summed, and the two builds' seconds."""
+    train_q, train_r, sampler = train
     with tempfile.TemporaryDirectory() as d:
-        write_bert_dir(d, sub, seed + 9, **MINILM_WIDTH)
+        write_bert_dir(d, sub, dir_seed, **width)
         config, state_dict, mtok = prepare_model(d)
-        check(config.hidden_size // config.num_heads == 32 and config.dtype == torch.bfloat16
-              and config.num_layers == 6, f"prepare_model gave {config}")
-        mini = Encoder(dataclasses.replace(config, attention_impl="auto"))
-        mini.load_state_dict(state_dict)
+        layers = config.num_layers
+        head_dim = width["hidden_size"] // width["num_heads"]
+        check(config.hidden_size // config.num_heads == head_dim
+              and config.dtype == torch.bfloat16 and layers == width["num_layers"],
+              f"prepare_model gave {config}")
+        auto = Encoder(dataclasses.replace(config, attention_impl="auto"))
+        auto.load_state_dict(state_dict)
         xla = Encoder(dataclasses.replace(config, attention_impl="xla"))
         xla.load_state_dict(state_dict)
-        encode, encode_xla = make_encode_fn(mini, device=DEVICE), make_encode_fn(xla, device=DEVICE)
+        encode, encode_xla = make_encode_fn(auto, device=DEVICE), make_encode_fn(xla, device=DEVICE)
         encode_xla(warm["input_ids"][:, :128], warm["attention_mask"][:, :128])
-        reset_counts()
-        reset_simt_counts()
-        m_matrix, m_s = timed_build(encode, mtok, sub, field_info)
-        m_launches = simt_counts()[0]
-        check(m_launches == config.num_layers * n_long * batches and counts() == (0, 0, 0),
-              f"the MiniLM-width build launched CUDA-core K2 {m_launches} times, wgmma {counts()}")
-        m_want, m_plain_s = timed_build(encode_xla, mtok, sub, field_info)
-        agree = index_agreement(m_matrix, m_want, "MiniLM-width bf16 build vs xla")
-        del mini, xla, encode, encode_xla
-        mtrain = ContrastiveDataset(train_q, sub, train_r, sampler, field_info, mtok)
-        mb = to_device(strip_meta(next(mtrain.epoch_batches(batch, seed=seed))),
+        reset_k2_counts()
+        matrix, build_s = timed_build(encode, mtok, sub, field_info)
+        build_launches = k2_counts()
+        check(build_launches == launched(**{route: layers * encoder_calls}),
+              f"the {name}-width build launched {build_launches} (want {route} only)")
+        want, xla_s = timed_build(encode_xla, mtok, sub, field_info)
+        agree = index_agreement(matrix, want, f"{name}-width bf16 build vs xla")
+        del auto, xla, encode, encode_xla
+        ds = ContrastiveDataset(train_q, sub, train_r, sampler, field_info, mtok)
+        mb = to_device(strip_meta(next(ds.epoch_batches(batch, seed=seed))),
                        torch.device(DEVICE))
         mcfg = dataclasses.replace(config, attention_impl="auto", attention_dropout=0.0, remat=True)
         model = train_model(mcfg)
@@ -3025,36 +3183,30 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
         model = model.to(DEVICE)
         plain_model = train_model(dataclasses.replace(mcfg, attention_impl="xla"),
                                   model.state_dict()).to(DEVICE)
-        m_loss, m_loss_pl, m_norm, m_norm_pl, m_cos, m_launched = one_batch_against_plain(
-            model, plain_model, mb, seed, "MiniLM-width train batch")
+        loss, loss_pl, norm, norm_pl, cos, batch_launches = one_batch_against_plain(
+            model, plain_model, mb, seed, f"{name}-width train batch")
         del model, plain_model
         n_flash = flash_groups(mb)
-        check(m_launched == (2 * 6 * n_flash, 6 * n_flash, 6 * n_flash),
-              f"one MiniLM-width batch launched CUDA-core K2/dkv/dq {m_launched}")
-        check(abs(m_loss - m_loss_pl) <= TRAIN_LOSS_RTOL * abs(m_loss_pl)
-              and abs(m_norm - m_norm_pl) <= TRAIN_NORM_RTOL * m_norm_pl
-              and min(m_cos.values()) >= TRAIN_MIN_COSINE,
-              f"MiniLM-width batch: loss {m_loss} vs {m_loss_pl}, norm {m_norm} vs {m_norm_pl}, "
-              f"cosines {m_cos}")
-        phase("f32", f"(b) a BERT directory at all-MiniLM-L6-v2's width (hidden "
-                     f"{config.hidden_size} x {config.num_layers} layers, {config.num_heads} "
-                     f"heads, "
-                     f"D = 32, intermediate {config.intermediate_size}, {config.dtype}; WordPiece "
-                     f"vocab {mtok.vocab_size}), attention auto: build of {n_docs} docs through "
-                     f"the CUDA-core K2 {m_s:.2f}s ({m_launches} launches), xla {m_plain_s:.2f}s; "
-                     f"against the xla build: {agree}; one train batch vs plain: loss "
-                     f"{m_loss:.6f} vs {m_loss_pl:.6f}, grad_norm {m_norm:.5f} vs {m_norm_pl:.5f}, "
-                     f"cosine encoder {m_cos['encoder']:.6f} head {m_cos['head']:.6f} (the bf16 "
-                     f"train gates); launches K2/dkv/dq {m_launched}")
-    torch.cuda.empty_cache()
-    return dict(f32_build_s=build_s, f32_plain_build_s=plain_s, f32_index_err=index_err,
-                f32_fit_s=fit_s, f32_batch=dict(loss=loss, loss_plain=loss_pl, norm=norm,
-                                                norm_plain=norm_pl, cos=cos),
-                minilm_build_s=m_s, minilm_xla_build_s=m_plain_s,
-                # the main paths' CUDA-core launches: the two builds, Trainer.fit and
-                # the MiniLM-width batch (the f32 batch is a check beside fit)
-                f32_launches=(build_launches + fit_launches[0] + m_launches + m_launched[0],
-                              fit_launches[1] + m_launched[1], fit_launches[2] + m_launched[2]))
+        check(batch_launches == launched(**{route: 2 * layers * n_flash},
+                                         simt_dkv=layers * n_flash, simt_dq=layers * n_flash),
+              f"one {name}-width batch launched {batch_launches}")
+        check(abs(loss - loss_pl) <= TRAIN_LOSS_RTOL * abs(loss_pl)
+              and abs(norm - norm_pl) <= TRAIN_NORM_RTOL * norm_pl
+              and min(cos.values()) >= TRAIN_MIN_COSINE,
+              f"{name}-width batch: loss {loss} vs {loss_pl}, norm {norm} vs {norm_pl}, "
+              f"cosines {cos}")
+        phase("f32", f"{tag} a BERT directory at {name}'s width (hidden {config.hidden_size} "
+                     f"x {layers} layers, {config.num_heads} heads, D = {head_dim}, "
+                     f"intermediate {config.intermediate_size}, {config.dtype}; WordPiece vocab "
+                     f"{mtok.vocab_size}), attention auto: build of {len(sub)} docs through "
+                     f"{what} {build_s:.2f}s ({build_launches[route]} launches), xla "
+                     f"{xla_s:.2f}s; against the xla build: {agree}; one train batch vs plain: "
+                     f"loss {loss:.6f} vs {loss_pl:.6f}, grad_norm {norm:.5f} vs {norm_pl:.5f}, "
+                     f"cosine encoder {cos['encoder']:.6f} head {cos['head']:.6f} (the bf16 "
+                     f"train gates); launches {batch_launches}")
+    out = {key: build_launches[key] + batch_launches[key] for key in build_launches}
+    out.update(build_s=build_s, xla_build_s=xla_s)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -5477,7 +5629,8 @@ def device_profile(fn, top: int = 8, host_top: int = 0) -> dict:
 def kernel_usage(logs: dict) -> dict:
     """Each kernel's registers and spills from the ptxas lines of its
     library's build log (nvcc -Xptxas -v), by kernel name (the CUDA-core
-    flash kernels by name, dtype and head-dim bucket)."""
+    flash kernels by name, dtype and head-dim bucket, the tensor-core
+    forwards by name and slabs)."""
     usage = {}
     for log in logs.values():
         name = None
@@ -5486,8 +5639,10 @@ def kernel_usage(logs: dict) -> dict:
                 mangled = ln.split("for", 1)[1].strip()
                 simt = re.search(r"(flash_simt_\w+?)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
                                  mangled)
+                slabs = re.search(r"(flash_attention_fwd|flash_tf32_fwd)_kernelILi(\d+)E",
+                                  mangled)
                 name = (f"{simt[1]} {'f32' if simt[2] == 'f' else 'bf16'} D<={simt[3]}"
-                        if simt else next(
+                        if simt else f"{slabs[1]} NS={slabs[2]}" if slabs else next(
                             (k for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
                                          "flash_attention_fwd", "gather_scores_cross_row",
                                          "gather") if k in mangled), mangled))
@@ -5638,6 +5793,7 @@ def main(argv=None) -> int:
         return 0
     k1, k2, k2b, e2e, cli, train = r["k1"], r["k2"], r["k2b"], r["e2e"], r["cli"], r["train"]
     k2g, f32_launches = r["k2g"], r["f32"]["f32_launches"]
+    by_route = k2g["by_route"]
     serve, hybrid, hybrid_serving = r["serve"], r["hybrid"], r["hybrid_serving"]
     hybrid_cli, gtr, mesh = r["hybrid_cli"], r["gtr"], r["mesh"]
     train_mesh = r["train_mesh"]["train_mesh_launches"]  # every rank's, in its fit
@@ -5721,27 +5877,57 @@ def main(argv=None) -> int:
         "bound_by": k2b["dq_bound_by"],
         "library_ms": k2b["library_bwd_ms"],
     }, {
-        # K2/K2b's CUDA-core route (f32, or bf16 at D != 64): times at the
-        # f32 build's [256, 12, 512, 64] and the f32 train step's
-        # [96, 12, 512, 64]; launches from phase f32's main paths (the f32
-        # and MiniLM-width builds, the f32 Trainer.fit, the MiniLM-width batch)
-        "name": "flash_attention_simt",
+        # K2 at other head dims in bf16 (the wgmma kernel at ceil(D / 64)
+        # slabs): times at all-MiniLM-L6-v2's [256, 12, 512, 32]; launches
+        # from phase f32's MiniLM-width build and batch
+        "name": "flash_attention_headdim",
         "route": "cuda",
-        "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",
+        "source": "mfar_tpu_torch/csrc/flash_attention.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
-        "launches": f32_launches[0],
-        "max_abs_err": k2g["max_abs_err"],
+        "launches": f32_launches["wgmma_headdim"],
+        "max_abs_err": by_route["wgmma_headdim"]["fwd"],
+        "ms": k2g["bf16_d32"]["ms"],
+        "plain_ms": k2g["bf16_d32"]["plain_ms"],
+        "bound_ms": k2g["bf16_d32"]["bound_ms"],
+        "bound_by": k2g["bf16_d32"]["bound_by"],
+        "library_ms": k2g["bf16_d32"]["library_ms"],
+    }, {
+        # K2 in f32 on the tensor cores (3xTF32): times at the f32 build's
+        # [256, 12, 512, 64]; launches from phase f32's build and Trainer.fit
+        "name": "flash_attention_tf32",
+        "route": "cuda",
+        "source": "mfar_tpu_torch/csrc/flash_attention_tf32.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+        "launches": f32_launches["tf32"],
+        "max_abs_err": by_route["tf32"]["fwd"],
         "ms": k2g["f32"]["ms"],
         "plain_ms": k2g["f32"]["plain_ms"],
         "bound_ms": k2g["f32"]["bound_ms"],
         "bound_by": k2g["f32"]["bound_by"],
         "library_ms": k2g["f32"]["library_ms"],
     }, {
+        # K2's CUDA-core forward (what TMA cannot read): times on the f32
+        # build's [256, 12, 512, 64]; launches from phase f32's
+        # TinyBERT-width build and batch (D = 26)
+        "name": "flash_attention_simt",
+        "route": "cuda",
+        "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+        "launches": f32_launches["simt"],
+        "max_abs_err": by_route["simt"]["fwd"],
+        "ms": k2g["f32"]["simt_ms"],
+        "plain_ms": k2g["f32"]["plain_ms"],
+        "bound_ms": k2g["f32"]["bound_ms"],
+        "bound_by": k2g["f32"]["bound_by"],
+        "library_ms": k2g["f32"]["library_ms"],
+    }, {
+        # the CUDA-core backward pair: launches from phase f32's Trainer.fit
+        # and its two BERT-width batches
         "name": "flash_attention_simt_bwd_dkv",
         "route": "cuda",
         "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
-        "launches": f32_launches[1],
+        "launches": f32_launches["simt_dkv"],
         "max_abs_err": k2g["dkv_max_abs_err"],
         "ms": k2g["f32_train"]["dkv_ms"],
         "plain_ms": k2g["f32_train"]["plain_bwd_ms"],
@@ -5753,7 +5939,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
-        "launches": f32_launches[2],
+        "launches": f32_launches["simt_dq"],
         "max_abs_err": k2g["dq_max_abs_err"],
         "ms": k2g["f32_train"]["dq_ms"],
         "plain_ms": k2g["f32_train"]["plain_bwd_ms"],

@@ -48,9 +48,10 @@ def _no_mma(anchor: str, ss: bool = False):
     """Edits that replace every product by a no-op (the ablation x_nomma)."""
     none = ("template <int M, class A, class B>\n"
             "__device__ void gemm_none(float (&)[8][4], const A&, B) {}\n"
+            "template <bool kAccumulate = false>\n"
             "__device__ void gemm_none_ss(float (&)[8][4], uint64_t, uint64_t) {}\n\n")
     edits = [(anchor, none + anchor), ("gemm_rs<1>(", "gemm_none<1>(")]
-    edits.append(("gemm_ss_new(", "gemm_none_ss(") if ss else ("gemm_rs<0>(", "gemm_none<0>("))
+    edits.append(("gemm_ss_new", "gemm_none_ss") if ss else ("gemm_rs<0>(", "gemm_none<0>("))
     return edits
 
 
@@ -58,15 +59,13 @@ PRESETS = {
     "k2": {
         # exp2f's exact path instead of the special-function unit's ex2.approx
         "exp2f": [("exp2_approx(", "exp2f(")],
-        # a ring of two or four stages instead of three
-        "stages2": [("constexpr int kStages = 3;", "constexpr int kStages = 2;")],
-        "stages4": [("constexpr int kStages = 3;", "constexpr int kStages = 4;")],
-        # one block an SM (no register cap below 255)
-        "blocks1": [("__launch_bounds__(kBlockThreads, 2)",
-                     "__launch_bounds__(kBlockThreads, 1)")],
-        # three blocks an SM (80 registers a thread)
-        "blocks3": [("__launch_bounds__(kBlockThreads, 2)",
-                     "__launch_bounds__(kBlockThreads, 3)")],
+        # at D = 64, a ring of two or four stages instead of three
+        "stages2": [("kStages = NS == 4 ? 2 : 3;", "kStages = NS == 4 ? 2 : NS == 1 ? 2 : 3;")],
+        "stages4": [("kStages = NS == 4 ? 2 : 3;", "kStages = NS == 4 ? 2 : NS == 1 ? 4 : 3;")],
+        # at D = 64, one block an SM (no register cap below 255)
+        "blocks1": [("kMinBlocks = NS == 1 ? 2 : 1;", "kMinBlocks = 1;")],
+        # at D = 64, three blocks an SM (80 registers a thread)
+        "blocks3": [("kMinBlocks = NS == 1 ? 2 : 1;", "kMinBlocks = NS == 1 ? 3 : 1;")],
         # no softmax for a warp none of whose rows takes a one-segment tile
         "maskedwarp": [("  if (seg_lo == seg_hi) {  // the tile's keys are of one segment",
                         "  if (seg_lo == seg_hi && !__any_sync(0xffffffffu, seg_q0 == seg_lo || "
@@ -124,6 +123,12 @@ def build(kernel: str, name: str, edits, csrc: str = _build.CSRC_DIR) -> tuple:
         fns = (lib.mfar_flash_attention_bwd_dq, lib.mfar_flash_attention_bwd_dkv)
     for fn, ref in zip(fns, committed_fns(kernel)):
         fn.argtypes, fn.restype = ref.argtypes, ref.restype
+    if kernel == "k2" and "int S, int D," not in src:
+        # a K2 from before its head-dim argument (D = 64 only): the same
+        # call without D, the tenth argument
+        raw = fns[0]
+        raw.argtypes = raw.argtypes[:9] + raw.argtypes[10:]
+        fns = (lambda *a: raw(*a[:9], *a[10:]),)
     return fns
 
 

@@ -18,19 +18,24 @@
 // (jax/experimental/pallas/ops/tpu/flash_attention.py, jax 0.9.0: the
 // forward _flash_attention_kernel, pallas_call at :758; the VJP's
 // _flash_attention_bwd_dkv at :1121 and _flash_attention_bwd_dq at :1456),
-// called at mfar_tpu/models/encoder.py:170, at the dtypes and head dims
-// that the wgmma kernels (flash_attention.cu, flash_attention_bwd.cu: bf16
-// at D = 64 only) do not take: an f32 model (EncoderConfig.tiny, the
-// synthetic models, --precision 32) and any hidden / heads other than 64.
+// called at mfar_tpu/models/encoder.py:170, where the tensor-core kernels
+// do not: the backward pair at every input but bf16 at D = 64
+// (flash_attention_bwd.cu), so for an f32 model (EncoderConfig.tiny, the
+// synthetic models, --precision 32) and any hidden / heads other than 64;
+// the forward only for inputs TMA cannot read (bf16 at a D that is not a
+// multiple of 8, f32 at one that is not a multiple of 4, strides that are
+// not multiples of 16 bytes: ops/flash_attention.py::forward_route), since
+// flash_attention.cu takes bf16 at every other head dim and
+// flash_attention_tf32.cu f32.
 //
-// What bounds it: operations.  f32 has no tensor-core rate that keeps f32
-// products (TF32 keeps 10 bits of mantissa, and a user who asks for f32
-// asked for f32 products), so every product is an f32 FMA on the CUDA cores,
-// 67 TFLOP/s on an H100 SXM: at the f32 index build's [256, 12, 512, 64]
-// the forward's 4 * B * H * S * S * D = 206.2 GFLOP take 3.08 ms against
-// 0.48 ms for its bytes.  For bf16 at D != 64 the bound is the bytes (the
-// tensor cores would make the products cheap), which this kernel does not
-// approach: it is a first, untuned design, right before it is fast.
+// What bounds it: operations.  f32-accurate products cost at least three
+// TF32 products on the tensor cores (495 TFLOP/s: flash_attention_tf32.cu),
+// where this kernel takes one f32 FMA each on the CUDA cores (67 TFLOP/s):
+// at the f32 index build's [256, 12, 512, 64] the forward's products over
+// chip_smoke's same-segment pairs take 0.85 ms at the tensor cores' rate
+// (2.09 ms at the CUDA cores') against 0.48 ms for its bytes.  For bf16 the
+// bound is the bytes, which this kernel does not approach: it is a first,
+// untuned design, right before it is fast.
 //
 // Design: the flash recurrence, one block a (b, h, run of BR rows); the
 // rows' own operands stay in registers and 64-row tiles of the operands

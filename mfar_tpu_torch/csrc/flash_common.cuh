@@ -57,10 +57,12 @@ __device__ __forceinline__ void load_a_fragment(uint32_t (&a)[4], const __nv_bfl
 // Store the warp's 16 x 64 f32 accumulators (C layout, one per 8-wide
 // column slice) as bf16: staged in the warp's own rows of a swizzled tile
 // in shared memory, then written in 16-byte chunks to rows that lie `ld`
-// elements apart from `dst` (the block's first row).
+// elements apart from `dst` (the block's first row), the first `cols`
+// columns only (a multiple of 8).
 __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long ld,
                                            __nv_bfloat16* stage, const float (&acc)[8][4],
-                                           float scale0, float scale1, int warp, int lane) {
+                                           float scale0, float scale1, int warp, int lane,
+                                           int cols = kHeadDim) {
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = warp * 16 + g;
 #pragma unroll
@@ -76,8 +78,10 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long ld,
   for (int i = 0; i < 4; ++i) {
     const int idx = lane + i * 32;  // 16 rows x 8 chunks
     const int r = warp * 16 + (idx >> 3), ch = idx & 7;
-    *reinterpret_cast<uint4*>(dst + r * ld + ch * 8) =
-        *reinterpret_cast<const uint4*>(stage + swz(r, ch * 8));
+    if (ch * 8 < cols) {
+      *reinterpret_cast<uint4*>(dst + r * ld + ch * 8) =
+          *reinterpret_cast<const uint4*>(stage + swz(r, ch * 8));
+    }
   }
 }
 

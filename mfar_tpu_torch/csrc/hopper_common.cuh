@@ -84,9 +84,10 @@ __device__ __forceinline__ void gemm_rs(float (&d)[8][4], const uint32_t (&a)[4]
   for (int kk = 0; kk < 4; ++kk) wgmma_rs<kMnMajor>(d, a[kk], b + (kMnMajor ? 128 : 2) * kk);
 }
 
-// d = A B (the accumulator's old value is dropped), A a K-major tile and B
-// a K-major tile, both in shared memory: four k slices of 16, each 32 bytes
-// further into both tiles.
+// d = A B (the accumulator's old value is dropped; with kAccumulate, d +=
+// A B), A a K-major tile and B a K-major tile, both in shared memory: four
+// k slices of 16, each 32 bytes further into both tiles.
+template <bool kAccumulate = false>
 __device__ __forceinline__ void gemm_ss_new(float (&d)[8][4], uint64_t a, uint64_t b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
@@ -94,7 +95,7 @@ __device__ __forceinline__ void gemm_ss_new(float (&d)[8][4], uint64_t a, uint64
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MFAR_D32
                  ", %32, %33, p, 1, 1, 0, 0;\n}\n"
                  : MFAR_ACC32(d)
-                 : "l"(a + 2 * kk), "l"(b + 2 * kk), "r"(kk));
+                 : "l"(a + 2 * kk), "l"(b + 2 * kk), "r"(kAccumulate ? 1 : kk));
   }
 }
 
@@ -181,13 +182,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   } while (!done);
 }
 
-// One 64 x 64 tile of a 4-D tensor map (D, H, S, B) at (0, h, s0, b).
+// One box (64 rows of 128 bytes) of a 4-D tensor map (D, H, S, B) at
+// (col, h, s0, b): columns past D arrive as zeros.
 __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                              int h, int s0, int b) {
+                                              int h, int s0, int b, int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(h), "r"(s0), "r"(b)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(h), "r"(s0),
+      "r"(b)
       : "memory");
 }
 

@@ -34,6 +34,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
     "flash_attention_simt": "flash_attention_simt.cu",
+    "flash_attention_tf32": "flash_attention_tf32.cu",
 }
 
 NVCC_FLAGS = (

@@ -24,22 +24,38 @@ same functions in plain PyTorch, in f32: the wrappers use them for CPU
 tensors only, and the tests and ``chip_smoke.py`` hold the kernels against
 them.
 
-Two routes on the card, chosen by dtype and head dim alone:
+Four routes on the card for the forward, chosen before any launch by
+:func:`forward_route` from dtype, head dim and strides alone, each counting
+its own launches:
 
-- bf16 with D = 64 (Contriever-base, BERT-base): the wgmma kernels above.
-  They read q/k/v (and the backward's o and dO) through their strides, so
-  the ``[B, S, H, D] -> [B, H, S, D]`` transposed views of the encoder's
-  projections need no copy, and they write outputs and gradients laid out
-  as ``[B, S, H, D]``, so the way back to ``[B, S, H*D]`` is free too.
-- f32, or bf16 at any other D up to 256 (``EncoderConfig.tiny``, the
-  synthetic models, ``--precision 32``, a BERT directory whose heads are
-  not 64 wide): the CUDA-core kernels of ``csrc/flash_attention_simt.cu``
-  (:func:`flash_attention_simt`, :func:`flash_attention_simt_bwd_dq`,
-  :func:`flash_attention_simt_bwd_dkv`), in f32 FMA (never TF32), with the
-  same strided reads and ``[B, S, H, D]`` writes.
+- ``"wgmma"``, bf16 with D = 64 (Contriever-base, BERT-base): the wgmma
+  kernel above (``flash_attention.launches``).
+- ``"wgmma_headdim"``, bf16 at any other D that TMA can read (a multiple of
+  8 up to 256: all-MiniLM-L6-v2's 32, ``EncoderConfig.tiny`` at bf16): the
+  same kernel at ceil(D / 64) slabs of 64 columns
+  (:func:`flash_attention_headdim`).
+- ``"tf32"``, f32 that TMA can read (D a multiple of 4: ``EncoderConfig.tiny``,
+  the synthetic models, ``--precision 32``):
+  ``csrc/flash_attention_tf32.cu`` (:func:`flash_attention_tf32`), on the
+  tensor cores in 3xTF32: each f32 operand split into two TF32 parts and
+  each product taken as three TF32 products summed in f32, which keeps f32
+  accuracy where one TF32 product would not.
+- ``"simt"``, everything else up to D = 256 (bf16 at a D that is not a
+  multiple of 8, f32 at a D that is not a multiple of 4, strides that are
+  not multiples of 16 bytes): ``csrc/flash_attention_simt.cu``'s CUDA-core
+  forward (:func:`flash_attention_simt`), in f32 FMA.
 
-Both take S a multiple of 128 (JAX's gate); each route counts its own
-launches.  D above 256 raises on every device.
+These kernels read q/k/v through their strides, so the
+``[B, S, H, D] -> [B, H, S, D]`` transposed views of the encoder's
+projections need no copy, and write outputs laid out as ``[B, S, H, D]``,
+so the way back to ``[B, S, H*D]`` is free too.  The backward takes the
+wgmma pair where the forward took ``"wgmma"``, and the CUDA-core pair
+(:func:`flash_attention_simt_bwd_dq`, :func:`flash_attention_simt_bwd_dkv`,
+f32 FMA) everywhere else; both read the forward's logsumexp, a contiguous
+f32 ``[B, H, S]`` in natural log, whichever forward wrote it.
+
+All take S a multiple of 128 (JAX's gate).  D above 256 raises on every
+device.
 """
 
 from __future__ import annotations
@@ -55,8 +71,8 @@ from mfar_tpu_torch.ops import _build
 # JAX's DEFAULT_MASK_VALUE (flash_attention.py:29), which the plain version
 # adds as JAX does; the kernels set every cross-segment weight to exactly 0
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-HEAD_DIM = 64  # the wgmma kernels' head dimension
-MAX_HEAD_DIM = 256  # the CUDA-core kernels' largest head dimension
+HEAD_DIM = 64  # the head dimension of the "wgmma" route (the forward and the wgmma backward)
+MAX_HEAD_DIM = 256  # every route's largest head dimension
 SEQ_MULTIPLE = 128  # S % 128 == 0, as JAX's gate asks
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -138,29 +154,37 @@ def _check_inputs(q, k, v, segment_ids) -> None:
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
     if q.device.type == "cuda":
-        if _wgmma_route(q):
-            readable, need = _kernel_readable, ("B, H, S strides multiples of 8 elements "
-                                                "(16-byte rows), from a 16-byte boundary")
-        elif q.dtype in (torch.float32, torch.bfloat16):
-            readable, need = _simt_readable, "the D stride 1"
-        else:
+        if q.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"{q.dtype} q/k/v: the flash kernels take float32 and bfloat16")
         for name, t in (("q", q), ("k", k), ("v", v)):
-            if not readable(t):
-                raise ValueError(f"{name} strides {t.stride()}: the kernels need {need}")
+            if not _simt_readable(t):
+                raise ValueError(f"{name} strides {t.stride()}: the kernels need the D stride 1")
         if not segment_ids.is_contiguous() or segment_ids.data_ptr() % 16:
             raise ValueError("segment_ids must be contiguous and start on a 16-byte boundary")
 
 
-def _wgmma_route(q: torch.Tensor) -> bool:
-    """The wgmma kernels' inputs (bf16 at D = 64); every other CUDA input
-    takes the CUDA-core kernels."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] == HEAD_DIM
+def forward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The forward's kernel for [B, H, S, D] q, k, v on the card, from their
+    dtype, head dim and strides alone: ``"wgmma"`` (bf16, D = 64),
+    ``"wgmma_headdim"`` (bf16 at another D, a multiple of 8), ``"tf32"``
+    (f32, D a multiple of 4), each where TMA can read all three
+    (:func:`_kernel_readable`); ``"simt"`` (the CUDA-core kernel) for the
+    rest.  The backward takes the wgmma pair on the ``"wgmma"`` route and
+    the CUDA-core pair on every other."""
+    d = q.shape[-1]
+    tma = all(_kernel_readable(t) for t in (q, k, v))
+    if tma and q.dtype == torch.bfloat16 and d % 8 == 0:
+        return "wgmma" if d == HEAD_DIM else "wgmma_headdim"
+    if tma and q.dtype == torch.float32 and d % 4 == 0:
+        return "tf32"
+    return "simt"
 
 
 def _kernel_readable(t: torch.Tensor) -> bool:
-    """A [B, H, S, D] bf16 operand the kernels read through its strides."""
-    return t.stride(-1) == 1 and not any(st % 8 for st in t.stride()[:3]) \
+    """A [B, H, S, D] operand that TMA reads through its strides: D
+    contiguous, the B, H and S strides multiples of 16 bytes, from a
+    16-byte boundary."""
+    return t.stride(-1) == 1 and not any(st * t.element_size() % 16 for st in t.stride()[:3]) \
         and t.data_ptr() % 16 == 0
 
 
@@ -188,16 +212,28 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-@functools.cache
-def _kernel():
-    fn = _build.load("flash_attention").mfar_flash_attention_fwd
-    fn.argtypes = [
+def _forward_argtypes():
+    return [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k v seg
         ctypes.c_void_p, ctypes.c_void_p,  # out, lse (or null)
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H S
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H S D
         ctypes.POINTER(ctypes.c_longlong),  # 12 strides: (b, h, s) of q, k, v, out
         ctypes.c_float, ctypes.c_void_p,  # sm_scale, stream
     ]
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load("flash_attention").mfar_flash_attention_fwd
+    fn.argtypes = _forward_argtypes()
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _tf32_kernel():
+    fn = _build.load("flash_attention_tf32").mfar_flash_attention_fwd_tf32
+    fn.argtypes = _forward_argtypes()
     fn.restype = ctypes.c_int
     return fn
 
@@ -235,21 +271,56 @@ def _simt_kernels():
 
 
 def _launch_forward(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tensor:
-    """K2 on checked CUDA inputs (the wgmma kernel for bf16 at D = 64, the
-    CUDA-core one for the rest); with ``lse`` (a contiguous f32 [B, H, S])
-    it also writes each row's logsumexp there."""
-    if not _wgmma_route(q):
-        return flash_attention_simt(q, k, v, segment_ids, sm_scale, lse)
-    b, h, s, _ = q.shape
+    """K2 on checked CUDA inputs, by :func:`forward_route`; with ``lse`` (a
+    contiguous f32 [B, H, S]) it also writes each row's logsumexp there."""
+    return _FORWARDS[forward_route(q, k, v)](q, k, v, segment_ids, sm_scale, lse)
+
+
+def _wgmma_forward(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tensor:
+    """K2's wgmma kernel at D = 64, counted as :func:`flash_attention`'s."""
+    out = _tensor_core_forward(_kernel(), "flash_attention", q, k, v, segment_ids, sm_scale, lse)
+    flash_attention.launches += 1
+    return out
+
+
+def _tensor_core_forward(kernel, what, q, k, v, segment_ids, sm_scale, lse) -> torch.Tensor:
+    """One launch of a TMA-fed forward (the wgmma or the 3xTF32 kernel) on
+    checked CUDA inputs: the output as a ``[B, H, S, D]`` view of a ``[B, S,
+    H, D]`` buffer."""
+    if lse is not None:
+        _check_rows(lse=lse)
+    _check_readable(q=q, k=k, v=v)
+    b, h, s, d = q.shape
     out = _empty_bshd(q)
     with torch.cuda.device(q.device):
-        err = _kernel()(
+        err = kernel(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), b, h, s, _strides(q, k, v, out),
+            None if lse is None else lse.data_ptr(), b, h, s, d, _strides(q, k, v, out),
             sm_scale, _stream(q),
         )
-    _raise_on(err, "flash_attention")
-    flash_attention.launches += 1
+    _raise_on(err, what)
+    return out
+
+
+def flash_attention_headdim(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tensor:
+    """K2's wgmma kernel at a head dim other than 64 (bf16, D a multiple of
+    8 up to 256, operands TMA reads) on checked CUDA inputs: the output as
+    a ``[B, H, S, D]`` view of a ``[B, S, H, D]`` buffer; with ``lse`` (a
+    contiguous f32 [B, H, S]) it also writes each row's logsumexp there."""
+    out = _tensor_core_forward(_kernel(), "flash_attention_headdim", q, k, v, segment_ids,
+                               sm_scale, lse)
+    flash_attention_headdim.launches += 1
+    return out
+
+
+def flash_attention_tf32(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tensor:
+    """K2's f32 kernel on the tensor cores in 3xTF32 (f32, D a multiple of
+    4 up to 256, operands TMA reads) on checked CUDA inputs: the output as a
+    ``[B, H, S, D]`` view of a ``[B, S, H, D]`` buffer; with ``lse`` (a
+    contiguous f32 [B, H, S]) it also writes each row's logsumexp there."""
+    out = _tensor_core_forward(_tf32_kernel(), "flash_attention_tf32", q, k, v, segment_ids,
+                               sm_scale, lse)
+    flash_attention_tf32.launches += 1
     return out
 
 
@@ -278,11 +349,11 @@ def flash_attention(
     segment_ids: torch.Tensor,  # [B, S] int32, contiguous
     sm_scale: float,
 ) -> torch.Tensor:  # [B, H, S, D] in q's dtype
-    """Segment-masked attention: kernel K2 for CUDA tensors (the wgmma
-    kernel for bf16 at D = 64, :func:`flash_attention_simt` for f32 and
-    other head dims), the plain version for CPU tensors, differentiable
-    through K2b (the plain backward on the CPU) when grad is enabled and q,
-    k or v requires it.  Raises on anything the kernels do not take.
+    """Segment-masked attention: kernel K2 for CUDA tensors (the route that
+    :func:`forward_route` names), the plain version for CPU tensors,
+    differentiable through K2b (the plain backward on the CPU) when grad is
+    enabled and q, k or v requires it.  Raises on anything the kernels do
+    not take.
 
     On the card the result is a ``[B, H, S, D]`` view of a ``[B, S, H, D]``
     buffer, so ``out.transpose(1, 2).reshape(B, S, H * D)`` is a view."""
@@ -325,9 +396,9 @@ def flash_attention_bwd(
     sm_scale: float,
 ) -> Grads:
     """dq, dk, dv of :func:`flash_attention`: kernel dq (which also writes
-    ``di``), then kernel dkv, for CUDA tensors (the wgmma pair for bf16 at
-    D = 64, the CUDA-core pair for the rest); :func:`flash_attention_bwd_plain`
-    for CPU tensors.  On the card the gradients are ``[B, H, S, D]`` views
+    ``di``), then kernel dkv, for CUDA tensors (the wgmma pair on the
+    ``"wgmma"`` route, the CUDA-core pair on every other);
+    :func:`flash_attention_bwd_plain` for CPU tensors.  On the card the gradients are ``[B, H, S, D]`` views
     of ``[B, S, H, D]`` buffers, and no torch op computes ``di``.  A dO that
     the kernels cannot read through its strides is copied once (counted in
     ``flash_attention_bwd.dout_copies``); an ``o`` they cannot read raises."""
@@ -342,7 +413,7 @@ def flash_attention_bwd(
     if dout.dtype != q.dtype or o.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError(f"o {o.dtype}, dout {dout.dtype} (want {q.dtype}), lse {lse.dtype} "
                         f"(want float32)")
-    if _wgmma_route(q):
+    if forward_route(q, k, v) == "wgmma":
         readable, dq_fn, dkv_fn = _kernel_readable, flash_attention_bwd_dq, flash_attention_bwd_dkv
     else:
         readable = _simt_readable
@@ -415,8 +486,9 @@ def _simt_flag(q: torch.Tensor) -> int:
 
 
 def flash_attention_simt(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tensor:
-    """K2's CUDA-core kernel on checked CUDA inputs (f32, or bf16 at D !=
-    64; D <= 256): the output as a ``[B, H, S, D]`` view of a ``[B, S, H,
+    """K2's CUDA-core kernel on checked CUDA inputs (f32 or bf16, any D up
+    to 256, any strides with D contiguous: the ``"simt"`` route, what TMA
+    cannot read): the output as a ``[B, H, S, D]`` view of a ``[B, S, H,
     D]`` buffer; with ``lse`` (a contiguous f32 [B, H, S]) it also writes
     each row's logsumexp there."""
     if lse is not None:
@@ -471,9 +543,15 @@ def flash_attention_simt_bwd_dkv(q, k, v, segment_ids, lse, di, dout, sm_scale):
     return dk, dv
 
 
-# launches of the CUDA kernels, one count a kernel (CPU calls of the plain
-# versions do not count)
+# each route's forward, by forward_route's name
+_FORWARDS = {"wgmma": _wgmma_forward, "wgmma_headdim": flash_attention_headdim,
+             "tf32": flash_attention_tf32, "simt": flash_attention_simt}
+
+# launches of the CUDA kernels, one count a kernel and route (CPU calls of
+# the plain versions do not count)
 flash_attention.launches = 0
+flash_attention_headdim.launches = 0
+flash_attention_tf32.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_simt.launches = 0

@@ -21,10 +21,12 @@ Tolerance for K2b (the backward kernels) against their plain version: rtol
 bf16 (2**-8 relative), and the kernels round P and dS to bf16 before
 products summed over up to 512 rows, where the plain version stays in f32.
 
-Tolerance for K2/K2b's CUDA-core route (f32, or bf16 at D != 64) in f32:
-the output within 2e-5, the logsumexp within 1e-5, each gradient within
-2e-5 of its largest entry (f32 FMA on both sides, TF32 off, sums in other
-orders); in bf16 the K2 and K2b tolerances above.
+Tolerance for K2's other forwards (the wgmma kernel at another head dim,
+the 3xTF32 kernel, the CUDA-core kernel) and the CUDA-core backward in
+f32: the output within 2e-5, the logsumexp within 1e-5, each gradient
+within 2e-5 of its largest entry (f32-accurate products on both sides:
+f32 FMA or three TF32 products against f32 matmuls with TF32 off, summed
+in other orders); in bf16 the K2 and K2b tolerances above.
 """
 
 import copy
@@ -49,10 +51,13 @@ from mfar_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dq,
     flash_attention_bwd_plain,
     flash_attention_fwd,
+    flash_attention_headdim,
     flash_attention_plain,
     flash_attention_simt,
     flash_attention_simt_bwd_dkv,
     flash_attention_simt_bwd_dq,
+    flash_attention_tf32,
+    forward_route,
     _row_dots,
 )
 from mfar_tpu_torch.train.model import MFARModel
@@ -290,14 +295,15 @@ def test_k2_reads_strided_views(card):
 
 
 def test_k2_refuses_f32_on_the_card(card):
-    """(Named when K2 took bf16 only.)  f32 on the card takes the CUDA-core
-    kernel, never the wgmma one, and agrees with the plain version in f32."""
+    """(Named when K2 took bf16 only.)  f32 on the card takes the 3xTF32
+    kernel, never the bf16 wgmma one, and agrees with the plain version in
+    f32."""
     q, k, v, seg = (t.float() if t.is_floating_point() else t
                     for t in _k2_inputs(2, 3, 256, [256, 70]))
-    before = (flash_attention.launches, flash_attention_simt.launches)
+    before = (flash_attention.launches, flash_attention_tf32.launches)
     got = flash_attention(q, k, v, seg, 0.125)
     torch.cuda.synchronize()
-    assert (flash_attention.launches, flash_attention_simt.launches) == \
+    assert (flash_attention.launches, flash_attention_tf32.launches) == \
         (before[0], before[1] + 1)
     assert got.dtype == torch.float32 and got.transpose(1, 2).is_contiguous()
     torch.testing.assert_close(got, flash_attention_plain(q, k, v, seg, 0.125), rtol=0,
@@ -307,8 +313,15 @@ def test_k2_refuses_f32_on_the_card(card):
 SIMT_F32_ATOL, SIMT_LSE_ATOL, SIMT_GRAD_REL = 2e-5, 1e-5, 2e-5
 
 
-# head dims the wgmma kernels do not take, in both dtypes: ragged pads and
-# the segment layouts, strided dO
+def _forward_counts():
+    return {"wgmma": flash_attention.launches, "wgmma_headdim": flash_attention_headdim.launches,
+            "tf32": flash_attention_tf32.launches, "simt": flash_attention_simt.launches}
+
+
+# head dims the wgmma backward does not take, in both dtypes: ragged pads and
+# the segment layouts, strided dO; the forward on its route (the wgmma
+# kernel at another head dim in bf16, the 3xTF32 kernel in f32), the
+# backward on the CUDA-core pair
 @pytest.mark.parametrize("d", [16, 32, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_simt_kernels_match_plain(card, dtype, d):
@@ -319,14 +332,17 @@ def test_simt_kernels_match_plain(card, dtype, d):
     seg = torch.tensor([SEG_LAYOUTS["runs"][0], SEG_LAYOUTS["interleaved"][0],
                         [1] * 70 + [0] * 186], dtype=torch.int32, device=card)
     scale = 1.0 / d**0.5
-    before = (flash_attention_simt.launches, flash_attention_simt_bwd_dq.launches,
-              flash_attention_simt_bwd_dkv.launches, flash_attention.launches)
+    route = "tf32" if dtype == torch.float32 else "wgmma_headdim"
+    assert forward_route(q, k, v) == route
+    before = (_forward_counts(), flash_attention_simt_bwd_dq.launches,
+              flash_attention_simt_bwd_dkv.launches)
     out, lse = flash_attention_fwd(q, k, v, seg, scale)
     grads = flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
     torch.cuda.synchronize()
-    assert (flash_attention_simt.launches, flash_attention_simt_bwd_dq.launches,
-            flash_attention_simt_bwd_dkv.launches, flash_attention.launches) == \
-        (before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+    want_counts = dict(before[0])
+    want_counts[route] += 1
+    assert (_forward_counts(), flash_attention_simt_bwd_dq.launches,
+            flash_attention_simt_bwd_dkv.launches) == (want_counts, before[1] + 1, before[2] + 1)
     want = flash_attention_plain(q, k, v, seg, scale)
     if dtype == torch.float32:
         torch.testing.assert_close(out, want, rtol=0, atol=SIMT_F32_ATOL)
@@ -350,11 +366,85 @@ def test_k2_refuses_a_head_dim_past_256(card):
         flash_attention(q, q, q, torch.ones(1, 128, dtype=torch.int32, device=card), 0.1)
 
 
+def _route_inputs(dtype, d, layout, seed):
+    """[2, 3, 256, d] q/k/v and dO with ragged and interleaved segments:
+    the encoder's strided views, or (``layout`` "offset") views that start
+    one element into their buffers, which TMA cannot read."""
+    rng = np.random.default_rng(seed)
+    b, h, s = 2, 3, 256
+
+    def one():
+        x = torch.from_numpy(rng.normal(size=b * s * h * d + 1).astype(np.float32)).cuda()
+        x = x.to(dtype)[1:] if layout == "offset" else x.to(dtype)[:-1]
+        return x.view(b, s, h, d).transpose(1, 2)
+
+    q, k, v, dout = (one() for _ in range(4))
+    seg = torch.tensor([[1] * 150 + [0] * 106, SEG_LAYOUTS["interleaved"][1]],
+                       dtype=torch.int32, device="cuda")
+    return q, k, v, seg, dout
+
+
+# each route's forward against plain at small head dims: the tensor-core
+# kernels (the wgmma kernel at 1-4 slabs in bf16, the 3xTF32 kernel at 1-8
+# in f32) and the CUDA-core kernel for what TMA cannot read (D not a
+# multiple of 8 in bf16 or 4 in f32, a view off a 16-byte boundary)
+@pytest.mark.parametrize("dtype,d,layout,route", [
+    (torch.bfloat16, 16, "encoder", "wgmma_headdim"),
+    (torch.bfloat16, 40, "encoder", "wgmma_headdim"),
+    (torch.bfloat16, 136, "encoder", "wgmma_headdim"),
+    (torch.bfloat16, 256, "encoder", "wgmma_headdim"),
+    (torch.float32, 20, "encoder", "tf32"),
+    (torch.float32, 64, "encoder", "tf32"),
+    (torch.float32, 136, "encoder", "tf32"),
+    (torch.float32, 256, "encoder", "tf32"),
+    (torch.bfloat16, 20, "encoder", "simt"),
+    (torch.float32, 26, "encoder", "simt"),
+    (torch.bfloat16, 64, "offset", "simt"),
+    (torch.float32, 64, "offset", "simt"),
+], ids=lambda x: str(x).replace("torch.", ""))
+def test_forward_routes_match_plain(card, dtype, d, layout, route):
+    q, k, v, seg, dout = _route_inputs(dtype, d, layout, seed=d)
+    scale = 1.0 / d**0.5
+    assert forward_route(q, k, v) == route
+    before = _forward_counts()
+    out, lse = flash_attention_fwd(q, k, v, seg, scale)
+    got = flash_attention(q, k, v, seg, scale)
+    torch.cuda.synchronize()
+    assert _forward_counts() == dict(before, **{route: before[route] + 2})
+    torch.testing.assert_close(got, out, rtol=0, atol=0)
+    assert out.dtype == dtype and out.transpose(1, 2).is_contiguous()
+    want = flash_attention_plain(q, k, v, seg, scale)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=0, atol=SIMT_F32_ATOL)
+    else:
+        torch.testing.assert_close(out.float(), want.float(), rtol=K2_TOL, atol=K2_TOL)
+    torch.testing.assert_close(lse, _masked_lse(q, k, seg, scale), rtol=0, atol=SIMT_LSE_ATOL)
+    # a bf16 D = 64 input TMA cannot read trains through the CUDA-core pair
+    if layout == "offset" and dtype == torch.bfloat16:
+        dq_before = (flash_attention_bwd_dq.launches, flash_attention_simt_bwd_dq.launches)
+        grads = flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
+        torch.cuda.synchronize()
+        assert (flash_attention_bwd_dq.launches, flash_attention_simt_bwd_dq.launches) == \
+            (dq_before[0], dq_before[1] + 1)
+        _close_to_largest(grads, flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale))
+
+
+def test_tensor_core_forwards_refuse_what_tma_cannot_read(card):
+    """Called directly, the wgmma and 3xTF32 wrappers raise on a layout TMA
+    cannot read; they never hand it to another kernel."""
+    for dtype, fn in ((torch.bfloat16, flash_attention_headdim),
+                      (torch.float32, flash_attention_tf32)):
+        q, k, v, seg, _ = _route_inputs(dtype, 32, "offset", seed=5)
+        with pytest.raises(ValueError, match="cannot read"):
+            fn(q, k, v, seg, 0.2)
+
+
 def test_f32_auto_encoder_launches_the_simt_kernel(card):
-    """An f32 encoder (EncoderConfig.tiny: D = 16) with "auto" on the card
-    takes the CUDA-core K2, not plain attention, and agrees with "xla" on
-    the valid tokens and the pooled embedding (f32 through two layers,
-    attention summed in another order: atol 1e-4)."""
+    """(Named when f32 took the CUDA-core K2.)  An f32 encoder
+    (EncoderConfig.tiny: D = 16) with "auto" on the card takes the 3xTF32
+    K2, not plain attention, and agrees with "xla" on the valid tokens and
+    the pooled embedding (f32 through two layers, attention summed in
+    another order: atol 1e-4)."""
     cfg = EncoderConfig.tiny(vocab_size=97, num_layers=2)
     assert cfg.dtype == torch.float32 and cfg.hidden_size // cfg.num_heads == 16
     xla = init_encoder(cfg, seed=4).to(card)
@@ -364,10 +454,9 @@ def test_f32_auto_encoder_launches_the_simt_kernel(card):
     mask = torch.ones(3, 128, dtype=torch.int32, device=card)
     mask[1, 30:] = 0
     with torch.inference_mode():
-        before = (flash_attention.launches, flash_attention_simt.launches)
+        before = _forward_counts()
         pooled, tokens = auto(ids, mask, return_tokens=True)
-        assert (flash_attention.launches, flash_attention_simt.launches) == \
-            (before[0], before[1] + 2)  # one per layer
+        assert _forward_counts() == dict(before, tf32=before["tf32"] + 2)  # one per layer
         want_pooled, want_tokens = xla(ids, mask, return_tokens=True)
     valid = mask.bool()
     torch.testing.assert_close(tokens[valid], want_tokens[valid], rtol=0, atol=1e-4)
@@ -405,9 +494,10 @@ def test_auto_encoder_through_k2_matches_xla(card):
 
 def test_auto_encoder_with_another_head_dim_is_plain(card):
     """(Named when "auto" took plain attention at D != 64.)  Head dim 32
-    (hidden 128, 4 heads) in bf16: "auto" now takes K2's CUDA-core kernel,
-    never the wgmma one, and agrees with "xla" on the valid tokens and the
-    pooled embedding (bf16 tolerance, as the D = 64 test above)."""
+    (hidden 128, 4 heads) in bf16: "auto" now takes K2's wgmma kernel at
+    one slab of 64 columns (flash_attention_headdim's count, not the D = 64
+    one), and agrees with "xla" on the valid tokens and the pooled
+    embedding (bf16 tolerance, as the D = 64 test above)."""
     cfg = EncoderConfig.tiny(vocab_size=97, hidden_size=128, num_heads=4, num_layers=2,
                              intermediate_size=256, dtype=torch.bfloat16)
     xla = init_encoder(cfg, seed=3).to(card)
@@ -417,10 +507,9 @@ def test_auto_encoder_with_another_head_dim_is_plain(card):
     mask = torch.ones(2, 128, dtype=torch.int32, device=card)
     mask[1, 50:] = 0
     with torch.inference_mode():
-        before = (flash_attention.launches, flash_attention_simt.launches)
+        before = _forward_counts()
         pooled, tokens = auto(ids, mask, return_tokens=True)
-        assert (flash_attention.launches, flash_attention_simt.launches) == \
-            (before[0], before[1] + 2)
+        assert _forward_counts() == dict(before, wgmma_headdim=before["wgmma_headdim"] + 2)
         want_pooled, want_tokens = xla(ids, mask, return_tokens=True)
     valid = mask.bool()
     torch.testing.assert_close(tokens[valid].float(), want_tokens[valid].float(),
@@ -631,8 +720,9 @@ def test_auto_train_step_matches_xla(card):
 
 def test_f32_flash_training_input_raises(card):
     """(Named when f32 raised on the card.)  An f32 MFARModel with "flash"
-    trains through the CUDA-core K2/K2b: loss and gradients against the
-    plain path on the same weights (f32: loss rtol 1e-5, cosine >= 0.9999)."""
+    trains through the 3xTF32 K2 and the CUDA-core K2b: loss and gradients
+    against the plain path on the same weights (f32: loss rtol 1e-5, cosine
+    >= 0.9999)."""
     cfg = EncoderConfig.tiny(vocab_size=97, hidden_size=128, num_heads=2, num_layers=1,
                              intermediate_size=256, attention_impl="flash",
                              attention_dropout=0.0)  # f32 activations
@@ -643,11 +733,11 @@ def test_f32_flash_training_input_raises(card):
         model = MFARModel(dataclasses.replace(cfg, attention_impl=impl), num_fields=2)
         model.encoder.load_state_dict(init_encoder(cfg, seed=11).state_dict())
         model = model.to(card).train()
-        before = (flash_attention_simt.launches, flash_attention_simt_bwd_dq.launches)
+        before = (flash_attention_tf32.launches, flash_attention_simt_bwd_dq.launches)
         loss = model.compute_loss(batch["query"], batch["pos"], batch["neg"],
                                   generator=torch.Generator().manual_seed(3))
         loss.backward()
-        launched = (flash_attention_simt.launches - before[0],
+        launched = (flash_attention_tf32.launches - before[0],
                     flash_attention_simt_bwd_dq.launches - before[1])
         assert (launched[0] > 0 and launched[1] > 0) == (impl == "flash"), launched
         out[impl] = (loss.item(), torch.cat([p.grad.flatten() for p in model.parameters()]))
