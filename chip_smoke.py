@@ -35,21 +35,25 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 through the plain version; times of each kernel, the whole
                 backward, the plain backward and SDPA's backward, beside the
                 bounds
-5b. k2g      -- K2's forwards off the wgmma D = 64 route and the CUDA-core
-                backward against the plain versions, each input on the route
-                the routing rule gives (bf16 at another head dim: the wgmma
-                kernel at ceil(D / 64) slabs; f32: the 3xTF32 kernel of
-                csrc/flash_attention_tf32.cu; what TMA cannot read: the
+5b. k2g      -- K2's forwards and K2b's pairs off the wgmma D = 64 route
+                against the plain versions, each input on the routes the
+                routing rule gives (bf16 at another head dim: the wgmma
+                kernels at ceil(D / 64) slabs, the backward up to D = 128;
+                f32: the 3xTF32 kernels of csrc/flash_attention_tf32.cu and,
+                up to D = 64, csrc/flash_attention_tf32_bwd.cu; what TMA
+                cannot read, and the backward past those caps: the
                 CUDA-core kernels of csrc/flash_attention_simt.cu), forward,
-                logsumexp, dq (with di) and dkv: small segment-id cases at
-                D = 16-256 in f32 and bf16 (D = 26 f32 and D = 20 bf16, and
-                D = 64 in layouts TMA cannot read, on the CUDA-core
-                forward), then the main paths' shapes (f32 [256, 12, 512,
-                64] and [96, 12, 512, 64], D = 32 [256, 12, 512, 32] in both
-                dtypes and its bf16 backward at [96, 12, 512, 32], D = 16
-                [256, 4, 128, 16]); times of each route's kernel, the
-                CUDA-core forward on the same inputs, the plain version and
-                SDPA with the boolean segment mask, beside the bound
+                logsumexp, dq (with di, its bits on a second run) and dkv:
+                small segment-id cases at D = 16-256 in f32 and bf16 (D = 26
+                f32 and D = 20 bf16, and D = 64 in layouts TMA cannot read,
+                on the CUDA-core kernels), then the main paths' shapes (f32
+                [256, 12, 512, 64] and [96, 12, 512, 64], D = 32 [256, 12,
+                512, 32] in both dtypes and its bf16 backward at [96, 12,
+                512, 32], TinyBERT's D = 26 at [256, 12, 512, 26] and [96,
+                12, 512, 26] in bf16, D = 16 [256, 4, 128, 16]); times of
+                each route's kernels, the CUDA-core kernels on the same
+                inputs, the plain versions and SDPA with the boolean segment
+                mask, beside the bound
 6. e2e       -- a synthetic mag-shaped corpus (2048 docs x 5 dense fields)
                 encoded by the full-width encoder with attention_impl="auto"
                 (the 512-token fields through K2), held against the same
@@ -118,12 +122,12 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 against plain attention's, rerank (K1 on the f32 index) and
                 exact against the plain-attention engine, one train batch
                 against the plain path, Trainer.fit for 6 steps (the 3xTF32
-                forward, the CUDA-core backward); (b) a BERT directory at
+                forward and backward); (b) a BERT directory at
                 all-MiniLM-L6-v2's width (bf16, D = 32: the wgmma forward
-                at one slab) through prepare_model: the build against
-                "xla", one train batch; (c) the same at
+                and backward at one slab) through prepare_model: the build
+                against "xla", one train batch; (c) the same at
                 TinyBERT_General_4L_312D's width (D = 26: the CUDA-core
-                forward)
+                forward and backward)
 12. serving  -- the same engine over a prebuilt random [131072, 5, 768] bf16
                 corpus in rerank mode: QPS, one batch's stages, and the
                 device's busy share and time by kernel from torch.profiler
@@ -292,6 +296,8 @@ from mfar_tpu_torch.ops.flash_attention import (
     flash_attention_bwd,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
+    flash_attention_bwd_headdim_dkv,
+    flash_attention_bwd_headdim_dq,
     flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_headdim,
@@ -300,6 +306,8 @@ from mfar_tpu_torch.ops.flash_attention import (
     flash_attention_simt_bwd_dkv,
     flash_attention_simt_bwd_dq,
     flash_attention_tf32,
+    flash_attention_tf32_bwd_dkv,
+    flash_attention_tf32_bwd_dq,
     _row_dots,
 )
 from mfar_tpu_torch.ops.gather_scores import (
@@ -942,23 +950,30 @@ def run_k2b(seed: int, train_shape=(96, 12, 512)) -> dict:
 # phase 5b: K2/K2b's CUDA-core route (f32, or bf16 at a head dim != 64)
 
 
+# K2b's kernel pairs (dq, dkv) by the backward's route
+BWD_PAIRS = {"wgmma": (flash_attention_bwd_dq, flash_attention_bwd_dkv),
+             "wgmma_headdim": (flash_attention_bwd_headdim_dq, flash_attention_bwd_headdim_dkv),
+             "tf32": (flash_attention_tf32_bwd_dq, flash_attention_tf32_bwd_dkv),
+             "simt": (flash_attention_simt_bwd_dq, flash_attention_simt_bwd_dkv)}
+
+
 def k2_counts() -> dict:
-    """Launches of K2's four forwards, by route, and of both backward
-    pairs."""
-    return {"wgmma": flash_attention.launches, "wgmma_headdim": flash_attention_headdim.launches,
-            "tf32": flash_attention_tf32.launches, "simt": flash_attention_simt.launches,
-            "wgmma_dkv": flash_attention_bwd_dkv.launches,
-            "wgmma_dq": flash_attention_bwd_dq.launches,
-            "simt_dkv": flash_attention_simt_bwd_dkv.launches,
-            "simt_dq": flash_attention_simt_bwd_dq.launches}
+    """Launches of K2's four forwards, by route, and of K2b's four pairs
+    (``<route>_dkv``, ``<route>_dq``)."""
+    out = {"wgmma": flash_attention.launches, "wgmma_headdim": flash_attention_headdim.launches,
+           "tf32": flash_attention_tf32.launches, "simt": flash_attention_simt.launches}
+    for route, (dq_fn, dkv_fn) in BWD_PAIRS.items():
+        out[f"{route}_dkv"], out[f"{route}_dq"] = dkv_fn.launches, dq_fn.launches
+    return out
 
 
 def reset_k2_counts() -> None:
-    """Every K2/K2b count to 0: the four forwards, both backward pairs."""
+    """Every K2/K2b count to 0: the four forwards, the four backward pairs."""
     reset_counts()
     flash_attention_headdim.launches = flash_attention_tf32.launches = 0
     flash_attention_simt.launches = 0
-    flash_attention_simt_bwd_dkv.launches = flash_attention_simt_bwd_dq.launches = 0
+    for dq_fn, dkv_fn in BWD_PAIRS.values():
+        dq_fn.launches = dkv_fn.launches = 0
 
 
 def launched(**want: int) -> dict:
@@ -967,20 +982,27 @@ def launched(**want: int) -> dict:
     return dict({k: 0 for k in k2_counts()}, **want)
 
 
-def expected_route(t) -> str:
+def expected_route(t, bf16_cap=256, f32_cap=256) -> str:
     """The forward's route by the routing rule, for q, k and v laid out as
     ``t``: bf16 at D = 64 "wgmma", bf16 at another D that is a multiple of 8
     "wgmma_headdim", f32 at a D that is a multiple of 4 "tf32", each where
     TMA can read the operands (the B, H and S strides multiples of 16
-    bytes, from a 16-byte boundary); every other input "simt"."""
+    bytes, from a 16-byte boundary) and D is at most the dtype's cap; every
+    other input "simt"."""
     d = t.shape[-1]
     tma = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
         st * t.element_size() % 16 == 0 for st in t.stride()[:3])
-    if tma and t.dtype == torch.bfloat16 and d % 8 == 0:
+    if tma and t.dtype == torch.bfloat16 and d % 8 == 0 and d <= bf16_cap:
         return "wgmma" if d == 64 else "wgmma_headdim"
-    if tma and t.dtype == torch.float32 and d % 4 == 0:
+    if tma and t.dtype == torch.float32 and d % 4 == 0 and d <= f32_cap:
         return "tf32"
     return "simt"
+
+
+def expected_backward_route(t) -> str:
+    """The backward's pair by the routing rule: the forward's rule with D
+    capped at 128 in bf16 and 64 in f32 (rows of up to 256 bytes)."""
+    return expected_route(t, bf16_cap=128, f32_cap=64)
 
 
 def k2g_inputs(gen, b, h, s, d, dtype, rows):
@@ -1006,18 +1028,20 @@ def segment_rows(b, s, rows):
 
 def check_k2g(q, k, v, seg, dout, label, grads=True) -> dict:
     """K2's forwards other than the wgmma one at D = 64 (the wgmma kernel
-    at another head dim, the 3xTF32 kernel, the CUDA-core kernel) and the
-    CUDA-core backward against their plain versions: the forward with and
-    without the logsumexp (the same output bits), the logsumexp, and with
-    ``grads`` the backward (dq writing di, then dkv) and di, under the f32
-    gates (K2G_*) or the bf16 ones (K2, K2b).  Checks that both forwards
-    launched on the route the routing rule gives (``expected_route``), and
-    the backward on the CUDA-core pair, nothing else.  Returns the route
-    and the largest absolute errors (fwd, lse, dq, dkv) and the largest
-    gradient error relative to the largest gradient."""
+    at another head dim, the 3xTF32 kernel, the CUDA-core kernel) and
+    K2b's pairs off bf16 D = 64 (the wgmma pair at another head dim, the
+    3xTF32 pair, the CUDA-core pair) against their plain versions: the
+    forward with and without the logsumexp (the same output bits), the
+    logsumexp, and with ``grads`` the backward (dq writing di, then dkv),
+    di, and dq's bits on a second run, under the f32 gates (K2G_*) or the
+    bf16 ones (K2, K2b).  Checks that both forwards launched on the route
+    the routing rule gives (``expected_route``) and the backward on its
+    pair (``expected_backward_route``), nothing else.  Returns both routes,
+    the largest absolute errors (fwd, lse, dq, dkv) and the largest gradient
+    error relative to the largest gradient."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     f32 = q.dtype == torch.float32
-    route = expected_route(q)
+    route, bwd_route = expected_route(q), expected_backward_route(q)
     before = k2_counts()
     got = flash_attention(q, k, v, seg, scale)
     out, lse = flash_attention_fwd(q, k, v, seg, scale)
@@ -1032,7 +1056,8 @@ def check_k2g(q, k, v, seg, dout, label, grads=True) -> dict:
     lse_err = (lse - masked_logsumexp(q, k, seg, scale)).abs().max().item()
     check(lse_err <= (K2G_LSE_ATOL if f32 else K2B_LSE_ATOL),
           f"K2 ({route}) logsumexp {label}: max abs err {lse_err}")
-    r = {"route": route, "fwd": err, "lse": lse_err, "dq": 0.0, "dkv": 0.0, "rel": 0.0}
+    r = {"route": route, "bwd_route": bwd_route, "fwd": err, "lse": lse_err, "dq": 0.0,
+         "dkv": 0.0, "rel": 0.0}
     if grads:
         g = flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
         torch.cuda.synchronize()
@@ -1045,23 +1070,23 @@ def check_k2g(q, k, v, seg, dout, label, grads=True) -> dict:
             ok = e <= K2G_GRAD_REL * top if f32 else torch.allclose(
                 a, b, rtol=K2B_RTOL, atol=K2B_ATOL_REL * top)
             check(ok and bool(torch.isfinite(a).all()),
-                  f"CUDA-core K2b {name} {label}: max abs err {e} (max |want| {top})")
+                  f"K2b ({bwd_route}) {name} {label}: max abs err {e} (max |want| {top})")
             kernel = "dq" if name == "dq" else "dkv"
             r[kernel], r["rel"] = max(r[kernel], e), max(r["rel"], e / top)
-        dq, di = flash_attention_simt_bwd_dq(q, k, v, seg, lse, out, dout, scale)
+        dq, di = BWD_PAIRS[bwd_route][0](q, k, v, seg, lse, out, dout, scale)
         want_di = _row_dots(out, dout)
         di_err = (di - want_di).abs().max().item()
         check(torch.allclose(di, want_di, rtol=K2B_DI_RTOL,
                              atol=K2B_DI_ATOL_REL * want_di.abs().max().item()),
-              f"CUDA-core dq's di {label}: max abs err {di_err}")
-        check(torch.equal(dq, g[0]), f"CUDA-core dq {label}: two runs differ")
+              f"K2b ({bwd_route}) dq's di {label}: max abs err {di_err}")
+        check(torch.equal(dq, g[0]), f"K2b ({bwd_route}) dq {label}: two runs differ")
     # dq twice with grads: the backward, then di's check
     want_counts = dict(before)
     want_counts[route] += 2
-    want_counts["simt_dkv"] += grads
-    want_counts["simt_dq"] += 2 * grads
+    want_counts[f"{bwd_route}_dkv"] += grads
+    want_counts[f"{bwd_route}_dq"] += 2 * grads
     check(k2_counts() == want_counts,
-          f"{label}: launched {k2_counts()} from {before} (route {route})")
+          f"{label}: launched {k2_counts()} from {before} (routes {route}, {bwd_route})")
     return r
 
 
@@ -1077,11 +1102,13 @@ K2G_CASES = [
 ]
 # by route: f32 at every D a multiple of 4 takes the 3xTF32 kernel (20: a
 # slab whose last k step reads zeros past D; 48 and 136 inside a slab),
-# bf16 at every D a multiple of 8 but 64 the wgmma kernel (40 and 136 stop
-# inside a 64-column slab); K2G_SIMT_DIMS, which TMA cannot read (f32 D =
-# 26, bf16 D = 20), take the CUDA-core kernel
-K2G_DIMS = {torch.float32: (16, 20, 32, 48, 64, 128, 136, 256),
-            torch.bfloat16: (16, 32, 40, 48, 128, 136, 256)}
+# bf16 at every D a multiple of 8 but 64 the wgmma kernel (40, 72 and 136
+# stop inside a 64-column slab); the backward takes the 3xTF32 pair up to
+# f32 D = 64 and the wgmma pair up to bf16 D = 128, the CUDA-core pair past
+# them (f32 68, bf16 136: each cap's other side); K2G_SIMT_DIMS, which TMA
+# cannot read (f32 D = 26, bf16 D = 20), take the CUDA-core kernels
+K2G_DIMS = {torch.float32: (16, 20, 32, 48, 64, 68, 128, 136, 256),
+            torch.bfloat16: (16, 32, 40, 48, 72, 128, 136, 256)}
 K2G_SIMT_DIMS = {torch.float32: (26,), torch.bfloat16: (20,)}
 
 
@@ -1105,8 +1132,10 @@ def k2g_times(q, k, v, seg, dout=None, lse_shape=False) -> dict:
     ``lse_shape``), the CUDA-core forward on the same inputs (held against
     the plain version first: ``simt_err``), the plain version and SDPA with
     the boolean segment mask (the library yardstick); with ``dout`` also
-    dq, dkv, the plain backward and SDPA's backward; each beside its
-    bound."""
+    dq and dkv on the backward's route, the CUDA-core pair on the same
+    inputs (held against the plain backward first: ``simt_bwd_rel``, the
+    largest gradient error over the largest gradient), the plain backward
+    and SDPA's backward; each beside its bound."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     slow = dict(reps=5, inner=2)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if lse_shape else None
@@ -1131,14 +1160,33 @@ def k2g_times(q, k, v, seg, dout=None, lse_shape=False) -> dict:
              bound_ms=bound[0], bound_by=bound[1])
     if dout is not None:
         out, lse = flash_attention_fwd(q, k, v, seg, scale)
-        _, di = flash_attention_simt_bwd_dq(q, k, v, seg, lse, out, dout, scale)
+        bwd_route = expected_backward_route(q)
+        dq_fn, dkv_fn = BWD_PAIRS[bwd_route]
+        _, di = dq_fn(q, k, v, seg, lse, out, dout, scale)
+        sdq, sdi = flash_attention_simt_bwd_dq(q, k, v, seg, lse, out, dout, scale)
+        simt_grads = (sdq, *flash_attention_simt_bwd_dkv(q, k, v, seg, lse, sdi, dout, scale))
+        torch.cuda.synchronize()
+        simt_bwd_rel = 0.0
+        for name, a, b in zip(("dq", "dk", "dv"), simt_grads,
+                              flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale)):
+            a, b = a.float(), b.float()
+            top, e = b.abs().max().item(), (a - b).abs().max().item()
+            check(e <= K2G_GRAD_REL * top if q.dtype == torch.float32 else torch.allclose(
+                a, b, rtol=K2B_RTOL, atol=K2B_ATOL_REL * top),
+                f"CUDA-core K2b {name} at {list(q.shape)} {q.dtype}: max abs err {e}")
+            simt_bwd_rel = max(simt_bwd_rel, e / top)
+        del simt_grads, sdq, sdi
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         lib_out = library_attention(*leaves, seg, scale)
         r.update(
-            dq_ms=time_cuda(lambda: flash_attention_simt_bwd_dq(q, k, v, seg, lse, out, dout,
-                                                                scale), reps=11, inner=3),
-            dkv_ms=time_cuda(lambda: flash_attention_simt_bwd_dkv(q, k, v, seg, lse, di, dout,
-                                                                  scale), reps=11, inner=3),
+            bwd_route=bwd_route, simt_bwd_rel=simt_bwd_rel,
+            dq_ms=time_cuda(lambda: dq_fn(q, k, v, seg, lse, out, dout, scale), reps=11, inner=3),
+            dkv_ms=time_cuda(lambda: dkv_fn(q, k, v, seg, lse, di, dout, scale), reps=11,
+                             inner=3),
+            simt_dq_ms=time_cuda(lambda: flash_attention_simt_bwd_dq(
+                q, k, v, seg, lse, out, dout, scale), reps=5, inner=2),
+            simt_dkv_ms=time_cuda(lambda: flash_attention_simt_bwd_dkv(
+                q, k, v, seg, lse, di, dout, scale), reps=5, inner=2),
             plain_bwd_ms=time_cuda(lambda: flash_attention_bwd_plain(
                 q, k, v, seg, out, lse, dout, scale), **slow),
             library_bwd_ms=time_cuda(lambda: torch.autograd.grad(
@@ -1151,26 +1199,34 @@ def k2g_times(q, k, v, seg, dout=None, lse_shape=False) -> dict:
 
 def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
     """K2's forwards other than the wgmma one at D = 64 (the wgmma kernel at
-    other head dims, the 3xTF32 kernel, the CUDA-core kernel) and the
-    CUDA-core backward against the plain versions on the card, each input
-    on the route the routing rule gives: the small cases at every head dim
-    of K2G_DIMS in f32 and bf16 and layouts TMA cannot read (the CUDA-core
-    forward), then the shapes of the main paths: f32 at the build's
-    [256, 12, 512, 64] (forward) and the train step's [96, 12, 512, 64]
-    (with the logsumexp, and the backward), all-MiniLM-L6-v2's D = 32 at
-    [256, 12, 512, 32] in bf16 and f32 and its backward at [96, 12, 512, 32]
-    in bf16, and EncoderConfig.tiny's [256, 4, 128, 16] in both; CUDA-event
-    times of each route's forward, the CUDA-core forward on the same inputs,
-    the plain version and SDPA, beside the bound."""
+    other head dims, the 3xTF32 kernel, the CUDA-core kernel) and K2b's
+    pairs other than the wgmma one at D = 64 (the wgmma pair at other head
+    dims, the 3xTF32 pair, the CUDA-core pair) against the plain versions
+    on the card, each input on the routes the routing rule gives: the small
+    cases at every head dim of K2G_DIMS in f32 and bf16 and layouts TMA
+    cannot read (the CUDA-core kernels), then the shapes of the main paths:
+    f32 at the build's [256, 12, 512, 64] (forward) and the train step's
+    [96, 12, 512, 64] (with the logsumexp, and the backward),
+    all-MiniLM-L6-v2's D = 32 at [256, 12, 512, 32] in bf16 and f32 and its
+    backward at [96, 12, 512, 32] in bf16, TinyBERT_General_4L_312D's D = 26
+    at [256, 12, 512, 26] and [96, 12, 512, 26] in bf16 (the CUDA-core
+    kernels' main path), and EncoderConfig.tiny's [256, 4, 128, 16] in
+    both; CUDA-event times of each route's forward and backward, the
+    CUDA-core kernels on the same inputs, the plain versions and SDPA,
+    beside the bound."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
     keys = ("fwd", "lse", "dq", "dkv", "rel")
     by_route, f32_err = {}, dict.fromkeys(keys, 0.0)
 
     def hold(r, dtype):
-        route_err = by_route.setdefault(r["route"], dict.fromkeys(keys, 0.0))
-        for key in keys:
-            route_err[key] = max(route_err[key], r[key])
-            if dtype == torch.float32:
+        # the forward's errors under its route, the backward's under its pair's
+        for route, route_keys in ((r["route"], ("fwd", "lse")),
+                                  (r["bwd_route"], ("dq", "dkv", "rel"))):
+            route_err = by_route.setdefault(route, dict.fromkeys(keys, 0.0))
+            for key in route_keys:
+                route_err[key] = max(route_err[key], r[key])
+        if dtype == torch.float32:
+            for key in keys:
                 f32_err[key] = max(f32_err[key], r[key])
 
     for dtype in K2G_DIMS:
@@ -1181,14 +1237,16 @@ def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
         rows = K2G_CASES[1][3]
         hold(check_k2g(*misaligned_k2g_inputs(gen, dtype, rows),
                        f"{dtype} D=64 in a layout TMA cannot read"), dtype)
-    routes = "; ".join(f"{name}: forward {e['fwd']:.3g}, logsumexp {e['lse']:.3g}"
-                       for name, e in sorted(by_route.items()))
+    routes = "; ".join(f"{name}: forward {e['fwd']:.3g}, logsumexp {e['lse']:.3g}, dq "
+                       f"{e['dq']:.3g}, dkv {e['dkv']:.3g} (of the largest gradient "
+                       f"{e['rel']:.3g})" for name, e in sorted(by_route.items()))
     phase("k2g", f"small cases (S=128/256/384, B=1, H=1, several segments, interleaved ids, "
                  f"one-segment rows, ragged pads) at D={K2G_DIMS[torch.float32]} in f32 and "
-                 f"D={K2G_DIMS[torch.bfloat16]} in bf16 on the tensor cores, D="
-                 f"{K2G_SIMT_DIMS[torch.float32]} in f32, D={K2G_SIMT_DIMS[torch.bfloat16]} in "
-                 f"bf16 and D=64 in layouts TMA cannot read on the CUDA cores, agree, each on "
-                 f"the routing rule's route: max abs err by route {routes}; f32 "
+                 f"D={K2G_DIMS[torch.bfloat16]} in bf16 (the backward on the tensor cores up "
+                 f"to f32 D = 64 and bf16 D = 128), D={K2G_SIMT_DIMS[torch.float32]} in f32, "
+                 f"D={K2G_SIMT_DIMS[torch.bfloat16]} in bf16 and D=64 in layouts TMA cannot read "
+                 f"on the CUDA cores, agree, each on the routing rule's routes: max abs err by "
+                 f"route {routes}; f32 "
                  f"forward {f32_err['fwd']:.3g} (atol {K2G_ATOL}), logsumexp "
                  f"{f32_err['lse']:.3g} (atol {K2G_LSE_ATOL}), gradients {f32_err['rel']:.3g} "
                  f"of the largest (gate {K2G_GRAD_REL}); bf16 within the K2/K2b gates")
@@ -1204,19 +1262,21 @@ def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
         r[key] = k2g_times(*inputs, **kw)
         simt = by_route.setdefault("simt", dict.fromkeys(keys, 0.0))
         simt["fwd"] = max(simt["fwd"], r[key]["simt_err"])
+        simt["rel"] = max(simt["rel"], r[key].get("simt_bwd_rel", 0.0))
         lines.append(f"{key} {list(inputs[0].shape)}{' (with the logsumexp)' if kw else ''}: "
                      f"{r[key]}")
 
     b, h, s = build
     for dtype, d, key in ((torch.float32, 64, "f32"), (torch.bfloat16, 32, "bf16_d32"),
-                          (torch.float32, 32, "f32_d32")):
+                          (torch.float32, 32, "f32_d32"), (torch.bfloat16, 26, "bf16_d26")):
         q, k, v, seg, _ = k2g_inputs(gen, b, h, s, d, dtype, lengths(b, s, 0))
         hold(check_k2g(q, k, v, seg, None, f"at {list(q.shape)} {dtype}", grads=False), dtype)
         if key != "f32_d32":
             timed(key, q, k, v, seg)
         del q, k, v, seg
     b, h, s = train
-    for dtype, d, key in ((torch.float32, 64, "f32_train"), (torch.bfloat16, 32, "bf16_d32_train")):
+    for dtype, d, key in ((torch.float32, 64, "f32_train"), (torch.bfloat16, 32, "bf16_d32_train"),
+                          (torch.bfloat16, 26, "bf16_d26_train")):
         q, k, v, seg, dout = k2g_inputs(gen, b, h, s, d, dtype, lengths(b, s, 5))
         hold(check_k2g(q, k, v, seg, dout, f"at {list(q.shape)} {dtype}"), dtype)
         timed(key, q, k, v, seg, dout, lse_shape=True)
@@ -2951,8 +3011,8 @@ TINYBERT_WIDTH = dict(hidden_size=312, num_layers=4, num_heads=12, intermediate_
 
 
 def one_batch_against_plain(model, plain, batch, seed, label):
-    """One train batch through ``model`` ("auto": K2 and the CUDA-core
-    backward) and ``plain`` (the same weights, "xla"): loss, gradient norm
+    """One train batch through ``model`` ("auto": K2 and K2b on the routes
+    the routing rule gives) and ``plain`` (the same weights, "xla"): loss, gradient norm
     and each optimizer group's gradient cosine.  Returns them and the K2/K2b
     launches of the first (``k2_counts``)."""
     reset_k2_counts()
@@ -2967,8 +3027,8 @@ def one_batch_against_plain(model, plain, batch, seed, label):
 
 
 def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries=64):
-    """K2's forwards other than the wgmma one at D = 64, and the CUDA-core
-    backward, through the entry points a user calls.
+    """K2's forwards and K2b's pairs other than the wgmma ones at D = 64,
+    through the entry points a user calls.
 
     (a) Contriever-base width in f32 (``--precision 32``: hidden 768, 12
     layers, 12 heads, D = 64; seeded weights) with ``attention_impl="auto"``:
@@ -2984,9 +3044,9 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
     "xla", and one train batch against the plain path; (c) the same at
     TinyBERT_General_4L_312D's width (D = 26).  Every count is set to 0
     just before each main-path run and read just after, and each run's
-    launches are held to the route the routing rule gives: (a) the 3xTF32
-    forward, (b) the wgmma forward at D = 32, (c) the CUDA-core forward, and
-    the CUDA-core backward pair in every batch."""
+    launches are held to the routes the routing rule gives: (a) the 3xTF32
+    forward and pair, (b) the wgmma forward and pair at D = 32, (c) the
+    CUDA-core forward and pair."""
     pairs = list(corpus.pairs())[:n_docs]
     sub = Corpus.from_pairs(pairs, dataset_name="mag")
     field_info = resolve_fields("all_dense", "mag")
@@ -3077,8 +3137,8 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
     del plain_model
     layers = tcfg.num_layers
     # remat: the forward twice a layer and group
-    check(one_launched == launched(tf32=2 * layers * n_flash, simt_dkv=layers * n_flash,
-                                   simt_dq=layers * n_flash),
+    check(one_launched == launched(tf32=2 * layers * n_flash, tf32_dkv=layers * n_flash,
+                                   tf32_dq=layers * n_flash),
           f"one f32 batch launched {one_launched} ({n_flash} groups)")
     check(abs(loss - loss_pl) <= F32_LOSS_RTOL * abs(loss_pl), f"f32 loss {loss} vs {loss_pl}")
     check(abs(norm - norm_pl) <= F32_NORM_RTOL * norm_pl, f"f32 grad norm {norm} vs {norm_pl}")
@@ -3098,10 +3158,10 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
         fit_launches = k2_counts()
         check(state.step == steps, f"f32 fit ran {state.step} steps")
         check(fit_launches == launched(tf32=fit_launches["tf32"],
-                                       simt_dkv=fit_launches["simt_dkv"],
-                                       simt_dq=fit_launches["simt_dkv"])
-              and fit_launches["simt_dkv"] >= layers * steps
-              and fit_launches["tf32"] >= 2 * fit_launches["simt_dkv"],
+                                       tf32_dkv=fit_launches["tf32_dkv"],
+                                       tf32_dq=fit_launches["tf32_dkv"])
+              and fit_launches["tf32_dkv"] >= layers * steps
+              and fit_launches["tf32"] >= 2 * fit_launches["tf32_dkv"],
               f"f32 fit launched {fit_launches}")
         with open(os.path.join(d, "metrics.jsonl")) as f:
             logged = [json.loads(ln) for ln in f if '"train_loss"' in ln]
@@ -3111,7 +3171,7 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
     del state, trainer
     torch.cuda.empty_cache()
     phase("f32", f"(a) one f32 train batch (batch {batch}, attention dropout 0, remat) "
-                 f"through the 3xTF32 K2 and the CUDA-core K2b vs plain attention: loss "
+                 f"through the 3xTF32 K2 and K2b vs plain attention: loss "
                  f"{loss:.8f} vs "
                  f"{loss_pl:.8f}, grad_norm {norm:.6f} vs {norm_pl:.6f}, gradient cosine "
                  f"encoder {cos['encoder']:.7f} head {cos['head']:.7f} (gates: loss rtol "
@@ -3124,11 +3184,11 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
     # (c) one at TinyBERT-4L-312D's (D = 26)
     train = (train_q, train_r, sampler)
     mini = bert_width_cell("(b)", "all-MiniLM-L6-v2", MINILM_WIDTH, "wgmma_headdim",
-                           "the wgmma K2 at D = 32", seed + 9, sub, field_info, train, batch,
-                           seed, warm, n_long * batches)
+                           "the wgmma K2 and K2b at D = 32", seed + 9, sub, field_info, train,
+                           batch, seed, warm, n_long * batches)
     tiny = bert_width_cell("(c)", "TinyBERT_General_4L_312D", TINYBERT_WIDTH, "simt",
-                           "the CUDA-core K2 (D = 26: TMA cannot read its rows)", seed + 13,
-                           sub, field_info, train, batch, seed, warm, n_long * batches)
+                           "the CUDA-core K2 and K2b (D = 26: TMA cannot read its rows)",
+                           seed + 13, sub, field_info, train, batch, seed, warm, n_long * batches)
     torch.cuda.empty_cache()
     # the main paths' launches: the three builds, Trainer.fit and the two
     # BERT-width batches (the f32 batch is a check beside fit)
@@ -3149,7 +3209,8 @@ def bert_width_cell(tag, name, width, route, what, dir_seed, sub, field_info, tr
     against "xla" (each layer's ``encoder_calls`` 512-token calls on the
     forward ``route``, nothing else), and one train batch against the plain
     path (the forward on ``route`` twice a layer and group under remat, the
-    CUDA-core backward pair once).  Returns the K2/K2b launches of both
+    backward pair of the same route once: its head dim is under both
+    caps).  Returns the K2/K2b launches of both
     runs, summed, and the two builds' seconds."""
     train_q, train_r, sampler = train
     with tempfile.TemporaryDirectory() as d:
@@ -3187,8 +3248,9 @@ def bert_width_cell(tag, name, width, route, what, dir_seed, sub, field_info, tr
             model, plain_model, mb, seed, f"{name}-width train batch")
         del model, plain_model
         n_flash = flash_groups(mb)
-        check(batch_launches == launched(**{route: 2 * layers * n_flash},
-                                         simt_dkv=layers * n_flash, simt_dq=layers * n_flash),
+        check(batch_launches == launched(**{route: 2 * layers * n_flash,
+                                            f"{route}_dkv": layers * n_flash,
+                                            f"{route}_dq": layers * n_flash}),
               f"one {name}-width batch launched {batch_launches}")
         check(abs(loss - loss_pl) <= TRAIN_LOSS_RTOL * abs(loss_pl)
               and abs(norm - norm_pl) <= TRAIN_NORM_RTOL * norm_pl
@@ -5630,7 +5692,7 @@ def kernel_usage(logs: dict) -> dict:
     """Each kernel's registers and spills from the ptxas lines of its
     library's build log (nvcc -Xptxas -v), by kernel name (the CUDA-core
     flash kernels by name, dtype and head-dim bucket, the tensor-core
-    forwards by name and slabs)."""
+    kernels by name and slabs)."""
     usage = {}
     for log in logs.values():
         name = None
@@ -5639,8 +5701,9 @@ def kernel_usage(logs: dict) -> dict:
                 mangled = ln.split("for", 1)[1].strip()
                 simt = re.search(r"(flash_simt_\w+?)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
                                  mangled)
-                slabs = re.search(r"(flash_attention_fwd|flash_tf32_fwd)_kernelILi(\d+)E",
-                                  mangled)
+                slabs = re.search(r"(flash_attention_fwd|flash_tf32_fwd|flash_attention_bwd_dkv|"
+                                  r"flash_attention_bwd_dq|flash_tf32_bwd_dkv|flash_tf32_bwd_dq)"
+                                  r"_kernelILi(\d+)E", mangled)
                 name = (f"{simt[1]} {'f32' if simt[2] == 'f' else 'bf16'} D<={simt[3]}"
                         if simt else f"{slabs[1]} NS={slabs[2]}" if slabs else next(
                             (k for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
@@ -5906,46 +5969,101 @@ def main(argv=None) -> int:
         "bound_by": k2g["f32"]["bound_by"],
         "library_ms": k2g["f32"]["library_ms"],
     }, {
-        # K2's CUDA-core forward (what TMA cannot read): times on the f32
-        # build's [256, 12, 512, 64]; launches from phase f32's
-        # TinyBERT-width build and batch (D = 26)
-        "name": "flash_attention_simt",
+        # K2b at other bf16 head dims (the wgmma pair at ceil(D / 64)
+        # slabs): times at all-MiniLM-L6-v2's [96, 12, 512, 32]; launches
+        # from phase f32's MiniLM-width batch
+        "name": "flash_attention_bwd_headdim_dkv",
         "route": "cuda",
-        "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",
-        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
-        "launches": f32_launches["simt"],
-        "max_abs_err": by_route["simt"]["fwd"],
-        "ms": k2g["f32"]["simt_ms"],
-        "plain_ms": k2g["f32"]["plain_ms"],
-        "bound_ms": k2g["f32"]["bound_ms"],
-        "bound_by": k2g["f32"]["bound_by"],
-        "library_ms": k2g["f32"]["library_ms"],
-    }, {
-        # the CUDA-core backward pair: launches from phase f32's Trainer.fit
-        # and its two BERT-width batches
-        "name": "flash_attention_simt_bwd_dkv",
-        "route": "cuda",
-        "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",
+        "source": "mfar_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
-        "launches": f32_launches["simt_dkv"],
-        "max_abs_err": k2g["dkv_max_abs_err"],
+        "launches": f32_launches["wgmma_headdim_dkv"],
+        "max_abs_err": by_route["wgmma_headdim"]["dkv"],
+        "ms": k2g["bf16_d32_train"]["dkv_ms"],
+        "plain_ms": k2g["bf16_d32_train"]["plain_bwd_ms"],
+        "bound_ms": k2g["bf16_d32_train"]["dkv_bound_ms"],
+        "bound_by": k2g["bf16_d32_train"]["dkv_bound_by"],
+        "library_ms": k2g["bf16_d32_train"]["library_bwd_ms"],
+    }, {
+        "name": "flash_attention_bwd_headdim_dq",
+        "route": "cuda",
+        "source": "mfar_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
+        "launches": f32_launches["wgmma_headdim_dq"],
+        "max_abs_err": by_route["wgmma_headdim"]["dq"],
+        "ms": k2g["bf16_d32_train"]["dq_ms"],
+        "plain_ms": k2g["bf16_d32_train"]["plain_bwd_ms"],
+        "bound_ms": k2g["bf16_d32_train"]["dq_bound_ms"],
+        "bound_by": k2g["bf16_d32_train"]["dq_bound_by"],
+        "library_ms": k2g["bf16_d32_train"]["library_bwd_ms"],
+    }, {
+        # K2b in f32 on the tensor cores (3xTF32): times at the f32 train
+        # step's [96, 12, 512, 64]; launches from phase f32's Trainer.fit
+        "name": "flash_attention_tf32_bwd_dkv",
+        "route": "cuda",
+        "source": "mfar_tpu_torch/csrc/flash_attention_tf32_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
+        "launches": f32_launches["tf32_dkv"],
+        "max_abs_err": by_route["tf32"]["dkv"],
         "ms": k2g["f32_train"]["dkv_ms"],
         "plain_ms": k2g["f32_train"]["plain_bwd_ms"],
         "bound_ms": k2g["f32_train"]["dkv_bound_ms"],
         "bound_by": k2g["f32_train"]["dkv_bound_by"],
         "library_ms": k2g["f32_train"]["library_bwd_ms"],
     }, {
-        "name": "flash_attention_simt_bwd_dq",
+        "name": "flash_attention_tf32_bwd_dq",
         "route": "cuda",
-        "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",
+        "source": "mfar_tpu_torch/csrc/flash_attention_tf32_bwd.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
-        "launches": f32_launches["simt_dq"],
-        "max_abs_err": k2g["dq_max_abs_err"],
+        "launches": f32_launches["tf32_dq"],
+        "max_abs_err": by_route["tf32"]["dq"],
         "ms": k2g["f32_train"]["dq_ms"],
         "plain_ms": k2g["f32_train"]["plain_bwd_ms"],
         "bound_ms": k2g["f32_train"]["dq_bound_ms"],
         "bound_by": k2g["f32_train"]["dq_bound_by"],
         "library_ms": k2g["f32_train"]["library_bwd_ms"],
+    }, {
+        # K2's CUDA-core forward (what TMA cannot read): times at
+        # TinyBERT-4L-312D's [256, 12, 512, 26] bf16, the shape it serves;
+        # launches from phase f32's TinyBERT-width build and batch
+        "name": "flash_attention_simt",
+        "route": "cuda",
+        "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+        "launches": f32_launches["simt"],
+        "max_abs_err": by_route["simt"]["fwd"],
+        "ms": k2g["bf16_d26"]["simt_ms"],
+        "plain_ms": k2g["bf16_d26"]["plain_ms"],
+        "bound_ms": k2g["bf16_d26"]["bound_ms"],
+        "bound_by": k2g["bf16_d26"]["bound_by"],
+        "library_ms": k2g["bf16_d26"]["library_ms"],
+    }, {
+        # the CUDA-core backward pair (what TMA cannot read, and head dims
+        # past the tensor-core pairs' caps): times at TinyBERT-4L-312D's
+        # [96, 12, 512, 26] bf16; launches from phase f32's TinyBERT-width
+        # batch
+        "name": "flash_attention_simt_bwd_dkv",
+        "route": "cuda",
+        "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
+        "launches": f32_launches["simt_dkv"],
+        "max_abs_err": by_route["simt"]["dkv"],
+        "ms": k2g["bf16_d26_train"]["simt_dkv_ms"],
+        "plain_ms": k2g["bf16_d26_train"]["plain_bwd_ms"],
+        "bound_ms": k2g["bf16_d26_train"]["dkv_bound_ms"],
+        "bound_by": k2g["bf16_d26_train"]["dkv_bound_by"],
+        "library_ms": k2g["bf16_d26_train"]["library_bwd_ms"],
+    }, {
+        "name": "flash_attention_simt_bwd_dq",
+        "route": "cuda",
+        "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
+        "launches": f32_launches["simt_dq"],
+        "max_abs_err": by_route["simt"]["dq"],
+        "ms": k2g["bf16_d26_train"]["simt_dq_ms"],
+        "plain_ms": k2g["bf16_d26_train"]["plain_bwd_ms"],
+        "bound_ms": k2g["bf16_d26_train"]["dq_bound_ms"],
+        "bound_by": k2g["bf16_d26_train"]["dq_bound_by"],
+        "library_ms": k2g["bf16_d26_train"]["library_bwd_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

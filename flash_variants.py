@@ -123,12 +123,13 @@ def build(kernel: str, name: str, edits, csrc: str = _build.CSRC_DIR) -> tuple:
         fns = (lib.mfar_flash_attention_bwd_dq, lib.mfar_flash_attention_bwd_dkv)
     for fn, ref in zip(fns, committed_fns(kernel)):
         fn.argtypes, fn.restype = ref.argtypes, ref.restype
-    if kernel == "k2" and "int S, int D," not in src:
-        # a K2 from before its head-dim argument (D = 64 only): the same
-        # call without D, the tenth argument
-        raw = fns[0]
-        raw.argtypes = raw.argtypes[:9] + raw.argtypes[10:]
-        fns = (lambda *a: raw(*a[:9], *a[10:]),)
+    if "int S, int D," not in src:
+        # a kernel from before its head-dim argument (D = 64 only): the same
+        # calls without D (K2's tenth argument, K2b's thirteenth)
+        at = 9 if kernel == "k2" else 12
+        for raw in fns:
+            raw.argtypes = raw.argtypes[:at] + raw.argtypes[at + 1:]
+        fns = tuple((lambda raw: lambda *a: raw(*a[:at], *a[at + 1:]))(raw) for raw in fns)
     return fns
 
 

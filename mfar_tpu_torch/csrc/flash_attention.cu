@@ -9,9 +9,9 @@
 // (D contiguous; the others multiples of 16 bytes), seg is int32 [B, S], S
 // is a multiple of 128.  Under training the kernel also writes each row's
 // logsumexp of the scaled, masked logits (natural log, f32 [B, H, S]),
-// which the backward kernels (flash_attention_bwd.cu at D = 64,
-// flash_attention_simt.cu at the other head dims) read.  f32 takes
-// flash_attention_tf32.cu, and what TMA cannot read flash_attention_simt.cu.
+// which the backward kernels (flash_attention_bwd.cu up to D = 128,
+// flash_attention_simt.cu past it) read.  f32 takes flash_attention_tf32.cu,
+// and what TMA cannot read flash_attention_simt.cu.
 //
 // Replaces the forward of JAX's library Pallas flash_attention:
 // _flash_attention_kernel (jax/experimental/pallas/ops/tpu/flash_attention.py

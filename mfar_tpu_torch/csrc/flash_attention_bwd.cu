@@ -1,5 +1,6 @@
 // Kernel K2b: the backward of kernel K2 (flash_attention.cu), written for
-// Hopper (sm_90a).  Two kernels, launched in this order:
+// Hopper (sm_90a), for bf16 at every head dim up to 128 whose rows TMA can
+// read (D a multiple of 8).  Two kernels, launched in this order:
 //
 //   dq:  di = sum_d O * dO (f32), written out,   dQ = dS K
 //   dkv: dV = P^T dO,  dK = dS^T Q               (reads dq's di)
@@ -7,10 +8,13 @@
 // with  P  = exp(Q K^T * sm_scale - lse)  on same-segment pairs, 0 elsewhere,
 //       dS = P * (dO V^T - di) * sm_scale,
 // lse the forward's row logsumexp (natural units, written by K2 under
-// training).  q/k/v/o/dO are bf16 [B, H, S, 64] read through their strides
-// (D contiguous), seg int32 [B, S], lse and di contiguous f32 [B, H, S]; the
-// gradients are bf16 (q's dtype, as JAX writes them) into [B, H, S, 64]
-// views with their own strides, so the encoder's head split costs no copy.
+// training).  q/k/v/o/dO are bf16 [B, H, S, D] read through their strides
+// (D contiguous; the others multiples of 16 bytes), seg int32 [B, S], lse and
+// di contiguous f32 [B, H, S]; the gradients are bf16 (q's dtype, as JAX
+// writes them) into [B, H, S, D] views with their own strides, so the
+// encoder's head split costs no copy.  f32 takes flash_attention_tf32_bwd.cu
+// (up to D = 64); bf16 past D = 128, and what TMA cannot read,
+// flash_attention_simt.cu.
 //
 // Replaces the two Pallas kernels of the VJP of JAX's library
 // flash_attention (jax/experimental/pallas/ops/tpu/flash_attention.py,
@@ -39,11 +43,24 @@
 //        tiles go through a ring of two stages (full / empty mbarriers).
 //        The block structure, the ring, the live-tile list and the tensor
 //        maps are hopper_pipeline.cuh's, shared with K2.
-//   dkv: each consumer's K and V tiles stay put, also as bf16 A registers;
-//        64-query tiles of Q and dO with their lse, di and segment ids
+//   head dims: both kernels are templated on NS = ceil(D / 64) slabs of 64
+//        columns (1 or 2), each slab one 64 x 64 tile (as K2's forward).
+//        The tensor maps span D columns with a 64-wide box, so the columns
+//        of the last slab past D arrive as zeros: S and dP (summed over the
+//        slabs) are exact, the gradients' columns past D are 0, and the
+//        stores stop at D (a slab's 64 columns would run into the next
+//        head's).  D < 64 runs D = 64's products.  NS = 1 is the D = 64
+//        kernel as it was; at NS = 2 the warpgroup's own tiles are read as
+//        shared-memory operands of wgmma (SS) where NS = 1 holds them as A
+//        registers: dK, dV and their operands' fragments would pass the
+//        consumers' 240 registers.  D = 128 is the cap: dq's three own
+//        tiles a warpgroup and its ring come to 166 KB at NS = 2.
+//   dkv: each consumer's K and V tiles stay put (bf16 A registers at NS =
+//        1); 64-query tiles of Q and dO with their lse, di and segment ids
 //        stream.  Per tile: S^T = K Q^T and dP^T = V dO^T (B the Q / dO
 //        tile, K-major), P^T and dS^T packed to bf16 A registers, dV += P^T
-//        dO and dK += dS^T Q (B the dO / Q tile, MN-major).
+//        dO and dK += dS^T Q (B the dO / Q tile, MN-major), one accumulator
+//        a slab.
 //   dq:  each consumer's Q, dO and O tiles stay put; it first computes di
 //        for its rows from the O and dO tiles and writes it out for dkv.
 //        64-key tiles of K and V with their segment ids stream.  Per tile:
@@ -75,7 +92,9 @@
 // with no per-tile work at all (flash_variants.py --kernel k2b
 // x_nocompute) the kernels still take ~0.19-0.20 ms, the latency of each
 // block's own tiles and first streamed tiles with one block an SM, and the
-// products add to that time instead of hiding under it (see PERF.md).
+// products add to that time instead of hiding under it (see PERF.md).  At
+// D = 32 (all-MiniLM-L6-v2's heads) the bytes halve while the products and
+// the latency do not, so the pair takes D = 64's time.
 
 #include <climits>
 
@@ -98,32 +117,56 @@ struct BwdParams {
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss;
   long long g_sb, g_sh, g_ss;  // strides of the gradients (one layout for all)
   long long o_sb, o_sh, o_ss;
-  int H, S;
+  int H, S, D;
   float scale;       // sm_scale
   float scale_log2;  // sm_scale * log2(e)
 };
 
 constexpr int kStages = 2;  // of the ring of streamed tiles
-using Ring = Smem<kStages>;
+// each consumer's own tiles (NS slabs an operand) and a stage's streamed
+// tiles (two operands of NS slabs)
+template <int NS>
+using Ring = Smem<kStages, kGroups, 2 * NS>;
 
-// One streamed tile of 64 queries against the warpgroup's 64 keys (K and V
-// as A registers kf, vf): dV += P^T dO, dK += dS^T Q.  seg_k0/1 are
-// the segment ids of this thread's two keys (rows g and g + 8 of its
-// warp's 16).
-__device__ __forceinline__ void dkv_tile(float (&dk)[8][4], float (&dv)[8][4],
+// d = A B^T over the head dim (d's old value dropped at NS > 1; at NS = 1
+// the caller zeroes d), A the warpgroup's own 64 rows and B a streamed
+// tile, both K-major: at one slab A from registers (af, loaded once), past
+// it from the own tile's NS slabs in shared memory (a), where NS x 32
+// registers of fragments would not fit beside the accumulators.
+template <int NS>
+__device__ __forceinline__ void gemm_own(float (&d)[8][4], const uint32_t (&af)[4][4],
+                                         const uint64_t (&a)[NS], const uint64_t (&b)[NS]) {
+  if constexpr (NS == 1) {
+    gemm_rs<0>(d, af, b[0]);
+  } else {
+    gemm_ss_new(d, a[0], b[0]);
+#pragma unroll
+    for (int c = 1; c < NS; ++c) gemm_ss_new<true>(d, a[c], b[c]);
+  }
+}
+
+// One streamed tile of 64 queries against the warpgroup's 64 keys: dV +=
+// P^T dO, dK += dS^T Q, one accumulator a slab.  K and V are kf, vf (A
+// registers) at one slab, their own tiles (k_own, v_own) past it; qd, dod
+// are the tile's Q and dO slabs.  seg_k0/1 are the segment ids of this
+// thread's two keys (rows g and g + 8 of its warp's 16).
+template <int NS>
+__device__ __forceinline__ void dkv_tile(float (&dk)[NS][8][4], float (&dv)[NS][8][4],
                                          const uint32_t (&kf)[4][4], const uint32_t (&vf)[4][4],
-                                         const __nv_bfloat16* qt,
-                                         const __nv_bfloat16* dot, const float* lse_t,
-                                         const float* di_t, const int32_t* seg_t, int seg_k0,
-                                         int seg_k1, int t4, float scale, float scale_log2) {
-  const uint64_t qd = tile_desc(qt), dod = tile_desc(dot);
+                                         const uint64_t (&k_own)[NS], const uint64_t (&v_own)[NS],
+                                         const uint64_t (&qd)[NS], const uint64_t (&dod)[NS],
+                                         const float* lse_t, const float* di_t,
+                                         const int32_t* seg_t, int seg_k0, int seg_k1, int t4,
+                                         float scale, float scale_log2) {
   float st[8][4], dpt[8][4];
-  zero(st);
-  zero(dpt);
+  if constexpr (NS == 1) {
+    zero(st);
+    zero(dpt);
+  }
   wgmma_fence();
-  gemm_rs<0>(st, kf, qd);  // S^T = K Q^T
+  gemm_own<NS>(st, kf, k_own, qd);  // S^T = K Q^T
   wgmma_commit();
-  gemm_rs<0>(dpt, vf, dod);  // dP^T = V dO^T
+  gemm_own<NS>(dpt, vf, v_own, dod);  // dP^T = V dO^T
   wgmma_commit();
   wgmma_wait<1>();
   pin(st);
@@ -144,10 +187,14 @@ __device__ __forceinline__ void dkv_tile(float (&dk)[8][4], float (&dv)[8][4],
     pf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(st[n][2], st[n][3]);
   }
   wgmma_fence();
-  gemm_rs<1>(dv, pf, dod);  // dV += P^T dO
+#pragma unroll
+  for (int c = 0; c < NS; ++c) gemm_rs<1>(dv[c], pf, dod[c]);  // dV += P^T dO
   wgmma_commit();
-  wgmma_wait<1>();
+  // past one slab dV's product ends here, so P^T's registers are free for
+  // dS^T's (dK, dV, S^T and dP^T alone take 64 NS + 64 registers)
+  wgmma_wait<NS == 1 ? 1 : 0>();
   pin(dpt);
+  if constexpr (NS > 1) pin(pf);
 
   // dS^T = P^T (dP^T - di) * sm_scale as bf16 A registers
   uint32_t dsf[4][4];
@@ -161,32 +208,40 @@ __device__ __forceinline__ void dkv_tile(float (&dk)[8][4], float (&dv)[8][4],
         pack_bf16(st[n][2] * (dpt[n][2] - d0) * scale, st[n][3] * (dpt[n][3] - d1) * scale);
   }
   wgmma_fence();
-  gemm_rs<1>(dk, dsf, qd);  // dK += dS^T Q
+#pragma unroll
+  for (int c = 0; c < NS; ++c) gemm_rs<1>(dk[c], dsf, qd[c]);  // dK += dS^T Q
   wgmma_commit();
   wgmma_wait<0>();
-  pin(pf);
+  if constexpr (NS == 1) pin(pf);
   pin(dsf);
-  pin(dv);
-  pin(dk);
+#pragma unroll
+  for (int c = 0; c < NS; ++c) {
+    pin(dv[c]);
+    pin(dk[c]);
+  }
 }
 
-// One streamed tile of 64 keys against the warpgroup's 64 queries (Q and dO
-// as A registers qf, df): dQ += dS K.  seg_q0/1, lse0/1 (log2
-// units) and di0/1 belong to this thread's two query rows.
-__device__ __forceinline__ void dq_tile(float (&dq)[8][4], const uint32_t (&qf)[4][4],
-                                        const uint32_t (&df)[4][4],
-                                        const __nv_bfloat16* kt, const __nv_bfloat16* vt,
-                                        const int32_t* seg_t, int seg_q0, int seg_q1, float lse0,
-                                        float lse1, float di0, float di1, int t4, float scale,
-                                        float scale_log2) {
-  const uint64_t kd = tile_desc(kt), vd = tile_desc(vt);
+// One streamed tile of 64 keys against the warpgroup's 64 queries: dQ +=
+// dS K, one accumulator a slab.  Q and dO are qf, df (A registers) at one
+// slab, their own tiles (q_own, do_own) past it; kd, vd are the tile's K
+// and V slabs.  seg_q0/1, lse0/1 (log2 units) and di0/1 belong to this
+// thread's two query rows.
+template <int NS>
+__device__ __forceinline__ void dq_tile(float (&dq)[NS][8][4], const uint32_t (&qf)[4][4],
+                                        const uint32_t (&df)[4][4], const uint64_t (&q_own)[NS],
+                                        const uint64_t (&do_own)[NS], const uint64_t (&kd)[NS],
+                                        const uint64_t (&vd)[NS], const int32_t* seg_t,
+                                        int seg_q0, int seg_q1, float lse0, float lse1, float di0,
+                                        float di1, int t4, float scale, float scale_log2) {
   float s[8][4], dpm[8][4];
-  zero(s);
-  zero(dpm);
+  if constexpr (NS == 1) {
+    zero(s);
+    zero(dpm);
+  }
   wgmma_fence();
-  gemm_rs<0>(s, qf, kd);  // S = Q K^T
+  gemm_own<NS>(s, qf, q_own, kd);  // S = Q K^T
   wgmma_commit();
-  gemm_rs<0>(dpm, df, vd);  // dP = dO V^T
+  gemm_own<NS>(dpm, df, do_own, vd);  // dP = dO V^T
   wgmma_commit();
   wgmma_wait<1>();
   pin(s);
@@ -214,13 +269,16 @@ __device__ __forceinline__ void dq_tile(float (&dq)[8][4], const uint32_t (&qf)[
         pack_bf16(s[n][2] * (dpm[n][2] - di1) * scale, s[n][3] * (dpm[n][3] - di1) * scale);
   }
   wgmma_fence();
-  gemm_rs<1>(dq, dsf, kd);  // dQ += dS K
+#pragma unroll
+  for (int c = 0; c < NS; ++c) gemm_rs<1>(dq[c], dsf, kd[c]);  // dQ += dS K
   wgmma_commit();
   wgmma_wait<0>();
   pin(dsf);
-  pin(dq);
+#pragma unroll
+  for (int c = 0; c < NS; ++c) pin(dq[c]);
 }
 
+template <int NS>
 __global__ void __launch_bounds__(kBlockThreads + 128, 1)
     flash_attention_bwd_dkv_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
                                    const __grid_constant__ CUtensorMap map_k,
@@ -229,7 +287,8 @@ __global__ void __launch_bounds__(kBlockThreads + 128, 1)
                                    const __grid_constant__ CUtensorMap) {
   extern __shared__ unsigned char smem_raw[];
   const int n_tiles = p.S / 64;
-  const Ring m = carve<kStages>(smem_raw, n_tiles, 2);
+  // each consumer's K slabs, then its V slabs; a stage holds Q's slabs, then dO's
+  const Ring<NS> m = carve<kStages, kGroups, 2 * NS>(smem_raw, n_tiles, 2 * NS);
   const int blocks = p.S / kRows;
   const int blk = blockIdx.x % blocks, bh = blockIdx.x / blocks;
   const int h = bh % p.H, b = bh / p.H;
@@ -240,18 +299,25 @@ __global__ void __launch_bounds__(kBlockThreads + 128, 1)
 
   // a streamed tile t into a stage: Q, dO, and the queries' lse, di and
   // segment ids
-  const uint32_t bytes = 2 * kTileBytes + 3 * 256;
+  const uint32_t bytes = 2 * NS * kTileBytes + 3 * 256;
   auto load = [&](int t, int stage) {
-    tma_load_tile(m.stream_tile(stage, 0), &map_q, &m.full[stage], h, t * 64, b);
-    tma_load_tile(m.stream_tile(stage, 1), &map_do, &m.full[stage], h, t * 64, b);
+#pragma unroll
+    for (int c = 0; c < NS; ++c) {
+      tma_load_tile(m.stream_tile(stage, c), &map_q, &m.full[stage], h, t * 64, b, 64 * c);
+      tma_load_tile(m.stream_tile(stage, NS + c), &map_do, &m.full[stage], h, t * 64, b, 64 * c);
+    }
     bulk_load(m.row_values(0, stage), lseg + t * 64, 256, &m.full[stage]);
     bulk_load(m.row_values(1, stage), dig + t * 64, 256, &m.full[stage]);
     bulk_load(m.row_values(2, stage), segb + t * 64, 256, &m.full[stage]);
   };
-  set_up(m, segb, n_tiles, blk, 2 * kGroups * kTileBytes, [&] {
+  set_up(m, segb, n_tiles, blk, 2 * NS * kGroups * kTileBytes, [&] {
     for (int w = 0; w < kGroups; ++w) {
-      tma_load_tile(m.own_tile(0, w), &map_k, m.own_full, h, blk * kRows + w * 64, b);
-      tma_load_tile(m.own_tile(1, w), &map_v, m.own_full, h, blk * kRows + w * 64, b);
+#pragma unroll
+      for (int c = 0; c < NS; ++c) {
+        tma_load_tile(m.own_tile(c, w), &map_k, m.own_full, h, blk * kRows + w * 64, b, 64 * c);
+        tma_load_tile(m.own_tile(NS + c, w), &map_v, m.own_full, h, blk * kRows + w * 64, b,
+                      64 * c);
+      }
     }
   }, bytes, load);
   if (wg == kGroups) {  // the producer warpgroup: one thread issues every load
@@ -263,32 +329,55 @@ __global__ void __launch_bounds__(kBlockThreads + 128, 1)
     const int key0 = blk * kRows + wg * 64;  // the warpgroup's first key
     // this thread's two keys: g and g + 8 of its warp's 16
     const int seg_k0 = segb[key0 + warp * 16 + g], seg_k1 = segb[key0 + warp * 16 + g + 8];
-    __nv_bfloat16* kt_own = m.own_tile(0, wg);
-    __nv_bfloat16* vt_own = m.own_tile(1, wg);
-    float dk[8][4], dv[8][4];
-    zero(dk);
-    zero(dv);
-    mbar_wait(m.own_full, 0);
-    uint32_t kf[4][4], vf[4][4];  // K and V as A registers, one per 16-wide slice of D
+    uint64_t k_own[NS], v_own[NS];
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      load_a_fragment(kf[kc], kt_own, warp, lane, kc);
-      load_a_fragment(vf[kc], vt_own, warp, lane, kc);
+    for (int c = 0; c < NS; ++c) {
+      k_own[c] = tile_desc(m.own_tile(c, wg));
+      v_own[c] = tile_desc(m.own_tile(NS + c, wg));
+    }
+    float dk[NS][8][4], dv[NS][8][4];
+#pragma unroll
+    for (int c = 0; c < NS; ++c) {
+      zero(dk[c]);
+      zero(dv[c]);
+    }
+    mbar_wait(m.own_full, 0);
+    uint32_t kf[4][4], vf[4][4];  // at one slab K and V as A registers, one per 16-wide slice
+    if constexpr (NS == 1) {
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        load_a_fragment(kf[kc], m.own_tile(0, wg), warp, lane, kc);
+        load_a_fragment(vf[kc], m.own_tile(1, wg), warp, lane, kc);
+      }
     }
     consume(m, m.tmin[kGroups * blk + wg], m.tmax[kGroups * blk + wg], [&](int stage) {
-      dkv_tile(dk, dv, kf, vf, m.stream_tile(stage, 0), m.stream_tile(stage, 1),
-               m.row_values(0, stage), m.row_values(1, stage),
-               reinterpret_cast<const int32_t*>(m.row_values(2, stage)), seg_k0, seg_k1, t4,
-               p.scale, p.scale_log2);
+      uint64_t qd[NS], dod[NS];
+#pragma unroll
+      for (int c = 0; c < NS; ++c) {
+        qd[c] = tile_desc(m.stream_tile(stage, c));
+        dod[c] = tile_desc(m.stream_tile(stage, NS + c));
+      }
+      dkv_tile<NS>(dk, dv, kf, vf, k_own, v_own, qd, dod, m.row_values(0, stage),
+                   m.row_values(1, stage),
+                   reinterpret_cast<const int32_t*>(m.row_values(2, stage)), seg_k0, seg_k1, t4,
+                   p.scale, p.scale_log2);
     });
 
-    // each warp read only its own warpgroup's K and V tiles: stage dK and dV there
+    // each warp read only its own warpgroup's K and V tiles: stage dK and
+    // dV's slabs there, and store the columns before D
     const long long out = b * p.g_sb + h * p.g_sh + key0 * p.g_ss;
-    store_rows(p.dk + out, p.g_ss, kt_own, dk, 1.f, 1.f, warp, lane);
-    store_rows(p.dv + out, p.g_ss, vt_own, dv, 1.f, 1.f, warp, lane);
+#pragma unroll
+    for (int c = 0; c < NS; ++c) {
+      const int cols = min(kHeadDim, p.D - 64 * c);
+      store_rows(p.dk + out + 64 * c, p.g_ss, m.own_tile(c, wg), dk[c], 1.f, 1.f, warp, lane,
+                 cols);
+      store_rows(p.dv + out + 64 * c, p.g_ss, m.own_tile(NS + c, wg), dv[c], 1.f, 1.f, warp,
+                 lane, cols);
+    }
   }
 }
 
+template <int NS>
 __global__ void __launch_bounds__(kBlockThreads + 128, 1)
     flash_attention_bwd_dq_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
                                   const __grid_constant__ CUtensorMap map_k,
@@ -297,7 +386,9 @@ __global__ void __launch_bounds__(kBlockThreads + 128, 1)
                                   const __grid_constant__ CUtensorMap map_o) {
   extern __shared__ unsigned char smem_raw[];
   const int n_tiles = p.S / 64;
-  const Ring m = carve<kStages>(smem_raw, n_tiles, 3);
+  // each consumer's Q slabs, its dO slabs, its O slabs; a stage holds K's
+  // slabs, then V's
+  const Ring<NS> m = carve<kStages, kGroups, 2 * NS>(smem_raw, n_tiles, 3 * NS);
   const int blocks = p.S / kRows;
   const int blk = blockIdx.x % blocks, bh = blockIdx.x / blocks;
   const int h = bh % p.H, b = bh / p.H;
@@ -305,17 +396,24 @@ __global__ void __launch_bounds__(kBlockThreads + 128, 1)
   const int32_t* segb = p.seg + static_cast<long long>(b) * p.S;
 
   // a streamed tile t into a stage: K, V and the keys' segment ids
-  const uint32_t bytes = 2 * kTileBytes + 256;
+  const uint32_t bytes = 2 * NS * kTileBytes + 256;
   auto load = [&](int t, int stage) {
-    tma_load_tile(m.stream_tile(stage, 0), &map_k, &m.full[stage], h, t * 64, b);
-    tma_load_tile(m.stream_tile(stage, 1), &map_v, &m.full[stage], h, t * 64, b);
+#pragma unroll
+    for (int c = 0; c < NS; ++c) {
+      tma_load_tile(m.stream_tile(stage, c), &map_k, &m.full[stage], h, t * 64, b, 64 * c);
+      tma_load_tile(m.stream_tile(stage, NS + c), &map_v, &m.full[stage], h, t * 64, b, 64 * c);
+    }
     bulk_load(m.row_values(0, stage), segb + t * 64, 256, &m.full[stage]);
   };
-  set_up(m, segb, n_tiles, blk, 3 * kGroups * kTileBytes, [&] {
+  set_up(m, segb, n_tiles, blk, 3 * NS * kGroups * kTileBytes, [&] {
     for (int w = 0; w < kGroups; ++w) {
-      tma_load_tile(m.own_tile(0, w), &map_q, m.own_full, h, blk * kRows + w * 64, b);
-      tma_load_tile(m.own_tile(1, w), &map_do, m.own_full, h, blk * kRows + w * 64, b);
-      tma_load_tile(m.own_tile(2, w), &map_o, m.own_full, h, blk * kRows + w * 64, b);
+      const int row = blk * kRows + w * 64;
+#pragma unroll
+      for (int c = 0; c < NS; ++c) {
+        tma_load_tile(m.own_tile(c, w), &map_q, m.own_full, h, row, b, 64 * c);
+        tma_load_tile(m.own_tile(NS + c, w), &map_do, m.own_full, h, row, b, 64 * c);
+        tma_load_tile(m.own_tile(2 * NS + c, w), &map_o, m.own_full, h, row, b, 64 * c);
+      }
     }
   }, bytes, load);
   if (wg == kGroups) {  // the producer warpgroup: one thread issues every load
@@ -325,28 +423,30 @@ __global__ void __launch_bounds__(kBlockThreads + 128, 1)
     setmaxnreg_inc<kConsumerRegs>();
     const int warp = wtid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
     const int row0 = blk * kRows + wg * 64;  // the warpgroup's first query
-    __nv_bfloat16* qt_own = m.own_tile(0, wg);
-    const __nv_bfloat16* dot_own = m.own_tile(1, wg);
-    const __nv_bfloat16* ot_own = m.own_tile(2, wg);
     float* di_s = m.row_values(1, 0);  // [kRows]: the block's di
     mbar_wait(m.own_full, 0);
 
     // di of the warpgroup's 64 rows from its O and dO tiles: two threads a
-    // row, 32 products each, in f32
+    // row, 32 products a slab each, in f32 (columns past D read as 0)
     {
       const int r = wtid >> 1, half = wtid & 1;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ch = half * 4 + j;
-        const uint4 ov = *reinterpret_cast<const uint4*>(ot_own + swz(r, ch * 8));
-        const uint4 dv = *reinterpret_cast<const uint4*>(dot_own + swz(r, ch * 8));
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+      for (int c = 0; c < NS; ++c) {
+        const __nv_bfloat16* ot_own = m.own_tile(2 * NS + c, wg);
+        const __nv_bfloat16* dot_own = m.own_tile(NS + c, wg);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 a = __bfloat1622float2(o2[e]), c = __bfloat1622float2(d2[e]);
-          sum += a.x * c.x + a.y * c.y;
+        for (int j = 0; j < 4; ++j) {
+          const int ch = half * 4 + j;
+          const uint4 ov = *reinterpret_cast<const uint4*>(ot_own + swz(r, ch * 8));
+          const uint4 dv = *reinterpret_cast<const uint4*>(dot_own + swz(r, ch * 8));
+          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 a = __bfloat1622float2(o2[e]), c2 = __bfloat1622float2(d2[e]);
+            sum += a.x * c2.x + a.y * c2.y;
+          }
         }
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -363,30 +463,52 @@ __global__ void __launch_bounds__(kBlockThreads + 128, 1)
     const int seg_q0 = segb[row0 + r0], seg_q1 = segb[row0 + r0 + 8];
     const float lse0 = p.lse[rows] * kLog2e, lse1 = p.lse[rows + 8] * kLog2e;
     const float di0 = di_s[wg * 64 + r0], di1 = di_s[wg * 64 + r0 + 8];
-    uint32_t qf[4][4], df[4][4];  // Q and dO as A registers, one per 16-wide slice of D
+    uint64_t q_own[NS], do_own[NS];
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      load_a_fragment(qf[kc], qt_own, warp, lane, kc);
-      load_a_fragment(df[kc], dot_own, warp, lane, kc);
+    for (int c = 0; c < NS; ++c) {
+      q_own[c] = tile_desc(m.own_tile(c, wg));
+      do_own[c] = tile_desc(m.own_tile(NS + c, wg));
     }
-    float dq[8][4];
-    zero(dq);
+    uint32_t qf[4][4], df[4][4];  // at one slab Q and dO as A registers, one per 16-wide slice
+    if constexpr (NS == 1) {
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        load_a_fragment(qf[kc], m.own_tile(0, wg), warp, lane, kc);
+        load_a_fragment(df[kc], m.own_tile(1, wg), warp, lane, kc);
+      }
+    }
+    float dq[NS][8][4];
+#pragma unroll
+    for (int c = 0; c < NS; ++c) zero(dq[c]);
     consume(m, m.tmin[kGroups * blk + wg], m.tmax[kGroups * blk + wg], [&](int stage) {
-      dq_tile(dq, qf, df, m.stream_tile(stage, 0), m.stream_tile(stage, 1),
-              reinterpret_cast<const int32_t*>(m.row_values(0, stage)), seg_q0, seg_q1, lse0,
-              lse1, di0, di1, t4, p.scale, p.scale_log2);
+      uint64_t kd[NS], vd[NS];
+#pragma unroll
+      for (int c = 0; c < NS; ++c) {
+        kd[c] = tile_desc(m.stream_tile(stage, c));
+        vd[c] = tile_desc(m.stream_tile(stage, NS + c));
+      }
+      dq_tile<NS>(dq, qf, df, q_own, do_own, kd, vd,
+                  reinterpret_cast<const int32_t*>(m.row_values(0, stage)), seg_q0, seg_q1, lse0,
+                  lse1, di0, di1, t4, p.scale, p.scale_log2);
     });
 
-    // each warp read only its own warpgroup's Q tile: stage dQ there
-    store_rows(p.dq + b * p.g_sb + h * p.g_sh + row0 * p.g_ss, p.g_ss, qt_own, dq, 1.f, 1.f,
-               warp, lane);
+    // each warp read only its own warpgroup's Q tile: stage dQ's slabs
+    // there, and store the columns before D
+    __nv_bfloat16* dst = p.dq + b * p.g_sb + h * p.g_sh + row0 * p.g_ss;
+#pragma unroll
+    for (int c = 0; c < NS; ++c) {
+      store_rows(dst + 64 * c, p.g_ss, m.own_tile(c, wg), dq[c], 1.f, 1.f, warp, lane,
+                 min(kHeadDim, p.D - 64 * c));
+    }
   }
 }
 
 int fill_params(BwdParams& p, const void* q, const void* k, const void* v, const void* dout,
-                const int32_t* seg, const float* lse, int B, int H, int S,
+                const int32_t* seg, const float* lse, int B, int H, int S, int D,
                 const long long* strides, float sm_scale, long long* blocks) {
-  if (S <= 0 || S % kRows) return static_cast<int>(cudaErrorInvalidValue);
+  if (S <= 0 || S % kRows || D < 8 || D > 2 * kHeadDim || D % 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   *blocks = static_cast<long long>(B) * H * (S / kRows);
   if (*blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   p = BwdParams{};
@@ -403,20 +525,22 @@ int fill_params(BwdParams& p, const void* q, const void* k, const void* v, const
   p.g_sb = strides[12], p.g_sh = strides[13], p.g_ss = strides[14];
   p.H = H;
   p.S = S;
+  p.D = D;
   p.scale = sm_scale;
   p.scale_log2 = sm_scale * kLog2e;
   return 0;
 }
 
 // Encode the tensor maps of q, k, v, dO and o (dkv reads no o: its map is
-// dO's again) and launch `kernel` with `n_own` own tiles a warpgroup.
-template <typename Kernel>
+// dO's again) over D columns and launch `kernel` with `n_own` own tiles a
+// warpgroup and NS slabs of the head dim.
+template <int NS, typename Kernel>
 int launch(Kernel kernel, int n_own, const BwdParams& p, int B, long long blocks,
            cudaStream_t stream) {
   // a runtime call first: it makes the device's context current in this
   // thread (autograd runs the backward on a thread of its own), which the
   // driver's encoder needs
-  const int smem = smem_bytes<kStages>(p.S, n_own);
+  const int smem = smem_bytes<kStages, kGroups, 2 * NS>(p.S, n_own);
   int err = static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   if (err != 0) return err;
@@ -429,7 +553,7 @@ int launch(Kernel kernel, int n_own, const BwdParams& p, int B, long long blocks
                       {p.v, p.v_sb, p.v_sh, p.v_ss}, {p.dout, p.do_sb, p.do_sh, p.do_ss}, o};
   CUtensorMap maps[5];
   for (int i = 0; i < 5; ++i) {
-    err = encode_tile_map(&maps[i], ts[i].base, B, p.H, p.S, ts[i].sb, ts[i].sh, ts[i].ss);
+    err = encode_tile_map(&maps[i], ts[i].base, B, p.H, p.S, ts[i].sb, ts[i].sh, ts[i].ss, p.D);
     if (err != 0) return err;
   }
   kernel<<<static_cast<unsigned>(blocks), kBlockThreads + 128, smem, stream>>>(
@@ -442,40 +566,43 @@ int launch(Kernel kernel, int n_own, const BwdParams& p, int B, long long blocks
 // strides: (b, h, s) strides in elements of q, k, v, dout and of the
 // gradient outputs (which share one layout), in that order (15 values), and
 // for dq then those of o (18).  Each entry returns the first CUDA error of
-// setting the kernel's shared memory size and launching it (0 = launched).
-// The caller has checked shapes, dtypes (bf16, int32 seg, contiguous f32
-// lse and di), D == 64, S % 128 == 0, a contiguous D, strides that are
-// multiples of 8 elements and 16-byte aligned pointers.
+// setting the kernel's shared memory size, encoding its tensor maps and
+// launching it (0 = launched).  The caller has checked shapes, dtypes
+// (bf16, int32 seg, contiguous f32 lse and di), a contiguous D, strides
+// that are multiples of 8 elements and 16-byte aligned pointers; D must be
+// a multiple of 8 up to 128 and S a multiple of 128.
 extern "C" int mfar_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                            const void* o, const void* dout, const int32_t* seg,
                                            const float* lse, void* dq, float* di, int B, int H,
-                                           int S, const long long* strides, float sm_scale,
-                                           cudaStream_t stream) {
+                                           int S, int D, const long long* strides,
+                                           float sm_scale, cudaStream_t stream) {
   if (B == 0 || H == 0) return 0;
   BwdParams p;
   long long blocks = 0;
-  int err = fill_params(p, q, k, v, dout, seg, lse, B, H, S, strides, sm_scale, &blocks);
+  int err = fill_params(p, q, k, v, dout, seg, lse, B, H, S, D, strides, sm_scale, &blocks);
   if (err != 0) return err;
   p.o = static_cast<const __nv_bfloat16*>(o);
   p.o_sb = strides[15], p.o_sh = strides[16], p.o_ss = strides[17];
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.di = di;
-  return launch(flash_attention_bwd_dq_kernel, 3, p, B, blocks, stream);
+  if (D <= kHeadDim) return launch<1>(flash_attention_bwd_dq_kernel<1>, 3, p, B, blocks, stream);
+  return launch<2>(flash_attention_bwd_dq_kernel<2>, 6, p, B, blocks, stream);
 }
 
 extern "C" int mfar_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                             const void* dout, const int32_t* seg,
                                             const float* lse, const float* di, void* dk,
-                                            void* dv, int B, int H, int S,
+                                            void* dv, int B, int H, int S, int D,
                                             const long long* strides, float sm_scale,
                                             cudaStream_t stream) {
   if (B == 0 || H == 0) return 0;
   BwdParams p;
   long long blocks = 0;
-  int err = fill_params(p, q, k, v, dout, seg, lse, B, H, S, strides, sm_scale, &blocks);
+  int err = fill_params(p, q, k, v, dout, seg, lse, B, H, S, D, strides, sm_scale, &blocks);
   if (err != 0) return err;
   p.di = const_cast<float*>(di);  // read only
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
-  return launch(flash_attention_bwd_dkv_kernel, 2, p, B, blocks, stream);
+  if (D <= kHeadDim) return launch<1>(flash_attention_bwd_dkv_kernel<1>, 2, p, B, blocks, stream);
+  return launch<2>(flash_attention_bwd_dkv_kernel<2>, 4, p, B, blocks, stream);
 }

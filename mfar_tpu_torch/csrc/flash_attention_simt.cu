@@ -19,24 +19,22 @@
 // forward _flash_attention_kernel, pallas_call at :758; the VJP's
 // _flash_attention_bwd_dkv at :1121 and _flash_attention_bwd_dq at :1456),
 // called at mfar_tpu/models/encoder.py:170, where the tensor-core kernels
-// do not: the backward pair at every input but bf16 at D = 64
-// (flash_attention_bwd.cu), so for an f32 model (EncoderConfig.tiny, the
-// synthetic models, --precision 32) and any hidden / heads other than 64;
-// the forward only for inputs TMA cannot read (bf16 at a D that is not a
-// multiple of 8, f32 at one that is not a multiple of 4, strides that are
-// not multiples of 16 bytes: ops/flash_attention.py::forward_route), since
-// flash_attention.cu takes bf16 at every other head dim and
-// flash_attention_tf32.cu f32.
+// do not (ops/flash_attention.py::forward_route, backward_route): inputs
+// TMA cannot read (bf16 at a D that is not a multiple of 8, f32 at one that
+// is not a multiple of 4, strides that are not multiples of 16 bytes: e.g.
+// TinyBERT-4L-312D's D = 26), and for the backward also the head dims past
+// the tensor-core pairs' caps (bf16 past D = 128, f32 past D = 64).
+// flash_attention.cu and flash_attention_bwd.cu take bf16 at every other
+// head dim, flash_attention_tf32.cu and flash_attention_tf32_bwd.cu f32.
 //
-// What bounds it: operations.  f32-accurate products cost at least three
-// TF32 products on the tensor cores (495 TFLOP/s: flash_attention_tf32.cu),
-// where this kernel takes one f32 FMA each on the CUDA cores (67 TFLOP/s):
-// at the f32 index build's [256, 12, 512, 64] the forward's products over
-// chip_smoke's same-segment pairs take 0.85 ms at the tensor cores' rate
-// (2.09 ms at the CUDA cores') against 0.48 ms for its bytes.  For bf16 the
-// bound is the bytes, which this kernel does not approach: it is a first,
-// untuned design, right before it is fast.
-//
+// What bounds it: bytes for bf16 (at TinyBERT's [96, 12, 512, 26] the
+// backward pair's bound is 0.056 ms a kernel), operations for f32 (three
+// TF32 products a product at 495 TFLOP/s, the least an f32-accurate product
+// costs on the card); this kernel takes one f32 FMA a product on the CUDA
+// cores (67 TFLOP/s) and approaches neither: it is a first, untuned design,
+// right before it is fast, kept for the inputs the tensor-core kernels
+// cannot read.
+
 // Design: the flash recurrence, one block a (b, h, run of BR rows); the
 // rows' own operands stay in registers and 64-row tiles of the operands
 // they walk are staged in shared memory as f32.

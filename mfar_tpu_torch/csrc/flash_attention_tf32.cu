@@ -8,8 +8,9 @@
 // written through their strides (D contiguous; the others multiples of 16
 // bytes), seg is int32 [B, S], S is a multiple of 128.  Under training the
 // kernel also writes each row's logsumexp of the scaled, masked logits
-// (natural log, f32 [B, H, S]), which the CUDA-core backward kernels
-// (flash_attention_simt.cu) read.  f32 inputs that TMA cannot read take
+// (natural log, f32 [B, H, S]), which the backward kernels read
+// (flash_attention_tf32_bwd.cu up to D = 64, flash_attention_simt.cu past
+// it).  f32 inputs that TMA cannot read take
 // flash_attention_simt.cu's forward.
 //
 // Replaces the forward of JAX's library Pallas flash_attention at f32:
@@ -18,13 +19,12 @@
 // mfar_tpu/models/encoder.py:170 (an f32 model: EncoderConfig.tiny, the
 // synthetic models, --precision 32).
 //
-// f32 accuracy on TF32 tensor cores.  Each f32 operand x is split into
-// hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi) (x - hi is exact in
-// f32), and each product is formed as hi*hi' + hi*lo' + lo*hi' with f32
-// accumulation; lo*lo' (below 2^-22 of the product) is dropped.  Both
-// products are done so: S = Q K^T, and O += P V with P split the same way.
-// The result keeps f32 accuracy (held to the f32 gates: output 2e-5,
-// logsumexp 1e-5), which one TF32 product (10 bits of mantissa) would not.
+// f32 accuracy on TF32 tensor cores (tf32_common.cuh): each f32 operand
+// split into two TF32 parts, each product taken as three TF32 products
+// summed in f32.  Both products are done so: S = Q K^T, and O += P V with P
+// split the same way.  The result keeps f32 accuracy (held to the f32
+// gates: output 2e-5, logsumexp 1e-5), which one TF32 product (10 bits of
+// mantissa) would not.
 //
 // What bounds it: operations.  f32-accurate products cost three TF32
 // products at 495 TFLOP/s: at the f32 index build's [256, 12, 512, 64] the
@@ -86,6 +86,7 @@
 #include <climits>
 
 #include "hopper_pipeline.cuh"
+#include "tf32_common.cuh"
 
 namespace {
 
@@ -114,45 +115,6 @@ struct Tf32Shape {
   static constexpr int kUnrollK = NS <= 4 ? 4 * NS : 1;
   static constexpr bool kSkipPastD = NS > 4;
 };
-
-// Element (r, c) of a [64][32] f32 slab as TMA writes it under the 128-byte
-// swizzle: the 16-byte chunk c/4 of row r sits at chunk (c/4) ^ (r%8).
-__device__ __forceinline__ int swz32(int r, int c) {
-  return r * 32 + ((((c >> 2) ^ (r & 7)) << 2) | (c & 3));
-}
-
-// x rounded to tf32 (10 bits of mantissa, to nearest, ties away from
-// zero): the bits of cvt.rna.tf32.f32 for every finite x, in two integer
-// operations, where the instruction compiles to four (it also keeps inf and
-// NaN, which no operand here is).
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x as hi + lo, both tf32; x - hi is exact in f32.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// d += a b on one m16n8k8 tile (A 16 x 8 row-major, B 8 x 8 column-major),
-// f32 accumulate.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b in 3xTF32: the two cross terms first, then hi hi.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)[4],
-                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
-                                           const uint32_t (&b_lo)[2]) {
-  mma_tf32(d, a_lo, b_hi[0], b_hi[1]);
-  mma_tf32(d, a_hi, b_lo[0], b_lo[1]);
-  mma_tf32(d, a_hi, b_hi[0], b_hi[1]);
-}
 
 template <int NS>
 __global__ void __launch_bounds__(Tf32Shape<NS>::kThreads, 1)

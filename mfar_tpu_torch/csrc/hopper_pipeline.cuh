@@ -2,9 +2,9 @@
 // and its backward K2b (flash_attention_bwd.cu) share on Hopper (sm_90a).
 //
 // A block is kGroups consumer warpgroups of 64 rows each (kRows rows in
-// all; S % 128 == 0) and, in K2b, one producer warpgroup whose first thread
-// issues every load (K2's consumers issue their loads themselves:
-// start_loads and release_and_load below).  Each consumer warpgroup's own
+// all; S % 128 == 0) and, in the bf16 K2b, one producer warpgroup whose
+// first thread issues every load (K2's and the f32 K2b's consumers issue
+// their loads themselves: start_loads and release_and_load below).  Each consumer warpgroup's own
 // tiles (the rows it owns: Q in K2; K, V in dkv; Q, dO, O in dq) arrive
 // once by TMA on one mbarrier; the
 // tiles it streams past them (K, V in K2 and dq; Q, dO in dkv), with their
@@ -24,10 +24,10 @@
 //
 // A block's size and its tiles are template parameters with K2b's values
 // as defaults: kG consumer warpgroups (kGroups), kPer streamed tiles a
-// stage (2: one each of two operands).  K2's forwards stream a head dim
-// past one tile as several 128-byte-wide slabs of K and V a stage, and its
-// f32 forward takes one warpgroup a block where two would not fit in
-// shared memory (flash_attention.cu, flash_attention_tf32.cu).
+// stage (2: one each of two operands).  K2 and K2b stream a head dim past
+// one tile as several 128-byte-wide slabs of each operand a stage, and K2's
+// f32 forward takes one warpgroup a block where two would not fit in shared
+// memory (flash_attention.cu, flash_attention_bwd.cu, the 3xTF32 kernels).
 //
 // Tensor maps are 4-D (D, H, S, B) over bf16 or f32 [B, H, S, D] views with
 // any (b, h, s) strides that are multiples of 16 bytes, encoded on the host

@@ -35,6 +35,7 @@ SOURCES = {
     "flash_attention_bwd": "flash_attention_bwd.cu",
     "flash_attention_simt": "flash_attention_simt.cu",
     "flash_attention_tf32": "flash_attention_tf32.cu",
+    "flash_attention_tf32_bwd": "flash_attention_tf32_bwd.cu",
 }
 
 NVCC_FLAGS = (

@@ -15,10 +15,9 @@ rows are skipped); it replaces the call of JAX's library Pallas kernel at
 ``mfar_tpu/models/encoder.py:170``.  When grad is enabled and an input
 requires it, the call goes through a ``torch.autograd.Function`` whose
 forward also writes each row's logsumexp and whose backward runs the two
-kernels of ``csrc/flash_attention_bwd.cu``, which replace the Pallas kernels
-of JAX's VJP: first :func:`flash_attention_bwd_dq`, which also computes the
-row dots ``di = sum_d o * dO`` (JAX computes them outside Pallas) and
-writes them out, then :func:`flash_attention_bwd_dkv`, which reads them.
+kernels of K2b, which replace the Pallas kernels of JAX's VJP: first dq,
+which also computes the row dots ``di = sum_d o * dO`` (JAX computes them
+outside Pallas) and writes them out, then dkv, which reads them.
 :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain` are the
 same functions in plain PyTorch, in f32: the wrappers use them for CPU
 tensors only, and the tests and ``chip_smoke.py`` hold the kernels against
@@ -45,14 +44,29 @@ its own launches:
   not multiples of 16 bytes): ``csrc/flash_attention_simt.cu``'s CUDA-core
   forward (:func:`flash_attention_simt`), in f32 FMA.
 
-These kernels read q/k/v through their strides, so the
-``[B, S, H, D] -> [B, H, S, D]`` transposed views of the encoder's
-projections need no copy, and write outputs laid out as ``[B, S, H, D]``,
-so the way back to ``[B, S, H*D]`` is free too.  The backward takes the
-wgmma pair where the forward took ``"wgmma"``, and the CUDA-core pair
-(:func:`flash_attention_simt_bwd_dq`, :func:`flash_attention_simt_bwd_dkv`,
-f32 FMA) everywhere else; both read the forward's logsumexp, a contiguous
-f32 ``[B, H, S]`` in natural log, whichever forward wrote it.
+The backward's pair follows the same rule, chosen by :func:`backward_route`,
+each pair counting its own launches:
+
+- ``"wgmma"``, bf16 with D = 64: the wgmma pair of
+  ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd_dq`` / ``_dkv``).
+- ``"wgmma_headdim"``, bf16 at any other D that TMA can read up to 128: the
+  same pair at ceil(D / 64) slabs of 64 columns
+  (:func:`flash_attention_bwd_headdim_dq` / ``_dkv``).
+- ``"tf32"``, f32 that TMA can read at D up to 64:
+  ``csrc/flash_attention_tf32_bwd.cu`` (:func:`flash_attention_tf32_bwd_dq`
+  / ``_dkv``), every product in 3xTF32 and P, dS kept in f32.
+- ``"simt"``, everything else up to D = 256 (what TMA cannot read, and the
+  head dims past those caps: rows of more than 256 bytes, whose own tiles
+  and accumulators would not fit one block an SM):
+  ``csrc/flash_attention_simt.cu``'s CUDA-core pair
+  (:func:`flash_attention_simt_bwd_dq`, :func:`flash_attention_simt_bwd_dkv`),
+  in f32 FMA.
+
+Every pair reads the forward's logsumexp, a contiguous f32 ``[B, H, S]`` in
+natural log, whichever forward wrote it.  These kernels read q/k/v through
+their strides, so the ``[B, S, H, D] -> [B, H, S, D]`` transposed views of
+the encoder's projections need no copy, and write outputs laid out as
+``[B, S, H, D]``, so the way back to ``[B, S, H*D]`` is free too.
 
 All take S a multiple of 128 (JAX's gate).  D above 256 raises on every
 device.
@@ -71,8 +85,12 @@ from mfar_tpu_torch.ops import _build
 # JAX's DEFAULT_MASK_VALUE (flash_attention.py:29), which the plain version
 # adds as JAX does; the kernels set every cross-segment weight to exactly 0
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-HEAD_DIM = 64  # the head dimension of the "wgmma" route (the forward and the wgmma backward)
-MAX_HEAD_DIM = 256  # every route's largest head dimension
+HEAD_DIM = 64  # the head dimension of the "wgmma" route (the forward and the backward)
+MAX_HEAD_DIM = 256  # every forward route's largest head dimension, and the CUDA-core backward's
+# the tensor-core backwards' largest head dims: rows of up to 256 bytes (two
+# bf16 slabs of 64 columns, two f32 slabs of 32), which keep each kernel's
+# own tiles, its ring and its accumulators within one block an SM
+WGMMA_BWD_MAX_HEAD_DIM, TF32_BWD_MAX_HEAD_DIM = 128, 64
 SEQ_MULTIPLE = 128  # S % 128 == 0, as JAX's gate asks
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -169,13 +187,29 @@ def forward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     ``"wgmma_headdim"`` (bf16 at another D, a multiple of 8), ``"tf32"``
     (f32, D a multiple of 4), each where TMA can read all three
     (:func:`_kernel_readable`); ``"simt"`` (the CUDA-core kernel) for the
-    rest.  The backward takes the wgmma pair on the ``"wgmma"`` route and
-    the CUDA-core pair on every other."""
+    rest.  The backward's pair is :func:`backward_route`'s."""
     d = q.shape[-1]
     tma = all(_kernel_readable(t) for t in (q, k, v))
     if tma and q.dtype == torch.bfloat16 and d % 8 == 0:
         return "wgmma" if d == HEAD_DIM else "wgmma_headdim"
     if tma and q.dtype == torch.float32 and d % 4 == 0:
+        return "tf32"
+    return "simt"
+
+
+def backward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The backward's kernel pair for [B, H, S, D] q, k, v on the card, from
+    their dtype, head dim and strides alone, each where TMA can read all
+    three (:func:`_kernel_readable`): ``"wgmma"`` (bf16, D = 64),
+    ``"wgmma_headdim"`` (bf16 at another D, a multiple of 8 up to 128: the
+    same pair at ceil(D / 64) slabs), ``"tf32"`` (f32, D a multiple of 4 up
+    to 64: the 3xTF32 pair); ``"simt"`` (the CUDA-core pair) for the rest,
+    past those caps too."""
+    d = q.shape[-1]
+    tma = all(_kernel_readable(t) for t in (q, k, v))
+    if tma and q.dtype == torch.bfloat16 and d % 8 == 0 and d <= WGMMA_BWD_MAX_HEAD_DIM:
+        return "wgmma" if d == HEAD_DIM else "wgmma_headdim"
+    if tma and q.dtype == torch.float32 and d % 4 == 0 and d <= TF32_BWD_MAX_HEAD_DIM:
         return "tf32"
     return "simt"
 
@@ -238,19 +272,31 @@ def _tf32_kernel():
     return fn
 
 
-@functools.cache
-def _bwd_kernels():
-    lib = _build.load("flash_attention_bwd")
+def _bind_bwd(lib_name: str, dq_name: str, dkv_name: str):
+    """A tensor-core backward pair's (dq, dkv) entry points."""
+    lib = _build.load(lib_name)
     tail = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H S
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H S D
         ctypes.POINTER(ctypes.c_longlong),  # strides: q, k, v, dout, gradients (dq: then o)
         ctypes.c_float, ctypes.c_void_p,  # sm_scale, stream
     ]
-    dq, dkv = lib.mfar_flash_attention_bwd_dq, lib.mfar_flash_attention_bwd_dkv
+    dq, dkv = getattr(lib, dq_name), getattr(lib, dkv_name)
     dq.argtypes = [ctypes.c_void_p] * 9 + tail  # q k v o dout seg lse, dq di
     dkv.argtypes = [ctypes.c_void_p] * 9 + tail  # q k v dout seg lse di, dk dv
     dq.restype = dkv.restype = ctypes.c_int
     return dq, dkv
+
+
+@functools.cache
+def _bwd_kernels():
+    return _bind_bwd("flash_attention_bwd", "mfar_flash_attention_bwd_dq",
+                     "mfar_flash_attention_bwd_dkv")
+
+
+@functools.cache
+def _tf32_bwd_kernels():
+    return _bind_bwd("flash_attention_tf32_bwd", "mfar_flash_attention_bwd_dq_tf32",
+                     "mfar_flash_attention_bwd_dkv_tf32")
 
 
 @functools.cache
@@ -396,12 +442,13 @@ def flash_attention_bwd(
     sm_scale: float,
 ) -> Grads:
     """dq, dk, dv of :func:`flash_attention`: kernel dq (which also writes
-    ``di``), then kernel dkv, for CUDA tensors (the wgmma pair on the
-    ``"wgmma"`` route, the CUDA-core pair on every other);
-    :func:`flash_attention_bwd_plain` for CPU tensors.  On the card the gradients are ``[B, H, S, D]`` views
-    of ``[B, S, H, D]`` buffers, and no torch op computes ``di``.  A dO that
-    the kernels cannot read through its strides is copied once (counted in
-    ``flash_attention_bwd.dout_copies``); an ``o`` they cannot read raises."""
+    ``di``), then kernel dkv, for CUDA tensors (the pair that
+    :func:`backward_route` names); :func:`flash_attention_bwd_plain` for CPU
+    tensors.  On the card the gradients are ``[B, H, S, D]`` views of
+    ``[B, S, H, D]`` buffers, and no torch op computes ``di``.  A dO that
+    the route's kernels cannot read through its strides is copied once
+    (counted in ``flash_attention_bwd.dout_copies``); an ``o`` they cannot
+    read raises."""
     _check_inputs(q, k, v, segment_ids)
     if dout.shape != q.shape or o.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError(
@@ -413,11 +460,9 @@ def flash_attention_bwd(
     if dout.dtype != q.dtype or o.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError(f"o {o.dtype}, dout {dout.dtype} (want {q.dtype}), lse {lse.dtype} "
                         f"(want float32)")
-    if forward_route(q, k, v) == "wgmma":
-        readable, dq_fn, dkv_fn = _kernel_readable, flash_attention_bwd_dq, flash_attention_bwd_dkv
-    else:
-        readable = _simt_readable
-        dq_fn, dkv_fn = flash_attention_simt_bwd_dq, flash_attention_simt_bwd_dkv
+    route = backward_route(q, k, v)
+    dq_fn, dkv_fn = _BACKWARDS[route]
+    readable = _simt_readable if route == "simt" else _kernel_readable
     if not readable(dout):
         dout = dout.contiguous()
         flash_attention_bwd.dout_copies += 1
@@ -444,41 +489,98 @@ def _check_readable(readable=_kernel_readable, **ts: torch.Tensor) -> None:
                              f"offset: the kernels cannot read it")
 
 
-def flash_attention_bwd_dq(q, k, v, segment_ids, lse, o, dout, sm_scale):
-    """Kernel dq on checked CUDA inputs: (dq, di), di = sum_d o * dO in f32
-    as a contiguous ``[B, H, S]``, which :func:`flash_attention_bwd_dkv`
-    reads."""
+def _tensor_core_dq(kernels, what, q, k, v, segment_ids, lse, o, dout, sm_scale):
+    """One launch of a TMA-fed dq kernel (``kernels()[0]``) on checked CUDA
+    inputs: (dq, di), di = sum_d o * dO in f32 as a contiguous ``[B, H,
+    S]``."""
     _check_rows(lse=lse)
     _check_readable(o=o, dout=dout)
-    b, h, s, _ = q.shape
+    b, h, s, d = q.shape
     dq = _empty_bshd(q)
     di = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _bwd_kernels()[0](
+        err = kernels()[0](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
             segment_ids.data_ptr(), lse.data_ptr(), dq.data_ptr(), di.data_ptr(),
-            b, h, s, _strides(q, k, v, dout, dq, o), sm_scale, _stream(q),
+            b, h, s, d, _strides(q, k, v, dout, dq, o), sm_scale, _stream(q),
         )
-    _raise_on(err, "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
+    _raise_on(err, what)
     return dq, di
 
 
-def flash_attention_bwd_dkv(q, k, v, segment_ids, lse, di, dout, sm_scale):
-    """Kernel dkv on checked CUDA inputs and dq's ``di``: (dk, dv)."""
+def _tensor_core_dkv(kernels, what, q, k, v, segment_ids, lse, di, dout, sm_scale):
+    """One launch of a TMA-fed dkv kernel (``kernels()[1]``) on checked CUDA
+    inputs and dq's ``di``: (dk, dv)."""
     _check_rows(lse=lse, di=di)
     _check_readable(dout=dout)
     dk, dv = _empty_bshd(q), _empty_bshd(q)
-    b, h, s, _ = q.shape
+    b, h, s, d = q.shape
     with torch.cuda.device(q.device):
-        err = _bwd_kernels()[1](
+        err = kernels()[1](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), segment_ids.data_ptr(),
             lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, s, _strides(q, k, v, dout, dk), sm_scale, _stream(q),
+            b, h, s, d, _strides(q, k, v, dout, dk), sm_scale, _stream(q),
         )
-    _raise_on(err, "flash_attention_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
+    _raise_on(err, what)
     return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, segment_ids, lse, o, dout, sm_scale):
+    """Kernel dq (bf16, D = 64) on checked CUDA inputs: (dq, di), di = sum_d
+    o * dO in f32 as a contiguous ``[B, H, S]``, which
+    :func:`flash_attention_bwd_dkv` reads."""
+    out = _tensor_core_dq(_bwd_kernels, "flash_attention_bwd_dq", q, k, v, segment_ids, lse, o,
+                          dout, sm_scale)
+    flash_attention_bwd_dq.launches += 1
+    return out
+
+
+def flash_attention_bwd_dkv(q, k, v, segment_ids, lse, di, dout, sm_scale):
+    """Kernel dkv (bf16, D = 64) on checked CUDA inputs and dq's ``di``:
+    (dk, dv)."""
+    out = _tensor_core_dkv(_bwd_kernels, "flash_attention_bwd_dkv", q, k, v, segment_ids, lse,
+                           di, dout, sm_scale)
+    flash_attention_bwd_dkv.launches += 1
+    return out
+
+
+def flash_attention_bwd_headdim_dq(q, k, v, segment_ids, lse, o, dout, sm_scale):
+    """Kernel dq at a head dim other than 64 (bf16, D a multiple of 8 up to
+    128, ceil(D / 64) slabs; operands TMA reads) on checked CUDA inputs:
+    (dq, di) as :func:`flash_attention_bwd_dq` gives them."""
+    out = _tensor_core_dq(_bwd_kernels, "flash_attention_bwd_headdim_dq", q, k, v, segment_ids,
+                          lse, o, dout, sm_scale)
+    flash_attention_bwd_headdim_dq.launches += 1
+    return out
+
+
+def flash_attention_bwd_headdim_dkv(q, k, v, segment_ids, lse, di, dout, sm_scale):
+    """Kernel dkv at a head dim other than 64 (as
+    :func:`flash_attention_bwd_headdim_dq`) on checked CUDA inputs and dq's
+    ``di``: (dk, dv)."""
+    out = _tensor_core_dkv(_bwd_kernels, "flash_attention_bwd_headdim_dkv", q, k, v, segment_ids,
+                           lse, di, dout, sm_scale)
+    flash_attention_bwd_headdim_dkv.launches += 1
+    return out
+
+
+def flash_attention_tf32_bwd_dq(q, k, v, segment_ids, lse, o, dout, sm_scale):
+    """K2b's f32 dq kernel on the tensor cores in 3xTF32 (f32, D a multiple
+    of 4 up to 64, operands TMA reads) on checked CUDA inputs: (dq, di) as
+    :func:`flash_attention_bwd_dq` gives them."""
+    out = _tensor_core_dq(_tf32_bwd_kernels, "flash_attention_tf32_bwd_dq", q, k, v, segment_ids,
+                          lse, o, dout, sm_scale)
+    flash_attention_tf32_bwd_dq.launches += 1
+    return out
+
+
+def flash_attention_tf32_bwd_dkv(q, k, v, segment_ids, lse, di, dout, sm_scale):
+    """K2b's f32 dkv kernel in 3xTF32 (as :func:`flash_attention_tf32_bwd_dq`)
+    on checked CUDA inputs and dq's ``di``: (dk, dv)."""
+    out = _tensor_core_dkv(_tf32_bwd_kernels, "flash_attention_tf32_bwd_dkv", q, k, v,
+                           segment_ids, lse, di, dout, sm_scale)
+    flash_attention_tf32_bwd_dkv.launches += 1
+    return out
 
 
 def _simt_flag(q: torch.Tensor) -> int:
@@ -543,9 +645,14 @@ def flash_attention_simt_bwd_dkv(q, k, v, segment_ids, lse, di, dout, sm_scale):
     return dk, dv
 
 
-# each route's forward, by forward_route's name
+# each route's forward, by forward_route's name, and backward pair (dq,
+# dkv), by backward_route's
 _FORWARDS = {"wgmma": _wgmma_forward, "wgmma_headdim": flash_attention_headdim,
              "tf32": flash_attention_tf32, "simt": flash_attention_simt}
+_BACKWARDS = {"wgmma": (flash_attention_bwd_dq, flash_attention_bwd_dkv),
+              "wgmma_headdim": (flash_attention_bwd_headdim_dq, flash_attention_bwd_headdim_dkv),
+              "tf32": (flash_attention_tf32_bwd_dq, flash_attention_tf32_bwd_dkv),
+              "simt": (flash_attention_simt_bwd_dq, flash_attention_simt_bwd_dkv)}
 
 # launches of the CUDA kernels, one count a kernel and route (CPU calls of
 # the plain versions do not count)
@@ -554,6 +661,10 @@ flash_attention_headdim.launches = 0
 flash_attention_tf32.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_headdim_dq.launches = 0
+flash_attention_bwd_headdim_dkv.launches = 0
+flash_attention_tf32_bwd_dq.launches = 0
+flash_attention_tf32_bwd_dkv.launches = 0
 flash_attention_simt.launches = 0
 flash_attention_simt_bwd_dq.launches = 0
 flash_attention_simt_bwd_dkv.launches = 0

@@ -22,11 +22,12 @@ bf16 (2**-8 relative), and the kernels round P and dS to bf16 before
 products summed over up to 512 rows, where the plain version stays in f32.
 
 Tolerance for K2's other forwards (the wgmma kernel at another head dim,
-the 3xTF32 kernel, the CUDA-core kernel) and the CUDA-core backward in
-f32: the output within 2e-5, the logsumexp within 1e-5, each gradient
-within 2e-5 of its largest entry (f32-accurate products on both sides:
-f32 FMA or three TF32 products against f32 matmuls with TF32 off, summed
-in other orders); in bf16 the K2 and K2b tolerances above.
+the 3xTF32 kernel, the CUDA-core kernel) and K2b's other pairs (the wgmma
+pair at another head dim, the 3xTF32 pair, the CUDA-core pair) in f32: the
+output within 2e-5, the logsumexp within 1e-5, each gradient within 2e-5
+of its largest entry (f32-accurate products on both sides: f32 FMA or
+three TF32 products against f32 matmuls with TF32 off, summed in other
+orders); in bf16 the K2 and K2b tolerances above.
 """
 
 import copy
@@ -49,6 +50,8 @@ from mfar_tpu_torch.ops.flash_attention import (
     flash_attention_bwd,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
+    flash_attention_bwd_headdim_dkv,
+    flash_attention_bwd_headdim_dq,
     flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_headdim,
@@ -57,6 +60,9 @@ from mfar_tpu_torch.ops.flash_attention import (
     flash_attention_simt_bwd_dkv,
     flash_attention_simt_bwd_dq,
     flash_attention_tf32,
+    flash_attention_tf32_bwd_dkv,
+    flash_attention_tf32_bwd_dq,
+    backward_route,
     forward_route,
     _row_dots,
 )
@@ -318,10 +324,23 @@ def _forward_counts():
             "tf32": flash_attention_tf32.launches, "simt": flash_attention_simt.launches}
 
 
-# head dims the wgmma backward does not take, in both dtypes: ragged pads and
-# the segment layouts, strided dO; the forward on its route (the wgmma
-# kernel at another head dim in bf16, the 3xTF32 kernel in f32), the
-# backward on the CUDA-core pair
+# K2b's pairs (dq, dkv) by backward_route's name
+_BWD_PAIRS = {"wgmma": (flash_attention_bwd_dq, flash_attention_bwd_dkv),
+              "wgmma_headdim": (flash_attention_bwd_headdim_dq, flash_attention_bwd_headdim_dkv),
+              "tf32": (flash_attention_tf32_bwd_dq, flash_attention_tf32_bwd_dkv),
+              "simt": (flash_attention_simt_bwd_dq, flash_attention_simt_bwd_dkv)}
+
+
+def _backward_counts():
+    return {route: (dq.launches, dkv.launches) for route, (dq, dkv) in _BWD_PAIRS.items()}
+
+
+# (Named when these inputs took the CUDA-core backward.)  Head dims other
+# than 64 in both dtypes: ragged pads and the segment layouts, strided dO;
+# the forward on its route (the wgmma kernel at another head dim in bf16,
+# the 3xTF32 kernel in f32), the backward on its pair (the wgmma pair at
+# another head dim in bf16, the 3xTF32 pair in f32 up to D = 64, the
+# CUDA-core pair at f32 D = 128)
 @pytest.mark.parametrize("d", [16, 32, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_simt_kernels_match_plain(card, dtype, d):
@@ -333,16 +352,16 @@ def test_simt_kernels_match_plain(card, dtype, d):
                         [1] * 70 + [0] * 186], dtype=torch.int32, device=card)
     scale = 1.0 / d**0.5
     route = "tf32" if dtype == torch.float32 else "wgmma_headdim"
-    assert forward_route(q, k, v) == route
-    before = (_forward_counts(), flash_attention_simt_bwd_dq.launches,
-              flash_attention_simt_bwd_dkv.launches)
+    bwd_route = "simt" if (dtype, d) == (torch.float32, 128) else route
+    assert forward_route(q, k, v) == route and backward_route(q, k, v) == bwd_route
+    before = (_forward_counts(), _backward_counts())
     out, lse = flash_attention_fwd(q, k, v, seg, scale)
     grads = flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
     torch.cuda.synchronize()
-    want_counts = dict(before[0])
-    want_counts[route] += 1
-    assert (_forward_counts(), flash_attention_simt_bwd_dq.launches,
-            flash_attention_simt_bwd_dkv.launches) == (want_counts, before[1] + 1, before[2] + 1)
+    want_counts = (dict(before[0]), dict(before[1]))
+    want_counts[0][route] += 1
+    want_counts[1][bwd_route] = tuple(n + 1 for n in before[1][bwd_route])
+    assert (_forward_counts(), _backward_counts()) == want_counts
     want = flash_attention_plain(q, k, v, seg, scale)
     if dtype == torch.float32:
         torch.testing.assert_close(out, want, rtol=0, atol=SIMT_F32_ATOL)
@@ -354,7 +373,7 @@ def test_simt_kernels_match_plain(card, dtype, d):
     torch.testing.assert_close(lse, _masked_lse(q, k, seg, scale), rtol=0, atol=SIMT_LSE_ATOL)
     for g in grads:
         assert g.dtype == dtype and g.transpose(1, 2).is_contiguous()
-    dq, di = flash_attention_simt_bwd_dq(q, k, v, seg, lse, out, dout, scale)
+    dq, di = _BWD_PAIRS[bwd_route][0](q, k, v, seg, lse, out, dout, scale)
     want_di = _row_dots(out, dout)
     torch.testing.assert_close(di, want_di, rtol=1e-5, atol=1e-5 * want_di.abs().max().item())
     torch.testing.assert_close(dq, grads[0], rtol=0, atol=0)
@@ -427,6 +446,48 @@ def test_forward_routes_match_plain(card, dtype, d, layout, route):
         assert (flash_attention_bwd_dq.launches, flash_attention_simt_bwd_dq.launches) == \
             (dq_before[0], dq_before[1] + 1)
         _close_to_largest(grads, flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale))
+
+
+# each backward route's pair against the plain backward at small head dims,
+# on both sides of the tensor-core pairs' caps (bf16 D = 128, f32 D = 64):
+# the wgmma pair at one and two slabs (D = 16, 40: stores that stop inside a
+# slab; 72: a second slab of 8 columns), the 3xTF32 pair at one and two
+# slabs of 32, the CUDA-core pair past the caps and for what TMA cannot
+# read; three heads a row, so a store past D would run into the next head
+@pytest.mark.parametrize("dtype,d,layout,route", [
+    (torch.bfloat16, 16, "encoder", "wgmma_headdim"),
+    (torch.bfloat16, 40, "encoder", "wgmma_headdim"),
+    (torch.bfloat16, 72, "encoder", "wgmma_headdim"),
+    (torch.bfloat16, 128, "encoder", "wgmma_headdim"),
+    (torch.bfloat16, 136, "encoder", "simt"),
+    (torch.float32, 16, "encoder", "tf32"),
+    (torch.float32, 20, "encoder", "tf32"),
+    (torch.float32, 36, "encoder", "tf32"),
+    (torch.float32, 64, "encoder", "tf32"),
+    (torch.float32, 68, "encoder", "simt"),
+    (torch.float32, 64, "offset", "simt"),
+], ids=lambda x: str(x).replace("torch.", ""))
+def test_backward_routes_match_plain(card, dtype, d, layout, route):
+    q, k, v, seg, dout = _route_inputs(dtype, d, layout, seed=100 + d)
+    scale = 1.0 / d**0.5
+    assert backward_route(q, k, v) == route
+    out, lse = flash_attention_fwd(q, k, v, seg, scale)
+    before = _backward_counts()
+    grads = flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    assert _backward_counts() == dict(before, **{route: tuple(n + 1 for n in before[route])})
+    want = flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale)
+    if dtype == torch.float32:
+        for g, w in zip(grads, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=SIMT_GRAD_REL * w.abs().max().item())
+    else:
+        _close_to_largest(grads, want)
+    for g in grads:
+        assert g.dtype == dtype and g.transpose(1, 2).is_contiguous()
+    dq, di = _BWD_PAIRS[route][0](q, k, v, seg, lse, out, dout, scale)
+    want_di = _row_dots(out, dout)
+    torch.testing.assert_close(di, want_di, rtol=1e-5, atol=1e-5 * want_di.abs().max().item())
+    torch.testing.assert_close(dq, grads[0], rtol=0, atol=0)  # no atomics: the same bits
 
 
 def test_tensor_core_forwards_refuse_what_tma_cannot_read(card):
@@ -720,7 +781,7 @@ def test_auto_train_step_matches_xla(card):
 
 def test_f32_flash_training_input_raises(card):
     """(Named when f32 raised on the card.)  An f32 MFARModel with "flash"
-    trains through the 3xTF32 K2 and the CUDA-core K2b: loss and gradients
+    trains through the 3xTF32 K2 and the 3xTF32 K2b: loss and gradients
     against the plain path on the same weights (f32: loss rtol 1e-5, cosine
     >= 0.9999)."""
     cfg = EncoderConfig.tiny(vocab_size=97, hidden_size=128, num_heads=2, num_layers=1,
@@ -733,13 +794,16 @@ def test_f32_flash_training_input_raises(card):
         model = MFARModel(dataclasses.replace(cfg, attention_impl=impl), num_fields=2)
         model.encoder.load_state_dict(init_encoder(cfg, seed=11).state_dict())
         model = model.to(card).train()
-        before = (flash_attention_tf32.launches, flash_attention_simt_bwd_dq.launches)
+        before = (flash_attention_tf32.launches, flash_attention_tf32_bwd_dq.launches,
+                  flash_attention_tf32_bwd_dkv.launches, flash_attention_simt_bwd_dq.launches)
         loss = model.compute_loss(batch["query"], batch["pos"], batch["neg"],
                                   generator=torch.Generator().manual_seed(3))
         loss.backward()
         launched = (flash_attention_tf32.launches - before[0],
-                    flash_attention_simt_bwd_dq.launches - before[1])
-        assert (launched[0] > 0 and launched[1] > 0) == (impl == "flash"), launched
+                    flash_attention_tf32_bwd_dq.launches - before[1],
+                    flash_attention_tf32_bwd_dkv.launches - before[2],
+                    flash_attention_simt_bwd_dq.launches - before[3])
+        assert (min(launched[:3]) > 0) == (impl == "flash") and launched[3] == 0, launched
         out[impl] = (loss.item(), torch.cat([p.grad.flatten() for p in model.parameters()]))
     assert out["flash"][0] == pytest.approx(out["xla"][0], rel=1e-5)
     cos = torch.nn.functional.cosine_similarity(out["flash"][1], out["xla"][1], dim=0)

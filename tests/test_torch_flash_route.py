@@ -1,10 +1,11 @@
-"""K2's forward routes on the card and the arithmetic of its f32 kernel.
+"""K2's and K2b's routes on the card and the arithmetic of their f32 kernels.
 
-``forward_route`` chooses the forward's kernel from dtype, head dim and
-strides alone; it is held here on CPU tensors laid out as each class of
-input is (the encoder's strided views, a contiguous tensor, a view that
-starts off a 16-byte boundary, rows padded to a stride that is not a
-multiple of 16 bytes).
+``forward_route`` and ``backward_route`` choose the forward's kernel and the
+backward's pair from dtype, head dim and strides alone; they are held here
+on CPU tensors laid out as each class of input is (the encoder's strided
+views, a contiguous tensor, a view that starts off a 16-byte boundary, rows
+padded to a stride that is not a multiple of 16 bytes), on both sides of
+the backward's caps (bf16 D = 128, f32 D = 64).
 
 The f32 kernel (``csrc/flash_attention_tf32.cu``) takes its products on the
 tensor cores in 3xTF32: each f32 operand x split into hi = rna_tf32(x) and
@@ -15,24 +16,32 @@ CPU (rounding to 10 mantissa bits, to nearest, ties away from zero, as
 ``cvt.rna.tf32.f32`` does) and is held against JAX's Pallas
 ``flash_attention`` in interpret mode in f32 within the f32 gates of the
 card (output 2e-5, logsumexp 1e-5): the split keeps f32 accuracy.
+
+The f32 backward (``csrc/flash_attention_tf32_bwd.cu``) takes all five of
+its products (S, dP, dV, dK, dQ) in 3xTF32 with P and dS kept in f32;
+``_bwd_3xtf32`` emulates that and is held against ``jax.vjp`` of the Pallas
+``flash_attention`` in interpret mode within the card's f32 gate for
+gradients (2e-5 of the largest), which one TF32 product a product misses.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu import flash_attention as jax_fa
 from jax.experimental.pallas.ops.tpu.flash_attention import BlockSizes, SegmentIds
 
-from mfar_tpu_torch.ops.flash_attention import forward_route
+from mfar_tpu_torch.ops.flash_attention import backward_route, forward_route
 
 torch.set_num_threads(1)
 
 B, H, S = 2, 2, 256
 LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
 F32_ATOL, LSE_ATOL = 2e-5, 1e-5  # the card's gates for the f32 forward
+GRAD_REL = 2e-5  # the card's gate for f32 gradients: of the largest entry
 
 
 def _layout(dtype, d, layout):
@@ -76,6 +85,39 @@ def test_forward_route(dtype, d, layout, want):
     assert forward_route(t, t, t) == want
     if want != "simt":  # one operand TMA cannot read sends all three to the CUDA cores
         assert forward_route(t, t, _layout(dtype, d, "offset")) == "simt"
+
+
+@pytest.mark.parametrize("dtype,d,layout,want", [
+    (BF16, 64, "encoder", "wgmma"),
+    (BF16, 64, "contiguous", "wgmma"),
+    (BF16, 16, "contiguous", "wgmma_headdim"),
+    (BF16, 32, "encoder", "wgmma_headdim"),
+    (BF16, 40, "encoder", "wgmma_headdim"),
+    (BF16, 128, "encoder", "wgmma_headdim"),  # the cap: two slabs of 64 columns
+    (BF16, 136, "encoder", "simt"),  # past the cap
+    (BF16, 256, "encoder", "simt"),
+    (BF16, 20, "encoder", "simt"),  # D not a multiple of 8
+    (BF16, 26, "contiguous", "simt"),
+    (BF16, 64, "offset", "simt"),
+    (BF16, 64, "padded_rows", "simt"),
+    (BF16, 32, "offset", "simt"),
+    (F32, 16, "contiguous", "tf32"),
+    (F32, 20, "encoder", "tf32"),  # a multiple of 4
+    (F32, 64, "encoder", "tf32"),  # the cap: two slabs of 32 columns
+    (F32, 68, "encoder", "simt"),  # past the cap
+    (F32, 256, "encoder", "simt"),
+    (F32, 26, "encoder", "simt"),  # not a multiple of 4
+    (F32, 64, "offset", "simt"),
+    (F32, 64, "padded_rows", "simt"),
+], ids=lambda x: str(x).replace("torch.", ""))
+def test_backward_route(dtype, d, layout, want):
+    t = _layout(dtype, d, layout)
+    assert backward_route(t, t, t) == want
+    if want != "simt":  # one operand TMA cannot read sends all three to the CUDA cores
+        for i in range(3):
+            qkv = [t, t, t]
+            qkv[i] = _layout(dtype, d, "padded_rows" if i == 1 else "offset")
+            assert backward_route(*qkv) == "simt"
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -147,3 +189,56 @@ def test_3xtf32_keeps_the_f32_gates_against_pallas(d, layout):
         torch.from_numpy(seg[:, None, :, None] == seg[:, None, None, :]),
         tq @ tk.transpose(-1, -2) * scale, torch.tensor(float("-inf"))), -1)
     assert np.abs((_tf32(one) @ tv).numpy() - want).max() > F32_ATOL
+
+
+def _mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with each operand rounded to tf32 once: one TF32 product."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _bwd_3xtf32(q, k, v, seg, o, lse, dout, scale, mm=_mm_3xtf32):
+    """The f32 backward kernels' arithmetic: di = sum_d o * dO in f32; S =
+    Q K^T and dP = dO V^T; P = exp2(S * scale log2 e - lse log2 e) on
+    same-segment pairs, exactly 0 elsewhere; dS = P (dP - di) * scale, both
+    kept in f32; dQ = dS K, dK = dS^T Q, dV = P^T dO; every product through
+    ``mm`` (3xTF32 in the kernels)."""
+    di = (o * dout).sum(-1)
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    s = mm(q, k.transpose(-1, -2))
+    p = torch.where(same, torch.exp2(s * (scale * LOG2E) - (lse * LOG2E)[..., None]),
+                    torch.zeros(()))
+    ds = p * (mm(dout, v.transpose(-1, -2)) - di[..., None]) * scale
+    return mm(ds, k), mm(ds.transpose(-1, -2), q), mm(p.transpose(-1, -2), dout)
+
+
+def _jax_grads(q, k, v, dout, seg, scale):
+    """dq, dk, dv of the Pallas flash_attention by jax.vjp, in interpret
+    mode, in f32."""
+    jseg = jnp.asarray(seg)
+
+    def f(q, k, v):
+        return jax_fa.flash_attention(q, k, v, segment_ids=SegmentIds(q=jseg, kv=jseg),
+                                      sm_scale=scale)
+
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+        return [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+
+@pytest.mark.parametrize("d,layout", [(16, "runs"), (32, "interleaved"), (64, "one_segment"),
+                                      (64, "runs")])
+def test_3xtf32_backward_keeps_the_f32_gate_against_pallas(d, layout):
+    rng = np.random.default_rng(2000 + d)
+    q, k, v, dout = (rng.normal(size=(B, H, S, d)).astype(np.float32) for _ in range(4))
+    seg = np.asarray(SEG_LAYOUTS[layout], np.int32)
+    scale = 1.0 / np.sqrt(d)
+    want = _jax_grads(q, k, v, dout, seg, scale)
+    tq, tk, tv, tdo, tseg = (torch.from_numpy(a) for a in (q, k, v, dout, seg))
+    o, lse = _flash_3xtf32(tq, tk, tv, tseg, scale)  # the f32 forward's output and lse
+    got = _bwd_3xtf32(tq, tk, tv, tseg, o, lse, tdo, scale)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=GRAD_REL * np.abs(w).max())
+    # the split is what keeps them: one TF32 product a product does not
+    one = _bwd_3xtf32(tq, tk, tv, tseg, o, lse, tdo, scale, mm=_mm_1xtf32)
+    assert max(np.abs(g.numpy() - w).max() / np.abs(w).max() for g, w in zip(one, want)) \
+        > GRAD_REL
