@@ -41,19 +41,24 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 kernels at ceil(D / 64) slabs, the backward up to D = 128;
                 f32: the 3xTF32 kernels of csrc/flash_attention_tf32.cu and,
                 up to D = 64, csrc/flash_attention_tf32_bwd.cu; what TMA
-                cannot read, and the backward past those caps: the
-                CUDA-core kernels of csrc/flash_attention_simt.cu), forward,
+                cannot read: the CUDA-core forward of
+                csrc/flash_attention_simt.cu, and the backward of bf16 up
+                to D = 128 on the wgmma pair over zero-padded copies at D
+                rounded up to 8 (the "wgmma_pad" route); f32, and the
+                backward past those caps, on the CUDA-core pair), forward,
                 logsumexp, dq (with di, its bits on a second run) and dkv:
-                small segment-id cases at D = 16-256 in f32 and bf16 (D = 26
-                f32 and D = 20 bf16, and D = 64 in layouts TMA cannot read,
-                on the CUDA-core kernels), then the main paths' shapes (f32
-                [256, 12, 512, 64] and [96, 12, 512, 64], D = 32 [256, 12,
-                512, 32] in both dtypes and its bf16 backward at [96, 12,
-                512, 32], TinyBERT's D = 26 at [256, 12, 512, 26] and [96,
-                12, 512, 26] in bf16, D = 16 [256, 4, 128, 16]); times of
-                each route's kernels, the CUDA-core kernels on the same
-                inputs, the plain versions and SDPA with the boolean segment
-                mask, beside the bound
+                small segment-id cases at D = 2-256 in f32 and bf16 (D = 26
+                f32, D = 2, 20, 25 and 126 bf16, and D = 64 in layouts TMA
+                cannot read, on the CUDA-core forward), then the main
+                paths' shapes (f32 [256, 12, 512, 64] and [96, 12, 512,
+                64], D = 32 [256, 12, 512, 32] in both dtypes and its bf16
+                backward at [96, 12, 512, 32], TinyBERT's D = 26 at [256,
+                12, 512, 26] and [96, 12, 512, 26] in bf16 and [96, 12,
+                512, 26] in f32, D = 16 [256, 4, 128, 16]); times of each
+                route's kernels, the CUDA-core kernels on the same inputs,
+                the whole "wgmma_pad" backward (copies and pair), the plain
+                versions and SDPA with the boolean segment mask, beside the
+                bound
 6. e2e       -- a synthetic mag-shaped corpus (2048 docs x 5 dense fields)
                 encoded by the full-width encoder with attention_impl="auto"
                 (the 512-token fields through K2), held against the same
@@ -127,7 +132,9 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 and backward at one slab) through prepare_model: the build
                 against "xla", one train batch; (c) the same at
                 TinyBERT_General_4L_312D's width (D = 26: the CUDA-core
-                forward and backward)
+                forward, the wgmma backward on zero-padded copies); (d) one
+                train batch at that width in f32 (the CUDA-core forward
+                and backward)
 12. serving  -- the same engine over a prebuilt random [131072, 5, 768] bf16
                 corpus in rerank mode: QPS, one batch's stages, and the
                 device's busy share and time by kernel from torch.profiler
@@ -200,13 +207,16 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 holds), exact, 64 queries against rank 0's own scan of every
                 row made again on its card
 19. serve    -- the serving daemon (mfar_tpu_torch.serve) over a random bf16
-                [1048576, 5, 768] corpus made on the card: max_batch 256,
-                max_wait_ms 5, top_k 100, 64 closed-loop HTTP clients of 8
-                queries in a child process, 10 s a run; exact at pipeline
-                depth 2, 1, 2, then rerank through K1: QPS, request latency
-                p50/p95, batch fill, the dispatcher's phase seconds, K1
-                launches; the port closed until warmup ends; sampled answers
-                == engine.retrieve
+                [1048576, 5, 768] corpus made on the card: first how far 8
+                queries' scores move with the batch they share (16-256),
+                then max_batch 256, max_wait_ms 5, top_k 100, 64
+                closed-loop HTTP clients of 8 queries in a child process,
+                10 s a run; exact at pipeline depth 2, 1, 2, then rerank
+                through K1: QPS, request latency p50/p95, batch fill, the
+                dispatcher's phase seconds, K1 launches; the port closed
+                until warmup ends; sampled answers == engine.retrieve (a
+                failure also says whether the answer is engine.retrieve on
+                the whole batch the daemon served it in)
 20. int8     -- that corpus quantized on the card: exact QPS in bf16 and int8
                 in turns, corpus bytes, recall@100 of int8 against bf16, a
                 131072-row slice against a brute-force int8 reference with
@@ -308,6 +318,7 @@ from mfar_tpu_torch.ops.flash_attention import (
     flash_attention_tf32,
     flash_attention_tf32_bwd_dkv,
     flash_attention_tf32_bwd_dq,
+    pad_heads,
     _row_dots,
 )
 from mfar_tpu_torch.ops.gather_scores import (
@@ -1000,9 +1011,27 @@ def expected_route(t, bf16_cap=256, f32_cap=256) -> str:
 
 
 def expected_backward_route(t) -> str:
-    """The backward's pair by the routing rule: the forward's rule with D
-    capped at 128 in bf16 and 64 in f32 (rows of up to 256 bytes)."""
-    return expected_route(t, bf16_cap=128, f32_cap=64)
+    """The backward's route by the routing rule: the forward's rule with D
+    capped at 128 in bf16 and 64 in f32 (rows of up to 256 bytes); of what
+    that sends to "simt", bf16 up to D = 128 "wgmma_pad" (zero-padded copies
+    for the wgmma pair)."""
+    route = expected_route(t, bf16_cap=128, f32_cap=64)
+    if route == "simt" and t.dtype == torch.bfloat16 and t.shape[-1] <= 128:
+        return "wgmma_pad"
+    return route
+
+
+def pad8(d: int) -> int:
+    """The head dim of the "wgmma_pad" route's copies: D rounded up to 8."""
+    return -(-d // 8) * 8
+
+
+def backward_pair(route, d) -> str:
+    """The pair that the backward ``route`` launches at head dim ``d``: on
+    "wgmma_pad" the wgmma pair at D rounded up to 8, else its own."""
+    if route != "wgmma_pad":
+        return route
+    return "wgmma" if pad8(d) == 64 else "wgmma_headdim"
 
 
 def k2g_inputs(gen, b, h, s, d, dtype, rows):
@@ -1036,12 +1065,15 @@ def check_k2g(q, k, v, seg, dout, label, grads=True) -> dict:
     di, and dq's bits on a second run, under the f32 gates (K2G_*) or the
     bf16 ones (K2, K2b).  Checks that both forwards launched on the route
     the routing rule gives (``expected_route``) and the backward on its
-    pair (``expected_backward_route``), nothing else.  Returns both routes,
-    the largest absolute errors (fwd, lse, dq, dkv) and the largest gradient
-    error relative to the largest gradient."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    route's pair (``expected_backward_route``, ``backward_pair``), nothing
+    else.  Returns both routes, the backward's pair, the largest absolute
+    errors (fwd, lse, dq, dkv) and the largest gradient error relative to
+    the largest gradient."""
+    b, h, s, d = q.shape
+    scale = 1.0 / math.sqrt(d)
     f32 = q.dtype == torch.float32
     route, bwd_route = expected_route(q), expected_backward_route(q)
+    pair, d8 = backward_pair(bwd_route, d), pad8(d) if bwd_route == "wgmma_pad" else d
     before = k2_counts()
     got = flash_attention(q, k, v, seg, scale)
     out, lse = flash_attention_fwd(q, k, v, seg, scale)
@@ -1056,35 +1088,43 @@ def check_k2g(q, k, v, seg, dout, label, grads=True) -> dict:
     lse_err = (lse - masked_logsumexp(q, k, seg, scale)).abs().max().item()
     check(lse_err <= (K2G_LSE_ATOL if f32 else K2B_LSE_ATOL),
           f"K2 ({route}) logsumexp {label}: max abs err {lse_err}")
-    r = {"route": route, "bwd_route": bwd_route, "fwd": err, "lse": lse_err, "dq": 0.0,
-         "dkv": 0.0, "rel": 0.0}
+    r = {"route": route, "bwd_route": bwd_route, "bwd_pair": pair, "fwd": err, "lse": lse_err,
+         "dq": 0.0, "dkv": 0.0, "rel": 0.0}
     if grads:
         g = flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
         torch.cuda.synchronize()
         w = flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale)
-        for name, a, b in zip(("dq", "dk", "dv"), g, w):
-            check(a.dtype == q.dtype and a.transpose(1, 2).is_contiguous(), f"{name} {label}")
-            a, b = a.float(), b.float()
-            top = b.abs().max().item()
-            e = (a - b).abs().max().item()
+        for name, a, want in zip(("dq", "dk", "dv"), g, w):
+            # views of [B, S, H, D8] buffers (D8 = D off the "wgmma_pad" route)
+            check(a.dtype == q.dtype and a.shape == q.shape
+                  and a.transpose(1, 2).stride() == (s * h * d8, h * d8, d8, 1),
+                  f"{name} {label}")
+            a, want = a.float(), want.float()
+            top = want.abs().max().item()
+            e = (a - want).abs().max().item()
             ok = e <= K2G_GRAD_REL * top if f32 else torch.allclose(
-                a, b, rtol=K2B_RTOL, atol=K2B_ATOL_REL * top)
+                a, want, rtol=K2B_RTOL, atol=K2B_ATOL_REL * top)
             check(ok and bool(torch.isfinite(a).all()),
                   f"K2b ({bwd_route}) {name} {label}: max abs err {e} (max |want| {top})")
             kernel = "dq" if name == "dq" else "dkv"
             r[kernel], r["rel"] = max(r[kernel], e), max(r["rel"], e / top)
-        dq, di = BWD_PAIRS[bwd_route][0](q, k, v, seg, lse, out, dout, scale)
+        ins = (q, k, v, out, dout)
+        if bwd_route == "wgmma_pad":
+            ins = tuple(pad_heads(t, d8) for t in ins)
+        pq, pk, pv, po, pdo = ins
+        dq, di = BWD_PAIRS[pair][0](pq, pk, pv, seg, lse, po, pdo, scale)
         want_di = _row_dots(out, dout)
         di_err = (di - want_di).abs().max().item()
         check(torch.allclose(di, want_di, rtol=K2B_DI_RTOL,
                              atol=K2B_DI_ATOL_REL * want_di.abs().max().item()),
               f"K2b ({bwd_route}) dq's di {label}: max abs err {di_err}")
-        check(torch.equal(dq, g[0]), f"K2b ({bwd_route}) dq {label}: two runs differ")
+        check(torch.equal(dq[..., :d], g[0]), f"K2b ({bwd_route}) dq {label}: two runs differ")
+        check(not dq[..., d:].any(), f"K2b ({bwd_route}) dq {label}: padded columns not 0")
     # dq twice with grads: the backward, then di's check
     want_counts = dict(before)
     want_counts[route] += 2
-    want_counts[f"{bwd_route}_dkv"] += grads
-    want_counts[f"{bwd_route}_dq"] += 2 * grads
+    want_counts[f"{pair}_dkv"] += grads
+    want_counts[f"{pair}_dq"] += 2 * grads
     check(k2_counts() == want_counts,
           f"{label}: launched {k2_counts()} from {before} (routes {route}, {bwd_route})")
     return r
@@ -1106,16 +1146,20 @@ K2G_CASES = [
 # stop inside a 64-column slab); the backward takes the 3xTF32 pair up to
 # f32 D = 64 and the wgmma pair up to bf16 D = 128, the CUDA-core pair past
 # them (f32 68, bf16 136: each cap's other side); K2G_SIMT_DIMS, which TMA
-# cannot read (f32 D = 26, bf16 D = 20), take the CUDA-core kernels
+# cannot read, take the CUDA-core forward, and the backward on the
+# CUDA-core pair in f32 (D = 26) or, in bf16, on the wgmma pair over
+# zero-padded copies (2, 20, 25: an odd D, 126: padded to two slabs)
 K2G_DIMS = {torch.float32: (16, 20, 32, 48, 64, 68, 128, 136, 256),
             torch.bfloat16: (16, 32, 40, 48, 72, 128, 136, 256)}
-K2G_SIMT_DIMS = {torch.float32: (26,), torch.bfloat16: (20,)}
+K2G_SIMT_DIMS = {torch.float32: (26,), torch.bfloat16: (2, 20, 25, 126)}
 
 
 def misaligned_k2g_inputs(gen, dtype, rows):
     """[3, 2, 256, 64] q/k/v and dO in layouts TMA cannot read, so the
-    CUDA-core forward takes them: bf16 views that start 2 bytes into their
-    buffers; f32 views of [B, S, H*D + 2] buffers (rows 520 bytes apart)."""
+    CUDA-core forward takes them (and the backward: the CUDA-core pair in
+    f32, the wgmma pair over padded copies in bf16): bf16 views that start 2
+    bytes into their buffers; f32 views of [B, S, H*D + 2] buffers (rows 520
+    bytes apart)."""
     b, h, s, d = 3, 2, 256, 64
     if dtype == torch.bfloat16:
         flat = [torch.randn(b * s * h * d + 1, device=DEVICE, generator=gen).to(dtype)
@@ -1127,6 +1171,20 @@ def misaligned_k2g_inputs(gen, dtype, rows):
     return (*views[:3], segment_rows(b, s, rows), views[3])
 
 
+def grads_rel(got, want, label, f32) -> float:
+    """Check each of dq, dk, dv against ``want``'s (the f32 gate: 2e-5 of
+    the largest; bf16: K2b's) and return the largest error over the largest
+    gradient."""
+    rel = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        a, b = a.float(), b.float()
+        top, e = b.abs().max().item(), (a - b).abs().max().item()
+        check(e <= K2G_GRAD_REL * top if f32 else torch.allclose(
+            a, b, rtol=K2B_RTOL, atol=K2B_ATOL_REL * top), f"{label} {name}: max abs err {e}")
+        rel = max(rel, e / top)
+    return rel
+
+
 def k2g_times(q, k, v, seg, dout=None, lse_shape=False) -> dict:
     """CUDA-event times of the forward on its route (with the logsumexp when
     ``lse_shape``), the CUDA-core forward on the same inputs (held against
@@ -1135,8 +1193,12 @@ def k2g_times(q, k, v, seg, dout=None, lse_shape=False) -> dict:
     dq and dkv on the backward's route, the CUDA-core pair on the same
     inputs (held against the plain backward first: ``simt_bwd_rel``, the
     largest gradient error over the largest gradient), the plain backward
-    and SDPA's backward; each beside its bound."""
+    and SDPA's backward; on the "wgmma_pad" route the pair on the padded
+    copies, the whole backward (``route_bwd_ms``: the copies, the pair; the
+    gradients views) and its gradients against the CUDA-core pair's
+    (``route_vs_simt_rel``); each beside its bound."""
     scale = 1.0 / math.sqrt(q.shape[-1])
+    f32 = q.dtype == torch.float32
     slow = dict(reps=5, inner=2)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if lse_shape else None
     if lse_shape:
@@ -1148,7 +1210,7 @@ def k2g_times(q, k, v, seg, dout=None, lse_shape=False) -> dict:
     torch.cuda.synchronize()
     want = flash_attention_plain(q, k, v, seg, scale)
     simt_err = (got.float() - want.float()).abs().max().item()
-    check(simt_err <= K2G_ATOL if q.dtype == torch.float32 else torch.allclose(
+    check(simt_err <= K2G_ATOL if f32 else torch.allclose(
         got.float(), want.float(), rtol=K2_RTOL, atol=K2_ATOL),
         f"CUDA-core K2 at {list(q.shape)} {q.dtype}: max abs err {simt_err}")
     del got, want
@@ -1161,32 +1223,42 @@ def k2g_times(q, k, v, seg, dout=None, lse_shape=False) -> dict:
     if dout is not None:
         out, lse = flash_attention_fwd(q, k, v, seg, scale)
         bwd_route = expected_backward_route(q)
-        dq_fn, dkv_fn = BWD_PAIRS[bwd_route]
-        _, di = dq_fn(q, k, v, seg, lse, out, dout, scale)
+        dq_fn, dkv_fn = BWD_PAIRS[backward_pair(bwd_route, q.shape[-1])]
+        ins = (q, k, v, out, dout)
+        if bwd_route == "wgmma_pad":
+            ins = tuple(pad_heads(t, pad8(q.shape[-1])) for t in ins)
+        pq, pk, pv, po, pdo = ins
+        _, di = dq_fn(pq, pk, pv, seg, lse, po, pdo, scale)
         sdq, sdi = flash_attention_simt_bwd_dq(q, k, v, seg, lse, out, dout, scale)
         simt_grads = (sdq, *flash_attention_simt_bwd_dkv(q, k, v, seg, lse, sdi, dout, scale))
         torch.cuda.synchronize()
-        simt_bwd_rel = 0.0
-        for name, a, b in zip(("dq", "dk", "dv"), simt_grads,
-                              flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale)):
-            a, b = a.float(), b.float()
-            top, e = b.abs().max().item(), (a - b).abs().max().item()
-            check(e <= K2G_GRAD_REL * top if q.dtype == torch.float32 else torch.allclose(
-                a, b, rtol=K2B_RTOL, atol=K2B_ATOL_REL * top),
-                f"CUDA-core K2b {name} at {list(q.shape)} {q.dtype}: max abs err {e}")
-            simt_bwd_rel = max(simt_bwd_rel, e / top)
-        del simt_grads, sdq, sdi
+        want = flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale)
+        shape = f"{list(q.shape)} {q.dtype}"
+        r.update(bwd_route=bwd_route,
+                 simt_bwd_rel=grads_rel(simt_grads, want, f"CUDA-core K2b at {shape}", f32))
+        route_bwd = lambda: flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
+        if bwd_route == "wgmma_pad":
+            r["route_vs_simt_rel"] = grads_rel(route_bwd(), simt_grads, f"K2b ({bwd_route}) "
+                                               f"against the CUDA-core pair at {shape}", f32)
+        del simt_grads, sdq, sdi, want
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         lib_out = library_attention(*leaves, seg, scale)
         r.update(
-            bwd_route=bwd_route, simt_bwd_rel=simt_bwd_rel,
-            dq_ms=time_cuda(lambda: dq_fn(q, k, v, seg, lse, out, dout, scale), reps=11, inner=3),
-            dkv_ms=time_cuda(lambda: dkv_fn(q, k, v, seg, lse, di, dout, scale), reps=11,
-                             inner=3),
-            simt_dq_ms=time_cuda(lambda: flash_attention_simt_bwd_dq(
-                q, k, v, seg, lse, out, dout, scale), reps=5, inner=2),
-            simt_dkv_ms=time_cuda(lambda: flash_attention_simt_bwd_dkv(
-                q, k, v, seg, lse, di, dout, scale), reps=5, inner=2),
+            dq_ms=time_cuda(lambda: dq_fn(pq, pk, pv, seg, lse, po, pdo, scale), reps=11,
+                            inner=3),
+            dkv_ms=time_cuda(lambda: dkv_fn(pq, pk, pv, seg, lse, di, pdo, scale), reps=11,
+                             inner=3))
+        if bwd_route == "simt":  # the route's pair is the CUDA-core pair
+            r.update(simt_dq_ms=r["dq_ms"], simt_dkv_ms=r["dkv_ms"])
+        else:
+            r.update(simt_dq_ms=time_cuda(lambda: flash_attention_simt_bwd_dq(
+                         q, k, v, seg, lse, out, dout, scale), reps=5, inner=2),
+                     simt_dkv_ms=time_cuda(lambda: flash_attention_simt_bwd_dkv(
+                         q, k, v, seg, lse, di, dout, scale), reps=5, inner=2))
+        if bwd_route == "wgmma_pad":
+            r["route_bwd_ms"] = time_cuda(route_bwd, reps=11, inner=3)
+        del pq, pk, pv, po, pdo, ins
+        r.update(
             plain_bwd_ms=time_cuda(lambda: flash_attention_bwd_plain(
                 q, k, v, seg, out, lse, dout, scale), **slow),
             library_bwd_ms=time_cuda(lambda: torch.autograd.grad(
@@ -1210,10 +1282,12 @@ def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
     all-MiniLM-L6-v2's D = 32 at [256, 12, 512, 32] in bf16 and f32 and its
     backward at [96, 12, 512, 32] in bf16, TinyBERT_General_4L_312D's D = 26
     at [256, 12, 512, 26] and [96, 12, 512, 26] in bf16 (the CUDA-core
-    kernels' main path), and EncoderConfig.tiny's [256, 4, 128, 16] in
-    both; CUDA-event times of each route's forward and backward, the
-    CUDA-core kernels on the same inputs, the plain versions and SDPA,
-    beside the bound."""
+    forward's main path; the backward on the wgmma pair over zero-padded
+    copies, beside the CUDA-core pair) and at [96, 12, 512, 26] in f32 (the
+    CUDA-core pair's main path), and
+    EncoderConfig.tiny's [256, 4, 128, 16] in both; CUDA-event times of
+    each route's forward and backward, the CUDA-core kernels on the same
+    inputs, the plain versions and SDPA, beside the bound."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
     keys = ("fwd", "lse", "dq", "dkv", "rel")
     by_route, f32_err = {}, dict.fromkeys(keys, 0.0)
@@ -1221,7 +1295,7 @@ def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
     def hold(r, dtype):
         # the forward's errors under its route, the backward's under its pair's
         for route, route_keys in ((r["route"], ("fwd", "lse")),
-                                  (r["bwd_route"], ("dq", "dkv", "rel"))):
+                                  (r["bwd_pair"], ("dq", "dkv", "rel"))):
             route_err = by_route.setdefault(route, dict.fromkeys(keys, 0.0))
             for key in route_keys:
                 route_err[key] = max(route_err[key], r[key])
@@ -1245,8 +1319,10 @@ def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
                  f"D={K2G_DIMS[torch.bfloat16]} in bf16 (the backward on the tensor cores up "
                  f"to f32 D = 64 and bf16 D = 128), D={K2G_SIMT_DIMS[torch.float32]} in f32, "
                  f"D={K2G_SIMT_DIMS[torch.bfloat16]} in bf16 and D=64 in layouts TMA cannot read "
-                 f"on the CUDA cores, agree, each on the routing rule's routes: max abs err by "
-                 f"route {routes}; f32 "
+                 f"on the CUDA-core forward (the backward of bf16 on the wgmma pair over "
+                 f"zero-padded copies, of f32 on the CUDA-core pair), agree, each on the "
+                 f"routing rule's routes: max abs err by "
+                 f"kernel pair {routes}; f32 "
                  f"forward {f32_err['fwd']:.3g} (atol {K2G_ATOL}), logsumexp "
                  f"{f32_err['lse']:.3g} (atol {K2G_LSE_ATOL}), gradients {f32_err['rel']:.3g} "
                  f"of the largest (gate {K2G_GRAD_REL}); bf16 within the K2/K2b gates")
@@ -1276,7 +1352,8 @@ def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
         del q, k, v, seg
     b, h, s = train
     for dtype, d, key in ((torch.float32, 64, "f32_train"), (torch.bfloat16, 32, "bf16_d32_train"),
-                          (torch.bfloat16, 26, "bf16_d26_train")):
+                          (torch.bfloat16, 26, "bf16_d26_train"),
+                          (torch.float32, 26, "f32_d26_train")):
         q, k, v, seg, dout = k2g_inputs(gen, b, h, s, d, dtype, lengths(b, s, 5))
         hold(check_k2g(q, k, v, seg, dout, f"at {list(q.shape)} {dtype}"), dtype)
         timed(key, q, k, v, seg, dout, lse_shape=True)
@@ -3004,8 +3081,9 @@ def run_train_cli(seed, corpus, n_docs=512):
 MINILM_WIDTH = dict(hidden_size=384, num_layers=6, num_heads=12, intermediate_size=1536,
                     vocab_size=30522, max_position_embeddings=512)
 # huawei-noah/TinyBERT_General_4L_312D's published config: hidden 312, 4
-# layers, 12 heads (D = 26, which TMA cannot read in bf16: the CUDA-core
-# forward's route), intermediate 1200, BERT's vocabulary
+# layers, 12 heads (D = 26, whose 52-byte rows TMA cannot read in bf16: the
+# CUDA-core forward and the wgmma backward over copies padded to D = 32; in
+# f32 the CUDA-core forward and pair), intermediate 1200, BERT's vocabulary
 TINYBERT_WIDTH = dict(hidden_size=312, num_layers=4, num_heads=12, intermediate_size=1200,
                       vocab_size=30522, max_position_embeddings=512)
 
@@ -3042,10 +3120,12 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
     written as a local directory with seeded weights and loaded through
     ``prepare_model``, set to "auto": the same documents' build against
     "xla", and one train batch against the plain path; (c) the same at
-    TinyBERT_General_4L_312D's width (D = 26).  Every count is set to 0
-    just before each main-path run and read just after, and each run's
-    launches are held to the routes the routing rule gives: (a) the 3xTF32
-    forward and pair, (b) the wgmma forward and pair at D = 32, (c) the
+    TinyBERT_General_4L_312D's width (D = 26); (d) one train batch at that
+    width in f32 against the plain path.  Every count is set to 0 just
+    before each main-path run and read just after, and each run's launches
+    are held to the routes the routing rule gives: (a) the 3xTF32 forward
+    and pair, (b) the wgmma forward and pair at D = 32, (c) the CUDA-core
+    forward and the wgmma pair at D = 32 over zero-padded copies, (d) the
     CUDA-core forward and pair."""
     pairs = list(corpus.pairs())[:n_docs]
     sub = Corpus.from_pairs(pairs, dataset_name="mag")
@@ -3181,18 +3261,22 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
                  f"launches {fit_launches}")
 
     # (b) a BERT directory at all-MiniLM-L6-v2's width in bf16 (D = 32),
-    # (c) one at TinyBERT-4L-312D's (D = 26)
+    # (c) one at TinyBERT-4L-312D's (D = 26), (d) a batch at that width in f32
     train = (train_q, train_r, sampler)
     mini = bert_width_cell("(b)", "all-MiniLM-L6-v2", MINILM_WIDTH, "wgmma_headdim",
                            "the wgmma K2 and K2b at D = 32", seed + 9, sub, field_info, train,
                            batch, seed, warm, n_long * batches)
     tiny = bert_width_cell("(c)", "TinyBERT_General_4L_312D", TINYBERT_WIDTH, "simt",
-                           "the CUDA-core K2 and K2b (D = 26: TMA cannot read its rows)",
-                           seed + 13, sub, field_info, train, batch, seed, warm, n_long * batches)
+                           "the CUDA-core K2 (D = 26: TMA cannot read its rows) and the wgmma "
+                           "K2b over copies padded to D = 32", seed + 13, sub, field_info, train,
+                           batch, seed, warm, n_long * batches, bwd_route="wgmma_headdim")
+    tiny_f32 = f32_width_batch("(d)", "TinyBERT_General_4L_312D", TINYBERT_WIDTH, seed + 13, sub,
+                               field_info, train, batch, seed)
     torch.cuda.empty_cache()
-    # the main paths' launches: the three builds, Trainer.fit and the two
-    # BERT-width batches (the f32 batch is a check beside fit)
-    f32_launches = {key: fit_launches[key] + mini[key] + tiny[key] for key in fit_launches}
+    # the main paths' launches: the three builds, Trainer.fit and the three
+    # BERT-width batches (the Contriever-width f32 batch is a check beside fit)
+    f32_launches = {key: fit_launches[key] + mini[key] + tiny[key] + tiny_f32[key]
+                    for key in fit_launches}
     f32_launches["tf32"] += build_launches
     return dict(f32_build_s=build_s, f32_plain_build_s=plain_s, f32_index_err=index_err,
                 f32_fit_s=fit_s, f32_batch=dict(loss=loss, loss_plain=loss_pl, norm=norm,
@@ -3203,16 +3287,16 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
 
 
 def bert_width_cell(tag, name, width, route, what, dir_seed, sub, field_info, train, batch,
-                    seed, warm, encoder_calls):
+                    seed, warm, encoder_calls, bwd_route=None):
     """Phase f32's bf16 BERT directory at a published width (seeded weights,
     loaded through ``prepare_model``, set to "auto"): the index build
     against "xla" (each layer's ``encoder_calls`` 512-token calls on the
     forward ``route``, nothing else), and one train batch against the plain
     path (the forward on ``route`` twice a layer and group under remat, the
-    backward pair of the same route once: its head dim is under both
-    caps).  Returns the K2/K2b launches of both
-    runs, summed, and the two builds' seconds."""
-    train_q, train_r, sampler = train
+    backward pair of ``bwd_route``, by default the forward's, once).
+    Returns the K2/K2b launches of both runs, summed, and the two builds'
+    seconds."""
+    bwd_route = bwd_route or route
     with tempfile.TemporaryDirectory() as d:
         write_bert_dir(d, sub, dir_seed, **width)
         config, state_dict, mtok = prepare_model(d)
@@ -3235,28 +3319,8 @@ def bert_width_cell(tag, name, width, route, what, dir_seed, sub, field_info, tr
         want, xla_s = timed_build(encode_xla, mtok, sub, field_info)
         agree = index_agreement(matrix, want, f"{name}-width bf16 build vs xla")
         del auto, xla, encode, encode_xla
-        ds = ContrastiveDataset(train_q, sub, train_r, sampler, field_info, mtok)
-        mb = to_device(strip_meta(next(ds.epoch_batches(batch, seed=seed))),
-                       torch.device(DEVICE))
-        mcfg = dataclasses.replace(config, attention_impl="auto", attention_dropout=0.0, remat=True)
-        model = train_model(mcfg)
-        model.encoder.load_state_dict(state_dict)
-        model = model.to(DEVICE)
-        plain_model = train_model(dataclasses.replace(mcfg, attention_impl="xla"),
-                                  model.state_dict()).to(DEVICE)
-        loss, loss_pl, norm, norm_pl, cos, batch_launches = one_batch_against_plain(
-            model, plain_model, mb, seed, f"{name}-width train batch")
-        del model, plain_model
-        n_flash = flash_groups(mb)
-        check(batch_launches == launched(**{route: 2 * layers * n_flash,
-                                            f"{route}_dkv": layers * n_flash,
-                                            f"{route}_dq": layers * n_flash}),
-              f"one {name}-width batch launched {batch_launches}")
-        check(abs(loss - loss_pl) <= TRAIN_LOSS_RTOL * abs(loss_pl)
-              and abs(norm - norm_pl) <= TRAIN_NORM_RTOL * norm_pl
-              and min(cos.values()) >= TRAIN_MIN_COSINE,
-              f"{name}-width batch: loss {loss} vs {loss_pl}, norm {norm} vs {norm_pl}, "
-              f"cosines {cos}")
+        loss, loss_pl, norm, norm_pl, cos, batch_launches = width_batch(
+            name, config, state_dict, mtok, route, bwd_route, sub, field_info, train, batch, seed)
         phase("f32", f"{tag} a BERT directory at {name}'s width (hidden {config.hidden_size} "
                      f"x {layers} layers, {config.num_heads} heads, D = {head_dim}, "
                      f"intermediate {config.intermediate_size}, {config.dtype}; WordPiece vocab "
@@ -3269,6 +3333,66 @@ def bert_width_cell(tag, name, width, route, what, dir_seed, sub, field_info, tr
     out = {key: build_launches[key] + batch_launches[key] for key in build_launches}
     out.update(build_s=build_s, xla_build_s=xla_s)
     return out
+
+
+def width_batch(name, config, state_dict, mtok, route, bwd_route, sub, field_info, train, batch,
+                seed):
+    """One train batch of a BERT at a published width (``config`` and
+    ``state_dict`` from ``prepare_model``; "auto", attention dropout 0,
+    remat) against the plain path on the same weights: its launches held to
+    the forward on ``route`` twice a layer and group, the pair of
+    ``bwd_route`` once, nothing else; loss, norm and cosines to the f32
+    gates for f32 activations, the bf16 train gates otherwise.  Returns
+    (loss, plain loss, norm, plain norm, cosines, launches)."""
+    train_q, train_r, sampler = train
+    layers = config.num_layers
+    ds = ContrastiveDataset(train_q, sub, train_r, sampler, field_info, mtok)
+    mb = to_device(strip_meta(next(ds.epoch_batches(batch, seed=seed))), torch.device(DEVICE))
+    mcfg = dataclasses.replace(config, attention_impl="auto", attention_dropout=0.0, remat=True)
+    model = train_model(mcfg)
+    model.encoder.load_state_dict(state_dict)
+    model = model.to(DEVICE)
+    plain_model = train_model(dataclasses.replace(mcfg, attention_impl="xla"),
+                              model.state_dict()).to(DEVICE)
+    label = f"{name}-width {'f32 ' if config.dtype == torch.float32 else ''}train batch"
+    loss, loss_pl, norm, norm_pl, cos, batch_launches = one_batch_against_plain(
+        model, plain_model, mb, seed, label)
+    del model, plain_model
+    n_flash = flash_groups(mb)
+    check(batch_launches == launched(**{route: 2 * layers * n_flash,
+                                        f"{bwd_route}_dkv": layers * n_flash,
+                                        f"{bwd_route}_dq": layers * n_flash}),
+          f"one {label} launched {batch_launches}")
+    gates = ((F32_LOSS_RTOL, F32_NORM_RTOL, F32_MIN_COSINE) if config.dtype == torch.float32
+             else (TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, TRAIN_MIN_COSINE))
+    check(abs(loss - loss_pl) <= gates[0] * abs(loss_pl)
+          and abs(norm - norm_pl) <= gates[1] * norm_pl and min(cos.values()) >= gates[2],
+          f"{label}: loss {loss} vs {loss_pl}, norm {norm} vs {norm_pl}, cosines {cos}")
+    return loss, loss_pl, norm, norm_pl, cos, batch_launches
+
+
+def f32_width_batch(tag, name, width, dir_seed, sub, field_info, train, batch, seed):
+    """Phase f32's f32 batch at a published width: the BERT directory of
+    bert_width_cell (seeded weights) loaded through ``prepare_model`` with
+    f32 activations, and one train batch against the plain path
+    (width_batch).  At TinyBERT's D = 26 (104-byte rows, not a multiple of
+    16 bytes, and D not a multiple of the 3xTF32 kernels' 4 columns) the
+    CUDA-core forward and pair take it.  Returns the batch's K2/K2b
+    launches."""
+    with tempfile.TemporaryDirectory() as d:
+        write_bert_dir(d, sub, dir_seed, **width)
+        config, state_dict, mtok = prepare_model(d, dtype=torch.float32)
+    check(config.dtype == torch.float32, f"prepare_model gave {config}")
+    loss, loss_pl, norm, norm_pl, cos, batch_launches = width_batch(
+        name, config, state_dict, mtok, "simt", "simt", sub, field_info, train, batch, seed)
+    phase("f32", f"{tag} one train batch at {name}'s width in f32 (hidden "
+                 f"{config.hidden_size} x {config.num_layers} layers, {config.num_heads} heads, "
+                 f"D = {config.hidden_size // config.num_heads}; attention auto, dropout 0, "
+                 f"remat) through the CUDA-core K2 and K2b vs plain attention: loss "
+                 f"{loss:.8f} vs {loss_pl:.8f}, grad_norm {norm:.6f} vs {norm_pl:.6f}, cosine "
+                 f"encoder {cos['encoder']:.7f} head {cos['head']:.7f} (the f32 gates); "
+                 f"launches {batch_launches}")
+    return batch_launches
 
 
 # ----------------------------------------------------------------------
@@ -4223,13 +4347,71 @@ def hits_of(results):
     return [[(k, s) for k, s in hits] for hits in results]
 
 
+def batch_drift(engine, seed, n=8, batch=256) -> dict:
+    """How far a request's exact scores move with the batch it is served
+    in: ``n`` queries of the serve clients' kind retrieved alone and as the
+    first ``n`` of a batch of every size the daemon forms from ``n``-query
+    requests (2n, 3n, ... ``batch``) and as the last ``n`` of a full one;
+    for each, the largest relative difference of a document's score over
+    the documents both top-100 lists hold.  0 everywhere if neither the
+    bf16 query encoder nor the scoring depends on the batch; the daemon
+    check's E2E_RTOL holds only above it.  Returns the largest difference,
+    the batch size it came at, the sizes with any difference, and the sizes
+    at which the encoded queries' bits differ from alone."""
+    qs = word_queries(batch, np.random.default_rng(seed))
+    alone = engine.retrieve(qs[:n], top_k=100)
+    with torch.inference_mode():
+        enc = engine.encode_queries(qs[:n])
+        encoder_moved = [size for size in range(2 * n, batch + 1, n)
+                         if not torch.equal(engine.encode_queries(qs[:size])[:n], enc)]
+    by_size = {}
+    for size in range(2 * n, batch + 1, n):
+        by_size[size] = engine.retrieve(qs[:size], top_k=100)[:n]
+    by_size["last"] = engine.retrieve(qs[n:] + qs[:n], top_k=100)[-n:]
+    drift = {}
+    for size, shared in by_size.items():
+        drift[size] = 0.0
+        for a, b in zip(alone, shared):
+            b = dict(b)
+            drift[size] = max([drift[size]] + [abs(s - b[k]) / abs(b[k]) for k, s in a if k in b])
+    worst = max(drift, key=drift.get)
+    return dict(max=drift[worst], at=worst, moved=[k for k, v in drift.items() if v > 0],
+                encoder_moved=encoder_moved)
+
+
+def served_batch_agrees(engine, batches, sample, mode) -> str:
+    """Whether a sampled daemon answer is ``engine.retrieve`` on the whole
+    batch the daemon served it in (the first recorded batch holding the
+    request's queries in order): what tells a daemon that mixes up its
+    batches from an engine whose scores depend on the batch."""
+    qs = sample["queries"]
+    for texts in batches:
+        at = next((i for i in range(len(texts) - len(qs) + 1)
+                   if texts[i:i + len(qs)] == qs), None)
+        if at is not None:
+            want = engine.retrieve(texts, top_k=100, mode=mode)[at:at + len(qs)]
+            same = hits_of(sample["results"]) == [[(k, s) for k, s in w] for w in want]
+            return (f"served in a batch of {len(texts)} queries at row {at}: the answer "
+                    f"{'==' if same else '!='} engine.retrieve on that batch")
+    return f"no recorded batch of the {len(batches)} holds the request"
+
+
 def drive_daemon(engine, mode, depth, seed, seconds, max_batch=256, clients=64, per_req=8,
                  n_sample=8) -> dict:
     """One daemon run: warmup with the port closed, then ``clients``
     closed-loop HTTP clients in a child process for ``seconds``; the sampled
     responses are held against ``engine.retrieve`` on the same queries, and
     K1's launches are counted from just before the clients start to just
-    after they stop."""
+    after they stop.  The batches the daemon dispatches are recorded, so a
+    sampled answer that disagrees is also held to ``engine.retrieve`` on
+    the whole batch it was served in (reported in the failure)."""
+    batches = []
+
+    def recorded(texts, *args, **kw):
+        batches.append(list(texts))
+        return type(engine).dispatch(engine, texts, *args, **kw)
+
+    engine.dispatch = recorded
     srv = RetrievalServer(engine, port=0, max_batch=max_batch, max_wait_ms=5.0, top_k=100,
                           mode=mode, pipeline_depth=depth)
     try:
@@ -4247,6 +4429,7 @@ def drive_daemon(engine, mode, depth, seed, seconds, max_batch=256, clients=64, 
         stats = srv.batcher.stats()
     finally:
         srv.shutdown()
+        del engine.dispatch
     check(proc.returncode == 0, f"the clients exited {proc.returncode}: {proc.stderr[-2000:]}")
     load = json.loads(proc.stdout.strip().splitlines()[-1])
     check(not load["errors"] and not load["alive"], f"clients failed: {load['errors'][:3]}")
@@ -4254,6 +4437,8 @@ def drive_daemon(engine, mode, depth, seed, seconds, max_batch=256, clients=64, 
     for sample in load["samples"]:
         want = engine.retrieve(sample["queries"], top_k=100, mode=mode)
         msg = rankings_agree(hits_of(sample["results"]), want, E2E_RTOL, E2E_ATOL)
+        if msg is not None:
+            msg += "; " + served_batch_agrees(engine, batches, sample, mode)
         check(msg is None, f"daemon {mode} depth {depth} vs engine.retrieve: {msg}")
     return dict(qps=load["queries"] / load["seconds"], p50_ms=load["p50_ms"],
                 p95_ms=load["p95_ms"], fill=stats.get("mean_batch_fill"),
@@ -4266,8 +4451,10 @@ def run_serve(seed, engine, n=1048576, seconds=10.0) -> dict:
     """The daemon over a random bf16 [1048576, 5, 768] corpus made on the
     card (benchmarks/exp_server.py's workload: max_batch 256, max_wait_ms 5,
     top_k 100, 64 closed-loop clients of 8 queries; its 20 s runs cut to
-    ``seconds``): exact at pipeline depth 2, 1 and 2, then rerank through K1
-    at depth 2.  Returns the engine for the int8 and host_stream phases."""
+    ``seconds``): first how far a request's exact scores move with the
+    batch it shares (batch_drift), then exact at pipeline depth 2, 1 and 2,
+    then rerank through K1 at depth 2.  Returns the engine for the int8 and
+    host_stream phases."""
     fd, e = len(engine.dense_keys), engine.emb_dim
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 21)
     t = time.perf_counter()
@@ -4280,6 +4467,12 @@ def run_serve(seed, engine, n=1048576, seconds=10.0) -> dict:
     del matrix
     torch.cuda.synchronize()
     make_s = time.perf_counter() - t
+    drift = batch_drift(big, seed + 23)
+    phase("serve", f"8 queries' exact scores alone vs inside batches of 16-256 queries: "
+                   f"largest relative difference {drift['max']:.3g} at batch {drift['at']} (the "
+                   f"daemon check's rtol {E2E_RTOL}); batches that moved a score: "
+                   f"{drift['moved']}, that changed the encoded queries' bits: "
+                   f"{drift['encoder_moved']}")
     runs = []
     for i, (mode, depth) in enumerate((("exact", 2), ("exact", 1), ("exact", 2),
                                        ("rerank", 2))):
@@ -4302,7 +4495,7 @@ def run_serve(seed, engine, n=1048576, seconds=10.0) -> dict:
                    f"vocabulary) in a child process, {seconds:.0f} s a run (cut from "
                    f"benchmarks/exp_server.py's 20 s); order exact d2, d1, d2, rerank d2")
     return big, dict(serve_runs=[{k: v for k, v in r.items() if k != "phase_s"} for r in runs],
-                     serve_k1_launches=runs[-1]["k1_launches"])
+                     serve_k1_launches=runs[-1]["k1_launches"], serve_batch_drift=drift)
 
 
 # int8_dot's shapes: a 1-query batch, row counts off a multiple of 8 (the
@@ -5971,7 +6164,8 @@ def main(argv=None) -> int:
     }, {
         # K2b at other bf16 head dims (the wgmma pair at ceil(D / 64)
         # slabs): times at all-MiniLM-L6-v2's [96, 12, 512, 32]; launches
-        # from phase f32's MiniLM-width batch
+        # from phase f32's MiniLM-width batch and TinyBERT-width bf16 batch
+        # (on copies padded to D = 32)
         "name": "flash_attention_bwd_headdim_dkv",
         "route": "cuda",
         "source": "mfar_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -6024,7 +6218,8 @@ def main(argv=None) -> int:
     }, {
         # K2's CUDA-core forward (what TMA cannot read): times at
         # TinyBERT-4L-312D's [256, 12, 512, 26] bf16, the shape it serves;
-        # launches from phase f32's TinyBERT-width build and batch
+        # launches from phase f32's TinyBERT-width build and its bf16 and
+        # f32 batches
         "name": "flash_attention_simt",
         "route": "cuda",
         "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",
@@ -6037,21 +6232,21 @@ def main(argv=None) -> int:
         "bound_by": k2g["bf16_d26"]["bound_by"],
         "library_ms": k2g["bf16_d26"]["library_ms"],
     }, {
-        # the CUDA-core backward pair (what TMA cannot read, and head dims
-        # past the tensor-core pairs' caps): times at TinyBERT-4L-312D's
-        # [96, 12, 512, 26] bf16; launches from phase f32's TinyBERT-width
-        # batch
+        # the CUDA-core backward pair (f32 that TMA cannot read, and head
+        # dims past the tensor-core pairs' caps): times at TinyBERT-4L-312D's
+        # [96, 12, 512, 26] in f32; launches from phase f32's TinyBERT-width
+        # f32 batch
         "name": "flash_attention_simt_bwd_dkv",
         "route": "cuda",
         "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
         "launches": f32_launches["simt_dkv"],
         "max_abs_err": by_route["simt"]["dkv"],
-        "ms": k2g["bf16_d26_train"]["simt_dkv_ms"],
-        "plain_ms": k2g["bf16_d26_train"]["plain_bwd_ms"],
-        "bound_ms": k2g["bf16_d26_train"]["dkv_bound_ms"],
-        "bound_by": k2g["bf16_d26_train"]["dkv_bound_by"],
-        "library_ms": k2g["bf16_d26_train"]["library_bwd_ms"],
+        "ms": k2g["f32_d26_train"]["simt_dkv_ms"],
+        "plain_ms": k2g["f32_d26_train"]["plain_bwd_ms"],
+        "bound_ms": k2g["f32_d26_train"]["dkv_bound_ms"],
+        "bound_by": k2g["f32_d26_train"]["dkv_bound_by"],
+        "library_ms": k2g["f32_d26_train"]["library_bwd_ms"],
     }, {
         "name": "flash_attention_simt_bwd_dq",
         "route": "cuda",
@@ -6059,11 +6254,11 @@ def main(argv=None) -> int:
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
         "launches": f32_launches["simt_dq"],
         "max_abs_err": by_route["simt"]["dq"],
-        "ms": k2g["bf16_d26_train"]["simt_dq_ms"],
-        "plain_ms": k2g["bf16_d26_train"]["plain_bwd_ms"],
-        "bound_ms": k2g["bf16_d26_train"]["dq_bound_ms"],
-        "bound_by": k2g["bf16_d26_train"]["dq_bound_by"],
-        "library_ms": k2g["bf16_d26_train"]["library_bwd_ms"],
+        "ms": k2g["f32_d26_train"]["simt_dq_ms"],
+        "plain_ms": k2g["f32_d26_train"]["plain_bwd_ms"],
+        "bound_ms": k2g["f32_d26_train"]["dq_bound_ms"],
+        "bound_by": k2g["f32_d26_train"]["dq_bound_by"],
+        "library_ms": k2g["f32_d26_train"]["library_bwd_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

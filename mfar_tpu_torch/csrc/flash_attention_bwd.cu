@@ -12,9 +12,11 @@
 // (D contiguous; the others multiples of 16 bytes), seg int32 [B, S], lse and
 // di contiguous f32 [B, H, S]; the gradients are bf16 (q's dtype, as JAX
 // writes them) into [B, H, S, D] views with their own strides, so the
-// encoder's head split costs no copy.  f32 takes flash_attention_tf32_bwd.cu
-// (up to D = 64); bf16 past D = 128, and what TMA cannot read,
-// flash_attention_simt.cu.
+// encoder's head split costs no copy.  bf16 up to D = 128 that TMA cannot
+// read (e.g. TinyBERT-4L-312D's 52-byte rows at D = 26) reaches these
+// kernels as zero-padded copies at D rounded up to 8 (the "wgmma_pad" route
+// of ops/flash_attention.py).  f32 takes flash_attention_tf32_bwd.cu (up to
+// D = 64); bf16 past D = 128 flash_attention_simt.cu.
 //
 // Replaces the two Pallas kernels of the VJP of JAX's library
 // flash_attention (jax/experimental/pallas/ops/tpu/flash_attention.py,

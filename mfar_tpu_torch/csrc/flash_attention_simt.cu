@@ -19,11 +19,13 @@
 // forward _flash_attention_kernel, pallas_call at :758; the VJP's
 // _flash_attention_bwd_dkv at :1121 and _flash_attention_bwd_dq at :1456),
 // called at mfar_tpu/models/encoder.py:170, where the tensor-core kernels
-// do not (ops/flash_attention.py::forward_route, backward_route): inputs
-// TMA cannot read (bf16 at a D that is not a multiple of 8, f32 at one that
-// is not a multiple of 4, strides that are not multiples of 16 bytes: e.g.
-// TinyBERT-4L-312D's D = 26), and for the backward also the head dims past
-// the tensor-core pairs' caps (bf16 past D = 128, f32 past D = 64).
+// do not (ops/flash_attention.py::forward_route, backward_route): for the
+// forward, inputs TMA cannot read (bf16 at a D that is not a multiple of 8,
+// f32 at one that is not a multiple of 4, strides that are not multiples of
+// 16 bytes: e.g. TinyBERT-4L-312D's D = 26); for the backward, f32 that TMA
+// cannot read and the head dims past the tensor-core pairs' caps (bf16 past
+// D = 128, f32 past D = 64): bf16 up to D = 128 that TMA cannot read goes,
+// as zero-padded copies, to flash_attention_bwd.cu.
 // flash_attention.cu and flash_attention_bwd.cu take bf16 at every other
 // head dim, flash_attention_tf32.cu and flash_attention_tf32_bwd.cu f32.
 //

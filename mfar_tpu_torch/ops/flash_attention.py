@@ -55,9 +55,18 @@ each pair counting its own launches:
 - ``"tf32"``, f32 that TMA can read at D up to 64:
   ``csrc/flash_attention_tf32_bwd.cu`` (:func:`flash_attention_tf32_bwd_dq`
   / ``_dkv``), every product in 3xTF32 and P, dS kept in f32.
-- ``"simt"``, everything else up to D = 256 (what TMA cannot read, and the
-  head dims past those caps: rows of more than 256 bytes, whose own tiles
-  and accumulators would not fit one block an SM):
+- ``"wgmma_pad"``, bf16 that TMA cannot read at D up to 128 (a D that is not
+  a multiple of 8, such as TinyBERT-4L-312D's 26, whose 52-byte rows no
+  tensor map describes, or strides that are not multiples of 16 bytes):
+  q, k, v, o and dO copied into zero-padded ``[B, S, H, D8]`` buffers (D8
+  = D rounded up to 8), which TMA reads, then the pair of their route
+  (``"wgmma"`` or ``"wgmma_headdim"``, whose launches count), the
+  gradients handed back as views of their first D columns.  The padded
+  columns of q, k, v and dO are 0, so S and dP are exact and the
+  gradients' padded columns 0.
+- ``"simt"``, everything else up to D = 256 (f32 that TMA cannot read, and
+  the head dims past those caps: rows of more than 256 bytes, whose own
+  tiles and accumulators would not fit one block an SM):
   ``csrc/flash_attention_simt.cu``'s CUDA-core pair
   (:func:`flash_attention_simt_bwd_dq`, :func:`flash_attention_simt_bwd_dkv`),
   in f32 FMA.
@@ -203,14 +212,19 @@ def backward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     three (:func:`_kernel_readable`): ``"wgmma"`` (bf16, D = 64),
     ``"wgmma_headdim"`` (bf16 at another D, a multiple of 8 up to 128: the
     same pair at ceil(D / 64) slabs), ``"tf32"`` (f32, D a multiple of 4 up
-    to 64: the 3xTF32 pair); ``"simt"`` (the CUDA-core pair) for the rest,
-    past those caps too."""
+    to 64: the 3xTF32 pair); then ``"wgmma_pad"`` for bf16 up to D = 128
+    that TMA cannot read (copied into zero-padded buffers that it reads, for
+    the wgmma pair); ``"simt"`` (the CUDA-core pair) for the rest, past
+    those caps too."""
     d = q.shape[-1]
     tma = all(_kernel_readable(t) for t in (q, k, v))
-    if tma and q.dtype == torch.bfloat16 and d % 8 == 0 and d <= WGMMA_BWD_MAX_HEAD_DIM:
+    bf16 = q.dtype == torch.bfloat16
+    if tma and bf16 and d % 8 == 0 and d <= WGMMA_BWD_MAX_HEAD_DIM:
         return "wgmma" if d == HEAD_DIM else "wgmma_headdim"
     if tma and q.dtype == torch.float32 and d % 4 == 0 and d <= TF32_BWD_MAX_HEAD_DIM:
         return "tf32"
+    if bf16 and d <= WGMMA_BWD_MAX_HEAD_DIM:
+        return "wgmma_pad"
     return "simt"
 
 
@@ -229,6 +243,12 @@ def _simt_readable(t: torch.Tensor) -> bool:
 
 def _strides(*ts: torch.Tensor):
     return (ctypes.c_longlong * (3 * len(ts)))(*(st for t in ts for st in t.stride()[:3]))
+
+
+def pad_heads(t: torch.Tensor, width: int) -> torch.Tensor:
+    """A ``[B, H, S, width]`` view of a new ``[B, S, H, width]`` buffer that
+    holds [B, H, S, D] ``t`` in its first D columns and 0 past them."""
+    return torch.nn.functional.pad(t.transpose(1, 2), (0, width - t.shape[-1])).transpose(1, 2)
 
 
 def _empty_bshd(like: torch.Tensor) -> torch.Tensor:
@@ -445,10 +465,12 @@ def flash_attention_bwd(
     ``di``), then kernel dkv, for CUDA tensors (the pair that
     :func:`backward_route` names); :func:`flash_attention_bwd_plain` for CPU
     tensors.  On the card the gradients are ``[B, H, S, D]`` views of
-    ``[B, S, H, D]`` buffers, and no torch op computes ``di``.  A dO that
-    the route's kernels cannot read through its strides is copied once
-    (counted in ``flash_attention_bwd.dout_copies``); an ``o`` they cannot
-    read raises."""
+    ``[B, S, H, D]`` buffers (``[B, S, H, D8]`` on the ``"wgmma_pad"``
+    route, whose inputs are all copied, padded, for the wgmma pair), and no
+    torch op computes ``di``.  A dO that the route's kernels cannot read
+    through its strides is copied once (counted in
+    ``flash_attention_bwd.dout_copies``); an ``o`` they cannot read
+    raises."""
     _check_inputs(q, k, v, segment_ids)
     if dout.shape != q.shape or o.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError(
@@ -461,6 +483,10 @@ def flash_attention_bwd(
         raise TypeError(f"o {o.dtype}, dout {dout.dtype} (want {q.dtype}), lse {lse.dtype} "
                         f"(want float32)")
     route = backward_route(q, k, v)
+    d = q.shape[-1]
+    if route == "wgmma_pad":
+        q, k, v, o, dout = (pad_heads(t, -(-d // 8) * 8) for t in (q, k, v, o, dout))
+        route = backward_route(q, k, v)
     dq_fn, dkv_fn = _BACKWARDS[route]
     readable = _simt_readable if route == "simt" else _kernel_readable
     if not readable(dout):
@@ -469,7 +495,7 @@ def flash_attention_bwd(
     lse = lse.contiguous()
     dq, di = dq_fn(q, k, v, segment_ids, lse, o, dout, sm_scale)
     dk, dv = dkv_fn(q, k, v, segment_ids, lse, di, dout, sm_scale)
-    return dq, dk, dv
+    return dq[..., :d], dk[..., :d], dv[..., :d]
 
 
 # copies of a dO the kernels could not read through its strides

@@ -64,6 +64,7 @@ from mfar_tpu_torch.ops.flash_attention import (
     flash_attention_tf32_bwd_dq,
     backward_route,
     forward_route,
+    pad_heads,
     _row_dots,
 )
 from mfar_tpu_torch.train.model import MFARModel
@@ -387,12 +388,18 @@ def test_k2_refuses_a_head_dim_past_256(card):
 
 def _route_inputs(dtype, d, layout, seed):
     """[2, 3, 256, d] q/k/v and dO with ragged and interleaved segments:
-    the encoder's strided views, or (``layout`` "offset") views that start
-    one element into their buffers, which TMA cannot read."""
+    the encoder's strided views, (``layout`` "offset") views that start
+    one element into their buffers, which TMA cannot read, or
+    ("padded_rows") views of [B, S, H*d + 2] buffers, whose rows are not
+    16 bytes apart."""
     rng = np.random.default_rng(seed)
     b, h, s = 2, 3, 256
 
     def one():
+        if layout == "padded_rows":
+            x = rng.normal(size=(b, s, h * d + 2)).astype(np.float32)
+            return torch.from_numpy(x).cuda().to(dtype)[..., :h * d].view(b, s, h, d) \
+                .transpose(1, 2)
         x = torch.from_numpy(rng.normal(size=b * s * h * d + 1).astype(np.float32)).cuda()
         x = x.to(dtype)[1:] if layout == "offset" else x.to(dtype)[:-1]
         return x.view(b, s, h, d).transpose(1, 2)
@@ -438,27 +445,39 @@ def test_forward_routes_match_plain(card, dtype, d, layout, route):
     else:
         torch.testing.assert_close(out.float(), want.float(), rtol=K2_TOL, atol=K2_TOL)
     torch.testing.assert_close(lse, _masked_lse(q, k, seg, scale), rtol=0, atol=SIMT_LSE_ATOL)
-    # a bf16 D = 64 input TMA cannot read trains through the CUDA-core pair
+    # a bf16 D = 64 input TMA cannot read trains through the wgmma pair on
+    # padded copies (at D = 64 no columns are added), not the CUDA-core pair
     if layout == "offset" and dtype == torch.bfloat16:
         dq_before = (flash_attention_bwd_dq.launches, flash_attention_simt_bwd_dq.launches)
         grads = flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
         torch.cuda.synchronize()
         assert (flash_attention_bwd_dq.launches, flash_attention_simt_bwd_dq.launches) == \
-            (dq_before[0], dq_before[1] + 1)
+            (dq_before[0] + 1, dq_before[1])
         _close_to_largest(grads, flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale))
 
 
 # each backward route's pair against the plain backward at small head dims,
 # on both sides of the tensor-core pairs' caps (bf16 D = 128, f32 D = 64):
 # the wgmma pair at one and two slabs (D = 16, 40: stores that stop inside a
-# slab; 72: a second slab of 8 columns), the 3xTF32 pair at one and two
-# slabs of 32, the CUDA-core pair past the caps and for what TMA cannot
-# read; three heads a row, so a store past D would run into the next head
+# slab; 72: a second slab of 8 columns), the same pair on zero-padded
+# copies of bf16 rows TMA cannot read (D = 26, TinyBERT's, padded to 32;
+# 20; 2; 25, an odd D; 126, padded to two slabs; a D = 26 view 2 bytes off
+# its buffer; D = 64 with rows 388 bytes apart), the 3xTF32 pair at one and
+# two slabs of 32, the CUDA-core pair past the caps and for f32 that TMA
+# cannot read; three heads a row, so a store past D would run into the next
+# head
 @pytest.mark.parametrize("dtype,d,layout,route", [
     (torch.bfloat16, 16, "encoder", "wgmma_headdim"),
     (torch.bfloat16, 40, "encoder", "wgmma_headdim"),
     (torch.bfloat16, 72, "encoder", "wgmma_headdim"),
     (torch.bfloat16, 128, "encoder", "wgmma_headdim"),
+    (torch.bfloat16, 26, "encoder", "wgmma_pad"),
+    (torch.bfloat16, 20, "encoder", "wgmma_pad"),
+    (torch.bfloat16, 2, "encoder", "wgmma_pad"),
+    (torch.bfloat16, 25, "encoder", "wgmma_pad"),
+    (torch.bfloat16, 126, "encoder", "wgmma_pad"),
+    (torch.bfloat16, 26, "offset", "wgmma_pad"),
+    (torch.bfloat16, 64, "padded_rows", "wgmma_pad"),
     (torch.bfloat16, 136, "encoder", "simt"),
     (torch.float32, 16, "encoder", "tf32"),
     (torch.float32, 20, "encoder", "tf32"),
@@ -472,22 +491,35 @@ def test_backward_routes_match_plain(card, dtype, d, layout, route):
     scale = 1.0 / d**0.5
     assert backward_route(q, k, v) == route
     out, lse = flash_attention_fwd(q, k, v, seg, scale)
+    args = [q, k, v, out, dout]
+    pair, d8 = route, d
+    if route == "wgmma_pad":  # zero-padded copies, on their own route's pair
+        d8 = -(-d // 8) * 8
+        args = [pad_heads(t, d8) for t in args]
+        pair = backward_route(*args[:3])
+        assert pair == ("wgmma" if d8 == 64 else "wgmma_headdim")
     before = _backward_counts()
     grads = flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
     torch.cuda.synchronize()
-    assert _backward_counts() == dict(before, **{route: tuple(n + 1 for n in before[route])})
+    assert _backward_counts() == dict(before, **{pair: tuple(n + 1 for n in before[pair])})
     want = flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale)
     if dtype == torch.float32:
         for g, w in zip(grads, want):
             torch.testing.assert_close(g, w, rtol=0, atol=SIMT_GRAD_REL * w.abs().max().item())
     else:
         _close_to_largest(grads, want)
-    for g in grads:
-        assert g.dtype == dtype and g.transpose(1, 2).is_contiguous()
-    dq, di = _BWD_PAIRS[route][0](q, k, v, seg, lse, out, dout, scale)
+    b, h, s = q.shape[:3]
+    for g in grads:  # views of [B, S, H, D8] buffers
+        assert g.dtype == dtype and g.shape == q.shape
+        assert g.transpose(1, 2).stride() == (s * h * d8, h * d8, d8, 1)
+    pq, pk, pv, po, pdo = args
+    dq, di = _BWD_PAIRS[pair][0](pq, pk, pv, seg, lse, po, pdo, scale)
     want_di = _row_dots(out, dout)
     torch.testing.assert_close(di, want_di, rtol=1e-5, atol=1e-5 * want_di.abs().max().item())
-    torch.testing.assert_close(dq, grads[0], rtol=0, atol=0)  # no atomics: the same bits
+    torch.testing.assert_close(dq[..., :d], grads[0], rtol=0, atol=0)  # no atomics: same bits
+    assert not dq[..., d:].any()  # the padded columns' gradients are 0
+    _, di_again = _BWD_PAIRS[pair][0](pq, pk, pv, seg, lse, po, pdo, scale)
+    assert torch.equal(di, di_again)
 
 
 def test_tensor_core_forwards_refuse_what_tma_cannot_read(card):

@@ -23,11 +23,13 @@ from jax.experimental.pallas.ops.tpu.flash_attention import SegmentIds
 from jax.experimental.pallas.ops.tpu.flash_attention import flash_attention as jax_flash
 
 from mfar_tpu_torch.ops.flash_attention import (
+    backward_route,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_plain,
+    pad_heads,
 )
 
 torch.set_num_threads(1)
@@ -61,7 +63,12 @@ def _inputs(b, h, s, rows, seed, d=64):
     return q, k, v, dout, seg
 
 
-def _jax_grads(q, k, v, dout, seg, dtype, scale=SCALE):
+_JAX_GRADS = {}  # JAX's gradients by their inputs' key: bf16 D = 26 feeds two tests
+
+
+def _jax_grads(q, k, v, dout, seg, dtype, scale=SCALE, key=None):
+    if key is not None and key in _JAX_GRADS:
+        return _JAX_GRADS[key]
     jseg = jnp.asarray(seg)
 
     def f(q, k, v):
@@ -71,14 +78,18 @@ def _jax_grads(q, k, v, dout, seg, dtype, scale=SCALE):
         args = [jnp.asarray(a).astype(dtype) for a in (q, k, v)]
         _, vjp = jax.vjp(f, *args)
         grads = vjp(jnp.asarray(dout).astype(dtype))
-    return [np.asarray(g.astype(jnp.float32)) for g in grads]
+    grads = [np.asarray(g.astype(jnp.float32)) for g in grads]
+    if key is not None:
+        _JAX_GRADS[key] = grads
+    return grads
 
 
 # pad queries whose first key block is wholly valid (masked for them), a full
 # row, and rows of 65 and 131 tokens; then the segment layouts; all at D = 64
 # (sm_scale 0.125).  Then the head dims the wgmma kernels do not take (the
 # card's CUDA-core route, whose plain version this is) at sm_scale 1 / sqrt(D):
-# 16, 32 and 128 in both dtypes, and 256 in f32
+# 16, 26 (TinyBERT-4L-312D's: padded for the wgmma pair in bf16, the
+# CUDA-core pair in f32), 32 and 128 in both dtypes, and 256 in f32
 @pytest.mark.parametrize("dtype,s,lengths,d", [
     pytest.param("f32", 256, [70, 200], 64, id="f32-256-lengths0"),
     pytest.param("bf16", 128, [128, 65], 64, id="bf16-128-lengths1"),
@@ -88,14 +99,14 @@ def _jax_grads(q, k, v, dout, seg, dtype, scale=SCALE):
     pytest.param("bf16", 256, SEG_LAYOUTS["interleaved"], 64, id="bf16-256-lengths5"),
     pytest.param("bf16", 256, SEG_LAYOUTS["one_segment"], 64, id="bf16-256-lengths6"),
     *(pytest.param(dt, 256, SEG_LAYOUTS["runs"], d, id=f"{dt}-256-runs-D{d}")
-      for d in (16, 32, 128) for dt in ("f32", "bf16")),
+      for d in (16, 26, 32, 128) for dt in ("f32", "bf16")),
     pytest.param("f32", 256, [70, 200], 256, id="f32-256-D256"),
 ])
 def test_plain_backward_matches_jax_vjp(dtype, s, lengths, d):
     q, k, v, dout, seg = _inputs(2, 2, s, lengths, seed=s + len(lengths), d=d)
     scale = 1.0 / np.sqrt(d)
     jdt, tdt = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
-    want = _jax_grads(q, k, v, dout, seg, jdt, scale)
+    want = _jax_grads(q, k, v, dout, seg, jdt, scale, key=(dtype, s, str(lengths), d))
     tq, tk, tv, tdo = (torch.from_numpy(a).to(tdt) for a in (q, k, v, dout))
     tseg = torch.from_numpy(seg)
     out, lse = flash_attention_fwd(tq, tk, tv, tseg, scale)
@@ -107,6 +118,53 @@ def test_plain_backward_matches_jax_vjp(dtype, s, lengths, d):
         else:
             np.testing.assert_allclose(g.float().numpy(), w, rtol=2e-2,
                                        atol=1e-2 * np.abs(w).max())
+
+
+LOG2E = 1.4426950408889634
+
+
+def _bwd_padded(q, k, v, seg, o, lse, dout, scale):
+    """The arithmetic of the card's "wgmma_pad" route (bf16 rows TMA cannot
+    read): q, k, v, o, dO copied into zero-padded buffers at D rounded up to
+    8 (``pad_heads``, whose layout must take a TMA route), which the wgmma
+    dq and dkv of csrc/flash_attention_bwd.cu read into 64-column slabs
+    (TMA zero-fills the rest); di = sum_d o * dO, S = Q K^T and dP = dO V^T
+    in f32; P = exp2(S * scale log2 e - lse log2 e) on same-segment pairs,
+    exactly 0 elsewhere; dS = P (dP - di) * scale in f32; P and dS rounded
+    to bf16 for the products they feed (dV = P^T dO, dK = dS^T Q, dQ = dS
+    K), f32 sums; the gradients in bf16, all 64 columns."""
+    d8 = -(-q.shape[-1] // 8) * 8
+    q, k, v, o, dout = (pad_heads(t, d8) for t in (q, k, v, o, dout))
+    assert backward_route(q, k, v) == "wgmma_headdim"
+    q, k, v, o, dout = (torch.nn.functional.pad(t.float(), (0, 64 - d8))
+                        for t in (q, k, v, o, dout))
+    di = (o * dout).sum(-1)
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    s = q @ k.transpose(-1, -2)
+    p = torch.where(same, torch.exp2(s * (scale * LOG2E) - (lse * LOG2E)[..., None]),
+                    torch.zeros(()))
+    ds = p * (dout @ v.transpose(-1, -2) - di[..., None]) * scale
+    p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    grads = (ds @ k, ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ dout)
+    return tuple(g.bfloat16() for g in grads)
+
+
+@pytest.mark.parametrize("d", [26, 20])
+def test_pad_route_arithmetic_keeps_the_bf16_gates_against_pallas(d):
+    """The "wgmma_pad" route's arithmetic at bf16 D = 26 (TinyBERT's) and 20
+    against jax.vjp of the Pallas flash_attention (interpreted) within K2b's
+    gates; the padded columns' gradients are exactly 0."""
+    s, lengths = 256, SEG_LAYOUTS["runs"]
+    q, k, v, dout, seg = _inputs(2, 2, s, lengths, seed=s + len(lengths), d=d)
+    scale = 1.0 / np.sqrt(d)
+    want = _jax_grads(q, k, v, dout, seg, jnp.bfloat16, scale, key=("bf16", s, str(lengths), d))
+    tq, tk, tv, tdo = (torch.from_numpy(a).bfloat16() for a in (q, k, v, dout))
+    tseg = torch.from_numpy(seg)
+    out, lse = flash_attention_fwd(tq, tk, tv, tseg, scale)  # the CUDA-core forward's plain
+    for g, w in zip(_bwd_padded(tq, tk, tv, tseg, out, lse, tdo, scale), want):
+        assert g.shape == (2, 2, s, 64) and bool((g[..., d:] == 0).all())
+        np.testing.assert_allclose(g[..., :d].float().numpy(), w, rtol=2e-2,
+                                   atol=1e-2 * np.abs(w).max())
 
 
 def test_forward_logsumexp_and_dispatch():

@@ -96,11 +96,19 @@ def test_forward_route(dtype, d, layout, want):
     (BF16, 128, "encoder", "wgmma_headdim"),  # the cap: two slabs of 64 columns
     (BF16, 136, "encoder", "simt"),  # past the cap
     (BF16, 256, "encoder", "simt"),
-    (BF16, 20, "encoder", "simt"),  # D not a multiple of 8
-    (BF16, 26, "contiguous", "simt"),
-    (BF16, 64, "offset", "simt"),
-    (BF16, 64, "padded_rows", "simt"),
-    (BF16, 32, "offset", "simt"),
+    # what TMA cannot read, bf16 up to D = 128: copied into zero-padded
+    # buffers that TMA reads, for the wgmma pair
+    (BF16, 20, "encoder", "wgmma_pad"),  # D not a multiple of 8
+    (BF16, 26, "contiguous", "wgmma_pad"),
+    (BF16, 64, "padded_rows", "wgmma_pad"),  # rows 260 bytes apart
+    (BF16, 26, "encoder", "wgmma_pad"),  # TinyBERT-4L-312D's heads
+    (BF16, 2, "encoder", "wgmma_pad"),
+    (BF16, 126, "encoder", "wgmma_pad"),  # padded to 128: two slabs
+    (BF16, 25, "encoder", "wgmma_pad"),  # odd D
+    (BF16, 26, "offset", "wgmma_pad"),  # 2 bytes off a 4-byte boundary
+    (BF16, 130, "encoder", "simt"),  # past the cap
+    (BF16, 64, "offset", "wgmma_pad"),
+    (BF16, 32, "offset", "wgmma_pad"),
     (F32, 16, "contiguous", "tf32"),
     (F32, 20, "encoder", "tf32"),  # a multiple of 4
     (F32, 64, "encoder", "tf32"),  # the cap: two slabs of 32 columns
@@ -113,11 +121,13 @@ def test_forward_route(dtype, d, layout, want):
 def test_backward_route(dtype, d, layout, want):
     t = _layout(dtype, d, layout)
     assert backward_route(t, t, t) == want
-    if want != "simt":  # one operand TMA cannot read sends all three to the CUDA cores
+    if want not in ("simt", "wgmma_pad"):
+        # one operand TMA cannot read sends all three to the padding copies
+        # in bf16, to the CUDA cores in f32
         for i in range(3):
             qkv = [t, t, t]
             qkv[i] = _layout(dtype, d, "padded_rows" if i == 1 else "offset")
-            assert backward_route(*qkv) == "simt"
+            assert backward_route(*qkv) == ("wgmma_pad" if dtype == BF16 else "simt")
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
