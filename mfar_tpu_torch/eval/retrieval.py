@@ -61,6 +61,14 @@ caller passed, on every rank, as one device does
 slices of the query batch.  Every collective of a call is issued in its
 dispatch half, none in :meth:`RetrievalEngine.finish`.
 
+A query's answer does not depend on its batch, as in the JAX daemon's one
+compiled shape: :meth:`RetrievalEngine.encode_queries` runs the encoder in
+calls of one row count a bucket width (:func:`query_call_rows`), and the
+products of query rows with the corpus and the mixer run in blocks of one
+row count (:func:`mfar_tpu_torch.ops.scoring.query_row_blocks`).  (The
+postings that the hybrid routes scatter-add on the card sum in an order
+that varies from run to run, within float rounding.)
+
 ``pallas_cross_row`` keeps the JAX engine's semantics: it needs the K1
 gather (``use_pallas_gather=False`` raises before any work), sends the
 one-device K1 route through K1x, and changes nothing where the JAX flag
@@ -82,6 +90,7 @@ from mfar_tpu_torch.data.types import Field
 from mfar_tpu_torch.native import bucket_width
 from mfar_tpu_torch.ops.gather_scores import gather_per_field_scores
 from mfar_tpu_torch.ops.scoring import (
+    SCORE_ROWS,
     as_host_tensor,
     dense_topk_chunked_int8,
     dense_topk_host_streamed,
@@ -117,11 +126,33 @@ TOPK_CHUNK = 131072
 # f32 score-tile budget for one streamed chunk ([B, chunk] f32).
 TOPK_SCORE_TILE_BYTES = 1 << 30
 
+# The query encoder runs a batch at bucket width W in calls of
+# query_call_rows(W) rows (the tail call padded with copies of the last
+# query), so each width has one encoder shape, whatever the batch.  cuBLAS
+# picks a kernel by shape, and so an order of summation (the plain
+# attention's f32 logits of 8 queries and of 16 take two kernels on the
+# H100), so a query encoded in calls of another row count gets other bits,
+# which bf16 layers carry up to a 6e-3 move of its scores; at one shape its
+# row is the same bits in any batch, as in the JAX daemon, which pads every
+# batch to one compiled shape.  QUERY_CALL_TOKENS: the serving daemon's
+# full batch of 256 queries at the 16-token bucket in one call.
+# QUERY_CALL_MIN_ROWS: a serving batch of 64 long queries in one call too,
+# since every call costs the host a fixed run of eager operators (at 16 rows
+# a call, 64 queries of the 256-token bucket took 3x as long).
+QUERY_CALL_TOKENS, QUERY_CALL_MIN_ROWS = 4096, 64
+
+
+def query_call_rows(width: int) -> int:
+    """Rows in every query encoder call at bucket width ``width``."""
+    return max(QUERY_CALL_MIN_ROWS, QUERY_CALL_TOKENS // width)
+
 
 def topk_chunk(n_rows: int, batch: int) -> int:
     """Corpus rows per streamed top-k chunk for a ``batch``-row dispatch: as
-    large as the f32 score-tile budget allows, never below TOPK_CHUNK."""
-    cap = TOPK_SCORE_TILE_BYTES // (4 * max(batch, 1))
+    large as the f32 score-tile budget allows for the batch's rows in
+    blocks of SCORE_ROWS (so every batch of up to SCORE_ROWS rows scans in
+    the same chunks), never below TOPK_CHUNK."""
+    cap = TOPK_SCORE_TILE_BYTES // (4 * SCORE_ROWS * max(-(-batch // SCORE_ROWS), 1))
     if cap >= n_rows:
         return max(n_rows, 1)
     return max(TOPK_CHUNK, cap - cap % TOPK_CHUNK)
@@ -478,11 +509,24 @@ class RetrievalEngine:
         return w.expand(q.shape[0], w.shape[-1])
 
     def encode_queries(self, queries: Sequence[str]) -> torch.Tensor:
+        """f32 ``[len(queries), E]`` query embeddings, encoded in calls of a
+        fixed row count for the batch's bucket width (:func:`query_call_rows`),
+        so that a query's row does not depend on the rest of its batch."""
         toks = self.tokenizer.encode_batch(
             [clean_query(q) for q in queries], self.query_max_length
         )
+        ids, mask = toks["input_ids"], toks["attention_mask"]
+        n, width = ids.shape
+        rows = query_call_rows(width)
+        if n % rows:
+            fill = np.full(rows - n % rows, n - 1)
+            ids, mask = np.concatenate([ids, ids[fill]]), np.concatenate([mask, mask[fill]])
         with torch.inference_mode():
-            return self.encode_fn(toks["input_ids"], toks["attention_mask"]).float()
+            if n == 0:
+                return self.encode_fn(ids, mask).float()
+            out = [self.encode_fn(ids[i : i + rows], mask[i : i + rows])
+                   for i in range(0, len(ids), rows)]
+            return (out[0] if len(out) == 1 else torch.cat(out))[:n].float()
 
     # -- sparse fields on the host ----------------------------------------
 

@@ -64,9 +64,16 @@ each pair counting its own launches:
   gradients handed back as views of their first D columns.  The padded
   columns of q, k, v and dO are 0, so S and dP are exact and the
   gradients' padded columns 0.
-- ``"simt"``, everything else up to D = 256 (f32 that TMA cannot read, and
-  the head dims past those caps: rows of more than 256 bytes, whose own
-  tiles and accumulators would not fit one block an SM):
+- ``"tf32_pad"``, f32 that TMA cannot read at D up to 64 (a D that is not a
+  multiple of 4, such as TinyBERT-4L-312D's 26, whose 104-byte rows no
+  tensor map describes, or strides that are not multiples of 16 bytes, or
+  a base off a 16-byte boundary): the same copies at D rounded up to 4,
+  then the 3xTF32 pair (``"tf32"``, whose launches count), the gradients
+  views of their first D columns.  A zero column splits into two zero
+  TF32 parts, so S and dP stay exact here too.
+- ``"simt"``, everything else up to D = 256 (the head dims past those caps:
+  rows of more than 256 bytes, whose own tiles and accumulators would not
+  fit one block an SM):
   ``csrc/flash_attention_simt.cu``'s CUDA-core pair
   (:func:`flash_attention_simt_bwd_dq`, :func:`flash_attention_simt_bwd_dkv`),
   in f32 FMA.
@@ -212,19 +219,19 @@ def backward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     three (:func:`_kernel_readable`): ``"wgmma"`` (bf16, D = 64),
     ``"wgmma_headdim"`` (bf16 at another D, a multiple of 8 up to 128: the
     same pair at ceil(D / 64) slabs), ``"tf32"`` (f32, D a multiple of 4 up
-    to 64: the 3xTF32 pair); then ``"wgmma_pad"`` for bf16 up to D = 128
-    that TMA cannot read (copied into zero-padded buffers that it reads, for
-    the wgmma pair); ``"simt"`` (the CUDA-core pair) for the rest, past
-    those caps too."""
+    to 64: the 3xTF32 pair); then, for what TMA cannot read, ``"wgmma_pad"``
+    (bf16 up to D = 128) and ``"tf32_pad"`` (f32 up to D = 64), copied into
+    zero-padded buffers that it reads, for the wgmma or the 3xTF32 pair;
+    ``"simt"`` (the CUDA-core pair) for the head dims past those caps."""
     d = q.shape[-1]
     tma = all(_kernel_readable(t) for t in (q, k, v))
     bf16 = q.dtype == torch.bfloat16
-    if tma and bf16 and d % 8 == 0 and d <= WGMMA_BWD_MAX_HEAD_DIM:
-        return "wgmma" if d == HEAD_DIM else "wgmma_headdim"
-    if tma and q.dtype == torch.float32 and d % 4 == 0 and d <= TF32_BWD_MAX_HEAD_DIM:
-        return "tf32"
     if bf16 and d <= WGMMA_BWD_MAX_HEAD_DIM:
+        if tma and d % 8 == 0:
+            return "wgmma" if d == HEAD_DIM else "wgmma_headdim"
         return "wgmma_pad"
+    if q.dtype == torch.float32 and d <= TF32_BWD_MAX_HEAD_DIM:
+        return "tf32" if tma and d % 4 == 0 else "tf32_pad"
     return "simt"
 
 
@@ -465,9 +472,10 @@ def flash_attention_bwd(
     ``di``), then kernel dkv, for CUDA tensors (the pair that
     :func:`backward_route` names); :func:`flash_attention_bwd_plain` for CPU
     tensors.  On the card the gradients are ``[B, H, S, D]`` views of
-    ``[B, S, H, D]`` buffers (``[B, S, H, D8]`` on the ``"wgmma_pad"``
-    route, whose inputs are all copied, padded, for the wgmma pair), and no
-    torch op computes ``di``.  A dO that the route's kernels cannot read
+    ``[B, S, H, D]`` buffers (of ``[B, S, H, D']`` ones on the ``"wgmma_pad"``
+    and ``"tf32_pad"`` routes, whose inputs are all copied, padded to D'
+    columns, for the wgmma or the 3xTF32 pair), and no torch op computes
+    ``di``.  A dO that the route's kernels cannot read
     through its strides is copied once (counted in
     ``flash_attention_bwd.dout_copies``); an ``o`` they cannot read
     raises."""
@@ -484,8 +492,9 @@ def flash_attention_bwd(
                         f"(want float32)")
     route = backward_route(q, k, v)
     d = q.shape[-1]
-    if route == "wgmma_pad":
-        q, k, v, o, dout = (pad_heads(t, -(-d // 8) * 8) for t in (q, k, v, o, dout))
+    if route in _PAD_COLUMNS:
+        width = -(-d // _PAD_COLUMNS[route]) * _PAD_COLUMNS[route]
+        q, k, v, o, dout = (pad_heads(t, width) for t in (q, k, v, o, dout))
         route = backward_route(q, k, v)
     dq_fn, dkv_fn = _BACKWARDS[route]
     readable = _simt_readable if route == "simt" else _kernel_readable
@@ -670,6 +679,10 @@ def flash_attention_simt_bwd_dkv(q, k, v, segment_ids, lse, di, dout, sm_scale):
     flash_attention_simt_bwd_dkv.launches += 1
     return dk, dv
 
+
+# the column multiple that each padding route of backward_route rounds D up
+# to: the wgmma pair reads 16-byte rows of bf16, the 3xTF32 pair of f32
+_PAD_COLUMNS = {"wgmma_pad": 8, "tf32_pad": 4}
 
 # each route's forward, by forward_route's name, and backward pair (dq,
 # dkv), by backward_route's

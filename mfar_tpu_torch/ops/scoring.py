@@ -25,6 +25,11 @@ Differences from the JAX module, none of which changes a result:
 - A bf16 corpus scores through :func:`scores_f32`: bf16 operands with f32
   accumulation and an f32 result, as ``jnp.dot(...,
   preferred_element_type=float32)`` gives.
+- The products whose rows are queries (the scan's, the field weights')
+  run in blocks of SCORE_ROWS rows (:func:`query_row_blocks`): cuBLAS and
+  the CPU's GEMMs pick their kernel, and so their order of summation, by
+  the row count, so a query's scores would otherwise change with the size
+  of its batch.  A compiled JAX program has one shape a batch size.
 - The int8 product is ``torch._int_mm`` (exact int32 sums, as ``jnp.dot(...,
   preferred_element_type=int32)``), with the operands padded to its CUDA
   shape limits (:func:`int8_dot`).
@@ -50,17 +55,40 @@ from torch.nn import functional as F
 
 TopK = Tuple[torch.Tensor, torch.Tensor]
 
+# the row count of every product whose rows are queries: the serving
+# daemon's full batch, so that one block serves it
+SCORE_ROWS = 256
+
+
+def query_row_blocks(fn: Callable[[torch.Tensor], torch.Tensor], a: torch.Tensor) -> torch.Tensor:
+    """``fn(a)`` for a row-wise product ``fn`` of ``[B, K]`` query rows,
+    computed on blocks of exactly SCORE_ROWS rows (the last padded with
+    zero rows) and cut back to B rows: each query's row comes from one
+    shape of product, whatever its batch and its place in it."""
+    b = a.shape[0]
+    if b == 0:
+        return fn(a)
+    if b % SCORE_ROWS:
+        a = torch.cat([a, a.new_zeros((SCORE_ROWS - b % SCORE_ROWS, *a.shape[1:]))])
+    out = [fn(a[i : i + SCORE_ROWS]) for i in range(0, a.shape[0], SCORE_ROWS)]
+    return (out[0] if len(out) == 1 else torch.cat(out))[:b]
+
 
 def scores_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b.T`` with an f32 result.  f32 operands multiply in f32 (TF32
-    stays off unless the caller turns it on); bf16 operands multiply on the
-    card with f32 accumulation and output, and on the CPU as f32 copies,
-    which is the same arithmetic (a bf16 product is exact in f32)."""
+    """``a @ b.T`` with an f32 result, for query rows ``a`` in blocks of
+    SCORE_ROWS rows (:func:`query_row_blocks`).  f32 operands multiply in
+    f32 (TF32 stays off unless the caller turns it on); bf16 operands
+    multiply on the card with f32 accumulation and output, and on the CPU
+    as f32 copies, which is the same arithmetic (a bf16 product is exact in
+    f32)."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
-        return torch.matmul(a, b.T)
-    if a.is_cuda:
-        return torch.mm(a, b.T, out_dtype=torch.float32)
-    return torch.matmul(a.float(), b.float().T)
+        mm = lambda x: torch.matmul(x, b.T)
+    elif a.is_cuda:
+        mm = lambda x: torch.mm(x, b.T, out_dtype=torch.float32)
+    else:
+        b32 = b.float().T
+        mm = lambda x: torch.matmul(x.float(), b32)
+    return query_row_blocks(mm, a)
 
 
 def softmax_field_weights(
@@ -76,7 +104,8 @@ def softmax_field_weights(
     if q is not None and W.shape[0] == q.shape[-1] and W.shape[0] > 1:
         # [E, F] query-conditioned (an [F, 1] global with F == E is
         # ambiguous and resolves here, as in the JAX package)
-        logits = torch.matmul(q.float(), W.float())  # [B, F]
+        w = W.float()
+        logits = query_row_blocks(lambda x: torch.matmul(x, w), q.float())  # [B, F]
     elif W.shape[0] == 1:
         logits = W[:1].float()  # [1, F] global
     elif W.shape[1] == 1:

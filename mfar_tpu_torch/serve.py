@@ -9,8 +9,13 @@ Counterpart of ``mfar_tpu/serve.py``: ``MicroBatcher`` and
   dispatches when ``max_batch`` queries wait or the window closes.  One
   scan of the corpus then serves the whole batch.
 - **No padding**: the JAX daemon pads every batch to ``max_batch`` so that
-  XLA compiles one program; the port runs eagerly and compiles nothing per
-  shape, so a batch carries only its real queries.  ``/stats`` still counts
+  XLA compiles one program, which also makes a query's answer independent
+  of its batch; the port's batch carries only its real queries, and the
+  engine keeps that independence itself: it encodes queries in calls of
+  one row count a bucket width and takes their products with the corpus
+  in blocks of one row count (``RetrievalEngine.encode_queries``,
+  ``ops.scoring.query_row_blocks``), so an answer is the same bits as
+  ``engine.retrieve`` on the request alone.  ``/stats`` still counts
   ``padded`` (the room left in each batch) and ``mean_batch_fill`` against
   ``max_batch``, as the JAX daemon reports them.
 - **Warm before the port opens**: :meth:`MicroBatcher.warmup` runs one full

@@ -463,9 +463,10 @@ def test_forward_routes_match_plain(card, dtype, d, layout, route):
 # copies of bf16 rows TMA cannot read (D = 26, TinyBERT's, padded to 32;
 # 20; 2; 25, an odd D; 126, padded to two slabs; a D = 26 view 2 bytes off
 # its buffer; D = 64 with rows 388 bytes apart), the 3xTF32 pair at one and
-# two slabs of 32, the CUDA-core pair past the caps and for f32 that TMA
-# cannot read; three heads a row, so a store past D would run into the next
-# head
+# two slabs of 32 and on zero-padded copies of f32 rows TMA cannot read
+# (D = 26, TinyBERT's, padded to 28; a D = 64 view 4 bytes off its
+# buffer), the CUDA-core pair past the caps; three heads a row, so a store
+# past D would run into the next head
 @pytest.mark.parametrize("dtype,d,layout,route", [
     (torch.bfloat16, 16, "encoder", "wgmma_headdim"),
     (torch.bfloat16, 40, "encoder", "wgmma_headdim"),
@@ -484,7 +485,8 @@ def test_forward_routes_match_plain(card, dtype, d, layout, route):
     (torch.float32, 36, "encoder", "tf32"),
     (torch.float32, 64, "encoder", "tf32"),
     (torch.float32, 68, "encoder", "simt"),
-    (torch.float32, 64, "offset", "simt"),
+    (torch.float32, 64, "offset", "tf32_pad"),
+    (torch.float32, 26, "encoder", "tf32_pad"),
 ], ids=lambda x: str(x).replace("torch.", ""))
 def test_backward_routes_match_plain(card, dtype, d, layout, route):
     q, k, v, seg, dout = _route_inputs(dtype, d, layout, seed=100 + d)
@@ -493,11 +495,13 @@ def test_backward_routes_match_plain(card, dtype, d, layout, route):
     out, lse = flash_attention_fwd(q, k, v, seg, scale)
     args = [q, k, v, out, dout]
     pair, d8 = route, d
-    if route == "wgmma_pad":  # zero-padded copies, on their own route's pair
-        d8 = -(-d // 8) * 8
+    if route in ("wgmma_pad", "tf32_pad"):  # zero-padded copies, on their own route's pair
+        multiple = 8 if route == "wgmma_pad" else 4
+        d8 = -(-d // multiple) * multiple
         args = [pad_heads(t, d8) for t in args]
         pair = backward_route(*args[:3])
-        assert pair == ("wgmma" if d8 == 64 else "wgmma_headdim")
+        assert pair == ("tf32" if route == "tf32_pad" else
+                        "wgmma" if d8 == 64 else "wgmma_headdim")
     before = _backward_counts()
     grads = flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
     torch.cuda.synchronize()
@@ -903,3 +907,27 @@ def test_t5_encoder_and_adafactor_on_the_card_match_the_cpu(card):
             opt.step()
     for (name, a), b in zip(cpu.state_dict().items(), gpu.state_dict().values()):
         torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-6, msg=name)
+
+
+def test_encoded_queries_do_not_depend_on_their_batch(card):
+    """A query's encoded row is the same bits whatever batch it is encoded
+    in, at Contriever-base width in bf16 (12 layers, hidden 768): 8 queries
+    alone and as the first and the last rows of batches of 16-256 queries
+    (``encode_queries`` runs every call at one row count a bucket width)."""
+    words = [f"w{i}" for i in range(5000)]
+    tok = SimpleVocabTokenizer.build([" ".join(words)], max_length=512)
+    cfg = EncoderConfig.contriever_base(vocab_size=tok.vocab_size)
+    assert cfg.dtype == torch.bfloat16 and cfg.hidden_size == 768 and cfg.num_layers == 12
+    encode = make_encode_fn(init_encoder(cfg, seed=2), device=card)
+    rng = np.random.default_rng(25)
+    fi = resolve_fields("title_dense,description_dense", "amazon")
+    engine = RetrievalEngine(
+        field_info=fi, doc_keys=[f"d{i}" for i in range(4096)], encode_fn=encode, tokenizer=tok,
+        mixer_params={"weight": rng.normal(size=(768, 2)).astype(np.float32)},
+        dense_matrix=rng.normal(size=(4096, 2, 768)).astype(np.float32),
+        dense_dtype=torch.bfloat16)
+    qs = [" ".join(rng.choice(words, size=8)) for _ in range(256)]
+    alone = engine.encode_queries(qs[:8])
+    for size in (16, 24, 48, 128, 200, 256):
+        assert torch.equal(engine.encode_queries(qs[:size])[:8], alone), size
+        assert torch.equal(engine.encode_queries(qs[8:size] + qs[:8])[-8:], alone), size

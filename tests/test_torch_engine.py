@@ -39,7 +39,7 @@ from mfar_tpu_torch.data.schema import resolve_fields
 from mfar_tpu_torch.data.types import Corpus
 from mfar_tpu_torch.eval import index_build as port_index
 from mfar_tpu_torch.eval.compare import rankings_agree
-from mfar_tpu_torch.eval.retrieval import RetrievalEngine
+from mfar_tpu_torch.eval.retrieval import RetrievalEngine, query_call_rows
 from mfar_tpu_torch.models import T5Config, build_encoder
 from mfar_tpu_torch.models.convert import encoder_state_from_jax, mixer_from_jax, t5_state_from_jax
 from mfar_tpu_torch.models.encoder import Encoder, EncoderConfig
@@ -271,6 +271,54 @@ def test_sparse_fields_are_served(world):
     docs = torch.as_tensor(world["port_matrix"])
     top_s, top_i = torch.topk(torch.einsum("be,nfe,bf->bn", q, docs, w), 5)
     _agree(masked, eng._to_keyed(top_s.numpy(), top_i.numpy()))
+
+
+def _eight_and_filler(world, size):
+    """Eight queries and ``size - 8`` others of the same bucket width (the
+    world's six queries, repeated)."""
+    qs = world["queries"]
+    return [qs[i % len(qs)] for i in range(8)], [qs[i % len(qs)] for i in range(3, size - 5)]
+
+
+@pytest.mark.parametrize("mode", ["exact", "rerank"])
+@pytest.mark.parametrize("size", [16, 48, 256])
+def test_a_query_is_answered_alike_in_any_batch(world, mode, size):
+    """A request's answers are the same bits alone and as the first or the
+    last rows of a batch of ``size`` queries at its bucket width: the
+    engine encodes queries in calls of one row count a width."""
+    eng = RetrievalEngine(**world["port_kw"])
+    eight, filler = _eight_and_filler(world, size)
+    alone = eng.retrieve(eight, top_k=5, mode=mode)
+    assert eng.retrieve(eight + filler, top_k=5, mode=mode)[:8] == alone
+    assert eng.retrieve(filler + eight, top_k=5, mode=mode)[-8:] == alone
+
+
+def test_queries_encode_in_calls_of_one_row_count(world):
+    """Every call of the query encoder has query_call_rows(width) rows (the
+    tail padded with copies of the last query), whatever the batch; the
+    rows come back in order, one a query, as the unpadded call gives
+    them."""
+    calls = []
+
+    def encode(ids, mask):
+        calls.append(ids.shape)
+        return world["port_kw"]["encode_fn"](ids, mask)
+
+    eng = RetrievalEngine(**{**world["port_kw"], "encode_fn": encode})
+    eight, filler = _eight_and_filler(world, 600)
+    width = eng.tokenizer.encode_batch(eight, 64)["input_ids"].shape[1]
+    rows = query_call_rows(width)
+    # 4096 tokens a call, and at least 64 rows: 64 queries of the 256-token
+    # bucket in one call
+    assert rows == 4096 // width and query_call_rows(256) == 64
+    for batch in (eight[:1], eight, eight + filler):
+        calls.clear()
+        got = eng.encode_queries(batch)
+        assert got.shape == (len(batch), HIDDEN) and got.dtype == torch.float32
+        assert calls == [(rows, width)] * -(-len(batch) // rows)
+        toks = eng.tokenizer.encode_batch(batch, 64)
+        want = world["port_kw"]["encode_fn"](toks["input_ids"], toks["attention_mask"])
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("ext", [".npz", ".npy"])

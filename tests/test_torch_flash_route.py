@@ -22,6 +22,9 @@ its products (S, dP, dV, dK, dQ) in 3xTF32 with P and dS kept in f32;
 ``_bwd_3xtf32`` emulates that and is held against ``jax.vjp`` of the Pallas
 ``flash_attention`` in interpret mode within the card's f32 gate for
 gradients (2e-5 of the largest), which one TF32 product a product misses.
+It is held so too on zero-padded copies at TinyBERT-4L-312D's f32 D = 26
+(padded to 28), the card's ``"tf32_pad"`` route for f32 rows TMA cannot
+read.
 """
 
 import numpy as np
@@ -34,7 +37,7 @@ from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu import flash_attention as jax_fa
 from jax.experimental.pallas.ops.tpu.flash_attention import BlockSizes, SegmentIds
 
-from mfar_tpu_torch.ops.flash_attention import backward_route, forward_route
+from mfar_tpu_torch.ops.flash_attention import backward_route, flash_attention_fwd, forward_route
 
 torch.set_num_threads(1)
 
@@ -114,20 +117,25 @@ def test_forward_route(dtype, d, layout, want):
     (F32, 64, "encoder", "tf32"),  # the cap: two slabs of 32 columns
     (F32, 68, "encoder", "simt"),  # past the cap
     (F32, 256, "encoder", "simt"),
-    (F32, 26, "encoder", "simt"),  # not a multiple of 4
-    (F32, 64, "offset", "simt"),
-    (F32, 64, "padded_rows", "simt"),
+    # what TMA cannot read, f32 up to D = 64: copied into zero-padded
+    # buffers that TMA reads, for the 3xTF32 pair
+    (F32, 26, "encoder", "tf32_pad"),  # not a multiple of 4: TinyBERT-4L-312D's heads
+    (F32, 26, "contiguous", "tf32_pad"),
+    (F32, 2, "encoder", "tf32_pad"),
+    (F32, 62, "encoder", "tf32_pad"),  # padded to 64: two slabs
+    (F32, 64, "offset", "tf32_pad"),
+    (F32, 64, "padded_rows", "tf32_pad"),
+    (F32, 66, "encoder", "simt"),  # past the cap
 ], ids=lambda x: str(x).replace("torch.", ""))
 def test_backward_route(dtype, d, layout, want):
     t = _layout(dtype, d, layout)
     assert backward_route(t, t, t) == want
-    if want not in ("simt", "wgmma_pad"):
+    if want not in ("simt", "wgmma_pad", "tf32_pad"):
         # one operand TMA cannot read sends all three to the padding copies
-        # in bf16, to the CUDA cores in f32
         for i in range(3):
             qkv = [t, t, t]
             qkv[i] = _layout(dtype, d, "padded_rows" if i == 1 else "offset")
-            assert backward_route(*qkv) == ("wgmma_pad" if dtype == BF16 else "simt")
+            assert backward_route(*qkv) == ("wgmma_pad" if dtype == BF16 else "tf32_pad")
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -252,3 +260,27 @@ def test_3xtf32_backward_keeps_the_f32_gate_against_pallas(d, layout):
     one = _bwd_3xtf32(tq, tk, tv, tseg, o, lse, tdo, scale, mm=_mm_1xtf32)
     assert max(np.abs(g.numpy() - w).max() / np.abs(w).max() for g, w in zip(one, want)) \
         > GRAD_REL
+
+
+def test_3xtf32_backward_on_padded_copies_keeps_the_f32_gate_against_pallas():
+    """The card's "tf32_pad" route at TinyBERT-4L-312D's D = 26, whose f32
+    rows TMA cannot read: q, k, v, o and dO copied into zero-padded
+    buffers at D = 28, the 3xTF32 pair's arithmetic on the copies (at the
+    scale of D = 26), the gradients' first 26 columns against ``jax.vjp``
+    of the Pallas kernel in interpret mode within the f32 gate; the padded
+    columns' gradients are exactly 0."""
+    d, width = 26, 28
+    rng = np.random.default_rng(2026)
+    q, k, v, dout = (rng.normal(size=(B, H, S, d)).astype(np.float32) for _ in range(4))
+    seg = np.asarray(SEG_LAYOUTS["runs"], np.int32)
+    scale = 1.0 / np.sqrt(d)
+    want = _jax_grads(q, k, v, dout, seg, scale)
+    tq, tk, tv, tdo, tseg = (torch.from_numpy(a) for a in (q, k, v, dout, seg))
+    o, lse = flash_attention_fwd(tq, tk, tv, tseg, scale)  # the CUDA-core forward's, in f32
+    padded = [torch.nn.functional.pad(t, (0, width - d)) for t in (tq, tk, tv, o, tdo)]
+    pq, pk, pv, po, pdo = padded
+    got = _bwd_3xtf32(pq, pk, pv, tseg, po, lse, pdo, scale)
+    for g, w in zip(got, want):
+        assert not g[..., d:].any()
+        np.testing.assert_allclose(g[..., :d].numpy(), w, rtol=0,
+                                   atol=GRAD_REL * np.abs(w).max())

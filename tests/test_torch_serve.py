@@ -272,6 +272,33 @@ def test_concurrent_requests_coalesce_and_match_engine(world):
         b.stop()
 
 
+def test_a_daemon_answer_is_the_request_alone(world):
+    """Requests coalesced into batches of up to 64 queries are answered
+    with the same bits as ``engine.retrieve`` on each request alone: the
+    engine's answer for a query does not depend on its batch."""
+    eng, qs = world["engine"], world["queries"]
+    rec = _Recorder(eng)
+    b = MicroBatcher(rec, max_batch=64, max_wait_ms=200.0, top_k=5).start()
+    requests = [[qs[(5 * i + j) % len(qs)] for j in range(8)] for i in range(6)]
+    results = [None] * len(requests)
+
+    def call(i):
+        results[i] = b.submit(requests[i])
+
+    try:
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(len(requests))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=TIMEOUT)
+            assert not t.is_alive()
+    finally:
+        b.stop()
+    assert max(rec.batches) > 8  # some requests shared a batch
+    for request, got in zip(requests, results):
+        assert got == eng.retrieve(request, top_k=5)
+
+
 def test_oversized_request_goes_through_retrieve_many(world):
     rec = _Recorder(world["engine"])
     b = MicroBatcher(rec, max_batch=4, max_wait_ms=1.0, top_k=5).start()
