@@ -40,19 +40,25 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 routing rule gives (bf16 at another head dim: the wgmma
                 kernels at ceil(D / 64) slabs, the backward up to D = 128;
                 f32: the 3xTF32 kernels of csrc/flash_attention_tf32.cu and,
-                up to D = 64, csrc/flash_attention_tf32_bwd.cu; what TMA
-                cannot read: the CUDA-core forward of
-                csrc/flash_attention_simt.cu, and the backward of bf16 up
+                up to D = 64, csrc/flash_attention_tf32_bwd.cu; heads TMA
+                cannot read one by one but can as rows of heads side by
+                side (TinyBERT's D = 26 in the encoder's [B, S, H*D]
+                projections): the wgmma and 3xTF32 forwards on row maps
+                ("wgmma_rows", "tf32_rows"); what neither map reads: the
+                CUDA-core forward of
+                csrc/flash_attention_simt.cu; the backward of bf16 up
                 to D = 128 on the wgmma pair over zero-padded copies at D
                 rounded up to 8 (the "wgmma_pad" route), of f32 up to D =
                 64 on the 3xTF32 pair over copies at D rounded up to 4
                 ("tf32_pad"); the backward past those caps on the
                 CUDA-core pair), forward,
                 logsumexp, dq (with di, its bits on a second run) and dkv:
-                small segment-id cases at D = 2-256 in f32 and bf16 (D = 26
-                f32, D = 2, 20, 25 and 126 bf16, and D = 64 in layouts TMA
-                cannot read, on the CUDA-core forward; the CUDA-core pair
-                past the caps: f32 D = 68-256, bf16 D = 136 and 256), then
+                small segment-id cases at D = 2-256 in f32 and bf16 (D = 2,
+                26 and 62 f32 and D = 2, 20, 25, 26 and 126 bf16 at 8 heads
+                on the rows routes; D = 26 f32, D = 2, 20, 25 and 126 bf16
+                contiguous, and D = 64 in layouts TMA cannot read, on the
+                CUDA-core forward; the CUDA-core pair past the caps: f32
+                D = 68-256, bf16 D = 136 and 256), then
                 the main
                 paths' shapes (f32 [256, 12, 512, 64] and [96, 12, 512,
                 64], D = 32 [256, 12, 512, 32] in both dtypes and its bf16
@@ -60,9 +66,10 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 12, 512, 26] and [96, 12, 512, 26] in bf16 and f32, D = 16
                 [256, 4, 128, 16]); times of each
                 route's kernels, the CUDA-core kernels on the same inputs,
-                the whole padded backward (copies and pair), the plain
-                versions and SDPA with the boolean segment mask, beside the
-                bound
+                on the rows routes the same kernel on zero-padded copies
+                (its output and logsumexp bit-equal), the whole padded
+                backward (copies and pair), the plain versions and SDPA
+                with the boolean segment mask, beside the bound
 6. e2e       -- a synthetic mag-shaped corpus (2048 docs x 5 dense fields)
                 encoded by the full-width encoder with attention_impl="auto"
                 (the 512-token fields through K2), held against the same
@@ -135,10 +142,10 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 all-MiniLM-L6-v2's width (bf16, D = 32: the wgmma forward
                 and backward at one slab) through prepare_model: the build
                 against "xla", one train batch; (c) the same at
-                TinyBERT_General_4L_312D's width (D = 26: the CUDA-core
-                forward, the wgmma backward on zero-padded copies); (d) one
-                train batch at that width in f32 (the CUDA-core forward
-                and backward)
+                TinyBERT_General_4L_312D's width (D = 26: the wgmma forward
+                on row maps, the wgmma backward on zero-padded copies); (d)
+                one train batch at that width in f32 (the 3xTF32 forward on
+                row maps, the 3xTF32 backward on zero-padded copies)
 12. serving  -- the same engine over a prebuilt random [131072, 5, 768] bf16
                 corpus in rerank mode: QPS, one batch's stages, and the
                 device's busy share and time by kernel from torch.profiler
@@ -316,12 +323,14 @@ from mfar_tpu_torch.ops.flash_attention import (
     flash_attention_fwd,
     flash_attention_headdim,
     flash_attention_plain,
+    flash_attention_rows,
     flash_attention_simt,
     flash_attention_simt_bwd_dkv,
     flash_attention_simt_bwd_dq,
     flash_attention_tf32,
     flash_attention_tf32_bwd_dkv,
     flash_attention_tf32_bwd_dq,
+    flash_attention_tf32_rows,
     pad_heads,
     _row_dots,
 )
@@ -973,19 +982,22 @@ BWD_PAIRS = {"wgmma": (flash_attention_bwd_dq, flash_attention_bwd_dkv),
 
 
 def k2_counts() -> dict:
-    """Launches of K2's four forwards, by route, and of K2b's four pairs
+    """Launches of K2's six forwards, by route, and of K2b's four pairs
     (``<route>_dkv``, ``<route>_dq``)."""
     out = {"wgmma": flash_attention.launches, "wgmma_headdim": flash_attention_headdim.launches,
-           "tf32": flash_attention_tf32.launches, "simt": flash_attention_simt.launches}
+           "tf32": flash_attention_tf32.launches, "wgmma_rows": flash_attention_rows.launches,
+           "tf32_rows": flash_attention_tf32_rows.launches,
+           "simt": flash_attention_simt.launches}
     for route, (dq_fn, dkv_fn) in BWD_PAIRS.items():
         out[f"{route}_dkv"], out[f"{route}_dq"] = dkv_fn.launches, dq_fn.launches
     return out
 
 
 def reset_k2_counts() -> None:
-    """Every K2/K2b count to 0: the four forwards, the four backward pairs."""
+    """Every K2/K2b count to 0: the six forwards, the four backward pairs."""
     reset_counts()
     flash_attention_headdim.launches = flash_attention_tf32.launches = 0
+    flash_attention_rows.launches = flash_attention_tf32_rows.launches = 0
     flash_attention_simt.launches = 0
     for dq_fn, dkv_fn in BWD_PAIRS.values():
         dq_fn.launches = dkv_fn.launches = 0
@@ -997,20 +1009,27 @@ def launched(**want: int) -> dict:
     return dict({k: 0 for k in k2_counts()}, **want)
 
 
-def expected_route(t, bf16_cap=256, f32_cap=256) -> str:
+def expected_route(t, bf16_cap=256, f32_cap=256, rows=True) -> str:
     """The forward's route by the routing rule, for q, k and v laid out as
     ``t``: bf16 at D = 64 "wgmma", bf16 at another D that is a multiple of 8
     "wgmma_headdim", f32 at a D that is a multiple of 4 "tf32", each where
     TMA can read the operands (the B, H and S strides multiples of 16
-    bytes, from a 16-byte boundary) and D is at most the dtype's cap; every
-    other input "simt"."""
+    bytes, from a 16-byte boundary) and D is at most the dtype's cap; with
+    ``rows``, of the rest, "wgmma_rows" (bf16, D up to 249) and "tf32_rows"
+    (f32, up to 253) where the heads lie side by side (the H stride D) in
+    rows TMA can read (the B and S strides multiples of 16 bytes, from a
+    16-byte boundary); every other input "simt"."""
     d = t.shape[-1]
-    tma = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
-        st * t.element_size() % 16 == 0 for st in t.stride()[:3])
+    aligned = t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+    tma = aligned and all(st * t.element_size() % 16 == 0 for st in t.stride()[:3])
     if tma and t.dtype == torch.bfloat16 and d % 8 == 0 and d <= bf16_cap:
         return "wgmma" if d == 64 else "wgmma_headdim"
     if tma and t.dtype == torch.float32 and d % 4 == 0 and d <= f32_cap:
         return "tf32"
+    # (rows: D + 7 or D + 3 columns, as a head can start that far into a box)
+    if rows and aligned and t.stride(1) == d and d + 16 // t.element_size() - 1 <= 256 and all(
+            t.stride(i) * t.element_size() % 16 == 0 for i in (0, 2)):
+        return "wgmma_rows" if t.dtype == torch.bfloat16 else "tf32_rows"
     return "simt"
 
 
@@ -1019,7 +1038,7 @@ def expected_backward_route(t) -> str:
     capped at 128 in bf16 and 64 in f32 (rows of up to 256 bytes); of what
     that sends to "simt", bf16 up to D = 128 "wgmma_pad" and f32 up to D =
     64 "tf32_pad" (zero-padded copies for the wgmma or the 3xTF32 pair)."""
-    route = expected_route(t, bf16_cap=128, f32_cap=64)
+    route = expected_route(t, bf16_cap=128, f32_cap=64, rows=False)
     if route == "simt" and t.shape[-1] <= PAD_CAPS[t.dtype][0]:
         return PAD_CAPS[t.dtype][1]
     return route
@@ -1049,12 +1068,17 @@ def backward_pair(route, d) -> str:
     return "wgmma" if padded_dim(route, d) == 64 else "wgmma_headdim"
 
 
-def k2g_inputs(gen, b, h, s, d, dtype, rows):
+def k2g_inputs(gen, b, h, s, d, dtype, rows, contiguous=False):
     """k2b_inputs at head dim ``d`` and ``dtype``: q/k/v and dO as strided
-    [B, H, S, d] views of [B, S, H*d] buffers, and int32 segment ids (each
-    entry of ``rows`` a valid length or a list of S ids)."""
-    q, k, v, dout = (torch.randn(b, s, h * d, device=DEVICE, generator=gen).to(dtype)
-                     .view(b, s, h, d).transpose(1, 2) for _ in range(4))
+    [B, H, S, d] views of [B, S, H*d] buffers (or, ``contiguous``,
+    contiguous [B, H, S, d] tensors), and int32 segment ids (each entry of
+    ``rows`` a valid length or a list of S ids)."""
+    if contiguous:
+        q, k, v, dout = (torch.randn(b, h, s, d, device=DEVICE, generator=gen).to(dtype)
+                         for _ in range(4))
+    else:
+        q, k, v, dout = (torch.randn(b, s, h * d, device=DEVICE, generator=gen).to(dtype)
+                         .view(b, s, h, d).transpose(1, 2) for _ in range(4))
     return q, k, v, segment_rows(b, s, rows), dout
 
 
@@ -1160,12 +1184,19 @@ K2G_CASES = [
 # bf16 at every D a multiple of 8 but 64 the wgmma kernel (40, 72 and 136
 # stop inside a 64-column slab); the backward takes the 3xTF32 pair up to
 # f32 D = 64 and the wgmma pair up to bf16 D = 128, the CUDA-core pair past
-# them (f32 68, bf16 136: each cap's other side); K2G_SIMT_DIMS, which TMA
-# cannot read, take the CUDA-core forward, and the backward over
-# zero-padded copies: in f32 on the 3xTF32 pair (D = 26 padded to 28), in
-# bf16 on the wgmma pair (2, 20, 25: an odd D, 126: padded to two slabs)
+# them (f32 68, bf16 136: each cap's other side); K2G_ROWS_DIMS, whose
+# heads TMA cannot read one by one, at K2G_ROWS_HEADS heads a row (rows of
+# 16-byte multiples) take the rows routes, the last head's box reaching the
+# map's zero fill (f32 2, 26 and 62: up to three slabs; bf16 2, 20, 25: an
+# odd D, 26, 126: up to three slabs); K2G_SIMT_DIMS, laid out contiguous
+# (rows of D * 2 or D * 4 bytes, which no map reads), take the CUDA-core
+# forward; both take the backward over zero-padded copies: in f32 on the
+# 3xTF32 pair (D = 26 padded to 28), in bf16 on the wgmma pair (126:
+# padded to two slabs)
 K2G_DIMS = {torch.float32: (16, 20, 32, 48, 64, 68, 128, 136, 256),
             torch.bfloat16: (16, 32, 40, 48, 72, 128, 136, 256)}
+K2G_ROWS_DIMS = {torch.float32: (2, 26, 62), torch.bfloat16: (2, 20, 25, 26, 126)}
+K2G_ROWS_HEADS = 8
 K2G_SIMT_DIMS = {torch.float32: (26,), torch.bfloat16: (2, 20, 25, 126)}
 
 
@@ -1200,10 +1231,40 @@ def grads_rel(got, want, label, f32) -> float:
     return rel
 
 
+def rows_against_padded(q, k, v, seg, scale, lse_shape) -> dict:
+    """A rows route's forward against the same kernel on copies of q, k and
+    v zero-padded to D rounded up to 8 (bf16) or 4 (f32) by ``pad_heads``,
+    at the real scale: the output's first D columns and (``lse_shape``) the
+    logsumexp bit-equal at every head (checked), and CUDA-event times of the
+    kernel on the copies (``pad_ms``) and of the copies and the kernel
+    (``pad_copy_ms``)."""
+    d, multiple = q.shape[-1], 16 // q.element_size()  # rows of 16-byte multiples
+    width = -(-d // multiple) * multiple
+    if lse_shape:
+        fwd = lambda *qkv: flash_attention_fwd(*qkv, seg, scale)
+    else:
+        fwd = lambda *qkv: (flash_attention(*qkv, seg, scale), None)
+    pq, pk, pv = (pad_heads(t, width) for t in (q, k, v))
+    check(expected_route(pq) in ("wgmma", "wgmma_headdim", "tf32"),
+          f"padded copies at D = {width}: route {expected_route(pq)}")
+    (got, got_lse), (want, want_lse) = fwd(q, k, v), fwd(pq, pk, pv)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want[..., :d]) and (not lse_shape or torch.equal(got_lse, want_lse)),
+          f"K2 ({expected_route(q)}) at {list(q.shape)} {q.dtype}: not bit-equal to "
+          f"{expected_route(pq)} on copies padded to D = {width} (output max abs diff "
+          f"{(got.float() - want[..., :d].float()).abs().max().item()})")
+    return dict(pad_route=expected_route(pq), pad_width=width, pad_bit_equal=True,
+                pad_ms=time_cuda(lambda: fwd(pq, pk, pv), reps=11, inner=3),
+                pad_copy_ms=time_cuda(lambda: fwd(*(pad_heads(t, width) for t in (q, k, v))),
+                                      reps=11, inner=3))
+
+
 def k2g_times(q, k, v, seg, dout=None, lse_shape=False) -> dict:
     """CUDA-event times of the forward on its route (with the logsumexp when
     ``lse_shape``), the CUDA-core forward on the same inputs (held against
-    the plain version first: ``simt_err``), the plain version and SDPA with
+    the plain version first: ``simt_err``), on the rows routes the same
+    kernel on zero-padded copies (``rows_against_padded``: bit-equal), the
+    plain version and SDPA with
     the boolean segment mask (the library yardstick); with ``dout`` also
     dq and dkv on the backward's route, the CUDA-core pair on the same
     inputs (held against the plain backward first: ``simt_bwd_rel``, the
@@ -1235,6 +1296,8 @@ def k2g_times(q, k, v, seg, dout=None, lse_shape=False) -> dict:
              plain_ms=time_cuda(lambda: flash_attention_plain(q, k, v, seg, scale), **slow),
              library_ms=time_cuda(lambda: library_attention(q, k, v, seg, scale), **slow),
              bound_ms=bound[0], bound_by=bound[1])
+    if r["route"] in ("wgmma_rows", "tf32_rows"):
+        r.update(rows_against_padded(q, k, v, seg, scale, lse_shape))
     if dout is not None:
         out, lse = flash_attention_fwd(q, k, v, seg, scale)
         bwd_route = expected_backward_route(q)
@@ -1286,24 +1349,26 @@ def k2g_times(q, k, v, seg, dout=None, lse_shape=False) -> dict:
 
 def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
     """K2's forwards other than the wgmma one at D = 64 (the wgmma kernel at
-    other head dims, the 3xTF32 kernel, the CUDA-core kernel) and K2b's
-    pairs other than the wgmma one at D = 64 (the wgmma pair at other head
-    dims, the 3xTF32 pair, the CUDA-core pair) against the plain versions
-    on the card, each input on the routes the routing rule gives: the small
-    cases at every head dim of K2G_DIMS in f32 and bf16 and layouts TMA
-    cannot read (the CUDA-core kernels), then the shapes of the main paths:
-    f32 at the build's [256, 12, 512, 64] (forward) and the train step's
-    [96, 12, 512, 64] (with the logsumexp, and the backward),
-    all-MiniLM-L6-v2's D = 32 at [256, 12, 512, 32] in bf16 and f32 and its
-    backward at [96, 12, 512, 32] in bf16, TinyBERT_General_4L_312D's D = 26
-    at [256, 12, 512, 26] and [96, 12, 512, 26] in bf16 (the CUDA-core
-    forward's main path; the backward on the wgmma pair over zero-padded
-    copies, beside the CUDA-core pair) and in f32 (the backward on the
-    3xTF32 pair over copies padded to D = 28, beside the CUDA-core pair),
-    and
-    EncoderConfig.tiny's [256, 4, 128, 16] in both; CUDA-event times of
-    each route's forward and backward, the CUDA-core kernels on the same
-    inputs, the plain versions and SDPA, beside the bound."""
+    other head dims and on row maps, the 3xTF32 kernel, also on row maps,
+    the CUDA-core kernel) and K2b's pairs other than the wgmma one at D = 64
+    (the wgmma pair at other head dims, the 3xTF32 pair, the CUDA-core pair)
+    against the plain versions on the card, each input on the routes the
+    routing rule gives: the small cases at every head dim of K2G_DIMS in
+    f32 and bf16, of K2G_ROWS_DIMS (the rows routes) and layouts no map
+    reads (the CUDA-core forward), then the shapes of the main paths: f32 at
+    the build's [256, 12, 512, 64] (forward) and the train step's [96, 12,
+    512, 64] (with the logsumexp, and the backward), all-MiniLM-L6-v2's D =
+    32 at [256, 12, 512, 32] in bf16 and f32 and its backward at [96, 12,
+    512, 32] in bf16, TinyBERT_General_4L_312D's D = 26 at [256, 12, 512,
+    26] and [96, 12, 512, 26] in bf16 (the forward on "wgmma_rows", beside
+    the CUDA-core forward and the same kernel on zero-padded copies; the
+    backward on the wgmma pair over zero-padded copies, beside the
+    CUDA-core pair) and in f32 (the forward on "tf32_rows", beside the
+    same; the backward on the 3xTF32 pair over copies padded to D = 28,
+    beside the CUDA-core pair), and EncoderConfig.tiny's [256, 4, 128, 16]
+    in both; CUDA-event times of each route's forward and backward, the
+    CUDA-core kernels on the same inputs, the plain versions and SDPA,
+    beside the bound."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
     keys = ("fwd", "lse", "dq", "dkv", "rel")
     by_route, f32_err = {}, dict.fromkeys(keys, 0.0)
@@ -1320,10 +1385,20 @@ def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
                 f32_err[key] = max(f32_err[key], r[key])
 
     for dtype in K2G_DIMS:
-        for d in K2G_DIMS[dtype] + K2G_SIMT_DIMS[dtype]:
+        for d in K2G_DIMS[dtype]:
             for b, h, s, rows in K2G_CASES:
                 label = f"{dtype} D={d} B={b} H={h} S={s}"
                 hold(check_k2g(*k2g_inputs(gen, b, h, s, d, dtype, rows), label), dtype)
+        for d in K2G_ROWS_DIMS[dtype]:
+            for b, _, s, rows in K2G_CASES:
+                h = K2G_ROWS_HEADS
+                label = f"{dtype} D={d} B={b} H={h} S={s}"
+                hold(check_k2g(*k2g_inputs(gen, b, h, s, d, dtype, rows), label), dtype)
+        for d in K2G_SIMT_DIMS[dtype]:
+            for b, h, s, rows in K2G_CASES:
+                label = f"{dtype} D={d} B={b} H={h} S={s} contiguous"
+                hold(check_k2g(*k2g_inputs(gen, b, h, s, d, dtype, rows, contiguous=True),
+                               label), dtype)
         rows = K2G_CASES[1][3]
         hold(check_k2g(*misaligned_k2g_inputs(gen, dtype, rows),
                        f"{dtype} D=64 in a layout TMA cannot read"), dtype)
@@ -1333,10 +1408,12 @@ def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
     phase("k2g", f"small cases (S=128/256/384, B=1, H=1, several segments, interleaved ids, "
                  f"one-segment rows, ragged pads) at D={K2G_DIMS[torch.float32]} in f32 and "
                  f"D={K2G_DIMS[torch.bfloat16]} in bf16 (the backward on the tensor cores up "
-                 f"to f32 D = 64 and bf16 D = 128), D={K2G_SIMT_DIMS[torch.float32]} in f32, "
-                 f"D={K2G_SIMT_DIMS[torch.bfloat16]} in bf16 and D=64 in layouts TMA cannot read "
-                 f"on the CUDA-core forward (the backward over zero-padded copies: of bf16 on "
-                 f"the wgmma pair, of f32 on the 3xTF32 pair), agree, each on the "
+                 f"to f32 D = 64 and bf16 D = 128), D={K2G_ROWS_DIMS[torch.float32]} in f32 and "
+                 f"D={K2G_ROWS_DIMS[torch.bfloat16]} in bf16 at {K2G_ROWS_HEADS} heads on the "
+                 f"row maps, D={K2G_SIMT_DIMS[torch.float32]} in f32, "
+                 f"D={K2G_SIMT_DIMS[torch.bfloat16]} in bf16 contiguous and D=64 in layouts TMA "
+                 f"cannot read on the CUDA-core forward (the backward over zero-padded copies: "
+                 f"of bf16 on the wgmma pair, of f32 on the 3xTF32 pair), agree, each on the "
                  f"routing rule's routes: max abs err by "
                  f"kernel pair {routes}; f32 "
                  f"forward {f32_err['fwd']:.3g} (atol {K2G_ATOL}), logsumexp "
@@ -3101,10 +3178,11 @@ def run_train_cli(seed, corpus, n_docs=512):
 MINILM_WIDTH = dict(hidden_size=384, num_layers=6, num_heads=12, intermediate_size=1536,
                     vocab_size=30522, max_position_embeddings=512)
 # huawei-noah/TinyBERT_General_4L_312D's published config: hidden 312, 4
-# layers, 12 heads (D = 26, whose 52-byte rows TMA cannot read in bf16: the
-# CUDA-core forward and the wgmma backward over copies padded to D = 32; in
-# f32 the CUDA-core forward and the 3xTF32 backward over copies padded to D
-# = 28), intermediate 1200, BERT's vocabulary
+# layers, 12 heads (D = 26, whose 52-byte rows a head no tensor map reads in
+# bf16: the wgmma forward on row maps over the [B, S, 312] projections and
+# the wgmma backward over copies padded to D = 32; in f32 the 3xTF32
+# forward on row maps and the 3xTF32 backward over copies padded to D =
+# 28), intermediate 1200, BERT's vocabulary
 TINYBERT_WIDTH = dict(hidden_size=312, num_layers=4, num_heads=12, intermediate_size=1200,
                       vocab_size=30522, max_position_embeddings=512)
 
@@ -3145,9 +3223,11 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
     width in f32 against the plain path.  Every count is set to 0 just
     before each main-path run and read just after, and each run's launches
     are held to the routes the routing rule gives: (a) the 3xTF32 forward
-    and pair, (b) the wgmma forward and pair at D = 32, (c) the CUDA-core
-    forward and the wgmma pair at D = 32 over zero-padded copies, (d) the
-    CUDA-core forward and the 3xTF32 pair over copies padded to D = 28."""
+    and pair, (b) the wgmma forward and pair at D = 32, (c) the wgmma
+    forward on row maps ("wgmma_rows") and the wgmma pair at D = 32 over
+    zero-padded copies, (d) the 3xTF32 forward on row maps ("tf32_rows")
+    and the 3xTF32 pair over copies padded to D = 28; the CUDA-core
+    forward 0 times."""
     pairs = list(corpus.pairs())[:n_docs]
     sub = Corpus.from_pairs(pairs, dataset_name="mag")
     field_info = resolve_fields("all_dense", "mag")
@@ -3287,10 +3367,11 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
     mini = bert_width_cell("(b)", "all-MiniLM-L6-v2", MINILM_WIDTH, "wgmma_headdim",
                            "the wgmma K2 and K2b at D = 32", seed + 9, sub, field_info, train,
                            batch, seed, warm, n_long * batches)
-    tiny = bert_width_cell("(c)", "TinyBERT_General_4L_312D", TINYBERT_WIDTH, "simt",
-                           "the CUDA-core K2 (D = 26: TMA cannot read its rows) and the wgmma "
-                           "K2b over copies padded to D = 32", seed + 13, sub, field_info, train,
-                           batch, seed, warm, n_long * batches, bwd_route="wgmma_headdim")
+    tiny = bert_width_cell("(c)", "TinyBERT_General_4L_312D", TINYBERT_WIDTH, "wgmma_rows",
+                           "the wgmma K2 on row maps (D = 26: no map reads its heads one by "
+                           "one) and the wgmma K2b over copies padded to D = 32", seed + 13, sub,
+                           field_info, train, batch, seed, warm, n_long * batches,
+                           bwd_route="wgmma_headdim")
     tiny_f32 = f32_width_batch("(d)", "TinyBERT_General_4L_312D", TINYBERT_WIDTH, seed + 13, sub,
                                field_info, train, batch, seed)
     torch.cuda.empty_cache()
@@ -3396,22 +3477,23 @@ def f32_width_batch(tag, name, width, dir_seed, sub, field_info, train, batch, s
     """Phase f32's f32 batch at a published width: the BERT directory of
     bert_width_cell (seeded weights) loaded through ``prepare_model`` with
     f32 activations, and one train batch against the plain path
-    (width_batch).  At TinyBERT's D = 26 (104-byte rows, not a multiple of
-    16 bytes, and D not a multiple of the 3xTF32 kernels' 4 columns) the
-    CUDA-core forward takes it, and the 3xTF32 pair over copies padded to D
-    = 28 the backward.  Returns the batch's K2/K2b
-    launches."""
+    (width_batch).  At TinyBERT's D = 26 (104-byte rows a head, not a
+    multiple of 16 bytes, and D not a multiple of the 3xTF32 kernels' 4
+    columns) the 3xTF32 forward on row maps takes it ("tf32_rows": the
+    heads' 1248-byte rows), and the 3xTF32 pair over copies padded to D =
+    28 the backward.  Returns the batch's K2/K2b launches."""
     with tempfile.TemporaryDirectory() as d:
         write_bert_dir(d, sub, dir_seed, **width)
         config, state_dict, mtok = prepare_model(d, dtype=torch.float32)
     check(config.dtype == torch.float32, f"prepare_model gave {config}")
     loss, loss_pl, norm, norm_pl, cos, batch_launches = width_batch(
-        name, config, state_dict, mtok, "simt", "tf32", sub, field_info, train, batch, seed)
+        name, config, state_dict, mtok, "tf32_rows", "tf32", sub, field_info, train, batch,
+        seed)
     phase("f32", f"{tag} one train batch at {name}'s width in f32 (hidden "
                  f"{config.hidden_size} x {config.num_layers} layers, {config.num_heads} heads, "
                  f"D = {config.hidden_size // config.num_heads}; attention auto, dropout 0, "
-                 f"remat) through the CUDA-core K2 and the 3xTF32 K2b over copies padded to D "
-                 f"= 28 vs plain attention: loss "
+                 f"remat) through the 3xTF32 K2 on row maps and the 3xTF32 K2b over copies "
+                 f"padded to D = 28 vs plain attention: loss "
                  f"{loss:.8f} vs {loss_pl:.8f}, grad_norm {norm:.6f} vs {norm_pl:.6f}, cosine "
                  f"encoder {cos['encoder']:.7f} head {cos['head']:.7f} (the f32 gates); "
                  f"launches {batch_launches}")
@@ -6010,7 +6092,8 @@ def kernel_usage(logs: dict) -> dict:
     """Each kernel's registers and spills from the ptxas lines of its
     library's build log (nvcc -Xptxas -v), by kernel name (the CUDA-core
     flash kernels by name, dtype and head-dim bucket, the tensor-core
-    kernels by name and slabs)."""
+    kernels by name and slabs, and "rows" for the 3xTF32 forward on row
+    maps)."""
     usage = {}
     for log in logs.values():
         name = None
@@ -6021,9 +6104,10 @@ def kernel_usage(logs: dict) -> dict:
                                  mangled)
                 slabs = re.search(r"(flash_attention_fwd|flash_tf32_fwd|flash_attention_bwd_dkv|"
                                   r"flash_attention_bwd_dq|flash_tf32_bwd_dkv|flash_tf32_bwd_dq)"
-                                  r"_kernelILi(\d+)E", mangled)
+                                  r"_kernelILi(\d+)E(Lb1E)?", mangled)
                 name = (f"{simt[1]} {'f32' if simt[2] == 'f' else 'bf16'} D<={simt[3]}"
-                        if simt else f"{slabs[1]} NS={slabs[2]}" if slabs else next(
+                        if simt else f"{slabs[1]} NS={slabs[2]}{' rows' if slabs[3] else ''}"
+                        if slabs else next(
                             (k for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
                                          "flash_attention_fwd", "gather_scores_cross_row",
                                          "gather") if k in mangled), mangled))
@@ -6341,10 +6425,42 @@ def main(argv=None) -> int:
         "bound_by": k2g["f32_train"]["dq_bound_by"],
         "library_ms": k2g["f32_train"]["library_bwd_ms"],
     }, {
-        # K2's CUDA-core forward (what TMA cannot read): times at
-        # TinyBERT-4L-312D's [256, 12, 512, 26] bf16, the shape it serves;
-        # launches from phase f32's TinyBERT-width build and its bf16 and
-        # f32 batches
+        # K2's wgmma kernel on row maps (bf16 heads no per-head map reads,
+        # side by side in rows that one does): times at TinyBERT-4L-312D's
+        # [256, 12, 512, 26]; launches from phase f32's TinyBERT-width build
+        # and bf16 batch
+        "name": "flash_attention_rows",
+        "route": "cuda",
+        "source": "mfar_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+        "launches": f32_launches["wgmma_rows"],
+        "max_abs_err": by_route["wgmma_rows"]["fwd"],
+        "ms": k2g["bf16_d26"]["ms"],
+        "plain_ms": k2g["bf16_d26"]["plain_ms"],
+        "bound_ms": k2g["bf16_d26"]["bound_ms"],
+        "bound_by": k2g["bf16_d26"]["bound_by"],
+        "library_ms": k2g["bf16_d26"]["library_ms"],
+    }, {
+        # K2's 3xTF32 kernel on row maps (f32): times at TinyBERT-4L-312D's
+        # [256, 12, 512, 26] f32; launches from phase f32's TinyBERT-width
+        # f32 batch
+        "name": "flash_attention_tf32_rows",
+        "route": "cuda",
+        "source": "mfar_tpu_torch/csrc/flash_attention_tf32.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+        "launches": f32_launches["tf32_rows"],
+        "max_abs_err": by_route["tf32_rows"]["fwd"],
+        "ms": k2g["f32_d26"]["ms"],
+        "plain_ms": k2g["f32_d26"]["plain_ms"],
+        "bound_ms": k2g["f32_d26"]["bound_ms"],
+        "bound_by": k2g["f32_d26"]["bound_by"],
+        "library_ms": k2g["f32_d26"]["library_ms"],
+    }, {
+        # K2's CUDA-core forward (what neither map reads: a contiguous
+        # [B, H, S, 26], strides or a base off 16 bytes): times at
+        # TinyBERT-4L-312D's [256, 12, 512, 26] bf16, beside its
+        # "wgmma_rows" route in phase k2g; launches from phase f32's main
+        # paths, none since the rows routes took TinyBERT's heads
         "name": "flash_attention_simt",
         "route": "cuda",
         "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",

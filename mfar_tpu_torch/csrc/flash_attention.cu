@@ -1,6 +1,8 @@
 // Kernel K2: the encoder's flash-attention forward with segment masking,
 // written for Hopper (sm_90a), for bf16 at every head dim JAX's kernel
-// takes whose rows TMA can read (D a multiple of 8, up to 256).
+// takes (up to 256) whose rows TMA can read: per head (D a multiple of 8),
+// or, for the other head dims, as whole rows of the encoder's [B, S, H*D]
+// projections (the rows mode below).
 //
 //   O[b,h,i] = softmax_j(Q[b,h,i] . K[b,h,j] * sm_scale, over the keys j with
 //                        seg[b,j] == seg[b,i]) . V[b,h]
@@ -11,7 +13,31 @@
 // logsumexp of the scaled, masked logits (natural log, f32 [B, H, S]),
 // which the backward kernels (flash_attention_bwd.cu up to D = 128,
 // flash_attention_simt.cu past it) read.  f32 takes flash_attention_tf32.cu,
-// and what TMA cannot read flash_attention_simt.cu.
+// and what neither map reads flash_attention_simt.cu.
+//
+// Rows mode (mfar_flash_attention_fwd_rows, kRowMap): at a D whose rows
+// per head (D * 2 bytes apart, TinyBERT-4L-312D's 52) no tensor map
+// describes, q, k and v are read through row maps (hopper_pipeline.cuh,
+// encode_row_map) over views whose heads lie side by side in rows of
+// 16-byte multiples (the H stride D; 624 bytes at TinyBERT's 12 x 26).  TMA
+// starts a box only on a 16-byte boundary (a box at any other column
+// faults: an illegal instruction), so head h's boxes start at h * D rounded
+// down to 8 columns, its columns `off` = h * D % 8 columns in, and NS =
+// ceil((D + 7) / 64) slabs cover them.  Past the head's columns a box
+// holds its neighbours' (zeros past H * D).  Once Q lands, each warpgroup
+// moves its Q rows `off` columns left in shared memory and zeroes them
+// past D (shift_rows, flash_common.cuh); at an `off` other than 0 each K
+// tile is moved so too, by both warpgroups, before its first product.
+// S = Q K^T then sums the head's columns in the k slices the per-head
+// kernel uses, and the neighbours' columns add exactly 0.  V stays where
+// it landed: O's column c sits at accumulator column c + off, each column
+// its own sum over the keys, and is stored from there.  On finite inputs S, P, O and the
+// logsumexp are bit-equal to the same kernel on copies zero-padded to D
+// rounded up to 8 (at D <= 57, where both take one slab); a non-finite
+// value among the next head's first columns of K can reach head h as
+// 0 * Inf = NaN.  Blocks of neighbouring heads run together, so the
+// columns read twice come from L2.  O is stored 4 or 2 bytes a store (its
+// heads start off 16-byte boundaries).
 //
 // Replaces the forward of JAX's library Pallas flash_attention:
 // _flash_attention_kernel (jax/experimental/pallas/ops/tpu/flash_attention.py
@@ -105,6 +131,7 @@ struct FwdParams {
   long long o_sb, o_sh, o_ss;
   int H, S, D;
   float scale_log2;  // sm_scale * log2(e)
+  int store_vec;     // row maps: elements an O store (2 or 1)
 };
 
 // Stages of the ring of K/V tiles and blocks an SM, by slabs of 64 columns
@@ -130,7 +157,7 @@ __device__ __forceinline__ void rescale_and_pack(float (&o)[NS][8][4], const flo
   }
 }
 
-template <int NS>
+template <int NS, bool kRowMap>
 __global__ void __launch_bounds__(kBlockThreads, FwdShape<NS>::kMinBlocks)
     flash_attention_fwd_kernel(const FwdParams p, const __grid_constant__ CUtensorMap map_q,
                                const __grid_constant__ CUtensorMap map_k,
@@ -145,14 +172,20 @@ __global__ void __launch_bounds__(kBlockThreads, FwdShape<NS>::kMinBlocks)
   const int h = bh % p.H, b = bh / p.H;
   const int tid = threadIdx.x, wg = tid >> 7, wtid = tid & 127;
   const int32_t* segb = p.seg + static_cast<long long>(b) * p.S;
+  // the map's head index and the boxes' first column: (h, 0) per head; on
+  // row maps (0, h * D rounded down to 8), the head's columns `off` in
+  const int off = kRowMap ? (h * p.D) & 7 : 0;
+  const int mh = kRowMap ? 0 : h, col0 = kRowMap ? h * p.D - off : 0;
 
   // a key tile t into a stage: K, V and the keys' segment ids
   const uint32_t bytes = 2 * NS * kTileBytes + 256;
   auto load = [&](int t, int stage) {
 #pragma unroll
     for (int c = 0; c < NS; ++c) {
-      tma_load_tile(m.stream_tile(stage, c), &map_k, &m.full[stage], h, t * 64, b, 64 * c);
-      tma_load_tile(m.stream_tile(stage, NS + c), &map_v, &m.full[stage], h, t * 64, b, 64 * c);
+      tma_load_tile(m.stream_tile(stage, c), &map_k, &m.full[stage], mh, t * 64, b,
+                    col0 + 64 * c);
+      tma_load_tile(m.stream_tile(stage, NS + c), &map_v, &m.full[stage], mh, t * 64, b,
+                    col0 + 64 * c);
     }
     bulk_load(m.row_values(0, stage), segb + t * 64, 256, &m.full[stage]);
   };
@@ -160,7 +193,8 @@ __global__ void __launch_bounds__(kBlockThreads, FwdShape<NS>::kMinBlocks)
     for (int w = 0; w < kGroups; ++w) {
 #pragma unroll
       for (int c = 0; c < NS; ++c) {
-        tma_load_tile(m.own_tile(c, w), &map_q, m.own_full, h, blk * kRows + w * 64, b, 64 * c);
+        tma_load_tile(m.own_tile(c, w), &map_q, m.own_full, mh, blk * kRows + w * 64, b,
+                      col0 + 64 * c);
       }
     }
   }, bytes, load, 0);
@@ -175,6 +209,11 @@ __global__ void __launch_bounds__(kBlockThreads, FwdShape<NS>::kMinBlocks)
 #pragma unroll
     for (int c = 0; c < NS; ++c) q_desc[c] = tile_desc(m.own_tile(c, wg));
     mbar_wait(m.own_full, 0);
+    if (kRowMap) {  // Q's head columns to column 0, the rest 0, seen by wgmma
+      shift_rows<NS, 4>(m.own_tile(0, wg), kGroups * kTileElems, off, p.D, warp, lane);
+      fence_proxy_async();
+      named_sync(1 + wg, 128);
+    }
 
     const float neg_inf = __int_as_float(0xff800000);
     float o[NS][8][4], s[8][4], alpha[2];
@@ -218,6 +257,12 @@ __global__ void __launch_bounds__(kBlockThreads, FwdShape<NS>::kMinBlocks)
     for (int i = 0;; ++i) {
       const bool more = i < n_live;
       if (more) m.wait_full(i);
+      if (kRowMap && more && off != 0) {  // K's head columns to column 0, by the block
+        shift_rows<NS, 4 * kGroups>(m.stream_tile(i % kStages, 0), kTileElems, off, INT_MAX,
+                                    wg * 4 + warp, lane);
+        fence_proxy_async();
+        named_sync(1 + kGroups, kBlockThreads);
+      }
       const bool take = more && m.meets(m.live[i], lo, hi);
       if (take) {
         wgmma_fence();
@@ -263,17 +308,24 @@ __global__ void __launch_bounds__(kBlockThreads, FwdShape<NS>::kMinBlocks)
     }
     // 1/l, bf16; each slab staged in the warp's own rows of its Q slab (each
     // warp read only its own rows of Q), then 16-byte stores of the columns
-    // before D
+    // before D (on row maps 4- or 2-byte stores of the accumulator columns
+    // off..off+D-1)
     __nv_bfloat16* dst = p.o + b * p.o_sb + h * p.o_sh + row0 * p.o_ss;
 #pragma unroll
     for (int c = 0; c < NS; ++c) {
-      store_rows(dst + 64 * c, p.o_ss, m.own_tile(c, wg), o[c], 1.f / l[0], 1.f / l[1], warp,
-                 lane, min(kHeadDim, p.D - 64 * c));
+      if (kRowMap) {
+        store_rows_narrow(dst + 64 * c - off, p.o_ss, m.own_tile(c, wg), o[c], 1.f / l[0],
+                          1.f / l[1], warp, lane, c == 0 ? off : 0,
+                          min(kHeadDim, p.D + off - 64 * c), p.store_vec);
+      } else {
+        store_rows(dst + 64 * c, p.o_ss, m.own_tile(c, wg), o[c], 1.f / l[0], 1.f / l[1], warp,
+                   lane, min(kHeadDim, p.D - 64 * c));
+      }
     }
   }
 }
 
-template <int NS>
+template <int NS, bool kRowMap>
 int launch_fwd(const FwdParams& p, const void* const bases[3], int B, const long long* strides,
                unsigned blocks, cudaStream_t stream) {
   constexpr int kStages = FwdShape<NS>::kStages;
@@ -282,17 +334,53 @@ int launch_fwd(const FwdParams& p, const void* const bases[3], int B, const long
   // cuTensorMapEncodeTiled needs
   const int bytes = smem_bytes<kStages, kGroups, 2 * NS>(p.S, NS);
   int err = static_cast<int>(cudaFuncSetAttribute(
-      flash_attention_fwd_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+      flash_attention_fwd_kernel<NS, kRowMap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes));
   if (err != 0) return err;
   CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i) {
-    err = encode_tile_map(&maps[i], bases[i], B, p.H, p.S, strides[3 * i], strides[3 * i + 1],
-                          strides[3 * i + 2], p.D);
+    const long long sb = strides[3 * i], sh = strides[3 * i + 1], ss = strides[3 * i + 2];
+    err = kRowMap ? encode_row_map(&maps[i], bases[i], B, p.H, p.S, sb, ss, p.D)
+                  : encode_tile_map(&maps[i], bases[i], B, p.H, p.S, sb, sh, ss, p.D);
     if (err != 0) return err;
   }
-  flash_attention_fwd_kernel<NS><<<blocks, kBlockThreads, bytes, stream>>>(p, maps[0], maps[1],
-                                                                             maps[2]);
+  flash_attention_fwd_kernel<NS, kRowMap>
+      <<<blocks, kBlockThreads, bytes, stream>>>(p, maps[0], maps[1], maps[2]);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kRowMap>
+int launch(const void* q, const void* k, const void* v, const int32_t* seg, void* o, float* lse,
+           int B, int H, int S, int D, const long long* strides, float sm_scale,
+           cudaStream_t stream) {
+  if (B == 0 || H == 0) return 0;
+  // slabs: on row maps the head's columns start up to 7 columns into a box
+  const int slabs = kRowMap ? (D + 7 + 63) / 64 : (D + 63) / 64;
+  if (S <= 0 || S % kRows || D < 1 || slabs > 4 || (!kRowMap && D % 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long blocks = static_cast<long long>(B) * H * (S / kRows);
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  FwdParams p;
+  p.seg = seg;
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = lse;
+  p.o_sb = strides[9], p.o_sh = strides[10], p.o_ss = strides[11];
+  p.H = H;
+  p.S = S;
+  p.D = D;
+  p.scale_log2 = sm_scale * kLog2e;
+  // 4-byte stores where every O row of every head starts on a 4-byte boundary
+  p.store_vec = (reinterpret_cast<uintptr_t>(o) % 4 == 0 &&
+                 ((D | p.o_sb | p.o_sh | p.o_ss) & 1) == 0) ? 2 : 1;
+  const void* bases[3] = {q, k, v};
+  const unsigned n = static_cast<unsigned>(blocks);
+  switch (slabs) {
+    case 1: return launch_fwd<1, kRowMap>(p, bases, B, strides, n, stream);
+    case 2: return launch_fwd<2, kRowMap>(p, bases, B, strides, n, stream);
+    case 3: return launch_fwd<3, kRowMap>(p, bases, B, strides, n, stream);
+    default: return launch_fwd<4, kRowMap>(p, bases, B, strides, n, stream);
+  }
 }
 
 }  // namespace
@@ -309,27 +397,17 @@ extern "C" int mfar_flash_attention_fwd(const void* q, const void* k, const void
                                         const int32_t* seg, void* o, float* lse, int B, int H,
                                         int S, int D, const long long* strides, float sm_scale,
                                         cudaStream_t stream) {
-  if (B == 0 || H == 0) return 0;
-  if (S <= 0 || S % kRows || D < 8 || D > 256 || D % 8) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long blocks = static_cast<long long>(B) * H * (S / kRows);
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  FwdParams p;
-  p.seg = seg;
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.lse = lse;
-  p.o_sb = strides[9], p.o_sh = strides[10], p.o_ss = strides[11];
-  p.H = H;
-  p.S = S;
-  p.D = D;
-  p.scale_log2 = sm_scale * kLog2e;
-  const void* bases[3] = {q, k, v};
-  const unsigned n = static_cast<unsigned>(blocks);
-  switch ((D + 63) / 64) {
-    case 1: return launch_fwd<1>(p, bases, B, strides, n, stream);
-    case 2: return launch_fwd<2>(p, bases, B, strides, n, stream);
-    case 3: return launch_fwd<3>(p, bases, B, strides, n, stream);
-    default: return launch_fwd<4>(p, bases, B, strides, n, stream);
-  }
+  return launch<false>(q, k, v, seg, o, lse, B, H, S, D, strides, sm_scale, stream);
+}
+
+// The same kernel in rows mode, at any D from 1 to 249 (D + 7 columns in
+// four slabs): q, k and v read through row maps.  The caller has checked,
+// besides, that each of q, k and v has the H stride D (its heads side by
+// side in a row) and B and S strides that are multiples of 8 elements;
+// o's strides are any.
+extern "C" int mfar_flash_attention_fwd_rows(const void* q, const void* k, const void* v,
+                                             const int32_t* seg, void* o, float* lse, int B,
+                                             int H, int S, int D, const long long* strides,
+                                             float sm_scale, cudaStream_t stream) {
+  return launch<true>(q, k, v, seg, o, lse, B, H, S, D, strides, sm_scale, stream);
 }

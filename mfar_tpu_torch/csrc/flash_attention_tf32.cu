@@ -10,8 +10,29 @@
 // kernel also writes each row's logsumexp of the scaled, masked logits
 // (natural log, f32 [B, H, S]), which the backward kernels read
 // (flash_attention_tf32_bwd.cu up to D = 64, flash_attention_simt.cu past
-// it).  f32 inputs that TMA cannot read take
+// it).  f32 inputs that neither map below reads take
 // flash_attention_simt.cu's forward.
+//
+// Rows mode (mfar_flash_attention_fwd_tf32_rows, kRowMap): at a D that is
+// not a multiple of 4 (TinyBERT-4L-312D's 26: rows of 104 bytes a head,
+// which no tensor map describes), q, k and v are read through row maps
+// (hopper_pipeline.cuh, encode_row_map) over views whose heads lie side by
+// side in rows of 16-byte multiples (the H stride D).  TMA starts a box
+// only on a 16-byte boundary, so head h's boxes start at h * D rounded
+// down to 4 columns, its columns `off` = h * D % 4 columns in, and NS =
+// ceil((D + 3) / 32) slabs cover them; past the head's columns a box holds
+// its neighbours' (zeros past H * D).  Once Q lands, each warpgroup moves
+// its Q rows `off` columns left in shared memory and zeroes them past D;
+// each K tile is moved and zeroed so too, by both warpgroups, before its
+// first product (shift_rows, flash_common.cuh: the f32 slabs swizzle their
+// 16-byte chunks as the bf16 tiles do).  S = Q K^T, stopped at ceil(D / 8)
+// k steps, then takes the same products in the same k steps as the
+// per-head kernel, exact for any input.  V stays where it landed: O's
+// column c sits at accumulator column c + off (each column its own sum
+// over the keys) and is stored from there.  S, P, O and the logsumexp are
+// bit-equal to the kernel on copies zero-padded to D rounded up to 4
+// (where both take as many slabs: D % 32 of 1-29).  O is stored 8 bytes a
+// store at even D, else 4.
 //
 // Replaces the forward of JAX's library Pallas flash_attention at f32:
 // _flash_attention_kernel (jax/experimental/pallas/ops/tpu/flash_attention.py
@@ -97,6 +118,7 @@ struct Tf32Params {
   long long o_sb, o_sh, o_ss;
   int H, S, D;
   float scale_log2;  // sm_scale * log2(e)
+  bool pairs;        // O stored two columns a store (8-byte aligned rows), else one
 };
 
 // Warpgroups a block and stages of the ring, by slabs of 32 f32 columns
@@ -116,7 +138,7 @@ struct Tf32Shape {
   static constexpr bool kSkipPastD = NS > 4;
 };
 
-template <int NS>
+template <int NS, bool kRowMap>
 __global__ void __launch_bounds__(Tf32Shape<NS>::kThreads, 1)
     flash_tf32_fwd_kernel(const Tf32Params p, const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
@@ -131,14 +153,20 @@ __global__ void __launch_bounds__(Tf32Shape<NS>::kThreads, 1)
   const int h = bh % p.H, b = bh / p.H;
   const int tid = threadIdx.x, wg = tid >> 7, wtid = tid & 127;
   const int32_t* segb = p.seg + static_cast<long long>(b) * p.S;
+  // the map's head index and the boxes' first column: (h, 0) per head; on
+  // row maps (0, h * D rounded down to 4), the head's columns `off` in
+  const int off = kRowMap ? (h * p.D) & 3 : 0;
+  const int mh = kRowMap ? 0 : h, col0 = kRowMap ? h * p.D - off : 0;
 
   // a key tile t into a stage: K, V and the keys' segment ids
   const uint32_t bytes = 2 * NS * kTileBytes + 256;
   auto load = [&](int t, int stage) {
 #pragma unroll
     for (int c = 0; c < NS; ++c) {
-      tma_load_tile(m.stream_tile(stage, c), &map_k, &m.full[stage], h, t * 64, b, 32 * c);
-      tma_load_tile(m.stream_tile(stage, NS + c), &map_v, &m.full[stage], h, t * 64, b, 32 * c);
+      tma_load_tile(m.stream_tile(stage, c), &map_k, &m.full[stage], mh, t * 64, b,
+                    col0 + 32 * c);
+      tma_load_tile(m.stream_tile(stage, NS + c), &map_v, &m.full[stage], mh, t * 64, b,
+                    col0 + 32 * c);
     }
     bulk_load(m.row_values(0, stage), segb + t * 64, 256, &m.full[stage]);
   };
@@ -146,7 +174,8 @@ __global__ void __launch_bounds__(Tf32Shape<NS>::kThreads, 1)
     for (int w = 0; w < kG; ++w) {
 #pragma unroll
       for (int c = 0; c < NS; ++c) {
-        tma_load_tile(m.own_tile(c, w), &map_q, m.own_full, h, (blk * kG + w) * 64, b, 32 * c);
+        tma_load_tile(m.own_tile(c, w), &map_q, m.own_full, mh, (blk * kG + w) * 64, b,
+                      col0 + 32 * c);
       }
     }
   }, bytes, load, 0);
@@ -160,6 +189,11 @@ __global__ void __launch_bounds__(Tf32Shape<NS>::kThreads, 1)
   const int seg_q0 = segb[row0 + r0], seg_q1 = segb[row0 + r0 + 8];
   const int lo = m.tmin[kG * blk + wg], hi = m.tmax[kG * blk + wg];
   mbar_wait(m.own_full, 0);
+  // on row maps, Q's head columns to column 0, the rest 0 (in 2-byte units)
+  if (kRowMap) {
+    shift_rows<NS, 4>(m.own_tile(0, wg), kG * kTileElems, 2 * off, 2 * p.D, warp, lane);
+    named_sync(1 + wg, 128);
+  }
 
   const float neg_inf = __int_as_float(0xff800000);
   float o[4 * NS][4];  // the warp's 16 x (32 NS) output, C layout by 8-column slice
@@ -170,12 +204,20 @@ __global__ void __launch_bounds__(Tf32Shape<NS>::kThreads, 1)
   for (int i = 0; i < n_live; ++i) {
     m.wait_full(i);
     const int t = m.live[i], stage = i % kStages;
+    if (kRowMap) {  // K's head columns to column 0, the rest 0, by the block
+      shift_rows<NS, 4 * kG>(m.stream_tile(stage, 0), kTileElems, 2 * off, 2 * p.D,
+                             wg * 4 + warp, lane);
+      fence_proxy_async();  // before TMA refills the stage
+      named_sync(1 + kG, Tf32Shape<NS>::kThreads);
+    }
     if (m.meets(t, lo, hi)) {
       // S = Q K^T: k step kk takes columns 8kk..8kk+7, n-tile j keys 8j..8j+7
+      // (on row maps the steps before D only)
       float s[8][4];
       zero(s);
 #pragma unroll (Tf32Shape<NS>::kUnrollK)
       for (int kk = 0; kk < 4 * NS; ++kk) {
+        if (kRowMap && 8 * kk >= p.D) break;
         const float* qt = reinterpret_cast<const float*>(m.own_tile(kk >> 2, wg));
         const float* kt = reinterpret_cast<const float*>(m.stream_tile(stage, kk >> 2));
         const int c = 8 * (kk & 3) + t4;
@@ -208,7 +250,7 @@ __global__ void __launch_bounds__(Tf32Shape<NS>::kThreads, 1)
         const int key = 8 * j + 2 * t4;
 #pragma unroll
         for (int e = 0; e < 4 * NS; ++e) {
-          if (!Tf32Shape<NS>::kSkipPastD || 8 * e < p.D) {
+          if (!Tf32Shape<NS>::kSkipPastD || 8 * e < p.D + off) {
             const float* vt = reinterpret_cast<const float*>(m.stream_tile(stage, NS + (e >> 2)));
             const int c = 8 * (e & 3) + g;
             uint32_t b_hi[2], b_lo[2];
@@ -235,21 +277,34 @@ __global__ void __launch_bounds__(Tf32Shape<NS>::kThreads, 1)
     lse[0] = (mrow[0] * p.scale_log2 + log2f(l[0])) * kLn2;
     lse[8] = (mrow[1] * p.scale_log2 + log2f(l[1])) * kLn2;
   }
-  // O / l: two neighbouring columns a store, those before D
+  // O / l: two neighbouring columns a store (one where rows start off an
+  // 8-byte boundary), those before D; accumulator column c + off holds O's
+  // column c (off 0 per head)
   const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
   float* dst = p.o + b * p.o_sb + h * p.o_sh + (row0 + r0) * p.o_ss;
 #pragma unroll
   for (int e = 0; e < 4 * NS; ++e) {
-    const int c = 8 * e + 2 * t4;
-    if (c < p.D) {
-      *reinterpret_cast<float2*>(dst + c) = make_float2(o[e][0] * inv0, o[e][1] * inv0);
-      *reinterpret_cast<float2*>(dst + 8 * p.o_ss + c) =
-          make_float2(o[e][2] * inv1, o[e][3] * inv1);
+    const int c = 8 * e + 2 * t4 - off;
+    if (!kRowMap || p.pairs) {  // c even (off is, at an even D)
+      if (c >= 0 && c < p.D) {
+        *reinterpret_cast<float2*>(dst + c) = make_float2(o[e][0] * inv0, o[e][1] * inv0);
+        *reinterpret_cast<float2*>(dst + 8 * p.o_ss + c) =
+            make_float2(o[e][2] * inv1, o[e][3] * inv1);
+      }
+    } else {
+      if (c >= 0 && c < p.D) {
+        dst[c] = o[e][0] * inv0;
+        dst[8 * p.o_ss + c] = o[e][2] * inv1;
+      }
+      if (c + 1 >= 0 && c + 1 < p.D) {
+        dst[c + 1] = o[e][1] * inv0;
+        dst[8 * p.o_ss + c + 1] = o[e][3] * inv1;
+      }
     }
   }
 }
 
-template <int NS>
+template <int NS, bool kRowMap>
 int launch_tf32(const Tf32Params& p, const void* const bases[3], int B, const long long* strides,
                 cudaStream_t stream) {
   using Sh = Tf32Shape<NS>;
@@ -260,17 +315,53 @@ int launch_tf32(const Tf32Params& p, const void* const bases[3], int B, const lo
   // cuTensorMapEncodeTiled needs
   const int bytes = smem_bytes<Sh::kStages, Sh::kG, 2 * NS>(p.S, NS);
   int err = static_cast<int>(cudaFuncSetAttribute(
-      flash_tf32_fwd_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+      flash_tf32_fwd_kernel<NS, kRowMap>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
   if (err != 0) return err;
   CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i) {
-    err = encode_tile_map(&maps[i], bases[i], B, p.H, p.S, strides[3 * i], strides[3 * i + 1],
-                          strides[3 * i + 2], p.D, true);
+    const long long sb = strides[3 * i], sh = strides[3 * i + 1], ss = strides[3 * i + 2];
+    err = kRowMap ? encode_row_map(&maps[i], bases[i], B, p.H, p.S, sb, ss, p.D, true)
+                  : encode_tile_map(&maps[i], bases[i], B, p.H, p.S, sb, sh, ss, p.D, true);
     if (err != 0) return err;
   }
-  flash_tf32_fwd_kernel<NS><<<static_cast<unsigned>(blocks), Sh::kThreads, bytes, stream>>>(
-      p, maps[0], maps[1], maps[2]);
+  flash_tf32_fwd_kernel<NS, kRowMap>
+      <<<static_cast<unsigned>(blocks), Sh::kThreads, bytes, stream>>>(p, maps[0], maps[1],
+                                                                        maps[2]);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kRowMap>
+int launch(const void* q, const void* k, const void* v, const int32_t* seg, void* o, float* lse,
+           int B, int H, int S, int D, const long long* strides, float sm_scale,
+           cudaStream_t stream) {
+  if (B == 0 || H == 0) return 0;
+  // slabs: on row maps the head's columns start up to 3 columns into a box
+  const int slabs = kRowMap ? (D + 3 + 31) / 32 : (D + 31) / 32;
+  if (S <= 0 || S % 128 || D < 1 || slabs > 8 || (!kRowMap && D % 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Tf32Params p;
+  p.seg = seg;
+  p.o = static_cast<float*>(o);
+  p.lse = lse;
+  p.o_sb = strides[9], p.o_sh = strides[10], p.o_ss = strides[11];
+  p.H = H;
+  p.S = S;
+  p.D = D;
+  p.scale_log2 = sm_scale * kLog2e;
+  // float2 stores where every O row of every head starts on an 8-byte boundary
+  p.pairs = reinterpret_cast<uintptr_t>(o) % 8 == 0 && ((D | p.o_sb | p.o_sh | p.o_ss) & 1) == 0;
+  const void* bases[3] = {q, k, v};
+  switch (slabs) {
+    case 1: return launch_tf32<1, kRowMap>(p, bases, B, strides, stream);
+    case 2: return launch_tf32<2, kRowMap>(p, bases, B, strides, stream);
+    case 3: return launch_tf32<3, kRowMap>(p, bases, B, strides, stream);
+    case 4: return launch_tf32<4, kRowMap>(p, bases, B, strides, stream);
+    case 5: return launch_tf32<5, kRowMap>(p, bases, B, strides, stream);
+    case 6: return launch_tf32<6, kRowMap>(p, bases, B, strides, stream);
+    case 7: return launch_tf32<7, kRowMap>(p, bases, B, strides, stream);
+    default: return launch_tf32<8, kRowMap>(p, bases, B, strides, stream);
+  }
 }
 
 }  // namespace
@@ -287,28 +378,16 @@ extern "C" int mfar_flash_attention_fwd_tf32(const void* q, const void* k, const
                                              const int32_t* seg, void* o, float* lse, int B,
                                              int H, int S, int D, const long long* strides,
                                              float sm_scale, cudaStream_t stream) {
-  if (B == 0 || H == 0) return 0;
-  if (S <= 0 || S % 128 || D < 4 || D > 256 || D % 4) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Tf32Params p;
-  p.seg = seg;
-  p.o = static_cast<float*>(o);
-  p.lse = lse;
-  p.o_sb = strides[9], p.o_sh = strides[10], p.o_ss = strides[11];
-  p.H = H;
-  p.S = S;
-  p.D = D;
-  p.scale_log2 = sm_scale * kLog2e;
-  const void* bases[3] = {q, k, v};
-  switch ((D + 31) / 32) {
-    case 1: return launch_tf32<1>(p, bases, B, strides, stream);
-    case 2: return launch_tf32<2>(p, bases, B, strides, stream);
-    case 3: return launch_tf32<3>(p, bases, B, strides, stream);
-    case 4: return launch_tf32<4>(p, bases, B, strides, stream);
-    case 5: return launch_tf32<5>(p, bases, B, strides, stream);
-    case 6: return launch_tf32<6>(p, bases, B, strides, stream);
-    case 7: return launch_tf32<7>(p, bases, B, strides, stream);
-    default: return launch_tf32<8>(p, bases, B, strides, stream);
-  }
+  return launch<false>(q, k, v, seg, o, lse, B, H, S, D, strides, sm_scale, stream);
+}
+
+// The same kernel on row maps, at any D from 1 to 253 (D + 3 columns in
+// eight slabs).  The caller has checked, besides, that each of q, k and v
+// has the H stride D (its heads side by side in a row) and B and S strides
+// that are multiples of 4 elements; o's strides are any.
+extern "C" int mfar_flash_attention_fwd_tf32_rows(const void* q, const void* k, const void* v,
+                                                  const int32_t* seg, void* o, float* lse, int B,
+                                                  int H, int S, int D, const long long* strides,
+                                                  float sm_scale, cudaStream_t stream) {
+  return launch<true>(q, k, v, seg, o, lse, B, H, S, D, strides, sm_scale, stream);
 }

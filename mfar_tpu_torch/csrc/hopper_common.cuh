@@ -147,6 +147,12 @@ __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// Make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma's and TMA's reads); then a barrier hands them on.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- mbarriers and TMA -----------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {

@@ -32,6 +32,9 @@
 // Tensor maps are 4-D (D, H, S, B) over bf16 or f32 [B, H, S, D] views with
 // any (b, h, s) strides that are multiples of 16 bytes, encoded on the host
 // each call; a box is 64 rows of 128 bytes, and columns past D read as 0.
+// K2's row maps (H*D, 1, S, B) read views whose heads lie side by side in
+// rows of 16-byte multiples when D * 2 or D * 4 bytes is not one
+// (encode_row_map).
 
 #pragma once
 
@@ -257,32 +260,58 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// A 4-D tensor map (D, H, S, B) over a bf16 (or, with f32, an f32)
-// [B, H, S, D] view with these element strides, its box 64 rows of one
-// (b, h) by 128 bytes of columns (64 bf16 or 32 f32: a slab), swizzled by
-// 128 bytes as wgmma's descriptors read it; a box that reaches past D reads
-// zeros there.  The encoder needs the device's context current in the
-// calling thread: make a runtime call first (autograd runs the backward,
-// and remat's recompute of the forward, on a thread of its own).
-int encode_tile_map(CUtensorMap* map, const void* base, int B, int H, int S, long long sb,
-                    long long sh, long long ss, int D = kHeadDim, bool f32 = false) {
+// A 4-D tensor map over `base` with these sizes and byte strides of dims 1-3
+// (dim 0 is contiguous), its box 64 rows of dim 2 by 128 bytes of dim 0 (64
+// bf16 or 32 f32: a slab), swizzled by 128 bytes as wgmma's descriptors read
+// it; a box that reaches past dim 0's size reads zeros there.  The encoder
+// needs the device's context current in the calling thread: make a runtime
+// call first (autograd runs the backward, and remat's recompute of the
+// forward, on a thread of its own).
+int encode_map(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
+               const cuuint64_t (&strides)[3], bool f32) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint64_t elem = f32 ? 4 : 2;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * elem,
-                                 static_cast<cuuint64_t>(ss) * elem,
-                                 static_cast<cuuint64_t>(sb) * elem};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / elem), 1, 64, 1};
+  const cuuint32_t box[4] = {f32 ? 32u : 64u, 1, 64, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                            4, const_cast<void*>(base),
-                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                            4, const_cast<void*>(base), dims, strides, box, elem_strides,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The per-head map (D, H, S, B) over a bf16 (or, with f32, an f32)
+// [B, H, S, D] view with these element strides: a box is 64 rows of one
+// (b, h) from column `col` of the head, read at (col, h, s0, b); columns past
+// D read as 0.
+int encode_tile_map(CUtensorMap* map, const void* base, int B, int H, int S, long long sb,
+                    long long sh, long long ss, int D = kHeadDim, bool f32 = false) {
+  const long long elem = f32 ? 4 : 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh * elem),
+                                 static_cast<cuuint64_t>(ss * elem),
+                                 static_cast<cuuint64_t>(sb * elem)};
+  return encode_map(map, base, dims, strides, f32);
+}
+
+// The row map (H*D, 1, S, B) over the same view when its heads lie side by
+// side in each row (the H stride is D: the encoder's [B, S, H*D]
+// projections), for head dims whose per-head rows (D * 2 or D * 4 bytes
+// apart) no map describes: only the S and B strides need be multiples of
+// 16 bytes.  Head h's box is read at (h * D + col, 0, s0, b): past column D
+// it holds the next head's columns, past H * D zeros.  The unit dim takes
+// the S stride, which it never steps.
+int encode_row_map(CUtensorMap* map, const void* base, int B, int H, int S, long long sb,
+                   long long ss, int D, bool f32 = false) {
+  const long long elem = f32 ? 4 : 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(H) * D, 1, static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss * elem),
+                                 static_cast<cuuint64_t>(ss * elem),
+                                 static_cast<cuuint64_t>(sb * elem)};
+  return encode_map(map, base, dims, strides, f32);
 }
 
 // One tile's online-softmax step for this thread's two rows (g and g + 8 of

@@ -23,7 +23,7 @@ same functions in plain PyTorch, in f32: the wrappers use them for CPU
 tensors only, and the tests and ``chip_smoke.py`` hold the kernels against
 them.
 
-Four routes on the card for the forward, chosen before any launch by
+Six routes on the card for the forward, chosen before any launch by
 :func:`forward_route` from dtype, head dim and strides alone, each counting
 its own launches:
 
@@ -39,10 +39,25 @@ its own launches:
   tensor cores in 3xTF32: each f32 operand split into two TF32 parts and
   each product taken as three TF32 products summed in f32, which keeps f32
   accuracy where one TF32 product would not.
-- ``"simt"``, everything else up to D = 256 (bf16 at a D that is not a
-  multiple of 8, f32 at a D that is not a multiple of 4, strides that are
-  not multiples of 16 bytes): ``csrc/flash_attention_simt.cu``'s CUDA-core
-  forward (:func:`flash_attention_simt`), in f32 FMA.
+- ``"wgmma_rows"``, bf16 whose heads TMA cannot read one by one (a D that
+  is not a multiple of 8, such as TinyBERT-4L-312D's 26, whose 52-byte rows
+  no tensor map describes) but whose heads lie side by side in rows of
+  16-byte multiples (:func:`_row_readable`: the encoder's ``[B, S, H*D]``
+  projections, 624 bytes at TinyBERT's width; D up to 249): the wgmma
+  kernel reading those rows in place through row maps, head h's boxes from
+  column h*D rounded down to 8 (TMA starts boxes on 16-byte boundaries
+  only), Q's and K's tiles moved in shared memory so that the head's first
+  column is the tile's (K's where h*D is not a multiple of 8), Q's columns
+  past D zeroed (:func:`flash_attention_rows`).
+- ``"tf32_rows"``, the same for f32 (a D that is not a multiple of 4, up
+  to 253): the 3xTF32 kernel on row maps, boxes from column h*D rounded
+  down to 4, Q's and K's tiles moved so too and both zeroed past D, so S
+  is exact for any input (:func:`flash_attention_tf32_rows`).
+- ``"simt"``, everything else up to D = 256 (a head dim neither map reads,
+  e.g. a contiguous ``[B, H, S, 26]``, whose rows are 52 bytes apart, or
+  strides that are not multiples of 16 bytes, or a base off a 16-byte
+  boundary): ``csrc/flash_attention_simt.cu``'s CUDA-core forward
+  (:func:`flash_attention_simt`), in f32 FMA.
 
 The backward's pair follows the same rule, chosen by :func:`backward_route`,
 each pair counting its own launches:
@@ -201,15 +216,22 @@ def forward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The forward's kernel for [B, H, S, D] q, k, v on the card, from their
     dtype, head dim and strides alone: ``"wgmma"`` (bf16, D = 64),
     ``"wgmma_headdim"`` (bf16 at another D, a multiple of 8), ``"tf32"``
-    (f32, D a multiple of 4), each where TMA can read all three
-    (:func:`_kernel_readable`); ``"simt"`` (the CUDA-core kernel) for the
-    rest.  The backward's pair is :func:`backward_route`'s."""
+    (f32, D a multiple of 4), each where TMA can read all three per head
+    (:func:`_kernel_readable`); then ``"wgmma_rows"`` (bf16) and
+    ``"tf32_rows"`` (f32) where it can read all three as rows of heads side
+    by side (:func:`_row_readable`); ``"simt"`` (the CUDA-core kernel) for
+    the rest.  The backward's pair is :func:`backward_route`'s."""
     d = q.shape[-1]
     tma = all(_kernel_readable(t) for t in (q, k, v))
     if tma and q.dtype == torch.bfloat16 and d % 8 == 0:
         return "wgmma" if d == HEAD_DIM else "wgmma_headdim"
     if tma and q.dtype == torch.float32 and d % 4 == 0:
         return "tf32"
+    if all(_row_readable(t) for t in (q, k, v)):
+        if q.dtype == torch.bfloat16:
+            return "wgmma_rows"
+        if q.dtype == torch.float32:
+            return "tf32_rows"
     return "simt"
 
 
@@ -241,6 +263,18 @@ def _kernel_readable(t: torch.Tensor) -> bool:
     16-byte boundary."""
     return t.stride(-1) == 1 and not any(st * t.element_size() % 16 for st in t.stride()[:3]) \
         and t.data_ptr() % 16 == 0
+
+
+def _row_readable(t: torch.Tensor) -> bool:
+    """A [B, H, S, D] operand whose heads lie side by side in rows that TMA
+    reads whole (a row map over ``[B, S, H*D]``): D contiguous, the H stride
+    D, the B and S strides multiples of 16 bytes, from a 16-byte boundary;
+    D up to 256 less the columns a head can start into a box (TMA starts
+    boxes on 16-byte boundaries only): 249 in bf16, 253 in f32."""
+    es = t.element_size()
+    return t.stride(-1) == 1 and t.stride(1) == t.shape[-1] \
+        and t.shape[-1] + 16 // es - 1 <= MAX_HEAD_DIM \
+        and not (t.stride(0) * es % 16 or t.stride(2) * es % 16) and t.data_ptr() % 16 == 0
 
 
 def _simt_readable(t: torch.Tensor) -> bool:
@@ -283,20 +317,32 @@ def _forward_argtypes():
     ]
 
 
-@functools.cache
-def _kernel():
-    fn = _build.load("flash_attention").mfar_flash_attention_fwd
+def _bind_forward(lib_name: str, name: str):
+    """A forward entry point (they share one signature)."""
+    fn = getattr(_build.load(lib_name), name)
     fn.argtypes = _forward_argtypes()
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _kernel():
+    return _bind_forward("flash_attention", "mfar_flash_attention_fwd")
+
+
+@functools.cache
+def _rows_kernel():
+    return _bind_forward("flash_attention", "mfar_flash_attention_fwd_rows")
 
 
 @functools.cache
 def _tf32_kernel():
-    fn = _build.load("flash_attention_tf32").mfar_flash_attention_fwd_tf32
-    fn.argtypes = _forward_argtypes()
-    fn.restype = ctypes.c_int
-    return fn
+    return _bind_forward("flash_attention_tf32", "mfar_flash_attention_fwd_tf32")
+
+
+@functools.cache
+def _tf32_rows_kernel():
+    return _bind_forward("flash_attention_tf32", "mfar_flash_attention_fwd_tf32_rows")
 
 
 def _bind_bwd(lib_name: str, dq_name: str, dkv_name: str):
@@ -356,13 +402,15 @@ def _wgmma_forward(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tensor:
     return out
 
 
-def _tensor_core_forward(kernel, what, q, k, v, segment_ids, sm_scale, lse) -> torch.Tensor:
-    """One launch of a TMA-fed forward (the wgmma or the 3xTF32 kernel) on
-    checked CUDA inputs: the output as a ``[B, H, S, D]`` view of a ``[B, S,
-    H, D]`` buffer."""
+def _tensor_core_forward(kernel, what, q, k, v, segment_ids, sm_scale, lse,
+                         readable=_kernel_readable) -> torch.Tensor:
+    """One launch of a TMA-fed forward (the wgmma or the 3xTF32 kernel,
+    through per-head maps or, with ``readable`` :func:`_row_readable`, row
+    maps) on checked CUDA inputs: the output as a ``[B, H, S, D]`` view of a
+    ``[B, S, H, D]`` buffer."""
     if lse is not None:
         _check_rows(lse=lse)
-    _check_readable(q=q, k=k, v=v)
+    _check_readable(readable, q=q, k=k, v=v)
     b, h, s, d = q.shape
     out = _empty_bshd(q)
     with torch.cuda.device(q.device):
@@ -394,6 +442,29 @@ def flash_attention_tf32(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tens
     out = _tensor_core_forward(_tf32_kernel(), "flash_attention_tf32", q, k, v, segment_ids,
                                sm_scale, lse)
     flash_attention_tf32.launches += 1
+    return out
+
+
+def flash_attention_rows(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tensor:
+    """K2's wgmma kernel through row maps (bf16 up to D = 249, q, k and v
+    laid out as :func:`_row_readable` says: the ``"wgmma_rows"`` route) on
+    checked CUDA inputs: the output as a ``[B, H, S, D]`` view of a ``[B, S,
+    H, D]`` buffer; with ``lse`` (a contiguous f32 [B, H, S]) it also writes
+    each row's logsumexp there."""
+    out = _tensor_core_forward(_rows_kernel(), "flash_attention_rows", q, k, v, segment_ids,
+                               sm_scale, lse, readable=_row_readable)
+    flash_attention_rows.launches += 1
+    return out
+
+
+def flash_attention_tf32_rows(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tensor:
+    """K2's 3xTF32 kernel through row maps (f32 up to D = 253, laid out as
+    :func:`_row_readable` says: the ``"tf32_rows"`` route) on checked
+    CUDA inputs: the output and ``lse`` as :func:`flash_attention_rows`
+    gives them."""
+    out = _tensor_core_forward(_tf32_rows_kernel(), "flash_attention_tf32_rows", q, k, v,
+                               segment_ids, sm_scale, lse, readable=_row_readable)
+    flash_attention_tf32_rows.launches += 1
     return out
 
 
@@ -687,7 +758,8 @@ _PAD_COLUMNS = {"wgmma_pad": 8, "tf32_pad": 4}
 # each route's forward, by forward_route's name, and backward pair (dq,
 # dkv), by backward_route's
 _FORWARDS = {"wgmma": _wgmma_forward, "wgmma_headdim": flash_attention_headdim,
-             "tf32": flash_attention_tf32, "simt": flash_attention_simt}
+             "tf32": flash_attention_tf32, "wgmma_rows": flash_attention_rows,
+             "tf32_rows": flash_attention_tf32_rows, "simt": flash_attention_simt}
 _BACKWARDS = {"wgmma": (flash_attention_bwd_dq, flash_attention_bwd_dkv),
               "wgmma_headdim": (flash_attention_bwd_headdim_dq, flash_attention_bwd_headdim_dkv),
               "tf32": (flash_attention_tf32_bwd_dq, flash_attention_tf32_bwd_dkv),
@@ -698,6 +770,8 @@ _BACKWARDS = {"wgmma": (flash_attention_bwd_dq, flash_attention_bwd_dkv),
 flash_attention.launches = 0
 flash_attention_headdim.launches = 0
 flash_attention_tf32.launches = 0
+flash_attention_rows.launches = 0
+flash_attention_tf32_rows.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_headdim_dq.launches = 0

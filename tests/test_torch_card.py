@@ -56,12 +56,14 @@ from mfar_tpu_torch.ops.flash_attention import (
     flash_attention_fwd,
     flash_attention_headdim,
     flash_attention_plain,
+    flash_attention_rows,
     flash_attention_simt,
     flash_attention_simt_bwd_dkv,
     flash_attention_simt_bwd_dq,
     flash_attention_tf32,
     flash_attention_tf32_bwd_dkv,
     flash_attention_tf32_bwd_dq,
+    flash_attention_tf32_rows,
     backward_route,
     forward_route,
     pad_heads,
@@ -322,7 +324,9 @@ SIMT_F32_ATOL, SIMT_LSE_ATOL, SIMT_GRAD_REL = 2e-5, 1e-5, 2e-5
 
 def _forward_counts():
     return {"wgmma": flash_attention.launches, "wgmma_headdim": flash_attention_headdim.launches,
-            "tf32": flash_attention_tf32.launches, "simt": flash_attention_simt.launches}
+            "tf32": flash_attention_tf32.launches, "wgmma_rows": flash_attention_rows.launches,
+            "tf32_rows": flash_attention_tf32_rows.launches,
+            "simt": flash_attention_simt.launches}
 
 
 # K2b's pairs (dq, dkv) by backward_route's name
@@ -388,12 +392,13 @@ def test_k2_refuses_a_head_dim_past_256(card):
 
 def _route_inputs(dtype, d, layout, seed):
     """[2, 3, 256, d] q/k/v and dO with ragged and interleaved segments:
-    the encoder's strided views, (``layout`` "offset") views that start
-    one element into their buffers, which TMA cannot read, or
+    the encoder's strided views (``layout`` "encoder"; "encoder_h8": at 8
+    heads, whose rows are 16-byte multiples at any D), views that start
+    one element into their buffers ("offset"), which TMA cannot read, or
     ("padded_rows") views of [B, S, H*d + 2] buffers, whose rows are not
     16 bytes apart."""
     rng = np.random.default_rng(seed)
-    b, h, s = 2, 3, 256
+    b, h, s = 2, 8 if layout == "encoder_h8" else 3, 256
 
     def one():
         if layout == "padded_rows":
@@ -412,8 +417,12 @@ def _route_inputs(dtype, d, layout, seed):
 
 # each route's forward against plain at small head dims: the tensor-core
 # kernels (the wgmma kernel at 1-4 slabs in bf16, the 3xTF32 kernel at 1-8
-# in f32) and the CUDA-core kernel for what TMA cannot read (D not a
-# multiple of 8 in bf16 or 4 in f32, a view off a 16-byte boundary)
+# in f32), the same kernels on row maps for heads TMA cannot read one by
+# one (bf16 D = 2, 20, 25: odd, 26: TinyBERT's, 126: two slabs; f32 D = 2,
+# 26, 62: two slabs; 8 heads a row, the last one's box reaching the map's
+# zero fill) and the CUDA-core kernel for what no map reads (three heads of
+# D = 20 bf16 or 26 f32: rows of 120 or 312 bytes; a view off a 16-byte
+# boundary)
 @pytest.mark.parametrize("dtype,d,layout,route", [
     (torch.bfloat16, 16, "encoder", "wgmma_headdim"),
     (torch.bfloat16, 40, "encoder", "wgmma_headdim"),
@@ -423,6 +432,14 @@ def _route_inputs(dtype, d, layout, seed):
     (torch.float32, 64, "encoder", "tf32"),
     (torch.float32, 136, "encoder", "tf32"),
     (torch.float32, 256, "encoder", "tf32"),
+    (torch.bfloat16, 2, "encoder_h8", "wgmma_rows"),
+    (torch.bfloat16, 20, "encoder_h8", "wgmma_rows"),
+    (torch.bfloat16, 25, "encoder_h8", "wgmma_rows"),
+    (torch.bfloat16, 26, "encoder_h8", "wgmma_rows"),
+    (torch.bfloat16, 126, "encoder_h8", "wgmma_rows"),
+    (torch.float32, 2, "encoder_h8", "tf32_rows"),
+    (torch.float32, 26, "encoder_h8", "tf32_rows"),
+    (torch.float32, 62, "encoder_h8", "tf32_rows"),
     (torch.bfloat16, 20, "encoder", "simt"),
     (torch.float32, 26, "encoder", "simt"),
     (torch.bfloat16, 64, "offset", "simt"),
@@ -526,11 +543,73 @@ def test_backward_routes_match_plain(card, dtype, d, layout, route):
     assert torch.equal(di, di_again)
 
 
+@pytest.mark.parametrize("dtype,width", [(torch.bfloat16, 32), (torch.float32, 28)],
+                         ids=["bf16", "f32"])
+def test_rows_routes_equal_the_kernel_on_padded_copies(card, dtype, width):
+    """At [2, 12, 256, 26] (TinyBERT-4L-312D's heads, read as the encoder's
+    [B, S, 312] rows; the last head's box reaches the map's zero fill) each
+    rows route's output and logsumexp equal, bit for bit at every head, the
+    same kernel's through per-head maps on ``pad_heads`` copies (bf16 at
+    D = 32, f32 at D = 28: their first 26 columns), at D = 26's scale."""
+    rng = np.random.default_rng(26)
+    b, h, s, d = 2, 12, 256, 26
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, h * d)).astype(np.float32)).cuda()
+               .to(dtype).view(b, s, h, d).transpose(1, 2) for _ in range(3))
+    seg = torch.tensor([SEG_LAYOUTS["runs"][0], [1] * 150 + [0] * 106], dtype=torch.int32,
+                       device=card)
+    scale = 1.0 / d**0.5
+    rows, per_head = ("wgmma_rows", "wgmma_headdim") if dtype == torch.bfloat16 else \
+        ("tf32_rows", "tf32")
+    padded = [pad_heads(t, width) for t in (q, k, v)]
+    assert forward_route(q, k, v) == rows and forward_route(*padded) == per_head
+    before = _forward_counts()
+    out, lse = flash_attention_fwd(q, k, v, seg, scale)
+    got = flash_attention(q, k, v, seg, scale)
+    want, want_lse = flash_attention_fwd(*padded, seg, scale)
+    torch.cuda.synchronize()
+    assert _forward_counts() == dict(before, **{rows: before[rows] + 2,
+                                                per_head: before[per_head] + 1})
+    assert torch.equal(out, want[..., :d]) and torch.equal(lse, want_lse)
+    assert torch.equal(got, out)
+    assert out.transpose(1, 2).is_contiguous()  # [B, S, H, D]: the encoder's reshape is a view
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_tinybert_width_auto_encoder_reads_rows_in_place(card, dtype):
+    """An encoder at TinyBERT_General_4L_312D's width (hidden 312, 12 heads
+    of D = 26, intermediate 1200; 2 layers) with "auto" on the card takes
+    the rows route once a layer ("wgmma_rows" in bf16, "tf32_rows" in f32),
+    never the CUDA-core forward, and agrees with "xla" on the valid tokens
+    and the pooled embedding (bf16: rtol = atol = 5e-2, as the D = 64 test
+    below; f32: atol 1e-4, as the f32 test below)."""
+    cfg = EncoderConfig.tiny(vocab_size=97, hidden_size=312, num_heads=12, num_layers=2,
+                             intermediate_size=1200, dtype=dtype)
+    xla = init_encoder(cfg, seed=26).to(card)
+    auto = Encoder(dataclasses.replace(cfg, attention_impl="auto")).to(card).eval()
+    auto.load_state_dict(xla.state_dict())
+    ids = torch.from_numpy(np.random.default_rng(26).integers(0, 97, size=(3, 128))).to(card)
+    mask = torch.ones(3, 128, dtype=torch.int32, device=card)
+    mask[1, 30:] = 0
+    route = "wgmma_rows" if dtype == torch.bfloat16 else "tf32_rows"
+    with torch.inference_mode():
+        before = _forward_counts()
+        pooled, tokens = auto(ids, mask, return_tokens=True)
+        assert _forward_counts() == dict(before, **{route: before[route] + 2})
+        want_pooled, want_tokens = xla(ids, mask, return_tokens=True)
+    valid = mask.bool()
+    tol = dict(rtol=5e-2, atol=5e-2) if dtype == torch.bfloat16 else dict(rtol=0, atol=1e-4)
+    torch.testing.assert_close(tokens[valid].float(), want_tokens[valid].float(), **tol)
+    torch.testing.assert_close(pooled.float(), want_pooled.float(), **tol)
+
+
 def test_tensor_core_forwards_refuse_what_tma_cannot_read(card):
-    """Called directly, the wgmma and 3xTF32 wrappers raise on a layout TMA
-    cannot read; they never hand it to another kernel."""
+    """Called directly, the wgmma and 3xTF32 wrappers (per head and on row
+    maps) raise on a layout TMA cannot read; they never hand it to another
+    kernel."""
     for dtype, fn in ((torch.bfloat16, flash_attention_headdim),
-                      (torch.float32, flash_attention_tf32)):
+                      (torch.float32, flash_attention_tf32),
+                      (torch.bfloat16, flash_attention_rows),
+                      (torch.float32, flash_attention_tf32_rows)):
         q, k, v, seg, _ = _route_inputs(dtype, 32, "offset", seed=5)
         with pytest.raises(ValueError, match="cannot read"):
             fn(q, k, v, seg, 0.2)

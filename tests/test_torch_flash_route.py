@@ -3,9 +3,18 @@
 ``forward_route`` and ``backward_route`` choose the forward's kernel and the
 backward's pair from dtype, head dim and strides alone; they are held here
 on CPU tensors laid out as each class of input is (the encoder's strided
-views, a contiguous tensor, a view that starts off a 16-byte boundary, rows
-padded to a stride that is not a multiple of 16 bytes), on both sides of
-the backward's caps (bf16 D = 128, f32 D = 64).
+views at 2, 8 and 1 heads, a contiguous tensor, a view that starts off a
+16-byte boundary, rows padded to a stride that is not a multiple of 16
+bytes), on both sides of the backward's caps (bf16 D = 128, f32 D = 64).
+
+The forward's rows routes (``"wgmma_rows"``, ``"tf32_rows"``) read the
+encoder's ``[B, S, H*D]`` rows in place where no per-head tensor map can
+(TinyBERT-4L-312D's D = 26): head h's boxes of 64 bf16 or 32 f32 columns
+start at column h*D rounded down to a 16-byte boundary, hold the
+neighbours' columns (zeros past H*D), and the head's Q and K columns are
+moved to the start, Q's past D set to 0.  ``_box_attention`` below reads
+what the kernels read and is held against JAX's Pallas
+``flash_attention`` in interpret mode.
 
 The f32 kernel (``csrc/flash_attention_tf32.cu``) takes its products on the
 tensor cores in 3xTF32: each f32 operand x split into hi = rna_tf32(x) and
@@ -49,8 +58,9 @@ GRAD_REL = 2e-5  # the card's gate for f32 gradients: of the largest entry
 
 def _layout(dtype, d, layout):
     """Zeros [B, H, S, d] in one of the layouts the route reads."""
-    if layout == "encoder":  # [B, S, H*d] projections viewed as [B, H, S, d]
-        return torch.zeros(B, S, H * d, dtype=dtype).view(B, S, H, d).transpose(1, 2)
+    if layout.startswith("encoder"):  # [B, S, H*d] projections viewed as [B, H, S, d]
+        h = int(layout[len("encoder_h"):]) if layout != "encoder" else H  # "encoder_h8": 8 heads
+        return torch.zeros(B, S, h * d, dtype=dtype).view(B, S, h, d).transpose(1, 2)
     if layout == "contiguous":
         return torch.zeros(B, H, S, d, dtype=dtype)
     if layout == "offset":  # one element into its buffer: off a 16-byte boundary
@@ -71,15 +81,33 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, 16, "contiguous", "wgmma_headdim"),
     (BF16, 136, "encoder", "wgmma_headdim"),
     (BF16, 256, "encoder", "wgmma_headdim"),
-    (BF16, 20, "encoder", "simt"),  # D not a multiple of 8
-    (BF16, 26, "contiguous", "simt"),
+    # D not a multiple of 8: the heads' rows (H*D*2 bytes: 80 at two heads
+    # of 20) read in place through row maps
+    (BF16, 20, "encoder", "wgmma_rows"),
+    (BF16, 2, "encoder_h8", "wgmma_rows"),
+    (BF16, 20, "encoder_h8", "wgmma_rows"),
+    (BF16, 25, "encoder_h8", "wgmma_rows"),  # odd D
+    (BF16, 26, "encoder_h8", "wgmma_rows"),  # TinyBERT-4L-312D's heads
+    (BF16, 126, "encoder_h8", "wgmma_rows"),  # three slabs: up to 7 columns into a box
+    (BF16, 249, "encoder_h8", "wgmma_rows"),  # four slabs
+    (BF16, 250, "encoder_h8", "simt"),  # past four slabs
+    (BF16, 26, "encoder_h1", "simt"),  # rows of 52 bytes: no map reads them
+    (BF16, 26, "contiguous", "simt"),  # the heads not side by side
+    (BF16, 26, "offset", "simt"),
     (BF16, 64, "offset", "simt"),
     (BF16, 64, "padded_rows", "simt"),
     (F32, 64, "encoder", "tf32"),
     (F32, 20, "encoder", "tf32"),  # a multiple of 4
     (F32, 16, "contiguous", "tf32"),
     (F32, 256, "encoder", "tf32"),
-    (F32, 26, "encoder", "simt"),  # not a multiple of 4
+    (F32, 26, "encoder", "tf32_rows"),  # not a multiple of 4: rows of 208 bytes
+    (F32, 2, "encoder_h8", "tf32_rows"),
+    (F32, 26, "encoder_h8", "tf32_rows"),
+    (F32, 62, "encoder_h8", "tf32_rows"),  # up to three slabs
+    (F32, 253, "encoder_h8", "tf32_rows"),  # eight slabs
+    (F32, 254, "encoder_h8", "simt"),  # past eight slabs
+    (F32, 26, "contiguous", "simt"),
+    (F32, 26, "offset", "simt"),
     (F32, 64, "offset", "simt"),
     (F32, 64, "padded_rows", "simt"),
 ], ids=lambda x: str(x).replace("torch.", ""))
@@ -88,6 +116,8 @@ def test_forward_route(dtype, d, layout, want):
     assert forward_route(t, t, t) == want
     if want != "simt":  # one operand TMA cannot read sends all three to the CUDA cores
         assert forward_route(t, t, _layout(dtype, d, "offset")) == "simt"
+    if want.endswith("_rows"):  # so does one whose heads are not side by side
+        assert forward_route(_layout(dtype, d, "contiguous"), t, t) == "simt"
 
 
 @pytest.mark.parametrize("dtype,d,layout,want", [
@@ -284,3 +314,72 @@ def test_3xtf32_backward_on_padded_copies_keeps_the_f32_gate_against_pallas():
         assert not g[..., d:].any()
         np.testing.assert_allclose(g[..., :d].numpy(), w, rtol=0,
                                    atol=GRAD_REL * np.abs(w).max())
+
+
+def _box_attention(q, k, v, seg, scale, attend):
+    """Attention as the rows routes read it, on [B, H, S, D] q, k, v viewed
+    from [B, S, H*D] rows: head h's boxes start at column h*D rounded down
+    to 8 (bf16) or 4 (f32) columns, TMA's 16-byte boundary, the head's
+    columns ``off`` = h*D % 8 (or 4) into them; ceil((D + 7) / 64) slabs of
+    64 columns (f32: ceil((D + 3) / 32) of 32), zeros past H*D.  Q's and K's
+    columns moved ``off`` to the left (zeros in at the end), Q's past D set
+    to 0; K's past D (the next head's) left live in bf16, set to 0 in f32;
+    V where it landed.  ``attend`` over the boxes; O's columns
+    off..off+D-1 and the logsumexp."""
+    b, h, s, d = q.shape
+    align, slab = (8, 64) if q.dtype == torch.bfloat16 else (4, 32)
+    width = -(-(d + align - 1) // slab) * slab
+
+    def rows(t):
+        return torch.nn.functional.pad(t.transpose(1, 2).reshape(b, s, h * d), (0, width))
+
+    outs, lses, live = [], [], False
+    for i in range(h):
+        off = i * d % align
+        start = i * d - off
+        bq, bk, bv = (rows(t)[:, None, :, start:start + width] for t in (q, k, v))
+        bq, bk = (torch.nn.functional.pad(t[..., off:], (0, off)) for t in (bq, bk))
+        live |= bool(bk[..., d:].any())
+        bq[..., d:] = 0
+        if q.dtype == torch.float32:
+            bk[..., d:] = 0
+        out, lse = attend(bq, bk, bv, seg, scale)
+        outs.append(out[:, 0, :, off:off + d])
+        lses.append(lse[:, 0])
+    assert live  # the next head's columns of K, in the boxes
+    return torch.stack(outs, 1), torch.stack(lses, 1)
+
+
+@pytest.mark.parametrize("dtype,heads", [(BF16, 4), (F32, 2)], ids=["bf16", "f32"])
+@pytest.mark.parametrize("layout", ["runs", "interleaved"])
+def test_rows_boxes_keep_the_gates_against_pallas(dtype, heads, layout):
+    """The rows routes' arithmetic at TinyBERT-4L-312D's D = 26: the boxes
+    of ``_box_attention`` (bf16 through the plain forward in f32, as the
+    wgmma kernel's S is exact; f32 through the 3xTF32 kernel's arithmetic)
+    against JAX's Pallas ``flash_attention`` in interpret mode on the same
+    heads: f32 output 2e-5 and logsumexp 1e-5; bf16 within K2's gates
+    (rtol = atol = 1e-2, the logsumexp 1e-3)."""
+    d = 26
+    rng = np.random.default_rng(2600 + heads)
+    qkv = [torch.from_numpy(rng.normal(size=(B, S, heads * d)).astype(np.float32)).to(dtype)
+           .view(B, S, heads, d).transpose(1, 2) for _ in range(3)]
+    assert forward_route(*qkv) == ("wgmma_rows" if dtype == BF16 else "tf32_rows")
+    seg = np.asarray(SEG_LAYOUTS[layout], np.int32)
+    scale = 1.0 / np.sqrt(d)
+    jseg = jnp.asarray(seg)
+    jdtype = jnp.bfloat16 if dtype == BF16 else jnp.float32
+    with pltpu.force_tpu_interpret_mode():
+        want, l, m = jax_fa._flash_attention(
+            *(jnp.asarray(t.float().contiguous().numpy()).astype(jdtype) for t in qkv), None,
+            SegmentIds(q=jseg, kv=jseg), True, False, scale,
+            BlockSizes.get_default(B, heads, S, S, d), False)
+    want = np.asarray(want.astype(jnp.float32))
+    want_lse = np.asarray(m) + np.log(np.asarray(l))
+    if dtype == BF16:
+        out, lse = _box_attention(*qkv, torch.from_numpy(seg), scale, flash_attention_fwd)
+        np.testing.assert_allclose(out.float().numpy(), want, rtol=1e-2, atol=1e-2)
+        np.testing.assert_allclose(lse.numpy(), want_lse, rtol=0, atol=1e-3)
+    else:
+        out, lse = _box_attention(*qkv, torch.from_numpy(seg), scale, _flash_3xtf32)
+        np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=F32_ATOL)
+        np.testing.assert_allclose(lse.numpy(), want_lse, rtol=0, atol=LSE_ATOL)
