@@ -168,7 +168,9 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 corpus's two hybrid routes and the host stream's postings
                 route (against a device-resident engine); the scatter-free
                 bucketed op (fused_hybrid_topk_buckets_from_query) beside
-                the scatter route on one batch, against it
+                the scatter route on one batch, against it; the drift (below)
+                of the postings route, the bucketed op, hybrid rerank, the
+                int8 postings route and the host stream's postings route
 15. hybrid_cli -- the port's own command chain at Contriever-base width:
                 make_synth_data, create_sparse_index,
                 precompute_sparse_scores, train --field-names
@@ -203,7 +205,9 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 beside one card's, and the daemon with 64 HTTP clients for 10 s;
                 (a) and (b) serve each case over the corpus on the card in bf16
                 and int8 and in host memory in bf16 and int8, against the
-                one-device engine of the same placement
+                one-device engine of the same placement; (b) also holds the
+                drift (below) of dense exact and rerank and hybrid postings
+                and rerank on the card in bf16, on both ranks alike
 18. mesh_capacity -- with several cards, one NCCL rank per card (skipped
                 on one): retrieve --quantize int8 and retrieve
                 --corpus-on-host under torchrun against one card's, and
@@ -218,9 +222,10 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 holds), exact, 64 queries against rank 0's own scan of every
                 row made again on its card
 19. serve    -- the serving daemon (mfar_tpu_torch.serve) over a random bf16
-                [1048576, 5, 768] corpus made on the card: first how far 8
-                queries' scores move with the batch they share (16-256),
-                then max_batch 256, max_wait_ms 5, top_k 100, 64
+                [1048576, 5, 768] corpus made on the card: first the drift
+                (below) of exact at three query sets, with whether the
+                encoded queries move, and of rerank through K1, K1x and the
+                plain gather, then max_batch 256, max_wait_ms 5, top_k 100, 64
                 closed-loop HTTP clients of 8 queries in a child process,
                 10 s a run; exact at pipeline depth 2, 1, 2, then rerank
                 through K1: QPS, request latency p50/p95, batch fill, the
@@ -233,12 +238,22 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 131072-row slice against a brute-force int8 reference with
                 exact integer dots, int8_dot (torch._int_mm) at a 1-query
                 batch and row counts off a multiple of 8, int8 rerank on the
-                e2e corpus
+                e2e corpus; the drift (below) of int8 exact and rerank
 21. host_stream -- that corpus copied to host memory (cut if MemAvailable is
                 short of 3x it) and streamed per scan in bf16 and int8: QPS,
                 chunks, the achieved copy rate against one pinned copy of a
                 chunk, device memory over the encoder's working set, every
-                batch against the device-resident engines
+                batch against the device-resident engines; the drift (below)
+                of both streams
+
+The drift of a served route (answer_drift): 8 queries of one bucket width
+retrieved alone against the same queries first in batches of 16-256 and
+last in one of 256, and 256 queries retrieved twice; every answer must be
+the same bits, as the JAX daemon's one compiled shape and XLA's scatter
+give.  A route that moves is named with the first aten operator whose
+outputs move (first_moved_op), and the run fails at its end, after every
+phase has reported.  ``--phases hybrid_serving,mesh,serve,int8,host_stream``
+runs every drift check.
 
 TF32 is switched off for matmuls and cuDNN, so f32 comparisons run in full
 f32.  Any failed check raises and the run exits non-zero; a rank that fails
@@ -3866,6 +3881,17 @@ def run_hybrid_serving(seed, engine, n=131072, n_queries=512, n_text_queries=128
     msg = rankings_agree(exact[:batch_size], ref, E2E_RTOL, E2E_ATOL)
     check(msg is None, f"hybrid serving batch vs brute force: {msg}")
     a16 = bucketed_beside_scatter(big, batch, raws[0])
+    dq = sample_queries(big, qs, 256, seed + SERVE_DRIFT_OFFSETS[0])
+    drifts = {route: route_drift("hybrid_serving", route, big, mode, dq, sizes)
+              for route, mode, sizes in (("singlechip-hybrid-postings", "exact", None),
+                                         ("singlechip-rerank-hybrid-k1", "rerank",
+                                          FEW_DRIFT_SIZES))}
+    route = "fused_hybrid_topk_buckets_from_query"  # no engine route
+    drifts[route] = answer_drift(lambda texts: bucketed_answers(big, texts), dq)
+    phase("hybrid_serving", f"drift of 8 queries alone vs first in batches of 16-{len(dq)} "
+                            f"and last in one of {len(dq)}, and of {len(dq)} queries run "
+                            f"twice: {hold_drift('hybrid_serving', route, drifts[route])} "
+                            f"({CARD})")
     phase("hybrid_serving", f"N={n} mag-shaped docs ({data_s:.1f}s to make), BM25 over "
                             f"{len(bm25)} fields: format {format_s:.1f}s, native build "
                             f"{build_s:.1f}s; {len(qs)} queries of 8 content words, batch "
@@ -3904,6 +3930,8 @@ def run_hybrid_serving(seed, engine, n=131072, n_queries=512, n_text_queries=128
         check_results(res, len(batch_qs), 100)
         i8_qps[label] = (len(batch_qs) / secs, overlap(res, exact if label == "postings"
                                                         else text))
+    route = "singlechip-int8-hybrid-postings"
+    drifts[route] = route_drift("int8", route, i8, "exact", dq, FEW_DRIFT_SIZES)
     del i8
     hs = RetrievalEngine(dense_matrix=big.docs_flat.cpu(), corpus_on_host=True, **kw)
     hs.retrieve(qs[:batch_size], top_k=100)  # warm-up
@@ -3914,6 +3942,8 @@ def run_hybrid_serving(seed, engine, n=131072, n_queries=512, n_text_queries=128
     msg = rankings_agree(hs_res, f32.retrieve_many(qs, top_k=100, batch_size=batch_size),
                          E2E_RTOL, E2E_ATOL)
     check(msg is None, f"host-stream hybrid vs the device-resident engine: {msg}")
+    route = "host-stream-hybrid-postings"
+    drifts[route] = route_drift("host_stream", route, hs, "exact", dq, FEW_DRIFT_SIZES)
     del hs, f32
     phase("int8", f"hybrid_serving's corpus as int8: exact {len(qs)} queries on "
                   f"singlechip-int8-hybrid-postings {i8_qps['postings'][0]:.1f} QPS, "
@@ -3932,9 +3962,28 @@ def run_hybrid_serving(seed, engine, n=131072, n_queries=512, n_text_queries=128
                 hybrid_serving_k1_launches=launches, hybrid_serving_bm25_build_s=build_s,
                 hybrid_serving_postings_width=width, hybrid_serving_postings_per_query=nnz,
                 hybrid_serving_busy_share=prof["busy_share"], hybrid_serving_a16=a16,
+                hybrid_serving_drift=drifts,
                 hybrid_serving_stage_ms=dict(encode=enc_ms, postings=post_ms,
                                              native_postings=native_ms, dispatch=disp_ms,
                                              exact=exact_ms, rerank=rerank_ms))
+
+
+def bucketed_answers(engine, texts, k=100):
+    """The engine's answers to ``texts`` through the scatter-free bucketed
+    op (``fused_hybrid_topk_buckets_from_query``, no engine route): the
+    engine's encoded queries and host postings, bucketed on the host at the
+    engine's chunk."""
+    n, fd = engine.n_docs, len(engine.dense_keys)
+    chunk = topk_chunk(n, len(texts))
+    raw = engine._sparse_postings_raw([clean_query(x) for x in texts])
+    buckets = bucket_postings_np(*raw, n, chunk)
+    with torch.inference_mode():
+        q = engine.encode_queries(texts)
+        bk = [torch.from_numpy(a).to(DEVICE) for a in buckets]
+        s, i = fused_hybrid_topk_buckets_from_query(q, engine._W, engine._mask_tensor(),
+                                                    engine.docs_flat, *bk, n, fd, k,
+                                                    chunk_size=chunk)
+        return engine._to_keyed(s.cpu().numpy(), i.cpu().numpy())
 
 
 def bucketed_beside_scatter(engine, batch, raw, k=100) -> dict:
@@ -4452,54 +4501,112 @@ def hits_of(results):
     return [[(k, s) for k, s in hits] for hits in results]
 
 
-def batch_drift(engine, seed, n=8, batch=256) -> dict:
-    """How far a request's exact scores move with the batch it is served
-    in: ``n`` queries of the serve clients' kind retrieved alone and as the
-    first ``n`` of a batch of every size the daemon forms from ``n``-query
-    requests (2n, 3n, ... ``batch``) and as the last ``n`` of a full one;
-    for each, the largest relative difference of a document's score over
-    the documents both top-100 lists hold.  0 everywhere if neither the
-    query encoder nor the scoring depends on the batch; the daemon check's
-    E2E_RTOL holds only above it.  Returns the largest difference, the
-    batch it came at, the batches with any difference, those at which
-    ``engine.encode_queries`` gives the ``n`` queries other bits than alone
-    (``encoder_moved``), and, as the control that shows what the check
-    catches, those at which the encoder itself does when called on the
-    batch's own row count (``rows_moved``, how the engine encoded before
-    it fixed the row count of a call), with the first operator whose rows
-    change there (``first_moved_op``)."""
-    qs = word_queries(batch, np.random.default_rng(seed))
-    sizes = list(range(2 * n, batch + 1, n))
-    alone = engine.retrieve(qs[:n], top_k=100)
+def score_drift(want, got) -> float:
+    """The largest relative difference of a document's score between two
+    answers to the same queries, over the documents both lists of a query
+    hold."""
+    worst = 0.0
+    for a, b in zip(want, got):
+        b = dict(b)
+        worst = max([worst] + [abs(s - b[k]) / max(abs(b[k]), 1e-30) for k, s in a if k in b])
+    return worst
+
+
+def ranked_keys(answers):
+    return [[k for k, _ in hits] for hits in answers]
+
+
+def answer_drift(retrieve, qs, n=8, sizes=None) -> dict:
+    """How far ``n`` queries' answers move with the batch they share and
+    from one run to the next.  ``retrieve(texts)`` gives the engine's
+    [(key, score), ...] lists.  Batch drift: the first ``n`` of ``qs``
+    alone against the same queries first in batches of ``sizes`` (every
+    multiple of ``n`` from 2n to len(qs) by default) and last in one of
+    len(qs); run drift: all of ``qs`` retrieved twice.  Each gives the
+    largest relative score difference over the documents both lists hold,
+    the batches (or whether the runs) whose ranked top-100 keys differ, and
+    whether every answer is the same bits.  Where answers move, the first
+    operator whose outputs move is named (:func:`first_moved_op` on the
+    ``retrieve`` call): for the run drift on the whole batch twice, for the
+    batch drift on the ``n`` queries alone and first in the smallest batch
+    that moved, unless the runs moved too (then the run names it: the
+    inputs of a batch lie in another layout, such as postings padded to
+    the batch's longest, which that comparison cannot tell from a move)."""
+    t = time.perf_counter()
+    sizes = list(sizes or range(2 * n, len(qs) + 1, n))
+    alone = retrieve(qs[:n])
+    by_size = {size: retrieve(qs[:size])[:n] for size in sizes}
+    by_size["last"] = retrieve(qs[n:] + qs[:n])[-n:]
+    first, second = retrieve(qs), retrieve(qs)
+    rel = {size: score_drift(alone, got) for size, got in by_size.items()}
+    moved = [size for size, got in by_size.items() if got != alone]
+    out = dict(batch_max=max(rel.values()), batch_at=max(rel, key=rel.get), batch_moved=moved,
+               batch_lists_differ=[size for size, got in by_size.items()
+                                   if ranked_keys(got) != ranked_keys(alone)],
+               batch_bits_equal=not moved, run_max=score_drift(first, second),
+               run_lists_differ=ranked_keys(first) != ranked_keys(second),
+               run_bits_equal=first == second, batch_first_moved_op=None,
+               run_first_moved_op=None)
+    if not out["run_bits_equal"]:
+        out["run_first_moved_op"] = first_moved_op(retrieve, qs, qs, len(qs))
+    elif [s for s in moved if s != "last"]:
+        out["batch_first_moved_op"] = first_moved_op(
+            retrieve, qs[:n], qs[:min(s for s in moved if s != "last")], n)
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+# drift checks that failed: held at the end of the run, so that one run
+# reports every route's drift
+DRIFT_FAULTS = []
+
+
+def hold_drift(where, route, d) -> str:
+    """Hold a route's drift (:func:`answer_drift`): its answers the same bits
+    in every batch and in both runs; a failure is kept for the end of the
+    run.  Returns the drift's line."""
+    line = (f"{route}: batch drift {d['batch_max']:.3g} at {d['batch_at']} (bits "
+            f"{'equal' if d['batch_bits_equal'] else 'moved at ' + str(d['batch_moved'])}; "
+            f"top-100 lists differ at {d['batch_lists_differ']}), run drift {d['run_max']:.3g} "
+            f"(bits {'equal' if d['run_bits_equal'] else 'moved'}; lists "
+            f"{'differ' if d['run_lists_differ'] else 'alike'}); {d['seconds']:.1f} s")
+    for kind in ("batch", "run"):
+        if d[f"{kind}_first_moved_op"] is not None:
+            line += f"; {kind}: first moved op {d[f'{kind}_first_moved_op']}"
+    if not (d["batch_bits_equal"] and d["run_bits_equal"]):
+        DRIFT_FAULTS.append(f"{where} {route}: {line}")
+    return line
+
+
+def encoder_drift(engine, qs, n=8) -> dict:
+    """Whether ``engine.encode_queries`` gives the first ``n`` of ``qs``
+    other bits alone than inside batches of 2n, 3n, ... len(qs) queries and
+    last in one of len(qs) (``encoder_moved``), and, as the control that
+    shows what the check catches, the batches at which the encoder itself
+    does when called on the batch's own row count (``rows_moved``, how the
+    engine encoded before it fixed the row count of a call), with the first
+    operator whose rows change there (``first_moved_op``)."""
+    sizes = list(range(2 * n, len(qs) + 1, n))
 
     def rows_encoded(texts):
-        toks = engine.tokenizer.encode_batch([clean_query(q) for q in texts],
+        return engine.tokenizer.encode_batch([clean_query(q) for q in texts],
                                              engine.query_max_length)
-        return toks, engine.encode_fn(toks["input_ids"], toks["attention_mask"])
+
+    def encode(toks):
+        return engine.encode_fn(toks["input_ids"], toks["attention_mask"])
 
     with torch.inference_mode():
         enc = engine.encode_queries(qs[:n])
         batched = {size: engine.encode_queries(qs[:size])[:n] for size in sizes}
         batched["last"] = engine.encode_queries(qs[n:] + qs[:n])[-n:]
         encoder_moved = [size for size, e in batched.items() if not torch.equal(e, enc)]
-        small, enc_rows = rows_encoded(qs[:n])
+        small = rows_encoded(qs[:n])
+        enc_rows = encode(small)
         rows_moved = [size for size in sizes
-                      if not torch.equal(rows_encoded(qs[:size])[1][:n], enc_rows)]
-    first_op = first_moved_op(engine.encode_fn, small,
-                              rows_encoded(qs[:rows_moved[0]])[0]) if rows_moved else None
-    by_size = {}
-    for size in sizes:
-        by_size[size] = engine.retrieve(qs[:size], top_k=100)[:n]
-    by_size["last"] = engine.retrieve(qs[n:] + qs[:n], top_k=100)[-n:]
-    drift = {}
-    for size, shared in by_size.items():
-        drift[size] = 0.0
-        for a, b in zip(alone, shared):
-            b = dict(b)
-            drift[size] = max([drift[size]] + [abs(s - b[k]) / abs(b[k]) for k, s in a if k in b])
-    worst = max(drift, key=drift.get)
-    return dict(max=drift[worst], at=worst, moved=[k for k, v in drift.items() if v > 0],
-                encoder_moved=encoder_moved, rows_moved=rows_moved, first_moved_op=first_op)
+                      if not torch.equal(encode(rows_encoded(qs[:size]))[:n], enc_rows)]
+    first_op = (first_moved_op(encode, small, rows_encoded(qs[:rows_moved[0]]), n)
+                if rows_moved else None)
+    return dict(encoder_moved=encoder_moved, rows_moved=rows_moved, first_moved_op=first_op)
 
 
 def _tensors(out):
@@ -4507,17 +4614,30 @@ def _tensors(out):
             if isinstance(t, torch.Tensor)]
 
 
-def first_moved_op(encode_fn, small, big) -> dict:
-    """The first aten operator of the encoder whose output rows for the
-    queries of ``small`` (token arrays) differ when the same queries run as
-    the head of ``big``: every operator's outputs of the ``small`` run are
-    recorded, then the ``big`` run's are compared with them (the first
-    entries of dim 0, where the batch sits: a ``[B * S, E]`` GEMM output
-    holds the first queries' tokens first); the inputs of that operator are
-    the same in both runs, since every earlier output was.  Replays that
-    operator on both runs' inputs under ``torch.profiler`` and returns its
-    name, its index among the run's outputs, both output shapes, the
-    largest difference and the device kernels each replay launched."""
+# operators whose outputs are uninitialised memory (a kernel written by hand
+# fills them where no aten operator sees it)
+UNINITIALISED_OPS = ("aten.empty", "aten.new_empty", "aten.empty_like", "aten.empty_strided")
+
+
+def first_moved_op(run, small, big, rows) -> dict:
+    """The first aten operator of ``run(x)`` (an encoder call, a retrieve)
+    whose outputs for the ``rows`` queries of ``small`` differ when the same
+    queries run at the head of ``big``: every operator's outputs of the
+    ``small`` run are recorded, then the ``big`` run's are compared with
+    them, both cut to the recorded shape in every dimension and to the
+    first ``rows`` entries of dim 0 (the first queries sit first in dim 0
+    and in the batch dim of a [F, B, c] stack, a [B * S, E] GEMM output
+    holds the first query's tokens first, a candidate matrix holds a
+    query's candidates first; past ``rows`` lie the padding rows of a
+    fixed-shape call, which differ by design); views of earlier outputs
+    and uninitialised outputs are not recorded.
+    The inputs of that operator are the same in both runs, since every
+    earlier output was.  With ``small`` equal to ``big`` it names the first
+    operator whose outputs differ between two runs of one call, where the
+    second run reproduces the move.  Replays that operator on both runs'
+    inputs under ``torch.profiler`` and returns its name, its index among
+    the run's outputs, both output shapes, the largest difference and the
+    device kernels each replay launched."""
     from torch.profiler import ProfilerActivity, profile
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -4529,6 +4649,10 @@ def first_moved_op(encode_fn, small, big) -> dict:
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
             out = func(*args, **kwargs)
+            # a view's values are those of an output already recorded (and
+            # under inference_mode a view does not say it is one)
+            if func.is_view or str(func).startswith(UNINITIALISED_OPS):
+                return out
             for t in _tensors(out):
                 i = len(self.seen)
                 self.seen.append(t.detach().clone() if self.ref is None else None)
@@ -4537,31 +4661,42 @@ def first_moved_op(encode_fn, small, big) -> dict:
                 if self.ref is None or self.moved is not None or i >= len(self.ref):
                     continue
                 want = self.ref[i]
-                got = t[: want.shape[0]] if t.dim() and t.shape[1:] == want.shape[1:] else t
-                if got.shape == want.shape and not torch.equal(got, want):
+                if t.dim() != want.dim() or any(g < w for g, w in zip(t.shape, want.shape)):
+                    continue
+                got = t[tuple(slice(0, w) for w in want.shape)] if t.dim() else t
+                if t.dim():
+                    got, want = got[:rows], want[:rows]
+                if got.dtype == want.dtype and not torch.equal(got, want):
+                    diff = (got.double() - want.double()).abs().max().item()
                     self.moved = dict(index=i, op=str(func), shape=list(t.shape),
-                                      small_shape=list(want.shape),
-                                      max_abs_diff=(got.float() - want.float()).abs().max().item())
+                                      small_shape=list(want.shape), max_abs_diff=diff)
                     self.kept = (func, args, kwargs)
             return out
 
-    def run(toks, mode):
+    def traced(x, mode):
         with torch.inference_mode(), mode:
-            encode_fn(toks["input_ids"], toks["attention_mask"])
+            run(x)
         return mode
 
-    ref = run(small, Trace())
-    moved = run(big, Trace(ref=ref.seen))
+    # three traced runs whatever they find, so that the ranks of a mesh,
+    # each comparing its own shard's operators, issue the same collectives
+    ref = traced(small, Trace())
+    moved = traced(big, Trace(ref=ref.seen))
     del ref
+    at = moved.moved["index"] if moved.moved is not None else -1
+    replays = {"big": moved.kept, "small": traced(small, Trace(keep_at=at)).kept}
     if moved.moved is None:
         return dict(op=None)
     out = dict(moved.moved)
-    replays = {"big": moved.kept, "small": run(small, Trace(keep_at=out["index"])).kept}
-    for name, (func, args, kwargs) in replays.items():
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof, torch.inference_mode():
-            func(*args, **kwargs)
+    for name, kept in replays.items():
+        if kept is None:
+            continue
+        func, args, kwargs = kept
+        for _ in range(2):  # the first profiler window after a long pause may see no kernel
             torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof, torch.inference_mode():
+                func(*args, **kwargs)
+                torch.cuda.synchronize()
         out[f"{name}_kernels"] = sorted({e.name.split("(")[0][:100] for e in prof.events()
                                          if e.device_type.name == "CUDA"})
     return out
@@ -4635,51 +4770,98 @@ def drive_daemon(engine, mode, depth, seed, seconds, max_batch=256, clients=64, 
                 sampled=sum(len(x["queries"]) for x in load["samples"]))
 
 
-# batch_drift's query sets: offsets from the run's seed; at seed 0 they are
-# the query sets of runs at seeds 0, 2 and 3 (seed + 23), where the daemon
-# check failed while the engine encoded each batch at its own row count
+# the serve phase's drift query sets: offsets from the run's seed; at seed 0
+# they are the query sets of runs at seeds 0, 2 and 3 (seed + 23), where the
+# daemon check failed while the engine encoded each batch at its own row
+# count
 SERVE_DRIFT_OFFSETS = (23, 25, 26)
 # a request's scores alone against inside any batch: a tenth of the daemon
 # check's rtol, so that the check's margin is not spent on the batch
 SERVE_DRIFT_RTOL = E2E_RTOL / 10
+# the batches of the drift of a route whose batch of 256 takes seconds (the
+# host-streamed scans, hybrid rerank's host BM25 stage) or whose scoring
+# code a route drifted at every batch also runs (K1x's and the plain
+# gather's stage 1 and mix, the int8, host and mesh twins of a sum), so
+# that the checks add about a minute to a run
+FEW_DRIFT_SIZES = (16, 24, 64, 256)
+
+
+def route_drift(where, route, engine, mode, qs, sizes=None) -> dict:
+    """:func:`answer_drift` of ``engine.retrieve`` in ``mode`` on ``qs``,
+    whose route must be ``route``; prints it and holds it
+    (:func:`hold_drift`)."""
+    d = answer_drift(lambda texts: engine.retrieve(texts, top_k=100, mode=mode), qs,
+                     sizes=sizes)
+    check(engine.last_serve_path == route, f"{where} drift: path {engine.last_serve_path}, "
+                                           f"want {route}")
+    phase(where, f"drift of 8 queries alone vs first in batches of "
+                 f"{list(sizes) if sizes else '16-' + str(len(qs))} and last in one of "
+                 f"{len(qs)}, and of {len(qs)} queries run twice: "
+                 f"{hold_drift(where, route, d)} ({CARD})")
+    return d
+
+
+def sample_queries(engine, pool, n, seed) -> list:
+    """Up to ``n`` queries of ``pool`` in a seeded order, all of the bucket
+    width most of them take: a batch's queries encode at its widest
+    query's width, as in the JAX engine, so a query's answer depends on
+    how wide its batch-mates are, which the drift does not measure."""
+    width = [engine.tokenizer.encode_batch([clean_query(q)], engine.query_max_length)
+             ["input_ids"].shape[1] for q in pool]
+    common = collections.Counter(width).most_common(1)[0][0]
+    order = np.random.default_rng(seed).permutation(len(pool))
+    return [pool[i] for i in order if width[i] == common][:n]
 
 
 def run_serve(seed, engine, n=1048576, seconds=10.0) -> dict:
     """The daemon over a random bf16 [1048576, 5, 768] corpus made on the
     card (benchmarks/exp_server.py's workload: max_batch 256, max_wait_ms 5,
     top_k 100, 64 closed-loop clients of 8 queries; its 20 s runs cut to
-    ``seconds``): first how far a request's exact scores move with the
-    batch it shares (batch_drift at three query sets, a check: the encoded
-    queries' bits must not move, the scores not past SERVE_DRIFT_RTOL),
-    then exact at pipeline depth 2, 1 and 2,
-    then rerank through K1 at depth 2.  Returns the engine for the int8 and
+    ``seconds``): first how far a request's exact answers move with the
+    batch it shares and from run to run (answer_drift and encoder_drift at
+    three query sets, a check: the encoded queries' bits must not move, the
+    scores not past SERVE_DRIFT_RTOL, and every answer must be the same
+    bits), then the same drift of rerank through K1, K1x and the plain
+    gather at one query set, then exact at pipeline depth 2, 1 and 2, then
+    rerank through K1 at depth 2.  Returns the engine for the int8 and
     host_stream phases."""
     fd, e = len(engine.dense_keys), engine.emb_dim
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 21)
     t = time.perf_counter()
     matrix = torch.randn(n, fd * e, device=DEVICE, generator=gen, dtype=torch.bfloat16)
-    big = RetrievalEngine(
-        field_info=engine.field_info, doc_keys=[f"doc{i}" for i in range(n)],
-        encode_fn=engine.encode_fn, tokenizer=engine.tokenizer,
-        mixer_params=engine.mixer_params, dense_matrix=matrix, recall_k=100, device=DEVICE,
-    )
+    kw = dict(field_info=engine.field_info, doc_keys=[f"doc{i}" for i in range(n)],
+              encode_fn=engine.encode_fn, tokenizer=engine.tokenizer,
+              mixer_params=engine.mixer_params, recall_k=100, device=DEVICE)
+    big = RetrievalEngine(dense_matrix=matrix, **kw)
     del matrix
     torch.cuda.synchronize()
     make_s = time.perf_counter() - t
     drifts = {}
     for offset in SERVE_DRIFT_OFFSETS:
-        drift = drifts[seed + offset] = batch_drift(big, seed + offset)
-        phase("serve", f"batch drift at query seed {seed + offset}: 8 queries' exact scores alone "
-                       f"vs inside batches of 16-256 queries and last in one of 256: largest "
-                       f"relative difference {drift['max']:.3g} at batch {drift['at']} (bound "
-                       f"{SERVE_DRIFT_RTOL}, a tenth of the daemon check's rtol {E2E_RTOL}); "
-                       f"batches that moved a score: {drift['moved']}, that changed the bits of "
-                       f"engine.encode_queries: {drift['encoder_moved']}; the encoder called on "
-                       f"each batch's own row count changes them at {drift['rows_moved']}, "
-                       f"first at {drift['first_moved_op']}")
-        check(not drift["encoder_moved"] and drift["max"] <= SERVE_DRIFT_RTOL,
+        qs = word_queries(256, np.random.default_rng(seed + offset))
+        enc = encoder_drift(big, qs)
+        drift = answer_drift(lambda texts: big.retrieve(texts, top_k=100), qs)
+        drifts[seed + offset] = dict(drift, **enc)
+        phase("serve", f"drift at query seed {seed + offset}: 8 queries' exact answers alone "
+                       f"vs inside batches of 16-256 queries and last in one of 256, and 256 "
+                       f"queries run twice: {hold_drift('serve', big.last_serve_path, drift)} "
+                       f"(bound {SERVE_DRIFT_RTOL}, a tenth of the daemon check's rtol "
+                       f"{E2E_RTOL}); batches that changed the bits of engine.encode_queries: "
+                       f"{enc['encoder_moved']}; the encoder called on each batch's own row "
+                       f"count changes them at {enc['rows_moved']}, first at "
+                       f"{enc['first_moved_op']} ({CARD})")
+        check(not enc["encoder_moved"] and drift["batch_max"] <= SERVE_DRIFT_RTOL,
               f"query seed {seed + offset}: a query's encoding or scores depend on its batch: "
-              f"{drift}")
+              f"{drifts[seed + offset]}")
+    qs = word_queries(256, np.random.default_rng(seed + SERVE_DRIFT_OFFSETS[0]))
+    for route, flags, sizes in (("singlechip-rerank-k1", {}, None),
+                                ("singlechip-rerank-k1x", dict(pallas_cross_row=True),
+                                 FEW_DRIFT_SIZES),
+                                ("singlechip-rerank-plain", dict(use_pallas_gather=False),
+                                 FEW_DRIFT_SIZES)):
+        eng = RetrievalEngine(dense_matrix=big.docs_flat, **flags, **kw)  # the same rows
+        drifts[route] = route_drift("serve", route, eng, "rerank", qs, sizes)
+        del eng
     runs = []
     for i, (mode, depth) in enumerate((("exact", 2), ("exact", 1), ("exact", 2),
                                        ("rerank", 2))):
@@ -4702,7 +4884,7 @@ def run_serve(seed, engine, n=1048576, seconds=10.0) -> dict:
                    f"vocabulary) in a child process, {seconds:.0f} s a run (cut from "
                    f"benchmarks/exp_server.py's 20 s); order exact d2, d1, d2, rerank d2")
     return big, dict(serve_runs=[{k: v for k, v in r.items() if k != "phase_s"} for r in runs],
-                     serve_k1_launches=runs[-1]["k1_launches"], serve_batch_drift=drifts)
+                     serve_k1_launches=runs[-1]["k1_launches"], serve_drift=drifts)
 
 
 # int8_dot's shapes: a 1-query batch, row counts off a multiple of 8 (the
@@ -4815,6 +4997,10 @@ def run_int8(seed, big, e2e_engine, e2e_queries, n_queries=1024, batch=256,
     check_results(rerank8, len(e2e_queries), 100)
     rerank_recall = overlap(rerank8, e2e_engine.retrieve_many(e2e_queries, top_k=100,
                                                              mode="rerank", batch_size=64))
+    dq = word_queries(256, np.random.default_rng(seed + SERVE_DRIFT_OFFSETS[0]))
+    drifts = {route: route_drift("int8", route, eng, mode, dq, FEW_DRIFT_SIZES)
+              for route, eng, mode in (("singlechip-int8-dense", i8, "exact"),
+                                       ("singlechip-rerank-int8", rr8, "rerank"))}
     phase("int8", f"N={big.n_docs} corpus quantized on the card in {quant_s:.2f}s: "
                   f"{i8_bytes / 1e9:.3f} GB int8 + scales against {bf16_bytes / 1e9:.3f} GB "
                   f"bf16; exact, {n_queries} queries of 8 words, batch {batch}, order bf16, "
@@ -4827,7 +5013,7 @@ def run_int8(seed, big, e2e_engine, e2e_queries, n_queries=1024, batch=256,
                   f"top-100 ({CARD})")
     return i8, dict(int8_quantize_s=quant_s, int8_bytes=i8_bytes, bf16_bytes=bf16_bytes,
                     int8_qps=qps["int8"], bf16_qps=qps["bf16"], int8_recall_at_100=recall,
-                    int8_rerank_overlap=rerank_recall)
+                    int8_rerank_overlap=rerank_recall, int8_drift=drifts)
 
 
 def mem_available_bytes() -> int:
@@ -4919,6 +5105,9 @@ def run_host_stream(seed, big, i8, n_queries=1024, batch=256) -> dict:
     msg = rankings_agree(out["int8"], ref8.retrieve_many(qs, top_k=100, batch_size=batch),
                          E2E_RTOL, E2E_ATOL)
     check(msg is None, f"host-stream int8 vs the device-resident int8 engine: {msg}")
+    dq = word_queries(256, np.random.default_rng(seed + SERVE_DRIFT_OFFSETS[0]))
+    drifts = {route: route_drift("host_stream", route, eng, "exact", dq, FEW_DRIFT_SIZES)
+              for route, eng in (("host-stream-dense", hs), ("host-stream-dense-int8", hs8))}
     phase("host_stream", f"N={n}{cut} in host memory: bf16 {n * row_bytes / 1e9:.2f} GB cast "
                          f"into pinned memory in {place_s:.2f}s, int8 quantized on the card "
                          f"into pinned memory in {place8_s:.2f}s; {chunks} chunks of "
@@ -4933,7 +5122,8 @@ def run_host_stream(seed, big, i8, n_queries=1024, batch=256) -> dict:
                          f"{E2E_ATOL}) ({CARD})")
     return dict(host_stream_rows=n, host_stream_qps=qps, host_stream_gbs=rates,
                 host_stream_yardstick_gbs=yard_gbs, host_stream_chunks=chunks,
-                host_stream_extra_gb=(stream_bytes - enc_bytes) / 1e9)
+                host_stream_extra_gb=(stream_bytes - enc_bytes) / 1e9,
+                host_stream_drift=drifts)
 
 
 # ----------------------------------------------------------------------
@@ -5311,6 +5501,13 @@ def shared_rank(spec, mesh, out) -> None:
     for eng in {id(x): x for c in rerank for x in c[1:3] if x is not None}.values():
         eng.recall_k = 100
     out["recall_cases"] = run_mesh_cases(rerank)
+    # every rank retrieves alike, so each takes the same decisions and
+    # issues the same collectives
+    drift_cases = {"dense exact", "dense rerank", "hybrid postings", "hybrid rerank"}
+    out["drift"] = {
+        route: answer_drift(lambda texts: eng.retrieve(texts, top_k=100, mode=mode),
+                            sample_queries(eng, qs, 256, spec["seed"] + SERVE_DRIFT_OFFSETS[0]))
+        for name, eng, _, qs, mode, route in cases if name in drift_cases}
     hybrid = cases[2][1]
     out["stats"], out["daemon_held"] = rank_daemon(hybrid, mesh, spec["work"], "exact", 64)
     out["daemon_path"] = hybrid.last_serve_path
@@ -5490,10 +5687,19 @@ def run_mesh(seed, e2e=None, n_serve=131072) -> dict:
             for name, (got, path, _, _) in r[key].items():
                 check(got == ranks[0][key][name][0] and path == ranks[0][key][name][1],
                       f"(b) rank {r['rank']} {name} ({key}) differs from rank 0")
+    for route, d in ranks[0]["drift"].items():
+        # each rank traces its own shard and keeps its own clock
+        same = [k for k in d if not k.endswith("first_moved_op") and k != "seconds"]
+        check(all({k: r["drift"][route][k] for k in same} == {k: d[k] for k in same}
+                  for r in ranks[1:]), f"(b) {route}: the ranks' answers drift apart")
+        phase("mesh", f"(b) drift of 8 queries alone vs first in batches of 16 up to the "
+                      f"query set's size and last in a full one, and of the full one run "
+                      f"twice: {hold_drift('mesh (b)', route, d)} ({CARD})")
     check(ranks[0]["daemon_path"] == "mesh-hybrid-combined",
           f"(b) daemon path {ranks[0]['daemon_path']}")
     out.update(mesh_k2_launches=sum(k2), mesh_b_build_s=[r["build_s"] for r in ranks],
-               mesh_b_stats=ranks[0]["stats"], mesh_b_recall100_overlap=recall_overlap)
+               mesh_b_stats=ranks[0]["stats"], mesh_b_recall100_overlap=recall_overlap,
+               mesh_b_drift=ranks[0]["drift"])
     n_seq = len(pairs) * 5
     phase("mesh", f"(b) two gloo ranks on card 0 in {out['mesh_b_s']:.1f}s (process start "
                   f"included): the {len(pairs)}-doc build split over them through K2 in "
@@ -6241,6 +6447,8 @@ def main(argv=None) -> int:
     if "host_stream" in phases:
         r["host_stream"] = run_host_stream(args.seed, big, i8)
 
+    check(not DRIFT_FAULTS, "answers move with their batch or from run to run:\n"
+                            + "\n".join(DRIFT_FAULTS))
     summary = {k: v for name, res in r.items() if name not in ("k1", "k2", "k2b", "k2g")
                for k, v in res.items()}
     for name in ("k2", "k2b", "k2g"):

@@ -62,12 +62,18 @@ slices of the query batch.  Every collective of a call is issued in its
 dispatch half, none in :meth:`RetrievalEngine.finish`.
 
 A query's answer does not depend on its batch, as in the JAX daemon's one
-compiled shape: :meth:`RetrievalEngine.encode_queries` runs the encoder in
-calls of one row count a bucket width (:func:`query_call_rows`), and the
-products of query rows with the corpus and the mixer run in blocks of one
-row count (:func:`mfar_tpu_torch.ops.scoring.query_row_blocks`).  (The
-postings that the hybrid routes scatter-add on the card sum in an order
-that varies from run to run, within float rounding.)
+compiled shape, nor on the run: :meth:`RetrievalEngine.encode_queries`
+runs the encoder in calls of one row count a bucket width
+(:func:`query_call_rows`); the products of query rows with the corpus and
+the mixer run in blocks of one row count
+(:func:`mfar_tpu_torch.ops.scoring.query_row_blocks`); rerank's stage-2
+dots of gathered rows sum in one fixed order whatever the batch and its
+candidate count (K1 and K1x sum each candidate's field in one order
+whatever their grid); and the hybrid routes sum a document's postings in
+one fixed order with no scatter-add
+(:func:`mfar_tpu_torch.ops.scoring.sum_postings`).  Among queries of one
+bucket width, a query's answer is the same bits alone, in any batch and
+in any run.
 
 ``pallas_cross_row`` keeps the JAX engine's semantics: it needs the K1
 gather (``use_pallas_gather=False`` raises before any work), sends the

@@ -29,7 +29,13 @@ Differences from the JAX module, none of which changes a result:
   run in blocks of SCORE_ROWS rows (:func:`query_row_blocks`): cuBLAS and
   the CPU's GEMMs pick their kernel, and so their order of summation, by
   the row count, so a query's scores would otherwise change with the size
-  of its batch.  A compiled JAX program has one shape a batch size.
+  of its batch.  A compiled JAX program has one shape a batch size.  For
+  the same reason rerank's stage-2 dots of gathered rows sum in a fixed
+  order of elementwise operations (:func:`per_field_candidate_scores`),
+  since their shape also follows the batch's candidate count, and the
+  hybrid postings sum per document in a fixed order with no scatter-add
+  (:func:`sum_postings`, :func:`place_postings`), whose atomics on a card
+  add in an order that changes from run to run.
 - The int8 product is ``torch._int_mm`` (exact int32 sums, as ``jnp.dot(...,
   preferred_element_type=int32)``), with the operands padded to its CUDA
   shape limits (:func:`int8_dot`).
@@ -282,12 +288,27 @@ def per_field_topk_chunked_approx(
     return per_field_topk_chunked(q, docs_flat, valid_n, num_fields, k, chunk_size)
 
 
+def sum_last_dim(x: torch.Tensor) -> torch.Tensor:
+    """``x.sum(-1)`` by a fixed pairwise tree of elementwise adds (the upper
+    half onto the lower, an odd last entry carried to the next level): each
+    entry's order of summation depends only on the length of the last
+    dim, not on the other dims' sizes."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        head = x[..., :h] + x[..., h : 2 * h]
+        x = torch.cat([head, x[..., 2 * h :]], dim=-1) if x.shape[-1] % 2 else head
+    return x[..., 0]
+
+
 def per_field_candidate_scores(
     q: torch.Tensor,  # [B, E]
     cand_docs: torch.Tensor,  # [B, C, F, E] gathered candidate embeddings
 ) -> torch.Tensor:  # [B, C, F]
-    """Per-field dot products for the rerank stage, in f32."""
-    return torch.einsum("be,bcfe->bcf", q.float(), cand_docs.float())
+    """Per-field dot products for the rerank stage, in f32: the products
+    rounded to f32, then summed over E by :func:`sum_last_dim`, so a
+    candidate's scores are the same bits whatever B and C (a batched matrix
+    product picks its kernel, and so its order of summation, by shape)."""
+    return sum_last_dim(cand_docs * q.float()[:, None, None, :])
 
 
 def rerank_candidates(
@@ -335,6 +356,57 @@ def fused_dense_topk_from_query(
     return dense_topk_chunked(qflat, docs_flat, valid_n, k=k, chunk_size=chunk_size)
 
 
+def _run_totals(key: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """For rows of ``key`` [B, M] in which equal keys lie in runs: each
+    position's sum of ``v`` from its run's start (a segmented Hillis-Steele
+    scan: step d adds the partial sum d places back while it lies in the
+    same run), and where each run starts.  A run's total, at its last
+    position, is a fixed tree over its own values, whatever M and the other
+    rows hold."""
+    m = key.shape[1]
+    starts = torch.ones_like(key, dtype=torch.bool)
+    starts[:, 1:] = key[:, 1:] != key[:, :-1]
+    pos = torch.arange(m, device=key.device)
+    begin = torch.cummax(torch.where(starts, pos, 0), dim=1).values
+    d = 1
+    while d < m:
+        v = torch.where(pos - d >= begin, v + F.pad(v[:, :-d], (d, 0)), v)
+        d *= 2
+    return v, starts
+
+
+def sum_postings(ids: torch.Tensor, vals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row's postings summed per document in a fixed order, without a
+    scatter: ``ids`` [B, M] documents (any integers) and ``vals`` [B, M]
+    their values (0 at padding).  The postings sort by document, stably
+    (in the order the row lists them), and each document's values sum by
+    :func:`_run_totals`.  Returns [B, M] documents and sums: each
+    document's sum at its last posting, and id -1 with value 0 at every
+    other entry (so a document appears once).  A row's sums are the same
+    bits in any batch and any run."""
+    vals = vals.float()
+    pad = torch.iinfo(torch.int64).max
+    key, order = torch.sort(torch.where(vals == 0, pad, ids.long()), dim=1, stable=True)
+    total, starts = _run_totals(key, vals.gather(1, order))
+    last = torch.ones_like(starts)
+    last[:, :-1] = starts[:, 1:]
+    keep = last & (key != pad)
+    return torch.where(keep, key, -1), torch.where(keep, total, 0.0)
+
+
+def place_postings(ids: torch.Tensor, sums: torch.Tensor, n: int, offset: int = 0) -> torch.Tensor:
+    """[B, n] f32: each document's sum (:func:`sum_postings`) at column
+    ``id - offset``, zero elsewhere.  One plain store a document: the sums
+    outside ``[offset, offset + n)`` and the entries that hold none all go
+    to a column past the end, which is cut off, so no two writes that
+    matter meet (no atomics)."""
+    rel = ids - offset
+    inside = (rel >= 0) & (rel < n)
+    out = torch.zeros(ids.shape[0], n + 1, dtype=torch.float32, device=ids.device)
+    out.scatter_(1, torch.where(inside, rel, n), torch.where(inside, sums, 0.0))
+    return out[:, :n]
+
+
 def _fold_and_densify(
     q: torch.Tensor,
     W: torch.Tensor,
@@ -349,18 +421,18 @@ def _fold_and_densify(
     postings scattered into combined sparse scores [B, n] f32.  Raw impacts
     ship from the host; each posting picks up its field's post-softmax
     weight here, so the weights never leave the device.  A document hit by
-    several terms or fields appears once per posting and the scatter sums
-    them (on a card with atomics, in an order that varies: equal within
-    float rounding)."""
+    several terms or fields appears once per posting; its weighted postings
+    sum in one fixed order (:func:`sum_postings`, :func:`place_postings`),
+    so a row's sparse scores are the same bits in any batch and any run,
+    where a scatter-add on a card sums them with atomics in an order that
+    varies."""
     b = q.shape[0]
     weights = softmax_field_weights(W, q, mask)
     weights = weights.expand(b, weights.shape[-1])
     qflat = fold_queries(q, weights[:, :num_dense])
     # the field index ships as int8: widen before the gather
     w_sparse = torch.gather(weights, 1, num_dense + post_field.long())  # [B, M]
-    sparse_comb = torch.zeros(b, n, dtype=torch.float32, device=q.device)
-    sparse_comb.scatter_add_(1, post_ids.long(), post_vals.float() * w_sparse)
-    return qflat, sparse_comb
+    return qflat, place_postings(*sum_postings(post_ids, post_vals.float() * w_sparse), n)
 
 
 def fused_hybrid_topk_postings_from_query(
@@ -694,16 +766,6 @@ def _stream_scores(q: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _add_postings(s: torch.Tensor, post_ids, post_wvals, offset: int) -> torch.Tensor:
-    """Scatter-add the weighted postings that land in this chunk's rows
-    (global ids; the others add zero at row 0), so no [B, N] sparse tensor
-    ever exists."""
-    rel = post_ids.long() - offset
-    inside = (rel >= 0) & (rel < s.shape[1])
-    vals = torch.where(inside, post_wvals.float(), 0.0)
-    return s.scatter_add_(1, torch.where(inside, rel, 0), vals)
-
-
 def _host_dtype(a) -> torch.dtype:
     return a.dtype if torch.is_tensor(a) else torch.from_numpy(np.empty(0, a.dtype)).dtype
 
@@ -719,6 +781,8 @@ def _topk_host_streamed(score_chunk, docs_host, dtype, k, chunk_size, device,
     kk = min(k, n)  # the running carry's width
     k_chunk = min(kk, chunk_size)  # a chunk contributes at most its rows
     feeds = [_ChunkFeed(docs_host, 0, dtype, chunk_size, device)]
+    if post_ids is not None:  # each document's postings summed once, for every chunk
+        post_ids, post_wvals = sum_postings(post_ids, post_wvals)
     if sparse_comb_host is not None:
         feeds.append(_ChunkFeed(sparse_comb_host, 1, torch.float32, chunk_size, device))
 
@@ -728,7 +792,9 @@ def _topk_host_streamed(score_chunk, docs_host, dtype, k, chunk_size, device,
         if sparse:
             s = s + sparse[0]
         elif post_ids is not None:
-            s = _add_postings(s, post_ids, post_wvals, lo)
+            # the summed postings of the documents in this chunk's rows, so
+            # no [B, N] sparse tensor ever exists
+            s = s + place_postings(post_ids, post_wvals, s.shape[1], lo)
         top_s, sel = exact_topk_rows(s, min(k_chunk, s.shape[1]))
         return top_s, sel + lo
 
@@ -766,8 +832,9 @@ def hybrid_topk_host_streamed(
     #                         fallback for postings denser than the corpus)
 ) -> TopK:
     """Hybrid twin of :func:`dense_topk_host_streamed`: the postings stay on
-    the device and each chunk scatter-adds those in its rows, or the host's
-    combined tensor streams chunk by chunk beside the rows."""
+    the device, summed per document once, and each chunk adds the sums of
+    its rows, or the host's combined tensor streams chunk by chunk beside
+    the rows."""
     _one_sparse_form(post_ids, sparse_comb_host)
     if transfer_dtype is not None:
         qflat = qflat.to(transfer_dtype)
@@ -812,8 +879,9 @@ def hybrid_topk_host_streamed_int8(
 # Each chunk keeps its dense top-k and adds one candidate for each distinct
 # document among its postings (sorted and bucketed per chunk on the host,
 # bucket_postings_np): the dense score read from the chunk's score tile
-# plus the segmented sum of the document's impacts (a cumulative sum and
-# the run boundaries, no scatter).  A document can enter twice (its dense
+# plus the sum of the document's impacts (a segmented scan over the run of
+# its postings, _run_totals, no scatter; the JAX package takes differences
+# of one cumulative sum).  A document can enter twice (its dense
 # entry and its candidate), so the scan carries 2k entries and a last
 # dedup keeps each document's best.  No engine route calls these, as in
 # the JAX package, whose engine keeps the scatter.
@@ -871,19 +939,17 @@ def _posting_candidates(s: torch.Tensor, bids: torch.Tensor, bwv: torch.Tensor,
     rel_raw = bids.long() - offset
     in_rng = (rel_raw >= 0) & (rel_raw < c)
     rel = rel_raw.clamp(0, c - 1)
-    wv = torch.where(in_rng, bwv.float(), 0.0)
+    # each run of one document (the sentinels a run of their own) summed
+    # in a fixed order (_run_totals): its total sits at its last entry,
+    # one before the next run's start, a cumulative min from the right of
+    # the start positions shifted left by one
+    total, is_start = _run_totals(bids.long(), torch.where(in_rng, bwv.float(), 0.0))
     pos = torch.arange(mc, device=s.device).expand(b, mc)
-    prev = torch.cat([torch.full((b, 1), -1, dtype=rel.dtype, device=s.device), rel[:, :-1]], 1)
-    is_start = rel != prev
-    csum = torch.cat([torch.zeros((b, 1), device=s.device), torch.cumsum(wv, dim=1)], 1)
-    # the next run's start after each position: a cumulative min from the
-    # right of the start positions, shifted left by one (the clip keeps the
-    # ids sorted: sentinels clip to c - 1 at the tail)
     starts = torch.where(is_start, pos, mc)
     nxt_incl = torch.cummin(starts.flip(1), dim=1).values.flip(1)
     nxt = torch.cat([nxt_incl[:, 1:], torch.full((b, 1), mc, device=s.device)], 1)
-    seg = csum.gather(1, nxt) - csum.gather(1, pos)
-    cand_s = torch.where(is_start, s.gather(1, rel) + seg, float("-inf"))
+    seg = total.gather(1, nxt - 1)
+    cand_s = torch.where(is_start & in_rng, s.gather(1, rel) + seg, float("-inf"))
     return cand_s, offset + rel
 
 

@@ -61,8 +61,11 @@ from mfar_tpu_torch.ops.scoring import (
     hybrid_topk_chunked_int8,
     hybrid_topk_host_streamed,
     hybrid_topk_host_streamed_int8,
+    per_field_candidate_scores,
     per_field_topk_chunked_approx,
+    place_postings,
     softmax_field_weights,
+    sum_postings,
 )
 from mfar_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, shard_rows
 
@@ -160,12 +163,6 @@ def _shard_postings(post_ids, post_vals, offset: int, shard_n: int):
     return torch.where(mine, ids, 0), torch.where(mine, post_vals.float(), 0.0)
 
 
-def _densify(ids: torch.Tensor, vals: torch.Tensor, shard_n: int) -> torch.Tensor:
-    """[B, shard_n] f32 sparse scores: the postings scatter-added."""
-    out = torch.zeros(ids.shape[0], shard_n, dtype=torch.float32, device=ids.device)
-    return out.scatter_add_(1, ids, vals)
-
-
 def distributed_hybrid_topk(
     mesh: Mesh,
     qflat: torch.Tensor,  # [B, F*E] folded queries
@@ -199,14 +196,14 @@ def _combined_topk(mesh, qflat, shard_n, device, sparse_comb, valid_n, k, chunk_
 
 def _postings_topk(mesh, qflat, shard_n, post_ids, post_vals, valid_n, k, chunk_size, axis,
                    query_axis, scan) -> TopK:
-    """The postings routes' frame: each shard scatter-adds the weighted
-    postings that land in its rows into a ``[B, shard_n]`` slice, then
+    """The postings routes' frame: each shard sums the weighted postings
+    that land in its rows into a ``[B, shard_n]`` slice, then
     ``scan(q, comb, local_valid, local_k, chunk)``."""
     rows = _query_rows(mesh, query_axis, qflat.shape[0])
     q, post_ids, post_vals = qflat[rows], post_ids[rows], post_vals[rows]
 
     def local(lv, offset, lk, ch):
-        comb = _densify(*_shard_postings(post_ids, post_vals, offset, shard_n), shard_n)
+        comb = place_postings(*sum_postings(post_ids, post_vals), shard_n, offset)
         return scan(q, comb, lv, lk, ch)
 
     return _sharded_topk(mesh, axis, query_axis, shard_n, valid_n, k, chunk_size, local)
@@ -246,9 +243,9 @@ def distributed_hybrid_topk_postings(
     axis=DATA_AXIS,
     query_axis: Optional[str] = None,
 ) -> TopK:
-    """Exact hybrid top-k fed by postings: each shard scatter-adds the
-    postings that land in its rows into a ``[B, shard_n]`` slice and fuses
-    it with its dense scan (duplicates sum)."""
+    """Exact hybrid top-k fed by postings: each shard sums the postings
+    that land in its rows into a ``[B, shard_n]`` slice and fuses it with
+    its dense scan (duplicates sum)."""
     return _postings_topk(
         mesh, qflat, docs.shape[0], post_ids, post_vals, valid_n, k, chunk_size, axis,
         query_axis, lambda q, comb, lv, lk, ch: hybrid_topk_chunked(q, docs, comb, lv, lk, ch))
@@ -257,7 +254,7 @@ def distributed_hybrid_topk_postings(
 def _fused_hybrid_postings(mesh, q, W, mask, shard_n, post_ids, post_vals, post_field, valid_n,
                            num_dense, k, chunk_size, axis, query_axis, scan) -> TopK:
     """The fused postings routes' frame: weights, the fold, each posting's
-    field weight and the shard's scatter, then ``scan(qflat, comb,
+    field weight and the shard's postings sum, then ``scan(qflat, comb,
     local_valid, local_k, chunk)`` on the shard's block."""
     rows = _query_rows(mesh, query_axis, q.shape[0])
     q, post_ids, post_vals, post_field = q[rows], post_ids[rows], post_vals[rows], post_field[rows]
@@ -289,7 +286,7 @@ def distributed_fused_hybrid_topk_postings(
     """Mesh twin of
     :func:`mfar_tpu_torch.ops.scoring.fused_hybrid_topk_postings_from_query`:
     raw impacts ship from the host, each posting picks up its field's
-    softmax weight on the device, and each shard scatter-adds the postings
+    softmax weight on the device, and each shard sums the postings
     whose rows it owns before its hybrid scan."""
     return _fused_hybrid_postings(
         mesh, q, W, mask, docs.shape[0], post_ids, post_vals, post_field, valid_n, num_dense, k,
@@ -329,8 +326,7 @@ def _owned_candidate_scores(mesh, axis, query_axis, q, cand_ids, shard_n, num_fi
     mine = (local >= 0) & (local < shard_n)
     gathered = rows_of(torch.where(mine, local, 0))  # [B, C, F*E]
     b, c = cand_ids.shape
-    scores = torch.einsum("be,bcfe->bcf", q.float(),
-                          gathered.view(b, c, num_fields, -1).float())
+    scores = per_field_candidate_scores(q, gathered.view(b, c, num_fields, -1))
     scores = mesh.all_reduce_sum(axis, torch.where(mine[..., None], scores, 0.0))
     return _gather_queries(mesh, query_axis, scores)
 
@@ -438,7 +434,7 @@ def distributed_fused_hybrid_topk_postings_int8(
     query_axis: Optional[str] = None,
 ) -> TopK:
     """int8 twin of :func:`distributed_fused_hybrid_topk_postings`: the fold
-    in f32, then each shard's scatter and quantized scan."""
+    in f32, then each shard's postings sum and quantized scan."""
     return _fused_hybrid_postings(
         mesh, q, W, mask, docs_q.shape[0], post_ids, post_vals, post_field, valid_n, num_dense,
         k, chunk_size, axis, query_axis,

@@ -12,10 +12,12 @@ Counterpart of ``mfar_tpu/serve.py``: ``MicroBatcher`` and
   XLA compiles one program, which also makes a query's answer independent
   of its batch; the port's batch carries only its real queries, and the
   engine keeps that independence itself: it encodes queries in calls of
-  one row count a bucket width and takes their products with the corpus
-  in blocks of one row count (``RetrievalEngine.encode_queries``,
-  ``ops.scoring.query_row_blocks``), so an answer is the same bits as
-  ``engine.retrieve`` on the request alone.  ``/stats`` still counts
+  one row count a bucket width, takes their products with the corpus in
+  blocks of one row count (``RetrievalEngine.encode_queries``,
+  ``ops.scoring.query_row_blocks``), and sums rerank's stage-2 dots and
+  the hybrid postings in fixed orders, so in every mode and route
+  an answer is the same bits as ``engine.retrieve`` on the request alone
+  (among queries of one bucket width), in any run.  ``/stats`` still counts
   ``padded`` (the room left in each batch) and ``mean_batch_fill`` against
   ``max_batch``, as the JAX daemon reports them.
 - **Warm before the port opens**: :meth:`MicroBatcher.warmup` runs one full

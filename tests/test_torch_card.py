@@ -69,6 +69,13 @@ from mfar_tpu_torch.ops.flash_attention import (
     pad_heads,
     _row_dots,
 )
+from mfar_tpu_torch.ops.scoring import (
+    _fold_and_densify,
+    _posting_candidates,
+    hybrid_topk_host_streamed,
+    per_field_candidate_scores,
+    rerank_candidates,
+)
 from mfar_tpu_torch.train.model import MFARModel
 from mfar_tpu_torch.ops.gather_scores import (
     gather_per_field_scores,
@@ -1010,3 +1017,86 @@ def test_encoded_queries_do_not_depend_on_their_batch(card):
     for size in (16, 24, 48, 128, 200, 256):
         assert torch.equal(engine.encode_queries(qs[:size])[:8], alone), size
         assert torch.equal(engine.encode_queries(qs[8:size] + qs[:8])[-8:], alone), size
+
+
+def _heavy_postings(rng, card, b, m, hit, n_fields=2):
+    """[B, M] postings whose values land on ``hit`` documents, many times
+    each, with their sparse field."""
+    ids = torch.from_numpy(rng.integers(0, hit, size=(b, m)).astype(np.int32)).to(card)
+    vals = torch.from_numpy(rng.uniform(0.1, 3.0, size=(b, m)).astype(np.float32)).to(card)
+    fidx = torch.from_numpy(rng.integers(0, n_fields, size=(b, m)).astype(np.int8)).to(card)
+    return ids, vals, fidx
+
+
+def test_postings_sums_are_the_same_bits_in_every_run(card):
+    """The hybrid postings sum (``_fold_and_densify``, which the postings
+    routes and the mesh's run) and the host stream's per-chunk postings
+    (``hybrid_topk_host_streamed``) are the same bits in five runs on rows
+    whose thousands of postings hit a handful of documents: a scatter-add's
+    atomics add them in an order that changes from run to run."""
+    rng = np.random.default_rng(7)
+    b, n, e = 4, 4096, 64
+    q = torch.from_numpy(rng.normal(size=(b, e)).astype(np.float32)).to(card)
+    w = torch.from_numpy(rng.normal(size=(e, 4)).astype(np.float32)).to(card)
+    ids, vals, fidx = _heavy_postings(rng, card, b, 8192, 6)
+    first = _fold_and_densify(q, w, None, n, 2, ids, vals, fidx)[1]
+    docs = torch.from_numpy(rng.normal(size=(n, 2 * e)).astype(np.float32))
+    qflat = torch.from_numpy(rng.normal(size=(b, 2 * e)).astype(np.float32)).to(card)
+    streamed = hybrid_topk_host_streamed(qflat, docs, 50, chunk_size=1024, post_ids=ids,
+                                         post_wvals=vals)
+    for _ in range(4):
+        assert torch.equal(_fold_and_densify(q, w, None, n, 2, ids, vals, fidx)[1], first)
+        again = hybrid_topk_host_streamed(qflat, docs, 50, chunk_size=1024, post_ids=ids,
+                                          post_wvals=vals)
+        assert all(torch.equal(x, y) for x, y in zip(again, streamed))
+
+
+def test_rerank_mix_gives_a_row_the_same_bits_in_a_batch_of_300(card):
+    """Rerank's mix of the field scores (``rerank_candidates``) gives one row
+    the same bits alone as first in a batch of 300 (a batched product picks
+    its kernel, and so its order of summation, by shape)."""
+    rng = np.random.default_rng(8)
+    c, f, e = 512, 5, 768
+    q = torch.from_numpy(rng.normal(size=(300, e)).astype(np.float32)).to(card)
+    w = torch.from_numpy(rng.normal(size=(e, f)).astype(np.float32)).to(card)
+    scores = torch.from_numpy(rng.normal(size=(300, c, f)).astype(np.float32)).to(card)
+    alone = rerank_candidates(q[:1], scores[:1], None, w, k=100)
+    batched = rerank_candidates(q, scores, None, w, k=100)
+    assert torch.equal(batched[0][:1], alone[0]) and torch.equal(batched[1][:1], alone[1])
+
+
+def test_rerank_stage2_dots_give_a_row_the_same_bits_in_a_batch_of_300(card):
+    """Rerank's stage-2 dots of gathered bf16 rows (``per_field_candidate_scores``,
+    the plain, int8, host and mesh routes') give one row the same bits
+    alone as first in a batch of 300."""
+    rng = np.random.default_rng(8)
+    c, f, e = 128, 5, 768
+    q = torch.from_numpy(rng.normal(size=(300, e)).astype(np.float32)).to(card)
+    rows = torch.from_numpy(rng.normal(size=(300, c, f, e)).astype(np.float32)).to(card)
+    rows = rows.to(torch.bfloat16)
+    alone = per_field_candidate_scores(q[:1], rows[:1])
+    assert torch.equal(per_field_candidate_scores(q, rows)[:1], alone)
+
+
+def test_bucketed_postings_give_a_row_the_same_bits_in_a_wider_batch(card):
+    """The bucketed op's sums of a document's postings (``_posting_candidates``)
+    give a row of 3000 postings the same bits alone as in a batch of 300
+    rows whose buckets are up to ten times wider (a cumulative sum's thread
+    layout follows the row's length)."""
+    rng = np.random.default_rng(9)
+    c, n_row, width = 4096, 3000, 30000
+
+    def bucket(m):
+        ids = np.full(width, c, np.int64)
+        ids[:m] = np.sort(rng.integers(0, 40, size=m))
+        vals = np.zeros(width, np.float32)
+        vals[:m] = rng.uniform(0.1, 3.0, size=m)
+        return ids, vals
+
+    rows = [bucket(n_row)] + [bucket(int(m)) for m in rng.integers(1, width, size=299)]
+    bids = torch.from_numpy(np.stack([r[0] for r in rows])).to(card)
+    bwv = torch.from_numpy(np.stack([r[1] for r in rows])).to(card)
+    s = torch.from_numpy(rng.normal(size=(300, c)).astype(np.float32)).to(card)
+    alone = _posting_candidates(s[:1], bids[:1, :n_row], bwv[:1, :n_row], 0)
+    batched = _posting_candidates(s, bids, bwv, 0)
+    assert all(torch.equal(x[:1, :n_row], y) for x, y in zip(batched, alone))

@@ -39,12 +39,14 @@ from mfar_tpu_torch.data.schema import resolve_fields
 from mfar_tpu_torch.data.types import Corpus
 from mfar_tpu_torch.eval import index_build as port_index
 from mfar_tpu_torch.eval.compare import rankings_agree
-from mfar_tpu_torch.eval.retrieval import RetrievalEngine, query_call_rows
+from mfar_tpu_torch.eval.retrieval import RetrievalEngine, query_call_rows, topk_chunk
 from mfar_tpu_torch.models import T5Config, build_encoder
 from mfar_tpu_torch.models.convert import encoder_state_from_jax, mixer_from_jax, t5_state_from_jax
 from mfar_tpu_torch.models.encoder import Encoder, EncoderConfig
 from mfar_tpu_torch.models.tokenizer import SimpleVocabTokenizer
+from mfar_tpu_torch.ops.scoring import bucket_postings_np, fused_hybrid_topk_buckets_from_query
 from mfar_tpu_torch.sparse.bm25 import BM25Index
+from mfar_tpu_torch.train.data_pipeline import clean_query
 
 torch.set_num_threads(1)
 
@@ -280,17 +282,68 @@ def _eight_and_filler(world, size):
     return [qs[i % len(qs)] for i in range(8)], [qs[i % len(qs)] for i in range(3, size - 5)]
 
 
-@pytest.mark.parametrize("mode", ["exact", "rerank"])
+@pytest.fixture(scope="module")
+def hybrid_kw(world):
+    """The world's engine arguments with a BM25 title field beside the two
+    dense fields (as test_sparse_fields_are_served builds it)."""
+    fields = resolve_fields("title_dense,description_dense,title_sparse", "amazon")
+    index = BM25Index.create(port_format_documents(world["port_corpus"].pairs(), "title",
+                                                   "amazon"), backend="scipy")
+    mixer = np.random.default_rng(1).normal(size=(HIDDEN, 3)).astype(np.float32)
+    return {**world["port_kw"], "field_info": fields, "mixer_params": {"weight": mixer},
+            "sparse_indices": {"title_sparse": index}}
+
+
+def _bucketed_answers(eng, texts, top_k):
+    """The engine's answers through the scatter-free bucketed op, which no
+    engine route calls: its encoded queries and host postings, bucketed at
+    its chunk."""
+    n, fd = eng.n_docs, len(eng.dense_keys)
+    chunk = topk_chunk(n, len(texts))
+    raw = eng._sparse_postings_raw([clean_query(t) for t in texts])
+    buckets = [torch.from_numpy(a) for a in bucket_postings_np(*raw, n, chunk)]
+    s, i = fused_hybrid_topk_buckets_from_query(eng.encode_queries(texts), eng._W,
+                                                eng._mask_tensor(), eng.docs_flat, *buckets, n,
+                                                fd, top_k, chunk_size=chunk)
+    return eng._to_keyed(s.numpy(), i.numpy())
+
+
+# case: (engine arguments over the world's, mode, route)
+BATCH_CASES = {
+    "exact": ({}, "exact", "singlechip-dense"),
+    "rerank": ({}, "rerank", "singlechip-rerank-k1"),
+    "hybrid-postings": ("hybrid", "exact", "singlechip-hybrid-postings"),
+    "hybrid-bucketed": ("hybrid", "bucketed", None),
+    "hybrid-rerank": ("hybrid", "rerank", "singlechip-rerank-hybrid-k1"),
+    "int8-exact": (dict(quantize="int8"), "exact", "singlechip-int8-dense"),
+    "int8-rerank": (dict(quantize="int8"), "rerank", "singlechip-rerank-int8"),
+    "plain-rerank": (dict(use_pallas_gather=False), "rerank", "singlechip-rerank-plain"),
+}
+
+
+@pytest.mark.parametrize("mode", list(BATCH_CASES))
 @pytest.mark.parametrize("size", [16, 48, 256])
-def test_a_query_is_answered_alike_in_any_batch(world, mode, size):
+def test_a_query_is_answered_alike_in_any_batch(world, hybrid_kw, mode, size):
     """A request's answers are the same bits alone and as the first or the
-    last rows of a batch of ``size`` queries at its bucket width: the
-    engine encodes queries in calls of one row count a width."""
-    eng = RetrievalEngine(**world["port_kw"])
+    last rows of a batch of ``size`` queries at its bucket width, in every
+    route: the engine encodes queries in calls of one row count a width and
+    sums every score in an order that does not depend on the batch.  The
+    cases: dense exact and rerank (K1's plain version), hybrid exact through
+    the postings route and through the bucketed op, hybrid rerank, an int8
+    corpus exact and rerank, and rerank through the plain stage-2 gather."""
+    extra, how, route = BATCH_CASES[mode]
+    eng = RetrievalEngine(**(hybrid_kw if extra == "hybrid" else {**world["port_kw"], **extra}))
+    if how == "bucketed":
+        def retrieve(texts):
+            return _bucketed_answers(eng, texts, 5)
+    else:
+        def retrieve(texts):
+            return eng.retrieve(texts, top_k=5, mode=how)
     eight, filler = _eight_and_filler(world, size)
-    alone = eng.retrieve(eight, top_k=5, mode=mode)
-    assert eng.retrieve(eight + filler, top_k=5, mode=mode)[:8] == alone
-    assert eng.retrieve(filler + eight, top_k=5, mode=mode)[-8:] == alone
+    alone = retrieve(eight)
+    assert eng.last_serve_path == route
+    assert retrieve(eight + filler)[:8] == alone
+    assert retrieve(filler + eight)[-8:] == alone
 
 
 def test_queries_encode_in_calls_of_one_row_count(world):

@@ -272,3 +272,33 @@ def test_fuse_and_mix_matches_jax(masked):
     got = scoring.fuse_and_mix(torch.from_numpy(q), torch.from_numpy(docs4), torch.from_numpy(W),
                                None if mask is None else torch.from_numpy(mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_postings_sum_matches_jax_scatter_on_heavy_collisions():
+    """The port's postings sum (per document, one fixed order) against the
+    JAX package's scatter-add densification
+    (``fused_hybrid_topk_postings_from_query``, ``.at[...].add`` at
+    ``mfar_tpu/ops/scoring.py:1004``) on rows whose thousands of postings
+    hit a handful of documents, each over both sparse fields: with a zero
+    dense matrix and k = N the JAX op returns every document's sparse score,
+    which scatters back into [B, N] beside the port's."""
+    rng = np.random.default_rng(11)
+    b, n, e, m = 3, 40, 8, 3000
+    q = rng.normal(size=(b, e)).astype(np.float32)
+    W = rng.normal(size=(e, 4)).astype(np.float32)
+    ids = rng.integers(0, 5, size=(b, m)).astype(np.int32)
+    ids[1] = rng.integers(0, n, size=m)  # one row spread over the corpus
+    vals = rng.uniform(0.1, 3.0, size=(b, m)).astype(np.float32)
+    ids[:, -7:], vals[:, -7:] = 0, 0.0  # padding: id 0, value 0
+    fidx = rng.integers(0, 2, size=(b, m)).astype(np.int8)
+    js, ji = jax_scoring.fused_hybrid_topk_postings_from_query(
+        jnp.asarray(q), jnp.asarray(W), None, jnp.zeros((n, 2 * e), jnp.float32),
+        jnp.asarray(ids), jnp.asarray(vals), jnp.asarray(fidx), jnp.int32(n), 2, n,
+        chunk_size=n)
+    want = np.zeros((b, n), np.float32)
+    np.put_along_axis(want, np.asarray(ji), np.asarray(js), axis=1)
+    _, got = scoring._fold_and_densify(torch.from_numpy(q), torch.from_numpy(W), None, n, 2,
+                                       torch.from_numpy(ids), torch.from_numpy(vals),
+                                       torch.from_numpy(fidx))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    assert (want[[0, 2], 5:] == 0).all() and (want[[0, 2], :5] > 100).all()

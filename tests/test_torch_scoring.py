@@ -171,3 +171,89 @@ def test_scores_f32_bf16_matches_upcast():
     assert got.dtype == torch.float32
     # bf16 products are exact in f32: the reference is the f32 product
     torch.testing.assert_close(got, a.float() @ b.float().T, rtol=RTOL, atol=1e-6)
+
+
+# Each function whose sums must not depend on the batch (rerank's stage-2
+# dots of gathered rows, the hybrid postings sum, the bucketed op's runs,
+# the host stream's postings): a row's inputs, of a width that varies from
+# row to row, padded to the batch's widest as the engine pads them.
+ROW_E, ROW_F, ROW_N = 24, 3, 50
+
+
+def _row_stage2(rng, w):
+    return dict(cand=(_t(rng.normal(size=(w, ROW_F, ROW_E)).astype(np.float32)), 0.0),
+                q=_t(rng.normal(size=ROW_E).astype(np.float32)))
+
+
+def _postings(rng, w):
+    """Postings that hit a few documents many times (a third of the rows)
+    or spread over the corpus, with their sparse field, values > 0."""
+    hi = 4 if rng.random() < 1 / 3 else ROW_N
+    return (_t(rng.integers(0, hi, size=w).astype(np.int32)),
+            _t(rng.uniform(0.1, 3.0, size=w).astype(np.float32)),
+            _t(rng.integers(0, 2, size=w).astype(np.int8)))
+
+
+def _row_postings(rng, w):
+    ids, vals, field = _postings(rng, w)
+    return dict(ids=(ids, 0), vals=(vals, 0.0), field=(field, 0),
+                q=_t(rng.normal(size=ROW_E).astype(np.float32)))
+
+
+def _row_buckets(rng, w):
+    ids, vals, _ = _postings(rng, w)
+    return dict(ids=(torch.sort(ids).values, ROW_N), vals=(vals, 0.0),
+                s=_t(rng.normal(size=ROW_N).astype(np.float32)))
+
+
+def _row_stream(rng, w):
+    ids, vals, _ = _postings(rng, w)
+    return dict(ids=(ids, 0), vals=(vals, 0.0),
+                q=_t(rng.normal(size=ROW_F * ROW_E).astype(np.float32)))
+
+
+def _stack(rows, width):
+    """The rows' inputs as batch tensors: a (tensor, pad) pair pads to
+    ``width`` (at least the widest row) with its pad value."""
+    width = max([width] + [len(t) for r in rows for t, _ in
+                           (v for v in r.values() if isinstance(v, tuple))])
+    out = {}
+    for key, v in rows[0].items():
+        if isinstance(v, tuple):
+            out[key] = torch.stack([torch.cat([r[key][0], r[key][0].new_full(
+                (width - len(r[key][0]), *r[key][0].shape[1:]), r[key][1])]) for r in rows])
+        else:
+            out[key] = torch.stack([r[key] for r in rows])
+    return out
+
+
+_W_ROW = _t(_rng(5).normal(size=(ROW_E, 3)).astype(np.float32))
+_DOCS_ROW = _t(_rng(6).normal(size=(ROW_N, ROW_F * ROW_E)).astype(np.float32))
+
+ROW_CASES = {
+    "stage2": (_row_stage2, lambda x: (port.per_field_candidate_scores(x["q"], x["cand"]),)),
+    "postings": (_row_postings, lambda x: port._fold_and_densify(
+        x["q"], _W_ROW, None, ROW_N, 1, x["ids"], x["vals"], x["field"])),
+    "buckets": (_row_buckets, lambda x: port._posting_candidates(
+        x["s"], x["ids"], x["vals"], 0)),
+    "host-stream": (_row_stream, lambda x: port.hybrid_topk_host_streamed(
+        x["q"], _DOCS_ROW, 10, chunk_size=16, post_ids=x["ids"], post_wvals=x["vals"])),
+}
+
+
+@pytest.mark.parametrize("batch", [1, 7, 300])
+@pytest.mark.parametrize("case", sorted(ROW_CASES))
+def test_a_row_is_the_same_bits_in_any_batch(case, batch):
+    """Each function that sums a query's scores in a fixed order gives a
+    row the same bits alone (at its own width) as in a batch of ``batch``
+    rows, padded wider (a batch of 1 by 57 entries) with other rows around
+    it; its outputs past the row's own width are not compared."""
+    make, call = ROW_CASES[case]
+    rng = _rng(3)
+    row = make(rng, 40)
+    alone = call(_stack([row], 0))
+    mates = [make(rng, int(w)) for w in rng.integers(1, 120, size=batch - 1)]
+    at = (batch - 1) // 2
+    batched = call(_stack(mates[:at] + [row] + mates[at:], 40 + 57 * (batch == 1)))
+    for a, b in zip(alone, batched):
+        assert torch.equal(b[at][: a.shape[1]] if a.dim() > 1 else b[at], a[0]), case
