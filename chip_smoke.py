@@ -38,38 +38,39 @@ Contriever-base and GTR-T5-base width with seeded random weights:
 5b. k2g      -- K2's forwards and K2b's pairs off the wgmma D = 64 route
                 against the plain versions, each input on the routes the
                 routing rule gives (bf16 at another head dim: the wgmma
-                kernels at ceil(D / 64) slabs, the backward up to D = 128;
-                f32: the 3xTF32 kernels of csrc/flash_attention_tf32.cu and,
-                up to D = 64, csrc/flash_attention_tf32_bwd.cu; heads TMA
-                cannot read one by one but can as rows of heads side by
-                side (TinyBERT's D = 26 in the encoder's [B, S, H*D]
-                projections): the wgmma and 3xTF32 forwards on row maps
-                ("wgmma_rows", "tf32_rows"); what neither map reads: the
-                CUDA-core forward of
-                csrc/flash_attention_simt.cu; the backward of bf16 up
-                to D = 128 on the wgmma pair over zero-padded copies at D
-                rounded up to 8 (the "wgmma_pad" route), of f32 up to D =
-                64 on the 3xTF32 pair over copies at D rounded up to 4
-                ("tf32_pad"); the backward past those caps on the
-                CUDA-core pair), forward,
+                kernels at ceil(D / 64) slabs, the backward past D = 128
+                in blocks of one warpgroup with dkv's grid split into dV
+                and dK blocks; f32: the 3xTF32 kernels of
+                csrc/flash_attention_tf32.cu and
+                csrc/flash_attention_tf32_bwd.cu, the backward past D =
+                64 in blocks of one warpgroup streaming 32-row half tiles,
+                dkv split so too; heads TMA cannot read one by one but can
+                as rows of heads side by side (TinyBERT's D = 26 in the
+                encoder's [B, S, H*D] projections): the wgmma and 3xTF32
+                forwards on row maps ("wgmma_rows", "tf32_rows"); what
+                neither map reads: the forward and the backward over
+                zero-padded copies at D rounded up to 8 in bf16 (the
+                "wgmma_pad" route) or 4 in f32 ("tf32_pad")), forward,
                 logsumexp, dq (with di, its bits on a second run) and dkv:
                 small segment-id cases at D = 2-256 in f32 and bf16 (D = 2,
                 26 and 62 f32 and D = 2, 20, 25, 26 and 126 bf16 at 8 heads
-                on the rows routes; D = 26 f32, D = 2, 20, 25 and 126 bf16
-                contiguous, and D = 64 in layouts TMA cannot read, on the
-                CUDA-core forward; the CUDA-core pair past the caps: f32
-                D = 68-256, bf16 D = 136 and 256), then
-                the main
+                on the rows routes; D = 26 f32, D = 2, 20, 25, 26 and 126
+                bf16 contiguous, D = 64 in layouts TMA cannot read, f32 D
+                = 66 and 254 and bf16 D = 130 and 250 at 8 heads, on the
+                padding routes; the wide pairs at f32 D = 68-256 and bf16
+                D = 136-256), then the main
                 paths' shapes (f32 [256, 12, 512, 64] and [96, 12, 512,
                 64], D = 32 [256, 12, 512, 32] in both dtypes and its bf16
                 backward at [96, 12, 512, 32], TinyBERT's D = 26 at [256,
                 12, 512, 26] and [96, 12, 512, 26] in bf16 and f32, D = 16
-                [256, 4, 128, 16]); times of each
-                route's kernels, the CUDA-core kernels on the same inputs,
-                on the rows routes the same kernel on zero-padded copies
-                (its output and logsumexp bit-equal), the whole padded
-                backward (copies and pair), the plain versions and SDPA
-                with the boolean segment mask, beside the bound
+                [256, 4, 128, 16]), the padding forwards at a contiguous
+                [256, 12, 512, 26] and the wide pairs at bf16 [96, 12, 512,
+                256] and f32 [96, 12, 512, 128]; times of each route's
+                kernels, on the rows routes the same kernel on zero-padded
+                copies (its output and logsumexp bit-equal), on the
+                padding routes the kernel on the copies alone, the whole
+                padded backward (copies and pair), the plain versions and
+                SDPA with the boolean segment mask, beside the bound
 6. e2e       -- a synthetic mag-shaped corpus (2048 docs x 5 dense fields)
                 encoded by the full-width encoder with attention_impl="auto"
                 (the 512-token fields through K2), held against the same
@@ -339,9 +340,6 @@ from mfar_tpu_torch.ops.flash_attention import (
     flash_attention_headdim,
     flash_attention_plain,
     flash_attention_rows,
-    flash_attention_simt,
-    flash_attention_simt_bwd_dkv,
-    flash_attention_simt_bwd_dq,
     flash_attention_tf32,
     flash_attention_tf32_bwd_dkv,
     flash_attention_tf32_bwd_dq,
@@ -421,11 +419,10 @@ TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, TRAIN_MIN_COSINE = 1e-2, 5e-2, 0.99
 # the same state, batch and dropout masks through deterministic kernels
 # (K2/K2b use no atomics); any difference is the order of cuBLAS's sums.
 CKPT_ATOL = 1e-6
-# K2/K2b's CUDA-core route (f32, or bf16 at D != 64) against the plain
-# version, in f32: both take f32 products in f32 FMA (TF32 off) and sum them
-# in other orders; the output within 2e-5, the logsumexp within 1e-5, each
-# gradient within 2e-5 of its largest entry.  In bf16 the K2 and K2b gates
-# above hold.
+# K2/K2b's f32 routes (3xTF32) against the plain version, in f32 (TF32
+# off): f32-accurate products summed in other orders; the output within
+# 2e-5, the logsumexp within 1e-5, each gradient within 2e-5 of its largest
+# entry.  In bf16 the K2 and K2b gates above hold.
 K2G_ATOL, K2G_LSE_ATOL, K2G_GRAD_REL = 2e-5, 1e-5, 2e-5
 # The slice's f32 path against plain attention on the same weights: the
 # f32 index within 1e-4 (max abs) of the "xla"-built one; one train batch's
@@ -986,36 +983,52 @@ def run_k2b(seed: int, train_shape=(96, 12, 512)) -> dict:
 
 
 # ----------------------------------------------------------------------
-# phase 5b: K2/K2b's CUDA-core route (f32, or bf16 at a head dim != 64)
+# phase 5b: K2/K2b's other routes (f32, bf16 at a head dim != 64, what TMA
+# cannot read per head)
 
 
 # K2b's kernel pairs (dq, dkv) by the backward's route
 BWD_PAIRS = {"wgmma": (flash_attention_bwd_dq, flash_attention_bwd_dkv),
              "wgmma_headdim": (flash_attention_bwd_headdim_dq, flash_attention_bwd_headdim_dkv),
-             "tf32": (flash_attention_tf32_bwd_dq, flash_attention_tf32_bwd_dkv),
-             "simt": (flash_attention_simt_bwd_dq, flash_attention_simt_bwd_dkv)}
+             "tf32": (flash_attention_tf32_bwd_dq, flash_attention_tf32_bwd_dkv)}
+
+
+# the pairs that run wide instances past a head dim (bf16 past 128: one
+# warpgroup a block; f32 past 64: 32-row half tiles; dkv split into dV and
+# dK blocks), by the route that names them
+WIDE_PAIRS = {"wgmma_headdim": 128, "tf32": 64}
 
 
 def k2_counts() -> dict:
-    """Launches of K2's six forwards, by route, and of K2b's four pairs
-    (``<route>_dkv``, ``<route>_dq``)."""
+    """Launches of K2's five forward kernels, by the route that names them
+    (the padding routes count under the kernel they run, and apart as
+    ``<route>_fwd``), and of K2b's three pairs (``<route>_dkv``,
+    ``<route>_dq``; the wide instances also apart, ``<route>_wide_dkv``,
+    ``<route>_wide_dq``)."""
     out = {"wgmma": flash_attention.launches, "wgmma_headdim": flash_attention_headdim.launches,
            "tf32": flash_attention_tf32.launches, "wgmma_rows": flash_attention_rows.launches,
-           "tf32_rows": flash_attention_tf32_rows.launches,
-           "simt": flash_attention_simt.launches}
+           "tf32_rows": flash_attention_tf32_rows.launches}
+    for route in PAD_MULTIPLE:
+        out[f"{route}_fwd"] = flash_attention.pad_launches[route]
     for route, (dq_fn, dkv_fn) in BWD_PAIRS.items():
         out[f"{route}_dkv"], out[f"{route}_dq"] = dkv_fn.launches, dq_fn.launches
+        if route in WIDE_PAIRS:
+            out[f"{route}_wide_dkv"] = dkv_fn.wide_launches
+            out[f"{route}_wide_dq"] = dq_fn.wide_launches
     return out
 
 
 def reset_k2_counts() -> None:
-    """Every K2/K2b count to 0: the six forwards, the four backward pairs."""
+    """Every K2/K2b count to 0: the five forwards, the padding routes', the
+    three backward pairs, the wide instances'."""
     reset_counts()
     flash_attention_headdim.launches = flash_attention_tf32.launches = 0
     flash_attention_rows.launches = flash_attention_tf32_rows.launches = 0
-    flash_attention_simt.launches = 0
+    flash_attention.pad_launches = dict.fromkeys(PAD_MULTIPLE, 0)
     for dq_fn, dkv_fn in BWD_PAIRS.values():
         dq_fn.launches = dkv_fn.launches = 0
+    for route in WIDE_PAIRS:
+        BWD_PAIRS[route][0].wide_launches = BWD_PAIRS[route][1].wide_launches = 0
 
 
 def launched(**want: int) -> dict:
@@ -1024,58 +1037,54 @@ def launched(**want: int) -> dict:
     return dict({k: 0 for k in k2_counts()}, **want)
 
 
-def expected_route(t, bf16_cap=256, f32_cap=256, rows=True) -> str:
+def expected_route(t, rows=True) -> str:
     """The forward's route by the routing rule, for q, k and v laid out as
     ``t``: bf16 at D = 64 "wgmma", bf16 at another D that is a multiple of 8
     "wgmma_headdim", f32 at a D that is a multiple of 4 "tf32", each where
     TMA can read the operands (the B, H and S strides multiples of 16
-    bytes, from a 16-byte boundary) and D is at most the dtype's cap; with
-    ``rows``, of the rest, "wgmma_rows" (bf16, D up to 249) and "tf32_rows"
-    (f32, up to 253) where the heads lie side by side (the H stride D) in
-    rows TMA can read (the B and S strides multiples of 16 bytes, from a
-    16-byte boundary); every other input "simt"."""
+    bytes, D contiguous, from a 16-byte boundary); with ``rows``, of the
+    rest, "wgmma_rows" (bf16, D up to 249) and "tf32_rows" (f32, up to 253)
+    where the heads lie side by side (the H stride D) in rows TMA can read
+    (the B and S strides multiples of 16 bytes, from a 16-byte boundary);
+    every other input the dtype's padding route, "wgmma_pad" or
+    "tf32_pad"."""
     d = t.shape[-1]
     aligned = t.stride(-1) == 1 and t.data_ptr() % 16 == 0
     tma = aligned and all(st * t.element_size() % 16 == 0 for st in t.stride()[:3])
-    if tma and t.dtype == torch.bfloat16 and d % 8 == 0 and d <= bf16_cap:
+    if tma and t.dtype == torch.bfloat16 and d % 8 == 0:
         return "wgmma" if d == 64 else "wgmma_headdim"
-    if tma and t.dtype == torch.float32 and d % 4 == 0 and d <= f32_cap:
+    if tma and t.dtype == torch.float32 and d % 4 == 0:
         return "tf32"
     # (rows: D + 7 or D + 3 columns, as a head can start that far into a box)
     if rows and aligned and t.stride(1) == d and d + 16 // t.element_size() - 1 <= 256 and all(
             t.stride(i) * t.element_size() % 16 == 0 for i in (0, 2)):
         return "wgmma_rows" if t.dtype == torch.bfloat16 else "tf32_rows"
-    return "simt"
+    return PAD_ROUTES[t.dtype][0]
 
 
 def expected_backward_route(t) -> str:
-    """The backward's route by the routing rule: the forward's rule with D
-    capped at 128 in bf16 and 64 in f32 (rows of up to 256 bytes); of what
-    that sends to "simt", bf16 up to D = 128 "wgmma_pad" and f32 up to D =
-    64 "tf32_pad" (zero-padded copies for the wgmma or the 3xTF32 pair)."""
-    route = expected_route(t, bf16_cap=128, f32_cap=64, rows=False)
-    if route == "simt" and t.shape[-1] <= PAD_CAPS[t.dtype][0]:
-        return PAD_CAPS[t.dtype][1]
-    return route
+    """The backward's route by the routing rule: the forward's without the
+    rows routes."""
+    return expected_route(t, rows=False)
 
 
-# by dtype: the padding route's largest D, its name and the column multiple
-# its copies round D up to (16-byte rows)
-PAD_CAPS = {torch.bfloat16: (128, "wgmma_pad", 8), torch.float32: (64, "tf32_pad", 4)}
-PAD_MULTIPLE = {route: multiple for _, route, multiple in PAD_CAPS.values()}
+# by dtype: the padding route and the column multiple its copies round D up
+# to (16-byte rows)
+PAD_ROUTES = {torch.bfloat16: ("wgmma_pad", 8), torch.float32: ("tf32_pad", 4)}
+PAD_MULTIPLE = dict(PAD_ROUTES.values())
 
 
 def padded_dim(route, d: int) -> int:
-    """The head dim of a backward route's inputs to its pair: on the padding
+    """The head dim of a route's inputs to its kernels: on the padding
     routes D rounded up to 8 (bf16) or 4 (f32), else D."""
     m = PAD_MULTIPLE.get(route, 1)
     return -(-d // m) * m
 
 
-def backward_pair(route, d) -> str:
-    """The pair that the backward ``route`` launches at head dim ``d``: on
-    "wgmma_pad" the wgmma pair at D rounded up to 8, on "tf32_pad" the
-    3xTF32 pair, else its own."""
+def route_kernel(route, d) -> str:
+    """The kernel (forward) or pair (backward) that ``route`` launches at
+    head dim ``d``: on "wgmma_pad" the wgmma kernels at D rounded up to 8,
+    on "tf32_pad" the 3xTF32 kernels, else its own."""
     if route == "tf32_pad":
         return "tf32"
     if route != "wgmma_pad":
@@ -1111,15 +1120,16 @@ def segment_rows(b, s, rows):
 
 def check_k2g(q, k, v, seg, dout, label, grads=True) -> dict:
     """K2's forwards other than the wgmma one at D = 64 (the wgmma kernel
-    at another head dim, the 3xTF32 kernel, the CUDA-core kernel) and
-    K2b's pairs off bf16 D = 64 (the wgmma pair at another head dim, the
-    3xTF32 pair, the CUDA-core pair) against their plain versions: the
+    at another head dim or on row maps, the 3xTF32 kernel, also on row
+    maps, either over zero-padded copies) and K2b's pairs off bf16 D = 64
+    (the wgmma pair at another head dim, the 3xTF32 pair, either over
+    zero-padded copies) against their plain versions: the
     forward with and without the logsumexp (the same output bits), the
     logsumexp, and with ``grads`` the backward (dq writing di, then dkv),
     di, and dq's bits on a second run, under the f32 gates (K2G_*) or the
     bf16 ones (K2, K2b).  Checks that both forwards launched on the route
-    the routing rule gives (``expected_route``) and the backward on its
-    route's pair (``expected_backward_route``, ``backward_pair``), nothing
+    the routing rule gives (``expected_route``, ``route_kernel``) and the
+    backward on its route's pair (``expected_backward_route``), nothing
     else.  Returns both routes, the backward's pair, the largest absolute
     errors (fwd, lse, dq, dkv) and the largest gradient error relative to
     the largest gradient."""
@@ -1127,7 +1137,8 @@ def check_k2g(q, k, v, seg, dout, label, grads=True) -> dict:
     scale = 1.0 / math.sqrt(d)
     f32 = q.dtype == torch.float32
     route, bwd_route = expected_route(q), expected_backward_route(q)
-    pair, d8 = backward_pair(bwd_route, d), padded_dim(bwd_route, d)
+    fwd_kernel, pair = route_kernel(route, d), route_kernel(bwd_route, d)
+    dw, d8 = padded_dim(route, d), padded_dim(bwd_route, d)
     before = k2_counts()
     got = flash_attention(q, k, v, seg, scale)
     out, lse = flash_attention_fwd(q, k, v, seg, scale)
@@ -1138,11 +1149,15 @@ def check_k2g(q, k, v, seg, dout, label, grads=True) -> dict:
                                                     atol=K2_ATOL)
     check(ok, f"K2 ({route}) {label}: max abs err {err}")
     check(torch.equal(got, out), f"K2 ({route}) {label}: the logsumexp changed output bits")
-    check(got.dtype == q.dtype and got.transpose(1, 2).is_contiguous(), f"K2 {label} layout")
+    # a view of a [B, S, H, D'] buffer (D' = D off the padding routes)
+    check(got.dtype == q.dtype and got.transpose(1, 2).stride() == (s * h * dw, h * dw, dw, 1),
+          f"K2 {label} layout")
     lse_err = (lse - masked_logsumexp(q, k, seg, scale)).abs().max().item()
     check(lse_err <= (K2G_LSE_ATOL if f32 else K2B_LSE_ATOL),
           f"K2 ({route}) logsumexp {label}: max abs err {lse_err}")
-    r = {"route": route, "bwd_route": bwd_route, "bwd_pair": pair, "fwd": err, "lse": lse_err,
+    wide = pair in WIDE_PAIRS and d8 > WIDE_PAIRS[pair]
+    r = {"route": route, "fwd_kernel": fwd_kernel, "bwd_route": bwd_route, "bwd_pair": pair,
+         "bwd_wide": grads and wide, "fwd": err, "lse": lse_err,
          "dq": 0.0, "dkv": 0.0, "rel": 0.0}
     if grads:
         g = flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
@@ -1176,9 +1191,14 @@ def check_k2g(q, k, v, seg, dout, label, grads=True) -> dict:
         check(not dq[..., d:].any(), f"K2b ({bwd_route}) dq {label}: padded columns not 0")
     # dq twice with grads: the backward, then di's check
     want_counts = dict(before)
-    want_counts[route] += 2
+    want_counts[fwd_kernel] += 2
+    if route in PAD_MULTIPLE:
+        want_counts[f"{route}_fwd"] += 2
     want_counts[f"{pair}_dkv"] += grads
     want_counts[f"{pair}_dq"] += 2 * grads
+    if wide:
+        want_counts[f"{pair}_wide_dkv"] += grads
+        want_counts[f"{pair}_wide_dq"] += 2 * grads
     check(k2_counts() == want_counts,
           f"{label}: launched {k2_counts()} from {before} (routes {route}, {bwd_route})")
     return r
@@ -1197,37 +1217,43 @@ K2G_CASES = [
 # by route: f32 at every D a multiple of 4 takes the 3xTF32 kernel (20: a
 # slab whose last k step reads zeros past D; 48 and 136 inside a slab),
 # bf16 at every D a multiple of 8 but 64 the wgmma kernel (40, 72 and 136
-# stop inside a 64-column slab); the backward takes the 3xTF32 pair up to
-# f32 D = 64 and the wgmma pair up to bf16 D = 128, the CUDA-core pair past
-# them (f32 68, bf16 136: each cap's other side); K2G_ROWS_DIMS, whose
-# heads TMA cannot read one by one, at K2G_ROWS_HEADS heads a row (rows of
-# 16-byte multiples) take the rows routes, the last head's box reaching the
-# map's zero fill (f32 2, 26 and 62: up to three slabs; bf16 2, 20, 25: an
-# odd D, 26, 126: up to three slabs); K2G_SIMT_DIMS, laid out contiguous
-# (rows of D * 2 or D * 4 bytes, which no map reads), take the CUDA-core
-# forward; both take the backward over zero-padded copies: in f32 on the
-# 3xTF32 pair (D = 26 padded to 28), in bf16 on the wgmma pair (126:
-# padded to two slabs)
-K2G_DIMS = {torch.float32: (16, 20, 32, 48, 64, 68, 128, 136, 256),
-            torch.bfloat16: (16, 32, 40, 48, 72, 128, 136, 256)}
-K2G_ROWS_DIMS = {torch.float32: (2, 26, 62), torch.bfloat16: (2, 20, 25, 26, 126)}
+# stop inside a 64-column slab); the backward takes the 3xTF32 pair, past
+# f32 D = 64 in its wide shape (68, 96, 128, 136, 256: three to eight
+# slabs), and the wgmma pair, past bf16 D = 128 in its wide shape (136,
+# 192, 256: three and four slabs); K2G_ROWS_DIMS, whose heads TMA cannot
+# read one by one, at K2G_ROWS_HEADS heads a row (rows of 16-byte
+# multiples) take the rows routes, the last head's box reaching the map's
+# zero fill (f32 2, 26 and 62: up to three slabs; bf16 2, 20, 25: an odd D,
+# 26, 126: up to three slabs), and K2G_WIDE_ROWS_DIMS, past the rows
+# routes' D, the forward over zero-padded copies (f32 254 and bf16 250,
+# padded to 256); f32 66 and bf16 130 take the wide pairs over copies
+# padded to 68 and 136; K2G_CONTIGUOUS_DIMS, laid out contiguous (rows of
+# D * 2 or D * 4 bytes, which no map reads), take the forward over
+# zero-padded copies; all of them the backward over zero-padded copies: in
+# f32 on the 3xTF32 pair (D = 26 padded to 28), in bf16 on the wgmma pair
+# (126: padded to two slabs)
+K2G_DIMS = {torch.float32: (16, 20, 32, 48, 64, 68, 96, 128, 136, 256),
+            torch.bfloat16: (16, 32, 40, 48, 72, 128, 136, 192, 256)}
+K2G_ROWS_DIMS = {torch.float32: (2, 26, 62, 66), torch.bfloat16: (2, 20, 25, 26, 126, 130)}
+K2G_WIDE_ROWS_DIMS = {torch.float32: (254,), torch.bfloat16: (250,)}
 K2G_ROWS_HEADS = 8
-K2G_SIMT_DIMS = {torch.float32: (26,), torch.bfloat16: (2, 20, 25, 126)}
+K2G_CONTIGUOUS_DIMS = {torch.float32: (26,), torch.bfloat16: (2, 20, 25, 26, 126)}
 
 
-def misaligned_k2g_inputs(gen, dtype, rows):
+def misaligned_k2g_inputs(gen, dtype, rows, layout):
     """[3, 2, 256, 64] q/k/v and dO in layouts TMA cannot read, so the
-    CUDA-core forward takes them (and the backward over padded copies: the
-    3xTF32 pair in f32, the wgmma pair in bf16): bf16 views that start 2
-    bytes into their buffers; f32 views of [B, S, H*D + 2] buffers (rows 520
-    bytes apart)."""
+    forward and the backward take them over padded copies (the 3xTF32
+    kernels in f32, the wgmma ones in bf16): views that start one element
+    (2 or 4 bytes) into their buffers (``layout`` "offset"), or views of
+    [B, S, H*D + 2] buffers (rows 260 or 520 bytes apart: "padded_rows")."""
     b, h, s, d = 3, 2, 256, 64
-    if dtype == torch.bfloat16:
+    if layout == "offset":
         flat = [torch.randn(b * s * h * d + 1, device=DEVICE, generator=gen).to(dtype)
                 for _ in range(4)]
         views = [t[1:].view(b, s, h, d).transpose(1, 2) for t in flat]
     else:
-        buf = [torch.randn(b, s, h * d + 2, device=DEVICE, generator=gen) for _ in range(4)]
+        buf = [torch.randn(b, s, h * d + 2, device=DEVICE, generator=gen).to(dtype)
+               for _ in range(4)]
         views = [t[..., :h * d].view(b, s, h, d).transpose(1, 2) for t in buf]
     return (*views[:3], segment_rows(b, s, rows), views[3])
 
@@ -1276,80 +1302,51 @@ def rows_against_padded(q, k, v, seg, scale, lse_shape) -> dict:
 
 def k2g_times(q, k, v, seg, dout=None, lse_shape=False) -> dict:
     """CUDA-event times of the forward on its route (with the logsumexp when
-    ``lse_shape``), the CUDA-core forward on the same inputs (held against
-    the plain version first: ``simt_err``), on the rows routes the same
-    kernel on zero-padded copies (``rows_against_padded``: bit-equal), the
-    plain version and SDPA with
-    the boolean segment mask (the library yardstick); with ``dout`` also
-    dq and dkv on the backward's route, the CUDA-core pair on the same
-    inputs (held against the plain backward first: ``simt_bwd_rel``, the
-    largest gradient error over the largest gradient), the plain backward
-    and SDPA's backward; on the padding routes ("wgmma_pad", "tf32_pad")
-    the pair on the padded copies, the whole backward (``route_bwd_ms``: the copies, the pair; the
-    gradients views) and its gradients against the CUDA-core pair's
-    (``route_vs_simt_rel``); each beside its bound."""
+    ``lse_shape``), on the rows routes the same kernel on zero-padded copies
+    (``rows_against_padded``: bit-equal), on the padding routes the kernel
+    on the copies alone (``pad_kernel_ms``), the plain version and SDPA with
+    the boolean segment mask (the library yardstick); with ``dout`` also dq
+    and dkv on the backward's route (the pair on the padded copies on the
+    padding routes, "wgmma_pad" and "tf32_pad", and then the whole backward,
+    ``route_bwd_ms``: the copies, the pair; the gradients views), the plain
+    backward and SDPA's backward; each beside its bound."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    f32 = q.dtype == torch.float32
     slow = dict(reps=5, inner=2)
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if lse_shape else None
     if lse_shape:
-        fwd = lambda: flash_attention_fwd(q, k, v, seg, scale)
+        fwd = lambda *qkv: flash_attention_fwd(*qkv, seg, scale)
     else:
-        fwd = lambda: flash_attention(q, k, v, seg, scale)
-    simt = lambda: flash_attention_simt(q, k, v, seg, scale, lse)
-    got = simt()
-    torch.cuda.synchronize()
-    want = flash_attention_plain(q, k, v, seg, scale)
-    simt_err = (got.float() - want.float()).abs().max().item()
-    check(simt_err <= K2G_ATOL if f32 else torch.allclose(
-        got.float(), want.float(), rtol=K2_RTOL, atol=K2_ATOL),
-        f"CUDA-core K2 at {list(q.shape)} {q.dtype}: max abs err {simt_err}")
-    del got, want
+        fwd = lambda *qkv: flash_attention(*qkv, seg, scale)
     bound = k2_bound(q, seg, lse=lse_shape)
-    r = dict(route=expected_route(q), ms=time_cuda(fwd, reps=11, inner=3),
-             simt_ms=time_cuda(simt, reps=5, inner=2), simt_err=simt_err,
+    r = dict(route=expected_route(q), ms=time_cuda(lambda: fwd(q, k, v), reps=11, inner=3),
              plain_ms=time_cuda(lambda: flash_attention_plain(q, k, v, seg, scale), **slow),
              library_ms=time_cuda(lambda: library_attention(q, k, v, seg, scale), **slow),
              bound_ms=bound[0], bound_by=bound[1])
     if r["route"] in ("wgmma_rows", "tf32_rows"):
         r.update(rows_against_padded(q, k, v, seg, scale, lse_shape))
+    if r["route"] in PAD_MULTIPLE:
+        copies = [pad_heads(t, padded_dim(r["route"], q.shape[-1])) for t in (q, k, v)]
+        r["pad_kernel_ms"] = time_cuda(lambda: fwd(*copies), reps=11, inner=3)
+        del copies
     if dout is not None:
         out, lse = flash_attention_fwd(q, k, v, seg, scale)
         bwd_route = expected_backward_route(q)
-        dq_fn, dkv_fn = BWD_PAIRS[backward_pair(bwd_route, q.shape[-1])]
+        dq_fn, dkv_fn = BWD_PAIRS[route_kernel(bwd_route, q.shape[-1])]
         ins = (q, k, v, out, dout)
         if bwd_route in PAD_MULTIPLE:
             ins = tuple(pad_heads(t, padded_dim(bwd_route, q.shape[-1])) for t in ins)
         pq, pk, pv, po, pdo = ins
         _, di = dq_fn(pq, pk, pv, seg, lse, po, pdo, scale)
-        sdq, sdi = flash_attention_simt_bwd_dq(q, k, v, seg, lse, out, dout, scale)
-        simt_grads = (sdq, *flash_attention_simt_bwd_dkv(q, k, v, seg, lse, sdi, dout, scale))
-        torch.cuda.synchronize()
-        want = flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale)
-        shape = f"{list(q.shape)} {q.dtype}"
-        r.update(bwd_route=bwd_route,
-                 simt_bwd_rel=grads_rel(simt_grads, want, f"CUDA-core K2b at {shape}", f32))
-        route_bwd = lambda: flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
-        if bwd_route in PAD_MULTIPLE:
-            r["route_vs_simt_rel"] = grads_rel(route_bwd(), simt_grads, f"K2b ({bwd_route}) "
-                                               f"against the CUDA-core pair at {shape}", f32)
-        del simt_grads, sdq, sdi, want
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         lib_out = library_attention(*leaves, seg, scale)
         r.update(
+            bwd_route=bwd_route,
             dq_ms=time_cuda(lambda: dq_fn(pq, pk, pv, seg, lse, po, pdo, scale), reps=11,
                             inner=3),
             dkv_ms=time_cuda(lambda: dkv_fn(pq, pk, pv, seg, lse, di, pdo, scale), reps=11,
                              inner=3))
-        if bwd_route == "simt":  # the route's pair is the CUDA-core pair
-            r.update(simt_dq_ms=r["dq_ms"], simt_dkv_ms=r["dkv_ms"])
-        else:
-            r.update(simt_dq_ms=time_cuda(lambda: flash_attention_simt_bwd_dq(
-                         q, k, v, seg, lse, out, dout, scale), reps=5, inner=2),
-                     simt_dkv_ms=time_cuda(lambda: flash_attention_simt_bwd_dkv(
-                         q, k, v, seg, lse, di, dout, scale), reps=5, inner=2))
         if bwd_route in PAD_MULTIPLE:
-            r["route_bwd_ms"] = time_cuda(route_bwd, reps=11, inner=3)
+            r["route_bwd_ms"] = time_cuda(
+                lambda: flash_attention_bwd(q, k, v, seg, out, lse, dout, scale), reps=11, inner=3)
         del pq, pk, pv, po, pdo, ins
         r.update(
             plain_bwd_ms=time_cuda(lambda: flash_attention_bwd_plain(
@@ -1365,33 +1362,40 @@ def k2g_times(q, k, v, seg, dout=None, lse_shape=False) -> dict:
 def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
     """K2's forwards other than the wgmma one at D = 64 (the wgmma kernel at
     other head dims and on row maps, the 3xTF32 kernel, also on row maps,
-    the CUDA-core kernel) and K2b's pairs other than the wgmma one at D = 64
-    (the wgmma pair at other head dims, the 3xTF32 pair, the CUDA-core pair)
-    against the plain versions on the card, each input on the routes the
-    routing rule gives: the small cases at every head dim of K2G_DIMS in
-    f32 and bf16, of K2G_ROWS_DIMS (the rows routes) and layouts no map
-    reads (the CUDA-core forward), then the shapes of the main paths: f32 at
+    either over zero-padded copies) and K2b's pairs other than the wgmma
+    one at D = 64 (the wgmma pair at other head dims, the 3xTF32 pair,
+    either over zero-padded copies) against the plain versions on the card,
+    each input on the routes the routing rule gives: the small cases at
+    every head dim of K2G_DIMS in f32 and bf16, of K2G_ROWS_DIMS (the rows
+    routes) and layouts no map reads (the padding routes), then the shapes
+    of the main paths: f32 at
     the build's [256, 12, 512, 64] (forward) and the train step's [96, 12,
     512, 64] (with the logsumexp, and the backward), all-MiniLM-L6-v2's D =
     32 at [256, 12, 512, 32] in bf16 and f32 and its backward at [96, 12,
     512, 32] in bf16, TinyBERT_General_4L_312D's D = 26 at [256, 12, 512,
     26] and [96, 12, 512, 26] in bf16 (the forward on "wgmma_rows", beside
-    the CUDA-core forward and the same kernel on zero-padded copies; the
-    backward on the wgmma pair over zero-padded copies, beside the
-    CUDA-core pair) and in f32 (the forward on "tf32_rows", beside the
-    same; the backward on the 3xTF32 pair over copies padded to D = 28,
-    beside the CUDA-core pair), and EncoderConfig.tiny's [256, 4, 128, 16]
-    in both; CUDA-event times of each route's forward and backward, the
-    CUDA-core kernels on the same inputs, the plain versions and SDPA,
-    beside the bound."""
+    the same kernel on zero-padded copies; the backward on the wgmma pair
+    over zero-padded copies) and in f32 (the forward on "tf32_rows", beside
+    the same; the backward on the 3xTF32 pair over copies padded to D =
+    28), and EncoderConfig.tiny's [256, 4, 128, 16] in both; then the head
+    dims no model of the repo has: the padding forwards at a contiguous
+    [256, 12, 512, 26] in both dtypes, the wide pairs at bf16 [96, 12, 512,
+    256] and f32 [96, 12, 512, 128]; CUDA-event times of each route's
+    forward and backward, the plain versions and SDPA, beside the bound."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
     keys = ("fwd", "lse", "dq", "dkv", "rel")
     by_route, f32_err = {}, dict.fromkeys(keys, 0.0)
 
     def hold(r, dtype):
-        # the forward's errors under its route, the backward's under its pair's
-        for route, route_keys in ((r["route"], ("fwd", "lse")),
-                                  (r["bwd_pair"], ("dq", "dkv", "rel"))):
+        # the forward's errors under its kernel's route (and a padding
+        # route's own), the backward's under its pair's (and its wide
+        # instances', "<pair>_wide")
+        held = [(r["fwd_kernel"], ("fwd", "lse")), (r["bwd_pair"], ("dq", "dkv", "rel"))]
+        if r["route"] in PAD_MULTIPLE:
+            held.append((r["route"], ("fwd", "lse")))
+        if r["bwd_wide"]:
+            held.append((f"{r['bwd_pair']}_wide", ("dq", "dkv", "rel")))
+        for route, route_keys in held:
             route_err = by_route.setdefault(route, dict.fromkeys(keys, 0.0))
             for key in route_keys:
                 route_err[key] = max(route_err[key], r[key])
@@ -1404,31 +1408,35 @@ def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
             for b, h, s, rows in K2G_CASES:
                 label = f"{dtype} D={d} B={b} H={h} S={s}"
                 hold(check_k2g(*k2g_inputs(gen, b, h, s, d, dtype, rows), label), dtype)
-        for d in K2G_ROWS_DIMS[dtype]:
+        for d in K2G_ROWS_DIMS[dtype] + K2G_WIDE_ROWS_DIMS[dtype]:
             for b, _, s, rows in K2G_CASES:
                 h = K2G_ROWS_HEADS
                 label = f"{dtype} D={d} B={b} H={h} S={s}"
                 hold(check_k2g(*k2g_inputs(gen, b, h, s, d, dtype, rows), label), dtype)
-        for d in K2G_SIMT_DIMS[dtype]:
+        for d in K2G_CONTIGUOUS_DIMS[dtype]:
             for b, h, s, rows in K2G_CASES:
                 label = f"{dtype} D={d} B={b} H={h} S={s} contiguous"
                 hold(check_k2g(*k2g_inputs(gen, b, h, s, d, dtype, rows, contiguous=True),
                                label), dtype)
         rows = K2G_CASES[1][3]
-        hold(check_k2g(*misaligned_k2g_inputs(gen, dtype, rows),
-                       f"{dtype} D=64 in a layout TMA cannot read"), dtype)
+        for layout in ("offset", "padded_rows"):
+            hold(check_k2g(*misaligned_k2g_inputs(gen, dtype, rows, layout),
+                           f"{dtype} D=64 {layout}, which TMA cannot read"), dtype)
     routes = "; ".join(f"{name}: forward {e['fwd']:.3g}, logsumexp {e['lse']:.3g}, dq "
                        f"{e['dq']:.3g}, dkv {e['dkv']:.3g} (of the largest gradient "
                        f"{e['rel']:.3g})" for name, e in sorted(by_route.items()))
     phase("k2g", f"small cases (S=128/256/384, B=1, H=1, several segments, interleaved ids, "
                  f"one-segment rows, ragged pads) at D={K2G_DIMS[torch.float32]} in f32 and "
-                 f"D={K2G_DIMS[torch.bfloat16]} in bf16 (the backward on the tensor cores up "
-                 f"to f32 D = 64 and bf16 D = 128), D={K2G_ROWS_DIMS[torch.float32]} in f32 and "
+                 f"D={K2G_DIMS[torch.bfloat16]} in bf16 (the backward's wide shapes past f32 D "
+                 f"= 64 and bf16 D = 128), D={K2G_ROWS_DIMS[torch.float32]} in f32 and "
                  f"D={K2G_ROWS_DIMS[torch.bfloat16]} in bf16 at {K2G_ROWS_HEADS} heads on the "
-                 f"row maps, D={K2G_SIMT_DIMS[torch.float32]} in f32, "
-                 f"D={K2G_SIMT_DIMS[torch.bfloat16]} in bf16 contiguous and D=64 in layouts TMA "
-                 f"cannot read on the CUDA-core forward (the backward over zero-padded copies: "
-                 f"of bf16 on the wgmma pair, of f32 on the 3xTF32 pair), agree, each on the "
+                 f"row maps, D={K2G_WIDE_ROWS_DIMS[torch.float32]} in f32 and "
+                 f"D={K2G_WIDE_ROWS_DIMS[torch.bfloat16]} in bf16 at {K2G_ROWS_HEADS} heads, "
+                 f"D={K2G_CONTIGUOUS_DIMS[torch.float32]} in f32 and "
+                 f"D={K2G_CONTIGUOUS_DIMS[torch.bfloat16]} in bf16 contiguous and D=64 in "
+                 f"layouts TMA cannot read over zero-padded copies (the backward over such "
+                 f"copies too: of bf16 on the wgmma pair, of f32 on the 3xTF32 pair), agree, "
+                 f"each on the "
                  f"routing rule's routes: max abs err by "
                  f"kernel pair {routes}; f32 "
                  f"forward {f32_err['fwd']:.3g} (atol {K2G_ATOL}), logsumexp "
@@ -1444,9 +1452,6 @@ def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
 
     def timed(key, *inputs, **kw):
         r[key] = k2g_times(*inputs, **kw)
-        simt = by_route.setdefault("simt", dict.fromkeys(keys, 0.0))
-        simt["fwd"] = max(simt["fwd"], r[key]["simt_err"])
-        simt["rel"] = max(simt["rel"], r[key].get("simt_bwd_rel", 0.0))
         lines.append(f"{key} {list(inputs[0].shape)}{' (with the logsumexp)' if kw else ''}: "
                      f"{r[key]}")
 
@@ -1471,6 +1476,24 @@ def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
         q, k, v, seg, dout = k2g_inputs(gen, 256, 4, 128, 16, dtype, lengths(256, 128, 9))
         hold(check_k2g(q, k, v, seg, dout, f"at {list(q.shape)} {dtype}"), dtype)
         timed(key, q, k, v, seg)
+        del q, k, v, seg, dout
+    # the head dims no model of the repo has: the forward's padding routes
+    # at a contiguous [256, 12, 512, 26] (an index build's), the wide pairs
+    # at bf16 D = 256 and f32 D = 128 (a train step's)
+    b, h, s = build
+    for dtype, key in ((torch.bfloat16, "bf16_d26_contiguous"),
+                       (torch.float32, "f32_d26_contiguous")):
+        q, k, v, seg, _ = k2g_inputs(gen, b, h, s, 26, dtype, lengths(b, s, 0), contiguous=True)
+        hold(check_k2g(q, k, v, seg, None, f"at {list(q.shape)} {dtype} contiguous",
+                       grads=False), dtype)
+        timed(key, q, k, v, seg)
+        del q, k, v, seg
+    b, h, s = train
+    for dtype, d, key in ((torch.bfloat16, 256, "bf16_d256_train"),
+                          (torch.float32, 128, "f32_d128_train")):
+        q, k, v, seg, dout = k2g_inputs(gen, b, h, s, d, dtype, lengths(b, s, 5))
+        hold(check_k2g(q, k, v, seg, dout, f"at {list(q.shape)} {dtype}"), dtype)
+        timed(key, q, k, v, seg, dout, lse_shape=True)
         del q, k, v, seg, dout
     phase("k2g", f"main-path shapes agree (f32 max abs err forward {f32_err['fwd']:.3g}, "
                  f"logsumexp {f32_err['lse']:.3g}, gradients {f32_err['rel']:.3g} of the "
@@ -3185,7 +3208,7 @@ def run_train_cli(seed, corpus, n_docs=512):
 
 
 # ----------------------------------------------------------------------
-# phase 11b: K2/K2b's CUDA-core route on the main paths (f32, and D = 32)
+# phase 11b: K2/K2b's other routes on the main paths (f32, D = 32, D = 26)
 
 # all-MiniLM-L6-v2's published config.json (sentence-transformers): hidden
 # 384, 6 layers, 12 heads (D = 32), intermediate 1536, BERT's 30522-word
@@ -3241,8 +3264,7 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
     and pair, (b) the wgmma forward and pair at D = 32, (c) the wgmma
     forward on row maps ("wgmma_rows") and the wgmma pair at D = 32 over
     zero-padded copies, (d) the 3xTF32 forward on row maps ("tf32_rows")
-    and the 3xTF32 pair over copies padded to D = 28; the CUDA-core
-    forward 0 times."""
+    and the 3xTF32 pair over copies padded to D = 28."""
     pairs = list(corpus.pairs())[:n_docs]
     sub = Corpus.from_pairs(pairs, dataset_name="mag")
     field_info = resolve_fields("all_dense", "mag")
@@ -6296,9 +6318,8 @@ def device_profile(fn, top: int = 8, host_top: int = 0) -> dict:
 
 def kernel_usage(logs: dict) -> dict:
     """Each kernel's registers and spills from the ptxas lines of its
-    library's build log (nvcc -Xptxas -v), by kernel name (the CUDA-core
-    flash kernels by name, dtype and head-dim bucket, the tensor-core
-    kernels by name and slabs, and "rows" for the 3xTF32 forward on row
+    library's build log (nvcc -Xptxas -v), by kernel name (the flash
+    kernels by name and slabs, and "rows" for the forwards on row
     maps)."""
     usage = {}
     for log in logs.values():
@@ -6306,13 +6327,10 @@ def kernel_usage(logs: dict) -> dict:
         for ln in log.splitlines():
             if "Function properties for" in ln:
                 mangled = ln.split("for", 1)[1].strip()
-                simt = re.search(r"(flash_simt_\w+?)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
-                                 mangled)
                 slabs = re.search(r"(flash_attention_fwd|flash_tf32_fwd|flash_attention_bwd_dkv|"
-                                  r"flash_attention_bwd_dq|flash_tf32_bwd_dkv|flash_tf32_bwd_dq)"
-                                  r"_kernelILi(\d+)E(Lb1E)?", mangled)
-                name = (f"{simt[1]} {'f32' if simt[2] == 'f' else 'bf16'} D<={simt[3]}"
-                        if simt else f"{slabs[1]} NS={slabs[2]}{' rows' if slabs[3] else ''}"
+                                  r"flash_attention_bwd_dq|flash_tf32_bwd_dkv(?:_wide)?|"
+                                  r"flash_tf32_bwd_dq(?:_wide)?)_kernelILi(\d+)E(Lb1E)?", mangled)
+                name = (f"{slabs[1]} NS={slabs[2]}{' rows' if slabs[3] else ''}"
                         if slabs else next(
                             (k for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
                                          "flash_attention_fwd", "gather_scores_cross_row",
@@ -6381,72 +6399,88 @@ def main(argv=None) -> int:
                     f"TF32 off (matmul and cuDNN)")
     print(smi.splitlines()[0], flush=True)
 
+    def build(name):
+        t = time.perf_counter()
+        return _build.build(name), round(time.perf_counter() - t, 1)
+
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(_build.SOURCES)) as pool:
-        logs = list(pool.map(_build.build, _build.SOURCES))  # one nvcc per source
+        built = list(pool.map(build, _build.SOURCES))  # one nvcc per source
     build_s = time.perf_counter() - t0
-    usage = kernel_usage(dict(zip(_build.SOURCES, logs)))
-    phase("build", f"{sorted(_build.SOURCES)} built in {build_s:.2f}s; ptxas: "
+    usage = kernel_usage(dict(zip(_build.SOURCES, (log for log, _ in built))))
+    each = dict(zip(_build.SOURCES, (s for _, s in built)))
+    phase("build", f"{sorted(_build.SOURCES)} built in {build_s:.2f}s (each, in parallel: "
+                   f"{json.dumps(each)}); ptxas: "
                    f"{'; '.join(f'{k}: {v}' for k, v in usage.items())}")
     for name, line in usage.items():
         if name.startswith("flash"):
             check(" 0 bytes spill stores, 0 bytes spill loads" in line, f"{name} spills: {line}")
 
     r = {}  # each phase's numbers
+    seconds = {"build": round(build_s, 1)}  # each phase's wall time: the run's budget
+
+    def timed(name, fn, *fn_args):
+        t = time.perf_counter()
+        out = fn(*fn_args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
     if "k1" in phases:
-        r["k1"] = run_k1(args.seed)
+        r["k1"] = timed("k1", run_k1, args.seed)
     if "k2" in phases:
-        r["k2"] = run_k2(args.seed)
+        r["k2"] = timed("k2", run_k2, args.seed)
     if "k2b" in phases:
-        r["k2b"] = run_k2b(args.seed)
+        r["k2b"] = timed("k2b", run_k2b, args.seed)
     if "k2g" in phases:
-        r["k2g"] = run_k2g(args.seed)
+        r["k2g"] = timed("k2g", run_k2g, args.seed)
     e2e_world = None
     if "e2e" in phases:
-        engine, plain_engine, corpus, queries, r["e2e"] = run_e2e(args.seed)
+        engine, plain_engine, corpus, queries, r["e2e"] = timed("e2e", run_e2e, args.seed)
         e2e_world = (engine, corpus, queries)
     if "long" in phases:
-        r["long"] = run_long(args.seed, engine, plain_engine, corpus,
-                             EncoderConfig.contriever_base().num_layers)
+        r["long"] = timed("long", run_long, args.seed, engine, plain_engine, corpus,
+                          EncoderConfig.contriever_base().num_layers)
     if "e2e" in phases:
         del plain_engine
     if "cli" in phases:
-        r["cli"] = run_cli(args.seed, corpus)
+        r["cli"] = timed("cli", run_cli, args.seed, corpus)
     if "train" in phases:
-        r["train"] = run_train(args.seed, corpus, engine.tokenizer)
+        r["train"] = timed("train", run_train, args.seed, corpus, engine.tokenizer)
     if "train_mesh" in phases:
-        r["train_mesh"] = run_train_mesh(args.seed, corpus, engine.tokenizer)
+        r["train_mesh"] = timed("train_mesh", run_train_mesh, args.seed, corpus, engine.tokenizer)
     if "train_tp" in phases:
-        r["train_tp"] = run_train_tp(args.seed, corpus, engine.tokenizer)
+        r["train_tp"] = timed("train_tp", run_train_tp, args.seed, corpus, engine.tokenizer)
     if "train_tp_cards" in phases:
-        r["train_tp_cards"] = run_train_tp_cards(args.seed, corpus, engine.tokenizer)
+        r["train_tp_cards"] = timed("train_tp_cards", run_train_tp_cards, args.seed, corpus,
+                                    engine.tokenizer)
     if "train_cli" in phases:
-        r["train_cli"] = run_train_cli(args.seed, corpus)
+        r["train_cli"] = timed("train_cli", run_train_cli, args.seed, corpus)
     if "f32" in phases:
-        r["f32"] = run_f32(args.seed, corpus, engine.tokenizer, queries)
+        r["f32"] = timed("f32", run_f32, args.seed, corpus, engine.tokenizer, queries)
     if "serving" in phases:
-        r["serving"] = run_serving(args.seed, engine, queries)
+        r["serving"] = timed("serving", run_serving, args.seed, engine, queries)
     if "hybrid" in phases:
-        r["hybrid"] = run_hybrid(args.seed, engine, corpus, queries)
+        r["hybrid"] = timed("hybrid", run_hybrid, args.seed, engine, corpus, queries)
     if "hybrid_serving" in phases:
-        r["hybrid_serving"] = run_hybrid_serving(args.seed, engine)
+        r["hybrid_serving"] = timed("hybrid_serving", run_hybrid_serving, args.seed, engine)
     if "hybrid_cli" in phases:
-        r["hybrid_cli"] = run_hybrid_cli(args.seed)
+        r["hybrid_cli"] = timed("hybrid_cli", run_hybrid_cli, args.seed)
     if "gtr" in phases:
-        r["gtr"] = run_gtr(args.seed, corpus, queries)
+        r["gtr"] = timed("gtr", run_gtr, args.seed, corpus, queries)
     if "mesh" in phases:
-        r["mesh"] = run_mesh(args.seed, e2e_world)
+        r["mesh"] = timed("mesh", run_mesh, args.seed, e2e_world)
     if "mesh_capacity" in phases:
-        r["mesh_capacity"] = run_mesh_capacity(args.seed, e2e_world)
+        r["mesh_capacity"] = timed("mesh_capacity", run_mesh_capacity, args.seed, e2e_world)
     # the 1048576-doc phases last, so that their 8 GB corpus and its host
     # copies come after the earlier phases, as in the runs before them
     if "serve" in phases:
-        big, r["serve"] = run_serve(args.seed, engine)
+        big, r["serve"] = timed("serve", run_serve, args.seed, engine)
     if "int8" in phases:
-        i8, r["int8"] = run_int8(args.seed, big, engine, queries)
+        i8, r["int8"] = timed("int8", run_int8, args.seed, big, engine, queries)
     if "host_stream" in phases:
-        r["host_stream"] = run_host_stream(args.seed, big, i8)
+        r["host_stream"] = timed("host_stream", run_host_stream, args.seed, big, i8)
 
+    phase("seconds", json.dumps(seconds))
     check(not DRIFT_FAULTS, "answers move with their batch or from run to run:\n"
                             + "\n".join(DRIFT_FAULTS))
     summary = {k: v for name, res in r.items() if name not in ("k1", "k2", "k2b", "k2g")
@@ -6664,51 +6698,89 @@ def main(argv=None) -> int:
         "bound_by": k2g["f32_d26"]["bound_by"],
         "library_ms": k2g["f32_d26"]["library_ms"],
     }, {
-        # K2's CUDA-core forward (what neither map reads: a contiguous
-        # [B, H, S, 26], strides or a base off 16 bytes): times at
-        # TinyBERT-4L-312D's [256, 12, 512, 26] bf16, beside its
-        # "wgmma_rows" route in phase k2g; launches from phase f32's main
-        # paths, none since the rows routes took TinyBERT's heads
-        "name": "flash_attention_simt",
+        # K2's padding routes (what no map reads: a contiguous [B, H, S,
+        # 26], strides or a base off 16 bytes) run the wgmma and 3xTF32
+        # forwards on zero-padded copies: the whole route (copies, kernel,
+        # the output a view) timed at a contiguous [256, 12, 512, 26]; the
+        # launches are the routes' own counts (flash_attention.pad_launches)
+        # on the main paths, which no model's heads take
+        "name": "flash_attention_headdim (wgmma_pad)",
         "route": "cuda",
-        "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",
+        "source": "mfar_tpu_torch/csrc/flash_attention.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
-        "launches": f32_launches["simt"],
-        "max_abs_err": by_route["simt"]["fwd"],
-        "ms": k2g["bf16_d26"]["simt_ms"],
-        "plain_ms": k2g["bf16_d26"]["plain_ms"],
-        "bound_ms": k2g["bf16_d26"]["bound_ms"],
-        "bound_by": k2g["bf16_d26"]["bound_by"],
-        "library_ms": k2g["bf16_d26"]["library_ms"],
+        "launches": f32_launches["wgmma_pad_fwd"],
+        "max_abs_err": by_route["wgmma_pad"]["fwd"],
+        "ms": k2g["bf16_d26_contiguous"]["ms"],
+        "plain_ms": k2g["bf16_d26_contiguous"]["plain_ms"],
+        "bound_ms": k2g["bf16_d26_contiguous"]["bound_ms"],
+        "bound_by": k2g["bf16_d26_contiguous"]["bound_by"],
+        "library_ms": k2g["bf16_d26_contiguous"]["library_ms"],
     }, {
-        # the CUDA-core backward pair (the head dims past the tensor-core
-        # pairs' caps, which no model of the repo has): times at
-        # TinyBERT-4L-312D's [96, 12, 512, 26] in f32, beside its "tf32_pad"
-        # route in phase k2g; launches from phase f32's main paths, none
-        # since f32 that TMA cannot read takes the 3xTF32 pair over copies
-        "name": "flash_attention_simt_bwd_dkv",
+        "name": "flash_attention_tf32 (tf32_pad)",
         "route": "cuda",
-        "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",
+        "source": "mfar_tpu_torch/csrc/flash_attention_tf32.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+        "launches": f32_launches["tf32_pad_fwd"],
+        "max_abs_err": by_route["tf32_pad"]["fwd"],
+        "ms": k2g["f32_d26_contiguous"]["ms"],
+        "plain_ms": k2g["f32_d26_contiguous"]["plain_ms"],
+        "bound_ms": k2g["f32_d26_contiguous"]["bound_ms"],
+        "bound_by": k2g["f32_d26_contiguous"]["bound_by"],
+        "library_ms": k2g["f32_d26_contiguous"]["library_ms"],
+    }, {
+        # K2b's wide pairs (the head dims no model of the repo has: bf16
+        # past D = 128 in blocks of one warpgroup, NS = 3-4, f32 past D = 64
+        # streaming 32-row half tiles, NS = 4 and 8; dkv split into dV and
+        # dK blocks), launched by the wrappers of their pairs, which count
+        # these instances apart (.wide_launches): times at bf16 [96, 12,
+        # 512, 256] and f32 [96, 12, 512, 128], both NS = 4
+        "name": "flash_attention_bwd_headdim_dkv (wide)",
+        "route": "cuda",
+        "source": "mfar_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
-        "launches": f32_launches["simt_dkv"],
-        "max_abs_err": by_route["simt"]["dkv"],
-        "ms": k2g["f32_d26_train"]["simt_dkv_ms"],
-        "plain_ms": k2g["f32_d26_train"]["plain_bwd_ms"],
-        "bound_ms": k2g["f32_d26_train"]["dkv_bound_ms"],
-        "bound_by": k2g["f32_d26_train"]["dkv_bound_by"],
-        "library_ms": k2g["f32_d26_train"]["library_bwd_ms"],
+        "launches": f32_launches["wgmma_headdim_wide_dkv"],
+        "max_abs_err": by_route["wgmma_headdim_wide"]["dkv"],
+        "ms": k2g["bf16_d256_train"]["dkv_ms"],
+        "plain_ms": k2g["bf16_d256_train"]["plain_bwd_ms"],
+        "bound_ms": k2g["bf16_d256_train"]["dkv_bound_ms"],
+        "bound_by": k2g["bf16_d256_train"]["dkv_bound_by"],
+        "library_ms": k2g["bf16_d256_train"]["library_bwd_ms"],
     }, {
-        "name": "flash_attention_simt_bwd_dq",
+        "name": "flash_attention_bwd_headdim_dq (wide)",
         "route": "cuda",
-        "source": "mfar_tpu_torch/csrc/flash_attention_simt.cu",
+        "source": "mfar_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
-        "launches": f32_launches["simt_dq"],
-        "max_abs_err": by_route["simt"]["dq"],
-        "ms": k2g["f32_d26_train"]["simt_dq_ms"],
-        "plain_ms": k2g["f32_d26_train"]["plain_bwd_ms"],
-        "bound_ms": k2g["f32_d26_train"]["dq_bound_ms"],
-        "bound_by": k2g["f32_d26_train"]["dq_bound_by"],
-        "library_ms": k2g["f32_d26_train"]["library_bwd_ms"],
+        "launches": f32_launches["wgmma_headdim_wide_dq"],
+        "max_abs_err": by_route["wgmma_headdim_wide"]["dq"],
+        "ms": k2g["bf16_d256_train"]["dq_ms"],
+        "plain_ms": k2g["bf16_d256_train"]["plain_bwd_ms"],
+        "bound_ms": k2g["bf16_d256_train"]["dq_bound_ms"],
+        "bound_by": k2g["bf16_d256_train"]["dq_bound_by"],
+        "library_ms": k2g["bf16_d256_train"]["library_bwd_ms"],
+    }, {
+        "name": "flash_attention_tf32_bwd_dkv (wide)",
+        "route": "cuda",
+        "source": "mfar_tpu_torch/csrc/flash_attention_tf32_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
+        "launches": f32_launches["tf32_wide_dkv"],
+        "max_abs_err": by_route["tf32_wide"]["dkv"],
+        "ms": k2g["f32_d128_train"]["dkv_ms"],
+        "plain_ms": k2g["f32_d128_train"]["plain_bwd_ms"],
+        "bound_ms": k2g["f32_d128_train"]["dkv_bound_ms"],
+        "bound_by": k2g["f32_d128_train"]["dkv_bound_by"],
+        "library_ms": k2g["f32_d128_train"]["library_bwd_ms"],
+    }, {
+        "name": "flash_attention_tf32_bwd_dq (wide)",
+        "route": "cuda",
+        "source": "mfar_tpu_torch/csrc/flash_attention_tf32_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
+        "launches": f32_launches["tf32_wide_dq"],
+        "max_abs_err": by_route["tf32_wide"]["dq"],
+        "ms": k2g["f32_d128_train"]["dq_ms"],
+        "plain_ms": k2g["f32_d128_train"]["plain_bwd_ms"],
+        "bound_ms": k2g["f32_d128_train"]["dq_bound_ms"],
+        "bound_by": k2g["f32_d128_train"]["dq_bound_by"],
+        "library_ms": k2g["f32_d128_train"]["library_bwd_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -11,9 +11,10 @@
 // (D contiguous; the others multiples of 16 bytes), seg is int32 [B, S], S
 // is a multiple of 128.  Under training the kernel also writes each row's
 // logsumexp of the scaled, masked logits (natural log, f32 [B, H, S]),
-// which the backward kernels (flash_attention_bwd.cu up to D = 128,
-// flash_attention_simt.cu past it) read.  f32 takes flash_attention_tf32.cu,
-// and what neither map reads flash_attention_simt.cu.
+// which the backward kernels (flash_attention_bwd.cu) read.  f32 takes
+// flash_attention_tf32.cu; what neither map below reads reaches one of the
+// two as zero-padded copies at D rounded up to 8 or 4 (the "wgmma_pad" and
+// "tf32_pad" routes of ops/flash_attention.py).
 //
 // Rows mode (mfar_flash_attention_fwd_rows, kRowMap): at a D whose rows
 // per head (D * 2 bytes apart, TinyBERT-4L-312D's 52) no tensor map

@@ -1,5 +1,5 @@
 // Kernel K2b: the backward of kernel K2 (flash_attention.cu), written for
-// Hopper (sm_90a), for bf16 at every head dim up to 128 whose rows TMA can
+// Hopper (sm_90a), for bf16 at every head dim up to 256 whose rows TMA can
 // read (D a multiple of 8).  Two kernels, launched in this order:
 //
 //   dq:  di = sum_d O * dO (f32), written out,   dQ = dS K
@@ -12,11 +12,10 @@
 // (D contiguous; the others multiples of 16 bytes), seg int32 [B, S], lse and
 // di contiguous f32 [B, H, S]; the gradients are bf16 (q's dtype, as JAX
 // writes them) into [B, H, S, D] views with their own strides, so the
-// encoder's head split costs no copy.  bf16 up to D = 128 that TMA cannot
-// read (e.g. TinyBERT-4L-312D's 52-byte rows at D = 26) reaches these
-// kernels as zero-padded copies at D rounded up to 8 (the "wgmma_pad" route
-// of ops/flash_attention.py).  f32 takes flash_attention_tf32_bwd.cu (up to
-// D = 64); bf16 past D = 128 flash_attention_simt.cu.
+// encoder's head split costs no copy.  bf16 that TMA cannot read (e.g.
+// TinyBERT-4L-312D's 52-byte rows at D = 26) reaches these kernels as
+// zero-padded copies at D rounded up to 8 (the "wgmma_pad" route of
+// ops/flash_attention.py).  f32 takes flash_attention_tf32_bwd.cu.
 //
 // Replaces the two Pallas kernels of the VJP of JAX's library
 // flash_attention (jax/experimental/pallas/ops/tpu/flash_attention.py,
@@ -32,12 +31,13 @@
 // of an attention bias) is not computed: the encoder passes no bias.
 //
 // Design:
-//   block = 3 warpgroups: two consumers, 64 rows each (128 keys in dkv, 128
-//           queries in dq; S % 128 == 0), and a producer whose one thread
-//           issues every load; it keeps 24 registers a thread and the
-//           consumers take 240 (setmaxnreg).  One block an SM; the grid is
-//           (b, h)-major, so the blocks of one head run together and find
-//           its K/V (or Q/dO) in L2.
+//   block = kG consumer warpgroups of 64 rows each (keys in dkv, queries in
+//           dq) and a producer warpgroup whose one thread issues every load;
+//           it keeps 24 registers a thread and the consumers take the rest
+//           (setmaxnreg).  One block an SM; the grid is (b, h)-major, so the
+//           blocks of one head run together and find its K/V (or Q/dO) in
+//           L2.  kG = 2 (128 rows, S % 128 == 0) up to D = 128, 1 past it
+//           (BwdShape).
 //   loads: TMA (4-D tensor maps over the [B, S, H, D] buffers, encoded on
 //        the host each call, 128-byte swizzle) into the layout wgmma's
 //        descriptors read; the row values (lse, di, segment ids) by bulk
@@ -46,28 +46,35 @@
 //        The block structure, the ring, the live-tile list and the tensor
 //        maps are hopper_pipeline.cuh's, shared with K2.
 //   head dims: both kernels are templated on NS = ceil(D / 64) slabs of 64
-//        columns (1 or 2), each slab one 64 x 64 tile (as K2's forward).
+//        columns (1 to 4), each slab one 64 x 64 tile (as K2's forward).
 //        The tensor maps span D columns with a 64-wide box, so the columns
 //        of the last slab past D arrive as zeros: S and dP (summed over the
 //        slabs) are exact, the gradients' columns past D are 0, and the
 //        stores stop at D (a slab's 64 columns would run into the next
 //        head's).  D < 64 runs D = 64's products.  NS = 1 is the D = 64
-//        kernel as it was; at NS = 2 the warpgroup's own tiles are read as
+//        kernel as it was; past it the warpgroup's own tiles are read as
 //        shared-memory operands of wgmma (SS) where NS = 1 holds them as A
 //        registers: dK, dV and their operands' fragments would pass the
-//        consumers' 240 registers.  D = 128 is the cap: dq's three own
-//        tiles a warpgroup and its ring come to 166 KB at NS = 2.
+//        consumers' registers.
+//   wide head dims (NS = 3, 4: D 136-256): what a block holds grows with
+//        D, so the block shrinks.  One consumer warpgroup (64 rows), which
+//        takes up to 256 registers a thread.  dq holds Q and dO (2 NS
+//        tiles; the ring 4 NS: 192 KB at NS = 4) and reads O's rows for di
+//        from global memory, where kG = 2 holds O's tiles too.  dkv would
+//        hold dK and dV (2 x 32 NS registers) beside S^T and dP^T, past the
+//        registers at NS >= 3: its grid has two blocks a key tile, one
+//        summing dV (from P^T alone), the other dK, each computing S^T
+//        itself; each writes its own gradient, so the rule above holds.
 //   dkv: each consumer's K and V tiles stay put (bf16 A registers at NS =
 //        1); 64-query tiles of Q and dO with their lse, di and segment ids
 //        stream.  Per tile: S^T = K Q^T and dP^T = V dO^T (B the Q / dO
 //        tile, K-major), P^T and dS^T packed to bf16 A registers, dV += P^T
 //        dO and dK += dS^T Q (B the dO / Q tile, MN-major), one accumulator
 //        a slab.
-//   dq:  each consumer's Q, dO and O tiles stay put; it first computes di
-//        for its rows from the O and dO tiles and writes it out for dkv.
-//        64-key tiles of K and V with their segment ids stream.  Per tile:
-//        S = Q K^T, dP = dO V^T, dS as bf16 A registers, dQ += dS K (K
-//        MN-major).
+//   dq:  each consumer's Q and dO tiles (and, at kG = 2, O's) stay put; it
+//        first computes di for its rows and writes it out for dkv.  64-key
+//        tiles of K and V with their segment ids stream.  Per tile: S = Q
+//        K^T, dP = dO V^T, dS as bf16 A registers, dQ += dS K (K MN-major).
 //   Every product is wgmma.m64n64k16 (bf16 in, f32 accumulate; see
 //   hopper_common.cuh for the layouts and descriptors).  P and dS are
 //   rounded to bf16 for the products they feed, as the TPU kernels do;
@@ -79,11 +86,11 @@
 // K2) and no NaN can arise.  Every row has at least its own key, so lse is
 // finite.  Skipping: a block takes the min and max segment id of every
 // 64-row tile of its batch row and walks only the streamed tiles whose
-// [min, max] meets that of its own 128 rows (a warpgroup skips the
-// products of a walked tile that misses its own 64 rows); every P entry of
-// a skipped pair of tiles is 0, so the skip is exact.  Pads attend pads, so
-// pad x pad tiles stay live, and a block's own tiles always are; they come
-// first, so their loads start before the list is known.
+// [min, max] meets that of its own rows (a warpgroup skips the products of
+// a walked tile that misses its own 64 rows); every P entry of a skipped
+// pair of tiles is 0, so the skip is exact.  Pads attend pads, so pad x pad
+// tiles stay live, and a block's own tiles always are; they come first, so
+// their loads start before the list is known.
 //
 // What bounds it (at the training shape [96, 12, 512, 64] bf16, the
 // train step's lengths): q/k/v/o/dO are 75.5 MB each.  dq reads q, k, v,
@@ -96,7 +103,10 @@
 // block's own tiles and first streamed tiles with one block an SM, and the
 // products add to that time instead of hiding under it (see PERF.md).  At
 // D = 32 (all-MiniLM-L6-v2's heads) the bytes halve while the products and
-// the latency do not, so the pair takes D = 64's time.
+// the latency do not, so the pair takes D = 64's time.  At D = 256 bytes
+// still bound both on paper (6 x 302 MB at [96, 12, 512, 256] against 3 or
+// 4 products), but one warpgroup a block streams each K/V (or Q/dO) tile
+// twice as often from L2 and the split dkv computes S^T twice.
 
 #include <climits>
 
@@ -125,10 +135,24 @@ struct BwdParams {
 };
 
 constexpr int kStages = 2;  // of the ring of streamed tiles
+
+// The block by NS slabs of 64 columns (see the design above): kG consumer
+// warpgroups and their registers a thread; dq's own tiles (Q, dO, and O
+// where kG = 2) and dkv's (K, V); kSplit: a dkv block sums dV or dK.
+template <int NS>
+struct BwdShape {
+  static constexpr int kG = NS <= 2 ? 2 : 1;
+  static constexpr int kThreads = 128 * kG + 128;
+  static constexpr int kRegs = kG == 2 ? kConsumerRegs : 256;
+  static constexpr bool kOwnO = kG == 2;
+  static constexpr int kOwnDq = kOwnO ? 3 * NS : 2 * NS, kOwnDkv = 2 * NS;
+  static constexpr bool kSplit = NS > 2;
+};
+
 // each consumer's own tiles (NS slabs an operand) and a stage's streamed
 // tiles (two operands of NS slabs)
 template <int NS>
-using Ring = Smem<kStages, kGroups, 2 * NS>;
+using Ring = Smem<kStages, BwdShape<NS>::kG, 2 * NS>;
 
 // d = A B^T over the head dim (d's old value dropped at NS > 1; at NS = 1
 // the caller zeroes d), A the warpgroup's own 64 rows and B a streamed
@@ -136,14 +160,63 @@ using Ring = Smem<kStages, kGroups, 2 * NS>;
 // it from the own tile's NS slabs in shared memory (a), where NS x 32
 // registers of fragments would not fit beside the accumulators.
 template <int NS>
+__device__ __forceinline__ void gemm_own_smem(float (&d)[8][4], const uint64_t (&a)[NS],
+                                              const uint64_t (&b)[NS]) {
+  gemm_ss_new(d, a[0], b[0]);
+#pragma unroll
+  for (int c = 1; c < NS; ++c) gemm_ss_new<true>(d, a[c], b[c]);
+}
+template <int NS>
 __device__ __forceinline__ void gemm_own(float (&d)[8][4], const uint32_t (&af)[4][4],
                                          const uint64_t (&a)[NS], const uint64_t (&b)[NS]) {
   if constexpr (NS == 1) {
     gemm_rs<0>(d, af, b[0]);
   } else {
-    gemm_ss_new(d, a[0], b[0]);
+    gemm_own_smem<NS>(d, a, b);
+  }
+}
+
+// P^T = exp2(S^T * sm_scale * log2 e - lse * log2 e) in place of S^T (rows
+// = this thread's keys, of segments seg_k0 / seg_k1; columns = the tile's
+// queries) on same-segment pairs, exactly 0 elsewhere.
+__device__ __forceinline__ void p_transposed(float (&st)[8][4], const float* lse_t,
+                                             const int32_t* seg_t, int seg_k0, int seg_k1,
+                                             int t4, float scale_log2) {
 #pragma unroll
-    for (int c = 1; c < NS; ++c) gemm_ss_new<true>(d, a[c], b[c]);
+  for (int n = 0; n < 8; ++n) {
+    const int c = n * 8 + 2 * t4;  // the tile's queries c and c + 1
+    const int sq0 = seg_t[c], sq1 = seg_t[c + 1];
+    const float l0 = lse_t[c] * kLog2e, l1 = lse_t[c + 1] * kLog2e;
+    st[n][0] = sq0 == seg_k0 ? exp2_approx(st[n][0] * scale_log2 - l0) : 0.f;
+    st[n][1] = sq1 == seg_k0 ? exp2_approx(st[n][1] * scale_log2 - l1) : 0.f;
+    st[n][2] = sq0 == seg_k1 ? exp2_approx(st[n][2] * scale_log2 - l0) : 0.f;
+    st[n][3] = sq1 == seg_k1 ? exp2_approx(st[n][3] * scale_log2 - l1) : 0.f;
+  }
+}
+
+// A 64-row accumulator packed to bf16 A registers, its columns as the next
+// product's k (hopper_common.cuh).
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[8][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    a[n >> 1][(n & 1) * 2] = pack_bf16(x[n][0], x[n][1]);
+    a[n >> 1][(n & 1) * 2 + 1] = pack_bf16(x[n][2], x[n][3]);
+  }
+}
+
+// dS^T = P^T (dP^T - di) * sm_scale as bf16 A registers (columns = the
+// tile's queries, whose di are di_t).
+__device__ __forceinline__ void pack_ds_transposed(uint32_t (&dsf)[4][4], const float (&st)[8][4],
+                                                   const float (&dpt)[8][4], const float* di_t,
+                                                   int t4, float scale) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int c = n * 8 + 2 * t4;
+    const float d0 = di_t[c], d1 = di_t[c + 1];
+    dsf[n >> 1][(n & 1) * 2] =
+        pack_bf16(st[n][0] * (dpt[n][0] - d0) * scale, st[n][1] * (dpt[n][1] - d1) * scale);
+    dsf[n >> 1][(n & 1) * 2 + 1] =
+        pack_bf16(st[n][2] * (dpt[n][2] - d0) * scale, st[n][3] * (dpt[n][3] - d1) * scale);
   }
 }
 
@@ -173,21 +246,11 @@ __device__ __forceinline__ void dkv_tile(float (&dk)[NS][8][4], float (&dv)[NS][
   wgmma_wait<1>();
   pin(st);
 
-  // P^T = exp2(S^T * sm_scale * log2 e - lse * log2 e) on same-segment
-  // pairs, exactly 0 elsewhere; bf16 A registers (rows = keys) for P^T dO
+  // P^T on same-segment pairs, exactly 0 elsewhere; bf16 A registers (rows
+  // = keys) for P^T dO
+  p_transposed(st, lse_t, seg_t, seg_k0, seg_k1, t4, scale_log2);
   uint32_t pf[4][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int c = n * 8 + 2 * t4;  // the tile's queries c and c + 1
-    const int sq0 = seg_t[c], sq1 = seg_t[c + 1];
-    const float l0 = lse_t[c] * kLog2e, l1 = lse_t[c + 1] * kLog2e;
-    st[n][0] = sq0 == seg_k0 ? exp2_approx(st[n][0] * scale_log2 - l0) : 0.f;
-    st[n][1] = sq1 == seg_k0 ? exp2_approx(st[n][1] * scale_log2 - l1) : 0.f;
-    st[n][2] = sq0 == seg_k1 ? exp2_approx(st[n][2] * scale_log2 - l0) : 0.f;
-    st[n][3] = sq1 == seg_k1 ? exp2_approx(st[n][3] * scale_log2 - l1) : 0.f;
-    pf[n >> 1][(n & 1) * 2] = pack_bf16(st[n][0], st[n][1]);
-    pf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(st[n][2], st[n][3]);
-  }
+  pack_a(pf, st);
   wgmma_fence();
 #pragma unroll
   for (int c = 0; c < NS; ++c) gemm_rs<1>(dv[c], pf, dod[c]);  // dV += P^T dO
@@ -198,17 +261,8 @@ __device__ __forceinline__ void dkv_tile(float (&dk)[NS][8][4], float (&dv)[NS][
   pin(dpt);
   if constexpr (NS > 1) pin(pf);
 
-  // dS^T = P^T (dP^T - di) * sm_scale as bf16 A registers
   uint32_t dsf[4][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int c = n * 8 + 2 * t4;
-    const float d0 = di_t[c], d1 = di_t[c + 1];
-    dsf[n >> 1][(n & 1) * 2] =
-        pack_bf16(st[n][0] * (dpt[n][0] - d0) * scale, st[n][1] * (dpt[n][1] - d1) * scale);
-    dsf[n >> 1][(n & 1) * 2 + 1] =
-        pack_bf16(st[n][2] * (dpt[n][2] - d0) * scale, st[n][3] * (dpt[n][3] - d1) * scale);
-  }
+  pack_ds_transposed(dsf, st, dpt, di_t, t4, scale);
   wgmma_fence();
 #pragma unroll
   for (int c = 0; c < NS; ++c) gemm_rs<1>(dk[c], dsf, qd[c]);  // dK += dS^T Q
@@ -221,6 +275,63 @@ __device__ __forceinline__ void dkv_tile(float (&dk)[NS][8][4], float (&dv)[NS][
     pin(dv[c]);
     pin(dk[c]);
   }
+}
+
+// dkv_tile's two halves on a split grid (BwdShape::kSplit), NS > 1: a
+// block's warpgroup sums dV (dv_tile: S^T, P^T, dV += P^T dO) or dK
+// (dk_tile: S^T, dP^T, dS^T, dK += dS^T Q) over the same streamed tiles,
+// with dkv_tile's arithmetic.
+template <int NS>
+__device__ __forceinline__ void dv_tile(float (&dv)[NS][8][4], const uint64_t (&k_own)[NS],
+                                        const uint64_t (&qd)[NS], const uint64_t (&dod)[NS],
+                                        const float* lse_t, const int32_t* seg_t, int seg_k0,
+                                        int seg_k1, int t4, float scale_log2) {
+  float st[8][4];
+  wgmma_fence();
+  gemm_own_smem<NS>(st, k_own, qd);  // S^T = K Q^T
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(st);
+  p_transposed(st, lse_t, seg_t, seg_k0, seg_k1, t4, scale_log2);
+  uint32_t pf[4][4];
+  pack_a(pf, st);
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < NS; ++c) gemm_rs<1>(dv[c], pf, dod[c]);  // dV += P^T dO
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(pf);
+#pragma unroll
+  for (int c = 0; c < NS; ++c) pin(dv[c]);
+}
+
+template <int NS>
+__device__ __forceinline__ void dk_tile(float (&dk)[NS][8][4], const uint64_t (&k_own)[NS],
+                                        const uint64_t (&v_own)[NS], const uint64_t (&qd)[NS],
+                                        const uint64_t (&dod)[NS], const float* lse_t,
+                                        const float* di_t, const int32_t* seg_t, int seg_k0,
+                                        int seg_k1, int t4, float scale, float scale_log2) {
+  float st[8][4], dpt[8][4];
+  wgmma_fence();
+  gemm_own_smem<NS>(st, k_own, qd);  // S^T = K Q^T
+  wgmma_commit();
+  gemm_own_smem<NS>(dpt, v_own, dod);  // dP^T = V dO^T
+  wgmma_commit();
+  wgmma_wait<1>();
+  pin(st);
+  p_transposed(st, lse_t, seg_t, seg_k0, seg_k1, t4, scale_log2);
+  wgmma_wait<0>();
+  pin(dpt);
+  uint32_t dsf[4][4];
+  pack_ds_transposed(dsf, st, dpt, di_t, t4, scale);
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < NS; ++c) gemm_rs<1>(dk[c], dsf, qd[c]);  // dK += dS^T Q
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(dsf);
+#pragma unroll
+  for (int c = 0; c < NS; ++c) pin(dk[c]);
 }
 
 // One streamed tile of 64 keys against the warpgroup's 64 queries: dQ +=
@@ -281,23 +392,28 @@ __device__ __forceinline__ void dq_tile(float (&dq)[NS][8][4], const uint32_t (&
 }
 
 template <int NS>
-__global__ void __launch_bounds__(kBlockThreads + 128, 1)
+__global__ void __launch_bounds__(BwdShape<NS>::kThreads, 1)
     flash_attention_bwd_dkv_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
                                    const __grid_constant__ CUtensorMap map_k,
                                    const __grid_constant__ CUtensorMap map_v,
                                    const __grid_constant__ CUtensorMap map_do,
                                    const __grid_constant__ CUtensorMap) {
+  using Sh = BwdShape<NS>;
+  constexpr int kG = Sh::kG;
   extern __shared__ unsigned char smem_raw[];
   const int n_tiles = p.S / 64;
   // each consumer's K slabs, then its V slabs; a stage holds Q's slabs, then dO's
-  const Ring<NS> m = carve<kStages, kGroups, 2 * NS>(smem_raw, n_tiles, 2 * NS);
-  const int blocks = p.S / kRows;
+  const Ring<NS> m = carve<kStages, kG, 2 * NS>(smem_raw, n_tiles, Sh::kOwnDkv);
+  const int blocks = p.S / (64 * kG);
   const int blk = blockIdx.x % blocks, bh = blockIdx.x / blocks;
   const int h = bh % p.H, b = bh / p.H;
   const int tid = threadIdx.x, wg = tid >> 7, wtid = tid & 127;
   const int32_t* segb = p.seg + static_cast<long long>(b) * p.S;
   const float* lseg = p.lse + static_cast<long long>(bh) * p.S;
   const float* dig = p.di + static_cast<long long>(bh) * p.S;
+  // on a split grid the block sums dV (blockIdx.y 0: no V read) or dK (1)
+  const bool sums_dv = !Sh::kSplit || blockIdx.y == 0;
+  const bool reads_v = !Sh::kSplit || blockIdx.y == 1;
 
   // a streamed tile t into a stage: Q, dO, and the queries' lse, di and
   // segment ids
@@ -312,86 +428,128 @@ __global__ void __launch_bounds__(kBlockThreads + 128, 1)
     bulk_load(m.row_values(1, stage), dig + t * 64, 256, &m.full[stage]);
     bulk_load(m.row_values(2, stage), segb + t * 64, 256, &m.full[stage]);
   };
-  set_up(m, segb, n_tiles, blk, 2 * NS * kGroups * kTileBytes, [&] {
-    for (int w = 0; w < kGroups; ++w) {
+  set_up(m, segb, n_tiles, blk, (reads_v ? 2 : 1) * NS * kG * kTileBytes, [&] {
+    for (int w = 0; w < kG; ++w) {
+      const int row = (blk * kG + w) * 64;
 #pragma unroll
       for (int c = 0; c < NS; ++c) {
-        tma_load_tile(m.own_tile(c, w), &map_k, m.own_full, h, blk * kRows + w * 64, b, 64 * c);
-        tma_load_tile(m.own_tile(NS + c, w), &map_v, m.own_full, h, blk * kRows + w * 64, b,
-                      64 * c);
+        tma_load_tile(m.own_tile(c, w), &map_k, m.own_full, h, row, b, 64 * c);
+        if (reads_v) tma_load_tile(m.own_tile(NS + c, w), &map_v, m.own_full, h, row, b, 64 * c);
       }
     }
   }, bytes, load);
-  if (wg == kGroups) {  // the producer warpgroup: one thread issues every load
+  if (wg == kG) {  // the producer warpgroup: one thread issues every load
     setmaxnreg_dec<kProducerRegs>();
     if (wtid == 0) produce(m, bytes, load);
   } else {  // the consumer warpgroups: 64 keys each
-    setmaxnreg_inc<kConsumerRegs>();
+    setmaxnreg_inc<Sh::kRegs>();
     const int warp = wtid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-    const int key0 = blk * kRows + wg * 64;  // the warpgroup's first key
+    const int key0 = (blk * kG + wg) * 64;  // the warpgroup's first key
     // this thread's two keys: g and g + 8 of its warp's 16
     const int seg_k0 = segb[key0 + warp * 16 + g], seg_k1 = segb[key0 + warp * 16 + g + 8];
+    const int lo = m.tmin[kG * blk + wg], hi = m.tmax[kG * blk + wg];
     uint64_t k_own[NS], v_own[NS];
 #pragma unroll
     for (int c = 0; c < NS; ++c) {
       k_own[c] = tile_desc(m.own_tile(c, wg));
       v_own[c] = tile_desc(m.own_tile(NS + c, wg));
     }
-    float dk[NS][8][4], dv[NS][8][4];
-#pragma unroll
-    for (int c = 0; c < NS; ++c) {
-      zero(dk[c]);
-      zero(dv[c]);
-    }
+    const long long out = b * p.g_sb + h * p.g_sh + key0 * p.g_ss;
     mbar_wait(m.own_full, 0);
-    uint32_t kf[4][4], vf[4][4];  // at one slab K and V as A registers, one per 16-wide slice
-    if constexpr (NS == 1) {
+    if constexpr (Sh::kSplit) {
+      float acc[NS][8][4];  // dV or dK
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        load_a_fragment(kf[kc], m.own_tile(0, wg), warp, lane, kc);
-        load_a_fragment(vf[kc], m.own_tile(1, wg), warp, lane, kc);
+      for (int c = 0; c < NS; ++c) zero(acc[c]);
+      if (sums_dv) {
+        consume(m, lo, hi, [&](int stage) {
+          uint64_t qd[NS], dod[NS];
+#pragma unroll
+          for (int c = 0; c < NS; ++c) {
+            qd[c] = tile_desc(m.stream_tile(stage, c));
+            dod[c] = tile_desc(m.stream_tile(stage, NS + c));
+          }
+          dv_tile<NS>(acc, k_own, qd, dod, m.row_values(0, stage),
+                      reinterpret_cast<const int32_t*>(m.row_values(2, stage)), seg_k0, seg_k1,
+                      t4, p.scale_log2);
+        });
+      } else {
+        consume(m, lo, hi, [&](int stage) {
+          uint64_t qd[NS], dod[NS];
+#pragma unroll
+          for (int c = 0; c < NS; ++c) {
+            qd[c] = tile_desc(m.stream_tile(stage, c));
+            dod[c] = tile_desc(m.stream_tile(stage, NS + c));
+          }
+          dk_tile<NS>(acc, k_own, v_own, qd, dod, m.row_values(0, stage), m.row_values(1, stage),
+                      reinterpret_cast<const int32_t*>(m.row_values(2, stage)), seg_k0, seg_k1,
+                      t4, p.scale, p.scale_log2);
+        });
       }
-    }
-    consume(m, m.tmin[kGroups * blk + wg], m.tmax[kGroups * blk + wg], [&](int stage) {
-      uint64_t qd[NS], dod[NS];
+      // each warp read only its own warpgroup's K tiles: stage the
+      // gradient's slabs there, and store the columns before D
+      __nv_bfloat16* dst = (sums_dv ? p.dv : p.dk) + out;
 #pragma unroll
       for (int c = 0; c < NS; ++c) {
-        qd[c] = tile_desc(m.stream_tile(stage, c));
-        dod[c] = tile_desc(m.stream_tile(stage, NS + c));
+        store_rows(dst + 64 * c, p.g_ss, m.own_tile(c, wg), acc[c], 1.f, 1.f, warp, lane,
+                   min(kHeadDim, p.D - 64 * c));
       }
-      dkv_tile<NS>(dk, dv, kf, vf, k_own, v_own, qd, dod, m.row_values(0, stage),
-                   m.row_values(1, stage),
-                   reinterpret_cast<const int32_t*>(m.row_values(2, stage)), seg_k0, seg_k1, t4,
-                   p.scale, p.scale_log2);
-    });
-
-    // each warp read only its own warpgroup's K and V tiles: stage dK and
-    // dV's slabs there, and store the columns before D
-    const long long out = b * p.g_sb + h * p.g_sh + key0 * p.g_ss;
+    } else {
+      float dk[NS][8][4], dv[NS][8][4];
 #pragma unroll
-    for (int c = 0; c < NS; ++c) {
-      const int cols = min(kHeadDim, p.D - 64 * c);
-      store_rows(p.dk + out + 64 * c, p.g_ss, m.own_tile(c, wg), dk[c], 1.f, 1.f, warp, lane,
-                 cols);
-      store_rows(p.dv + out + 64 * c, p.g_ss, m.own_tile(NS + c, wg), dv[c], 1.f, 1.f, warp,
-                 lane, cols);
+      for (int c = 0; c < NS; ++c) {
+        zero(dk[c]);
+        zero(dv[c]);
+      }
+      uint32_t kf[4][4], vf[4][4];  // at one slab K and V as A registers, one per 16-wide slice
+      if constexpr (NS == 1) {
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) {
+          load_a_fragment(kf[kc], m.own_tile(0, wg), warp, lane, kc);
+          load_a_fragment(vf[kc], m.own_tile(1, wg), warp, lane, kc);
+        }
+      }
+      consume(m, lo, hi, [&](int stage) {
+        uint64_t qd[NS], dod[NS];
+#pragma unroll
+        for (int c = 0; c < NS; ++c) {
+          qd[c] = tile_desc(m.stream_tile(stage, c));
+          dod[c] = tile_desc(m.stream_tile(stage, NS + c));
+        }
+        dkv_tile<NS>(dk, dv, kf, vf, k_own, v_own, qd, dod, m.row_values(0, stage),
+                     m.row_values(1, stage),
+                     reinterpret_cast<const int32_t*>(m.row_values(2, stage)), seg_k0, seg_k1, t4,
+                     p.scale, p.scale_log2);
+      });
+
+      // each warp read only its own warpgroup's K and V tiles: stage dK and
+      // dV's slabs there, and store the columns before D
+#pragma unroll
+      for (int c = 0; c < NS; ++c) {
+        const int cols = min(kHeadDim, p.D - 64 * c);
+        store_rows(p.dk + out + 64 * c, p.g_ss, m.own_tile(c, wg), dk[c], 1.f, 1.f, warp, lane,
+                   cols);
+        store_rows(p.dv + out + 64 * c, p.g_ss, m.own_tile(NS + c, wg), dv[c], 1.f, 1.f, warp,
+                   lane, cols);
+      }
     }
   }
 }
 
 template <int NS>
-__global__ void __launch_bounds__(kBlockThreads + 128, 1)
+__global__ void __launch_bounds__(BwdShape<NS>::kThreads, 1)
     flash_attention_bwd_dq_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
                                   const __grid_constant__ CUtensorMap map_k,
                                   const __grid_constant__ CUtensorMap map_v,
                                   const __grid_constant__ CUtensorMap map_do,
                                   const __grid_constant__ CUtensorMap map_o) {
+  using Sh = BwdShape<NS>;
+  constexpr int kG = Sh::kG;
   extern __shared__ unsigned char smem_raw[];
   const int n_tiles = p.S / 64;
-  // each consumer's Q slabs, its dO slabs, its O slabs; a stage holds K's
-  // slabs, then V's
-  const Ring<NS> m = carve<kStages, kGroups, 2 * NS>(smem_raw, n_tiles, 3 * NS);
-  const int blocks = p.S / kRows;
+  // each consumer's Q slabs, its dO slabs (and its O slabs); a stage holds
+  // K's slabs, then V's
+  const Ring<NS> m = carve<kStages, kG, 2 * NS>(smem_raw, n_tiles, Sh::kOwnDq);
+  const int blocks = p.S / (64 * kG);
   const int blk = blockIdx.x % blocks, bh = blockIdx.x / blocks;
   const int h = bh % p.H, b = bh / p.H;
   const int tid = threadIdx.x, wg = tid >> 7, wtid = tid & 127;
@@ -407,48 +565,62 @@ __global__ void __launch_bounds__(kBlockThreads + 128, 1)
     }
     bulk_load(m.row_values(0, stage), segb + t * 64, 256, &m.full[stage]);
   };
-  set_up(m, segb, n_tiles, blk, 3 * NS * kGroups * kTileBytes, [&] {
-    for (int w = 0; w < kGroups; ++w) {
-      const int row = blk * kRows + w * 64;
+  set_up(m, segb, n_tiles, blk, Sh::kOwnDq * kG * kTileBytes, [&] {
+    for (int w = 0; w < kG; ++w) {
+      const int row = (blk * kG + w) * 64;
 #pragma unroll
       for (int c = 0; c < NS; ++c) {
         tma_load_tile(m.own_tile(c, w), &map_q, m.own_full, h, row, b, 64 * c);
         tma_load_tile(m.own_tile(NS + c, w), &map_do, m.own_full, h, row, b, 64 * c);
-        tma_load_tile(m.own_tile(2 * NS + c, w), &map_o, m.own_full, h, row, b, 64 * c);
+        if constexpr (Sh::kOwnO) {
+          tma_load_tile(m.own_tile(2 * NS + c, w), &map_o, m.own_full, h, row, b, 64 * c);
+        }
       }
     }
   }, bytes, load);
-  if (wg == kGroups) {  // the producer warpgroup: one thread issues every load
+  if (wg == kG) {  // the producer warpgroup: one thread issues every load
     setmaxnreg_dec<kProducerRegs>();
     if (wtid == 0) produce(m, bytes, load);
   } else {  // the consumer warpgroups: 64 queries each
-    setmaxnreg_inc<kConsumerRegs>();
+    setmaxnreg_inc<Sh::kRegs>();
     const int warp = wtid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-    const int row0 = blk * kRows + wg * 64;  // the warpgroup's first query
-    float* di_s = m.row_values(1, 0);  // [kRows]: the block's di
+    const int row0 = (blk * kG + wg) * 64;  // the warpgroup's first query
+    float* di_s = m.row_values(1, 0);  // [64 kG]: the block's di
     mbar_wait(m.own_full, 0);
 
-    // di of the warpgroup's 64 rows from its O and dO tiles: two threads a
-    // row, 32 products a slab each, in f32 (columns past D read as 0)
+    // di of the warpgroup's 64 rows: two threads a row, in f32 (columns
+    // past D read as 0), from its O and dO tiles or, without O's tiles,
+    // from O's and dO's rows in global memory (16 bytes a load)
     {
       const int r = wtid >> 1, half = wtid & 1;
       float sum = 0.f;
+      auto add = [&](const uint4& ov, const uint4& dv) {
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
-      for (int c = 0; c < NS; ++c) {
-        const __nv_bfloat16* ot_own = m.own_tile(2 * NS + c, wg);
-        const __nv_bfloat16* dot_own = m.own_tile(NS + c, wg);
+        for (int e = 0; e < 4; ++e) {
+          const float2 a = __bfloat1622float2(o2[e]), c2 = __bfloat1622float2(d2[e]);
+          sum += a.x * c2.x + a.y * c2.y;
+        }
+      };
+      if constexpr (Sh::kOwnO) {  // 32 products a slab each
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int ch = half * 4 + j;
-          const uint4 ov = *reinterpret_cast<const uint4*>(ot_own + swz(r, ch * 8));
-          const uint4 dv = *reinterpret_cast<const uint4*>(dot_own + swz(r, ch * 8));
-          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-          const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+        for (int c = 0; c < NS; ++c) {
+          const __nv_bfloat16* ot_own = m.own_tile(2 * NS + c, wg);
+          const __nv_bfloat16* dot_own = m.own_tile(NS + c, wg);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 a = __bfloat1622float2(o2[e]), c2 = __bfloat1622float2(d2[e]);
-            sum += a.x * c2.x + a.y * c2.y;
+          for (int j = 0; j < 4; ++j) {
+            const int ch = half * 4 + j;
+            add(*reinterpret_cast<const uint4*>(ot_own + swz(r, ch * 8)),
+                *reinterpret_cast<const uint4*>(dot_own + swz(r, ch * 8)));
           }
+        }
+      } else {  // 8 columns a load, the row's halves taking turns
+        const __nv_bfloat16* orow = p.o + b * p.o_sb + h * p.o_sh + (row0 + r) * p.o_ss;
+        const __nv_bfloat16* drow = p.dout + b * p.do_sb + h * p.do_sh + (row0 + r) * p.do_ss;
+        for (int col = 8 * half; col < p.D; col += 16) {
+          add(*reinterpret_cast<const uint4*>(orow + col),
+              *reinterpret_cast<const uint4*>(drow + col));
         }
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -482,7 +654,7 @@ __global__ void __launch_bounds__(kBlockThreads + 128, 1)
     float dq[NS][8][4];
 #pragma unroll
     for (int c = 0; c < NS; ++c) zero(dq[c]);
-    consume(m, m.tmin[kGroups * blk + wg], m.tmax[kGroups * blk + wg], [&](int stage) {
+    consume(m, m.tmin[kG * blk + wg], m.tmax[kG * blk + wg], [&](int stage) {
       uint64_t kd[NS], vd[NS];
 #pragma unroll
       for (int c = 0; c < NS; ++c) {
@@ -506,13 +678,11 @@ __global__ void __launch_bounds__(kBlockThreads + 128, 1)
 }
 
 int fill_params(BwdParams& p, const void* q, const void* k, const void* v, const void* dout,
-                const int32_t* seg, const float* lse, int B, int H, int S, int D,
-                const long long* strides, float sm_scale, long long* blocks) {
-  if (S <= 0 || S % kRows || D < 8 || D > 2 * kHeadDim || D % 8) {
+                const int32_t* seg, const float* lse, int H, int S, int D,
+                const long long* strides, float sm_scale) {
+  if (S <= 0 || S % kRows || D < 8 || D > 4 * kHeadDim || D % 8) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  *blocks = static_cast<long long>(B) * H * (S / kRows);
-  if (*blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   p = BwdParams{};
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -534,15 +704,17 @@ int fill_params(BwdParams& p, const void* q, const void* k, const void* v, const
 }
 
 // Encode the tensor maps of q, k, v, dO and o (dkv reads no o: its map is
-// dO's again) over D columns and launch `kernel` with `n_own` own tiles a
-// warpgroup and NS slabs of the head dim.
+// dO's again) over D columns and launch `kernel` at NS slabs of the head
+// dim, with `n_own` own tiles a warpgroup and `parts` blocks a row tile.
 template <int NS, typename Kernel>
-int launch(Kernel kernel, int n_own, const BwdParams& p, int B, long long blocks,
-           cudaStream_t stream) {
+int launch(Kernel kernel, int n_own, int parts, const BwdParams& p, int B, cudaStream_t stream) {
+  using Sh = BwdShape<NS>;
+  const long long blocks = static_cast<long long>(B) * p.H * (p.S / (64 * Sh::kG));
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   // a runtime call first: it makes the device's context current in this
   // thread (autograd runs the backward on a thread of its own), which the
   // driver's encoder needs
-  const int smem = smem_bytes<kStages, kGroups, 2 * NS>(p.S, n_own);
+  const int smem = smem_bytes<kStages, Sh::kG, 2 * NS>(p.S, n_own);
   int err = static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   if (err != 0) return err;
@@ -558,9 +730,20 @@ int launch(Kernel kernel, int n_own, const BwdParams& p, int B, long long blocks
     err = encode_tile_map(&maps[i], ts[i].base, B, p.H, p.S, ts[i].sb, ts[i].sh, ts[i].ss, p.D);
     if (err != 0) return err;
   }
-  kernel<<<static_cast<unsigned>(blocks), kBlockThreads + 128, smem, stream>>>(
+  kernel<<<dim3(static_cast<unsigned>(blocks), parts), Sh::kThreads, smem, stream>>>(
       p, maps[0], maps[1], maps[2], maps[3], maps[4]);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int NS>
+int launch_dq(const BwdParams& p, int B, cudaStream_t stream) {
+  return launch<NS>(flash_attention_bwd_dq_kernel<NS>, BwdShape<NS>::kOwnDq, 1, p, B, stream);
+}
+
+template <int NS>
+int launch_dkv(const BwdParams& p, int B, cudaStream_t stream) {
+  return launch<NS>(flash_attention_bwd_dkv_kernel<NS>, BwdShape<NS>::kOwnDkv,
+                    BwdShape<NS>::kSplit ? 2 : 1, p, B, stream);
 }
 
 }  // namespace
@@ -572,7 +755,7 @@ int launch(Kernel kernel, int n_own, const BwdParams& p, int B, long long blocks
 // launching it (0 = launched).  The caller has checked shapes, dtypes
 // (bf16, int32 seg, contiguous f32 lse and di), a contiguous D, strides
 // that are multiples of 8 elements and 16-byte aligned pointers; D must be
-// a multiple of 8 up to 128 and S a multiple of 128.
+// a multiple of 8 up to 256 and S a multiple of 128.
 extern "C" int mfar_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                            const void* o, const void* dout, const int32_t* seg,
                                            const float* lse, void* dq, float* di, int B, int H,
@@ -580,15 +763,18 @@ extern "C" int mfar_flash_attention_bwd_dq(const void* q, const void* k, const v
                                            float sm_scale, cudaStream_t stream) {
   if (B == 0 || H == 0) return 0;
   BwdParams p;
-  long long blocks = 0;
-  int err = fill_params(p, q, k, v, dout, seg, lse, B, H, S, D, strides, sm_scale, &blocks);
+  int err = fill_params(p, q, k, v, dout, seg, lse, H, S, D, strides, sm_scale);
   if (err != 0) return err;
   p.o = static_cast<const __nv_bfloat16*>(o);
   p.o_sb = strides[15], p.o_sh = strides[16], p.o_ss = strides[17];
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.di = di;
-  if (D <= kHeadDim) return launch<1>(flash_attention_bwd_dq_kernel<1>, 3, p, B, blocks, stream);
-  return launch<2>(flash_attention_bwd_dq_kernel<2>, 6, p, B, blocks, stream);
+  switch ((D + kHeadDim - 1) / kHeadDim) {
+    case 1: return launch_dq<1>(p, B, stream);
+    case 2: return launch_dq<2>(p, B, stream);
+    case 3: return launch_dq<3>(p, B, stream);
+    default: return launch_dq<4>(p, B, stream);
+  }
 }
 
 extern "C" int mfar_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -599,12 +785,15 @@ extern "C" int mfar_flash_attention_bwd_dkv(const void* q, const void* k, const 
                                             cudaStream_t stream) {
   if (B == 0 || H == 0) return 0;
   BwdParams p;
-  long long blocks = 0;
-  int err = fill_params(p, q, k, v, dout, seg, lse, B, H, S, D, strides, sm_scale, &blocks);
+  int err = fill_params(p, q, k, v, dout, seg, lse, H, S, D, strides, sm_scale);
   if (err != 0) return err;
   p.di = const_cast<float*>(di);  // read only
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
-  if (D <= kHeadDim) return launch<1>(flash_attention_bwd_dkv_kernel<1>, 2, p, B, blocks, stream);
-  return launch<2>(flash_attention_bwd_dkv_kernel<2>, 4, p, B, blocks, stream);
+  switch ((D + kHeadDim - 1) / kHeadDim) {
+    case 1: return launch_dkv<1>(p, B, stream);
+    case 2: return launch_dkv<2>(p, B, stream);
+    case 3: return launch_dkv<3>(p, B, stream);
+    default: return launch_dkv<4>(p, B, stream);
+  }
 }

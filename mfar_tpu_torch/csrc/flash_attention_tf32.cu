@@ -9,11 +9,13 @@
 // bytes), seg is int32 [B, S], S is a multiple of 128.  Under training the
 // kernel also writes each row's logsumexp of the scaled, masked logits
 // (natural log, f32 [B, H, S]), which the backward kernels read
-// (flash_attention_tf32_bwd.cu up to D = 64, flash_attention_simt.cu past
-// it).  f32 inputs that neither map below reads take
-// flash_attention_simt.cu's forward.
+// (flash_attention_tf32_bwd.cu).  f32 inputs that neither map below reads
+// reach this kernel as zero-padded copies at D rounded up to 4 (the
+// "tf32_pad" route of ops/flash_attention.py).
 //
-// Rows mode (mfar_flash_attention_fwd_tf32_rows, kRowMap): at a D that is
+// Rows mode (mfar_flash_attention_fwd_tf32_rows, kRowMap; built from this
+// source as a library of its own, flash_attention_tf32_rows.cu, so that the
+// two modes' sixteen instances build in parallel): at a D that is
 // not a multiple of 4 (TinyBERT-4L-312D's 26: rows of 104 bytes a head,
 // which no tensor map describes), q, k and v are read through row maps
 // (hopper_pipeline.cuh, encode_row_map) over views whose heads lie side by
@@ -52,8 +54,7 @@
 // 140.3 GFLOP over chip_smoke's same-segment pairs take 0.85 ms against
 // 0.48 ms for q, k, v and o; with the logsumexp at [96, 12, 512, 64] 0.32
 // ms against 0.18 ms of bytes.  (Counted as one f32 FMA each on the CUDA
-// cores, 67 TFLOP/s, the same work is 2.0942 ms: flash_attention_simt.cu's
-// earlier bound.)
+// cores, 67 TFLOP/s, the same work is 2.0942 ms.)
 //
 // The instruction: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, with
 // each warp reading its fragments from shared memory by hand.  wgmma takes
@@ -374,12 +375,14 @@ int launch(const void* q, const void* k, const void* v, const int32_t* seg, void
 // The caller has checked shapes, dtypes (f32, int32 seg), a contiguous D,
 // strides that are multiples of 4 elements and 16-byte aligned pointers;
 // D must be a multiple of 4 up to 256 and S a multiple of 128.
+#ifndef MFAR_TF32_ROWS_ONLY
 extern "C" int mfar_flash_attention_fwd_tf32(const void* q, const void* k, const void* v,
                                              const int32_t* seg, void* o, float* lse, int B,
                                              int H, int S, int D, const long long* strides,
                                              float sm_scale, cudaStream_t stream) {
   return launch<false>(q, k, v, seg, o, lse, B, H, S, D, strides, sm_scale, stream);
 }
+#else  // flash_attention_tf32_rows.cu: the rows mode's instances alone
 
 // The same kernel on row maps, at any D from 1 to 253 (D + 3 columns in
 // eight slabs).  The caller has checked, besides, that each of q, k and v
@@ -391,3 +394,4 @@ extern "C" int mfar_flash_attention_fwd_tf32_rows(const void* q, const void* k, 
                                                   float sm_scale, cudaStream_t stream) {
   return launch<true>(q, k, v, seg, o, lse, B, H, S, D, strides, sm_scale, stream);
 }
+#endif

@@ -8,12 +8,13 @@
 // with  P  = exp(Q K^T * sm_scale - lse)  on same-segment pairs, 0 elsewhere,
 //       dS = P * (dO V^T - di) * sm_scale,
 // lse the forward's row logsumexp (natural units).  q/k/v/o/dO are f32
-// [B, H, S, D], D a multiple of 4 up to 64, read through their strides (D
+// [B, H, S, D], D a multiple of 4 up to 256, read through their strides (D
 // contiguous; the others multiples of 16 bytes), seg is int32 [B, S], lse
 // and di contiguous f32 [B, H, S], S a multiple of 128; the gradients are
 // f32 into [B, H, S, D] views with their own strides (multiples of 4
-// elements, 16-byte aligned).  f32 inputs past D = 64, or that TMA cannot
-// read, take flash_attention_simt.cu's backward.
+// elements, 16-byte aligned).  f32 that TMA cannot read reaches these
+// kernels as zero-padded copies at D rounded up to 4 (the "tf32_pad" route
+// of ops/flash_attention.py).
 //
 // Replaces the two Pallas kernels of the VJP of JAX's library
 // flash_attention at f32 (jax/experimental/pallas/ops/tpu/flash_attention.py,
@@ -35,14 +36,16 @@
 //
 // What bounds it: operations.  At the f32 train step's [96, 12, 512, 64]
 // dq's three and dkv's four products over chip_smoke's same-segment pairs
-// take 0.48 / 0.64 ms at 495 TFLOP/s / 3 against ~0.18 ms of bytes each.
+// take 0.48 / 0.64 ms at 495 TFLOP/s / 3 against ~0.18 ms of bytes each
+// (at D = 128, 0.96 / 1.28 ms against 0.54).
 // As in the forward, the tensor cores are not what limits it: each warp
 // splits every streamed value it reads (five integer and float operations
 // a value), eight warps the same tile, so it is bound by its instruction
 // issue.
 //
 // Design (hopper_pipeline.cuh's ring and live-tile list; the loads issued
-// by the consumers, as in the f32 forward):
+// by the consumers, as in the f32 forward), up to D = 64 (NS <= 2; the
+// wide shape past it below):
 //   block = two warpgroups of 64 rows (128 keys in dkv, 128 queries in dq;
 //        S % 128 == 0), 16 rows a warp, one block an SM.  The grid is
 //        (b, h)-major, so the blocks of one head run together and find its
@@ -80,6 +83,23 @@
 //        rows are never loaded, and a warpgroup skips the products of a
 //        loaded tile that misses its own 64 rows (exact for any int32 ids).
 //
+// Wide head dims (D 68-256; Tf32BwdShape): the split-once own slabs (4 NS
+// a warpgroup) and two warpgroups would pass 227 KB, so a block is one
+// warpgroup of 64 rows holding its two own operands raw (2 NS slabs, each
+// A fragment split at use, as the f32 forward splits Q) and streaming the
+// other side in 32-row halves of a tile (tensor maps with 32-row boxes): a
+// stage holds NS slabs' worth, two stages at NS = 4 and one at NS = 8 (16
+// own slabs and one stage, 192 KB).  Two instances only, NS = 4 for D
+// 68-128 and NS = 8 for D 132-256 (each instance of this shape adds
+// seconds to the build): slabs wholly past D are TMA's zero fill, computed
+// like the rest, and the stores stop at D.  Per half: the
+// products over 4 n-tiles (S, dP) or 4 k steps (dQ, dV, dK) of 8 rows.  dq
+// reads O's and dO's rows for di from global memory.  dkv's dK and dV (4 NS
+// x 4 registers a thread each, 256 at NS = 8) would not both fit: its grid
+// has two blocks a key tile, one summing dV (S^T, P^T, dV += P^T dO, no V
+// read), the other dK (S^T, dP^T, dS^T, dK += dS^T Q), each writing its
+// own gradient.
+//
 // Masking: a cross-segment entry of P (and so of dS) is exactly 0; every
 // row has at least its own key, so lse is finite and no NaN can arise.
 
@@ -97,26 +117,48 @@ struct Tf32BwdParams {
   float* dq;
   float* dk;
   float* dv;
+  const float* o;     // dq: the forward's output and dO, whose rows the wide
+  const float* dout;  // kernel reads for di
+  long long o_sb, o_sh, o_ss, do_sb, do_sh, do_ss;
   long long g_sb, g_sh, g_ss;  // strides of the gradients (one layout for all)
   int H, S, D;
   float scale;       // sm_scale
   float scale_log2;  // sm_scale * log2(e)
 };
 
-// Stages of the ring by slabs of 32 f32 columns (NS = 2 at three stages
-// would pass 227 KB), and the own slabs a warpgroup: the raw ones, then the
-// split operands over them (4 NS slabs hold two operands' hi and lo).
+// The block by NS slabs of 32 f32 columns.  Up to NS = 2: two warpgroups,
+// the own slabs a warpgroup the raw ones, then the split operands over them
+// (4 NS slabs hold two operands' hi and lo), 64-row streamed tiles; stages
+// of the ring 3 at NS = 1, 2 at NS = 2 (three would pass 227 KB).  Wide
+// (NS = 4 and 8, D 68-256): one warpgroup, the own slabs raw (2 NS, split
+// at use), the streamed tiles in 32-row halves (a stage's kPer 8 KB tiles
+// hold two operands' NS half slabs), two stages at NS = 4 and one at NS = 8
+// (192 KB, where two would pass 227 KB), and dkv's grid split in
+// two blocks a key tile, one summing dV, the other dK (both would take 8 NS
+// x 4 registers a thread).
 template <int NS>
 struct Tf32BwdShape {
-  static constexpr int kStages = NS == 1 ? 3 : 2;
-  static constexpr int kOwn = 4 * NS;
+  static constexpr bool kWide = NS > 2;
+  static constexpr int kG = kWide ? 1 : 2;
+  static constexpr int kThreads = 128 * kG;
+  static constexpr int kStages = NS == 1 ? 3 : NS <= 4 ? 2 : 1;
+  static constexpr int kOwn = kWide ? 2 * NS : 4 * NS;
+  static constexpr int kPer = kWide ? NS : 2 * NS;
 };
 
 template <int NS>
-using Tf32Ring = Smem<Tf32BwdShape<NS>::kStages, kGroups, 2 * NS>;
+using Tf32Ring = Smem<Tf32BwdShape<NS>::kStages, Tf32BwdShape<NS>::kG, Tf32BwdShape<NS>::kPer>;
 
 __device__ __forceinline__ const float* as_f32(const __nv_bfloat16* t) {
   return reinterpret_cast<const float*>(t);
+}
+
+constexpr int kSlabFloats = kTileElems / 2;  // a [64][32] f32 slab: one 8 KB tile
+
+// Half slab j (32 rows of 32 f32, 4 KB) of a wide kernel's stage.
+template <class Ring>
+__device__ __forceinline__ __nv_bfloat16* half_slab(const Ring& m, int stage, int j) {
+  return m.stream_tile(stage, 0) + j * (kTileElems / 2);
 }
 
 // Two neighbouring f32 (c even) of row r of a swizzled [64][32] slab.
@@ -215,16 +257,17 @@ __device__ __forceinline__ void gemm_heads(float (&d0)[8][4], float (&d1)[8][4],
   }
 }
 
-// d += A B over the 64 rows of a streamed tile: A (16 x 64, k = the tile's
-// rows) the warp's C-layout values x (P, P^T, dS or dS^T), B the stage's
-// slabs from `first` (rows k, columns n: MN-major).  d[4c + 2E + h] is
-// n-tile h of pair E of slab c: its n index g is column 32c + 16E + 2g + h.
-template <int NS, class Ring>
-__device__ __forceinline__ void gemm_rows(float (&d)[4 * NS][4], const float (&x)[8][4],
-                                          const Ring& m, int stage, int first, int lane) {
+// d += A B over the 8 NJ rows of a streamed tile (64, or a half tile's
+// 32): A (16 x 8 NJ, k = the tile's rows) the warp's C-layout values x (P,
+// P^T, dS or dS^T), B the tile's NS slabs of an operand from b, `stride`
+// floats apart (rows k, columns n: MN-major).  d[4c + 2E + h] is n-tile h
+// of pair E of slab c: its n index g is column 32c + 16E + 2g + h.
+template <int NS, int NJ = 8>
+__device__ __forceinline__ void gemm_rows(float (&d)[4 * NS][4], const float (&x)[NJ][4],
+                                          const float* b, int stride, int lane) {
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NJ; ++j) {
     // this thread's entries of rows 8j + 2t4 and + 1 as A's k = t4, t4 + 4
     uint32_t a_hi[4], a_lo[4];
     split(x[j][0], a_hi[0], a_lo[0]);
@@ -234,7 +277,7 @@ __device__ __forceinline__ void gemm_rows(float (&d)[4 * NS][4], const float (&x
     const int row = 8 * j + 2 * t4;
 #pragma unroll
     for (int c = 0; c < NS; ++c) {
-      const float* bt = as_f32(m.stream_tile(stage, first + c));
+      const float* bt = b + c * stride;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float2 x0 = ld2(bt, row, 16 * e + 2 * g), x1 = ld2(bt, row + 1, 16 * e + 2 * g);
@@ -277,6 +320,64 @@ __device__ __forceinline__ void zero_acc(float (&d)[4 * NS][4]) {
   for (int n = 0; n < 4 * NS; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
 }
 
+// P^T = exp2(S^T * sm_scale * log2 e - lse * log2 e) in place of S^T (rows
+// = this thread's keys, of segments seg_k0 / seg_k1; 8 NJ columns = the
+// tile's queries) on same-segment pairs, exactly 0 elsewhere.
+template <int NJ>
+__device__ __forceinline__ void p_transposed(float (&st)[NJ][4], const float* lse_t,
+                                             const int32_t* seg_t, int seg_k0, int seg_k1,
+                                             int t4, float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = 8 * j + 2 * t4;  // the tile's queries c and c + 1
+    const int sq0 = seg_t[c], sq1 = seg_t[c + 1];
+    const float l0 = lse_t[c] * kLog2e, l1 = lse_t[c + 1] * kLog2e;
+    st[j][0] = sq0 == seg_k0 ? exp2f(fmaf(st[j][0], scale_log2, -l0)) : 0.f;
+    st[j][1] = sq1 == seg_k0 ? exp2f(fmaf(st[j][1], scale_log2, -l1)) : 0.f;
+    st[j][2] = sq0 == seg_k1 ? exp2f(fmaf(st[j][2], scale_log2, -l0)) : 0.f;
+    st[j][3] = sq1 == seg_k1 ? exp2f(fmaf(st[j][3], scale_log2, -l1)) : 0.f;
+  }
+}
+
+// dS^T = P^T (dP^T - di) * sm_scale in place of dP^T (di_t: the tile's
+// queries').
+template <int NJ>
+__device__ __forceinline__ void ds_transposed(float (&dpt)[NJ][4], const float (&st)[NJ][4],
+                                              const float* di_t, int t4, float scale) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = 8 * j + 2 * t4;
+    const float d0 = di_t[c], d1 = di_t[c + 1];
+    dpt[j][0] = st[j][0] * (dpt[j][0] - d0) * scale;
+    dpt[j][1] = st[j][1] * (dpt[j][1] - d1) * scale;
+    dpt[j][2] = st[j][2] * (dpt[j][2] - d0) * scale;
+    dpt[j][3] = st[j][3] * (dpt[j][3] - d1) * scale;
+  }
+}
+
+// dS = P (dP - di) * sm_scale in place of S (rows = this thread's two
+// queries, with their segment ids, lse in log2 units and di; 8 NJ columns =
+// the tile's keys), P exactly 0 across segments.
+template <int NJ>
+__device__ __forceinline__ void ds_rows(float (&s)[NJ][4], const float (&dp)[NJ][4],
+                                        const int32_t* seg_t, int seg_q0, int seg_q1, float lse0,
+                                        float lse1, float di0, float di1, int t4, float scale,
+                                        float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = 8 * j + 2 * t4;  // the tile's keys c and c + 1
+    const int sk0 = seg_t[c], sk1 = seg_t[c + 1];
+    const float p0 = sk0 == seg_q0 ? exp2f(fmaf(s[j][0], scale_log2, -lse0)) : 0.f;
+    const float p1 = sk1 == seg_q0 ? exp2f(fmaf(s[j][1], scale_log2, -lse0)) : 0.f;
+    const float p2 = sk0 == seg_q1 ? exp2f(fmaf(s[j][2], scale_log2, -lse1)) : 0.f;
+    const float p3 = sk1 == seg_q1 ? exp2f(fmaf(s[j][3], scale_log2, -lse1)) : 0.f;
+    s[j][0] = p0 * (dp[j][0] - di0) * scale;
+    s[j][1] = p1 * (dp[j][1] - di0) * scale;
+    s[j][2] = p2 * (dp[j][2] - di1) * scale;
+    s[j][3] = p3 * (dp[j][3] - di1) * scale;
+  }
+}
+
 template <int NS>
 __global__ void __launch_bounds__(kBlockThreads, 1)
     flash_tf32_bwd_dkv_kernel(const Tf32BwdParams p, const __grid_constant__ CUtensorMap map_q,
@@ -289,7 +390,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   const int n_tiles = p.S / 64;
   // each warpgroup's K slabs, then its V slabs (then their splits); a
   // stage holds Q's slabs, then dO's
-  const Tf32Ring<NS> m = carve<Sh::kStages, kGroups, 2 * NS>(smem_raw, n_tiles, Sh::kOwn);
+  const Tf32Ring<NS> m = carve<Sh::kStages, kGroups, Sh::kPer>(smem_raw, n_tiles, Sh::kOwn);
   const int blocks = p.S / kRows;
   const int blk = blockIdx.x % blocks, bh = blockIdx.x / blocks;
   const int h = bh % p.H, b = bh / p.H;
@@ -343,33 +444,12 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     if (m.meets(m.live[i], lo, hi)) {
       float st[8][4], dpt[8][4];
       gemm_heads<NS>(st, dpt, m, wg, warp, lane, stage);  // S^T = K Q^T, dP^T = V dO^T
-      const float* lse_t = m.row_values(0, stage);
-      const float* di_t = m.row_values(1, stage);
-      const int32_t* seg_t = reinterpret_cast<const int32_t*>(m.row_values(2, stage));
-      // P^T = exp2(S^T * sm_scale * log2 e - lse * log2 e) on same-segment
-      // pairs, exactly 0 elsewhere
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = 8 * j + 2 * t4;  // the tile's queries c and c + 1
-        const int sq0 = seg_t[c], sq1 = seg_t[c + 1];
-        const float l0 = lse_t[c] * kLog2e, l1 = lse_t[c + 1] * kLog2e;
-        st[j][0] = sq0 == seg_k0 ? exp2f(fmaf(st[j][0], p.scale_log2, -l0)) : 0.f;
-        st[j][1] = sq1 == seg_k0 ? exp2f(fmaf(st[j][1], p.scale_log2, -l1)) : 0.f;
-        st[j][2] = sq0 == seg_k1 ? exp2f(fmaf(st[j][2], p.scale_log2, -l0)) : 0.f;
-        st[j][3] = sq1 == seg_k1 ? exp2f(fmaf(st[j][3], p.scale_log2, -l1)) : 0.f;
-      }
-      gemm_rows<NS>(dv, st, m, stage, NS, lane);  // dV += P^T dO
-      // dS^T = P^T (dP^T - di) * sm_scale, in place of dP^T
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = 8 * j + 2 * t4;
-        const float d0 = di_t[c], d1 = di_t[c + 1];
-        dpt[j][0] = st[j][0] * (dpt[j][0] - d0) * p.scale;
-        dpt[j][1] = st[j][1] * (dpt[j][1] - d1) * p.scale;
-        dpt[j][2] = st[j][2] * (dpt[j][2] - d0) * p.scale;
-        dpt[j][3] = st[j][3] * (dpt[j][3] - d1) * p.scale;
-      }
-      gemm_rows<NS>(dk, dpt, m, stage, 0, lane);  // dK += dS^T Q
+      p_transposed(st, m.row_values(0, stage),
+                   reinterpret_cast<const int32_t*>(m.row_values(2, stage)), seg_k0, seg_k1, t4,
+                   p.scale_log2);
+      gemm_rows<NS>(dv, st, as_f32(m.stream_tile(stage, NS)), kSlabFloats, lane);  // dV += P^T dO
+      ds_transposed(dpt, st, m.row_values(1, stage), t4, p.scale);
+      gemm_rows<NS>(dk, dpt, as_f32(m.stream_tile(stage, 0)), kSlabFloats, lane);  // dK += dS^T Q
     }
     release_and_load(m, i, wg, bytes, load);
   }
@@ -391,7 +471,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   const int n_tiles = p.S / 64;
   // each warpgroup's Q slabs, its dO slabs, its O slabs (then the splits
   // of Q and dO); a stage holds K's slabs, then V's
-  const Tf32Ring<NS> m = carve<Sh::kStages, kGroups, 2 * NS>(smem_raw, n_tiles, Sh::kOwn);
+  const Tf32Ring<NS> m = carve<Sh::kStages, kGroups, Sh::kPer>(smem_raw, n_tiles, Sh::kOwn);
   const int blocks = p.S / kRows;
   const int blk = blockIdx.x % blocks, bh = blockIdx.x / blocks;
   const int h = bh % p.H, b = bh / p.H;
@@ -470,22 +550,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     if (m.meets(m.live[i], lo, hi)) {
       float s[8][4], dp[8][4];
       gemm_heads<NS>(s, dp, m, wg, warp, lane, stage);  // S = Q K^T, dP = dO V^T
-      const int32_t* seg_t = reinterpret_cast<const int32_t*>(m.row_values(0, stage));
-      // dS = P (dP - di) * sm_scale in place of S, P exactly 0 across segments
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = 8 * j + 2 * t4;  // the tile's keys c and c + 1
-        const int sk0 = seg_t[c], sk1 = seg_t[c + 1];
-        const float p0 = sk0 == seg_q0 ? exp2f(fmaf(s[j][0], p.scale_log2, -lse0)) : 0.f;
-        const float p1 = sk1 == seg_q0 ? exp2f(fmaf(s[j][1], p.scale_log2, -lse0)) : 0.f;
-        const float p2 = sk0 == seg_q1 ? exp2f(fmaf(s[j][2], p.scale_log2, -lse1)) : 0.f;
-        const float p3 = sk1 == seg_q1 ? exp2f(fmaf(s[j][3], p.scale_log2, -lse1)) : 0.f;
-        s[j][0] = p0 * (dp[j][0] - di0) * p.scale;
-        s[j][1] = p1 * (dp[j][1] - di0) * p.scale;
-        s[j][2] = p2 * (dp[j][2] - di1) * p.scale;
-        s[j][3] = p3 * (dp[j][3] - di1) * p.scale;
-      }
-      gemm_rows<NS>(dq, s, m, stage, 0, lane);  // dQ += dS K
+      ds_rows(s, dp, reinterpret_cast<const int32_t*>(m.row_values(0, stage)), seg_q0, seg_q1,
+              lse0, lse1, di0, di1, t4, p.scale, p.scale_log2);
+      gemm_rows<NS>(dq, s, as_f32(m.stream_tile(stage, 0)), kSlabFloats, lane);  // dQ += dS K
     }
     release_and_load(m, i, wg, bytes, load);
   }
@@ -493,35 +560,296 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   store_acc<NS>(p.dq + b * p.g_sb + h * p.g_sh + (row0 + r0) * p.g_ss, p.g_ss, dq, t4, p.D);
 }
 
+// d[j] = A B_j^T over the head dim for the NJ n-tiles j (rows 8j..8j+7) of
+// a streamed tile, where a wide kernel holds its own operands raw: A the
+// warp's 16 rows of the own operand whose NS slabs start at a, split at use
+// (the raw fragments gemm_heads reads pre-split), B the tile's NS slabs of
+// the other from b, `stride` floats apart; both K-major.
+template <int NS, int NJ>
+__device__ __forceinline__ void gemm_head(float (&d)[NJ][4], const float* a, const float* b,
+                                          int stride, int warp, int lane) {
+  const int g = lane >> 2, t4 = lane & 3, r0 = warp * 16 + g;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
+  // a slab's four k steps unrolled at a time (a whole unroll lengthens
+  // this file's build)
+#pragma unroll 4
+  for (int kk = 0; kk < 4 * NS; ++kk) {
+    const float* at = a + (kk >> 2) * kSlabFloats;
+    const float* bt = b + (kk >> 2) * stride;
+    const int c = kcol(kk, t4);
+    const float2 u = ld2(at, r0, c), w = ld2(at, r0 + 8, c);
+    uint32_t a_hi[4], a_lo[4];
+    split(u.x, a_hi[0], a_lo[0]);  // a0 (g, k t4)
+    split(w.x, a_hi[1], a_lo[1]);  // a1 (g + 8, k t4)
+    split(u.y, a_hi[2], a_lo[2]);  // a2 (g, k t4 + 4)
+    split(w.y, a_hi[3], a_lo[3]);  // a3 (g + 8, k t4 + 4)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float2 x = ld2(bt, 8 * j + g, c);
+      uint32_t b_hi[2], b_lo[2];
+      split(x.x, b_hi[0], b_lo[0]);
+      split(x.y, b_hi[1], b_lo[1]);
+      mma_3xtf32(d[j], a_hi, a_lo, b_hi, b_lo);
+    }
+  }
+}
+
+// A wide kernel's walk over its streamed tiles (one warpgroup a block, which
+// issues the loads): position i of the live list's halves is tile live[i /
+// 2], rows 32 (i % 2) on, in stage i % kStages; `load(t, half, stage)`
+// starts a position's loads (`bytes` in all).  set_up has loaded position
+// 0; thread 0 loads the next ones into the free stages, then each further
+// position into the stage the warpgroup has just left.  `body(stage)` runs
+// the products of each position.  (A listed tile meets the warpgroup's
+// rows: they are the block's.)
+template <int kStages, int kPer, typename Load, typename Body>
+__device__ __forceinline__ void walk_halves(const Smem<kStages, 1, kPer>& m, uint32_t bytes,
+                                            Load load, Body body) {
+  const int n = 2 * *m.n_live;
+  if (threadIdx.x == 0) {
+    for (int i = 1; i < min(kStages, n); ++i) {
+      mbar_expect_tx(&m.full[i], bytes);
+      load(m.live[i / 2], i % 2, i);
+    }
+  }
+  for (int i = 0; i < n; ++i) {
+    m.wait_full(i);
+    body(i % kStages);
+    named_sync(1, 128);
+    const int next = i + kStages;
+    if (threadIdx.x == 0 && next < n) {
+      mbar_expect_tx(&m.full[i % kStages], bytes);
+      load(m.live[next / 2], next % 2, i % kStages);
+    }
+  }
+}
+
+template <int NS>
+__global__ void __launch_bounds__(128, 1)
+    flash_tf32_bwd_dkv_wide_kernel(const Tf32BwdParams p,
+                                   const __grid_constant__ CUtensorMap map_q,
+                                   const __grid_constant__ CUtensorMap map_k,
+                                   const __grid_constant__ CUtensorMap map_v,
+                                   const __grid_constant__ CUtensorMap map_do,
+                                   const __grid_constant__ CUtensorMap) {
+  using Sh = Tf32BwdShape<NS>;
+  extern __shared__ unsigned char smem_raw[];
+  const int n_tiles = p.S / 64;
+  // the warpgroup's K slabs, then its V slabs; a stage holds Q's half
+  // slabs, then dO's
+  const Tf32Ring<NS> m = carve<Sh::kStages, 1, Sh::kPer>(smem_raw, n_tiles, Sh::kOwn);
+  const int blk = blockIdx.x % n_tiles, bh = blockIdx.x / n_tiles;
+  const int h = bh % p.H, b = bh / p.H;
+  const int tid = threadIdx.x;
+  const int32_t* segb = p.seg + static_cast<long long>(b) * p.S;
+  const float* lseg = p.lse + static_cast<long long>(bh) * p.S;
+  const float* dig = p.di + static_cast<long long>(bh) * p.S;
+  const bool sums_dv = blockIdx.y == 0;  // else dK; a dV block reads no V
+
+  // half `half` of query tile t into a stage: Q's and dO's 32 rows, and the
+  // queries' lse, di and segment ids
+  const uint32_t bytes = NS * kTileBytes + 3 * 128;
+  auto load = [&](int t, int half, int stage) {
+    const int row = t * 64 + 32 * half;
+#pragma unroll
+    for (int c = 0; c < NS; ++c) {
+      tma_load_tile(half_slab(m, stage, c), &map_q, &m.full[stage], h, row, b, 32 * c);
+      tma_load_tile(half_slab(m, stage, NS + c), &map_do, &m.full[stage], h, row, b, 32 * c);
+    }
+    bulk_load(m.row_values(0, stage), lseg + row, 128, &m.full[stage]);
+    bulk_load(m.row_values(1, stage), dig + row, 128, &m.full[stage]);
+    bulk_load(m.row_values(2, stage), segb + row, 128, &m.full[stage]);
+  };
+  set_up(m, segb, n_tiles, blk, (sums_dv ? 1 : 2) * NS * kTileBytes, [&] {
+#pragma unroll
+    for (int c = 0; c < NS; ++c) {
+      tma_load_tile(m.own_tile(c, 0), &map_k, m.own_full, h, blk * 64, b, 32 * c);
+      if (!sums_dv) tma_load_tile(m.own_tile(NS + c, 0), &map_v, m.own_full, h, blk * 64, b, 32 * c);
+    }
+  }, bytes, [&](int t, int stage) { load(t, 0, stage); }, 0);
+
+  // one warpgroup of 64 keys (16 a warp)
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int key0 = blk * 64, r0 = warp * 16 + g;  // this thread's keys: r0 and r0 + 8
+  const int seg_k0 = segb[key0 + r0], seg_k1 = segb[key0 + r0 + 8];
+  const float* k_own = as_f32(m.own_tile(0, 0));
+  const float* v_own = as_f32(m.own_tile(NS, 0));
+  mbar_wait(m.own_full, 0);
+  float acc[4 * NS][4];  // dV or dK
+  zero_acc<NS>(acc);
+  if (sums_dv) {
+    walk_halves(m, bytes, load, [&](int stage) {
+      const float* qt = as_f32(half_slab(m, stage, 0));
+      float st[4][4];
+      gemm_head<NS, 4>(st, k_own, qt, kSlabFloats / 2, warp, lane);  // S^T = K Q^T
+      p_transposed(st, m.row_values(0, stage),
+                   reinterpret_cast<const int32_t*>(m.row_values(2, stage)), seg_k0, seg_k1, t4,
+                   p.scale_log2);
+      gemm_rows<NS, 4>(acc, st, as_f32(half_slab(m, stage, NS)), kSlabFloats / 2,
+                       lane);  // dV += P^T dO
+    });
+  } else {
+    walk_halves(m, bytes, load, [&](int stage) {
+      const float* qt = as_f32(half_slab(m, stage, 0));
+      const float* dot = as_f32(half_slab(m, stage, NS));
+      float st[4][4], dpt[4][4];
+      gemm_head<NS, 4>(st, k_own, qt, kSlabFloats / 2, warp, lane);    // S^T = K Q^T
+      gemm_head<NS, 4>(dpt, v_own, dot, kSlabFloats / 2, warp, lane);  // dP^T = V dO^T
+      p_transposed(st, m.row_values(0, stage),
+                   reinterpret_cast<const int32_t*>(m.row_values(2, stage)), seg_k0, seg_k1, t4,
+                   p.scale_log2);
+      ds_transposed(dpt, st, m.row_values(1, stage), t4, p.scale);
+      gemm_rows<NS, 4>(acc, dpt, qt, kSlabFloats / 2, lane);  // dK += dS^T Q
+    });
+  }
+  store_acc<NS>((sums_dv ? p.dv : p.dk) + b * p.g_sb + h * p.g_sh + (key0 + r0) * p.g_ss,
+                p.g_ss, acc, t4, p.D);
+}
+
+template <int NS>
+__global__ void __launch_bounds__(128, 1)
+    flash_tf32_bwd_dq_wide_kernel(const Tf32BwdParams p, const __grid_constant__ CUtensorMap map_q,
+                                  const __grid_constant__ CUtensorMap map_k,
+                                  const __grid_constant__ CUtensorMap map_v,
+                                  const __grid_constant__ CUtensorMap map_do,
+                                  const __grid_constant__ CUtensorMap) {
+  using Sh = Tf32BwdShape<NS>;
+  extern __shared__ unsigned char smem_raw[];
+  const int n_tiles = p.S / 64;
+  // the warpgroup's Q slabs, then its dO slabs; a stage holds K's half
+  // slabs, then V's
+  const Tf32Ring<NS> m = carve<Sh::kStages, 1, Sh::kPer>(smem_raw, n_tiles, Sh::kOwn);
+  const int blk = blockIdx.x % n_tiles, bh = blockIdx.x / n_tiles;
+  const int h = bh % p.H, b = bh / p.H;
+  const int tid = threadIdx.x;
+  const int32_t* segb = p.seg + static_cast<long long>(b) * p.S;
+
+  // half `half` of key tile t into a stage: K's and V's 32 rows and the
+  // keys' segment ids
+  const uint32_t bytes = NS * kTileBytes + 128;
+  auto load = [&](int t, int half, int stage) {
+    const int row = t * 64 + 32 * half;
+#pragma unroll
+    for (int c = 0; c < NS; ++c) {
+      tma_load_tile(half_slab(m, stage, c), &map_k, &m.full[stage], h, row, b, 32 * c);
+      tma_load_tile(half_slab(m, stage, NS + c), &map_v, &m.full[stage], h, row, b, 32 * c);
+    }
+    bulk_load(m.row_values(0, stage), segb + row, 128, &m.full[stage]);
+  };
+  set_up(m, segb, n_tiles, blk, 2 * NS * kTileBytes, [&] {
+#pragma unroll
+    for (int c = 0; c < NS; ++c) {
+      tma_load_tile(m.own_tile(c, 0), &map_q, m.own_full, h, blk * 64, b, 32 * c);
+      tma_load_tile(m.own_tile(NS + c, 0), &map_do, m.own_full, h, blk * 64, b, 32 * c);
+    }
+  }, bytes, [&](int t, int stage) { load(t, 0, stage); }, 0);
+
+  // one warpgroup of 64 queries (16 a warp)
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int row0 = blk * 64, r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  float* di_s = m.row_values(1, 0);              // [64]: the block's di
+
+  // di of the 64 rows from O's and dO's rows in global memory: two threads
+  // a row, 4 columns a load, the halves taking turns, in f32
+  {
+    const int r = tid >> 1, half = tid & 1;
+    const float* orow = p.o + b * p.o_sb + h * p.o_sh + (row0 + r) * p.o_ss;
+    const float* drow = p.dout + b * p.do_sb + h * p.do_sh + (row0 + r) * p.do_ss;
+    float sum = 0.f;
+    for (int col = 4 * half; col < p.D; col += 8) {
+      const float4 a = *reinterpret_cast<const float4*>(orow + col);
+      const float4 d = *reinterpret_cast<const float4*>(drow + col);
+      sum += a.x * d.x + a.y * d.y + a.z * d.z + a.w * d.w;
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (half == 0) {
+      di_s[r] = sum;
+      p.di[static_cast<long long>(bh) * p.S + row0 + r] = sum;
+    }
+  }
+  named_sync(1, 128);
+
+  const long long rows = static_cast<long long>(bh) * p.S + row0 + r0;
+  const int seg_q0 = segb[row0 + r0], seg_q1 = segb[row0 + r0 + 8];
+  const float lse0 = p.lse[rows] * kLog2e, lse1 = p.lse[rows + 8] * kLog2e;
+  const float di0 = di_s[r0], di1 = di_s[r0 + 8];
+  const float* q_own = as_f32(m.own_tile(0, 0));
+  const float* do_own = as_f32(m.own_tile(NS, 0));
+  mbar_wait(m.own_full, 0);
+  float dq[4 * NS][4];
+  zero_acc<NS>(dq);
+  walk_halves(m, bytes, load, [&](int stage) {
+    const float* kt = as_f32(half_slab(m, stage, 0));
+    float s[4][4], dp[4][4];
+    gemm_head<NS, 4>(s, q_own, kt, kSlabFloats / 2, warp, lane);  // S = Q K^T
+    gemm_head<NS, 4>(dp, do_own, as_f32(half_slab(m, stage, NS)), kSlabFloats / 2, warp,
+                     lane);  // dP = dO V^T
+    ds_rows(s, dp, reinterpret_cast<const int32_t*>(m.row_values(0, stage)), seg_q0, seg_q1,
+            lse0, lse1, di0, di1, t4, p.scale, p.scale_log2);
+    gemm_rows<NS, 4>(dq, s, kt, kSlabFloats / 2, lane);  // dQ += dS K
+  });
+
+  store_acc<NS>(p.dq + b * p.g_sb + h * p.g_sh + (row0 + r0) * p.g_ss, p.g_ss, dq, t4, p.D);
+}
+
 // Encode the f32 tensor maps of q, k, v, dO and o (dkv reads no o: its map
-// is dO's again) over D columns and launch `kernel`.
+// is dO's again) over D columns, boxes of `rows[i]` rows (32 for what a
+// wide kernel streams), and launch `kernel` with `parts` blocks a row tile.
 template <int NS, typename Kernel>
-int launch(Kernel kernel, const Tf32BwdParams& p, const void* const bases[5],
-           const long long* strides, int B, cudaStream_t stream) {
-  const long long blocks = static_cast<long long>(B) * p.H * (p.S / kRows);
+int launch(Kernel kernel, int parts, const int (&rows)[5], const Tf32BwdParams& p,
+           const void* const bases[5], const long long* strides, int B, cudaStream_t stream) {
+  using Sh = Tf32BwdShape<NS>;
+  const long long blocks = static_cast<long long>(B) * p.H * (p.S / (64 * Sh::kG));
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   // a runtime call first: it makes the device's context current in this
   // thread (autograd runs the backward on a thread of its own), which the
   // driver's encoder needs
-  const int smem = smem_bytes<Tf32BwdShape<NS>::kStages, kGroups, 2 * NS>(p.S,
-                                                                          Tf32BwdShape<NS>::kOwn);
+  const int smem = smem_bytes<Sh::kStages, Sh::kG, Sh::kPer>(p.S, Sh::kOwn);
   int err = static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   if (err != 0) return err;
   CUtensorMap maps[5];
   for (int i = 0; i < 5; ++i) {
     err = encode_tile_map(&maps[i], bases[i], B, p.H, p.S, strides[3 * i], strides[3 * i + 1],
-                          strides[3 * i + 2], p.D, true);
+                          strides[3 * i + 2], p.D, true, rows[i]);
     if (err != 0) return err;
   }
-  kernel<<<static_cast<unsigned>(blocks), kBlockThreads, smem, stream>>>(p, maps[0], maps[1],
-                                                                         maps[2], maps[3], maps[4]);
+  kernel<<<dim3(static_cast<unsigned>(blocks), parts), Sh::kThreads, smem, stream>>>(
+      p, maps[0], maps[1], maps[2], maps[3], maps[4]);
   return static_cast<int>(cudaGetLastError());
+}
+
+// box rows of the maps of q, k, v, dO and o by kernel
+constexpr int kRows64[5] = {64, 64, 64, 64, 64};
+constexpr int kDqWideRows[5] = {64, 32, 32, 64, 64};
+constexpr int kDkvWideRows[5] = {32, 64, 64, 32, 32};
+
+template <int NS>
+int launch_dq(const Tf32BwdParams& p, const void* const bases[5], const long long* strides, int B,
+              cudaStream_t stream) {
+  if constexpr (Tf32BwdShape<NS>::kWide) {
+    return launch<NS>(flash_tf32_bwd_dq_wide_kernel<NS>, 1, kDqWideRows, p, bases, strides, B,
+                      stream);
+  } else {
+    return launch<NS>(flash_tf32_bwd_dq_kernel<NS>, 1, kRows64, p, bases, strides, B, stream);
+  }
+}
+
+template <int NS>
+int launch_dkv(const Tf32BwdParams& p, const void* const bases[5], const long long* strides,
+               int B, cudaStream_t stream) {
+  if constexpr (Tf32BwdShape<NS>::kWide) {
+    return launch<NS>(flash_tf32_bwd_dkv_wide_kernel<NS>, 2, kDkvWideRows, p, bases, strides, B,
+                      stream);
+  } else {
+    return launch<NS>(flash_tf32_bwd_dkv_kernel<NS>, 1, kRows64, p, bases, strides, B, stream);
+  }
 }
 
 int fill_params(Tf32BwdParams& p, const int32_t* seg, const float* lse, int H, int S, int D,
                 const long long* g_strides, float sm_scale) {
-  if (S <= 0 || S % kRows || D < 4 || D > 64 || D % 4) {
+  if (S <= 0 || S % kRows || D < 4 || D > 256 || D % 4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   p = Tf32BwdParams{};
@@ -545,7 +873,7 @@ int fill_params(Tf32BwdParams& p, const int32_t* seg, const float* lse, int H, i
 // launching it (0 = launched).  The caller has checked shapes, dtypes (f32,
 // int32 seg, contiguous f32 lse and di), a contiguous D, strides that are
 // multiples of 4 elements and 16-byte aligned pointers; D must be a
-// multiple of 4 up to 64 and S a multiple of 128.
+// multiple of 4 up to 256 and S a multiple of 128.
 extern "C" int mfar_flash_attention_bwd_dq_tf32(const void* q, const void* k, const void* v,
                                                 const void* o, const void* dout,
                                                 const int32_t* seg, const float* lse, void* dq,
@@ -558,12 +886,21 @@ extern "C" int mfar_flash_attention_bwd_dq_tf32(const void* q, const void* k, co
   if (err != 0) return err;
   p.dq = static_cast<float*>(dq);
   p.di = di;
+  p.o = static_cast<const float*>(o);
+  p.dout = static_cast<const float*>(dout);
+  p.o_sb = strides[15], p.o_sh = strides[16], p.o_ss = strides[17];
+  p.do_sb = strides[9], p.do_sh = strides[10], p.do_ss = strides[11];
   const void* bases[5] = {q, k, v, dout, o};
   const long long st[15] = {strides[0], strides[1], strides[2], strides[3], strides[4],
                             strides[5], strides[6], strides[7], strides[8], strides[9],
                             strides[10], strides[11], strides[15], strides[16], strides[17]};
-  if (D <= 32) return launch<1>(flash_tf32_bwd_dq_kernel<1>, p, bases, st, B, stream);
-  return launch<2>(flash_tf32_bwd_dq_kernel<2>, p, bases, st, B, stream);
+  switch ((D + 31) / 32) {
+    case 1: return launch_dq<1>(p, bases, st, B, stream);
+    case 2: return launch_dq<2>(p, bases, st, B, stream);
+    case 3:
+    case 4: return launch_dq<4>(p, bases, st, B, stream);
+    default: return launch_dq<8>(p, bases, st, B, stream);
+  }
 }
 
 extern "C" int mfar_flash_attention_bwd_dkv_tf32(const void* q, const void* k, const void* v,
@@ -583,6 +920,11 @@ extern "C" int mfar_flash_attention_bwd_dkv_tf32(const void* q, const void* k, c
   const long long st[15] = {strides[0], strides[1], strides[2], strides[3], strides[4],
                             strides[5], strides[6], strides[7], strides[8], strides[9],
                             strides[10], strides[11], strides[9], strides[10], strides[11]};
-  if (D <= 32) return launch<1>(flash_tf32_bwd_dkv_kernel<1>, p, bases, st, B, stream);
-  return launch<2>(flash_tf32_bwd_dkv_kernel<2>, p, bases, st, B, stream);
+  switch ((D + 31) / 32) {
+    case 1: return launch_dkv<1>(p, bases, st, B, stream);
+    case 2: return launch_dkv<2>(p, bases, st, B, stream);
+    case 3:
+    case 4: return launch_dkv<4>(p, bases, st, B, stream);
+    default: return launch_dkv<8>(p, bases, st, B, stream);
+  }
 }

@@ -261,17 +261,18 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 }
 
 // A 4-D tensor map over `base` with these sizes and byte strides of dims 1-3
-// (dim 0 is contiguous), its box 64 rows of dim 2 by 128 bytes of dim 0 (64
-// bf16 or 32 f32: a slab), swizzled by 128 bytes as wgmma's descriptors read
-// it; a box that reaches past dim 0's size reads zeros there.  The encoder
-// needs the device's context current in the calling thread: make a runtime
-// call first (autograd runs the backward, and remat's recompute of the
-// forward, on a thread of its own).
+// (dim 0 is contiguous), its box `rows` (64, or 32 for the f32 backward's
+// half tiles) rows of dim 2 by 128 bytes of dim 0 (64 bf16 or 32 f32: a
+// slab), swizzled by 128 bytes as wgmma's descriptors read it; a box that
+// reaches past dim 0's size reads zeros there.  The encoder needs the
+// device's context current in the calling thread: make a runtime call first
+// (autograd runs the backward, and remat's recompute of the forward, on a
+// thread of its own).
 int encode_map(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
-               const cuuint64_t (&strides)[3], bool f32) {
+               const cuuint64_t (&strides)[3], bool f32, int rows = 64) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint32_t box[4] = {f32 ? 32u : 64u, 1, 64, 1};
+  const cuuint32_t box[4] = {f32 ? 32u : 64u, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
@@ -282,18 +283,19 @@ int encode_map(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
 }
 
 // The per-head map (D, H, S, B) over a bf16 (or, with f32, an f32)
-// [B, H, S, D] view with these element strides: a box is 64 rows of one
+// [B, H, S, D] view with these element strides: a box is `rows` rows of one
 // (b, h) from column `col` of the head, read at (col, h, s0, b); columns past
 // D read as 0.
 int encode_tile_map(CUtensorMap* map, const void* base, int B, int H, int S, long long sb,
-                    long long sh, long long ss, int D = kHeadDim, bool f32 = false) {
+                    long long sh, long long ss, int D = kHeadDim, bool f32 = false,
+                    int rows = 64) {
   const long long elem = f32 ? 4 : 2;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh * elem),
                                  static_cast<cuuint64_t>(ss * elem),
                                  static_cast<cuuint64_t>(sb * elem)};
-  return encode_map(map, base, dims, strides, f32);
+  return encode_map(map, base, dims, strides, f32, rows);
 }
 
 // The row map (H*D, 1, S, B) over the same view when its heads lie side by

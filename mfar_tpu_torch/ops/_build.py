@@ -8,8 +8,9 @@ seconds), for ``sm_90a``:
          -Xcompiler -fPIC -Xptxas -v -o build/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``mfar_tpu_torch/build/`` under a name that carries a
-hash of its source, the shared headers (``csrc/*.cuh``) and the flags, so a
-changed source rebuilds and an unchanged one loads at once.  The build runs at first use, never at import.  A
+hash of its source, the sources it includes, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source rebuilds and an
+unchanged one loads at once.  The build runs at first use, never at import.  A
 missing ``nvcc`` or a failed build raises with the compiler's output; there
 is no fallback.
 """
@@ -20,6 +21,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -33,8 +35,10 @@ SOURCES = {
     "gather_scores": "gather_scores.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
-    "flash_attention_simt": "flash_attention_simt.cu",
     "flash_attention_tf32": "flash_attention_tf32.cu",
+    # the same source's rows mode (kRowMap), a library of its own so that
+    # its eight instances build beside the per-head ones
+    "flash_attention_tf32_rows": "flash_attention_tf32_rows.cu",
     "flash_attention_tf32_bwd": "flash_attention_tf32_bwd.cu",
 }
 
@@ -59,11 +63,14 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """The library's path: its name and a hash of its source, the shared
-    headers of ``csrc/`` (which a source may include) and the flags."""
+    """The library's path: its name and a hash of its source, the ``.cu``
+    sources it includes, the shared headers of ``csrc/`` (which a source may
+    include) and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
-    for fname in [SOURCES[name], *headers]:
+    with open(os.path.join(CSRC_DIR, SOURCES[name])) as f:
+        included = re.findall(r'^#include "(\w+\.cu)"', f.read(), re.M)
+    for fname in [SOURCES[name], *included, *headers]:
         with open(os.path.join(CSRC_DIR, fname), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")

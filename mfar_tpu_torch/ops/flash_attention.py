@@ -23,9 +23,9 @@ same functions in plain PyTorch, in f32: the wrappers use them for CPU
 tensors only, and the tests and ``chip_smoke.py`` hold the kernels against
 them.
 
-Six routes on the card for the forward, chosen before any launch by
+Seven routes on the card for the forward, chosen before any launch by
 :func:`forward_route` from dtype, head dim and strides alone, each counting
-its own launches:
+its own launches (the padding routes under the kernel they run):
 
 - ``"wgmma"``, bf16 with D = 64 (Contriever-base, BERT-base): the wgmma
   kernel above (``flash_attention.launches``).
@@ -53,45 +53,49 @@ its own launches:
   to 253): the 3xTF32 kernel on row maps, boxes from column h*D rounded
   down to 4, Q's and K's tiles moved so too and both zeroed past D, so S
   is exact for any input (:func:`flash_attention_tf32_rows`).
-- ``"simt"``, everything else up to D = 256 (a head dim neither map reads,
-  e.g. a contiguous ``[B, H, S, 26]``, whose rows are 52 bytes apart, or
-  strides that are not multiples of 16 bytes, or a base off a 16-byte
-  boundary): ``csrc/flash_attention_simt.cu``'s CUDA-core forward
-  (:func:`flash_attention_simt`), in f32 FMA.
+- ``"wgmma_pad"`` (bf16) and ``"tf32_pad"`` (f32), everything else up to D
+  = 256 (a head dim neither map reads, e.g. a contiguous ``[B, H, S, 26]``,
+  whose rows are 52 bytes apart; strides that are not multiples of 16 bytes
+  or a D stride other than 1; a base off a 16-byte boundary; heads side by
+  side past the rows routes' D): q, k and v copied into zero-padded ``[B,
+  S, H, D']`` buffers (:func:`pad_heads`; D' = D rounded up to 8 or 4),
+  which TMA reads, then the forward of their route (``"wgmma"``,
+  ``"wgmma_headdim"`` or ``"tf32"``, whose launches count) at the scale the
+  caller gave, the output handed back as a view of its first D columns.
+  The zero columns add 0 to every logit, so the logsumexp is the same.
+  ``flash_attention.pad_launches[route]`` counts these routes apart.
 
 The backward's pair follows the same rule, chosen by :func:`backward_route`,
 each pair counting its own launches:
 
 - ``"wgmma"``, bf16 with D = 64: the wgmma pair of
   ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd_dq`` / ``_dkv``).
-- ``"wgmma_headdim"``, bf16 at any other D that TMA can read up to 128: the
-  same pair at ceil(D / 64) slabs of 64 columns
-  (:func:`flash_attention_bwd_headdim_dq` / ``_dkv``).
-- ``"tf32"``, f32 that TMA can read at D up to 64:
-  ``csrc/flash_attention_tf32_bwd.cu`` (:func:`flash_attention_tf32_bwd_dq`
-  / ``_dkv``), every product in 3xTF32 and P, dS kept in f32.
-- ``"wgmma_pad"``, bf16 that TMA cannot read at D up to 128 (a D that is not
-  a multiple of 8, such as TinyBERT-4L-312D's 26, whose 52-byte rows no
-  tensor map describes, or strides that are not multiples of 16 bytes):
+- ``"wgmma_headdim"``, bf16 at any other D that TMA can read: the same pair
+  at ceil(D / 64) slabs of 64 columns (:func:`flash_attention_bwd_headdim_dq`
+  / ``_dkv``); past D = 128 in blocks of one warpgroup, dkv's grid split
+  into a dV block and a dK block a key tile (these wide launches counted
+  apart too, in ``.wide_launches``).
+- ``"tf32"``, f32 that TMA can read: ``csrc/flash_attention_tf32_bwd.cu``
+  (:func:`flash_attention_tf32_bwd_dq` / ``_dkv``), every product in 3xTF32
+  and P, dS kept in f32; past D = 64 in blocks of one warpgroup streaming
+  32-row half tiles, dkv's grid split as above (``.wide_launches``).
+- ``"wgmma_pad"``, bf16 that TMA cannot read (a D that is not a multiple of
+  8, such as TinyBERT-4L-312D's 26, whose 52-byte rows no tensor map
+  describes, strides that are not multiples of 16 bytes, a D stride other
+  than 1):
   q, k, v, o and dO copied into zero-padded ``[B, S, H, D8]`` buffers (D8
   = D rounded up to 8), which TMA reads, then the pair of their route
   (``"wgmma"`` or ``"wgmma_headdim"``, whose launches count), the
   gradients handed back as views of their first D columns.  The padded
   columns of q, k, v and dO are 0, so S and dP are exact and the
   gradients' padded columns 0.
-- ``"tf32_pad"``, f32 that TMA cannot read at D up to 64 (a D that is not a
-  multiple of 4, such as TinyBERT-4L-312D's 26, whose 104-byte rows no
-  tensor map describes, or strides that are not multiples of 16 bytes, or
-  a base off a 16-byte boundary): the same copies at D rounded up to 4,
-  then the 3xTF32 pair (``"tf32"``, whose launches count), the gradients
-  views of their first D columns.  A zero column splits into two zero
-  TF32 parts, so S and dP stay exact here too.
-- ``"simt"``, everything else up to D = 256 (the head dims past those caps:
-  rows of more than 256 bytes, whose own tiles and accumulators would not
-  fit one block an SM):
-  ``csrc/flash_attention_simt.cu``'s CUDA-core pair
-  (:func:`flash_attention_simt_bwd_dq`, :func:`flash_attention_simt_bwd_dkv`),
-  in f32 FMA.
+- ``"tf32_pad"``, f32 that TMA cannot read (a D that is not a multiple of
+  4, such as TinyBERT-4L-312D's 26, whose 104-byte rows no tensor map
+  describes, or strides that are not multiples of 16 bytes, or a base off
+  a 16-byte boundary): the same copies at D rounded up to 4, then the
+  3xTF32 pair (``"tf32"``, whose launches count), the gradients views of
+  their first D columns.  A zero column splits into two zero TF32 parts,
+  so S and dP stay exact here too.
 
 Every pair reads the forward's logsumexp, a contiguous f32 ``[B, H, S]`` in
 natural log, whichever forward wrote it.  These kernels read q/k/v through
@@ -117,12 +121,11 @@ from mfar_tpu_torch.ops import _build
 # adds as JAX does; the kernels set every cross-segment weight to exactly 0
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIM = 64  # the head dimension of the "wgmma" route (the forward and the backward)
-MAX_HEAD_DIM = 256  # every forward route's largest head dimension, and the CUDA-core backward's
-# the tensor-core backwards' largest head dims: rows of up to 256 bytes (two
-# bf16 slabs of 64 columns, two f32 slabs of 32), which keep each kernel's
-# own tiles, its ring and its accumulators within one block an SM
-WGMMA_BWD_MAX_HEAD_DIM, TF32_BWD_MAX_HEAD_DIM = 128, 64
+MAX_HEAD_DIM = 256  # every route's largest head dimension
 SEQ_MULTIPLE = 128  # S % 128 == 0, as JAX's gate asks
+# past these head dims the backward pairs run their wide instances (one
+# warpgroup a block, dkv's grid split into dV and dK blocks)
+WIDE_BWD_HEAD_DIM = {torch.bfloat16: 128, torch.float32: 64}
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -205,9 +208,6 @@ def _check_inputs(q, k, v, segment_ids) -> None:
     if q.device.type == "cuda":
         if q.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"{q.dtype} q/k/v: the flash kernels take float32 and bfloat16")
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if not _simt_readable(t):
-                raise ValueError(f"{name} strides {t.stride()}: the kernels need the D stride 1")
         if not segment_ids.is_contiguous() or segment_ids.data_ptr() % 16:
             raise ValueError("segment_ids must be contiguous and start on a 16-byte boundary")
 
@@ -219,42 +219,33 @@ def forward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     (f32, D a multiple of 4), each where TMA can read all three per head
     (:func:`_kernel_readable`); then ``"wgmma_rows"`` (bf16) and
     ``"tf32_rows"`` (f32) where it can read all three as rows of heads side
-    by side (:func:`_row_readable`); ``"simt"`` (the CUDA-core kernel) for
-    the rest.  The backward's pair is :func:`backward_route`'s."""
-    d = q.shape[-1]
-    tma = all(_kernel_readable(t) for t in (q, k, v))
-    if tma and q.dtype == torch.bfloat16 and d % 8 == 0:
-        return "wgmma" if d == HEAD_DIM else "wgmma_headdim"
-    if tma and q.dtype == torch.float32 and d % 4 == 0:
-        return "tf32"
-    if all(_row_readable(t) for t in (q, k, v)):
-        if q.dtype == torch.bfloat16:
-            return "wgmma_rows"
-        if q.dtype == torch.float32:
-            return "tf32_rows"
-    return "simt"
+    by side (:func:`_row_readable`); ``"wgmma_pad"`` (bf16) and
+    ``"tf32_pad"`` (f32) for the rest, copied into zero-padded buffers that
+    TMA reads.  The backward's pair is :func:`backward_route`'s."""
+    bf16 = q.dtype == torch.bfloat16
+    route = backward_route(q, k, v)
+    if route in _PAD_COLUMNS and all(_row_readable(t) for t in (q, k, v)):
+        return "wgmma_rows" if bf16 else "tf32_rows"
+    return route
 
 
 def backward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The backward's kernel pair for [B, H, S, D] q, k, v on the card, from
     their dtype, head dim and strides alone, each where TMA can read all
     three (:func:`_kernel_readable`): ``"wgmma"`` (bf16, D = 64),
-    ``"wgmma_headdim"`` (bf16 at another D, a multiple of 8 up to 128: the
-    same pair at ceil(D / 64) slabs), ``"tf32"`` (f32, D a multiple of 4 up
-    to 64: the 3xTF32 pair); then, for what TMA cannot read, ``"wgmma_pad"``
-    (bf16 up to D = 128) and ``"tf32_pad"`` (f32 up to D = 64), copied into
-    zero-padded buffers that it reads, for the wgmma or the 3xTF32 pair;
-    ``"simt"`` (the CUDA-core pair) for the head dims past those caps."""
+    ``"wgmma_headdim"`` (bf16 at another D, a multiple of 8: the same pair
+    at ceil(D / 64) slabs), ``"tf32"`` (f32, D a multiple of 4: the 3xTF32
+    pair); then, for what TMA cannot read, ``"wgmma_pad"`` (bf16) and
+    ``"tf32_pad"`` (f32), copied into zero-padded buffers that it reads, for
+    the wgmma or the 3xTF32 pair.  Without the rows routes, the forward's
+    rule too (:func:`forward_route`)."""
     d = q.shape[-1]
     tma = all(_kernel_readable(t) for t in (q, k, v))
-    bf16 = q.dtype == torch.bfloat16
-    if bf16 and d <= WGMMA_BWD_MAX_HEAD_DIM:
+    if q.dtype == torch.bfloat16:
         if tma and d % 8 == 0:
             return "wgmma" if d == HEAD_DIM else "wgmma_headdim"
         return "wgmma_pad"
-    if q.dtype == torch.float32 and d <= TF32_BWD_MAX_HEAD_DIM:
-        return "tf32" if tma and d % 4 == 0 else "tf32_pad"
-    return "simt"
+    return "tf32" if tma and d % 4 == 0 else "tf32_pad"
 
 
 def _kernel_readable(t: torch.Tensor) -> bool:
@@ -277,19 +268,24 @@ def _row_readable(t: torch.Tensor) -> bool:
         and not (t.stride(0) * es % 16 or t.stride(2) * es % 16) and t.data_ptr() % 16 == 0
 
 
-def _simt_readable(t: torch.Tensor) -> bool:
-    """A [B, H, S, D] operand the CUDA-core kernels read through its strides."""
-    return t.stride(-1) == 1
-
-
 def _strides(*ts: torch.Tensor):
     return (ctypes.c_longlong * (3 * len(ts)))(*(st for t in ts for st in t.stride()[:3]))
 
 
 def pad_heads(t: torch.Tensor, width: int) -> torch.Tensor:
-    """A ``[B, H, S, width]`` view of a new ``[B, S, H, width]`` buffer that
-    holds [B, H, S, D] ``t`` in its first D columns and 0 past them."""
-    return torch.nn.functional.pad(t.transpose(1, 2), (0, width - t.shape[-1])).transpose(1, 2)
+    """A ``[B, H, S, width]`` view of a new buffer that holds [B, H, S, D]
+    ``t`` (any strides) in its first D columns and 0 past them, laid out as
+    ``[B, S, H, width]`` or in another layout TMA reads per head (for D' =
+    ``width`` a multiple of 8 in bf16, 4 in f32)."""
+    out = torch.nn.functional.pad(t.transpose(1, 2), (0, width - t.shape[-1])).transpose(1, 2)
+    # F.pad keeps the layout of a dense t, as a clone (width D) or in its
+    # channels-last order: a D stride other than 1 stays
+    return out if _kernel_readable(out) else _empty_bshd(out).copy_(out)
+
+
+def _padded_width(route: str, d: int) -> int:
+    """D rounded up to the column multiple of a padding route."""
+    return -(-d // _PAD_COLUMNS[route]) * _PAD_COLUMNS[route]
 
 
 def _empty_bshd(like: torch.Tensor) -> torch.Tensor:
@@ -342,7 +338,7 @@ def _tf32_kernel():
 
 @functools.cache
 def _tf32_rows_kernel():
-    return _bind_forward("flash_attention_tf32", "mfar_flash_attention_fwd_tf32_rows")
+    return _bind_forward("flash_attention_tf32_rows", "mfar_flash_attention_fwd_tf32_rows")
 
 
 def _bind_bwd(lib_name: str, dq_name: str, dkv_name: str):
@@ -372,27 +368,18 @@ def _tf32_bwd_kernels():
                      "mfar_flash_attention_bwd_dkv_tf32")
 
 
-@functools.cache
-def _simt_kernels():
-    lib = _build.load("flash_attention_simt")
-    tail = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H S D
-        ctypes.POINTER(ctypes.c_longlong),  # strides of the operands, in argument order
-        ctypes.c_float, ctypes.c_void_p,  # sm_scale, stream
-    ]
-    fwd = lib.mfar_flash_simt_fwd
-    dq, dkv = lib.mfar_flash_simt_bwd_dq, lib.mfar_flash_simt_bwd_dkv
-    fwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + tail  # bf16, q k v seg, out lse
-    dq.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + tail  # q k v o dout seg lse, dq di
-    dkv.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + tail  # q k v dout seg lse di, dk dv
-    fwd.restype = dq.restype = dkv.restype = ctypes.c_int
-    return fwd, dq, dkv
-
-
 def _launch_forward(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tensor:
-    """K2 on checked CUDA inputs, by :func:`forward_route`; with ``lse`` (a
-    contiguous f32 [B, H, S]) it also writes each row's logsumexp there."""
-    return _FORWARDS[forward_route(q, k, v)](q, k, v, segment_ids, sm_scale, lse)
+    """K2 on checked CUDA inputs, by :func:`forward_route` (on a padding
+    route, the route of the padded copies, the output a view of its first D
+    columns); with ``lse`` (a contiguous f32 [B, H, S]) it also writes each
+    row's logsumexp there."""
+    route, d = forward_route(q, k, v), q.shape[-1]
+    if route not in _PAD_COLUMNS:
+        return _FORWARDS[route](q, k, v, segment_ids, sm_scale, lse)
+    q, k, v = (pad_heads(t, _padded_width(route, d)) for t in (q, k, v))
+    out = _FORWARDS[forward_route(q, k, v)](q, k, v, segment_ids, sm_scale, lse)
+    flash_attention.pad_launches[route] += 1
+    return out[..., :d]
 
 
 def _wgmma_forward(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tensor:
@@ -500,7 +487,9 @@ def flash_attention(
     not take.
 
     On the card the result is a ``[B, H, S, D]`` view of a ``[B, S, H, D]``
-    buffer, so ``out.transpose(1, 2).reshape(B, S, H * D)`` is a view."""
+    buffer, so ``out.transpose(1, 2).reshape(B, S, H * D)`` is a view (of a
+    ``[B, S, H, D']`` one on the padding routes, where that reshape
+    copies)."""
     _check_inputs(q, k, v, segment_ids)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, segment_ids, sm_scale)
@@ -564,12 +553,11 @@ def flash_attention_bwd(
     route = backward_route(q, k, v)
     d = q.shape[-1]
     if route in _PAD_COLUMNS:
-        width = -(-d // _PAD_COLUMNS[route]) * _PAD_COLUMNS[route]
+        width = _padded_width(route, d)
         q, k, v, o, dout = (pad_heads(t, width) for t in (q, k, v, o, dout))
         route = backward_route(q, k, v)
     dq_fn, dkv_fn = _BACKWARDS[route]
-    readable = _simt_readable if route == "simt" else _kernel_readable
-    if not readable(dout):
+    if not _kernel_readable(dout):
         dout = dout.contiguous()
         flash_attention_bwd.dout_copies += 1
     lse = lse.contiguous()
@@ -593,6 +581,11 @@ def _check_readable(readable=_kernel_readable, **ts: torch.Tensor) -> None:
         if not readable(t):
             raise ValueError(f"{name} strides {t.stride()} from a {t.data_ptr() % 16}-byte "
                              f"offset: the kernels cannot read it")
+
+
+def _wide(q: torch.Tensor) -> int:
+    """1 where a pair runs its wide instance at q's head dim, else 0."""
+    return int(q.shape[-1] > WIDE_BWD_HEAD_DIM[q.dtype])
 
 
 def _tensor_core_dq(kernels, what, q, k, v, segment_ids, lse, o, dout, sm_scale):
@@ -652,11 +645,12 @@ def flash_attention_bwd_dkv(q, k, v, segment_ids, lse, di, dout, sm_scale):
 
 def flash_attention_bwd_headdim_dq(q, k, v, segment_ids, lse, o, dout, sm_scale):
     """Kernel dq at a head dim other than 64 (bf16, D a multiple of 8 up to
-    128, ceil(D / 64) slabs; operands TMA reads) on checked CUDA inputs:
+    256, ceil(D / 64) slabs; operands TMA reads) on checked CUDA inputs:
     (dq, di) as :func:`flash_attention_bwd_dq` gives them."""
     out = _tensor_core_dq(_bwd_kernels, "flash_attention_bwd_headdim_dq", q, k, v, segment_ids,
                           lse, o, dout, sm_scale)
     flash_attention_bwd_headdim_dq.launches += 1
+    flash_attention_bwd_headdim_dq.wide_launches += _wide(q)
     return out
 
 
@@ -667,16 +661,18 @@ def flash_attention_bwd_headdim_dkv(q, k, v, segment_ids, lse, di, dout, sm_scal
     out = _tensor_core_dkv(_bwd_kernels, "flash_attention_bwd_headdim_dkv", q, k, v, segment_ids,
                            lse, di, dout, sm_scale)
     flash_attention_bwd_headdim_dkv.launches += 1
+    flash_attention_bwd_headdim_dkv.wide_launches += _wide(q)
     return out
 
 
 def flash_attention_tf32_bwd_dq(q, k, v, segment_ids, lse, o, dout, sm_scale):
     """K2b's f32 dq kernel on the tensor cores in 3xTF32 (f32, D a multiple
-    of 4 up to 64, operands TMA reads) on checked CUDA inputs: (dq, di) as
+    of 4 up to 256, operands TMA reads) on checked CUDA inputs: (dq, di) as
     :func:`flash_attention_bwd_dq` gives them."""
     out = _tensor_core_dq(_tf32_bwd_kernels, "flash_attention_tf32_bwd_dq", q, k, v, segment_ids,
                           lse, o, dout, sm_scale)
     flash_attention_tf32_bwd_dq.launches += 1
+    flash_attention_tf32_bwd_dq.wide_launches += _wide(q)
     return out
 
 
@@ -686,88 +682,28 @@ def flash_attention_tf32_bwd_dkv(q, k, v, segment_ids, lse, di, dout, sm_scale):
     out = _tensor_core_dkv(_tf32_bwd_kernels, "flash_attention_tf32_bwd_dkv", q, k, v,
                            segment_ids, lse, di, dout, sm_scale)
     flash_attention_tf32_bwd_dkv.launches += 1
+    flash_attention_tf32_bwd_dkv.wide_launches += _wide(q)
     return out
 
 
-def _simt_flag(q: torch.Tensor) -> int:
-    return int(q.dtype == torch.bfloat16)
-
-
-def flash_attention_simt(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tensor:
-    """K2's CUDA-core kernel on checked CUDA inputs (f32 or bf16, any D up
-    to 256, any strides with D contiguous: the ``"simt"`` route, what TMA
-    cannot read): the output as a ``[B, H, S, D]`` view of a ``[B, S, H,
-    D]`` buffer; with ``lse`` (a contiguous f32 [B, H, S]) it also writes
-    each row's logsumexp there."""
-    if lse is not None:
-        _check_rows(lse=lse)
-    b, h, s, d = q.shape
-    out = _empty_bshd(q)
-    with torch.cuda.device(q.device):
-        err = _simt_kernels()[0](
-            _simt_flag(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
-            out.data_ptr(), None if lse is None else lse.data_ptr(), b, h, s, d,
-            _strides(q, k, v, out), sm_scale, _stream(q),
-        )
-    _raise_on(err, "flash_attention_simt")
-    flash_attention_simt.launches += 1
-    return out
-
-
-def flash_attention_simt_bwd_dq(q, k, v, segment_ids, lse, o, dout, sm_scale):
-    """K2b's CUDA-core dq kernel on checked CUDA inputs: (dq, di) as
-    :func:`flash_attention_bwd_dq` gives them."""
-    _check_rows(lse=lse)
-    _check_readable(_simt_readable, o=o, dout=dout)
-    b, h, s, d = q.shape
-    dq = _empty_bshd(q)
-    di = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _simt_kernels()[1](
-            _simt_flag(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            dout.data_ptr(), segment_ids.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-            di.data_ptr(), b, h, s, d, _strides(q, k, v, o, dout, dq), sm_scale, _stream(q),
-        )
-    _raise_on(err, "flash_attention_simt_bwd_dq")
-    flash_attention_simt_bwd_dq.launches += 1
-    return dq, di
-
-
-def flash_attention_simt_bwd_dkv(q, k, v, segment_ids, lse, di, dout, sm_scale):
-    """K2b's CUDA-core dkv kernel on checked CUDA inputs and dq's ``di``:
-    (dk, dv)."""
-    _check_rows(lse=lse, di=di)
-    _check_readable(_simt_readable, dout=dout)
-    b, h, s, d = q.shape
-    dk, dv = _empty_bshd(q), _empty_bshd(q)
-    with torch.cuda.device(q.device):
-        err = _simt_kernels()[2](
-            _simt_flag(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            segment_ids.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, h, s, d, _strides(q, k, v, dout, dk, dv), sm_scale, _stream(q),
-        )
-    _raise_on(err, "flash_attention_simt_bwd_dkv")
-    flash_attention_simt_bwd_dkv.launches += 1
-    return dk, dv
-
-
-# the column multiple that each padding route of backward_route rounds D up
-# to: the wgmma pair reads 16-byte rows of bf16, the 3xTF32 pair of f32
+# the column multiple that each padding route rounds D up to: the wgmma
+# kernels read 16-byte rows of bf16, the 3xTF32 kernels of f32
 _PAD_COLUMNS = {"wgmma_pad": 8, "tf32_pad": 4}
 
 # each route's forward, by forward_route's name, and backward pair (dq,
 # dkv), by backward_route's
 _FORWARDS = {"wgmma": _wgmma_forward, "wgmma_headdim": flash_attention_headdim,
              "tf32": flash_attention_tf32, "wgmma_rows": flash_attention_rows,
-             "tf32_rows": flash_attention_tf32_rows, "simt": flash_attention_simt}
+             "tf32_rows": flash_attention_tf32_rows}
 _BACKWARDS = {"wgmma": (flash_attention_bwd_dq, flash_attention_bwd_dkv),
               "wgmma_headdim": (flash_attention_bwd_headdim_dq, flash_attention_bwd_headdim_dkv),
-              "tf32": (flash_attention_tf32_bwd_dq, flash_attention_tf32_bwd_dkv),
-              "simt": (flash_attention_simt_bwd_dq, flash_attention_simt_bwd_dkv)}
+              "tf32": (flash_attention_tf32_bwd_dq, flash_attention_tf32_bwd_dkv)}
 
 # launches of the CUDA kernels, one count a kernel and route (CPU calls of
-# the plain versions do not count)
+# the plain versions do not count); of those, the forward's padding routes'
+# and the backward pairs' wide instances apart
 flash_attention.launches = 0
+flash_attention.pad_launches = dict.fromkeys(_PAD_COLUMNS, 0)
 flash_attention_headdim.launches = 0
 flash_attention_tf32.launches = 0
 flash_attention_rows.launches = 0
@@ -778,6 +714,5 @@ flash_attention_bwd_headdim_dq.launches = 0
 flash_attention_bwd_headdim_dkv.launches = 0
 flash_attention_tf32_bwd_dq.launches = 0
 flash_attention_tf32_bwd_dkv.launches = 0
-flash_attention_simt.launches = 0
-flash_attention_simt_bwd_dq.launches = 0
-flash_attention_simt_bwd_dkv.launches = 0
+flash_attention_bwd_headdim_dq.wide_launches = flash_attention_bwd_headdim_dkv.wide_launches = 0
+flash_attention_tf32_bwd_dq.wide_launches = flash_attention_tf32_bwd_dkv.wide_launches = 0

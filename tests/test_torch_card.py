@@ -22,12 +22,12 @@ bf16 (2**-8 relative), and the kernels round P and dS to bf16 before
 products summed over up to 512 rows, where the plain version stays in f32.
 
 Tolerance for K2's other forwards (the wgmma kernel at another head dim,
-the 3xTF32 kernel, the CUDA-core kernel) and K2b's other pairs (the wgmma
-pair at another head dim, the 3xTF32 pair, the CUDA-core pair) in f32: the
-output within 2e-5, the logsumexp within 1e-5, each gradient within 2e-5
-of its largest entry (f32-accurate products on both sides: f32 FMA or
-three TF32 products against f32 matmuls with TF32 off, summed in other
-orders); in bf16 the K2 and K2b tolerances above.
+the 3xTF32 kernel, either on row maps or on zero-padded copies) and K2b's
+other pairs (the wgmma pair at another head dim, the 3xTF32 pair, either
+on zero-padded copies) in f32: the output within 2e-5, the logsumexp
+within 1e-5, each gradient within 2e-5 of its largest entry (f32-accurate
+products on both sides: three TF32 products against f32 matmuls with TF32
+off, summed in other orders); in bf16 the K2 and K2b tolerances above.
 """
 
 import copy
@@ -57,9 +57,6 @@ from mfar_tpu_torch.ops.flash_attention import (
     flash_attention_headdim,
     flash_attention_plain,
     flash_attention_rows,
-    flash_attention_simt,
-    flash_attention_simt_bwd_dkv,
-    flash_attention_simt_bwd_dq,
     flash_attention_tf32,
     flash_attention_tf32_bwd_dkv,
     flash_attention_tf32_bwd_dq,
@@ -323,39 +320,56 @@ def test_k2_refuses_f32_on_the_card(card):
         (before[0], before[1] + 1)
     assert got.dtype == torch.float32 and got.transpose(1, 2).is_contiguous()
     torch.testing.assert_close(got, flash_attention_plain(q, k, v, seg, 0.125), rtol=0,
-                               atol=SIMT_F32_ATOL)
+                               atol=F32_ATOL)
 
 
-SIMT_F32_ATOL, SIMT_LSE_ATOL, SIMT_GRAD_REL = 2e-5, 1e-5, 2e-5
+F32_ATOL, F32_LSE_ATOL, F32_GRAD_REL = 2e-5, 1e-5, 2e-5
 
 
 def _forward_counts():
     return {"wgmma": flash_attention.launches, "wgmma_headdim": flash_attention_headdim.launches,
             "tf32": flash_attention_tf32.launches, "wgmma_rows": flash_attention_rows.launches,
-            "tf32_rows": flash_attention_tf32_rows.launches,
-            "simt": flash_attention_simt.launches}
+            "tf32_rows": flash_attention_tf32_rows.launches}
 
 
 # K2b's pairs (dq, dkv) by backward_route's name
 _BWD_PAIRS = {"wgmma": (flash_attention_bwd_dq, flash_attention_bwd_dkv),
               "wgmma_headdim": (flash_attention_bwd_headdim_dq, flash_attention_bwd_headdim_dkv),
-              "tf32": (flash_attention_tf32_bwd_dq, flash_attention_tf32_bwd_dkv),
-              "simt": (flash_attention_simt_bwd_dq, flash_attention_simt_bwd_dkv)}
+              "tf32": (flash_attention_tf32_bwd_dq, flash_attention_tf32_bwd_dkv)}
+
+# each padding route's column multiple: the kernels read 16-byte rows
+_PAD_MULTIPLE = {"wgmma_pad": 8, "tf32_pad": 4}
+
+
+def _padded(route, d):
+    """The head dim of a route's inputs to its kernels: D rounded up to the
+    padding route's multiple, else D."""
+    m = _PAD_MULTIPLE.get(route, 1)
+    return -(-d // m) * m
 
 
 def _backward_counts():
     return {route: (dq.launches, dkv.launches) for route, (dq, dkv) in _BWD_PAIRS.items()}
 
 
-# (Named when these inputs took the CUDA-core backward.)  Head dims other
-# than 64 in both dtypes: ragged pads and the segment layouts, strided dO;
-# the forward on its route (the wgmma kernel at another head dim in bf16,
-# the 3xTF32 kernel in f32), the backward on its pair (the wgmma pair at
-# another head dim in bf16, the 3xTF32 pair in f32 up to D = 64, the
-# CUDA-core pair at f32 D = 128)
-@pytest.mark.parametrize("d", [16, 32, 128])
+# the head dim past which a pair runs its wide instances, counted apart
+_WIDE_PAST = {"wgmma_headdim": 128, "tf32": 64}
+
+
+def _wide_counts():
+    return {route: (_BWD_PAIRS[route][0].wide_launches, _BWD_PAIRS[route][1].wide_launches)
+            for route in _WIDE_PAST}
+
+
+# Head dims other than 64 in both dtypes: ragged pads and the segment
+# layouts, strided dO; the forward on its route (the wgmma kernel at
+# another head dim in bf16, the 3xTF32 kernel in f32), the backward on its
+# pair through flash_attention_bwd (the wgmma pair at another head dim in
+# bf16, past D = 128 in its wide shape; the 3xTF32 pair in f32, past D = 64
+# in its wide shape)
+@pytest.mark.parametrize("d", [16, 32, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_simt_kernels_match_plain(card, dtype, d):
+def test_other_head_dim_kernels_match_plain(card, dtype, d):
     rng = np.random.default_rng(d)
     b, h, s = 3, 2, 256
     q, k, v, dout = (torch.from_numpy(rng.normal(size=(b, s, h * d)).astype(np.float32))
@@ -363,8 +377,7 @@ def test_simt_kernels_match_plain(card, dtype, d):
     seg = torch.tensor([SEG_LAYOUTS["runs"][0], SEG_LAYOUTS["interleaved"][0],
                         [1] * 70 + [0] * 186], dtype=torch.int32, device=card)
     scale = 1.0 / d**0.5
-    route = "tf32" if dtype == torch.float32 else "wgmma_headdim"
-    bwd_route = "simt" if (dtype, d) == (torch.float32, 128) else route
+    route = bwd_route = "tf32" if dtype == torch.float32 else "wgmma_headdim"
     assert forward_route(q, k, v) == route and backward_route(q, k, v) == bwd_route
     before = (_forward_counts(), _backward_counts())
     out, lse = flash_attention_fwd(q, k, v, seg, scale)
@@ -376,13 +389,13 @@ def test_simt_kernels_match_plain(card, dtype, d):
     assert (_forward_counts(), _backward_counts()) == want_counts
     want = flash_attention_plain(q, k, v, seg, scale)
     if dtype == torch.float32:
-        torch.testing.assert_close(out, want, rtol=0, atol=SIMT_F32_ATOL)
+        torch.testing.assert_close(out, want, rtol=0, atol=F32_ATOL)
         for g, w in zip(grads, flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale)):
-            torch.testing.assert_close(g, w, rtol=0, atol=SIMT_GRAD_REL * w.abs().max().item())
+            torch.testing.assert_close(g, w, rtol=0, atol=F32_GRAD_REL * w.abs().max().item())
     else:
         torch.testing.assert_close(out.float(), want.float(), rtol=K2_TOL, atol=K2_TOL)
         _close_to_largest(grads, flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale))
-    torch.testing.assert_close(lse, _masked_lse(q, k, seg, scale), rtol=0, atol=SIMT_LSE_ATOL)
+    torch.testing.assert_close(lse, _masked_lse(q, k, seg, scale), rtol=0, atol=F32_LSE_ATOL)
     for g in grads:
         assert g.dtype == dtype and g.transpose(1, 2).is_contiguous()
     dq, di = _BWD_PAIRS[bwd_route][0](q, k, v, seg, lse, out, dout, scale)
@@ -401,13 +414,17 @@ def _route_inputs(dtype, d, layout, seed):
     """[2, 3, 256, d] q/k/v and dO with ragged and interleaved segments:
     the encoder's strided views (``layout`` "encoder"; "encoder_h8": at 8
     heads, whose rows are 16-byte multiples at any D), views that start
-    one element into their buffers ("offset"), which TMA cannot read, or
+    one element into their buffers ("offset"), which TMA cannot read,
     ("padded_rows") views of [B, S, H*d + 2] buffers, whose rows are not
-    16 bytes apart."""
+    16 bytes apart, or ("d_strided") views of [B, H, d, S] buffers, whose D
+    stride is S."""
     rng = np.random.default_rng(seed)
     b, h, s = 2, 8 if layout == "encoder_h8" else 3, 256
 
     def one():
+        if layout == "d_strided":
+            x = rng.normal(size=(b, h, d, s)).astype(np.float32)
+            return torch.from_numpy(x).cuda().to(dtype).transpose(-1, -2)
         if layout == "padded_rows":
             x = rng.normal(size=(b, s, h * d + 2)).astype(np.float32)
             return torch.from_numpy(x).cuda().to(dtype)[..., :h * d].view(b, s, h, d) \
@@ -427,9 +444,10 @@ def _route_inputs(dtype, d, layout, seed):
 # in f32), the same kernels on row maps for heads TMA cannot read one by
 # one (bf16 D = 2, 20, 25: odd, 26: TinyBERT's, 126: two slabs; f32 D = 2,
 # 26, 62: two slabs; 8 heads a row, the last one's box reaching the map's
-# zero fill) and the CUDA-core kernel for what no map reads (three heads of
+# zero fill) and the padding routes for what no map reads (three heads of
 # D = 20 bf16 or 26 f32: rows of 120 or 312 bytes; a view off a 16-byte
-# boundary)
+# boundary; heads side by side past the rows routes' D), on the kernel of
+# their zero-padded copies
 @pytest.mark.parametrize("dtype,d,layout,route", [
     (torch.bfloat16, 16, "encoder", "wgmma_headdim"),
     (torch.bfloat16, 40, "encoder", "wgmma_headdim"),
@@ -447,41 +465,52 @@ def _route_inputs(dtype, d, layout, seed):
     (torch.float32, 2, "encoder_h8", "tf32_rows"),
     (torch.float32, 26, "encoder_h8", "tf32_rows"),
     (torch.float32, 62, "encoder_h8", "tf32_rows"),
-    (torch.bfloat16, 20, "encoder", "simt"),
-    (torch.float32, 26, "encoder", "simt"),
-    (torch.bfloat16, 64, "offset", "simt"),
-    (torch.float32, 64, "offset", "simt"),
+    (torch.bfloat16, 20, "encoder", "wgmma_pad"),
+    (torch.float32, 26, "encoder", "tf32_pad"),
+    (torch.bfloat16, 64, "offset", "wgmma_pad"),
+    (torch.float32, 64, "offset", "tf32_pad"),
+    (torch.bfloat16, 250, "encoder_h8", "wgmma_pad"),
+    (torch.float32, 254, "encoder_h8", "tf32_pad"),
+    (torch.bfloat16, 64, "d_strided", "wgmma_pad"),
+    (torch.float32, 32, "d_strided", "tf32_pad"),
 ], ids=lambda x: str(x).replace("torch.", ""))
 def test_forward_routes_match_plain(card, dtype, d, layout, route):
     q, k, v, seg, dout = _route_inputs(dtype, d, layout, seed=d)
     scale = 1.0 / d**0.5
     assert forward_route(q, k, v) == route
-    before = _forward_counts()
+    width = _padded(route, d)
+    kernel = route if width == d and route not in _PAD_MULTIPLE else forward_route(
+        *(pad_heads(t, width) for t in (q, k, v)))
+    before, pad_before = _forward_counts(), dict(flash_attention.pad_launches)
     out, lse = flash_attention_fwd(q, k, v, seg, scale)
     got = flash_attention(q, k, v, seg, scale)
     torch.cuda.synchronize()
-    assert _forward_counts() == dict(before, **{route: before[route] + 2})
+    assert _forward_counts() == dict(before, **{kernel: before[kernel] + 2})
+    # the padding routes counted apart too
+    assert flash_attention.pad_launches == dict(
+        pad_before, **({route: pad_before[route] + 2} if route in _PAD_MULTIPLE else {}))
     torch.testing.assert_close(got, out, rtol=0, atol=0)
-    assert out.dtype == dtype and out.transpose(1, 2).is_contiguous()
+    b, h, s = q.shape[:3]  # a view of a [B, S, H, D'] buffer (D' = D off the padding routes)
+    assert out.dtype == dtype and out.transpose(1, 2).stride() == (s * h * width, h * width,
+                                                                   width, 1)
     want = flash_attention_plain(q, k, v, seg, scale)
     if dtype == torch.float32:
-        torch.testing.assert_close(out, want, rtol=0, atol=SIMT_F32_ATOL)
+        torch.testing.assert_close(out, want, rtol=0, atol=F32_ATOL)
     else:
         torch.testing.assert_close(out.float(), want.float(), rtol=K2_TOL, atol=K2_TOL)
-    torch.testing.assert_close(lse, _masked_lse(q, k, seg, scale), rtol=0, atol=SIMT_LSE_ATOL)
+    torch.testing.assert_close(lse, _masked_lse(q, k, seg, scale), rtol=0, atol=F32_LSE_ATOL)
     # a bf16 D = 64 input TMA cannot read trains through the wgmma pair on
-    # padded copies (at D = 64 no columns are added), not the CUDA-core pair
+    # padded copies (at D = 64 no columns are added), and nothing else
     if layout == "offset" and dtype == torch.bfloat16:
-        dq_before = (flash_attention_bwd_dq.launches, flash_attention_simt_bwd_dq.launches)
+        before = _backward_counts()
         grads = flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
         torch.cuda.synchronize()
-        assert (flash_attention_bwd_dq.launches, flash_attention_simt_bwd_dq.launches) == \
-            (dq_before[0] + 1, dq_before[1])
+        assert _backward_counts() == dict(before, wgmma=tuple(n + 1 for n in before["wgmma"]))
         _close_to_largest(grads, flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale))
 
 
 # each backward route's pair against the plain backward at small head dims,
-# on both sides of the tensor-core pairs' caps (bf16 D = 128, f32 D = 64):
+# on both sides of the wide shapes' edges (bf16 D = 128, f32 D = 64):
 # the wgmma pair at one and two slabs (D = 16, 40: stores that stop inside a
 # slab; 72: a second slab of 8 columns), the same pair on zero-padded
 # copies of bf16 rows TMA cannot read (D = 26, TinyBERT's, padded to 32;
@@ -489,8 +518,9 @@ def test_forward_routes_match_plain(card, dtype, d, layout, route):
 # its buffer; D = 64 with rows 388 bytes apart), the 3xTF32 pair at one and
 # two slabs of 32 and on zero-padded copies of f32 rows TMA cannot read
 # (D = 26, TinyBERT's, padded to 28; a D = 64 view 4 bytes off its
-# buffer), the CUDA-core pair past the caps; three heads a row, so a store
-# past D would run into the next head
+# buffer), the wide pairs past those edges (bf16 D = 136, 192, 256 and, on
+# copies, 130; f32 D = 68, 96, 128, 256 and, on copies, 66); three heads a
+# row, so a store past D would run into the next head
 @pytest.mark.parametrize("dtype,d,layout,route", [
     (torch.bfloat16, 16, "encoder", "wgmma_headdim"),
     (torch.bfloat16, 40, "encoder", "wgmma_headdim"),
@@ -503,14 +533,23 @@ def test_forward_routes_match_plain(card, dtype, d, layout, route):
     (torch.bfloat16, 126, "encoder", "wgmma_pad"),
     (torch.bfloat16, 26, "offset", "wgmma_pad"),
     (torch.bfloat16, 64, "padded_rows", "wgmma_pad"),
-    (torch.bfloat16, 136, "encoder", "simt"),
+    (torch.bfloat16, 136, "encoder", "wgmma_headdim"),
+    (torch.bfloat16, 192, "encoder", "wgmma_headdim"),
+    (torch.bfloat16, 256, "encoder", "wgmma_headdim"),
+    (torch.bfloat16, 130, "encoder", "wgmma_pad"),
     (torch.float32, 16, "encoder", "tf32"),
     (torch.float32, 20, "encoder", "tf32"),
     (torch.float32, 36, "encoder", "tf32"),
     (torch.float32, 64, "encoder", "tf32"),
-    (torch.float32, 68, "encoder", "simt"),
+    (torch.float32, 68, "encoder", "tf32"),
+    (torch.float32, 96, "encoder", "tf32"),
+    (torch.float32, 128, "encoder", "tf32"),
+    (torch.float32, 256, "encoder", "tf32"),
+    (torch.float32, 66, "encoder", "tf32_pad"),
     (torch.float32, 64, "offset", "tf32_pad"),
     (torch.float32, 26, "encoder", "tf32_pad"),
+    (torch.bfloat16, 64, "d_strided", "wgmma_pad"),
+    (torch.float32, 32, "d_strided", "tf32_pad"),
 ], ids=lambda x: str(x).replace("torch.", ""))
 def test_backward_routes_match_plain(card, dtype, d, layout, route):
     q, k, v, seg, dout = _route_inputs(dtype, d, layout, seed=100 + d)
@@ -526,14 +565,17 @@ def test_backward_routes_match_plain(card, dtype, d, layout, route):
         pair = backward_route(*args[:3])
         assert pair == ("tf32" if route == "tf32_pad" else
                         "wgmma" if d8 == 64 else "wgmma_headdim")
-    before = _backward_counts()
+    before, wide_before = _backward_counts(), _wide_counts()
     grads = flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
     torch.cuda.synchronize()
     assert _backward_counts() == dict(before, **{pair: tuple(n + 1 for n in before[pair])})
+    wide = d8 > _WIDE_PAST.get(pair, 256)  # past the edge the wide instances, counted apart
+    assert _wide_counts() == dict(
+        wide_before, **({pair: tuple(n + 1 for n in wide_before[pair])} if wide else {}))
     want = flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale)
     if dtype == torch.float32:
         for g, w in zip(grads, want):
-            torch.testing.assert_close(g, w, rtol=0, atol=SIMT_GRAD_REL * w.abs().max().item())
+            torch.testing.assert_close(g, w, rtol=0, atol=F32_GRAD_REL * w.abs().max().item())
     else:
         _close_to_largest(grads, want)
     b, h, s = q.shape[:3]
@@ -586,7 +628,7 @@ def test_tinybert_width_auto_encoder_reads_rows_in_place(card, dtype):
     """An encoder at TinyBERT_General_4L_312D's width (hidden 312, 12 heads
     of D = 26, intermediate 1200; 2 layers) with "auto" on the card takes
     the rows route once a layer ("wgmma_rows" in bf16, "tf32_rows" in f32),
-    never the CUDA-core forward, and agrees with "xla" on the valid tokens
+    never the padding route, and agrees with "xla" on the valid tokens
     and the pooled embedding (bf16: rtol = atol = 5e-2, as the D = 64 test
     below; f32: atol 1e-4, as the f32 test below)."""
     cfg = EncoderConfig.tiny(vocab_size=97, hidden_size=312, num_heads=12, num_layers=2,
@@ -622,8 +664,8 @@ def test_tensor_core_forwards_refuse_what_tma_cannot_read(card):
             fn(q, k, v, seg, 0.2)
 
 
-def test_f32_auto_encoder_launches_the_simt_kernel(card):
-    """(Named when f32 took the CUDA-core K2.)  An f32 encoder
+def test_f32_auto_encoder_launches_the_tf32_kernel(card):
+    """An f32 encoder
     (EncoderConfig.tiny: D = 16) with "auto" on the card takes the 3xTF32
     K2, not plain attention, and agrees with "xla" on the valid tokens and
     the pooled embedding (f32 through two layers, attention summed in
@@ -858,6 +900,30 @@ def test_k2_function_grads_match_plain_autograd(card):
     _close_to_largest(got, want)
 
 
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "wgmma_headdim"),
+                                          (torch.float32, "tf32")], ids=["bf16", "f32"])
+def test_padding_routes_train_through_autograd(card, dtype, kernel):
+    """flash_attention under autograd on a contiguous [B, H, S, 26], which
+    no map reads: the forward and the backward both on zero-padded copies
+    (the forward's output a view of its first 26 columns), one launch each
+    of the copies' kernels, against autograd through the plain version."""
+    q, k, v, seg, dout = _route_inputs(dtype, 26, "offset", seed=26)
+    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    before = (_forward_counts(), _backward_counts())
+    got = torch.autograd.grad(flash_attention(*leaves, seg, 0.2), leaves, dout)
+    torch.cuda.synchronize()
+    assert _forward_counts() == dict(before[0], **{kernel: before[0][kernel] + 1})
+    assert _backward_counts() == dict(before[1], **{kernel: tuple(
+        n + 1 for n in before[1][kernel])})
+    want = torch.autograd.grad(flash_attention_plain(*leaves, seg, 0.2), leaves, dout)
+    if dtype == torch.float32:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=F32_GRAD_REL * w.abs().max().item())
+    else:
+        _close_to_largest(got, want)
+
+
 def _tiny_batch(rng, b=4, seq=128, query_seq=16, vocab=97):
     def toks(n, length):
         mask = np.zeros((n, length), np.int64)
@@ -917,14 +983,14 @@ def test_f32_flash_training_input_raises(card):
         model.encoder.load_state_dict(init_encoder(cfg, seed=11).state_dict())
         model = model.to(card).train()
         before = (flash_attention_tf32.launches, flash_attention_tf32_bwd_dq.launches,
-                  flash_attention_tf32_bwd_dkv.launches, flash_attention_simt_bwd_dq.launches)
+                  flash_attention_tf32_bwd_dkv.launches, flash_attention_bwd_headdim_dq.launches)
         loss = model.compute_loss(batch["query"], batch["pos"], batch["neg"],
                                   generator=torch.Generator().manual_seed(3))
         loss.backward()
         launched = (flash_attention_tf32.launches - before[0],
                     flash_attention_tf32_bwd_dq.launches - before[1],
                     flash_attention_tf32_bwd_dkv.launches - before[2],
-                    flash_attention_simt_bwd_dq.launches - before[3])
+                    flash_attention_bwd_headdim_dq.launches - before[3])
         assert (min(launched[:3]) > 0) == (impl == "flash") and launched[3] == 0, launched
         out[impl] = (loss.item(), torch.cat([p.grad.flatten() for p in model.parameters()]))
     assert out["flash"][0] == pytest.approx(out["xla"][0], rel=1e-5)

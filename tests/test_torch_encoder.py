@@ -149,7 +149,7 @@ def test_flash_encoder_matches_jax_xla_on_valid_tokens():
 ])
 def test_flash_encoder_matches_jax_xla_at_other_head_dims(kw, dtype, atol):
     """The port's "flash" encoder on the CPU (K2's plain version, the
-    function the card's CUDA-core route computes) against JAX's "xla"
+    function every route of the card computes) against JAX's "xla"
     encoder on carried weights at head dims other than 64: valid tokens
     and the pooled embedding agree."""
     jdt, tdt = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]

@@ -90,7 +90,7 @@ SEG_LAYOUTS = {
 # D = 64 (Contriever-base) on every layout; then the head dims JAX's kernel
 # takes and the port's D = 64 wgmma kernels do not: 16 (EncoderConfig.tiny),
 # 32 (the synthetic models, all-MiniLM-L6-v2's width), 128 and 256, in both
-# dtypes (the card's CUDA-core route, whose plain version this is)
+# dtypes (the card's other routes, whose plain version this is)
 @pytest.mark.parametrize("dtype,layout,d", [
     pytest.param("f32", "runs", 64, id="f32-runs"),
     pytest.param("bf16", "runs", 64, id="bf16-runs"),
@@ -149,8 +149,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     for s in (64, 192):  # below 128, not a multiple of 128
         with pytest.raises(ValueError, match="multiple of 128"):
             flash_attention(q[:, :, :s], k[:, :, :s], v[:, :, :s], seg[:, :s], SCALE)
-    # D = 32 (a head dim the wgmma kernels do not take) runs: the CUDA-core
-    # kernels take it on the card, the plain version here
+    # D = 32 (a head dim the D = 64 wgmma kernels do not take) runs: the
+    # wgmma kernels at one slab take it on the card, the plain version here
     got = flash_attention(q[..., :32], k[..., :32], v[..., :32], seg, SCALE)
     torch.testing.assert_close(got, flash_attention_plain(q[..., :32], k[..., :32],
                                                           v[..., :32], seg, SCALE))

@@ -87,9 +87,9 @@ def _jax_grads(q, k, v, dout, seg, dtype, scale=SCALE, key=None):
 # pad queries whose first key block is wholly valid (masked for them), a full
 # row, and rows of 65 and 131 tokens; then the segment layouts; all at D = 64
 # (sm_scale 0.125).  Then the head dims the wgmma kernels do not take (the
-# card's CUDA-core route, whose plain version this is) at sm_scale 1 / sqrt(D):
-# 16, 26 (TinyBERT-4L-312D's: padded for the wgmma pair in bf16, the
-# CUDA-core pair in f32), 32 and 128 in both dtypes, and 256 in f32
+# card's other routes, whose plain version this is) at sm_scale 1 / sqrt(D):
+# 16, 26 (TinyBERT-4L-312D's: padded for the wgmma pair in bf16, for the
+# 3xTF32 pair in f32), 32 and 128 in both dtypes, and 256 in f32
 @pytest.mark.parametrize("dtype,s,lengths,d", [
     pytest.param("f32", 256, [70, 200], 64, id="f32-256-lengths0"),
     pytest.param("bf16", 128, [128, 65], 64, id="bf16-128-lengths1"),
@@ -160,7 +160,7 @@ def test_pad_route_arithmetic_keeps_the_bf16_gates_against_pallas(d):
     want = _jax_grads(q, k, v, dout, seg, jnp.bfloat16, scale, key=("bf16", s, str(lengths), d))
     tq, tk, tv, tdo = (torch.from_numpy(a).bfloat16() for a in (q, k, v, dout))
     tseg = torch.from_numpy(seg)
-    out, lse = flash_attention_fwd(tq, tk, tv, tseg, scale)  # the CUDA-core forward's plain
+    out, lse = flash_attention_fwd(tq, tk, tv, tseg, scale)  # the forward's plain
     for g, w in zip(_bwd_padded(tq, tk, tv, tseg, out, lse, tdo, scale), want):
         assert g.shape == (2, 2, s, 64) and bool((g[..., d:] == 0).all())
         np.testing.assert_allclose(g[..., :d].float().numpy(), w, rtol=2e-2,

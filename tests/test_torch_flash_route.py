@@ -5,7 +5,10 @@ backward's pair from dtype, head dim and strides alone; they are held here
 on CPU tensors laid out as each class of input is (the encoder's strided
 views at 2, 8 and 1 heads, a contiguous tensor, a view that starts off a
 16-byte boundary, rows padded to a stride that is not a multiple of 16
-bytes), on both sides of the backward's caps (bf16 D = 128, f32 D = 64).
+bytes, a D stride other than 1), at every head dim from 1 to 256: each
+input takes a tensor-core route, on the copies that ``pad_heads``
+zero-pads to D rounded up to 8 (bf16) or 4 (f32) where TMA cannot read
+it.
 
 The forward's rows routes (``"wgmma_rows"``, ``"tf32_rows"``) read the
 encoder's ``[B, S, H*D]`` rows in place where no per-head tensor map can
@@ -33,7 +36,10 @@ its products (S, dP, dV, dK, dQ) in 3xTF32 with P and dS kept in f32;
 gradients (2e-5 of the largest), which one TF32 product a product misses.
 It is held so too on zero-padded copies at TinyBERT-4L-312D's f32 D = 26
 (padded to 28), the card's ``"tf32_pad"`` route for f32 rows TMA cannot
-read.
+read, and past D = 64 in the wide kernels' order: the streamed rows summed
+in 32-row half tiles, dV and dK in blocks of their own.  The forward's
+padding routes (``"wgmma_pad"``, ``"tf32_pad"``) are held so on copies of
+a contiguous ``[B, H, S, 26]``.
 """
 
 import numpy as np
@@ -46,7 +52,12 @@ from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu import flash_attention as jax_fa
 from jax.experimental.pallas.ops.tpu.flash_attention import BlockSizes, SegmentIds
 
-from mfar_tpu_torch.ops.flash_attention import backward_route, flash_attention_fwd, forward_route
+from mfar_tpu_torch.ops.flash_attention import (
+    backward_route,
+    flash_attention_fwd,
+    forward_route,
+    pad_heads,
+)
 
 torch.set_num_threads(1)
 
@@ -68,10 +79,17 @@ def _layout(dtype, d, layout):
     if layout == "padded_rows":  # rows of H*d + 2 elements: not a multiple of 16 bytes
         buf = torch.zeros(B, S, H * d + 2, dtype=dtype)
         return buf[..., : H * d].view(B, S, H, d).transpose(1, 2)
+    if layout == "d_strided":  # [B, H, d, S] viewed as [B, H, S, d]: the D stride S
+        return torch.zeros(B, H, d, S, dtype=dtype).transpose(-1, -2)
     raise ValueError(layout)
 
 
 BF16, F32 = torch.bfloat16, torch.float32
+PAD = {BF16: "wgmma_pad", F32: "tf32_pad"}  # each dtype's padding route
+# the routes whose kernels read their operands through tensor maps, and
+# the padding routes, which copy them into buffers those kernels read
+TMA_ROUTES = {BF16: ("wgmma", "wgmma_headdim"), F32: ("tf32",)}
+ROWS_ROUTES = {BF16: "wgmma_rows", F32: "tf32_rows"}
 
 
 @pytest.mark.parametrize("dtype,d,layout,want", [
@@ -90,12 +108,12 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, 26, "encoder_h8", "wgmma_rows"),  # TinyBERT-4L-312D's heads
     (BF16, 126, "encoder_h8", "wgmma_rows"),  # three slabs: up to 7 columns into a box
     (BF16, 249, "encoder_h8", "wgmma_rows"),  # four slabs
-    (BF16, 250, "encoder_h8", "simt"),  # past four slabs
-    (BF16, 26, "encoder_h1", "simt"),  # rows of 52 bytes: no map reads them
-    (BF16, 26, "contiguous", "simt"),  # the heads not side by side
-    (BF16, 26, "offset", "simt"),
-    (BF16, 64, "offset", "simt"),
-    (BF16, 64, "padded_rows", "simt"),
+    (BF16, 250, "encoder_h8", "wgmma_pad"),  # past four slabs
+    (BF16, 26, "encoder_h1", "wgmma_pad"),  # rows of 52 bytes: no map reads them
+    (BF16, 26, "contiguous", "wgmma_pad"),  # the heads not side by side
+    (BF16, 26, "offset", "wgmma_pad"),
+    (BF16, 64, "offset", "wgmma_pad"),
+    (BF16, 64, "padded_rows", "wgmma_pad"),
     (F32, 64, "encoder", "tf32"),
     (F32, 20, "encoder", "tf32"),  # a multiple of 4
     (F32, 16, "contiguous", "tf32"),
@@ -105,19 +123,19 @@ BF16, F32 = torch.bfloat16, torch.float32
     (F32, 26, "encoder_h8", "tf32_rows"),
     (F32, 62, "encoder_h8", "tf32_rows"),  # up to three slabs
     (F32, 253, "encoder_h8", "tf32_rows"),  # eight slabs
-    (F32, 254, "encoder_h8", "simt"),  # past eight slabs
-    (F32, 26, "contiguous", "simt"),
-    (F32, 26, "offset", "simt"),
-    (F32, 64, "offset", "simt"),
-    (F32, 64, "padded_rows", "simt"),
+    (F32, 254, "encoder_h8", "tf32_pad"),  # past eight slabs
+    (F32, 26, "contiguous", "tf32_pad"),
+    (F32, 26, "offset", "tf32_pad"),
+    (F32, 64, "offset", "tf32_pad"),
+    (F32, 64, "padded_rows", "tf32_pad"),
 ], ids=lambda x: str(x).replace("torch.", ""))
 def test_forward_route(dtype, d, layout, want):
     t = _layout(dtype, d, layout)
     assert forward_route(t, t, t) == want
-    if want != "simt":  # one operand TMA cannot read sends all three to the CUDA cores
-        assert forward_route(t, t, _layout(dtype, d, "offset")) == "simt"
+    if want != PAD[dtype]:  # one operand TMA cannot read sends all three to the copies
+        assert forward_route(t, t, _layout(dtype, d, "offset")) == PAD[dtype]
     if want.endswith("_rows"):  # so does one whose heads are not side by side
-        assert forward_route(_layout(dtype, d, "contiguous"), t, t) == "simt"
+        assert forward_route(_layout(dtype, d, "contiguous"), t, t) == PAD[dtype]
 
 
 @pytest.mark.parametrize("dtype,d,layout,want", [
@@ -126,11 +144,11 @@ def test_forward_route(dtype, d, layout, want):
     (BF16, 16, "contiguous", "wgmma_headdim"),
     (BF16, 32, "encoder", "wgmma_headdim"),
     (BF16, 40, "encoder", "wgmma_headdim"),
-    (BF16, 128, "encoder", "wgmma_headdim"),  # the cap: two slabs of 64 columns
-    (BF16, 136, "encoder", "simt"),  # past the cap
-    (BF16, 256, "encoder", "simt"),
-    # what TMA cannot read, bf16 up to D = 128: copied into zero-padded
-    # buffers that TMA reads, for the wgmma pair
+    (BF16, 128, "encoder", "wgmma_headdim"),  # two slabs of 64 columns, two warpgroups
+    (BF16, 136, "encoder", "wgmma_headdim"),  # three slabs, one warpgroup, dkv split
+    (BF16, 256, "encoder", "wgmma_headdim"),
+    # what TMA cannot read: copied into zero-padded buffers that TMA reads,
+    # for the wgmma pair
     (BF16, 20, "encoder", "wgmma_pad"),  # D not a multiple of 8
     (BF16, 26, "contiguous", "wgmma_pad"),
     (BF16, 64, "padded_rows", "wgmma_pad"),  # rows 260 bytes apart
@@ -139,33 +157,52 @@ def test_forward_route(dtype, d, layout, want):
     (BF16, 126, "encoder", "wgmma_pad"),  # padded to 128: two slabs
     (BF16, 25, "encoder", "wgmma_pad"),  # odd D
     (BF16, 26, "offset", "wgmma_pad"),  # 2 bytes off a 4-byte boundary
-    (BF16, 130, "encoder", "simt"),  # past the cap
+    (BF16, 130, "encoder", "wgmma_pad"),  # padded to 136: three slabs
     (BF16, 64, "offset", "wgmma_pad"),
     (BF16, 32, "offset", "wgmma_pad"),
     (F32, 16, "contiguous", "tf32"),
     (F32, 20, "encoder", "tf32"),  # a multiple of 4
-    (F32, 64, "encoder", "tf32"),  # the cap: two slabs of 32 columns
-    (F32, 68, "encoder", "simt"),  # past the cap
-    (F32, 256, "encoder", "simt"),
-    # what TMA cannot read, f32 up to D = 64: copied into zero-padded
-    # buffers that TMA reads, for the 3xTF32 pair
+    (F32, 64, "encoder", "tf32"),  # two slabs of 32 columns, two warpgroups
+    (F32, 68, "encoder", "tf32"),  # three slabs: one warpgroup, 32-row half tiles
+    (F32, 256, "encoder", "tf32"),
+    # what TMA cannot read: copied into zero-padded buffers that TMA reads,
+    # for the 3xTF32 pair
     (F32, 26, "encoder", "tf32_pad"),  # not a multiple of 4: TinyBERT-4L-312D's heads
     (F32, 26, "contiguous", "tf32_pad"),
     (F32, 2, "encoder", "tf32_pad"),
     (F32, 62, "encoder", "tf32_pad"),  # padded to 64: two slabs
     (F32, 64, "offset", "tf32_pad"),
     (F32, 64, "padded_rows", "tf32_pad"),
-    (F32, 66, "encoder", "simt"),  # past the cap
+    (F32, 66, "encoder", "tf32_pad"),  # padded to 68: three slabs
 ], ids=lambda x: str(x).replace("torch.", ""))
 def test_backward_route(dtype, d, layout, want):
     t = _layout(dtype, d, layout)
     assert backward_route(t, t, t) == want
-    if want not in ("simt", "wgmma_pad", "tf32_pad"):
+    if want != PAD[dtype]:
         # one operand TMA cannot read sends all three to the padding copies
         for i in range(3):
             qkv = [t, t, t]
             qkv[i] = _layout(dtype, d, "padded_rows" if i == 1 else "offset")
-            assert backward_route(*qkv) == ("wgmma_pad" if dtype == BF16 else "tf32_pad")
+            assert backward_route(*qkv) == PAD[dtype]
+
+
+@pytest.mark.parametrize("layout", ["encoder", "encoder_h8", "encoder_h1", "contiguous", "offset",
+                                    "padded_rows", "d_strided"])
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_every_head_dim_takes_a_tensor_core_route(dtype, layout):
+    """At every D from 1 to 256 both routes name a tensor-core kernel: one
+    that reads the operands through tensor maps, the forward's rows routes,
+    or a padding route whose copies (``pad_heads``) such a kernel reads;
+    the backward's rule is the forward's without the rows routes."""
+    for d in range(1, 257):
+        t = _layout(dtype, d, layout)
+        fwd, bwd = forward_route(t, t, t), backward_route(t, t, t)
+        assert bwd in (*TMA_ROUTES[dtype], PAD[dtype]), (d, bwd)
+        assert fwd == bwd or (bwd == PAD[dtype] and fwd == ROWS_ROUTES[dtype]), (d, fwd, bwd)
+        if bwd == PAD[dtype]:
+            width = -(-d // (8 if dtype == BF16 else 4)) * (8 if dtype == BF16 else 4)
+            p = pad_heads(t, width)
+            assert forward_route(p, p, p) in TMA_ROUTES[dtype], (d, forward_route(p, p, p))
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -244,19 +281,28 @@ def _mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _tf32(a) @ _tf32(b)
 
 
-def _bwd_3xtf32(q, k, v, seg, o, lse, dout, scale, mm=_mm_3xtf32):
+def _bwd_3xtf32(q, k, v, seg, o, lse, dout, scale, mm=_mm_3xtf32, tile=64):
     """The f32 backward kernels' arithmetic: di = sum_d o * dO in f32; S =
     Q K^T and dP = dO V^T; P = exp2(S * scale log2 e - lse log2 e) on
     same-segment pairs, exactly 0 elsewhere; dS = P (dP - di) * scale, both
-    kept in f32; dQ = dS K, dK = dS^T Q, dV = P^T dO; every product through
-    ``mm`` (3xTF32 in the kernels)."""
+    kept in f32; dQ = dS K, dK = dS^T Q, dV = P^T dO, each summed in f32
+    over the streamed rows ``tile`` at a time (64-row tiles up to D = 64, the
+    wide kernels' 32-row halves past it); every product through ``mm``
+    (3xTF32 in the kernels).  The wide dkv's dV and dK blocks each compute
+    S^T and P^T themselves, the same values."""
     di = (o * dout).sum(-1)
     same = seg[:, None, :, None] == seg[:, None, None, :]
     s = mm(q, k.transpose(-1, -2))
     p = torch.where(same, torch.exp2(s * (scale * LOG2E) - (lse * LOG2E)[..., None]),
                     torch.zeros(()))
     ds = p * (mm(dout, v.transpose(-1, -2)) - di[..., None]) * scale
-    return mm(ds, k), mm(ds.transpose(-1, -2), q), mm(p.transpose(-1, -2), dout)
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for t in range(0, q.shape[2], tile):
+        rows = slice(t, t + tile)
+        dq += mm(ds[..., rows], k[:, :, rows])  # key tiles
+        dk += mm(ds[:, :, rows].transpose(-1, -2), q[:, :, rows])  # query tiles
+        dv += mm(p[:, :, rows].transpose(-1, -2), dout[:, :, rows])
+    return dq, dk, dv
 
 
 def _jax_grads(q, k, v, dout, seg, scale):
@@ -274,7 +320,8 @@ def _jax_grads(q, k, v, dout, seg, scale):
 
 
 @pytest.mark.parametrize("d,layout", [(16, "runs"), (32, "interleaved"), (64, "one_segment"),
-                                      (64, "runs")])
+                                      (64, "runs"), (96, "runs"), (128, "interleaved"),
+                                      (256, "one_segment")])
 def test_3xtf32_backward_keeps_the_f32_gate_against_pallas(d, layout):
     rng = np.random.default_rng(2000 + d)
     q, k, v, dout = (rng.normal(size=(B, H, S, d)).astype(np.float32) for _ in range(4))
@@ -283,7 +330,7 @@ def test_3xtf32_backward_keeps_the_f32_gate_against_pallas(d, layout):
     want = _jax_grads(q, k, v, dout, seg, scale)
     tq, tk, tv, tdo, tseg = (torch.from_numpy(a) for a in (q, k, v, dout, seg))
     o, lse = _flash_3xtf32(tq, tk, tv, tseg, scale)  # the f32 forward's output and lse
-    got = _bwd_3xtf32(tq, tk, tv, tseg, o, lse, tdo, scale)
+    got = _bwd_3xtf32(tq, tk, tv, tseg, o, lse, tdo, scale, tile=64 if d <= 64 else 32)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=GRAD_REL * np.abs(w).max())
     # the split is what keeps them: one TF32 product a product does not
@@ -306,7 +353,7 @@ def test_3xtf32_backward_on_padded_copies_keeps_the_f32_gate_against_pallas():
     scale = 1.0 / np.sqrt(d)
     want = _jax_grads(q, k, v, dout, seg, scale)
     tq, tk, tv, tdo, tseg = (torch.from_numpy(a) for a in (q, k, v, dout, seg))
-    o, lse = flash_attention_fwd(tq, tk, tv, tseg, scale)  # the CUDA-core forward's, in f32
+    o, lse = flash_attention_fwd(tq, tk, tv, tseg, scale)  # the plain forward's, in f32
     padded = [torch.nn.functional.pad(t, (0, width - d)) for t in (tq, tk, tv, o, tdo)]
     pq, pk, pv, po, pdo = padded
     got = _bwd_3xtf32(pq, pk, pv, tseg, po, lse, pdo, scale)
@@ -382,4 +429,45 @@ def test_rows_boxes_keep_the_gates_against_pallas(dtype, heads, layout):
     else:
         out, lse = _box_attention(*qkv, torch.from_numpy(seg), scale, _flash_3xtf32)
         np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=F32_ATOL)
+        np.testing.assert_allclose(lse.numpy(), want_lse, rtol=0, atol=LSE_ATOL)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_padded_forward_keeps_the_gates_against_pallas(dtype):
+    """The forward's padding routes at a contiguous ``[B, H, S, 26]``, whose
+    52- and 104-byte rows no tensor map reads: q, k and v copied by
+    ``pad_heads`` into zero-padded buffers at D = 32 (bf16) or 28 (f32), the
+    route's kernel arithmetic on the copies at the scale of D = 26 (bf16
+    through the plain forward in f32, as the wgmma kernel's S is exact; f32
+    through the 3xTF32 kernel's), the output's first 26 columns and the
+    logsumexp against JAX's Pallas ``flash_attention`` in interpret mode on
+    the unpadded heads: f32 output 2e-5 and logsumexp 1e-5; bf16 within K2's
+    gates (rtol = atol = 1e-2, the logsumexp 1e-3)."""
+    d, width = 26, 32 if dtype == BF16 else 28
+    rng = np.random.default_rng(2627)
+    qkv = [torch.from_numpy(rng.normal(size=(B, H, S, d)).astype(np.float32)).to(dtype)
+           for _ in range(3)]
+    assert forward_route(*qkv) == PAD[dtype]
+    padded = [pad_heads(t, width) for t in qkv]
+    assert forward_route(*padded) in TMA_ROUTES[dtype]
+    assert all(not t[..., d:].any() and torch.equal(t[..., :d], u) for t, u in zip(padded, qkv))
+    seg = np.asarray(SEG_LAYOUTS["interleaved"], np.int32)
+    scale = 1.0 / np.sqrt(d)
+    jseg = jnp.asarray(seg)
+    jdtype = jnp.bfloat16 if dtype == BF16 else jnp.float32
+    with pltpu.force_tpu_interpret_mode():
+        want, l, m = jax_fa._flash_attention(
+            *(jnp.asarray(t.float().numpy()).astype(jdtype) for t in qkv), None,
+            SegmentIds(q=jseg, kv=jseg), True, False, scale,
+            BlockSizes.get_default(B, H, S, S, d), False)
+    want = np.asarray(want.astype(jnp.float32))
+    want_lse = np.asarray(m) + np.log(np.asarray(l))
+    attend = flash_attention_fwd if dtype == BF16 else _flash_3xtf32
+    out, lse = attend(*padded, torch.from_numpy(seg), scale)
+    out = out[..., :d].float().numpy()
+    if dtype == BF16:
+        np.testing.assert_allclose(out, want, rtol=1e-2, atol=1e-2)
+        np.testing.assert_allclose(lse.numpy(), want_lse, rtol=0, atol=1e-3)
+    else:
+        np.testing.assert_allclose(out, want, rtol=0, atol=F32_ATOL)
         np.testing.assert_allclose(lse.numpy(), want_lse, rtol=0, atol=LSE_ATOL)
