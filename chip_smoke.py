@@ -64,8 +64,10 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 backward at [96, 12, 512, 32], TinyBERT's D = 26 at [256,
                 12, 512, 26] and [96, 12, 512, 26] in bf16 and f32, D = 16
                 [256, 4, 128, 16]), the padding forwards at a contiguous
-                [256, 12, 512, 26] and the wide pairs at bf16 [96, 12, 512,
-                256] and f32 [96, 12, 512, 128]; times of each route's
+                [256, 12, 512, 26], the forwards at [256, 12, 512, 128]
+                and [256, 12, 512, 256] in both dtypes and the wide pairs
+                at bf16 [96, 12, 512, 256] and f32 [96, 12, 512, D] (D =
+                96, 128, 192, 256; dq, dkv and dq then dkv); times of each route's
                 kernels, on the rows routes the same kernel on zero-padded
                 copies (its output and logsumexp bit-equal), on the
                 padding routes the kernel on the copies alone, the whole
@@ -1218,8 +1220,9 @@ K2G_CASES = [
 # slab whose last k step reads zeros past D; 48 and 136 inside a slab),
 # bf16 at every D a multiple of 8 but 64 the wgmma kernel (40, 72 and 136
 # stop inside a 64-column slab); the backward takes the 3xTF32 pair, past
-# f32 D = 64 in its wide shape (68, 96, 128, 136, 256: three to eight
-# slabs), and the wgmma pair, past bf16 D = 128 in its wide shape (136,
+# f32 D = 64 in its wide shape (68, 80, 96, 128: 32-row steps, dV and dK in
+# one block; 136, 192, 256: 16-row steps, dV and dK blocks apart), and the
+# wgmma pair, past bf16 D = 128 in its wide shape (136,
 # 192, 256: three and four slabs); K2G_ROWS_DIMS, whose heads TMA cannot
 # read one by one, at K2G_ROWS_HEADS heads a row (rows of 16-byte
 # multiples) take the rows routes, the last head's box reaching the map's
@@ -1232,7 +1235,7 @@ K2G_CASES = [
 # zero-padded copies; all of them the backward over zero-padded copies: in
 # f32 on the 3xTF32 pair (D = 26 padded to 28), in bf16 on the wgmma pair
 # (126: padded to two slabs)
-K2G_DIMS = {torch.float32: (16, 20, 32, 48, 64, 68, 96, 128, 136, 256),
+K2G_DIMS = {torch.float32: (16, 20, 32, 48, 64, 68, 80, 96, 128, 136, 192, 256),
             torch.bfloat16: (16, 32, 40, 48, 72, 128, 136, 192, 256)}
 K2G_ROWS_DIMS = {torch.float32: (2, 26, 62, 66), torch.bfloat16: (2, 20, 25, 26, 126, 130)}
 K2G_WIDE_ROWS_DIMS = {torch.float32: (254,), torch.bfloat16: (250,)}
@@ -1305,8 +1308,8 @@ def k2g_times(q, k, v, seg, dout=None, lse_shape=False) -> dict:
     ``lse_shape``), on the rows routes the same kernel on zero-padded copies
     (``rows_against_padded``: bit-equal), on the padding routes the kernel
     on the copies alone (``pad_kernel_ms``), the plain version and SDPA with
-    the boolean segment mask (the library yardstick); with ``dout`` also dq
-    and dkv on the backward's route (the pair on the padded copies on the
+    the boolean segment mask (the library yardstick); with ``dout`` also dq,
+    dkv and dq then dkv (``pair_ms``) on the backward's route (the pair on the padded copies on the
     padding routes, "wgmma_pad" and "tf32_pad", and then the whole backward,
     ``route_bwd_ms``: the copies, the pair; the gradients views), the plain
     backward and SDPA's backward; each beside its bound."""
@@ -1343,7 +1346,10 @@ def k2g_times(q, k, v, seg, dout=None, lse_shape=False) -> dict:
             dq_ms=time_cuda(lambda: dq_fn(pq, pk, pv, seg, lse, po, pdo, scale), reps=11,
                             inner=3),
             dkv_ms=time_cuda(lambda: dkv_fn(pq, pk, pv, seg, lse, di, pdo, scale), reps=11,
-                             inner=3))
+                             inner=3),
+            pair_ms=time_cuda(lambda: (dq_fn(pq, pk, pv, seg, lse, po, pdo, scale),
+                                       dkv_fn(pq, pk, pv, seg, lse, di, pdo, scale)),
+                              reps=11, inner=3))
         if bwd_route in PAD_MULTIPLE:
             r["route_bwd_ms"] = time_cuda(
                 lambda: flash_attention_bwd(q, k, v, seg, out, lse, dout, scale), reps=11, inner=3)
@@ -1379,9 +1385,11 @@ def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
     the same; the backward on the 3xTF32 pair over copies padded to D =
     28), and EncoderConfig.tiny's [256, 4, 128, 16] in both; then the head
     dims no model of the repo has: the padding forwards at a contiguous
-    [256, 12, 512, 26] in both dtypes, the wide pairs at bf16 [96, 12, 512,
-    256] and f32 [96, 12, 512, 128]; CUDA-event times of each route's
-    forward and backward, the plain versions and SDPA, beside the bound."""
+    [256, 12, 512, 26] in both dtypes, the forwards at [256, 12, 512, 128]
+    and [256, 12, 512, 256] in both dtypes, the wide pairs at bf16 [96, 12,
+    512, 256] and f32 [96, 12, 512, D] for D = 96, 128, 192 and 256;
+    CUDA-event times of each route's forward and backward (dq, dkv, and dq
+    then dkv), the plain versions and SDPA, beside the bound."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
     keys = ("fwd", "lse", "dq", "dkv", "rel")
     by_route, f32_err = {}, dict.fromkeys(keys, 0.0)
@@ -1478,8 +1486,9 @@ def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
         timed(key, q, k, v, seg)
         del q, k, v, seg, dout
     # the head dims no model of the repo has: the forward's padding routes
-    # at a contiguous [256, 12, 512, 26] (an index build's), the wide pairs
-    # at bf16 D = 256 and f32 D = 128 (a train step's)
+    # at a contiguous [256, 12, 512, 26] (an index build's), the forwards at
+    # D = 128 and 256 in both dtypes (an index build's), the wide pairs at
+    # bf16 D = 256 and f32 D = 96, 128, 192 and 256 (a train step's)
     b, h, s = build
     for dtype, key in ((torch.bfloat16, "bf16_d26_contiguous"),
                        (torch.float32, "f32_d26_contiguous")):
@@ -1488,12 +1497,19 @@ def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
                        grads=False), dtype)
         timed(key, q, k, v, seg)
         del q, k, v, seg
+    for dtype, d in ((torch.float32, 128), (torch.float32, 256), (torch.bfloat16, 128),
+                     (torch.bfloat16, 256)):
+        q, k, v, seg, _ = k2g_inputs(gen, b, h, s, d, dtype, lengths(b, s, 0))
+        hold(check_k2g(q, k, v, seg, None, f"at {list(q.shape)} {dtype}", grads=False), dtype)
+        timed(f"{'f32' if dtype == torch.float32 else 'bf16'}_d{d}", q, k, v, seg)
+        del q, k, v, seg
     b, h, s = train
-    for dtype, d, key in ((torch.bfloat16, 256, "bf16_d256_train"),
-                          (torch.float32, 128, "f32_d128_train")):
+    for dtype, d in ((torch.bfloat16, 256), (torch.float32, 96), (torch.float32, 128),
+                     (torch.float32, 192), (torch.float32, 256)):
         q, k, v, seg, dout = k2g_inputs(gen, b, h, s, d, dtype, lengths(b, s, 5))
         hold(check_k2g(q, k, v, seg, dout, f"at {list(q.shape)} {dtype}"), dtype)
-        timed(key, q, k, v, seg, dout, lse_shape=True)
+        timed(f"{'f32' if dtype == torch.float32 else 'bf16'}_d{d}_train", q, k, v, seg, dout,
+              lse_shape=True)
         del q, k, v, seg, dout
     phase("k2g", f"main-path shapes agree (f32 max abs err forward {f32_err['fwd']:.3g}, "
                  f"logsumexp {f32_err['lse']:.3g}, gradients {f32_err['rel']:.3g} of the "
@@ -6729,11 +6745,12 @@ def main(argv=None) -> int:
         "library_ms": k2g["f32_d26_contiguous"]["library_ms"],
     }, {
         # K2b's wide pairs (the head dims no model of the repo has: bf16
-        # past D = 128 in blocks of one warpgroup, NS = 3-4, f32 past D = 64
-        # streaming 32-row half tiles, NS = 4 and 8; dkv split into dV and
-        # dK blocks), launched by the wrappers of their pairs, which count
-        # these instances apart (.wide_launches): times at bf16 [96, 12,
-        # 512, 256] and f32 [96, 12, 512, 128], both NS = 4
+        # past D = 128 in blocks of one warpgroup, NS = 3-4, dkv split into
+        # dV and dK blocks; f32 past D = 64 on wgmma in 3xTF32, NS = 4 and
+        # 8), launched by the wrappers of their pairs, which count these
+        # instances apart (.wide_launches): times at bf16 [96, 12, 512, 256]
+        # and f32 [96, 12, 512, 128], both NS = 4 (k2g's phase line has the
+        # f32 pair at D = 96, 192 and 256 too)
         "name": "flash_attention_bwd_headdim_dkv (wide)",
         "route": "cuda",
         "source": "mfar_tpu_torch/csrc/flash_attention_bwd.cu",

@@ -1,10 +1,12 @@
 """Time kernel K2 or K2b against edited copies of its source, in turns, on one card.
 
-    python3 flash_variants.py [--kernel k2|k2b] [--against DIR] [PRESET ...]
+    python3 flash_variants.py [--kernel k2|k2b|k2b_tf32] [--dims D ...] [--against DIR]
+                              [PRESET ...]
         (default: K2b, every preset of the kernel)
 
 Each variant is the kernel's source (``mfar_tpu_torch/csrc/flash_attention.cu``
-for K2, ``flash_attention_bwd.cu`` for K2b) with the textual edits of its
+for K2, ``flash_attention_bwd.cu`` for K2b, ``flash_attention_tf32_bwd.cu`` for
+K2b's f32 pair, ``k2b_tf32``) with the textual edits of its
 preset, built with the port's nvcc flags into ``mfar_tpu_torch/build/``
 beside the committed library and bound in its place.  ``--against DIR``
 adds the kernel's source in another checkout of the repo (its ``csrc``, as
@@ -17,7 +19,12 @@ reversed, committed:
   and, with the logsumexp, at its training shape [96, 12, 512, 64]
   (``fwd_lse_ms``), with chip_smoke's segment lengths;
 - K2b at the training shape: kernel dq (with di), kernel dkv and the whole
-  backward.
+  backward;
+- K2b's f32 pair (3xTF32) at [96, 12, 512, D] f32 for each D of ``--dims``
+  (default 96, 128, 192 and 256: its wide instances), chip_smoke's segment
+  lengths: dq (with di), dkv, and dq then dkv (``pair``), each a median of
+  7 runs of 3 calls, held to the plain backward at the f32 gate (2e-5 of
+  the largest gradient).
 
 Presets join with ``+`` (``stages4+exp2f``).  A preset whose name
 starts with ``x_`` computes something else (an
@@ -33,6 +40,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -88,11 +96,21 @@ PRESETS = {
                          "consume(m, INT_MAX, INT_MIN,")],
     },
 }
-SOURCES = {"k2": "flash_attention", "k2b": "flash_attention_bwd"}
+PRESETS["k2b_tf32"] = {
+    # ablations of the wide pair: no S / dP products; no row products (dQ,
+    # dV, dK)
+    "x_noheads": [("    wgmma_3xtf32(s0,", "    if (Dl < 0) wgmma_3xtf32(s0,"),
+                  ("      wgmma_3xtf32(s1,", "      if (Dl < 0) wgmma_3xtf32(s1,")],
+    "x_norows": [("    wgmma_3xtf32(d[k >> 3],", "    if (Dl < 0) wgmma_3xtf32(d[k >> 3],")],
+}
+SOURCES = {"k2": "flash_attention", "k2b": "flash_attention_bwd",
+           "k2b_tf32": "flash_attention_tf32_bwd"}
 
 
 def committed_fns(kernel: str) -> tuple:
-    return (fa._kernel(),) if kernel == "k2" else fa._bwd_kernels()
+    if kernel == "k2":
+        return (fa._kernel(),)
+    return fa._tf32_bwd_kernels() if kernel == "k2b_tf32" else fa._bwd_kernels()
 
 
 def build(kernel: str, name: str, edits, csrc: str = _build.CSRC_DIR) -> tuple:
@@ -114,11 +132,16 @@ def build(kernel: str, name: str, edits, csrc: str = _build.CSRC_DIR) -> tuple:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
     usage = [ln.split(":", 1)[-1].strip() for ln in proc.stdout.splitlines()
-             if "spill" in ln or "registers" in ln]
-    print(f"{name}: ptxas {'; '.join(usage)}", flush=True)
+             if "spill" in ln or "Used" in ln]
+    # the kernels whose wgmma ptxas serializes (its warning C7511)
+    serial = [m[1] + " NS=" + m[2] for ln in proc.stdout.splitlines() if "C7511" in ln
+              for m in [re.search(r"(\w+?_kernel)ILi(\d+)", ln)] if m]
+    print(f"{name}: ptxas {'; '.join(usage)}; wgmma serialized in {serial}", flush=True)
     lib = ctypes.CDLL(base + ".so")
     if kernel == "k2":
         fns = (lib.mfar_flash_attention_fwd,)
+    elif kernel == "k2b_tf32":
+        fns = (lib.mfar_flash_attention_bwd_dq_tf32, lib.mfar_flash_attention_bwd_dkv_tf32)
     else:
         fns = (lib.mfar_flash_attention_bwd_dq, lib.mfar_flash_attention_bwd_dkv)
     for fn, ref in zip(fns, committed_fns(kernel)):
@@ -137,6 +160,8 @@ def use(kernel: str, fns: tuple) -> None:
     """Bind ``fns`` in place of the kernel's committed entry points."""
     if kernel == "k2":
         fa._kernel = lambda: fns[0]
+    elif kernel == "k2b_tf32":
+        fa._tf32_bwd_kernels = lambda: fns
     else:
         fa._bwd_kernels = lambda: fns
 
@@ -198,11 +223,45 @@ def k2b_cases(gen):
     ]
 
 
+def k2b_tf32_cases(gen, dims):
+    """The f32 pair's timed calls at [96, 12, 512, D] for each D, the check
+    (the whole backward at the f32 gate) on each D's first."""
+    b, h, s = 96, 12, 512
+    out = []
+    for d in dims:
+        q, k, v, seg, dout = chip_smoke.k2g_inputs(gen, b, h, s, d, torch.float32,
+                                                   lengths_of(5, b, s))
+        scale = 1.0 / d**0.5
+        o, lse = fa.flash_attention_fwd(q, k, v, seg, scale)
+        want = fa.flash_attention_bwd_plain(q, k, v, seg, o, lse, dout, scale)
+        _, di = fa.flash_attention_tf32_bwd_dq(q, k, v, seg, lse, o, dout, scale)
+
+        def check(name, q=q, k=k, v=v, seg=seg, o=o, lse=lse, dout=dout, scale=scale,
+                  want=want, d=d):
+            got = fa.flash_attention_bwd(q, k, v, seg, o, lse, dout, scale)
+            for g, w in zip(got, want):
+                err = (g - w).abs().max().item()
+                chip_smoke.check(err <= chip_smoke.K2G_GRAD_REL * w.abs().max().item(),
+                                 f"variant {name} disagrees at D={d}: max abs err {err}")
+
+        def dq(q=q, k=k, v=v, seg=seg, o=o, lse=lse, dout=dout, scale=scale):
+            return fa.flash_attention_tf32_bwd_dq(q, k, v, seg, lse, o, dout, scale)
+
+        def dkv(q=q, k=k, v=v, seg=seg, di=di, lse=lse, dout=dout, scale=scale):
+            return fa.flash_attention_tf32_bwd_dkv(q, k, v, seg, lse, di, dout, scale)
+
+        out += [(f"d{d}_dq_ms", dq, check), (f"d{d}_dkv_ms", dkv, None),
+                (f"d{d}_pair_ms", lambda dq=dq, dkv=dkv: (dq(), dkv()), None)]
+    return out
+
+
 def main(argv) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--kernel", choices=sorted(PRESETS), default="k2b")
     p.add_argument("--against", metavar="DIR",
                    help="a checkout whose kernel source is timed as the variant 'against'")
+    p.add_argument("--dims", type=int, nargs="+", default=[96, 128, 192, 256],
+                   help="k2b_tf32's head dims")
     p.add_argument("presets", nargs="*", metavar="PRESET")
     args = p.parse_args(argv)
     presets = PRESETS[args.kernel]
@@ -226,8 +285,10 @@ def main(argv) -> int:
                                 os.path.join(args.against, "mfar_tpu_torch", "csrc"))
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    cases = k2_cases(gen) if args.kernel == "k2" else k2b_cases(gen)
-    saved = fa._kernel, fa._bwd_kernels
+    cases = (k2_cases(gen) if args.kernel == "k2" else
+             k2b_tf32_cases(gen, args.dims) if args.kernel == "k2b_tf32" else k2b_cases(gen))
+    slow = dict(reps=7, inner=3) if args.kernel == "k2b_tf32" else {}
+    saved = fa._kernel, fa._bwd_kernels, fa._tf32_bwd_kernels
     times: dict = {}
     try:
         for name in ["committed", *names, *names[::-1], "committed"]:
@@ -236,11 +297,11 @@ def main(argv) -> int:
                 for _, _, check in cases:
                     if check is not None:
                         check(name)
-            t = {label: chip_smoke.time_cuda(call) for label, call, _ in cases}
+            t = {label: chip_smoke.time_cuda(call, **slow) for label, call, _ in cases}
             times.setdefault(name, []).append(t)
             print(name, " ".join(f"{key} {x:.4f}" for key, x in t.items()), flush=True)
     finally:
-        fa._kernel, fa._bwd_kernels = saved
+        fa._kernel, fa._bwd_kernels, fa._tf32_bwd_kernels = saved
     print(json.dumps({"kernel": args.kernel, "times": times}))
     return 0
 

@@ -592,6 +592,48 @@ def test_backward_routes_match_plain(card, dtype, d, layout, route):
     assert torch.equal(di, di_again)
 
 
+# The wide 3xTF32 pair (f32 past D = 64: wgmma on operands split once)
+# against the plain backward at every D where its walk changes: 68 (the
+# first of four slabs; a k step of 8 half past D; a second 64-column tile
+# of the gradients with 4 columns), 80, 96 (slabs wholly past D not
+# loaded), 100, 128 (the last of one block a row tile), 132 (the first of a
+# cluster of two blocks: 72 and 60 columns), 192 (96 each), 252 and 256,
+# and on the "tf32_pad" route's copies at D = 66 (padded to 68); three
+# heads a row, so a store past D would run into the next head.  Rows of several segments, interleaved ids, one segment and
+# ragged pads (masked and ragged rows), strided dO; the gradients within
+# the f32 gate, di, dq's bits on a second run, the wide launches counted.
+@pytest.mark.parametrize("d", [68, 80, 96, 100, 128, 132, 192, 252, 256, 66])
+def test_wide_3xtf32_pair_matches_plain(card, d):
+    rng = np.random.default_rng(700 + d)
+    b, h, s = 4, 3, 256
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=(b, s, h * d)).astype(np.float32))
+                     .cuda().view(b, s, h, d).transpose(1, 2) for _ in range(4))
+    seg = torch.tensor([SEG_LAYOUTS["runs"][0], SEG_LAYOUTS["interleaved"][0],
+                        SEG_LAYOUTS["one_segment"][0], [1] * 131 + [0] * 125],
+                       dtype=torch.int32, device=card)
+    scale = 1.0 / d**0.5
+    route = backward_route(q, k, v)
+    assert route == ("tf32_pad" if d == 66 else "tf32")
+    out, lse = flash_attention_fwd(q, k, v, seg, scale)
+    d4 = -(-d // 4) * 4
+    args = [q, k, v, out, dout] if route == "tf32" else [pad_heads(t, d4) for t in
+                                                         (q, k, v, out, dout)]
+    before, wide_before = _backward_counts(), _wide_counts()
+    grads = flash_attention_bwd(q, k, v, seg, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    assert _backward_counts() == dict(before, tf32=tuple(n + 1 for n in before["tf32"]))
+    assert _wide_counts() == dict(wide_before, tf32=tuple(n + 1 for n in wide_before["tf32"]))
+    for g, w in zip(grads, flash_attention_bwd_plain(q, k, v, seg, out, lse, dout, scale)):
+        assert g.shape == q.shape and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, rtol=0, atol=F32_GRAD_REL * w.abs().max().item())
+    pq, pk, pv, po, pdo = args
+    dq, di = flash_attention_tf32_bwd_dq(pq, pk, pv, seg, lse, po, pdo, scale)
+    want_di = _row_dots(out, dout)
+    torch.testing.assert_close(di, want_di, rtol=1e-5, atol=1e-5 * want_di.abs().max().item())
+    assert torch.equal(dq[..., :d], grads[0])  # no atomics: the same bits
+    assert not dq[..., d:].any()
+
+
 @pytest.mark.parametrize("dtype,width", [(torch.bfloat16, 32), (torch.float32, 28)],
                          ids=["bf16", "f32"])
 def test_rows_routes_equal_the_kernel_on_padded_copies(card, dtype, width):

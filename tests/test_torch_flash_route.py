@@ -36,8 +36,10 @@ its products (S, dP, dV, dK, dQ) in 3xTF32 with P and dS kept in f32;
 gradients (2e-5 of the largest), which one TF32 product a product misses.
 It is held so too on zero-padded copies at TinyBERT-4L-312D's f32 D = 26
 (padded to 28), the card's ``"tf32_pad"`` route for f32 rows TMA cannot
-read, and past D = 64 in the wide kernels' order: the streamed rows summed
-in 32-row half tiles, dV and dK in blocks of their own.  The forward's
+read, and past D = 64 in the wide pair's order: the streamed rows summed
+in steps of 16 rows, every product in k steps of 8 as the tensor cores sum
+them, past D = 128 S and dP summed over two halves of the head dim.  The
+forward's
 padding routes (``"wgmma_pad"``, ``"tf32_pad"``) are held so on copies of
 a contiguous ``[B, H, S, 26]``.
 """
@@ -212,12 +214,27 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor, step=None) -> torch.Tensor:
     """a @ b as the kernel takes it: hi*hi' + hi*lo' + lo*hi' (each product
-    of two tf32 values exact in f32), summed in f32; lo*lo' dropped."""
+    of two tf32 values exact in f32), summed in f32; lo*lo' dropped.  With
+    ``step``, as the tensor cores sum it: k steps of ``step`` in order, each
+    adding lo*hi', then hi*lo', then hi*hi' to the f32 sum."""
     a_hi, b_hi = _tf32(a), _tf32(b)
     a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
-    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+    if step is None:
+        return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k in range(0, a.shape[-1], step):
+        ks = slice(k, k + step)
+        for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+            out = out + x[..., ks] @ y[..., ks, :]
+    return out
+
+
+def _mm_3xtf32_steps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The backward kernels' products: k steps of 8 (mma.sync's and wgmma's
+    TF32 k)."""
+    return _mm_3xtf32(a, b, step=8)
 
 
 def _flash_3xtf32(q, k, v, seg, scale, tile=64):
@@ -281,21 +298,39 @@ def _mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _tf32(a) @ _tf32(b)
 
 
-def _bwd_3xtf32(q, k, v, seg, o, lse, dout, scale, mm=_mm_3xtf32, tile=64):
+def _walk_rows(d: int) -> int:
+    """The streamed rows a step of the f32 backward kernels at head dim d:
+    64-row tiles up to D = 64, the wide pair's 16-row steps past it."""
+    return 64 if d <= 64 else 16
+
+
+def _bwd_3xtf32(q, k, v, seg, o, lse, dout, scale, mm=_mm_3xtf32_steps, tile=64):
     """The f32 backward kernels' arithmetic: di = sum_d o * dO in f32; S =
     Q K^T and dP = dO V^T; P = exp2(S * scale log2 e - lse log2 e) on
     same-segment pairs, exactly 0 elsewhere; dS = P (dP - di) * scale, both
     kept in f32; dQ = dS K, dK = dS^T Q, dV = P^T dO, each summed in f32
-    over the streamed rows ``tile`` at a time (64-row tiles up to D = 64, the
-    wide kernels' 32-row halves past it); every product through ``mm``
-    (3xTF32 in the kernels).  The wide dkv's dV and dK blocks each compute
-    S^T and P^T themselves, the same values."""
+    over the streamed rows ``tile`` at a time (``_walk_rows``); every
+    product through ``mm`` (3xTF32 in k steps of 8 in the kernels, every
+    operand split once with hi rounded to nearest, as ``_tf32``).  The wide
+    pair takes the gradients transposed (dQ^T = K^T dS^T, ...: the same
+    products and sums) and, past D = 128, S and dP as the sum of the two
+    blocks of a cluster, the first over ceil(D / 2) columns rounded up to
+    8, the second over the rest."""
     di = (o * dout).sum(-1)
     same = seg[:, None, :, None] == seg[:, None, None, :]
-    s = mm(q, k.transpose(-1, -2))
+    d = q.shape[-1]
+    half = ((d + 1) // 2 + 7) // 8 * 8 if d > 128 else d
+
+    def heads(a, b):  # a b^T over the head dim, in the cluster's two halves
+        out = mm(a[..., :half], b[..., :half].transpose(-1, -2))
+        if half < d:
+            out = out + mm(a[..., half:], b[..., half:].transpose(-1, -2))
+        return out
+
+    s = heads(q, k)
     p = torch.where(same, torch.exp2(s * (scale * LOG2E) - (lse * LOG2E)[..., None]),
                     torch.zeros(()))
-    ds = p * (mm(dout, v.transpose(-1, -2)) - di[..., None]) * scale
+    ds = p * (heads(dout, v) - di[..., None]) * scale
     dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     for t in range(0, q.shape[2], tile):
         rows = slice(t, t + tile)
@@ -305,14 +340,25 @@ def _bwd_3xtf32(q, k, v, seg, o, lse, dout, scale, mm=_mm_3xtf32, tile=64):
     return dq, dk, dv
 
 
+def _pallas_takes(d: int) -> bool:
+    """Whether JAX's Pallas kernel takes head dim d: up to 128, past it only
+    multiples of 128 (it raises NotImplementedError at D = 192)."""
+    return d <= 128 or d % 128 == 0
+
+
 def _jax_grads(q, k, v, dout, seg, scale):
     """dq, dk, dv of the Pallas flash_attention by jax.vjp, in interpret
-    mode, in f32."""
+    mode, in f32; at a head dim the Pallas kernel refuses, of the same
+    module's plain attention (mha_reference_no_custom_vjp: the same mask
+    value, differentiated by JAX; mha_reference's own VJP takes no
+    sm_scale)."""
     jseg = jnp.asarray(seg)
+    ids = SegmentIds(q=jseg, kv=jseg)
 
     def f(q, k, v):
-        return jax_fa.flash_attention(q, k, v, segment_ids=SegmentIds(q=jseg, kv=jseg),
-                                      sm_scale=scale)
+        if not _pallas_takes(q.shape[-1]):
+            return jax_fa.mha_reference_no_custom_vjp(q, k, v, segment_ids=ids, sm_scale=scale)
+        return jax_fa.flash_attention(q, k, v, segment_ids=ids, sm_scale=scale)
 
     with pltpu.force_tpu_interpret_mode():
         _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
@@ -320,17 +366,21 @@ def _jax_grads(q, k, v, dout, seg, scale):
 
 
 @pytest.mark.parametrize("d,layout", [(16, "runs"), (32, "interleaved"), (64, "one_segment"),
-                                      (64, "runs"), (96, "runs"), (128, "interleaved"),
-                                      (256, "one_segment")])
+                                      (64, "runs"), (80, "interleaved"), (96, "runs"),
+                                      (128, "interleaved"), (192, "runs"), (256, "one_segment")])
 def test_3xtf32_backward_keeps_the_f32_gate_against_pallas(d, layout):
     rng = np.random.default_rng(2000 + d)
     q, k, v, dout = (rng.normal(size=(B, H, S, d)).astype(np.float32) for _ in range(4))
     seg = np.asarray(SEG_LAYOUTS[layout], np.int32)
     scale = 1.0 / np.sqrt(d)
+    if not _pallas_takes(d):  # the port's kernels take D = 192; JAX's Pallas kernel does not
+        with pytest.raises(NotImplementedError, match="head_dim"), \
+                pltpu.force_tpu_interpret_mode():
+            jax_fa.flash_attention(*(jnp.asarray(a) for a in (q, k, v)), sm_scale=scale)
     want = _jax_grads(q, k, v, dout, seg, scale)
     tq, tk, tv, tdo, tseg = (torch.from_numpy(a) for a in (q, k, v, dout, seg))
     o, lse = _flash_3xtf32(tq, tk, tv, tseg, scale)  # the f32 forward's output and lse
-    got = _bwd_3xtf32(tq, tk, tv, tseg, o, lse, tdo, scale, tile=64 if d <= 64 else 32)
+    got = _bwd_3xtf32(tq, tk, tv, tseg, o, lse, tdo, scale, tile=_walk_rows(d))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=GRAD_REL * np.abs(w).max())
     # the split is what keeps them: one TF32 product a product does not
