@@ -46,8 +46,9 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 64 in blocks of one warpgroup streaming 32-row half tiles,
                 dkv split so too; heads TMA cannot read one by one but can
                 as rows of heads side by side (TinyBERT's D = 26 in the
-                encoder's [B, S, H*D] projections): the wgmma and 3xTF32
-                forwards on row maps ("wgmma_rows", "tf32_rows"); what
+                encoder's [B, S, H*D] projections): the wgmma forward on
+                row maps and the 3xTF32 forward, which reads such rows
+                itself ("wgmma_rows", "tf32_rows"); what
                 neither map reads: the forward and the backward over
                 zero-padded copies at D rounded up to 8 in bf16 (the
                 "wgmma_pad" route) or 4 in f32 ("tf32_pad")), forward,
@@ -148,7 +149,7 @@ Contriever-base and GTR-T5-base width with seeded random weights:
                 TinyBERT_General_4L_312D's width (D = 26: the wgmma forward
                 on row maps, the wgmma backward on zero-padded copies); (d)
                 one train batch at that width in f32 (the 3xTF32 forward on
-                row maps, the 3xTF32 backward on zero-padded copies)
+                the rows in place, the 3xTF32 backward on zero-padded copies)
 12. serving  -- the same engine over a prebuilt random [131072, 5, 768] bf16
                 corpus in rerank mode: QPS, one batch's stages, and the
                 device's busy share and time by kernel from torch.profiler
@@ -1122,8 +1123,8 @@ def segment_rows(b, s, rows):
 
 def check_k2g(q, k, v, seg, dout, label, grads=True) -> dict:
     """K2's forwards other than the wgmma one at D = 64 (the wgmma kernel
-    at another head dim or on row maps, the 3xTF32 kernel, also on row
-    maps, either over zero-padded copies) and K2b's pairs off bf16 D = 64
+    at another head dim or on row maps, the 3xTF32 kernel, also on rows of
+    heads side by side, either over zero-padded copies) and K2b's pairs off bf16 D = 64
     (the wgmma pair at another head dim, the 3xTF32 pair, either over
     zero-padded copies) against their plain versions: the
     forward with and without the logsumexp (the same output bits), the
@@ -1216,8 +1217,9 @@ K2G_CASES = [
                  [0] * 64 + [3] * 64 + [0] * 64 + [3] * 64]),
     (2, 3, 384, [2, 200]),
 ]
-# by route: f32 at every D a multiple of 4 takes the 3xTF32 kernel (20: a
-# slab whose last k step reads zeros past D; 48 and 136 inside a slab),
+# by route: f32 at every D a multiple of 4 takes the 3xTF32 kernel (4 and
+# 20: a slab whose last k step reads zeros past D; 48 and 136 inside a slab;
+# 160 and 252 a cluster's halves of 80 / 80 and 128 / 124 columns),
 # bf16 at every D a multiple of 8 but 64 the wgmma kernel (40, 72 and 136
 # stop inside a 64-column slab); the backward takes the 3xTF32 pair, past
 # f32 D = 64 in its wide shape (68, 80, 96, 128: 32-row steps, dV and dK in
@@ -1226,7 +1228,8 @@ K2G_CASES = [
 # 192, 256: three and four slabs); K2G_ROWS_DIMS, whose heads TMA cannot
 # read one by one, at K2G_ROWS_HEADS heads a row (rows of 16-byte
 # multiples) take the rows routes, the last head's box reaching the map's
-# zero fill (f32 2, 26 and 62: up to three slabs; bf16 2, 20, 25: an odd D,
+# zero fill (f32 2, 26 and 62: up to three slabs, 130 a cluster's; bf16 2,
+# 20, 25: an odd D,
 # 26, 126: up to three slabs), and K2G_WIDE_ROWS_DIMS, past the rows
 # routes' D, the forward over zero-padded copies (f32 254 and bf16 250,
 # padded to 256); f32 66 and bf16 130 take the wide pairs over copies
@@ -1235,9 +1238,10 @@ K2G_CASES = [
 # zero-padded copies; all of them the backward over zero-padded copies: in
 # f32 on the 3xTF32 pair (D = 26 padded to 28), in bf16 on the wgmma pair
 # (126: padded to two slabs)
-K2G_DIMS = {torch.float32: (16, 20, 32, 48, 64, 68, 80, 96, 128, 136, 192, 256),
+K2G_DIMS = {torch.float32: (4, 16, 20, 32, 48, 64, 68, 80, 96, 128, 136, 160, 192, 252, 256),
             torch.bfloat16: (16, 32, 40, 48, 72, 128, 136, 192, 256)}
-K2G_ROWS_DIMS = {torch.float32: (2, 26, 62, 66), torch.bfloat16: (2, 20, 25, 26, 126, 130)}
+K2G_ROWS_DIMS = {torch.float32: (2, 26, 62, 66, 130),
+                 torch.bfloat16: (2, 20, 25, 26, 126, 130)}
 K2G_WIDE_ROWS_DIMS = {torch.float32: (254,), torch.bfloat16: (250,)}
 K2G_ROWS_HEADS = 8
 K2G_CONTIGUOUS_DIMS = {torch.float32: (26,), torch.bfloat16: (2, 20, 25, 26, 126)}
@@ -1367,8 +1371,8 @@ def k2g_times(q, k, v, seg, dout=None, lse_shape=False) -> dict:
 
 def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
     """K2's forwards other than the wgmma one at D = 64 (the wgmma kernel at
-    other head dims and on row maps, the 3xTF32 kernel, also on row maps,
-    either over zero-padded copies) and K2b's pairs other than the wgmma
+    other head dims and on row maps, the 3xTF32 kernel, also on rows of heads
+    side by side, either over zero-padded copies) and K2b's pairs other than the wgmma
     one at D = 64 (the wgmma pair at other head dims, the 3xTF32 pair,
     either over zero-padded copies) against the plain versions on the card,
     each input on the routes the routing rule gives: the small cases at
@@ -1386,7 +1390,8 @@ def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
     28), and EncoderConfig.tiny's [256, 4, 128, 16] in both; then the head
     dims no model of the repo has: the padding forwards at a contiguous
     [256, 12, 512, 26] in both dtypes, the forwards at [256, 12, 512, 128]
-    and [256, 12, 512, 256] in both dtypes, the wide pairs at bf16 [96, 12,
+    and [256, 12, 512, 256] in both dtypes and at f32 [256, 12, 512, 192],
+    the wide pairs at bf16 [96, 12,
     512, 256] and f32 [96, 12, 512, D] for D = 96, 128, 192 and 256;
     CUDA-event times of each route's forward and backward (dq, dkv, and dq
     then dkv), the plain versions and SDPA, beside the bound."""
@@ -1487,7 +1492,7 @@ def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
         del q, k, v, seg, dout
     # the head dims no model of the repo has: the forward's padding routes
     # at a contiguous [256, 12, 512, 26] (an index build's), the forwards at
-    # D = 128 and 256 in both dtypes (an index build's), the wide pairs at
+    # D = 128 and 256 in both dtypes and f32 192 (an index build's), the wide pairs at
     # bf16 D = 256 and f32 D = 96, 128, 192 and 256 (a train step's)
     b, h, s = build
     for dtype, key in ((torch.bfloat16, "bf16_d26_contiguous"),
@@ -1497,8 +1502,8 @@ def run_k2g(seed: int, build=(256, 12, 512), train=(96, 12, 512)) -> dict:
                        grads=False), dtype)
         timed(key, q, k, v, seg)
         del q, k, v, seg
-    for dtype, d in ((torch.float32, 128), (torch.float32, 256), (torch.bfloat16, 128),
-                     (torch.bfloat16, 256)):
+    for dtype, d in ((torch.float32, 128), (torch.float32, 192), (torch.float32, 256),
+                     (torch.bfloat16, 128), (torch.bfloat16, 256)):
         q, k, v, seg, _ = k2g_inputs(gen, b, h, s, d, dtype, lengths(b, s, 0))
         hold(check_k2g(q, k, v, seg, None, f"at {list(q.shape)} {dtype}", grads=False), dtype)
         timed(f"{'f32' if dtype == torch.float32 else 'bf16'}_d{d}", q, k, v, seg)
@@ -3235,8 +3240,8 @@ MINILM_WIDTH = dict(hidden_size=384, num_layers=6, num_heads=12, intermediate_si
 # layers, 12 heads (D = 26, whose 52-byte rows a head no tensor map reads in
 # bf16: the wgmma forward on row maps over the [B, S, 312] projections and
 # the wgmma backward over copies padded to D = 32; in f32 the 3xTF32
-# forward on row maps and the 3xTF32 backward over copies padded to D =
-# 28), intermediate 1200, BERT's vocabulary
+# forward on the projections' rows and the 3xTF32 backward over copies
+# padded to D = 28), intermediate 1200, BERT's vocabulary
 TINYBERT_WIDTH = dict(hidden_size=312, num_layers=4, num_heads=12, intermediate_size=1200,
                       vocab_size=30522, max_position_embeddings=512)
 
@@ -3279,7 +3284,7 @@ def run_f32(seed, corpus, tok, queries, n_docs=512, steps=6, batch=16, n_queries
     are held to the routes the routing rule gives: (a) the 3xTF32 forward
     and pair, (b) the wgmma forward and pair at D = 32, (c) the wgmma
     forward on row maps ("wgmma_rows") and the wgmma pair at D = 32 over
-    zero-padded copies, (d) the 3xTF32 forward on row maps ("tf32_rows")
+    zero-padded copies, (d) the 3xTF32 forward on the rows ("tf32_rows")
     and the 3xTF32 pair over copies padded to D = 28."""
     pairs = list(corpus.pairs())[:n_docs]
     sub = Corpus.from_pairs(pairs, dataset_name="mag")
@@ -3532,7 +3537,7 @@ def f32_width_batch(tag, name, width, dir_seed, sub, field_info, train, batch, s
     f32 activations, and one train batch against the plain path
     (width_batch).  At TinyBERT's D = 26 (104-byte rows a head, not a
     multiple of 16 bytes, and D not a multiple of the 3xTF32 kernels' 4
-    columns) the 3xTF32 forward on row maps takes it ("tf32_rows": the
+    columns) the 3xTF32 forward on the rows in place takes it ("tf32_rows": the
     heads' 1248-byte rows), and the 3xTF32 pair over copies padded to D =
     28 the backward.  Returns the batch's K2/K2b launches."""
     with tempfile.TemporaryDirectory() as d:
@@ -3545,7 +3550,7 @@ def f32_width_batch(tag, name, width, dir_seed, sub, field_info, train, batch, s
     phase("f32", f"{tag} one train batch at {name}'s width in f32 (hidden "
                  f"{config.hidden_size} x {config.num_layers} layers, {config.num_heads} heads, "
                  f"D = {config.hidden_size // config.num_heads}; attention auto, dropout 0, "
-                 f"remat) through the 3xTF32 K2 on row maps and the 3xTF32 K2b over copies "
+                 f"remat) through the 3xTF32 K2 on the rows and the 3xTF32 K2b over copies "
                  f"padded to D = 28 vs plain attention: loss "
                  f"{loss:.8f} vs {loss_pl:.8f}, grad_norm {norm:.6f} vs {norm_pl:.6f}, cosine "
                  f"encoder {cos['encoder']:.7f} head {cos['head']:.7f} (the f32 gates); "
@@ -6345,8 +6350,10 @@ def kernel_usage(logs: dict) -> dict:
                 mangled = ln.split("for", 1)[1].strip()
                 slabs = re.search(r"(flash_attention_fwd|flash_tf32_fwd|flash_attention_bwd_dkv|"
                                   r"flash_attention_bwd_dq|flash_tf32_bwd_dkv(?:_wide)?|"
-                                  r"flash_tf32_bwd_dq(?:_wide)?)_kernelILi(\d+)E(Lb1E)?", mangled)
+                                  r"flash_tf32_bwd_dq(?:_wide)?)_kernelILi(\d+)E(Lb1E)?(?:Lb0E)?"
+                                  r"(?:Li(\d+)E)?", mangled)
                 name = (f"{slabs[1]} NS={slabs[2]}{' rows' if slabs[3] else ''}"
+                        f"{' x' + slabs[4] if slabs[4] and slabs[4] != '1' else ''}"
                         if slabs else next(
                             (k for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
                                          "flash_attention_fwd", "gather_scores_cross_row",
@@ -6699,7 +6706,7 @@ def main(argv=None) -> int:
         "bound_by": k2g["bf16_d26"]["bound_by"],
         "library_ms": k2g["bf16_d26"]["library_ms"],
     }, {
-        # K2's 3xTF32 kernel on row maps (f32): times at TinyBERT-4L-312D's
+        # K2's 3xTF32 kernel on rows of heads (f32): times at TinyBERT-4L-312D's
         # [256, 12, 512, 26] f32; launches from phase f32's TinyBERT-width
         # f32 batch
         "name": "flash_attention_tf32_rows",

@@ -1,11 +1,12 @@
 """Time kernel K2 or K2b against edited copies of its source, in turns, on one card.
 
-    python3 flash_variants.py [--kernel k2|k2b|k2b_tf32] [--dims D ...] [--against DIR]
-                              [PRESET ...]
+    python3 flash_variants.py [--kernel k2|k2_tf32|k2b|k2b_tf32] [--dims D ...]
+                              [--against DIR] [PRESET ...]
         (default: K2b, every preset of the kernel)
 
 Each variant is the kernel's source (``mfar_tpu_torch/csrc/flash_attention.cu``
-for K2, ``flash_attention_bwd.cu`` for K2b, ``flash_attention_tf32_bwd.cu`` for
+for K2, ``flash_attention_tf32.cu`` for K2's f32 forward, ``k2_tf32``,
+``flash_attention_bwd.cu`` for K2b, ``flash_attention_tf32_bwd.cu`` for
 K2b's f32 pair, ``k2b_tf32``) with the textual edits of its
 preset, built with the port's nvcc flags into ``mfar_tpu_torch/build/``
 beside the committed library and bound in its place.  ``--against DIR``
@@ -18,6 +19,13 @@ reversed, committed:
 - K2 at chip_smoke's index-build shape [256, 12, 512, 64] bf16 (``fwd_ms``)
   and, with the logsumexp, at its training shape [96, 12, 512, 64]
   (``fwd_lse_ms``), with chip_smoke's segment lengths;
+- K2's f32 forward (3xTF32) at [256, 12, 512, D] (``d<D>_fwd_ms``) and,
+  with the logsumexp, at [96, 12, 512, D] (``d<D>_lse_ms``) for each D of
+  ``--dims`` (default 64, 128, 192 and 256), chip_smoke's segment lengths,
+  each a median of 7 runs of 3 calls, held to the plain version at the f32
+  gates (output 2e-5, logsumexp 1e-5); presets ``cluster64`` (64-key steps
+  in the cluster at D 132-192) and the ablations ``x_nos`` / ``x_noo`` (no
+  S / no O products);
 - K2b at the training shape: kernel dq (with di), kernel dkv and the whole
   backward;
 - K2b's f32 pair (3xTF32) at [96, 12, 512, D] f32 for each D of ``--dims``
@@ -30,8 +38,9 @@ Presets join with ``+`` (``stages4+exp2f``).  A preset whose name
 starts with ``x_`` computes something else (an
 ablation: it shows what a part of the kernel costs) and is not checked;
 every other variant is held against the plain version at chip_smoke's
-tolerances.  Prints the card's name and power limit, a line per timing, and
-one JSON object last.
+tolerances; a variant that disagrees is named (and timed on), and the exit
+status is then 1.  Prints the card's name and power limit, a line per
+timing, and one JSON object last.
 """
 
 from __future__ import annotations
@@ -103,13 +112,29 @@ PRESETS["k2b_tf32"] = {
                   ("      wgmma_3xtf32(s1,", "      if (Dl < 0) wgmma_3xtf32(s1,")],
     "x_norows": [("    wgmma_3xtf32(d[k >> 3],", "    if (Dl < 0) wgmma_3xtf32(d[k >> 3],")],
 }
-SOURCES = {"k2": "flash_attention", "k2b": "flash_attention_bwd",
-           "k2b_tf32": "flash_attention_tf32_bwd"}
+PRESETS["k2_tf32"] = {
+    # 64-key steps for the cluster at D 132-192 (one stage of K and of V,
+    # a 32 KB exchange of a step's S)
+    "cluster64": [("  static constexpr int kKeys = NS <= 2 ? 64 : 32;",
+                   "  static constexpr int kKeys = NS <= 2 || (NS == 3 && kCTAs == 2) ? 64 : 32;"),
+                  ("  static constexpr int kStagesK = NS == 1 ? 3 : NS == 4 && kCTAs == 2 ? 1 : 2;",
+                   "  static constexpr int kStagesK = NS == 1 ? 3 : kCTAs == 2 ? 1 : 2;"),
+                  ("  static constexpr int kStagesV = NS == 1 ? 3 : NS == 4 ? 1 : 2;",
+                   "  static constexpr int kStagesV = NS == 1 ? 3 : NS == 4 || kCTAs == 2 ? 1 : 2;")],
+    # ablations: no S products; no O products
+    "x_nos": [("          WgmmaTf32<kKeys>::ss(", "          if (n_k < 0) WgmmaTf32<kKeys>::ss(")],
+    "x_noo": [("          wgmma_3xtf32(o,", "          if (n_k < 0) wgmma_3xtf32(o,")],
+}
+SOURCES = {"k2": "flash_attention", "k2_tf32": "flash_attention_tf32",
+           "k2b": "flash_attention_bwd", "k2b_tf32": "flash_attention_tf32_bwd"}
+DEFAULT_DIMS = {"k2_tf32": [64, 128, 192, 256], "k2b_tf32": [96, 128, 192, 256]}
 
 
 def committed_fns(kernel: str) -> tuple:
     if kernel == "k2":
         return (fa._kernel(),)
+    if kernel == "k2_tf32":
+        return (fa._tf32_kernel(),)
     return fa._tf32_bwd_kernels() if kernel == "k2b_tf32" else fa._bwd_kernels()
 
 
@@ -140,6 +165,8 @@ def build(kernel: str, name: str, edits, csrc: str = _build.CSRC_DIR) -> tuple:
     lib = ctypes.CDLL(base + ".so")
     if kernel == "k2":
         fns = (lib.mfar_flash_attention_fwd,)
+    elif kernel == "k2_tf32":
+        fns = (lib.mfar_flash_attention_fwd_tf32,)
     elif kernel == "k2b_tf32":
         fns = (lib.mfar_flash_attention_bwd_dq_tf32, lib.mfar_flash_attention_bwd_dkv_tf32)
     else:
@@ -160,6 +187,8 @@ def use(kernel: str, fns: tuple) -> None:
     """Bind ``fns`` in place of the kernel's committed entry points."""
     if kernel == "k2":
         fa._kernel = lambda: fns[0]
+    elif kernel == "k2_tf32":
+        fa._tf32_kernel = lambda: fns[0]
     elif kernel == "k2b_tf32":
         fa._tf32_bwd_kernels = lambda: fns
     else:
@@ -198,6 +227,39 @@ def k2_cases(gen):
                                  f"variant {name}: logsumexp disagrees")
 
         out.append((label, call, check))
+    return out
+
+
+def k2_tf32_cases(gen, dims):
+    """The f32 forward's timed calls at [256, 12, 512, D] and, with the
+    logsumexp, at [96, 12, 512, D] for each D, each held to the plain version
+    at the f32 gates."""
+    out = []
+    for d in dims:
+        for label, (b, h, s), with_lse in ((f"d{d}_fwd_ms", (256, 12, 512), False),
+                                           (f"d{d}_lse_ms", (96, 12, 512), True)):
+            q, k, v, seg, _ = chip_smoke.k2g_inputs(gen, b, h, s, d, torch.float32,
+                                                    lengths_of(0 if b == 256 else 5, b, s))
+            scale = 1.0 / d**0.5
+            want = fa.flash_attention_plain(q, k, v, seg, scale)
+            want_lse = chip_smoke.masked_logsumexp(q, k, seg, scale) if with_lse else None
+
+            def call(q=q, k=k, v=v, seg=seg, scale=scale, with_lse=with_lse):
+                if with_lse:
+                    return fa.flash_attention_fwd(q, k, v, seg, scale)
+                return fa.flash_attention(q, k, v, seg, scale), None
+
+            def check(name, call=call, want=want, want_lse=want_lse, label=label):
+                got, lse = call()
+                err = (got - want).abs().max().item()
+                chip_smoke.check(err <= chip_smoke.K2G_ATOL,
+                                 f"variant {name} disagrees at {label}: max abs err {err}")
+                if want_lse is not None:
+                    err = (lse - want_lse).abs().max().item()
+                    chip_smoke.check(err <= chip_smoke.K2G_LSE_ATOL,
+                                     f"variant {name}: logsumexp disagrees at {label}: {err}")
+
+            out.append((label, call, check))
     return out
 
 
@@ -260,8 +322,9 @@ def main(argv) -> int:
     p.add_argument("--kernel", choices=sorted(PRESETS), default="k2b")
     p.add_argument("--against", metavar="DIR",
                    help="a checkout whose kernel source is timed as the variant 'against'")
-    p.add_argument("--dims", type=int, nargs="+", default=[96, 128, 192, 256],
-                   help="k2b_tf32's head dims")
+    p.add_argument("--dims", type=int, nargs="+",
+                   help="k2_tf32's and k2b_tf32's head dims (defaults: 64, 128, 192, 256 and "
+                        "96, 128, 192, 256)")
     p.add_argument("presets", nargs="*", metavar="PRESET")
     args = p.parse_args(argv)
     presets = PRESETS[args.kernel]
@@ -285,25 +348,32 @@ def main(argv) -> int:
                                 os.path.join(args.against, "mfar_tpu_torch", "csrc"))
 
     gen = torch.Generator(device="cuda").manual_seed(5)
+    dims = args.dims or DEFAULT_DIMS.get(args.kernel)
     cases = (k2_cases(gen) if args.kernel == "k2" else
-             k2b_tf32_cases(gen, args.dims) if args.kernel == "k2b_tf32" else k2b_cases(gen))
-    slow = dict(reps=7, inner=3) if args.kernel == "k2b_tf32" else {}
-    saved = fa._kernel, fa._bwd_kernels, fa._tf32_bwd_kernels
+             k2_tf32_cases(gen, dims) if args.kernel == "k2_tf32" else
+             k2b_tf32_cases(gen, dims) if args.kernel == "k2b_tf32" else k2b_cases(gen))
+    slow = dict(reps=7, inner=3) if args.kernel in ("k2_tf32", "k2b_tf32") else {}
+    saved = fa._kernel, fa._tf32_kernel, fa._bwd_kernels, fa._tf32_bwd_kernels
     times: dict = {}
+    failed = []  # checks a variant failed: reported, and the exit status is 1
     try:
         for name in ["committed", *names, *names[::-1], "committed"]:
             use(args.kernel, libs[name])
             if "x_" not in name:
                 for _, _, check in cases:
                     if check is not None:
-                        check(name)
+                        try:
+                            check(name)
+                        except RuntimeError as e:
+                            failed.append(str(e))
+                            print(e, flush=True)
             t = {label: chip_smoke.time_cuda(call, **slow) for label, call, _ in cases}
             times.setdefault(name, []).append(t)
             print(name, " ".join(f"{key} {x:.4f}" for key, x in t.items()), flush=True)
     finally:
-        fa._kernel, fa._bwd_kernels, fa._tf32_bwd_kernels = saved
-    print(json.dumps({"kernel": args.kernel, "times": times}))
-    return 0
+        fa._kernel, fa._tf32_kernel, fa._bwd_kernels, fa._tf32_bwd_kernels = saved
+    print(json.dumps({"kernel": args.kernel, "times": times, "failed": failed}))
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

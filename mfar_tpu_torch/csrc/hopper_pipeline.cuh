@@ -25,9 +25,12 @@
 // A block's size and its tiles are template parameters with K2b's values
 // as defaults: kG consumer warpgroups (kGroups), kPer streamed tiles a
 // stage (2: one each of two operands).  K2 and K2b stream a head dim past
-// one tile as several 128-byte-wide slabs of each operand a stage, and K2's
-// f32 forward takes one warpgroup a block where two would not fit in shared
-// memory (flash_attention.cu, flash_attention_bwd.cu, the 3xTF32 kernels).
+// one tile as several 128-byte-wide slabs of each operand a stage, and the
+// bf16 K2b takes one warpgroup a block past D = 128, where two would not
+// fit in shared memory (flash_attention.cu, flash_attention_bwd.cu, the
+// 3xTF32 backward up to D = 64).  K2's f32 forward (flash_attention_tf32.cu)
+// keeps rings of its own and takes the live-tile list and the softmax step
+// from here.
 //
 // Tensor maps are 4-D (D, H, S, B) over bf16 or f32 [B, H, S, D] views with
 // any (b, h, s) strides that are multiples of 16 bytes, encoded on the host
@@ -318,7 +321,8 @@ int encode_row_map(CUtensorMap* map, const void* base, int B, int H, int S, long
 
 // One tile's online-softmax step for this thread's two rows (g and g + 8 of
 // its warp's 16; S in mma.sync's C layout, as wgmma's accumulator and
-// mma.sync's m16n8 products give it), in place: S (raw Q . K^T of 64 keys)
+// mma.sync's m16n8 products give it), in place: S (raw Q . K^T of 8 N keys:
+// 64, or 32 in the f32 forward past D = 64)
 // becomes P = exp2(S * scale_log2 - m_new * scale_log2) on the row's
 // segment, exactly 0 off it; the running max m (raw units) and this thread's
 // share l of each row's sum move on, and alpha is the rescale of the row's
@@ -333,8 +337,8 @@ __device__ __forceinline__ float exp2_of(float x) {
   return kExact ? exp2f(x) : exp2_approx(x);
 }
 
-template <bool kExact = false>
-__device__ __forceinline__ void softmax_step(float (&s)[8][4], const int32_t* seg_t, int seg_lo,
+template <bool kExact = false, int N>
+__device__ __forceinline__ void softmax_step(float (&s)[N][4], const int32_t* seg_t, int seg_lo,
                                              int seg_hi, int seg_q0, int seg_q1, int t4,
                                              float scale_log2, float (&m)[2], float (&l)[2],
                                              float (&alpha)[2]) {
@@ -342,15 +346,15 @@ __device__ __forceinline__ void softmax_step(float (&s)[8][4], const int32_t* se
   if (seg_lo == seg_hi) {  // the tile's keys are of one segment: a row takes all or none
     if (seg_q0 != seg_lo) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = neg_inf;
+      for (int n = 0; n < N; ++n) s[n][0] = s[n][1] = neg_inf;
     }
     if (seg_q1 != seg_lo) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n) s[n][2] = s[n][3] = neg_inf;
+      for (int n = 0; n < N; ++n) s[n][2] = s[n][3] = neg_inf;
     }
   } else {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < N; ++n) {
       const int c = n * 8 + 2 * t4;  // the tile's keys c and c + 1
       const int sk0 = seg_t[c], sk1 = seg_t[c + 1];
       s[n][0] = sk0 == seg_q0 ? s[n][0] : neg_inf;
@@ -361,7 +365,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[8][4], const int32_t* se
   }
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < N; ++n) {
     mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
     mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
   }
@@ -377,7 +381,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[8][4], const int32_t* se
   }
   float rs[2] = {0.f, 0.f};
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < N; ++n) {
     s[n][0] = exp2_of<kExact>(fmaf(s[n][0], scale_log2, -ms[0]));  // -inf -> 0
     s[n][1] = exp2_of<kExact>(fmaf(s[n][1], scale_log2, -ms[0]));
     s[n][2] = exp2_of<kExact>(fmaf(s[n][2], scale_log2, -ms[1]));

@@ -50,9 +50,9 @@ its own launches (the padding routes under the kernel they run):
   column is the tile's (K's where h*D is not a multiple of 8), Q's columns
   past D zeroed (:func:`flash_attention_rows`).
 - ``"tf32_rows"``, the same for f32 (a D that is not a multiple of 4, up
-  to 253): the 3xTF32 kernel on row maps, boxes from column h*D rounded
-  down to 4, Q's and K's tiles moved so too and both zeroed past D, so S
-  is exact for any input (:func:`flash_attention_tf32_rows`).
+  to 253): the 3xTF32 kernel reading each head's columns in place itself,
+  4 bytes a load, those past D as 0, so S is exact for any input
+  (:func:`flash_attention_tf32_rows`).
 - ``"wgmma_pad"`` (bf16) and ``"tf32_pad"`` (f32), everything else up to D
   = 256 (a head dim neither map reads, e.g. a contiguous ``[B, H, S, 26]``,
   whose rows are 52 bytes apart; strides that are not multiples of 16 bytes
@@ -391,10 +391,10 @@ def _wgmma_forward(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tensor:
 
 def _tensor_core_forward(kernel, what, q, k, v, segment_ids, sm_scale, lse,
                          readable=_kernel_readable) -> torch.Tensor:
-    """One launch of a TMA-fed forward (the wgmma or the 3xTF32 kernel,
-    through per-head maps or, with ``readable`` :func:`_row_readable`, row
-    maps) on checked CUDA inputs: the output as a ``[B, H, S, D]`` view of a
-    ``[B, S, H, D]`` buffer."""
+    """One launch of a forward (the wgmma kernel through per-head maps or,
+    with ``readable`` :func:`_row_readable`, row maps; the 3xTF32 kernel,
+    which reads the same layouts itself) on checked CUDA inputs: the output
+    as a ``[B, H, S, D]`` view of a ``[B, S, H, D]`` buffer."""
     if lse is not None:
         _check_rows(lse=lse)
     _check_readable(readable, q=q, k=k, v=v)
@@ -445,10 +445,10 @@ def flash_attention_rows(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tens
 
 
 def flash_attention_tf32_rows(q, k, v, segment_ids, sm_scale, lse=None) -> torch.Tensor:
-    """K2's 3xTF32 kernel through row maps (f32 up to D = 253, laid out as
-    :func:`_row_readable` says: the ``"tf32_rows"`` route) on checked
-    CUDA inputs: the output and ``lse`` as :func:`flash_attention_rows`
-    gives them."""
+    """K2's 3xTF32 kernel on rows of heads side by side (f32 up to D =
+    253, laid out as :func:`_row_readable` says: the ``"tf32_rows"`` route)
+    on checked CUDA inputs: the output and ``lse`` as
+    :func:`flash_attention_rows` gives them."""
     out = _tensor_core_forward(_tf32_rows_kernel(), "flash_attention_tf32_rows", q, k, v,
                                segment_ids, sm_scale, lse, readable=_row_readable)
     flash_attention_tf32_rows.launches += 1

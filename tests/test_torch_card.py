@@ -441,10 +441,12 @@ def _route_inputs(dtype, d, layout, seed):
 
 # each route's forward against plain at small head dims: the tensor-core
 # kernels (the wgmma kernel at 1-4 slabs in bf16, the 3xTF32 kernel at 1-8
-# in f32), the same kernels on row maps for heads TMA cannot read one by
-# one (bf16 D = 2, 20, 25: odd, 26: TinyBERT's, 126: two slabs; f32 D = 2,
-# 26, 62: two slabs; 8 heads a row, the last one's box reaching the map's
-# zero fill) and the padding routes for what no map reads (three heads of
+# in f32: D = 4, a k step that reads zeros past D; 96, three slabs and
+# 32-key steps; 132, 192 and 252, a cluster's halves of 72 / 60, 96 / 96
+# and 128 / 124 columns), the same kernels on row maps for heads TMA cannot
+# read one by one (bf16 D = 2, 20, 25: odd, 26: TinyBERT's, 126: two slabs;
+# f32 D = 2, 26, 62: two slabs, 130: a cluster's; 8 heads a row, the last
+# one's box reaching the map's zero fill) and the padding routes for what no map reads (three heads of
 # D = 20 bf16 or 26 f32: rows of 120 or 312 bytes; a view off a 16-byte
 # boundary; heads side by side past the rows routes' D), on the kernel of
 # their zero-padded copies
@@ -457,6 +459,11 @@ def _route_inputs(dtype, d, layout, seed):
     (torch.float32, 64, "encoder", "tf32"),
     (torch.float32, 136, "encoder", "tf32"),
     (torch.float32, 256, "encoder", "tf32"),
+    (torch.float32, 4, "encoder", "tf32"),
+    (torch.float32, 96, "encoder", "tf32"),
+    (torch.float32, 132, "encoder", "tf32"),
+    (torch.float32, 192, "encoder", "tf32"),
+    (torch.float32, 252, "encoder", "tf32"),
     (torch.bfloat16, 2, "encoder_h8", "wgmma_rows"),
     (torch.bfloat16, 20, "encoder_h8", "wgmma_rows"),
     (torch.bfloat16, 25, "encoder_h8", "wgmma_rows"),
@@ -465,6 +472,7 @@ def _route_inputs(dtype, d, layout, seed):
     (torch.float32, 2, "encoder_h8", "tf32_rows"),
     (torch.float32, 26, "encoder_h8", "tf32_rows"),
     (torch.float32, 62, "encoder_h8", "tf32_rows"),
+    (torch.float32, 130, "encoder_h8", "tf32_rows"),
     (torch.bfloat16, 20, "encoder", "wgmma_pad"),
     (torch.float32, 26, "encoder", "tf32_pad"),
     (torch.bfloat16, 64, "offset", "wgmma_pad"),
@@ -634,16 +642,18 @@ def test_wide_3xtf32_pair_matches_plain(card, d):
     assert not dq[..., d:].any()
 
 
-@pytest.mark.parametrize("dtype,width", [(torch.bfloat16, 32), (torch.float32, 28)],
-                         ids=["bf16", "f32"])
-def test_rows_routes_equal_the_kernel_on_padded_copies(card, dtype, width):
+@pytest.mark.parametrize("dtype,d,width", [(torch.bfloat16, 26, 32), (torch.float32, 26, 28),
+                                           (torch.float32, 62, 64)],
+                         ids=["bf16", "f32", "f32_d62"])
+def test_rows_routes_equal_the_kernel_on_padded_copies(card, dtype, d, width):
     """At [2, 12, 256, 26] (TinyBERT-4L-312D's heads, read as the encoder's
     [B, S, 312] rows; the last head's box reaches the map's zero fill) each
     rows route's output and logsumexp equal, bit for bit at every head, the
     same kernel's through per-head maps on ``pad_heads`` copies (bf16 at
-    D = 32, f32 at D = 28: their first 26 columns), at D = 26's scale."""
-    rng = np.random.default_rng(26)
-    b, h, s, d = 2, 12, 256, 26
+    D = 32, f32 at D = 28: their first 26 columns), at D = 26's scale; so
+    too f32 at D = 62, past one slab of 32 columns, on copies at D = 64."""
+    rng = np.random.default_rng(d)
+    b, h, s = 2, 12, 256
     q, k, v = (torch.from_numpy(rng.normal(size=(b, s, h * d)).astype(np.float32)).cuda()
                .to(dtype).view(b, s, h, d).transpose(1, 2) for _ in range(3))
     seg = torch.tensor([SEG_LAYOUTS["runs"][0], [1] * 150 + [0] * 106], dtype=torch.int32,

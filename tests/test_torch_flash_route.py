@@ -12,19 +12,23 @@ it.
 
 The forward's rows routes (``"wgmma_rows"``, ``"tf32_rows"``) read the
 encoder's ``[B, S, H*D]`` rows in place where no per-head tensor map can
-(TinyBERT-4L-312D's D = 26): head h's boxes of 64 bf16 or 32 f32 columns
-start at column h*D rounded down to a 16-byte boundary, hold the
-neighbours' columns (zeros past H*D), and the head's Q and K columns are
-moved to the start, Q's past D set to 0.  ``_box_attention`` below reads
-what the kernels read and is held against JAX's Pallas
+(TinyBERT-4L-312D's D = 26).  In bf16 head h's boxes of 64 columns start
+at column h*D rounded down to a 16-byte boundary, hold the neighbours'
+columns (zeros past H*D), and the head's Q and K columns are moved to the
+start, Q's past D set to 0: ``_box_attention`` below reads what the
+kernel reads.  The f32 kernel reads each head's columns itself, 4 bytes a
+load, columns past D as 0: the arithmetic of its per-head mode on copies
+zero-padded to D rounded up to 4.  Both are held against JAX's Pallas
 ``flash_attention`` in interpret mode.
 
 The f32 kernel (``csrc/flash_attention_tf32.cu``) takes its products on the
 tensor cores in 3xTF32: each f32 operand x split into hi = rna_tf32(x) and
 lo = rna_tf32(x - hi), each product taken as hi*hi' + hi*lo' + lo*hi' with
-f32 sums, for S = Q K^T and for O += P V over 64-key tiles of the online
-softmax.  ``_flash_3xtf32`` below emulates that arithmetic in torch on the
-CPU (rounding to 10 mantissa bits, to nearest, ties away from zero, as
+f32 sums in k steps of 8, for S = Q K^T and for O += P V over steps of 64
+keys (32 past D = 64) of the online softmax, past D = 128 S summed over
+the two halves of the head dim that a cluster's blocks take.
+``_flash_3xtf32`` below emulates that arithmetic in torch on the CPU
+(rounding to 10 mantissa bits, to nearest, ties away from zero, as
 ``cvt.rna.tf32.f32`` does) and is held against JAX's Pallas
 ``flash_attention`` in interpret mode in f32 within the f32 gates of the
 card (output 2e-5, logsumexp 1e-5): the split keeps f32 accuracy.
@@ -214,20 +218,27 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor, step=None) -> torch.Tensor:
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor, step=None, acc=None,
+               cross_first=False) -> torch.Tensor:
     """a @ b as the kernel takes it: hi*hi' + hi*lo' + lo*hi' (each product
     of two tf32 values exact in f32), summed in f32; lo*lo' dropped.  With
     ``step``, as the tensor cores sum it: k steps of ``step`` in order, each
-    adding lo*hi', then hi*lo', then hi*hi' to the f32 sum."""
+    adding lo*hi', then hi*lo', then hi*hi' to the f32 sum, which starts at
+    ``acc`` (an accumulator the product adds to) or 0; with
+    ``cross_first``, lo*hi' and hi*lo' of every k step first, then hi*hi'
+    of every k step (the f32 forward's S)."""
     a_hi, b_hi = _tf32(a), _tf32(b)
     a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
     if step is None:
         return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
-    out = torch.zeros(a.shape[:-1] + b.shape[-1:])
-    for k in range(0, a.shape[-1], step):
-        ks = slice(k, k + step)
-        for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
-            out = out + x[..., ks] @ y[..., ks, :]
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:]) if acc is None else acc
+    terms = ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi))
+    passes = (terms[:2], terms[2:]) if cross_first else (terms,)
+    for pass_terms in passes:
+        for k in range(0, a.shape[-1], step):
+            ks = slice(k, k + step)
+            for x, y in pass_terms:
+                out = out + x[..., ks] @ y[..., ks, :]
     return out
 
 
@@ -237,18 +248,33 @@ def _mm_3xtf32_steps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _mm_3xtf32(a, b, step=8)
 
 
-def _flash_3xtf32(q, k, v, seg, scale, tile=64):
-    """The f32 kernel's arithmetic: the online softmax over 64-key tiles in
-    log2 units (exactly 0 off a row's segment, a running max of -inf taken
-    as 0), both products in 3xTF32.  Returns the output and the row
-    logsumexp (natural log)."""
+def _cluster_half(d: int) -> int:
+    """The head-dim columns of a cluster's first block past D = 128 (the
+    f32 forward's and the wide backward pair's): ceil(D / 2) rounded up to
+    8, the second block taking the rest; D itself up to 128 (one block)."""
+    return ((d + 1) // 2 + 7) // 8 * 8 if d > 128 else d
+
+
+def _flash_3xtf32(q, k, v, seg, scale):
+    """The f32 kernel's arithmetic: the online softmax in log2 units
+    (exactly 0 off a row's segment, a running max of -inf taken as 0) over
+    steps of 64 keys up to D = 64, of 32 past it; both products in 3xTF32 in
+    k steps of 8 (S = Q K^T over the head dim, the cross terms of every k
+    step first, past D = 128 the sum of a cluster's two halves; O += P V over
+    the step's keys, added to the rescaled output).  Returns the output and
+    the row logsumexp (natural log)."""
+    d = q.shape[-1]
+    tile, half = 64 if d <= 64 else 32, _cluster_half(d)
     scale_log2 = scale * LOG2E
     neg_inf = torch.tensor(float("-inf"))
     m = torch.full(q.shape[:3], float("-inf"))
     l = torch.zeros(q.shape[:3])
     o = torch.zeros(q.shape)
     for t in range(0, q.shape[2], tile):
-        s = _mm_3xtf32(q, k[:, :, t:t + tile].transpose(-1, -2))
+        kt = k[:, :, t:t + tile].transpose(-1, -2)
+        s = _mm_3xtf32(q[..., :half], kt[..., :half, :], step=8, cross_first=True)
+        if half < d:
+            s = s + _mm_3xtf32(q[..., half:], kt[..., half:, :], step=8, cross_first=True)
         same = seg[:, None, :, None] == seg[:, None, None, t:t + tile]
         s = torch.where(same, s, neg_inf)
         mx = torch.maximum(m, s.amax(-1))
@@ -256,7 +282,7 @@ def _flash_3xtf32(q, k, v, seg, scale, tile=64):
         alpha = torch.exp2(m * scale_log2 - ms)
         p = torch.exp2(s * scale_log2 - ms[..., None])
         l = l * alpha + p.sum(-1)
-        o = o * alpha[..., None] + _mm_3xtf32(p, v[:, :, t:t + tile])
+        o = _mm_3xtf32(p, v[:, :, t:t + tile], step=8, acc=o * alpha[..., None])
         m = mx
     return o / l[..., None], (m * scale_log2 + torch.log2(l)) * LN2
 
@@ -269,7 +295,7 @@ SEG_LAYOUTS = {  # as tests/test_torch_flash.py's: several segments, returning i
 
 
 @pytest.mark.parametrize("d,layout", [(16, "runs"), (32, "interleaved"), (64, "one_segment"),
-                                      (128, "runs")])
+                                      (128, "runs"), (96, "interleaved"), (256, "runs")])
 def test_3xtf32_keeps_the_f32_gates_against_pallas(d, layout):
     rng = np.random.default_rng(1000 + d)
     q, k, v = (rng.normal(size=(B, H, S, d)).astype(np.float32) for _ in range(3))
@@ -319,7 +345,7 @@ def _bwd_3xtf32(q, k, v, seg, o, lse, dout, scale, mm=_mm_3xtf32_steps, tile=64)
     di = (o * dout).sum(-1)
     same = seg[:, None, :, None] == seg[:, None, None, :]
     d = q.shape[-1]
-    half = ((d + 1) // 2 + 7) // 8 * 8 if d > 128 else d
+    half = _cluster_half(d)
 
     def heads(a, b):  # a b^T over the head dim, in the cluster's two halves
         out = mm(a[..., :half], b[..., :half].transpose(-1, -2))
@@ -414,17 +440,16 @@ def test_3xtf32_backward_on_padded_copies_keeps_the_f32_gate_against_pallas():
 
 
 def _box_attention(q, k, v, seg, scale, attend):
-    """Attention as the rows routes read it, on [B, H, S, D] q, k, v viewed
-    from [B, S, H*D] rows: head h's boxes start at column h*D rounded down
-    to 8 (bf16) or 4 (f32) columns, TMA's 16-byte boundary, the head's
-    columns ``off`` = h*D % 8 (or 4) into them; ceil((D + 7) / 64) slabs of
-    64 columns (f32: ceil((D + 3) / 32) of 32), zeros past H*D.  Q's and K's
-    columns moved ``off`` to the left (zeros in at the end), Q's past D set
-    to 0; K's past D (the next head's) left live in bf16, set to 0 in f32;
-    V where it landed.  ``attend`` over the boxes; O's columns
-    off..off+D-1 and the logsumexp."""
+    """Attention as the bf16 rows route reads it, on [B, H, S, D] q, k, v
+    viewed from [B, S, H*D] rows: head h's boxes start at column h*D rounded
+    down to 8 columns, TMA's 16-byte boundary, the head's columns ``off`` =
+    h*D % 8 into them; ceil((D + 7) / 64) slabs of 64 columns, zeros past
+    H*D.  Q's and K's columns moved ``off`` to the left (zeros in at the
+    end), Q's past D set to 0, K's past D (the next head's) left live; V
+    where it landed.  ``attend`` over the boxes; O's columns off..off+D-1
+    and the logsumexp."""
     b, h, s, d = q.shape
-    align, slab = (8, 64) if q.dtype == torch.bfloat16 else (4, 32)
+    align, slab = 8, 64
     width = -(-(d + align - 1) // slab) * slab
 
     def rows(t):
@@ -438,8 +463,6 @@ def _box_attention(q, k, v, seg, scale, attend):
         bq, bk = (torch.nn.functional.pad(t[..., off:], (0, off)) for t in (bq, bk))
         live |= bool(bk[..., d:].any())
         bq[..., d:] = 0
-        if q.dtype == torch.float32:
-            bk[..., d:] = 0
         out, lse = attend(bq, bk, bv, seg, scale)
         outs.append(out[:, 0, :, off:off + d])
         lses.append(lse[:, 0])
@@ -450,12 +473,13 @@ def _box_attention(q, k, v, seg, scale, attend):
 @pytest.mark.parametrize("dtype,heads", [(BF16, 4), (F32, 2)], ids=["bf16", "f32"])
 @pytest.mark.parametrize("layout", ["runs", "interleaved"])
 def test_rows_boxes_keep_the_gates_against_pallas(dtype, heads, layout):
-    """The rows routes' arithmetic at TinyBERT-4L-312D's D = 26: the boxes
-    of ``_box_attention`` (bf16 through the plain forward in f32, as the
-    wgmma kernel's S is exact; f32 through the 3xTF32 kernel's arithmetic)
-    against JAX's Pallas ``flash_attention`` in interpret mode on the same
-    heads: f32 output 2e-5 and logsumexp 1e-5; bf16 within K2's gates
-    (rtol = atol = 1e-2, the logsumexp 1e-3)."""
+    """The rows routes' arithmetic at TinyBERT-4L-312D's D = 26: bf16 the
+    boxes of ``_box_attention`` through the plain forward in f32 (the wgmma
+    kernel's S is exact); f32 the 3xTF32 kernel's arithmetic on each head's
+    columns, those past D read as 0 (``pad_heads`` to D = 28), against JAX's
+    Pallas ``flash_attention`` in interpret mode on the same heads: f32
+    output 2e-5 and logsumexp 1e-5; bf16 within K2's gates (rtol = atol =
+    1e-2, the logsumexp 1e-3)."""
     d = 26
     rng = np.random.default_rng(2600 + heads)
     qkv = [torch.from_numpy(rng.normal(size=(B, S, heads * d)).astype(np.float32)).to(dtype)
@@ -477,8 +501,8 @@ def test_rows_boxes_keep_the_gates_against_pallas(dtype, heads, layout):
         np.testing.assert_allclose(out.float().numpy(), want, rtol=1e-2, atol=1e-2)
         np.testing.assert_allclose(lse.numpy(), want_lse, rtol=0, atol=1e-3)
     else:
-        out, lse = _box_attention(*qkv, torch.from_numpy(seg), scale, _flash_3xtf32)
-        np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=F32_ATOL)
+        out, lse = _flash_3xtf32(*(pad_heads(t, 28) for t in qkv), torch.from_numpy(seg), scale)
+        np.testing.assert_allclose(out[..., :d].numpy(), want, rtol=0, atol=F32_ATOL)
         np.testing.assert_allclose(lse.numpy(), want_lse, rtol=0, atol=LSE_ATOL)
 
 
